@@ -1,0 +1,131 @@
+"""Serving configuration of the PyTorch/CUDA port, and its device policy.
+
+``FFConfig`` carries the serving fields of ``flexflow_tpu/config.py``
+under the same names and defaults, so one set of knobs sizes both
+packages' engines. Only the fields the port's serving slice reads are
+here; the rest of the JAX config (search, training, telemetry, the
+serving tier) has no counterpart yet.
+
+Device policy: every entry point runs on the card unless the caller
+asks for the CPU. There is no fallback — :func:`resolve_device` raises
+when CUDA is asked for and missing.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+# the ONE --kv-dtype allowlist (flexflow_tpu/config.py KV_DTYPES). The
+# port's engine serves float32 and bfloat16 pages; int8/float8_e4m3
+# are accepted here (the host-side page accounting sizes them) and
+# refused by ServeEngine until the quantized kernel variant lands.
+KV_DTYPES = ("float32", "bfloat16", "int8", "float8_e4m3")
+
+
+@dataclasses.dataclass
+class FFConfig:
+    """The serving knobs of ``flexflow_tpu.config.FFConfig``."""
+
+    # activation dtype of the served LM (the JAX builder wires
+    # compute_dtype into the embeddings' output dtype)
+    compute_dtype: torch.dtype = torch.float32
+
+    # block-paged KV-cache geometry (serve/kv_cache.py): page 0 is the
+    # write sink for padding lanes
+    kv_page_size: int = 16
+    kv_num_pages: int = 257
+    kv_dtype: str = "float32"
+    # size the pool by byte budget instead of page count (0 = use
+    # kv_num_pages)
+    kv_pool_mb: float = 0.0
+
+    # continuous-batching scheduler caps and the mixed-step geometry
+    # (serve_prefill_budget + serve_max_seqs lanes)
+    serve_max_seqs: int = 8
+    serve_prefill_budget: int = 512
+    serve_chunked_prefill: bool = True
+    serve_prefix_cache: bool = True
+    serve_admit_watermark: float = 0.02
+
+    # speculative decoding (serve/speculative.py)
+    serve_spec_decode: bool = True
+    serve_spec_tokens: int = 4
+
+    # tuning knob of the ragged paged-attention kernel: KV tokens one
+    # warp streams per tile (0 = the kernel's default)
+    serve_attn_block_kv: int = 0
+
+    # graceful-degradation ladder (serve/scheduler.py)
+    serve_degrade_ladder: bool = True
+    serve_reject_stalls: int = 0
+
+    def __post_init__(self):
+        if self.compute_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(
+                f"compute_dtype must be torch.float32 or torch.bfloat16, "
+                f"got {self.compute_dtype}")
+        if self.kv_page_size < 1:
+            raise ValueError(
+                f"kv_page_size must be >= 1, got {self.kv_page_size}")
+        if self.kv_num_pages < 2:
+            raise ValueError(
+                f"kv_num_pages must be >= 2 (page 0 is the serving "
+                f"sink page), got {self.kv_num_pages}")
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be one of {KV_DTYPES}, "
+                f"got {self.kv_dtype!r}")
+        if self.kv_pool_mb < 0:
+            raise ValueError(
+                f"kv_pool_mb must be >= 0 (0 = size by kv_num_pages), "
+                f"got {self.kv_pool_mb}")
+        if self.serve_attn_block_kv < 0:
+            raise ValueError(
+                f"serve_attn_block_kv must be >= 0 (0 = default), "
+                f"got {self.serve_attn_block_kv}")
+        if self.serve_max_seqs < 1:
+            raise ValueError(
+                f"serve_max_seqs must be >= 1, got {self.serve_max_seqs}")
+        if self.serve_prefill_budget < 1:
+            raise ValueError(
+                f"serve_prefill_budget must be >= 1, got "
+                f"{self.serve_prefill_budget}")
+        if not 0.0 <= self.serve_admit_watermark < 1.0:
+            raise ValueError(
+                f"serve_admit_watermark must be in [0, 1), got "
+                f"{self.serve_admit_watermark}")
+        if self.serve_spec_tokens < 0:
+            raise ValueError(
+                f"serve_spec_tokens must be >= 0 (0 disables "
+                f"speculative decoding), got {self.serve_spec_tokens}")
+        if self.serve_reject_stalls < 0:
+            raise ValueError(
+                f"serve_reject_stalls must be >= 0 (0 = never), got "
+                f"{self.serve_reject_stalls}")
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asked
+    for the CPU. Raises when CUDA is asked for and absent — a run on
+    the CPU is only ever one the caller chose.
+
+    On CUDA this also turns TF32 off for float32 matmuls and
+    convolutions, mirroring the JAX package's float32 matmul precision
+    (``jax_default_matmul_precision=float32`` in its tests): an f32
+    engine computes in full f32, so its tokens are comparable with the
+    reference's."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} asked for but CUDA is not available "
+                f"(pass device='cpu' to run on the CPU)")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    return dev

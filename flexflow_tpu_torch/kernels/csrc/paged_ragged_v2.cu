@@ -1,0 +1,252 @@
+// Ragged paged attention for Hopper (sm_90a): one query token per lane,
+// attending through its sequence's page-table row.
+//
+// Replaces: flexflow_tpu/kernels/paged_ragged_v2.py::_ragged_v2_kernel
+// (launched by _ragged_v2_pallas), the TPU kernel of the serving mixed
+// step (flexflow_tpu/serve/engine.py::_mixed_body, once per layer per
+// step). Float32 and bfloat16 pages; the int8/fp8 dequantizing variant
+// is not ported yet.
+//
+// What it computes, per lane t and head h (the plain version is
+// flexflow_tpu_torch/kernels/paged_ragged_v2.py::ragged_attention_ref):
+//   o[t,h] = softmax(q[t,h] . K[:n,h] * scale) . V[:n,h],
+//   n = lane_lens[t], key j at page page_tables[lane_slots[t], j / ps],
+//   slot j % ps. Keys at or past n are masked. lane_lens >= 1.
+//
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
+// cores): the kernel reads each live K/V page (the pages covering
+// [0, n) of every lane's row) and q, and writes o. Attention per lane
+// is 4*n*H*D flops over 2*n*H*D*itemsize K/V bytes — about 0.5
+// flop/byte in f32 — so with every page read once it is memory-bound:
+// the least time is the live K/V bytes over 3.35 TB/s.
+//
+// What this design does about that bound: one CTA per lane, one warp
+// per head, each thread holding D/32 elements of q and of the f32
+// accumulator (neighbouring threads on neighbouring addresses, so a
+// warp reads one 128-byte row segment per element slot). The block
+// loads its own page-table row into shared memory (the TPU kernel's
+// scalar prefetch) and walks only the pages below ceil(n/ps) — the
+// ragged skip: a lane never touches a page past its length. Keys are
+// streamed TILE at a time with all K and V loads of a tile issued
+// before any is used, so a warp keeps TILE*D/32 loads in flight; the
+// running max, sum and accumulator stay in registers (online softmax,
+// f32) and the scores reduce with warp shuffles.
+//
+// What it leaves on the table (later work): every lane of a prefill
+// chunk re-reads its sequence's pages, so a 512-token chunk reads its
+// prefix up to 512 times (through L2) instead of once; grouping a
+// chunk's lanes into a query tile with wgmma and TMA page loads is the
+// step that approaches the bound.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+struct Args {
+  const void* q;
+  int64_t q_st, q_sh;
+  const void* kp;
+  const void* vp;
+  int64_t p_sp, p_ss, p_sh;  // page strides (elements): page, slot, head
+  const int* page_tables;
+  int64_t pt_s;
+  const int* lane_slots;
+  const int* lane_lens;
+  void* out;
+  int64_t o_st, o_sh;
+  int T, H, ps, pp;
+  float scale;
+  cudaStream_t stream;
+};
+
+// EPT = head_dim / 32 elements per thread; TILE = keys per tile.
+template <typename QT, typename KVT, int EPT, int TILE>
+__global__ void ragged_v2_kernel(const QT* __restrict__ q, int64_t q_st, int64_t q_sh,
+                 const KVT* __restrict__ kp, const KVT* __restrict__ vp,
+                 int64_t p_sp, int64_t p_ss, int64_t p_sh,
+                 const int* __restrict__ page_tables, int64_t pt_s,
+                 const int* __restrict__ lane_slots,
+                 const int* __restrict__ lane_lens, QT* __restrict__ out,
+                 int64_t o_st, int64_t o_sh, int ps, int pp, float scale) {
+  extern __shared__ int s_pages[];  // this lane's page-table row
+  const int t = blockIdx.x;
+  const int h = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  const int* row = page_tables + (int64_t)lane_slots[t] * pt_s;
+  for (int i = threadIdx.x; i < pp; i += blockDim.x) s_pages[i] = row[i];
+  __syncthreads();
+  const int n = min(lane_lens[t], ps * pp);
+
+  float qr[EPT], acc[EPT];
+  const QT* qh = q + (int64_t)t * q_st + (int64_t)h * q_sh;
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) {
+    qr[e] = to_f32(qh[lane + 32 * e]);
+    acc[e] = 0.f;
+  }
+  float m = -INFINITY;  // running max of the scores
+  float l = 0.f;        // running sum of exp(score - m)
+  const int64_t head_off = (int64_t)h * p_sh + lane;
+
+  for (int j0 = 0; j0 < n; j0 += TILE) {
+    float kr[TILE][EPT], vr[TILE][EPT];
+    // issue every K and V load of the tile before using any of them
+#pragma unroll
+    for (int j = 0; j < TILE; ++j) {
+      const int pos = j0 + j;
+      if (pos < n) {
+        const int64_t base = (int64_t)s_pages[pos / ps] * p_sp +
+                             (int64_t)(pos % ps) * p_ss + head_off;
+#pragma unroll
+        for (int e = 0; e < EPT; ++e) {
+          kr[j][e] = to_f32(kp[base + 32 * e]);
+          vr[j][e] = to_f32(vp[base + 32 * e]);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < EPT; ++e) {
+          kr[j][e] = 0.f;
+          vr[j][e] = 0.f;
+        }
+      }
+    }
+    float s[TILE];
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < TILE; ++j) {
+      float d = 0.f;
+#pragma unroll
+      for (int e = 0; e < EPT; ++e) d = fmaf(qr[e], kr[j][e], d);
+      d = warp_sum(d) * scale;
+      s[j] = (j0 + j < n) ? d : -INFINITY;
+      tmax = fmaxf(tmax, s[j]);
+    }
+    const float m_new = fmaxf(m, tmax);
+    const float alpha = expf(m - m_new);  // 0 on the first tile
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < TILE; ++j) {
+      s[j] = expf(s[j] - m_new);  // masked keys: exp(-inf) = 0
+      psum += s[j];
+    }
+    l = l * alpha + psum;
+#pragma unroll
+    for (int e = 0; e < EPT; ++e) {
+      float a = acc[e] * alpha;
+#pragma unroll
+      for (int j = 0; j < TILE; ++j) a = fmaf(s[j], vr[j][e], a);
+      acc[e] = a;
+    }
+    m = m_new;
+  }
+
+  QT* oh = out + (int64_t)t * o_st + (int64_t)h * o_sh;
+#pragma unroll
+  for (int e = 0; e < EPT; ++e) oh[lane + 32 * e] = from_f32<QT>(acc[e] / l);
+}
+
+template <typename QT, typename KVT, int EPT, int TILE>
+cudaError_t launch(const Args& a) {
+  const size_t smem = (size_t)a.pp * sizeof(int);
+  ragged_v2_kernel<QT, KVT, EPT, TILE>
+      <<<dim3(a.T), dim3(32 * a.H), smem, a.stream>>>(
+          static_cast<const QT*>(a.q), a.q_st, a.q_sh,
+          static_cast<const KVT*>(a.kp), static_cast<const KVT*>(a.vp),
+          a.p_sp, a.p_ss, a.p_sh, a.page_tables, a.pt_s, a.lane_slots,
+          a.lane_lens, static_cast<QT*>(a.out), a.o_st, a.o_sh, a.ps, a.pp,
+          a.scale);
+  return cudaGetLastError();
+}
+
+// TILE * EPT <= 64 keeps the K and V tiles at <= 128 registers a thread
+template <typename QT, typename KVT, int EPT>
+cudaError_t by_tile(const Args& a, int tile) {
+  switch (tile) {
+    case 8:
+      return launch<QT, KVT, EPT, 8>(a);
+    case 16:
+      return launch<QT, KVT, EPT, 16>(a);
+    case 32:
+      if constexpr (EPT <= 2) return launch<QT, KVT, EPT, 32>(a);
+      break;
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename QT, typename KVT>
+cudaError_t by_head_dim(const Args& a, int head_dim, int tile) {
+  switch (head_dim) {
+    case 32:
+      return by_tile<QT, KVT, 1>(a, tile);
+    case 64:
+      return by_tile<QT, KVT, 2>(a, tile);
+    case 128:
+      return by_tile<QT, KVT, 4>(a, tile);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype codes: 0 = float32, 1 = bfloat16. Pointers are device pointers;
+// strides are in elements. Launches on `stream` and returns
+// cudaGetLastError() (0 on success); the caller raises on anything else.
+extern "C" int paged_ragged_v2_launch(
+    int q_dtype, int kv_dtype, const void* q, int64_t q_st, int64_t q_sh,
+    const void* k_pages, const void* v_pages, int64_t p_sp, int64_t p_ss,
+    int64_t p_sh, const void* page_tables, int64_t pt_s,
+    const void* lane_slots, const void* lane_lens, void* out, int64_t o_st,
+    int64_t o_sh, int T, int H, int D, int ps, int pp, int tile, float scale,
+    void* stream) {
+  if (T < 1 || H < 1 || H > 32 || ps < 1 || pp < 1 ||
+      (size_t)pp * sizeof(int) > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  Args a{q,       q_st,    q_sh,
+         k_pages, v_pages, p_sp,
+         p_ss,    p_sh,    static_cast<const int*>(page_tables),
+         pt_s,    static_cast<const int*>(lane_slots),
+         static_cast<const int*>(lane_lens),
+         out,     o_st,    o_sh,
+         T,       H,       ps,
+         pp,      scale,   static_cast<cudaStream_t>(stream)};
+  cudaError_t rc = cudaErrorInvalidValue;
+  if (q_dtype == 0 && kv_dtype == 0)
+    rc = by_head_dim<float, float>(a, D, tile);
+  else if (q_dtype == 0 && kv_dtype == 1)
+    rc = by_head_dim<float, __nv_bfloat16>(a, D, tile);
+  else if (q_dtype == 1 && kv_dtype == 0)
+    rc = by_head_dim<__nv_bfloat16, float>(a, D, tile);
+  else if (q_dtype == 1 && kv_dtype == 1)
+    rc = by_head_dim<__nv_bfloat16, __nv_bfloat16>(a, D, tile);
+  return (int)rc;
+}
+
+extern "C" const char* paged_ragged_v2_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

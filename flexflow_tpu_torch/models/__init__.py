@@ -1,0 +1,5 @@
+"""Model builders of the port."""
+
+from .transformer import LMArch, TransformerLM, build_transformer_lm
+
+__all__ = ["LMArch", "TransformerLM", "build_transformer_lm"]

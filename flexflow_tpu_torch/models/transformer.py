@@ -1,0 +1,239 @@
+"""The causal decoder LM of ``flexflow_tpu/models/transformer.py``.
+
+``build_transformer_lm`` there wires token + learned-position
+embeddings, pre-LN causal-attention blocks, a final LN and a vocab head
+into an FFModel whose op names are the contract the serving engine
+reads weights through. Here the same parameters live in an
+``nn.Module``, keyed by the same op names and kept in the JAX layouts:
+
+    tok_embed / pos_embed   {"kernel": (V, E) / (max_positions, E)}
+    layer{i}_ln1, _ln2      {"scale": (E,), "bias": (E,)}
+    layer{i}_attn           {"wq"/"wk"/"wv": (E, H, D), "wo": (H, D, E),
+                             "bo": (E,) when present}
+    layer{i}_ff1, _ff2      {"kernel": (in, out), "bias": (out,)}
+    final_ln                {"scale", "bias"}
+    lm_head                 {"kernel": (E, V), "bias": (V,)}
+
+The block math mirrors the JAX serving engine's (serve/engine.py
+``_ln``, ``_dense``, ``_embed``, ``_attn_qkv``, ``_attn_out``, ``_ffn``,
+``_head``): LayerNorm statistics in f32, matmuls in the activation
+dtype, attention probabilities kept in f32 through the p.v product.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import FFConfig, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class LMArch:
+    """Shape of a served LM (what the JAX engine's ``_read_arch`` reads
+    off the graph)."""
+
+    vocab: int
+    max_positions: int
+    hidden: int
+    num_heads: int
+    head_dim: int
+    num_layers: int
+    ff_dim: int
+    ln_eps: float = 1e-5
+    layer_norm: bool = True
+    dtype: torch.dtype = torch.float32   # activation dtype
+
+    def param_shapes(self) -> Dict[str, Dict[str, tuple]]:
+        e, h, d = self.hidden, self.num_heads, self.head_dim
+        ln = {"scale": (e,), "bias": (e,)}
+        out = {"tok_embed": {"kernel": (self.vocab, e)},
+               "pos_embed": {"kernel": (self.max_positions, e)}}
+        for i in range(self.num_layers):
+            if self.layer_norm:
+                out[f"layer{i}_ln1"] = dict(ln)
+                out[f"layer{i}_ln2"] = dict(ln)
+            out[f"layer{i}_attn"] = {"wq": (e, h, d), "wk": (e, h, d),
+                                     "wv": (e, h, d), "wo": (h, d, e),
+                                     "bo": (e,)}
+            out[f"layer{i}_ff1"] = {"kernel": (e, self.ff_dim),
+                                    "bias": (self.ff_dim,)}
+            out[f"layer{i}_ff2"] = {"kernel": (self.ff_dim, e),
+                                    "bias": (e,)}
+        if self.layer_norm:
+            out["final_ln"] = dict(ln)
+        out["lm_head"] = {"kernel": (e, self.vocab), "bias": (self.vocab,)}
+        return out
+
+
+def init_params(arch: LMArch, seed: int = 0
+                ) -> Dict[str, Dict[str, np.ndarray]]:
+    """Random f32 weights from a numpy seed: LeCun-normal matmul
+    kernels (std 1/sqrt(fan_in)), unit-normal embeddings, zero biases,
+    identity LayerNorms. Builds full-width models where there is no
+    JAX to export weights from."""
+    rng = np.random.default_rng(seed)
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for op, shapes in arch.param_shapes().items():
+        p = {}
+        for name, shape in shapes.items():
+            if name == "scale":
+                a = np.ones(shape, np.float32)
+            elif name in ("bias", "bo"):
+                a = np.zeros(shape, np.float32)
+            else:
+                fan_in = shape[0] if name != "wo" else shape[0] * shape[1]
+                std = 1.0 if op.endswith("_embed") else fan_in ** -0.5
+                a = rng.standard_normal(shape, dtype=np.float32) * std
+            p[name] = a
+        out[op] = p
+    return out
+
+
+def layer_norm(p, x, eps):
+    """LayerNorm with f32 statistics (population variance, as
+    ``jnp.var``), cast back to the input dtype."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def dense(p, x, activation=None):
+    y = torch.matmul(x, p["kernel"].to(x.dtype))
+    if "bias" in p:
+        y = y + p["bias"].to(x.dtype)
+    if activation == "relu":
+        y = torch.relu(y)
+    return y
+
+
+def causal_attention(q, k, v, scale):
+    """softmax(q.k^T * scale) . v over (B, S, H, D), causal, in f32;
+    returns f32 (B, S, H, D)."""
+    s = q.shape[1]
+    logits = torch.einsum("bihd,bjhd->bhij", q.float(), k.float()) * scale
+    causal = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    logits = logits.masked_fill(~causal, -math.inf)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhij,bjhd->bihd", probs, v.float())
+
+
+class TransformerLM(nn.Module):
+    """The LM's parameters (frozen, on one device) plus its block math.
+
+    ``params`` defaults to :func:`init_params` from ``seed``; pass the
+    ``{op: {name: array}}`` tree of a JAX model to serve its weights
+    (see :func:`flexflow_tpu_torch.weights.from_jax_params`). Runs on
+    the card unless ``device="cpu"``."""
+
+    def __init__(self, arch: LMArch, params=None, *, seed: int = 0,
+                 device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.arch = arch
+        if params is None:
+            params = init_params(arch, seed)
+        want = arch.param_shapes()
+        if set(params) != set(want):
+            raise ValueError(
+                f"params ops {sorted(set(params) ^ set(want))} do not "
+                f"match the architecture")
+        self.ops = nn.ModuleDict()
+        for op, shapes in want.items():
+            pd = nn.ParameterDict()
+            for name, arr in params[op].items():
+                t = torch.tensor(np.asarray(arr, np.float32))
+                if name not in shapes or tuple(t.shape) != shapes[name]:
+                    raise ValueError(
+                        f"{op}.{name}: shape {tuple(t.shape)} does not "
+                        f"match {shapes.get(name)}")
+                pd[name] = nn.Parameter(t.to(dev), requires_grad=False)
+            self.ops[op] = pd
+        self.params = {op: dict(pd.items()) for op, pd in self.ops.items()}
+
+    @property
+    def device(self) -> torch.device:
+        return self.params["tok_embed"]["kernel"].device
+
+    def embed(self, tokens, positions):
+        """Token + position embeddings. Indices clamp into the tables
+        first (the JAX engine's ``jnp.take(..., mode="clip")``): padded
+        lanes may carry positions past the learned table, and torch
+        indexing raises on the CPU and is undefined on CUDA for an index
+        out of range. Every in-range index reads exactly its row."""
+        te = self.params["tok_embed"]["kernel"]
+        pe = self.params["pos_embed"]["kernel"]
+        t = te[tokens.long().clamp(0, te.shape[0] - 1)]
+        p = pe[positions.long().clamp(0, pe.shape[0] - 1)]
+        return (t + p).to(self.arch.dtype)
+
+    def attn_in(self, i, x):
+        if not self.arch.layer_norm:
+            return x
+        return layer_norm(self.params[f"layer{i}_ln1"], x, self.arch.ln_eps)
+
+    def attn_qkv(self, i, h):
+        """h (..., E) -> q, k, v (..., H, D)."""
+        p = self.params[f"layer{i}_attn"]
+        return tuple(torch.einsum("...e,ehd->...hd", h, p[w].to(h.dtype))
+                     for w in ("wq", "wk", "wv"))
+
+    def attn_out(self, i, o, x):
+        p = self.params[f"layer{i}_attn"]
+        y = torch.einsum("...hd,hde->...e", o, p["wo"].to(o.dtype))
+        if "bo" in p:
+            y = y + p["bo"].to(y.dtype)
+        return x + y
+
+    def ffn(self, i, x):
+        h = layer_norm(self.params[f"layer{i}_ln2"], x, self.arch.ln_eps) \
+            if self.arch.layer_norm else x
+        h = dense(self.params[f"layer{i}_ff1"], h, activation="relu")
+        h = dense(self.params[f"layer{i}_ff2"], h)
+        return x + h
+
+    def head(self, x):
+        if self.arch.layer_norm:
+            x = layer_norm(self.params["final_ln"], x, self.arch.ln_eps)
+        return dense(self.params["lm_head"], x)
+
+    def hidden_states(self, tokens):
+        """Causal no-cache forward of (B, S) tokens up to the final
+        LayerNorm's input: (B, S, E)."""
+        s = tokens.shape[1]
+        positions = torch.arange(s, device=tokens.device)[None, :]
+        x = self.embed(tokens, positions)
+        scale = 1.0 / math.sqrt(self.arch.head_dim)
+        for i in range(self.arch.num_layers):
+            q, k, v = self.attn_qkv(i, self.attn_in(i, x))
+            o = causal_attention(q, k, v, scale).to(x.dtype)
+            x = self.attn_out(i, o, x)
+            x = self.ffn(i, x)
+        return x
+
+    def forward(self, tokens):
+        """(B, S) tokens -> (B, S, vocab) logits."""
+        return self.head(self.hidden_states(tokens))
+
+
+def build_transformer_lm(config: Optional[FFConfig] = None,
+                         vocab_size: int = 256, max_seq_len: int = 128,
+                         hidden: int = 256, num_heads: int = 4,
+                         num_layers: int = 2, ff_dim: int = 512,
+                         seed: int = 0, device="cuda") -> TransformerLM:
+    """The JAX builder's signature, with weights from a numpy seed. The
+    activation dtype follows ``config.compute_dtype``."""
+    cfg = config or FFConfig()
+    arch = LMArch(vocab=vocab_size, max_positions=max_seq_len,
+                  hidden=hidden, num_heads=num_heads,
+                  head_dim=hidden // num_heads, num_layers=num_layers,
+                  ff_dim=ff_dim, dtype=cfg.compute_dtype)
+    return TransformerLM(arch, seed=seed, device=device)

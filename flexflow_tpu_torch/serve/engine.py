@@ -1,0 +1,662 @@
+"""ServeEngine: one fixed-shape MIXED step over a paged KV cache.
+
+Counterpart of ``flexflow_tpu/serve/engine.py`` for the default serving
+configuration: chunked prefill, prefix cache, speculative decoding,
+float32 (or bfloat16) pages, one device, no adapters, no host tier.
+
+Each step packs `serve_prefill_budget + serve_max_seqs` LANES, each one
+(sequence, position) query token: prompt chunks from any number of
+requests and the decode token of every running sequence (plus its
+speculative drafts). Per layer, every lane's K/V is written into its
+sequence's pages, then every lane attends through its page-table row
+masked at its own position + 1 (the ragged paged-attention kernel,
+kernels/paged_ragged_v2.py), so causality inside a chunk is exact and
+decode lanes see every prefix page — including pages another request's
+chunk computes in this very step. Logits reduce to a greedy argmax and
+a static top-k head before leaving the device.
+
+Host-side state (page allocator, prefix registry, scheduler, drafter)
+is the JAX package's, copied; the engine owns the device half. What the
+JAX engine also does and this one does not yet — int8/fp8 pages, the
+legacy bucket path, tensor-parallel serving, LoRA adapters, the host
+tier, telemetry, deadlines/cancel/retry, the compiled-program registry —
+raises ``NotImplementedError`` when configured.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import FFConfig, resolve_device
+from ..kernels.flash_attention import paged_attention_ragged
+from ..models.transformer import TransformerLM
+from ..utils.faults import injector_for
+from .kv_cache import KVCacheConfig, PagedKVCache
+from .scheduler import (ChunkPlan, ContinuousBatchingScheduler, Request,
+                        RequestOutcome, RequestState, SampleParams)
+
+
+class ServeEngine:
+    """Continuous-batching generation over a :class:`TransformerLM`.
+
+    Serving knobs come from ``config`` (an FFConfig; defaults when
+    None). Runs on the card unless ``device="cpu"``; the model must
+    live on the same device."""
+
+    # static top-k head width: sampling draws from the top
+    # min(TOPK_CAP, vocab) logits of a lane
+    TOPK_CAP = 64
+
+    def __init__(self, model: TransformerLM,
+                 config: Optional[FFConfig] = None, *, device="cuda"):
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(
+                f"model lives on {model.device}, engine asked for "
+                f"{self.device}")
+        self.model = model
+        self.config = cfg = config if config is not None else FFConfig()
+        arch = model.arch
+        self.vocab_size = arch.vocab
+        self.max_positions = arch.max_positions
+        self.num_layers = arch.num_layers
+        self.num_heads = arch.num_heads
+        self.head_dim = arch.head_dim
+        self.act_dtype = arch.dtype
+        if not cfg.serve_chunked_prefill:
+            raise NotImplementedError(
+                "the legacy bucket-prefill path (serve_chunked_prefill="
+                "False) is not ported; the port serves the mixed step")
+        self.cache_cfg = KVCacheConfig.from_ff(
+            cfg, num_layers=self.num_layers, num_heads=self.num_heads,
+            head_dim=self.head_dim, max_seq_len=self.max_positions)
+        self.cache_cfg.validate()
+        if self.cache_cfg.quantized:
+            raise NotImplementedError(
+                f"kv_dtype={self.cache_cfg.kv_dtype!r}: quantized pages "
+                f"are not ported yet (float32 or bfloat16)")
+        self.prefix_cache = bool(cfg.serve_prefix_cache)
+        self.prefill_budget = int(cfg.serve_prefill_budget)
+        self.admit_watermark = float(cfg.serve_admit_watermark)
+        self.faults = injector_for(cfg)
+        self.degrade_ladder = bool(cfg.serve_degrade_ladder)
+        self.reject_stalls = int(cfg.serve_reject_stalls)
+        self.spec_tokens = int(cfg.serve_spec_tokens) \
+            if cfg.serve_spec_decode else 0
+        # page storage: f32 stores activations exactly; bf16 rounds on
+        # write (exact when activations are already bf16). kv_exact is
+        # the condition of the token-identity gate (assert_token_parity)
+        self.kv_dtype = self.cache_cfg.kv_dtype
+        self.kv_exact = (self.kv_dtype == "float32"
+                         or self.cache_cfg.storage_dtype == self.act_dtype)
+        self.kv_tie_margin = 0.05
+        # the kernel's tuning knob: keys per tile (0 = kernel default)
+        self.attn_block_kv = int(cfg.serve_attn_block_kv)
+        # the one mixed-step geometry: every prefill-budget token plus
+        # one decode lane per slot always fits
+        self.mixed_width = self.prefill_budget + self.cache_cfg.max_seqs
+        self.topk_cap = min(self.TOPK_CAP, self.vocab_size)
+        # persistent across generate() calls: the prefix cache only
+        # pays off if committed pages outlive the batch that wrote them
+        self.cache = PagedKVCache(self.cache_cfg,
+                                  prefix_cache=self.prefix_cache)
+        self._k_pages: Optional[torch.Tensor] = None
+        self._v_pages: Optional[torch.Tensor] = None
+        # at most ONE live ServeSession owns the scheduler/slots
+        self._session: Optional["ServeSession"] = None
+        self.boot_stats: Optional[dict] = None
+        self.last_stats: Optional[dict] = None
+
+    # ---------------- device pages and the mixed step ------------------
+    def _device_pages(self):
+        if self._k_pages is None:
+            self._k_pages, self._v_pages = \
+                self.cache.alloc_device_cache(self.device)
+        return self._k_pages, self._v_pages
+
+    @torch.no_grad()
+    def _mixed_body(self, tokens, positions, write_pages, write_offs,
+                    page_tables, lane_slots, lane_lens):
+        """ONE serving step over `mixed_width` lanes (all (T,) int32 on
+        the device, host-built): the token to embed, its position, the
+        physical (page, offset) its K/V lands in (inactive lanes aim at
+        the sink page 0), the page-table row it reads and its visible
+        length (position + 1; inactive lanes 1, so the masked softmax
+        stays NaN-free). Returns (greedy (T,) int32, top-k values (T, K)
+        f32, top-k ids (T, K) int32)."""
+        m = self.model
+        kp, vp = self._device_pages()
+        x = m.embed(tokens, positions)                      # (T, E)
+        scale = 1.0 / math.sqrt(self.head_dim)
+        where = (write_pages.long(), write_offs.long())
+        for i in range(self.num_layers):
+            q, k, v = m.attn_qkv(i, m.attn_in(i, x))       # (T, H, D)
+            # the pages are updated IN PLACE (index_put_), where the
+            # JAX engine donates them to the jitted step and gets them
+            # back: a torch tensor is mutable, so the pool never exists
+            # twice. Inactive lanes all write sink page 0, offset 0;
+            # duplicate indices race there harmlessly, since no lane
+            # reads the sink unmasked.
+            kp[i].index_put_(where, k.to(kp.dtype))
+            vp[i].index_put_(where, v.to(vp.dtype))
+            o = paged_attention_ragged(
+                q, kp[i], vp[i], page_tables, lane_slots, lane_lens,
+                scale=scale, block_kv=self.attn_block_kv or None)
+            x = m.attn_out(i, o, x)
+            x = m.ffn(i, x)
+        logits = m.head(x)                                  # (T, V)
+        topv, topi = torch.topk(logits, self.topk_cap, dim=-1)
+        # argmax returns the FIRST maximum, as jnp.argmax does (the
+        # parity contract with generate_reference)
+        return (torch.argmax(logits, dim=-1).to(torch.int32),
+                topv.float(), topi.to(torch.int32))
+
+    def _dispatch_mixed(self, tokens, positions, write_pages, write_offs,
+                        page_tables, lane_slots, lane_lens):
+        """Ship the host-built lane arrays, run one mixed step, and
+        fetch its (greedy, topv, topi) back as numpy; the first fetch
+        waits for the step, so the step ends synchronized."""
+        dev = self.device
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (tokens, positions, write_pages, write_offs,
+                          page_tables, lane_slots, lane_lens)]
+        greedy, topv, topi = self._mixed_body(*args)
+        return greedy.cpu().numpy(), topv.cpu().numpy(), topi.cpu().numpy()
+
+    def warmup(self) -> dict:
+        """Allocate the page pool and run one mixed step on throwaway
+        inputs (every write aims at the sink page): builds and loads the
+        CUDA kernel on the card. Returns (and keeps) the boot record."""
+        t0 = time.perf_counter()
+        c = self.cache_cfg
+        self._device_pages()
+        t = self.mixed_width
+        z = np.zeros((t,), np.int32)
+        self._dispatch_mixed(z, z, z, z,
+                             np.zeros((c.max_seqs, c.pages_per_seq),
+                                      np.int32),
+                             z, np.ones((t,), np.int32))
+        self.boot_stats = {"boot_s": time.perf_counter() - t0}
+        return self.boot_stats
+
+    # ---------------- sampling -----------------------------------------
+    @staticmethod
+    def _sample_params(temperature, top_k, seed, n, cap):
+        """Normalize scalar-or-per-request sampling args into one
+        Optional[SampleParams] per request."""
+        def seq(x):
+            if x is None or np.isscalar(x):
+                return [x] * n
+            if len(x) != n:
+                raise ValueError(
+                    f"per-request sampling arg has {len(x)} entries "
+                    f"for {n} prompts")
+            return list(x)
+        out = []
+        for t, k in zip(seq(temperature), seq(top_k)):
+            if t is None or float(t) <= 0.0:
+                if t is not None and float(t) < 0.0:
+                    raise ValueError(f"temperature must be >= 0, got {t}")
+                out.append(None)
+                continue
+            if k is not None and not (1 <= int(k) <= cap):
+                raise ValueError(
+                    f"top_k must be in [1, {cap}] (the engine's static "
+                    f"top-k head), got {k}")
+            out.append(SampleParams(temperature=float(t),
+                                    top_k=None if k is None else int(k),
+                                    seed=int(seed)))
+        return out
+
+    def _pick_token(self, req: Request, greedy: int, topv, topi) -> int:
+        """The emitted token for a lane: greedy argmax, or a seeded
+        draw from the lane's top-k logits. The RNG is stateless per
+        (seed, stream-id, stream-offset + token-index) — stream_id
+        defaults to the local rid, so a plain engine keeps the
+        historical (seed, rid, index) keying bit-for-bit — which makes
+        a fixed seed reproduce a stream exactly, preemption/resume
+        replay nothing, and a stream SURVIVE crossing schedulers: the
+        disaggregated decode role resumes a handed-off request at
+        offset 1, and a routed replica draws the same stream a
+        single-replica engine would (docs/serving.md)."""
+        sp = req.sample
+        if sp is None:
+            return int(greedy)
+        k = sp.top_k if sp.top_k is not None else self.topk_cap
+        v = np.asarray(topv[:k], np.float64) / sp.temperature
+        v -= v.max()
+        p = np.exp(v)
+        p /= p.sum()
+        sid = req.rid if req.stream_id is None else req.stream_id
+        rng = np.random.default_rng(
+            [sp.seed, sid, req.stream_offset + len(req.out_tokens)])
+        return int(topi[int(rng.choice(k, p=p))])
+
+    # ---------------- reference parity ---------------------------------
+    @torch.no_grad()
+    def _forward_tokens(self, tokens, length: int):
+        """Logits (vocab,) at position length-1 of the causal no-cache
+        forward over (1, S) tokens (positions >= length are padding and
+        never seen by position length-1)."""
+        x = self.model.hidden_states(tokens)
+        return self.model.head(x[0, int(length) - 1])
+
+    def _context_logits(self, ctx: Sequence[int]) -> np.ndarray:
+        toks = torch.tensor([list(ctx)], dtype=torch.int64,
+                            device=self.device)
+        return self._forward_tokens(toks, len(ctx)).float().cpu().numpy()
+
+    @staticmethod
+    def first_divergence(a, b) -> Optional[int]:
+        """Index of the first position where token streams a and b
+        differ, or None when one is a prefix of the other."""
+        return next((i for i, (x, y) in enumerate(zip(a, b))
+                     if x != y), None)
+
+    def assert_token_parity(self, prompts, out, ref, *,
+                            margin=None) -> int:
+        """The reference-parity gate for generate() outputs. Lossless
+        pools (kv_exact) gate full token identity unless a ``margin``
+        is given. Otherwise each request either matches the greedy
+        reference token-for-token, or first diverges at a TIE: a
+        position where the reference's own top-logit margin over the
+        engine's pick is at most ``margin`` (default: the pool format's
+        kv_tie_margin). On the card the attention kernel's online
+        softmax rounds differently from the reference's single pass, so
+        f32 runs there pass an explicit small margin. After one tie
+        flips, the continuation legitimately diverges, so only the
+        first divergence is compared. Returns the fully-identical
+        request count."""
+        if margin is None and self.kv_exact:
+            for i, (o, r) in enumerate(zip(out, ref)):
+                assert list(o) == list(r), (
+                    f"request {i} diverged from reference")
+            return len(out)
+        if margin is None:
+            margin = self.kv_tie_margin
+        exact = 0
+        for pr, o, r in zip(prompts, out, ref):
+            j = self.first_divergence(o, r)
+            if j is None:
+                exact += 1
+                continue
+            logits = self._context_logits(list(pr) + list(r[:j]))
+            gap = float(logits[r[j]] - logits[o[j]])
+            assert 0.0 <= gap <= margin, (
+                f"flipped a non-tie token — reference margin "
+                f"{gap:.6g} > {margin} at position {j}")
+        return exact
+
+    def generate_reference(self, prompts: Sequence[Sequence[int]],
+                           max_new_tokens,
+                           eos_token: Optional[int] = None
+                           ) -> List[List[int]]:
+        """Naive no-cache greedy decode: re-forward the WHOLE sequence
+        for every new token, one request at a time. O(n^2) per token —
+        the correctness oracle generate() is tested against."""
+        if isinstance(max_new_tokens, int):
+            max_new_tokens = [max_new_tokens] * len(prompts)
+        if len(max_new_tokens) != len(prompts):
+            raise ValueError(
+                f"max_new_tokens has {len(max_new_tokens)} entries for "
+                f"{len(prompts)} prompts")
+        out: List[List[int]] = []
+        for prompt, mnt in zip(prompts, max_new_tokens):
+            if mnt < 1:  # mirror scheduler.submit's contract
+                raise ValueError(f"max_new_tokens must be >= 1, got {mnt}")
+            toks = list(prompt)
+            new: List[int] = []
+            while len(new) < mnt:
+                tok = int(np.argmax(self._context_logits(toks)))
+                new.append(tok)
+                toks.append(tok)
+                if eos_token is not None and tok == eos_token:
+                    break
+            out.append(new)
+        return out
+
+    # ---------------- the serving loop ---------------------------------
+    def generate(self, prompts: Sequence[Sequence[int]],
+                 max_new_tokens, eos_token: Optional[int] = None,
+                 temperature=None, top_k=None,
+                 sample_seed: int = 0) -> List[List[int]]:
+        """Decode a ragged batch under continuous batching.
+        `max_new_tokens` is an int or a per-prompt sequence; greedy by
+        default, per-request seeded temperature/top-k sampling when
+        `temperature` is given (scalar or per-prompt; 0 = greedy).
+        Returns the generated tokens (prompt excluded) per prompt, in
+        order; per-run counters land in `self.last_stats`. A mid-batch
+        exception fails only the in-flight requests and the engine
+        keeps serving."""
+        if isinstance(max_new_tokens, int):
+            max_new_tokens = [max_new_tokens] * len(prompts)
+        if len(max_new_tokens) != len(prompts):
+            raise ValueError(
+                f"max_new_tokens has {len(max_new_tokens)} entries for "
+                f"{len(prompts)} prompts")
+        samples = self._sample_params(temperature, top_k, sample_seed,
+                                      len(prompts), self.topk_cap)
+        return self._generate_session(prompts, max_new_tokens, samples,
+                                      eos_token)
+
+    def start_session(self) -> "ServeSession":
+        """Open an incremental serving session: submit requests at any
+        time, advance ONE mixed step per :meth:`ServeSession.step`,
+        ``close()`` when done. At most one live session per engine."""
+        return ServeSession(self)
+
+    def _generate_session(self, prompts, max_new_tokens, samples,
+                          eos_token) -> List[List[int]]:
+        """generate()'s body: one ServeSession, every prompt submitted
+        up front, stepped to drain."""
+        session = self.start_session()
+        reqs = session.reqs
+        try:
+            for prompt, mnt, sp in zip(prompts, max_new_tokens, samples):
+                session.submit(prompt, mnt, eos_token=eos_token, sample=sp)
+            while session.step() is not None:
+                pass
+        except Exception:
+            self._fail_inflight(session.sched, reqs)
+            raise
+        finally:
+            session.close()
+        self.cache.check_invariants()
+        assert self.cache.free_pages == self.cache_cfg.usable_pages, \
+            "pages leaked"
+        self.last_stats = session.stats_dict()
+        return [list(r.out_tokens) for r in reqs]
+
+    def _fail_inflight(self, sched, reqs: Sequence[Request]) -> None:
+        """Crash containment: a mid-batch exception fails ONLY the
+        in-flight requests — every live slot releases through the
+        refcount machinery — and the prefix registry is dropped (a step
+        that died may have written part of a page it vouched for). The
+        exception still propagates; the next generate() serves
+        normally."""
+        for req in reqs:
+            if req.state != RequestState.FINISHED:
+                sched.abort(req, RequestOutcome.FAILED)
+        self.cache.clear_prefix()
+        self.cache.check_invariants()
+
+    def _build_stats(self, reqs, sched, *, wall, steps, decode_times,
+                     decode_widths, prefill_times, util) -> dict:
+        """The last_stats dict (the JAX engine's keys for what this
+        slice serves)."""
+        cache = self.cache
+        total_new = sum(len(r.out_tokens) for r in reqs)
+        peak_util = float(np.max(util)) if util else 0.0
+        return {
+            "requests": [
+                {"rid": r.rid, "trace_id": r.trace_id,
+                 "prompt_tokens": len(r.prompt),
+                 "new_tokens": len(r.out_tokens),
+                 "preemptions": r.preemptions,
+                 "outcome": r.outcome,
+                 "ttft_s": (r.t_first_token - r.t_submit
+                            if r.t_first_token else None),
+                 "latency_s": (r.t_finish - r.t_submit
+                               if r.t_finish else None)}
+                for r in reqs],
+            "mode": "chunked",
+            "device": str(self.device),
+            "wall_s": wall,
+            "total_new_tokens": total_new,
+            "tokens_per_sec": total_new / wall if wall > 0 else 0.0,
+            "steps": steps,
+            "decode_steps": len(decode_times),
+            "decode_step_times_s": decode_times,
+            "decode_widths": decode_widths,
+            "prefill_times_s": prefill_times,
+            "prompt_tokens_total": sched.stats["prompt_tokens"],
+            "prefill_tokens_computed": sched.stats["prefill_lane_tokens"],
+            "prefix_hit_tokens": sched.stats["prefix_hit_tokens"],
+            "preemptions": sched.stats["preemptions"],
+            "spec_tokens": self.spec_tokens,
+            "spec_drafted_tokens": sched.stats["spec_drafted_tokens"],
+            "spec_accepted_tokens": sched.stats["spec_accepted_tokens"],
+            "spec_acceptance": (
+                sched.stats["spec_accepted_tokens"]
+                / sched.stats["spec_drafted_tokens"]
+                if sched.stats["spec_drafted_tokens"] else 0.0),
+            "decode_tokens": int(sum(decode_widths)),
+            "steps_per_decode_token": (
+                sched.stats["decode_lane_tokens"] / sum(decode_widths)
+                if decode_widths else 0.0),
+            "page_util_mean": float(np.mean(util)) if util else 0.0,
+            "page_util_max": peak_util,
+            "rejected": sched.stats["rejected"],
+            "rejected_requests": [(rr.rid, rr.reason)
+                                  for rr in sched.rejected_requests],
+            "degradation_rung_max": sched.stats["degradation_rung_max"],
+            "rung_steps": list(sched.stats["rung_steps"]),
+            "spec_shed_steps": sched.stats["spec_shed_steps"],
+            "cache": dict(cache.stats),   # engine-lifetime counters
+            "kv_pool": {**cache.pool_report(), "occupancy": peak_util,
+                        "kv_exact": self.kv_exact,
+                        "attn_block_kv": self.attn_block_kv},
+        }
+
+
+class StepEvents:
+    """What one :meth:`ServeSession.step` did: ``emitted`` is
+    [(request, tokens emitted this step)], ``finished`` the requests
+    that completed THIS step, ``dispatched`` False for a planning-only
+    iteration."""
+
+    __slots__ = ("dispatched", "step_index", "plan", "emitted",
+                 "finished", "wall_s")
+
+    def __init__(self, plan=None):
+        self.dispatched = False
+        self.step_index = -1
+        self.plan = plan
+        self.emitted: List[Tuple[Request, int]] = []
+        self.finished: List[Request] = []
+        self.wall_s = 0.0
+
+
+class ServeSession:
+    """Incremental (steppable) serving over one ServeEngine. The
+    session owns the scheduler (and with it the engine's slots); at
+    most one is live per engine until ``close()``. Each step: plan,
+    pack lanes, dispatch the ONE mixed step, then bookkeeping first /
+    emission second / speculative verification last."""
+
+    def __init__(self, engine: ServeEngine):
+        if engine._session is not None:
+            raise RuntimeError(
+                "engine already has a live ServeSession — close() it "
+                "first (the session's scheduler owns the slots)")
+        self.eng = engine
+        cache = engine.cache
+        c = engine.cache_cfg
+        if cache.free_slots != c.max_seqs:
+            # a previous batch died without _fail_inflight running:
+            # reclaim slots/pages and drop the registry, serve on
+            cache.release_all()
+            cache.clear_prefix()
+        self.sched = ContinuousBatchingScheduler(
+            cache, prefill_token_budget=engine.prefill_budget,
+            chunked_prefill=True,
+            admit_watermark=engine.admit_watermark,
+            spec_tokens=engine.spec_tokens, faults=engine.faults,
+            degrade_ladder=engine.degrade_ladder,
+            reject_stalls=engine.reject_stalls)
+        self.reqs: List[Request] = []
+        self.decode_times: List[float] = []
+        self.decode_widths: List[int] = []
+        self.prefill_times: List[Tuple[int, float]] = []
+        self.util: List[float] = []
+        self._t0 = time.perf_counter()
+        engine._device_pages()
+        engine._session = self
+
+    # ---------------- submission ---------------------------------------
+    def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
+               eos_token: Optional[int] = None,
+               sample: Optional[SampleParams] = None) -> Request:
+        """Queue one request (admission happens at the next step()).
+        `sample` is a ready SampleParams (None = greedy)."""
+        r = self.sched.submit(prompt, int(max_new_tokens),
+                              eos_token=eos_token, sample=sample)
+        r.t_submit = time.perf_counter()
+        self.reqs.append(r)
+        return r
+
+    # ---------------- emission -----------------------------------------
+    def _finish(self, ev: StepEvents, req: Request) -> None:
+        req.t_finish = time.perf_counter()
+        self.sched.finish(req)
+        ev.finished.append(req)
+
+    def _emit(self, ev: StepEvents, chunk: ChunkPlan, greedy, topv,
+              topi) -> None:
+        req = chunk.req
+        tok = self.eng._pick_token(req, greedy, topv, topi)
+        req.out_tokens.append(tok)
+        ev.emitted.append((req, 1))
+        if len(req.out_tokens) == 1:
+            req.t_first_token = time.perf_counter()
+        if req.is_done():
+            self._finish(ev, req)
+
+    def _emit_spec(self, ev: StepEvents, chunk: ChunkPlan, lane0: int,
+                   greedy, topv, topi) -> int:
+        """Verify a speculative decode chunk and emit its step's
+        tokens: walk lanes lane0..lane0+k (the context token and the k
+        drafts), picking each lane's token exactly as sequential
+        decode would — lane j's logits are valid BECAUSE every earlier
+        pick matched the draft that fed lane j+1 — and stop at the
+        first mismatch (that pick IS the corrected token), at EOS /
+        max_new, or after the bonus token when every draft held. Then
+        the scheduler commits the verified prefix and rolls the
+        rejected tail's pages back. Returns the number of tokens
+        emitted (1 when k=0 — the plain decode step, bit for bit)."""
+        eng = self.eng
+        req = chunk.req
+        k = len(chunk.draft_tokens)
+        matched = emitted = 0
+        for j in range(k + 1):
+            ln = lane0 + j
+            tok = eng._pick_token(req, greedy[ln], topv[ln], topi[ln])
+            req.out_tokens.append(tok)
+            emitted += 1
+            ok = j < k and tok == chunk.draft_tokens[j]
+            if ok:
+                matched += 1
+            if req.is_done() or not ok:
+                break
+        self.sched.complete_spec_chunk(chunk, matched)
+        ev.emitted.append((req, emitted))
+        if req.is_done():
+            self._finish(ev, req)
+        return emitted
+
+    # ---------------- the step -----------------------------------------
+    def step(self) -> Optional[StepEvents]:
+        """Advance one engine step. Returns None when the session is
+        drained, else a StepEvents."""
+        eng = self.eng
+        sched = self.sched
+        cache = eng.cache
+        c = eng.cache_cfg
+        if not sched.has_work():
+            return None
+        plan = sched.schedule()
+        ev = StepEvents(plan)
+        if not plan.chunks:
+            # every waiting request was rejected (rung 4); the next
+            # step() re-plans (forced progress: this cannot spin)
+            return ev
+        t_w = eng.mixed_width
+        ps = c.page_size
+        tokens = np.zeros((t_w,), np.int32)
+        positions = np.zeros((t_w,), np.int32)
+        write_pages = np.zeros((t_w,), np.int32)   # sink by default
+        write_offs = np.zeros((t_w,), np.int32)
+        lane_slots = np.zeros((t_w,), np.int32)
+        lane_lens = np.ones((t_w,), np.int32)      # NaN-free padding
+        lane = 0
+        emitters: List[Tuple[ChunkPlan, int]] = []
+        spec_emitters: List[Tuple[ChunkPlan, int]] = []
+        for ch in plan.chunks:
+            ctx = ch.req.context
+            row = cache.page_tables[ch.req.slot]
+            for pos in range(ch.start, ch.end):
+                tokens[lane] = ctx[pos]
+                positions[lane] = pos
+                write_pages[lane] = row[pos // ps]
+                write_offs[lane] = pos % ps
+                lane_slots[lane] = ch.req.slot
+                lane_lens[lane] = pos + 1
+                lane += 1
+            if ch.draft_tokens:
+                spec_emitters.append((ch, lane - 1))
+                for j, d in enumerate(ch.draft_tokens):
+                    pos = ch.end + j
+                    tokens[lane] = d
+                    positions[lane] = pos
+                    write_pages[lane] = row[pos // ps]
+                    write_offs[lane] = pos % ps
+                    lane_slots[lane] = ch.req.slot
+                    lane_lens[lane] = pos + 1
+                    lane += 1
+            elif ch.emits:
+                emitters.append((ch, lane - 1))
+        assert lane <= t_w, (
+            f"scheduler packed {lane} lanes into a {t_w}-lane step")
+        tp = time.perf_counter()
+        greedy, topv, topi = eng._dispatch_mixed(
+            tokens, positions, write_pages, write_offs, cache.page_tables,
+            lane_slots, lane_lens)
+        dt = time.perf_counter() - tp
+        self.util.append(1.0 - cache.free_pages / c.usable_pages)
+        # bookkeeping FIRST (page commits hash the context as it was
+        # when the chunk ran), emission second; speculative chunks
+        # verify LAST — their residency bookkeeping is a function of
+        # the tokens they emit
+        for ch in plan.chunks:
+            if not ch.draft_tokens:
+                sched.complete_chunk(ch)
+        dec_tokens = 0
+        for ch, ln in emitters:
+            self._emit(ev, ch, greedy[ln], topv[ln], topi[ln])
+            if ch.is_decode:
+                dec_tokens += 1
+        for ch, ln in spec_emitters:
+            dec_tokens += self._emit_spec(ev, ch, ln, greedy, topv,
+                                          topi)
+        if plan.num_decode_lanes:
+            self.decode_times.append(dt)
+            # width = tokens this step's decode chunks EMITTED
+            # (speculation makes it exceed the decode-lane count)
+            self.decode_widths.append(dec_tokens)
+        if plan.num_prefill_lanes:
+            self.prefill_times.append((plan.num_prefill_lanes, dt))
+        ev.dispatched = True
+        ev.step_index = len(self.util) - 1
+        ev.wall_s = dt
+        return ev
+
+    # ---------------- stats / lifecycle --------------------------------
+    def stats_dict(self) -> dict:
+        """This session's last_stats-shaped dict so far."""
+        return self.eng._build_stats(
+            self.reqs, self.sched,
+            wall=time.perf_counter() - self._t0,
+            steps=len(self.util), decode_times=self.decode_times,
+            decode_widths=self.decode_widths,
+            prefill_times=self.prefill_times, util=self.util)
+
+    def close(self) -> None:
+        """Release the session (idempotent): the engine can open a new
+        one. Does NOT abort live requests — drain first."""
+        if self.eng._session is self:
+            self.eng._session = None

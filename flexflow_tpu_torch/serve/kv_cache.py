@@ -1,0 +1,963 @@
+"""Block-paged KV-cache manager with prefix caching.
+
+A copy of ``flexflow_tpu/serve/kv_cache.py`` with two changes: page
+storage dtypes are torch dtypes (:func:`kv_storage_dtype`), and the
+device arrays are ``torch.zeros`` on an explicit device
+(:meth:`PagedKVCache.alloc_device_cache`) in the same
+``(L, P, ps, H, D)`` layout.
+
+The device cache is a fixed pool of PAGES — (page_size, heads, head_dim)
+K and V blocks per layer — and each sequence owns a PAGE TABLE mapping
+its logical token positions to physical pages, exactly the layout of
+"Ragged Paged Attention" serving kernels (PAPERS.md): token t of a
+sequence lives at page `table[t // page_size]`, offset `t % page_size`.
+
+Why pages instead of one (max_seqs, max_len) rectangle: a rectangle
+reserves max_len tokens of HBM per slot whether or not the sequence uses
+them; pages let short and long sequences share one pool, so capacity is
+bounded by TOTAL resident tokens, not max_seqs * max_len. Freeing a
+finished sequence returns whole pages to the pool — reuse is
+defrag-free because pages are fixed-size and position-independent.
+
+Three properties layered on top of the PR 1 allocator:
+
+  * Per-page REFCOUNTS: a page can be mapped by several slots at once.
+    The K/V of a token block depends only on the token content and its
+    position, so two sequences with the same prompt prefix can read the
+    same physical pages. A page returns to circulation only when its
+    refcount hits 0.
+  * PREFIX HASHING: every COMPLETED page (all page_size positions
+    written with real K/V) can be registered under a chain hash of its
+    token content — key_i = H(key_{i-1} || tokens[i*ps:(i+1)*ps]) — so
+    `match_prefix` finds the longest resident run of pages for a new
+    prompt in O(pages). Partial (tail) pages are never shared: they are
+    still being written by their owner. A hashed page whose refcount
+    drops to 0 is NOT freed — it parks in an LRU of reclaimable cached
+    pages, still matchable, and is evicted (hash dropped) only when the
+    allocator runs dry. `free_pages` therefore counts reclaimable
+    capacity: truly-free pages plus the evictable LRU.
+  * ON-DEMAND ALLOCATION: slots claim pages as their sequence actually
+    grows (`ensure_capacity` / `append_token` allocate when a page
+    boundary is crossed) instead of reserving prompt+max_new up front.
+    Effective batch size is bounded by actual residency; the scheduler
+    pairs this with a preemption path for the rare pool-exhausted step.
+
+Page 0 is reserved as the write SINK: padding lanes of the static-shape
+steps scatter their K/V there through page-table entries of 0, so the
+jitted steps never need a masked scatter. Reads are masked by sequence
+length, so sink contents are never observed.
+
+Host/device split: this class owns only HOST bookkeeping (free list,
+refcounts, hash registry, page tables, lengths) as plain numpy/dicts the
+scheduler mutates freely; the device arrays are created once by
+`alloc_device_cache()` and are updated in place by the engine's mixed
+step — the manager never touches device memory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from collections import OrderedDict
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import KV_DTYPES  # the ONE --kv-dtype allowlist
+
+# KV_DTYPES names that store quantized values against per-row scale
+# arrays (the PR 8 scale machinery; fp8 reuses it with no new
+# bookkeeping — only the page dtype and the qmax change).
+QUANTIZED_KV_DTYPES = ("int8", "float8_e4m3")
+
+# --kv-dtype name -> the torch dtype actually stored in the page
+# arrays. "float8_e4m3" stores float8_e4m3fn (the finite-only OCP
+# variant, as in the JAX package).
+_KV_STORAGE_DTYPES = {"float32": torch.float32,
+                      "bfloat16": torch.bfloat16,
+                      "int8": torch.int8,
+                      "float8_e4m3": torch.float8_e4m3fn}
+
+
+def kv_storage_dtype(name: str) -> torch.dtype:
+    """torch dtype of the page arrays for a --kv-dtype name."""
+    return _KV_STORAGE_DTYPES[str(name)]
+
+
+def prefix_page_keys(tokens: Sequence[int], page_size: int,
+                     num_pages: int, *, start: int = 0,
+                     prev: bytes = b"") -> List[bytes]:
+    """Chain hashes for FULL pages [start, num_pages) of `tokens`:
+    key_i = sha256(key_{i-1} || block_i_bytes). Position-dependence is
+    implicit in the chain (block i's key commits to every token before
+    it), so equal keys mean equal (content, position) — the sharing
+    precondition. Callers extending an existing chain pass `start` and
+    the last known key as `prev`, so per-sequence hashing stays O(pages)
+    instead of O(pages^2) across incremental extensions."""
+    keys: List[bytes] = []
+    for i in range(start, num_pages):
+        block = np.asarray(tokens[i * page_size:(i + 1) * page_size],
+                           dtype=np.int32)
+        prev = hashlib.sha256(prev + block.tobytes()).digest()
+        keys.append(prev)
+    return keys
+
+
+@dataclasses.dataclass(frozen=True)
+class KVCacheConfig:
+    """Geometry of the paged pool. Built from FFConfig + model shape via
+    :meth:`from_ff` so every serving component sizes itself from the
+    same knobs (config.py kv_page_size / kv_num_pages / kv_dtype /
+    kv_pool_mb / serve_max_seqs).
+
+    ``kv_dtype`` selects the PAGE STORAGE format: float32 (exact),
+    bfloat16 (values round on write; exact when the engine's activation
+    dtype is already bf16), or int8 (quantized with per-page scale
+    arrays — one f32 scale per head per in-page token slot, see
+    `scale_shape`). Scales are per-slot rather than per-whole-page
+    because pages fill INCREMENTALLY (decode appends one token at a
+    time): a page-global amax would have to re-quantize every resident
+    token whenever a new token raised it, which is neither cheap nor
+    rollback-safe, while per-slot scales keep quantization write-local
+    so chunk boundaries, preemption replays, and speculative rollbacks
+    cannot change what any resident token dequantizes to.
+
+    All BYTE accounting (``page_bytes``, ``pool_bytes``, the
+    ``kv_pool_mb`` sizing below) derives from the configured dtype's
+    itemsize — never a hardcoded 4 — so watermark fractions, ladder
+    rung thresholds and ``ensure_capacity`` (all page-COUNT math over
+    ``usable_pages``) automatically see the larger effective pool a
+    quantized format buys at the same byte budget.
+
+    ``tensor_parallel`` is the serve mesh's tensor degree (docs/
+    serving.md "Sharded serving"): pages shard on the HEAD axis, so
+    every device holds all ``num_pages`` pages at ``num_heads / t``
+    heads each. The page COUNT — and with it every watermark /
+    degradation-ladder / ``ensure_capacity`` fraction — is therefore
+    per-device-identical, while the per-device BYTES drop t×
+    (``page_device_bytes``). ``kv_pool_mb`` is a PER-DEVICE HBM budget
+    (the physically meaningful knob): sizing divides it by
+    ``page_device_bytes``, so a sharded pool holds ~t× the pages at
+    the same per-chip budget and the ladder rungs fire at the same
+    relative per-device pressure. All host-side page / refcount /
+    prefix bookkeeping stays replicated and tp-agnostic."""
+
+    num_layers: int
+    num_heads: int
+    head_dim: int
+    page_size: int = 16
+    num_pages: int = 257  # including the reserved sink page 0
+    max_seqs: int = 8
+    max_seq_len: int = 512  # logical cap; rounds up to whole pages
+    kv_dtype: str = "float32"
+    tensor_parallel: int = 1  # head-sharding degree of the serve mesh
+
+    @classmethod
+    def from_ff(cls, config, *, num_layers: int, num_heads: int,
+                head_dim: int, max_seq_len: int = 512,
+                tensor_parallel: int = 1) -> "KVCacheConfig":
+        kv_dtype = str(getattr(config, "kv_dtype", "float32"))
+        num_pages = int(getattr(config, "kv_num_pages", 257))
+        pool_mb = float(getattr(config, "kv_pool_mb", 0.0) or 0.0)
+        tp = max(1, int(tensor_parallel))
+        if pool_mb > 0:
+            # byte-budget sizing: the page count FOLLOWS the storage
+            # format (the quantized-capacity lever — int8 pages cost
+            # ~1/4 the bytes, so the same budget holds ~4x the pages)
+            # AND the sharding degree: the budget is per-DEVICE HBM,
+            # and a head-sharded page costs 1/t of its bytes on each
+            # device, so the same per-chip budget holds ~t× the pages
+            # — which is exactly what keeps every page-count-fraction
+            # threshold (watermark, ladder rungs) firing at the same
+            # relative per-device pressure under sharding.
+            probe = cls(num_layers=num_layers, num_heads=num_heads,
+                        head_dim=head_dim,
+                        page_size=int(getattr(config, "kv_page_size", 16)),
+                        num_pages=2, max_seqs=1,
+                        max_seq_len=max_seq_len, kv_dtype=kv_dtype,
+                        tensor_parallel=tp)
+            num_pages = 1 + max(1, int(pool_mb * (1 << 20))
+                                // probe.page_device_bytes)
+        return cls(num_layers=num_layers, num_heads=num_heads,
+                   head_dim=head_dim,
+                   page_size=int(getattr(config, "kv_page_size", 16)),
+                   num_pages=num_pages,
+                   max_seqs=int(getattr(config, "serve_max_seqs", 8)),
+                   max_seq_len=max_seq_len, kv_dtype=kv_dtype,
+                   tensor_parallel=tp)
+
+    @property
+    def pages_per_seq(self) -> int:
+        """Static page-table width (logical max_seq_len in pages)."""
+        return -(-self.max_seq_len // self.page_size)
+
+    @property
+    def usable_pages(self) -> int:
+        return self.num_pages - 1  # minus the sink
+
+    # ---------------- storage format / byte accounting ----------------
+    @property
+    def quantized(self) -> bool:
+        return self.kv_dtype in QUANTIZED_KV_DTYPES
+
+    @property
+    def storage_dtype(self):
+        """The dtype actually stored in the page arrays (resolves the
+        float8_e4m3 -> float8_e4m3fn alias)."""
+        return kv_storage_dtype(self.kv_dtype)
+
+    @property
+    def kv_itemsize(self) -> int:
+        return int(self.storage_dtype.itemsize)
+
+    @property
+    def scale_shape(self):
+        """Per-page scale-array geometry (int8 pages only): one f32
+        scale per (layer, page, in-page slot, head) for K and for V."""
+        return (self.num_layers, self.num_pages, self.page_size,
+                self.num_heads)
+
+    @property
+    def page_bytes(self) -> int:
+        """Device bytes ONE page costs across all layers: K + V values
+        at kv_dtype itemsize, plus the f32 scale rows when quantized.
+        The basis for every byte-level pool computation (never assume
+        4 bytes/element)."""
+        values = (2 * self.num_layers * self.page_size * self.num_heads
+                  * self.head_dim * self.kv_itemsize)
+        scales = (2 * self.num_layers * self.page_size * self.num_heads
+                  * 4) if self.quantized else 0
+        return values + scales
+
+    @property
+    def f32_page_bytes(self) -> int:
+        """What the same page geometry costs in float32 pages — the
+        baseline for the quantized-capacity comparison."""
+        return (2 * self.num_layers * self.page_size * self.num_heads
+                * self.head_dim * 4)
+
+    @property
+    def pool_bytes(self) -> int:
+        return self.num_pages * self.page_bytes
+
+    # ---------------- per-device accounting (sharded serving) ---------
+    @property
+    def heads_per_device(self) -> int:
+        return self.num_heads // max(1, self.tensor_parallel)
+
+    @property
+    def page_device_bytes(self) -> int:
+        """Device bytes ONE page costs under head sharding: both the
+        value blocks and the scale rows carry the head axis, so the
+        whole page cost divides exactly by the tensor degree."""
+        return self.page_bytes // max(1, self.tensor_parallel)
+
+    @property
+    def pool_device_bytes(self) -> int:
+        return self.num_pages * self.page_device_bytes
+
+    @property
+    def effective_page_ratio(self) -> float:
+        """Pages this format fits per byte, relative to f32 — the
+        capacity multiplier int8 buys at an equal pool budget."""
+        return self.f32_page_bytes / self.page_bytes
+
+    def validate(self) -> None:
+        if self.page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {self.page_size}")
+        if self.num_pages < 2:
+            raise ValueError(
+                f"num_pages must be >= 2 (page 0 is the reserved sink), "
+                f"got {self.num_pages}")
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"kv_dtype must be one of {KV_DTYPES}, got "
+                f"{self.kv_dtype!r}")
+        if self.pages_per_seq > self.usable_pages:
+            raise ValueError(
+                f"one max-length sequence needs {self.pages_per_seq} pages "
+                f"but the pool only has {self.usable_pages} usable")
+        if self.tensor_parallel < 1:
+            raise ValueError(
+                f"tensor_parallel must be >= 1, got "
+                f"{self.tensor_parallel}")
+        if self.num_heads % max(1, self.tensor_parallel) != 0:
+            raise ValueError(
+                f"head-sharded serving needs num_heads "
+                f"({self.num_heads}) divisible by the tensor degree "
+                f"({self.tensor_parallel})")
+
+
+class PagedKVCache:
+    """Host-side page allocator + per-slot page tables + prefix cache.
+
+    Slots are the static decode-batch lanes (0..max_seqs-1); the
+    scheduler binds a running request to a slot and this class binds the
+    slot to pages. All arrays are padded to static shapes so the jitted
+    steps see one geometry forever:
+
+      page_tables  (max_seqs, pages_per_seq) int32, 0 = sink/unmapped
+      seq_lens     (max_seqs,) int32, 0 = slot empty
+
+    Every usable page is in exactly one of three states:
+      free    — unhashed, in `_free` (LIFO: warmest reuse first)
+      cached  — hashed, refcount 0, in the `_lru` (matchable, evictable)
+      mapped  — refcount > 0 (referenced by >= 1 slot's table)
+    """
+
+    def __init__(self, cfg: KVCacheConfig, prefix_cache: bool = True):
+        cfg.validate()
+        self.cfg = cfg
+        self.prefix_enabled = bool(prefix_cache)
+        self._free: List[int] = list(range(cfg.num_pages - 1, 0, -1))
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self._ref = np.zeros((cfg.num_pages,), dtype=np.int64)
+        self._hash_of_page: Dict[int, bytes] = {}
+        self._page_of_hash: Dict[bytes, int] = {}
+        self.page_tables = np.zeros((cfg.max_seqs, cfg.pages_per_seq),
+                                    dtype=np.int32)
+        self.seq_lens = np.zeros((cfg.max_seqs,), dtype=np.int32)
+        self._slot_free = list(range(cfg.max_seqs - 1, -1, -1))
+        # quantized-page scale bookkeeping (register_scale_meta):
+        # geometry of the engine's scale arrays, checked by
+        # check_invariants against cfg.scale_shape
+        self._scale_meta = None
+        # pages whose content arrived over the disaggregated handoff
+        # (import_pages) rather than from this engine's own compute:
+        # they must stay hashed for as long as they are resident — an
+        # imported page the registry stopped vouching for would be
+        # unreachable garbage (check_invariants)
+        self._imported: set = set()
+        # hierarchical prefix cache (serve/host_tier.HostPageStore):
+        # when armed, eviction queues (page, key) here instead of
+        # silently dropping the identity; the ENGINE drains the queue —
+        # DMAing the still-resident device rows into the store — before
+        # every dispatch that could overwrite pages (the device pools
+        # only mutate through jitted dispatches, so a queued page's
+        # content stays valid exactly until then)
+        self.host_tier = None
+        self._pending_spills: List[Tuple[int, bytes]] = []
+        # serving metrics, merged into ServeEngine.last_stats
+        self.stats = {"prefix_hit_pages": 0, "prefix_evictions": 0,
+                      "pages_committed": 0, "shared_attaches": 0,
+                      "max_page_refs": 0, "rollback_pages": 0,
+                      "lru_shed_pages": 0, "slots_reclaimed": 0,
+                      "exported_pages": 0, "imported_pages": 0,
+                      "import_dedup_pages": 0}
+
+    # ---------------- capacity queries (scheduler admission) ----------
+    @property
+    def free_pages(self) -> int:
+        """RECLAIMABLE pages: truly free plus cached-but-unreferenced
+        (the LRU is evicted on demand by allocation)."""
+        return len(self._free) + len(self._lru)
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._slot_free)
+
+    def pages_for(self, tokens: int) -> int:
+        return -(-tokens // self.cfg.page_size)
+
+    def mapped_pages(self, slot: int) -> int:
+        return int(np.count_nonzero(self.page_tables[slot]))
+
+    def mapped_tokens(self, slot: int) -> int:
+        """Token capacity already backed by this slot's pages."""
+        return self.mapped_pages(slot) * self.cfg.page_size
+
+    def ref(self, page: int) -> int:
+        return int(self._ref[page])
+
+    def debug_state(self) -> dict:
+        """Bounded JSON-ready pool snapshot for the failure flight
+        recorder (docs/observability.md): page-state partition (free /
+        parked / mapped), slot residency, refcount spread, and the
+        lifetime stats — the numbers a post-mortem needs to answer
+        "was the pool wedged" without shipping the page tables."""
+        c = self.cfg
+        mapped = int(np.count_nonzero(self._ref))
+        return {
+            "usable_pages": c.usable_pages,
+            "free_pages": len(self._free),
+            "parked_pages": len(self._lru),
+            "mapped_pages": mapped,
+            "reclaimable_pages": self.free_pages,
+            "occupancy": 1.0 - self.free_pages / c.usable_pages,
+            "free_slots": self.free_slots,
+            "max_seqs": c.max_seqs,
+            "seq_lens": [int(n) for n in self.seq_lens],
+            "hashed_pages": len(self._page_of_hash),
+            "imported_resident": len(self._imported),
+            "max_page_ref": int(self._ref.max()) if mapped else 0,
+            "kv_dtype": c.kv_dtype,
+            "page_size": c.page_size,
+            # eviction order (oldest first, bounded): what rung-2 /
+            # allocation pressure would shed next — the view rung
+            # post-mortems were missing
+            "lru_order": [int(p) for p in list(self._lru)[:64]],
+            "lru_truncated": max(0, len(self._lru) - 64),
+            "pending_spills": len(self._pending_spills),
+            "host_tier": (self.host_tier.debug_state()
+                          if self.host_tier is not None else None),
+            "stats": dict(self.stats),
+        }
+
+    # ---------------- prefix cache ------------------------------------
+    def match_prefix(self, keys: Sequence[bytes]) -> List[int]:
+        """Longest run of resident pages whose chain keys match `keys`
+        from the start. Returned pages are NOT reserved — the caller
+        must `attach_prefix` them before any allocation can evict the
+        refcount-0 ones out of the LRU."""
+        pages: List[int] = []
+        if not self.prefix_enabled:
+            return pages
+        for key in keys:
+            p = self._page_of_hash.get(key)
+            if p is None:
+                break
+            pages.append(p)
+        return pages
+
+    def match_prefix_host(self, keys: Sequence[bytes],
+                          resident: int) -> int:
+        """The host-tier fall-through of `match_prefix`: how many keys
+        BEYOND the `resident` HBM-matched run are held by the armed
+        host store (0 when no tier). The pages are NOT reloaded here —
+        the scheduler prices DMA-vs-recompute first and only then asks
+        the engine to re-import (ServeEngine._host_reload)."""
+        if self.host_tier is None or not self.prefix_enabled:
+            return 0
+        return self.host_tier.match_chain(list(keys[resident:]))
+
+    def touch(self, pages: Sequence[int]) -> None:
+        """Refresh parked pages to most-recently-used, so an imminent
+        allocation burst (a host-tier reload's import) cannot evict
+        the very HBM run an admission just matched."""
+        for p in pages:
+            p = int(p)
+            if p in self._lru:
+                self._lru.move_to_end(p)
+
+    def take_pending_spills(self) -> List[Tuple[int, bytes]]:
+        """Claim the queued (page, chain key) spill records, clearing
+        the queue. The engine calls this immediately before any
+        dispatch that writes the device pools and ships each page's
+        rows to the host tier — past that point the queued pages may
+        be overwritten and the records would vouch for garbage."""
+        out, self._pending_spills = self._pending_spills, []
+        return out
+
+    def commit_page(self, slot: int, page_idx: int, key: bytes) -> bool:
+        """Register a COMPLETED page of `slot` under its content chain
+        key, making it matchable by future prompts. No-op when hashing
+        is off, the page is already registered, or another page already
+        owns the key (first writer wins; deduping the loser is not
+        worth a device copy). Returns True when registered."""
+        if not self.prefix_enabled:
+            return False
+        page = int(self.page_tables[slot, page_idx])
+        if page == 0:
+            raise RuntimeError(
+                f"commit_page on unmapped page {page_idx} of slot {slot}")
+        if page in self._hash_of_page or key in self._page_of_hash:
+            return False
+        self._hash_of_page[page] = key
+        self._page_of_hash[key] = page
+        self.stats["pages_committed"] += 1
+        return True
+
+    def _unregister(self, page: int) -> None:
+        key = self._hash_of_page.pop(page, None)
+        if key is not None:
+            del self._page_of_hash[key]
+        # a de-hashed imported page is no longer vouched-for handoff
+        # content — it is just a free/garbage page again
+        self._imported.discard(page)
+
+    def _pop_parked(self, *, spill: bool = True) -> int:
+        """Retire the least-recently-parked cached page — the ONE
+        eviction primitive `_take_page` and `shrink_lru` share. Split
+        into two halves: reclaiming CAPACITY (pop from the LRU) and
+        forgetting IDENTITY (unregister the hash) — when `spill` and a
+        host tier is armed, the identity is queued as a pending spill
+        instead of dropped, so the engine can DMA the page's
+        still-resident device rows into the host store before anything
+        overwrites them ("spill instead of discard")."""
+        page, _ = self._lru.popitem(last=False)
+        if spill and self.host_tier is not None:
+            key = self._hash_of_page.get(page)
+            if key is not None:
+                self._pending_spills.append((page, key))
+        self._unregister(page)
+        return page
+
+    def _take_page(self) -> int:
+        """A writable page: the free list first, then evict the
+        least-recently-parked cached page (spilling its identity to
+        the host tier when one is armed, else dropping its hash)."""
+        if self._free:
+            return self._free.pop()
+        if self._lru:
+            page = self._pop_parked()
+            self.stats["prefix_evictions"] += 1
+            return page
+        raise RuntimeError(
+            "page pool exhausted (scheduler must check free_pages and "
+            "preempt before allocating)")
+
+    def clear_prefix(self) -> int:
+        """Drop the ENTIRE prefix registry: every parked LRU page
+        returns to the plain free list and every mapped page loses its
+        hash. The crash-containment action — after a mid-batch engine
+        failure the device arrays the registry's content lived in are
+        stale or consumed, so nothing on them may be vouched for.
+        Returns the number of hashes dropped."""
+        n = len(self._hash_of_page)
+        while self._lru:
+            page, _ = self._lru.popitem(last=False)
+            self._unregister(page)
+            self._free.append(page)
+        for page in list(self._hash_of_page):
+            self._unregister(page)
+        # queued spills point at the same stale/consumed device rows —
+        # shipping them to the host tier would vouch for garbage
+        self._pending_spills.clear()
+        return n
+
+    def shrink_lru(self, keep: int, *, spill: bool = True) -> int:
+        """Reclaim capacity: evict parked (refcount-0, hashed) pages
+        oldest-first until at most `keep` remain, returning them to the
+        plain free list. The degradation ladder's rung-2 action: under
+        page pressure a parked page is a liability — a prefix attach
+        would pin it at refcount > 0 right when admissions need every
+        reclaimable page. Whether the IDENTITY is also forgotten is the
+        `_pop_parked` split: with a host tier armed (and `spill` left
+        on) rung 2 becomes "spill instead of discard" — the key and
+        content move down a tier instead of being recomputed from
+        tokens later. Returns the number of pages shed."""
+        shed = 0
+        while len(self._lru) > max(0, int(keep)):
+            page = self._pop_parked(spill=spill)
+            self._free.append(page)
+            shed += 1
+        self.stats["lru_shed_pages"] += shed
+        return shed
+
+    # ---------------- disaggregated page handoff ----------------------
+    # Host-side half of the prefill->decode transfer (serve/disagg.py):
+    # export names the FULL, resident pages of a slot with their chain
+    # keys; import allocates pages for foreign keys and parks them in
+    # the prefix LRU — hashed, refcount 0, matchable — which is
+    # EXACTLY the state a locally-computed page reaches when its last
+    # owner finishes, so everything downstream (match_prefix /
+    # attach_prefix / eviction / the ladder) treats handed-off content
+    # identically to local content. The device rows ride separately
+    # through ServeEngine.export_kv/import_kv (this class never
+    # touches device memory).
+
+    def export_pages(self, slot: int, tokens: Sequence[int], *,
+                     prev: bytes = b""
+                     ) -> Tuple[List[int], List[bytes], int]:
+        """(pages, chain keys, covered tokens) for every FULL page of
+        `slot`'s resident sequence — the transfer unit of a
+        disaggregated handoff. `tokens` is the slot's context (the
+        caller owns it; page content is a pure function of the token
+        prefix, which is what makes the chain key a sound transfer
+        identity). The partial tail page is never exported: like
+        prefix sharing, only whole pages have a content identity —
+        the importer recomputes the tail (< page_size tokens), exactly
+        as a prefix-cache hit would. `prev` seeds the chain — the
+        tenant prefix salt (serve/adapters.tenant_prefix_salt): an
+        adapted tenant's pages carry tenant-disjoint keys, so a
+        handoff can never alias one tenant's K/V to another's."""
+        ps = self.cfg.page_size
+        full = int(self.seq_lens[slot]) // ps
+        if full * ps > len(tokens):
+            raise ValueError(
+                f"slot {slot} has {self.seq_lens[slot]} resident "
+                f"tokens but only {len(tokens)} were supplied")
+        pages = [int(self.page_tables[slot, i]) for i in range(full)]
+        if any(p == 0 for p in pages):
+            raise RuntimeError(
+                f"slot {slot} table is not a mapped prefix over its "
+                f"resident length")
+        keys = prefix_page_keys(tokens, ps, full, prev=prev)
+        self.stats["exported_pages"] += len(pages)
+        return pages, keys, full * ps
+
+    def import_pages(self, keys: Sequence[bytes]
+                     ) -> List[Tuple[int, int]]:
+        """Adopt a handed-off page chain: for every chain key not
+        already resident, allocate a page, register the key, and park
+        the page in the prefix LRU (refcount 0, hashed, matchable —
+        the same state finish-time eviction leaves a local page in).
+        Returns [(chain_index, page)] for the pages whose device rows
+        the caller must now write (ServeEngine.import_kv); keys that
+        are already resident dedupe to nothing — a shared system
+        preamble crosses the link ONCE per decode engine, not once per
+        request. The caller must have checked `free_pages` against
+        len(keys): running the allocator dry here is a cluster
+        backpressure bug (DisaggCluster skips the import instead)."""
+        if not self.prefix_enabled:
+            raise RuntimeError(
+                "import_pages needs the prefix cache: an imported page "
+                "is only reachable through its chain-key registration")
+        out: List[Tuple[int, int]] = []
+        for i, key in enumerate(keys):
+            if key in self._page_of_hash:
+                self.stats["import_dedup_pages"] += 1
+                continue
+            page = self._take_page()
+            self._hash_of_page[page] = key
+            self._page_of_hash[key] = page
+            self._lru[page] = None     # most-recently parked
+            self._imported.add(page)
+            out.append((i, page))
+        self.stats["imported_pages"] += len(out)
+        return out
+
+    def imported_pages(self) -> Tuple[int, ...]:
+        """Pages whose resident content arrived over the handoff link
+        (still hashed — eviction drops them from this set too)."""
+        return tuple(sorted(self._imported))
+
+    def key_resident(self, key: bytes) -> bool:
+        """Whether a chain key is already registered here — what the
+        cluster's backpressure check counts a shipment's NEW pages
+        with (resident keys dedupe on import)."""
+        return key in self._page_of_hash
+
+    # ---------------- slot lifecycle ----------------------------------
+    def release_all(self) -> int:
+        """Free every occupied slot (crash recovery: a serving loop
+        died between allocation and the bookkeeping that would have
+        freed it). Committed full pages park in the prefix LRU exactly
+        as finish-time eviction would leave them — their K/V was fully
+        written before commit_page registered them, so they stay
+        safely matchable. Returns the number of slots reclaimed."""
+        occupied = set(range(self.cfg.max_seqs)) - set(self._slot_free)
+        for s in sorted(occupied):
+            # a mid-write tail page may carry no hash; free_slot already
+            # routes hashed -> LRU, unhashed -> free list. But a hashed
+            # page only PARTIALLY covered by seq_lens (a crash between
+            # advance and commit cannot produce one — commit follows
+            # advance — so this is belt and braces) must not stay
+            # matchable: rollback to the resident length first.
+            self.rollback(s, int(self.seq_lens[s]))
+            self.free_slot(s)
+        self.stats["slots_reclaimed"] += len(occupied)
+        return len(occupied)
+
+    def alloc_slot(self) -> int:
+        """Claim an empty decode slot. Pages arrive separately via
+        attach_prefix (shared) and ensure_capacity (fresh)."""
+        if not self._slot_free:
+            raise RuntimeError("no free slot (scheduler must check "
+                               "free_slots first)")
+        return self._slot_free.pop()
+
+    def attach_prefix(self, slot: int, pages: Sequence[int],
+                      ntokens: int) -> None:
+        """Map already-resident prefix pages into an empty slot and mark
+        their `ntokens` tokens resident without any compute. Bumps each
+        page's refcount (pulling refcount-0 pages out of the LRU)."""
+        if self.seq_lens[slot] != 0 or self.mapped_pages(slot) != 0:
+            raise RuntimeError(f"attach_prefix on non-empty slot {slot}")
+        if ntokens != len(pages) * self.cfg.page_size:
+            raise ValueError(
+                f"prefix of {ntokens} tokens does not fill "
+                f"{len(pages)} pages exactly (only whole pages share)")
+        for i, p in enumerate(pages):
+            p = int(p)
+            if self._ref[p] == 0:
+                if p not in self._lru:
+                    raise RuntimeError(
+                        f"page {p} has refcount 0 but is not cached")
+                del self._lru[p]
+            else:
+                self.stats["shared_attaches"] += 1
+            self._ref[p] += 1
+            self.stats["max_page_refs"] = max(self.stats["max_page_refs"],
+                                              int(self._ref[p]))
+            self.page_tables[slot, i] = p
+        self.stats["prefix_hit_pages"] += len(pages)
+        self.seq_lens[slot] = ntokens
+
+    def ensure_capacity(self, slot: int, total_tokens: int) -> int:
+        """Allocate fresh (refcount-1, unhashed) pages so the slot can
+        hold `total_tokens`. Returns the number of pages allocated.
+        The caller (scheduler) must have verified `pages_to_extend`
+        against `free_pages` — running dry here is a scheduling bug."""
+        if total_tokens > self.cfg.pages_per_seq * self.cfg.page_size:
+            raise ValueError(
+                f"{total_tokens} tokens exceeds the page-table ceiling")
+        have = self.mapped_pages(slot)
+        need = self.pages_for(total_tokens)
+        for i in range(have, need):
+            page = self._take_page()
+            self._ref[page] = 1
+            self.page_tables[slot, i] = page
+        return max(0, need - have)
+
+    def pages_to_extend(self, slot: int, total_tokens: int) -> int:
+        return max(0, self.pages_for(total_tokens) - self.mapped_pages(slot))
+
+    def advance(self, slot: int, new_len: int) -> None:
+        """Mark tokens up to `new_len` resident (a completed prefill
+        chunk / decode write). Pages must already be mapped."""
+        if new_len < int(self.seq_lens[slot]):
+            raise ValueError(
+                f"advance moved slot {slot} backwards "
+                f"({self.seq_lens[slot]} -> {new_len})")
+        if self.pages_for(new_len) > self.mapped_pages(slot):
+            raise RuntimeError(
+                f"slot {slot} advanced to {new_len} tokens past its "
+                f"{self.mapped_pages(slot)} mapped pages")
+        self.seq_lens[slot] = new_len
+
+    def append_token(self, slot: int) -> int:
+        """Advance the slot's length by one decoded token, allocating a
+        page on demand when the position crosses a page boundary;
+        returns the new token's position."""
+        if self.seq_lens[slot] == 0:
+            raise RuntimeError(f"append_token on empty slot {slot}")
+        pos = int(self.seq_lens[slot])
+        self.ensure_capacity(slot, pos + 1)
+        self.seq_lens[slot] = pos + 1
+        return pos
+
+    def rollback(self, slot: int, new_len: int) -> int:
+        """Rewind the slot to `new_len` resident tokens and unmap every
+        page wholly past the new boundary. Returns the pages released.
+
+        This is the speculative-decoding undo: rejected draft tokens
+        have already scattered K/V into pages the scheduler mapped
+        ahead (ensure_capacity), and once verification truncates the
+        sequence those tail pages hold garbage. Positions inside the
+        kept pages need no cleanup — reads are masked by seq_lens and
+        the slots are overwritten when the sequence actually reaches
+        them — but whole pages past `pages_for(new_len)` must leave
+        the table so the pool's accounting stays exact.
+
+        A released page is NEVER parked in the prefix LRU, and any
+        hash it carries is dropped when its refcount reaches 0: its
+        content is no longer vouched for by a resident sequence, so a
+        post-rollback tail page must not be prefix-matchable (the
+        check_invariants hashed-page-coverage rule). In the engine's
+        flow these pages are always fresh refcount-1 unhashed
+        allocations — commit_page only ever registers fully VERIFIED
+        pages — but the method is defensive about shared/hashed ones
+        so direct users cannot corrupt the registry."""
+        if new_len < 0:
+            raise ValueError(f"rollback to negative length {new_len}")
+        ps = self.cfg.page_size
+        if new_len < int(self.seq_lens[slot]):
+            self.seq_lens[slot] = new_len
+        released = 0
+        for i in range(self.pages_for(new_len), self.cfg.pages_per_seq):
+            p = int(self.page_tables[slot, i])
+            if p == 0:
+                break  # tables are contiguous prefixes
+            self._ref[p] -= 1
+            if self._ref[p] == 0:
+                self._unregister(p)
+                self._free.append(p)
+            elif not self._vouched(p):
+                self._unregister(p)   # surviving owners rolled back too
+            self.page_tables[slot, i] = 0
+            released += 1
+        # the boundary page stays mapped when new_len cuts into it, but
+        # a hash on it now overclaims (the registry key vouches for the
+        # FULL page) — drop it unless another sequence still covers it
+        if new_len % ps:
+            p = int(self.page_tables[slot, new_len // ps])
+            if p != 0 and p in self._hash_of_page and not self._vouched(p):
+                self._unregister(p)
+        self.stats["rollback_pages"] += released
+        return released
+
+    def _vouched(self, page: int) -> bool:
+        """True when some slot's RESIDENT (seq_lens-covered) full pages
+        include `page` — the condition for its content hash to stay in
+        the registry (check_invariants' hashed-page coverage rule)."""
+        for s in range(self.cfg.max_seqs):
+            full = int(self.seq_lens[s]) // self.cfg.page_size
+            if page in (int(p) for p in self.page_tables[s, :full]):
+                return True
+        return False
+
+    def free_slot(self, slot: int) -> None:
+        """Release the slot: every mapped page's refcount drops; pages
+        reaching 0 go back to the free list — or, if content-hashed, to
+        the reclaimable LRU so a future prompt can still match them.
+        This is both the finished-sequence eviction path and the
+        preemption path (a preempted sequence's prefix stays matchable,
+        which is what makes preemption cheap to undo)."""
+        for i in range(self.cfg.pages_per_seq):
+            p = int(self.page_tables[slot, i])
+            if p == 0:
+                continue
+            self._ref[p] -= 1
+            if self._ref[p] == 0:
+                if p in self._hash_of_page:
+                    self._lru[p] = None   # most-recently parked
+                else:
+                    self._free.append(p)
+            self.page_tables[slot, i] = 0
+        self.seq_lens[slot] = 0
+        self._slot_free.append(slot)
+
+    # ---------------- device arrays -----------------------------------
+    def alloc_device_cache(self, device, dtype=None):
+        """The (k_pages, v_pages) device tensors, each
+        (num_layers, num_pages, page_size, num_heads, head_dim) at the
+        configured kv_dtype (dtype overrides), zeroed on `device`.
+        Created once per engine; the mixed step updates them in place,
+        never through this manager. Quantized pools pair with
+        :meth:`alloc_scale_arrays`."""
+        c = self.cfg
+        shape = (c.num_layers, c.num_pages, c.page_size, c.num_heads,
+                 c.head_dim)
+        dt = dtype or c.storage_dtype
+        return (torch.zeros(shape, dtype=dt, device=device),
+                torch.zeros(shape, dtype=dt, device=device))
+
+    def alloc_scale_arrays(self, device):
+        """The (k_scales, v_scales) f32 per-page scale tensors for
+        quantized (int8/fp8) pools (cfg.scale_shape), zeroed on
+        `device`."""
+        if not self.cfg.quantized:
+            raise RuntimeError(
+                f"scale arrays exist only for quantized (int8/fp8) "
+                f"pools (kv_dtype={self.cfg.kv_dtype})")
+        return (torch.zeros(self.cfg.scale_shape, dtype=torch.float32,
+                            device=device),
+                torch.zeros(self.cfg.scale_shape, dtype=torch.float32,
+                            device=device))
+
+    def register_scale_meta(self, k_scales, v_scales) -> None:
+        """Record the scale-array geometry the engine allocated so
+        check_invariants can vouch for the quantized-page bookkeeping
+        (shape/dtype drift between the host page accounting and the
+        device scale arrays would silently dequantize garbage)."""
+        self._scale_meta = (tuple(k_scales.shape), str(k_scales.dtype),
+                            tuple(v_scales.shape), str(v_scales.dtype))
+
+    def parked_pages(self) -> Tuple[int, ...]:
+        """The prefix-cache-parked pages: complete, unreferenced,
+        prefix-matchable — content that must outlive its writer for a
+        later request to attach (the post-run surface
+        ServeEngine.check_kv_scales audits)."""
+        return tuple(int(p) for p in self._lru)
+
+    def pool_report(self) -> Dict[str, object]:
+        """The KV-pool line of ServeEngine.last_stats / serve_report:
+        storage format, per-page and pool bytes (itemsize-derived),
+        effective pages, and the capacity multiplier vs f32 pages.
+        Occupancy here is INSTANTANEOUS (meaningful mid-run; zero once
+        generate() has released every slot) — last_stats overrides it
+        with the run's peak."""
+        c = self.cfg
+        return {
+            "kv_dtype": c.kv_dtype,
+            "bytes_per_page": c.page_bytes,
+            "effective_pages": c.usable_pages,
+            "pool_bytes": c.pool_bytes,
+            "tensor_parallel": c.tensor_parallel,
+            "bytes_per_page_device": c.page_device_bytes,
+            "pool_device_bytes": c.pool_device_bytes,
+            "occupancy": 1.0 - self.free_pages / c.usable_pages,
+            "page_ratio_vs_f32": round(c.effective_page_ratio, 3),
+            "pages_saved_vs_f32": int(
+                c.usable_pages - c.usable_pages / c.effective_page_ratio),
+        }
+
+    # ---------------- invariant checks (tests) ------------------------
+    def check_invariants(self) -> None:
+        """Property-style asserts: refcounts equal the number of table
+        references, the free/cached/mapped states partition the pool,
+        no page leaks or double-frees, tables are contiguous prefixes,
+        and the hash registry is a consistent bijection."""
+        c = self.cfg
+        table_refs: Dict[int, int] = {}
+        for s in range(c.max_seqs):
+            row = self.page_tables[s]
+            nz = np.flatnonzero(row)
+            n_mapped = len(nz)
+            assert np.array_equal(nz, np.arange(n_mapped)), (
+                f"slot {s} page table is not a contiguous prefix: {row}")
+            assert int(self.seq_lens[s]) <= n_mapped * c.page_size, (
+                f"slot {s} length {self.seq_lens[s]} exceeds its "
+                f"{n_mapped} mapped pages")
+            for p in row[:n_mapped]:
+                table_refs[int(p)] = table_refs.get(int(p), 0) + 1
+        assert 0 not in table_refs, "sink page mapped to a slot"
+        free, lru = set(self._free), set(self._lru)
+        assert len(free) == len(self._free), "free list has duplicates"
+        assert not (free & lru), "page both free and cached"
+        for p in range(1, c.num_pages):
+            r = int(self._ref[p])
+            assert r == table_refs.get(p, 0), (
+                f"page {p} refcount {r} != {table_refs.get(p, 0)} "
+                f"table references")
+            states = (p in free) + (p in lru) + (r > 0)
+            assert states == 1, (
+                f"page {p} in {states} states (free={p in free}, "
+                f"cached={p in lru}, refs={r})")
+            if p in lru:
+                assert p in self._hash_of_page, f"cached page {p} unhashed"
+        assert len(table_refs) + len(free) + len(lru) == c.usable_pages, (
+            "page leak: states do not partition the pool")
+        assert len(self._hash_of_page) == len(self._page_of_hash), (
+            "hash registry is not a bijection")
+        for page, key in self._hash_of_page.items():
+            assert self._page_of_hash.get(key) == page, (
+                f"hash registry maps page {page} inconsistently")
+        # a hashed (prefix-matchable) page must be VOUCHED for: either
+        # parked in the LRU (its last owner completed it before
+        # freeing) or fully covered by some slot's resident length. A
+        # mapped page past any coverage — a speculative tail, or a
+        # rolled-back region — holds unverified K/V and being matchable
+        # would hand garbage to a future prompt (the rollback contract).
+        covered_pages = set()
+        for s in range(c.max_seqs):
+            full = int(self.seq_lens[s]) // c.page_size
+            covered_pages.update(int(p) for p in self.page_tables[s, :full])
+        for page in self._hash_of_page:
+            assert page in self._lru or page in covered_pages, (
+                f"hashed page {page} is neither parked nor fully "
+                f"covered by a resident sequence (rolled-back or "
+                f"speculative pages must not be prefix-matchable)")
+        if not self.prefix_enabled:
+            assert not self._hash_of_page and not self._lru, (
+                "prefix cache disabled but registry non-empty")
+        # disaggregated-handoff bookkeeping: an IMPORTED page's content
+        # was never computed here, so it is reachable ONLY through its
+        # chain-key registration — a resident imported page without a
+        # hash would be unidentifiable garbage. Every imported page
+        # must therefore still be hashed (eviction/_unregister removes
+        # it from the imported set atomically with its key) and in one
+        # of the hashed states the coverage rule above already vouches
+        # for (parked, or mapped under a resident sequence).
+        for page in self._imported:
+            assert page in self._hash_of_page, (
+                f"imported page {page} lost its chain key while still "
+                f"tracked as handoff content")
+        # quantized-page scale bookkeeping: an int8 pool must have
+        # registered scale arrays whose geometry matches the page
+        # geometry exactly — a drifted shape would dequantize every
+        # resident token against the wrong scale rows — and a
+        # non-quantized pool must not carry scale state at all.
+        if c.quantized:
+            if self._scale_meta is not None:
+                ks_shape, ks_dt, vs_shape, vs_dt = self._scale_meta
+                assert ks_shape == c.scale_shape == vs_shape, (
+                    f"scale arrays {ks_shape}/{vs_shape} do not match "
+                    f"the pool geometry {c.scale_shape}")
+                assert ks_dt == vs_dt == str(torch.float32), (
+                    f"scale arrays must be float32, got {ks_dt}/{vs_dt}")
+        else:
+            assert self._scale_meta is None, (
+                f"kv_dtype={c.kv_dtype} pool carries scale bookkeeping")

@@ -1,0 +1,829 @@
+"""Continuous-batching scheduler with chunked prefill and preemption.
+
+A copy of ``flexflow_tpu/serve/scheduler.py`` (pure host bookkeeping),
+kept in the port so it never imports the JAX package. The port serves
+the base model only, so ``adapter_pool`` is always None here, and the
+host-tier hook ``host_reload`` stays unarmed.
+
+Policy (the "continuous batching" of Orca / vLLM plus Sarathi-style
+chunked prefill, re-cut for TPU static shapes — see docs/serving.md):
+
+  * Everything is a CHUNK. Each step, every running request gets a
+    chunk of positions [num_computed, end) to compute: a decoding
+    request's chunk is its single next token, a prefilling request's
+    chunk is up to `prefill_token_budget` prompt tokens. Decode chunks
+    never wait on prefill chunks — they ride in the same fixed-shape
+    engine step — so a long prompt never stalls running decodes, and
+    a prompt longer than the budget simply prefills across several
+    steps (no per-bucket programs, no oversized-prompt special case).
+  * FCFS admission under a WATERMARK, not a worst-case reservation:
+    a request is admitted when a slot is free, the prefill budget has
+    room, and the pool can supply its first chunk's pages while
+    keeping `admit_watermark` of the pool reclaimable. Pages for the
+    rest of the sequence are allocated on demand as it grows.
+  * PREFIX CACHING at admission: the prompt's full token blocks are
+    chain-hashed and matched against resident pages (including pages
+    other chunks in this very step will compute — intra-step sharing
+    is sound because the engine scatters all chunk K/V before any lane
+    attends). Matched tokens are marked computed without running.
+  * PREEMPTION instead of reservation: if a step cannot supply a page
+    for a chunk, the youngest running request (highest rid — the one
+    FCFS would have admitted last) is evicted back to the FRONT of the
+    waiting queue and its pages released. Its completed pages stay in
+    the prefix cache, so on re-admission it matches most of its own
+    history and recomputes only the tail — preemption costs one page
+    walk, not a full re-prefill.
+  * Head-of-line blocking is deliberate: when the oldest waiting
+    request doesn't fit, admission stops rather than scanning past it,
+    so no request can be starved by a stream of smaller latecomers.
+    A forced-progress escape admits the head with a shrunken chunk when
+    nothing at all is running (the watermark must not deadlock an
+    empty engine).
+
+The scheduler is pure host-side bookkeeping over the PagedKVCache; the
+engine owns all device work. Splitting it this way keeps the policy
+testable as plain Python (tests/test_serve*.py property asserts) and
+keeps the jitted steps free of data-dependent shapes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import itertools
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence
+
+from ..utils.faults import FaultInjector
+from .adapters import tenant_prefix_salt
+from .kv_cache import PagedKVCache, prefix_page_keys
+from .speculative import DraftControl, Drafter, PromptLookupDrafter
+
+# process-unique request trace ids (flexflow_tpu/utils/telemetry.py
+# next_trace_id): minted at submit, carried on every Request
+_TRACE_IDS = itertools.count(1)
+
+
+def next_trace_id() -> int:
+    return next(_TRACE_IDS)
+
+
+class RequestState(enum.Enum):
+    WAITING = "waiting"
+    RUNNING = "running"   # holds a decode slot (prefilling or decoding)
+    FINISHED = "finished"
+
+
+class RequestOutcome:
+    """How a request left the system (Request.outcome). PENDING while
+    in flight; exactly one terminal value afterwards."""
+
+    PENDING = "pending"
+    COMPLETED = "completed"
+    CANCELLED = "cancelled"
+    DEADLINE_EXPIRED = "deadline_expired"
+    REJECTED = "rejected"
+    FAILED = "failed"          # a mid-generate engine exception
+
+
+@dataclasses.dataclass(frozen=True)
+class RejectedRequest:
+    """Structured record of a rung-4 rejection (stats['rejected_requests']):
+    the request was refused service instead of deadlocking the step or
+    raising out of the whole batch."""
+
+    rid: int
+    reason: str
+
+
+@dataclasses.dataclass(frozen=True)
+class SampleParams:
+    """Per-request sampling. temperature <= 0 means greedy; top_k
+    restricts sampling to the k highest logits (None = the engine's
+    static top-k cap). The (seed, rid, token-index) triple seeds every
+    draw, so a fixed seed reproduces a stream exactly — including
+    across a preemption, which replays no RNG state."""
+
+    temperature: float = 0.0
+    top_k: Optional[int] = None
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request. `prompt` is token ids; generation stops
+    after `max_new_tokens` or on `eos_token` (if given)."""
+
+    rid: int
+    prompt: List[int]
+    max_new_tokens: int
+    eos_token: Optional[int] = None
+    sample: Optional[SampleParams] = None
+    # sampling stream identity (docs/serving.md "Sampled streams"):
+    # seeded draws key on (seed, stream_id, stream_offset + token
+    # index) instead of the LOCAL scheduler's rid/token index, so a
+    # stream survives crossing schedulers — the disaggregated
+    # prefill->decode handoff resumes a stream at offset 1 on the
+    # decode engine, and a routed replica reproduces the exact stream
+    # a single-replica engine would emit. None = the rid (the
+    # pre-stream behavior, bit-identical).
+    stream_id: Optional[int] = None
+    stream_offset: int = 0
+    # multi-tenant adapter serving (serve/adapters.py): the tenant
+    # whose LoRA adapter this request decodes under (0 = the base
+    # model, no adapter). adapter_slot is the pool slot the request
+    # holds from admission to finish/abort/preempt (None while
+    # waiting or for tenant 0) — the lane's slab gather index.
+    tenant_id: int = 0
+    adapter_slot: Optional[int] = None
+    # trace-context propagation (docs/observability.md): the
+    # process-unique trace id every telemetry span of this request
+    # carries. Minted at the FIRST tier that sees the request (router
+    # submit / DisaggCluster generate / scheduler submit), and carried
+    # across engines — a disagg decode-role request REUSES the id its
+    # prefill-role twin was minted, so one causally-linked timeline
+    # covers the whole life. Never None after submit().
+    trace_id: int = 0
+
+    state: RequestState = RequestState.WAITING
+    slot: int = -1
+    out_tokens: List[int] = dataclasses.field(default_factory=list)
+    # tokens whose K/V is resident (prefix-cache hits + computed chunks)
+    num_computed: int = 0
+    preemptions: int = 0
+    # robustness: absolute (perf_counter) deadline, 0 = none; terminal
+    # outcome; consecutive stalled admission attempts at rung >= 3
+    t_deadline: float = 0.0
+    outcome: str = RequestOutcome.PENDING
+    stalled: int = 0
+    # adaptive draft-length state (speculative decoding); None when the
+    # request is ineligible (non-deterministic sampling) or spec is off
+    spec: Optional[DraftControl] = None
+    _page_keys: List[bytes] = dataclasses.field(default_factory=list,
+                                                repr=False)
+    # serving metrics (utils/profiling.serve_report, telemetry queue-
+    # wait spans): wall-clock stamps. t_admit is stamped by the engine
+    # at the first step that plans the request (0.0 until then).
+    t_submit: float = 0.0
+    t_admit: float = 0.0
+    t_first_token: float = 0.0
+    t_finish: float = 0.0
+    # host-tier spill-vs-recompute decision recorded at admission
+    # (ServeEngine._host_reload; explain_request surfaces it) — None
+    # until the armed tier matches this request's prefix
+    host_reload: Optional[dict] = dataclasses.field(default=None,
+                                                    repr=False)
+    # preemption stamp for the telemetry requeue_wait span (set at
+    # eviction, cleared at re-admission; telemetry-only bookkeeping)
+    _t_requeue: Optional[float] = dataclasses.field(default=None,
+                                                    repr=False)
+
+    @property
+    def total_tokens(self) -> int:
+        return len(self.prompt) + self.max_new_tokens
+
+    @property
+    def context(self) -> List[int]:
+        """Every token whose K/V the engine may need: the prompt plus
+        all generated tokens. A freshly-preempted request resumes by
+        re-prefilling THIS (its generated work is not redone, only its
+        K/V), which is why it lives here and not on the engine."""
+        return self.prompt + self.out_tokens
+
+    def is_done(self) -> bool:
+        if len(self.out_tokens) >= self.max_new_tokens:
+            return True
+        return (self.eos_token is not None and self.out_tokens
+                and self.out_tokens[-1] == self.eos_token)
+
+
+@dataclasses.dataclass
+class ChunkPlan:
+    """One request's work in one engine step: compute K/V (and logits)
+    for context positions [start, end). When `end` reaches the full
+    context length the chunk's last lane EMITS the next token — that is
+    both the final prefill chunk of a prompt and every decode step
+    (a decode is just a 1-token chunk that reaches the end)."""
+
+    req: Request
+    start: int
+    end: int
+    is_decode: bool   # an actively-generating request's 1-token chunk
+    # speculative continuation: drafted tokens for positions
+    # [end, end + len(draft_tokens)) packed as extra lanes AFTER the
+    # context lanes. Their K/V scatters like any lane's, but nothing is
+    # resident until verification accepts a prefix (complete_spec_chunk)
+    # and the remainder rolls back. Only decode chunks draft.
+    draft_tokens: List[int] = dataclasses.field(default_factory=list)
+
+    @property
+    def emits(self) -> bool:
+        return self.end == len(self.req.context)
+
+
+@dataclasses.dataclass
+class StepPlan:
+    """What one engine iteration executes."""
+
+    chunks: List[ChunkPlan]
+    admitted: List[Request]
+    preempted: List[Request]
+
+    @property
+    def prefills(self) -> List[Request]:
+        return [c.req for c in self.chunks if not c.is_decode]
+
+    @property
+    def decodes(self) -> List[Request]:
+        return [c.req for c in self.chunks if c.is_decode]
+
+    @property
+    def num_prefill_lanes(self) -> int:
+        return sum(c.end - c.start for c in self.chunks if not c.is_decode)
+
+    @property
+    def num_decode_lanes(self) -> int:
+        return sum(1 for c in self.chunks if c.is_decode)
+
+
+def watermark_pages(admit_watermark: float, usable_pages: int) -> int:
+    """The admission watermark as a page count: the floor of
+    reclaimable pages admission must leave standing. ONE formula,
+    shared by every consumer of the backpressure signal — the
+    scheduler's waiting-queue admissions, the disagg handoff's
+    shipment gate, and the cross-process shipment receiver — so
+    "above the watermark" means the same thing in-process and across
+    the wire."""
+    return int(float(admit_watermark) * int(usable_pages))
+
+
+class ContinuousBatchingScheduler:
+    # graceful-degradation ladder: page-pool utilization (1 - the
+    # reclaimable fraction) at which each rung arms. Rung 1 sheds
+    # speculation (drafts are optimism, not owed work), rung 2 stops
+    # prefix-matching new admissions and sheds the parked LRU (an
+    # attach would pin reclaimable pages), rung 3 tightens the
+    # admission watermark 4x, rung 4 rejects what cannot be served
+    # (structured RejectedRequest instead of a deadlock or a raise).
+    #
+    # Every threshold here — like the admission watermark and all of
+    # ensure_capacity/pages_to_extend — is a fraction of PAGE COUNTS
+    # over cfg.usable_pages, never device bytes: the page count is
+    # derived upstream from the configured kv_dtype's itemsize AND the
+    # serve mesh's tensor degree (KVCacheConfig.page_device_bytes /
+    # kv_pool_mb per-DEVICE sizing), so a quantized pool's extra pages
+    # raise the rung/watermark ceilings automatically and nothing
+    # below may assume 4-byte elements. Under head-sharded serving
+    # every device holds ALL pages at H/t heads each, so the count —
+    # and with it every watermark/ladder fraction — is per-device-
+    # identical: rungs fire at the same relative per-device pressure
+    # at any tensor degree (docs/serving.md "Sharded serving").
+    LADDER = (0.85, 0.92, 0.97)
+    RUNG3_WATERMARK_FRAC = 0.08
+
+    def __init__(self, cache: PagedKVCache,
+                 prefill_token_budget: int = 512,
+                 chunked_prefill: bool = True,
+                 admit_watermark: float = 0.02,
+                 spec_tokens: int = 0,
+                 drafter: Optional[Drafter] = None,
+                 faults: Optional[FaultInjector] = None,
+                 degrade_ladder: bool = True,
+                 reject_stalls: int = 0,
+                 adapter_pool=None,
+                 host_reload=None):
+        self.cache = cache
+        # hierarchical host tier (serve/host_tier.py): the engine's
+        # priced reload hook `host_reload(req, keys, cached_pages,
+        # max_pages) -> pages made resident`. None = no tier; the
+        # scheduler only decides WHEN to ask (rung < 2, HBM match
+        # exhausted, room below the watermark) — the engine prices
+        # DMA-vs-recompute and moves the bytes.
+        self.host_reload = host_reload
+        # multi-tenant LoRA pool (serve/adapters.py): admission
+        # acquires the tenant's slot (possibly queueing a device load)
+        # and finish/abort/preempt release it — the same lifecycle as
+        # KV pages. None = single-tenant serving (tenant 0 only).
+        self.adapters = adapter_pool
+        self.faults = faults if faults is not None else FaultInjector()
+        self.degrade_ladder = bool(degrade_ladder)
+        self.reject_stalls = int(reject_stalls)
+        self.rung = 0
+        self.prefill_token_budget = int(prefill_token_budget)
+        self.chunked_prefill = bool(chunked_prefill)
+        # prefix sharing needs chunked prefill: the legacy per-bucket
+        # program recomputes and RE-SCATTERS every prompt position, which
+        # would clobber shared pages other sequences are reading
+        self.prefix_cache = cache.prefix_enabled and self.chunked_prefill
+        # speculative decoding also needs the mixed program: the legacy
+        # decode step has exactly one lane per slot, nowhere to verify
+        self.spec_tokens = int(spec_tokens) if self.chunked_prefill else 0
+        self.drafter = drafter if drafter is not None \
+            else (PromptLookupDrafter() if self.spec_tokens > 0 else None)
+        self.watermark_pages = watermark_pages(
+            admit_watermark, cache.cfg.usable_pages)
+        self.waiting: Deque[Request] = deque()
+        self.running: Dict[int, Request] = {}  # slot -> request
+        self._next_rid = 0
+        self.stats = {"prefix_hit_tokens": 0, "prompt_tokens": 0,
+                      "prefill_lane_tokens": 0, "decode_lane_tokens": 0,
+                      "preemptions": 0, "spec_drafted_tokens": 0,
+                      "spec_accepted_tokens": 0,
+                      # robustness counters (serve_report)
+                      "cancelled": 0, "deadline_expired": 0,
+                      "rejected": 0, "failed": 0, "spec_shed_steps": 0,
+                      # adapter-pool admission stalls (head-of-line
+                      # blocks because every usable slot was mapped)
+                      "adapter_blocked_steps": 0,
+                      "degradation_rung_max": 0,
+                      "rung_steps": [0, 0, 0, 0, 0]}
+        self.rejected_requests: List[RejectedRequest] = []
+
+    # ---------------- submission --------------------------------------
+    def submit(self, prompt: Sequence[int], max_new_tokens: int,
+               eos_token: Optional[int] = None,
+               sample: Optional[SampleParams] = None,
+               stream_id: Optional[int] = None,
+               stream_offset: int = 0,
+               trace_id: Optional[int] = None,
+               tenant_id: int = 0) -> Request:
+        if len(prompt) < 1:
+            raise ValueError("empty prompt")
+        tenant_id = int(tenant_id)
+        if tenant_id < 0:
+            raise ValueError(f"tenant_id must be >= 0, got {tenant_id}")
+        if tenant_id != 0:
+            # fail fast at submit, not at admission: an unarmed engine
+            # or an unregistered tenant can never be served, and
+            # admission-time failure would poison the queue head
+            if self.adapters is None:
+                raise ValueError(
+                    f"tenant {tenant_id} needs an adapter pool "
+                    f"(--adapter-rank > 0), but this engine serves "
+                    f"the base model only")
+            if tenant_id not in self.adapters.registered():
+                raise ValueError(
+                    f"tenant {tenant_id} has no registered adapter "
+                    f"(engine.register_adapter first)")
+        if int(max_new_tokens) < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1 (got {max_new_tokens}): "
+                f"the final prefill chunk always emits the first token")
+        total = len(prompt) + int(max_new_tokens)
+        if total > self.cache.cfg.max_seq_len:
+            raise ValueError(
+                f"request needs {total} tokens > max_seq_len "
+                f"{self.cache.cfg.max_seq_len}")
+        if stream_id is not None and int(stream_id) < 0:
+            raise ValueError(
+                f"stream_id must be >= 0 (seed-sequence entries are "
+                f"unsigned), got {stream_id}")
+        req = Request(rid=self._next_rid, prompt=list(prompt),
+                      max_new_tokens=int(max_new_tokens),
+                      eos_token=eos_token, sample=sample,
+                      stream_id=(None if stream_id is None
+                                 else int(stream_id)),
+                      stream_offset=int(stream_offset),
+                      # an upstream tier (router / disagg cluster)
+                      # passes the id it minted; a plain engine mints
+                      # here — either way every span carries ONE id
+                      trace_id=(next_trace_id() if trace_id is None
+                                else int(trace_id)),
+                      tenant_id=tenant_id)
+        # speculation needs a deterministic per-lane pick to verify
+        # against: greedy, or top_k=1 sampling (the already-drawn sample
+        # is always the top-1 logit). Other sampling decodes with k=0.
+        if self.spec_tokens > 0 and (sample is None or sample.top_k == 1):
+            req.spec = DraftControl(self.spec_tokens)
+        self._next_rid += 1
+        self.waiting.append(req)
+        self.stats["prompt_tokens"] += len(prompt)
+        return req
+
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    # ---------------- prefix keys -------------------------------------
+    def _keys_for(self, req: Request, npages: int) -> List[bytes]:
+        """The request's chain keys for its first `npages` full pages,
+        extended INCREMENTALLY from the last cached key (hashing is
+        O(pages) per sequence, not O(pages^2) across chunk steps) and
+        kept across preemptions (the context tokens a key commits to
+        never change). The chain is SEEDED with the tenant's prefix
+        salt: an adapted lane's K/V is a function of its adapter, so
+        equal tokens under different tenants must hash to disjoint
+        keys — tenant 0 keeps the unsalted chain (adapters.
+        tenant_prefix_salt)."""
+        keys = req._page_keys
+        if len(keys) < npages:
+            keys.extend(prefix_page_keys(
+                req.context, self.cache.cfg.page_size, npages,
+                start=len(keys),
+                prev=(keys[-1] if keys
+                      else tenant_prefix_salt(req.tenant_id))))
+        return keys[:npages]
+
+    # ---------------- the policy --------------------------------------
+    def schedule(self) -> StepPlan:
+        """Plan one step. Continues running requests first (decodes are
+        guaranteed lanes; prefill continuations share the budget FCFS),
+        preempting youngest-first on page pressure, then admits from
+        the waiting queue under the budget + watermark."""
+        ps = self.cache.cfg.page_size
+        cache = self.cache
+        usable = cache.cfg.usable_pages
+        # injected page-pool pressure (chaos tests): hide a fraction of
+        # the reclaimable pool from PLANNING. Allocation still draws
+        # from the real pool, so invariants cannot break — the step
+        # just shrinks/preempts/degrades exactly as real exhaustion
+        # would force it to.
+        squeeze = self.faults.level("serve.page_pressure")
+        hidden = min(usable, int(squeeze * usable))
+
+        def eff_free() -> int:
+            return max(0, cache.free_pages - hidden)
+
+        # degradation rung for THIS step, from planning-visible pressure
+        util = 1.0 - eff_free() / usable
+        self.rung = (sum(util >= t for t in self.LADDER)
+                     if self.degrade_ladder else 0)
+        if self.rung >= 2:
+            cache.shrink_lru(usable // 4)
+        wm = self.watermark_pages
+        if self.rung >= 3:
+            wm = max(wm, int(self.RUNG3_WATERMARK_FRAC * usable) + 1)
+        rejected_before = len(self.rejected_requests)
+        chunks: List[ChunkPlan] = []
+        admitted: List[Request] = []
+        preempted: List[Request] = []
+        budget = self.prefill_token_budget
+        # chain key -> physical page for FULL pages some chunk planned
+        # THIS step will compute: later admissions in the same step may
+        # share them (the engine scatters all chunk K/V before any lane
+        # attends, so intra-step sharing observes computed values)
+        pending: Dict[bytes, int] = {}
+
+        def note_pending(req: Request, start: int, end: int) -> None:
+            if not self.prefix_cache:
+                return
+            keys = self._keys_for(req, end // ps)
+            for idx in range(start // ps, end // ps):
+                pending.setdefault(keys[idx],
+                                   int(cache.page_tables[req.slot, idx]))
+
+        # ---- 1. running requests, FCFS (oldest first) ----
+        order = sorted(self.running.values(), key=lambda r: r.rid)
+        shed_this_step = False   # spec_shed_steps is per-STEP
+        i = 0
+        while i < len(order):
+            req = order[i]
+            ctx_len = len(req.context)
+            remaining = ctx_len - req.num_computed
+            assert remaining >= 1, f"request {req.rid} over-computed"
+            is_decode = remaining == 1 and bool(req.out_tokens)
+            want = 1 if is_decode else min(budget, remaining)
+            if want == 0:           # prefill budget spent this step
+                i += 1
+                continue
+            end = req.num_computed + want
+            # shrink to the pages actually available before preempting
+            fit = cache.mapped_tokens(req.slot) + eff_free() * ps
+            end = min(end, fit)
+            if end <= req.num_computed:
+                # not even one token's page: evict the youngest running
+                victim = order.pop()   # always at an index >= i
+                self._preempt(victim)
+                preempted.append(victim)
+                continue               # retry req (unless req WAS victim)
+            cache.ensure_capacity(req.slot, end)
+            draft: List[int] = []
+            if is_decode and req.spec is not None and self.rung >= 1:
+                # ladder rung 1: shed speculation — a draft is
+                # optimism, and under page pressure its mapped-ahead
+                # pages are exactly what admissions are starved of.
+                # Counted once per step, and only when the non-degraded
+                # path would actually have drafted (budget left).
+                if budget > 0 and not shed_this_step:
+                    self.stats["spec_shed_steps"] += 1
+                    shed_this_step = True
+            elif is_decode and req.spec is not None and budget > 0:
+                # drafts ride in PREFILL-budget lanes (the decode lane
+                # itself is from the guaranteed max_seqs reserve, so
+                # decode never starves) and draw pages like any growth —
+                # but they only SHRINK under pressure, never preempt: a
+                # draft is an optimization, not owed work. Capped so the
+                # step cannot emit past max_new_tokens (each accepted
+                # draft plus the bonus token is one emission).
+                k = min(req.spec.next_k(), budget,
+                        req.max_new_tokens - len(req.out_tokens) - 1,
+                        cache.mapped_tokens(req.slot)
+                        + eff_free() * ps - end)
+                if k > 0:
+                    # clamp: the budget/page/length math above assumed
+                    # at most k, and a plugged-in drafter's contract is
+                    # "UP TO k" — never trust it with the allocator
+                    draft = list(self.drafter.draft(req.context, k))[:k]
+                if draft:
+                    cache.ensure_capacity(req.slot, end + len(draft))
+                    budget -= len(draft)
+            chunks.append(ChunkPlan(req, req.num_computed, end, is_decode,
+                                    draft_tokens=draft))
+            note_pending(req, req.num_computed, end)
+            if not is_decode:
+                budget -= end - req.num_computed
+            i += 1
+
+        # ---- 2. admissions, FCFS with head-of-line blocking ----
+        while self.waiting and cache.free_slots > 0:
+            req = self.waiting[0]
+            # forced-progress escape: with nothing running and nothing
+            # planned, the watermark/page checks must not deadlock —
+            # admit the head with however small a chunk fits
+            forced = not chunks and not self.running
+            if budget <= 0:
+                break
+            ctx = req.context
+            ctx_len = len(ctx)
+            cached_pages: List[int] = []
+            # ladder rung 2: no prefix matching for new admissions — an
+            # attach pins reclaimable parked pages at refcount > 0
+            # right when the pool needs them back
+            if self.prefix_cache and self.rung < 2:
+                # never match the final token's page: at least one lane
+                # must run to produce the next-token logits, and a
+                # partial tail page is never shared anyway
+                keys = self._keys_for(req, (ctx_len - 1) // ps)
+                cached_pages = cache.match_prefix(keys)
+                # host-tier fall-through: when the HBM run ends short
+                # of the chain, ask the engine to extend it from the
+                # host store — capped so the import cannot eat the
+                # watermark or the matched run's own reclaimability.
+                # Reloaded pages park hashed/refcount-0, so free_pages
+                # (and the admission math below) is unchanged.
+                if self.host_reload is not None \
+                        and len(cached_pages) < len(keys):
+                    lru0 = sum(1 for p in cached_pages
+                               if cache.ref(p) == 0)
+                    room = eff_free() - lru0 - wm
+                    if room > 0 and self.host_reload(
+                            req, keys, cached_pages, room) > 0:
+                        cached_pages = cache.match_prefix(keys)
+                k = len(cached_pages)
+                while k < len(keys) and keys[k] in pending:
+                    cached_pages.append(pending[keys[k]])
+                    k += 1
+            cached_len = len(cached_pages) * ps
+            end = min(ctx_len, cached_len + budget)
+            if not self.chunked_prefill:
+                # legacy whole-prompt prefill: one bucket program per
+                # request; the first admission of a step ignores the
+                # budget so an over-budget prompt still gets served
+                if end < ctx_len and any(not c.is_decode for c in chunks):
+                    break
+                end = ctx_len
+            # matched pages sitting at refcount 0 come OUT of the
+            # reclaimable count the moment we attach them
+            lru_cached = sum(1 for p in cached_pages if cache.ref(p) == 0)
+            need = cache.pages_for(end) - len(cached_pages)
+            if forced:
+                avail = (eff_free() - lru_cached) * ps
+                if self.chunked_prefill:
+                    end = min(end, cached_len + avail)
+                if end <= cached_len or cached_len + avail < end:
+                    # ladder rung 4: nothing is running, nothing else is
+                    # planned, and the head STILL cannot get one chunk's
+                    # pages — serving it is impossible at current
+                    # pressure. Reject it (structured outcome) instead
+                    # of raising out of the whole batch, and let the
+                    # next waiting request try. With the ladder
+                    # disabled, the pre-ladder contract (raise) holds.
+                    if not self.degrade_ladder:
+                        raise RuntimeError(
+                            "page pool too small for the oldest waiting "
+                            "request's first chunk")
+                    self._reject(req, "first chunk cannot fit the "
+                                 "reclaimable page pool")
+                    continue
+            elif need + lru_cached + wm > eff_free():
+                # head-of-line: nothing admits past the head. Under the
+                # opt-in online-serving policy, a head that stalls
+                # `reject_stalls` CONSECUTIVE steps at rung >= 3 is
+                # rejected (rung 4) so the queue behind it is not
+                # starved by a request the pool cannot serve soon.
+                # Ordinary low-pressure blocking (waiting out a full
+                # running set) must not pre-charge the counter, so
+                # stalls only count — and only survive — at rung >= 3.
+                if self.rung >= 3:
+                    req.stalled += 1
+                    if self.reject_stalls \
+                            and req.stalled >= self.reject_stalls:
+                        self._reject(
+                            req, f"stalled {req.stalled} admission "
+                            f"attempts at rung {self.rung}")
+                        continue
+                else:
+                    req.stalled = 0
+                break
+            # adapter admission gate (serve/adapters.py): attach the
+            # tenant's pool slot — possibly queueing a device load the
+            # session drains before dispatch — BEFORE the request
+            # leaves the queue. None means every usable slot is mapped
+            # by OTHER running tenants: head-of-line block, exactly
+            # like KV page exhaustion (a release at finish/abort/
+            # preempt unblocks a later schedule()). The stall is
+            # planning-visible, never a recompile. Cannot deadlock:
+            # with nothing running no slot holds refs, so the forced-
+            # progress head always acquires.
+            if self.adapters is not None and req.tenant_id != 0 \
+                    and req.adapter_slot is None:
+                aslot = self.adapters.acquire(req.tenant_id)
+                if aslot is None:
+                    self.stats["adapter_blocked_steps"] += 1
+                    break
+                req.adapter_slot = aslot
+            req.stalled = 0
+            self.waiting.popleft()
+            slot = cache.alloc_slot()
+            req.slot = slot
+            req.state = RequestState.RUNNING
+            if cached_pages:
+                cache.attach_prefix(slot, cached_pages, cached_len)
+                self.stats["prefix_hit_tokens"] += cached_len
+            req.num_computed = cached_len
+            cache.ensure_capacity(slot, end)
+            self.running[slot] = req
+            chunks.append(ChunkPlan(req, cached_len, end, False))
+            note_pending(req, cached_len, end)
+            admitted.append(req)
+            budget -= end - cached_len
+
+        plan = StepPlan(chunks=chunks, admitted=admitted,
+                        preempted=preempted)
+        self.stats["prefill_lane_tokens"] += plan.num_prefill_lanes
+        self.stats["decode_lane_tokens"] += plan.num_decode_lanes
+        # rung_steps is a per-STEP histogram (sums to schedule() calls):
+        # a step that rejected anything counts as rung 4, regardless of
+        # how many requests it refused
+        step_rung = 4 if len(self.rejected_requests) > rejected_before \
+            else self.rung
+        self.stats["rung_steps"][step_rung] += 1
+        self.stats["degradation_rung_max"] = max(
+            self.stats["degradation_rung_max"], step_rung)
+        return plan
+
+    def _reject(self, req: Request, reason: str) -> None:
+        """Rung-4 action: refuse service to the WAITING-queue head with
+        a structured outcome instead of deadlocking the step or
+        raising out of the whole batch."""
+        assert self.waiting and self.waiting[0] is req
+        self.waiting.popleft()
+        self._release_adapter(req)
+        req.state = RequestState.FINISHED
+        req.outcome = RequestOutcome.REJECTED
+        self.stats["rejected"] += 1
+        self.rejected_requests.append(RejectedRequest(req.rid, reason))
+
+    def abort(self, req: Request, outcome: str) -> bool:
+        """Abort a request at a chunk boundary (host-side cancel, an
+        expired deadline, or a mid-batch engine failure): a RUNNING
+        request's slot and pages release through the same refcount
+        machinery as finish() — committed prefix pages stay matchable,
+        everything else returns to the pool — and a WAITING request
+        simply leaves the queue. Returns False when the request is
+        already finished (abort lost the race with completion)."""
+        if req.state == RequestState.RUNNING:
+            del self.running[req.slot]
+            self.cache.free_slot(req.slot)
+            req.slot = -1
+        elif req.state == RequestState.WAITING:
+            try:
+                self.waiting.remove(req)
+            except ValueError:
+                return False
+        else:
+            return False
+        self._release_adapter(req)
+        req.state = RequestState.FINISHED
+        req.outcome = outcome
+        if outcome in self.stats:
+            self.stats[outcome] += 1
+        return True
+
+    def _release_adapter(self, req: Request) -> None:
+        """Drop the request's adapter-pool reference (no-op for the
+        base tenant / a never-admitted request). The slot parks in the
+        pool's LRU at refcount 0 — still loaded, so re-admission of
+        the same tenant (including a preempted request's own return)
+        re-attaches without a device load."""
+        if req.adapter_slot is not None and self.adapters is not None:
+            self.adapters.release(req.tenant_id)
+        req.adapter_slot = None
+
+    def _preempt(self, victim: Request) -> None:
+        """Evict a running request back to the FRONT of the waiting
+        queue (it is the youngest running, so rid order — FCFS priority
+        — is preserved). Its pages are released; the content-hashed
+        ones stay matchable, so re-admission restores most of its
+        history from the prefix cache instead of recomputing it."""
+        del self.running[victim.slot]
+        self.cache.free_slot(victim.slot)
+        self._release_adapter(victim)
+        victim.slot = -1
+        victim.state = RequestState.WAITING
+        victim.num_computed = 0
+        victim.preemptions += 1
+        self.stats["preemptions"] += 1
+        self.waiting.appendleft(victim)
+
+    def complete_chunk(self, chunk: ChunkPlan) -> None:
+        """Bookkeeping after the engine computed a chunk: the tokens
+        are now resident, and every page the chunk COMPLETED is
+        registered in the prefix cache (full pages only — the tail is
+        still being written). The engine emits the chunk's token (if
+        `chunk.emits`) after this call."""
+        assert not chunk.draft_tokens, (
+            "speculative chunks complete via complete_spec_chunk "
+            "(their residency depends on verification)")
+        req = chunk.req
+        self.cache.advance(req.slot, chunk.end)
+        req.num_computed = chunk.end
+        if self.prefix_cache:
+            ps = self.cache.cfg.page_size
+            keys = self._keys_for(req, chunk.end // ps)
+            for idx in range(chunk.start // ps, chunk.end // ps):
+                self.cache.commit_page(req.slot, idx, keys[idx])
+
+    def complete_spec_chunk(self, chunk: ChunkPlan, accepted: int) -> None:
+        """Bookkeeping after the engine VERIFIED a speculative decode
+        chunk: the chunk's context token plus the `accepted`-token
+        prefix of its drafts are resident (their K/V was computed with
+        exactly the tokens the model emitted, so it is bit-identical to
+        what sequential decode would have written); everything past
+        them — rejected drafts and the pages mapped ahead for them —
+        rolls back. Must be called AFTER the engine appended the
+        emitted tokens to the request (prefix keys hash the context,
+        which now covers every verified position); only fully-verified
+        pages are committed, so a rolled-back page can never enter the
+        registry."""
+        assert chunk.is_decode, "only decode chunks speculate"
+        assert 0 <= accepted <= len(chunk.draft_tokens)
+        req = chunk.req
+        verified = chunk.end + accepted
+        self.cache.advance(req.slot, verified)
+        self.cache.rollback(req.slot, verified)
+        req.num_computed = verified
+        self.stats["spec_drafted_tokens"] += len(chunk.draft_tokens)
+        self.stats["spec_accepted_tokens"] += accepted
+        if req.spec is not None:
+            req.spec.record(len(chunk.draft_tokens), accepted)
+        if self.prefix_cache:
+            ps = self.cache.cfg.page_size
+            keys = self._keys_for(req, verified // ps)
+            for idx in range(chunk.start // ps, verified // ps):
+                self.cache.commit_page(req.slot, idx, keys[idx])
+
+    def debug_state(self, max_requests: int = 32) -> dict:
+        """Bounded JSON-ready snapshot of the scheduler for the
+        failure flight recorder (docs/observability.md "Failure flight
+        recorder"): the waiting queue and running set (capped at
+        `max_requests` entries each — a post-mortem bundle must stay
+        bounded no matter how deep the queue was), the current
+        degradation rung, the lifetime stats dict, and the structured
+        rejections. Pure observation — never mutates."""
+        def row(r: Request) -> dict:
+            return {"rid": r.rid, "trace": r.trace_id,
+                    "state": r.state.value, "slot": r.slot,
+                    "tenant": r.tenant_id,
+                    "adapter_slot": r.adapter_slot,
+                    "prompt_tokens": len(r.prompt),
+                    "out_tokens": len(r.out_tokens),
+                    "num_computed": r.num_computed,
+                    "preemptions": r.preemptions,
+                    "outcome": r.outcome}
+        waiting = list(self.waiting)
+        running = sorted(self.running.values(), key=lambda r: r.rid)
+        return {
+            "rung": self.rung,
+            "waiting_depth": len(waiting),
+            "running_depth": len(running),
+            "waiting": [row(r) for r in waiting[:max_requests]],
+            "running": [row(r) for r in running[:max_requests]],
+            "stats": {k: (list(v) if isinstance(v, list) else v)
+                      for k, v in self.stats.items()},
+            "rejected_requests": [
+                {"rid": rr.rid, "reason": rr.reason}
+                for rr in self.rejected_requests[-max_requests:]],
+        }
+
+    def finish(self, req: Request) -> None:
+        """Evict a finished sequence: its slot's pages drop a refcount —
+        unshared, unhashed ones return to the pool; hashed ones park in
+        the prefix cache's LRU — so the next schedule() backfills from
+        the waiting queue."""
+        assert req.state == RequestState.RUNNING, req.state
+        req.state = RequestState.FINISHED
+        req.outcome = RequestOutcome.COMPLETED
+        del self.running[req.slot]
+        self.cache.free_slot(req.slot)
+        self._release_adapter(req)
+        req.slot = -1

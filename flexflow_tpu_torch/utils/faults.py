@@ -1,0 +1,299 @@
+"""Deterministic fault injection — the chaos-testing substrate.
+
+A copy of ``flexflow_tpu/utils/faults.py``: the port keeps its own so
+it never imports the JAX package. Of its sites, the serving slice uses
+``serve.page_pressure`` (scheduler step sizing).
+
+A production replica lives with preempted VMs, transient device
+errors, client disconnects and kill -9 mid-checkpoint; none of those
+appear in a clean test run unless something injects them. This module
+is that something: subsystems mark their failure-prone boundaries with
+named SITES (`fire("serve.mixed")` before a program dispatch,
+`fire("ckpt.commit")` between a checkpoint's temp write and its atomic
+promote, `level("serve.page_pressure")` when the scheduler sizes a
+step), and a :class:`FaultInjector` configured from a compact spec
+string decides — deterministically — which invocation of which site
+fails, and how.
+
+Determinism is the whole point: a chaos test that fails must replay
+bit-for-bit from its spec + seed, so every trigger is either an
+explicit hit index or a Bernoulli draw from a per-site stream seeded by
+(seed, site name). No global RNG, no wall clock.
+
+Spec grammar (semicolon-separated clauses)::
+
+    site:kind[:value]@hits[;...]
+
+    kind   transient  raise TransientError   (retryable — serve retries)
+           fatal      raise InjectedFault    (not retryable)
+           kill       raise SimulatedKill    (BaseException: simulated
+                                              process death — ordinary
+                                              `except Exception`
+                                              recovery must NOT see it)
+           exhaust    no raise; `level(site)` reports `value` (a
+                      pressure magnitude, e.g. the fraction of the KV
+                      page pool to hide from the scheduler)
+    hits   comma-separated triggers, matched against the site's
+           1-based invocation counter:
+             7      the 7th call
+             3-9    calls 3..9 inclusive
+             4+     call 4 and every call after
+             %5     every 5th call
+             ~0.2   each call independently with p=0.2 (seeded)
+
+Example — the CI chaos gate's spec::
+
+    serve.mixed:transient@2,5;serve.page_pressure:exhaust:0.6@3-10
+
+Sites in the tree today:
+  serve.mixed / serve.prefill / serve.decode   engine program dispatch
+  serve.page_pressure                          scheduler step sizing
+  ckpt.commit                                  checkpoint promote
+  loader.commit                                data-loader state promote
+
+The default injector is process-global and EMPTY (every call is a
+cheap dict miss); configure it via the ``FLEXFLOW_TPU_FAULTS`` env
+var, ``FFConfig.fault_spec`` / ``--fault-spec`` (the serve engine
+builds a config-scoped injector), or the :func:`active` context
+manager in tests.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import random
+from contextlib import contextmanager
+from typing import Dict, List, Optional
+
+
+class TransientError(RuntimeError):
+    """A retryable injected failure (the analog of a one-off device /
+    tunnel error). Subsystems with a retry policy (the serve engine's
+    dispatch wrapper) absorb these up to their retry budget."""
+
+
+class InjectedFault(RuntimeError):
+    """A non-retryable injected failure: recovery paths must fail the
+    in-flight work and leave the subsystem serviceable."""
+
+
+class SimulatedKill(BaseException):
+    """Simulated process death (kill -9 at a marked point). Derives
+    from BaseException so that `except Exception` recovery code —
+    which a real SIGKILL would never run — cannot observe it; only the
+    test harness that staged the kill catches it."""
+
+
+class _Trigger:
+    """One hits-expression, matched against a 1-based call counter."""
+
+    __slots__ = ("kind", "a", "b", "p")
+
+    def __init__(self, expr: str):
+        expr = expr.strip()
+        self.p = None
+        if expr.startswith("~"):
+            self.kind = "prob"
+            self.p = float(expr[1:])
+            if not 0.0 <= self.p <= 1.0:
+                raise ValueError(f"probability out of [0,1]: {expr!r}")
+        elif expr.startswith("%"):
+            self.kind = "every"
+            self.a = int(expr[1:])
+            if self.a < 1:
+                raise ValueError(f"%k needs k >= 1: {expr!r}")
+        elif expr.endswith("+"):
+            self.kind = "from"
+            self.a = int(expr[:-1])
+        elif "-" in expr:
+            lo, hi = expr.split("-", 1)
+            self.kind = "range"
+            self.a, self.b = int(lo), int(hi)
+            if self.a > self.b:
+                raise ValueError(f"empty range: {expr!r}")
+        else:
+            self.kind = "one"
+            self.a = int(expr)
+        if self.kind in ("one", "from", "range") and self.a < 1:
+            raise ValueError(f"hit indices are 1-based: {expr!r}")
+
+    def matches(self, n: int, rng: Optional[random.Random]) -> bool:
+        if self.kind == "one":
+            return n == self.a
+        if self.kind == "range":
+            return self.a <= n <= self.b
+        if self.kind == "from":
+            return n >= self.a
+        if self.kind == "every":
+            return n % self.a == 0
+        return rng.random() < self.p  # prob: one draw per call
+
+
+class FaultClause:
+    """site:kind[:value]@hits — one parsed clause."""
+
+    __slots__ = ("site", "kind", "value", "triggers")
+
+    KINDS = ("transient", "fatal", "kill", "exhaust")
+
+    def __init__(self, text: str):
+        head, _, hits = text.partition("@")
+        if not hits:
+            raise ValueError(f"clause {text!r} has no @hits part")
+        parts = head.split(":")
+        if len(parts) < 2:
+            raise ValueError(f"clause {text!r} has no kind")
+        self.site = parts[0].strip()
+        self.kind = parts[1].strip()
+        if self.kind not in self.KINDS:
+            raise ValueError(
+                f"unknown fault kind {self.kind!r} in {text!r} "
+                f"(one of {self.KINDS})")
+        self.value = float(parts[2]) if len(parts) > 2 else 1.0
+        self.triggers = [_Trigger(h) for h in hits.split(",")]
+
+    def matches(self, n: int, rng: Optional[random.Random]) -> bool:
+        return any(t.matches(n, rng) for t in self.triggers)
+
+
+class FaultSpec:
+    """Parsed spec string: clauses grouped by site."""
+
+    def __init__(self, text: str = ""):
+        self.text = text or ""
+        self.by_site: Dict[str, List[FaultClause]] = {}
+        for part in self.text.split(";"):
+            part = part.strip()
+            if not part:
+                continue
+            cl = FaultClause(part)
+            self.by_site.setdefault(cl.site, []).append(cl)
+
+    def __bool__(self) -> bool:
+        return bool(self.by_site)
+
+
+class FaultInjector:
+    """Per-site invocation counters + the spec's verdicts.
+
+    `fire(site)` counts an invocation and raises if a raise-kind clause
+    matches; `level(site)` counts an invocation and returns the largest
+    matching exhaust clause's value (0.0 when none). One counter per
+    site regardless of kind, so a spec's hit indices mean "the Nth time
+    this site was reached", full stop."""
+
+    def __init__(self, spec: Optional[str] = None, seed: int = 0):
+        self.spec = spec if isinstance(spec, FaultSpec) \
+            else FaultSpec(spec or "")
+        self.seed = int(seed)
+        self._count: Dict[str, int] = {}
+        self._rng: Dict[str, random.Random] = {}
+        # observability: what actually fired (site -> kind -> times)
+        self.fired: Dict[str, Dict[str, int]] = {}
+
+    def _site_rng(self, site: str) -> random.Random:
+        rng = self._rng.get(site)
+        if rng is None:
+            h = hashlib.sha256(site.encode()).digest()
+            rng = random.Random(self.seed ^ int.from_bytes(h[:8], "big"))
+            self._rng[site] = rng
+        return rng
+
+    def _record(self, site: str, kind: str) -> None:
+        d = self.fired.setdefault(site, {})
+        d[kind] = d.get(kind, 0) + 1
+
+    def hits(self, site: str) -> int:
+        return self._count.get(site, 0)
+
+    def fire(self, site: str) -> None:
+        """Mark one invocation of a raise-style site. No-op (a dict
+        miss) unless a clause targets the site and its trigger matches
+        this invocation index."""
+        clauses = self.spec.by_site.get(site)
+        if not clauses:
+            return
+        n = self._count.get(site, 0) + 1
+        self._count[site] = n
+        rng = self._site_rng(site)
+        for cl in clauses:
+            if cl.kind == "exhaust" or not cl.matches(n, rng):
+                continue
+            self._record(site, cl.kind)
+            if cl.kind == "transient":
+                raise TransientError(
+                    f"injected transient fault at {site} (hit {n})")
+            if cl.kind == "fatal":
+                raise InjectedFault(
+                    f"injected fatal fault at {site} (hit {n})")
+            raise SimulatedKill(f"injected kill at {site} (hit {n})")
+
+    def level(self, site: str) -> float:
+        """Mark one invocation of a pressure-style site; returns the
+        max matching exhaust magnitude (0.0 = no pressure)."""
+        clauses = self.spec.by_site.get(site)
+        if not clauses:
+            return 0.0
+        n = self._count.get(site, 0) + 1
+        self._count[site] = n
+        rng = self._site_rng(site)
+        lv = 0.0
+        for cl in clauses:
+            if cl.kind == "exhaust" and cl.matches(n, rng):
+                lv = max(lv, cl.value)
+        if lv > 0.0:
+            self._record(site, "exhaust")
+        return lv
+
+    def reset(self) -> None:
+        self._count.clear()
+        self._rng.clear()
+        self.fired.clear()
+
+
+# ---------------- process-global default ------------------------------
+_DEFAULT: Optional[FaultInjector] = None
+
+
+def default_injector() -> FaultInjector:
+    """The process-global injector: empty unless FLEXFLOW_TPU_FAULTS is
+    set (so production code paths pay one dict miss per site)."""
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = FaultInjector(
+            os.environ.get("FLEXFLOW_TPU_FAULTS", ""),
+            seed=int(os.environ.get("FLEXFLOW_TPU_FAULT_SEED", "0")))
+    return _DEFAULT
+
+
+def injector_for(config=None) -> FaultInjector:
+    """The injector a subsystem should use: a config-scoped one when
+    `config.fault_spec` is set (each engine/search gets its own
+    counters — reproducible per object), else the process default."""
+    spec = getattr(config, "fault_spec", None) if config is not None \
+        else None
+    if spec:
+        return FaultInjector(spec, seed=int(getattr(config, "seed", 0)))
+    return default_injector()
+
+
+def fire(site: str) -> None:
+    """Module-level convenience for subsystems without a config in
+    reach (checkpoint promote, loader state commit)."""
+    default_injector().fire(site)
+
+
+@contextmanager
+def active(spec: str, seed: int = 0):
+    """Temporarily install a spec as the process-global injector (the
+    test idiom: `with faults.active("ckpt.commit:kill@1"): ...`).
+    Yields the injector so the test can assert on `.fired`."""
+    global _DEFAULT
+    prev = _DEFAULT
+    inj = FaultInjector(spec, seed=seed)
+    _DEFAULT = inj
+    try:
+        yield inj
+    finally:
+        _DEFAULT = prev

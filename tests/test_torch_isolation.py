@@ -1,0 +1,47 @@
+"""The port stands alone: no module of flexflow_tpu_torch, and not
+chip_smoke.py, imports JAX or the JAX package, and importing the
+serving package leaves JAX unloaded."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+SOURCES = sorted((ROOT / "flexflow_tpu_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "flexflow_tpu")
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_jax_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module and _forbidden(node.module):
+            bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_sources_found():
+    names = {p.name for p in SOURCES}
+    assert {"engine.py", "paged_ragged_v2.py", "chip_smoke.py"} <= names
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, flexflow_tpu_torch.serve, flexflow_tpu_torch; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flexflow_tpu')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
