@@ -2,25 +2,37 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the serving path from this checkout's
-sources, holds each against its plain PyTorch version on the card at
-the shapes the serving mixed step gives it, then serves the
-full-width causal LM of the README (vocab 32000, 512 positions, hidden
-512, 8 heads, 6 layers, ff 2048, f32, random weights from a numpy seed)
-through ``ServeEngine.generate`` and holds its greedy tokens against
-the no-cache ``generate_reference``. Every phase raises on failure.
+Builds every CUDA kernel of the port from this checkout's sources (one
+nvcc per source, in parallel) and then:
 
-Prints the card (name, power limit), the build time, each kernel's
-error and times, the serving counters, then one line
-``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
-Exits non-zero, printing no result, without CUDA or outside a checkout.
-Imports nothing of JAX.
+  * holds the ragged paged-attention kernel against its plain PyTorch
+    version at the serving mixed step's shapes;
+  * holds the three flash-attention kernels (forward, dq, dkv) against
+    their plain pieces at the training path's shapes (b=32, s=512, h=8,
+    d=64, causal and not, f32 and bf16);
+  * trains the full-width Transformer encoder of ``build_transformer``
+    (batch 32, seq 512, hidden 512, 8 heads, 6 layers, ff 2048, 10
+    classes, SGD lr 0.01, weights and data from numpy seeds): 3 f32
+    steps through the kernels against 3 on the einsum path, then the
+    bf16 flagship — 3 steps held against the einsum path, 20 timed —
+    with the kernels' launch counts checked;
+  * serves the full-width causal LM of the README (vocab 32000, 512
+    positions, hidden 512, 8 heads, 6 layers, ff 2048, f32, random
+    weights from a numpy seed) through ``ServeEngine.generate`` and holds
+    its greedy tokens against the no-cache ``generate_reference``.
+
+Every phase raises on failure. Prints the card (name, power limit), the
+build, each kernel's error and times, the training and serving numbers,
+the script's wall time, then one line ``{"kernels": [...]}`` and, last,
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
+without CUDA or outside a checkout. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -46,6 +58,24 @@ HEADS, HEAD_DIM = 8, 64
 F32_TOL = 1e-5       # f32 pages: kernel vs single-pass plain version
 BF16_TOL = 2e-2      # bf16 q and pages, output rounded to bf16
 PARITY_MARGIN = 1e-3  # tie rule vs generate_reference (online softmax)
+
+# the training path: the flagship encoder's attention shapes
+TB, TS, TH, TD = 32, 512, 8, 64
+# flash kernels vs their plain pieces, max abs error / max |ref|: f32
+# differs in summation order only, bf16 where p and ds round
+FLASH_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# full-width training: kernel path vs einsum path. The attention
+# outputs of the two paths differ by ~1e-7 (relative) in f32; through
+# the unnormalized flagship's large activations a few ReLU inputs that
+# lie within that of 0 flip, and each flip moves one column of an ff1
+# gradient by |x * dy|: 1.3e-4 of weight after 3 steps on an H100
+# (layer0_ff1.kernel, whose update was 4.4e-3), so the weight limit is
+# 5e-4
+TRAIN_F32_LOSS_REL = 1e-4
+TRAIN_F32_WEIGHT_ABS = 5e-4
+TRAIN_BF16_LOSS_REL = 2e-2
+TRAIN_ARCH = dict(seq_len=TS, hidden=512, num_heads=TH, num_layers=6,
+                  ff_dim=2048, num_classes=10)
 
 
 def log(msg: str) -> None:
@@ -80,6 +110,14 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def bound(nbytes: float, flops: float, dtype):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate
+    and the flops over the card's peak rate for the input type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FLOPS_PER_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def kernel_inputs(dtype, device, seed=0):
@@ -122,9 +160,7 @@ def attention_bound(q, kp, tables, slots, lens):
     nbytes = (2 * len(live) * page_bytes + 2 * q.numel() * q.element_size()
               + tables.numel() * 4 + slots.numel() * 4 + lens.numel() * 4)
     flops = 4.0 * float(l_np.astype(np.int64).sum()) * HEADS * HEAD_DIM
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FLOPS_PER_S[kp.dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound(nbytes, flops, kp.dtype)
 
 
 def kernel_phase(pr):
@@ -154,6 +190,218 @@ def kernel_phase(pr):
             f"bound_ms={bound_ms:.4f} ({bound_by})")
     log("library_ms: null — no single PyTorch call computes attention "
         "through a page table")
+    return res
+
+
+def flash_bounds(dtype, causal):
+    """{kernel: (bound_ms, bound_by)} of the three flash kernels at the
+    training shapes. Flops count the (query, key) pairs this run
+    computes — all s^2 of them, or the s(s+1)/2 on or below the
+    diagonal when causal — at 4d (forward: q.k, p.v), 6d (dq: q.k,
+    do.v, ds.k) and 8d (dkv: also p^T.do, ds^T.q) per pair. Bytes read
+    each input once and write each output once: (b, s, h, d) operands
+    in the input type, lse and delta f32 (b, h, s)."""
+    pairs = TS * (TS + 1) / 2 if causal else float(TS * TS)
+    per = TB * TH * TD * pairs
+    op = TB * TS * TH * TD * torch.tensor([], dtype=dtype).element_size()
+    row = TB * TH * TS * 4
+    return {"flash_fwd": bound(4 * op + row, 4 * per, dtype),
+            "flash_bwd_dq": bound(5 * op + 2 * row, 6 * per, dtype),
+            "flash_bwd_dkv": bound(6 * op + 2 * row, 8 * per, dtype)}
+
+
+def sdpa_ms(q, k, v, do, causal):
+    """library_ms yardsticks: torch's scaled_dot_product_attention
+    forward on the same tensors, and its backward (one call computes
+    dq, dk and dv). Timed here only; the port never calls it."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qt, kt, vt, is_causal=causal)
+    fwd_ms = cuda_ms(fwd, 10)
+    out = fwd()
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), 10)
+    return fwd_ms, bwd_ms
+
+
+def flash_phase(fa):
+    """Hold flash_fwd, flash_bwd_dq and flash_bwd_dkv against their
+    plain pieces on the card at the training shapes, f32 and bf16,
+    causal (the LM's mask) and not (the flagship); time each."""
+    dev = torch.device("cuda")
+    scale = 1.0 / math.sqrt(TD)
+    res = {}
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for causal in (False, True):
+            rng = np.random.default_rng(11)
+            put = lambda a: torch.from_numpy(a).to(dev).to(dtype)  # noqa
+            q, k, v, do = (put(rng.standard_normal((TB, TS, TH, TD),
+                                                   np.float32))
+                           for _ in range(4))
+            kw = {"causal": causal, "scale": scale}
+            o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+            o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, **kw)
+            delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2) \
+                .contiguous()
+            bargs = (q, k, v, do, lse_ref, delta)
+            dq = fa.flash_bwd_dq_cuda(*bargs, **kw)
+            dk, dv = fa.flash_bwd_dkv_cuda(*bargs, **kw)
+            torch.cuda.synchronize()
+            dq_ref = fa.flash_bwd_dq_ref(*bargs, **kw)
+            dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*bargs, **kw)
+            errs = {}
+            for kname, pairs in (
+                    ("flash_fwd", ((o, o_ref), (lse, lse_ref))),
+                    ("flash_bwd_dq", ((dq, dq_ref),)),
+                    ("flash_bwd_dkv", ((dk, dk_ref), (dv, dv_ref)))):
+                abs_err = max(float((a.float() - r.float()).abs().max())
+                              for a, r in pairs)
+                rel = max(float((a.float() - r.float()).abs().max()
+                                / r.float().abs().max()) for a, r in pairs)
+                if not (math.isfinite(rel) and rel <= FLASH_TOL[dtype]):
+                    raise AssertionError(
+                        f"{kname} {dname} causal={causal}: error / max "
+                        f"|ref| {rel} > {FLASH_TOL[dtype]}")
+                errs[kname] = (abs_err, rel)
+            del o_ref, lse_ref, dq_ref, dk_ref, dv_ref
+            times = {
+                "flash_fwd": (
+                    cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, **kw), 10),
+                    cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, **kw), 3)),
+                "flash_bwd_dq": (
+                    cuda_ms(lambda: fa.flash_bwd_dq_cuda(*bargs, **kw), 10),
+                    cuda_ms(lambda: fa.flash_bwd_dq_ref(*bargs, **kw), 3)),
+                "flash_bwd_dkv": (
+                    cuda_ms(lambda: fa.flash_bwd_dkv_cuda(*bargs, **kw), 10),
+                    cuda_ms(lambda: fa.flash_bwd_dkv_ref(*bargs, **kw), 3)),
+            }
+            lib_fwd, lib_bwd = sdpa_ms(q, k, v, do, causal)
+            bounds = flash_bounds(dtype, causal)
+            cell = f"{dname}{'_causal' if causal else ''}"
+            for kname in times:
+                b_ms, b_by = bounds[kname]
+                lib = lib_fwd if kname == "flash_fwd" else lib_bwd
+                res.setdefault(kname, {})[cell] = {
+                    "max_abs_err": errs[kname][0],
+                    "err_over_max_ref": errs[kname][1],
+                    "ms": times[kname][0], "plain_ms": times[kname][1],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+                log(f"kernel {kname} [{cell}, b={TB} s={TS} h={TH} "
+                    f"d={TD}]: max_abs_err={errs[kname][0]:.3g} "
+                    f"err/max|ref|={errs[kname][1]:.3g} (tol "
+                    f"{FLASH_TOL[dtype]}) kernel_ms={times[kname][0]:.4f} "
+                    f"plain_ms={times[kname][1]:.4f} bound_ms={b_ms:.4f} "
+                    f"({b_by}) library_ms={lib:.4f}")
+            del q, k, v, do, o, lse, dq, dk, dv, delta, bargs
+            torch.cuda.empty_cache()
+    log("library_ms: flash_fwd = scaled_dot_product_attention forward; "
+        "flash_bwd_dq and flash_bwd_dkv = its whole backward (dq, dk and "
+        "dv in one call), timed once and reported on both rows")
+    return res
+
+
+def train_batches(n, seed=0):
+    """n host batches of the flagship: input randn(32, 512, 512) f32,
+    labels randint(0, 10), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return [{"input": rng.standard_normal((TB, TS, 512), np.float32),
+             "label": rng.integers(0, 10, TB).astype(np.int32)}
+            for _ in range(n)]
+
+
+def train_model(dtype, use_flash):
+    """The flagship at full width on the card, SGD lr 0.01; weights
+    come from the port's numpy streams seeded by (config.seed, op,
+    weight), so every model built here starts from the same weights."""
+    from flexflow_tpu_torch import FFConfig, SGDOptimizer, build_transformer
+    m = build_transformer(FFConfig(batch_size=TB, seed=0), batch_size=TB,
+                          dtype=dtype, use_flash=use_flash, device="cuda",
+                          **TRAIN_ARCH)
+    m.compile(optimizer=SGDOptimizer(lr=0.01),
+              loss_type="sparse_categorical_crossentropy",
+              metrics=["accuracy"])
+    return m
+
+
+def train_phase(fa, card: str):
+    """(a) f32: 3 steps through the kernels vs 3 on the einsum path;
+    (b) the bf16 flagship: 3 steps on the einsum path, then through the
+    kernels 3 warm-up steps held against them and 20 timed steps, with
+    the launch counts checked. Returns the launches of (b) and its
+    numbers."""
+    batches = train_batches(4)
+    # (a) f32, kernel vs plain
+    runs = {}
+    for use_flash in (None, False):
+        m = train_model(torch.float32, use_flash)
+        if use_flash is None:
+            nparams = sum(w.numel() for p in m.state.params.values()
+                          for w in p.values())
+        losses = [float(m.train_batch(batches[i])["loss"])
+                  for i in range(3)]
+        runs[use_flash] = (losses, {op: {k: w.detach().clone()
+                                         for k, w in p.items()}
+                                    for op, p in m.state.params.items()})
+        del m
+        torch.cuda.empty_cache()
+    (lk, wk), (lp, wp) = runs[None], runs[False]
+    if not all(abs(a - b) <= TRAIN_F32_LOSS_REL * abs(b)
+               for a, b in zip(lk, lp)):
+        raise AssertionError(f"f32 losses kernel {lk} vs plain {lp}")
+    wdiff, worst = max((float((wk[op][k] - wp[op][k]).abs().max()),
+                        f"{op}.{k}") for op in wk for k in wk[op])
+    if not wdiff <= TRAIN_F32_WEIGHT_ABS:
+        raise AssertionError(
+            f"f32 weights differ by {wdiff} ({worst}) after 3 steps")
+    log(f"train f32 [{card}]: {nparams / 1e6:.2f} M params; losses kernel "
+        f"{[round(x, 6) for x in lk]} plain {[round(x, 6) for x in lp]}; "
+        f"max |weight diff| after 3 steps {wdiff:.3g} at {worst} (tol "
+        f"{TRAIN_F32_WEIGHT_ABS})")
+    del runs, wk, wp
+
+    # (b) the bf16 flagship
+    m = train_model(torch.bfloat16, False)
+    plain = [float(m.train_batch(batches[i])["loss"]) for i in range(3)]
+    del m
+    torch.cuda.empty_cache()
+    m = train_model(torch.bfloat16, None)
+    steps_warm, steps_timed = 3, 20
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches.update(dict.fromkeys(fa.launches, 0))  # the main path only
+    warm = [float(m.train_batch(batches[i])["loss"])
+            for i in range(steps_warm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [m.train_batch(batches[i % len(batches)])
+               for i in range(steps_timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)
+    peak = torch.cuda.max_memory_allocated()
+    timed = [float(x["loss"]) for x in metrics]
+    want = 6 * (steps_warm + steps_timed)
+    if launches != dict.fromkeys(launches, want):
+        raise AssertionError(f"flash launches {launches} != 6 layers x "
+                             f"{steps_warm + steps_timed} steps")
+    if not all(math.isfinite(x) for x in warm + timed):
+        raise AssertionError(f"non-finite loss in {warm + timed}")
+    if not all(abs(a - b) <= TRAIN_BF16_LOSS_REL * abs(b)
+               for a, b in zip(warm, plain)):
+        raise AssertionError(f"bf16 losses kernel {warm} vs plain {plain}")
+    step_ms = 1e3 * wall / steps_timed
+    res = {"step_ms": step_ms, "samples_per_s": TB * steps_timed / wall,
+           "peak_mem_gib": peak / 2**30, "launches": launches,
+           "losses": warm + timed}
+    log(f"train bf16 [{card}]: losses kernel {[round(x, 4) for x in warm]} "
+        f"plain {[round(x, 4) for x in plain]} (tol rel "
+        f"{TRAIN_BF16_LOSS_REL}); launches {launches} (= 6 layers x "
+        f"{steps_warm + steps_timed} steps)")
+    log(f"train bf16 [{card}]: step ms {step_ms:.3f} over {steps_timed} "
+        f"steps, {res['samples_per_s']:.1f} samples/s, peak memory "
+        f"{res['peak_mem_gib']:.2f} GiB, last loss {timed[-1]:.4f}")
     return res
 
 
@@ -223,6 +471,41 @@ def serve_phase(pr, card: str):
     return launches, st
 
 
+def _kernel_name(sym: str) -> str:
+    """A mangled kernel symbol as name[template args, still mangled]:
+    the name is the length-prefixed identifier ending in _kernel."""
+    for m in re.finditer(r"\d+", sym):
+        end = m.end()
+        for i in range(len(m.group())):   # the length may follow a hash
+            n = int(m.group()[i:])
+            name = sym[end:end + n]
+            if name.endswith("_kernel"):
+                rest = sym[end + n:]
+                return f"{name}[{rest[:rest.find('EE') + 2]}]"
+    return sym
+
+
+def ptxas_usage(text: str):
+    """(kernel, registers, spill stores/loads) per kernel from nvcc's
+    -Xptxas=-v output."""
+    out, kernel = [], None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+            spill = None
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append((kernel, int(m.group(1)), spill))
+            kernel = None
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -239,8 +522,10 @@ def main() -> int:
               file=sys.stderr)
         return 3
     from flexflow_tpu_torch.kernels import _build
+    from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
 
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -253,15 +538,17 @@ def main() -> int:
     log(f"build: {', '.join(logs)} with nvcc {' '.join(_build.NVCC_FLAGS)}"
         f" in {secs:.2f} s")
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for kernel, regs, spill in ptxas_usage(text):
+            log(f"  {name}: {kernel}: {regs} registers, spill "
+                f"stores/loads {spill}")
 
     kres = kernel_phase(pr)
+    fres = flash_phase(fa)
+    tres = train_phase(fa, card)
     launches, _ = serve_phase(pr, card)
 
     f32 = kres["f32"]
-    log(json.dumps({"kernels": [{
+    rows = [{
         "name": "paged_ragged_v2", "route": "cuda",
         "source": "flexflow_tpu_torch/kernels/csrc/paged_ragged_v2.cu",
         "replaces": "flexflow_tpu/kernels/paged_ragged_v2.py:245",
@@ -269,7 +556,24 @@ def main() -> int:
         "ms": f32["ms"], "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
         "library_ms": None,
-        "bf16": kres["bf16"]}]}))
+        "bf16": kres["bf16"]}]
+    # the flash rows' headline is the training path's own cell (bf16,
+    # not causal); the other three cells ride along
+    for kname, line in (("flash_fwd", 67), ("flash_bwd_dq", 131),
+                        ("flash_bwd_dkv", 161)):
+        cells = fres[kname]
+        head = cells["bf16"]
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": "flexflow_tpu_torch/kernels/csrc/flash_attention.cu",
+            "replaces": f"flexflow_tpu/kernels/flash_attention.py:{line}",
+            "launches": tres["launches"][kname],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            **{c: v for c, v in cells.items() if c != "bf16"}})
+    log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

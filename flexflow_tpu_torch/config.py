@@ -1,10 +1,14 @@
-"""Serving configuration of the PyTorch/CUDA port, and its device policy.
+"""Configuration of the PyTorch/CUDA port, and its device policy.
 
-``FFConfig`` carries the serving fields of ``flexflow_tpu/config.py``
-under the same names and defaults, so one set of knobs sizes both
-packages' engines. Only the fields the port's serving slice reads are
-here; the rest of the JAX config (search, training, telemetry, the
-serving tier) has no counterpart yet.
+``FFConfig`` carries the fields of ``flexflow_tpu/config.py`` that the
+port's slices read, under the same names and defaults, so one set of
+knobs sizes both packages: the serving fields of the serving slice and
+the training fields of the training slice. A few knobs the port does
+not run yet (search, pipelines, remat, fusion, NHWC, telemetry,
+``iter_config.seq_length``) are here at their JAX defaults so that
+setting one reaches ``FFModel.compile`` (or the step), which raises
+``NotImplementedError`` instead of ignoring it. The rest of the JAX
+config has no counterpart yet.
 
 Device policy: every entry point runs on the card unless the caller
 asks for the CPU. There is no fallback — :func:`resolve_device` raises
@@ -25,11 +29,31 @@ KV_DTYPES = ("float32", "bfloat16", "int8", "float8_e4m3")
 
 
 @dataclasses.dataclass
-class FFConfig:
-    """The serving knobs of ``flexflow_tpu.config.FFConfig``."""
+class FFIterationConfig:
+    """Per-iteration runtime config: ``seq_length`` truncation of
+    attention keys (not ported: a step raises when it is >= 0)."""
 
-    # activation dtype of the served LM (the JAX builder wires
-    # compute_dtype into the embeddings' output dtype)
+    seq_length: int = -1
+
+
+@dataclasses.dataclass
+class FFConfig:
+    """The serving and training knobs of ``flexflow_tpu.config.FFConfig``."""
+
+    # training (model.py fit/compile, core/executor.py init_state)
+    batch_size: int = 64
+    epochs: int = 1
+    learning_rate: float = 0.01
+    seed: int = 0
+    # master dtype of float parameters and optimizer state; training
+    # runs only the f32 default (the mixed-precision policy of
+    # core/precision.py is not ported)
+    param_dtype: torch.dtype = torch.float32
+
+    # activation dtype of the served LM (the JAX build_transformer_lm
+    # wires compute_dtype into the embeddings' output dtype); as a
+    # training policy only float32 runs — a bf16 model is built with
+    # build_transformer's dtype= instead, as in the JAX package
     compute_dtype: torch.dtype = torch.float32
 
     # block-paged KV-cache geometry (serve/kv_cache.py): page 0 is the
@@ -61,11 +85,29 @@ class FFConfig:
     serve_degrade_ladder: bool = True
     serve_reject_stalls: int = 0
 
+    # knobs of the JAX package the port does not run yet, at their JAX
+    # defaults; FFModel.compile raises NotImplementedError for any other
+    # value
+    search_budget: int = 0
+    pipeline_stages: int = 0
+    remat: bool = False
+    perform_fusion: bool = False
+    conv_layout: str = "NCHW"
+    telemetry: bool = False
+    iter_config: FFIterationConfig = dataclasses.field(
+        default_factory=FFIterationConfig)
+
     def __post_init__(self):
-        if self.compute_dtype not in (torch.float32, torch.bfloat16):
+        for knob in ("compute_dtype", "param_dtype"):
+            if getattr(self, knob) not in (torch.float32, torch.bfloat16):
+                raise ValueError(
+                    f"{knob} must be torch.float32 or torch.bfloat16, "
+                    f"got {getattr(self, knob)}")
+        if self.batch_size < 1:
             raise ValueError(
-                f"compute_dtype must be torch.float32 or torch.bfloat16, "
-                f"got {self.compute_dtype}")
+                f"batch_size must be >= 1, got {self.batch_size}")
+        if self.epochs < 1:
+            raise ValueError(f"epochs must be >= 1, got {self.epochs}")
         if self.kv_page_size < 1:
             raise ValueError(
                 f"kv_page_size must be >= 1, got {self.kv_page_size}")
@@ -115,7 +157,9 @@ def resolve_device(device="cuda") -> torch.device:
     convolutions, mirroring the JAX package's float32 matmul precision
     (``jax_default_matmul_precision=float32`` in its tests): an f32
     engine computes in full f32, so its tokens are comparable with the
-    reference's."""
+    reference's. It also keeps bf16 matmul reductions in f32
+    (``allow_bf16_reduced_precision_reduction`` off), the JAX ops'
+    ``preferred_element_type=float32``."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -124,6 +168,8 @@ def resolve_device(device="cuda") -> torch.device:
                 f"(pass device='cpu' to run on the CPU)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul \
+            .allow_bf16_reduced_precision_reduction = False
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     elif dev.type != "cpu":

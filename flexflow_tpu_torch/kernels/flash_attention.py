@@ -1,14 +1,310 @@
 """Attention entry points of ``flexflow_tpu/kernels/flash_attention.py``.
 
-Only ``paged_attention_ragged`` — the serving mixed step's entry point
-— is ported; like the JAX one it delegates to kernel v2
-(:mod:`.paged_ragged_v2`). The training flash-attention kernels, the
-legacy decode kernel and the v1 ragged kernel are not ported yet.
+Two entry points are ported:
+
+  * :func:`flash_attention_bshd` — softmax(q.k^T/sqrt(d)).v on
+    (b, s, h, d) tensors, differentiable through :class:`FlashAttention`
+    (the training path's attention, ``ops/attention.py``). Its forward
+    and its two backward pieces are the hand-written Hopper kernels of
+    ``csrc/flash_attention.cu`` on CUDA tensors and their plain PyTorch
+    versions (:func:`flash_fwd_ref`, :func:`flash_bwd_dq_ref`,
+    :func:`flash_bwd_dkv_ref`) on CPU tensors. A build or launch failure
+    raises; nothing falls back.
+  * :func:`paged_attention_ragged` — the serving mixed step's entry
+    point; like the JAX one it delegates to kernel v2
+    (:mod:`.paged_ragged_v2`).
+
+:func:`attention_ref` is the einsum path of ``ops/attention.py`` (f32
+logits, probabilities cast to q's dtype): the plain version of the whole
+entry point, and what ``use_flash=False`` runs.
+
+The legacy decode kernel and the v1 ragged kernel are not ported yet.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
+
+import torch
+
 from .paged_ragged_v2 import paged_attention_ragged_v2
+
+# launches of each CUDA kernel: one per successful launch, nowhere else
+# — how a run shows that its main path went through the kernels (set
+# the entries to 0 before the run to count)
+launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+_HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ------------------------------------------------------ plain versions
+def _causal_keep(sq, sk, device):
+    """(sq, sk) bool: query i sees keys j <= i (top-left aligned, the
+    TPU kernels' ``_causal_mask``)."""
+    return torch.ones((sq, sk), dtype=torch.bool, device=device).tril()
+
+
+def _scores(q, k, causal, scale):
+    """f32 (b, h, sq, sk) scores q.k^T * scale, -inf where masked."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        s = s.masked_fill(~_causal_keep(q.shape[1], k.shape[1], q.device),
+                          -math.inf)
+    return s
+
+
+def attention_ref(q, k, v, *, causal=False, scale=None):
+    """The einsum path of ``MultiHeadAttention._attend``
+    (flexflow_tpu/ops/attention.py:224-238): f32 logits, softmax in f32,
+    probabilities cast to q's dtype before the p.v einsum. (b, s, h, d)
+    in and out."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    probs = torch.softmax(_scores(q, k, causal, scale), dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def flash_fwd_ref(q, k, v, *, causal, scale):
+    """Plain version of the forward kernel: (o, lse). q (b, sq, h, d),
+    k/v (b, sk, h, d); o in q's dtype, lse (b, h, sq) f32. p is rounded
+    to v's dtype before p.v, the sum l is of the unrounded p (the TPU
+    kernel's ``p.astype(v.dtype)``), o = acc / l."""
+    s = _scores(q, k, causal, scale)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.sum(p, dim=-1, keepdim=True)                 # (b, h, sq, 1)
+    acc = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(), v.float())
+    o = (acc / l).permute(0, 2, 1, 3).to(q.dtype)
+    lse = (m + torch.log(l)).squeeze(-1)
+    return o.contiguous(), lse.contiguous()
+
+
+def _p_ds(q, k, v, do, lse, delta, causal, scale):
+    """The recomputed probabilities p = exp(s - lse) and
+    ds = p * (do.v^T - delta) * scale, both f32 (b, h, sq, sk)."""
+    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def flash_bwd_dq_ref(q, k, v, do, lse, delta, *, causal, scale):
+    """Plain version of the dq kernel: ds rounded to k's dtype, then
+    dq = ds.k, written in q's dtype. lse and delta (b, h, sq) f32."""
+    _, ds = _p_ds(q, k, v, do, lse, delta, causal, scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    return dq.to(q.dtype).contiguous()
+
+
+def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal, scale):
+    """Plain version of the dkv kernel: dv = p^T.do with p rounded to
+    do's dtype, dk = ds^T.q with ds rounded to q's dtype."""
+    p, ds = _p_ds(q, k, v, do, lse, delta, causal, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+    return dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
+
+
+# ------------------------------------------------------- CUDA wrappers
+class _Bshd(ctypes.Structure):
+    """``struct Bshd`` of csrc/flash_attention.cu: a (b, s, h, d)
+    operand's data pointer and its strides in elements."""
+
+    _fields_ = [("ptr", ctypes.c_void_p), ("sb", ctypes.c_int64),
+                ("ss", ctypes.c_int64), ("sh", ctypes.c_int64)]
+
+
+def _view(x) -> _Bshd:
+    return _Bshd(x.data_ptr(), x.stride(0), x.stride(1), x.stride(2))
+
+
+def _check_bshd(q, k, v, *others):
+    """Raise on inputs the kernels do not take. Returns (b, sq, sk, h, d).
+    ``others`` are further (name, tensor, shape) triples: (b, s, h, d)
+    operands must have a unit last stride, (b, h, sq) rows must be
+    contiguous f32."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {dev}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be (b, s, h, d)")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"dtype {q.dtype} not in float32/bfloat16")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
+    if sq < 1 or sk < 1:
+        raise ValueError(f"sequence lengths must be >= 1, got {sq}, {sk}")
+    if not 1 <= b <= 65535 or not 1 <= h <= 65535:
+        raise ValueError(f"batch {b} and heads {h} must be in [1, 65535]")
+    want = {"q": (q, (b, sq, h, d)), "k": (k, (b, sk, h, d)),
+            "v": (v, (b, sk, h, d))}
+    for name, x, shape in others:
+        want[name] = (x, shape)
+    for name, (x, shape) in want.items():
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, q on {dev}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, "
+                             f"expected {tuple(shape)}")
+        if len(shape) == 4:
+            if x.dtype != q.dtype:
+                raise ValueError(f"{name} is {x.dtype}, q is {q.dtype}")
+            if x.stride(-1) != 1:
+                raise ValueError(f"{name} must have a unit last stride")
+        elif x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+    return b, sq, sk, h, d
+
+
+_PTR, _INT, _VIEW = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(_Bshd)
+# after the operands: B, H, Sq, Sk, D, causal, scale, stream
+_DIMS = [_INT] * 6 + [ctypes.c_float, _PTR]
+_ARGTYPES = {
+    # dtype, q, k, v, o, lse
+    "flash_fwd": [_INT] + [_VIEW] * 4 + [_PTR] + _DIMS,
+    # dtype, q, k, v, do, lse, delta, dq
+    "flash_bwd_dq": [_INT] + [_VIEW] * 4 + [_PTR, _PTR, _VIEW] + _DIMS,
+    # dtype, q, k, v, do, lse, delta, dk, dv
+    "flash_bwd_dkv": [_INT] + [_VIEW] * 4 + [_PTR, _PTR] + [_VIEW] * 2
+    + _DIMS,
+}
+
+
+def _launch(kernel, q, args, dims):
+    """Call ``<kernel>_launch`` of csrc/flash_attention.cu on the current
+    stream: the dtype code, ``args`` (operand views and row pointers in
+    the launcher's order), then ``dims`` = (B, H, Sq, Sk, D, causal,
+    scale). Raises on a non-zero return; counts the launch otherwise."""
+    from ._build import load_library
+    lib = load_library("flash_attention")
+    fn = getattr(lib, f"{kernel}_launch")
+    fn.argtypes, fn.restype = _ARGTYPES[kernel], _INT
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+    rc = fn(_DTYPE_CODE[q.dtype], *args, *dims, stream)
+    if rc != 0:
+        err = lib.flash_attention_error_string
+        err.argtypes, err.restype = [_INT], ctypes.c_char_p
+        raise RuntimeError(
+            f"{kernel} launch failed: {err(rc).decode()} ({rc})")
+    launches[kernel] += 1
+
+
+def _ref(x):
+    """A Bshd view of x; the struct lives until the call returns."""
+    return ctypes.byref(_view(x))
+
+
+def flash_fwd_cuda(q, k, v, *, causal, scale):
+    """Launch ``flash_fwd`` of csrc/flash_attention.cu on the current
+    stream. Same contract as :func:`flash_fwd_ref`."""
+    b, sq, sk, h, d = _check_bshd(q, k, v)
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd", q,
+            (_ref(q), _ref(k), _ref(v), _ref(o), lse.data_ptr()),
+            (b, h, sq, sk, d, int(causal), scale))
+    return o, lse
+
+
+def _check_bwd(q, k, v, do, lse, delta):
+    b, sq, h, d = q.shape
+    return _check_bshd(q, k, v, ("do", do, (b, sq, h, d)),
+                       ("lse", lse, (b, h, sq)),
+                       ("delta", delta, (b, h, sq)))
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal, scale):
+    """Launch ``flash_bwd_dq``. Same contract as
+    :func:`flash_bwd_dq_ref`."""
+    b, sq, sk, h, d = _check_bwd(q, k, v, do, lse, delta)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    _launch("flash_bwd_dq", q,
+            (_ref(q), _ref(k), _ref(v), _ref(do), lse.data_ptr(),
+             delta.data_ptr(), _ref(dq)),
+            (b, h, sq, sk, d, int(causal), scale))
+    return dq
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal, scale):
+    """Launch ``flash_bwd_dkv``. Same contract as
+    :func:`flash_bwd_dkv_ref`."""
+    b, sq, sk, h, d = _check_bwd(q, k, v, do, lse, delta)
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=v.device)
+    _launch("flash_bwd_dkv", q,
+            (_ref(q), _ref(k), _ref(v), _ref(do), lse.data_ptr(),
+             delta.data_ptr(), _ref(dk), _ref(dv)),
+            (b, h, sq, sk, d, int(causal), scale))
+    return dk, dv
+
+
+# ------------------------------------------------------------ dispatch
+def _by_device(cuda_fn, ref_fn, q, *args, **kw):
+    """CUDA tensors launch the kernel, CPU tensors take the plain
+    version; no fallback between the two."""
+    if q.device.type == "cuda":
+        return cuda_fn(q, *args, **kw)
+    if q.device.type == "cpu":
+        return ref_fn(q, *args, **kw)
+    raise ValueError(f"unsupported device {q.device}")
+
+
+def flash_fwd(q, k, v, *, causal, scale):
+    return _by_device(flash_fwd_cuda, flash_fwd_ref, q, k, v,
+                      causal=causal, scale=scale)
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, causal, scale):
+    return _by_device(flash_bwd_dq_cuda, flash_bwd_dq_ref, q, k, v, do,
+                      lse, delta, causal=causal, scale=scale)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal, scale):
+    return _by_device(flash_bwd_dkv_cuda, flash_bwd_dkv_ref, q, k, v, do,
+                      lse, delta, causal=causal, scale=scale)
+
+
+def _unit_last(x):
+    return x if x.stride(-1) == 1 else x.contiguous()
+
+
+class FlashAttention(torch.autograd.Function):
+    """The custom VJP of ``_flash`` (flexflow_tpu/kernels/
+    flash_attention.py): forward saves q, k, v, o and lse; backward
+    computes delta = rowsum(do * o) in f32 with torch, as ``_bwd_pallas``
+    does outside its kernels, then runs the dq and dkv pieces."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
+        o, lse = flash_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = _unit_last(do)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+            .contiguous()                                  # (b, h, sq)
+        kw = {"causal": ctx.causal, "scale": ctx.scale}
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bshd(q, k, v, *, causal=False):
+    """softmax(q.k^T / sqrt(d)).v for (b, s, h, d) tensors, with the
+    flash forward and backward pieces (hand-written kernels on CUDA,
+    their plain versions on the CPU). Any sq, sk >= 1; on CUDA head_dim
+    32, 64 or 128 and float32/bfloat16, anything else raises."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttention.apply(q, k, v, bool(causal), scale)
 
 
 def paged_attention_ragged(q, k_pages, v_pages, page_tables, lane_slots,

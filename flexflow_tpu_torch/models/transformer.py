@@ -1,4 +1,8 @@
-"""The causal decoder LM of ``flexflow_tpu/models/transformer.py``.
+"""The transformers of ``flexflow_tpu/models/transformer.py``.
+
+``build_transformer`` — the training flagship, the encoder classifier
+— returns the port's ``FFModel`` with the JAX function's graph and op
+names (``layer{i}_attn``, ``layer{i}_ff1``, ``cls_head``, ...).
 
 ``build_transformer_lm`` there wires token + learned-position
 embeddings, pre-LN causal-attention blocks, a final LN and a vocab head
@@ -31,6 +35,7 @@ import torch
 from torch import nn
 
 from ..config import FFConfig, resolve_device
+from ..model import FFModel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,3 +242,40 @@ def build_transformer_lm(config: Optional[FFConfig] = None,
                   head_dim=hidden // num_heads, num_layers=num_layers,
                   ff_dim=ff_dim, dtype=cfg.compute_dtype)
     return TransformerLM(arch, seed=seed, device=device)
+
+
+def build_transformer(config: Optional[FFConfig] = None,
+                      batch_size: Optional[int] = None, seq_len: int = 128,
+                      hidden: int = 512, num_heads: int = 8,
+                      num_layers: int = 6, ff_dim: int = 2048,
+                      num_classes: int = 10, dtype=torch.float32,
+                      use_flash=None, layer_norm: bool = False,
+                      device="cuda") -> FFModel:
+    """The Transformer encoder classifier (the reference's
+    examples/cpp/Transformer): ``num_layers`` blocks of self-attention
+    and a relu FFN with residual adds (pre-LN when ``layer_norm``), then
+    a softmax head over the first position. ``dtype`` is the activation
+    dtype (bf16 activations over f32 master weights); ``use_flash=False``
+    takes the einsum attention path."""
+    cfg = config or FFConfig()
+    bs = batch_size or cfg.batch_size
+    ff = FFModel(cfg, device=device)
+    t = ff.create_tensor((bs, seq_len, hidden), dtype=dtype, name="input")
+    for i in range(num_layers):
+        a_in = ff.layer_norm(t, name=f"layer{i}_ln1") if layer_norm else t
+        a = ff.multihead_attention(a_in, a_in, a_in, hidden, num_heads,
+                                   use_flash=use_flash,
+                                   name=f"layer{i}_attn")
+        t = ff.add(a, t, name=f"layer{i}_res1")
+        f_in = ff.layer_norm(t, name=f"layer{i}_ln2") if layer_norm else t
+        h = ff.dense(f_in, ff_dim, activation="relu",
+                     name=f"layer{i}_ff1")
+        h = ff.dense(h, hidden, name=f"layer{i}_ff2")
+        t = ff.add(h, t, name=f"layer{i}_res2")
+    # classification head over the first position
+    head, _rest = ff.split(t, [1, t.shape[1] - 1], axis=1,
+                           name="cls_split")
+    head = ff.reshape(head, (bs, hidden), name="cls_reshape")
+    logits = ff.dense(head, num_classes, name="cls_head")
+    ff.softmax(logits, name="cls_softmax")
+    return ff

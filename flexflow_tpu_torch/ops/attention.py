@@ -1,0 +1,119 @@
+"""Multi-head attention; counterpart of ``flexflow_tpu/ops/attention.py``.
+
+Separate (E, H, D) projection weights and an (H, D, E) output weight,
+as in the JAX package; the core softmax(q.k^T / sqrt(d)).v runs through
+``kernels.flash_attention.flash_attention_bshd`` (the hand-written
+Hopper kernels on CUDA, their plain pieces on the CPU) unless the
+caller chose the einsum path with ``use_flash=False``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.flash_attention import attention_ref, flash_attention_bshd
+from ..op import Op, OpContext, WeightSpec
+
+
+class MultiHeadAttention(Op):
+    op_type = "multihead_attention"
+
+    def __init__(self, model, name, inputs, embed_dim: int, num_heads: int,
+                 kdim: int = 0, vdim: int = 0, dropout: float = 0.0,
+                 use_bias: bool = False, add_bias_kv: bool = False,
+                 add_zero_attn: bool = False, causal: bool = False,
+                 kernel_initializer: str = "glorot", use_flash=None):
+        super().__init__(model, name, inputs)
+        if dropout > 0.0:
+            raise NotImplementedError(
+                "attention dropout is not ported yet (dropout must be 0)")
+        if add_bias_kv or add_zero_attn:
+            raise NotImplementedError(
+                "add_bias_kv / add_zero_attn are not ported yet")
+        q, k, v = inputs
+        self.embed_dim = int(embed_dim)
+        self.num_heads = int(num_heads)
+        self.kdim = int(kdim) if kdim > 0 else self.embed_dim
+        self.vdim = int(vdim) if vdim > 0 else self.embed_dim
+        if self.embed_dim % self.num_heads != 0:
+            raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
+                             f"num_heads {num_heads}")
+        self.head_dim = self.embed_dim // self.num_heads
+        self.dropout = dropout
+        self.use_bias = use_bias
+        self.causal = causal
+        self.use_flash = use_flash
+        self.q_in = q.shape[-1]
+        self.k_in = k.shape[-1]
+        self.v_in = v.shape[-1]
+        # self-attention is detected on the GRAPH (one tensor wired to
+        # q, k and v), as in the JAX op
+        self._fused_qkv = (q is k and k is v
+                           and self.q_in == self.k_in == self.v_in)
+        # cross-attention: K and V read the same encoder output
+        self._fused_kv = (not self._fused_qkv and k is v
+                          and self.k_in == self.v_in)
+        self.kernel_initializer = kernel_initializer
+        self.attrs = {"embed_dim": embed_dim, "num_heads": num_heads,
+                      "dropout": dropout, "use_bias": use_bias,
+                      "causal": causal}
+
+    def output_shapes(self):
+        q = self.inputs[0]
+        return [(q.shape[0], q.shape[1], self.embed_dim)]
+
+    def weight_specs(self):
+        h, d, e = self.num_heads, self.head_dim, self.embed_dim
+        init = self.kernel_initializer
+        specs = {
+            "wq": WeightSpec((self.q_in, h, d), initializer=init,
+                             fan_in=self.q_in, fan_out=e),
+            "wk": WeightSpec((self.k_in, h, d), initializer=init,
+                             fan_in=self.k_in, fan_out=e),
+            "wv": WeightSpec((self.v_in, h, d), initializer=init,
+                             fan_in=self.v_in, fan_out=e),
+            "wo": WeightSpec((h, d, e), initializer=init,
+                             fan_in=e, fan_out=e),
+        }
+        if self.use_bias:
+            specs["bo"] = WeightSpec((e,), initializer="zeros")
+        return specs
+
+    def forward(self, params, xs, ctx: OpContext):
+        q_in, k_in, v_in = xs
+        if self._fused_qkv:
+            # self-attention: ONE (E, 3*H*D) projection GEMM
+            w = torch.stack([params["wq"], params["wk"], params["wv"]],
+                            dim=1).to(q_in.dtype)          # (E, 3, H, D)
+            q, k, v = torch.einsum("bse,exhd->xbshd", q_in, w).unbind(0)
+        else:
+            q = torch.einsum("bse,ehd->bshd", q_in,
+                             params["wq"].to(q_in.dtype))
+            if self._fused_kv:
+                # one 2x-wide GEMM over the shared encoder output
+                w = torch.stack([params["wk"], params["wv"]],
+                                dim=1).to(k_in.dtype)      # (E, 2, H, D)
+                k, v = torch.einsum("bse,exhd->xbshd", k_in, w).unbind(0)
+            else:
+                k = torch.einsum("bse,ehd->bshd", k_in,
+                                 params["wk"].to(k_in.dtype))
+                v = torch.einsum("bse,ehd->bshd", v_in,
+                                 params["wv"].to(v_in.dtype))
+        o = self._attend(q, k, v, ctx)
+        y = torch.einsum("bshd,hde->bse", o, params["wo"].to(o.dtype))
+        if self.use_bias:
+            y = y + params["bo"].to(y.dtype)
+        return [y]
+
+    def _attend(self, q, k, v, ctx: OpContext):
+        """softmax(q.k^T / sqrt(d)).v, (b, s, h, d) layout. The flash
+        entry point whenever use_flash is not False — on CUDA that is
+        always the hand-written kernel (the JAX op's TPU-tuned
+        ``flash_profitable`` gate is not copied), and a kernel error
+        raises: there is no silent fallback to the einsum path."""
+        if ctx.seq_length is not None and ctx.seq_length >= 0:
+            raise NotImplementedError(
+                "seq_length truncation is not ported yet")
+        if self.use_flash is False:
+            return attention_ref(q, k, v, causal=self.causal)
+        return flash_attention_bshd(q, k, v, causal=self.causal)

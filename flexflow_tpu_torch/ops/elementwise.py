@@ -1,0 +1,94 @@
+"""Elementwise binary ops, softmax and layer norm; counterpart of
+``flexflow_tpu/ops/elementwise.py``."""
+
+from __future__ import annotations
+
+import torch
+
+from ..op import Op, OpContext, WeightSpec
+
+_BINARY = {
+    "add": torch.add,
+    "subtract": torch.subtract,
+    "multiply": torch.multiply,
+    "divide": torch.divide,
+    "max": torch.maximum,
+    "min": torch.minimum,
+}
+
+
+class ElementBinary(Op):
+    op_type = "element_binary"
+
+    def __init__(self, model, name, inputs, mode: str):
+        super().__init__(model, name, inputs)
+        if mode not in _BINARY:
+            raise ValueError(f"unknown binary mode {mode}")
+        self.mode = mode
+        self.attrs = {"mode": mode}
+
+    def output_shapes(self):
+        a, b = self.inputs[0].shape, self.inputs[1].shape
+        return [tuple(torch.broadcast_shapes(a, b))]
+
+    def forward(self, params, xs, ctx: OpContext):
+        a, b = xs
+        return [_BINARY[self.mode](a, b)]
+
+
+class Softmax(Op):
+    """``jax.nn.softmax`` op for op, in the input dtype: the JAX op
+    casts to f32 only under the mixed-precision policy, which the port
+    does not run, so a bf16 graph's softmax runs in bf16 there too."""
+
+    op_type = "softmax"
+
+    def __init__(self, model, name, inputs, axis: int = -1):
+        super().__init__(model, name, inputs)
+        self.axis = axis
+        self.attrs = {"axis": axis}
+
+    def output_shapes(self):
+        return [tuple(self.inputs[0].shape)]
+
+    def forward(self, params, xs, ctx: OpContext):
+        (x,) = xs
+        x_max = torch.amax(x, dim=self.axis, keepdim=True).detach()
+        unnormalized = torch.exp(x - x_max)
+        return [unnormalized / torch.sum(unnormalized, dim=self.axis,
+                                         keepdim=True)]
+
+
+class LayerNorm(Op):
+    """Normalize over the last dim with learned scale/bias; statistics
+    in f32 (population variance), output in the input dtype."""
+
+    op_type = "layer_norm"
+
+    def __init__(self, model, name, inputs, eps: float = 1e-5,
+                 elementwise_affine: bool = True):
+        super().__init__(model, name, inputs)
+        self.eps = float(eps)
+        self.elementwise_affine = elementwise_affine
+        self.num_channels = inputs[0].shape[-1]
+        self.attrs = {"eps": eps, "elementwise_affine": elementwise_affine}
+
+    def output_shapes(self):
+        return [tuple(self.inputs[0].shape)]
+
+    def weight_specs(self):
+        if not self.elementwise_affine:
+            return {}
+        c = self.num_channels
+        return {"scale": WeightSpec((c,), initializer="ones"),
+                "bias": WeightSpec((c,), initializer="zeros")}
+
+    def forward(self, params, xs, ctx: OpContext):
+        (x,) = xs
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, correction=0)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        if self.elementwise_affine:
+            y = y * params["scale"].float() + params["bias"].float()
+        return [y.to(x.dtype)]

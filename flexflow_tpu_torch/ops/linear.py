@@ -1,0 +1,52 @@
+"""Dense / Linear layer; counterpart of ``flexflow_tpu/ops/linear.py``."""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+
+from ..op import Op, OpContext, WeightSpec
+from .common import AC_MODE_NONE, apply_activation
+
+
+class Linear(Op):
+    op_type = "linear"
+
+    def __init__(self, model, name, inputs, out_channels: int,
+                 activation=AC_MODE_NONE, use_bias: bool = True,
+                 kernel_initializer: str = "glorot",
+                 bias_initializer: str = "zeros"):
+        super().__init__(model, name, inputs)
+        self.out_channels = int(out_channels)
+        self.in_channels = int(inputs[0].shape[-1])
+        self.activation = activation
+        self.use_bias = use_bias
+        self.kernel_initializer = kernel_initializer
+        self.bias_initializer = bias_initializer
+        self.attrs = {"out_channels": self.out_channels,
+                      "activation": activation, "use_bias": use_bias}
+
+    def output_shapes(self) -> List[Tuple[int, ...]]:
+        return [tuple(self.inputs[0].shape[:-1]) + (self.out_channels,)]
+
+    def weight_specs(self) -> Dict[str, WeightSpec]:
+        # kernel stored (in, out), as in the JAX package
+        specs = {"kernel": WeightSpec(
+            (self.in_channels, self.out_channels),
+            initializer=self.kernel_initializer)}
+        if self.use_bias:
+            specs["bias"] = WeightSpec((self.out_channels,),
+                                       initializer=self.bias_initializer)
+        return specs
+
+    def forward(self, params, xs, ctx: OpContext):
+        (x,) = xs
+        # jnp.dot(..., preferred_element_type=f32).astype(x.dtype): the
+        # matmul accumulates in f32 and rounds once to x's dtype (a bf16
+        # GEMM reduces in f32, resolve_device), then the bias is added
+        # in the activation dtype
+        y = torch.matmul(x, params["kernel"].to(x.dtype))
+        if self.use_bias:
+            y = y + params["bias"].to(x.dtype)
+        return [apply_activation(y, self.activation)]

@@ -3,9 +3,10 @@
 The JAX initializers draw from folded ``jax.random`` keys that torch
 cannot reproduce, so the two packages are held against each other on
 the same WEIGHTS, not the same seed: export ``model.state.params`` of a
-``flexflow_tpu`` LM to numpy and hand it to :func:`from_jax_params`.
-Takes plain arrays (anything ``np.asarray`` reads), so this module never
-imports JAX.
+``flexflow_tpu`` LM to numpy and hand it to :func:`from_jax_params`, or
+the ``{op: {name: array}}`` weights of a ``flexflow_tpu`` FFModel to
+:func:`load_jax_params`. Takes plain arrays (anything ``np.asarray``
+reads), so this module never imports JAX.
 """
 
 from __future__ import annotations
@@ -49,3 +50,19 @@ def from_jax_params(params: Mapping[str, Mapping[str, object]],
     if arch is None:
         arch = arch_from_params(tree)
     return TransformerLM(arch, params=tree, device=device)
+
+
+def load_jax_params(ff, params: Mapping[str, Mapping[str, object]]) -> None:
+    """Copy a ``{op: {name: array}}`` tree — e.g.
+    ``{op.name: jax_ff.get_weights(op.name)}`` over a JAX FFModel's ops —
+    into a compiled port ``FFModel`` through ``set_weights``. The ops,
+    weight names and shapes must match the port model's exactly."""
+    have = ff.state.params
+    if set(params) != set(have):
+        raise ValueError(f"ops differ: {sorted(set(params) ^ set(have))}")
+    for op, ws in params.items():
+        if set(ws) != set(have[op]):
+            raise ValueError(f"{op}: weights {sorted(ws)} do not match "
+                             f"{sorted(have[op])}")
+        ff.set_weights(op, {k: np.asarray(v, np.float32)
+                            for k, v in ws.items()})

@@ -1,7 +1,7 @@
-"""The port's CUDA kernel on the card: held against its plain version
-over every head_dim / tile / dtype it takes, at small shapes. Needs an
-NVIDIA GPU and nvcc; skips without a card. Imports no JAX, so on a
-machine without JAX it runs as
+"""The port's CUDA kernels on the card: each held against its plain
+version over every head_dim / tile / dtype it takes, at small shapes.
+Needs an NVIDIA GPU and nvcc; skips without a card. Imports no JAX, so
+on a machine without JAX it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from flexflow_tpu_torch.kernels import flash_attention as fa
 from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
 
 pytestmark = pytest.mark.cuda
@@ -91,3 +92,105 @@ def test_engine_on_card_counts_launches(card):
     assert pr.launches == eng.num_layers * eng.last_stats["steps"]
     ref = eng.generate_reference(prompts, 8)
     eng.assert_token_parity(prompts, out, ref, margin=1e-3)
+
+
+# ------------------------------------------------------ flash attention
+# max abs error / max |ref| of each flash kernel against its plain
+# piece: f32 differs only in summation order; bf16 in where p and ds
+# round (the kernel rounds p against its running max, the plain piece
+# against the row's final max)
+FLASH_F32_REL = 1e-5
+FLASH_BF16_REL = 2e-2
+
+
+def _rel_err(out, ref):
+    out, ref = out.detach(), ref.detach()
+    return float((out.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+def _flash_inputs(dev, dtype, b, sq, sk, h, d, seed=0, strided=False):
+    rng = np.random.default_rng(seed)
+    put = lambda a: torch.from_numpy(a).to(dev).to(dtype)  # noqa: E731
+    if strided:
+        # q, k, v as views into one fused (b, s, 3, h, d) projection
+        assert sq == sk
+        qkv = put(rng.standard_normal((b, sq, 3, h, d), np.float32))
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q = put(rng.standard_normal((b, sq, h, d), np.float32))
+        k = put(rng.standard_normal((b, sk, h, d), np.float32))
+        v = put(rng.standard_normal((b, sk, h, d), np.float32))
+    do = put(rng.standard_normal((b, sq, h, d), np.float32))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk", [(64, 64), (100, 100), (128, 70),
+                                   (70, 130)])
+def test_flash_kernels_match_plain_pieces(card, dtype, causal, d, sq, sk):
+    q, k, v, do = _flash_inputs(card, dtype, 2, sq, sk, 3, d)
+    scale = 1.0 / math.sqrt(d)
+    kw = {"causal": causal, "scale": scale}
+    tol = FLASH_F32_REL if dtype == torch.float32 else FLASH_BF16_REL
+    before = dict(fa.launches)
+    o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _rel_err(o, o_ref) <= tol
+    assert _rel_err(lse, lse_ref) <= tol
+    # the backward pieces on the same (reference) o and lse
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse_ref, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta, **kw)
+    torch.cuda.synchronize()
+    dq_ref = fa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta, **kw)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta,
+                                          **kw)
+    for name, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                           ("dv", dv, dv_ref)):
+        assert _rel_err(got, ref) <= tol, name
+    assert {n: fa.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+def test_flash_strided_views(card):
+    """q, k, v read through the strides of a fused projection."""
+    q, k, v, _ = _flash_inputs(card, torch.float32, 2, 96, 96, 4, 64,
+                               seed=3, strided=True)
+    assert not q.is_contiguous()
+    for causal in (False, True):
+        kw = {"causal": causal, "scale": 0.125}
+        o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+        o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, **kw)
+        assert _rel_err(o, o_ref) <= FLASH_F32_REL
+        assert _rel_err(lse, lse_ref) <= FLASH_F32_REL
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_autograd_matches_reference_autograd(card, causal):
+    """FlashAttention's gradients on CUDA equal torch autograd through
+    attention_ref (f32)."""
+    q, k, v, _ = _flash_inputs(card, torch.float32, 2, 100, 100, 3, 64,
+                               seed=5)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    o = fa.flash_attention_bshd(q, k, v, causal=causal)
+    g = torch.autograd.grad(torch.sin(o).sum(), (q, k, v))
+    ref = fa.attention_ref(q, k, v, causal=causal)
+    g_ref = torch.autograd.grad(torch.sin(ref).sum(), (q, k, v))
+    assert _rel_err(o, ref) <= FLASH_F32_REL
+    for name, a, b in zip("qkv", g, g_ref):
+        assert _rel_err(a, b) <= FLASH_F32_REL, f"d{name}"
+
+
+def test_flash_refuses_what_it_does_not_take(card):
+    q, k, v, _ = _flash_inputs(card, torch.float32, 1, 64, 64, 2, 64)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_fwd_cuda(q[..., :48], k[..., :48], v[..., :48],
+                          causal=False, scale=1.0)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_fwd_cuda(q.half(), k.half(), v.half(), causal=False,
+                          scale=1.0)

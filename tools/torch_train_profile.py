@@ -1,0 +1,138 @@
+"""Where a training step of the PyTorch/CUDA port spends its time.
+
+    python3 tools/torch_train_profile.py [--steps 10] [--out chiprun_out/train_profile.json]
+
+Trains chip_smoke.py's bf16 flagship (``build_transformer`` at batch 32,
+seq 512, hidden 512, 8 heads, 6 layers, ff 2048, 10 classes, SGD lr
+0.01, weights and data from numpy seeds) on the card: 3 warm-up steps,
+three plain windows of ``--steps`` steps (wall time per step — host
+times vary between runs, so all three are printed), then one window
+under ``torch.profiler`` (CPU + CUDA activities). Prints device time per
+step by kernel class — the three flash-attention kernels, matmuls,
+copies, the rest — with each class's share of the profiled wall time,
+and the device's idle share. Needs one NVIDIA GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+# kernel-name patterns per class, first match wins
+CLASSES = (
+    ("attention_fwd", re.compile(r"flash_fwd_kernel")),
+    ("attention_bwd_dq", re.compile(r"flash_bwd_dq_kernel")),
+    ("attention_bwd_dkv", re.compile(r"flash_bwd_dkv_kernel")),
+    # cuBLAS names its Hopper GEMMs nvjet_*
+    ("matmul", re.compile(r"gemm|matmul|nvjet|sm90_|cutlass|cublas",
+                          re.I)),
+    ("copy", re.compile(r"memcpy|memset|copy", re.I)),
+)
+
+
+def classify(name: str) -> str:
+    for cls, pat in CLASSES:
+        if pat.search(name):
+            return cls
+    return "other"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_train_profile: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import TB, train_batches, train_model
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(card)
+    batches = train_batches(4)
+    m = train_model(torch.bfloat16, None)
+    for i in range(3):                      # warm every code path
+        m.train_batch(batches[i])
+
+    def window():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = [m.train_batch(batches[i % len(batches)])
+              for i in range(args.steps)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return wall, [float(x["loss"]) for x in ms]
+
+    plain = [window()[0] for _ in range(3)]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        wall, _ = window()
+    by_cls, by_kernel = {}, {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue     # operator rows re-count their kernels' time
+        dev_us = float(evt.self_device_time_total)
+        if dev_us <= 0:
+            continue
+        cls = classify(evt.key)
+        by_cls[cls] = by_cls.get(cls, 0.0) + dev_us
+        by_kernel[evt.key] = (dev_us, evt.count)
+    busy_s = sum(by_cls.values()) / 1e6
+    if busy_s <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    steps = args.steps
+    attn = sum(v for k, v in by_cls.items() if k.startswith("attention"))
+    res = {
+        "card": card,
+        "steps": steps,
+        "plain_step_ms": [1e3 * w / steps for w in plain],
+        "plain_samples_per_s": [TB * steps / w for w in plain],
+        "profiled_wall_s": wall,
+        "device_busy_s": busy_s,
+        "device_idle_share": 1.0 - busy_s / wall,
+        "attention_share_of_device": attn / 1e6 / busy_s,
+        "device_ms_per_step": {k: v / 1e3 / steps
+                               for k, v in sorted(by_cls.items())},
+        "share_of_wall": {k: v / 1e6 / wall
+                          for k, v in sorted(by_cls.items())},
+        "top_kernels": [
+            {"name": k[:120], "device_ms": v[0] / 1e3, "count": v[1]}
+            for k, v in sorted(by_kernel.items(),
+                               key=lambda kv: -kv[1][0])[:12]],
+    }
+    print(f"[{card}] {steps} steps a window; plain step ms "
+          f"{[round(x, 3) for x in res['plain_step_ms']]}, samples/s "
+          f"{[round(x, 1) for x in res['plain_samples_per_s']]}; profiled "
+          f"wall {wall:.4f} s, device busy {busy_s:.4f} s, idle share "
+          f"{res['device_idle_share']:.3f}, attention "
+          f"{res['attention_share_of_device']:.3f} of device time")
+    for k, v in res["device_ms_per_step"].items():
+        print(f"  {k:17s} {v:9.4f} device ms/step  "
+              f"{res['share_of_wall'][k]:.3f} of wall")
+    for row in res["top_kernels"]:
+        print(f"  {row['device_ms']:9.3f} ms x{row['count']:<5d} "
+              f"{row['name']}")
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(res, indent=1))
+    print(json.dumps({"ok": True, "device_idle_share":
+                      res["device_idle_share"]}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
