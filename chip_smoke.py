@@ -6,7 +6,11 @@ Builds every CUDA kernel of the port from this checkout's sources (one
 nvcc per source, in parallel) and then:
 
   * holds the ragged paged-attention kernel against its plain PyTorch
-    version at the serving mixed step's shapes;
+    version at the serving mixed step's shapes, on f32, bf16, int8 and
+    fp8 pages; the paged decode kernel against its plain version at the
+    legacy decode step's shapes (8 sequences over the same pool); and
+    the v1 ragged kernel against its plain version and against v2 at
+    the mixed step's shapes, through its entry point;
   * holds the three flash-attention kernels (forward, dq, dkv) against
     their plain pieces at the training path's shapes (b=32, s=512, h=8,
     d=64, causal and not, f32 and bf16);
@@ -18,8 +22,11 @@ nvcc per source, in parallel) and then:
     with the kernels' launch counts checked;
   * serves the full-width causal LM of the README (vocab 32000, 512
     positions, hidden 512, 8 heads, 6 layers, ff 2048, f32, random
-    weights from a numpy seed) through ``ServeEngine.generate`` and holds
-    its greedy tokens against the no-cache ``generate_reference``.
+    weights from a numpy seed) through ``ServeEngine.generate`` four
+    times — the mixed step on f32 pages, on int8 pages and on fp8
+    pages, and the legacy bucket path on f32 pages — holding each run's
+    greedy tokens against one no-cache ``generate_reference`` and its
+    kernel launches against layers x steps.
 
 Every phase raises on failure. Prints the card (name, power limit), the
 build, each kernel's error and times, the training and serving numbers,
@@ -47,7 +54,8 @@ HERE = Path(__file__).resolve().parent
 # operation rate for each input type — f32 outside the tensor cores,
 # bf16 on them
 HBM_BYTES_PER_S = 3.35e12
-FLOPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+FLOPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
+               torch.int8: 1979e12, torch.float8_e4m3fn: 1979e12}
 
 # the serving mixed step's geometry at the FFConfig defaults:
 # serve_prefill_budget 512 + serve_max_seqs 8 lanes, kv_page_size 16,
@@ -57,6 +65,10 @@ HEADS, HEAD_DIM = 8, 64
 
 F32_TOL = 1e-5       # f32 pages: kernel vs single-pass plain version
 BF16_TOL = 2e-2      # bf16 q and pages, output rounded to bf16
+# int8/fp8 pages, as max abs error / max |plain|: kernel and plain
+# version dequantize to the same f32 keys, so only the order of the
+# sums differs
+QUANT_REL_TOL = 1e-5
 PARITY_MARGIN = 1e-3  # tie rule vs generate_reference (online softmax)
 
 # the training path: the flagship encoder's attention shapes
@@ -145,49 +157,142 @@ def kernel_inputs(dtype, device, seed=0):
 
 
 def attention_bound(q, kp, tables, slots, lens):
-    """(bound_ms, bound_by) of ragged paged attention on these inputs:
-    the larger of the bytes it must move (each live K/V page — the pages
-    below ceil(len/ps) of every lane's row — read once, q and the table
-    data read once, the output written once) over the HBM rate, and its
-    flops (q.k and p.v: 4 * len * H * D per lane) over the card's peak
-    rate for the pages' type."""
-    t_np, s_np, l_np = (tables.cpu().numpy(), slots.cpu().numpy(),
-                        lens.cpu().numpy())
+    """(bound_ms, bound_by) of paged attention on these inputs: the
+    larger of the bytes it must move (each live K/V page — the pages
+    below ceil(len/ps) of every row's table row — read once with, for
+    1-byte pages, its f32 scale rows; q and the table data read once,
+    the output written once) over the HBM rate, and its flops (q.k and
+    p.v: 4 * len * H * D per row) over the card's peak rate for the
+    pages' type. ``slots`` None: row b reads table row b (decode)."""
+    t_np, l_np = tables.cpu().numpy(), lens.cpu().numpy()
+    s_np = np.arange(len(l_np)) if slots is None else slots.cpu().numpy()
     live = set()
     for s, n in zip(s_np, l_np):
         live.update(int(p) for p in t_np[s, :-(-int(n) // PAGE)])
     page_bytes = PAGE * HEADS * HEAD_DIM * kp.element_size()
+    if kp.element_size() == 1:
+        page_bytes += PAGE * HEADS * 4
     nbytes = (2 * len(live) * page_bytes + 2 * q.numel() * q.element_size()
-              + tables.numel() * 4 + slots.numel() * 4 + lens.numel() * 4)
+              + tables.numel() * 4
+              + (1 if slots is None else 2) * len(l_np) * 4)
     flops = 4.0 * float(l_np.astype(np.int64).sum()) * HEADS * HEAD_DIM
     return bound(nbytes, flops, kp.dtype)
 
 
+def check_err(name, out, ref, tol, relative=False):
+    """(max abs error, error / max |ref|) of a kernel against its plain
+    version; raises past ``tol`` (on the relative error if asked)."""
+    err = float((out.float() - ref.float()).abs().max())
+    rel = err / float(ref.float().abs().max())
+    if not (math.isfinite(err) and (rel if relative else err) <= tol):
+        raise AssertionError(
+            f"{name}: max abs err {err} (/ max |ref| {rel}) > {tol}")
+    return err, rel
+
+
 def kernel_phase(pr):
-    """Hold the CUDA kernel against ragged_attention_ref on the card in
-    f32 and bf16; time the kernel and the plain version."""
+    """Hold the CUDA kernel against ragged_attention_ref on the card on
+    f32, bf16, int8 and fp8 pages; time the kernel and the plain
+    version."""
     dev = torch.device("cuda")
     scale = 1.0 / math.sqrt(HEAD_DIM)
     res = {}
     for name, dtype, tol in (("f32", torch.float32, F32_TOL),
-                             ("bf16", torch.bfloat16, BF16_TOL)):
-        args = kernel_inputs(dtype, dev)
-        out = pr.paged_ragged_v2_cuda(*args, scale)
+                             ("bf16", torch.bfloat16, BF16_TOL),
+                             ("int8", torch.int8, QUANT_REL_TOL),
+                             ("fp8", torch.float8_e4m3fn, QUANT_REL_TOL)):
+        quant = dtype in pr.QUANTIZED_DTYPES
+        args = kernel_inputs(torch.float32 if quant else dtype, dev)
+        kw = {}
+        if quant:
+            q, kp, vp, *rest = args
+            kq, ks = pr.quantize_kv_rows(kp, dtype)
+            vq, vs = pr.quantize_kv_rows(vp, dtype)
+            args = (q, kq, vq, *rest)
+            kw = {"k_scales": ks, "v_scales": vs}
+        out = pr.paged_ragged_v2_cuda(*args, scale, **kw)
         torch.cuda.synchronize()
-        ref = pr.ragged_attention_ref(*args, scale)
-        err = float((out.float() - ref.float()).abs().max())
-        if not (math.isfinite(err) and err <= tol):
-            raise AssertionError(
-                f"paged_ragged_v2 {name}: max abs err {err} > {tol}")
-        k_ms = cuda_ms(lambda: pr.paged_ragged_v2_cuda(*args, scale), 50)
-        p_ms = cuda_ms(lambda: pr.ragged_attention_ref(*args, scale), 5)
+        ref = pr.ragged_attention_ref(*args, scale, **kw)
+        err, rel = check_err(f"paged_ragged_v2 {name}", out, ref, tol,
+                             relative=quant)
+        k_ms = cuda_ms(lambda: pr.paged_ragged_v2_cuda(*args, scale, **kw),
+                       50)
+        p_ms = cuda_ms(lambda: pr.ragged_attention_ref(*args, scale, **kw),
+                       5)
         bound_ms, bound_by = attention_bound(args[0], args[1], *args[3:])
-        res[name] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+        res[name] = {"max_abs_err": err, "err_over_max_ref": rel,
+                     "ms": k_ms, "plain_ms": p_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by}
         log(f"kernel paged_ragged_v2 [{name} pages, T=520 H=8 D=64 ps=16 "
-            f"pp=32 P=257]: max_abs_err={err:.3g} (tol {tol}) "
+            f"pp=32 P=257]: max_abs_err={err:.3g} err/max|ref|={rel:.3g} "
+            f"(tol {tol}{' relative' if quant else ''}) "
             f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
             f"bound_ms={bound_ms:.4f} ({bound_by})")
+        del args, kw, out, ref
+    log("library_ms: null — no single PyTorch call computes attention "
+        "through a page table")
+    return res
+
+
+def paged_decode_phase(fa):
+    """Kernels 5 and 6 on the card, f32 and bf16 pages: the paged decode
+    kernel at the legacy decode step's shapes (the 8 decode rows of
+    kernel_inputs over the same pool: B=8, lengths 1..512, tables
+    (8, 32)), and the v1 ragged kernel at the mixed step's shapes, each
+    against its plain version and timed; then v1 against v2 on f32
+    pages through the v1 entry point — the oracle run that is v1's path
+    (its launches are counted there)."""
+    from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
+    dev = torch.device("cuda")
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+    res = {"paged_decode": {}, "paged_ragged_v1": {}}
+    for name, dtype, tol in (("f32", torch.float32, F32_TOL),
+                             ("bf16", torch.bfloat16, BF16_TOL)):
+        q, kp, vp, tables, slots, lens = kernel_inputs(dtype, dev)
+        dargs = (q[T_PREFILL:].contiguous(), kp, vp, tables,
+                 lens[T_PREFILL:].contiguous())
+        rargs = (q, kp, vp, tables, slots, lens)
+        for kname, cuda_fn, ref_fn, args, shape in (
+                ("paged_decode", fa.paged_decode_cuda, fa.paged_decode_ref,
+                 dargs, "B=8 H=8 D=64 ps=16 pp=32 P=257"),
+                ("paged_ragged_v1", fa.paged_ragged_v1_cuda,
+                 fa.paged_ragged_v1_ref, rargs,
+                 "T=520 H=8 D=64 ps=16 pp=32 P=257")):
+            out = cuda_fn(*args, scale)
+            torch.cuda.synchronize()
+            ref = ref_fn(*args, scale)
+            err, rel = check_err(f"{kname} {name}", out, ref, tol)
+            k_ms = cuda_ms(lambda: cuda_fn(*args, scale), 50)
+            p_ms = cuda_ms(lambda: ref_fn(*args, scale), 5)
+            slots_of = None if kname == "paged_decode" else args[4]
+            b_ms, b_by = attention_bound(args[0], args[1], args[3],
+                                         slots_of, args[-1])
+            res[kname][name] = {"max_abs_err": err,
+                                "err_over_max_ref": rel, "ms": k_ms,
+                                "plain_ms": p_ms, "bound_ms": b_ms,
+                                "bound_by": b_by}
+            log(f"kernel {kname} [{name} pages, {shape}]: max_abs_err="
+                f"{err:.3g} err/max|ref|={rel:.3g} (tol {tol}) "
+                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({b_by})")
+            del out, ref
+        if name == "f32":
+            v2 = pr.paged_ragged_v2_cuda(*rargs, scale)
+            fa.launches["paged_ragged_v1"] = 0     # v1's path only
+            v1 = fa.paged_attention_ragged_v1(*rargs, scale=scale)
+            res["v1_launches"] = fa.launches["paged_ragged_v1"]
+            torch.cuda.synchronize()
+            if res["v1_launches"] != 1:
+                raise AssertionError(
+                    f"paged_attention_ragged_v1 launched "
+                    f"{res['v1_launches']} kernels, not 1")
+            err, rel = check_err("paged_ragged_v1 vs v2 f32", v1, v2,
+                                 F32_TOL)
+            res["v1_vs_v2_max_abs_err"] = err
+            log(f"kernel paged_ragged_v1 vs paged_ragged_v2 [f32 pages, "
+                f"T=520]: max_abs_err={err:.3g} (tol {F32_TOL}); the v1 "
+                f"entry point launched its kernel {res['v1_launches']} "
+                f"time")
     log("library_ms: null — no single PyTorch call computes attention "
         "through a page table")
     return res
@@ -379,7 +484,7 @@ def train_phase(fa, card: str):
                for i in range(steps_timed)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fa.launches)
+    launches = {k: fa.launches[k] for k in fa.FLASH_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     timed = [float(x["loss"]) for x in metrics]
     want = 6 * (steps_warm + steps_timed)
@@ -418,57 +523,91 @@ def serve_prompts(vocab, seed=0):
     return greedy, rand(128)
 
 
-def serve_phase(pr, card: str):
-    """Serve the full-width LM on the card; returns the kernel launches
-    of the run and its stats."""
+def serve_phase(pr, fa, card: str):
+    """Serve the full-width LM on the card four times on one set of
+    weights: the mixed step on f32 pages (the first slice's run), on
+    int8 and on fp8 pages, and the legacy bucket path on f32 pages.
+    The no-cache reference is computed once and holds every run. Each
+    run's kernel launches are counted from 0 just before it. Returns
+    {run: (launches, stats)}."""
     from flexflow_tpu_torch import FFConfig, build_transformer_lm
     from flexflow_tpu_torch.serve import ServeEngine
-    cfg = FFConfig()   # kv_page_size 16, kv_num_pages 257, 8 seqs, 512
     t0 = time.perf_counter()
-    lm = build_transformer_lm(cfg, vocab_size=32000, max_seq_len=512,
-                              hidden=512, num_heads=8, num_layers=6,
-                              ff_dim=2048, seed=0, device="cuda")
+    lm = build_transformer_lm(FFConfig(), vocab_size=32000,
+                              max_seq_len=512, hidden=512, num_heads=8,
+                              num_layers=6, ff_dim=2048, seed=0,
+                              device="cuda")
     nparams = sum(p.numel() for p in lm.parameters())
-    eng = ServeEngine(lm, cfg, device="cuda")
-    boot = eng.warmup()
-    log(f"serve: LM {nparams / 1e6:.1f} M params f32, KV pool "
-        f"{eng.cache_cfg.pool_bytes / 2**20:.1f} MiB, built in "
-        f"{time.perf_counter() - t0:.2f} s, warmup {boot['boot_s']:.3f} s")
+    log(f"serve: LM {nparams / 1e6:.1f} M params f32, built in "
+        f"{time.perf_counter() - t0:.2f} s")
     greedy, sampled = serve_prompts(32000)
     prompts = greedy + [sampled]
     new = 32
-    pr.launches = 0                           # count the main path only
-    out = eng.generate(prompts, new,
-                       temperature=[None] * len(greedy) + [0.8],
-                       top_k=[None] * len(greedy) + [8], sample_seed=7)
-    launches = pr.launches
-    st = eng.last_stats
-    if [len(o) for o in out] != [new] * len(prompts):
-        raise AssertionError(f"wrong output lengths {[len(o) for o in out]}")
-    if not all(0 <= t < 32000 for o in out for t in o):
-        raise AssertionError("token outside the vocabulary")
-    if launches != eng.num_layers * st["steps"]:
-        raise AssertionError(
-            f"kernel launches {launches} != layers {eng.num_layers} x "
-            f"steps {st['steps']}")
-    ref = eng.generate_reference(greedy, new)
-    exact = eng.assert_token_parity(greedy, out[:len(greedy)], ref,
-                                    margin=PARITY_MARGIN)
-    pre_lanes = sum(n for n, _ in st["prefill_times_s"])
-    pre_s = sum(s for _, s in st["prefill_times_s"])
-    dec_ms = 1e3 * float(np.mean(st["decode_step_times_s"]))
-    log(f"serve [{card}]: steps={st['steps']} kernel_launches={launches} "
-        f"(= {eng.num_layers} layers x steps) prefix_hit_tokens="
-        f"{st['prefix_hit_tokens']} preemptions={st['preemptions']} "
-        f"spec accepted/drafted={st['spec_accepted_tokens']}/"
-        f"{st['spec_drafted_tokens']} greedy token-identical to reference: "
-        f"{exact}/{len(greedy)} (rest diverge at a tie <= {PARITY_MARGIN})")
-    log(f"serve [{card}]: decode step ms mean={dec_ms:.3f} over "
-        f"{st['decode_steps']} steps; prefill tokens/s="
-        f"{pre_lanes / pre_s:.1f}; output tokens/s="
-        f"{st['tokens_per_sec']:.1f} ({st['total_new_tokens']} tokens in "
-        f"{st['wall_s']:.3f} s)")
-    return launches, st
+    runs, ref = {}, None
+    # FFConfig defaults: kv_page_size 16, kv_num_pages 257, 8 seqs, 512
+    for run, cfg in (("f32", FFConfig()),
+                     ("int8", FFConfig(kv_dtype="int8")),
+                     ("fp8", FFConfig(kv_dtype="float8_e4m3")),
+                     ("legacy_f32", FFConfig(serve_chunked_prefill=False))):
+        eng = ServeEngine(lm, cfg, device="cuda")
+        boot = eng.warmup()
+        log(f"serve {run}: KV pool {eng.cache_cfg.kv_dtype} "
+            f"{eng.cache_cfg.pool_bytes / 2**20:.1f} MiB, warmup "
+            f"{boot['boot_s']:.3f} s")
+        pr.launches = 0                   # count this run's path only
+        fa.launches["paged_decode"] = 0
+        out = eng.generate(prompts, new,
+                           temperature=[None] * len(greedy) + [0.8],
+                           top_k=[None] * len(greedy) + [8], sample_seed=7)
+        launches = {"paged_ragged_v2": pr.launches,
+                    "paged_decode": fa.launches["paged_decode"]}
+        st = eng.last_stats
+        if [len(o) for o in out] != [new] * len(prompts):
+            raise AssertionError(
+                f"{run}: wrong output lengths {[len(o) for o in out]}")
+        if not all(0 <= t < 32000 for o in out for t in o):
+            raise AssertionError(f"{run}: token outside the vocabulary")
+        layers = eng.num_layers
+        if eng.chunked_prefill:
+            want = {"paged_ragged_v2": layers * st["steps"],
+                    "paged_decode": 0}
+            what = f"{layers} layers x {st['steps']} steps"
+        else:
+            want = {"paged_ragged_v2": 0,
+                    "paged_decode": layers * st["decode_steps"]}
+            what = f"{layers} layers x {st['decode_steps']} decode steps"
+        if launches != want or not max(launches.values()):
+            raise AssertionError(
+                f"{run}: kernel launches {launches} != {want} ({what})")
+        if ref is None:
+            ref = eng.generate_reference(greedy, new)
+        # f32 pools: the kernels' online softmax rounds differently from
+        # the single-pass reference, so ties flip at a small margin;
+        # quantized pools: the pool's own tie margin
+        margin = None if eng.kv_quantized else PARITY_MARGIN
+        exact = eng.assert_token_parity(greedy, out[:len(greedy)], ref,
+                                        margin=margin)
+        margin = eng.kv_tie_margin if margin is None else margin
+        pre_lanes = sum(n for n, _ in st["prefill_times_s"])
+        pre_s = sum(s for _, s in st["prefill_times_s"])
+        dec_ms = 1e3 * float(np.mean(st["decode_step_times_s"]))
+        log(f"serve {run} [{card}]: mode={st['mode']} steps={st['steps']} "
+            f"decode_steps={st['decode_steps']} kernel_launches="
+            f"{launches} (= {what}) prefix_hit_tokens="
+            f"{st['prefix_hit_tokens']} preemptions={st['preemptions']} "
+            f"spec accepted/drafted={st['spec_accepted_tokens']}/"
+            f"{st['spec_drafted_tokens']} greedy token-identical to "
+            f"reference: {exact}/{len(greedy)} (rest diverge at a tie <= "
+            f"{margin})")
+        log(f"serve {run} [{card}]: decode step ms mean={dec_ms:.3f} over "
+            f"{st['decode_steps']} steps; prefill tokens/s="
+            f"{pre_lanes / pre_s:.1f}; output tokens/s="
+            f"{st['tokens_per_sec']:.1f} ({st['total_new_tokens']} tokens "
+            f"in {st['wall_s']:.3f} s)")
+        runs[run] = (launches, st)
+        del eng
+        torch.cuda.empty_cache()
+    return runs
 
 
 def _kernel_name(sym: str) -> str:
@@ -543,20 +682,38 @@ def main() -> int:
                 f"stores/loads {spill}")
 
     kres = kernel_phase(pr)
+    dres = paged_decode_phase(fa)
     fres = flash_phase(fa)
     tres = train_phase(fa, card)
-    launches, _ = serve_phase(pr, card)
+    sres = serve_phase(pr, fa, card)
 
-    f32 = kres["f32"]
+    def head(cells):
+        """A row's headline numbers: its f32 cell."""
+        f32 = cells["f32"]
+        return {"max_abs_err": f32["max_abs_err"], "ms": f32["ms"],
+                "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+                "bound_by": f32["bound_by"], "library_ms": None}
+
+    # the int8/fp8 cells carry the launches of their own serving runs
+    for cell in ("int8", "fp8"):
+        kres[cell]["launches"] = sres[cell][0]["paged_ragged_v2"]
+    decode_src = "flexflow_tpu_torch/kernels/csrc/paged_decode.cu"
     rows = [{
         "name": "paged_ragged_v2", "route": "cuda",
         "source": "flexflow_tpu_torch/kernels/csrc/paged_ragged_v2.cu",
         "replaces": "flexflow_tpu/kernels/paged_ragged_v2.py:245",
-        "launches": launches, "max_abs_err": f32["max_abs_err"],
-        "ms": f32["ms"], "plain_ms": f32["plain_ms"],
-        "bound_ms": f32["bound_ms"], "bound_by": f32["bound_by"],
-        "library_ms": None,
-        "bf16": kres["bf16"]}]
+        "launches": sres["f32"][0]["paged_ragged_v2"], **head(kres),
+        "bf16": kres["bf16"], "int8": kres["int8"], "fp8": kres["fp8"]}, {
+        "name": "paged_decode", "route": "cuda", "source": decode_src,
+        "replaces": "flexflow_tpu/kernels/flash_attention.py:390",
+        "launches": sres["legacy_f32"][0]["paged_decode"],
+        **head(dres["paged_decode"]), "bf16": dres["paged_decode"]["bf16"]},
+        {
+        "name": "paged_ragged_v1", "route": "cuda", "source": decode_src,
+        "replaces": "flexflow_tpu/kernels/flash_attention.py:413",
+        "launches": dres["v1_launches"], **head(dres["paged_ragged_v1"]),
+        "bf16": dres["paged_ragged_v1"]["bf16"],
+        "v1_vs_v2_max_abs_err": dres["v1_vs_v2_max_abs_err"]}]
     # the flash rows' headline is the training path's own cell (bf16,
     # not causal); the other three cells ride along
     for kname, line in (("flash_fwd", 67), ("flash_bwd_dq", 131),

@@ -21,10 +21,8 @@ import dataclasses
 
 import torch
 
-# the ONE --kv-dtype allowlist (flexflow_tpu/config.py KV_DTYPES). The
-# port's engine serves float32 and bfloat16 pages; int8/float8_e4m3
-# are accepted here (the host-side page accounting sizes them) and
-# refused by ServeEngine until the quantized kernel variant lands.
+# the ONE --kv-dtype allowlist (flexflow_tpu/config.py KV_DTYPES); the
+# port's engine serves all four (int8/float8_e4m3 on the mixed step only)
 KV_DTYPES = ("float32", "bfloat16", "int8", "float8_e4m3")
 
 
@@ -77,9 +75,17 @@ class FFConfig:
     serve_spec_decode: bool = True
     serve_spec_tokens: int = 4
 
-    # tuning knob of the ragged paged-attention kernel: KV tokens one
-    # warp streams per tile (0 = the kernel's default)
+    # tuning knob of the ragged paged-attention kernel: KV tokens per
+    # work item in the JAX package, any value >= 0; the port maps it
+    # onto the keys one warp streams per tile (0 = the kernel's default;
+    # kernels/paged_ragged_v2.py _tile_for). It changes no result
     serve_attn_block_kv: int = 0
+
+    # serving knobs of the JAX package the port does not run yet, at
+    # their JAX defaults; ServeEngine raises NotImplementedError for any
+    # other value: the tensor-parallel serve mesh and LoRA adapters
+    serve_mesh: str = ""
+    adapter_rank: int = 0
 
     # graceful-degradation ladder (serve/scheduler.py)
     serve_degrade_ladder: bool = True

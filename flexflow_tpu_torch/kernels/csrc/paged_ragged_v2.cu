@@ -4,21 +4,27 @@
 // Replaces: flexflow_tpu/kernels/paged_ragged_v2.py::_ragged_v2_kernel
 // (launched by _ragged_v2_pallas), the TPU kernel of the serving mixed
 // step (flexflow_tpu/serve/engine.py::_mixed_body, once per layer per
-// step). Float32 and bfloat16 pages; the int8/fp8 dequantizing variant
-// is not ported yet.
+// step). Float32 and bfloat16 pages, and int8 or fp8 (e4m3) pages with
+// one f32 scale per (page, slot, head) — the TPU kernel's quantized
+// branch, which dequantizes each K/V row in registers before the
+// (otherwise unchanged) online softmax.
 //
 // What it computes, per lane t and head h (the plain version is
 // flexflow_tpu_torch/kernels/paged_ragged_v2.py::ragged_attention_ref):
 //   o[t,h] = softmax(q[t,h] . K[:n,h] * scale) . V[:n,h],
 //   n = lane_lens[t], key j at page page_tables[lane_slots[t], j / ps],
 //   slot j % ps. Keys at or past n are masked. lane_lens >= 1.
+//   Quantized pages: K[j,h] = code * k_scales[page, slot, h] in f32, the
+//   product dequantize_kv computes, so a dequantized key is the plain
+//   version's bit for bit.
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores): the kernel reads each live K/V page (the pages covering
 // [0, n) of every lane's row) and q, and writes o. Attention per lane
 // is 4*n*H*D flops over 2*n*H*D*itemsize K/V bytes — about 0.5
 // flop/byte in f32 — so with every page read once it is memory-bound:
-// the least time is the live K/V bytes over 3.35 TB/s.
+// the least time is the live K/V bytes over 3.35 TB/s. Quantized pages
+// move 1 byte an element plus 4 bytes of scale per (slot, head) row.
 //
 // What this design does about that bound: one CTA per lane, one warp
 // per head, each thread holding D/32 elements of q and of the f32
@@ -36,9 +42,12 @@
 // chunk re-reads its sequence's pages, so a 512-token chunk reads its
 // prefix up to 512 times (through L2) instead of once; grouping a
 // chunk's lanes into a query tile with wgmma and TMA page loads is the
-// step that approaches the bound.
+// step that approaches the bound. On 1-byte pages a warp reads 32
+// bytes per element slot, a quarter of a 128-byte line; packing four
+// codes per thread is the step for those.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -49,6 +58,15 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+// e4m3 -> f32 is exact (every e4m3 value is an f32 value)
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+
+// 1-byte page types carry a scale per (page, slot, head)
+template <typename KVT>
+constexpr bool kQuantized = sizeof(KVT) == 1;
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -72,6 +90,8 @@ struct Args {
   int64_t q_st, q_sh;
   const void* kp;
   const void* vp;
+  const float* ks;  // (P, ps, H) scales of quantized pages, else null
+  const float* vs;
   int64_t p_sp, p_ss, p_sh;  // page strides (elements): page, slot, head
   const int* page_tables;
   int64_t pt_s;
@@ -88,6 +108,7 @@ struct Args {
 template <typename QT, typename KVT, int EPT, int TILE>
 __global__ void ragged_v2_kernel(const QT* __restrict__ q, int64_t q_st, int64_t q_sh,
                  const KVT* __restrict__ kp, const KVT* __restrict__ vp,
+                 const float* __restrict__ ks, const float* __restrict__ vs,
                  int64_t p_sp, int64_t p_ss, int64_t p_sh,
                  const int* __restrict__ page_tables, int64_t pt_s,
                  const int* __restrict__ lane_slots,
@@ -102,6 +123,7 @@ __global__ void ragged_v2_kernel(const QT* __restrict__ q, int64_t q_st, int64_t
   for (int i = threadIdx.x; i < pp; i += blockDim.x) s_pages[i] = row[i];
   __syncthreads();
   const int n = min(lane_lens[t], ps * pp);
+  const int H = blockDim.x >> 5;
 
   float qr[EPT], acc[EPT];
   const QT* qh = q + (int64_t)t * q_st + (int64_t)h * q_sh;
@@ -121,12 +143,24 @@ __global__ void ragged_v2_kernel(const QT* __restrict__ q, int64_t q_st, int64_t
     for (int j = 0; j < TILE; ++j) {
       const int pos = j0 + j;
       if (pos < n) {
-        const int64_t base = (int64_t)s_pages[pos / ps] * p_sp +
-                             (int64_t)(pos % ps) * p_ss + head_off;
+        const int page = s_pages[pos / ps], slot = pos % ps;
+        const int64_t base =
+            (int64_t)page * p_sp + (int64_t)slot * p_ss + head_off;
 #pragma unroll
         for (int e = 0; e < EPT; ++e) {
           kr[j][e] = to_f32(kp[base + 32 * e]);
           vr[j][e] = to_f32(vp[base + 32 * e]);
+        }
+        if constexpr (kQuantized<KVT>) {
+          // scales are contiguous (P, ps, H): one f32 per row, the same
+          // address for the whole warp (a broadcast load)
+          const int64_t srow = ((int64_t)page * ps + slot) * H + h;
+          const float ksc = ks[srow], vsc = vs[srow];
+#pragma unroll
+          for (int e = 0; e < EPT; ++e) {
+            kr[j][e] *= ksc;
+            vr[j][e] *= vsc;
+          }
         }
       } else {
 #pragma unroll
@@ -178,9 +212,9 @@ cudaError_t launch(const Args& a) {
       <<<dim3(a.T), dim3(32 * a.H), smem, a.stream>>>(
           static_cast<const QT*>(a.q), a.q_st, a.q_sh,
           static_cast<const KVT*>(a.kp), static_cast<const KVT*>(a.vp),
-          a.p_sp, a.p_ss, a.p_sh, a.page_tables, a.pt_s, a.lane_slots,
-          a.lane_lens, static_cast<QT*>(a.out), a.o_st, a.o_sh, a.ps, a.pp,
-          a.scale);
+          a.ks, a.vs, a.p_sp, a.p_ss, a.p_sh, a.page_tables, a.pt_s,
+          a.lane_slots, a.lane_lens, static_cast<QT*>(a.out), a.o_st, a.o_sh,
+          a.ps, a.pp, a.scale);
   return cudaGetLastError();
 }
 
@@ -212,39 +246,55 @@ cudaError_t by_head_dim(const Args& a, int head_dim, int tile) {
   return cudaErrorInvalidValue;
 }
 
+template <typename QT>
+cudaError_t by_kv_dtype(const Args& a, int kv_dtype, int head_dim,
+                        int tile) {
+  switch (kv_dtype) {
+    case 0:
+      return by_head_dim<QT, float>(a, head_dim, tile);
+    case 1:
+      return by_head_dim<QT, __nv_bfloat16>(a, head_dim, tile);
+    case 2:
+      return by_head_dim<QT, int8_t>(a, head_dim, tile);
+    case 3:
+      return by_head_dim<QT, __nv_fp8_e4m3>(a, head_dim, tile);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. Pointers are device pointers;
-// strides are in elements. Launches on `stream` and returns
-// cudaGetLastError() (0 on success); the caller raises on anything else.
+// dtype codes: q 0 = float32, 1 = bfloat16; pages also 2 = int8 and
+// 3 = float8_e4m3fn, which need k_scales/v_scales (contiguous (P, ps, H)
+// f32; null otherwise). Pointers are device pointers; strides are in
+// elements. Launches on `stream` and returns cudaGetLastError() (0 on
+// success); the caller raises on anything else.
 extern "C" int paged_ragged_v2_launch(
     int q_dtype, int kv_dtype, const void* q, int64_t q_st, int64_t q_sh,
-    const void* k_pages, const void* v_pages, int64_t p_sp, int64_t p_ss,
-    int64_t p_sh, const void* page_tables, int64_t pt_s,
+    const void* k_pages, const void* v_pages, const void* k_scales,
+    const void* v_scales, int64_t p_sp, int64_t p_ss, int64_t p_sh,
+    const void* page_tables, int64_t pt_s,
     const void* lane_slots, const void* lane_lens, void* out, int64_t o_st,
     int64_t o_sh, int T, int H, int D, int ps, int pp, int tile, float scale,
     void* stream) {
   if (T < 1 || H < 1 || H > 32 || ps < 1 || pp < 1 ||
       (size_t)pp * sizeof(int) > 48 * 1024)
     return (int)cudaErrorInvalidValue;
+  if ((kv_dtype >= 2) != (k_scales != nullptr && v_scales != nullptr))
+    return (int)cudaErrorInvalidValue;
   Args a{q,       q_st,    q_sh,
-         k_pages, v_pages, p_sp,
+         k_pages, v_pages, static_cast<const float*>(k_scales),
+         static_cast<const float*>(v_scales), p_sp,
          p_ss,    p_sh,    static_cast<const int*>(page_tables),
          pt_s,    static_cast<const int*>(lane_slots),
          static_cast<const int*>(lane_lens),
          out,     o_st,    o_sh,
          T,       H,       ps,
          pp,      scale,   static_cast<cudaStream_t>(stream)};
-  cudaError_t rc = cudaErrorInvalidValue;
-  if (q_dtype == 0 && kv_dtype == 0)
-    rc = by_head_dim<float, float>(a, D, tile);
-  else if (q_dtype == 0 && kv_dtype == 1)
-    rc = by_head_dim<float, __nv_bfloat16>(a, D, tile);
-  else if (q_dtype == 1 && kv_dtype == 0)
-    rc = by_head_dim<__nv_bfloat16, float>(a, D, tile);
-  else if (q_dtype == 1 && kv_dtype == 1)
-    rc = by_head_dim<__nv_bfloat16, __nv_bfloat16>(a, D, tile);
-  return (int)rc;
+  if (q_dtype == 0) return (int)by_kv_dtype<float>(a, kv_dtype, D, tile);
+  if (q_dtype == 1)
+    return (int)by_kv_dtype<__nv_bfloat16>(a, kv_dtype, D, tile);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* paged_ragged_v2_error_string(int code) {

@@ -1,6 +1,6 @@
 """Attention entry points of ``flexflow_tpu/kernels/flash_attention.py``.
 
-Two entry points are ported:
+Four entry points are ported:
 
   * :func:`flash_attention_bshd` — softmax(q.k^T/sqrt(d)).v on
     (b, s, h, d) tensors, differentiable through :class:`FlashAttention`
@@ -13,12 +13,17 @@ Two entry points are ported:
   * :func:`paged_attention_ragged` — the serving mixed step's entry
     point; like the JAX one it delegates to kernel v2
     (:mod:`.paged_ragged_v2`).
+  * :func:`paged_attention_decode` — one query per sequence through its
+    page-table row, the legacy decode step's attention — and
+    :func:`paged_attention_ragged_v1`, the same body with each lane's
+    row picked through ``lane_slots`` (the equality oracle of v2). Both
+    are the hand-written kernel ``csrc/paged_decode.cu`` on CUDA
+    tensors and :func:`paged_decode_ref` / :func:`paged_ragged_v1_ref`
+    on CPU tensors.
 
 :func:`attention_ref` is the einsum path of ``ops/attention.py`` (f32
 logits, probabilities cast to q's dtype): the plain version of the whole
 entry point, and what ``use_flash=False`` runs.
-
-The legacy decode kernel and the v1 ragged kernel are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,12 +33,15 @@ import math
 
 import torch
 
-from .paged_ragged_v2 import paged_attention_ragged_v2
+from .paged_ragged_v2 import (attend_gathered, check_paged_inputs,
+                              gather_pages, paged_attention_ragged_v2)
 
 # launches of each CUDA kernel: one per successful launch, nowhere else
 # — how a run shows that its main path went through the kernels (set
 # the entries to 0 before the run to count)
-launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "paged_decode": 0, "paged_ragged_v1": 0}
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 _HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -307,6 +315,124 @@ def flash_attention_bshd(q, k, v, *, causal=False):
     return FlashAttention.apply(q, k, v, bool(causal), scale)
 
 
+# ------------------------------------------------- paged decode and v1
+def paged_decode_ref(q, k_pages, v_pages, page_table, seq_lens, scale):
+    """Plain version of the decode kernel, op for op
+    ``_paged_decode_jnp``: q (B, H, D); pages (P, ps, H, D); page_table
+    (B, pp) int32; seq_lens (B,) int32. Gathers each row's pages and
+    runs the masked single-pass softmax in f32. Returns (B, H, D) in
+    q's dtype."""
+    k = gather_pages(k_pages, page_table.long())
+    v = gather_pages(v_pages, page_table.long())
+    return attend_gathered(q, k, v, seq_lens, scale)
+
+
+def paged_ragged_v1_ref(q, k_pages, v_pages, page_tables, lane_slots,
+                        lane_lens, scale):
+    """Plain version of the v1 kernel: ``lane_tables =
+    page_tables[lane_slots]`` and then the decode math, as the JAX
+    entry point's jnp path does."""
+    return paged_decode_ref(q, k_pages, v_pages,
+                            page_tables[lane_slots.long()], lane_lens,
+                            scale)
+
+
+_PAGED_KV = (torch.float32, torch.bfloat16)
+_I64 = ctypes.c_int64
+# q, q strides, pages, page strides, table, table row stride
+_PAGED_HEAD = [_INT, _INT, _PTR, _I64, _I64, _PTR, _PTR, _I64, _I64, _I64,
+               _PTR, _I64]
+# out, out strides, rows, H, D, ps, pp, scale, stream
+_PAGED_TAIL = [_PTR, _I64, _I64] + [_INT] * 5 + [ctypes.c_float, _PTR]
+_PAGED_ARGTYPES = {
+    "paged_decode": _PAGED_HEAD + [_PTR] + _PAGED_TAIL,          # seq_lens
+    "paged_ragged_v1": _PAGED_HEAD + [_PTR, _PTR] + _PAGED_TAIL,  # slots, lens
+}
+
+
+def _launch_paged(kernel, q, k_pages, v_pages, page_tables, vectors,
+                  scale):
+    """Check and launch ``<kernel>_launch`` of csrc/paged_decode.cu on
+    the current stream; ``vectors`` ({name: (N,) int32}) go in the
+    launcher's order. Raises on inputs the kernel does not take and on
+    a non-zero return; counts the launch otherwise."""
+    check_paged_inputs(q, k_pages, v_pages, page_tables, vectors,
+                       kv_dtypes=_PAGED_KV)
+    n, h, d = q.shape
+    out = torch.empty((n, h, d), dtype=q.dtype, device=q.device)
+    if n == 0:
+        return out
+    from ._build import load_library
+    lib = load_library("paged_decode")
+    fn = getattr(lib, f"{kernel}_launch")
+    fn.argtypes, fn.restype = _PAGED_ARGTYPES[kernel], _INT
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
+                q.data_ptr(), q.stride(0), q.stride(1),
+                k_pages.data_ptr(), v_pages.data_ptr(), k_pages.stride(0),
+                k_pages.stride(1), k_pages.stride(2),
+                page_tables.data_ptr(), page_tables.stride(0),
+                *(x.data_ptr() for x in vectors.values()),
+                out.data_ptr(), out.stride(0), out.stride(1),
+                n, h, d, k_pages.shape[1], page_tables.shape[1],
+                float(scale), stream)
+    if rc != 0:
+        err = lib.paged_decode_error_string
+        err.argtypes, err.restype = [_INT], ctypes.c_char_p
+        raise RuntimeError(
+            f"{kernel} launch failed: {err(rc).decode()} ({rc})")
+    launches[kernel] += 1
+    return out
+
+
+def paged_decode_cuda(q, k_pages, v_pages, page_table, seq_lens, scale):
+    """Launch ``paged_decode`` of csrc/paged_decode.cu. Same contract as
+    :func:`paged_decode_ref`."""
+    return _launch_paged("paged_decode", q, k_pages, v_pages, page_table,
+                         {"seq_lens": seq_lens}, scale)
+
+
+def paged_ragged_v1_cuda(q, k_pages, v_pages, page_tables, lane_slots,
+                         lane_lens, scale):
+    """Launch ``paged_ragged_v1`` of csrc/paged_decode.cu. Same contract
+    as :func:`paged_ragged_v1_ref`."""
+    return _launch_paged("paged_ragged_v1", q, k_pages, v_pages,
+                         page_tables, {"lane_slots": lane_slots,
+                                       "lane_lens": lane_lens}, scale)
+
+
+def paged_attention_decode(q, k_pages, v_pages, page_table, seq_lens, *,
+                           scale=None):
+    """Single-query attention through a page table (the legacy decode
+    step). q (B, H, D) — one query token per sequence;
+    k_pages/v_pages (num_pages, page_size, H, D); page_table
+    (B, pages_per_seq) int32 physical page ids (0 = sink/padding);
+    seq_lens (B,) int32 tokens resident per sequence (positions >=
+    seq_len are masked). Every seq_lens entry must be >= 1: a
+    zero-length row NaNs the softmax (serve/engine.py clamps empty rows
+    to 1 and aims their table at the sink). Returns (B, H, D). CUDA
+    tensors launch the kernel, CPU tensors take the plain version."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _by_device(paged_decode_cuda, paged_decode_ref, q, k_pages,
+                      v_pages, page_table, seq_lens, scale)
+
+
+def paged_attention_ragged_v1(q, k_pages, v_pages, page_tables,
+                              lane_slots, lane_lens, *, scale=None):
+    """The v1 ragged kernel: the decode kernel's body with lane t
+    reading table row lane_slots[t] at length lane_lens[t] — the
+    equality oracle and A/B baseline of kernel v2. New code calls
+    :func:`paged_attention_ragged`. Same arguments as it, unquantized
+    pages only."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _by_device(paged_ragged_v1_cuda, paged_ragged_v1_ref, q,
+                      k_pages, v_pages, page_tables, lane_slots, lane_lens,
+                      scale)
+
+
 def paged_attention_ragged(q, k_pages, v_pages, page_tables, lane_slots,
                            lane_lens, *, scale=None, k_scales=None,
                            v_scales=None, block_kv=None):
@@ -322,7 +448,9 @@ def paged_attention_ragged(q, k_pages, v_pages, page_tables, lane_slots,
     the lane's visible tokens — position + 1 for a prefill token at
     `position`, so causality inside a chunk is exact even though the
     whole chunk's K/V is scattered before attention runs. Every
-    lane_lens entry must be >= 1. Returns (T, H, D)."""
+    lane_lens entry must be >= 1. int8/fp8 pages come with their
+    (num_pages, page_size, H) f32 k_scales/v_scales. Returns
+    (T, H, D)."""
     return paged_attention_ragged_v2(
         q, k_pages, v_pages, page_tables, lane_slots, lane_lens,
         k_scales=k_scales, v_scales=v_scales, scale=scale,

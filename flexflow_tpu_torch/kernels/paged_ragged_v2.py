@@ -1,22 +1,28 @@
 """Ragged paged attention v2 — the serving mixed step's attention.
 
-Counterpart of ``flexflow_tpu/kernels/paged_ragged_v2.py``. Three pieces:
+Counterpart of ``flexflow_tpu/kernels/paged_ragged_v2.py``. Four pieces:
 
+  * :func:`quantize_kv_rows` / :func:`dequantize_kv` — per-row
+    symmetric quantization of K/V into int8 or float8_e4m3fn pages
+    against f32 scales, op for op the JAX functions (computed in plain
+    torch there and here, outside any kernel).
   * :func:`ragged_attention_ref` — the plain PyTorch version, op for op
-    the JAX package's ``_ragged_jnp`` (gather each lane's pages, masked
-    single-pass softmax in f32, divide after the p.v product). The CPU
-    path, and what the kernel is held against on the card.
+    the JAX package's ``_ragged_jnp`` (gather each lane's pages and, for
+    quantized pages, their scale rows; dequantize; masked single-pass
+    softmax in f32, divide after the p.v product). The CPU path, and
+    what the kernel is held against on the card.
   * :func:`paged_ragged_v2_cuda` — the wrapper of the hand-written
     Hopper kernel ``csrc/paged_ragged_v2.cu`` (one CTA per lane, one
     warp per head, online softmax in f32, ragged skipping of pages past
-    each lane's length). Checks what it is given, launches on the
-    current stream, counts its launches in :data:`launches`.
+    each lane's length; int8/fp8 pages dequantize in registers). Checks
+    what it is given, launches on the current stream, counts its
+    launches in :data:`launches`.
   * :func:`paged_attention_ragged_v2` — the dispatch: CUDA tensors
     launch the kernel (a build or launch failure raises), CPU tensors
     take the plain version. No fallback between the two.
 
-Float32 and bfloat16 pages. The int8/fp8 variant (``k_scales`` /
-``v_scales``) is not ported yet and raises ``NotImplementedError``.
+Pages are float32, bfloat16, or int8 / float8_e4m3fn with
+(num_pages, page_size, H) f32 ``k_scales`` / ``v_scales``.
 """
 
 from __future__ import annotations
@@ -37,61 +43,135 @@ DEFAULT_TILE = 16
 _TILES = (8, 16, 32)
 _HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# page storage types: the activation types, then the quantized codes
+_KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+            torch.float8_e4m3fn: 3}
+QUANTIZED_DTYPES = (torch.int8, torch.float8_e4m3fn)
+INT8_QMAX = 127.0
 
 
-def ragged_attention_ref(q, k_pages, v_pages, page_tables, lane_slots,
-                         lane_lens, scale):
-    """Plain version: q (T, H, D); pages (P, ps, H, D); page_tables
-    (S, pp) int32; lane_slots, lane_lens (T,) int32. Returns (T, H, D)
-    in q's dtype. Mirrors ``_ragged_jnp`` (flexflow_tpu/kernels/
-    paged_ragged_v2.py): every key of the lane's row is scored and the
-    ones at or past lane_lens[t] are masked."""
+# --------------------------------------------------------- quantization
+def _qmax_for(dtype) -> float:
+    """Largest representable magnitude of a page storage format: 127
+    for int8, finfo.max (448) for float8_e4m3fn."""
+    if dtype == torch.int8:
+        return INT8_QMAX
+    return float(torch.finfo(dtype).max)
+
+
+def quantize_kv_rows(x, dtype=torch.int8):
+    """x (..., D) float -> (codes (..., D) ``dtype``, scales (...) f32):
+    scale = amax(|x|, -1) / qmax, codes = x / scale rounded half to even
+    (``jnp.rint``; int8 clipped to +-127) or cast to float8_e4m3fn. An
+    all-zero row gets scale 0 and codes 0 (it divides by 1, as JAX's
+    ``safe``). Each row quantizes on its own, so a token's codes do not
+    depend on how the serving step that wrote it was cut."""
+    qmax = _qmax_for(dtype)
+    xf = x.float()
+    scale = torch.amax(torch.abs(xf), dim=-1) / qmax
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    y = xf / safe[..., None]
+    if dtype == torch.int8:
+        y = torch.clamp(torch.round(y), -INT8_QMAX, INT8_QMAX)
+    return y.to(dtype), scale
+
+
+def dequantize_kv(q, scale):
+    """Inverse of :func:`quantize_kv_rows`: codes (..., D) as f32 times
+    scale (...) broadcast over D — the product the kernel computes."""
+    return q.float() * scale[..., None].float()
+
+
+def gather_pages(pages, index):
+    """pages[index] along dim 0. Quantized pages gather through a uint8
+    view of their bytes (indexing is not implemented for every 1-byte
+    type on every device) and come back in their own type."""
+    if pages.dtype in QUANTIZED_DTYPES:
+        return pages.view(torch.uint8)[index].view(pages.dtype)
+    return pages[index]
+
+
+# ---------------------------------------------------------- plain path
+def attend_gathered(q, k, v, lens, scale):
+    """The single-pass math of ``_paged_decode_jnp``: q (B, H, D); k, v
+    (B, pp, ps, H, D) already gathered (and dequantized); lens (B,).
+    Keys at or past lens[b] are masked. Returns (B, H, D) in q's
+    dtype."""
     b, h, d = q.shape
-    ps = k_pages.shape[1]
-    lane_tables = page_tables[lane_slots.long()].long()      # (T, pp)
-    pp = lane_tables.shape[1]
-    k = k_pages[lane_tables].reshape(b, pp * ps, h, d)
-    v = v_pages[lane_tables].reshape(b, pp * ps, h, d)
+    n = k.shape[1] * k.shape[2]
+    k = k.reshape(b, n, h, d)
+    v = v.reshape(b, n, h, d)
     s = torch.einsum("thd,tshd->ths", q.float(), k.float()) * scale
-    pos = torch.arange(pp * ps, device=q.device)[None, None, :]
-    s = s.masked_fill(pos >= lane_lens.long()[:, None, None], -math.inf)
+    pos = torch.arange(n, device=q.device)[None, None, :]
+    s = s.masked_fill(pos >= lens.long()[:, None, None], -math.inf)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
-    l = torch.sum(p, dim=-1, keepdim=True)                  # (T, H, 1)
+    l = torch.sum(p, dim=-1, keepdim=True)                  # (B, H, 1)
     o = torch.einsum("ths,tshd->thd", p, v.float())
     return (o / l).to(q.dtype)
 
 
+def ragged_attention_ref(q, k_pages, v_pages, page_tables, lane_slots,
+                         lane_lens, scale, k_scales=None, v_scales=None):
+    """Plain version: q (T, H, D); pages (P, ps, H, D); page_tables
+    (S, pp) int32; lane_slots, lane_lens (T,) int32; for int8/fp8 pages
+    k_scales, v_scales (P, ps, H) f32. Returns (T, H, D) in q's dtype.
+    Mirrors ``_ragged_jnp`` (flexflow_tpu/kernels/paged_ragged_v2.py):
+    every key of the lane's row is scored and the ones at or past
+    lane_lens[t] are masked."""
+    lane_tables = page_tables[lane_slots.long()].long()      # (T, pp)
+    k = gather_pages(k_pages, lane_tables)
+    v = gather_pages(v_pages, lane_tables)
+    if k_scales is not None:
+        k = dequantize_kv(k, k_scales[lane_tables])
+        v = dequantize_kv(v, v_scales[lane_tables])
+    return attend_gathered(q, k, v, lane_lens, scale)
+
+
+# ---------------------------------------------------------- CUDA path
 def _tile_for(block_kv: Optional[int], head_dim: int) -> int:
-    tile = int(block_kv) if block_kv else DEFAULT_TILE
-    if tile not in _TILES or tile * (head_dim // 32) > 64:
-        raise ValueError(
-            f"block_kv={block_kv}: the kernel streams 8, 16 or 32 keys a "
-            f"tile, at most 64 * 32 / head_dim (head_dim={head_dim})")
-    return tile
+    """The kernel's keys per tile for ``FFConfig.serve_attn_block_kv``.
+    In the JAX package the knob is KV tokens per work item, any value
+    >= 0, rounded to whole pages; it changes no result. Here it maps to
+    the largest of 8, 16, 32 keys that is <= the value and keeps
+    tile * head_dim / 32 <= 64 (the K and V tiles' registers), the
+    smallest such tile for a value below 8, and DEFAULT_TILE for 0 or
+    None. Only a negative value raises."""
+    if block_kv is not None and int(block_kv) < 0:
+        raise ValueError(f"block_kv must be >= 0 (0 = default), got "
+                         f"{block_kv}")
+    if not block_kv:
+        return DEFAULT_TILE
+    fits = [t for t in _TILES if t * max(1, head_dim // 32) <= 64]
+    below = [t for t in fits if t <= int(block_kv)]
+    return max(below) if below else min(fits)
 
 
-def _check_inputs(q, k_pages, v_pages, page_tables, lane_slots,
-                  lane_lens) -> None:
+def check_paged_inputs(q, k_pages, v_pages, page_tables, vectors,
+                       kv_dtypes=tuple(_KV_CODE)) -> None:
+    """Raise on inputs the paged kernels do not take: CUDA tensors on
+    one device, q (N, H, D) with a unit last stride, contiguous pages
+    (P, ps, H, D) of a type in ``kv_dtypes``, an int32 (S, pp) table,
+    and ``vectors`` ({name: tensor}) each (N,) int32."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
-    for name, x in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_tables", page_tables),
-                    ("lane_slots", lane_slots), ("lane_lens", lane_lens)):
+    named = {"k_pages": k_pages, "v_pages": v_pages,
+             "page_tables": page_tables, **vectors}
+    for name, x in named.items():
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, q on {dev}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dim() != 3 or q.stride(-1) != 1:
-        raise ValueError(f"q must be (T, H, D) with unit last stride, "
+        raise ValueError(f"q must be (N, H, D) with unit last stride, "
                          f"got shape {tuple(q.shape)}")
-    t, h, d = q.shape
+    n, h, d = q.shape
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"q dtype {q.dtype} not in float32/bfloat16")
-    if k_pages.dtype != v_pages.dtype or k_pages.dtype not in _DTYPE_CODE:
+    if k_pages.dtype != v_pages.dtype or k_pages.dtype not in kv_dtypes:
         raise ValueError(
-            f"pages must both be float32 or bfloat16, got "
+            f"pages must both be one of {kv_dtypes}, got "
             f"{k_pages.dtype}/{v_pages.dtype}")
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape \
             or tuple(k_pages.shape[2:]) != (h, d):
@@ -100,23 +180,48 @@ def _check_inputs(q, k_pages, v_pages, page_tables, lane_slots,
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
     if d not in _HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
-    if not 1 <= h <= 32:
-        raise ValueError(f"num_heads {h} not in [1, 32] (one warp each)")
     if page_tables.dim() != 2 or page_tables.dtype != torch.int32:
         raise ValueError("page_tables must be (S, pp) int32")
-    for name, x in (("lane_slots", lane_slots), ("lane_lens", lane_lens)):
-        if x.dtype != torch.int32 or tuple(x.shape) != (t,):
-            raise ValueError(f"{name} must be ({t},) int32")
+    for name, x in vectors.items():
+        if x.dtype != torch.int32 or tuple(x.shape) != (n,):
+            raise ValueError(f"{name} must be ({n},) int32")
+
+
+def _check_scales(k_pages, k_scales, v_scales) -> None:
+    """int8/fp8 pages need contiguous (P, ps, H) f32 scales on their
+    device; float pages take none."""
+    quant = k_pages.dtype in QUANTIZED_DTYPES
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be given together")
+    if quant != (k_scales is not None):
+        raise ValueError(
+            f"{k_pages.dtype} pages "
+            f"{'need' if quant else 'take no'} k_scales/v_scales")
+    if not quant:
+        return
+    want = tuple(k_pages.shape[:3])
+    for name, s in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if s.dtype != torch.float32 or tuple(s.shape) != want \
+                or not s.is_contiguous() or s.device != k_pages.device:
+            raise ValueError(
+                f"{name} must be contiguous float32 {want} on "
+                f"{k_pages.device}, got {s.dtype} {tuple(s.shape)} on "
+                f"{s.device}")
 
 
 def paged_ragged_v2_cuda(q, k_pages, v_pages, page_tables, lane_slots,
-                         lane_lens, scale, block_kv=None):
+                         lane_lens, scale, block_kv=None, k_scales=None,
+                         v_scales=None):
     """Launch ``csrc/paged_ragged_v2.cu`` on the current stream. Same
     contract as :func:`ragged_attention_ref`; raises on inputs the
     kernel does not take and on any launch error."""
     global launches
-    _check_inputs(q, k_pages, v_pages, page_tables, lane_slots, lane_lens)
+    check_paged_inputs(q, k_pages, v_pages, page_tables,
+                       {"lane_slots": lane_slots, "lane_lens": lane_lens})
+    _check_scales(k_pages, k_scales, v_scales)
     t, h, d = q.shape
+    if not 1 <= h <= 32:
+        raise ValueError(f"num_heads {h} not in [1, 32] (one warp each)")
     tile = _tile_for(block_kv, d)
     out = torch.empty((t, h, d), dtype=q.dtype, device=q.device)
     if t == 0:
@@ -125,16 +230,19 @@ def paged_ragged_v2_cuda(q, k_pages, v_pages, page_tables, lane_slots,
     lib = load_library("paged_ragged_v2")
     fn = lib.paged_ragged_v2_launch
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    fn.argtypes = [i32, i32, ptr, i64, i64, ptr, ptr, i64, i64, i64, ptr,
-                   i64, ptr, ptr, ptr, i64, i64, i32, i32, i32, i32, i32,
-                   i32, ctypes.c_float, ptr]
+    fn.argtypes = [i32, i32, ptr, i64, i64, ptr, ptr, ptr, ptr, i64, i64,
+                   i64, ptr, i64, ptr, ptr, ptr, i64, i64, i32, i32, i32,
+                   i32, i32, i32, ctypes.c_float, ptr]
     fn.restype = i32
+    quant = k_scales is not None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
+        rc = fn(_DTYPE_CODE[q.dtype], _KV_CODE[k_pages.dtype],
                 q.data_ptr(), q.stride(0), q.stride(1),
-                k_pages.data_ptr(), v_pages.data_ptr(), k_pages.stride(0),
-                k_pages.stride(1), k_pages.stride(2),
+                k_pages.data_ptr(), v_pages.data_ptr(),
+                k_scales.data_ptr() if quant else None,
+                v_scales.data_ptr() if quant else None,
+                k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
                 page_tables.data_ptr(), page_tables.stride(0),
                 lane_slots.data_ptr(), lane_lens.data_ptr(),
                 out.data_ptr(), out.stride(0), out.stride(1),
@@ -157,22 +265,26 @@ def paged_attention_ragged_v2(q, k_pages, v_pages, page_tables,
     (num_pages, page_size, H, D), page 0 the sink; page_tables
     (max_seqs, pages_per_seq) int32; lane_slots (T,) int32 picks each
     lane's table row; lane_lens (T,) int32 its visible tokens (every
-    entry >= 1: a zero-length lane NaNs its softmax). Returns (T, H, D).
+    entry >= 1: a zero-length lane NaNs its softmax). int8 or
+    float8_e4m3fn pages come with (num_pages, page_size, H) f32
+    ``k_scales``/``v_scales`` and dequantize at read. Returns (T, H, D).
     ``block_kv`` (FFConfig.serve_attn_block_kv) is the kernel's tuning
-    knob: keys one warp streams per tile (None/0 = DEFAULT_TILE).
+    knob; see :func:`_tile_for`.
 
     CUDA tensors launch the kernel; CPU tensors take the plain version.
     """
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "quantized (int8/fp8) KV pages are not ported yet")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales must be given together")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cuda":
         return paged_ragged_v2_cuda(q, k_pages, v_pages, page_tables,
                                     lane_slots, lane_lens, scale,
-                                    block_kv=block_kv)
+                                    block_kv=block_kv, k_scales=k_scales,
+                                    v_scales=v_scales)
     if q.device.type == "cpu":
+        _tile_for(block_kv, q.shape[-1])     # the same knob contract
         return ragged_attention_ref(q, k_pages, v_pages, page_tables,
-                                    lane_slots, lane_lens, scale)
+                                    lane_slots, lane_lens, scale,
+                                    k_scales=k_scales, v_scales=v_scales)
     raise ValueError(f"unsupported device {q.device}")

@@ -210,15 +210,19 @@ class TransformerLM(nn.Module):
             x = layer_norm(self.params["final_ln"], x, self.arch.ln_eps)
         return dense(self.params["lm_head"], x)
 
-    def hidden_states(self, tokens):
+    def hidden_states(self, tokens, on_kv=None):
         """Causal no-cache forward of (B, S) tokens up to the final
-        LayerNorm's input: (B, S, E)."""
+        LayerNorm's input: (B, S, E). ``on_kv(i, k, v)``, when given,
+        sees each layer's (B, S, H, D) keys and values (the serving
+        engine's legacy prefill scatters them into its pages)."""
         s = tokens.shape[1]
         positions = torch.arange(s, device=tokens.device)[None, :]
         x = self.embed(tokens, positions)
         scale = 1.0 / math.sqrt(self.arch.head_dim)
         for i in range(self.arch.num_layers):
             q, k, v = self.attn_qkv(i, self.attn_in(i, x))
+            if on_kv is not None:
+                on_kv(i, k, v)
             o = causal_attention(q, k, v, scale).to(x.dtype)
             x = self.attn_out(i, o, x)
             x = self.ffn(i, x)

@@ -1,8 +1,9 @@
 """ServeEngine: one fixed-shape MIXED step over a paged KV cache.
 
-Counterpart of ``flexflow_tpu/serve/engine.py`` for the default serving
-configuration: chunked prefill, prefix cache, speculative decoding,
-float32 (or bfloat16) pages, one device, no adapters, no host tier.
+Counterpart of ``flexflow_tpu/serve/engine.py`` on one device: chunked
+prefill, prefix cache, speculative decoding, float32, bfloat16, int8 or
+float8_e4m3 pages, and the legacy bucket path
+(``serve_chunked_prefill=False``); no adapters, no host tier.
 
 Each step packs `serve_prefill_budget + serve_max_seqs` LANES, each one
 (sequence, position) query token: prompt chunks from any number of
@@ -15,12 +16,24 @@ decode lanes see every prefix page — including pages another request's
 chunk computes in this very step. Logits reduce to a greedy argmax and
 a static top-k head before leaving the device.
 
+Quantized pools (int8 / float8_e4m3) quantize each (lane, head) K/V row
+on write against its own f32 scale, in the per-page scale arrays, and
+the ragged kernel dequantizes at read.
+
+The legacy bucket path runs two steps instead of one: each request's
+prompt is forwarded alone, padded to a power-of-two bucket, scattering
+its K/V into its pages (the same ``_forward_tokens`` that computes the
+no-cache reference), and every running sequence then decodes one token
+a step through the paged-decode kernel (kernels/flash_attention.py
+``paged_attention_decode``).
+
 Host-side state (page allocator, prefix registry, scheduler, drafter)
 is the JAX package's, copied; the engine owns the device half. What the
-JAX engine also does and this one does not yet — int8/fp8 pages, the
-legacy bucket path, tensor-parallel serving, LoRA adapters, the host
-tier, telemetry, deadlines/cancel/retry, the compiled-program registry —
-raises ``NotImplementedError`` when configured.
+JAX engine also does and this one does not yet — tensor-parallel
+serving (``serve_mesh``) and LoRA adapters (``adapter_rank``) raise
+``NotImplementedError`` when configured; the host tier, telemetry,
+deadlines/cancel/retry and the compiled-program registry have no knob
+here.
 """
 
 from __future__ import annotations
@@ -33,7 +46,9 @@ import numpy as np
 import torch
 
 from ..config import FFConfig, resolve_device
-from ..kernels.flash_attention import paged_attention_ragged
+from ..kernels.flash_attention import (paged_attention_decode,
+                                       paged_attention_ragged)
+from ..kernels.paged_ragged_v2 import quantize_kv_rows
 from ..models.transformer import TransformerLM
 from ..utils.faults import injector_for
 from .kv_cache import KVCacheConfig, PagedKVCache
@@ -68,34 +83,47 @@ class ServeEngine:
         self.num_heads = arch.num_heads
         self.head_dim = arch.head_dim
         self.act_dtype = arch.dtype
-        if not cfg.serve_chunked_prefill:
-            raise NotImplementedError(
-                "the legacy bucket-prefill path (serve_chunked_prefill="
-                "False) is not ported; the port serves the mixed step")
+        for knob, unset in (("serve_mesh", ""), ("adapter_rank", 0)):
+            if getattr(cfg, knob) != unset:
+                raise NotImplementedError(
+                    f"{knob}={getattr(cfg, knob)!r}: tensor-parallel "
+                    f"serving and LoRA adapters are not ported; the port "
+                    f"serves one device, base model only")
+        self.chunked_prefill = bool(cfg.serve_chunked_prefill)
         self.cache_cfg = KVCacheConfig.from_ff(
             cfg, num_layers=self.num_layers, num_heads=self.num_heads,
             head_dim=self.head_dim, max_seq_len=self.max_positions)
         self.cache_cfg.validate()
-        if self.cache_cfg.quantized:
-            raise NotImplementedError(
-                f"kv_dtype={self.cache_cfg.kv_dtype!r}: quantized pages "
-                f"are not ported yet (float32 or bfloat16)")
         self.prefix_cache = bool(cfg.serve_prefix_cache)
         self.prefill_budget = int(cfg.serve_prefill_budget)
         self.admit_watermark = float(cfg.serve_admit_watermark)
         self.faults = injector_for(cfg)
         self.degrade_ladder = bool(cfg.serve_degrade_ladder)
         self.reject_stalls = int(cfg.serve_reject_stalls)
-        self.spec_tokens = int(cfg.serve_spec_tokens) \
-            if cfg.serve_spec_decode else 0
+        # speculation needs the mixed step (draft lanes are chunk lanes)
+        spec = int(cfg.serve_spec_tokens) if cfg.serve_spec_decode else 0
+        self.spec_tokens = spec if self.chunked_prefill else 0
         # page storage: f32 stores activations exactly; bf16 rounds on
-        # write (exact when activations are already bf16). kv_exact is
-        # the condition of the token-identity gate (assert_token_parity)
+        # write (exact when activations are already bf16); int8 and
+        # float8_e4m3 quantize on write against per-page scale arrays.
+        # kv_exact is the condition of the token-identity gate
+        # (assert_token_parity)
         self.kv_dtype = self.cache_cfg.kv_dtype
+        self.kv_quantized = self.cache_cfg.quantized
         self.kv_exact = (self.kv_dtype == "float32"
                          or self.cache_cfg.storage_dtype == self.act_dtype)
-        self.kv_tie_margin = 0.05
-        # the kernel's tuning knob: keys per tile (0 = kernel default)
+        # tie margin of the relaxed quantized parity gate: fp8's 3-bit
+        # mantissa rounds ~8x coarser than int8's 127-step grid
+        self.kv_tie_margin = 0.25 if self.kv_dtype == "float8_e4m3" \
+            else 0.05
+        if self.kv_quantized and not self.chunked_prefill:
+            raise ValueError(
+                f"kv_dtype={self.kv_dtype!r} needs the chunked mixed "
+                f"program (quantize-on-write lives in the mixed step); "
+                f"the legacy bucket-prefill path supports "
+                f"float32/bfloat16")
+        # the kernel's tuning knob (0 = kernel default); any value >= 0
+        # serves (kernels/paged_ragged_v2.py _tile_for)
         self.attn_block_kv = int(cfg.serve_attn_block_kv)
         # the one mixed-step geometry: every prefill-budget token plus
         # one decode lane per slot always fits
@@ -107,6 +135,19 @@ class ServeEngine:
                                   prefix_cache=self.prefix_cache)
         self._k_pages: Optional[torch.Tensor] = None
         self._v_pages: Optional[torch.Tensor] = None
+        self._k_scales: Optional[torch.Tensor] = None
+        self._v_scales: Optional[torch.Tensor] = None
+        # prompt-length buckets of the legacy prefill: powers of two
+        # from one page up to the serveable length (the page-table
+        # ceiling, capped at the positions the model learned)
+        c = self.cache_cfg
+        cap = min(c.pages_per_seq * c.page_size, c.max_seq_len)
+        b = max(c.page_size, 16)
+        self.buckets = []
+        while b < cap:
+            self.buckets.append(b)
+            b *= 2
+        self.buckets.append(cap)
         # at most ONE live ServeSession owns the scheduler/slots
         self._session: Optional["ServeSession"] = None
         self.boot_stats: Optional[dict] = None
@@ -117,7 +158,53 @@ class ServeEngine:
         if self._k_pages is None:
             self._k_pages, self._v_pages = \
                 self.cache.alloc_device_cache(self.device)
+        if self.kv_quantized and self._k_scales is None:
+            self._k_scales, self._v_scales = \
+                self.cache.alloc_scale_arrays(self.device)
+            self.cache.register_scale_meta(self._k_scales, self._v_scales)
         return self._k_pages, self._v_pages
+
+    def bucket_for(self, prompt_len: int) -> int:
+        for b in self.buckets:
+            if prompt_len <= b:
+                return b
+        raise ValueError(
+            f"prompt of {prompt_len} tokens exceeds the largest bucket "
+            f"{self.buckets[-1]}")
+
+    def _write_kv(self, i, where, k, v):
+        """Scatter layer i's K/V rows into the pages at ``where`` =
+        (page, offset) index tensors, IN PLACE (index_put_), where the
+        JAX engine donates the pages to the jitted step and gets them
+        back: a torch tensor is mutable, so the pool never exists
+        twice. Quantized pools write each row's codes and its f32
+        scale; the 1-byte codes go through uint8 views of the pages
+        (index_put_ is not implemented for every 1-byte type on every
+        device). Duplicate indices (inactive lanes all aim at the sink
+        page 0, offset 0) race harmlessly: no lane reads the sink
+        unmasked."""
+        kp, vp = self._k_pages, self._v_pages
+        if not self.kv_quantized:
+            kp[i].index_put_(where, k.to(kp.dtype))
+            vp[i].index_put_(where, v.to(vp.dtype))
+            return
+        for pages, scales, x in ((kp, self._k_scales, k),
+                                 (vp, self._v_scales, v)):
+            codes, sc = quantize_kv_rows(x, pages.dtype)
+            pages[i].view(torch.uint8).index_put_(
+                where, codes.view(torch.uint8))
+            scales[i].index_put_(where, sc)
+
+    def _greedy_topk(self, x):
+        """Logits of the final hidden rows x (N, E), reduced on the
+        device to (greedy (N,) int32, top-k values (N, K) f32, top-k
+        ids (N, K) int32). argmax returns the FIRST maximum, as
+        jnp.argmax does (the parity contract with
+        generate_reference)."""
+        logits = self.model.head(x)                         # (N, V)
+        topv, topi = torch.topk(logits, self.topk_cap, dim=-1)
+        return (torch.argmax(logits, dim=-1).to(torch.int32),
+                topv.float(), topi.to(torch.int32))
 
     @torch.no_grad()
     def _mixed_body(self, tokens, positions, write_pages, write_offs,
@@ -131,56 +218,79 @@ class ServeEngine:
         f32, top-k ids (T, K) int32)."""
         m = self.model
         kp, vp = self._device_pages()
+        ks, vs = self._k_scales, self._v_scales
         x = m.embed(tokens, positions)                      # (T, E)
         scale = 1.0 / math.sqrt(self.head_dim)
         where = (write_pages.long(), write_offs.long())
         for i in range(self.num_layers):
             q, k, v = m.attn_qkv(i, m.attn_in(i, x))       # (T, H, D)
-            # the pages are updated IN PLACE (index_put_), where the
-            # JAX engine donates them to the jitted step and gets them
-            # back: a torch tensor is mutable, so the pool never exists
-            # twice. Inactive lanes all write sink page 0, offset 0;
-            # duplicate indices race there harmlessly, since no lane
-            # reads the sink unmasked.
-            kp[i].index_put_(where, k.to(kp.dtype))
-            vp[i].index_put_(where, v.to(vp.dtype))
+            # every lane's row lands (quantized, on int8/fp8 pools)
+            # BEFORE any lane attends, so what a lane reads back this
+            # very step is already the stored value
+            self._write_kv(i, where, k, v)
             o = paged_attention_ragged(
                 q, kp[i], vp[i], page_tables, lane_slots, lane_lens,
-                scale=scale, block_kv=self.attn_block_kv or None)
+                scale=scale, block_kv=self.attn_block_kv or None,
+                k_scales=ks[i] if self.kv_quantized else None,
+                v_scales=vs[i] if self.kv_quantized else None)
             x = m.attn_out(i, o, x)
             x = m.ffn(i, x)
-        logits = m.head(x)                                  # (T, V)
-        topv, topi = torch.topk(logits, self.topk_cap, dim=-1)
-        # argmax returns the FIRST maximum, as jnp.argmax does (the
-        # parity contract with generate_reference)
-        return (torch.argmax(logits, dim=-1).to(torch.int32),
-                topv.float(), topi.to(torch.int32))
+        return self._greedy_topk(x)
 
-    def _dispatch_mixed(self, tokens, positions, write_pages, write_offs,
-                        page_tables, lane_slots, lane_lens):
-        """Ship the host-built lane arrays, run one mixed step, and
-        fetch its (greedy, topv, topi) back as numpy; the first fetch
-        waits for the step, so the step ends synchronized."""
-        dev = self.device
-        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                for a in (tokens, positions, write_pages, write_offs,
-                          page_tables, lane_slots, lane_lens)]
-        greedy, topv, topi = self._mixed_body(*args)
+    def _dispatch(self, body, *arrays):
+        """Ship the host-built lane arrays, run one step (``body``: the
+        mixed step or the legacy decode step), and fetch its (greedy,
+        topv, topi) back as numpy; the first fetch waits for the step,
+        so the step ends synchronized."""
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in arrays]
+        greedy, topv, topi = body(*args)
         return greedy.cpu().numpy(), topv.cpu().numpy(), topi.cpu().numpy()
 
+    @torch.no_grad()
+    def _decode_body(self, tokens, positions, write_pages, write_offs,
+                     page_tables, seq_lens):
+        """The legacy decode step: one token for every slot lane. All
+        (B,) int32 on the device, host-built: tokens/positions; the
+        physical (page, offset) of each lane's new K/V (lanes not
+        decoding this step aim at the sink page 0 instead of clobbering
+        their own position 0); page_tables (B, pages_per_seq); seq_lens
+        INCLUDING the token being decoded (its K/V is written, then
+        attended: position i sees keys 0..i). Non-decoding lanes compute
+        garbage the host never reads. Returns (greedy, topv, topi) as
+        :meth:`_greedy_topk`."""
+        m = self.model
+        kp, vp = self._device_pages()
+        x = m.embed(tokens, positions)                      # (B, E)
+        scale = 1.0 / math.sqrt(self.head_dim)
+        where = (write_pages.long(), write_offs.long())
+        for i in range(self.num_layers):
+            q, k, v = m.attn_qkv(i, m.attn_in(i, x))       # (B, H, D)
+            self._write_kv(i, where, k, v)
+            o = paged_attention_decode(q, kp[i], vp[i], page_tables,
+                                       seq_lens, scale=scale)
+            x = m.attn_out(i, o, x)
+            x = m.ffn(i, x)
+        return self._greedy_topk(x)
+
     def warmup(self) -> dict:
-        """Allocate the page pool and run one mixed step on throwaway
-        inputs (every write aims at the sink page): builds and loads the
-        CUDA kernel on the card. Returns (and keeps) the boot record."""
+        """Allocate the page pool and run one serving step on throwaway
+        inputs (every write aims at the sink page): the mixed step, or
+        on the legacy path the decode step. Builds and loads the CUDA
+        kernel on the card. Returns (and keeps) the boot record."""
         t0 = time.perf_counter()
         c = self.cache_cfg
         self._device_pages()
-        t = self.mixed_width
-        z = np.zeros((t,), np.int32)
-        self._dispatch_mixed(z, z, z, z,
-                             np.zeros((c.max_seqs, c.pages_per_seq),
-                                      np.int32),
-                             z, np.ones((t,), np.int32))
+        tables = np.zeros((c.max_seqs, c.pages_per_seq), np.int32)
+        if self.chunked_prefill:
+            t = self.mixed_width
+            z = np.zeros((t,), np.int32)
+            self._dispatch(self._mixed_body, z, z, z, z, tables, z,
+                           np.ones((t,), np.int32))
+        else:
+            z = np.zeros((c.max_seqs,), np.int32)
+            self._dispatch(self._decode_body, z, z, z, z, tables,
+                           np.ones((c.max_seqs,), np.int32))
         self.boot_stats = {"boot_s": time.perf_counter() - t0}
         return self.boot_stats
 
@@ -237,13 +347,29 @@ class ServeEngine:
             [sp.seed, sid, req.stream_offset + len(req.out_tokens)])
         return int(topi[int(rng.choice(k, p=p))])
 
-    # ---------------- reference parity ---------------------------------
+    # ---------------- full-sequence forward (prefill + reference) ------
     @torch.no_grad()
-    def _forward_tokens(self, tokens, length: int):
-        """Logits (vocab,) at position length-1 of the causal no-cache
-        forward over (1, S) tokens (positions >= length are padding and
-        never seen by position length-1)."""
-        x = self.model.hidden_states(tokens)
+    def _forward_tokens(self, tokens, length: int, kv=None):
+        """Logits (vocab,) at position length-1 of the causal forward
+        over (1, S) tokens (positions >= length are padding and never
+        seen by position length-1). ``kv = pt_row`` (the sequence's
+        (pages_per_seq,) page-table row) also scatters each layer's K/V
+        of every position into the sequence's pages on the way through
+        (the legacy prefill; padded positions land past the mapped range
+        on table entries 0, the sink, or on offsets decode overwrites
+        before the length mask exposes them). kv=None is the pure
+        no-cache forward, the naive reference: ONE implementation, so
+        the parity oracle and the legacy path cannot drift apart."""
+        on_kv = None
+        if kv is not None:
+            self._device_pages()
+            ps = self.cache_cfg.page_size
+            pos = torch.arange(tokens.shape[1], device=tokens.device)
+            where = (kv.long()[pos // ps], pos % ps)
+
+            def on_kv(i, k, v):
+                self._write_kv(i, where, k[0], v[0])
+        x = self.model.hidden_states(tokens, on_kv=on_kv)
         return self.model.head(x[0, int(length) - 1])
 
     def _context_logits(self, ctx: Sequence[int]) -> np.ndarray:
@@ -324,15 +450,17 @@ class ServeEngine:
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens, eos_token: Optional[int] = None,
                  temperature=None, top_k=None,
-                 sample_seed: int = 0) -> List[List[int]]:
+                 sample_seed: int = 0, on_step=None) -> List[List[int]]:
         """Decode a ragged batch under continuous batching.
         `max_new_tokens` is an int or a per-prompt sequence; greedy by
         default, per-request seeded temperature/top-k sampling when
         `temperature` is given (scalar or per-prompt; 0 = greedy).
         Returns the generated tokens (prompt excluded) per prompt, in
-        order; per-run counters land in `self.last_stats`. A mid-batch
-        exception fails only the in-flight requests and the engine
-        keeps serving."""
+        order; per-run counters land in `self.last_stats`.
+        `on_step(step_index)` is called after every engine step (the
+        hook invariant checks such as :meth:`check_kv_scales` run
+        from). A mid-batch exception fails only the in-flight requests
+        and the engine keeps serving."""
         if isinstance(max_new_tokens, int):
             max_new_tokens = [max_new_tokens] * len(prompts)
         if len(max_new_tokens) != len(prompts):
@@ -341,26 +469,34 @@ class ServeEngine:
                 f"{len(prompts)} prompts")
         samples = self._sample_params(temperature, top_k, sample_seed,
                                       len(prompts), self.topk_cap)
-        return self._generate_session(prompts, max_new_tokens, samples,
-                                      eos_token)
+        if self.chunked_prefill:
+            return self._generate_session(prompts, max_new_tokens,
+                                          samples, eos_token, on_step)
+        return self._generate_legacy(prompts, max_new_tokens, samples,
+                                     eos_token, on_step)
 
     def start_session(self) -> "ServeSession":
         """Open an incremental serving session: submit requests at any
         time, advance ONE mixed step per :meth:`ServeSession.step`,
-        ``close()`` when done. At most one live session per engine."""
+        ``close()`` when done. Chunked engines only; at most one live
+        session per engine."""
         return ServeSession(self)
 
     def _generate_session(self, prompts, max_new_tokens, samples,
-                          eos_token) -> List[List[int]]:
-        """generate()'s body: one ServeSession, every prompt submitted
-        up front, stepped to drain."""
+                          eos_token, on_step=None) -> List[List[int]]:
+        """generate()'s chunked path: one ServeSession, every prompt
+        submitted up front, stepped to drain."""
         session = self.start_session()
         reqs = session.reqs
         try:
             for prompt, mnt, sp in zip(prompts, max_new_tokens, samples):
                 session.submit(prompt, mnt, eos_token=eos_token, sample=sp)
-            while session.step() is not None:
-                pass
+            while True:
+                ev = session.step()
+                if ev is None:
+                    break
+                if ev.dispatched and on_step is not None:
+                    on_step(ev.step_index)
         except Exception:
             self._fail_inflight(session.sched, reqs)
             raise
@@ -371,6 +507,167 @@ class ServeEngine:
             "pages leaked"
         self.last_stats = session.stats_dict()
         return [list(r.out_tokens) for r in reqs]
+
+    # ---------------- the legacy bucket path ----------------------------
+    def _generate_legacy(self, prompts, max_new_tokens, samples,
+                         eos_token, on_step=None) -> List[List[int]]:
+        """generate()'s legacy path (serve_chunked_prefill=False): its
+        own scheduler and orphan recovery (the chunked path's
+        ServeSession owns both), then :meth:`_run_legacy`."""
+        c = self.cache_cfg
+        cache = self.cache
+        if cache.free_slots != c.max_seqs:
+            # a previous batch died without _fail_inflight running:
+            # reclaim slots/pages and drop the registry, serve on
+            cache.release_all()
+            cache.clear_prefix()
+        sched = ContinuousBatchingScheduler(
+            cache, prefill_token_budget=self.prefill_budget,
+            chunked_prefill=False, admit_watermark=self.admit_watermark,
+            spec_tokens=self.spec_tokens, faults=self.faults,
+            degrade_ladder=self.degrade_ladder,
+            reject_stalls=self.reject_stalls)
+        reqs: List[Request] = []
+        t0 = time.perf_counter()
+        for prompt, mnt, sp in zip(prompts, max_new_tokens, samples):
+            r = sched.submit(prompt, mnt, eos_token=eos_token, sample=sp)
+            r.t_submit = time.perf_counter()
+            reqs.append(r)
+        decode_times: List[float] = []   # seconds per step with decodes
+        decode_widths: List[int] = []    # decode lanes per such step
+        prefill_times: List[Tuple[int, float]] = []  # (bucket, seconds)
+        util: List[float] = []           # resident-page fraction per step
+        try:
+            self._run_legacy(sched, decode_times, decode_widths,
+                             prefill_times, util, on_step)
+        except Exception:
+            self._fail_inflight(sched, reqs)
+            raise
+        cache.check_invariants()
+        assert cache.free_pages == c.usable_pages, "pages leaked"
+        self.last_stats = self._build_stats(
+            reqs, sched, wall=time.perf_counter() - t0, steps=len(util),
+            decode_times=decode_times, decode_widths=decode_widths,
+            prefill_times=prefill_times, util=util)
+        return [list(r.out_tokens) for r in reqs]
+
+    def _run_legacy(self, sched, decode_times, decode_widths,
+                    prefill_times, util, on_step=None) -> None:
+        """The two-step loop: per-request bucketed prefill (each
+        emitting its first token through the host's argsort top-k),
+        then one full-width decode of every running sequence."""
+        c = self.cache_cfg
+        cache = self.cache
+        ps = c.page_size
+        dev = self.device
+
+        def emit(chunk: ChunkPlan, greedy, topv, topi) -> None:
+            req = chunk.req
+            tok = self._pick_token(req, greedy, topv, topi)
+            req.out_tokens.append(tok)
+            if len(req.out_tokens) == 1:
+                req.t_first_token = time.perf_counter()
+            if req.is_done():
+                req.t_finish = time.perf_counter()
+                sched.finish(req)
+
+        while sched.has_work():
+            plan = sched.schedule()
+            if not plan.chunks:
+                continue
+            pre = [ch for ch in plan.chunks if not ch.is_decode]
+            dec = [ch for ch in plan.chunks if ch.is_decode]
+            for ch in pre:
+                req = ch.req
+                ctx = req.context
+                b = self.bucket_for(len(ctx))
+                toks = np.zeros((1, b), np.int32)
+                toks[0, :len(ctx)] = ctx
+                tp = time.perf_counter()
+                logits = self._forward_tokens(
+                    torch.from_numpy(toks).to(dev), len(ctx),
+                    kv=torch.from_numpy(cache.page_tables[req.slot]).to(
+                        dev)).float().cpu().numpy()
+                prefill_times.append((b, time.perf_counter() - tp))
+                sched.complete_chunk(ch)
+                order = np.argsort(logits)[::-1][:self.topk_cap]
+                # np.argmax, not order[0]: argsort's descending tie
+                # order differs from argmax's first-wins (the parity
+                # contract with generate_reference is argmax's)
+                emit(ch, int(np.argmax(logits)), logits[order], order)
+            if dec:
+                tokens = np.zeros((c.max_seqs,), np.int32)
+                positions = np.zeros((c.max_seqs,), np.int32)
+                write_pages = np.zeros((c.max_seqs,), np.int32)  # sink
+                write_offs = np.zeros((c.max_seqs,), np.int32)
+                # the decode step must see the new token (position i
+                # attends keys 0..i), so lengths include it up front;
+                # rows not decoding clamp to 1 (a zero length NaNs the
+                # softmax)
+                seq_lens = np.maximum(np.asarray(cache.seq_lens), 1) \
+                    .astype(np.int32)
+                for ch in dec:
+                    s, pos = ch.req.slot, ch.start
+                    tokens[s] = ch.req.context[pos]
+                    positions[s] = pos
+                    write_pages[s] = cache.page_tables[s, pos // ps]
+                    write_offs[s] = pos % ps
+                    seq_lens[s] = ch.end
+                tp = time.perf_counter()
+                nxt, topv, topi = self._dispatch(
+                    self._decode_body, tokens, positions, write_pages,
+                    write_offs, cache.page_tables, seq_lens)
+                decode_times.append(time.perf_counter() - tp)
+                decode_widths.append(len(dec))
+                for ch in dec:
+                    sched.complete_chunk(ch)
+                    emit(ch, nxt[ch.req.slot], topv[ch.req.slot],
+                         topi[ch.req.slot])
+            util.append(1.0 - cache.free_pages / c.usable_pages)
+            if on_step is not None:
+                on_step(len(util) - 1)
+
+    # ---------------- quantized-page verification (tests) -------------
+    def check_kv_scales(self) -> None:
+        """Scale bookkeeping check for quantized pools (the stress
+        tests' companion to PagedKVCache.check_invariants): every
+        audited (page, offset) row must carry finite, non-negative K/V
+        scales, and a zero scale must vouch for an all-zero code row
+        (scale 0 is only ever written for an all-zero activation row,
+        so anything else means the scale and its page drifted). Audits
+        the RESIDENT (slot, position) rows — which exist only mid-run,
+        so call it from generate()'s ``on_step`` — plus every
+        prefix-cache-parked page. No-op on lossless pools."""
+        if not self.kv_quantized or self._k_pages is None:
+            return
+        ps = self.cache_cfg.page_size
+        kq = self._k_pages.float().cpu().numpy()
+        vq = self._v_pages.float().cpu().numpy()
+        ks = self._k_scales.cpu().numpy()
+        vs = self._v_scales.cpu().numpy()
+
+        def audit(what: str, page: int, off: int) -> None:
+            for name, s, q in (("k", ks, kq), ("v", vs, vq)):
+                srow = s[:, page, off, :]      # (layers, H)
+                qrow = q[:, page, off, :, :]   # (layers, H, D)
+                assert np.all(np.isfinite(srow)) \
+                    and np.all(srow >= 0), (
+                    f"{name}-scale of {what} (page {page} off {off}) "
+                    f"is not finite/non-negative")
+                dead = srow == 0.0
+                assert np.all(qrow[dead] == 0), (
+                    f"{name}-page row of {what} (page {page} off "
+                    f"{off}) has zero scale but nonzero quantized "
+                    f"content")
+
+        for slot in range(self.cache_cfg.max_seqs):
+            for pos in range(int(self.cache.seq_lens[slot])):
+                audit(f"slot {slot} pos {pos}",
+                      int(self.cache.page_tables[slot, pos // ps]),
+                      pos % ps)
+        for page in self.cache.parked_pages():
+            for off in range(ps):
+                audit("cached page", page, off)
 
     def _fail_inflight(self, sched, reqs: Sequence[Request]) -> None:
         """Crash containment: a mid-batch exception fails ONLY the
@@ -404,7 +701,7 @@ class ServeEngine:
                  "latency_s": (r.t_finish - r.t_submit
                                if r.t_finish else None)}
                 for r in reqs],
-            "mode": "chunked",
+            "mode": "chunked" if self.chunked_prefill else "legacy",
             "device": str(self.device),
             "wall_s": wall,
             "total_new_tokens": total_new,
@@ -470,6 +767,11 @@ class ServeSession:
     emission second / speculative verification last."""
 
     def __init__(self, engine: ServeEngine):
+        if not engine.chunked_prefill:
+            raise ValueError(
+                "serving sessions need the chunked mixed program "
+                "(serve_chunked_prefill=True); the legacy bucket path "
+                "has no single-step form")
         if engine._session is not None:
             raise RuntimeError(
                 "engine already has a live ServeSession — close() it "
@@ -613,9 +915,9 @@ class ServeSession:
         assert lane <= t_w, (
             f"scheduler packed {lane} lanes into a {t_w}-lane step")
         tp = time.perf_counter()
-        greedy, topv, topi = eng._dispatch_mixed(
-            tokens, positions, write_pages, write_offs, cache.page_tables,
-            lane_slots, lane_lens)
+        greedy, topv, topi = eng._dispatch(
+            eng._mixed_body, tokens, positions, write_pages, write_offs,
+            cache.page_tables, lane_slots, lane_lens)
         dt = time.perf_counter() - tp
         self.util.append(1.0 - cache.free_pages / c.usable_pages)
         # bookkeeping FIRST (page commits hash the context as it was

@@ -116,7 +116,7 @@ def test_mixed_step_logits_match(pair):
     jg, jv, ji, jk, _ = jeng._mixed_impl(
         jeng.params, kp, vp, *(jnp.asarray(a) for a in lanes))
     teng._device_pages()
-    tg, tv, ti = teng._dispatch_mixed(*lanes)
+    tg, tv, ti = teng._dispatch(teng._mixed_body, *lanes)
     np.testing.assert_array_equal(tg[:n], np.asarray(jg)[:n])
     np.testing.assert_allclose(tv[:n], np.asarray(jv)[:n], rtol=0,
                                atol=ATOL)

@@ -1,5 +1,8 @@
 """The port's CUDA kernels on the card: each held against its plain
-version over every head_dim / tile / dtype it takes, at small shapes.
+version over every head_dim / tile / dtype it takes, at small shapes
+(the ragged kernel v2 on f32, bf16, int8 and fp8 pages; the paged decode
+kernel and the v1 ragged kernel on f32 and bf16 pages), and the serving
+engine's mixed step, quantized pools and legacy path on the card.
 Needs an NVIDIA GPU and nvcc; skips without a card. Imports no JAX, so
 on a machine without JAX it runs as
 
@@ -72,6 +75,123 @@ def test_mixed_dtypes_and_dispatch(card):
     ref = pr.ragged_attention_ref(q, kp, vp, tables, slots, lens,
                                   1.0 / 8.0)
     assert float((out - ref).abs().max()) <= F32_ATOL
+
+
+# max abs error / max |ref| of the quantized kernel: both dequantize to
+# the same f32 keys, so only the summation order differs
+QUANT_REL = 1e-5
+
+
+def _rel(out, ref):
+    return float((out.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kv", [torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("d,tile", [(32, 32), (64, 16), (128, 8)])
+@pytest.mark.parametrize("ps", [16, 12])
+def test_quantized_kernel_matches_plain_version(card, qdtype, kv, d, tile,
+                                                ps):
+    q, kp, vp, tables, slots, lens = _inputs(card, torch.float32, 4, d, ps,
+                                             seed=7)
+    kq, ks = pr.quantize_kv_rows(kp, kv)
+    vq, vs = pr.quantize_kv_rows(vp, kv)
+    q = q.to(qdtype)
+    scale = 1.0 / math.sqrt(d)
+    before = pr.launches
+    out = pr.paged_ragged_v2_cuda(q, kq, vq, tables, slots, lens, scale,
+                                  block_kv=tile, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert pr.launches == before + 1
+    ref = pr.ragged_attention_ref(q, kq, vq, tables, slots, lens, scale,
+                                  k_scales=ks, v_scales=vs)
+    if qdtype == torch.float32:
+        assert _rel(out, ref) <= QUANT_REL
+    else:
+        assert float((out.float() - ref.float()).abs().max()) <= BF16_ATOL
+
+
+def test_quantized_kernel_refuses_missing_scales(card):
+    q, kp, vp, tables, slots, lens = _inputs(card, torch.float32, 4, 64, 16)
+    kq, ks = pr.quantize_kv_rows(kp)
+    vq, vs = pr.quantize_kv_rows(vp)
+    before = pr.launches
+    with pytest.raises(ValueError, match="k_scales"):
+        pr.paged_ragged_v2_cuda(q, kq, vq, tables, slots, lens, 0.125)
+    with pytest.raises(ValueError, match="k_scales"):
+        pr.paged_ragged_v2_cuda(q, kq, vq, tables, slots, lens, 0.125,
+                                k_scales=ks[:, :8].contiguous(),
+                                v_scales=vs)
+    assert pr.launches == before
+
+
+def _decode_inputs(dev, dtype, d, ps, b=8, h=4, pp=5, seed=0):
+    """One table row per sequence; lengths 1, a page boundary, one past
+    it, the full row and random ones; table entries past a row's length
+    point at the sink page 0, which holds large values that would show
+    in the output if a kernel read them unmasked."""
+    rng = np.random.default_rng(seed)
+    npages = 1 + b * pp
+    put = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
+    kp = rng.standard_normal((npages, ps, h, d), np.float32)
+    vp = rng.standard_normal((npages, ps, h, d), np.float32)
+    kp[0] = vp[0] = 1e4
+    lens = rng.integers(1, ps * pp + 1, b)
+    lens[:4] = 1, ps, ps + 1, ps * pp
+    table = rng.permutation(np.arange(1, npages)).reshape(b, pp)
+    for i, n in enumerate(lens):
+        table[i, -(-int(n) // ps):] = 0
+    q = put(rng.standard_normal((b, h, d), np.float32)).to(dtype)
+    return (q, put(kp).to(dtype), put(vp).to(dtype),
+            put(table.astype(np.int32)), put(lens.astype(np.int32)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("ps", [16, 12])
+def test_paged_decode_matches_plain_version(card, dtype, d, ps):
+    q, kp, vp, table, lens = _decode_inputs(card, dtype, d, ps)
+    scale = 1.0 / math.sqrt(d)
+    before = fa.launches["paged_decode"]
+    out = fa.paged_attention_decode(q, kp, vp, table, lens, scale=scale)
+    torch.cuda.synchronize()
+    assert fa.launches["paged_decode"] == before + 1
+    ref = fa.paged_decode_ref(q, kp, vp, table, lens, scale)
+    if dtype == torch.float32:
+        assert _rel(out, ref) <= F32_ATOL
+    else:
+        assert float((out.float() - ref.float()).abs().max()) <= BF16_ATOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("ps", [16, 12])
+def test_ragged_v1_matches_plain_version_and_v2(card, dtype, d, ps):
+    args = _inputs(card, dtype, 4, d, ps, seed=3)
+    scale = 1.0 / math.sqrt(d)
+    before = fa.launches["paged_ragged_v1"]
+    out = fa.paged_attention_ragged_v1(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert fa.launches["paged_ragged_v1"] == before + 1
+    ref = fa.paged_ragged_v1_ref(*args, scale)
+    v2 = pr.paged_ragged_v2_cuda(*args, scale)
+    if dtype == torch.float32:
+        assert _rel(out, ref) <= F32_ATOL
+        assert _rel(out, v2) <= F32_ATOL
+    else:
+        assert float((out.float() - ref.float()).abs().max()) <= BF16_ATOL
+
+
+def test_paged_decode_mixed_dtypes(card):
+    """f32 q over bf16 pages: the legacy engine's f32 activations over a
+    bf16 pool."""
+    q, kp, vp, table, lens = _decode_inputs(card, torch.float32, 64, 16,
+                                            seed=2)
+    kp, vp = kp.bfloat16(), vp.bfloat16()
+    out = fa.paged_decode_cuda(q, kp, vp, table, lens, 0.125)
+    ref = fa.paged_decode_ref(q, kp, vp, table, lens, 0.125)
+    assert _rel(out, ref) <= F32_ATOL
 
 
 def test_engine_on_card_counts_launches(card):
@@ -153,7 +273,7 @@ def test_flash_kernels_match_plain_pieces(card, dtype, causal, d, sq, sk):
     for name, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
                            ("dv", dv, dv_ref)):
         assert _rel_err(got, ref) <= tol, name
-    assert {n: fa.launches[n] - before[n] for n in before} == {
+    assert {n: fa.launches[n] - before[n] for n in fa.FLASH_KERNELS} == {
         "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
 
 
@@ -194,3 +314,58 @@ def test_flash_refuses_what_it_does_not_take(card):
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_fwd_cuda(q.half(), k.half(), v.half(), causal=False,
                           scale=1.0)
+
+
+def _small_lm(cfg, seed=3):
+    from flexflow_tpu_torch import build_transformer_lm
+    return build_transformer_lm(cfg, vocab_size=89, max_seq_len=64,
+                                hidden=128, num_heads=4, num_layers=2,
+                                ff_dim=256, seed=seed, device="cuda")
+
+
+def _prompts():
+    rng = np.random.default_rng(2)
+    return [[int(x) for x in rng.integers(1, 89, n)]
+            for n in (3, 30, 55)] + [[4, 5, 6, 7] * 6]
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "float8_e4m3"])
+def test_quantized_engine_on_card(card, kv_dtype):
+    """An int8 / fp8 pool on the card: every mixed step launches the
+    quantized kernel once a layer, the scale rows pass their audit
+    after every step, and the tokens hold the tie rule against the
+    reference at the pool's margin."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.serve import ServeEngine
+    cfg = FFConfig(kv_page_size=8, kv_num_pages=73, serve_max_seqs=8,
+                   serve_prefill_budget=48, kv_dtype=kv_dtype)
+    eng = ServeEngine(_small_lm(cfg), cfg)
+    eng.warmup()
+    prompts = _prompts()
+    pr.launches = 0
+    out = eng.generate(prompts, 8, on_step=lambda s: eng.check_kv_scales())
+    assert pr.launches == eng.num_layers * eng.last_stats["steps"]
+    eng.assert_token_parity(prompts, out, eng.generate_reference(prompts, 8))
+
+
+def test_legacy_engine_on_card(card):
+    """The legacy bucket path on the card: every decode step launches
+    the paged decode kernel once a layer and the mixed-step kernel
+    never; tokens equal the reference under the tie rule (the kernel's
+    online softmax rounds differently from the single-pass
+    reference)."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.serve import ServeEngine
+    cfg = FFConfig(kv_page_size=8, kv_num_pages=73, serve_max_seqs=8,
+                   serve_prefill_budget=48, serve_chunked_prefill=False)
+    eng = ServeEngine(_small_lm(cfg), cfg)
+    eng.warmup()
+    prompts = _prompts()
+    pr.launches = 0
+    fa.launches["paged_decode"] = 0
+    out = eng.generate(prompts, 8)
+    st = eng.last_stats
+    assert st["decode_steps"] > 0 and pr.launches == 0
+    assert fa.launches["paged_decode"] == eng.num_layers * st["decode_steps"]
+    eng.assert_token_parity(prompts, out, eng.generate_reference(prompts, 8),
+                            margin=1e-3)

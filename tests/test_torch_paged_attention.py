@@ -77,16 +77,29 @@ def test_cpu_dispatch_takes_plain_version():
 
 
 def test_quantized_pages_not_ported():
-    ta = _torch(_inputs(4), torch.float32)
-    scales = torch.ones(ta[1].shape[:3])
-    with pytest.raises(NotImplementedError):
-        paged_attention_ragged(*ta, k_scales=scales, v_scales=scales)
+    """int8 and fp8 pages run through the entry point: on CPU tensors
+    the plain version dequantizes them, bit for bit the attention over
+    the dequantized f32 pages."""
+    q, kp, vp, tables, slots, lens = _torch(_inputs(4), torch.float32)
+    for dtype in (torch.int8, torch.float8_e4m3fn):
+        kq, ks = pr.quantize_kv_rows(kp, dtype)
+        vq, vs = pr.quantize_kv_rows(vp, dtype)
+        before = pr.launches
+        out = paged_attention_ragged(q, kq, vq, tables, slots, lens,
+                                     k_scales=ks, v_scales=vs)
+        want = paged_attention_ragged(q, pr.dequantize_kv(kq, ks),
+                                      pr.dequantize_kv(vq, vs), tables,
+                                      slots, lens)
+        assert torch.equal(out, want)
+        assert pr.launches == before
 
 
 @pytest.mark.parametrize("bad", ["cpu", "block_kv", "head_dim"])
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(bad):
-    """The wrapper never falls back: CPU tensors, an unsupported tile
-    or head_dim raise before anything is launched."""
+    """The wrapper never falls back: CPU tensors or an unsupported
+    head_dim raise before anything is launched. serve_attn_block_kv
+    raises only when negative: every value the JAX engine takes maps
+    onto a tile."""
     q, kp, vp, tables, slots, lens = _torch(
         _inputs(5, d=32 if bad != "head_dim" else 8), torch.float32)
     before = pr.launches
@@ -95,9 +108,12 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(bad):
             pr.paged_ragged_v2_cuda(q, kp, vp, tables, slots, lens, 0.1)
     elif bad == "block_kv":
         with pytest.raises(ValueError, match="block_kv"):
-            pr._tile_for(12, 32)
-        with pytest.raises(ValueError, match="block_kv"):
-            pr._tile_for(32, 128)
+            pr._tile_for(-1, 32)
+        assert pr._tile_for(12, 32) == 8
+        assert pr._tile_for(32, 128) == 16
+        assert pr._tile_for(3, 64) == 8
+        assert pr._tile_for(0, 64) == pr.DEFAULT_TILE
+        assert pr._tile_for(4096, 32) == 32
     else:
         with pytest.raises(ValueError):
             pr.paged_ragged_v2_cuda(q, kp, vp, tables, slots, lens, 0.1)

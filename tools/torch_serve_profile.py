@@ -1,14 +1,18 @@
 """Where a serving step of the PyTorch/CUDA port spends its time.
 
-    python3 tools/torch_serve_profile.py [--out chiprun_out/profile.json]
+    python3 tools/torch_serve_profile.py [--kv-dtype int8] [--legacy]
+        [--out chiprun_out/profile.json]
 
 Serves chip_smoke.py's full-width LM and its 8 greedy prompts on the
-card: three times plain (wall time per mixed step — host times vary
-between runs, so all three are printed) and once under
+card: three times plain (wall time per step with decodes — host times
+vary between runs, so all three are printed) and once under
 ``torch.profiler`` (CPU + CUDA activities), then prints device time by
-kernel class — the ragged attention kernel, matmuls, top-k, the K/V
-page scatter, copies, the rest — with each class's share of the
-profiled wall time, and the device's idle share. Needs one NVIDIA GPU.
+kernel class — the paged attention kernels, matmuls, top-k, the K/V
+page scatter, copies, the rest (quantize-on-write lands there) — with
+each class's share of the profiled wall time, and the device's idle
+share. ``--kv-dtype`` picks the page format (float32, bfloat16, int8,
+float8_e4m3), ``--legacy`` the legacy bucket path. Needs one NVIDIA
+GPU.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 # kernel-name patterns per class, first match wins
 CLASSES = (
-    ("attention", re.compile(r"ragged_v2_kernel")),
+    ("attention", re.compile(r"ragged_v2_kernel|paged_decode_kernel")),
     ("matmul", re.compile(r"gemm|matmul|sm90_|cutlass|cublas", re.I)),
     ("topk", re.compile(r"topk|sort|radix|argmax|reduce_kernel.*max",
                         re.I)),
@@ -46,6 +50,8 @@ def classify(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--kv-dtype", default="float32")
+    ap.add_argument("--legacy", action="store_true")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -61,7 +67,8 @@ def main() -> int:
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(card)
-    cfg = FFConfig()
+    cfg = FFConfig(kv_dtype=args.kv_dtype,
+                   serve_chunked_prefill=not args.legacy)
     lm = build_transformer_lm(cfg, vocab_size=32000, max_seq_len=512,
                               hidden=512, num_heads=8, num_layers=6,
                               ff_dim=2048, seed=0, device="cuda")
@@ -100,6 +107,8 @@ def main() -> int:
         raise RuntimeError("the profiler saw no device time")
     res = {
         "card": card,
+        "kv_dtype": args.kv_dtype,
+        "mode": eng.last_stats["mode"],
         "steps": steps,
         "plain_wall_s": [p["wall_s"] for p in plain],
         "plain_step_ms_mean": [1e3 * float(np.mean(p["decode_step_times_s"]))
@@ -116,7 +125,8 @@ def main() -> int:
             for k, v in sorted(by_kernel.items(),
                                key=lambda kv: -kv[1][0])[:12]],
     }
-    print(f"[{card}] steps={steps} plain wall s "
+    print(f"[{card}] {res['mode']} {args.kv_dtype} pages: steps={steps} "
+          f"plain wall s "
           f"{[round(w, 4) for w in res['plain_wall_s']]}, step ms mean "
           f"{[round(m, 3) for m in res['plain_step_ms_mean']]}; profiled wall "
           f"{wall:.4f} s, device busy {busy_s:.4f} s, idle share "
