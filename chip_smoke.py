@@ -20,6 +20,16 @@ nvcc per source, in parallel) and then:
     steps through the kernels against 3 on the einsum path, then the
     bf16 flagship — 3 steps held against the einsum path, 20 timed —
     with the kernels' launch counts checked;
+  * holds the two LSTM kernels (forward, backward) against their plain
+    versions at the NMT model's shapes (T=40, B=256, H=1024, f32 and
+    bf16), timed beside torch.nn.LSTM (cuDNN) as a yardstick;
+  * trains the full-width NMT LSTM of ``build_nmt_lstm`` (batch 256,
+    seq 40, vocab 32000, embed and hidden 1024, 2 layers, SGD lr 0.01,
+    weights and data from numpy seeds): in f32 and in bf16, 3 steps
+    through the kernels against 3 on the scan cell, every weight's
+    gradient held between the two, and 3 with a planted dwh fault that
+    the same check must reject; then 20 timed bf16 steps, with the
+    kernels' launch counts and the device kernels they enqueued checked;
   * serves the full-width causal LM of the README (vocab 32000, 512
     positions, hidden 512, 8 heads, 6 layers, ff 2048, f32, random
     weights from a numpy seed) through ``ServeEngine.generate`` four
@@ -88,6 +98,33 @@ TRAIN_F32_WEIGHT_ABS = 5e-4
 TRAIN_BF16_LOSS_REL = 2e-2
 TRAIN_ARCH = dict(seq_len=TS, hidden=512, num_heads=TH, num_layers=6,
                   ff_dim=2048, num_classes=10)
+
+# the NMT LSTM at bench.py's "full" preset: T=40 tokens of a batch of
+# 256, vocab 32000, embed and hidden 1024, 2 layers
+NT, NB, NH, NV, NL = 40, 256, 1024, 32000, 2
+# LSTM kernels vs their plain versions, max abs error / max |plain|: f32
+# differs in the order of the f32 sums (K = 1024 a step, T*B = 10240 for
+# dwh); bf16 where ys and dxg round to bf16, and a rounding that flips
+# moves the next step's product
+LSTM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# full-width NMT training, kernel path vs the scan cell (use_pallas=
+# False), 3 SGD steps from one set of weights on learnable labels (the
+# first token). The loss (~10.37 = ln 32000) barely moves in 3 steps at
+# lr 0.01, so it is a coarse check: f32 to 1e-5 relative (one function
+# summed in another order, the kernels' f32 FMAs against cuBLAS's f32
+# GEMM, TF32 off in both), bf16 to 2e-2 (the paths carry h and c at
+# other precisions). The gradients carry the parity: each weight's
+# gradient in each step, as |g_kernel - g_scan| / |g_scan| (L2 norms).
+# Not the weights: an LSTM weight's 3-step update (|update| ~1.5e-6
+# over 4 M entries) lies under the f32 spacing of the weights, so the
+# updates differ by rounding alone (6e-4 in f32 on an H100). On an H100
+# the gradients read 7e-7 in f32 (summation order) and 4e-3 in bf16 (the
+# two carries); a planted fault — the backward's dwh summed over h_t
+# where h_{t-1} belongs — reads 0.41 in both and must read above the
+# limit. Each limit sits about a factor of 10 or more from both
+NMT_F32_LOSS_REL = 1e-5
+NMT_BF16_LOSS_REL = 2e-2
+NMT_GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 4e-2}
 
 
 def log(msg: str) -> None:
@@ -510,6 +547,321 @@ def train_phase(fa, card: str):
     return res
 
 
+def lstm_inputs(dtype, seed=0):
+    """Kernel 7's and 8's inputs at the NMT shapes: xg (T, B, 4H) at
+    the scale of x.wx (~0.5), wh (H, 4H) at glorot's (~0.03), h0/c0
+    (B, H) f32, dys (T, B, H) — from a numpy seed, on the card."""
+    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+
+    def put(shape, scale):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)
+                                * scale).to(dev)
+    return (put((NT, NB, 4 * NH), 0.5).to(dtype),
+            put((NH, 4 * NH), 0.03).to(dtype), put((NB, NH), 0.3),
+            put((NB, NH), 0.3), put((NT, NB, NH), 1.0).to(dtype))
+
+
+def lstm_bounds(dtype):
+    """{kernel: (bound_ms, bound_by)} of the two LSTM kernels. Flops:
+    the forward's T products (B, H) x (H, 4H), 2*T*B*H*4H; the
+    backward's three such (the gate recompute, dlin.wh^T, and dwh).
+    Bytes: each input read once, each output written once — forward xg,
+    wh, h0, c0 in, ys and cs out; backward xg, wh, h0, c0, ys, cs, dys
+    in, dxg, dwh (f32), dh0, dc0 out."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    tbh = NT * NB * NH
+    flops = 2.0 * NT * NB * NH * 4 * NH
+    state = 2 * NB * NH * 4
+    fwd_bytes = (4 * tbh + 4 * NH * NH) * e + state + tbh * (e + 4)
+    bwd_bytes = (fwd_bytes + tbh * e               # + dys
+                 + 4 * tbh * e + 4 * NH * NH * 4 + state)
+    return {"lstm_fwd": bound(fwd_bytes, flops, dtype),
+            "lstm_bwd": bound(bwd_bytes, 3 * flops, dtype)}
+
+
+def cudnn_ms(dtype):
+    """library_ms yardsticks: torch.nn.LSTM (cuDNN, TF32 off) over
+    x (T, B, D=H), forward and forward + backward. One call computes the
+    whole layer, the input product x.wx included, so beside it the
+    port's own layer is timed: the LSTM op's forward (x.wx matmul plus
+    kernel 7), and its forward + backward through autograd. Timed here
+    only; the port never calls cuDNN. Returns ((cudnn fwd, fwd+bwd),
+    (port fwd, fwd+bwd)) ms; a cuDNN call the installed PyTorch refuses
+    for this dtype gives None and prints why."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.op import OpContext
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((NT, NB, NH), np.float32)) \
+        .to(dev).to(dtype).requires_grad_()
+    dy = torch.from_numpy(rng.standard_normal((NT, NB, NH), np.float32)) \
+        .to(dev).to(dtype)
+    lib = None
+    try:
+        net = torch.nn.LSTM(NH, NH).to(dev).to(dtype)
+        net.flatten_parameters()     # one weight buffer, as cuDNN wants
+        fwd = lambda: net(x)[0]                        # noqa: E731
+        lib = (cuda_ms(fwd, 10), cuda_ms(lambda: torch.autograd.grad(
+            fwd(), [x, *net.parameters()], dy), 10))
+    except RuntimeError as e:
+        log(f"library_ms: torch.nn.LSTM refused {dtype}: {e}")
+    ff = FFModel(FFConfig(), device="cuda")
+    op = ff.lstm(ff.create_tensor((NB, NT, NH), dtype=dtype), NH,
+                 name="lstm").owner_op
+    params = {k: (torch.from_numpy(rng.standard_normal(s.shape, np.float32))
+                  .to(dev) * 0.03).requires_grad_()
+              for k, s in op.weight_specs().items()}
+    xb = x.detach().transpose(0, 1).contiguous().requires_grad_()
+    dyb = dy.transpose(0, 1).contiguous()
+    ctx = OpContext(training=True)
+    pfwd = lambda: op.forward(params, [xb], ctx)[0]    # noqa: E731
+    port = (cuda_ms(pfwd, 10), cuda_ms(lambda: torch.autograd.grad(
+        pfwd(), [xb, *params.values()], dyb), 10))
+    return lib, port
+
+
+def lstm_phase(ls):
+    """Hold kernels 7 (lstm_fwd) and 8 (lstm_bwd) against their plain
+    versions on the card at the NMT shapes, f32 and bf16; time each, the
+    plain versions, and the cuDNN yardstick. The backward runs on the
+    plain forward's ys and cs, so both backward versions see one
+    input."""
+    from flexflow_tpu_torch import resolve_device
+    resolve_device("cuda")            # TF32 off for the plain versions
+    res = {}
+    shape = f"T={NT} B={NB} H={NH}"
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        xg, wh, h0, c0, dys = lstm_inputs(dtype)
+        ys, cs = ls.lstm_fwd_cuda(xg, wh, h0, c0)
+        torch.cuda.synchronize()
+        ys_ref, cs_ref = ls.lstm_fwd_ref(xg, wh, h0, c0)
+        errs = {"lstm_fwd": [check_err(f"lstm_fwd {dname} {n}", a, r,
+                                       LSTM_TOL[dtype], relative=True)
+                             for n, a, r in (("ys", ys, ys_ref),
+                                             ("cs", cs, cs_ref))]}
+        bargs = (xg, wh, h0, c0, ys_ref, cs_ref, dys)
+        got = ls.lstm_bwd_cuda(*bargs)
+        torch.cuda.synchronize()
+        want = ls.lstm_bwd_ref(*bargs)
+        errs["lstm_bwd"] = [
+            check_err(f"lstm_bwd {dname} {n}", a, r, LSTM_TOL[dtype],
+                      relative=True)
+            for n, a, r in zip(("dxg", "dwh", "dh0", "dc0"), got, want)]
+        del ys, cs, got, want
+        times = {
+            "lstm_fwd": (cuda_ms(lambda: ls.lstm_fwd_cuda(xg, wh, h0, c0),
+                                 10),
+                         cuda_ms(lambda: ls.lstm_fwd_ref(xg, wh, h0, c0), 3)),
+            "lstm_bwd": (cuda_ms(lambda: ls.lstm_bwd_cuda(*bargs), 10),
+                         cuda_ms(lambda: ls.lstm_bwd_ref(*bargs), 3)),
+        }
+        del xg, wh, h0, c0, dys, ys_ref, cs_ref, bargs
+        torch.cuda.empty_cache()
+        lib, port = cudnn_ms(dtype)
+        bounds = lstm_bounds(dtype)
+        for i, kname in enumerate(("lstm_fwd", "lstm_bwd")):
+            abs_err = max(e[0] for e in errs[kname])
+            rel = max(e[1] for e in errs[kname])
+            b_ms, b_by = bounds[kname]
+            res.setdefault(kname, {})[dname] = {
+                "max_abs_err": abs_err, "err_over_max_ref": rel,
+                "ms": times[kname][0], "plain_ms": times[kname][1],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None if lib is None else lib[i],
+                "port_layer_ms": port[i]}
+            log(f"kernel {kname} [{dname}, {shape}]: max_abs_err="
+                f"{abs_err:.3g} err/max|ref|={rel:.3g} (tol "
+                f"{LSTM_TOL[dtype]}) kernel_ms={times[kname][0]:.4f} "
+                f"plain_ms={times[kname][1]:.4f} bound_ms={b_ms:.4f} "
+                f"({b_by}) library_ms="
+                f"{'null' if lib is None else f'{lib[i]:.4f}'} "
+                f"port_layer_ms={port[i]:.4f}")
+        torch.cuda.empty_cache()
+    log("library_ms: lstm_fwd = torch.nn.LSTM forward, lstm_bwd = its "
+        "forward + backward (cuDNN, D=H=1024), both including the input "
+        "product x.wx that the kernels leave to a matmul; port_layer_ms = "
+        "the port's LSTM op timed the same way (x.wx matmul + kernels)")
+    return res
+
+
+def nmt_batches(n, seed=0):
+    """n host batches of the NMT model: tokens uniform over the
+    vocabulary from a numpy seed (bench.py's nmt_lstm data), and as the
+    label each row's first token, a task the model can learn (the CPU
+    tests' task), so that the labels depend on what the LSTM carries."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        x = rng.integers(0, NV, (NB, NT)).astype(np.int32)
+        out.append({"input": x, "label": x[:, 0].copy()})
+    return out
+
+
+def nmt_model(dtype, use_pallas):
+    """build_nmt_lstm at full width on the card, SGD lr 0.01; weights
+    from the port's numpy streams, the same for every model built
+    here."""
+    from flexflow_tpu_torch import FFConfig, SGDOptimizer, build_nmt_lstm
+    m = build_nmt_lstm(FFConfig(batch_size=NB, seed=0), batch_size=NB,
+                       seq_len=NT, vocab_size=NV, embed_dim=NH, hidden=NH,
+                       num_layers=NL, dtype=dtype, use_pallas=use_pallas,
+                       device="cuda")
+    m.compile(optimizer=SGDOptimizer(lr=0.01),
+              loss_type="sparse_categorical_crossentropy",
+              metrics=["accuracy"])
+    return m
+
+
+def nmt_steps(dtype, use_pallas, batches, steps=3):
+    """A fresh model's first `steps` steps: (losses, [{op.weight: its
+    gradient} a step]), the gradients recorded as train_batch's
+    executor computes them."""
+    m = nmt_model(dtype, use_pallas)
+    ex, grads = m.executor, []
+    compute = ex._compute_grads
+
+    def record(params, batch):
+        loss, logits, g = compute(params, batch)
+        grads.append({f"{op}.{k}": w.clone() for op, p in g.items()
+                      for k, w in p.items()})
+        return loss, logits, g
+
+    ex._compute_grads = record
+    losses = [float(m.train_batch(batches[i])["loss"]) for i in range(steps)]
+    del ex._compute_grads                 # no cycle keeps the model alive
+    del m, ex, compute
+    torch.cuda.empty_cache()
+    return losses, grads
+
+
+def grad_errs(gk, gp):
+    """{weight: the largest |gk - gp| / |gp| (L2 norms) over the
+    steps}: one path's gradients held against the other's."""
+    out = {}
+    for sk, sp in zip(gk, gp):
+        for n, g in sp.items():
+            diff, ref = float((sk[n] - g).norm()), float(g.norm())
+            e = diff / ref if ref > 0 else (0.0 if diff == 0 else math.inf)
+            out[n] = max(out.get(n, 0.0), e)
+    return out
+
+
+def dwh_off_by_one(ls):
+    """A planted fault for the gradient check's own test: lstm_bwd_cuda
+    whose dwh sums h_t^T dlin_t where h_{t-1}^T dlin_t belongs. Returns
+    (install, restore)."""
+    real = ls.lstm_bwd_cuda
+
+    def faulty(xg, wh, h0, c0, ys, cs, dys):
+        dxg, dwh, dh0, dc0 = real(xg, wh, h0, c0, ys, cs, dys)
+        t, b, h = ys.shape
+        dwh = ys.reshape(t * b, h).float().t() @ \
+            dxg.reshape(t * b, 4 * h).float()
+        return dxg, dwh, dh0, dc0
+
+    return (lambda: setattr(ls, "lstm_bwd_cuda", faulty),
+            lambda: setattr(ls, "lstm_bwd_cuda", real))
+
+
+def nmt_parity(ls, dtype, batches):
+    """3 steps through the LSTM kernels against 3 on the scan cell, and
+    3 more through the kernels with a planted fault in dwh: logs the
+    losses and the gradient errors, then raises if the losses or a
+    gradient differ past their limits, or if the fault reads within the
+    limit."""
+    dname = "f32" if dtype == torch.float32 else "bf16"
+    lk, gk = nmt_steps(dtype, None, batches)
+    lp, gp = nmt_steps(dtype, False, batches)
+    errs = grad_errs(gk, gp)
+    del gk
+    install, restore = dwh_off_by_one(ls)
+    install()
+    try:
+        _, gf = nmt_steps(dtype, None, batches)
+    finally:
+        restore()
+    wh = sorted(n for n in gp[0] if n.startswith("lstm_") and
+                n.endswith(".wh"))
+    ferrs = grad_errs([{n: s[n] for n in wh} for s in gf],
+                      [{n: s[n] for n in wh} for s in gp])
+    del gf, gp
+    torch.cuda.empty_cache()
+    lstm = sorted(n for n in errs if n.startswith("lstm_"))
+    worst = max(errs, key=errs.get)
+    limit = NMT_GRAD_REL[dtype]
+    loss_tol = NMT_F32_LOSS_REL if dtype == torch.float32 \
+        else NMT_BF16_LOSS_REL
+    log(f"train nmt {dname}: losses kernel {lk} plain {lp} (tol rel "
+        f"{loss_tol}); gradient error |g_k - g_p| / |g_p| per LSTM weight "
+        f"{ {n: f'{errs[n]:.3g}' for n in lstm} }, worst of all "
+        f"{errs[worst]:.3g} at {worst} (limit {limit}); planted fault "
+        f"(dwh over h_t) reads { {n: f'{ferrs[n]:.3g}' for n in wh} }")
+    if not all(abs(a - b) <= loss_tol * abs(b) for a, b in zip(lk, lp)):
+        raise AssertionError(f"nmt {dname} losses kernel {lk} vs plain {lp}")
+    if not errs[worst] <= limit:
+        raise AssertionError(f"nmt {dname} gradient of {worst} differs by "
+                             f"{errs[worst]} > {limit}")
+    if not min(ferrs.values()) > limit:
+        raise AssertionError(f"nmt {dname}: the planted dwh fault reads "
+                             f"{ferrs}, within the limit {limit}")
+
+
+def nmt_train_phase(ls, card: str):
+    """(a) f32 and bf16 parity: 3 steps through the LSTM kernels vs 3 on
+    the scan cell, and a planted fault the check must catch; (b) the
+    bf16 run: 3 warm-up steps and 20 timed ones through the kernels,
+    with the launch counts checked (one forward and one backward call
+    per layer per step, and the device kernels each call enqueued).
+    Returns the launches of (b) and its numbers."""
+    batches = nmt_batches(4)
+    for dtype in (torch.float32, torch.bfloat16):
+        nmt_parity(ls, dtype, batches)
+    m = nmt_model(torch.bfloat16, None)
+    nparams = sum(w.numel() for p in m.state.params.values()
+                  for w in p.values())
+    steps_warm, steps_timed = 3, 20
+    torch.cuda.reset_peak_memory_stats()
+    for counts in (ls.launches, ls.device_launches):   # the main path only
+        counts.update(dict.fromkeys(counts, 0))
+    warm = [float(m.train_batch(batches[i])["loss"])
+            for i in range(steps_warm)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = [m.train_batch(batches[i % len(batches)])
+               for i in range(steps_timed)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, device = dict(ls.launches), dict(ls.device_launches)
+    peak = torch.cuda.max_memory_allocated()
+    timed = [float(x["loss"]) for x in metrics]
+    want = NL * (steps_warm + steps_timed)
+    if launches != dict.fromkeys(launches, want):
+        raise AssertionError(f"lstm launches {launches} != {NL} layers x "
+                             f"{steps_warm + steps_timed} steps")
+    # one device kernel a time step; the backward adds dh0 and dwh
+    if device != {"lstm_fwd": want * NT, "lstm_bwd": want * (NT + 2)}:
+        raise AssertionError(f"lstm device launches {device} for {want} "
+                             f"calls each")
+    if not all(math.isfinite(x) for x in warm + timed):
+        raise AssertionError(f"non-finite loss in {warm + timed}")
+    step_ms = 1e3 * wall / steps_timed
+    res = {"step_ms": step_ms, "samples_per_s": NB * steps_timed / wall,
+           "tokens_per_s": NB * NT * steps_timed / wall,
+           "peak_mem_gib": peak / 2**30, "launches": launches,
+           "device_launches": device, "losses": warm + timed}
+    log(f"train nmt bf16 [{card}]: {nparams / 1e6:.2f} M params; launches "
+        f"{launches} (= {NL} layers x {steps_warm + steps_timed} steps), "
+        f"device kernels enqueued {device} ("
+        f"{device['lstm_fwd'] / launches['lstm_fwd']:g} a forward call, "
+        f"{device['lstm_bwd'] / launches['lstm_bwd']:g} a backward call)")
+    log(f"train nmt bf16 [{card}]: step ms {step_ms:.3f} over "
+        f"{steps_timed} steps, {res['samples_per_s']:.1f} samples/s, "
+        f"{res['tokens_per_s']:.1f} tokens/s, peak memory "
+        f"{res['peak_mem_gib']:.2f} GiB, losses {warm + timed}")
+    return res
+
+
 def serve_prompts(vocab, seed=0):
     """8 greedy prompts of 64..448 tokens — four share a 128-token
     preamble, one repeats a 16-token phrase (speculation accepts
@@ -662,6 +1014,7 @@ def main() -> int:
         return 3
     from flexflow_tpu_torch.kernels import _build
     from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import lstm_scan as ls
     from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
 
     t_start = time.perf_counter()
@@ -685,6 +1038,8 @@ def main() -> int:
     dres = paged_decode_phase(fa)
     fres = flash_phase(fa)
     tres = train_phase(fa, card)
+    lres = lstm_phase(ls)
+    nres = nmt_train_phase(ls, card)
     sres = serve_phase(pr, fa, card)
 
     def head(cells):
@@ -729,6 +1084,22 @@ def main() -> int:
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             **{c: v for c, v in cells.items() if c != "bf16"}})
+    # the LSTM rows' headline is the NMT path's own cell (bf16); the f32
+    # cell rides along. library_ms: cuDNN's whole layer (see lstm_phase)
+    for kname, line in (("lstm_fwd", 65), ("lstm_bwd", 119)):
+        cells = lres[kname]
+        head = cells["bf16"]
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": "flexflow_tpu_torch/kernels/csrc/lstm_scan.cu",
+            "replaces": f"flexflow_tpu/kernels/lstm_scan.py:{line}",
+            "launches": nres["launches"][kname],
+            "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+            "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "port_layer_ms": head["port_layer_ms"],
+            "device_launches": nres["device_launches"][kname],
+            "f32": cells["f32"]})
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -47,6 +47,14 @@ class FFConfig:
     # runs only the f32 default (the mixed-precision policy of
     # core/precision.py is not ported)
     param_dtype: torch.dtype = torch.float32
+    # embedding-table updates. The port updates tables densely through
+    # autograd, which is the function of both settings of the JAX
+    # sparse_embedding_updates switch (with plain SGD its sparse update
+    # is "exact", the dense update restricted to the touched rows; the
+    # other optimizers stay dense unless lazy), so it has no such
+    # switch. The lazy rule (stale optimizer slots on untouched rows)
+    # is not ported: FFModel.compile raises when it is asked for
+    sparse_embedding_lazy: bool = False
 
     # activation dtype of the served LM (the JAX build_transformer_lm
     # wires compute_dtype into the embeddings' output dtype); as a

@@ -47,8 +47,10 @@ class Optimizer:
         raise NotImplementedError
 
     def sparse_update(self, *args, **kwargs):
-        """The scatter update of embedding rows: waits for the port's
-        Embedding op."""
+        """The scatter update of embedding rows: not ported. The port's
+        Embedding trains through the dense update, which is the same
+        function wherever the JAX executor's is not lazy
+        (ops/embedding.py)."""
         raise NotImplementedError(
             "sparse embedding updates are not ported yet")
 

@@ -24,7 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 # sm_90a, not sm_90: wgmma and setmaxnreg exist only for the "a" target
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
-KERNEL_SOURCES = ("paged_ragged_v2", "flash_attention", "paged_decode")
+KERNEL_SOURCES = ("paged_ragged_v2", "flash_attention", "paged_decode",
+                  "lstm_scan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

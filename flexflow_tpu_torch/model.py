@@ -9,7 +9,8 @@ caller passes ``device="cpu"``.
 Out of the slice, and raising ``NotImplementedError`` when configured:
 a mesh or strategy, the strategy search, pipelines, remat, fusion,
 NHWC, telemetry, a training ``compute_dtype`` or ``param_dtype`` other
-than float32, ``seq_length`` truncation, and in ``fit``
+than float32, lazy sparse embedding updates, ``seq_length``
+truncation, and in ``fit``
 ``steps_per_dispatch > 1``, ``grad_accum_steps > 1``, checkpointing and
 prefetch.
 """
@@ -26,8 +27,8 @@ from .config import FFConfig, resolve_device
 from .core.executor import Executor, TrainState
 from .core.optimizers import Optimizer, SGDOptimizer
 from .op import Op
-from .ops import (ElementBinary, LayerNorm, Linear, MultiHeadAttention,
-                  Reshape, Softmax, Split)
+from .ops import (LSTM, ElementBinary, Embedding, LayerNorm, Linear,
+                  MultiHeadAttention, Reshape, Softmax, Split)
 from .tensor import Tensor
 
 
@@ -81,6 +82,21 @@ class FFModel:
         op = Linear(self, name or self._fresh_name("dense"), [input],
                     out_channels, activation or "none", use_bias,
                     kernel_initializer, bias_initializer)
+        return self.add_op(op).output
+
+    def embedding(self, input: Tensor, num_entries: int, out_dim: int,
+                  aggr: str = "sum", name: Optional[str] = None,
+                  kernel_initializer="glorot", dtype=None) -> Tensor:
+        op = Embedding(self, name or self._fresh_name("embedding"), [input],
+                       num_entries, out_dim, aggr, kernel_initializer,
+                       dtype=dtype)
+        return self.add_op(op).output
+
+    def lstm(self, input: Tensor, hidden_size: int,
+             return_sequences: bool = True,
+             name: Optional[str] = None, use_pallas=None) -> Tensor:
+        op = LSTM(self, name or self._fresh_name("lstm"), [input],
+                  hidden_size, return_sequences, use_pallas=use_pallas)
         return self.add_op(op).output
 
     def layer_norm(self, input: Tensor, eps: float = 1e-5,
@@ -170,6 +186,8 @@ class FFModel:
             "compute_dtype != float32 as a training policy":
                 cfg.compute_dtype != torch.float32,
             "param_dtype != float32": cfg.param_dtype != torch.float32,
+            "sparse_embedding_lazy (lazy sparse embedding updates)":
+                cfg.sparse_embedding_lazy,
         }
         on = [k for k, v in off.items() if v]
         if on:

@@ -1,11 +1,13 @@
-"""Ops of the port's training slice (the ops ``build_transformer``
-uses), each the counterpart of the same-named op of
+"""Ops of the port's training slices (the ops ``build_transformer`` and
+``build_nmt_lstm`` use), each the counterpart of the same-named op of
 ``flexflow_tpu/ops``."""
 
 from .attention import MultiHeadAttention
 from .elementwise import ElementBinary, LayerNorm, Softmax
+from .embedding import Embedding
 from .linear import Linear
+from .rnn import LSTM
 from .tensor_ops import Reshape, Split
 
 __all__ = ["MultiHeadAttention", "ElementBinary", "LayerNorm", "Softmax",
-           "Linear", "Reshape", "Split"]
+           "Embedding", "Linear", "LSTM", "Reshape", "Split"]

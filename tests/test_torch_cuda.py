@@ -1,8 +1,10 @@
 """The port's CUDA kernels on the card: each held against its plain
 version over every head_dim / tile / dtype it takes, at small shapes
 (the ragged kernel v2 on f32, bf16, int8 and fp8 pages; the paged decode
-kernel and the v1 ragged kernel on f32 and bf16 pages), and the serving
-engine's mixed step, quantized pools and legacy path on the card.
+kernel and the v1 ragged kernel on f32 and bf16 pages; the flash and
+LSTM kernels on f32 and bf16), the serving engine's mixed step,
+quantized pools and legacy path, and the LSTM op's gradients on the
+card.
 Needs an NVIDIA GPU and nvcc; skips without a card. Imports no JAX, so
 on a machine without JAX it runs as
 
@@ -16,6 +18,7 @@ import pytest
 import torch
 
 from flexflow_tpu_torch.kernels import flash_attention as fa
+from flexflow_tpu_torch.kernels import lstm_scan as ls
 from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
 
 pytestmark = pytest.mark.cuda
@@ -369,3 +372,107 @@ def test_legacy_engine_on_card(card):
     assert fa.launches["paged_decode"] == eng.num_layers * st["decode_steps"]
     eng.assert_token_parity(prompts, out, eng.generate_reference(prompts, 8),
                             margin=1e-3)
+
+
+# ------------------------------------------------------------------ lstm
+# the LSTM kernels against their plain versions, as error / max |plain|:
+# f32 differs in summation order only; bf16 where ys and dxg round to
+# bf16 (a rounding that flips moves the next step's product)
+LSTM_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def _lstm_inputs(dev, dtype, t, b, h, seed=0):
+    rng = np.random.default_rng(seed)
+    put = lambda a, s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(a, np.float32) * s).to(dev)
+    return (put((t, b, 4 * h), 0.5).to(dtype), put((h, 4 * h), 0.1).to(dtype),
+            put((b, h), 0.3), put((b, h), 0.3), put((t, b, h), 1.0).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(1, 6, 96), (5, 6, 96), (3, 70, 40),
+                                   (4, 64, 128), (2, 130, 100)])
+def test_lstm_kernels_match_plain_versions(card, dtype, t, b, h):
+    """B not a multiple of 8, H not a multiple of 128, T = 1: the
+    kernels take any shape the TPU gate refused."""
+    xg, wh, h0, c0, dys = _lstm_inputs(card, dtype, t, b, h, seed=t + b)
+    before = dict(ls.launches)
+    before_dev = dict(ls.device_launches)
+    ys, cs = ls.lstm_fwd_cuda(xg, wh, h0, c0)
+    ys_ref, cs_ref = ls.lstm_fwd_ref(xg, wh, h0, c0)
+    torch.cuda.synchronize()
+    assert ys.dtype == dtype and cs.dtype == torch.float32
+    assert _rel_err(ys, ys_ref) <= LSTM_REL[dtype]
+    assert _rel_err(cs, cs_ref) <= LSTM_REL[dtype]
+    # the backward on the plain forward's ys and cs, both
+    got = ls.lstm_bwd_cuda(xg, wh, h0, c0, ys_ref, cs_ref, dys)
+    want = ls.lstm_bwd_ref(xg, wh, h0, c0, ys_ref, cs_ref, dys)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("dxg", "dwh", "dh0", "dc0"), got, want):
+        assert g.dtype == w.dtype, name
+        assert _rel_err(g, w) <= LSTM_REL[dtype], name
+    assert {k: ls.launches[k] - before[k] for k in ls.launches} == {
+        "lstm_fwd": 1, "lstm_bwd": 1}
+    # one device kernel a time step, then dh0 and dwh in the backward
+    assert {k: ls.device_launches[k] - before_dev[k]
+            for k in ls.device_launches} == {"lstm_fwd": t,
+                                             "lstm_bwd": t + 2}
+
+
+def test_lstm_sequence_autograd_on_card(card):
+    """LSTMSequence's four gradients on CUDA equal torch autograd through
+    scan_reference (f32)."""
+    xg, wh, h0, c0, dys = _lstm_inputs(card, torch.float32, 7, 24, 72, 1)
+    leaves = [x.requires_grad_() for x in (xg, wh, h0, c0)]
+    ys = ls.lstm_sequence(*leaves)
+    g = torch.autograd.grad(ys, leaves, dys)
+    ref = ls.scan_reference(*leaves)
+    g_ref = torch.autograd.grad(ref, leaves, dys)
+    assert _rel_err(ys, ref) <= LSTM_REL[torch.float32]
+    for name, a, b in zip(("dxg", "dwh", "dh0", "dc0"), g, g_ref):
+        assert _rel_err(a, b) <= LSTM_REL[torch.float32], name
+
+
+@pytest.mark.parametrize("seqs", [True, False])
+def test_lstm_op_gradients_on_card(card, seqs):
+    """The LSTM op's kernel path against its scan cell on the card (f32:
+    one function, to summation order), forward and the gradients of
+    wx, wh, b and the input; the kernels launch once each."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.op import OpContext
+    ff = FFModel(FFConfig(), device="cuda")
+    t = ff.create_tensor((5, 9, 20), name="in")
+    rng = np.random.default_rng(2)
+    params = {k: rng.standard_normal(shape).astype(np.float32) * 0.2
+              for k, shape in (("wx", (20, 128)), ("wh", (32, 128)),
+                               ("b", (128,)))}
+    x_np = rng.standard_normal((5, 9, 20)).astype(np.float32)
+    outs = {}
+    for use_pallas in (None, False):
+        op = ff.lstm(t, 32, return_sequences=seqs, name=f"l{use_pallas}",
+                     use_pallas=use_pallas).owner_op
+        pp = {k: torch.from_numpy(v).to(card).requires_grad_()
+              for k, v in params.items()}
+        x = torch.from_numpy(x_np).to(card).requires_grad_()
+        before = dict(ls.launches)
+        y = op.forward(pp, [x], OpContext(training=True))[0]
+        grads = torch.autograd.grad(torch.sin(y).sum(), [*pp.values(), x])
+        torch.cuda.synchronize()
+        want = 1 if use_pallas is None else 0
+        assert {k: ls.launches[k] - before[k] for k in ls.launches} == {
+            "lstm_fwd": want, "lstm_bwd": want}
+        outs[use_pallas] = (y, grads)
+    (yk, gk), (yp, gp) = outs[None], outs[False]
+    assert _rel_err(yk, yp) <= LSTM_REL[torch.float32]
+    for name, a, b in zip(("wx", "wh", "b", "x"), gk, gp):
+        assert _rel_err(a, b) <= 1e-4, name
+
+
+def test_lstm_refuses_what_it_does_not_take(card):
+    xg, wh, h0, c0, _ = _lstm_inputs(card, torch.float32, 2, 4, 16)
+    with pytest.raises(ValueError, match="one dtype"):
+        ls.lstm_fwd_cuda(xg, wh.bfloat16(), h0, c0)
+    with pytest.raises(ValueError, match="dtype"):
+        ls.lstm_fwd_cuda(xg.half(), wh.half(), h0, c0)
+    with pytest.raises(ValueError, match="shape"):
+        ls.lstm_fwd_cuda(xg, wh[:8], h0, c0)

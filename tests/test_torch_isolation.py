@@ -37,7 +37,8 @@ def test_sources_found():
     names = {p.name for p in SOURCES}
     assert {"engine.py", "paged_ragged_v2.py", "chip_smoke.py",
             "flash_attention.py", "executor.py", "model.py",
-            "attention.py", "optimizers.py"} <= names
+            "attention.py", "optimizers.py", "lstm_scan.py", "rnn.py",
+            "embedding.py", "nmt_lstm.py"} <= names
 
 
 def test_import_leaves_jax_unloaded():

@@ -1,16 +1,19 @@
 """Where a training step of the PyTorch/CUDA port spends its time.
 
-    python3 tools/torch_train_profile.py [--steps 10] [--out chiprun_out/train_profile.json]
+    python3 tools/torch_train_profile.py [--model transformer|nmt_lstm] [--steps 10] [--out PATH]
 
-Trains chip_smoke.py's bf16 flagship (``build_transformer`` at batch 32,
-seq 512, hidden 512, 8 heads, 6 layers, ff 2048, 10 classes, SGD lr
-0.01, weights and data from numpy seeds) on the card: 3 warm-up steps,
-three plain windows of ``--steps`` steps (wall time per step — host
-times vary between runs, so all three are printed), then one window
-under ``torch.profiler`` (CPU + CUDA activities). Prints device time per
-step by kernel class — the three flash-attention kernels, matmuls,
-copies, the rest — with each class's share of the profiled wall time,
-and the device's idle share. Needs one NVIDIA GPU.
+Trains one of chip_smoke.py's bf16 models on the card: the flagship
+(``--model transformer``, the default: ``build_transformer`` at batch 32,
+seq 512, hidden 512, 8 heads, 6 layers, ff 2048, 10 classes) or the NMT
+LSTM (``--model nmt_lstm``: ``build_nmt_lstm`` at bench.py's full preset,
+batch 256, seq 40, vocab 32000, embed and hidden 1024, 2 layers), SGD lr
+0.01, weights and data from numpy seeds: 3 warm-up steps, three plain
+windows of ``--steps`` steps (wall time per step — host times vary
+between runs, so all three are printed), then one window under
+``torch.profiler`` (CPU + CUDA activities). Prints device time per step
+by kernel class — the hand-written kernels (flash attention or LSTM),
+matmuls, copies, the rest — with each class's share of the profiled wall
+time, and the device's idle share. Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -32,6 +35,9 @@ CLASSES = (
     ("attention_fwd", re.compile(r"flash_fwd_kernel")),
     ("attention_bwd_dq", re.compile(r"flash_bwd_dq_kernel")),
     ("attention_bwd_dkv", re.compile(r"flash_bwd_dkv_kernel")),
+    ("lstm_fwd", re.compile(r"lstm_fwd_step_kernel")),
+    ("lstm_bwd", re.compile(r"lstm_bwd_step_kernel|lstm_dh0_kernel")),
+    ("lstm_dwh", re.compile(r"lstm_dwh_kernel")),
     # cuBLAS names its Hopper GEMMs nvjet_*
     ("matmul", re.compile(r"gemm|matmul|nvjet|sm90_|cutlass|cublas",
                           re.I)),
@@ -48,6 +54,8 @@ def classify(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("transformer", "nmt_lstm"),
+                    default="transformer")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--out", default="")
     args = ap.parse_args()
@@ -55,15 +63,21 @@ def main() -> int:
         print("torch_train_profile: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import TB, train_batches, train_model
+    import chip_smoke as cs
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip().splitlines()[0]
     print(card)
-    batches = train_batches(4)
-    m = train_model(torch.bfloat16, None)
+    if args.model == "nmt_lstm":
+        batch, tokens = cs.NB, cs.NB * cs.NT
+        batches = cs.nmt_batches(4)
+        m = cs.nmt_model(torch.bfloat16, None)
+    else:
+        batch, tokens = cs.TB, cs.TB * cs.TS
+        batches = cs.train_batches(4)
+        m = cs.train_model(torch.bfloat16, None)
     for i in range(3):                      # warm every code path
         m.train_batch(batches[i])
 
@@ -95,16 +109,19 @@ def main() -> int:
     if busy_s <= 0:
         raise RuntimeError("the profiler saw no device time")
     steps = args.steps
-    attn = sum(v for k, v in by_cls.items() if k.startswith("attention"))
+    own = sum(v for k, v in by_cls.items()
+              if k.startswith(("attention", "lstm")))
     res = {
         "card": card,
+        "model": args.model,
         "steps": steps,
         "plain_step_ms": [1e3 * w / steps for w in plain],
-        "plain_samples_per_s": [TB * steps / w for w in plain],
+        "plain_samples_per_s": [batch * steps / w for w in plain],
+        "plain_tokens_per_s": [tokens * steps / w for w in plain],
         "profiled_wall_s": wall,
         "device_busy_s": busy_s,
         "device_idle_share": 1.0 - busy_s / wall,
-        "attention_share_of_device": attn / 1e6 / busy_s,
+        "handwritten_share_of_device": own / 1e6 / busy_s,
         "device_ms_per_step": {k: v / 1e3 / steps
                                for k, v in sorted(by_cls.items())},
         "share_of_wall": {k: v / 1e6 / wall
@@ -114,12 +131,12 @@ def main() -> int:
             for k, v in sorted(by_kernel.items(),
                                key=lambda kv: -kv[1][0])[:12]],
     }
-    print(f"[{card}] {steps} steps a window; plain step ms "
+    print(f"[{card}] {args.model}, {steps} steps a window; plain step ms "
           f"{[round(x, 3) for x in res['plain_step_ms']]}, samples/s "
           f"{[round(x, 1) for x in res['plain_samples_per_s']]}; profiled "
           f"wall {wall:.4f} s, device busy {busy_s:.4f} s, idle share "
-          f"{res['device_idle_share']:.3f}, attention "
-          f"{res['attention_share_of_device']:.3f} of device time")
+          f"{res['device_idle_share']:.3f}, hand-written kernels "
+          f"{res['handwritten_share_of_device']:.3f} of device time")
     for k, v in res["device_ms_per_step"].items():
         print(f"  {k:17s} {v:9.4f} device ms/step  "
               f"{res['share_of_wall'][k]:.3f} of wall")
