@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from this checkout's sources (one
-nvcc per source, in parallel) and then:
+nvcc per source, in parallel), counts the tensor-core (HMMA)
+instructions of each kernel in the built SASS — the bf16 paths of the
+flash forward and the LSTM backward must have them — and then:
 
   * holds the ragged paged-attention kernel against its plain PyTorch
     version at the serving mixed step's shapes, on f32, bf16, int8 and
@@ -13,7 +15,9 @@ nvcc per source, in parallel) and then:
     the mixed step's shapes, through its entry point;
   * holds the three flash-attention kernels (forward, dq, dkv) against
     their plain pieces at the training path's shapes (b=32, s=512, h=8,
-    d=64, causal and not, f32 and bf16);
+    d=64, causal and not, f32 and bf16) and at one odd shape (sq=300,
+    sk=453), and times them beside scaled_dot_product_attention,
+    interleaved in 3 rounds (median and range reported);
   * trains the full-width Transformer encoder of ``build_transformer``
     (batch 32, seq 512, hidden 512, 8 heads, 6 layers, ff 2048, 10
     classes, SGD lr 0.01, weights and data from numpy seeds): 3 f32
@@ -22,7 +26,8 @@ nvcc per source, in parallel) and then:
     with the kernels' launch counts checked;
   * holds the two LSTM kernels (forward, backward) against their plain
     versions at the NMT model's shapes (T=40, B=256, H=1024, f32 and
-    bf16), timed beside torch.nn.LSTM (cuDNN) as a yardstick;
+    bf16) and at one odd shape (T=3, B=70, H=100), timed beside
+    torch.nn.LSTM (cuDNN) as a yardstick, interleaved in 3 rounds;
   * trains the full-width NMT LSTM of ``build_nmt_lstm`` (batch 256,
     seq 40, vocab 32000, embed and hidden 1024, 2 layers, SGD lr 0.01,
     weights and data from numpy seeds): in f32 and in bf16, 3 steps
@@ -50,6 +55,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -352,7 +358,24 @@ def flash_bounds(dtype, causal):
             "flash_bwd_dkv": bound(6 * op + 2 * row, 8 * per, dtype)}
 
 
-def sdpa_ms(q, k, v, do, causal):
+def yardstick(fns, rounds=3, iters=10):
+    """{name: [ms, one a round]}: each fn timed with cuda_ms in turn,
+    `rounds` times, the order reversed every other round, so that a
+    kernel and its library call are timed under the same card state in
+    one call."""
+    names, out = list(fns), {n: [] for n in fns}
+    for r in range(rounds):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            out[n].append(cuda_ms(fns[n], iters))
+    return out
+
+
+def spread(xs):
+    """'median (min-max)' of a yardstick's rounds."""
+    return f"{statistics.median(xs):.4f} ({min(xs):.4f}-{max(xs):.4f})"
+
+
+def sdpa_fns(q, k, v, do, causal):
     """library_ms yardsticks: torch's scaled_dot_product_attention
     forward on the same tensors, and its backward (one call computes
     dq, dk and dv). Timed here only; the port never calls it."""
@@ -362,17 +385,51 @@ def sdpa_ms(q, k, v, do, causal):
     dot = do.transpose(1, 2)
     fwd = lambda: F.scaled_dot_product_attention(  # noqa: E731
         qt, kt, vt, is_causal=causal)
-    fwd_ms = cuda_ms(fwd, 10)
     out = fwd()
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True), 10)
-    return fwd_ms, bwd_ms
+    return fwd, lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                            retain_graph=True)
+
+
+def flash_errors(fa, q, k, v, do, kw):
+    """{kernel: (max abs error, error / max |plain|)} of the three flash
+    kernels against their plain pieces on one input; raises past
+    FLASH_TOL. The backward pieces run on the plain forward's o and
+    lse. Returns the errors and the backward's inputs."""
+    dtype = q.dtype
+    o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, **kw)
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    bargs = (q, k, v, do, lse_ref, delta)
+    dq = fa.flash_bwd_dq_cuda(*bargs, **kw)
+    dk, dv = fa.flash_bwd_dkv_cuda(*bargs, **kw)
+    torch.cuda.synchronize()
+    dq_ref = fa.flash_bwd_dq_ref(*bargs, **kw)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*bargs, **kw)
+    errs = {}
+    for kname, pairs in (
+            ("flash_fwd", ((o, o_ref), (lse, lse_ref))),
+            ("flash_bwd_dq", ((dq, dq_ref),)),
+            ("flash_bwd_dkv", ((dk, dk_ref), (dv, dv_ref)))):
+        abs_err = max(float((a.float() - r.float()).abs().max())
+                      for a, r in pairs)
+        rel = max(float((a.float() - r.float()).abs().max()
+                        / r.float().abs().max()) for a, r in pairs)
+        if not (math.isfinite(rel) and rel <= FLASH_TOL[dtype]):
+            raise AssertionError(
+                f"{kname} {dtype} {tuple(q.shape)} x {tuple(k.shape)} "
+                f"causal={kw['causal']}: error / max |ref| {rel} > "
+                f"{FLASH_TOL[dtype]}")
+        errs[kname] = (abs_err, rel)
+    return errs, bargs
 
 
 def flash_phase(fa):
     """Hold flash_fwd, flash_bwd_dq and flash_bwd_dkv against their
     plain pieces on the card at the training shapes, f32 and bf16,
-    causal (the LM's mask) and not (the flagship); time each."""
+    causal (the LM's mask) and not (the flagship), and at one odd shape
+    whose sequence tails are masked; time each at the training shapes
+    beside scaled_dot_product_attention, interleaved in 3 rounds."""
     dev = torch.device("cuda")
     scale = 1.0 / math.sqrt(TD)
     res = {}
@@ -384,64 +441,68 @@ def flash_phase(fa):
                                                    np.float32))
                            for _ in range(4))
             kw = {"causal": causal, "scale": scale}
-            o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
-            o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, **kw)
-            delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2) \
-                .contiguous()
-            bargs = (q, k, v, do, lse_ref, delta)
-            dq = fa.flash_bwd_dq_cuda(*bargs, **kw)
-            dk, dv = fa.flash_bwd_dkv_cuda(*bargs, **kw)
-            torch.cuda.synchronize()
-            dq_ref = fa.flash_bwd_dq_ref(*bargs, **kw)
-            dk_ref, dv_ref = fa.flash_bwd_dkv_ref(*bargs, **kw)
-            errs = {}
-            for kname, pairs in (
-                    ("flash_fwd", ((o, o_ref), (lse, lse_ref))),
-                    ("flash_bwd_dq", ((dq, dq_ref),)),
-                    ("flash_bwd_dkv", ((dk, dk_ref), (dv, dv_ref)))):
-                abs_err = max(float((a.float() - r.float()).abs().max())
-                              for a, r in pairs)
-                rel = max(float((a.float() - r.float()).abs().max()
-                                / r.float().abs().max()) for a, r in pairs)
-                if not (math.isfinite(rel) and rel <= FLASH_TOL[dtype]):
-                    raise AssertionError(
-                        f"{kname} {dname} causal={causal}: error / max "
-                        f"|ref| {rel} > {FLASH_TOL[dtype]}")
-                errs[kname] = (abs_err, rel)
-            del o_ref, lse_ref, dq_ref, dk_ref, dv_ref
-            times = {
-                "flash_fwd": (
-                    cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, **kw), 10),
-                    cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, **kw), 3)),
-                "flash_bwd_dq": (
-                    cuda_ms(lambda: fa.flash_bwd_dq_cuda(*bargs, **kw), 10),
-                    cuda_ms(lambda: fa.flash_bwd_dq_ref(*bargs, **kw), 3)),
-                "flash_bwd_dkv": (
-                    cuda_ms(lambda: fa.flash_bwd_dkv_cuda(*bargs, **kw), 10),
-                    cuda_ms(lambda: fa.flash_bwd_dkv_ref(*bargs, **kw), 3)),
-            }
-            lib_fwd, lib_bwd = sdpa_ms(q, k, v, do, causal)
+            errs, bargs = flash_errors(fa, q, k, v, do, kw)
+            plain = {
+                "flash_fwd": cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, **kw),
+                                     3),
+                "flash_bwd_dq": cuda_ms(
+                    lambda: fa.flash_bwd_dq_ref(*bargs, **kw), 3),
+                "flash_bwd_dkv": cuda_ms(
+                    lambda: fa.flash_bwd_dkv_ref(*bargs, **kw), 3)}
+            lib_fwd, lib_bwd = sdpa_fns(q, k, v, do, causal)
+            rounds = yardstick({
+                "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, **kw),
+                "sdpa_fwd": lib_fwd,
+                "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(*bargs, **kw),
+                "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(*bargs, **kw),
+                "sdpa_bwd": lib_bwd})
             bounds = flash_bounds(dtype, causal)
             cell = f"{dname}{'_causal' if causal else ''}"
-            for kname in times:
+            for kname in plain:
                 b_ms, b_by = bounds[kname]
-                lib = lib_fwd if kname == "flash_fwd" else lib_bwd
+                lib = "sdpa_fwd" if kname == "flash_fwd" else "sdpa_bwd"
+                ms = statistics.median(rounds[kname])
+                lib_ms = statistics.median(rounds[lib])
                 res.setdefault(kname, {})[cell] = {
                     "max_abs_err": errs[kname][0],
                     "err_over_max_ref": errs[kname][1],
-                    "ms": times[kname][0], "plain_ms": times[kname][1],
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+                    "ms": ms, "plain_ms": plain[kname],
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                    "ms_rounds": rounds[kname],
+                    "library_ms_rounds": rounds[lib]}
                 log(f"kernel {kname} [{cell}, b={TB} s={TS} h={TH} "
                     f"d={TD}]: max_abs_err={errs[kname][0]:.3g} "
                     f"err/max|ref|={errs[kname][1]:.3g} (tol "
-                    f"{FLASH_TOL[dtype]}) kernel_ms={times[kname][0]:.4f} "
-                    f"plain_ms={times[kname][1]:.4f} bound_ms={b_ms:.4f} "
-                    f"({b_by}) library_ms={lib:.4f}")
-            del q, k, v, do, o, lse, dq, dk, dv, delta, bargs
+                    f"{FLASH_TOL[dtype]}) kernel_ms={spread(rounds[kname])} "
+                    f"plain_ms={plain[kname]:.4f} bound_ms={b_ms:.4f} "
+                    f"({b_by}) library_ms={spread(rounds[lib])} "
+                    f"[median (min-max) of 3 interleaved rounds]")
+            del q, k, v, do, bargs, lib_fwd, lib_bwd
             torch.cuda.empty_cache()
+    # one odd shape: both sequence lengths off the tiles, sq != sk
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for causal in (False, True):
+            rng = np.random.default_rng(12)
+            q, do = (torch.from_numpy(rng.standard_normal(
+                (3, 300, 5, TD), np.float32)).to(dev).to(dtype)
+                for _ in range(2))
+            k, v = (torch.from_numpy(rng.standard_normal(
+                (3, 453, 5, TD), np.float32)).to(dev).to(dtype)
+                for _ in range(2))
+            errs, _ = flash_errors(fa, q, k, v, do,
+                                   {"causal": causal, "scale": scale})
+            cell = f"{dname}{'_causal' if causal else ''}"
+            for kname, (abs_err, rel) in errs.items():
+                res[kname].setdefault("odd_shape", {})[cell] = {
+                    "shape": "b=3 sq=300 sk=453 h=5 d=64",
+                    "max_abs_err": abs_err, "err_over_max_ref": rel}
+            log(f"kernels flash_* [{cell}, b=3 sq=300 sk=453 h=5 d={TD}]: "
+                f"err/max|ref| " + ", ".join(
+                    f"{n} {e[1]:.3g}" for n, e in errs.items()) +
+                f" (tol {FLASH_TOL[dtype]})")
     log("library_ms: flash_fwd = scaled_dot_product_attention forward; "
         "flash_bwd_dq and flash_bwd_dkv = its whole backward (dq, dk and "
-        "dv in one call), timed once and reported on both rows")
+        "dv in one call), timed once a round and reported on both rows")
     return res
 
 
@@ -580,104 +641,152 @@ def lstm_bounds(dtype):
             "lstm_bwd": bound(bwd_bytes, 3 * flops, dtype)}
 
 
-def cudnn_ms(dtype):
+def cudnn_fns(dtype):
     """library_ms yardsticks: torch.nn.LSTM (cuDNN, TF32 off) over
-    x (T, B, D=H), forward and forward + backward. One call computes the
-    whole layer, the input product x.wx included, so beside it the
-    port's own layer is timed: the LSTM op's forward (x.wx matmul plus
-    kernel 7), and its forward + backward through autograd. Timed here
-    only; the port never calls cuDNN. Returns ((cudnn fwd, fwd+bwd),
-    (port fwd, fwd+bwd)) ms; a cuDNN call the installed PyTorch refuses
-    for this dtype gives None and prints why."""
-    from flexflow_tpu_torch import FFConfig, FFModel
-    from flexflow_tpu_torch.op import OpContext
+    x (T, B, D=H), forward and forward + backward, as callables. One
+    call computes the whole layer, the input product x.wx included.
+    Timed here only; the port never calls cuDNN. None, printing why,
+    where the installed PyTorch refuses cuDNN for this dtype."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
     x = torch.from_numpy(rng.standard_normal((NT, NB, NH), np.float32)) \
         .to(dev).to(dtype).requires_grad_()
     dy = torch.from_numpy(rng.standard_normal((NT, NB, NH), np.float32)) \
         .to(dev).to(dtype)
-    lib = None
     try:
         net = torch.nn.LSTM(NH, NH).to(dev).to(dtype)
         net.flatten_parameters()     # one weight buffer, as cuDNN wants
         fwd = lambda: net(x)[0]                        # noqa: E731
-        lib = (cuda_ms(fwd, 10), cuda_ms(lambda: torch.autograd.grad(
-            fwd(), [x, *net.parameters()], dy), 10))
+        bwd = lambda: torch.autograd.grad(             # noqa: E731
+            fwd(), [x, *net.parameters()], dy)
+        bwd()
+        torch.cuda.synchronize()
     except RuntimeError as e:
         log(f"library_ms: torch.nn.LSTM refused {dtype}: {e}")
+        return None
+    return fwd, bwd
+
+
+def port_layer_ms(dtype):
+    """The port's own LSTM layer timed as cudnn_fns times cuDNN's: the
+    LSTM op's forward (x.wx matmul plus kernel 7), and its forward +
+    backward through autograd. Returns (fwd, fwd+bwd) ms."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.op import OpContext
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    xb = torch.from_numpy(rng.standard_normal((NB, NT, NH), np.float32)) \
+        .to(dev).to(dtype).requires_grad_()
+    dyb = torch.from_numpy(rng.standard_normal((NB, NT, NH), np.float32)) \
+        .to(dev).to(dtype)
     ff = FFModel(FFConfig(), device="cuda")
     op = ff.lstm(ff.create_tensor((NB, NT, NH), dtype=dtype), NH,
                  name="lstm").owner_op
     params = {k: (torch.from_numpy(rng.standard_normal(s.shape, np.float32))
                   .to(dev) * 0.03).requires_grad_()
               for k, s in op.weight_specs().items()}
-    xb = x.detach().transpose(0, 1).contiguous().requires_grad_()
-    dyb = dy.transpose(0, 1).contiguous()
     ctx = OpContext(training=True)
     pfwd = lambda: op.forward(params, [xb], ctx)[0]    # noqa: E731
-    port = (cuda_ms(pfwd, 10), cuda_ms(lambda: torch.autograd.grad(
+    return (cuda_ms(pfwd, 10), cuda_ms(lambda: torch.autograd.grad(
         pfwd(), [xb, *params.values()], dyb), 10))
-    return lib, port
+
+
+def lstm_check(ls, xg, wh, h0, c0, dys, tag):
+    """Kernels 7 and 8 against their plain versions on one input:
+    {kernel: [(max abs error, error / max |plain|) per output]}; raises
+    past LSTM_TOL. The backward runs on the plain forward's ys and cs,
+    so both backward versions see one input. Returns the errors and the
+    backward's arguments."""
+    tol = LSTM_TOL[xg.dtype]
+    ys, cs = ls.lstm_fwd_cuda(xg, wh, h0, c0)
+    torch.cuda.synchronize()
+    ys_ref, cs_ref = ls.lstm_fwd_ref(xg, wh, h0, c0)
+    errs = {"lstm_fwd": [check_err(f"lstm_fwd {tag} {n}", a, r, tol,
+                                   relative=True)
+                         for n, a, r in (("ys", ys, ys_ref),
+                                         ("cs", cs, cs_ref))]}
+    bargs = (xg, wh, h0, c0, ys_ref, cs_ref, dys)
+    got = ls.lstm_bwd_cuda(*bargs)
+    torch.cuda.synchronize()
+    want = ls.lstm_bwd_ref(*bargs)
+    errs["lstm_bwd"] = [
+        check_err(f"lstm_bwd {tag} {n}", a, r, tol, relative=True)
+        for n, a, r in zip(("dxg", "dwh", "dh0", "dc0"), got, want)]
+    return errs, bargs
 
 
 def lstm_phase(ls):
     """Hold kernels 7 (lstm_fwd) and 8 (lstm_bwd) against their plain
-    versions on the card at the NMT shapes, f32 and bf16; time each, the
-    plain versions, and the cuDNN yardstick. The backward runs on the
-    plain forward's ys and cs, so both backward versions see one
-    input."""
+    versions on the card at the NMT shapes, f32 and bf16, and at one odd
+    shape (B and H off every tile, rows not 16-byte aligned); time the
+    kernels and cuDNN's layer interleaved in 3 rounds, the plain
+    versions and the port's own layer once."""
     from flexflow_tpu_torch import resolve_device
     resolve_device("cuda")            # TF32 off for the plain versions
     res = {}
     shape = f"T={NT} B={NB} H={NH}"
     for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         xg, wh, h0, c0, dys = lstm_inputs(dtype)
-        ys, cs = ls.lstm_fwd_cuda(xg, wh, h0, c0)
-        torch.cuda.synchronize()
-        ys_ref, cs_ref = ls.lstm_fwd_ref(xg, wh, h0, c0)
-        errs = {"lstm_fwd": [check_err(f"lstm_fwd {dname} {n}", a, r,
-                                       LSTM_TOL[dtype], relative=True)
-                             for n, a, r in (("ys", ys, ys_ref),
-                                             ("cs", cs, cs_ref))]}
-        bargs = (xg, wh, h0, c0, ys_ref, cs_ref, dys)
-        got = ls.lstm_bwd_cuda(*bargs)
-        torch.cuda.synchronize()
-        want = ls.lstm_bwd_ref(*bargs)
-        errs["lstm_bwd"] = [
-            check_err(f"lstm_bwd {dname} {n}", a, r, LSTM_TOL[dtype],
-                      relative=True)
-            for n, a, r in zip(("dxg", "dwh", "dh0", "dc0"), got, want)]
-        del ys, cs, got, want
-        times = {
-            "lstm_fwd": (cuda_ms(lambda: ls.lstm_fwd_cuda(xg, wh, h0, c0),
-                                 10),
-                         cuda_ms(lambda: ls.lstm_fwd_ref(xg, wh, h0, c0), 3)),
-            "lstm_bwd": (cuda_ms(lambda: ls.lstm_bwd_cuda(*bargs), 10),
-                         cuda_ms(lambda: ls.lstm_bwd_ref(*bargs), 3)),
-        }
-        del xg, wh, h0, c0, dys, ys_ref, cs_ref, bargs
+        errs, bargs = lstm_check(ls, xg, wh, h0, c0, dys, dname)
+        plain = {"lstm_fwd": cuda_ms(lambda: ls.lstm_fwd_ref(xg, wh, h0, c0),
+                                     3),
+                 "lstm_bwd": cuda_ms(lambda: ls.lstm_bwd_ref(*bargs), 3)}
+        lib = cudnn_fns(dtype)
+        fns = {"lstm_fwd": lambda: ls.lstm_fwd_cuda(xg, wh, h0, c0),
+               "lstm_bwd": lambda: ls.lstm_bwd_cuda(*bargs)}
+        if lib is not None:
+            fns.update(cudnn_fwd=lib[0], cudnn_fwd_bwd=lib[1])
+        rounds = yardstick(fns)
+        del xg, wh, h0, c0, dys, bargs, lib, fns
         torch.cuda.empty_cache()
-        lib, port = cudnn_ms(dtype)
+        port = port_layer_ms(dtype)
         bounds = lstm_bounds(dtype)
-        for i, kname in enumerate(("lstm_fwd", "lstm_bwd")):
+        for i, (kname, lname) in enumerate((("lstm_fwd", "cudnn_fwd"),
+                                            ("lstm_bwd", "cudnn_fwd_bwd"))):
             abs_err = max(e[0] for e in errs[kname])
             rel = max(e[1] for e in errs[kname])
             b_ms, b_by = bounds[kname]
+            lib_rounds = rounds.get(lname)
             res.setdefault(kname, {})[dname] = {
                 "max_abs_err": abs_err, "err_over_max_ref": rel,
-                "ms": times[kname][0], "plain_ms": times[kname][1],
-                "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": None if lib is None else lib[i],
+                "ms": statistics.median(rounds[kname]),
+                "plain_ms": plain[kname], "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None if lib_rounds is None
+                else statistics.median(lib_rounds),
+                "ms_rounds": rounds[kname], "library_ms_rounds": lib_rounds,
                 "port_layer_ms": port[i]}
             log(f"kernel {kname} [{dname}, {shape}]: max_abs_err="
                 f"{abs_err:.3g} err/max|ref|={rel:.3g} (tol "
-                f"{LSTM_TOL[dtype]}) kernel_ms={times[kname][0]:.4f} "
-                f"plain_ms={times[kname][1]:.4f} bound_ms={b_ms:.4f} "
+                f"{LSTM_TOL[dtype]}) kernel_ms={spread(rounds[kname])} "
+                f"plain_ms={plain[kname]:.4f} bound_ms={b_ms:.4f} "
                 f"({b_by}) library_ms="
-                f"{'null' if lib is None else f'{lib[i]:.4f}'} "
-                f"port_layer_ms={port[i]:.4f}")
+                f"{'null' if lib_rounds is None else spread(lib_rounds)} "
+                f"port_layer_ms={port[i]:.4f} [median (min-max) of 3 "
+                f"interleaved rounds]")
         torch.cuda.empty_cache()
+    # one odd shape: B=70 and H=100 off the tiles, H not a multiple of 8
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        rng = np.random.default_rng(13)
+        dev = torch.device("cuda")
+
+        def put(s, sc):
+            return torch.from_numpy(rng.standard_normal(s, np.float32)
+                                    * sc).to(dev)
+        t, b, h = 3, 70, 100
+        errs, _ = lstm_check(
+            ls, put((t, b, 4 * h), 0.5).to(dtype),
+            put((h, 4 * h), 0.1).to(dtype), put((b, h), 0.3),
+            put((b, h), 0.3), put((t, b, h), 1.0).to(dtype),
+            f"{dname} odd")
+        for kname, e in errs.items():
+            res[kname].setdefault("odd_shape", {})[dname] = {
+                "shape": f"T={t} B={b} H={h}",
+                "max_abs_err": max(x[0] for x in e),
+                "err_over_max_ref": max(x[1] for x in e)}
+        log(f"kernels lstm_* [{dname}, T={t} B={b} H={h}]: err/max|ref| "
+            + ", ".join(f"{k} {max(x[1] for x in e):.3g}"
+                        for k, e in errs.items())
+            + f" (tol {LSTM_TOL[dtype]})")
     log("library_ms: lstm_fwd = torch.nn.LSTM forward, lstm_bwd = its "
         "forward + backward (cuDNN, D=H=1024), both including the input "
         "product x.wx that the kernels leave to a matmul; port_layer_ms = "
@@ -997,6 +1106,31 @@ def ptxas_usage(text: str):
     return out
 
 
+def sass_mma_counts(name):
+    """{kernel: HMMA (tensor-core) instructions} in the SASS of the
+    built library of csrc/<name>.cu, read with cuobjdump from nvcc's
+    toolkit; None where the toolkit has no cuobjdump."""
+    from flexflow_tpu_torch.kernels import _build
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    run = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                         capture_output=True, text=True)
+    if run.returncode != 0:
+        log(f"sass {name}: cuobjdump failed: {run.stderr.strip()[-500:]}")
+        return None
+    out = run.stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = _kernel_name(m.group(1))
+            counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1033,6 +1167,20 @@ def main() -> int:
         for kernel, regs, spill in ptxas_usage(text):
             log(f"  {name}: {kernel}: {regs} registers, spill "
                 f"stores/loads {spill}")
+    # the bf16 paths of kernels 2 and 8 run on the tensor cores: their
+    # kernels (*_mma_kernel) must hold HMMA instructions
+    hmma = {}
+    for name in ("flash_attention", "lstm_scan"):
+        counts = sass_mma_counts(name)
+        if counts is None:
+            log(f"sass {name}: no cuobjdump beside nvcc, HMMA not counted")
+            continue
+        hmma.update(counts)
+        log(f"sass {name}: HMMA instructions per kernel {counts}")
+        bare = [k for k, n in counts.items() if "_mma_kernel" in k and not n]
+        if bare or not any("_mma_kernel" in k for k in counts):
+            raise AssertionError(f"{name}: tensor-core kernels without "
+                                 f"HMMA in SASS: {bare or 'none found'}")
 
     kres = kernel_phase(pr)
     dres = paged_decode_phase(fa)
@@ -1083,6 +1231,10 @@ def main() -> int:
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "ms_rounds": head["ms_rounds"],
+            "library_ms_rounds": head["library_ms_rounds"],
+            "sass_hmma": {k: n for k, n in hmma.items()
+                          if k.startswith(kname + "_")},
             **{c: v for c, v in cells.items() if c != "bf16"}})
     # the LSTM rows' headline is the NMT path's own cell (bf16); the f32
     # cell rides along. library_ms: cuDNN's whole layer (see lstm_phase)
@@ -1099,7 +1251,12 @@ def main() -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "port_layer_ms": head["port_layer_ms"],
             "device_launches": nres["device_launches"][kname],
-            "f32": cells["f32"]})
+            "ms_rounds": head["ms_rounds"],
+            "library_ms_rounds": head["library_ms_rounds"],
+            "sass_hmma": {k: n for k, n in hmma.items() if k.startswith(
+                ("lstm_fwd_",) if kname == "lstm_fwd"
+                else ("lstm_bwd_", "lstm_dh0_", "lstm_dwh_"))},
+            "f32": cells["f32"], "odd_shape": cells["odd_shape"]})
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` into its own shared library under ``flexflow_tpu_torch/_build/``
 at first use, then bound with ``ctypes`` — no PyTorch headers, so a
 build takes seconds. The library's file name carries a digest of the
-source and the flags, so an edited source rebuilds and a stale library
-is never loaded. :func:`build` compiles several sources in parallel
+source, the shared headers and the flags, so an edited source rebuilds
+and a stale library is never loaded. :func:`build` compiles several sources in parallel
 (one ``nvcc`` process each, all started together).
 """
 
@@ -47,7 +47,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path; its digest covers the source, the shared
+    headers (``csrc/*.cuh``) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -33,36 +33,73 @@
 // forward does 2*T*B*H*4H = 85.9 GFLOP on ~155 MB (bf16 xg and ys, f32
 // cs), the backward three such products, 258 GFLOP. At 989 TFLOP/s
 // (bf16 tensor cores) or 67 TFLOP/s (f32) both are bound by operations:
-// 0.087 / 0.26 ms in bf16, 1.28 / 3.85 ms in f32.
+// 0.087 / 0.26 ms in bf16, 1.28 / 3.85 ms in f32. On the CUDA cores
+// every type is capped at f32's 67 TFLOP/s; only the tensor cores reach
+// the bf16 bound. Below the operations lies a second limit: a step tile
+// re-reads its operands from L2 (a backward step tile ~1.2 MB: its rows
+// of h_{t-1} and dlin_{t+1}, a 128-column and a 32-row slice of wh).
 //
-// What this design does about that: it is the simple one. The TPU walks
-// time on its sequential grid with wh resident in VMEM. Here h_t needs
-// all of h_{t-1}, a grid-wide dependency, so each time step is its own
-// launch and the kernel boundary is the barrier; wh (8 MB bf16, 16 MB
-// f32) is re-read each step through the 50 MB L2. A step's CTA of 256
-// threads owns 64 batch rows x 32 hidden units, all four gates of each
-// (128 columns of wh), so the gate nonlinearity, the cell update and
-// its derivative stay in the thread that holds the four sums; 128 CTAs
-// at B=256, H=1024. Operands are staged through shared memory as f32 in
-// slices of 16, two buffers deep, the next slice's global loads issued
-// before the current slice's FMAs; each thread holds 4 rows x 2 units x
-// 4 gates of sums. The backward step fuses the product that carries dh
+// The shape shared by both directions: the TPU walks time on its
+// sequential grid with wh resident in VMEM. Here h_t needs all of
+// h_{t-1}, a grid-wide dependency, so each time step is its own launch
+// and the kernel boundary is the barrier; wh (8 MB bf16, 16 MB f32) is
+// re-read each step through the 50 MB L2. A step's CTA of 256 threads
+// owns 64 batch rows x 32 hidden units, all four gates of each (128
+// columns of wh), so the gate nonlinearity, the cell update and its
+// derivative are computed by one thread for a (row, unit); 128 CTAs at
+// B=256, H=1024. The backward step fuses the product that carries dh
 // (dlin_{t+1}.wh^T over the tile's 32 rows of wh) with the gate
 // recompute, so a step is one launch; dh0 takes one more launch, and
-// dwh — a product over all T*B rows — one launch after the loop, a plain
-// tiled f32 GEMM (64 x 128 tiles). A forward call makes T device
-// launches, a backward call T + 2. The sums run as f32 FMAs on the CUDA
-// cores: f32's 67 TFLOP/s is the ceiling for both types, so bf16 runs
-// far from its tensor-core bound.
+// dwh — a product over all T*B rows — one launch after the loop. A
+// forward call makes T device launches, a backward call T + 2.
 //
-// What it leaves on the table (later work): tensor cores (mma.sync or
-// wgmma on bf16 slices), one persistent cooperative launch per sequence
-// with each CTA's wh slice held in shared memory, and TMA loads.
+// The bf16 backward runs its three products on the tensor cores
+// (lstm_bwd_step_mma_kernel, lstm_dh0_mma_kernel, lstm_dwh_mma_kernel):
+// mma.sync m16n8k16 with bf16 operands and f32 sums, fed by ldmatrix
+// from padded bf16 slices in shared memory that 16-byte cp.async copies
+// fill through a ring of stages: six in a step, whose one CTA an SM
+// keeps ~130 KB of L2 reads in flight, one ring for both of its
+// products so that it does not drain between them; three in dwh. Rows
+// that do not start 16-byte aligned (H not a multiple of 8) are staged
+// element by element into the same ring. In a step, 8 warps take the
+// recompute h_{t-1}.wh as 2 (rows) x 4 (gates), B from row-major wh
+// through ldmatrix.trans, and the dh product dlin_{t+1}.wh^T over 4H as
+// 2 (rows) x 4 (k16 steps of a slice), whose B — rows of wh — is
+// already the col-major operand mma wants; both sets of f32 sums then
+// meet in shared memory, where the
+// ring was, so that one thread reads i, f, g, o and dh of its
+// (row, unit). dh0 is the same dh product; dwh is a 128 x 128-tiled
+// GEMM with both operands through ldmatrix.trans. Operands stay bf16
+// (h_{t-1} = ys_{t-1}, dlin = dxg_{t+1}), so the products are exact in
+// f32 and only the order of the sums changes.
+//
+// The forward, and the f32 backward, run on the CUDA cores: operands
+// staged through shared memory as f32 in slices of 16, two buffers
+// deep, the next slice's global loads issued before the current slice's
+// FMAs; each thread holds 4 rows x 2 units x 4 gates of sums; dwh a
+// tiled f32 GEMM (64 x 128 tiles). Their sums run as f32 FMAs on the
+// CUDA cores — for f32 the contract (no TF32), for the bf16 forward the
+// ceiling it is still under.
+//
+// What bounds the bf16 step now is that L2 traffic, not its products:
+// the 128 tiles re-read ~147 MB a step (each row tile all of wh twice,
+// each unit tile all of h_{t-1} and dlin_{t+1}), ~2.8 TB/s at the
+// measured ~52 us a step on an H100, while its mma work would take a
+// few us. What is left (later work): cutting that traffic — thread
+// block clusters whose CTAs share operand slices through TMA multicast
+// or distributed shared memory, or a persistent cooperative launch per
+// sequence with each CTA's wh slice held in shared memory; the forward
+// on the tensor cores, reusing recurrent_load and recurrent_mma; wgmma
+// and TMA in place of mma.sync, ldmatrix and cp.async.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -417,6 +454,382 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------- backward, bf16 (mma)
+// The same three launches on the tensor cores: mma.sync m16n8k16 (bf16
+// operands, f32 sums) fed by ldmatrix from padded bf16 slices that a
+// cp.async ring keeps in flight. These product functions are the ones
+// kernel 7's tensor-core redesign is to reuse (recurrent_load and
+// recurrent_mma are its h_{t-1}.wh).
+using tc::bf16;
+
+// A step tile's ring holds, a stage each, slices of both products: the
+// recompute's (64 rows x 64 k of h_{t-1}, 64 k x 128 columns of wh) and
+// the dh product's (64 rows x 128 c of dlin, 32 rows x 128 c of wh).
+// One CTA an SM (the step grid is 128 CTAs), so the ring may take most
+// of shared memory: six stages keep ~130 KB of loads in flight, what it
+// takes to cover L2's latency at its bandwidth.
+constexpr int kStepStages = 6;
+constexpr int kSK = 64;                 // depth of a recompute slice
+constexpr int kSKd = 128;               // depth of a dh-product slice
+constexpr int kLdK = kSK + 8;           // padded rows (bf16): ldmatrix
+constexpr int kLdKd = kSKd + 8;         // reads are conflict-free
+constexpr int kLdN = kBN + 8;
+constexpr int kStepStage =
+    kBM * kLdK + kSK * kLdN > kBM * kLdKd + kBU * kLdKd
+        ? kBM * kLdK + kSK * kLdN
+        : kBM * kLdKd + kBU * kLdKd;
+// the f32 epilogue staging that reuses the ring: lin (64 x 128) and the
+// 4 k-split partials of dh (64 x 32), rows padded by 4 words
+constexpr int kLdLin = kBN + 4, kLdDh = kBU + 4;
+constexpr size_t kStepSmem =
+    (size_t)kStepStages * kStepStage * sizeof(bf16);
+static_assert((size_t)(kBM * kLdLin + 4 * kBM * kLdDh) * sizeof(float) <=
+                  kStepSmem,
+              "the epilogue staging fits in the ring");
+
+// The ring: slices 0..n-1, each load(stage, slice) one committed cp.async
+// group; compute(stage, slice) runs once its slice has landed, while the
+// next S - 1 slices are in flight. One barrier a slice. On return every
+// copy has landed and every warp is done with the ring.
+template <int S, class Load, class Compute>
+__device__ __forceinline__ void ring(int n, Load load, Compute compute) {
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < n) load(s, s);
+    tc::cp_async_commit();
+  }
+  for (int s = 0; s < n; ++s) {
+    tc::cp_async_wait<S - 2>();
+    __syncthreads();  // slice s landed; every warp is done with s - 1
+    const int next = s + S - 1;
+    if (next < n) load(next % S, next);  // into s - 1's stage
+    tc::cp_async_commit();
+    compute(s % S, s);
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();
+}
+
+__device__ __forceinline__ int clamp8(int n) { return max(0, min(8, n)); }
+
+// The recurrent product h_{t-1}.wh of the step tile (b0, j0), slice by
+// slice over k < H: 8 warps as 2 (rows) x 4 (gates), warp (wm, g)
+// summing rows b0 + wm*32 + 16i, wh columns g*H + j0 + 8j.. into
+// acc[i][j]; B comes from row-major wh through ldmatrix.trans.
+__device__ __forceinline__ void recurrent_load(
+    bf16* st, const bf16* __restrict__ hp, const bf16* __restrict__ wh,
+    int B, int H, int b0, int j0, int k0, bool vec) {
+  const int tid = threadIdx.x;
+  const int64_t H4 = 4 * (int64_t)H;
+  bf16* sb = st + kBM * kLdK;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {        // h_{t-1}: 64 rows x 8 chunks
+    const int i = tid + p * kThreads, r = i >> 3, c = (i & 7) * 8;
+    const int b = b0 + r, k = k0 + c;
+    const int valid = b < B ? clamp8(H - k) : 0;
+    tc::stage_chunk(st + r * kLdK + c, valid ? hp + (int64_t)b * H + k : hp,
+                    valid, vec);
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {        // wh: 64 k x 16 chunks (4 gates)
+    const int i = tid + p * kThreads, kr = i >> 4, cc = i & 15;
+    const int g = cc >> 2, u = (cc & 3) * 8, k = k0 + kr, j = j0 + u;
+    const int valid = k < H ? clamp8(H - j) : 0;
+    tc::stage_chunk(sb + kr * kLdN + g * kBU + u,
+                    valid ? wh + (int64_t)k * H4 + (int64_t)g * H + j : wh,
+                    valid, vec);
+  }
+}
+
+__device__ __forceinline__ void recurrent_mma(const bf16* st,
+                                              float (&acc)[2][4][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  const bf16* sb = st + kBM * kLdK;
+#pragma unroll
+  for (int kk = 0; kk < kSK / 16; ++kk) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      tc::ldsm_x4(af[i], st + (wm * 32 + i * 16 + tc::lane_mk_row(lane)) *
+                                  kLdK +
+                              kk * 16 + tc::lane_mk_col(lane));
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t bfr[4];
+      tc::ldsm_x4_t(bfr, sb + (kk * 16 + tc::lane_mk_row(lane)) * kLdN +
+                             wn * kBU + p * 16 + tc::lane_mk_col(lane));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        tc::mma16816(acc[i][2 * p], af[i], bfr[0], bfr[1]);
+        tc::mma16816(acc[i][2 * p + 1], af[i], bfr[2], bfr[3]);
+      }
+    }
+  }
+}
+
+// The product d.wh^T that carries dh, for the step tile's rows and its
+// 32 units, slice by slice over c < 4H; d is (B, 4H). The rows of wh are
+// the col-major B that mma wants (plain ldmatrix). 8 warps as 2 (rows) x
+// 4 (k16 steps kq and kq + 4 of a slice), warp (wm, kq) summing rows
+// b0 + wm*32 + 16i, units j0 + 8j.. into dacc[i][j]: the 4 partials meet
+// in dh_partials_to_smem.
+__device__ __forceinline__ void dh_load(bf16* st, const bf16* __restrict__ d,
+                                        const bf16* __restrict__ wh, int B,
+                                        int H, int b0, int j0, int c0,
+                                        bool vec) {
+  const int tid = threadIdx.x, H4 = 4 * H;
+  bf16* sw = st + kBM * kLdKd;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {        // dlin: 64 rows x 16 chunks
+    const int i = tid + p * kThreads, r = i >> 4, c = (i & 15) * 8;
+    const int b = b0 + r;
+    const int valid = b < B ? clamp8(H4 - (c0 + c)) : 0;
+    tc::stage_chunk(st + r * kLdKd + c,
+                    valid ? d + (int64_t)b * H4 + c0 + c : d, valid, vec);
+  }
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {        // wh rows: 32 units x 16 chunks
+    const int i = tid + p * kThreads, r = i >> 4, c = (i & 15) * 8;
+    const int j = j0 + r;
+    const int valid = j < H ? clamp8(H4 - (c0 + c)) : 0;
+    tc::stage_chunk(sw + r * kLdKd + c,
+                    valid ? wh + (int64_t)j * H4 + c0 + c : wh, valid, vec);
+  }
+}
+
+__device__ __forceinline__ void dh_mma(const bf16* st,
+                                       float (&dacc)[2][4][4]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp & 1, kq = warp >> 1;
+  const bf16* sw = st + kBM * kLdKd;
+#pragma unroll
+  for (int h = 0; h < kSKd / 64; ++h) {
+    const int kk = kq + 4 * h;
+    uint32_t af[2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      tc::ldsm_x4(af[i], st + (wm * 32 + i * 16 + tc::lane_mk_row(lane)) *
+                                  kLdKd +
+                              kk * 16 + tc::lane_mk_col(lane));
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t bfr[4];
+      tc::ldsm_x4(bfr, sw + (p * 16 + tc::lane_km_row(lane)) * kLdKd +
+                           kk * 16 + tc::lane_km_col(lane));
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        tc::mma16816(dacc[i][2 * p], af[i], bfr[0], bfr[1]);
+        tc::mma16816(dacc[i][2 * p + 1], af[i], bfr[2], bfr[3]);
+      }
+    }
+  }
+}
+
+// (row, column) of element e of C fragment [i][j] in a warp's 32 x 32
+// block: rows i*16 + gid (+8 for e >= 2), columns j*8 + 2tig + (e & 1)
+__device__ __forceinline__ int frag_row(int i, int e) {
+  return i * 16 + ((threadIdx.x & 31) >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int frag_col(int j, int e) {
+  return j * 8 + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// dh partials of dh_mma to shared memory, [kq][64][kLdDh] f32
+__device__ __forceinline__ void dh_partials_to_smem(
+    float* sdh, const float (&dacc)[2][4][4]) {
+  const int warp = threadIdx.x >> 5, wm = warp & 1, kq = warp >> 1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sdh[(kq * kBM + wm * 32 + frag_row(i, e)) * kLdDh + frag_col(j, e)] =
+            dacc[i][j][e];
+}
+
+__device__ __forceinline__ float dh_sum(const float* sdh, int r, int u) {
+  return sdh[r * kLdDh + u] + sdh[(kBM + r) * kLdDh + u] +
+         sdh[(2 * kBM + r) * kLdDh + u] + sdh[(3 * kBM + r) * kLdDh + u];
+}
+
+// One reverse step t, as lstm_bwd_step_kernel: the dh product, then the
+// gate recompute, both on the tensor cores; the f32 sums meet in shared
+// memory so that one thread holds i, f, g, o and dh of a (row, unit).
+__global__ void __launch_bounds__(kThreads, 1) lstm_bwd_step_mma_kernel(
+    const bf16* __restrict__ xg, const bf16* __restrict__ wh,
+    const bf16* __restrict__ hp, const float* __restrict__ cp,
+    const float* __restrict__ cs, const bf16* __restrict__ dys,
+    const bf16* __restrict__ dnext, bf16* __restrict__ dxg,
+    float* __restrict__ dc, int B, int H, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring_smem = reinterpret_cast<bf16*>(smem_raw);
+  const int b0 = blockIdx.y * kBM, j0 = blockIdx.x * kBU;
+  float dacc[2][4][4] = {}, acc[2][4][4] = {};
+  // one ring over both products: the dh product's slices (none at
+  // t = T-1), then the recompute's, with no drain between them
+  const int n_dh = dnext != nullptr ? (4 * H + kSKd - 1) / kSKd : 0;
+  ring<kStepStages>(
+      n_dh + (H + kSK - 1) / kSK,
+      [&](int st, int sl) {
+        bf16* s = ring_smem + st * kStepStage;
+        if (sl < n_dh)
+          dh_load(s, dnext, wh, B, H, b0, j0, sl * kSKd, vec);
+        else
+          recurrent_load(s, hp, wh, B, H, b0, j0, (sl - n_dh) * kSK, vec);
+      },
+      [&](int st, int sl) {
+        const bf16* s = ring_smem + st * kStepStage;
+        if (sl < n_dh)
+          dh_mma(s, dacc);
+        else
+          recurrent_mma(s, acc);
+      });
+  // the ring is drained: stage the sums in its place
+  float* slin = reinterpret_cast<float*>(smem_raw);
+  float* sdh = slin + kBM * kLdLin;
+  const int warp = threadIdx.x >> 5, wm = warp >> 2, wn = warp & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        slin[(wm * 32 + frag_row(i, e)) * kLdLin + wn * kBU +
+             frag_col(j, e)] = acc[i][j][e];
+  dh_partials_to_smem(sdh, dacc);
+  __syncthreads();
+  const int64_t H4 = 4 * (int64_t)H;
+  for (int idx = threadIdx.x; idx < kBM * kBU; idx += kThreads) {
+    const int r = idx / kBU, u = idx % kBU, b = b0 + r, j = j0 + u;
+    if (b >= B || j >= H) continue;
+    const float* lin = slin + r * kLdLin + u;
+    const bf16* x = xg + (int64_t)b * H4 + j;
+    const float i = sigmoid(to_f32(x[0]) + lin[0]);
+    const float f = sigmoid(to_f32(x[H]) + lin[kBU]);
+    const float g = tanhf(to_f32(x[2 * H]) + lin[2 * kBU]);
+    const float o = sigmoid(to_f32(x[3 * H]) + lin[3 * kBU]);
+    const int64_t idx2 = (int64_t)b * H + j;
+    const float tanh_c = tanhf(cs[idx2]);
+    const float dh = to_f32(dys[idx2]) + dh_sum(sdh, r, u);
+    const float dcv = dh * o * (1.f - tanh_c * tanh_c) + dc[idx2];
+    const float dov = dh * tanh_c;
+    const float di = dcv * g, dg = dcv * i, df = dcv * cp[idx2];
+    bf16* dx = dxg + (int64_t)b * H4 + j;
+    dx[0] = __float2bfloat16(di * i * (1.f - i));
+    dx[H] = __float2bfloat16(df * f * (1.f - f));
+    dx[2 * H] = __float2bfloat16(dg * (1.f - g * g));
+    dx[3 * H] = __float2bfloat16(dov * o * (1.f - o));
+    dc[idx2] = dcv * f;
+  }
+}
+
+// dh0 = dlin_0.wh^T with the dh product's slices, f32 (B, H)
+__global__ void __launch_bounds__(kThreads, 1)
+    lstm_dh0_mma_kernel(const bf16* __restrict__ d,
+                        const bf16* __restrict__ wh,
+                        float* __restrict__ dh0, int B, int H, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring_smem = reinterpret_cast<bf16*>(smem_raw);
+  const int b0 = blockIdx.y * kBM, j0 = blockIdx.x * kBU;
+  float dacc[2][4][4] = {};
+  ring<kStepStages>(
+      (4 * H + kSKd - 1) / kSKd,
+      [&](int st, int sl) {
+        dh_load(ring_smem + st * kStepStage, d, wh, B, H, b0, j0, sl * kSKd,
+                vec);
+      },
+      [&](int st, int) { dh_mma(ring_smem + st * kStepStage, dacc); });
+  float* sdh = reinterpret_cast<float*>(smem_raw);
+  dh_partials_to_smem(sdh, dacc);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < kBM * kBU; idx += kThreads) {
+    const int r = idx / kBU, u = idx % kBU, b = b0 + r, j = j0 + u;
+    if (b < B && j < H) dh0[(int64_t)b * H + j] = dh_sum(sdh, r, u);
+  }
+}
+
+// dwh = hs_prev^T.dxg over the T*B rows, f32 (H, 4H), on the tensor
+// cores: a 128 (k) x 128 (c) tile a CTA, slices of 32 rows; both
+// operands are row-major over the summed rows, so both come through
+// ldmatrix.trans. 8 warps as 2 (64 k) x 4 (32 c).
+constexpr int kWM = 128, kWN = 128, kWK = 32;
+constexpr int kLdW128 = 128 + 8;
+constexpr int kDwhStage = 2 * kWK * kLdW128;
+constexpr int kDwhStages = 3;  // 2 CTAs an SM, each a 3-stage ring
+constexpr size_t kDwhSmem = (size_t)kDwhStages * kDwhStage * sizeof(bf16);
+
+__global__ void __launch_bounds__(kThreads)
+    lstm_dwh_mma_kernel(const bf16* __restrict__ h0,
+                        const bf16* __restrict__ ys,
+                        const bf16* __restrict__ dxg,
+                        float* __restrict__ dwh, int rows, int B, int H,
+                        int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring_smem = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int m0 = blockIdx.y * kWM, c0 = blockIdx.x * kWN;
+  const int H4 = 4 * H;
+  float acc[4][4][4] = {};
+  auto load = [&](int st, int sl) {
+    bf16* sa = ring_smem + st * kDwhStage;
+    bf16* sb = sa + kWK * kLdW128;
+    const int n0 = sl * kWK;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {      // 32 rows x 16 chunks each
+      const int i = tid + p * kThreads, rr = i >> 4, cc = (i & 15) * 8;
+      const int n = n0 + rr;
+      const bf16* hrow = n < B ? h0 + (int64_t)n * H
+                               : ys + (int64_t)(n - B) * H;
+      const int va = n < rows ? clamp8(H - (m0 + cc)) : 0;
+      tc::stage_chunk(sa + rr * kLdW128 + cc, va ? hrow + m0 + cc : h0, va,
+                      vec);
+      const int vb = n < rows ? clamp8(H4 - (c0 + cc)) : 0;
+      tc::stage_chunk(sb + rr * kLdW128 + cc,
+                      vb ? dxg + (int64_t)n * H4 + c0 + cc : dxg, vb, vec);
+    }
+  };
+  auto compute = [&](int st, int) {
+    const bf16* sa = ring_smem + st * kDwhStage;
+    const bf16* sb = sa + kWK * kLdW128;
+#pragma unroll
+    for (int kk = 0; kk < kWK / 16; ++kk) {
+      uint32_t af[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        tc::ldsm_x4_t(af[i], sa + (kk * 16 + tc::lane_km_row(lane)) *
+                                      kLdW128 +
+                                  wm * 64 + i * 16 + tc::lane_km_col(lane));
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        uint32_t bfr[4];
+        tc::ldsm_x4_t(bfr, sb + (kk * 16 + tc::lane_mk_row(lane)) * kLdW128 +
+                               wn * 32 + p * 16 + tc::lane_mk_col(lane));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          tc::mma16816(acc[i][2 * p], af[i], bfr[0], bfr[1]);
+          tc::mma16816(acc[i][2 * p + 1], af[i], bfr[2], bfr[3]);
+        }
+      }
+    }
+  };
+  ring<kDwhStages>((rows + kWK - 1) / kWK, load, compute);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int k = m0 + wm * 64 + frag_row(i, e);
+        const int c = c0 + wn * 32 + frag_col(j, e);  // even; 4H is even
+        if (k < H && c < H4)
+          *reinterpret_cast<float2*>(dwh + (int64_t)k * H4 + c) =
+              make_float2(acc[i][j][e], acc[i][j][e + 1]);
+      }
+}
+
 template <typename T>
 cudaError_t fwd(const void* xg_, const void* wh_, const void* h0_,
                 const float* c0, void* ys_, float* cs, int Tn, int B, int H,
@@ -454,25 +867,63 @@ cudaError_t bwd(const void* xg_, const void* wh_, const void* h0_,
   const int64_t bh = (int64_t)B * H, bh4 = 4 * bh;
   const dim3 grid((H + kBU - 1) / kBU, (B + kBM - 1) / kBM);
   cudaError_t e;
-  for (int t = Tn - 1; t >= 0; --t) {
-    const T* hp = t == 0 ? h0 : ys + (t - 1) * bh;
-    const float* cp = t == 0 ? c0 : cs + (t - 1) * bh;
-    const T* dnext = t + 1 < Tn ? dxg + (t + 1) * bh4 : nullptr;
-    lstm_bwd_step_kernel<T><<<grid, kThreads, 0, stream>>>(
-        xg + t * bh4, wh, hp, cp, cs + t * bh, dys + t * bh, dnext,
-        dxg + t * bh4, dc, B, H);
+  if constexpr (std::is_same_v<T, bf16>) {
+    // 16-byte copies when every row starts 16-byte aligned: H a multiple
+    // of 8 (the arrays themselves come from the caching allocator)
+    const int vec = H % 8 == 0;
+    auto step = lstm_bwd_step_mma_kernel;
+    auto dh0k = lstm_dh0_mma_kernel;
+    auto dwhk = lstm_dwh_mma_kernel;
+    if ((e = cudaFuncSetAttribute(step,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kStepSmem)) != cudaSuccess ||
+        (e = cudaFuncSetAttribute(dh0k,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kStepSmem)) != cudaSuccess ||
+        (e = cudaFuncSetAttribute(dwhk,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kDwhSmem)) != cudaSuccess)
+      return e;
+    for (int t = Tn - 1; t >= 0; --t) {
+      const bf16* hp = t == 0 ? h0 : ys + (t - 1) * bh;
+      const float* cp = t == 0 ? c0 : cs + (t - 1) * bh;
+      const bf16* dnext = t + 1 < Tn ? dxg + (t + 1) * bh4 : nullptr;
+      step<<<grid, kThreads, kStepSmem, stream>>>(
+          xg + t * bh4, wh, hp, cp, cs + t * bh, dys + t * bh, dnext,
+          dxg + t * bh4, dc, B, H, vec);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+      ++*launched;
+    }
+    dh0k<<<grid, kThreads, kStepSmem, stream>>>(dxg, wh, dh0, B, H, vec);
     if ((e = cudaGetLastError()) != cudaSuccess) return e;
     ++*launched;
+    const dim3 wgrid((4 * H + kWN - 1) / kWN, (H + kWM - 1) / kWM);
+    dwhk<<<wgrid, kThreads, kDwhSmem, stream>>>(h0, ys, dxg, dwh, Tn * B, B,
+                                                H, vec);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    ++*launched;
+    return cudaSuccess;
+  } else {  // f32: the CUDA-core kernels, exact f32 sums
+    for (int t = Tn - 1; t >= 0; --t) {
+      const T* hp = t == 0 ? h0 : ys + (t - 1) * bh;
+      const float* cp = t == 0 ? c0 : cs + (t - 1) * bh;
+      const T* dnext = t + 1 < Tn ? dxg + (t + 1) * bh4 : nullptr;
+      lstm_bwd_step_kernel<T><<<grid, kThreads, 0, stream>>>(
+          xg + t * bh4, wh, hp, cp, cs + t * bh, dys + t * bh, dnext,
+          dxg + t * bh4, dc, B, H);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+      ++*launched;
+    }
+    lstm_dh0_kernel<T><<<grid, kThreads, 0, stream>>>(dxg, wh, dh0, B, H);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    ++*launched;
+    const dim3 wgrid((4 * H + kBN - 1) / kBN, (H + kBM - 1) / kBM);
+    lstm_dwh_kernel<T><<<wgrid, kThreads, 0, stream>>>(h0, ys, dxg, dwh,
+                                                        Tn * B, B, H);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+    ++*launched;
+    return cudaSuccess;
   }
-  lstm_dh0_kernel<T><<<grid, kThreads, 0, stream>>>(dxg, wh, dh0, B, H);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  ++*launched;
-  const dim3 wgrid((4 * H + kBN - 1) / kBN, (H + kBM - 1) / kBM);
-  lstm_dwh_kernel<T><<<wgrid, kThreads, 0, stream>>>(h0, ys, dxg, dwh,
-                                                      Tn * B, B, H);
-  if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  ++*launched;
-  return cudaSuccess;
 }
 
 // T*B*4H and (H, 4H) index within int64 offsets; T*B rows and the grid

@@ -206,10 +206,24 @@ def _ref(x):
     return ctypes.byref(_view(x))
 
 
+def _rows_aligned16(x):
+    """x's rows of d elements start 16-byte aligned: what the bf16
+    forward's 16-byte copies need, else a fresh contiguous copy (a new
+    allocation is aligned; ``contiguous()`` would keep an offset view
+    as it is)."""
+    if x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3]):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
 def flash_fwd_cuda(q, k, v, *, causal, scale):
     """Launch ``flash_fwd`` of csrc/flash_attention.cu on the current
-    stream. Same contract as :func:`flash_fwd_ref`."""
+    stream. Same contract as :func:`flash_fwd_ref`. The bf16 kernel runs
+    on the tensor cores and reads rows with 16-byte copies; an operand
+    whose rows do not start 16-byte aligned is copied first."""
     b, sq, sk, h, d = _check_bshd(q, k, v)
+    if q.dtype == torch.bfloat16:
+        q, k, v = _rows_aligned16(q), _rows_aligned16(k), _rows_aligned16(v)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q,

@@ -252,7 +252,7 @@ def _flash_inputs(dev, dtype, b, sq, sk, h, d, seed=0, strided=False):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("sq,sk", [(64, 64), (100, 100), (128, 70),
-                                   (70, 130)])
+                                   (70, 130), (300, 520)])
 def test_flash_kernels_match_plain_pieces(card, dtype, causal, d, sq, sk):
     q, k, v, do = _flash_inputs(card, dtype, 2, sq, sk, 3, d)
     scale = 1.0 / math.sqrt(d)
@@ -291,6 +291,31 @@ def test_flash_strided_views(card):
         o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, **kw)
         assert _rel_err(o, o_ref) <= FLASH_F32_REL
         assert _rel_err(lse, lse_ref) <= FLASH_F32_REL
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_unaligned_rows(card, causal):
+    """bf16 q, k, v whose s-stride is not a multiple of 8 elements (rows
+    of a (b, s, h*d + 4) buffer): the tensor-core forward's 16-byte
+    copies need aligned rows, so the wrapper copies such operands first;
+    one launch, the plain version's result."""
+    rng = np.random.default_rng(9)
+    b, sq, sk, h, d = 2, 100, 150, 3, 64
+
+    def put(s):
+        buf = torch.from_numpy(rng.standard_normal((b, s, h * d + 4),
+                                                   np.float32))
+        return buf.to(card).bfloat16()[..., :h * d].unflatten(-1, (h, d))
+    q, k, v = put(sq), put(sk), put(sk)
+    assert q.stride(1) % 8 != 0 and q.stride(-1) == 1
+    kw = {"causal": causal, "scale": 1.0 / math.sqrt(d)}
+    before = fa.launches["flash_fwd"]
+    o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_fwd"] == before + 1
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, **kw)
+    assert _rel_err(o, o_ref) <= FLASH_BF16_REL
+    assert _rel_err(lse, lse_ref) <= FLASH_BF16_REL
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -391,9 +416,12 @@ def _lstm_inputs(dev, dtype, t, b, h, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,b,h", [(1, 6, 96), (5, 6, 96), (3, 70, 40),
-                                   (4, 64, 128), (2, 130, 100)])
+                                   (4, 64, 128), (2, 130, 100), (3, 20, 36),
+                                   (2, 33, 257)])
 def test_lstm_kernels_match_plain_versions(card, dtype, t, b, h):
-    """B not a multiple of 8, H not a multiple of 128, T = 1: the
+    """B not a multiple of 8 (nor of the bf16 backward's 16-row mma
+    tiles), H not a multiple of 128 nor of 8 (rows not 16-byte aligned:
+    the bf16 backward stages them element by element), T = 1: the
     kernels take any shape the TPU gate refused."""
     xg, wh, h0, c0, dys = _lstm_inputs(card, dtype, t, b, h, seed=t + b)
     before = dict(ls.launches)

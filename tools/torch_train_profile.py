@@ -13,7 +13,9 @@ between runs, so all three are printed), then one window under
 ``torch.profiler`` (CPU + CUDA activities). Prints device time per step
 by kernel class — the hand-written kernels (flash attention or LSTM),
 matmuls, copies, the rest — with each class's share of the profiled wall
-time, and the device's idle share. Needs one NVIDIA GPU.
+time, and the device's idle share; for the NMT model also the idle
+time between the LSTM kernels' consecutive step launches. Needs one
+NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -32,12 +34,13 @@ ROOT = Path(__file__).resolve().parent.parent
 
 # kernel-name patterns per class, first match wins
 CLASSES = (
-    ("attention_fwd", re.compile(r"flash_fwd_kernel")),
+    ("attention_fwd", re.compile(r"flash_fwd_(mma_)?kernel")),
     ("attention_bwd_dq", re.compile(r"flash_bwd_dq_kernel")),
     ("attention_bwd_dkv", re.compile(r"flash_bwd_dkv_kernel")),
     ("lstm_fwd", re.compile(r"lstm_fwd_step_kernel")),
-    ("lstm_bwd", re.compile(r"lstm_bwd_step_kernel|lstm_dh0_kernel")),
-    ("lstm_dwh", re.compile(r"lstm_dwh_kernel")),
+    ("lstm_bwd", re.compile(r"lstm_bwd_step_(mma_)?kernel|"
+                            r"lstm_dh0_(mma_)?kernel")),
+    ("lstm_dwh", re.compile(r"lstm_dwh_(mma_)?kernel")),
     # cuBLAS names its Hopper GEMMs nvjet_*
     ("matmul", re.compile(r"gemm|matmul|nvjet|sm90_|cutlass|cublas",
                           re.I)),
@@ -50,6 +53,23 @@ def classify(name: str) -> str:
         if pat.search(name):
             return cls
     return "other"
+
+
+def launch_gaps(prof, classes):
+    """Idle device time between two consecutive kernels that both fall
+    in `classes` (a kernel ends, the next of the same sequence starts):
+    (total gap us, number of gaps), from the trace's kernel timestamps.
+    For the LSTM's one-launch-a-step kernels this is the price of a
+    launch a step that a persistent launch would save."""
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    total, n = 0.0, 0
+    for a, b in zip(kernels, kernels[1:]):
+        if classify(a.key) in classes and classify(b.key) in classes:
+            total += max(0.0, b.time_range.start - a.time_range.end)
+            n += 1
+    return total, n
 
 
 def main() -> int:
@@ -109,6 +129,15 @@ def main() -> int:
     if busy_s <= 0:
         raise RuntimeError("the profiler saw no device time")
     steps = args.steps
+    gaps = {}
+    if args.model == "nmt_lstm":
+        for name, classes in (("lstm_fwd", ("lstm_fwd",)),
+                              ("lstm_bwd", ("lstm_bwd", "lstm_dwh"))):
+            gap_us, n = launch_gaps(prof, classes)
+            dev_us = sum(by_cls.get(c, 0.0) for c in classes)
+            gaps[name] = {"gap_ms_per_step": gap_us / 1e3 / steps,
+                          "gaps": n, "mean_gap_us": gap_us / max(n, 1),
+                          "gap_share": gap_us / (gap_us + dev_us)}
     own = sum(v for k, v in by_cls.items()
               if k.startswith(("attention", "lstm")))
     res = {
@@ -126,6 +155,7 @@ def main() -> int:
                                for k, v in sorted(by_cls.items())},
         "share_of_wall": {k: v / 1e6 / wall
                           for k, v in sorted(by_cls.items())},
+        "launch_gaps": gaps,
         "top_kernels": [
             {"name": k[:120], "device_ms": v[0] / 1e3, "count": v[1]}
             for k, v in sorted(by_kernel.items(),
@@ -140,6 +170,10 @@ def main() -> int:
     for k, v in res["device_ms_per_step"].items():
         print(f"  {k:17s} {v:9.4f} device ms/step  "
               f"{res['share_of_wall'][k]:.3f} of wall")
+    for k, g in gaps.items():
+        print(f"  {k} launch gaps: {g['gap_ms_per_step']:.4f} ms/step over "
+              f"{g['gaps']} gaps (mean {g['mean_gap_us']:.2f} us), "
+              f"{g['gap_share']:.3f} of the kernel's device time + gaps")
     for row in res["top_kernels"]:
         print(f"  {row['device_ms']:9.3f} ms x{row['count']:<5d} "
               f"{row['name']}")
