@@ -5,7 +5,8 @@
 Builds every CUDA kernel of the port from this checkout's sources (one
 nvcc per source, in parallel), counts the tensor-core (HMMA)
 instructions of each kernel in the built SASS — the bf16 paths of the
-flash forward and the LSTM backward must have them — and then:
+flash forward and backward and of the LSTM backward must have them, and
+the bf16 flash backward must not spill at d=64 — and then:
 
   * holds the ragged paged-attention kernel against its plain PyTorch
     version at the serving mixed step's shapes, on f32, bf16, int8 and
@@ -18,6 +19,11 @@ flash forward and the LSTM backward must have them — and then:
     d=64, causal and not, f32 and bf16) and at one odd shape (sq=300,
     sk=453), and times them beside scaled_dot_product_attention,
     interleaved in 3 rounds (median and range reported);
+  * holds kernels 1-6 at head dims the kernels are not instantiated for
+    (flash at d=16, 96, 256 on b=2 sq=300 sk=453 h=3, f32 and bf16,
+    causal and not; the paged kernels at d=8, 96, 256 on a small pool,
+    kernel 1 on all four page types) against their plain versions, and
+    checks that the attention op at d=512 takes attention_ref;
   * trains the full-width Transformer encoder of ``build_transformer``
     (batch 32, seq 512, hidden 512, 8 heads, 6 layers, ff 2048, 10
     classes, SGD lr 0.01, weights and data from numpy seeds): 3 f32
@@ -145,18 +151,24 @@ def card_line() -> str:
     return out[0].strip()
 
 
+SPIN_CYCLES = 2_000_000      # ~1 ms at H100 clocks: longer than a launch
+
+
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     """Mean milliseconds of fn() on the card, timed with CUDA events
     around each call, after `warmup` calls. Before each call a 128 MiB
     write evicts the 50 MB L2, so every call starts cold, as attention
     does in a serving step (a whole step of other work runs between two
-    launches on one layer's pages)."""
+    launches on one layer's pages); then a spin kernel holds the stream
+    while the host enqueues the call, so the events time the card's
+    work and not the wrapper's host time."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     events = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -503,6 +515,108 @@ def flash_phase(fa):
     log("library_ms: flash_fwd = scaled_dot_product_attention forward; "
         "flash_bwd_dq and flash_bwd_dkv = its whole backward (dq, dk and "
         "dv in one call), timed once a round and reported on both rows")
+    return res
+
+
+def head_dim_phase(fa, pr):
+    """Kernels 1-6 at head dims off their instantiations, on small
+    shapes: the flash kernels at d=16, 96 (zero-padded to 32 and 128)
+    and 256 (32-row CUDA-core tiles) on b=2 sq=300 sk=453 h=3, f32 and
+    bf16, causal and not; kernel 1 on f32, bf16, int8 and fp8 pages and
+    kernels 5 and 6 on f32 and bf16 pages at d=8, 96, 256 and 320 (lanes
+    past d masked); each against its plain version at its phase's tolerance.
+    Then the attention op at d=512, past the flash kernels' 256, which
+    must take attention_ref by its shape rule and launch no flash
+    kernel. Returns {check: worst error / max |plain|}."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.op import OpContext
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    res = {}
+    for d in (16, 96, 256):
+        for dname, dtype in (("f32", torch.float32),
+                             ("bf16", torch.bfloat16)):
+            for causal in (False, True):
+                rng = np.random.default_rng(d)
+                put = lambda s: torch.from_numpy(  # noqa: E731
+                    rng.standard_normal(s, np.float32)).to(dev).to(dtype)
+                q, do = put((2, 300, 3, d)), put((2, 300, 3, d))
+                k, v = put((2, 453, 3, d)), put((2, 453, 3, d))
+                errs, _ = flash_errors(fa, q, k, v, do, {
+                    "causal": causal, "scale": 1.0 / math.sqrt(d)})
+                for kname, (_, rel) in errs.items():
+                    key = f"{kname} d={d} {dname}"
+                    res[key] = max(res.get(key, 0.0), rel)
+    rng = np.random.default_rng(21)
+    for d in (8, 96, 256, 320):
+        shape = (1 + 4 * 6, 16, 4, d)
+        kp = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
+        vp = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
+        tables = torch.from_numpy(rng.permutation(np.arange(1, 25))
+                                  .reshape(4, 6).astype(np.int32)).to(dev)
+        q = torch.from_numpy(rng.standard_normal((40, 4, d), np.float32)) \
+            .to(dev)
+        slots = torch.from_numpy(rng.integers(0, 4, 40).astype(np.int32)) \
+            .to(dev)
+        lens = torch.from_numpy(rng.integers(1, 97, 40).astype(np.int32)) \
+            .to(dev)
+        scale = 1.0 / math.sqrt(d)
+        for name, dtype, tol in (("f32", torch.float32, F32_TOL),
+                                 ("bf16", torch.bfloat16, BF16_TOL),
+                                 ("int8", torch.int8, QUANT_REL_TOL),
+                                 ("fp8", torch.float8_e4m3fn,
+                                  QUANT_REL_TOL)):
+            quant = dtype in pr.QUANTIZED_DTYPES
+            kw, qq = {}, q if quant else q.to(dtype)
+            if quant:
+                kq, ks = pr.quantize_kv_rows(kp, dtype)
+                vq, vs = pr.quantize_kv_rows(vp, dtype)
+                kw = {"k_scales": ks, "v_scales": vs}
+            else:
+                kq, vq = kp.to(dtype), vp.to(dtype)
+            args = (qq, kq, vq, tables, slots, lens)
+            checks = [("paged_ragged_v2", pr.paged_ragged_v2_cuda(
+                *args, scale, **kw), pr.ragged_attention_ref(
+                *args, scale, **kw))]
+            if not quant:
+                dargs = (qq[:4].contiguous(), kq, vq, tables,
+                         lens[:4].contiguous())  # row b reads table row b
+                checks += [
+                    ("paged_decode", fa.paged_decode_cuda(*dargs, scale),
+                     fa.paged_decode_ref(*dargs, scale)),
+                    ("paged_ragged_v1", fa.paged_ragged_v1_cuda(
+                        *args, scale), fa.paged_ragged_v1_ref(*args, scale))]
+            torch.cuda.synchronize()
+            for kname, out, ref in checks:
+                _, rel = check_err(f"{kname} {name} d={d}", out, ref, tol,
+                                   relative=quant)
+                res[f"{kname} d={d} {name}"] = rel
+    # the op past 256: attention_ref by the shape rule, no flash launch
+    ff = FFModel(FFConfig(), device="cuda")
+    x = ff.create_tensor((2, 64, 1024), name="x")
+    ff.multihead_attention(x, x, x, 1024, 2, causal=True, name="mha")
+    op = ff.ops[-1]
+    params = {k: torch.from_numpy(rng.standard_normal(s.shape, np.float32)
+                                  * 0.03).to(dev)
+              for k, s in op.weight_specs().items()}
+    xt = torch.from_numpy(rng.standard_normal((2, 64, 1024), np.float32)) \
+        .to(dev)
+    before = dict(fa.launches)
+    y = op.forward(params, [xt, xt, xt], OpContext(training=False))[0]
+    torch.cuda.synchronize()
+    if fa.launches != before:
+        raise AssertionError(f"the op at head_dim 512 launched a flash "
+                             f"kernel: {fa.launches} (was {before})")
+    op.use_flash = False
+    want = op.forward(params, [xt, xt, xt], OpContext(training=False))[0]
+    _, res["op d=512 vs attention_ref"] = check_err(
+        "attention op d=512", y, want, 1e-6, relative=True)
+    secs = time.perf_counter() - t0
+    log(f"head_dim phase ({secs:.1f} s): error / max |plain| " + ", ".join(
+        f"{k} {e:.3g}" for k, e in res.items()) + f"; tolerances flash "
+        f"{FLASH_TOL[torch.float32]} f32 / {FLASH_TOL[torch.bfloat16]} "
+        f"bf16, paged f32 {F32_TOL} and bf16 {BF16_TOL} absolute, int8/fp8 "
+        f"{QUANT_REL_TOL}; the op at d=512 launched no flash kernel")
     return res
 
 
@@ -1163,14 +1277,32 @@ def main() -> int:
     secs = time.perf_counter() - t0
     log(f"build: {', '.join(logs)} with nvcc {' '.join(_build.NVCC_FLAGS)}"
         f" in {secs:.2f} s")
+    usage = {}
     for name, text in logs.items():
         for kernel, regs, spill in ptxas_usage(text):
+            usage[kernel] = {"registers": regs, "spill_stores_loads": spill}
             log(f"  {name}: {kernel}: {regs} registers, spill "
                 f"stores/loads {spill}")
-    # the bf16 paths of kernels 2 and 8 run on the tensor cores: their
-    # kernels (*_mma_kernel) must hold HMMA instructions
+    # the bf16 flash backward on the tensor cores must not spill at d=64
+    bwd64 = [k for k in usage
+             if k.startswith("flash_bwd_") and "_mma_kernel[ILi64E" in k]
+    if sorted(k[:k.index("[")] for k in bwd64) != [
+            "flash_bwd_dkv_mma_kernel", "flash_bwd_dq_mma_kernel"]:
+        raise AssertionError(f"ptxas usage holds {bwd64}, not the two bf16 "
+                             f"flash backward kernels at d=64")
+    spilled = [k for k in bwd64 if usage[k]["spill_stores_loads"] != "0/0 B"]
+    if spilled:
+        raise AssertionError(f"bf16 flash backward spills at d=64: "
+                             f"{ {k: usage[k] for k in spilled} }")
+    # the bf16 paths of kernels 2, 3, 4 and 8 run on the tensor cores:
+    # their kernels (*_mma_kernel) must hold HMMA instructions
     hmma = {}
-    for name in ("flash_attention", "lstm_scan"):
+    for name, want in (("flash_attention", ("flash_fwd_mma_kernel",
+                                            "flash_bwd_dq_mma_kernel",
+                                            "flash_bwd_dkv_mma_kernel")),
+                       ("lstm_scan", ("lstm_bwd_step_mma_kernel",
+                                      "lstm_dh0_mma_kernel",
+                                      "lstm_dwh_mma_kernel"))):
         counts = sass_mma_counts(name)
         if counts is None:
             log(f"sass {name}: no cuobjdump beside nvcc, HMMA not counted")
@@ -1178,13 +1310,16 @@ def main() -> int:
         hmma.update(counts)
         log(f"sass {name}: HMMA instructions per kernel {counts}")
         bare = [k for k, n in counts.items() if "_mma_kernel" in k and not n]
-        if bare or not any("_mma_kernel" in k for k in counts):
+        missing = [w for w in want
+                   if not any(k.startswith(w + "[") for k in counts)]
+        if bare or missing:
             raise AssertionError(f"{name}: tensor-core kernels without "
-                                 f"HMMA in SASS: {bare or 'none found'}")
+                                 f"HMMA in SASS: {bare + missing}")
 
     kres = kernel_phase(pr)
     dres = paged_decode_phase(fa)
     fres = flash_phase(fa)
+    hres = head_dim_phase(fa, pr)
     tres = train_phase(fa, card)
     lres = lstm_phase(ls)
     nres = nmt_train_phase(ls, card)
@@ -1217,6 +1352,9 @@ def main() -> int:
         "launches": dres["v1_launches"], **head(dres["paged_ragged_v1"]),
         "bf16": dres["paged_ragged_v1"]["bf16"],
         "v1_vs_v2_max_abs_err": dres["v1_vs_v2_max_abs_err"]}]
+    for row in rows:
+        row["head_dims"] = {k: e for k, e in hres.items()
+                            if k.startswith(row["name"] + " ")}
     # the flash rows' headline is the training path's own cell (bf16,
     # not causal); the other three cells ride along
     for kname, line in (("flash_fwd", 67), ("flash_bwd_dq", 131),
@@ -1235,6 +1373,10 @@ def main() -> int:
             "library_ms_rounds": head["library_ms_rounds"],
             "sass_hmma": {k: n for k, n in hmma.items()
                           if k.startswith(kname + "_")},
+            "ptxas": {k: u for k, u in usage.items()
+                      if k.startswith(kname + "_")},
+            "head_dims": {k: e for k, e in hres.items()
+                          if k.startswith(kname + " ")},
             **{c: v for c, v in cells.items() if c != "bf16"}})
     # the LSTM rows' headline is the NMT path's own cell (bf16); the f32
     # cell rides along. library_ms: cuDNN's whole layer (see lstm_phase)

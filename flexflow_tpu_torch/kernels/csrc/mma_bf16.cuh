@@ -1,5 +1,5 @@
 // bf16 tensor-core building blocks (sm_80 and later, built for sm_90a):
-// 16-byte cp.async copies into shared memory, ldmatrix fragment loads,
+// 16- and 4-byte cp.async copies into shared memory, ldmatrix fragment loads,
 // and the warp-wide mma.sync m16n8k16 product with bf16 operands and
 // f32 accumulators. Shared by flash_attention.cu and lstm_scan.cu.
 //
@@ -31,6 +31,13 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+// 4 bytes (one f32) global -> shared, zero filled past `bytes` (0 or 4)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(bytes));
 }

@@ -21,7 +21,11 @@
 //   o[b,h] = softmax(q[b,h] . K[:n,h] * scale) . V[:n,h], n = len[b],
 //   key j at page table_row[j / ps], slot j % ps. Keys at or past n are
 //   masked; len >= 1 (a zero length NaNs the softmax, as in the plain
-//   version). Float32 or bfloat16 q and pages, head_dim 32, 64 or 128.
+//   version). Float32 or bfloat16 q and pages, any head_dim from 1 to
+//   512: a thread holds EPT = ceil(D/32) elements (1-8, or 16 past 256);
+//   when D < 32 * EPT (TAIL) those at or past D read as 0
+//   (adding exactly 0 to the dot and its warp reduction) and are never
+//   stored, otherwise the mask is compiled out.
 //
 // Bound on an H100 SXM (3.35 TB/s): per row 4*n*H*D flops over
 // 2*n*H*D*itemsize bytes of live K/V, about 0.5 flop/byte in f32, so
@@ -34,7 +38,7 @@
 // (row, head) and the NW warps of a CTA split the row's keys, warp w
 // taking tiles w, w + NW, ... of TILE keys. Each warp keeps its own
 // running max, sum and accumulator in registers (online softmax, f32,
-// threads holding D/32 elements on neighbouring addresses); at the end
+// threads holding EPT elements on neighbouring addresses); at the end
 // the warps' (m, l, acc) combine through shared memory. Pages past a
 // row's length are skipped: that is exact, since a fully masked page
 // gives m_new = m, p = 0 and alpha = 1 and adds nothing. The block
@@ -55,7 +59,11 @@
 namespace {
 
 constexpr int NW = 8;    // warps a CTA: they split one row's keys
-constexpr int TILE = 8;  // keys a warp streams per step
+
+// keys a warp streams per step: 8, or 4 at EPT 16 (D past 256), which
+// keeps the K and V tiles at 128 registers a thread
+template <int EPT>
+__host__ __device__ constexpr int tile_keys() { return EPT > 8 ? 4 : 8; }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -91,14 +99,15 @@ struct Args {
   const int* lens;
   void* out;
   int64_t o_sb, o_sh;
-  int B, H, ps, pp;
+  int B, H, D, ps, pp;
   float scale;
   cudaStream_t stream;
 };
 
-// EPT = head_dim / 32 elements per thread. RAGGED picks the table row
-// through lane_slots (v1); otherwise row b reads table row b (decode).
-template <typename QT, typename KVT, int EPT, bool RAGGED>
+// EPT = ceil(D / 32) elements per thread; TAIL: D < 32 * EPT, the
+// elements at or past D masked. RAGGED picks the table row through
+// lane_slots (v1); otherwise row b reads table row b (decode).
+template <typename QT, typename KVT, int EPT, bool RAGGED, bool TAIL>
 __global__ void __launch_bounds__(NW * 32)
     paged_decode_kernel(const QT* __restrict__ q, int64_t q_sb, int64_t q_sh,
                         const KVT* __restrict__ kp,
@@ -107,16 +116,17 @@ __global__ void __launch_bounds__(NW * 32)
                         const int* __restrict__ page_tables, int64_t pt_s,
                         const int* __restrict__ lane_slots,
                         const int* __restrict__ lens, QT* __restrict__ out,
-                        int64_t o_sb, int64_t o_sh, int ps, int pp,
-                        float scale) {
-  constexpr int D = 32 * EPT;
+                        int64_t o_sb, int64_t o_sh, int D, int ps,
+                        int pp, float scale) {
+  constexpr int DP = 32 * EPT;  // D padded: the accumulators' row
+  constexpr int TILE = tile_keys<EPT>();
   // shared: per-warp running max and sum, per-warp accumulators, then
   // this row's live page-table entries
   extern __shared__ float smem[];
   float* s_m = smem;
   float* s_l = smem + NW;
   float* s_acc = smem + 2 * NW;
-  int* s_pages = reinterpret_cast<int*>(smem + 2 * NW + NW * D);
+  int* s_pages = reinterpret_cast<int*>(smem + 2 * NW + NW * DP);
 
   const int b = blockIdx.x;
   const int h = blockIdx.y;
@@ -131,10 +141,12 @@ __global__ void __launch_bounds__(NW * 32)
   __syncthreads();
 
   float qr[EPT], acc[EPT];
+  bool in[EPT];  // this thread's element e lies below D
   const QT* qh = q + (int64_t)b * q_sb + (int64_t)h * q_sh;
 #pragma unroll
   for (int e = 0; e < EPT; ++e) {
-    qr[e] = to_f32(qh[lane + 32 * e]);
+    in[e] = !TAIL || lane + 32 * e < D;
+    qr[e] = in[e] ? to_f32(qh[lane + 32 * e]) : 0.f;
     acc[e] = 0.f;
   }
   float m = -INFINITY;  // running max of this warp's scores
@@ -152,8 +164,8 @@ __global__ void __launch_bounds__(NW * 32)
                              (int64_t)(pos % ps) * p_ss + head_off;
 #pragma unroll
         for (int e = 0; e < EPT; ++e) {
-          kr[j][e] = to_f32(kp[base + 32 * e]);
-          vr[j][e] = to_f32(vp[base + 32 * e]);
+          kr[j][e] = in[e] ? to_f32(kp[base + 32 * e]) : 0.f;
+          vr[j][e] = in[e] ? to_f32(vp[base + 32 * e]) : 0.f;
         }
       } else {
 #pragma unroll
@@ -201,10 +213,10 @@ __global__ void __launch_bounds__(NW * 32)
     s_l[w] = l;
   }
 #pragma unroll
-  for (int e = 0; e < EPT; ++e) s_acc[w * D + lane + 32 * e] = acc[e];
+  for (int e = 0; e < EPT; ++e) s_acc[w * DP + lane + 32 * e] = acc[e];
   __syncthreads();
   QT* oh = out + (int64_t)b * o_sb + (int64_t)h * o_sh;
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+  for (int d = threadIdx.x; d < (TAIL ? D : DP); d += blockDim.x) {
     float mx = -INFINITY;
 #pragma unroll
     for (int i = 0; i < NW; ++i) mx = fmaxf(mx, s_m[i]);
@@ -213,7 +225,7 @@ __global__ void __launch_bounds__(NW * 32)
     for (int i = 0; i < NW; ++i) {
       const float c = expf(s_m[i] - mx);
       lsum = fmaf(s_l[i], c, lsum);
-      o = fmaf(s_acc[i * D + d], c, o);
+      o = fmaf(s_acc[i * DP + d], c, o);
     }
     oh[d] = from_f32<QT>(o / lsum);
   }
@@ -224,43 +236,48 @@ cudaError_t launch(const Args& a) {
   const size_t smem =
       (size_t)(2 * NW + NW * 32 * EPT) * sizeof(float) +
       (size_t)a.pp * sizeof(int);
-  paged_decode_kernel<QT, KVT, EPT, RAGGED>
-      <<<dim3(a.B, a.H), dim3(NW * 32), smem, a.stream>>>(
+  auto kern = a.D != 32 * EPT
+                  ? paged_decode_kernel<QT, KVT, EPT, RAGGED, true>
+                  : paged_decode_kernel<QT, KVT, EPT, RAGGED, false>;
+  kern<<<dim3(a.B, a.H), dim3(NW * 32), smem, a.stream>>>(
           static_cast<const QT*>(a.q), a.q_sb, a.q_sh,
           static_cast<const KVT*>(a.kp), static_cast<const KVT*>(a.vp),
           a.p_sp, a.p_ss, a.p_sh, a.page_tables, a.pt_s, a.lane_slots,
-          a.lens, static_cast<QT*>(a.out), a.o_sb, a.o_sh, a.ps, a.pp,
+          a.lens, static_cast<QT*>(a.out), a.o_sb, a.o_sh, a.D, a.ps, a.pp,
           a.scale);
   return cudaGetLastError();
 }
 
+// EPT = ceil(D / 32): 1 to 8 for D up to 256, 16 for D up to 512
 template <typename QT, typename KVT, bool RAGGED>
-cudaError_t by_head_dim(const Args& a, int head_dim) {
-  switch (head_dim) {
-    case 32:
-      return launch<QT, KVT, 1, RAGGED>(a);
-    case 64:
-      return launch<QT, KVT, 2, RAGGED>(a);
-    case 128:
-      return launch<QT, KVT, 4, RAGGED>(a);
+cudaError_t by_head_dim(const Args& a) {
+  switch ((a.D + 31) / 32) {
+    case 1: return launch<QT, KVT, 1, RAGGED>(a);
+    case 2: return launch<QT, KVT, 2, RAGGED>(a);
+    case 3: return launch<QT, KVT, 3, RAGGED>(a);
+    case 4: return launch<QT, KVT, 4, RAGGED>(a);
+    case 5: return launch<QT, KVT, 5, RAGGED>(a);
+    case 6: return launch<QT, KVT, 6, RAGGED>(a);
+    case 7: return launch<QT, KVT, 7, RAGGED>(a);
+    case 8: return launch<QT, KVT, 8, RAGGED>(a);
   }
-  return cudaErrorInvalidValue;
+  return launch<QT, KVT, 16, RAGGED>(a);  // D <= 512, checked
 }
 
 template <bool RAGGED>
-int dispatch(int q_dtype, int kv_dtype, int head_dim, const Args& a) {
-  if (a.B < 1 || a.H < 1 || a.H > 65535 || a.ps < 1 || a.pp < 1 ||
-      (size_t)a.pp * sizeof(int) > 32 * 1024)
+int dispatch(int q_dtype, int kv_dtype, const Args& a) {
+  if (a.B < 1 || a.H < 1 || a.H > 65535 || a.D < 1 || a.D > 512 ||
+      a.ps < 1 || a.pp < 1 || (size_t)a.pp * sizeof(int) > 32 * 1024)
     return (int)cudaErrorInvalidValue;
   cudaError_t rc = cudaErrorInvalidValue;
   if (q_dtype == 0 && kv_dtype == 0)
-    rc = by_head_dim<float, float, RAGGED>(a, head_dim);
+    rc = by_head_dim<float, float, RAGGED>(a);
   else if (q_dtype == 0 && kv_dtype == 1)
-    rc = by_head_dim<float, __nv_bfloat16, RAGGED>(a, head_dim);
+    rc = by_head_dim<float, __nv_bfloat16, RAGGED>(a);
   else if (q_dtype == 1 && kv_dtype == 0)
-    rc = by_head_dim<__nv_bfloat16, float, RAGGED>(a, head_dim);
+    rc = by_head_dim<__nv_bfloat16, float, RAGGED>(a);
   else if (q_dtype == 1 && kv_dtype == 1)
-    rc = by_head_dim<__nv_bfloat16, __nv_bfloat16, RAGGED>(a, head_dim);
+    rc = by_head_dim<__nv_bfloat16, __nv_bfloat16, RAGGED>(a);
   return (int)rc;
 }
 
@@ -283,9 +300,10 @@ extern "C" int paged_decode_launch(
          p_ss,    p_sh,    static_cast<const int*>(page_table),
          pt_s,    nullptr, static_cast<const int*>(seq_lens),
          out,     o_sb,    o_sh,
-         B,       H,       ps,
-         pp,      scale,   static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(q_dtype, kv_dtype, D, a);
+         B,       H,       D,
+         ps,      pp,      scale,
+         static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(q_dtype, kv_dtype, a);
 }
 
 extern "C" int paged_ragged_v1_launch(
@@ -301,9 +319,10 @@ extern "C" int paged_ragged_v1_launch(
          pt_s,    static_cast<const int*>(lane_slots),
          static_cast<const int*>(lane_lens),
          out,     o_sb,    o_sh,
-         T,       H,       ps,
-         pp,      scale,   static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(q_dtype, kv_dtype, D, a);
+         T,       H,       D,
+         ps,      pp,      scale,
+         static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(q_dtype, kv_dtype, a);
 }
 
 extern "C" const char* paged_decode_error_string(int code) {

@@ -27,14 +27,21 @@
 // move 1 byte an element plus 4 bytes of scale per (slot, head) row.
 //
 // What this design does about that bound: one CTA per lane, one warp
-// per head, each thread holding D/32 elements of q and of the f32
-// accumulator (neighbouring threads on neighbouring addresses, so a
-// warp reads one 128-byte row segment per element slot). The block
-// loads its own page-table row into shared memory (the TPU kernel's
-// scalar prefetch) and walks only the pages below ceil(n/ps) — the
-// ragged skip: a lane never touches a page past its length. Keys are
+// per head, each thread holding EPT = ceil(D/32) elements of q and of
+// the f32 accumulator (neighbouring threads on neighbouring addresses,
+// so a warp reads one 128-byte row segment per element slot). Any head
+// dim from 1 to 512 is taken: EPT 1-8 are instantiated, and 16 for D
+// past 256. When D < 32 * EPT (TAIL: D not a multiple of 32, or D
+// past 256 and below 512), elements at or past D are masked in the
+// load (q and K read as 0, so they add exactly 0 to the dot and its
+// warp reduction) and in the store; otherwise the mask is compiled
+// out. The pages are the engine's pool and cannot be
+// padded.
+// The block loads its own page-table row into shared memory (the TPU
+// kernel's scalar prefetch) and walks only the pages below ceil(n/ps) —
+// the ragged skip: a lane never touches a page past its length. Keys are
 // streamed TILE at a time with all K and V loads of a tile issued
-// before any is used, so a warp keeps TILE*D/32 loads in flight; the
+// before any is used, so a warp keeps TILE*EPT loads in flight; the
 // running max, sum and accumulator stay in registers (online softmax,
 // f32) and the scores reduce with warp shuffles.
 //
@@ -99,13 +106,14 @@ struct Args {
   const int* lane_lens;
   void* out;
   int64_t o_st, o_sh;
-  int T, H, ps, pp;
+  int T, H, D, ps, pp;
   float scale;
   cudaStream_t stream;
 };
 
-// EPT = head_dim / 32 elements per thread; TILE = keys per tile.
-template <typename QT, typename KVT, int EPT, int TILE>
+// EPT = ceil(D / 32) elements per thread; TILE = keys per tile; TAIL:
+// D < 32 * EPT, the elements at or past D masked.
+template <typename QT, typename KVT, int EPT, int TILE, bool TAIL>
 __global__ void ragged_v2_kernel(const QT* __restrict__ q, int64_t q_st, int64_t q_sh,
                  const KVT* __restrict__ kp, const KVT* __restrict__ vp,
                  const float* __restrict__ ks, const float* __restrict__ vs,
@@ -113,7 +121,8 @@ __global__ void ragged_v2_kernel(const QT* __restrict__ q, int64_t q_st, int64_t
                  const int* __restrict__ page_tables, int64_t pt_s,
                  const int* __restrict__ lane_slots,
                  const int* __restrict__ lane_lens, QT* __restrict__ out,
-                 int64_t o_st, int64_t o_sh, int ps, int pp, float scale) {
+                 int64_t o_st, int64_t o_sh, int D, int ps, int pp,
+                 float scale) {
   extern __shared__ int s_pages[];  // this lane's page-table row
   const int t = blockIdx.x;
   const int h = threadIdx.x >> 5;
@@ -126,10 +135,12 @@ __global__ void ragged_v2_kernel(const QT* __restrict__ q, int64_t q_st, int64_t
   const int H = blockDim.x >> 5;
 
   float qr[EPT], acc[EPT];
+  bool in[EPT];  // this thread's element e lies below D
   const QT* qh = q + (int64_t)t * q_st + (int64_t)h * q_sh;
 #pragma unroll
   for (int e = 0; e < EPT; ++e) {
-    qr[e] = to_f32(qh[lane + 32 * e]);
+    in[e] = !TAIL || lane + 32 * e < D;
+    qr[e] = in[e] ? to_f32(qh[lane + 32 * e]) : 0.f;
     acc[e] = 0.f;
   }
   float m = -INFINITY;  // running max of the scores
@@ -148,8 +159,8 @@ __global__ void ragged_v2_kernel(const QT* __restrict__ q, int64_t q_st, int64_t
             (int64_t)page * p_sp + (int64_t)slot * p_ss + head_off;
 #pragma unroll
         for (int e = 0; e < EPT; ++e) {
-          kr[j][e] = to_f32(kp[base + 32 * e]);
-          vr[j][e] = to_f32(vp[base + 32 * e]);
+          kr[j][e] = in[e] ? to_f32(kp[base + 32 * e]) : 0.f;
+          vr[j][e] = in[e] ? to_f32(vp[base + 32 * e]) : 0.f;
         }
         if constexpr (kQuantized<KVT>) {
           // scales are contiguous (P, ps, H): one f32 per row, the same
@@ -202,30 +213,40 @@ __global__ void ragged_v2_kernel(const QT* __restrict__ q, int64_t q_st, int64_t
 
   QT* oh = out + (int64_t)t * o_st + (int64_t)h * o_sh;
 #pragma unroll
-  for (int e = 0; e < EPT; ++e) oh[lane + 32 * e] = from_f32<QT>(acc[e] / l);
+  for (int e = 0; e < EPT; ++e)
+    if (in[e]) oh[lane + 32 * e] = from_f32<QT>(acc[e] / l);
 }
 
 template <typename QT, typename KVT, int EPT, int TILE>
 cudaError_t launch(const Args& a) {
   const size_t smem = (size_t)a.pp * sizeof(int);
-  ragged_v2_kernel<QT, KVT, EPT, TILE>
-      <<<dim3(a.T), dim3(32 * a.H), smem, a.stream>>>(
+  auto kern = a.D != 32 * EPT
+                  ? ragged_v2_kernel<QT, KVT, EPT, TILE, true>
+                  : ragged_v2_kernel<QT, KVT, EPT, TILE, false>;
+  kern<<<dim3(a.T), dim3(32 * a.H), smem, a.stream>>>(
           static_cast<const QT*>(a.q), a.q_st, a.q_sh,
           static_cast<const KVT*>(a.kp), static_cast<const KVT*>(a.vp),
           a.ks, a.vs, a.p_sp, a.p_ss, a.p_sh, a.page_tables, a.pt_s,
           a.lane_slots, a.lane_lens, static_cast<QT*>(a.out), a.o_st, a.o_sh,
-          a.ps, a.pp, a.scale);
+          a.D, a.ps, a.pp, a.scale);
   return cudaGetLastError();
 }
 
-// TILE * EPT <= 64 keeps the K and V tiles at <= 128 registers a thread
+// TILE * EPT <= 64 keeps the K and V tiles at <= 128 registers a
+// thread: tiles 8, 16, 32 where they fit, and 4 only at EPT 16 (D past
+// 256), where no tile of 8 does
 template <typename QT, typename KVT, int EPT>
 cudaError_t by_tile(const Args& a, int tile) {
   switch (tile) {
+    case 4:
+      if constexpr (EPT > 8) return launch<QT, KVT, EPT, 4>(a);
+      break;
     case 8:
-      return launch<QT, KVT, EPT, 8>(a);
+      if constexpr (EPT <= 8) return launch<QT, KVT, EPT, 8>(a);
+      break;
     case 16:
-      return launch<QT, KVT, EPT, 16>(a);
+      if constexpr (EPT <= 4) return launch<QT, KVT, EPT, 16>(a);
+      break;
     case 32:
       if constexpr (EPT <= 2) return launch<QT, KVT, EPT, 32>(a);
       break;
@@ -233,31 +254,34 @@ cudaError_t by_tile(const Args& a, int tile) {
   return cudaErrorInvalidValue;
 }
 
+// EPT = ceil(D / 32): 1 to 8 for D up to 256, 16 for D up to 512
 template <typename QT, typename KVT>
-cudaError_t by_head_dim(const Args& a, int head_dim, int tile) {
-  switch (head_dim) {
-    case 32:
-      return by_tile<QT, KVT, 1>(a, tile);
-    case 64:
-      return by_tile<QT, KVT, 2>(a, tile);
-    case 128:
-      return by_tile<QT, KVT, 4>(a, tile);
+cudaError_t by_head_dim(const Args& a, int tile) {
+  switch ((a.D + 31) / 32) {
+    case 1: return by_tile<QT, KVT, 1>(a, tile);
+    case 2: return by_tile<QT, KVT, 2>(a, tile);
+    case 3: return by_tile<QT, KVT, 3>(a, tile);
+    case 4: return by_tile<QT, KVT, 4>(a, tile);
+    case 5: return by_tile<QT, KVT, 5>(a, tile);
+    case 6: return by_tile<QT, KVT, 6>(a, tile);
+    case 7: return by_tile<QT, KVT, 7>(a, tile);
+    case 8: return by_tile<QT, KVT, 8>(a, tile);
   }
+  if (a.D <= 512) return by_tile<QT, KVT, 16>(a, tile);
   return cudaErrorInvalidValue;
 }
 
 template <typename QT>
-cudaError_t by_kv_dtype(const Args& a, int kv_dtype, int head_dim,
-                        int tile) {
+cudaError_t by_kv_dtype(const Args& a, int kv_dtype, int tile) {
   switch (kv_dtype) {
     case 0:
-      return by_head_dim<QT, float>(a, head_dim, tile);
+      return by_head_dim<QT, float>(a, tile);
     case 1:
-      return by_head_dim<QT, __nv_bfloat16>(a, head_dim, tile);
+      return by_head_dim<QT, __nv_bfloat16>(a, tile);
     case 2:
-      return by_head_dim<QT, int8_t>(a, head_dim, tile);
+      return by_head_dim<QT, int8_t>(a, tile);
     case 3:
-      return by_head_dim<QT, __nv_fp8_e4m3>(a, head_dim, tile);
+      return by_head_dim<QT, __nv_fp8_e4m3>(a, tile);
   }
   return cudaErrorInvalidValue;
 }
@@ -277,7 +301,7 @@ extern "C" int paged_ragged_v2_launch(
     const void* lane_slots, const void* lane_lens, void* out, int64_t o_st,
     int64_t o_sh, int T, int H, int D, int ps, int pp, int tile, float scale,
     void* stream) {
-  if (T < 1 || H < 1 || H > 32 || ps < 1 || pp < 1 ||
+  if (T < 1 || H < 1 || H > 32 || D < 1 || D > 512 || ps < 1 || pp < 1 ||
       (size_t)pp * sizeof(int) > 48 * 1024)
     return (int)cudaErrorInvalidValue;
   if ((kv_dtype >= 2) != (k_scales != nullptr && v_scales != nullptr))
@@ -289,11 +313,12 @@ extern "C" int paged_ragged_v2_launch(
          pt_s,    static_cast<const int*>(lane_slots),
          static_cast<const int*>(lane_lens),
          out,     o_st,    o_sh,
-         T,       H,       ps,
-         pp,      scale,   static_cast<cudaStream_t>(stream)};
-  if (q_dtype == 0) return (int)by_kv_dtype<float>(a, kv_dtype, D, tile);
+         T,       H,       D,
+         ps,      pp,      scale,
+         static_cast<cudaStream_t>(stream)};
+  if (q_dtype == 0) return (int)by_kv_dtype<float>(a, kv_dtype, tile);
   if (q_dtype == 1)
-    return (int)by_kv_dtype<__nv_bfloat16>(a, kv_dtype, D, tile);
+    return (int)by_kv_dtype<__nv_bfloat16>(a, kv_dtype, tile);
   return (int)cudaErrorInvalidValue;
 }
 

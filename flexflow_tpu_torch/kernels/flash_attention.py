@@ -9,7 +9,9 @@ Four entry points are ported:
     ``csrc/flash_attention.cu`` on CUDA tensors and their plain PyTorch
     versions (:func:`flash_fwd_ref`, :func:`flash_bwd_dq_ref`,
     :func:`flash_bwd_dkv_ref`) on CPU tensors. A build or launch failure
-    raises; nothing falls back.
+    raises; nothing falls back. On CUDA any head_dim from 1 to 256 is
+    taken: :func:`pad_head_dim` zero-pads it to the next instantiated
+    one (32, 64, 128, 256), and the outputs are sliced back.
   * :func:`paged_attention_ragged` — the serving mixed step's entry
     point; like the JAX one it delegates to kernel v2
     (:mod:`.paged_ragged_v2`).
@@ -43,7 +45,10 @@ launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             "paged_decode": 0, "paged_ragged_v1": 0}
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
-_HEAD_DIMS = (32, 64, 128)
+# head dims the kernels are instantiated for; the wrappers zero-pad any
+# other head_dim up to the next of them
+HEAD_DIMS = (32, 64, 128, 256)
+MAX_HEAD_DIM = HEAD_DIMS[-1]
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -114,6 +119,34 @@ def flash_bwd_dkv_ref(q, k, v, do, lse, delta, *, causal, scale):
     return dk.to(k.dtype).contiguous(), dv.to(v.dtype).contiguous()
 
 
+# ------------------------------------------------------------ padding
+def padded_head_dim(d: int) -> int:
+    """The instantiated head dim a head_dim d runs at: the smallest of
+    HEAD_DIMS >= d. Above MAX_HEAD_DIM it raises, as JAX's
+    ``flash_attention_bshd`` does (the attention op then takes
+    :func:`attention_ref`, as the JAX op takes its einsum path)."""
+    for dp in HEAD_DIMS:
+        if 1 <= d <= dp:
+            return dp
+    raise ValueError(f"head_dim {d} not in [1, {MAX_HEAD_DIM}]: the flash "
+                     f"kernels take head dims up to {MAX_HEAD_DIM}")
+
+
+def pad_head_dim(*xs):
+    """(b, s, h, d) operands zero-padded along d to
+    ``padded_head_dim(d)`` (the operands themselves when d is already
+    instantiated). Exact: the zero lanes add exactly 0 to every dot
+    (q.k, do.v, p.v, ds.k, p^T.do, ds^T.q), so lse and delta are
+    unchanged and the first d lanes of each output are the unpadded
+    ones. The caller keeps the scale of the unpadded d, as JAX's
+    ``flash_attention_bshd`` does when it pads to a multiple of 128."""
+    d = xs[0].shape[-1]
+    dp = padded_head_dim(d)
+    if dp == d:
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, dp - d)) for x in xs)
+
+
 # ------------------------------------------------------- CUDA wrappers
 class _Bshd(ctypes.Structure):
     """``struct Bshd`` of csrc/flash_attention.cu: a (b, s, h, d)
@@ -141,8 +174,7 @@ def _check_bshd(q, k, v, *others):
     sk = k.shape[1]
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"dtype {q.dtype} not in float32/bfloat16")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
+    padded_head_dim(d)                  # raises past MAX_HEAD_DIM
     if sq < 1 or sk < 1:
         raise ValueError(f"sequence lengths must be >= 1, got {sq}, {sk}")
     if not 1 <= b <= 65535 or not 1 <= h <= 65535:
@@ -208,28 +240,37 @@ def _ref(x):
 
 def _rows_aligned16(x):
     """x's rows of d elements start 16-byte aligned: what the bf16
-    forward's 16-byte copies need, else a fresh contiguous copy (a new
+    kernels' 16-byte copies need, else a fresh contiguous copy (a new
     allocation is aligned; ``contiguous()`` would keep an offset view
-    as it is)."""
+    as it is). Saved q, k, v and autograd's do may be such views."""
     if x.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in x.stride()[:3]):
         return x
     return x.clone(memory_format=torch.contiguous_format)
 
 
+def _kernel_operands(*xs):
+    """The operands as the kernels take them: padded to an instantiated
+    head dim and, in bf16 (16-byte copies into the tensor cores' tiles),
+    with rows that start 16-byte aligned."""
+    xs = pad_head_dim(*xs)
+    if xs[0].dtype == torch.bfloat16:
+        xs = tuple(_rows_aligned16(x) for x in xs)
+    return xs
+
+
 def flash_fwd_cuda(q, k, v, *, causal, scale):
     """Launch ``flash_fwd`` of csrc/flash_attention.cu on the current
-    stream. Same contract as :func:`flash_fwd_ref`. The bf16 kernel runs
-    on the tensor cores and reads rows with 16-byte copies; an operand
-    whose rows do not start 16-byte aligned is copied first."""
+    stream. Same contract as :func:`flash_fwd_ref`; o is a view of the
+    padded output when head_dim is not instantiated."""
     b, sq, sk, h, d = _check_bshd(q, k, v)
-    if q.dtype == torch.bfloat16:
-        q, k, v = _rows_aligned16(q), _rows_aligned16(k), _rows_aligned16(v)
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    q, k, v = _kernel_operands(q, k, v)
+    dp = q.shape[-1]
+    o = torch.empty((b, sq, h, dp), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q,
             (_ref(q), _ref(k), _ref(v), _ref(o), lse.data_ptr()),
-            (b, h, sq, sk, d, int(causal), scale))
-    return o, lse
+            (b, h, sq, sk, dp, int(causal), scale))
+    return o[..., :d], lse
 
 
 def _check_bwd(q, k, v, do, lse, delta):
@@ -243,25 +284,29 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, *, causal, scale):
     """Launch ``flash_bwd_dq``. Same contract as
     :func:`flash_bwd_dq_ref`."""
     b, sq, sk, h, d = _check_bwd(q, k, v, do, lse, delta)
-    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    q, k, v, do = _kernel_operands(q, k, v, do)
+    dp = q.shape[-1]
+    dq = torch.empty((b, sq, h, dp), dtype=q.dtype, device=q.device)
     _launch("flash_bwd_dq", q,
             (_ref(q), _ref(k), _ref(v), _ref(do), lse.data_ptr(),
              delta.data_ptr(), _ref(dq)),
-            (b, h, sq, sk, d, int(causal), scale))
-    return dq
+            (b, h, sq, sk, dp, int(causal), scale))
+    return dq[..., :d]
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal, scale):
     """Launch ``flash_bwd_dkv``. Same contract as
     :func:`flash_bwd_dkv_ref`."""
     b, sq, sk, h, d = _check_bwd(q, k, v, do, lse, delta)
-    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
-    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=v.device)
+    q, k, v, do = _kernel_operands(q, k, v, do)
+    dp = q.shape[-1]
+    dk = torch.empty((b, sk, h, dp), dtype=k.dtype, device=k.device)
+    dv = torch.empty((b, sk, h, dp), dtype=v.dtype, device=v.device)
     _launch("flash_bwd_dkv", q,
             (_ref(q), _ref(k), _ref(v), _ref(do), lse.data_ptr(),
              delta.data_ptr(), _ref(dk), _ref(dv)),
-            (b, h, sq, sk, d, int(causal), scale))
-    return dk, dv
+            (b, h, sq, sk, dp, int(causal), scale))
+    return dk[..., :d], dv[..., :d]
 
 
 # ------------------------------------------------------------ dispatch
@@ -294,37 +339,49 @@ def _unit_last(x):
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
+def _operands(*xs):
+    """The operands with a unit last stride and, on CUDA, as the kernels
+    take them (:func:`_kernel_operands`): padded and aligned once here,
+    so the wrappers' own pass finds nothing to copy."""
+    xs = tuple(_unit_last(x) for x in xs)
+    return _kernel_operands(*xs) if xs[0].device.type == "cuda" else xs
+
+
 class FlashAttention(torch.autograd.Function):
     """The custom VJP of ``_flash`` (flexflow_tpu/kernels/
-    flash_attention.py): forward saves q, k, v, o and lse; backward
-    computes delta = rowsum(do * o) in f32 with torch, as ``_bwd_pallas``
-    does outside its kernels, then runs the dq and dkv pieces."""
+    flash_attention.py): forward saves q, k, v, o and lse (on CUDA at
+    the kernels' head dim); backward computes delta = rowsum(do * o) in
+    f32 with torch, as ``_bwd_pallas`` does outside its kernels, then
+    runs the dq and dkv pieces and slices their outputs back to d."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
+        d = q.shape[-1]
+        q, k, v = _operands(q, k, v)
         o, lse = flash_fwd(q, k, v, causal=causal, scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
+        ctx.causal, ctx.scale, ctx.d = causal, scale, d
+        return o[..., :d]
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        do = _unit_last(do)
+        (do,) = _operands(do)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
             .contiguous()                                  # (b, h, sq)
         kw = {"causal": ctx.causal, "scale": ctx.scale}
         dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        return dq, dk, dv, None, None
+        d = ctx.d
+        return dq[..., :d], dk[..., :d], dv[..., :d], None, None
 
 
 def flash_attention_bshd(q, k, v, *, causal=False):
     """softmax(q.k^T / sqrt(d)).v for (b, s, h, d) tensors, with the
     flash forward and backward pieces (hand-written kernels on CUDA,
-    their plain versions on the CPU). Any sq, sk >= 1; on CUDA head_dim
-    32, 64 or 128 and float32/bfloat16, anything else raises."""
+    their plain versions on the CPU). Any sq, sk >= 1; on CUDA any
+    head_dim from 1 to MAX_HEAD_DIM (256; the scale stays 1/sqrt(d) of
+    the unpadded d) and float32/bfloat16, anything else raises."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     return FlashAttention.apply(q, k, v, bool(causal), scale)
 

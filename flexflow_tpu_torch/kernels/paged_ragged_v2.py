@@ -41,7 +41,9 @@ launches = 0
 # keys per tile a warp streams when block_kv is not given
 DEFAULT_TILE = 16
 _TILES = (8, 16, 32)
-_HEAD_DIMS = (32, 64, 128)
+# the paged kernels take any head_dim up to this (a thread holds
+# ceil(head_dim / 32) elements, those past head_dim masked)
+MAX_PAGED_HEAD_DIM = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # page storage types: the activation types, then the quantized codes
 _KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -134,28 +136,32 @@ def _tile_for(block_kv: Optional[int], head_dim: int) -> int:
     In the JAX package the knob is KV tokens per work item, any value
     >= 0, rounded to whole pages; it changes no result. Here it maps to
     the largest of 8, 16, 32 keys that is <= the value and keeps
-    tile * head_dim / 32 <= 64 (the K and V tiles' registers), the
-    smallest such tile for a value below 8, and DEFAULT_TILE for 0 or
-    None. Only a negative value raises."""
+    tile * ceil(head_dim / 32) <= 64 (the K and V tiles' registers),
+    the smallest such tile for a value below 8, and DEFAULT_TILE (or
+    the largest tile that fits, if it does not) for 0 or None. Past
+    head_dim 256 no tile of 8 fits and the tile is 4, whatever the
+    knob. Only a negative value raises."""
     if block_kv is not None and int(block_kv) < 0:
         raise ValueError(f"block_kv must be >= 0 (0 = default), got "
                          f"{block_kv}")
+    ept = -(-max(1, head_dim) // 32)
+    fits = [t for t in _TILES if t * ept <= 64]
+    if not fits:
+        return 4
     if not block_kv:
-        return DEFAULT_TILE
-    fits = [t for t in _TILES if t * max(1, head_dim // 32) <= 64]
+        return min(DEFAULT_TILE, max(fits))
     below = [t for t in fits if t <= int(block_kv)]
     return max(below) if below else min(fits)
 
 
 def check_paged_inputs(q, k_pages, v_pages, page_tables, vectors,
                        kv_dtypes=tuple(_KV_CODE)) -> None:
-    """Raise on inputs the paged kernels do not take: CUDA tensors on
-    one device, q (N, H, D) with a unit last stride, contiguous pages
-    (P, ps, H, D) of a type in ``kv_dtypes``, an int32 (S, pp) table,
-    and ``vectors`` ({name: tensor}) each (N,) int32."""
+    """Raise on inputs the paged kernels do not take: q (N, H, D) with
+    a unit last stride and 1 <= D <= MAX_PAGED_HEAD_DIM, contiguous
+    pages (P, ps, H, D) of a type in ``kv_dtypes``, an int32 (S, pp)
+    table, and ``vectors`` ({name: tensor}) each (N,) int32, all CUDA
+    tensors on one device."""
     dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
     named = {"k_pages": k_pages, "v_pages": v_pages,
              "page_tables": page_tables, **vectors}
     for name, x in named.items():
@@ -178,13 +184,15 @@ def check_paged_inputs(q, k_pages, v_pages, page_tables, vectors,
         raise ValueError(
             f"pages must be (P, ps, {h}, {d}), got "
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {_HEAD_DIMS}")
+    if not 1 <= d <= MAX_PAGED_HEAD_DIM:
+        raise ValueError(f"head_dim {d} not in [1, {MAX_PAGED_HEAD_DIM}]")
     if page_tables.dim() != 2 or page_tables.dtype != torch.int32:
         raise ValueError("page_tables must be (S, pp) int32")
     for name, x in vectors.items():
         if x.dtype != torch.int32 or tuple(x.shape) != (n,):
             raise ValueError(f"{name} must be ({n},) int32")
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got {dev}")
 
 
 def _check_scales(k_pages, k_scales, v_scales) -> None:

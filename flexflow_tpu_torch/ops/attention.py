@@ -4,14 +4,17 @@ Separate (E, H, D) projection weights and an (H, D, E) output weight,
 as in the JAX package; the core softmax(q.k^T / sqrt(d)).v runs through
 ``kernels.flash_attention.flash_attention_bshd`` (the hand-written
 Hopper kernels on CUDA, their plain pieces on the CPU) unless the
-caller chose the einsum path with ``use_flash=False``.
+caller chose the einsum path with ``use_flash=False`` or head_dim is
+past the flash kernels' largest (256), where the JAX op takes its
+einsum path too.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..kernels.flash_attention import attention_ref, flash_attention_bshd
+from ..kernels.flash_attention import (MAX_HEAD_DIM, attention_ref,
+                                       flash_attention_bshd)
 from ..op import Op, OpContext, WeightSpec
 
 
@@ -107,13 +110,16 @@ class MultiHeadAttention(Op):
 
     def _attend(self, q, k, v, ctx: OpContext):
         """softmax(q.k^T / sqrt(d)).v, (b, s, h, d) layout. The flash
-        entry point whenever use_flash is not False — on CUDA that is
-        always the hand-written kernel (the JAX op's TPU-tuned
-        ``flash_profitable`` gate is not copied), and a kernel error
-        raises: there is no silent fallback to the einsum path."""
+        entry point whenever use_flash is not False and head_dim is at
+        most MAX_HEAD_DIM — on CUDA that is always the hand-written
+        kernel (the JAX op's TPU-tuned ``flash_profitable`` gate is not
+        copied), and a kernel error raises: there is no silent fallback
+        to the einsum path. A wider head_dim takes the einsum path, as
+        the JAX op does when its flash kernel refuses d > 256: a rule on
+        the shape, decided before any launch."""
         if ctx.seq_length is not None and ctx.seq_length >= 0:
             raise NotImplementedError(
                 "seq_length truncation is not ported yet")
-        if self.use_flash is False:
+        if self.use_flash is False or q.shape[-1] > MAX_HEAD_DIM:
             return attention_ref(q, k, v, causal=self.causal)
         return flash_attention_bshd(q, k, v, causal=self.causal)

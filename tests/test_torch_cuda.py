@@ -335,13 +335,265 @@ def test_flash_autograd_matches_reference_autograd(card, causal):
 
 
 def test_flash_refuses_what_it_does_not_take(card):
-    q, k, v, _ = _flash_inputs(card, torch.float32, 1, 64, 64, 2, 64)
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_fwd_cuda(q[..., :48], k[..., :48], v[..., :48],
-                          causal=False, scale=1.0)
+    """head_dim 48 is taken now (padded to 64); past 256 the kernels
+    refuse, naming the limit, as JAX's flash_attention_bshd does."""
+    q, k, v, _ = _flash_inputs(card, torch.float32, 1, 64, 64, 2, 320)
+    before = dict(fa.launches)
+    with pytest.raises(ValueError, match="256"):
+        fa.flash_fwd_cuda(q, k, v, causal=False, scale=1.0)
+    with pytest.raises(ValueError, match="256"):
+        fa.flash_attention_bshd(q, k, v)
+    assert fa.launches == before
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_fwd_cuda(q.half(), k.half(), v.half(), causal=False,
                           scale=1.0)
+
+
+# ------------------------------------------- head dims off 32/64/128
+ODD_HEAD_DIMS = [8, 16, 96, 256]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", ODD_HEAD_DIMS)
+def test_flash_kernels_any_head_dim(card, dtype, causal, d):
+    """Kernels 2-4 at head dims the kernels are not instantiated for
+    (zero-padded to 32 or 128) and at 256 (32-row CUDA-core tiles), on
+    sequence lengths off the tiles; one launch each."""
+    q, k, v, do = _flash_inputs(card, dtype, 2, 100, 130, 3, d, seed=d)
+    kw = {"causal": causal, "scale": 1.0 / math.sqrt(d)}
+    tol = FLASH_F32_REL if dtype == torch.float32 else FLASH_BF16_REL
+    before = dict(fa.launches)
+    o, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    o_ref, lse_ref = fa.flash_fwd_ref(q, k, v, **kw)
+    delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2) \
+        .contiguous()
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse_ref, delta, **kw)
+    dk, dv = fa.flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta, **kw)
+    torch.cuda.synchronize()
+    dq_ref = fa.flash_bwd_dq_ref(q, k, v, do, lse_ref, delta, **kw)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_ref(q, k, v, do, lse_ref, delta,
+                                          **kw)
+    for name, got, ref in (("o", o, o_ref), ("lse", lse, lse_ref),
+                           ("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                           ("dv", dv, dv_ref)):
+        assert got.shape == ref.shape, name
+        assert _rel_err(got, ref) <= tol, name
+    assert {n: fa.launches[n] - before[n] for n in fa.FLASH_KERNELS} == {
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+
+
+# a store past d on the last head lands in this many elements after the
+# output, set to CANARY_VALUE before the launch
+CANARY = 4096
+CANARY_VALUE = 7.0
+
+
+def _nan_after_rows(q):
+    """q as a view whose every (token, head) row of d elements is
+    followed by 512 NaNs: a kernel that reads a head past d adds NaN to
+    its dot."""
+    t, h, d = q.shape
+    big = torch.full((t, h, d + 512), float("nan"), dtype=q.dtype,
+                     device=q.device)
+    big[..., :d] = q
+    return big[..., :d]
+
+
+def _guarded(fn, *args, **kw):
+    """fn(*args, **kw) with each torch.empty it calls followed by CANARY
+    elements of CANARY_VALUE; asserts them intact after the launch."""
+    empty, tails = torch.empty, []
+
+    def guarded(*size, **opts):
+        size = tuple(size[0]) if len(size) == 1 and not isinstance(
+            size[0], int) else size
+        n = math.prod(size)
+        buf = empty(n + CANARY, **opts)
+        buf[n:] = CANARY_VALUE
+        tails.append(buf[n:])
+        return buf[:n].view(size)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch, "empty", guarded)
+        out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert tails, "no output allocated"
+    for tail in tails:
+        assert bool((tail == CANARY_VALUE).all()), "a store past the output"
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", ODD_HEAD_DIMS + [300, 320, 480, 512])
+def test_paged_kernels_any_head_dim(card, dtype, d):
+    """Kernels 1 (every tile the knob maps to), 5 and 6 at head dims off
+    the multiples of 32 and past 256 below 512 (lanes past d masked) and
+    up to 512 (4-key tiles past 256). q's rows are followed by NaNs and
+    each output by a canary, so a read or a store past d fails."""
+    q, *rest = _inputs(card, dtype, 4, d, 12, seed=d)
+    args = (_nan_after_rows(q), *rest)
+    scale = 1.0 / math.sqrt(d)
+    ref = pr.ragged_attention_ref(*args, scale)
+    close = (lambda o, r: _rel(o, r) <= F32_ATOL) if dtype == torch.float32 \
+        else (lambda o, r: float((o.float() - r.float()).abs().max())
+              <= BF16_ATOL)
+    for tile in sorted({pr._tile_for(b, d) for b in (None, 8, 32)}):
+        out = _guarded(pr.paged_ragged_v2_cuda, *args, scale, block_kv=tile)
+        assert close(out, ref), ("v2", tile)
+    q, kp, vp, table, lens = _decode_inputs(card, dtype, d, 12, seed=d)
+    q = _nan_after_rows(q)
+    before = dict(fa.launches)
+    out = _guarded(fa.paged_attention_decode, q, kp, vp, table, lens,
+                   scale=scale)
+    assert close(out, fa.paged_decode_ref(q, kp, vp, table, lens, scale))
+    out = _guarded(fa.paged_attention_ragged_v1, *args, scale=scale)
+    assert close(out, fa.paged_ragged_v1_ref(*args, scale))
+    assert {n: fa.launches[n] - before[n]
+            for n in ("paged_decode", "paged_ragged_v1")} == {
+        "paged_decode": 1, "paged_ragged_v1": 1}
+
+
+@pytest.mark.parametrize("kv", [torch.int8, torch.float8_e4m3fn])
+@pytest.mark.parametrize("d", ODD_HEAD_DIMS + [320, 480, 512])
+def test_quantized_kernel_any_head_dim(card, kv, d):
+    """Kernel 1 on int8 and fp8 pages at head dims off the multiples of
+    32 and past 256: the masked lanes leave the dequantized dot bit for
+    bit; q's rows are followed by NaNs and the output by a canary."""
+    q, kp, vp, tables, slots, lens = _inputs(card, torch.float32, 4, d,
+                                             16, seed=d + 1)
+    q = _nan_after_rows(q)
+    kq, ks = pr.quantize_kv_rows(kp, kv)
+    vq, vs = pr.quantize_kv_rows(vp, kv)
+    scale = 1.0 / math.sqrt(d)
+    out = _guarded(pr.paged_ragged_v2_cuda, q, kq, vq, tables, slots, lens,
+                   scale, k_scales=ks, v_scales=vs)
+    ref = pr.ragged_attention_ref(q, kq, vq, tables, slots, lens, scale,
+                                  k_scales=ks, v_scales=vs)
+    assert _rel(out, ref) <= QUANT_REL
+
+
+def test_paged_kernels_refuse_past_512(card):
+    args = _inputs(card, torch.float32, 2, 520, 8)
+    with pytest.raises(ValueError, match="head_dim 520"):
+        pr.paged_ragged_v2_cuda(*args, 0.05)
+    with pytest.raises(ValueError, match="head_dim 520"):
+        fa.paged_attention_ragged_v1(*args, scale=0.05)
+
+
+def test_attention_op_past_256_takes_attention_ref(card):
+    """head_dim 512: the attention op takes attention_ref by its shape
+    rule, launching no flash kernel, forward and backward."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.op import OpContext
+    ff = FFModel(FFConfig(), device="cuda")
+    x = ff.create_tensor((2, 40, 1024), name="x")
+    ff.multihead_attention(x, x, x, 1024, 2, causal=True, name="mha")
+    op = ff.ops[-1]
+    rng = np.random.default_rng(4)
+    params = {k: (torch.from_numpy(rng.standard_normal(s.shape, np.float32)
+                                   * 0.03).to(card)).requires_grad_()
+              for k, s in op.weight_specs().items()}
+    xt = torch.from_numpy(rng.standard_normal((2, 40, 1024), np.float32)) \
+        .to(card).requires_grad_()
+    before = dict(fa.launches)
+    y = op.forward(params, [xt, xt, xt], OpContext(training=True))[0]
+    g = torch.autograd.grad(y.sum(), [xt, *params.values()])
+    torch.cuda.synchronize()
+    assert fa.launches == before
+    op.use_flash = False
+    want = op.forward(params, [xt, xt, xt], OpContext(training=True))[0]
+    g_want = torch.autograd.grad(want.sum(), [xt, *params.values()])
+    assert _rel_err(y, want) <= 1e-6
+    assert all(_rel_err(a, b) <= 1e-6 for a, b in zip(g, g_want))
+
+
+def _unaligned(x, dev):
+    """x's values as a view into a (b, s, h*d + 4) buffer on dev: rows
+    that do not start 16-byte aligned in bf16."""
+    b, s, h, d = x.shape
+    buf = torch.zeros((b, s, h * d + 4), dtype=x.dtype, device=dev)
+    buf[..., :h * d] = x.reshape(b, s, h * d).to(dev)
+    return buf[..., :h * d].unflatten(-1, (h, d))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_backward_unaligned_through_autograd(card, causal):
+    """bf16 q, k, v and do whose rows do not start 16-byte aligned
+    through FlashAttention on the card: the tensor-core backward's
+    16-byte copies need aligned rows, so the autograd function copies
+    such operands once; one launch of each kernel, and the gradients equal
+    the plain pieces' (the same autograd function on CPU tensors) at
+    the bf16 tolerance."""
+    rng = np.random.default_rng(10)
+    b, sq, sk, h, d = 2, 100, 150, 3, 64
+    base = [torch.from_numpy(rng.standard_normal((b, s, h, d), np.float32))
+            .bfloat16() for s in (sq, sk, sk, sq)]
+    grads = {}
+    for dev in (torch.device("cpu"), card):
+        q, k, v, do = (_unaligned(x, dev) for x in base)
+        assert q.stride(1) % 8 != 0 and do.stride(1) % 8 != 0
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        before = dict(fa.launches)
+        o = fa.flash_attention_bshd(q, k, v, causal=causal)
+        grads[dev.type] = torch.autograd.grad(o, (q, k, v), do)
+        launched = {n: fa.launches[n] - before[n] for n in fa.FLASH_KERNELS}
+        assert launched == dict.fromkeys(fa.FLASH_KERNELS,
+                                         int(dev.type == "cuda"))
+    for name, a, r in zip("qkv", grads["cuda"], grads["cpu"]):
+        assert _rel_err(a.cpu(), r) <= FLASH_BF16_REL, f"d{name}"
+
+
+def test_cpu_parity_lm_served_on_card(card):
+    """The CPU parity tests' LM (hidden 32, 4 heads: head_dim 8) served
+    on the card: greedy tokens equal generate_reference under the tie
+    rule, every mixed step through kernel 1."""
+    from flexflow_tpu_torch import FFConfig, build_transformer_lm
+    from flexflow_tpu_torch.serve import ServeEngine
+    cfg = FFConfig(kv_page_size=8, kv_num_pages=73, serve_max_seqs=8,
+                   serve_prefill_budget=48)
+    lm = build_transformer_lm(cfg, vocab_size=89, max_seq_len=64,
+                              hidden=32, num_heads=4, num_layers=2,
+                              ff_dim=64, seed=3, device="cuda")
+    eng = ServeEngine(lm, cfg)
+    eng.warmup()
+    prompts = _prompts()
+    pr.launches = 0
+    out = eng.generate(prompts, 8)
+    assert pr.launches == eng.num_layers * eng.last_stats["steps"]
+    eng.assert_token_parity(prompts, out, eng.generate_reference(prompts, 8),
+                            margin=1e-3)
+
+
+def test_tiny_transformer_step_on_card(card):
+    """The CPU parity tests' build_transformer (hidden 32, 4 heads:
+    head_dim 8) takes one f32 step on the card through the flash
+    kernels, equal to the einsum path's step."""
+    from flexflow_tpu_torch import FFConfig, SGDOptimizer, build_transformer
+    rng = np.random.default_rng(6)
+    batch = {"input": rng.standard_normal((4, 16, 32), np.float32),
+             "label": rng.integers(0, 4, 4).astype(np.int32)}
+    runs = {}
+    for use_flash in (None, False):
+        m = build_transformer(FFConfig(batch_size=4, seed=0), batch_size=4,
+                              seq_len=16, hidden=32, num_heads=4,
+                              num_layers=2, ff_dim=64, num_classes=4,
+                              use_flash=use_flash, device="cuda")
+        m.compile(optimizer=SGDOptimizer(lr=0.05, momentum=0.9),
+                  loss_type="sparse_categorical_crossentropy")
+        before = dict(fa.launches)
+        loss = float(m.train_batch(batch)["loss"])
+        torch.cuda.synchronize()
+        launched = {n: fa.launches[n] - before[n] for n in fa.FLASH_KERNELS}
+        assert launched == dict.fromkeys(
+            fa.FLASH_KERNELS, 2 if use_flash is None else 0)
+        runs[use_flash] = (loss, {f"{op}.{k}": w.detach().clone()
+                                  for op, p in m.state.params.items()
+                                  for k, w in p.items()})
+    (lk, wk), (lp, wp) = runs[None], runs[False]
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for n in wk:
+        assert float((wk[n] - wp[n]).abs().max()) <= 1e-5, n
 
 
 def _small_lm(cfg, seed=3):

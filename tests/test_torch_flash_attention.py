@@ -121,8 +121,12 @@ def _port_grads(q, k, v, causal):
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("sq,sk,d", [(128, 128, 64), (128, 256, 64),
                                      (256, 128, 64), (128, 128, 32),
-                                     (100, 100, 64)])
+                                     (100, 100, 64), (128, 128, 16),
+                                     (128, 128, 96)])
 def test_entry_point_and_grads_match_jax(causal, sq, sk, d):
+    """d = 16 and 96 are off the port's instantiations (its CUDA
+    wrappers pad them to 32 and 128) and off JAX's 128-lane tiles (its
+    wrapper pads them to 128)."""
     rng = np.random.default_rng(sq * 7 + sk + d)
     b, h = 2, 2
     q = rng.standard_normal((b, sq, h, d), np.float32)

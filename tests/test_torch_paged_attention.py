@@ -96,12 +96,12 @@ def test_quantized_pages_not_ported():
 
 @pytest.mark.parametrize("bad", ["cpu", "block_kv", "head_dim"])
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(bad):
-    """The wrapper never falls back: CPU tensors or an unsupported
-    head_dim raise before anything is launched. serve_attn_block_kv
-    raises only when negative: every value the JAX engine takes maps
-    onto a tile."""
+    """The wrapper never falls back: CPU tensors, or a head_dim past the
+    kernels' 512 (checked before the device), raise before anything is
+    launched. serve_attn_block_kv raises only when negative: every
+    value the JAX engine takes maps onto a tile."""
     q, kp, vp, tables, slots, lens = _torch(
-        _inputs(5, d=32 if bad != "head_dim" else 8), torch.float32)
+        _inputs(5, d=32 if bad != "head_dim" else 520), torch.float32)
     before = pr.launches
     if bad == "cpu":
         with pytest.raises(ValueError, match="CUDA tensors"):
@@ -115,7 +115,7 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(bad):
         assert pr._tile_for(0, 64) == pr.DEFAULT_TILE
         assert pr._tile_for(4096, 32) == 32
     else:
-        with pytest.raises(ValueError):
+        with pytest.raises(ValueError, match="head_dim 520"):
             pr.paged_ragged_v2_cuda(q, kp, vp, tables, slots, lens, 0.1)
     assert pr.launches == before
 
