@@ -5,12 +5,15 @@
 Builds every CUDA kernel of the port from this checkout's sources (one
 nvcc per source, in parallel), counts the tensor-core (HMMA)
 instructions of each kernel in the built SASS — the bf16 paths of the
-flash forward and backward and of the LSTM backward must have them, and
-the bf16 flash backward must not spill at d=64 — and then:
+flash forward and backward and of the LSTM forward and backward must
+have them; the bf16 flash backward at d=64, the LSTM forward step, the
+ragged kernel's query-tile kernels and the wide-head decode kernel must
+not spill — and then:
 
   * holds the ragged paged-attention kernel against its plain PyTorch
     version at the serving mixed step's shapes, on f32, bf16, int8 and
-    fp8 pages; the paged decode kernel against its plain version at the
+    fp8 pages, in the step's lane order and shuffled (timed in both);
+    the paged decode kernel against its plain version at the
     legacy decode step's shapes (8 sequences over the same pool); and
     the v1 ragged kernel against its plain version and against v2 at
     the mixed step's shapes, through its entry point;
@@ -21,8 +24,9 @@ the bf16 flash backward must not spill at d=64 — and then:
     interleaved in 3 rounds (median and range reported);
   * holds kernels 1-6 at head dims the kernels are not instantiated for
     (flash at d=16, 96, 256 on b=2 sq=300 sk=453 h=3, f32 and bf16,
-    causal and not; the paged kernels at d=8, 96, 256 on a small pool,
-    kernel 1 on all four page types) against their plain versions, and
+    causal and not; the paged kernels at d=8, 96, 256, 320, 640 and at
+    40 heads on a small pool, kernel 1 on all four page types) against
+    their plain versions, and
     checks that the attention op at d=512 takes attention_ref;
   * trains the full-width Transformer encoder of ``build_transformer``
     (batch 32, seq 512, hidden 512, 8 heads, 6 layers, ff 2048, 10
@@ -248,7 +252,8 @@ def check_err(name, out, ref, tol, relative=False):
 def kernel_phase(pr):
     """Hold the CUDA kernel against ragged_attention_ref on the card on
     f32, bf16, int8 and fp8 pages; time the kernel and the plain
-    version."""
+    version; then hold and time the kernel on the same lanes shuffled
+    (every query tile one lane, the layout that shares no page)."""
     dev = torch.device("cuda")
     scale = 1.0 / math.sqrt(HEAD_DIM)
     res = {}
@@ -275,15 +280,29 @@ def kernel_phase(pr):
         p_ms = cuda_ms(lambda: pr.ragged_attention_ref(*args, scale, **kw),
                        5)
         bound_ms, bound_by = attention_bound(args[0], args[1], *args[3:])
+        # the same lanes in a shuffled order: no two neighbours share a
+        # slot's run, so every query tile holds one lane
+        perm = torch.from_numpy(np.random.default_rng(1).permutation(
+            args[0].shape[0])).to(dev)
+        sargs = (args[0][perm].contiguous(), args[1], args[2], args[3],
+                 args[4][perm].contiguous(), args[5][perm].contiguous())
+        sout = pr.paged_ragged_v2_cuda(*sargs, scale, **kw)
+        torch.cuda.synchronize()
+        s_err, _ = check_err(f"paged_ragged_v2 {name} shuffled", sout,
+                             ref[perm], tol, relative=quant)
+        s_ms = cuda_ms(lambda: pr.paged_ragged_v2_cuda(*sargs, scale, **kw),
+                       50)
         res[name] = {"max_abs_err": err, "err_over_max_ref": rel,
                      "ms": k_ms, "plain_ms": p_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by}
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "shuffled": {"max_abs_err": s_err, "ms": s_ms}}
         log(f"kernel paged_ragged_v2 [{name} pages, T=520 H=8 D=64 ps=16 "
             f"pp=32 P=257]: max_abs_err={err:.3g} err/max|ref|={rel:.3g} "
             f"(tol {tol}{' relative' if quant else ''}) "
             f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-            f"bound_ms={bound_ms:.4f} ({bound_by})")
-        del args, kw, out, ref
+            f"bound_ms={bound_ms:.4f} ({bound_by}); lanes shuffled: "
+            f"max_abs_err={s_err:.3g} kernel_ms={s_ms:.4f}")
+        del args, sargs, kw, out, sout, ref
     log("library_ms: null — no single PyTorch call computes attention "
         "through a page table")
     return res
@@ -523,8 +542,10 @@ def head_dim_phase(fa, pr):
     shapes: the flash kernels at d=16, 96 (zero-padded to 32 and 128)
     and 256 (32-row CUDA-core tiles) on b=2 sq=300 sk=453 h=3, f32 and
     bf16, causal and not; kernel 1 on f32, bf16, int8 and fp8 pages and
-    kernels 5 and 6 on f32 and bf16 pages at d=8, 96, 256 and 320 (lanes
-    past d masked); each against its plain version at its phase's tolerance.
+    kernels 5 and 6 on f32 and bf16 pages at h=4 and d=8, 96, 256, 320
+    and 640 (past 512: kernel 1's 8-key tiles, kernels 5 and 6's
+    accumulators in shared memory), and at h=40 d=64; each against its
+    plain version at its phase's tolerance.
     Then the attention op at d=512, past the flash kernels' 256, which
     must take attention_ref by its shape rule and launch no flash
     kernel. Returns {check: worst error / max |plain|}."""
@@ -548,13 +569,13 @@ def head_dim_phase(fa, pr):
                     key = f"{kname} d={d} {dname}"
                     res[key] = max(res.get(key, 0.0), rel)
     rng = np.random.default_rng(21)
-    for d in (8, 96, 256, 320):
-        shape = (1 + 4 * 6, 16, 4, d)
+    for h, d in ((4, 8), (4, 96), (4, 256), (4, 320), (4, 640), (40, 64)):
+        shape = (1 + 4 * 6, 16, h, d)
         kp = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
         vp = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(dev)
         tables = torch.from_numpy(rng.permutation(np.arange(1, 25))
                                   .reshape(4, 6).astype(np.int32)).to(dev)
-        q = torch.from_numpy(rng.standard_normal((40, 4, d), np.float32)) \
+        q = torch.from_numpy(rng.standard_normal((40, h, d), np.float32)) \
             .to(dev)
         slots = torch.from_numpy(rng.integers(0, 4, 40).astype(np.int32)) \
             .to(dev)
@@ -587,10 +608,11 @@ def head_dim_phase(fa, pr):
                     ("paged_ragged_v1", fa.paged_ragged_v1_cuda(
                         *args, scale), fa.paged_ragged_v1_ref(*args, scale))]
             torch.cuda.synchronize()
+            cell = f"d={d}" if h == 4 else f"h={h} d={d}"
             for kname, out, ref in checks:
-                _, rel = check_err(f"{kname} {name} d={d}", out, ref, tol,
+                _, rel = check_err(f"{kname} {name} {cell}", out, ref, tol,
                                    relative=quant)
-                res[f"{kname} d={d} {name}"] = rel
+                res[f"{kname} {cell} {name}"] = rel
     # the op past 256: attention_ref by the shape rule, no flash launch
     ff = FFModel(FFConfig(), device="cuda")
     x = ff.create_tensor((2, 64, 1024), name="x")
@@ -1294,13 +1316,32 @@ def main() -> int:
     if spilled:
         raise AssertionError(f"bf16 flash backward spills at d=64: "
                              f"{ {k: usage[k] for k in spilled} }")
-    # the bf16 paths of kernels 2, 3, 4 and 8 run on the tensor cores:
+    # nor may the bf16 LSTM forward step, any instantiation of kernel 1's
+    # query-tile kernel or the wide-head decode kernel
+    added = [k for k in usage if k.startswith((
+        "lstm_fwd_step_mma_kernel[", "ragged_v2_tile_kernel[",
+        "paged_decode_wide_kernel["))]
+    if sorted({k[:k.index("[")] for k in added}) != [
+            "lstm_fwd_step_mma_kernel", "paged_decode_wide_kernel",
+            "ragged_v2_tile_kernel"]:
+        raise AssertionError(f"ptxas usage lacks a kernel of those: "
+                             f"{added}")
+    spilled = [k for k in added if usage[k]["spill_stores_loads"] != "0/0 B"]
+    if spilled:
+        raise AssertionError(f"kernels spill: "
+                             f"{ {k: usage[k] for k in spilled} }")
+    log(f"no spills in the bf16 flash backward at d=64 ({len(bwd64)} "
+        f"kernels), the LSTM forward step, kernel 1 or the wide decode "
+        f"kernel ({len(added)}: "
+        f"{max(usage[k]['registers'] for k in added)} registers at most)")
+    # the bf16 paths of kernels 2, 3, 4, 7 and 8 run on the tensor cores:
     # their kernels (*_mma_kernel) must hold HMMA instructions
     hmma = {}
     for name, want in (("flash_attention", ("flash_fwd_mma_kernel",
                                             "flash_bwd_dq_mma_kernel",
                                             "flash_bwd_dkv_mma_kernel")),
-                       ("lstm_scan", ("lstm_bwd_step_mma_kernel",
+                       ("lstm_scan", ("lstm_fwd_step_mma_kernel",
+                                      "lstm_bwd_step_mma_kernel",
                                       "lstm_dh0_mma_kernel",
                                       "lstm_dwh_mma_kernel"))):
         counts = sass_mma_counts(name)
@@ -1352,9 +1393,12 @@ def main() -> int:
         "launches": dres["v1_launches"], **head(dres["paged_ragged_v1"]),
         "bf16": dres["paged_ragged_v1"]["bf16"],
         "v1_vs_v2_max_abs_err": dres["v1_vs_v2_max_abs_err"]}]
-    for row in rows:
+    for row, prefix in zip(rows, ("ragged_v2_tile_kernel[",
+                                  "paged_decode_", "paged_decode_")):
         row["head_dims"] = {k: e for k, e in hres.items()
                             if k.startswith(row["name"] + " ")}
+        row["ptxas"] = {k: u for k, u in usage.items()
+                        if k.startswith(prefix)}
     # the flash rows' headline is the training path's own cell (bf16,
     # not causal); the other three cells ride along
     for kname, line in (("flash_fwd", 67), ("flash_bwd_dq", 131),
@@ -1396,6 +1440,9 @@ def main() -> int:
             "ms_rounds": head["ms_rounds"],
             "library_ms_rounds": head["library_ms_rounds"],
             "sass_hmma": {k: n for k, n in hmma.items() if k.startswith(
+                ("lstm_fwd_",) if kname == "lstm_fwd"
+                else ("lstm_bwd_", "lstm_dh0_", "lstm_dwh_"))},
+            "ptxas": {k: u for k, u in usage.items() if k.startswith(
                 ("lstm_fwd_",) if kname == "lstm_fwd"
                 else ("lstm_bwd_", "lstm_dh0_", "lstm_dwh_"))},
             "f32": cells["f32"], "odd_shape": cells["odd_shape"]})

@@ -85,7 +85,7 @@ class FFConfig:
 
     # tuning knob of the ragged paged-attention kernel: KV tokens per
     # work item in the JAX package, any value >= 0; the port maps it
-    # onto the keys one warp streams per tile (0 = the kernel's default;
+    # onto the keys of the kernel's K/V tile (0 = the kernel's default;
     # kernels/paged_ragged_v2.py _tile_for). It changes no result
     serve_attn_block_kv: int = 0
 

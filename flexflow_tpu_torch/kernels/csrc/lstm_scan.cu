@@ -73,24 +73,28 @@
 // (h_{t-1} = ys_{t-1}, dlin = dxg_{t+1}), so the products are exact in
 // f32 and only the order of the sums changes.
 //
-// The forward, and the f32 backward, run on the CUDA cores: operands
+// The bf16 forward runs the same recurrent product on the tensor cores
+// (lstm_fwd_step_mma_kernel: recurrent_load and recurrent_mma in a ring
+// of its own, then the same shared-memory epilogue, whose xg and c
+// reads are issued before the ring), so its step tile reads ~0.4 MB and
+// the 128 tiles ~48 MB a step, a third of the backward's.
+//
+// The f32 forward and backward run on the CUDA cores: operands
 // staged through shared memory as f32 in slices of 16, two buffers
 // deep, the next slice's global loads issued before the current slice's
 // FMAs; each thread holds 4 rows x 2 units x 4 gates of sums; dwh a
 // tiled f32 GEMM (64 x 128 tiles). Their sums run as f32 FMAs on the
-// CUDA cores — for f32 the contract (no TF32), for the bf16 forward the
-// ceiling it is still under.
+// CUDA cores, the contract for f32 (no TF32).
 //
-// What bounds the bf16 step now is that L2 traffic, not its products:
-// the 128 tiles re-read ~147 MB a step (each row tile all of wh twice,
-// each unit tile all of h_{t-1} and dlin_{t+1}), ~2.8 TB/s at the
-// measured ~52 us a step on an H100, while its mma work would take a
-// few us. What is left (later work): cutting that traffic — thread
+// What bounds a bf16 step now is that L2 traffic, not its products:
+// the 128 backward tiles re-read ~147 MB a step (each row tile all of
+// wh twice, each unit tile all of h_{t-1} and dlin_{t+1}), ~2.8 TB/s at
+// the measured ~52 us a step on an H100, while its mma work would take
+// a few us. What is left (later work): cutting that traffic — thread
 // block clusters whose CTAs share operand slices through TMA multicast
 // or distributed shared memory, or a persistent cooperative launch per
-// sequence with each CTA's wh slice held in shared memory; the forward
-// on the tensor cores, reusing recurrent_load and recurrent_mma; wgmma
-// and TMA in place of mma.sync, ldmatrix and cp.async.
+// sequence with each CTA's wh slice held in shared memory; wgmma and
+// TMA in place of mma.sync, ldmatrix and cp.async.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -457,9 +461,8 @@ __global__ void __launch_bounds__(kThreads)
 // ------------------------------------------------- backward, bf16 (mma)
 // The same three launches on the tensor cores: mma.sync m16n8k16 (bf16
 // operands, f32 sums) fed by ldmatrix from padded bf16 slices that a
-// cp.async ring keeps in flight. These product functions are the ones
-// kernel 7's tensor-core redesign is to reuse (recurrent_load and
-// recurrent_mma are its h_{t-1}.wh).
+// cp.async ring keeps in flight. recurrent_load and recurrent_mma, the
+// product h_{t-1}.wh, also carry the bf16 forward step.
 using tc::bf16;
 
 // A step tile's ring holds, a stage each, slices of both products: the
@@ -830,6 +833,88 @@ __global__ void __launch_bounds__(kThreads)
       }
 }
 
+// ------------------------------------------------- forward, bf16 (mma)
+// One time step on the tensor cores: the recurrent product h_{t-1}.wh
+// through recurrent_load and recurrent_mma (8 warps as 2 rows x 4
+// gates), then the f32 sums staged in shared memory where the ring was,
+// so that one thread holds i, f, g, o of a (row, unit), and the gate
+// math of lstm_fwd_step_kernel with its rounding points: h_{t-1} enters
+// in bf16 (ys_{t-1}, or h0), ys is written in bf16 and cs in f32. The
+// forward has no dh product, so a stage holds only the recurrent
+// product's slices (26 KB). On an H100 the depth of the ring and of a
+// slice hardly moved a step (8, 6, 4 or 3 stages of 64- or 128-deep
+// slices, and 8 of 32, within 5%): four stages of 64. What did move it
+// was issuing the epilogue's own device-memory reads (xg_t and c_{t-1})
+// before the ring: 1.20 -> 0.86 ms a 40-step call
+// (tools/torch_kernel_time.py and its A/B copies).
+constexpr int kFwdStage = kBM * kLdK + kSK * kLdN;
+constexpr int kFwdStages = 4;
+constexpr size_t kFwdSmem = (size_t)kFwdStages * kFwdStage * sizeof(bf16);
+static_assert((size_t)kBM * kLdLin * sizeof(float) <= kFwdSmem,
+              "the epilogue staging fits in the ring");
+static_assert(kFwdSmem <= 232448, "the ring fits an SM's shared memory");
+
+__global__ void __launch_bounds__(kThreads, 1) lstm_fwd_step_mma_kernel(
+    const bf16* __restrict__ xg, const bf16* __restrict__ wh,
+    const bf16* __restrict__ hp, const float* __restrict__ cp,
+    bf16* __restrict__ ys, float* __restrict__ cs, int B, int H, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring_smem = reinterpret_cast<bf16*>(smem_raw);
+  const int b0 = blockIdx.y * kBM, j0 = blockIdx.x * kBU;
+  // the epilogue's operands — the four gate inputs and the cell carry of
+  // this thread's 8 (row, unit) outputs — are loaded before the ring, so
+  // their device-memory latency hides behind the product
+  constexpr int kOut = kBM * kBU / kThreads;
+  float xin[kOut][4], cin[kOut];
+  const int64_t H4 = 4 * (int64_t)H;
+#pragma unroll
+  for (int k = 0; k < kOut; ++k) {
+    const int idx = threadIdx.x + k * kThreads;
+    const int r = idx / kBU, u = idx % kBU, b = b0 + r, j = j0 + u;
+    const bool in = b < B && j < H;
+    const bf16* x = xg + (int64_t)b * H4 + j;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) xin[k][g] = in ? to_f32(x[g * H]) : 0.f;
+    cin[k] = in ? cp[(int64_t)b * H + j] : 0.f;
+  }
+  float acc[2][4][4] = {};
+  ring<kFwdStages>(
+      (H + kSK - 1) / kSK,
+      [&](int st, int sl) {
+        recurrent_load(ring_smem + st * kFwdStage, hp, wh, B, H, b0, j0,
+                       sl * kSK, vec);
+      },
+      [&](int st, int) { recurrent_mma(ring_smem + st * kFwdStage, acc); });
+  // the ring is drained: stage the sums in its place
+  float* slin = reinterpret_cast<float*>(smem_raw);
+  const int warp = threadIdx.x >> 5, wm = warp >> 2, wn = warp & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        slin[(wm * 32 + frag_row(i, e)) * kLdLin + wn * kBU +
+             frag_col(j, e)] = acc[i][j][e];
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kOut; ++k) {
+    const int idx = threadIdx.x + k * kThreads;
+    const int r = idx / kBU, u = idx % kBU, b = b0 + r, j = j0 + u;
+    if (b >= B || j >= H) continue;
+    const float* lin = slin + r * kLdLin + u;
+    const float i = sigmoid(xin[k][0] + lin[0]);
+    const float f = sigmoid(xin[k][1] + lin[kBU]);
+    const float g = tanhf(xin[k][2] + lin[2 * kBU]);
+    const float o = sigmoid(xin[k][3] + lin[3 * kBU]);
+    const int64_t idx2 = (int64_t)b * H + j;
+    const float c = f * cin[k] + i * g;
+    ys[idx2] = __float2bfloat16(o * tanhf(c));
+    cs[idx2] = c;
+  }
+}
+
+
 template <typename T>
 cudaError_t fwd(const void* xg_, const void* wh_, const void* h0_,
                 const float* c0, void* ys_, float* cs, int Tn, int B, int H,
@@ -840,14 +925,32 @@ cudaError_t fwd(const void* xg_, const void* wh_, const void* h0_,
   T* ys = static_cast<T*>(ys_);
   const int64_t bh = (int64_t)B * H, bh4 = 4 * bh;
   const dim3 grid((H + kBU - 1) / kBU, (B + kBM - 1) / kBM);
-  for (int t = 0; t < Tn; ++t) {
-    const T* hp = t == 0 ? h0 : ys + (t - 1) * bh;
-    const float* cp = t == 0 ? c0 : cs + (t - 1) * bh;
-    lstm_fwd_step_kernel<T><<<grid, kThreads, 0, stream>>>(
-        xg + t * bh4, wh, hp, cp, ys + t * bh, cs + t * bh, B, H);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-    ++*launched;
+  cudaError_t e;
+  if constexpr (std::is_same_v<T, bf16>) {
+    // 16-byte copies when every row starts 16-byte aligned (H % 8 == 0)
+    const int vec = H % 8 == 0;
+    auto step = lstm_fwd_step_mma_kernel;
+    if ((e = cudaFuncSetAttribute(step,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kFwdSmem)) != cudaSuccess)
+      return e;
+    for (int t = 0; t < Tn; ++t) {
+      const bf16* hp = t == 0 ? h0 : ys + (t - 1) * bh;
+      const float* cp = t == 0 ? c0 : cs + (t - 1) * bh;
+      step<<<grid, kThreads, kFwdSmem, stream>>>(
+          xg + t * bh4, wh, hp, cp, ys + t * bh, cs + t * bh, B, H, vec);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+      ++*launched;
+    }
+  } else {  // f32: the CUDA-core kernel, exact f32 sums
+    for (int t = 0; t < Tn; ++t) {
+      const T* hp = t == 0 ? h0 : ys + (t - 1) * bh;
+      const float* cp = t == 0 ? c0 : cs + (t - 1) * bh;
+      lstm_fwd_step_kernel<T><<<grid, kThreads, 0, stream>>>(
+          xg + t * bh4, wh, hp, cp, ys + t * bh, cs + t * bh, B, H);
+      if ((e = cudaGetLastError()) != cudaSuccess) return e;
+      ++*launched;
+    }
   }
   return cudaSuccess;
 }

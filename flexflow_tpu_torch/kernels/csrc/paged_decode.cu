@@ -21,11 +21,14 @@
 //   o[b,h] = softmax(q[b,h] . K[:n,h] * scale) . V[:n,h], n = len[b],
 //   key j at page table_row[j / ps], slot j % ps. Keys at or past n are
 //   masked; len >= 1 (a zero length NaNs the softmax, as in the plain
-//   version). Float32 or bfloat16 q and pages, any head_dim from 1 to
-//   512: a thread holds EPT = ceil(D/32) elements (1-8, or 16 past 256);
+//   version). Float32 or bfloat16 q and pages, any head_dim: up to 512
+//   a thread holds EPT = ceil(D/32) elements (1-8, or 16 past 256);
 //   when D < 32 * EPT (TAIL) those at or past D read as 0
 //   (adding exactly 0 to the dot and its warp reduction) and are never
-//   stored, otherwise the mask is compiled out.
+//   stored, otherwise the mask is compiled out. Past 512
+//   (paged_decode_wide_kernel) q and the accumulators live in shared
+//   memory, (NW + 1) * D f32, which bounds D (the wrapper takes up to
+//   2048).
 //
 // Bound on an H100 SXM (3.35 TB/s): per row 4*n*H*D flops over
 // 2*n*H*D*itemsize bytes of live K/V, about 0.5 flop/byte in f32, so
@@ -59,6 +62,8 @@
 namespace {
 
 constexpr int NW = 8;    // warps a CTA: they split one row's keys
+// a block's shared memory on an H100 (dynamic, past 48 KB on request)
+constexpr size_t kMaxSmem = 232448;
 
 // keys a warp streams per step: 8, or 4 at EPT 16 (D past 256), which
 // keeps the K and V tiles at 128 registers a thread
@@ -231,6 +236,131 @@ __global__ void __launch_bounds__(NW * 32)
   }
 }
 
+// Head dims past 512: q and the warps' accumulator rows live in dynamic
+// shared memory rather than in EPT registers a thread, and the dot and
+// the accumulator update are strided loops over D (lane, lane + 32, ...).
+// The same key split, online softmax and combine as paged_decode_kernel.
+template <typename QT, typename KVT, bool RAGGED>
+__global__ void __launch_bounds__(NW * 32)
+    paged_decode_wide_kernel(const QT* __restrict__ q, int64_t q_sb,
+                             int64_t q_sh, const KVT* __restrict__ kp,
+                             const KVT* __restrict__ vp, int64_t p_sp,
+                             int64_t p_ss, int64_t p_sh,
+                             const int* __restrict__ page_tables,
+                             int64_t pt_s,
+                             const int* __restrict__ lane_slots,
+                             const int* __restrict__ lens,
+                             QT* __restrict__ out, int64_t o_sb,
+                             int64_t o_sh, int D, int ps, int pp,
+                             float scale) {
+  constexpr int TILE = 4;  // keys a warp scores before it updates
+  // shared: per-warp running max and sum, q (D f32), the per-warp
+  // accumulator rows (NW x D f32), this row's live page-table entries
+  extern __shared__ float smem[];
+  float* s_m = smem;
+  float* s_l = smem + NW;
+  float* s_q = smem + 2 * NW;
+  float* s_acc = s_q + D;
+  int* s_pages = reinterpret_cast<int*>(s_acc + NW * D);
+
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  const int row_idx = RAGGED ? lane_slots[b] : b;
+  const int* row = page_tables + (int64_t)row_idx * pt_s;
+  const int n = min(lens[b], ps * pp);
+  const int live = (n + ps - 1) / ps;  // pages below the length
+  for (int i = threadIdx.x; i < live; i += blockDim.x) s_pages[i] = row[i];
+  const QT* qh = q + (int64_t)b * q_sb + (int64_t)h * q_sh;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) s_q[d] = to_f32(qh[d]);
+  float* acc = s_acc + w * D;  // this warp's row
+  for (int d = lane; d < D; d += 32) acc[d] = 0.f;
+  __syncthreads();
+
+  float m = -INFINITY;  // running max of this warp's scores
+  float l = 0.f;        // running sum of exp(score - m)
+  const int64_t head_off = (int64_t)h * p_sh;
+  for (int j0 = w * TILE; j0 < n; j0 += NW * TILE) {
+    int64_t base[TILE];
+    float s[TILE];
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < TILE; ++j) {
+      const int pos = j0 + j;
+      base[j] = pos < n ? (int64_t)s_pages[pos / ps] * p_sp +
+                              (int64_t)(pos % ps) * p_ss + head_off
+                        : 0;
+      float d = 0.f;
+      if (pos < n)
+        for (int e = lane; e < D; e += 32)
+          d = fmaf(s_q[e], to_f32(kp[base[j] + e]), d);
+      d = warp_sum(d) * scale;
+      s[j] = pos < n ? d : -INFINITY;
+      tmax = fmaxf(tmax, s[j]);
+    }
+    // j0 < n, so the tile holds a live key and tmax is finite
+    const float m_new = fmaxf(m, tmax);
+    const float alpha = expf(m - m_new);  // 0 on the warp's first tile
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < TILE; ++j) {
+      s[j] = expf(s[j] - m_new);  // masked keys: exp(-inf) = 0
+      psum += s[j];
+    }
+    l = l * alpha + psum;
+    for (int e = lane; e < D; e += 32) {
+      float x = acc[e] * alpha;
+#pragma unroll
+      for (int j = 0; j < TILE; ++j)
+        if (j0 + j < n) x = fmaf(s[j], to_f32(vp[base[j] + e]), x);
+      acc[e] = x;
+    }
+    m = m_new;
+  }
+
+  // combine the warps, as paged_decode_kernel
+  if (lane == 0) {
+    s_m[w] = m;
+    s_l[w] = l;
+  }
+  __syncthreads();
+  QT* oh = out + (int64_t)b * o_sb + (int64_t)h * o_sh;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) mx = fmaxf(mx, s_m[i]);
+    float lsum = 0.f, o = 0.f;
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const float c = expf(s_m[i] - mx);
+      lsum = fmaf(s_l[i], c, lsum);
+      o = fmaf(s_acc[i * D + d], c, o);
+    }
+    oh[d] = from_f32<QT>(o / lsum);
+  }
+}
+
+template <typename QT, typename KVT, bool RAGGED>
+cudaError_t launch_wide(const Args& a) {
+  const size_t smem = (size_t)(2 * NW + (NW + 1) * a.D) * sizeof(float) +
+                      (size_t)a.pp * sizeof(int);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kern = paged_decode_wide_kernel<QT, KVT, RAGGED>;
+  if (smem > 48 * 1024) {  // past the default, on request
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kern<<<dim3(a.B, a.H), dim3(NW * 32), smem, a.stream>>>(
+      static_cast<const QT*>(a.q), a.q_sb, a.q_sh,
+      static_cast<const KVT*>(a.kp), static_cast<const KVT*>(a.vp), a.p_sp,
+      a.p_ss, a.p_sh, a.page_tables, a.pt_s, a.lane_slots, a.lens,
+      static_cast<QT*>(a.out), a.o_sb, a.o_sh, a.D, a.ps, a.pp, a.scale);
+  return cudaGetLastError();
+}
+
 template <typename QT, typename KVT, int EPT, bool RAGGED>
 cudaError_t launch(const Args& a) {
   const size_t smem =
@@ -261,12 +391,13 @@ cudaError_t by_head_dim(const Args& a) {
     case 7: return launch<QT, KVT, 7, RAGGED>(a);
     case 8: return launch<QT, KVT, 8, RAGGED>(a);
   }
-  return launch<QT, KVT, 16, RAGGED>(a);  // D <= 512, checked
+  if (a.D <= 512) return launch<QT, KVT, 16, RAGGED>(a);
+  return launch_wide<QT, KVT, RAGGED>(a);
 }
 
 template <bool RAGGED>
 int dispatch(int q_dtype, int kv_dtype, const Args& a) {
-  if (a.B < 1 || a.H < 1 || a.H > 65535 || a.D < 1 || a.D > 512 ||
+  if (a.B < 1 || a.H < 1 || a.H > 65535 || a.D < 1 ||
       a.ps < 1 || a.pp < 1 || (size_t)a.pp * sizeof(int) > 32 * 1024)
     return (int)cudaErrorInvalidValue;
   cudaError_t rc = cudaErrorInvalidValue;

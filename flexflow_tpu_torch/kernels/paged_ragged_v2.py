@@ -12,11 +12,13 @@ Counterpart of ``flexflow_tpu/kernels/paged_ragged_v2.py``. Four pieces:
     softmax in f32, divide after the p.v product). The CPU path, and
     what the kernel is held against on the card.
   * :func:`paged_ragged_v2_cuda` — the wrapper of the hand-written
-    Hopper kernel ``csrc/paged_ragged_v2.cu`` (one CTA per lane, one
-    warp per head, online softmax in f32, ragged skipping of pages past
-    each lane's length; int8/fp8 pages dequantize in registers). Checks
-    what it is given, launches on the current stream, counts its
-    launches in :data:`launches`.
+    Hopper kernel ``csrc/paged_ragged_v2.cu`` (a CTA per query tile —
+    consecutive lanes of one sequence — head and split of the keys, each
+    K/V page of the tile read once into shared memory, online softmax in
+    f32, the splits' partial sums combined by the tile's last split,
+    ragged skipping of pages past the tile's longest lane; int8/fp8 pages
+    dequantize as they are read). Checks what it is given, launches on
+    the current stream, counts its launches in :data:`launches`.
   * :func:`paged_attention_ragged_v2` — the dispatch: CUDA tensors
     launch the kernel (a build or launch failure raises), CPU tensors
     take the plain version. No fallback between the two.
@@ -38,12 +40,28 @@ import torch
 # to 0 before the run to count)
 launches = 0
 
-# keys per tile a warp streams when block_kv is not given
-DEFAULT_TILE = 16
+# the ragged kernel's tiles: QUERY_TILE lanes with 8, 16 or 32 keys, or,
+# where no such tile's shared memory fits TILE_SMEM_BYTES, WIDE_TILE
+# lanes with WIDE_TILE keys; DEFAULT_TILE keys when block_kv is not given
+QUERY_TILE = 8
 _TILES = (8, 16, 32)
-# the paged kernels take any head_dim up to this (a thread holds
-# ceil(head_dim / 32) elements, those past head_dim masked)
-MAX_PAGED_HEAD_DIM = 512
+WIDE_TILE = 4
+DEFAULT_TILE = 32
+# of the 227 KB of shared memory an H100 block may take, what a tile may
+# use; the rest is left for the page-table row
+TILE_SMEM_BYTES = 200 * 1024
+# K/V tiles in the kernel's cp.async ring (kStages in the source), two
+# for the wide tile
+KV_STAGES = 4
+# a tile's keys are walked in splits of SPLIT_KEYS, one CTA each, whose
+# partial softmax sums the tile's last split combines; at most MAX_SPLITS
+# a tile (the split grows for longer contexts)
+SPLIT_KEYS = 128
+MAX_SPLITS = 8
+# the paged kernels take any head_dim up to this: the widest head whose
+# 4-lane tile (ragged kernel) and per-warp accumulator rows (decode and
+# v1 kernels) fit in shared memory
+MAX_PAGED_HEAD_DIM = 2048
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # page storage types: the activation types, then the quantized codes
 _KV_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
@@ -131,27 +149,52 @@ def ragged_attention_ref(q, k_pages, v_pages, page_tables, lane_slots,
 
 
 # ---------------------------------------------------------- CUDA path
+def tile_smem_bytes(query_tile: int, key_tile: int, head_dim: int,
+                    itemsize: int) -> int:
+    """Shared memory of one CTA of the ragged kernel without its
+    page-table row, as ``Geometry::bytes`` in csrc/paged_ragged_v2.cu
+    computes it: the query tile and its f32 accumulators (rows of the
+    head_dim rounded up to a 16-byte chunk of pages), the K/V ring of
+    KV_STAGES tiles (two for WIDE_TILE; rows of an odd number of 16-byte
+    chunks), p, alpha, l, the lengths and the scales."""
+    e = 16 // itemsize
+    u = -(-head_dim // e)
+    p = -(-query_tile * (key_tile + 1) // 4) * 4
+    kv = 2 * (2 if key_tile == WIDE_TILE else KV_STAGES) * key_tile
+    return (4 * (2 * query_tile * u * e + p + 3 * query_tile + kv)
+            + kv * 16 * (u | 1))
+
+
 def _tile_for(block_kv: Optional[int], head_dim: int) -> int:
     """The kernel's keys per tile for ``FFConfig.serve_attn_block_kv``.
     In the JAX package the knob is KV tokens per work item, any value
     >= 0, rounded to whole pages; it changes no result. Here it maps to
-    the largest of 8, 16, 32 keys that is <= the value and keeps
-    tile * ceil(head_dim / 32) <= 64 (the K and V tiles' registers),
-    the smallest such tile for a value below 8, and DEFAULT_TILE (or
-    the largest tile that fits, if it does not) for 0 or None. Past
-    head_dim 256 no tile of 8 fits and the tile is 4, whatever the
-    knob. Only a negative value raises."""
+    the largest of 8, 16, 32 keys that is <= the value and whose
+    QUERY_TILE-lane tile fits TILE_SMEM_BYTES on pages of any type, the
+    smallest such tile for a value below 8, and DEFAULT_TILE (or the
+    largest tile that fits, if it does not) for 0 or None. Where no
+    such tile fits (head_dim past 636) the tile is WIDE_TILE keys and
+    lanes, whatever the knob. Only a negative value raises."""
     if block_kv is not None and int(block_kv) < 0:
         raise ValueError(f"block_kv must be >= 0 (0 = default), got "
                          f"{block_kv}")
-    ept = -(-max(1, head_dim) // 32)
-    fits = [t for t in _TILES if t * ept <= 64]
+    fits = [t for t in _TILES
+            if max(tile_smem_bytes(QUERY_TILE, t, max(1, head_dim), s)
+                   for s in (1, 2, 4)) <= TILE_SMEM_BYTES]
     if not fits:
-        return 4
+        return WIDE_TILE
     if not block_kv:
         return min(DEFAULT_TILE, max(fits))
     below = [t for t in fits if t <= int(block_kv)]
     return max(below) if below else min(fits)
+
+
+def key_splits(max_keys: int):
+    """(keys a split, splits a tile) of the ragged kernel for lanes of at
+    most ``max_keys`` keys (page_size * pages_per_seq): splits of
+    SPLIT_KEYS, or of the multiple of it that keeps them to MAX_SPLITS."""
+    ks = SPLIT_KEYS * max(1, -(-max_keys // (SPLIT_KEYS * MAX_SPLITS)))
+    return ks, -(-max_keys // ks)
 
 
 def check_paged_inputs(q, k_pages, v_pages, page_tables, vectors,
@@ -228,8 +271,6 @@ def paged_ragged_v2_cuda(q, k_pages, v_pages, page_tables, lane_slots,
                        {"lane_slots": lane_slots, "lane_lens": lane_lens})
     _check_scales(k_pages, k_scales, v_scales)
     t, h, d = q.shape
-    if not 1 <= h <= 32:
-        raise ValueError(f"num_heads {h} not in [1, 32] (one warp each)")
     tile = _tile_for(block_kv, d)
     out = torch.empty((t, h, d), dtype=q.dtype, device=q.device)
     if t == 0:
@@ -240,9 +281,16 @@ def paged_ragged_v2_cuda(q, k_pages, v_pages, page_tables, lane_slots,
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     fn.argtypes = [i32, i32, ptr, i64, i64, ptr, ptr, ptr, ptr, i64, i64,
                    i64, ptr, i64, ptr, ptr, ptr, i64, i64, i32, i32, i32,
-                   i32, i32, i32, ctypes.c_float, ptr]
+                   i32, i32, i32, ctypes.c_float, i32, i32, ptr, ptr, ptr]
     fn.restype = i32
     quant = k_scales is not None
+    ks, nsplit = key_splits(k_pages.shape[1] * page_tables.shape[1])
+    # the kernel's plan (work items, tiles, split counts) and, with key
+    # splits, their partial sums
+    plan = torch.empty(t * h * nsplit + 1 + 2 * t + t * h,
+                       dtype=torch.int32, device=q.device)
+    ws = None if nsplit == 1 else torch.empty(
+        t * h * nsplit * (d + 2), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(_DTYPE_CODE[q.dtype], _KV_CODE[k_pages.dtype],
@@ -255,7 +303,9 @@ def paged_ragged_v2_cuda(q, k_pages, v_pages, page_tables, lane_slots,
                 lane_slots.data_ptr(), lane_lens.data_ptr(),
                 out.data_ptr(), out.stride(0), out.stride(1),
                 t, h, d, k_pages.shape[1], page_tables.shape[1], tile,
-                float(scale), stream)
+                float(scale), nsplit, ks,
+                None if ws is None else ws.data_ptr(), plan.data_ptr(),
+                stream)
     if rc != 0:
         lib.paged_ragged_v2_error_string.restype = ctypes.c_char_p
         msg = lib.paged_ragged_v2_error_string(rc).decode()

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each held against its plain
 version over every head_dim / tile / dtype it takes, at small shapes
-(the ragged kernel v2 on f32, bf16, int8 and fp8 pages; the paged decode
+(the ragged kernel v2 on f32, bf16, int8 and fp8 pages, at any head
+count and over every lane layout; the paged decode
 kernel and the v1 ragged kernel on f32 and bf16 pages; the flash and
 LSTM kernels on f32 and bf16), the serving engine's mixed step,
 quantized pools and legacy path, and the LSTM op's gradients on the
@@ -424,13 +425,21 @@ def _guarded(fn, *args, **kw):
     return out
 
 
+# past 512: kernel 1's 8-key and 4-lane tiles, kernels 5 and 6's
+# accumulators in shared memory
+WIDE_HEAD_DIMS = [520, 1024]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", ODD_HEAD_DIMS + [300, 320, 480, 512])
+@pytest.mark.parametrize("d", ODD_HEAD_DIMS + [300, 320, 480, 512]
+                         + WIDE_HEAD_DIMS)
 def test_paged_kernels_any_head_dim(card, dtype, d):
     """Kernels 1 (every tile the knob maps to), 5 and 6 at head dims off
-    the multiples of 32 and past 256 below 512 (lanes past d masked) and
-    up to 512 (4-key tiles past 256). q's rows are followed by NaNs and
-    each output by a canary, so a read or a store past d fails."""
+    the multiples of 32, past 256 and past 512 (rows not 16-byte aligned
+    staged element by element in kernel 1; kernels 5 and 6 mask lanes
+    past d up to 512 and loop over d past it). q's rows are followed by
+    NaNs and each output by a canary, so a read or a store past d
+    fails."""
     q, *rest = _inputs(card, dtype, 4, d, 12, seed=d)
     args = (_nan_after_rows(q), *rest)
     scale = 1.0 / math.sqrt(d)
@@ -455,7 +464,8 @@ def test_paged_kernels_any_head_dim(card, dtype, d):
 
 
 @pytest.mark.parametrize("kv", [torch.int8, torch.float8_e4m3fn])
-@pytest.mark.parametrize("d", ODD_HEAD_DIMS + [320, 480, 512])
+@pytest.mark.parametrize("d", ODD_HEAD_DIMS + [320, 480, 512]
+                         + WIDE_HEAD_DIMS)
 def test_quantized_kernel_any_head_dim(card, kv, d):
     """Kernel 1 on int8 and fp8 pages at head dims off the multiples of
     32 and past 256: the masked lanes leave the dequantized dot bit for
@@ -473,12 +483,127 @@ def test_quantized_kernel_any_head_dim(card, kv, d):
     assert _rel(out, ref) <= QUANT_REL
 
 
-def test_paged_kernels_refuse_past_512(card):
-    args = _inputs(card, torch.float32, 2, 520, 8)
-    with pytest.raises(ValueError, match="head_dim 520"):
+def test_paged_kernels_refuse_past_the_limit(card):
+    """Past MAX_PAGED_HEAD_DIM (2048) the paged wrappers raise a
+    ValueError naming the limit and launch nothing."""
+    d = pr.MAX_PAGED_HEAD_DIM + 8
+    args = _inputs(card, torch.float32, 2, d, 8, t=4, s=2, pp=2)
+    q, kp, vp, tables, _, lens = args
+    before = (pr.launches, dict(fa.launches))
+    with pytest.raises(ValueError, match=f"head_dim {d}"):
         pr.paged_ragged_v2_cuda(*args, 0.05)
-    with pytest.raises(ValueError, match="head_dim 520"):
+    with pytest.raises(ValueError, match=f"head_dim {d}"):
         fa.paged_attention_ragged_v1(*args, scale=0.05)
+    with pytest.raises(ValueError, match=f"head_dim {d}"):
+        fa.paged_attention_decode(q[:2], kp, vp, tables, lens[:2],
+                                  scale=0.05)
+    assert (pr.launches, dict(fa.launches)) == before
+
+
+def _layout_inputs(dev, h, d, layout, seed, t=45, ps=8, s=5):
+    """Kernel 1's inputs (f32) with a lane layout, over rows of 40 pages
+    (320 keys: three key splits) where h * d <= 4096, else 6: one_chunk
+    — every lane on one slot at the row's last t lengths (a prefill
+    chunk late in a long sequence); chunk_decode — such a chunk on slot
+    1 then one decode lane on each other slot (the mixed step's layout);
+    shuffled — slots and lengths at random; slot_change_mid_tile — runs
+    of 5 lanes a slot, so 8-lane tiles end at slot changes inside
+    them."""
+    pp = 40 if h * d <= 4096 else 6
+    rng = np.random.default_rng(seed)
+    npages = 1 + s * pp
+    put = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
+    kp = put(rng.standard_normal((npages, ps, h, d), np.float32))
+    vp = put(rng.standard_normal((npages, ps, h, d), np.float32))
+    tables = put(rng.permutation(np.arange(1, npages)).reshape(s, pp)
+                 .astype(np.int32))
+    q = put(rng.standard_normal((t, h, d), np.float32))
+    cap = ps * pp
+    if layout == "one_chunk":
+        slots, lens = np.zeros(t), np.arange(cap - t + 1, cap + 1)
+    elif layout == "chunk_decode":
+        c = t - (s - 1)
+        slots = np.concatenate([np.ones(c), [0], np.arange(2, s)])
+        lens = np.concatenate([np.arange(cap - c + 1, cap + 1),
+                               rng.integers(1, cap + 1, s - 1)])
+    elif layout == "shuffled":
+        slots, lens = rng.integers(0, s, t), rng.integers(1, cap + 1, t)
+    else:
+        slots, lens = np.arange(t) // 5 % s, rng.integers(1, cap + 1, t)
+    lens = np.minimum(lens, cap)
+    return (q, kp, vp, tables, put(slots.astype(np.int32)),
+            put(lens.astype(np.int32)))
+
+
+def _ragged_on_pages(card, args, pages, block_kv=None):
+    """Kernel 1 (guarded: q rows followed by NaNs, the output by a
+    canary) and its plain version on f32 inputs put on `pages`; asserts
+    one launch and the page type's tolerance."""
+    q, kp, vp, *rest = args
+    q = _nan_after_rows(q)
+    kw = {}
+    if pages in (torch.int8, torch.float8_e4m3fn):
+        kp, ks = pr.quantize_kv_rows(kp, pages)
+        vp, vs = pr.quantize_kv_rows(vp, pages)
+        kw = {"k_scales": ks, "v_scales": vs}
+    else:
+        q, kp, vp = q.to(pages), kp.to(pages), vp.to(pages)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    before = pr.launches
+    out = _guarded(pr.paged_ragged_v2_cuda, q, kp, vp, *rest, scale,
+                   block_kv=block_kv, **kw)
+    assert pr.launches == before + 1
+    ref = pr.ragged_attention_ref(q, kp, vp, *rest, scale, **kw)
+    if pages == torch.bfloat16:
+        assert float((out.float() - ref.float()).abs().max()) <= BF16_ATOL
+    else:
+        assert _rel(out, ref) <= (F32_ATOL if pages == torch.float32
+                                  else QUANT_REL)
+
+
+PAGE_TYPES = [torch.float32, torch.bfloat16, torch.int8,
+              torch.float8_e4m3fn]
+
+
+@pytest.mark.parametrize("pages", PAGE_TYPES)
+@pytest.mark.parametrize("h", [1, 8, 40])
+@pytest.mark.parametrize("d", [8, 64, 96, 640])
+def test_ragged_kernel_any_head_count(card, pages, h, d):
+    """Kernel 1 at 1, 8 and 40 heads (the grid's head axis: no limit)
+    and head dims 8 to 640, on all four page types, over the mixed
+    step's lane layout."""
+    _ragged_on_pages(card, _layout_inputs(card, h, d, "chunk_decode",
+                                          seed=h + d), pages)
+
+
+@pytest.mark.parametrize("pages", PAGE_TYPES)
+@pytest.mark.parametrize("layout", ["one_chunk", "chunk_decode",
+                                    "shuffled", "slot_change_mid_tile"])
+def test_ragged_kernel_lane_layouts(card, pages, layout):
+    """Kernel 1's query tiles and key splits over every lane layout,
+    with each key tile the knob maps to at d = 64."""
+    args = _layout_inputs(card, 8, 64, layout, seed=3)
+    for block_kv in (8, 16, None):
+        _ragged_on_pages(card, args, pages, block_kv=block_kv)
+
+
+def test_ragged_tile_map_matches_the_kernel(card):
+    """The wrapper's shared-memory count of a tile (tile_smem_bytes, what
+    _tile_for chooses by) equals the kernel's own Geometry, and every
+    tile the map chooses fits."""
+    import ctypes
+    from flexflow_tpu_torch.kernels._build import load_library
+    fn = load_library("paged_ragged_v2").paged_ragged_v2_smem_bytes
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    for d in (1, 8, 20, 64, 96, 300, 512, 520, 640, 790, 800, 2048):
+        for block_kv in (None, 8, 16, 32):
+            tile = pr._tile_for(block_kv, d)
+            tq = pr.WIDE_TILE if tile == pr.WIDE_TILE else pr.QUERY_TILE
+            for code, item in ((0, 4), (1, 2), (2, 1), (3, 1)):
+                got = fn(code, d, tile, 0)
+                assert got == pr.tile_smem_bytes(tq, tile, d, item)
+                assert got <= pr.TILE_SMEM_BYTES
 
 
 def test_attention_op_past_256_takes_attention_ref(card):
@@ -658,11 +783,12 @@ def test_legacy_engine_on_card(card):
 LSTM_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
-def _lstm_inputs(dev, dtype, t, b, h, seed=0):
+def _lstm_inputs(dev, dtype, t, b, h, seed=0, wh_scale=0.1):
     rng = np.random.default_rng(seed)
     put = lambda a, s: torch.from_numpy(  # noqa: E731
         rng.standard_normal(a, np.float32) * s).to(dev)
-    return (put((t, b, 4 * h), 0.5).to(dtype), put((h, 4 * h), 0.1).to(dtype),
+    return (put((t, b, 4 * h), 0.5).to(dtype),
+            put((h, 4 * h), wh_scale).to(dtype),
             put((b, h), 0.3), put((b, h), 0.3), put((t, b, h), 1.0).to(dtype))
 
 
@@ -697,6 +823,45 @@ def test_lstm_kernels_match_plain_versions(card, dtype, t, b, h):
     assert {k: ls.device_launches[k] - before_dev[k]
             for k in ls.device_launches} == {"lstm_fwd": t,
                                              "lstm_bwd": t + 2}
+
+
+@pytest.mark.parametrize("t,b,h,wh_scale", [(3, 3, 20, 0.1),
+                                            (5, 70, 1000, 0.1),
+                                            (40, 256, 1024, 0.03)])
+def test_lstm_fwd_bf16_tensor_cores(card, t, b, h, wh_scale):
+    """The bf16 forward (lstm_fwd_step_mma_kernel, one launch a step)
+    against its plain version: B off the 64-row tiles, H not a multiple
+    of 8 (rows staged element by element), and the NMT shape with wh at
+    the scale of the model's glorot init (~0.03 at H=1024). At 0.1 and
+    H=1024 the 40-step recurrence is so sensitive that the plain version
+    with its product summed in another order differs from itself by
+    4.2e-2 of max |ys| on an H100, as much as the kernel does (4.2e-2):
+    that shape tests the recurrence, not the kernel."""
+    xg, wh, h0, c0, _ = _lstm_inputs(card, torch.bfloat16, t, b, h,
+                                     seed=t * b, wh_scale=wh_scale)
+    before = ls.device_launches["lstm_fwd"]
+    ys, cs = ls.lstm_fwd_cuda(xg, wh, h0, c0)
+    torch.cuda.synchronize()
+    assert ls.device_launches["lstm_fwd"] == before + t
+    ys_ref, cs_ref = ls.lstm_fwd_ref(xg, wh, h0, c0)
+    assert ys.dtype == torch.bfloat16 and cs.dtype == torch.float32
+    assert _rel_err(ys, ys_ref) <= LSTM_REL[torch.bfloat16]
+    assert _rel_err(cs, cs_ref) <= LSTM_REL[torch.bfloat16]
+
+
+def test_lstm_sequence_bf16_autograd_on_card(card):
+    """LSTMSequence in bf16 (the tensor-core forward and backward)
+    against torch autograd through scan_reference, bf16 tolerance."""
+    xg, wh, h0, c0, dys = _lstm_inputs(card, torch.bfloat16, 6, 33, 96, 4)
+    leaves = [x.requires_grad_() for x in (xg, wh, h0, c0)]
+    ys = ls.lstm_sequence(*leaves)
+    g = torch.autograd.grad(ys, leaves, dys)
+    ref = ls.scan_reference(*leaves)
+    g_ref = torch.autograd.grad(ref, leaves, dys)
+    assert _rel_err(ys, ref) <= LSTM_REL[torch.bfloat16]
+    for name, a, b in zip(("dxg", "dwh", "dh0", "dc0"), g, g_ref):
+        assert a.dtype == b.dtype, name
+        assert _rel_err(a, b) <= LSTM_REL[torch.bfloat16], name
 
 
 def test_lstm_sequence_autograd_on_card(card):

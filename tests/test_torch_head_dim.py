@@ -7,8 +7,9 @@
 2. The attention op's shape rule: head_dim above 256 takes
    ``attention_ref`` (JAX's einsum path) without calling the flash entry
    point; 256 and below call it.
-3. The paged kernels' tile map finds a tile for every head_dim up to
-   512, and the ragged plain version agrees with JAX's at wide heads.
+3. The paged kernels' tile map finds a tile for head dims up to 512
+   (tests/test_torch_paged_wide.py takes it to 2048), and the ragged
+   plain version agrees with JAX's at wide heads.
 
 Inputs come from np.random.default_rng. Tolerances: f32 1e-6 absolute
 (the same f32 math over the same nonzero terms); bf16 2e-2 of the
@@ -138,13 +139,13 @@ def test_op_routes_wide_heads_to_attention_ref(monkeypatch, head_dim,
 
 @pytest.mark.parametrize("head_dim", [96, 256, 512])
 def test_tile_for_finds_a_tile(head_dim):
-    """Every knob value maps onto a tile whose K and V registers fit
-    (tile * ceil(head_dim / 32) <= 64): 8 or 16 keys at 96, 8 at 256,
-    4 past 256."""
-    ept = -(-head_dim // 32)
+    """Every knob value maps onto a key tile whose 8-lane CTA fits the
+    ragged kernel's shared memory on pages of any type: 8, 16 or 32 keys
+    at 96, 8 or 16 at 256, 8 at 512."""
     tiles = {pr._tile_for(b, head_dim) for b in (None, 0, 1, 8, 16, 4096)}
-    assert all(t * ept <= 64 for t in tiles), tiles
-    assert tiles == {96: {8, 16}, 256: {8}, 512: {4}}[head_dim]
+    assert all(pr.tile_smem_bytes(pr.QUERY_TILE, t, head_dim, item)
+               <= pr.TILE_SMEM_BYTES for t in tiles for item in (1, 2, 4))
+    assert tiles == {96: {8, 16, 32}, 256: {8, 16}, 512: {8}}[head_dim]
 
 
 @pytest.mark.parametrize("head_dim", [96, 300])

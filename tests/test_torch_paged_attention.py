@@ -96,10 +96,11 @@ def test_quantized_pages_not_ported():
 
 @pytest.mark.parametrize("bad", ["cpu", "block_kv", "head_dim"])
 def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(bad):
-    """The wrapper never falls back: CPU tensors, or a head_dim past the
-    kernels' 512 (checked before the device), raise before anything is
-    launched. serve_attn_block_kv raises only when negative: every
-    value the JAX engine takes maps onto a tile."""
+    """The wrapper never falls back: CPU tensors raise before anything
+    is launched; a head_dim past 512 (d=520, once refused) passes every
+    check up to that device check, and one past MAX_PAGED_HEAD_DIM
+    raises before it. serve_attn_block_kv raises only when negative:
+    every value the JAX engine takes maps onto a tile."""
     q, kp, vp, tables, slots, lens = _torch(
         _inputs(5, d=32 if bad != "head_dim" else 520), torch.float32)
     before = pr.launches
@@ -110,12 +111,19 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(bad):
         with pytest.raises(ValueError, match="block_kv"):
             pr._tile_for(-1, 32)
         assert pr._tile_for(12, 32) == 8
-        assert pr._tile_for(32, 128) == 16
+        assert pr._tile_for(32, 128) == 32
+        assert pr._tile_for(20, 128) == 16
         assert pr._tile_for(3, 64) == 8
         assert pr._tile_for(0, 64) == pr.DEFAULT_TILE
         assert pr._tile_for(4096, 32) == 32
+        assert pr._tile_for(4096, 2048) == pr.WIDE_TILE
     else:
-        with pytest.raises(ValueError, match="head_dim 520"):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            pr.paged_ragged_v2_cuda(q, kp, vp, tables, slots, lens, 0.1)
+        wide = pr.MAX_PAGED_HEAD_DIM + 8
+        q, kp, vp, tables, slots, lens = _torch(_inputs(5, d=wide),
+                                                torch.float32)
+        with pytest.raises(ValueError, match=f"head_dim {wide}"):
             pr.paged_ragged_v2_cuda(q, kp, vp, tables, slots, lens, 0.1)
     assert pr.launches == before
 

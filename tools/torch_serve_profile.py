@@ -32,7 +32,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 # kernel-name patterns per class, first match wins
 CLASSES = (
-    ("attention", re.compile(r"ragged_v2_kernel|paged_decode_kernel")),
+    ("attention", re.compile(r"ragged_v2_\w*kernel|paged_decode_\w*kernel")),
     ("matmul", re.compile(r"gemm|matmul|sm90_|cutlass|cublas", re.I)),
     ("topk", re.compile(r"topk|sort|radix|argmax|reduce_kernel.*max",
                         re.I)),

@@ -37,7 +37,7 @@ CLASSES = (
     ("attention_fwd", re.compile(r"flash_fwd_(mma_)?kernel")),
     ("attention_bwd_dq", re.compile(r"flash_bwd_dq_(mma_)?kernel")),
     ("attention_bwd_dkv", re.compile(r"flash_bwd_dkv_(mma_)?kernel")),
-    ("lstm_fwd", re.compile(r"lstm_fwd_step_kernel")),
+    ("lstm_fwd", re.compile(r"lstm_fwd_step_(mma_)?kernel")),
     ("lstm_bwd", re.compile(r"lstm_bwd_step_(mma_)?kernel|"
                             r"lstm_dh0_(mma_)?kernel")),
     ("lstm_dwh", re.compile(r"lstm_dwh_(mma_)?kernel")),
