@@ -7,16 +7,18 @@ nvcc per source, in parallel), counts the tensor-core (HMMA)
 instructions of each kernel in the built SASS — the bf16 paths of the
 flash forward and backward and of the LSTM forward and backward must
 have them; the bf16 flash backward at d=64, the LSTM forward step, the
-ragged kernel's query-tile kernels and the wide-head decode kernel must
-not spill — and then:
+ragged kernel's query-tile kernels and the decode kernels (split and
+wide-head) must not spill — and then:
 
   * holds the ragged paged-attention kernel against its plain PyTorch
     version at the serving mixed step's shapes, on f32, bf16, int8 and
     fp8 pages, in the step's lane order and shuffled (timed in both);
     the paged decode kernel against its plain version at the
-    legacy decode step's shapes (8 sequences over the same pool); and
-    the v1 ragged kernel against its plain version and against v2 at
-    the mixed step's shapes, through its entry point;
+    legacy decode step's shapes (8 sequences over the same pool) and at
+    one row of 512 keys and 8 rows of 4096, timed beside their bounds;
+    and the v1 ragged kernel against its plain version and against v2
+    at the mixed step's shapes, through its entry point, with the bytes
+    its lanes re-read;
   * holds the three flash-attention kernels (forward, dq, dkv) against
     their plain pieces at the training path's shapes (b=32, s=512, h=8,
     d=64, causal and not, f32 and bf16) and at one odd shape (sq=300,
@@ -37,7 +39,8 @@ not spill — and then:
   * holds the two LSTM kernels (forward, backward) against their plain
     versions at the NMT model's shapes (T=40, B=256, H=1024, f32 and
     bf16) and at one odd shape (T=3, B=70, H=100), timed beside
-    torch.nn.LSTM (cuDNN) as a yardstick, interleaved in 3 rounds;
+    torch.nn.LSTM (cuDNN: its forward, its backward alone, its forward
+    + backward) as a yardstick, interleaved in 3 rounds;
   * trains the full-width NMT LSTM of ``build_nmt_lstm`` (batch 256,
     seq 40, vocab 32000, embed and hidden 1024, 2 layers, SGD lr 0.01,
     weights and data from numpy seeds): in f32 and in bf16, 3 steps
@@ -308,14 +311,41 @@ def kernel_phase(pr):
     return res
 
 
+# kernel-only shapes of the paged decode kernel, beside its bound: one
+# row of 512 keys, and 8 rows of 4096 (256 pages of 16) — (name, rows,
+# pages a row)
+DECODE_SHAPES = (("B=1 n=512", 1, 32), ("B=8 n=4096", 8, 256))
+
+
+def decode_inputs(dtype, device, rows, pp, seed=0):
+    """Decode inputs at the serving widths (H=8, D=64, pages of 16):
+    ``rows`` rows of ``pp`` pages each over a shuffled pool, every row
+    at its full length."""
+    rng = np.random.default_rng(seed)
+    shape = (1 + rows * pp, PAGE, HEADS, HEAD_DIM)
+    put = lambda a: torch.from_numpy(a).to(device)   # noqa: E731
+    kp = put(rng.standard_normal(shape, np.float32)).to(dtype)
+    vp = put(rng.standard_normal(shape, np.float32)).to(dtype)
+    tables = put(rng.permutation(np.arange(1, 1 + rows * pp)).reshape(
+        rows, pp).astype(np.int32))
+    q = put(rng.standard_normal((rows, HEADS, HEAD_DIM), np.float32)) \
+        .to(dtype)
+    lens = put(np.full(rows, PAGE * pp, np.int32))
+    return q, kp, vp, tables, lens
+
+
 def paged_decode_phase(fa):
     """Kernels 5 and 6 on the card, f32 and bf16 pages: the paged decode
     kernel at the legacy decode step's shapes (the 8 decode rows of
     kernel_inputs over the same pool: B=8, lengths 1..512, tables
     (8, 32)), and the v1 ragged kernel at the mixed step's shapes, each
-    against its plain version and timed; then v1 against v2 on f32
-    pages through the v1 entry point — the oracle run that is v1's path
-    (its launches are counted there)."""
+    against its plain version and timed; the decode kernel also at
+    DECODE_SHAPES beside their bounds; logged beside each, from the
+    inputs, the split rule's choice and, for v1, the bytes of its
+    per-lane row reads (each lane reads its own row's K/V, sum(lens) *
+    H * D * itemsize * 2); then v1 against v2 on f32 pages through the v1
+    entry point — the oracle run that is v1's path (its launches are
+    counted there)."""
     from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
     dev = torch.device("cuda")
     scale = 1.0 / math.sqrt(HEAD_DIM)
@@ -341,16 +371,50 @@ def paged_decode_phase(fa):
             slots_of = None if kname == "paged_decode" else args[4]
             b_ms, b_by = attention_bound(args[0], args[1], args[3],
                                          slots_of, args[-1])
-            res[kname][name] = {"max_abs_err": err,
-                                "err_over_max_ref": rel, "ms": k_ms,
-                                "plain_ms": p_ms, "bound_ms": b_ms,
-                                "bound_by": b_by}
+            res[kname][name] = {
+                "max_abs_err": err, "err_over_max_ref": rel, "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+            # derived from the inputs, not measured: the split rule's
+            # choice, and the bytes of v1's per-lane row reads
+            ks, nsplit = fa.decode_splits(
+                args[0].shape[0], HEADS, PAGE * PAGES_PER_SEQ,
+                fa._sm_count(dev.index))
+            extra = ""
+            if kname == "paged_ragged_v1":
+                reread = (2 * float(args[-1].sum()) * HEADS * HEAD_DIM
+                          * kp.element_size())
+                extra = f" per-lane row reads={reread / 1e6:.1f} MB"
             log(f"kernel {kname} [{name} pages, {shape}]: max_abs_err="
                 f"{err:.3g} err/max|ref|={rel:.3g} (tol {tol}) "
                 f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                f"bound_ms={b_ms:.4f} ({b_by})")
+                f"bound_ms={b_ms:.4f} ({b_by}); from the inputs: "
+                f"splits={nsplit}x{ks} keys "
+                f"ctas={args[0].shape[0] * HEADS * nsplit}{extra}")
             del out, ref
+        del q, kp, vp, tables, slots, lens, dargs, rargs
+        for sname, rows, pp in DECODE_SHAPES:
+            args = decode_inputs(dtype, dev, rows, pp)
+            out = fa.paged_decode_cuda(*args, scale)
+            torch.cuda.synchronize()
+            ref = fa.paged_decode_ref(*args, scale)
+            err, _ = check_err(f"paged_decode {name} {sname}", out, ref, tol)
+            k_ms = cuda_ms(lambda: fa.paged_decode_cuda(*args, scale), 50)
+            p_ms = cuda_ms(lambda: fa.paged_decode_ref(*args, scale), 5)
+            b_ms, b_by = attention_bound(args[0], args[1], args[3], None,
+                                         args[4])
+            ks, nsplit = fa.decode_splits(rows, HEADS, PAGE * pp,
+                                          fa._sm_count(dev.index))
+            res["paged_decode"][name].setdefault("shapes", {})[sname] = {
+                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by}
+            log(f"kernel paged_decode [{name} pages, {sname} H=8 D=64 "
+                f"ps=16]: max_abs_err={err:.3g} kernel_ms={k_ms:.4f} "
+                f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}); from "
+                f"the inputs: splits={nsplit}x{ks} keys")
+            del args, out, ref
+        torch.cuda.empty_cache()
         if name == "f32":
+            rargs = kernel_inputs(dtype, dev)
             v2 = pr.paged_ragged_v2_cuda(*rargs, scale)
             fa.launches["paged_ragged_v1"] = 0     # v1's path only
             v1 = fa.paged_attention_ragged_v1(*rargs, scale=scale)
@@ -367,6 +431,7 @@ def paged_decode_phase(fa):
                 f"T=520]: max_abs_err={err:.3g} (tol {F32_TOL}); the v1 "
                 f"entry point launched its kernel {res['v1_launches']} "
                 f"time")
+            del rargs, v1, v2
     log("library_ms: null — no single PyTorch call computes attention "
         "through a page table")
     return res
@@ -779,7 +844,9 @@ def lstm_bounds(dtype):
 
 def cudnn_fns(dtype):
     """library_ms yardsticks: torch.nn.LSTM (cuDNN, TF32 off) over
-    x (T, B, D=H), forward and forward + backward, as callables. One
+    x (T, B, D=H) as callables — its forward, its forward + backward,
+    and its backward alone (``torch.autograd.grad`` on a forward
+    computed once, outside the timed window, its graph retained). One
     call computes the whole layer, the input product x.wx included.
     Timed here only; the port never calls cuDNN. None, printing why,
     where the installed PyTorch refuses cuDNN for this dtype."""
@@ -793,14 +860,18 @@ def cudnn_fns(dtype):
         net = torch.nn.LSTM(NH, NH).to(dev).to(dtype)
         net.flatten_parameters()     # one weight buffer, as cuDNN wants
         fwd = lambda: net(x)[0]                        # noqa: E731
-        bwd = lambda: torch.autograd.grad(             # noqa: E731
+        fwd_bwd = lambda: torch.autograd.grad(         # noqa: E731
             fwd(), [x, *net.parameters()], dy)
+        fwd_bwd()
+        y = fwd()
+        bwd = lambda: torch.autograd.grad(             # noqa: E731
+            y, [x, *net.parameters()], dy, retain_graph=True)
         bwd()
         torch.cuda.synchronize()
     except RuntimeError as e:
         log(f"library_ms: torch.nn.LSTM refused {dtype}: {e}")
         return None
-    return fwd, bwd
+    return fwd, fwd_bwd, bwd
 
 
 def port_layer_ms(dtype):
@@ -871,14 +942,15 @@ def lstm_phase(ls):
         fns = {"lstm_fwd": lambda: ls.lstm_fwd_cuda(xg, wh, h0, c0),
                "lstm_bwd": lambda: ls.lstm_bwd_cuda(*bargs)}
         if lib is not None:
-            fns.update(cudnn_fwd=lib[0], cudnn_fwd_bwd=lib[1])
+            fns.update(cudnn_fwd=lib[0], cudnn_fwd_bwd=lib[1],
+                       cudnn_bwd=lib[2])
         rounds = yardstick(fns)
         del xg, wh, h0, c0, dys, bargs, lib, fns
         torch.cuda.empty_cache()
         port = port_layer_ms(dtype)
         bounds = lstm_bounds(dtype)
         for i, (kname, lname) in enumerate((("lstm_fwd", "cudnn_fwd"),
-                                            ("lstm_bwd", "cudnn_fwd_bwd"))):
+                                            ("lstm_bwd", "cudnn_bwd"))):
             abs_err = max(e[0] for e in errs[kname])
             rel = max(e[1] for e in errs[kname])
             b_ms, b_by = bounds[kname]
@@ -891,13 +963,21 @@ def lstm_phase(ls):
                 else statistics.median(lib_rounds),
                 "ms_rounds": rounds[kname], "library_ms_rounds": lib_rounds,
                 "port_layer_ms": port[i]}
+            extra = ""
+            if kname == "lstm_bwd":   # the old yardstick, beside
+                fb = rounds.get("cudnn_fwd_bwd")
+                res[kname][dname]["library_fwd_bwd_ms"] = (
+                    None if fb is None else statistics.median(fb))
+                res[kname][dname]["library_fwd_bwd_ms_rounds"] = fb
+                extra = (" library_fwd_bwd_ms="
+                         f"{'null' if fb is None else spread(fb)}")
             log(f"kernel {kname} [{dname}, {shape}]: max_abs_err="
                 f"{abs_err:.3g} err/max|ref|={rel:.3g} (tol "
                 f"{LSTM_TOL[dtype]}) kernel_ms={spread(rounds[kname])} "
                 f"plain_ms={plain[kname]:.4f} bound_ms={b_ms:.4f} "
                 f"({b_by}) library_ms="
-                f"{'null' if lib_rounds is None else spread(lib_rounds)} "
-                f"port_layer_ms={port[i]:.4f} [median (min-max) of 3 "
+                f"{'null' if lib_rounds is None else spread(lib_rounds)}"
+                f"{extra} port_layer_ms={port[i]:.4f} [median (min-max) of 3 "
                 f"interleaved rounds]")
         torch.cuda.empty_cache()
     # one odd shape: B=70 and H=100 off the tiles, H not a multiple of 8
@@ -924,9 +1004,11 @@ def lstm_phase(ls):
                         for k, e in errs.items())
             + f" (tol {LSTM_TOL[dtype]})")
     log("library_ms: lstm_fwd = torch.nn.LSTM forward, lstm_bwd = its "
-        "forward + backward (cuDNN, D=H=1024), both including the input "
-        "product x.wx that the kernels leave to a matmul; port_layer_ms = "
-        "the port's LSTM op timed the same way (x.wx matmul + kernels)")
+        "backward alone (autograd.grad on a retained graph; "
+        "library_fwd_bwd_ms = its forward + backward), cuDNN, D=H=1024, "
+        "including the input product x.wx and its gradients that the "
+        "kernels leave to matmuls; port_layer_ms = the port's LSTM op "
+        "timed the same way (x.wx matmul + kernels)")
     return res
 
 
@@ -1317,23 +1399,27 @@ def main() -> int:
         raise AssertionError(f"bf16 flash backward spills at d=64: "
                              f"{ {k: usage[k] for k in spilled} }")
     # nor may the bf16 LSTM forward step, any instantiation of kernel 1's
-    # query-tile kernel or the wide-head decode kernel
+    # query-tile kernel, the split decode kernel (kernels 5, 6) or the
+    # wide-head decode kernel
     added = [k for k in usage if k.startswith((
         "lstm_fwd_step_mma_kernel[", "ragged_v2_tile_kernel[",
-        "paged_decode_wide_kernel["))]
+        "paged_decode_split_kernel[", "paged_decode_wide_kernel["))]
     if sorted({k[:k.index("[")] for k in added}) != [
-            "lstm_fwd_step_mma_kernel", "paged_decode_wide_kernel",
-            "ragged_v2_tile_kernel"]:
+            "lstm_fwd_step_mma_kernel", "paged_decode_split_kernel",
+            "paged_decode_wide_kernel", "ragged_v2_tile_kernel"]:
         raise AssertionError(f"ptxas usage lacks a kernel of those: "
                              f"{added}")
     spilled = [k for k in added if usage[k]["spill_stores_loads"] != "0/0 B"]
     if spilled:
         raise AssertionError(f"kernels spill: "
                              f"{ {k: usage[k] for k in spilled} }")
+    split = [k for k in added if k.startswith("paged_decode_split_kernel[")]
     log(f"no spills in the bf16 flash backward at d=64 ({len(bwd64)} "
-        f"kernels), the LSTM forward step, kernel 1 or the wide decode "
-        f"kernel ({len(added)}: "
-        f"{max(usage[k]['registers'] for k in added)} registers at most)")
+        f"kernels), the LSTM forward step, kernel 1 or the decode kernels "
+        f"({len(added)}: {max(usage[k]['registers'] for k in added)} "
+        f"registers at most; paged_decode_split_kernel {len(split)} "
+        f"instantiations, {min(usage[k]['registers'] for k in split)}-"
+        f"{max(usage[k]['registers'] for k in split)} registers)")
     # the bf16 paths of kernels 2, 3, 4, 7 and 8 run on the tensor cores:
     # their kernels (*_mma_kernel) must hold HMMA instructions
     hmma = {}
@@ -1386,7 +1472,9 @@ def main() -> int:
         "name": "paged_decode", "route": "cuda", "source": decode_src,
         "replaces": "flexflow_tpu/kernels/flash_attention.py:390",
         "launches": sres["legacy_f32"][0]["paged_decode"],
-        **head(dres["paged_decode"]), "bf16": dres["paged_decode"]["bf16"]},
+        **head(dres["paged_decode"]),
+        "shapes": dres["paged_decode"]["f32"]["shapes"],
+        "bf16": dres["paged_decode"]["bf16"]},
         {
         "name": "paged_ragged_v1", "route": "cuda", "source": decode_src,
         "replaces": "flexflow_tpu/kernels/flash_attention.py:413",
@@ -1423,7 +1511,8 @@ def main() -> int:
                           if k.startswith(kname + " ")},
             **{c: v for c, v in cells.items() if c != "bf16"}})
     # the LSTM rows' headline is the NMT path's own cell (bf16); the f32
-    # cell rides along. library_ms: cuDNN's whole layer (see lstm_phase)
+    # cell rides along. library_ms: cuDNN's layer forward, and its
+    # backward alone (its forward + backward beside; see lstm_phase)
     for kname, line in (("lstm_fwd", 65), ("lstm_bwd", 119)):
         cells = lres[kname]
         head = cells["bf16"]
@@ -1439,6 +1528,9 @@ def main() -> int:
             "device_launches": nres["device_launches"][kname],
             "ms_rounds": head["ms_rounds"],
             "library_ms_rounds": head["library_ms_rounds"],
+            **{k: head[k] for k in ("library_fwd_bwd_ms",
+                                    "library_fwd_bwd_ms_rounds")
+               if k in head},
             "sass_hmma": {k: n for k, n in hmma.items() if k.startswith(
                 ("lstm_fwd_",) if kname == "lstm_fwd"
                 else ("lstm_bwd_", "lstm_dh0_", "lstm_dwh_"))},

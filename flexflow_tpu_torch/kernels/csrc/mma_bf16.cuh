@@ -1,7 +1,8 @@
 // bf16 tensor-core building blocks (sm_80 and later, built for sm_90a):
 // 16- and 4-byte cp.async copies into shared memory, ldmatrix fragment loads,
 // and the warp-wide mma.sync m16n8k16 product with bf16 operands and
-// f32 accumulators. Shared by flash_attention.cu and lstm_scan.cu.
+// f32 accumulators. Shared by flash_attention.cu and lstm_scan.cu; the
+// paged kernels (paged_ragged_v2.cu, paged_decode.cu) take its copies.
 //
 // Fragments of m16n8k16 (lane = 4 * gid + tig, gid = lane / 4,
 // tig = lane % 4), two bf16 a register, the lower column in the low half:
@@ -48,6 +49,33 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One 16-byte chunk of a page row into shared memory: `valid` elements
+// of type T from src, zeros after them. vec: src is 16-byte aligned and
+// valid is 0 or the whole chunk — one cp.async (zero filled when 0);
+// otherwise byte by byte (head slices that do not start 16-byte
+// aligned).
+template <typename T>
+__device__ __forceinline__ void stage_row_chunk(unsigned char* dst,
+                                                const T* src, int valid,
+                                                bool vec) {
+  if (vec) {
+    cp_async16(dst, src, valid > 0 ? 16 : 0);
+    return;
+  }
+  const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
+  const int nbytes = valid * (int)sizeof(T);
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    uint32_t x = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (4 * k + b < nbytes) x |= (uint32_t)s[4 * k + b] << (8 * b);
+    w[k] = x;
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // One 16-byte chunk (8 bf16) of a row into shared memory, `valid` of

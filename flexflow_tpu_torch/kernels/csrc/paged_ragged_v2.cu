@@ -197,32 +197,6 @@ __device__ __forceinline__ void load4(const unsigned char* p, float (&x)[4]) {
   cvt4<KVT>(w, 0, x);
 }
 
-// One 16-byte chunk of a page row into shared memory: `valid` elements
-// from src, zeros after them. vec: src is 16-byte aligned and valid is 0
-// or the whole chunk — one cp.async (zero filled when 0); otherwise byte
-// by byte (head slices that do not start 16-byte aligned).
-template <typename KVT>
-__device__ __forceinline__ void stage_chunk(unsigned char* dst,
-                                            const KVT* src, int valid,
-                                            bool vec) {
-  if (vec) {
-    tc::cp_async16(dst, src, valid > 0 ? 16 : 0);
-    return;
-  }
-  const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
-  const int nbytes = valid * (int)sizeof(KVT);
-  uint32_t w[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    uint32_t x = 0;
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      if (4 * k + b < nbytes) x |= (uint32_t)s[4 * k + b] << (8 * b);
-    w[k] = x;
-  }
-  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
 struct Args {
   const void* q;
   int64_t q_st, q_sh;
@@ -357,8 +331,8 @@ __device__ __forceinline__ void tile_item(const Args& a, int item,
                    (int64_t)c * E
              : 0;
       const int valid = in ? min(E, D - c * E) : 0;
-      stage_chunk(sk + j * RB + c * 16, kp + off, valid, a.vec);
-      stage_chunk(sv + j * RB + c * 16, vp + off, valid, a.vec);
+      tc::stage_row_chunk(sk + j * RB + c * 16, kp + off, valid, a.vec);
+      tc::stage_row_chunk(sv + j * RB + c * 16, vp + off, valid, a.vec);
       c += c_step;
       j += j_step;
       if (c >= U) c -= U, ++j;

@@ -20,8 +20,12 @@ Four entry points are ported:
     :func:`paged_attention_ragged_v1`, the same body with each lane's
     row picked through ``lane_slots`` (the equality oracle of v2). Both
     are the hand-written kernel ``csrc/paged_decode.cu`` on CUDA
-    tensors and :func:`paged_decode_ref` / :func:`paged_ragged_v1_ref`
-    on CPU tensors.
+    tensors (a CTA per row, head and split of the row's keys,
+    :func:`decode_splits` picking the splits from host values alone, the
+    row's last split combining the partial sums in the same launch) and
+    :func:`paged_decode_ref` / :func:`paged_ragged_v1_ref` on CPU
+    tensors; :func:`paged_decode_split_ref` repeats the kernel's
+    split-and-combine arithmetic in torch for the tests.
 
 :func:`attention_ref` is the einsum path of ``ops/attention.py`` (f32
 logits, probabilities cast to q's dtype): the plain version of the whole
@@ -31,6 +35,7 @@ entry point, and what ``use_flash=False`` runs.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -408,13 +413,95 @@ def paged_ragged_v1_ref(q, k_pages, v_pages, page_tables, lane_slots,
                             scale)
 
 
+def paged_decode_split_ref(q, k_pages, v_pages, page_table, seq_lens,
+                           scale, split_keys):
+    """The decode kernel's split-and-combine arithmetic in plain torch
+    (for the tests; nothing on a serving path calls it): each row's keys
+    cut into splits of ``split_keys``, each split's masked softmax in
+    f32 kept as its partial (m, l, acc) — m = -inf, l = 0, acc = 0 for a
+    split that holds no key below the row's length — and the partials
+    combined with weights exp(m - max m), 0 for the empty ones. Same
+    arguments and result as :func:`paged_decode_ref`; v1's rows are
+    ``page_tables[lane_slots]`` at ``lane_lens``."""
+    k = gather_pages(k_pages, page_table.long())
+    v = gather_pages(v_pages, page_table.long())
+    b, h, d = q.shape
+    n = k.shape[1] * k.shape[2]
+    nsplit = -(-n // split_keys)
+    pad = nsplit * split_keys - n
+    k = torch.nn.functional.pad(k.reshape(b, n, h, d).float(),
+                                (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(v.reshape(b, n, h, d).float(),
+                                (0, 0, 0, 0, 0, pad))
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), k) * scale
+    pos = torch.arange(nsplit * split_keys, device=q.device)
+    s = s.masked_fill(pos >= seq_lens.long()[:, None, None], -math.inf)
+    s = s.reshape(b, h, nsplit, split_keys)
+    m = torch.amax(s, dim=-1)                            # (b, h, nsplit)
+    m_use = torch.where(m == -math.inf, torch.zeros_like(m), m)
+    p = torch.exp(s - m_use[..., None])
+    l = torch.sum(p, dim=-1)
+    acc = torch.einsum("bhsk,bskhd->bhsd", p,
+                       v.reshape(b, nsplit, split_keys, h, d))
+    top = torch.amax(m, dim=-1, keepdim=True)
+    c = torch.where(m == -math.inf, torch.zeros_like(m), torch.exp(m - top))
+    o = torch.sum(acc * c[..., None], dim=2)
+    return (o / torch.sum(l * c, dim=-1)[..., None]).to(q.dtype)
+
+
 _PAGED_KV = (torch.float32, torch.bfloat16)
 _I64 = ctypes.c_int64
 # q, q strides, pages, page strides, table, table row stride
 _PAGED_HEAD = [_INT, _INT, _PTR, _I64, _I64, _PTR, _PTR, _I64, _I64, _I64,
                _PTR, _I64]
-# out, out strides, rows, H, D, ps, pp, scale, stream
-_PAGED_TAIL = [_PTR, _I64, _I64] + [_INT] * 5 + [ctypes.c_float, _PTR]
+# out, out strides, rows, H, D, ps, pp, scale, splits, keys a split,
+# workspace, split counts, stream
+_PAGED_TAIL = [_PTR, _I64, _I64] + [_INT] * 5 + [ctypes.c_float, _INT,
+                                                 _INT, _PTR, _PTR, _PTR]
+
+# Kernels 5 and 6 cut each row's keys into splits, a CTA a (row, head,
+# split): enough items for SPLIT_CTAS_PER_SM CTAs an SM, splits of at
+# least MIN_SPLIT_KEYS keys, at most MAX_DECODE_SPLITS a row. Head dims
+# past SPLIT_MAX_HEAD_DIM run the wide kernel, one CTA a (row, head).
+SPLIT_CTAS_PER_SM = 4
+MIN_SPLIT_KEYS = 32
+MAX_DECODE_SPLITS = 64
+SPLIT_MAX_HEAD_DIM = 512
+
+
+def decode_splits(rows: int, heads: int, max_keys: int, sms: int):
+    """(keys a split, splits a row) of kernels 5 and 6 for ``rows`` rows
+    of ``heads`` heads and at most ``max_keys`` keys a row (page_size *
+    pages_per_seq) on a card of ``sms`` SMs. Only what the host knows
+    goes in — never the lengths, which live on the device — so a call
+    reads no device value. One split where rows x heads fill the card
+    alone."""
+    want = SPLIT_CTAS_PER_SM * sms // (rows * heads)
+    n = max(1, min(want, MAX_DECODE_SPLITS, max_keys // MIN_SPLIT_KEYS))
+    ks = -(-max_keys // n)
+    return ks, -(-max_keys // ks)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (device index, stream) -> int32 split counts, zero between launches:
+# allocated zeroed here, and the kernel's combining CTA zeroes its count
+# again. One buffer a stream, so launches that share it run in order.
+_split_counts = {}
+
+
+def _counts(dev, stream: int, n: int):
+    key = (dev.index, stream)
+    cnt = _split_counts.get(key)
+    if cnt is None or cnt.numel() < n:
+        cnt = _split_counts[key] = torch.zeros(n, dtype=torch.int32,
+                                               device=dev)
+    return cnt
+
+
 _PAGED_ARGTYPES = {
     "paged_decode": _PAGED_HEAD + [_PTR] + _PAGED_TAIL,          # seq_lens
     "paged_ragged_v1": _PAGED_HEAD + [_PTR, _PTR] + _PAGED_TAIL,  # slots, lens
@@ -425,8 +512,10 @@ def _launch_paged(kernel, q, k_pages, v_pages, page_tables, vectors,
                   scale):
     """Check and launch ``<kernel>_launch`` of csrc/paged_decode.cu on
     the current stream; ``vectors`` ({name: (N,) int32}) go in the
-    launcher's order. Raises on inputs the kernel does not take and on
-    a non-zero return; counts the launch otherwise."""
+    launcher's order. Splits as :func:`decode_splits` picks them; head
+    dims past SPLIT_MAX_HEAD_DIM run unsplit. Raises on inputs the
+    kernel does not take and on a non-zero return; counts the launch
+    otherwise."""
     check_paged_inputs(q, k_pages, v_pages, page_tables, vectors,
                        kv_dtypes=_PAGED_KV)
     n, h, d = q.shape
@@ -437,8 +526,19 @@ def _launch_paged(kernel, q, k_pages, v_pages, page_tables, vectors,
     lib = load_library("paged_decode")
     fn = getattr(lib, f"{kernel}_launch")
     fn.argtypes, fn.restype = _PAGED_ARGTYPES[kernel], _INT
+    ps, pp = k_pages.shape[1], page_tables.shape[1]
+    cap = ps * pp
+    if d > SPLIT_MAX_HEAD_DIM:
+        ks, nsplit = cap, 1
+    else:
+        ks, nsplit = decode_splits(n, h, cap, _sm_count(q.device.index))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
+        ws = cnt = None
+        if nsplit > 1:      # the splits' partial (m, l, acc) and counts
+            ws = torch.empty(n * h * nsplit * (d + 2), dtype=torch.float32,
+                             device=q.device)
+            cnt = _counts(q.device, stream, n * h)
         rc = fn(_DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
                 q.data_ptr(), q.stride(0), q.stride(1),
                 k_pages.data_ptr(), v_pages.data_ptr(), k_pages.stride(0),
@@ -446,8 +546,9 @@ def _launch_paged(kernel, q, k_pages, v_pages, page_tables, vectors,
                 page_tables.data_ptr(), page_tables.stride(0),
                 *(x.data_ptr() for x in vectors.values()),
                 out.data_ptr(), out.stride(0), out.stride(1),
-                n, h, d, k_pages.shape[1], page_tables.shape[1],
-                float(scale), stream)
+                n, h, d, ps, pp, float(scale), nsplit, ks,
+                None if ws is None else ws.data_ptr(),
+                None if cnt is None else cnt.data_ptr(), stream)
     if rc != 0:
         err = lib.paged_decode_error_string
         err.argtypes, err.restype = [_INT], ctypes.c_char_p

@@ -500,6 +500,162 @@ def test_paged_kernels_refuse_past_the_limit(card):
     assert (pr.launches, dict(fa.launches)) == before
 
 
+# kernels 5 and 6 split a row's keys over CTAs: rows of 43 pages of 12
+# (516 keys), lengths on every side of a split boundary
+SPLIT_PS, SPLIT_PP = 12, 43
+SPLIT_HEAD_DIMS = [8, 64, 96, 256, 320, 520, 1024]
+
+
+def _split_lens(dev, b, h, ks=None):
+    """Lengths 1, ps - 1, ps, a split's keys - 1, + 0, + 1, two splits
+    and one key, and 512, for the split the wrapper picks for b rows of
+    h heads (or ks)."""
+    cap = SPLIT_PS * SPLIT_PP
+    if ks is None:
+        ks, _ = fa.decode_splits(b, h, cap, fa._sm_count(dev.index))
+    lens = [1, SPLIT_PS - 1, SPLIT_PS, ks - 1, ks, ks + 1, 2 * ks + 1, 512]
+    return [min(max(n, 1), cap) for n in lens]
+
+
+def _split_inputs(dev, dtype, d, lens, h=4, seed=0, kv=None):
+    """Decode inputs over rows of SPLIT_PP pages of SPLIT_PS, as
+    _decode_inputs lays them out (entries past a row's length aim at a
+    sink of large values), q's rows followed by NaNs; pages in ``kv``
+    (default dtype)."""
+    rng = np.random.default_rng(seed)
+    b = len(lens)
+    npages = 1 + b * SPLIT_PP
+    shape = (npages, SPLIT_PS, h, d)
+    kp = rng.standard_normal(shape, np.float32)
+    vp = rng.standard_normal(shape, np.float32)
+    kp[0] = vp[0] = 1e4
+    table = rng.permutation(np.arange(1, npages)).reshape(b, SPLIT_PP)
+    for i, n in enumerate(lens):
+        table[i, -(-int(n) // SPLIT_PS):] = 0
+    put = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
+    q = _nan_after_rows(put(rng.standard_normal((b, h, d), np.float32))
+                        .to(dtype))
+    kv = kv or dtype
+    return (q, put(kp).to(kv), put(vp).to(kv), put(table.astype(np.int32)),
+            put(np.asarray(lens, np.int32)))
+
+
+def _close(out, ref):
+    if ref.dtype == torch.float32:
+        return _rel(out, ref) <= F32_ATOL
+    return float((out.float() - ref.float()).abs().max()) <= BF16_ATOL
+
+
+def _force_splits(mp, ks):
+    """Make the wrappers cut every row into splits of ``ks`` keys in
+    place of :func:`decode_splits`' choice (``None``: keep the rule)."""
+    if ks is not None:
+        mp.setattr(fa, "decode_splits", lambda rows, heads, cap, sms: (
+            min(ks, cap), -(-cap // min(ks, cap))))
+
+
+def _v1_of(args, seed=1):
+    """The decode rows as v1 lanes: lane t reads table row slots[t] (the
+    rows shuffled) at that row's length, so v1 meets every boundary."""
+    q, kp, vp, table, lens = args
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+        q.shape[0]).astype(np.int32)).to(q.device)
+    return q, kp, vp, table, perm, lens[perm.long()].contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", SPLIT_HEAD_DIMS)
+def test_paged_splits_cross_every_boundary(card, dtype, d):
+    """Kernels 5 and 6 at lengths 1, ps - 1, ps, a split's keys +- 1 and
+    512, at ps=12 and head dims 8-1024 (past 512 the wide kernel), each
+    once a call, with NaN-followed q rows and output and workspace
+    canaries."""
+    lens = _split_lens(card, 8, 4)
+    args = _split_inputs(card, dtype, d, lens, seed=d)
+    scale = 1.0 / math.sqrt(d)
+    before = dict(fa.launches)
+    out = _guarded(fa.paged_attention_decode, *args, scale=scale)
+    assert _close(out, fa.paged_decode_ref(*args, scale))
+    vargs = _v1_of(args)
+    out = _guarded(fa.paged_attention_ragged_v1, *vargs, scale=scale)
+    assert _close(out, fa.paged_ragged_v1_ref(*vargs, scale))
+    assert {n: fa.launches[n] - before[n]
+            for n in ("paged_decode", "paged_ragged_v1")} == {
+        "paged_decode": 1, "paged_ragged_v1": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ks", [1, 5, SPLIT_PS, 64, 200])
+def test_paged_forced_split_sizes(card, monkeypatch, dtype, ks):
+    """Splits forced to one key, inside a page, a page and several
+    pages: every row's partials combine to the plain version, for both
+    kernels."""
+    lens = _split_lens(card, 8, 4, ks)
+    args = _split_inputs(card, dtype, 64, lens, seed=ks)
+    _force_splits(monkeypatch, ks)
+    out = _guarded(fa.paged_decode_cuda, *args, 0.125)
+    assert _close(out, fa.paged_decode_ref(*args, 0.125))
+    vargs = _v1_of(args, seed=ks)
+    out = _guarded(fa.paged_ragged_v1_cuda, *vargs, 0.125)
+    assert _close(out, fa.paged_ragged_v1_ref(*vargs, 0.125))
+
+
+@pytest.mark.parametrize("lens", [[512] + [1] * 7, [1] * 8],
+                         ids=["one_long_row", "all_length_1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_splits_uneven_rows(card, lens, dtype):
+    """One row far longer than the rest (its splits hold the kernel's
+    time), and every row at length 1 (the engine's clamp of empty rows:
+    every split but the first is empty)."""
+    args = _split_inputs(card, dtype, 64, lens, seed=len(set(lens)))
+    out = _guarded(fa.paged_decode_cuda, *args, 0.125)
+    assert _close(out, fa.paged_decode_ref(*args, 0.125))
+    vargs = _v1_of(args)
+    out = _guarded(fa.paged_ragged_v1_cuda, *vargs, 0.125)
+    assert _close(out, fa.paged_ragged_v1_ref(*vargs, 0.125))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_splits_40_heads(card, dtype):
+    """40 heads at d=64 (320 (row, head) pairs: fewer splits a row)."""
+    args = _split_inputs(card, dtype, 64, _split_lens(card, 8, 40), h=40)
+    out = _guarded(fa.paged_decode_cuda, *args, 0.125)
+    assert _close(out, fa.paged_decode_ref(*args, 0.125))
+    vargs = _v1_of(args)
+    out = _guarded(fa.paged_ragged_v1_cuda, *vargs, 0.125)
+    assert _close(out, fa.paged_ragged_v1_ref(*vargs, 0.125))
+
+
+@pytest.mark.parametrize("ks", [None, 7])
+def test_paged_splits_mixed_dtypes(card, monkeypatch, ks):
+    """f32 q over bf16 pages (the legacy engine's f32 activations over a
+    bf16 pool) through the split kernel."""
+    args = _split_inputs(card, torch.float32, 64, _split_lens(card, 8, 4),
+                         kv=torch.bfloat16)
+    _force_splits(monkeypatch, ks)
+    out = _guarded(fa.paged_decode_cuda, *args, 0.125)
+    assert _rel(out, fa.paged_decode_ref(*args, 0.125)) <= F32_ATOL
+
+
+def test_paged_split_counts_reset_between_launches(card, monkeypatch):
+    """The same launch again and again with other lengths on the same
+    tensors: the row's last split zeroes its count, so a stale count
+    (a combine by the wrong split, or none) would show in the output."""
+    q, kp, vp, table, _ = _split_inputs(card, torch.float32, 64, [512] * 8)
+    rng = np.random.default_rng(5)
+    for lens in ([512] * 8, [1] * 8, list(rng.integers(1, 513, 8)),
+                 [33, 512, 2, 100, 64, 65, 7, 300], [512] * 8):
+        lens = torch.tensor(lens, dtype=torch.int32, device=card)
+        for ks in (None, 16):
+            with monkeypatch.context() as mp:
+                _force_splits(mp, ks)
+                out = fa.paged_decode_cuda(q, kp, vp, table, lens, 0.125)
+            torch.cuda.synchronize()
+            assert _rel(out, fa.paged_decode_ref(q, kp, vp, table, lens,
+                                                 0.125)) <= F32_ATOL
+    assert all(int(c.abs().sum()) == 0 for c in fa._split_counts.values())
+
+
 def _layout_inputs(dev, h, d, layout, seed, t=45, ps=8, s=5):
     """Kernel 1's inputs (f32) with a lane layout, over rows of 40 pages
     (320 keys: three key splits) where h * d <= 4096, else 6: one_chunk
