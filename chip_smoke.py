@@ -20,10 +20,11 @@ wide-head) must not spill — and then:
     at the mixed step's shapes, through its entry point, with the bytes
     its lanes re-read;
   * holds the three flash-attention kernels (forward, dq, dkv) against
-    their plain pieces at the training path's shapes (b=32, s=512, h=8,
-    d=64, causal and not, f32 and bf16) and at one odd shape (sq=300,
-    sk=453), and times them beside scaled_dot_product_attention,
-    interleaved in 3 rounds (median and range reported);
+    their plain pieces at the training paths' shapes (the encoder's
+    b=32, s=512, h=8, d=64, causal and not, and the LM's b=16 causal,
+    f32 and bf16) and at one odd shape (sq=300, sk=453), and times them
+    beside scaled_dot_product_attention, interleaved in 3 rounds
+    (median and range reported);
   * holds kernels 1-6 at head dims the kernels are not instantiated for
     (flash at d=16, 96, 256 on b=2 sq=300 sk=453 h=3, f32 and bf16,
     causal and not; the paged kernels at d=8, 96, 256, 320, 640 and at
@@ -36,6 +37,18 @@ wide-head) must not spill — and then:
     steps through the kernels against 3 on the einsum path, then the
     bf16 flagship — 3 steps held against the einsum path, 20 timed —
     with the kernels' launch counts checked;
+  * trains the full-width causal LM of ``build_transformer_lm`` (the
+    README's: vocab 32000, 512 positions, hidden 512, 8 heads, 6
+    layers, ff 2048, ~52 M parameters) at batch 16 x 512 tokens on
+    next-token labels from a numpy seed, SGD lr 0.01 momentum 0.9: 3
+    f32 steps through the flash kernels (causal) against 3 on the
+    einsum path; then under compute_dtype bfloat16 over f32 masters
+    (every master and slot checked f32) 3 steps held against the
+    einsum path, and the same model eagerly and with its train step
+    captured as a CUDA graph, 3 held + 20 timed steps each: the
+    captured weights and losses equal the eager ones bit for bit, one
+    capture, the flash launches 6 layers x steps (a replay counts each
+    launch of its graph);
   * holds the two LSTM kernels (forward, backward) against their plain
     versions at the NMT model's shapes (T=40, B=256, H=1024, f32 and
     bf16) and at one odd shape (T=3, B=70, H=100), timed beside
@@ -48,13 +61,15 @@ wide-head) must not spill — and then:
     gradient held between the two, and 3 with a planted dwh fault that
     the same check must reject; then 20 timed bf16 steps, with the
     kernels' launch counts and the device kernels they enqueued checked;
-  * serves the full-width causal LM of the README (vocab 32000, 512
-    positions, hidden 512, 8 heads, 6 layers, ff 2048, f32, random
-    weights from a numpy seed) through ``ServeEngine.generate`` four
-    times — the mixed step on f32 pages, on int8 pages and on fp8
-    pages, and the legacy bucket path on f32 pages — holding each run's
-    greedy tokens against one no-cache ``generate_reference`` and its
-    kernel launches against layers x steps.
+  * serves the f32 LM that phase trained (the FFModel's live
+    parameters) through ``ServeEngine.generate`` four times — the mixed
+    step on f32 pages, on int8 pages and on fp8 pages, and the legacy
+    bucket path on f32 pages — every step replayed from the graph
+    ``warmup`` captured: each run's captures are the path's families
+    after warmup and unchanged after generate, its greedy tokens hold
+    against one no-cache ``generate_reference``, all its tokens equal
+    an eager engine's run token for token, and its kernel launches
+    equal layers x steps; step times and tokens/s captured and eager.
 
 Every phase raises on failure. Prints the card (name, power limit), the
 build, each kernel's error and times, the training and serving numbers,
@@ -65,6 +80,7 @@ without CUDA or outside a checkout. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -117,6 +133,24 @@ TRAIN_F32_WEIGHT_ABS = 5e-4
 TRAIN_BF16_LOSS_REL = 2e-2
 TRAIN_ARCH = dict(seq_len=TS, hidden=512, num_heads=TH, num_layers=6,
                   ff_dim=2048, num_classes=10)
+
+# the causal LM of the README at full width (vocab 32000, 512
+# positions, hidden 512, 8 heads, 6 layers, ff 2048: ~52 M parameters),
+# trained at batch 16 x 512 tokens on next-token labels, SGD lr 0.01
+# with momentum 0.9 (so the optimizer has slots to check)
+LB = 16
+LM_ARCH = dict(vocab_size=32000, max_seq_len=TS, hidden=512, num_heads=TH,
+               num_layers=6, ff_dim=2048)
+# kernel path vs einsum path, 3 steps from one set of weights: the
+# encoder's limits (the same f32 function summed in another order; bf16
+# where the two paths round p and ds)
+LM_F32_LOSS_REL = 1e-4
+LM_F32_WEIGHT_ABS = 5e-4
+LM_BF16_LOSS_REL = 2e-2
+# captured against eager steps: the same kernels on the same inputs in
+# the same order, so the weights after 3 steps must be bit for bit the
+# same (tolerance 0)
+LM_CAPTURE_WEIGHT_ABS = 0.0
 
 # the NMT LSTM at bench.py's "full" preset: T=40 tokens of a batch of
 # 256, vocab 32000, embed and hidden 1024, 2 layers
@@ -437,18 +471,18 @@ def paged_decode_phase(fa):
     return res
 
 
-def flash_bounds(dtype, causal):
+def flash_bounds(dtype, causal, b=TB):
     """{kernel: (bound_ms, bound_by)} of the three flash kernels at the
-    training shapes. Flops count the (query, key) pairs this run
+    training shapes, batch ``b``. Flops count the (query, key) pairs this run
     computes — all s^2 of them, or the s(s+1)/2 on or below the
     diagonal when causal — at 4d (forward: q.k, p.v), 6d (dq: q.k,
     do.v, ds.k) and 8d (dkv: also p^T.do, ds^T.q) per pair. Bytes read
     each input once and write each output once: (b, s, h, d) operands
     in the input type, lse and delta f32 (b, h, s)."""
     pairs = TS * (TS + 1) / 2 if causal else float(TS * TS)
-    per = TB * TH * TD * pairs
-    op = TB * TS * TH * TD * torch.tensor([], dtype=dtype).element_size()
-    row = TB * TH * TS * 4
+    per = b * TH * TD * pairs
+    op = b * TS * TH * TD * torch.tensor([], dtype=dtype).element_size()
+    row = b * TH * TS * 4
     return {"flash_fwd": bound(4 * op + row, 4 * per, dtype),
             "flash_bwd_dq": bound(5 * op + 2 * row, 6 * per, dtype),
             "flash_bwd_dkv": bound(6 * op + 2 * row, 8 * per, dtype)}
@@ -522,59 +556,63 @@ def flash_errors(fa, q, k, v, do, kw):
 
 def flash_phase(fa):
     """Hold flash_fwd, flash_bwd_dq and flash_bwd_dkv against their
-    plain pieces on the card at the training shapes, f32 and bf16,
-    causal (the LM's mask) and not (the flagship), and at one odd shape
-    whose sequence tails are masked; time each at the training shapes
-    beside scaled_dot_product_attention, interleaved in 3 rounds."""
+    plain pieces on the card at the training shapes, f32 and bf16:
+    the flagship encoder's (batch 32, causal and not) and the causal
+    LM's (batch 16, causal), and at one odd shape whose sequence tails
+    are masked; time each at the training shapes beside
+    scaled_dot_product_attention, interleaved in 3 rounds."""
     dev = torch.device("cuda")
     scale = 1.0 / math.sqrt(TD)
     res = {}
-    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for causal in (False, True):
-            rng = np.random.default_rng(11)
-            put = lambda a: torch.from_numpy(a).to(dev).to(dtype)  # noqa
-            q, k, v, do = (put(rng.standard_normal((TB, TS, TH, TD),
-                                                   np.float32))
-                           for _ in range(4))
-            kw = {"causal": causal, "scale": scale}
-            errs, bargs = flash_errors(fa, q, k, v, do, kw)
-            plain = {
-                "flash_fwd": cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, **kw),
-                                     3),
-                "flash_bwd_dq": cuda_ms(
-                    lambda: fa.flash_bwd_dq_ref(*bargs, **kw), 3),
-                "flash_bwd_dkv": cuda_ms(
-                    lambda: fa.flash_bwd_dkv_ref(*bargs, **kw), 3)}
-            lib_fwd, lib_bwd = sdpa_fns(q, k, v, do, causal)
-            rounds = yardstick({
-                "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, **kw),
-                "sdpa_fwd": lib_fwd,
-                "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(*bargs, **kw),
-                "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(*bargs, **kw),
-                "sdpa_bwd": lib_bwd})
-            bounds = flash_bounds(dtype, causal)
-            cell = f"{dname}{'_causal' if causal else ''}"
-            for kname in plain:
-                b_ms, b_by = bounds[kname]
-                lib = "sdpa_fwd" if kname == "flash_fwd" else "sdpa_bwd"
-                ms = statistics.median(rounds[kname])
-                lib_ms = statistics.median(rounds[lib])
-                res.setdefault(kname, {})[cell] = {
-                    "max_abs_err": errs[kname][0],
-                    "err_over_max_ref": errs[kname][1],
-                    "ms": ms, "plain_ms": plain[kname],
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                    "ms_rounds": rounds[kname],
-                    "library_ms_rounds": rounds[lib]}
-                log(f"kernel {kname} [{cell}, b={TB} s={TS} h={TH} "
-                    f"d={TD}]: max_abs_err={errs[kname][0]:.3g} "
-                    f"err/max|ref|={errs[kname][1]:.3g} (tol "
-                    f"{FLASH_TOL[dtype]}) kernel_ms={spread(rounds[kname])} "
-                    f"plain_ms={plain[kname]:.4f} bound_ms={b_ms:.4f} "
-                    f"({b_by}) library_ms={spread(rounds[lib])} "
-                    f"[median (min-max) of 3 interleaved rounds]")
-            del q, k, v, do, bargs, lib_fwd, lib_bwd
-            torch.cuda.empty_cache()
+    cells = [(t, c, TB, f"{d}{'_causal' if c else ''}")
+             for d, t in (("f32", torch.float32), ("bf16", torch.bfloat16))
+             for c in (False, True)]
+    cells += [(t, True, LB, f"lm_{d}_causal")
+              for d, t in (("f32", torch.float32), ("bf16", torch.bfloat16))]
+    for dtype, causal, b, cell in cells:
+        rng = np.random.default_rng(11)
+        put = lambda a: torch.from_numpy(a).to(dev).to(dtype)  # noqa
+        q, k, v, do = (put(rng.standard_normal((b, TS, TH, TD),
+                                               np.float32))
+                       for _ in range(4))
+        kw = {"causal": causal, "scale": scale}
+        errs, bargs = flash_errors(fa, q, k, v, do, kw)
+        plain = {
+            "flash_fwd": cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, **kw),
+                                 3),
+            "flash_bwd_dq": cuda_ms(
+                lambda: fa.flash_bwd_dq_ref(*bargs, **kw), 3),
+            "flash_bwd_dkv": cuda_ms(
+                lambda: fa.flash_bwd_dkv_ref(*bargs, **kw), 3)}
+        lib_fwd, lib_bwd = sdpa_fns(q, k, v, do, causal)
+        rounds = yardstick({
+            "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, **kw),
+            "sdpa_fwd": lib_fwd,
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(*bargs, **kw),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(*bargs, **kw),
+            "sdpa_bwd": lib_bwd})
+        bounds = flash_bounds(dtype, causal, b)
+        for kname in plain:
+            b_ms, b_by = bounds[kname]
+            lib = "sdpa_fwd" if kname == "flash_fwd" else "sdpa_bwd"
+            ms = statistics.median(rounds[kname])
+            lib_ms = statistics.median(rounds[lib])
+            res.setdefault(kname, {})[cell] = {
+                "max_abs_err": errs[kname][0],
+                "err_over_max_ref": errs[kname][1],
+                "ms": ms, "plain_ms": plain[kname],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                "ms_rounds": rounds[kname],
+                "library_ms_rounds": rounds[lib]}
+            log(f"kernel {kname} [{cell}, b={b} s={TS} h={TH} "
+                f"d={TD}]: max_abs_err={errs[kname][0]:.3g} "
+                f"err/max|ref|={errs[kname][1]:.3g} (tol "
+                f"{FLASH_TOL[dtype]}) kernel_ms={spread(rounds[kname])} "
+                f"plain_ms={plain[kname]:.4f} bound_ms={b_ms:.4f} "
+                f"({b_by}) library_ms={spread(rounds[lib])} "
+                f"[median (min-max) of 3 interleaved rounds]")
+        del q, k, v, do, bargs, lib_fwd, lib_bwd
+        torch.cuda.empty_cache()
     # one odd shape: both sequence lengths off the tiles, sq != sk
     for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         for causal in (False, True):
@@ -716,17 +754,18 @@ def train_batches(n, seed=0):
             for _ in range(n)]
 
 
-def train_model(dtype, use_flash):
+def train_model(dtype, use_flash, capture=True):
     """The flagship at full width on the card, SGD lr 0.01; weights
     come from the port's numpy streams seeded by (config.seed, op,
-    weight), so every model built here starts from the same weights."""
+    weight), so every model built here starts from the same weights.
+    ``capture=False`` runs every step eagerly."""
     from flexflow_tpu_torch import FFConfig, SGDOptimizer, build_transformer
     m = build_transformer(FFConfig(batch_size=TB, seed=0), batch_size=TB,
                           dtype=dtype, use_flash=use_flash, device="cuda",
                           **TRAIN_ARCH)
     m.compile(optimizer=SGDOptimizer(lr=0.01),
               loss_type="sparse_categorical_crossentropy",
-              metrics=["accuracy"])
+              metrics=["accuracy"], capture=capture)
     return m
 
 
@@ -807,6 +846,190 @@ def train_phase(fa, card: str):
         f"steps, {res['samples_per_s']:.1f} samples/s, peak memory "
         f"{res['peak_mem_gib']:.2f} GiB, last loss {timed[-1]:.4f}")
     return res
+
+
+def lm_batches(n, seed=0):
+    """n host batches of the LM: tokens randint(0, 32000) of shape
+    (16, 512), their positions, and next-token labels (the last
+    position predicts the first token), from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    pos = np.tile(np.arange(TS, dtype=np.int32), (LB, 1))
+    out = []
+    for _ in range(n):
+        toks = rng.integers(0, LM_ARCH["vocab_size"], (LB, TS)) \
+            .astype(np.int32)
+        out.append({"tokens": toks, "positions": pos,
+                    "label": np.roll(toks, -1, axis=1)})
+    return out
+
+
+def lm_model(compute_dtype, use_flash=True, capture=True):
+    """The LM at full width on the card under ``compute_dtype``'s
+    policy (f32 masters). Weights come from the port's numpy streams
+    seeded by (config.seed, op, weight), so every model built here
+    starts from the same weights. ``use_flash=False`` puts the attention
+    ops on the einsum path; ``capture=False`` runs every step eagerly."""
+    from functools import partial
+    from flexflow_tpu_torch import FFConfig, SGDOptimizer, build_transformer_lm
+    from flexflow_tpu_torch.core.losses import \
+        sparse_categorical_crossentropy
+    m = build_transformer_lm(
+        FFConfig(batch_size=LB, seed=0, compute_dtype=compute_dtype),
+        batch_size=LB, device="cuda", **LM_ARCH)
+    if not use_flash:
+        for op in m.ops:
+            if op.name.endswith("_attn"):
+                op.use_flash = False
+    m.compile(optimizer=SGDOptimizer(lr=0.01, momentum=0.9),
+              loss_type=partial(sparse_categorical_crossentropy,
+                                from_logits=True),
+              metrics=[], capture=capture)
+    return m
+
+
+def weights_of(m):
+    return {f"{op}.{k}": w.detach().clone()
+            for op, p in m.state.params.items() for k, w in p.items()}
+
+
+def max_weight_diff(a, b):
+    return max((float((a[n].float() - b[n].float()).abs().max()), n)
+               for n in a)
+
+
+def check_masters(m, what):
+    """Every master and optimizer slot stays f32 under the policy."""
+    bad = [f"{op}.{k}" for tree in (m.state.params,
+                                    *m.state.opt_state.values())
+           for op, p in tree.items() for k, w in p.items()
+           if w.dtype != torch.float32]
+    if bad:
+        raise AssertionError(f"{what}: masters or slots not f32: {bad}")
+
+
+def release(m):
+    """Drop a model's captured train step and cached memory."""
+    m.executor.programs.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_train_phase(fa, card: str):
+    """(a) f32: 3 steps through the flash kernels (captured) vs 3 on the
+    einsum path; (b) compute_dtype bfloat16 over f32 masters: 3 einsum
+    steps held against the kernels, every master and slot checked f32;
+    then the same model eagerly and captured, 3 held steps each
+    (weights equal to LM_CAPTURE_WEIGHT_ABS) and 20 timed, with the
+    capture count and the flash launches (6 layers x steps, a replay
+    counting each launch of its graph) checked. Returns its numbers and
+    the f32 model trained through the kernels (served next)."""
+    batches = lm_batches(4)
+    t0 = time.perf_counter()
+    runs, served = {}, None
+    for use_flash in (True, False):
+        m = lm_model("float32", use_flash)
+        losses = [float(m.train_batch(batches[i])["loss"])
+                  for i in range(3)]
+        runs[use_flash] = (losses, weights_of(m))
+        release(m)
+        if use_flash:
+            served = m
+            nparams = sum(w.numel() for w in runs[True][1].values())
+        del m
+    (lk, wk), (lp, wp) = runs[True], runs[False]
+    if not all(abs(a - b) <= LM_F32_LOSS_REL * abs(b)
+               for a, b in zip(lk, lp)):
+        raise AssertionError(f"LM f32 losses kernel {lk} vs plain {lp}")
+    wdiff, worst = max_weight_diff(wk, wp)
+    if not wdiff <= LM_F32_WEIGHT_ABS:
+        raise AssertionError(
+            f"LM f32 weights differ by {wdiff} ({worst}) after 3 steps")
+    log(f"train lm f32 [{card}]: {nparams / 1e6:.2f} M params, batch {LB} "
+        f"x {TS} tokens; losses kernel {[round(x, 6) for x in lk]} plain "
+        f"{[round(x, 6) for x in lp]} (tol rel {LM_F32_LOSS_REL}); max "
+        f"|weight diff| after 3 steps {wdiff:.3g} at {worst} (tol "
+        f"{LM_F32_WEIGHT_ABS})")
+    del runs, wk, wp
+
+    m = lm_model("bfloat16", use_flash=False)
+    plain = [float(m.train_batch(batches[i])["loss"]) for i in range(3)]
+    check_masters(m, "LM bf16 einsum")
+    release(m)
+    del m
+    steps_warm, steps_timed = 3, 20
+    res = {"f32_losses_kernel": lk, "f32_losses_plain": lp,
+           "f32_weight_diff": wdiff, "bf16_losses_plain": plain}
+    held = None
+    for mode in ("eager", "captured"):
+        m = lm_model("bfloat16", capture=mode == "captured")
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches.update(dict.fromkeys(fa.launches, 0))  # this run only
+        warm = [float(m.train_batch(batches[i])["loss"])
+                for i in range(steps_warm)]
+        w3 = weights_of(m)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = [m.train_batch(batches[i % len(batches)])
+                   for i in range(steps_timed)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        timed = [float(x["loss"]) for x in metrics]
+        launches = {k: fa.launches[k] for k in fa.FLASH_KERNELS}
+        steps, layers = steps_warm + steps_timed, LM_ARCH["num_layers"]
+        if launches != dict.fromkeys(launches, layers * steps):
+            raise AssertionError(f"LM bf16 {mode}: flash launches "
+                                 f"{launches} != {layers} layers x {steps} "
+                                 f"steps")
+        counts = m.compile_counts()
+        replays = m.executor.programs.replay_counts()
+        want_replays = steps - 1 if mode == "captured" else 0
+        if counts != {"train_step": 1} or \
+                replays != {"train_step": want_replays}:
+            raise AssertionError(f"LM bf16 {mode}: captures {counts}, "
+                                 f"replays {replays}")
+        check_masters(m, f"LM bf16 {mode}")
+        if not all(math.isfinite(x) for x in warm + timed):
+            raise AssertionError(f"LM bf16 {mode}: non-finite loss")
+        if not all(abs(a - b) <= LM_BF16_LOSS_REL * abs(b)
+                   for a, b in zip(warm, plain)):
+            raise AssertionError(f"LM bf16 {mode}: losses kernel {warm} "
+                                 f"vs plain {plain}")
+        cell = {"step_ms": 1e3 * wall / steps_timed,
+                "samples_per_s": LB * steps_timed / wall,
+                "tokens_per_s": LB * TS * steps_timed / wall,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches": launches, "compile_counts": counts,
+                "replays": replays, "losses": warm + timed}
+        if held is None:
+            held = (warm + timed, w3)
+        else:
+            cdiff, cworst = max_weight_diff(w3, held[1])
+            if not cdiff <= LM_CAPTURE_WEIGHT_ABS or \
+                    warm + timed != held[0]:
+                raise AssertionError(
+                    f"LM bf16 captured steps differ from eager: weights "
+                    f"by {cdiff} at {cworst}, losses {warm + timed} vs "
+                    f"{held[0]}")
+            cell["weight_diff_vs_eager"] = cdiff
+        res[mode] = cell
+        log(f"train lm bf16 {mode} [{card}]: losses kernel "
+            f"{[round(x, 4) for x in warm]} plain "
+            f"{[round(x, 4) for x in plain]} (tol rel {LM_BF16_LOSS_REL}); "
+            f"launches {launches} (= {layers} layers x {steps} steps); "
+            f"compile_counts {counts} replays {replays}; masters and "
+            f"slots f32")
+        log(f"train lm bf16 {mode} [{card}]: step ms "
+            f"{cell['step_ms']:.3f} over {steps_timed} steps, "
+            f"{cell['samples_per_s']:.1f} samples/s, "
+            f"{cell['tokens_per_s']:.0f} tokens/s, peak memory "
+            f"{cell['peak_mem_gib']:.2f} GiB, last loss {timed[-1]:.4f}")
+        release(m)
+        del m, metrics
+    log(f"train lm bf16 [{card}]: captured steps equal eager ones after "
+        f"3 steps (max |weight diff| {res['captured']['weight_diff_vs_eager']}"
+        f", tol {LM_CAPTURE_WEIGHT_ABS}) and in all {steps} losses; "
+        f"phase {time.perf_counter() - t0:.1f} s")
+    return res, served
 
 
 def lstm_inputs(dtype, seed=0):
@@ -1025,10 +1248,10 @@ def nmt_batches(n, seed=0):
     return out
 
 
-def nmt_model(dtype, use_pallas):
+def nmt_model(dtype, use_pallas, capture=True):
     """build_nmt_lstm at full width on the card, SGD lr 0.01; weights
     from the port's numpy streams, the same for every model built
-    here."""
+    here. ``capture=False`` runs every step eagerly."""
     from flexflow_tpu_torch import FFConfig, SGDOptimizer, build_nmt_lstm
     m = build_nmt_lstm(FFConfig(batch_size=NB, seed=0), batch_size=NB,
                        seq_len=NT, vocab_size=NV, embed_dim=NH, hidden=NH,
@@ -1036,15 +1259,16 @@ def nmt_model(dtype, use_pallas):
                        device="cuda")
     m.compile(optimizer=SGDOptimizer(lr=0.01),
               loss_type="sparse_categorical_crossentropy",
-              metrics=["accuracy"])
+              metrics=["accuracy"], capture=capture)
     return m
 
 
 def nmt_steps(dtype, use_pallas, batches, steps=3):
     """A fresh model's first `steps` steps: (losses, [{op.weight: its
     gradient} a step]), the gradients recorded as train_batch's
-    executor computes them."""
-    m = nmt_model(dtype, use_pallas)
+    executor computes them — eagerly: a replayed step runs no Python
+    that could record them."""
+    m = nmt_model(dtype, use_pallas, capture=False)
     ex, grads = m.executor, []
     compute = ex._compute_grads
 
@@ -1202,26 +1426,28 @@ def serve_prompts(vocab, seed=0):
     return greedy, rand(128)
 
 
-def serve_phase(pr, fa, card: str):
-    """Serve the full-width LM on the card four times on one set of
-    weights: the mixed step on f32 pages (the first slice's run), on
-    int8 and on fp8 pages, and the legacy bucket path on f32 pages.
-    The no-cache reference is computed once and holds every run. Each
-    run's kernel launches are counted from 0 just before it. Returns
-    {run: (launches, stats)}."""
-    from flexflow_tpu_torch import FFConfig, build_transformer_lm
+def serve_phase(pr, fa, card: str, lm):
+    """Serve ``lm`` — the f32 LM FFModel lm_train_phase just trained,
+    its live parameters — on the card four times: the mixed step on f32
+    pages, on int8 and on fp8 pages, and the legacy bucket path on f32
+    pages. Each run's engine captures its programs in warmup(); its
+    compile_counts() must read the path's families then and unchanged
+    after generate(). Its greedy tokens are held against one no-cache
+    reference, and all of its tokens against an eager engine's run
+    (capture=False) token for token. Each run's kernel launches are
+    counted from 0 just before it (a replay counts each launch of its
+    graph). Returns {run: (launches, stats, eager stats)}."""
+    from flexflow_tpu_torch import FFConfig
     from flexflow_tpu_torch.serve import ServeEngine
-    t0 = time.perf_counter()
-    lm = build_transformer_lm(FFConfig(), vocab_size=32000,
-                              max_seq_len=512, hidden=512, num_heads=8,
-                              num_layers=6, ff_dim=2048, seed=0,
-                              device="cuda")
-    nparams = sum(p.numel() for p in lm.parameters())
-    log(f"serve: LM {nparams / 1e6:.1f} M params f32, built in "
-        f"{time.perf_counter() - t0:.2f} s")
-    greedy, sampled = serve_prompts(32000)
+    nparams = sum(w.numel() for p in lm.state.params.values()
+                  for w in p.values())
+    vocab = LM_ARCH["vocab_size"]
+    log(f"serve: the trained LM, {nparams / 1e6:.1f} M params f32")
+    greedy, sampled = serve_prompts(vocab)
     prompts = greedy + [sampled]
     new = 32
+    kw = dict(temperature=[None] * len(greedy) + [0.8],
+              top_k=[None] * len(greedy) + [8], sample_seed=7)
     runs, ref = {}, None
     # FFConfig defaults: kv_page_size 16, kv_num_pages 257, 8 seqs, 512
     for run, cfg in (("f32", FFConfig()),
@@ -1229,22 +1455,30 @@ def serve_phase(pr, fa, card: str):
                      ("fp8", FFConfig(kv_dtype="float8_e4m3")),
                      ("legacy_f32", FFConfig(serve_chunked_prefill=False))):
         eng = ServeEngine(lm, cfg, device="cuda")
-        boot = eng.warmup()
+        counts = eng.warmup()
+        want_counts = ({"prefill": 0, "decode": 0, "mixed": 1}
+                       if eng.chunked_prefill else
+                       {"prefill": len(eng.buckets), "decode": 1,
+                        "mixed": 0})
+        if counts != want_counts:
+            raise AssertionError(f"{run}: captures after warmup {counts} "
+                                 f"!= {want_counts}")
         log(f"serve {run}: KV pool {eng.cache_cfg.kv_dtype} "
-            f"{eng.cache_cfg.pool_bytes / 2**20:.1f} MiB, warmup "
-            f"{boot['boot_s']:.3f} s")
+            f"{eng.cache_cfg.pool_bytes / 2**20:.1f} MiB, warmup (captures "
+            f"{counts}) {eng.boot_stats['boot_s']:.3f} s")
         pr.launches = 0                   # count this run's path only
         fa.launches["paged_decode"] = 0
-        out = eng.generate(prompts, new,
-                           temperature=[None] * len(greedy) + [0.8],
-                           top_k=[None] * len(greedy) + [8], sample_seed=7)
+        out = eng.generate(prompts, new, **kw)
         launches = {"paged_ragged_v2": pr.launches,
                     "paged_decode": fa.launches["paged_decode"]}
         st = eng.last_stats
+        if eng.compile_counts() != counts:
+            raise AssertionError(f"{run}: captures grew in generate: "
+                                 f"{eng.compile_counts()} != {counts}")
         if [len(o) for o in out] != [new] * len(prompts):
             raise AssertionError(
                 f"{run}: wrong output lengths {[len(o) for o in out]}")
-        if not all(0 <= t < 32000 for o in out for t in o):
+        if not all(0 <= t < vocab for o in out for t in o):
             raise AssertionError(f"{run}: token outside the vocabulary")
         layers = eng.num_layers
         if eng.chunked_prefill:
@@ -1267,9 +1501,15 @@ def serve_phase(pr, fa, card: str):
         exact = eng.assert_token_parity(greedy, out[:len(greedy)], ref,
                                         margin=margin)
         margin = eng.kv_tie_margin if margin is None else margin
-        pre_lanes = sum(n for n, _ in st["prefill_times_s"])
-        pre_s = sum(s for _, s in st["prefill_times_s"])
-        dec_ms = 1e3 * float(np.mean(st["decode_step_times_s"]))
+        # the same run eagerly: every step run op by op, no graph
+        eng.close()
+        eager = ServeEngine(lm, cfg, device="cuda", capture=False)
+        eager.warmup()
+        out_e = eager.generate(prompts, new, **kw)
+        st_e = eager.last_stats
+        if out_e != out:
+            raise AssertionError(f"{run}: captured tokens differ from the "
+                                 f"eager run's")
         log(f"serve {run} [{card}]: mode={st['mode']} steps={st['steps']} "
             f"decode_steps={st['decode_steps']} kernel_launches="
             f"{launches} (= {what}) prefix_hit_tokens="
@@ -1277,14 +1517,21 @@ def serve_phase(pr, fa, card: str):
             f"spec accepted/drafted={st['spec_accepted_tokens']}/"
             f"{st['spec_drafted_tokens']} greedy token-identical to "
             f"reference: {exact}/{len(greedy)} (rest diverge at a tie <= "
-            f"{margin})")
-        log(f"serve {run} [{card}]: decode step ms mean={dec_ms:.3f} over "
-            f"{st['decode_steps']} steps; prefill tokens/s="
-            f"{pre_lanes / pre_s:.1f}; output tokens/s="
-            f"{st['tokens_per_sec']:.1f} ({st['total_new_tokens']} tokens "
-            f"in {st['wall_s']:.3f} s)")
-        runs[run] = (launches, st)
-        del eng
+            f"{margin}); all {len(prompts)} streams token-identical to the "
+            f"eager run; captures {eng.compile_counts()} unchanged, "
+            f"replays {eng.programs.replay_counts()}")
+        for mode, x in (("captured", st), ("eager", st_e)):
+            pre_lanes = sum(n for n, _ in x["prefill_times_s"])
+            pre_s = sum(t for _, t in x["prefill_times_s"])
+            log(f"serve {run} {mode} [{card}]: decode step ms mean="
+                f"{1e3 * float(np.mean(x['decode_step_times_s'])):.3f} "
+                f"over {x['decode_steps']} steps; prefill tokens/s="
+                f"{pre_lanes / pre_s:.1f}; output tokens/s="
+                f"{x['tokens_per_sec']:.1f} ({x['total_new_tokens']} "
+                f"tokens in {x['wall_s']:.3f} s)")
+        runs[run] = (launches, st, st_e)
+        del eng, eager
+        gc.collect()
         torch.cuda.empty_cache()
     return runs
 
@@ -1448,9 +1695,10 @@ def main() -> int:
     fres = flash_phase(fa)
     hres = head_dim_phase(fa, pr)
     tres = train_phase(fa, card)
+    lmres, lm = lm_train_phase(fa, card)
     lres = lstm_phase(ls)
     nres = nmt_train_phase(ls, card)
-    sres = serve_phase(pr, fa, card)
+    sres = serve_phase(pr, fa, card, lm)
 
     def head(cells):
         """A row's headline numbers: its f32 cell."""
@@ -1498,6 +1746,7 @@ def main() -> int:
             "source": "flexflow_tpu_torch/kernels/csrc/flash_attention.cu",
             "replaces": f"flexflow_tpu/kernels/flash_attention.py:{line}",
             "launches": tres["launches"][kname],
+            "lm_launches": lmres["captured"]["launches"][kname],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -3,23 +3,27 @@
 The JAX package ``flexflow_tpu`` is the reference; this package imports
 neither it nor JAX. It serves and trains on one NVIDIA H100:
 
-  * serving: the causal LM of ``build_transformer_lm`` through the
-    chunked mixed step on f32, bf16, int8 or fp8 KV pages, with
-    attention in a hand-written CUDA kernel
+  * serving: the causal LM of ``build_transformer_lm`` (an FFModel)
+    through the chunked mixed step on f32, bf16, int8 or fp8 KV pages,
+    with attention in a hand-written CUDA kernel
     (``kernels/csrc/paged_ragged_v2.cu``), and through the legacy bucket
     path with the paged decode kernel (``kernels/csrc/paged_decode.cu``);
-  * training the Transformer encoder of ``build_transformer`` through
-    ``FFModel.compile`` / ``train_batch`` / ``fit`` / ``evaluate``, with
-    attention forward and backward in hand-written CUDA kernels
-    (``kernels/csrc/flash_attention.cu``);
+  * training the Transformer encoder of ``build_transformer`` and the
+    causal LM of ``build_transformer_lm`` through ``FFModel.compile`` /
+    ``train_batch`` / ``fit`` / ``evaluate``, under the JAX
+    mixed-precision policy, with attention forward and backward in
+    hand-written CUDA kernels (``kernels/csrc/flash_attention.cu``);
   * training the NMT LSTM of ``build_nmt_lstm`` through the same
     ``FFModel``, with the LSTM recurrence forward and backward in
     hand-written CUDA kernels (``kernels/csrc/lstm_scan.cu``).
 
-Entry points run on the card unless the caller passes ``device="cpu"``.
+Every serving and training step is one program of a registry
+(``core/programs.py``): on the card it is captured once as a CUDA graph
+and replayed. Entry points run on the card unless the caller passes
+``device="cpu"``.
 """
 
-from .config import FFConfig, resolve_device
+from .config import CompMode, FFConfig, resolve_device
 from .core.optimizers import AdamOptimizer, SGDOptimizer
 from .model import FFModel
 from .models.nmt_lstm import build_nmt_lstm
@@ -28,7 +32,7 @@ from .models.transformer import (LMArch, TransformerLM, build_transformer,
 from .serve import ServeEngine
 from .weights import from_jax_params, load_jax_params
 
-__all__ = ["FFConfig", "resolve_device", "FFModel", "SGDOptimizer",
+__all__ = ["CompMode", "FFConfig", "resolve_device", "FFModel", "SGDOptimizer",
            "AdamOptimizer", "LMArch", "TransformerLM", "build_nmt_lstm",
            "build_transformer", "build_transformer_lm", "ServeEngine",
            "from_jax_params", "load_jax_params"]

@@ -3,7 +3,8 @@
 ``FFConfig`` carries the fields of ``flexflow_tpu/config.py`` that the
 port's slices read, under the same names and defaults, so one set of
 knobs sizes both packages: the serving fields of the serving slice and
-the training fields of the training slice. A few knobs the port does
+the training fields of the training slice, and the mixed-precision
+policy of ``core/precision.py``. A few knobs the port does
 not run yet (search, pipelines, remat, fusion, NHWC, telemetry,
 ``iter_config.seq_length``) are here at their JAX defaults so that
 setting one reaches ``FFModel.compile`` (or the step), which raises
@@ -21,9 +22,20 @@ import dataclasses
 
 import torch
 
+from .core.precision import resolve_dtype
+
 # the ONE --kv-dtype allowlist (flexflow_tpu/config.py KV_DTYPES); the
 # port's engine serves all four (int8/float8_e4m3 on the mixed step only)
 KV_DTYPES = ("float32", "bfloat16", "int8", "float8_e4m3")
+
+
+class CompMode:
+    """Computation mode of ``FFModel.compile``: INFERENCE builds the
+    parameters without optimizer slots (what a serving engine compiles
+    a model with) and refuses to train."""
+
+    TRAINING = "training"
+    INFERENCE = "inference"
 
 
 @dataclasses.dataclass
@@ -43,9 +55,8 @@ class FFConfig:
     epochs: int = 1
     learning_rate: float = 0.01
     seed: int = 0
-    # master dtype of float parameters and optimizer state; training
-    # runs only the f32 default (the mixed-precision policy of
-    # core/precision.py is not ported)
+    # master dtype of float parameters and optimizer state (the
+    # mixed-precision policy, core/precision.py)
     param_dtype: torch.dtype = torch.float32
     # embedding-table updates. The port updates tables densely through
     # autograd, which is the function of both settings of the JAX
@@ -56,10 +67,11 @@ class FFConfig:
     # is not ported: FFModel.compile raises when it is asked for
     sparse_embedding_lazy: bool = False
 
-    # activation dtype of the served LM (the JAX build_transformer_lm
-    # wires compute_dtype into the embeddings' output dtype); as a
-    # training policy only float32 runs — a bf16 model is built with
-    # build_transformer's dtype= instead, as in the JAX package
+    # dtype the step computes in: params and float inputs are cast to
+    # it inside the differentiated region, losses and metrics score
+    # f32-upcast logits (core/precision.py); build_transformer_lm also
+    # wires it into the embeddings' output dtype, the served LM's
+    # activation dtype
     compute_dtype: torch.dtype = torch.float32
 
     # block-paged KV-cache geometry (serve/kv_cache.py): page 0 is the
@@ -112,11 +124,15 @@ class FFConfig:
         default_factory=FFIterationConfig)
 
     def __post_init__(self):
-        for knob in ("compute_dtype", "param_dtype"):
-            if getattr(self, knob) not in (torch.float32, torch.bfloat16):
-                raise ValueError(
-                    f"{knob} must be torch.float32 or torch.bfloat16, "
-                    f"got {getattr(self, knob)}")
+        self.validate()
+
+    def validate(self) -> None:
+        """Normalize the precision policy to torch dtypes (names such
+        as "bfloat16" are taken) and reject values a step would
+        silently ignore. Called at construction and from compile."""
+        self.compute_dtype = resolve_dtype(self.compute_dtype,
+                                           "compute_dtype")
+        self.param_dtype = resolve_dtype(self.param_dtype, "param_dtype")
         if self.batch_size < 1:
             raise ValueError(
                 f"batch_size must be >= 1, got {self.batch_size}")

@@ -12,6 +12,11 @@ parameter tensors and their optimizer slots are overwritten, so the
 executor's parameter tree keeps the same leaf tensors (and the same
 device memory) from step to step. The arithmetic keeps the JAX order
 of operations in f32 (``w - lr * g``, ``momentum * v + g``, ...).
+
+A step's host-computed scalar (Adam's ``alpha_t``) can come in as a 0-d
+device tensor (``update(..., scalar=...)``), which the executor writes
+before each step: a captured train step (core/programs.py) then reads
+each step's value instead of the one baked in at capture.
 """
 
 from __future__ import annotations
@@ -42,8 +47,15 @@ class Optimizer:
     def init_state(self, params: Tree) -> Any:
         raise NotImplementedError
 
-    def update(self, params: Tree, grads: Tree, state, step: int):
-        """Apply one step in place; returns (params, state)."""
+    def step_scalar(self, step: int):
+        """The host-computed scalar of step ``step`` that ``update``
+        reads, or None when the update has none."""
+        return None
+
+    def update(self, params: Tree, grads: Tree, state, step: int,
+               scalar=None):
+        """Apply one step in place; returns (params, state).
+        ``scalar`` (a 0-d tensor) stands in for step_scalar(step)."""
         raise NotImplementedError
 
     def sparse_update(self, *args, **kwargs):
@@ -74,7 +86,7 @@ class SGDOptimizer(Optimizer):
         return {"v": _zeros_like(params)}
 
     @torch.no_grad()
-    def update(self, params, grads, state, step):
+    def update(self, params, grads, state, step, scalar=None):
         # lr rounded to f32 (the JAX step's jnp.asarray(lr, f32)); a
         # Python float scalar is applied in the tensors' f32
         lr = float(torch.tensor(self.lr, dtype=torch.float32))
@@ -122,9 +134,12 @@ class AdamOptimizer(Optimizer):
         lr = torch.tensor(self.lr, dtype=f32)
         return float(lr * torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t))
 
+    def step_scalar(self, step: int) -> float:
+        return self.alpha_t(step)
+
     @torch.no_grad()
-    def update(self, params, grads, state, step):
-        alpha_t = self.alpha_t(step)
+    def update(self, params, grads, state, step, scalar=None):
+        alpha_t = self.alpha_t(step) if scalar is None else scalar
         b1, b2 = self.beta1, self.beta2
         for w, g, m, v in _leaves(params, grads, state["m"], state["v"]):
             g = g.float()

@@ -40,6 +40,7 @@ import math
 
 import torch
 
+from ._launches import count_launch
 from .paged_ragged_v2 import (attend_gathered, check_paged_inputs,
                               gather_pages, paged_attention_ragged_v2)
 
@@ -235,7 +236,7 @@ def _launch(kernel, q, args, dims):
         err.argtypes, err.restype = [_INT], ctypes.c_char_p
         raise RuntimeError(
             f"{kernel} launch failed: {err(rc).decode()} ({rc})")
-    launches[kernel] += 1
+    count_launch(launches, kernel)
 
 
 def _ref(x):
@@ -489,14 +490,25 @@ def _sm_count(index: int) -> int:
 
 # (device index, stream) -> int32 split counts, zero between launches:
 # allocated zeroed here, and the kernel's combining CTA zeroes its count
-# again. One buffer a stream, so launches that share it run in order.
+# again. One buffer a stream, so launches that share it run in order. A
+# buffer outgrown by a larger launch is kept alive: a CUDA graph
+# captured on the stream still launches with it (core/programs.py).
 _split_counts = {}
+_outgrown = []
 
 
 def _counts(dev, stream: int, n: int):
     key = (dev.index, stream)
     cnt = _split_counts.get(key)
     if cnt is None or cnt.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            # a graph's pool would own it, zeroed only at capture time
+            raise RuntimeError(
+                "paged attention's split counts must be allocated "
+                "before a capture: run the step eagerly on the capture "
+                "stream first")
+        if cnt is not None:
+            _outgrown.append(cnt)
         cnt = _split_counts[key] = torch.zeros(n, dtype=torch.int32,
                                                device=dev)
     return cnt
@@ -554,7 +566,7 @@ def _launch_paged(kernel, q, k_pages, v_pages, page_tables, vectors,
         err.argtypes, err.restype = [_INT], ctypes.c_char_p
         raise RuntimeError(
             f"{kernel} launch failed: {err(rc).decode()} ({rc})")
-    launches[kernel] += 1
+    count_launch(launches, kernel)
     return out
 
 

@@ -28,6 +28,7 @@ import ctypes
 
 import torch
 
+from ._launches import count_launch
 from .flash_attention import _DTYPE_CODE, _by_device
 
 # launches of each wrapper: one per successful call of its CUDA kernel
@@ -180,8 +181,8 @@ def _launch(kernel, xg, ptrs, dims):
         err.argtypes, err.restype = [_INT], ctypes.c_char_p
         raise RuntimeError(
             f"{kernel} launch failed: {err(rc).decode()} ({rc})")
-    launches[kernel] += 1
-    device_launches[kernel] += enqueued.value
+    count_launch(launches, kernel)
+    count_launch(device_launches, kernel, enqueued.value)
 
 
 def lstm_fwd_cuda(xg, wh, h0, c0):

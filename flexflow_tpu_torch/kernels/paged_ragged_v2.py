@@ -31,9 +31,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+import sys
 from typing import Optional
 
 import torch
+
+from ._launches import count_launch
 
 # launches of the CUDA kernel: one per successful launch, nowhere else
 # — how a run shows that its main path went through the kernel (set it
@@ -266,7 +269,6 @@ def paged_ragged_v2_cuda(q, k_pages, v_pages, page_tables, lane_slots,
     """Launch ``csrc/paged_ragged_v2.cu`` on the current stream. Same
     contract as :func:`ragged_attention_ref`; raises on inputs the
     kernel does not take and on any launch error."""
-    global launches
     check_paged_inputs(q, k_pages, v_pages, page_tables,
                        {"lane_slots": lane_slots, "lane_lens": lane_lens})
     _check_scales(k_pages, k_scales, v_scales)
@@ -310,7 +312,7 @@ def paged_ragged_v2_cuda(q, k_pages, v_pages, page_tables, lane_slots,
         lib.paged_ragged_v2_error_string.restype = ctypes.c_char_p
         msg = lib.paged_ragged_v2_error_string(rc).decode()
         raise RuntimeError(f"paged_ragged_v2 launch failed: {msg} ({rc})")
-    launches += 1
+    count_launch(sys.modules[__name__], "launches")
     return out
 
 

@@ -6,10 +6,14 @@ methods the training slice's models use, ``compile`` / ``train_batch`` /
 optimizer state and batches live on ``device`` — the card unless the
 caller passes ``device="cpu"``.
 
+``compile`` takes the mixed-precision policy (``compute_dtype``,
+``param_dtype``; core/precision.py) and ``comp_mode``. Each train step
+runs as one program of the executor's registry: captured as a CUDA
+graph on the card and replayed (core/programs.py).
+
 Out of the slice, and raising ``NotImplementedError`` when configured:
 a mesh or strategy, the strategy search, pipelines, remat, fusion,
-NHWC, telemetry, a training ``compute_dtype`` or ``param_dtype`` other
-than float32, lazy sparse embedding updates, ``seq_length``
+NHWC, telemetry, lazy sparse embedding updates, ``seq_length``
 truncation, and in ``fit``
 ``steps_per_dispatch > 1``, ``grad_accum_steps > 1``, checkpointing and
 prefetch.
@@ -23,7 +27,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .config import FFConfig, resolve_device
+from .config import CompMode, FFConfig, resolve_device
 from .core.executor import Executor, TrainState
 from .core.optimizers import Optimizer, SGDOptimizer
 from .op import Op
@@ -183,9 +187,6 @@ class FFModel:
             "perform_fusion": cfg.perform_fusion,
             "conv_layout='NHWC'": cfg.conv_layout == "NHWC",
             "telemetry": cfg.telemetry,
-            "compute_dtype != float32 as a training policy":
-                cfg.compute_dtype != torch.float32,
-            "param_dtype != float32": cfg.param_dtype != torch.float32,
             "sparse_embedding_lazy (lazy sparse embedding updates)":
                 cfg.sparse_embedding_lazy,
         }
@@ -196,18 +197,25 @@ class FFModel:
 
     def compile(self, optimizer: Optional[Optimizer] = None,
                 loss_type: Optional[str] = "sparse_categorical_crossentropy",
-                metrics: Optional[Sequence[str]] = None, mesh=None,
-                strategy=None) -> None:
-        """Build the executor and initialize parameters (and the
-        optimizer's slots) on the model's device."""
+                metrics: Optional[Sequence[str]] = None,
+                comp_mode: str = CompMode.TRAINING, mesh=None,
+                strategy=None, capture: bool = True) -> None:
+        """Build the executor and initialize parameters (and, in
+        training mode, the optimizer's slots) on the model's device.
+        ``capture=False`` runs every train step eagerly instead of
+        replaying a captured CUDA graph (the reference runs of the
+        tests and the smoke; the results are the same)."""
         if mesh is not None or strategy is not None:
             raise NotImplementedError(
                 "meshes and parallel strategies are not ported yet")
+        self.config.validate()   # catch post-construction field edits
         self._check_config()
         if optimizer is None:
             optimizer = SGDOptimizer(lr=self.config.learning_rate)
         self.optimizer = optimizer
-        self.executor = Executor(self, optimizer, loss_type, metrics)
+        self.executor = Executor(self, optimizer, loss_type, metrics,
+                                 comp_mode=comp_mode, capture=capture)
+        self.comp_mode = comp_mode
         self.state = self.executor.init_state()
 
     # ---------------- steps ----------------
@@ -215,6 +223,12 @@ class FFModel:
         logits, _ = self.executor.eval_step(
             self.state, self.executor.shard_batch(batch))
         return logits
+
+    def compile_counts(self) -> Dict[str, int]:
+        """Exact captures (on the CPU or with capture off: new batch
+        signatures) per train-program family, the executor's registry
+        query."""
+        return self.executor.compile_counts()
 
     def train_batch(self, batch: Dict[str, np.ndarray]
                     ) -> Dict[str, torch.Tensor]:

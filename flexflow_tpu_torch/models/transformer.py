@@ -1,14 +1,11 @@
 """The transformers of ``flexflow_tpu/models/transformer.py``.
 
 ``build_transformer`` — the training flagship, the encoder classifier
-— returns the port's ``FFModel`` with the JAX function's graph and op
-names (``layer{i}_attn``, ``layer{i}_ff1``, ``cls_head``, ...).
-
-``build_transformer_lm`` there wires token + learned-position
-embeddings, pre-LN causal-attention blocks, a final LN and a vocab head
-into an FFModel whose op names are the contract the serving engine
-reads weights through. Here the same parameters live in an
-``nn.Module``, keyed by the same op names and kept in the JAX layouts:
+— and ``build_transformer_lm`` — the causal LM — return the port's
+``FFModel`` with the JAX functions' graphs and op names
+(``layer{i}_attn``, ``layer{i}_ff1``, ``cls_head``, ``lm_head``, ...).
+The LM's op names are the contract the serving engine reads weights
+through, kept in the JAX layouts:
 
     tok_embed / pos_embed   {"kernel": (V, E) / (max_positions, E)}
     layer{i}_ln1, _ln2      {"scale": (E,), "bias": (E,)}
@@ -18,10 +15,13 @@ reads weights through. Here the same parameters live in an
     final_ln                {"scale", "bias"}
     lm_head                 {"kernel": (E, V), "bias": (V,)}
 
-The block math mirrors the JAX serving engine's (serve/engine.py
-``_ln``, ``_dense``, ``_embed``, ``_attn_qkv``, ``_attn_out``, ``_ffn``,
-``_head``): LayerNorm statistics in f32, matmuls in the activation
-dtype, attention probabilities kept in f32 through the p.v product.
+``TransformerLM`` is the serving engine's view of such a model: the
+block math over the model's LIVE parameter tensors (a training step is
+served without a reload). It mirrors the JAX serving engine's pure
+functions (serve/engine.py ``_ln``, ``_dense``, ``_embed``,
+``_attn_qkv``, ``_attn_out``, ``_ffn``, ``_head``): LayerNorm statistics
+in f32, matmuls in the activation dtype, attention probabilities kept
+in f32 through the p.v product.
 """
 
 from __future__ import annotations
@@ -30,11 +30,9 @@ import dataclasses
 import math
 from typing import Dict, Optional
 
-import numpy as np
 import torch
-from torch import nn
 
-from ..config import FFConfig, resolve_device
+from ..config import FFConfig
 from ..model import FFModel
 
 
@@ -76,30 +74,6 @@ class LMArch:
         return out
 
 
-def init_params(arch: LMArch, seed: int = 0
-                ) -> Dict[str, Dict[str, np.ndarray]]:
-    """Random f32 weights from a numpy seed: LeCun-normal matmul
-    kernels (std 1/sqrt(fan_in)), unit-normal embeddings, zero biases,
-    identity LayerNorms. Builds full-width models where there is no
-    JAX to export weights from."""
-    rng = np.random.default_rng(seed)
-    out: Dict[str, Dict[str, np.ndarray]] = {}
-    for op, shapes in arch.param_shapes().items():
-        p = {}
-        for name, shape in shapes.items():
-            if name == "scale":
-                a = np.ones(shape, np.float32)
-            elif name in ("bias", "bo"):
-                a = np.zeros(shape, np.float32)
-            else:
-                fan_in = shape[0] if name != "wo" else shape[0] * shape[1]
-                std = 1.0 if op.endswith("_embed") else fan_in ** -0.5
-                a = rng.standard_normal(shape, dtype=np.float32) * std
-            p[name] = a
-        out[op] = p
-    return out
-
-
 def layer_norm(p, x, eps):
     """LayerNorm with f32 statistics (population variance, as
     ``jnp.var``), cast back to the input dtype."""
@@ -131,38 +105,29 @@ def causal_attention(q, k, v, scale):
     return torch.einsum("bhij,bjhd->bihd", probs, v.float())
 
 
-class TransformerLM(nn.Module):
-    """The LM's parameters (frozen, on one device) plus its block math.
+class TransformerLM:
+    """The LM's block math over ``params``, an ``{op: {name: tensor}}``
+    tree with ``arch``'s shapes — the live ``model.state.params`` of an
+    FFModel from :func:`build_transformer_lm` (see
+    :func:`flexflow_tpu_torch.weights.arch_from_model`), not copies:
+    the engine serves whatever the model holds now. Weights may be
+    stored at any float dtype; each block casts them to the activation
+    dtype."""
 
-    ``params`` defaults to :func:`init_params` from ``seed``; pass the
-    ``{op: {name: array}}`` tree of a JAX model to serve its weights
-    (see :func:`flexflow_tpu_torch.weights.from_jax_params`). Runs on
-    the card unless ``device="cpu"``."""
-
-    def __init__(self, arch: LMArch, params=None, *, seed: int = 0,
-                 device="cuda"):
-        super().__init__()
-        dev = resolve_device(device)
-        self.arch = arch
-        if params is None:
-            params = init_params(arch, seed)
+    def __init__(self, arch: LMArch, params):
         want = arch.param_shapes()
         if set(params) != set(want):
             raise ValueError(
                 f"params ops {sorted(set(params) ^ set(want))} do not "
                 f"match the architecture")
-        self.ops = nn.ModuleDict()
         for op, shapes in want.items():
-            pd = nn.ParameterDict()
-            for name, arr in params[op].items():
-                t = torch.tensor(np.asarray(arr, np.float32))
+            for name, t in params[op].items():
                 if name not in shapes or tuple(t.shape) != shapes[name]:
                     raise ValueError(
                         f"{op}.{name}: shape {tuple(t.shape)} does not "
                         f"match {shapes.get(name)}")
-                pd[name] = nn.Parameter(t.to(dev), requires_grad=False)
-            self.ops[op] = pd
-        self.params = {op: dict(pd.items()) for op, pd in self.ops.items()}
+        self.arch = arch
+        self.params = params
 
     @property
     def device(self) -> torch.device:
@@ -228,24 +193,48 @@ class TransformerLM(nn.Module):
             x = self.ffn(i, x)
         return x
 
-    def forward(self, tokens):
-        """(B, S) tokens -> (B, S, vocab) logits."""
-        return self.head(self.hidden_states(tokens))
-
 
 def build_transformer_lm(config: Optional[FFConfig] = None,
                          vocab_size: int = 256, max_seq_len: int = 128,
-                         hidden: int = 256, num_heads: int = 4,
-                         num_layers: int = 2, ff_dim: int = 512,
-                         seed: int = 0, device="cuda") -> TransformerLM:
-    """The JAX builder's signature, with weights from a numpy seed. The
-    activation dtype follows ``config.compute_dtype``."""
+                         batch_size: Optional[int] = None, hidden: int = 256,
+                         num_heads: int = 4, num_layers: int = 2,
+                         ff_dim: int = 512, dtype=None,
+                         layer_norm: bool = True, device="cuda") -> FFModel:
+    """Causal decoder LM, the JAX builder's graph: token +
+    learned-position embeddings (inputs ``tokens`` and ``positions``,
+    (batch, max_seq_len) int32), pre-LN causal-attention blocks, a final
+    LN and an untied vocab head ending in logits. ``dtype`` is the
+    embeddings' output dtype, the activation dtype the engine serves in;
+    it follows ``config.compute_dtype`` by default. Trains through the
+    ordinary executor (weights from ``config.seed``'s numpy streams at
+    ``compile``); ``ServeEngine`` serves the same parameter tensors."""
     cfg = config or FFConfig()
-    arch = LMArch(vocab=vocab_size, max_positions=max_seq_len,
-                  hidden=hidden, num_heads=num_heads,
-                  head_dim=hidden // num_heads, num_layers=num_layers,
-                  ff_dim=ff_dim, dtype=cfg.compute_dtype)
-    return TransformerLM(arch, seed=seed, device=device)
+    if dtype is None:
+        dtype = cfg.compute_dtype
+    bs = batch_size or cfg.batch_size
+    ff = FFModel(cfg, device=device)
+    tokens = ff.create_tensor((bs, max_seq_len), dtype=torch.int32,
+                              name="tokens")
+    positions = ff.create_tensor((bs, max_seq_len), dtype=torch.int32,
+                                 name="positions")
+    te = ff.embedding(tokens, vocab_size, hidden, aggr="none",
+                      name="tok_embed", dtype=dtype)
+    pe = ff.embedding(positions, max_seq_len, hidden, aggr="none",
+                      name="pos_embed", dtype=dtype)
+    t = ff.add(te, pe, name="embed_add")
+    for i in range(num_layers):
+        a_in = ff.layer_norm(t, name=f"layer{i}_ln1") if layer_norm else t
+        a = ff.multihead_attention(a_in, a_in, a_in, hidden, num_heads,
+                                   causal=True, name=f"layer{i}_attn")
+        t = ff.add(a, t, name=f"layer{i}_res1")
+        f_in = ff.layer_norm(t, name=f"layer{i}_ln2") if layer_norm else t
+        h = ff.dense(f_in, ff_dim, activation="relu", name=f"layer{i}_ff1")
+        h = ff.dense(h, hidden, name=f"layer{i}_ff2")
+        t = ff.add(h, t, name=f"layer{i}_res2")
+    if layer_norm:
+        t = ff.layer_norm(t, name="final_ln")
+    ff.dense(t, vocab_size, name="lm_head")
+    return ff
 
 
 def build_transformer(config: Optional[FFConfig] = None,

@@ -27,17 +27,32 @@ no-cache reference), and every running sequence then decodes one token
 a step through the paged-decode kernel (kernels/flash_attention.py
 ``paged_attention_decode``).
 
+The engine serves an FFModel of ``build_transformer_lm`` (compiling
+it for inference when it has no state yet), reading its architecture
+off the graph and its LIVE parameter tensors, as the JAX engine does: a
+model trained in between is served without a reload.
+
+Every step is one program of the engine's ProgramRegistry
+(core/programs.py), in the JAX engine's families: ``mixed``, or on the
+legacy path ``prefill`` (one per bucket) and ``decode``. On the card
+the first step of each is captured as a CUDA graph (``warmup`` does
+it) and every later step replays it: the host packs the step's lane
+arrays into one pinned buffer, one asynchronous copy fills the graph's
+static input, and the step's (greedy, top-k values, top-k ids) come
+back packed in one copy into pinned memory. ``compile_counts()`` counts
+the captures; after ``warmup`` it must not grow.
+
 Host-side state (page allocator, prefix registry, scheduler, drafter)
 is the JAX package's, copied; the engine owns the device half. What the
 JAX engine also does and this one does not yet — tensor-parallel
 serving (``serve_mesh``) and LoRA adapters (``adapter_rank``) raise
-``NotImplementedError`` when configured; the host tier, telemetry,
-deadlines/cancel/retry and the compiled-program registry have no knob
-here.
+``NotImplementedError`` when configured; the host tier, telemetry and
+deadlines/cancel/retry have no knob here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import List, Optional, Sequence, Tuple
@@ -45,38 +60,48 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..config import FFConfig, resolve_device
+from ..config import CompMode, FFConfig, resolve_device
+from ..core.programs import PinnedRing, ProgramRegistry
 from ..kernels.flash_attention import (paged_attention_decode,
                                        paged_attention_ragged)
 from ..kernels.paged_ragged_v2 import quantize_kv_rows
 from ..models.transformer import TransformerLM
 from ..utils.faults import injector_for
+from ..weights import arch_from_model
 from .kv_cache import KVCacheConfig, PagedKVCache
 from .scheduler import (ChunkPlan, ContinuousBatchingScheduler, Request,
                         RequestOutcome, RequestState, SampleParams)
 
 
 class ServeEngine:
-    """Continuous-batching generation over a :class:`TransformerLM`.
+    """Continuous-batching generation over an FFModel of
+    :func:`~flexflow_tpu_torch.build_transformer_lm`.
 
-    Serving knobs come from ``config`` (an FFConfig; defaults when
+    Serving knobs come from ``config`` (an FFConfig; the model's when
     None). Runs on the card unless ``device="cpu"``; the model must
-    live on the same device."""
+    live on the same device. ``capture=False`` runs every step eagerly
+    instead of replaying its captured CUDA graph (the reference runs of
+    the tests and the smoke; the tokens are the same)."""
 
     # static top-k head width: sampling draws from the top
     # min(TOPK_CAP, vocab) logits of a lane
     TOPK_CAP = 64
 
-    def __init__(self, model: TransformerLM,
-                 config: Optional[FFConfig] = None, *, device="cuda"):
+    def __init__(self, model, config: Optional[FFConfig] = None, *,
+                 device="cuda", capture: bool = True):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(
                 f"model lives on {model.device}, engine asked for "
                 f"{self.device}")
+        self.arch = arch = arch_from_model(model)
+        if model.state is None:
+            model.compile(comp_mode=CompMode.INFERENCE)
         self.model = model
-        self.config = cfg = config if config is not None else FFConfig()
-        arch = model.arch
+        # the block math over the model's live parameter tensors
+        self.params = model.state.params
+        self.lm = TransformerLM(arch, self.params)
+        self.config = cfg = config if config is not None else model.config
         self.vocab_size = arch.vocab
         self.max_positions = arch.max_positions
         self.num_layers = arch.num_layers
@@ -152,6 +177,35 @@ class ServeEngine:
         self._session: Optional["ServeSession"] = None
         self.boot_stats: Optional[dict] = None
         self.last_stats: Optional[dict] = None
+        # the serving programs, in the JAX engine's families
+        self.programs = ProgramRegistry(self._program_fingerprint(),
+                                        self.device, capture=capture)
+        for fam in ("prefill", "decode", "mixed"):
+            self.programs.register(fam)
+        self._stage_in = PinnedRing(self.device)
+        self._stage_out = PinnedRing(self.device)
+
+    def _program_fingerprint(self) -> dict:
+        c = self.cache_cfg
+        return {"arch": {k: str(v) for k, v in
+                         dataclasses.asdict(self.arch).items()},
+                "mixed_width": self.mixed_width, "max_seqs": c.max_seqs,
+                "page_size": c.page_size, "num_pages": c.num_pages,
+                "pages_per_seq": c.pages_per_seq, "kv_dtype": self.kv_dtype,
+                "topk_cap": self.topk_cap,
+                "chunked_prefill": self.chunked_prefill,
+                "device": str(self.device)}
+
+    def compile_counts(self) -> dict:
+        """Captured programs per serving family (on the CPU and with
+        capture off: distinct step signatures). After warmup() these
+        must never grow — the zero-recompile serving contract."""
+        return self.programs.compile_counts()
+
+    def close(self) -> None:
+        """Release the captured graphs (each holds a private memory
+        pool); a later step captures anew."""
+        self.programs.release()
 
     # ---------------- device pages and the mixed step ------------------
     def _device_pages(self):
@@ -201,7 +255,7 @@ class ServeEngine:
         ids (N, K) int32). argmax returns the FIRST maximum, as
         jnp.argmax does (the parity contract with
         generate_reference)."""
-        logits = self.model.head(x)                         # (N, V)
+        logits = self.lm.head(x)                            # (N, V)
         topv, topi = torch.topk(logits, self.topk_cap, dim=-1)
         return (torch.argmax(logits, dim=-1).to(torch.int32),
                 topv.float(), topi.to(torch.int32))
@@ -216,7 +270,7 @@ class ServeEngine:
         length (position + 1; inactive lanes 1, so the masked softmax
         stays NaN-free). Returns (greedy (T,) int32, top-k values (T, K)
         f32, top-k ids (T, K) int32)."""
-        m = self.model
+        m = self.lm
         kp, vp = self._device_pages()
         ks, vs = self._k_scales, self._v_scales
         x = m.embed(tokens, positions)                      # (T, E)
@@ -237,15 +291,57 @@ class ServeEngine:
             x = m.ffn(i, x)
         return self._greedy_topk(x)
 
-    def _dispatch(self, body, *arrays):
-        """Ship the host-built lane arrays, run one step (``body``: the
-        mixed step or the legacy decode step), and fetch its (greedy,
-        topv, topi) back as numpy; the first fetch waits for the step,
-        so the step ends synchronized."""
-        args = [torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                for a in arrays]
-        greedy, topv, topi = body(*args)
-        return greedy.cpu().numpy(), topv.cpu().numpy(), topi.cpu().numpy()
+    def _dispatch(self, family: str, *arrays):
+        """Run one step of ``family`` (``mixed``, ``decode`` or
+        ``prefill``) on the host-built int32 lane arrays: packed into
+        one pinned buffer, shipped by one copy into the program's input,
+        the program run (replayed on the card once captured), its
+        output fetched by one copy into pinned memory. Returns numpy
+        (greedy, topv, topi) — for ``prefill`` the (vocab,) f32 logits
+        — and ends synchronized."""
+        self._device_pages()
+        shapes = tuple(a.shape for a in arrays)
+        buf = self._stage_in.take(sum(a.size for a in arrays), torch.int32)
+        host, off = buf.numpy(), 0
+        for a in arrays:
+            host[off:off + a.size] = a.reshape(-1)
+            off += a.size
+        bound = [w for p in self.params.values() for w in p.values()]
+        bound += [t for t in (self._k_pages, self._v_pages,
+                              self._k_scales, self._v_scales)
+                  if t is not None]
+        out = self.programs.call(family, self._run_packed, family, shapes,
+                                 buf, bound=bound)
+        self._stage_in.consumed()
+        if self.device.type == "cuda":
+            got = self._stage_out.take(out.numel(), torch.int32)
+            got.copy_(out.reshape(-1), non_blocking=True)
+            # the copy done, the slot is free again: no event needed
+            torch.cuda.current_stream(self.device).synchronize()
+            res = got.numpy().reshape(tuple(out.shape)).copy()
+        else:
+            res = out.numpy().copy()
+        if family == "prefill":
+            return res.view(np.float32)
+        k = self.topk_cap
+        return res[:, 0], res[:, 1:1 + k].view(np.float32), res[:, 1 + k:]
+
+    def _run_packed(self, family: str, shapes, packed):
+        """The program of a family: unpack the lane arrays (views of
+        ``packed``), run the family's body, pack its outputs into one
+        int32 tensor: (N, 1 + 2K) [greedy | top-k values' bits | top-k
+        ids], or the prefill's (vocab,) logits' bits."""
+        parts, off = [], 0
+        for s in shapes:
+            n = math.prod(s)
+            parts.append(packed[off:off + n].view(s))
+            off += n
+        out = getattr(self, f"_{family}_body")(*parts)
+        if family == "prefill":
+            return out.float().view(torch.int32)
+        greedy, topv, topi = out
+        return torch.cat([greedy[:, None], topv.view(torch.int32), topi],
+                         dim=1)
 
     @torch.no_grad()
     def _decode_body(self, tokens, positions, write_pages, write_offs,
@@ -259,7 +355,7 @@ class ServeEngine:
         attended: position i sees keys 0..i). Non-decoding lanes compute
         garbage the host never reads. Returns (greedy, topv, topi) as
         :meth:`_greedy_topk`."""
-        m = self.model
+        m = self.lm
         kp, vp = self._device_pages()
         x = m.embed(tokens, positions)                      # (B, E)
         scale = 1.0 / math.sqrt(self.head_dim)
@@ -274,10 +370,12 @@ class ServeEngine:
         return self._greedy_topk(x)
 
     def warmup(self) -> dict:
-        """Allocate the page pool and run one serving step on throwaway
-        inputs (every write aims at the sink page): the mixed step, or
-        on the legacy path the decode step. Builds and loads the CUDA
-        kernel on the card. Returns (and keeps) the boot record."""
+        """Allocate the page pool and ready the active path's programs
+        once on throwaway inputs (every write aims at the sink page):
+        the mixed step, or on the legacy path the prefill of every
+        bucket and the decode step. On the card this builds the kernels
+        and captures each program. Returns compile_counts(); the boot
+        record lands in ``boot_stats``."""
         t0 = time.perf_counter()
         c = self.cache_cfg
         self._device_pages()
@@ -285,14 +383,21 @@ class ServeEngine:
         if self.chunked_prefill:
             t = self.mixed_width
             z = np.zeros((t,), np.int32)
-            self._dispatch(self._mixed_body, z, z, z, z, tables, z,
+            self._dispatch("mixed", z, z, z, z, tables, z,
                            np.ones((t,), np.int32))
         else:
+            pt_row = np.zeros((c.pages_per_seq,), np.int32)
+            one = np.ones((1,), np.int32)
+            for b in self.buckets:
+                self._dispatch("prefill", np.zeros((b,), np.int32), one,
+                               pt_row)
             z = np.zeros((c.max_seqs,), np.int32)
-            self._dispatch(self._decode_body, z, z, z, z, tables,
+            self._dispatch("decode", z, z, z, z, tables,
                            np.ones((c.max_seqs,), np.int32))
-        self.boot_stats = {"boot_s": time.perf_counter() - t0}
-        return self.boot_stats
+        rec = self.programs.boot_record()
+        rec["boot_s"] = time.perf_counter() - t0
+        self.boot_stats = rec
+        return self.compile_counts()
 
     # ---------------- sampling -----------------------------------------
     @staticmethod
@@ -349,10 +454,19 @@ class ServeEngine:
 
     # ---------------- full-sequence forward (prefill + reference) ------
     @torch.no_grad()
-    def _forward_tokens(self, tokens, length: int, kv=None):
+    def _prefill_body(self, tokens, length, pt_row):
+        """The legacy prefill of one request: (S,) tokens padded to its
+        bucket, its (1,) length and its (pages_per_seq,) page-table row
+        -> the (vocab,) logits at position length-1, the prompt's K/V
+        scattered into its pages."""
+        return self._forward_tokens(tokens[None, :], length, kv=pt_row)
+
+    @torch.no_grad()
+    def _forward_tokens(self, tokens, length, kv=None):
         """Logits (vocab,) at position length-1 of the causal forward
         over (1, S) tokens (positions >= length are padding and never
-        seen by position length-1). ``kv = pt_row`` (the sequence's
+        seen by position length-1); ``length`` an int or a (1,) int
+        tensor on the tokens' device. ``kv = pt_row`` (the sequence's
         (pages_per_seq,) page-table row) also scatters each layer's K/V
         of every position into the sequence's pages on the way through
         (the legacy prefill; padded positions land past the mapped range
@@ -369,8 +483,10 @@ class ServeEngine:
 
             def on_kv(i, k, v):
                 self._write_kv(i, where, k[0], v[0])
-        x = self.model.hidden_states(tokens, on_kv=on_kv)
-        return self.model.head(x[0, int(length) - 1])
+        x = self.lm.hidden_states(tokens, on_kv=on_kv)
+        last = torch.as_tensor(length, device=x.device).long().reshape(1)
+        # a gather, not x[0, length - 1]: the row stays a device value
+        return self.lm.head(x[0].index_select(0, last - 1))[0]
 
     def _context_logits(self, ctx: Sequence[int]) -> np.ndarray:
         toks = torch.tensor([list(ctx)], dtype=torch.int64,
@@ -559,7 +675,6 @@ class ServeEngine:
         c = self.cache_cfg
         cache = self.cache
         ps = c.page_size
-        dev = self.device
 
         def emit(chunk: ChunkPlan, greedy, topv, topi) -> None:
             req = chunk.req
@@ -584,10 +699,9 @@ class ServeEngine:
                 toks = np.zeros((1, b), np.int32)
                 toks[0, :len(ctx)] = ctx
                 tp = time.perf_counter()
-                logits = self._forward_tokens(
-                    torch.from_numpy(toks).to(dev), len(ctx),
-                    kv=torch.from_numpy(cache.page_tables[req.slot]).to(
-                        dev)).float().cpu().numpy()
+                logits = self._dispatch(
+                    "prefill", toks[0], np.array([len(ctx)], np.int32),
+                    cache.page_tables[req.slot])
                 prefill_times.append((b, time.perf_counter() - tp))
                 sched.complete_chunk(ch)
                 order = np.argsort(logits)[::-1][:self.topk_cap]
@@ -615,7 +729,7 @@ class ServeEngine:
                     seq_lens[s] = ch.end
                 tp = time.perf_counter()
                 nxt, topv, topi = self._dispatch(
-                    self._decode_body, tokens, positions, write_pages,
+                    "decode", tokens, positions, write_pages,
                     write_offs, cache.page_tables, seq_lens)
                 decode_times.append(time.perf_counter() - tp)
                 decode_widths.append(len(dec))
@@ -916,7 +1030,7 @@ class ServeSession:
             f"scheduler packed {lane} lanes into a {t_w}-lane step")
         tp = time.perf_counter()
         greedy, topv, topi = eng._dispatch(
-            eng._mixed_body, tokens, positions, write_pages, write_offs,
+            "mixed", tokens, positions, write_pages, write_offs,
             cache.page_tables, lane_slots, lane_lens)
         dt = time.perf_counter() - tp
         self.util.append(1.0 - cache.free_pages / c.usable_pages)

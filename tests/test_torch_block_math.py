@@ -1,6 +1,6 @@
-"""Block math and forward logits: the port's TransformerLM against the
-JAX ServeEngine's pure functions, on the same weights (exported from
-the JAX model with from_jax_params). Tolerance atol 1e-5: the same f32
+"""Block math and forward logits: the port's TransformerLM (the engine's
+view of its FFModel) against the JAX ServeEngine's pure functions, on
+the same weights (exported from the JAX model with from_jax_params). Tolerance atol 1e-5: the same f32
 ops, reduced in another order.
 """
 
@@ -43,10 +43,10 @@ def pair():
 
 def test_arch_read_off_params(pair):
     jeng, teng = pair
-    assert teng.model.arch == LMArch(
+    assert teng.arch == teng.lm.arch == LMArch(
         vocab=89, max_positions=64, hidden=32, num_heads=4, head_dim=8,
         num_layers=2, ff_dim=64, ln_eps=1e-5, layer_norm=True)
-    assert arch_from_params(jeng.params) == teng.model.arch
+    assert arch_from_params(jeng.params) == teng.arch
 
 
 def test_layer_norm_matches(pair):
@@ -69,8 +69,9 @@ def test_embed_clips_out_of_range(pair):
     positions = np.array([0, 63, 64, 200, 7, -1], np.int32)
     want = np.asarray(jeng._embed(jeng.params, jnp.asarray(tokens),
                                   jnp.asarray(positions)))
-    got = teng.model.embed(torch.from_numpy(tokens),
-                           torch.from_numpy(positions)).numpy()
+    with torch.no_grad():     # the view reads the model's live params
+        got = teng.lm.embed(torch.from_numpy(tokens),
+                            torch.from_numpy(positions)).numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
 
@@ -116,7 +117,7 @@ def test_mixed_step_logits_match(pair):
     jg, jv, ji, jk, _ = jeng._mixed_impl(
         jeng.params, kp, vp, *(jnp.asarray(a) for a in lanes))
     teng._device_pages()
-    tg, tv, ti = teng._dispatch(teng._mixed_body, *lanes)
+    tg, tv, ti = teng._dispatch("mixed", *lanes)
     np.testing.assert_array_equal(tg[:n], np.asarray(jg)[:n])
     np.testing.assert_allclose(tv[:n], np.asarray(jv)[:n], rtol=0,
                                atol=ATOL)

@@ -4,15 +4,18 @@ version over every head_dim / tile / dtype it takes, at small shapes
 count and over every lane layout; the paged decode
 kernel and the v1 ragged kernel on f32 and bf16 pages; the flash and
 LSTM kernels on f32 and bf16), the serving engine's mixed step,
-quantized pools and legacy path, and the LSTM op's gradients on the
-card.
+quantized pools and legacy path, the LSTM op's gradients on the card,
+and the captured programs (core/programs.py) against eager runs of the
+same steps.
 Needs an NVIDIA GPU and nvcc; skips without a card. Imports no JAX, so
 on a machine without JAX it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import math
+from functools import partial
 
 import numpy as np
 import pytest
@@ -202,10 +205,10 @@ def test_engine_on_card_counts_launches(card):
     from flexflow_tpu_torch import FFConfig, build_transformer_lm
     from flexflow_tpu_torch.serve import ServeEngine
     cfg = FFConfig(kv_page_size=8, kv_num_pages=73, serve_max_seqs=8,
-                   serve_prefill_budget=48)
+                   serve_prefill_budget=48, seed=3)
     lm = build_transformer_lm(cfg, vocab_size=89, max_seq_len=64,
                               hidden=128, num_heads=4, num_layers=2,
-                              ff_dim=256, seed=3, device="cuda")
+                              ff_dim=256, device="cuda")
     eng = ServeEngine(lm, cfg)
     eng.warmup()
     rng = np.random.default_rng(2)
@@ -832,10 +835,10 @@ def test_cpu_parity_lm_served_on_card(card):
     from flexflow_tpu_torch import FFConfig, build_transformer_lm
     from flexflow_tpu_torch.serve import ServeEngine
     cfg = FFConfig(kv_page_size=8, kv_num_pages=73, serve_max_seqs=8,
-                   serve_prefill_budget=48)
+                   serve_prefill_budget=48, seed=3)
     lm = build_transformer_lm(cfg, vocab_size=89, max_seq_len=64,
                               hidden=32, num_heads=4, num_layers=2,
-                              ff_dim=64, seed=3, device="cuda")
+                              ff_dim=64, device="cuda")
     eng = ServeEngine(lm, cfg)
     eng.warmup()
     prompts = _prompts()
@@ -878,10 +881,13 @@ def test_tiny_transformer_step_on_card(card):
 
 
 def _small_lm(cfg, seed=3):
+    """The card tests' LM (an FFModel), its weights from ``seed``'s
+    numpy streams."""
     from flexflow_tpu_torch import build_transformer_lm
-    return build_transformer_lm(cfg, vocab_size=89, max_seq_len=64,
-                                hidden=128, num_heads=4, num_layers=2,
-                                ff_dim=256, seed=seed, device="cuda")
+    return build_transformer_lm(dataclasses.replace(cfg, seed=seed),
+                                vocab_size=89, max_seq_len=64, hidden=128,
+                                num_heads=4, num_layers=2, ff_dim=256,
+                                device="cuda")
 
 
 def _prompts():
@@ -1077,3 +1083,211 @@ def test_lstm_refuses_what_it_does_not_take(card):
         ls.lstm_fwd_cuda(xg.half(), wh.half(), h0, c0)
     with pytest.raises(ValueError, match="shape"):
         ls.lstm_fwd_cuda(xg, wh[:8], h0, c0)
+
+
+# ------------------------------------------------- captured programs
+def _lanes(rng, eng, n):
+    """Mixed-step lane arrays: slot 1's first n tokens at pages 1..,
+    one decode lane on slot 2, padding elsewhere."""
+    c = eng.cache_cfg
+    t = eng.mixed_width
+    tokens, positions = np.zeros(t, np.int32), np.zeros(t, np.int32)
+    wp, wo = np.zeros(t, np.int32), np.zeros(t, np.int32)
+    slots, lens = np.zeros(t, np.int32), np.ones(t, np.int32)
+    tables = np.zeros((c.max_seqs, c.pages_per_seq), np.int32)
+    tables[1, :4] = [1, 2, 3, 4]
+    tables[2, :4] = [5, 6, 7, 8]
+    tokens[:n + 1] = rng.integers(1, 89, n + 1)
+    positions[:n] = np.arange(n)
+    wp[:n] = tables[1, np.arange(n) // c.page_size]
+    wo[:n] = np.arange(n) % c.page_size
+    slots[:n], lens[:n] = 1, np.arange(1, n + 1)
+    positions[n], slots[n], lens[n] = n, 2, n + 1
+    wp[n], wo[n] = tables[2, n // c.page_size], n % c.page_size
+    return tokens, positions, wp, wo, tables, slots, lens
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_captured_mixed_step_equals_eager_bitwise(card, kv_dtype):
+    """A captured mixed step against an eager engine over the same
+    model: the same outputs of the live lanes and the same pages, bit
+    for bit, over several replays with other lane arrays (padding lanes
+    read the sink page, which their duplicate writes race on); each
+    replay counts its launches."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.serve import ServeEngine
+    cfg = FFConfig(kv_page_size=8, kv_num_pages=73, serve_max_seqs=8,
+                   serve_prefill_budget=48, kv_dtype=kv_dtype)
+    lm = _small_lm(cfg)
+    cap = ServeEngine(lm, cfg)
+    eager = ServeEngine(lm, cfg, capture=False)
+    assert cap.warmup() == eager.warmup() == {"prefill": 0, "decode": 0,
+                                              "mixed": 1}
+    rng = np.random.default_rng(7)
+    pr.launches = 0
+    for n in (5, 17, 30, 9):
+        lanes = _lanes(rng, cap, n)
+        got, want = cap._dispatch("mixed", *lanes), \
+            eager._dispatch("mixed", *lanes)
+        for a, b in zip(got, want):      # the live lanes: padding lanes
+            np.testing.assert_array_equal(a[:n + 1], b[:n + 1])
+        # all but the sink page 0, where padding lanes' writes race
+        assert torch.equal(cap._k_pages[:, 1:], eager._k_pages[:, 1:])
+        assert torch.equal(cap._v_pages[:, 1:], eager._v_pages[:, 1:])
+    assert cap.programs.replay_counts()["mixed"] == 4
+    assert pr.launches == 2 * 4 * cap.num_layers   # replays + eager
+    assert cap.compile_counts() == eager.compile_counts()
+
+
+def test_captured_legacy_steps_equal_eager_bitwise(card):
+    """The legacy path's captured prefill buckets and decode step
+    against an eager engine: the same tokens, logits and pages."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.serve import ServeEngine
+    cfg = FFConfig(kv_page_size=8, kv_num_pages=73, serve_max_seqs=8,
+                   serve_prefill_budget=48, serve_chunked_prefill=False)
+    lm = _small_lm(cfg)
+    cap, eager = ServeEngine(lm, cfg), ServeEngine(lm, cfg, capture=False)
+    counts = cap.warmup()
+    assert counts == eager.warmup() == {
+        "prefill": len(cap.buckets), "decode": 1, "mixed": 0}
+    prompts = _prompts()
+    fa.launches["paged_decode"] = 0
+    out = cap.generate(prompts, 8)
+    assert out == eager.generate(prompts, 8)
+    assert torch.equal(cap._k_pages[:, 1:], eager._k_pages[:, 1:])
+    st = cap.last_stats
+    assert fa.launches["paged_decode"] == \
+        2 * cap.num_layers * st["decode_steps"]
+    assert cap.compile_counts() == counts
+    assert cap.programs.replay_counts()["decode"] == st["decode_steps"]
+
+
+def _lm_trainer(opt, capture, dtype="float32"):
+    from flexflow_tpu_torch import FFConfig, build_transformer_lm
+    from flexflow_tpu_torch.core.losses import \
+        sparse_categorical_crossentropy
+    m = build_transformer_lm(FFConfig(batch_size=4, seed=1,
+                                      compute_dtype=dtype),
+                             vocab_size=89, max_seq_len=64, batch_size=4,
+                             hidden=128, num_heads=4, num_layers=2,
+                             ff_dim=256, device="cuda")
+    m.compile(optimizer=opt(), capture=capture, metrics=[],
+              loss_type=partial(sparse_categorical_crossentropy,
+                                from_logits=True))
+    return m
+
+
+def _lm_batches(n, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        toks = rng.integers(0, 89, (4, 64)).astype(np.int32)
+        out.append({"tokens": toks, "label": np.roll(toks, -1, 1),
+                    "positions": np.tile(np.arange(64, dtype=np.int32),
+                                         (4, 1))})
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_captured_adam_equals_eager(card, dtype):
+    """5 captured Adam steps (alpha_t written to the device before each
+    replay) equal 5 eager ones, weights and slots bit for bit, and the
+    per-step losses stay distinct under replay; the flash kernels count
+    one launch a layer a step."""
+    from flexflow_tpu_torch import AdamOptimizer
+    batches = _lm_batches(5)
+    runs = {}
+    for capture in (True, False):
+        m = _lm_trainer(partial(AdamOptimizer, lr=1e-3), capture, dtype)
+        before = dict(fa.launches)
+        metrics = [m.train_batch(b) for b in batches]   # no sync between
+        losses = [float(x["loss"]) for x in metrics]
+        launched = {n: fa.launches[n] - before[n] for n in fa.FLASH_KERNELS}
+        assert launched == dict.fromkeys(fa.FLASH_KERNELS, 2 * 5)
+        assert m.compile_counts() == {"train_step": 1}
+        if capture:
+            assert m.executor.programs.replay_counts() == {"train_step": 4}
+        runs[capture] = (losses, m.state)
+    (lc, sc), (le, se) = runs[True], runs[False]
+    assert lc == le and len(set(lc)) == 5
+    for op, p in se.params.items():
+        for k, w in p.items():
+            assert torch.equal(sc.params[op][k], w), f"{op}.{k}"
+            for slot in ("m", "v"):
+                assert torch.equal(sc.opt_state[slot][op][k],
+                                   se.opt_state[slot][op][k])
+            assert w.dtype == torch.float32
+
+
+def test_captured_step_takes_a_new_learning_rate(card):
+    """Changing the learning rate after the first steps captures a new
+    train step (the optimizer's hyperparameters key the program): the
+    captured run's losses and weights equal the eager run's with the
+    same change."""
+    from flexflow_tpu_torch import SGDOptimizer
+    batches = _lm_batches(4, seed=2)
+    runs = {}
+    for capture in (True, False):
+        m = _lm_trainer(partial(SGDOptimizer, lr=0.01, momentum=0.9),
+                        capture)
+        losses = []
+        for i, b in enumerate(batches):
+            if i == 2:
+                m.optimizer.lr = 0.2
+            losses.append(float(m.train_batch(b)["loss"]))
+        assert m.compile_counts() == {"train_step": 2}
+        runs[capture] = (losses, m.state.params)
+    (lc, pc), (le, pe) = runs[True], runs[False]
+    assert lc == le
+    for op, p in pe.items():
+        for k, w in p.items():
+            assert torch.equal(pc[op][k], w), f"{op}.{k}"
+
+
+def test_rebound_parameter_is_refused(card):
+    """A captured step bakes in its tensors' addresses: rebinding a
+    parameter (not updating it in place) raises at the next replay."""
+    from flexflow_tpu_torch import SGDOptimizer
+    m = _lm_trainer(partial(SGDOptimizer, lr=0.01), True)
+    b = _lm_batches(1)[0]
+    m.train_batch(b)
+    m.train_batch(b)
+    p = m.state.params["lm_head"]
+    p["bias"] = p["bias"].detach().clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="moved since the capture"):
+        m.train_batch(b)
+
+
+def test_split_counts_hold_across_eager_calls_and_replays(card):
+    """The paged decode kernel's split counts: eager calls and replays
+    of a captured call alternate on one stream, each against the plain
+    version; a stale count would combine the wrong splits."""
+    from flexflow_tpu_torch.core.programs import ProgramRegistry
+    reg = ProgramRegistry({}, card)
+    rng = np.random.default_rng(3)
+    _, kp, vp, table, _ = _split_inputs(card, torch.float32, 64, [512] * 4)
+    assert fa.decode_splits(4, 4, SPLIT_PS * SPLIT_PP, fa._sm_count(
+        torch.cuda.current_device()))[1] > 1
+
+    def step(q, lens):
+        return fa.paged_attention_decode(q, kp, vp, table, lens,
+                                         scale=0.125)
+
+    fa.launches["paged_decode"] = 0
+    for i in range(6):
+        q = torch.from_numpy(rng.standard_normal((4, 4, 64), np.float32)) \
+            .to(card)
+        new_lens = torch.tensor(rng.integers(1, 513, 4), dtype=torch.int32,
+                                device=card)
+        if i % 2:
+            out = step(q, new_lens)
+        else:
+            out = reg.call("decode", step, q, new_lens).clone()
+        ref = fa.paged_decode_ref(q, kp, vp, table, new_lens, 0.125)
+        assert _rel(out, ref) <= F32_ATOL, i
+    torch.cuda.synchronize()
+    assert fa.launches["paged_decode"] == 6
+    assert reg.compile_counts() == {"decode": 1}
+    assert reg.replay_counts() == {"decode": 2}
+    assert all(int(c.abs().sum()) == 0 for c in fa._split_counts.values())

@@ -249,8 +249,6 @@ CONFIG_KNOBS = {
     "fusion": dict(perform_fusion=True),
     "nhwc": dict(conv_layout="NHWC"),
     "telemetry": dict(telemetry=True),
-    "compute_dtype": dict(compute_dtype=torch.bfloat16),
-    "param_dtype": dict(param_dtype=torch.bfloat16),
 }
 
 

@@ -1,11 +1,14 @@
 """Where a serving step of the PyTorch/CUDA port spends its time.
 
     python3 tools/torch_serve_profile.py [--kv-dtype int8] [--legacy]
-        [--out chiprun_out/profile.json]
+        [--modes captured,eager] [--out PATH]
 
-Serves chip_smoke.py's full-width LM and its 8 greedy prompts on the
-card: three times plain (wall time per step with decodes — host times
-vary between runs, so all three are printed) and once under
+Serves chip_smoke.py's full-width LM (``build_transformer_lm``, weights
+from the config's seed) and its 8 greedy prompts on the card, for each
+of ``--modes`` in turn — ``captured`` (the engine's default: every step
+replays the graph ``warmup`` captured) and ``eager`` (capture off):
+three times plain (wall time per step with decodes — host times vary
+between runs, so all three are printed) and once under
 ``torch.profiler`` (CPU + CUDA activities), then prints device time by
 kernel class — the paged attention kernels, matmuls, top-k, the K/V
 page scatter, copies, the rest (quantize-on-write lands there) — with
@@ -48,36 +51,11 @@ def classify(name: str) -> str:
     return "other"
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--kv-dtype", default="float32")
-    ap.add_argument("--legacy", action="store_true")
-    ap.add_argument("--out", default="")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("torch_serve_profile: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    from chip_smoke import serve_prompts
-    from flexflow_tpu_torch import FFConfig, build_transformer_lm
-    from flexflow_tpu_torch.serve import ServeEngine
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
-    print(card)
-    cfg = FFConfig(kv_dtype=args.kv_dtype,
-                   serve_chunked_prefill=not args.legacy)
-    lm = build_transformer_lm(cfg, vocab_size=32000, max_seq_len=512,
-                              hidden=512, num_heads=8, num_layers=6,
-                              ff_dim=2048, seed=0, device="cuda")
-    eng = ServeEngine(lm, cfg)
+def profile(eng, greedy):
+    """One engine's numbers: plain runs, then a profiled one."""
     eng.warmup()
-    greedy, _ = serve_prompts(32000)
     eng.generate(greedy, 32)                 # warm every code path
     eng.cache.clear_prefix()                 # same prefix state each run
-
     plain = []
     for _ in range(3):
         eng.generate(greedy, 32)
@@ -105,14 +83,14 @@ def main() -> int:
     busy_s = sum(by_cls.values()) / 1e6
     if busy_s <= 0:
         raise RuntimeError("the profiler saw no device time")
-    res = {
-        "card": card,
-        "kv_dtype": args.kv_dtype,
+    return {
         "mode": eng.last_stats["mode"],
         "steps": steps,
+        "captures": eng.compile_counts(),
         "plain_wall_s": [p["wall_s"] for p in plain],
         "plain_step_ms_mean": [1e3 * float(np.mean(p["decode_step_times_s"]))
                                for p in plain],
+        "plain_tokens_per_s": [p["tokens_per_sec"] for p in plain],
         "profiled_wall_s": wall,
         "device_busy_s": busy_s,
         "device_idle_share": 1.0 - busy_s / wall,
@@ -125,23 +103,61 @@ def main() -> int:
             for k, v in sorted(by_kernel.items(),
                                key=lambda kv: -kv[1][0])[:12]],
     }
-    print(f"[{card}] {res['mode']} {args.kv_dtype} pages: steps={steps} "
-          f"plain wall s "
-          f"{[round(w, 4) for w in res['plain_wall_s']]}, step ms mean "
-          f"{[round(m, 3) for m in res['plain_step_ms_mean']]}; profiled wall "
-          f"{wall:.4f} s, device busy {busy_s:.4f} s, idle share "
-          f"{res['device_idle_share']:.3f}")
-    for k, v in res["device_ms_per_step"].items():
-        print(f"  {k:11s} {v:8.4f} device ms/step  "
-              f"{res['share_of_wall'][k]:.3f} of wall")
-    for row in res["top_kernels"]:
-        print(f"  {row['device_ms']:9.3f} ms x{row['count']:<5d} "
-              f"{row['name']}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kv-dtype", default="float32")
+    ap.add_argument("--legacy", action="store_true")
+    ap.add_argument("--modes", default="captured,eager")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_serve_profile: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import serve_prompts
+    from flexflow_tpu_torch import FFConfig, build_transformer_lm
+    from flexflow_tpu_torch.serve import ServeEngine
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(card)
+    cfg = FFConfig(kv_dtype=args.kv_dtype,
+                   serve_chunked_prefill=not args.legacy)
+    lm = build_transformer_lm(cfg, vocab_size=32000, max_seq_len=512,
+                              hidden=512, num_heads=8, num_layers=6,
+                              ff_dim=2048, device="cuda")
+    greedy, _ = serve_prompts(32000)
+    res = {"card": card, "kv_dtype": args.kv_dtype, "modes": {}}
+    for mode in args.modes.split(","):
+        eng = ServeEngine(lm, cfg, capture=mode == "captured")
+        cell = res["modes"][mode] = profile(eng, greedy)
+        res["mode"] = cell["mode"]
+        print(f"[{card}] {cell['mode']} {args.kv_dtype} pages, {mode}: "
+              f"steps={cell['steps']} plain wall s "
+              f"{[round(w, 4) for w in cell['plain_wall_s']]}, step ms mean "
+              f"{[round(m, 3) for m in cell['plain_step_ms_mean']]}; "
+              f"profiled wall {cell['profiled_wall_s']:.4f} s, device busy "
+              f"{cell['device_busy_s']:.4f} s, idle share "
+              f"{cell['device_idle_share']:.3f}; captures "
+              f"{cell['captures']}")
+        for k, v in cell["device_ms_per_step"].items():
+            print(f"  {k:11s} {v:8.4f} device ms/step  "
+                  f"{cell['share_of_wall'][k]:.3f} of wall")
+        for row in cell["top_kernels"]:
+            print(f"  {row['device_ms']:9.3f} ms x{row['count']:<5d} "
+                  f"{row['name']}")
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=1))
-    print(json.dumps({"ok": True, "device_idle_share":
-                      res["device_idle_share"]}))
+    print(json.dumps({"ok": True, "device_idle_share": {
+        m: c["device_idle_share"] for m, c in res["modes"].items()}}))
     return 0
 
 

@@ -1,16 +1,23 @@
 """Where a training step of the PyTorch/CUDA port spends its time.
 
-    python3 tools/torch_train_profile.py [--model transformer|nmt_lstm] [--steps 10] [--out PATH]
+    python3 tools/torch_train_profile.py [--model transformer|transformer_lm|nmt_lstm]
+        [--modes captured,eager] [--steps 10] [--out PATH]
 
 Trains one of chip_smoke.py's bf16 models on the card: the flagship
 (``--model transformer``, the default: ``build_transformer`` at batch 32,
-seq 512, hidden 512, 8 heads, 6 layers, ff 2048, 10 classes) or the NMT
-LSTM (``--model nmt_lstm``: ``build_nmt_lstm`` at bench.py's full preset,
-batch 256, seq 40, vocab 32000, embed and hidden 1024, 2 layers), SGD lr
-0.01, weights and data from numpy seeds: 3 warm-up steps, three plain
-windows of ``--steps`` steps (wall time per step — host times vary
-between runs, so all three are printed), then one window under
-``torch.profiler`` (CPU + CUDA activities). Prints device time per step
+seq 512, hidden 512, 8 heads, 6 layers, ff 2048, 10 classes), the causal
+LM (``--model transformer_lm``: ``build_transformer_lm`` at vocab 32000,
+512 positions, hidden 512, 8 heads, 6 layers, ff 2048, batch 16 x 512
+tokens, compute_dtype bfloat16 over f32 masters, momentum 0.9) or the
+NMT LSTM (``--model nmt_lstm``: ``build_nmt_lstm`` at bench.py's full
+preset, batch 256, seq 40, vocab 32000, embed and hidden 1024, 2
+layers), SGD lr 0.01, weights and data from numpy seeds. For each of
+``--modes`` — ``captured`` (every step after the first replays the
+train step's CUDA graph, the default path) and ``eager`` (capture off)
+— in turn: 3 warm-up steps, three plain windows of ``--steps`` steps
+(wall time per step — host times vary between runs, so all three are
+printed), then one window under ``torch.profiler`` (CPU + CUDA
+activities). Prints device time per step
 by kernel class — the hand-written kernels (flash attention or LSTM),
 matmuls, copies, the rest — with each class's share of the profiled wall
 time, and the device's idle share; for the NMT model also the idle
@@ -72,32 +79,21 @@ def launch_gaps(prof, classes):
     return total, n
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("transformer", "nmt_lstm"),
-                    default="transformer")
-    ap.add_argument("--steps", type=int, default=10)
-    ap.add_argument("--out", default="")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("torch_train_profile: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    import chip_smoke as cs
+def build(cs, model, capture):
+    """(model, its batches, samples a step, tokens a step)."""
+    if model == "nmt_lstm":
+        return (cs.nmt_model(torch.bfloat16, None, capture),
+                cs.nmt_batches(4), cs.NB, cs.NB * cs.NT)
+    if model == "transformer_lm":
+        return (cs.lm_model("bfloat16", capture=capture), cs.lm_batches(4),
+                cs.LB, cs.LB * cs.TS)
+    return (cs.train_model(torch.bfloat16, None, capture),
+            cs.train_batches(4), cs.TB, cs.TB * cs.TS)
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
-    print(card)
-    if args.model == "nmt_lstm":
-        batch, tokens = cs.NB, cs.NB * cs.NT
-        batches = cs.nmt_batches(4)
-        m = cs.nmt_model(torch.bfloat16, None)
-    else:
-        batch, tokens = cs.TB, cs.TB * cs.TS
-        batches = cs.train_batches(4)
-        m = cs.train_model(torch.bfloat16, None)
+
+def profile(cs, args, capture):
+    """One mode's numbers: plain windows, then a profiled one."""
+    m, batches, batch, tokens = build(cs, args.model, capture)
     for i in range(3):                      # warm every code path
         m.train_batch(batches[i])
 
@@ -140,10 +136,9 @@ def main() -> int:
                           "gap_share": gap_us / (gap_us + dev_us)}
     own = sum(v for k, v in by_cls.items()
               if k.startswith(("attention", "lstm")))
-    res = {
-        "card": card,
-        "model": args.model,
-        "steps": steps,
+    out = {
+        "captures": m.compile_counts(),
+        "replays": m.executor.programs.replay_counts(),
         "plain_step_ms": [1e3 * w / steps for w in plain],
         "plain_samples_per_s": [batch * steps / w for w in plain],
         "plain_tokens_per_s": [tokens * steps / w for w in plain],
@@ -161,27 +156,60 @@ def main() -> int:
             for k, v in sorted(by_kernel.items(),
                                key=lambda kv: -kv[1][0])[:12]],
     }
-    print(f"[{card}] {args.model}, {steps} steps a window; plain step ms "
-          f"{[round(x, 3) for x in res['plain_step_ms']]}, samples/s "
-          f"{[round(x, 1) for x in res['plain_samples_per_s']]}; profiled "
-          f"wall {wall:.4f} s, device busy {busy_s:.4f} s, idle share "
-          f"{res['device_idle_share']:.3f}, hand-written kernels "
-          f"{res['handwritten_share_of_device']:.3f} of device time")
-    for k, v in res["device_ms_per_step"].items():
-        print(f"  {k:17s} {v:9.4f} device ms/step  "
-              f"{res['share_of_wall'][k]:.3f} of wall")
-    for k, g in gaps.items():
-        print(f"  {k} launch gaps: {g['gap_ms_per_step']:.4f} ms/step over "
-              f"{g['gaps']} gaps (mean {g['mean_gap_us']:.2f} us), "
-              f"{g['gap_share']:.3f} of the kernel's device time + gaps")
-    for row in res["top_kernels"]:
-        print(f"  {row['device_ms']:9.3f} ms x{row['count']:<5d} "
-              f"{row['name']}")
+    m.executor.programs.release()
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("transformer", "transformer_lm",
+                                        "nmt_lstm"),
+                    default="transformer")
+    ap.add_argument("--modes", default="captured,eager")
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_train_profile: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(card)
+    res = {"card": card, "model": args.model, "steps": args.steps,
+           "modes": {}}
+    for mode in args.modes.split(","):
+        res["modes"][mode] = profile(cs, args, mode == "captured")
+        cell = res["modes"][mode]
+        print(f"[{card}] {args.model} {mode}, {args.steps} steps a window; "
+              f"plain step ms {[round(x, 3) for x in cell['plain_step_ms']]}"
+              f", samples/s "
+              f"{[round(x, 1) for x in cell['plain_samples_per_s']]}; "
+              f"profiled wall {cell['profiled_wall_s']:.4f} s, device busy "
+              f"{cell['device_busy_s']:.4f} s, idle share "
+              f"{cell['device_idle_share']:.3f}, hand-written kernels "
+              f"{cell['handwritten_share_of_device']:.3f} of device time")
+        for k, v in cell["device_ms_per_step"].items():
+            print(f"  {k:17s} {v:9.4f} device ms/step  "
+                  f"{cell['share_of_wall'][k]:.3f} of wall")
+        for k, g in cell["launch_gaps"].items():
+            print(f"  {k} launch gaps: {g['gap_ms_per_step']:.4f} ms/step "
+                  f"over {g['gaps']} gaps (mean {g['mean_gap_us']:.2f} us), "
+                  f"{g['gap_share']:.3f} of the kernel's device time + gaps")
+        for row in cell["top_kernels"]:
+            print(f"  {row['device_ms']:9.3f} ms x{row['count']:<5d} "
+                  f"{row['name']}")
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=1))
-    print(json.dumps({"ok": True, "device_idle_share":
-                      res["device_idle_share"]}))
+    print(json.dumps({"ok": True, "device_idle_share": {
+        m: c["device_idle_share"] for m, c in res["modes"].items()}}))
     return 0
 
 
