@@ -69,7 +69,23 @@ wide-head) must not spill — and then:
     after warmup and unchanged after generate, its greedy tokens hold
     against one no-cache ``generate_reference``, all its tokens equal
     an eager engine's run token for token, and its kernel launches
-    equal layers x steps; step times and tokens/s captured and eager.
+    equal layers x steps; step times and tokens/s captured and eager;
+  * trains the same LM with dropout 0.1 on each attention op and a
+    Dropout(0.1) after each FFN (``dropout_lm_graph``; bf16 policy,
+    batch 16 x 512) through ``fit``: (a) prefetch on against off, 3
+    epochs of 8 steps, masters bit for bit, step wall, device ms and
+    idle share of each, and the dropout and flash launches of the
+    prefetch run counted from 0; (b) steps_per_dispatch=4 against 1, bit
+    for bit, one train_step_multi capture; (c) grad_accum_steps=4 on
+    microbatches of 4 x 512, captured against eager, bit for bit; (d)
+    remat against off, bit for bit, the flash forward launched twice a
+    layer a step, peak memory of both; (e) 2 epochs x 4 steps with a
+    checkpoint directory, killed at train.dispatch in epoch 1 and run
+    again, equal to an uninterrupted run bit for bit, and the save time;
+  * (f) holds the dropout kernel against its plain version bit for bit
+    (f32 and bf16, forward and backward, 16 x 512 x 512 and 3 x 1001 x
+    77), timed beside its bound and torch.nn.functional.dropout (the
+    same work on another random stream).
 
 Every phase raises on failure. Prints the card (name, power limit), the
 build, each kernel's error and times, the training and serving numbers,
@@ -97,10 +113,19 @@ HERE = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the HBM rate, and the
 # operation rate for each input type — f32 outside the tensor cores,
-# bf16 on them
+# bf16 on them; int32 outside the tensor cores, from the same sheet: its
+# f32 rate is 132 SMs x 128 lanes x 2 (an FMA) x 1.98 GHz, and an SM has
+# 64 INT32 lanes, one operation a clock each
 HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
-               torch.int8: 1979e12, torch.float8_e4m3fn: 1979e12}
+               torch.int8: 1979e12, torch.float8_e4m3fn: 1979e12,
+               torch.int32: 132 * 64 * 1.98e9}
+# the dropout kernel's 32-bit integer operations an element: threefry2x32
+# (2 initial adds, 20 rounds of add, rotate and xor, 5 key injections of
+# two adds) and the uniform's xor, shift and or; the op key's fold-in
+# (one more threefry, 72) is counted once a call
+DROPOUT_INT_OPS_PER_ELEMENT = 2 + 20 * 3 + 5 * 2 + 3
+DROPOUT_INT_OPS_PER_CALL = 72
 
 # the serving mixed step's geometry at the FFConfig defaults:
 # serve_prefill_budget 512 + serve_max_seqs 8 lanes, kv_page_size 16,
@@ -222,7 +247,7 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 
 def bound(nbytes: float, flops: float, dtype):
     """(bound_ms, bound_by): the larger of the bytes over the HBM rate
-    and the flops over the card's peak rate for the input type."""
+    and the operations over the card's peak rate for their type."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FLOPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1272,8 +1297,8 @@ def nmt_steps(dtype, use_pallas, batches, steps=3):
     ex, grads = m.executor, []
     compute = ex._compute_grads
 
-    def record(params, batch):
-        loss, logits, g = compute(params, batch)
+    def record(params, batch, key=None):
+        loss, logits, g = compute(params, batch, key)
         grads.append({f"{op}.{k}": w.clone() for op, p in g.items()
                       for k, w in p.items()})
         return loss, logits, g
@@ -1536,6 +1561,340 @@ def serve_phase(pr, fa, card: str, lm):
     return runs
 
 
+# ---------------------------------------------------- the training loop
+# the LM at full width with GPT-2's resid_pdrop / attn_pdrop of 0.1 where
+# the JAX package applies them (attention's output, a Dropout after each
+# block's FFN), trained through fit under the bf16 policy
+LM_DROPOUT = 0.1
+FIT_STEPS = 8
+DROPOUT_SHAPES = ((LB, TS, 512), (3, 1001, 77))
+
+
+def dropout_lm_graph(batch, vocab_size, max_seq_len, hidden, num_heads,
+                     num_layers, ff_dim, compute_dtype="bfloat16",
+                     remat=False, seed=0, device="cuda", p=LM_DROPOUT):
+    """build_transformer_lm's graph, op for op with its op names, plus
+    dropout ``p`` on each attention op and a Dropout(p) after each
+    block's FFN, built with the port's FFModel calls
+    (``build_transformer_lm`` takes no dropout argument, as the JAX
+    function does not)."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    cfg = FFConfig(batch_size=batch, seed=seed, compute_dtype=compute_dtype,
+                   remat=remat)
+    ff = FFModel(cfg, device=device)
+    tokens = ff.create_tensor((batch, max_seq_len), dtype=torch.int32,
+                              name="tokens")
+    positions = ff.create_tensor((batch, max_seq_len), dtype=torch.int32,
+                                 name="positions")
+    te = ff.embedding(tokens, vocab_size, hidden, aggr="none",
+                      name="tok_embed", dtype=cfg.compute_dtype)
+    pe = ff.embedding(positions, max_seq_len, hidden, aggr="none",
+                      name="pos_embed", dtype=cfg.compute_dtype)
+    t = ff.add(te, pe, name="embed_add")
+    for i in range(num_layers):
+        a_in = ff.layer_norm(t, name=f"layer{i}_ln1")
+        a = ff.multihead_attention(a_in, a_in, a_in, hidden, num_heads,
+                                   dropout=p, causal=True,
+                                   name=f"layer{i}_attn")
+        t = ff.add(a, t, name=f"layer{i}_res1")
+        f_in = ff.layer_norm(t, name=f"layer{i}_ln2")
+        h = ff.dense(f_in, ff_dim, activation="relu", name=f"layer{i}_ff1")
+        h = ff.dense(h, hidden, name=f"layer{i}_ff2")
+        h = ff.dropout(h, p, name=f"layer{i}_drop")
+        t = ff.add(h, t, name=f"layer{i}_res2")
+    t = ff.layer_norm(t, name="final_ln")
+    ff.dense(t, vocab_size, name="lm_head")
+    return ff
+
+
+def fit_model(batch=None, remat=False, capture=True):
+    """The dropout LM at full width under the bf16 policy, SGD lr 0.01
+    momentum 0.9 (the LM phase's optimizer), weights from the port's
+    numpy streams of seed 0."""
+    from functools import partial
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.core.losses import \
+        sparse_categorical_crossentropy
+    m = dropout_lm_graph(batch or LB, remat=remat, **LM_ARCH)
+    m.compile(optimizer=SGDOptimizer(lr=0.01, momentum=0.9),
+              loss_type=partial(sparse_categorical_crossentropy,
+                                from_logits=True),
+              metrics=[], capture=capture)
+    return m
+
+
+def lm_arrays(rows, seed=0):
+    """fit's arrays for the LM: tokens, positions, next-token labels."""
+    b = lm_batches(1, seed)[0]
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, LM_ARCH["vocab_size"], (rows, TS)) \
+        .astype(np.int32)
+    pos = np.tile(b["positions"][:1], (rows, 1))
+    return {"tokens": toks, "positions": pos}, np.roll(toks, -1, axis=1)
+
+
+def profiled(fn):
+    """(wall s, device busy s) of fn() under torch.profiler (CPU + CUDA
+    activities), the window ending in a synchronize."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(float(e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    return wall, busy
+
+
+def masters_equal(a, b, what):
+    wdiff, worst = max_weight_diff(weights_of(a), weights_of(b))
+    if wdiff != 0.0:
+        raise AssertionError(f"{what}: masters differ by {wdiff} at {worst}")
+
+
+def fit_loop_phase(kd, fa, card: str):
+    """The slice's full-width path: the dropout LM trained through fit.
+    (a) prefetch on against off, 3 epochs of 8 steps each (captured;
+    the second epoch timed, the third profiled): masters bit for bit;
+    the dropout launches of the prefetch run counted. (b)
+    steps_per_dispatch=4 against 1: bit for bit, one train_step_multi
+    capture. (c) grad_accum_steps=4 on microbatches of 4 x 512,
+    captured against eager: bit for bit. (d) remat against off: bit for
+    bit, the flash forward launched 2 x 6 layers a step. (e) 2 epochs x
+    4 steps with a checkpoint directory, killed at train.dispatch in
+    epoch 1, run again: equal to an uninterrupted run bit for bit.
+    Returns its numbers and the dropout launches of (a)'s main path."""
+    import tempfile
+    from flexflow_tpu_torch.utils import faults
+    layers = LM_ARCH["num_layers"]
+    x, y = lm_arrays(LB * FIT_STEPS)
+    t_phase = time.perf_counter()
+    res, models = {}, {}
+
+    def run_fit(m, **kw):
+        return m.fit(x, y, epochs=1, verbose=False, shuffle=True, **kw)
+
+    # (a) prefetch, the main path of the dropout kernel
+    for prefetch in (False, True):
+        m = fit_model()
+        if prefetch:
+            kd.launches.update(dict.fromkeys(kd.launches, 0))
+            fa.launches.update(dict.fromkeys(fa.launches, 0))
+        run_fit(m, prefetch=prefetch)                     # captures
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_fit(m, prefetch=prefetch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / FIT_STEPS
+        pwall, busy = profiled(lambda: run_fit(m, prefetch=prefetch))
+        counts = m.compile_counts()
+        if counts != {"train_step": 1}:
+            raise AssertionError(f"fit prefetch={prefetch}: captures "
+                                 f"{counts}")
+        if prefetch:
+            launches = dict(kd.launches)
+            want = 2 * layers * 3 * FIT_STEPS
+            if launches != {"dropout_fwd": want, "dropout_bwd": want}:
+                raise AssertionError(f"dropout launches {launches} != 2 x "
+                                     f"{layers} layers x "
+                                     f"{3 * FIT_STEPS} steps each way")
+            flash = {k: fa.launches[k] for k in fa.FLASH_KERNELS}
+            if flash != dict.fromkeys(flash, layers * 3 * FIT_STEPS):
+                raise AssertionError(f"fit (a): flash launches {flash}")
+        res[f"prefetch_{prefetch}"] = {
+            "step_ms": 1e3 * wall, "device_ms": 1e3 * busy / FIT_STEPS,
+            "profiled_step_ms": 1e3 * pwall / FIT_STEPS,
+            "idle_share": 1.0 - busy / pwall}
+        log(f"fit (a) prefetch={prefetch} [{card}]: step wall "
+            f"{1e3 * wall:.3f} ms, device {1e3 * busy / FIT_STEPS:.3f} ms "
+            f"a step, idle share {1.0 - busy / pwall:.3f} (profiled wall "
+            f"{1e3 * pwall / FIT_STEPS:.3f} ms a step)")
+        release(m)
+        models[prefetch] = m
+    masters_equal(models[True], models[False], "fit (a) prefetch")
+    log(f"fit (a): prefetch on and off give the same masters after "
+        f"{3 * FIT_STEPS} steps bit for bit; dropout launches {launches}, "
+        f"flash launches {flash}")
+    del models
+
+    # (b) multi-step dispatch
+    runs = {}
+    for spd in (1, 4):
+        m = fit_model()
+        hist = m.fit(x, y, epochs=2, verbose=False, steps_per_dispatch=spd)
+        want = ({"train_step": 1} if spd == 1 else
+                {"train_step": 0, "train_step_multi": 1})
+        if m.compile_counts() != want:
+            raise AssertionError(f"fit (b) spd={spd}: captures "
+                                 f"{m.compile_counts()} != {want}")
+        runs[spd] = ([h["loss"] for h in hist], m)
+        release(m)
+    if runs[1][0] != runs[4][0]:
+        raise AssertionError(f"fit (b) losses {runs[1][0]} vs {runs[4][0]}")
+    masters_equal(runs[1][1], runs[4][1], "fit (b) steps_per_dispatch")
+    res["multi_losses"] = runs[4][0]
+    log(f"fit (b): steps_per_dispatch=4 equals 1 bit for bit over 2 "
+        f"epochs (losses {[round(v, 4) for v in runs[4][0]]}); captures "
+        f"{runs[4][1].compile_counts()}")
+    del runs
+
+    # (c) gradient accumulation, captured against eager
+    runs = {}
+    for capture in (True, False):
+        m = fit_model(batch=4, capture=capture)
+        hist = m.fit(x, y, batch_size=4, epochs=1, verbose=False,
+                     grad_accum_steps=4)
+        if m.state.step != len(y) // 16:       # 4 microbatches of 4
+            raise AssertionError(f"fit (c): {m.state.step} updates")
+        runs[capture] = ([h["loss"] for h in hist], m)
+        release(m)
+    if runs[True][0] != runs[False][0]:
+        raise AssertionError(f"fit (c) losses {runs[True][0]} vs "
+                             f"{runs[False][0]}")
+    masters_equal(runs[True][1], runs[False][1], "fit (c) accumulation")
+    log(f"fit (c): grad_accum_steps=4 (microbatches 4 x {TS}) captured "
+        f"equals eager bit for bit; {len(y) // 16} updates, captures "
+        f"{runs[True][1].compile_counts()}")
+    del runs
+
+    # (d) remat
+    runs = {}
+    for remat in (False, True):
+        m = fit_model(remat=remat)
+        torch.cuda.reset_peak_memory_stats()
+        fa.launches["flash_fwd"] = 0
+        hist = m.fit(x, y, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        fwd = fa.launches["flash_fwd"]
+        if fwd != (2 if remat else 1) * layers * FIT_STEPS:
+            raise AssertionError(f"fit (d) remat={remat}: flash forward "
+                                 f"launches {fwd}")
+        runs[remat] = ([h["loss"] for h in hist], m, peak, fwd)
+        release(m)
+    if runs[True][0] != runs[False][0]:
+        raise AssertionError(f"fit (d) losses {runs[True][0]} vs "
+                             f"{runs[False][0]}")
+    masters_equal(runs[True][1], runs[False][1], "fit (d) remat")
+    res["remat_peak_gib"] = runs[True][2]
+    res["no_remat_peak_gib"] = runs[False][2]
+    log(f"fit (d): remat equals no remat bit for bit (deterministic "
+        f"kernels); flash forward launches {runs[True][3]} (= 2 x "
+        f"{layers} x {FIT_STEPS}) against {runs[False][3]}; peak memory "
+        f"{runs[True][2]:.3f} GiB with remat, {runs[False][2]:.3f} "
+        f"without")
+    del runs
+
+    # (e) crash and resume
+    xe, ye = lm_arrays(LB * 4, seed=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = fit_model()
+        ref.fit(xe, ye, epochs=2, verbose=False)
+        release(ref)
+        ck = str(Path(tmp) / "ck")
+        m = fit_model()
+        try:
+            with faults.active("train.dispatch:kill@6"):
+                m.fit(xe, ye, epochs=2, verbose=False, checkpoint_dir=ck)
+            raise AssertionError("fit (e): the planted kill did not fire")
+        except faults.SimulatedKill:
+            pass
+        release(m)
+        del m
+        visible = sorted(d for d in Path(ck).iterdir())
+        if [d.name for d in visible] != ["epoch_0"]:
+            raise AssertionError(f"fit (e): checkpoints {visible}")
+        m = fit_model()
+        hist = m.fit(xe, ye, epochs=2, verbose=False, checkpoint_dir=ck)
+        if [h["epoch"] for h in hist] != [1]:
+            raise AssertionError(f"fit (e): resumed epochs {hist}")
+        masters_equal(m, ref, "fit (e) resume")
+        from flexflow_tpu_torch.core.checkpoint import save_model
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_model(m, str(Path(tmp) / "timed"))
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size
+                     for f in (Path(tmp) / "timed").iterdir())
+        release(m)
+    res["save_s"] = save_s
+    res["save_bytes"] = nbytes
+    log(f"fit (e): killed at train.dispatch in epoch 1, resumed from "
+        f"epoch_0: masters equal the uninterrupted run's bit for bit; a "
+        f"synchronous save of params, slots and step ({nbytes / 2**20:.1f} "
+        f"MiB) took {save_s:.3f} s")
+    del ref, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"fit loop phase {time.perf_counter() - t_phase:.1f} s")
+    return res, launches
+
+
+def dropout_phase(kd):
+    """(f) the dropout kernel against its plain version bit for bit,
+    f32 and bf16, forward and backward (the kernel on the gradient,
+    through autograd), at the LM's activation and an odd shape; timed
+    beside its bound (the larger of x read once and y written once over
+    the HBM rate, and threefry's 32-bit integer operations over the
+    INT32 rate) and beside torch.nn.functional.dropout on the same
+    tensor (another random stream: the same work, not the same mask)."""
+    from flexflow_tpu_torch.core import prng
+    key = torch.from_numpy(prng.key_words(prng.fold_in(prng.prng_key(0),
+                                                       3))).cuda()
+    fold, keep = 1234567, 1.0 - LM_DROPOUT
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in DROPOUT_SHAPES:
+            rng = np.random.default_rng(0)
+            x = torch.from_numpy(rng.standard_normal(shape, np.float32)) \
+                .cuda().to(dtype)
+            g = torch.from_numpy(rng.standard_normal(shape, np.float32)) \
+                .cuda().to(dtype)
+            y = kd.dropout_cuda(x, key, fold, keep)
+            xg = x.clone().requires_grad_()
+            (dx,) = torch.autograd.grad(kd.dropout(xg, key, fold, keep),
+                                        xg, g)
+            torch.cuda.synchronize()
+            for name, got, want in (
+                    ("dropout_fwd", y, kd.dropout_ref(x, key, fold, keep)),
+                    ("dropout_bwd", dx, kd.dropout_ref(g, key, fold, keep))):
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{name} {dtype} {shape}: kernel "
+                                         f"differs from its plain version")
+            cell = f"{'bf16' if dtype == torch.bfloat16 else 'f32'} " \
+                   f"{'x'.join(map(str, shape))}"
+            nbytes = 2 * x.numel() * x.element_size()
+            int_ops = (DROPOUT_INT_OPS_PER_ELEMENT * x.numel()
+                       + DROPOUT_INT_OPS_PER_CALL)
+            bms, by = bound(nbytes, int_ops, torch.int32)
+            times = {
+                "dropout_fwd": cuda_ms(
+                    lambda: kd.dropout_cuda(x, key, fold, keep), 20),
+                "dropout_bwd": cuda_ms(
+                    lambda: kd.dropout_cuda(g, key, fold, keep,
+                                            direction="dropout_bwd"), 20)}
+            plain_ms = cuda_ms(lambda: kd.dropout_ref(x, key, fold, keep), 5)
+            lib_ms = cuda_ms(lambda: torch.nn.functional.dropout(
+                x, LM_DROPOUT, training=True), 20)
+            for name in ("dropout_fwd", "dropout_bwd"):
+                out.setdefault(name, {})[cell] = {
+                    "max_abs_err": 0.0, "ms": times[name],
+                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                    "library_ms": lib_ms}
+            log(f"dropout {cell}: kernel = plain version bit for bit "
+                f"(fwd and bwd); fwd {times['dropout_fwd']:.4f} ms, bwd "
+                f"{times['dropout_bwd']:.4f} ms, bound {bms:.4f} ms "
+                f"({by}; bytes alone {bound(nbytes, 0.0, dtype)[0]:.4f}), "
+                f"plain {plain_ms:.4f} ms, F.dropout "
+                f"{lib_ms:.4f} ms (its own random stream)")
+    return out
+
+
 def _kernel_name(sym: str) -> str:
     """A mangled kernel symbol as name[template args, still mangled]:
     the name is the length-prefixed identifier ending in _kernel."""
@@ -1612,6 +1971,7 @@ def main() -> int:
               file=sys.stderr)
         return 3
     from flexflow_tpu_torch.kernels import _build
+    from flexflow_tpu_torch.kernels import dropout as kd
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import lstm_scan as ls
     from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
@@ -1699,6 +2059,11 @@ def main() -> int:
     lres = lstm_phase(ls)
     nres = nmt_train_phase(ls, card)
     sres = serve_phase(pr, fa, card, lm)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    fitres, drop_launches = fit_loop_phase(kd, fa, card)
+    dres_f = dropout_phase(kd)
 
     def head(cells):
         """A row's headline numbers: its f32 cell."""
@@ -1787,6 +2152,24 @@ def main() -> int:
                 ("lstm_fwd_",) if kname == "lstm_fwd"
                 else ("lstm_bwd_", "lstm_dh0_", "lstm_dwh_"))},
             "f32": cells["f32"], "odd_shape": cells["odd_shape"]})
+    # the dropout kernel: no TPU kernel (JAX draws the mask in XLA); the
+    # headline cell is the LM path's own (bf16, 16 x 512 x 512)
+    for kname in ("dropout_fwd", "dropout_bwd"):
+        cells = dres_f[kname]
+        head_cell = f"bf16 {'x'.join(map(str, DROPOUT_SHAPES[0]))}"
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": "flexflow_tpu_torch/kernels/csrc/dropout.cu",
+            "replaces": "flexflow_tpu/ops/elementwise.py:205",
+            "replaces_note": "jax.random.bernoulli in XLA, no Pallas "
+                             "kernel; also ops/attention.py:156",
+            "launches": drop_launches[kname], **cells[head_cell],
+            "library_note": "torch.nn.functional.dropout: same work, "
+                            "another random stream",
+            "cells": {c: v for c, v in cells.items() if c != head_cell},
+            "ptxas": {k: u for k, u in usage.items()
+                      if k.startswith("dropout_")}})
+    rows[-1]["fit_loop"] = fitres
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -15,7 +15,13 @@ neither it nor JAX. It serves and trains on one NVIDIA H100:
     hand-written CUDA kernels (``kernels/csrc/flash_attention.cu``);
   * training the NMT LSTM of ``build_nmt_lstm`` through the same
     ``FFModel``, with the LSTM recurrence forward and backward in
-    hand-written CUDA kernels (``kernels/csrc/lstm_scan.cu``).
+    hand-written CUDA kernels (``kernels/csrc/lstm_scan.cu``);
+  * the JAX package's single-device training loop: multi-step and
+    accumulated dispatches, a prefetching loader (``core/dataloader.py``),
+    crash-safe checkpoints (``core/checkpoint.py``), remat, the runtime
+    learning rate, and dropout drawn from JAX's own key stream
+    (``core/prng.py``) by a hand-written kernel
+    (``kernels/csrc/dropout.cu``).
 
 Every serving and training step is one program of a registry
 (``core/programs.py``): on the card it is captured once as a CUDA graph

@@ -4,10 +4,10 @@
 port's slices read, under the same names and defaults, so one set of
 knobs sizes both packages: the serving fields of the serving slice and
 the training fields of the training slice, and the mixed-precision
-policy of ``core/precision.py``. A few knobs the port does
-not run yet (search, pipelines, remat, fusion, NHWC, telemetry,
-``iter_config.seq_length``) are here at their JAX defaults so that
-setting one reaches ``FFModel.compile`` (or the step), which raises
+policy of ``core/precision.py``, ``remat`` and
+``iter_config.seq_length``. A few knobs the port does not run yet
+(search, pipelines, fusion, NHWC, telemetry) are here at their JAX
+defaults so that setting one reaches ``FFModel.compile``, which raises
 ``NotImplementedError`` instead of ignoring it. The rest of the JAX
 config has no counterpart yet.
 
@@ -40,8 +40,8 @@ class CompMode:
 
 @dataclasses.dataclass
 class FFIterationConfig:
-    """Per-iteration runtime config: ``seq_length`` truncation of
-    attention keys (not ported: a step raises when it is >= 0)."""
+    """Per-iteration runtime config: ``seq_length`` >= 0 masks the
+    attention keys (and BatchMatmul's marked dims) at and past it."""
 
     seq_length: int = -1
 
@@ -111,12 +111,14 @@ class FFConfig:
     serve_degrade_ladder: bool = True
     serve_reject_stalls: int = 0
 
+    # recompute each weighted op's activations in the backward
+    # (torch.utils.checkpoint), as the JAX executor's jax.checkpoint
+    remat: bool = False
     # knobs of the JAX package the port does not run yet, at their JAX
     # defaults; FFModel.compile raises NotImplementedError for any other
     # value
     search_budget: int = 0
     pipeline_stages: int = 0
-    remat: bool = False
     perform_fusion: bool = False
     conv_layout: str = "NCHW"
     telemetry: bool = False

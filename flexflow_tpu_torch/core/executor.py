@@ -1,11 +1,20 @@
 """Executor: runs the op graph as single-device train and eval steps.
 
 Counterpart of ``flexflow_tpu/core/executor.py`` without the mesh,
-strategy, remat, fusion, NHWC residency, sparse tables, multi-step
-dispatch or accumulation. The parameter tree has the JAX package's
-layout and names, ``{op_name: {weight_name: tensor}}``; gradients come
-from ``torch.autograd.grad`` in place of ``jax.value_and_grad``, and the
-optimizer updates the parameter tensors in place (core/optimizers.py).
+strategy, fusion, NHWC residency or sparse tables. The parameter tree
+has the JAX package's layout and names, ``{op_name: {weight_name:
+tensor}}``; gradients come from ``torch.autograd.grad`` in place of
+``jax.value_and_grad``, and the optimizer updates the parameter tensors
+in place (core/optimizers.py).
+
+Randomness follows the JAX key chain (core/prng.py): each train step
+gets a step key, and each op draws from ``fold_in(step key,
+_stable_hash(op.name))``. Under ``config.remat`` each op with weights
+(and no state or aux loss, JAX's exclusions) runs inside
+``torch.utils.checkpoint`` and is recomputed in the backward; a
+recomputed dropout regenerates its mask from the same key, so there is
+no generator state to preserve (and stashing the CUDA generator's
+state would fail during a graph capture).
 
 The mixed-precision policy (core/precision.py) casts at the JAX
 executor's sites: masters stored at ``param_dtype``, params and float
@@ -13,26 +22,34 @@ inputs cast to ``compute_dtype`` inside the differentiated region, the
 value stream kept at ``compute_dtype`` after every op, and the logits
 upcast to f32 before the loss and metrics.
 
-Each train step is one program of the executor's ProgramRegistry
-(core/programs.py), family ``train_step``: on the card the first step
-of a batch shape is captured as a CUDA graph and every later one
-replays it.
+Each dispatch is one program of the executor's ProgramRegistry
+(core/programs.py): ``train_step`` (one step), ``train_step_multi`` (K
+steps in one graph, the JAX scanned multi-step), ``train_step_accum`` (K
+microbatches, one update) and ``eval_step_multi``. On the card the
+first call of a batch signature is captured as a CUDA graph and every
+later one replays it. The step keys and the optimizer's per-step scalar
+(SGD's lr, Adam's ``alpha_t``, each times the runtime LR multiplier of
+``set_learning_rate``) enter as one staged int32 input through a pinned
+ring, so neither a new key nor a new learning rate captures anew.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..op import OpContext
 from . import initializers as I
 from . import losses as L
 from . import metrics as M
 from . import precision as MP
+from .dataloader import host_to_device
 from .optimizers import Optimizer
 from .programs import PinnedRing, ProgramRegistry
+from .prng import OpRng, key_words
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
@@ -83,7 +100,10 @@ class Executor:
         self.programs = ProgramRegistry(self._fingerprint(), self.device,
                                         capture=capture)
         self.programs.register("train_step")
-        self._scalars = PinnedRing(self.device)
+        self._staging = PinnedRing(self.device)
+        # the runtime LR multiplier (FFModel.set_learning_rate), staged
+        # into every train program with its step's scalar
+        self._lr_scale = 1.0
 
     def _fingerprint(self) -> dict:
         return {
@@ -129,12 +149,13 @@ class Executor:
 
     # ---------------- forward ----------------
     def forward_values(self, params: Tree, inputs: Dict[str, torch.Tensor],
-                       training: bool, seq_length: int = -1):
+                       training: bool, seq_length: int = -1, key=None):
         """Topological walk of the graph; returns {tensor uid: value}.
         Under the policy, master params and float inputs are cast to
         compute_dtype HERE, inside whatever is being differentiated, so
         gradients leave the cast in the masters' dtype; labels are not
-        inputs and never pass through the cast."""
+        inputs and never pass through the cast. ``key``: the step key,
+        a (2,) int32 tensor, or None (no stochastic op draws)."""
         if self._mp_active:
             params = MP.cast_floats(params, self.compute_dtype)
         values: Dict[int, torch.Tensor] = {}
@@ -147,10 +168,24 @@ class Executor:
                     and v.dtype != self.compute_dtype:
                 v = v.to(self.compute_dtype)
             values[t.uid] = v
+        remat = self.config.remat and torch.is_grad_enabled()
         for op in self.model.ops:
-            ctx = OpContext(training=training, seq_length=seq_length)
+            ctx = OpContext(
+                training=training, seq_length=seq_length,
+                rng=(OpRng(key, _stable_hash(op.name))
+                     if key is not None else None))
             xs = [values[t.uid] for t in op.inputs]
-            ys = op.forward(params.get(op.name, {}), xs, ctx)
+            op_params = params.get(op.name, {})
+            if remat and op.weight_specs():
+                # recompute this op's activations in the backward
+                # (the port's ops carry no state or aux loss, the JAX
+                # executor's exclusions)
+                ys = checkpoint(
+                    lambda p, x, _op=op, _ctx=ctx: _op.forward(p, x, _ctx),
+                    op_params, xs, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                ys = op.forward(op_params, xs, ctx)
             if self._mp_active:
                 # keep the VALUE stream at compute_dtype: an op that
                 # pins its output dtype (Embedding's out_dtype) would
@@ -162,9 +197,10 @@ class Executor:
                 values[t.uid] = y
         return values
 
-    def _outputs_and_loss(self, params, batch, training):
+    def _outputs_and_loss(self, params, batch, training, key=None):
         values = self.forward_values(
-            params, batch, training, self.config.iter_config.seq_length)
+            params, batch, training, self.config.iter_config.seq_length,
+            key)
         logits = values[self.model.final_tensor.uid]
         if self._mp_active and MP.is_float_tensor(logits):
             # losses and metrics score f32-upcast logits, the policy's
@@ -175,12 +211,12 @@ class Executor:
             loss = self.loss_fn(logits, batch["label"])
         return loss, logits
 
-    def _compute_grads(self, params: Tree, batch):
+    def _compute_grads(self, params: Tree, batch, key=None):
         """(loss, logits, grads) for one batch; grads mirror params.
         The masters are cast inside the walk (the policy) or inside
         each op (a builder's bf16 graph), so the gradients arrive back
         through the casts in the masters' dtype."""
-        loss, logits = self._outputs_and_loss(params, batch, True)
+        loss, logits = self._outputs_and_loss(params, batch, True, key)
         names = [(op, k) for op, p in params.items() for k in p]
         leaves = [params[op][k] for op, k in names]
         gs = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -197,11 +233,6 @@ class Executor:
                 self.metric_names, logits, batch["label"], sparse))
         return metrics
 
-    def _check_step(self):
-        if self.config.iter_config.seq_length >= 0:
-            raise NotImplementedError(
-                "iter_config.seq_length truncation is not ported yet")
-
     def _require_training(self):
         if self.comp_mode == "inference":
             raise RuntimeError(
@@ -209,45 +240,134 @@ class Executor:
                 "optimizer state); recompile with comp_mode=TRAINING "
                 "to train")
 
-    def _train_body(self, state: TrainState, names, *args):
-        """The step as one program: gradients, metrics and the in-place
-        update. ``args`` are the batch tensors in ``names`` order, then
-        the optimizer's step scalar (a 0-d tensor) or None."""
-        batch = dict(zip(names, args))
-        loss, logits, grads = self._compute_grads(state.params, batch)
+    # ---------------- train programs ----------------
+    def _stage(self, keys: Sequence, scalars: Sequence[float]):
+        """One int32 staging buffer: the step keys' words, then the f32
+        scalars' bits. On the card a pinned slot the program's static
+        input is filled from; on the CPU a plain tensor."""
+        nk = 2 * len(keys)
+        buf = self._staging.take(nk + len(scalars), torch.int32)
+        if keys:
+            buf[:nk] = torch.from_numpy(
+                key_words(np.stack([np.asarray(k) for k in keys]))
+                .reshape(-1))
+        buf[nk:].view(torch.float32)[:] = torch.tensor(
+            list(scalars), dtype=torch.float32)
+        return buf
+
+    @staticmethod
+    def _unstage(aux, nkeys: int):
+        """(keys (nkeys, 2) int32, scalars f32) views of a staged
+        buffer, read on the device: nothing goes back to the host."""
+        return (aux[:2 * nkeys].view(nkeys, 2),
+                aux[2 * nkeys:].view(torch.float32))
+
+    def _scalar(self, step: int) -> float:
+        return self.optimizer.step_scalar(step, self._lr_scale)
+
+    def _step_body(self, state: TrainState, batch, key, scalar):
+        """One optimizer step: gradients, metrics and the in-place
+        update; shared by the single- and multi-step programs."""
+        loss, logits, grads = self._compute_grads(state.params, batch, key)
         with torch.no_grad():
             metrics = self._metrics(loss, logits, batch)
         self.optimizer.update(state.params, grads, state.opt_state,
-                              state.step, scalar=args[len(names)])
+                              state.step, scalar=scalar)
         return metrics
 
-    def train_step(self, state: TrainState, batch):
-        """One optimizer step through the registry's ``train_step``
-        program; returns (state, metrics) — the state's parameters and
-        slots are updated in place, and the metrics are this step's own
-        copies (a replay overwrites the graph's outputs)."""
-        self._require_training()
-        self._check_step()
+    def _dispatch(self, family: str, body, state: TrainState, batch,
+                  keys, scalars):
+        """Run ``body(batch, keys, scalars)`` as the (family, signature)
+        program: the batch tensors in sorted-name order, then the staged
+        keys and scalars. The static key holds what a captured body
+        bakes in: the names, the optimizer's class and hyperparameters
+        (the JAX executor's _opt_sig), seq_length and remat."""
         names = tuple(sorted(batch))
-        scalar = self.optimizer.step_scalar(state.step)
-        if scalar is not None:
-            # through a pinned slot into the program's 0-d input
-            buf = self._scalars.take(1, torch.float32)
-            buf[0] = scalar
-            scalar = buf.view(())
+        aux = self._stage(keys, scalars)
+        nkeys = len(keys)
+
+        def run(_names, _static, *args):
+            k, sc = self._unstage(args[-1], nkeys)
+            return body(dict(zip(_names, args[:-1])), k, sc)
+
         bound = [w for tree in (state.params, state.opt_state)
                  for w in _leaves(tree)]
-        # the optimizer's hyperparameters are baked into a captured
-        # step, so they key it (the JAX executor's _opt_sig): changing
-        # one captures anew instead of replaying the old value
-        metrics = self.programs.call(
+        out = self.programs.call(
+            family, run, names,
+            (self._opt_sig(), self.config.iter_config.seq_length,
+             bool(self.config.remat)),
+            *(batch[k] for k in names), aux, bound=bound)
+        self._staging.consumed()
+        # this dispatch's own copies: a replay overwrites the outputs
+        return {k: v.clone() for k, v in out.items()}
+
+    def train_step(self, state: TrainState, batch, key):
+        """One optimizer step through the ``train_step`` program;
+        ``key`` is the step key (uint32[2]). Returns (state, metrics):
+        the state's parameters and slots are updated in place."""
+        self._require_training()
+        metrics = self._dispatch(
             "train_step",
-            lambda n, _opt, *a: self._train_body(state, n, *a),
-            names, self._opt_sig(), *(batch[k] for k in names), scalar,
-            bound=bound)
-        self._scalars.consumed()
+            lambda b, k, sc: self._step_body(state, b, k[0], sc[0]),
+            state, batch, [key], [self._scalar(state.step)])
         state.step += 1
-        return state, {k: v.clone() for k, v in metrics.items()}
+        return state, metrics
+
+    def train_step_multi(self, state: TrainState, stacked, keys):
+        """K optimizer steps in one program (the JAX scanned multi-step):
+        ``stacked`` holds each input with a leading (K,) step axis,
+        ``keys`` the K step keys. Returns (state, metrics), every metric
+        with a leading (K,) axis."""
+        self._require_training()
+        k_steps = len(keys)
+
+        def body(b, k, sc):
+            out = [self._step_body(state, {n: v[i] for n, v in b.items()},
+                                   k[i], sc[i]) for i in range(k_steps)]
+            return {n: torch.stack([m[n] for m in out]) for n in out[0]}
+
+        metrics = self._dispatch(
+            "train_step_multi", body, state, stacked, list(keys),
+            [self._scalar(state.step + i) for i in range(k_steps)])
+        state.step += k_steps
+        return state, metrics
+
+    def train_step_accum(self, state: TrainState, stacked, keys):
+        """ONE optimizer step over K microbatches (leading (K,) axis of
+        ``stacked``, one key each): f32 gradients summed over the
+        microbatches, the update applied once with their mean, metrics
+        folded like one K-times batch (sums; the loss their mean)."""
+        self._require_training()
+        k_micro = len(keys)
+
+        def body(b, k, sc):
+            gacc = {op: {n: torch.zeros_like(w, dtype=torch.float32)
+                         for n, w in p.items()}
+                    for op, p in state.params.items()}
+            out = []
+            for i in range(k_micro):
+                mb = {n: v[i] for n, v in b.items()}
+                loss, logits, grads = self._compute_grads(
+                    state.params, mb, k[i])
+                with torch.no_grad():
+                    for op, p in gacc.items():
+                        for n in p:
+                            p[n] = p[n] + grads[op][n].float()
+                    out.append(self._metrics(loss, logits, mb))
+            with torch.no_grad():
+                gmean = {op: {n: g / k_micro for n, g in p.items()}
+                         for op, p in gacc.items()}
+                self.optimizer.update(state.params, gmean, state.opt_state,
+                                      state.step, scalar=sc[0])
+                metrics = {n: torch.stack([m[n] for m in out]).sum(
+                    dim=0).to(out[0][n].dtype) for n in out[0]}
+                metrics["loss"] = metrics["loss"] / k_micro
+            return metrics
+
+        metrics = self._dispatch("train_step_accum", body, state, stacked,
+                                 list(keys), [self._scalar(state.step)])
+        state.step += 1
+        return state, metrics
 
     def _opt_sig(self):
         """The optimizer's class and scalar hyperparameters."""
@@ -257,15 +377,37 @@ class Executor:
             if isinstance(v, (int, float, bool, str)))))
 
     def compile_counts(self) -> Dict[str, int]:
-        """Captures (eager: new signatures) of the train step, exact."""
+        """Captures (eager: new signatures) per program family, exact."""
         return self.programs.compile_counts()
 
+    # ---------------- eval ----------------
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch):
         """(logits, metrics) without a gradient."""
-        self._check_step()
         loss, logits = self._outputs_and_loss(state.params, batch, False)
         return logits, self._metrics(loss, logits, batch)
+
+    def eval_step_multi(self, state: TrainState, stacked):
+        """K eval batches in one program (``eval_step_multi``); metrics
+        stacked (K,), logits dropped."""
+        names = tuple(sorted(stacked))
+        k_steps = int(stacked[names[0]].shape[0])
+
+        @torch.no_grad()
+        def run(_names, _seq, *args):
+            out = []
+            for i in range(k_steps):
+                b = {n: a[i] for n, a in zip(_names, args)}
+                loss, logits = self._outputs_and_loss(state.params, b,
+                                                      False)
+                out.append(self._metrics(loss, logits, b))
+            return {n: torch.stack([m[n] for m in out]) for n in out[0]}
+
+        out = self.programs.call(
+            "eval_step_multi", run, names,
+            self.config.iter_config.seq_length,
+            *(stacked[k] for k in names), bound=list(_leaves(state.params)))
+        return {k: v.clone() for k, v in out.items()}
 
     # ---------------- data placement ----------------
     @property
@@ -283,13 +425,31 @@ class Executor:
         return out
 
     def shard_batch(self, batch) -> Dict[str, torch.Tensor]:
-        """A host batch on the model's device, each input cast to its
-        declared dtype (:attr:`declared_input_dtypes`: a bf16 model fed
-        f32 numpy trains in bf16); labels keep their integer type."""
+        """A batch on the model's device, each input at its declared
+        dtype (:attr:`declared_input_dtypes`: a bf16 model fed f32 numpy
+        trains in bf16); other keys (labels) as the JAX loader places
+        them (core/dataloader.py ``host_to_device``)."""
         declared = self.declared_input_dtypes
-        return {k: torch.as_tensor(v, device=self.device,
-                                   dtype=declared.get(k))
+        return {k: host_to_device(v, self.device, declared.get(k))
                 for k, v in batch.items()}
+
+    def shard_batch_stacked(self, batches: List[Dict]
+                            ) -> Dict[str, torch.Tensor]:
+        """K batches stacked along a new leading step axis, on the
+        device: host arrays stacked on the host and copied once, device
+        tensors stacked on the device."""
+        declared = self.declared_input_dtypes
+        out = {}
+        for k in batches[0]:
+            vals = [b[k] for b in batches]
+            if all(isinstance(v, torch.Tensor) for v in vals):
+                out[k] = host_to_device(torch.stack(vals), self.device,
+                                        declared.get(k))
+            else:
+                out[k] = host_to_device(
+                    np.stack([np.asarray(v) for v in vals]), self.device,
+                    declared.get(k))
+        return out
 
 
 def _leaves(tree):

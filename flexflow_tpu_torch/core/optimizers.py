@@ -13,10 +13,12 @@ executor's parameter tree keeps the same leaf tensors (and the same
 device memory) from step to step. The arithmetic keeps the JAX order
 of operations in f32 (``w - lr * g``, ``momentum * v + g``, ...).
 
-A step's host-computed scalar (Adam's ``alpha_t``) can come in as a 0-d
-device tensor (``update(..., scalar=...)``), which the executor writes
-before each step: a captured train step (core/programs.py) then reads
-each step's value instead of the one baked in at capture.
+A step's host-computed scalar (SGD's lr, Adam's ``alpha_t``, each
+times the runtime LR multiplier of ``FFModel.set_learning_rate``) comes
+in as a 0-d device tensor (``update(..., scalar=...)``), which the
+executor writes before each step: a captured train step
+(core/programs.py) then reads each step's value instead of one baked in
+at capture, and a new learning rate captures nothing anew.
 """
 
 from __future__ import annotations
@@ -47,10 +49,10 @@ class Optimizer:
     def init_state(self, params: Tree) -> Any:
         raise NotImplementedError
 
-    def step_scalar(self, step: int):
-        """The host-computed scalar of step ``step`` that ``update``
-        reads, or None when the update has none."""
-        return None
+    def step_scalar(self, step: int, lr_scale: float = 1.0) -> float:
+        """The host-computed f32 scalar of step ``step`` under the LR
+        multiplier ``lr_scale`` that ``update`` reads."""
+        raise NotImplementedError
 
     def update(self, params: Tree, grads: Tree, state, step: int,
                scalar=None):
@@ -85,11 +87,17 @@ class SGDOptimizer(Optimizer):
             return {}
         return {"v": _zeros_like(params)}
 
+    def step_scalar(self, step: int, lr_scale: float = 1.0) -> float:
+        """``jnp.asarray(lr, f32) * lr_scale`` in f32, the JAX step's
+        lr."""
+        f32 = torch.float32
+        return float(torch.tensor(self.lr, dtype=f32)
+                     * torch.tensor(lr_scale, dtype=f32))
+
     @torch.no_grad()
     def update(self, params, grads, state, step, scalar=None):
-        # lr rounded to f32 (the JAX step's jnp.asarray(lr, f32)); a
-        # Python float scalar is applied in the tensors' f32
-        lr = float(torch.tensor(self.lr, dtype=torch.float32))
+        # lr in f32 (a Python float is applied in the tensors' f32)
+        lr = self.step_scalar(step) if scalar is None else scalar
         slots = (state["v"],) if self.momentum != 0.0 else ()
         for w, g, *v in _leaves(params, grads, *slots):
             g = g.float()
@@ -124,18 +132,19 @@ class AdamOptimizer(Optimizer):
     def init_state(self, params: Tree):
         return {"m": _zeros_like(params), "v": _zeros_like(params)}
 
-    def alpha_t(self, step: int) -> float:
+    def alpha_t(self, step: int, lr_scale: float = 1.0) -> float:
         """The bias-corrected step size, in f32 as the JAX step
-        computes it."""
+        computes it: ``lr * lr_scale * sqrt(1 - b2^t) / (1 - b1^t)``."""
         f32 = torch.float32
         t = torch.tensor(float(step), dtype=f32) + 1.0
         b1 = torch.tensor(self.beta1, dtype=f32)
         b2 = torch.tensor(self.beta2, dtype=f32)
-        lr = torch.tensor(self.lr, dtype=f32)
+        lr = torch.tensor(self.lr, dtype=f32) \
+            * torch.tensor(lr_scale, dtype=f32)
         return float(lr * torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t))
 
-    def step_scalar(self, step: int) -> float:
-        return self.alpha_t(step)
+    def step_scalar(self, step: int, lr_scale: float = 1.0) -> float:
+        return self.alpha_t(step, lr_scale)
 
     @torch.no_grad()
     def update(self, params, grads, state, step, scalar=None):

@@ -7,7 +7,9 @@ counts must never grow (the zero-recompile contract). Here the
 counterpart of a compile is a capture:
 
 - ``register(name)`` declares a family (the engine's ``mixed``,
-  ``decode`` and ``prefill``, the executor's ``train_step``).
+  ``decode`` and ``prefill``, the executor's ``train_step``,
+  ``train_step_multi``, ``train_step_accum`` and ``eval_step_multi``);
+  ``call`` registers one at its first call, as the JAX registry does.
 - ``call(name, fn, *args)`` on CUDA: the first call of a (family,
   signature) pair copies the arguments into static device buffers, runs
   ``fn`` eagerly once on the registry's side stream — that run is the
@@ -168,7 +170,12 @@ class ProgramRegistry:
         graph = torch.cuda.CUDAGraph()
         recorded = _launches.start_recording()
         try:
-            with torch.cuda.graph(graph, stream=side):
+            # thread_local: this thread's unsafe CUDA calls still fail the
+            # capture, but another thread's (the prefetching loader's
+            # allocations, pinned slots and event waits on its own
+            # stream) may run while it is underway
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
                 static_out = fn(*static_in)
         except Exception as e:
             raise RuntimeError(

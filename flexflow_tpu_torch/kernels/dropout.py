@@ -1,0 +1,139 @@
+"""Dropout with JAX's mask stream: the plain version and the wrapper of
+the hand-written kernel ``csrc/dropout.cu``.
+
+The JAX package drops with ``jnp.where(bernoulli(op_key, keep, shape),
+x / keep, 0)`` (``flexflow_tpu/ops/elementwise.py`` Dropout,
+``ops/attention.py``'s output dropout), in XLA rather than in a Pallas
+kernel. Here one fused pass draws the same mask (core/prng.py: the op
+key is ``fold_in(step key, fold)``, element i's bits threefry of (hi32(i),
+lo32(i))) and applies it:
+
+    y = where(u(op key, i) < keep, x / keep_c, 0)
+
+``keep`` is the keep probability in f32 (bernoulli's p); ``keep_c`` is
+``keep`` rounded to x's dtype — JAX's weak typing rounds the Python float
+of ``x / keep`` to bf16 under a bf16 tensor (0.9 becomes 0.8984375) — and
+the division is computed in f32, then rounded to x's dtype. The backward
+is the same function of the incoming gradient with the same key (JAX's
+VJP of that ``where``), so no mask is stored.
+
+CUDA tensors launch the kernel (a build or launch error raises); CPU
+tensors take :func:`dropout_ref`. :func:`dropout` is the differentiable
+entry point the ops call.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..core.prng import op_uniform_torch
+from ._launches import count_launch
+
+# launches of each direction: one per kernel launch, nowhere else
+launches = {"dropout_fwd": 0, "dropout_bwd": 0}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_NUMEL = (1 << 31) - 1
+
+
+def keep_in_dtype(keep: float, dtype) -> float:
+    """``keep`` rounded to ``dtype`` (f32 for float32, the bf16 value for
+    bfloat16), as a Python float: the divisor of ``x / keep``."""
+    return float(torch.tensor(keep, dtype=torch.float32).to(dtype).float())
+
+
+# ------------------------------------------------------ plain version
+def dropout_ref(x, key, fold: int, keep: float):
+    """Plain version of the kernel, any device: the uniforms from
+    :func:`core.prng.op_uniform_torch`, the f32 (IEEE) division by
+    ``keep_c`` rounded to x's dtype, zeros where the mask is off."""
+    u = op_uniform_torch(key, fold, x.numel(), x.device).view(x.shape)
+    keep_f32 = float(torch.tensor(keep, dtype=torch.float32))
+    # divide by a tensor, not a Python float: on CUDA PyTorch turns a
+    # division by a scalar into a product with its reciprocal, which is
+    # not the IEEE quotient JAX (and the kernel) compute
+    keep_c = torch.tensor(keep_in_dtype(keep, x.dtype),
+                          dtype=torch.float32, device=x.device)
+    kept = (x.float() / keep_c).to(x.dtype)
+    return torch.where(u < keep_f32, kept, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
+# ------------------------------------------------------- CUDA wrapper
+_PTR = ctypes.c_void_p
+_ARGTYPES = [ctypes.c_int, _PTR, _PTR, _PTR, ctypes.c_uint, ctypes.c_float,
+             ctypes.c_float, ctypes.c_longlong, ctypes.c_uint, _PTR]
+
+
+def dropout_cuda(x, key, fold: int, keep: float, *, direction="dropout_fwd"):
+    """Launch ``dropout_kernel`` on the current stream. x float32 or
+    bfloat16 on CUDA, fewer than 2^31 elements; key a (2,) int32 tensor
+    on x's device. Raises on anything else and on a failed launch."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
+                         f"{x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"dtype {x.dtype} not in float32/bfloat16")
+    if x.numel() > MAX_NUMEL:
+        raise ValueError(f"{x.numel()} elements: the kernel takes fewer "
+                         f"than 2^31")
+    if key.device != x.device or key.dtype != torch.int32 \
+            or tuple(key.shape) != (2,) or not key.is_contiguous():
+        raise ValueError(f"key must be a contiguous (2,) int32 tensor on "
+                         f"{x.device}, got {tuple(key.shape)} {key.dtype} "
+                         f"on {key.device}")
+    if not 0.0 < keep <= 1.0:
+        raise ValueError(f"keep must be in (0, 1], got {keep}")
+    from ._build import load_library
+    lib = load_library("dropout")
+    fn = lib.dropout_launch
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
+                key.data_ptr(), int(fold) & 0xFFFFFFFF, float(keep),
+                keep_in_dtype(keep, x.dtype), x.numel(), 0, stream)
+    if rc != 0:
+        err = lib.dropout_error_string
+        err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"dropout launch failed: {err(rc).decode()} "
+                           f"({rc})")
+    count_launch(launches, direction)
+    return y
+
+
+def _apply(x, key, fold, keep, direction):
+    """CUDA tensors launch the kernel, CPU tensors take the plain
+    version; no fallback between the two."""
+    if x.device.type == "cuda":
+        return dropout_cuda(x, key, fold, keep, direction=direction)
+    if x.device.type == "cpu":
+        return dropout_ref(x, key, fold, keep)
+    raise ValueError(f"unsupported device {x.device}")
+
+
+class _Dropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, key, fold, keep):
+        ctx.fold, ctx.keep = fold, keep
+        ctx.save_for_backward(key)
+        return _apply(x, key, fold, keep, "dropout_fwd")
+
+    @staticmethod
+    def backward(ctx, g):
+        (key,) = ctx.saved_tensors
+        return (_apply(g.contiguous(), key, ctx.fold, ctx.keep,
+                       "dropout_bwd"), None, None, None)
+
+
+def dropout(x, key, fold: int, keep: float):
+    """``where(bernoulli(fold_in(key, fold), keep) , x / keep_c, 0)``,
+    differentiable in x. ``key``: the step key, a (2,) int32 tensor on
+    x's device."""
+    return _Dropout.apply(x, key, fold, keep)

@@ -74,14 +74,19 @@ def _scores(q, k, causal, scale):
     return s
 
 
-def attention_ref(q, k, v, *, causal=False, scale=None):
+def attention_ref(q, k, v, *, causal=False, scale=None, seq_length=-1):
     """The einsum path of ``MultiHeadAttention._attend``
     (flexflow_tpu/ops/attention.py:224-238): f32 logits, softmax in f32,
     probabilities cast to q's dtype before the p.v einsum. (b, s, h, d)
-    in and out."""
+    in and out. ``seq_length >= 0`` masks the keys at and past it (the
+    ``iter_config.seq_length`` truncation), after the causal mask."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    probs = torch.softmax(_scores(q, k, causal, scale), dim=-1).to(q.dtype)
+    s = _scores(q, k, causal, scale)
+    if seq_length is not None and seq_length >= 0:
+        kidx = torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(kidx >= seq_length, -math.inf)
+    probs = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 

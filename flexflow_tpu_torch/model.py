@@ -1,48 +1,55 @@
 """FFModel: the model graph and its training loop.
 
 Counterpart of ``flexflow_tpu/model.py`` for one device: the layer
-methods the training slice's models use, ``compile`` / ``train_batch`` /
-``forward`` / ``fit`` / ``evaluate``, and weight access. Parameters,
-optimizer state and batches live on ``device`` — the card unless the
-caller passes ``device="cpu"``.
+methods the port's models use, ``compile``, the step API
+(``train_batch``, ``train_batches``, ``stage_batches``,
+``train_batch_accum``, ``forward``), ``fit`` / ``evaluate`` with
+their dispatch groupings, prefetch and crash-safe checkpoints, the
+runtime learning rate, and weight access. Parameters, optimizer state
+and batches live on ``device`` — the card unless the caller passes
+``device="cpu"``.
 
 ``compile`` takes the mixed-precision policy (``compute_dtype``,
-``param_dtype``; core/precision.py) and ``comp_mode``. Each train step
-runs as one program of the executor's registry: captured as a CUDA
-graph on the card and replayed (core/programs.py).
+``param_dtype``; core/precision.py), ``comp_mode`` and ``remat``. Each
+dispatch runs as one program of the executor's registry: captured as a
+CUDA graph on the card and replayed (core/programs.py). The random
+stream is the JAX package's (core/prng.py): ``_rng`` is
+``PRNGKey(seed)`` split once per compile, and step n's key is
+``fold_in(_rng, n)`` over a host step mirror (``_host_step``) that a
+checkpoint restore resyncs.
 
 Out of the slice, and raising ``NotImplementedError`` when configured:
-a mesh or strategy, the strategy search, pipelines, remat, fusion,
-NHWC, telemetry, lazy sparse embedding updates, ``seq_length``
-truncation, and in ``fit``
-``steps_per_dispatch > 1``, ``grad_accum_steps > 1``, checkpointing and
-prefetch.
+a mesh or strategy, the strategy search, pipelines, fusion, NHWC,
+telemetry, lazy sparse embedding updates and the native loader.
 """
 
 from __future__ import annotations
 
+import os
 import time
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+import warnings
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from .config import CompMode, FFConfig, resolve_device
+from .core import prng
 from .core.executor import Executor, TrainState
 from .core.optimizers import Optimizer, SGDOptimizer
 from .op import Op
-from .ops import (LSTM, ElementBinary, Embedding, LayerNorm, Linear,
-                  MultiHeadAttention, Reshape, Softmax, Split)
+from .ops import (LSTM, BatchMatmul, Dropout, ElementBinary, Embedding,
+                  LayerNorm, Linear, MultiHeadAttention, Reshape, Softmax,
+                  Split)
 from .tensor import Tensor
+from .utils import faults as _faults
 
 
-def _check_single_dispatch(steps_per_dispatch) -> None:
-    """The port dispatches one step at a time ("auto" resolves to 1, as
-    the JAX package resolves it off a TPU)."""
-    if steps_per_dispatch != "auto" and int(steps_per_dispatch) != 1:
-        raise NotImplementedError(
-            "steps_per_dispatch > 1 (scanned multi-step dispatch) is not "
-            "ported yet")
+def _resolve_steps_per_dispatch(spd) -> int:
+    """"auto" -> 1: the JAX package groups 8 steps a dispatch only on a
+    TPU backend, and 1 elsewhere. The one rule for fit() and
+    evaluate()."""
+    return 1 if spd == "auto" else int(spd)
 
 
 class FFModel:
@@ -59,6 +66,8 @@ class FFModel:
         self.executor: Optional[Executor] = None
         self.state: Optional[TrainState] = None
         self.optimizer: Optional[Optimizer] = None
+        self._rng = prng.prng_key(self.config.seed)
+        self._host_step = 0
 
     # ---------------- tensors ----------------
     def create_tensor(self, shape: Sequence[int], dtype=torch.float32,
@@ -126,6 +135,19 @@ class FFModel:
             use_flash)
         return self.add_op(op).output
 
+    def batch_matmul(self, a: Tensor, b: Tensor,
+                     a_seq_length_dim: int = -1, b_seq_length_dim: int = -1,
+                     name: Optional[str] = None) -> Tensor:
+        op = BatchMatmul(self, name or self._fresh_name("batch_matmul"),
+                         [a, b], a_seq_length_dim, b_seq_length_dim)
+        return self.add_op(op).output
+
+    def dropout(self, input: Tensor, rate: float, seed: int = 0,
+                name: Optional[str] = None) -> Tensor:
+        op = Dropout(self, name or self._fresh_name("dropout"), [input],
+                     rate, seed)
+        return self.add_op(op).output
+
     def _binary(self, mode, a, b, name=None) -> Tensor:
         op = ElementBinary(self, name or self._fresh_name(mode), [a, b],
                            mode)
@@ -183,7 +205,6 @@ class FFModel:
         off = {
             "search_budget > 0 (strategy search)": cfg.search_budget > 0,
             "pipeline_stages > 1": cfg.pipeline_stages > 1,
-            "remat": cfg.remat,
             "perform_fusion": cfg.perform_fusion,
             "conv_layout='NHWC'": cfg.conv_layout == "NHWC",
             "telemetry": cfg.telemetry,
@@ -216,7 +237,25 @@ class FFModel:
         self.executor = Executor(self, optimizer, loss_type, metrics,
                                  comp_mode=comp_mode, capture=capture)
         self.comp_mode = comp_mode
+        # the JAX compile splits the model key once (init_state's key):
+        # the port's initializers use numpy streams, but the split keeps
+        # _rng, and so every dropout mask, on JAX's chain
+        self._next_rng()
         self.state = self.executor.init_state()
+        self._host_step = 0  # mirrors state.step for the train key
+
+    # ---------------- keys ----------------
+    def _next_rng(self) -> np.ndarray:
+        self._rng, sub = prng.split(self._rng)
+        return sub
+
+    def _train_rng(self) -> np.ndarray:
+        """The next step's key, ``fold_in(_rng, _host_step)``: keyed on a
+        host step mirror rather than a split chain, so a resumed run
+        reproduces the uninterrupted run's stream."""
+        sub = prng.fold_in(self._rng, self._host_step)
+        self._host_step += 1
+        return sub
 
     # ---------------- steps ----------------
     def forward(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
@@ -235,19 +274,80 @@ class FFModel:
         """One optimizer step; returns the metrics as scalar tensors on
         the model's device (reading one synchronizes)."""
         self.state, metrics = self.executor.train_step(
-            self.state, self.executor.shard_batch(batch))
+            self.state, self.executor.shard_batch(batch),
+            self._train_rng())
         return metrics
 
+    def train_batches(self, batches) -> Dict[str, torch.Tensor]:
+        """len(batches) optimizer steps in ONE dispatch (one captured
+        graph, the JAX scanned multi-step), with the key stream of as
+        many ``train_batch`` calls. Returns the metrics with a leading
+        (K,) step axis. ``batches`` may be a group pre-staged by
+        :meth:`stage_batches`, reused without re-staging."""
+        if isinstance(batches, dict):     # pre-staged by stage_batches
+            stacked = batches
+            k = int(next(iter(stacked.values())).shape[0])
+        else:
+            k = len(batches)
+            if k == 0:
+                return {}
+            stacked = self.executor.shard_batch_stacked(list(batches))
+        keys = [prng.fold_in(self._rng, self._host_step + i)
+                for i in range(k)]
+        self._host_step += k
+        self.state, metrics = self.executor.train_step_multi(
+            self.state, stacked, keys)
+        return metrics
+
+    def train_batch_accum(self, microbatches) -> Dict[str, torch.Tensor]:
+        """ONE optimizer step over K microbatches (gradient
+        accumulation): f32 gradients summed over the microbatches, one
+        update with their mean — the K-times batch without K times the
+        activation memory. The microbatch keys are ``fold_in(base, i)``
+        of this step's key ``base``; ``_host_step`` advances by one.
+        Returns one metrics dict (loss = mean; sums folded)."""
+        k = len(microbatches)
+        if k == 0:
+            return {}
+        stacked = self.executor.shard_batch_stacked(list(microbatches))
+        base = prng.fold_in(self._rng, self._host_step)
+        keys = [prng.fold_in(base, i) for i in range(k)]
+        self._host_step += 1
+        self.state, metrics = self.executor.train_step_accum(
+            self.state, stacked, keys)
+        return metrics
+
+    def stage_batches(self, batches) -> Dict[str, torch.Tensor]:
+        """K batches as one stacked device-resident group for repeated
+        :meth:`train_batches` calls: one transfer in all."""
+        return self.executor.shard_batch_stacked(list(batches))
+
     @staticmethod
-    def _fold(step_metrics: List[Dict[str, torch.Tensor]]
-              ) -> Tuple[Dict[str, float], int]:
-        """Sum each metric over the steps on the host — one transfer per
-        metric, like the JAX loop's window drain."""
+    def _fold(entries) -> tuple:
+        """Fold (metrics, loss weight) entries on the host, one
+        transfer per metric: weight w scales an entry's (mean) loss by
+        the microbatches it stands for; None marks (K,) per-step
+        values. Returns (sums, loss terms)."""
         agg: Dict[str, float] = {}
-        for k in (step_metrics[0] if step_metrics else {}):
-            vals = torch.stack([m[k].float() for m in step_metrics])
-            agg[k] = float(sum(vals.cpu().tolist()))
-        return agg, len(step_metrics)
+        loss_terms = 0
+        if not entries:
+            return agg, loss_terms
+        for k in entries[0][0]:
+            flat = torch.cat([m[k].float().reshape(-1)
+                              for m, _ in entries]).cpu().tolist()
+            pos = 0
+            for m, w in entries:
+                n = m[k].numel()
+                vals = flat[pos:pos + n]
+                pos += n
+                if k == "loss" and w is not None:
+                    agg[k] = agg.get(k, 0.0) + vals[0] * w
+                    loss_terms += w
+                else:
+                    agg[k] = agg.get(k, 0.0) + float(np.sum(vals))
+                    if k == "loss":
+                        loss_terms += n
+        return agg, loss_terms
 
     def fit(self, x: Dict[str, np.ndarray], y: np.ndarray,
             batch_size: Optional[int] = None, epochs: Optional[int] = None,
@@ -255,73 +355,216 @@ class FFModel:
             checkpoint_dir: Optional[str] = None,
             checkpoint_every: int = 1, steps_per_dispatch="auto",
             prefetch: bool = False, grad_accum_steps: int = 1):
-        """Keras-style fit over host numpy arrays, one step per batch
-        (the JAX package's plain single-step path). The shuffle is
-        ``np.random.RandomState(config.seed).permutation(n)`` per epoch,
-        drawn from one stream that persists across fit() calls, so the
-        data order equals the JAX package's. Returns one dict per epoch:
-        epoch, loss, throughput (samples/s) and, with the accuracy
-        metric, accuracy."""
-        if checkpoint_dir:
-            raise NotImplementedError("checkpointing is not ported yet")
-        if prefetch:
-            raise NotImplementedError("prefetch is not ported yet")
-        if grad_accum_steps > 1:
-            raise NotImplementedError(
-                "grad_accum_steps > 1 is not ported yet")
-        _check_single_dispatch(steps_per_dispatch)
+        """Keras-style fit over host numpy arrays, the JAX loop's
+        semantics. The shuffle is ``np.random.RandomState(config.seed)
+        .permutation(n)`` per epoch, drawn from one stream that persists
+        across fit() calls. ``steps_per_dispatch=K`` runs groups of K
+        steps as one dispatch (``train_batches``), the tail as single
+        steps; ``grad_accum_steps=K`` makes each group of K microbatches
+        one optimizer step (``train_batch_accum``), the tail one smaller
+        group; the two together are refused. ``prefetch`` stages batches
+        on the loader's worker (core/dataloader.py) in fit's own order.
+        ``checkpoint_dir`` saves the state asynchronously every
+        ``checkpoint_every`` epochs into ``epoch_N`` and resumes a re-run
+        from the newest committed epoch, bit for bit. Each dispatch
+        fires the fault site ``train.dispatch`` first. Returns one dict
+        per epoch: epoch, loss, throughput (samples/s) and, with the
+        accuracy metric, accuracy."""
+        steps_per_dispatch = _resolve_steps_per_dispatch(steps_per_dispatch)
+        if grad_accum_steps > 1 and steps_per_dispatch > 1:
+            raise ValueError(
+                "grad_accum_steps and steps_per_dispatch are both dispatch "
+                "groupings; use one or the other")
         bs = batch_size or self.config.batch_size
         ep = epochs or self.config.epochs
         names = list(x.keys())
         n = len(y)
         steps = n // bs
+        # persistent across fit() calls; _fit_epochs_drawn counts the
+        # permutations consumed so a resume replays the missing prefix
         if not hasattr(self, "_fit_rng"):
             self._fit_rng = np.random.RandomState(self.config.seed)
+            self._fit_epochs_drawn = 0
+        rng = self._fit_rng
+
+        def draw_perm():
+            self._fit_epochs_drawn += 1
+            return rng.permutation(n)
+
+        inj = _faults.injector_for(self.config)
+
+        def dispatch(fn, arg):
+            inj.fire("train.dispatch")   # before the step touches state
+            return fn(arg)
+
         history = []
-        for epoch in range(ep):
-            idx = self._fit_rng.permutation(n) if shuffle else np.arange(n)
-            t0 = time.time()
-            step_metrics = []
-            for s in range(steps):
-                sel = idx[s * bs:(s + 1) * bs]
-                batch = {k: x[k][sel] for k in names}
-                batch["label"] = y[sel]
-                step_metrics.append(self.train_batch(batch))
-            agg, loss_terms = self._fold(step_metrics)
-            dt = time.time() - t0
-            out = {"epoch": epoch,
-                   "loss": agg.get("loss", 0.0) / max(1, loss_terms),
-                   "throughput": steps * bs / dt}
-            if "correct" in agg:
-                out["accuracy"] = agg["correct"] / agg["count"]
-            history.append(out)
-            if verbose:
-                acc = (f" accuracy={out['accuracy']:.4f}"
-                       if "accuracy" in out else "")
-                print(f"epoch {epoch}: loss={out['loss']:.4f}{acc} "
-                      f"({out['throughput']:.1f} samples/s)")
+        start_epoch = 0
+        fit_loader = None
+        ckptr = None
+        if checkpoint_dir:
+            from .core.checkpoint import save_checkpoint
+            start_epoch = self._resume(checkpoint_dir)
+            if start_epoch:
+                if shuffle:
+                    while self._fit_epochs_drawn < start_epoch:
+                        draw_perm()
+                if verbose:
+                    print(f"resuming from {checkpoint_dir} at epoch "
+                          f"{start_epoch}")
+        try:
+            for epoch in range(start_epoch, ep):
+                idx = draw_perm() if shuffle else np.arange(n)
+                t0 = time.time()
+                if prefetch:
+                    if fit_loader is None:
+                        from .core.dataloader import DataLoaderSet
+                        fit_loader = DataLoaderSet(
+                            {**{k: x[k] for k in names}, "label": y}, bs,
+                            shuffle=False, device=self.device,
+                            dtypes=self.executor.declared_input_dtypes)
+                    it = fit_loader.iter_with_order(idx)
+
+                    def mk_batch(s):
+                        return next(it)
+                else:
+                    def mk_batch(s):
+                        sel = idx[s * bs:(s + 1) * bs]
+                        batch = {k: x[k][sel] for k in names}
+                        batch["label"] = y[sel]
+                        return batch
+
+                # entries: (metrics, loss weight); weight = microbatches
+                # an entry's (mean) loss stands for, None = (K,) losses
+                entries = []
+                gas = max(1, grad_accum_steps)
+                group = gas if gas > 1 else max(1, steps_per_dispatch)
+                full = steps - steps % group if group > 1 else 0
+                for s0 in range(0, full, group):
+                    mbs = [mk_batch(s) for s in range(s0, s0 + group)]
+                    if gas > 1:
+                        entries.append((dispatch(self.train_batch_accum,
+                                                 mbs), len(mbs)))
+                    else:
+                        entries.append((dispatch(self.train_batches, mbs),
+                                        None))
+                tail = list(range(full, steps))
+                if tail and gas > 1:
+                    mbs = [mk_batch(s) for s in tail]
+                    entries.append((dispatch(self.train_batch_accum, mbs),
+                                    len(mbs)))
+                else:
+                    for s in tail:
+                        entries.append((dispatch(self.train_batch,
+                                                 mk_batch(s)), 1))
+                agg, loss_terms = self._fold(entries)
+                dt = time.time() - t0
+                out = {"epoch": epoch,
+                       "loss": agg.get("loss", 0.0) / max(1, loss_terms),
+                       "throughput": steps * bs / dt}
+                if "correct" in agg:
+                    out["accuracy"] = agg["correct"] / agg["count"]
+                history.append(out)
+                if verbose:
+                    acc = (f" accuracy={out['accuracy']:.4f}"
+                           if "accuracy" in out else "")
+                    print(f"epoch {epoch}: loss={out['loss']:.4f}{acc} "
+                          f"({out['throughput']:.1f} samples/s)")
+                if checkpoint_dir \
+                        and (epoch + 1) % max(1, checkpoint_every) == 0:
+                    ckptr = save_checkpoint(
+                        os.path.join(checkpoint_dir, f"epoch_{epoch}"),
+                        self.state, use_async=True, checkpointer=ckptr)
+        finally:
+            if ckptr is not None:   # commit in-flight saves on any exit
+                ckptr.close()
         return history
+
+    def _resume(self, checkpoint_dir: str) -> int:
+        """Restore the newest committed ``epoch_N`` of checkpoint_dir
+        and return N + 1 (0 when none): ``.old`` directories of a
+        promote killed mid-rename are recovered first, uncommitted
+        ``.tmp`` ones never match, and a damaged epoch falls back to
+        the one before it with a warning."""
+        if not os.path.isdir(checkpoint_dir):
+            return 0
+        from .core.checkpoint import recover_promoted, restore_model
+        for d in os.listdir(checkpoint_dir):
+            if d.startswith("epoch_") and d.endswith(".old"):
+                recover_promoted(
+                    os.path.join(checkpoint_dir, d[:-len(".old")]))
+        done = sorted(int(d[len("epoch_"):])
+                      for d in os.listdir(checkpoint_dir)
+                      if d.startswith("epoch_")
+                      and d[len("epoch_"):].isdigit())
+        while done:
+            try:
+                restore_model(self, os.path.join(checkpoint_dir,
+                                                 f"epoch_{done[-1]}"))
+                return done[-1] + 1
+            except Exception as e:
+                warnings.warn(
+                    f"checkpoint epoch_{done[-1]} unreadable "
+                    f"({type(e).__name__}: {e}); falling back to the "
+                    f"previous epoch")
+                done.pop()
+        return 0
 
     def evaluate(self, x: Dict[str, np.ndarray], y: np.ndarray,
                  batch_size: Optional[int] = None,
                  steps_per_dispatch="auto"):
-        _check_single_dispatch(steps_per_dispatch)
+        """Mean loss (and accuracy) over the batches in order; groups of
+        ``steps_per_dispatch`` batches run as one ``eval_step_multi``
+        program, the tail as single eager steps."""
         bs = batch_size or self.config.batch_size
         names = list(x.keys())
         steps = max(1, len(y) // bs)
-        step_metrics = []
-        for s in range(steps):
+        spd = max(1, _resolve_steps_per_dispatch(steps_per_dispatch))
+
+        def mk_batch(s):
             sel = slice(s * bs, (s + 1) * bs)
             batch = {k: x[k][sel] for k in names}
             batch["label"] = y[sel]
+            return batch
+
+        entries = []
+        if spd > 1:
+            for s0 in range(0, steps - steps % spd, spd):
+                stacked = self.executor.shard_batch_stacked(
+                    [mk_batch(s) for s in range(s0, s0 + spd)])
+                entries.append((self.executor.eval_step_multi(
+                    self.state, stacked), None))
+        for s in range(steps - steps % spd if spd > 1 else 0, steps):
             _, m = self.executor.eval_step(
-                self.state, self.executor.shard_batch(batch))
-            step_metrics.append(m)
-        agg, _ = self._fold(step_metrics)
+                self.state, self.executor.shard_batch(mk_batch(s)))
+            entries.append((m, None))
+        agg, _ = self._fold(entries)
         out = {"loss": agg.get("loss", 0.0) / steps}
         if "correct" in agg:
             out["accuracy"] = agg["correct"] / agg["count"]
         return out
+
+    def create_data_loader(self, tensor_or_name, data):
+        """One loader per (tensor, full numpy dataset), on the model's
+        device."""
+        from .core.dataloader import SingleDataLoader
+        name = (tensor_or_name if isinstance(tensor_or_name, str)
+                else tensor_or_name.name)
+        return SingleDataLoader(name, data, self.config.batch_size,
+                                device=self.device)
+
+    # ---------------- learning rate ----------------
+    def set_learning_rate(self, lr: float) -> None:
+        """Runtime LR control: rescales the staged lr input of every
+        train program, so a schedule never captures anew."""
+        base = float(getattr(self.optimizer, "lr", 0.0) or 0.0)
+        if base == 0.0:
+            raise ValueError(
+                "optimizer has no nonzero base lr to schedule against")
+        self.executor._lr_scale = float(lr) / base
+
+    def get_learning_rate(self) -> float:
+        base = float(getattr(self.optimizer, "lr", 0.0) or 0.0)
+        return base * float(getattr(self.executor, "_lr_scale", 1.0))
 
     # ---------------- weight access ----------------
     def get_weights(self, op_name: str) -> Dict[str, np.ndarray]:

@@ -36,16 +36,17 @@ class WeightSpec:
 
 class OpContext:
     """Per-invocation context handed to ``Op.forward``: training or
-    not, an explicit ``torch.Generator`` for randomness, the
-    ``seq_length`` truncation, and non-trainable state in and out."""
+    not, the op's random stream (``rng``, a ``core.prng.OpRng`` of the
+    step key and the op's fold-in value, or None outside a train step),
+    the ``seq_length`` truncation, and non-trainable state in and out."""
 
-    __slots__ = ("training", "generator", "seq_length", "state_in",
+    __slots__ = ("training", "rng", "seq_length", "state_in",
                  "state_out")
 
-    def __init__(self, training: bool, generator=None, seq_length: int = -1,
+    def __init__(self, training: bool, rng=None, seq_length: int = -1,
                  state_in: Optional[dict] = None):
         self.training = training
-        self.generator = generator
+        self.rng = rng
         self.seq_length = seq_length
         self.state_in = state_in or {}
         self.state_out: dict = {}

@@ -3,11 +3,12 @@
 ``flexflow_tpu/ops``."""
 
 from .attention import MultiHeadAttention
-from .elementwise import ElementBinary, LayerNorm, Softmax
+from .elementwise import Dropout, ElementBinary, LayerNorm, Softmax
 from .embedding import Embedding
 from .linear import Linear
 from .rnn import LSTM
-from .tensor_ops import Reshape, Split
+from .tensor_ops import BatchMatmul, Reshape, Split
 
-__all__ = ["MultiHeadAttention", "ElementBinary", "LayerNorm", "Softmax",
-           "Embedding", "Linear", "LSTM", "Reshape", "Split"]
+__all__ = ["MultiHeadAttention", "BatchMatmul", "Dropout", "ElementBinary",
+           "LayerNorm", "Softmax", "Embedding", "Linear", "LSTM", "Reshape",
+           "Split"]

@@ -7,12 +7,22 @@ Hopper kernels on CUDA, their plain pieces on the CPU) unless the
 caller chose the einsum path with ``use_flash=False`` or head_dim is
 past the flash kernels' largest (256), where the JAX op takes its
 einsum path too.
+
+``add_bias_kv`` (a learned (1, H, D) key and value row appended to K
+and V, zeros at init), ``add_zero_attn`` (a zero row appended) and the
+``seq_length`` key mask all end on the einsum path in the JAX op — the
+first because ``sk = sq + 1`` is never a multiple of the Pallas key
+block, so its flash call raises and falls back — and the port decides
+the same before any launch: those take :func:`attention_ref`. Dropout
+applies to the op's output, after ``wo`` and ``bo``, with the JAX key
+chain (kernels/dropout.py).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels.dropout import dropout as apply_dropout
 from ..kernels.flash_attention import (MAX_HEAD_DIM, attention_ref,
                                        flash_attention_bshd)
 from ..op import Op, OpContext, WeightSpec
@@ -27,12 +37,6 @@ class MultiHeadAttention(Op):
                  add_zero_attn: bool = False, causal: bool = False,
                  kernel_initializer: str = "glorot", use_flash=None):
         super().__init__(model, name, inputs)
-        if dropout > 0.0:
-            raise NotImplementedError(
-                "attention dropout is not ported yet (dropout must be 0)")
-        if add_bias_kv or add_zero_attn:
-            raise NotImplementedError(
-                "add_bias_kv / add_zero_attn are not ported yet")
         q, k, v = inputs
         self.embed_dim = int(embed_dim)
         self.num_heads = int(num_heads)
@@ -44,6 +48,8 @@ class MultiHeadAttention(Op):
         self.head_dim = self.embed_dim // self.num_heads
         self.dropout = dropout
         self.use_bias = use_bias
+        self.add_bias_kv = add_bias_kv
+        self.add_zero_attn = add_zero_attn
         self.causal = causal
         self.use_flash = use_flash
         self.q_in = q.shape[-1]
@@ -80,6 +86,11 @@ class MultiHeadAttention(Op):
         }
         if self.use_bias:
             specs["bo"] = WeightSpec((e,), initializer="zeros")
+        if self.add_bias_kv:
+            # one learned extra key/value position (torch
+            # MultiheadAttention's bias_k/bias_v)
+            specs["bias_k"] = WeightSpec((1, h, d), initializer="zeros")
+            specs["bias_v"] = WeightSpec((1, h, d), initializer="zeros")
         return specs
 
     def forward(self, params, xs, ctx: OpContext):
@@ -102,24 +113,40 @@ class MultiHeadAttention(Op):
                                  params["wk"].to(k_in.dtype))
                 v = torch.einsum("bse,ehd->bshd", v_in,
                                  params["wv"].to(v_in.dtype))
+        if self.add_bias_kv:
+            b = k.shape[0]
+            k = torch.cat([k, params["bias_k"].to(k.dtype).expand(
+                b, *params["bias_k"].shape)], dim=1)
+            v = torch.cat([v, params["bias_v"].to(v.dtype).expand(
+                b, *params["bias_v"].shape)], dim=1)
         o = self._attend(q, k, v, ctx)
         y = torch.einsum("bshd,hde->bse", o, params["wo"].to(o.dtype))
         if self.use_bias:
             y = y + params["bo"].to(y.dtype)
+        if self.dropout > 0.0 and ctx.training and ctx.rng is not None:
+            y = apply_dropout(y, ctx.rng.key, ctx.rng.fold,
+                              1.0 - self.dropout)
         return [y]
 
     def _attend(self, q, k, v, ctx: OpContext):
         """softmax(q.k^T / sqrt(d)).v, (b, s, h, d) layout. The flash
-        entry point whenever use_flash is not False and head_dim is at
-        most MAX_HEAD_DIM — on CUDA that is always the hand-written
+        entry point whenever use_flash is not False, head_dim is at most
+        MAX_HEAD_DIM and none of add_bias_kv, add_zero_attn or a
+        seq_length mask is on — on CUDA that is always the hand-written
         kernel (the JAX op's TPU-tuned ``flash_profitable`` gate is not
         copied), and a kernel error raises: there is no silent fallback
-        to the einsum path. A wider head_dim takes the einsum path, as
-        the JAX op does when its flash kernel refuses d > 256: a rule on
-        the shape, decided before any launch."""
-        if ctx.seq_length is not None and ctx.seq_length >= 0:
-            raise NotImplementedError(
-                "seq_length truncation is not ported yet")
-        if self.use_flash is False or q.shape[-1] > MAX_HEAD_DIM:
-            return attention_ref(q, k, v, causal=self.causal)
+        to the einsum path. The other cases take the einsum path, as the
+        JAX op does: a rule on the shape and the knobs, decided before
+        any launch."""
+        seq_length = ctx.seq_length if ctx.seq_length is not None else -1
+        if self.add_zero_attn:
+            zero = torch.zeros((k.shape[0], 1) + tuple(k.shape[2:]),
+                               dtype=k.dtype, device=k.device)
+            k = torch.cat([k, zero], dim=1)
+            v = torch.cat([v, zero], dim=1)
+        if (self.use_flash is False or q.shape[-1] > MAX_HEAD_DIM
+                or self.add_bias_kv or self.add_zero_attn
+                or seq_length >= 0):
+            return attention_ref(q, k, v, causal=self.causal,
+                                 seq_length=seq_length)
         return flash_attention_bshd(q, k, v, causal=self.causal)

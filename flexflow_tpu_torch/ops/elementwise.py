@@ -1,10 +1,11 @@
-"""Elementwise binary ops, softmax and layer norm; counterpart of
-``flexflow_tpu/ops/elementwise.py``."""
+"""Elementwise binary ops, dropout, softmax and layer norm; counterpart
+of ``flexflow_tpu/ops/elementwise.py``."""
 
 from __future__ import annotations
 
 import torch
 
+from ..kernels.dropout import dropout
 from ..op import Op, OpContext, WeightSpec
 
 _BINARY = {
@@ -34,6 +35,31 @@ class ElementBinary(Op):
     def forward(self, params, xs, ctx: OpContext):
         a, b = xs
         return [_BINARY[self.mode](a, b)]
+
+
+class Dropout(Op):
+    """``jnp.where(bernoulli(op key, keep, shape), x / keep, 0)`` with
+    JAX's key chain (core/prng.py), through the dropout kernel
+    (kernels/dropout.py) on the card. Eval mode and ``rate <= 0`` pass x
+    through. ``seed`` is kept as an attribute only, as in the JAX op:
+    the stream comes from the model's key."""
+
+    op_type = "dropout"
+
+    def __init__(self, model, name, inputs, rate: float, seed: int = 0):
+        super().__init__(model, name, inputs)
+        self.rate = float(rate)
+        self.seed = seed
+        self.attrs = {"rate": rate, "seed": seed}
+
+    def output_shapes(self):
+        return [tuple(self.inputs[0].shape)]
+
+    def forward(self, params, xs, ctx: OpContext):
+        (x,) = xs
+        if not ctx.training or self.rate <= 0.0:
+            return [x]
+        return [dropout(x, ctx.rng.key, ctx.rng.fold, 1.0 - self.rate)]
 
 
 class Softmax(Op):

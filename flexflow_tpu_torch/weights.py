@@ -96,7 +96,9 @@ def load_jax_params(ff, params: Mapping[str, Mapping[str, object]]) -> None:
     ``{op.name: jax_ff.get_weights(op.name)}`` over a JAX FFModel's ops —
     into a compiled port ``FFModel`` through ``set_weights`` (in place:
     the tensors, and any graph captured over them, stay). The ops,
-    weight names and shapes must match the port model's exactly."""
+    weight names and shapes must match the port model's exactly — an
+    attention op with ``add_bias_kv`` carries its ``bias_k`` and
+    ``bias_v`` rows like any other weight."""
     have = ff.state.params
     if set(params) != set(have):
         raise ValueError(f"ops differ: {sorted(set(params) ^ set(have))}")

@@ -1291,3 +1291,217 @@ def test_split_counts_hold_across_eager_calls_and_replays(card):
     assert reg.compile_counts() == {"decode": 1}
     assert reg.replay_counts() == {"decode": 2}
     assert all(int(c.abs().sum()) == 0 for c in fa._split_counts.values())
+
+
+# ------------------------------------------------ dropout and the loop
+def _drop_inputs(card, shape, dtype, seed=0):
+    from flexflow_tpu_torch.core import prng
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape, np.float32)).to(card)
+    key = prng.fold_in(prng.prng_key(seed), 11)
+    return (x.to(dtype),
+            torch.from_numpy(prng.key_words(key)).to(card))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(5,), (3, 1001, 77), (2**16 - 1,),
+                                   (2**16 + 1,), (2**24 + 3,)])
+@pytest.mark.parametrize("keep", [0.9, 0.5])
+def test_dropout_kernel_matches_plain_version(card, dtype, shape, keep):
+    """The kernel against its plain version bit for bit, forward and
+    backward (the same function of the gradient), at sizes around 2^16
+    and past 2^24, in f32 and bf16."""
+    from flexflow_tpu_torch.kernels import dropout as kd
+    x, key = _drop_inputs(card, shape, dtype)
+    before = dict(kd.launches)
+    y = kd.dropout_cuda(x, key, 12345, keep)
+    torch.cuda.synchronize()
+    assert kd.launches["dropout_fwd"] == before["dropout_fwd"] + 1
+    assert torch.equal(y, kd.dropout_ref(x, key, 12345, keep))
+    on = float((y != 0).float().mean())
+    assert abs(on - keep) < (0.25 if x.numel() < 100 else 0.01)
+    xg = x.clone().requires_grad_()
+    g = torch.randn_like(x)
+    (dx,) = torch.autograd.grad(kd.dropout(xg, key, 12345, keep), xg, g)
+    assert torch.equal(dx, kd.dropout_ref(g, key, 12345, keep))
+    assert kd.launches["dropout_bwd"] == before["dropout_bwd"] + 1
+
+
+def test_dropout_kernel_refuses_what_it_does_not_take(card):
+    from flexflow_tpu_torch.kernels import dropout as kd
+    x, key = _drop_inputs(card, (8,), torch.float32)
+    for bad in (x.double(), x.cpu()):
+        with pytest.raises(ValueError):
+            kd.dropout_cuda(bad, key, 0, 0.9)
+    with pytest.raises(ValueError):
+        kd.dropout_cuda(x, key.long(), 0, 0.9)
+    with pytest.raises(ValueError):
+        kd.dropout_cuda(x, key, 0, 0.0)
+
+
+def test_captured_dropout_reads_each_steps_key(card):
+    """A captured graph reads the key from its static input: a replay
+    with a new key draws the new key's mask."""
+    from flexflow_tpu_torch.core.programs import ProgramRegistry
+    from flexflow_tpu_torch.kernels import dropout as kd
+    reg = ProgramRegistry({}, card)
+    x, _ = _drop_inputs(card, (4, 300), torch.float32)
+    for seed in range(3):
+        _, key = _drop_inputs(card, (1,), torch.float32, seed=seed)
+        out = reg.call("drop", lambda a, k: kd.dropout(a, k, 7, 0.8), x,
+                       key).clone()
+        assert torch.equal(out, kd.dropout_ref(x, key, 7, 0.8)), seed
+    assert reg.compile_counts() == {"drop": 1}
+    assert reg.replay_counts() == {"drop": 2}
+
+
+def _dropout_lm(capture, remat=False, seed=1, batch=4, seq=64, vocab=89,
+                hidden=128, heads=4, layers=2, ff_dim=256, p=0.1):
+    """A small LM with attention dropout and a Dropout after each FFN,
+    built with the port's FFModel calls in build_transformer_lm's op
+    order and op names, under the bf16 policy."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.core.losses import \
+        sparse_categorical_crossentropy
+    cfg = FFConfig(batch_size=batch, seed=seed, compute_dtype="bfloat16",
+                   remat=remat)
+    m = FFModel(cfg, device="cuda")
+    tokens = m.create_tensor((batch, seq), dtype=torch.int32, name="tokens")
+    positions = m.create_tensor((batch, seq), dtype=torch.int32,
+                                name="positions")
+    t = m.add(m.embedding(tokens, vocab, hidden, aggr="none",
+                          name="tok_embed", dtype=cfg.compute_dtype),
+              m.embedding(positions, seq, hidden, aggr="none",
+                          name="pos_embed", dtype=cfg.compute_dtype),
+              name="embed_add")
+    for i in range(layers):
+        a_in = m.layer_norm(t, name=f"layer{i}_ln1")
+        a = m.multihead_attention(a_in, a_in, a_in, hidden, heads,
+                                  dropout=p, causal=True,
+                                  name=f"layer{i}_attn")
+        t = m.add(a, t, name=f"layer{i}_res1")
+        f_in = m.layer_norm(t, name=f"layer{i}_ln2")
+        h = m.dense(f_in, ff_dim, activation="relu", name=f"layer{i}_ff1")
+        h = m.dropout(m.dense(h, hidden, name=f"layer{i}_ff2"), p,
+                      name=f"layer{i}_drop")
+        t = m.add(h, t, name=f"layer{i}_res2")
+    m.dense(m.layer_norm(t, name="final_ln"), vocab, name="lm_head")
+    m.compile(optimizer=SGDOptimizer(lr=0.01, momentum=0.9),
+              capture=capture, metrics=[],
+              loss_type=partial(sparse_categorical_crossentropy,
+                                from_logits=True))
+    return m
+
+
+def _same_state(a, b):
+    for op, p in a.state.params.items():
+        for k, w in p.items():
+            assert torch.equal(w, b.state.params[op][k]), f"{op}.{k}"
+
+
+def test_captured_multi_and_accum_equal_eager(card):
+    """train_batches (two groups of 3), train_batch_accum (a group of
+    4) and a learning-rate change, captured against eager: losses and
+    weights bit for bit, one capture a family, and no capture for the
+    new learning rate."""
+    from flexflow_tpu_torch.kernels import dropout as kd
+    batches = _lm_batches(6, seed=4)
+    runs = {}
+    for capture in (True, False):
+        m = _dropout_lm(capture)
+        kd.launches.update(dict.fromkeys(kd.launches, 0))
+        losses = m.train_batches(batches[:3])["loss"].tolist()
+        m.set_learning_rate(0.02)
+        losses += m.train_batches(batches[3:])["loss"].tolist()
+        losses.append(float(m.train_batch_accum(batches[:4])["loss"]))
+        assert m.compile_counts() == {"train_step": 0,
+                                      "train_step_multi": 1,
+                                      "train_step_accum": 1}
+        # 2 layers: an attention dropout and a Dropout op each, over
+        # 6 + 4 step bodies
+        assert kd.launches == {"dropout_fwd": 4 * 10,
+                               "dropout_bwd": 4 * 10}
+        runs[capture] = (losses, m)
+    assert runs[True][0] == runs[False][0]
+    _same_state(runs[True][1], runs[False][1])
+
+
+def test_fit_prefetch_and_remat_with_capture(card):
+    """fit(prefetch=True) with captured steps equals fit(prefetch=False)
+    bit for bit; remat (the flash forward launched twice a layer a step)
+    equals no remat bit for bit (the kernels are deterministic)."""
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, 89, (32, 64)).astype(np.int32)
+    x = {"tokens": toks,
+         "positions": np.tile(np.arange(64, dtype=np.int32), (32, 1))}
+    y = np.roll(toks, -1, 1)
+    runs = {}
+    for prefetch, remat in ((False, False), (True, False), (True, True)):
+        m = _dropout_lm(True, remat=remat)
+        before = fa.launches["flash_fwd"]
+        h = m.fit(x, y, batch_size=4, epochs=2, verbose=False,
+                  prefetch=prefetch)
+        torch.cuda.synchronize()
+        assert fa.launches["flash_fwd"] - before == \
+            (2 if remat else 1) * 2 * 16
+        assert m.compile_counts() == {"train_step": 1}
+        runs[prefetch, remat] = ([e["loss"] for e in h], m)
+    ref = runs[False, False]
+    for k in ((True, False), (True, True)):
+        assert runs[k][0] == ref[0], k
+        _same_state(runs[k][1], ref[1])
+
+
+def test_prefetch_staging_overlaps_first_capture(card, monkeypatch):
+    """The loader's worker stages a batch while the first step is being
+    captured: the capture waits, once it has begun, until the worker has
+    made a fresh device allocation (cudaMalloc: the capture emptied the
+    cache), a new pinned buffer and an event wait on its copy stream,
+    then staged. The capture and fit survive it, and the run equals
+    fit(prefetch=False) bit for bit."""
+    import threading
+    from flexflow_tpu_torch.core import dataloader as dl
+    capturing, staged = threading.Event(), threading.Event()
+    stage, begin = dl._PinnedStager.stage, torch.cuda.CUDAGraph.capture_begin
+
+    def slow_stage(self, sel):
+        if self.n >= 1 and not staged.is_set() \
+                and capturing.wait(timeout=60):
+            try:
+                torch.empty(256 << 20, dtype=torch.uint8,
+                            device=self.device)
+                torch.empty((1 << 20) + 17, dtype=torch.uint8,
+                            pin_memory=True)
+                ev = torch.cuda.Event()
+                ev.record(self.stream)
+                ev.synchronize()
+                return stage(self, sel)
+            finally:
+                staged.set()
+        return stage(self, sel)
+
+    def begin_and_wait(self, *a, **kw):
+        begin(self, *a, **kw)
+        if not capturing.is_set():
+            capturing.set()
+            assert staged.wait(timeout=60)
+
+    monkeypatch.setattr(dl._PinnedStager, "stage", slow_stage)
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin",
+                        begin_and_wait)
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, 89, (16, 64)).astype(np.int32)
+    x = {"tokens": toks,
+         "positions": np.tile(np.arange(64, dtype=np.int32), (16, 1))}
+    y = np.roll(toks, -1, 1)
+    runs = {}
+    for prefetch in (True, False):
+        m = _dropout_lm(True)
+        h = m.fit(x, y, batch_size=4, epochs=1, verbose=False,
+                  prefetch=prefetch)
+        torch.cuda.synchronize()
+        assert m.compile_counts() == {"train_step": 1}
+        runs[prefetch] = ([e["loss"] for e in h], m)
+    assert capturing.is_set() and staged.is_set()
+    assert runs[True][0] == runs[False][0]
+    _same_state(runs[True][1], runs[False][1])

@@ -1,7 +1,8 @@
 """Where a training step of the PyTorch/CUDA port spends its time.
 
     python3 tools/torch_train_profile.py [--model transformer|transformer_lm|nmt_lstm]
-        [--modes captured,eager] [--steps 10] [--out PATH]
+        [--modes captured,eager] [--steps 10] [--feed train_batch|fit|prefetch]
+        [--out PATH]
 
 Trains one of chip_smoke.py's bf16 models on the card: the flagship
 (``--model transformer``, the default: ``build_transformer`` at batch 32,
@@ -21,8 +22,13 @@ activities). Prints device time per step
 by kernel class — the hand-written kernels (flash attention or LSTM),
 matmuls, copies, the rest — with each class's share of the profiled wall
 time, and the device's idle share; for the NMT model also the idle
-time between the LSTM kernels' consecutive step launches. Needs one
-NVIDIA GPU.
+time between the LSTM kernels' consecutive step launches.
+``--feed`` chooses how a window's steps get their batches: one
+``train_batch`` call a host batch (the default), or one epoch of
+``fit`` over ``--steps`` batches without a shuffle — its batches copied
+from pageable numpy each step (``fit``) or staged by the prefetching
+loader through pinned buffers on a copy stream (``prefetch``). Needs
+one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -91,6 +98,14 @@ def build(cs, model, capture):
             cs.train_batches(4), cs.TB, cs.TB * cs.TS)
 
 
+def feed_arrays(batches, steps):
+    """fit's arrays for ``steps`` batches, cycling the given ones."""
+    keys = [k for k in batches[0] if k != "label"]
+    pick = [batches[i % len(batches)] for i in range(steps)]
+    x = {k: np.concatenate([b[k] for b in pick]) for k in keys}
+    return x, np.concatenate([b["label"] for b in pick])
+
+
 def profile(cs, args, capture):
     """One mode's numbers: plain windows, then a profiled one."""
     m, batches, batch, tokens = build(cs, args.model, capture)
@@ -106,6 +121,18 @@ def profile(cs, args, capture):
         wall = time.perf_counter() - t0
         return wall, [float(x["loss"]) for x in ms]
 
+    if args.feed != "train_batch":
+        x, y = feed_arrays(batches, args.steps)
+
+        def window():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hist = m.fit(x, y, batch_size=batch, epochs=1, verbose=False,
+                         shuffle=False, prefetch=args.feed == "prefetch")
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, [h["loss"] for h in hist]
+
+        window()                            # the fit path's own warm-up
     plain = [window()[0] for _ in range(3)]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -169,6 +196,8 @@ def main() -> int:
                     default="transformer")
     ap.add_argument("--modes", default="captured,eager")
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--feed", choices=("train_batch", "fit", "prefetch"),
+                    default="train_batch")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -183,11 +212,12 @@ def main() -> int:
         text=True).stdout.strip().splitlines()[0]
     print(card)
     res = {"card": card, "model": args.model, "steps": args.steps,
-           "modes": {}}
+           "feed": args.feed, "modes": {}}
     for mode in args.modes.split(","):
         res["modes"][mode] = profile(cs, args, mode == "captured")
         cell = res["modes"][mode]
-        print(f"[{card}] {args.model} {mode}, {args.steps} steps a window; "
+        print(f"[{card}] {args.model} {mode} ({args.feed}), {args.steps} "
+              f"steps a window; "
               f"plain step ms {[round(x, 3) for x in cell['plain_step_ms']]}"
               f", samples/s "
               f"{[round(x, 1) for x in cell['plain_samples_per_s']]}; "
