@@ -13,9 +13,16 @@ neither it nor JAX. It serves and trains on one NVIDIA H100:
     ``train_batch`` / ``fit`` / ``evaluate``, under the JAX
     mixed-precision policy, with attention forward and backward in
     hand-written CUDA kernels (``kernels/csrc/flash_attention.cu``);
-  * training the NMT LSTM of ``build_nmt_lstm`` through the same
-    ``FFModel``, with the LSTM recurrence forward and backward in
-    hand-written CUDA kernels (``kernels/csrc/lstm_scan.cu``);
+  * training the NMT LSTM of ``build_nmt_lstm`` and the encoder-decoder
+    of ``build_nmt_seq2seq`` through the same ``FFModel``, with the LSTM
+    recurrence forward and backward in hand-written CUDA kernels
+    (``kernels/csrc/lstm_scan.cu``);
+  * training the conv and MLP models of the JAX package's sweep —
+    ``build_alexnet``, ``build_resnet``, ``build_inception_v3`` and
+    ``build_candle_uno`` — with Conv2D, Pool2D, BatchNorm (running
+    statistics as op state), Flat and the small ops, under
+    ``conv_layout`` NCHW or NHWC (channels_last) and sibling-conv
+    fusion;
   * the JAX package's single-device training loop: multi-step and
     accumulated dispatches, a prefetching loader (``core/dataloader.py``),
     crash-safe checkpoints (``core/checkpoint.py``), remat, the runtime
@@ -32,13 +39,16 @@ and replayed. Entry points run on the card unless the caller passes
 from .config import CompMode, FFConfig, resolve_device
 from .core.optimizers import AdamOptimizer, SGDOptimizer
 from .model import FFModel
-from .models.nmt_lstm import build_nmt_lstm
+from .models import (build_alexnet, build_candle_uno, build_inception_v3,
+                     build_nmt_lstm, build_nmt_seq2seq, build_resnet)
 from .models.transformer import (LMArch, TransformerLM, build_transformer,
                                  build_transformer_lm)
 from .serve import ServeEngine
 from .weights import from_jax_params, load_jax_params
 
 __all__ = ["CompMode", "FFConfig", "resolve_device", "FFModel", "SGDOptimizer",
-           "AdamOptimizer", "LMArch", "TransformerLM", "build_nmt_lstm",
+           "AdamOptimizer", "LMArch", "TransformerLM", "build_alexnet",
+           "build_candle_uno", "build_inception_v3", "build_nmt_lstm",
+           "build_nmt_seq2seq", "build_resnet",
            "build_transformer", "build_transformer_lm", "ServeEngine",
            "from_jax_params", "load_jax_params"]

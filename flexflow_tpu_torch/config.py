@@ -5,8 +5,9 @@ port's slices read, under the same names and defaults, so one set of
 knobs sizes both packages: the serving fields of the serving slice and
 the training fields of the training slice, and the mixed-precision
 policy of ``core/precision.py``, ``remat`` and
-``iter_config.seq_length``. A few knobs the port does not run yet
-(search, pipelines, fusion, NHWC, telemetry) are here at their JAX
+``iter_config.seq_length``, and the conv knobs ``conv_layout`` and
+``sibling_conv_fusion``. A few knobs the port does not run yet
+(search, pipelines, fusion, telemetry) are here at their JAX
 defaults so that setting one reaches ``FFModel.compile``, which raises
 ``NotImplementedError`` instead of ignoring it. The rest of the JAX
 config has no counterpart yet.
@@ -114,13 +115,18 @@ class FFConfig:
     # recompute each weighted op's activations in the backward
     # (torch.utils.checkpoint), as the JAX executor's jax.checkpoint
     remat: bool = False
+    # run sibling convs (one input, one geometry: Inception's 1x1
+    # branch heads) as one conv (core/fusion.py)
+    sibling_conv_fusion: bool = True
+    # "NHWC": conv, pool and batch-norm values stay in channels_last
+    # memory between those ops (core/executor.py); shapes stay NCHW
+    conv_layout: str = "NCHW"
     # knobs of the JAX package the port does not run yet, at their JAX
     # defaults; FFModel.compile raises NotImplementedError for any other
     # value
     search_budget: int = 0
     pipeline_stages: int = 0
     perform_fusion: bool = False
-    conv_layout: str = "NCHW"
     telemetry: bool = False
     iter_config: FFIterationConfig = dataclasses.field(
         default_factory=FFIterationConfig)
@@ -147,6 +153,10 @@ class FFConfig:
             raise ValueError(
                 f"kv_num_pages must be >= 2 (page 0 is the serving "
                 f"sink page), got {self.kv_num_pages}")
+        if self.conv_layout not in ("NCHW", "NHWC"):
+            raise ValueError(
+                f"conv_layout must be 'NCHW' or 'NHWC', got "
+                f"{self.conv_layout!r}")
         if self.kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"kv_dtype must be one of {KV_DTYPES}, "

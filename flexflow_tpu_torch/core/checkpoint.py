@@ -3,7 +3,9 @@
 
 The JAX package saves with orbax; the card's machine has none, so the
 port writes ``torch.save`` of host copies — ``{"params": {op: {name:
-tensor}}, "opt_state": {slot: {op: {name: tensor}}}, "step": int}`` —
+tensor}}, "states": {op: {name: tensor}}, "opt_state": {slot: {op:
+{name: tensor}}}, "step": int}``, the states being the ops'
+non-trainable state (BatchNorm's running statistics) —
 as ``state.pt`` inside a checkpoint directory. The crash discipline is
 the JAX module's: every save lands in ``<path>.tmp`` and is promoted
 onto ``<path>`` with whole-directory renames only once fully written
@@ -75,6 +77,7 @@ def _payload(state: TrainState) -> dict:
     """Host copies of the state (a device-to-host copy synchronizes, so
     the snapshot is complete when this returns)."""
     return {"params": _host_tree(state.params),
+            "states": _host_tree(state.states),
             "opt_state": _host_tree(state.opt_state),
             "step": int(state.step)}
 
@@ -194,12 +197,13 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     payload = torch.load(os.path.join(path, STATE_FILE),
                          map_location="cpu", weights_only=True)
     params = _like(payload["params"], state.params, "params")
+    states = _like(payload.get("states", {}), state.states, "states")
     opt = (_like(payload["opt_state"], state.opt_state, "opt_state")
            if state.opt_state else {})
     for op, p in params.items():
         for k, w in p.items():
             w.requires_grad_(state.params[op][k].requires_grad)
-    return TrainState(params, opt, int(payload["step"]))
+    return TrainState(params, opt, int(payload["step"]), states)
 
 
 def save_model(model, path: str, use_async: bool = False):
@@ -222,6 +226,7 @@ def restore_model(model, path: str) -> None:
     per-step key mirror (``_host_step``) from the restored step."""
     restored = restore_checkpoint(path, model.state)
     _copy_into(model.state.params, restored.params)
+    _copy_into(model.state.states, restored.states)
     if model.state.opt_state:
         _copy_into(model.state.opt_state, restored.opt_state)
     model.state.step = restored.step

@@ -1,11 +1,35 @@
 """Executor: runs the op graph as single-device train and eval steps.
 
 Counterpart of ``flexflow_tpu/core/executor.py`` without the mesh,
-strategy, fusion, NHWC residency or sparse tables. The parameter tree
-has the JAX package's layout and names, ``{op_name: {weight_name:
-tensor}}``; gradients come from ``torch.autograd.grad`` in place of
+strategy, fusion groups or sparse tables. The parameter tree has the
+JAX package's layout and names, ``{op_name: {weight_name: tensor}}``;
+gradients come from ``torch.autograd.grad`` in place of
 ``jax.value_and_grad``, and the optimizer updates the parameter tensors
 in place (core/optimizers.py).
+
+Op state (BatchNorm's running statistics, ``Op.state_specs``) lives in
+``TrainState.states``, ``{op_name: {state_name: tensor}}``. The walk
+hands each op its ``state_in`` and a training step writes the
+``state_out`` it collects back into those tensors in place — inside a
+captured step, into the tensors the graph is bound to — so a
+multi-step or accumulated program carries the state from step to step
+and from microbatch to microbatch in order, as JAX's scans carry it.
+Evaluation reads the running statistics and writes nothing.
+
+Sibling convs (core/fusion.py) run as one conv: the group's leader runs
+the merged conv at its walk position and parks the other members'
+slices, which each member takes at its own position.
+
+``conv_layout='NHWC'`` keeps conv, pool and batch-norm values in
+``torch.channels_last`` memory between those ops: the residency set of
+the JAX executor's ``_compute_nhwc_resident`` (conv, pool and batch
+norm emit resident values; channel concats and same-shape pointwise
+ops whose inputs are all resident pass residency on), and every other
+consumer gets a contiguous NCHW tensor. In JAX the pass decides where
+transposes between two array layouts go; a PyTorch tensor carries its
+layout in its strides under an unchanged NCHW shape, so here the same
+pass reduces to choosing each value's memory format, and a consumer
+outside the set only needs ``.contiguous()``.
 
 Randomness follows the JAX key chain (core/prng.py): each train step
 gets a step key, and each op draws from ``fold_in(step key,
@@ -42,10 +66,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..op import OpContext
+from ..ops.conv import merged_conv_forward
 from . import initializers as I
 from . import losses as L
 from . import metrics as M
 from . import precision as MP
+from .precision import reciprocal_f32
 from .dataloader import host_to_device
 from .optimizers import Optimizer
 from .programs import PinnedRing, ProgramRegistry
@@ -55,15 +81,17 @@ Tree = Dict[str, Dict[str, torch.Tensor]]
 
 
 class TrainState:
-    """Parameters, optimizer state and the step counter. ``step`` is a
-    host integer (the JAX package keeps a device int32): Adam's
-    ``alpha_t`` is computed on the host from it each step and written
-    to the device before the step runs."""
+    """Parameters, op state, optimizer state and the step counter.
+    ``step`` is a host integer (the JAX package keeps a device int32):
+    Adam's ``alpha_t`` is computed on the host from it each step and
+    written to the device before the step runs."""
 
-    def __init__(self, params: Tree, opt_state, step: int = 0):
+    def __init__(self, params: Tree, opt_state, step: int = 0,
+                 states: Tree = None):
         self.params = params
         self.opt_state = opt_state
         self.step = step
+        self.states = states if states is not None else {}
 
 
 def _stable_hash(s: str) -> int:
@@ -104,6 +132,44 @@ class Executor:
         # the runtime LR multiplier (FFModel.set_learning_rate), staged
         # into every train program with its step's scalar
         self._lr_scale = 1.0
+        # sibling-conv groups by leader name (config.sibling_conv_fusion)
+        self._conv_merge_leader = {}
+        if self.config.sibling_conv_fusion:
+            from .fusion import conv_sibling_groups
+            self._conv_merge_leader = {g[0].name: g for g in
+                                       conv_sibling_groups(model)}
+        self._nhwc_resident, self._nhwc_reads = (
+            self._compute_nhwc_resident()
+            if self.config.conv_layout == "NHWC" else (set(), set()))
+
+    def _compute_nhwc_resident(self):
+        """(uids of values kept channels-last, names of ops that read
+        their inputs so): the JAX executor's residency pass. Conv, pool
+        and batch norm on 4-d tensors emit resident values; a channel
+        concat and a same-shape pointwise op pass residency on when all
+        their inputs are resident; everything else reads NCHW."""
+        core = {"conv2d", "pool2d", "batch_norm"}
+        pointwise = {"element_unary", "element_binary", "dropout"}
+        resident: set = set()
+        reads: set = set()
+        for op in self.model.ops:
+            ins = op.inputs
+            all_res = bool(ins) and all(t.uid in resident for t in ins)
+            out4 = bool(op.outputs) and len(op.outputs[0].shape) == 4
+            if op.op_type in core and out4 and len(ins[0].shape) == 4:
+                if all_res:
+                    reads.add(op.name)
+                resident.update(t.uid for t in op.outputs)
+            elif (op.op_type == "concat" and out4 and all_res
+                    and op.axis == 1):
+                reads.add(op.name)
+                resident.update(t.uid for t in op.outputs)
+            elif (op.op_type in pointwise and out4 and all_res
+                    and all(tuple(t.shape) == tuple(op.outputs[0].shape)
+                            for t in ins)):
+                reads.add(op.name)
+                resident.update(t.uid for t in op.outputs)
+        return resident, reads
 
     def _fingerprint(self) -> dict:
         return {
@@ -112,6 +178,8 @@ class Executor:
             "loss": self.loss_name, "metrics": self.metric_names,
             "compute_dtype": str(self.compute_dtype),
             "param_dtype": str(self.param_dtype),
+            "conv_layout": self.config.conv_layout,
+            "sibling_conv_fusion": bool(self.config.sibling_conv_fusion),
             "device": str(self.device),
         }
 
@@ -119,11 +187,20 @@ class Executor:
     def init_state(self) -> TrainState:
         """Parameters from per-weight numpy streams seeded by
         (config.seed, op name, weight name) — the JAX executor folds the
-        same two hashes into its key — then the optimizer's slots (none
-        in inference mode). An f32-declared float weight is stored at
-        param_dtype; a spec's explicit other dtype wins over the knob."""
+        same two hashes into its key — then the op states at their
+        specs' initial values and the optimizer's slots (none in
+        inference mode). An f32-declared float weight is stored at
+        param_dtype; a spec's explicit other dtype wins over the knob;
+        states stay at their specs' dtype."""
         params: Tree = {}
+        states: Tree = {}
         for op in self.model.ops:
+            sspecs = op.state_specs()
+            if sspecs:
+                states[op.name] = {
+                    k: torch.full(s.shape, s.init_value, dtype=s.dtype,
+                                  device=self.device)
+                    for k, s in sspecs.items()}
             wspecs = op.weight_specs()
             if not wspecs:
                 continue
@@ -145,17 +222,21 @@ class Executor:
         opt_state = (self.optimizer.init_state(params)
                      if self.optimizer and self.comp_mode != "inference"
                      else {})
-        return TrainState(params, opt_state, 0)
+        return TrainState(params, opt_state, 0, states)
 
     # ---------------- forward ----------------
     def forward_values(self, params: Tree, inputs: Dict[str, torch.Tensor],
-                       training: bool, seq_length: int = -1, key=None):
+                       training: bool, seq_length: int = -1, key=None,
+                       states: Tree = None, new_states: Tree = None):
         """Topological walk of the graph; returns {tensor uid: value}.
         Under the policy, master params and float inputs are cast to
         compute_dtype HERE, inside whatever is being differentiated, so
         gradients leave the cast in the masters' dtype; labels are not
         inputs and never pass through the cast. ``key``: the step key,
-        a (2,) int32 tensor, or None (no stochastic op draws)."""
+        a (2,) int32 tensor, or None (no stochastic op draws).
+        ``states``: each op's ``state_in``; the ops' ``state_out`` land
+        in ``new_states`` when it is given."""
+        states = states or {}
         if self._mp_active:
             params = MP.cast_floats(params, self.compute_dtype)
         values: Dict[int, torch.Tensor] = {}
@@ -169,17 +250,48 @@ class Executor:
                 v = v.to(self.compute_dtype)
             values[t.uid] = v
         remat = self.config.remat and torch.is_grad_enabled()
+        # merged sibling convs' slices, claimed by each member in turn
+        merged_pending: Dict[str, torch.Tensor] = {}
         for op in self.model.ops:
             ctx = OpContext(
                 training=training, seq_length=seq_length,
                 rng=(OpRng(key, _stable_hash(op.name))
-                     if key is not None else None))
-            xs = [values[t.uid] for t in op.inputs]
+                     if key is not None else None),
+                state_in=states.get(op.name),
+                nhwc_in=op.name in self._nhwc_reads,
+                nhwc_out=bool(op.outputs) and op.outputs[0].uid
+                in self._nhwc_resident)
+            xs = []
+            for t in op.inputs:
+                v = values[t.uid]
+                if t.uid in self._nhwc_resident \
+                        and op.name not in self._nhwc_reads:
+                    v = v.contiguous()      # this consumer reads NCHW
+                xs.append(v)
             op_params = params.get(op.name, {})
-            if remat and op.weight_specs():
-                # recompute this op's activations in the backward
-                # (the port's ops carry no state or aux loss, the JAX
-                # executor's exclusions)
+            if op.name in merged_pending:
+                ys = [merged_pending.pop(op.name)]
+            elif op.name in self._conv_merge_leader:
+                group = self._conv_merge_leader[op.name]
+                plist = [params.get(m.name, {}) for m in group]
+                # the members share the leader's input and geometry, so
+                # its residency speaks for the group
+                if remat:
+                    outs = checkpoint(
+                        lambda ps, x, _g=group, _o=ctx.nhwc_out:
+                        merged_conv_forward(_g, ps, x, _o),
+                        plist, xs[0], use_reentrant=False,
+                        preserve_rng_state=False)
+                else:
+                    outs = merged_conv_forward(group, plist, xs[0],
+                                               ctx.nhwc_out)
+                for m, y in zip(group[1:], outs[1:]):
+                    merged_pending[m.name] = y
+                ys = [outs[0]]
+            elif remat and op.weight_specs() and not op.state_specs():
+                # recompute this op's activations in the backward; ops
+                # with state are left out, as the JAX executor leaves
+                # them (their state_out must not come from a recompute)
                 ys = checkpoint(
                     lambda p, x, _op=op, _ctx=ctx: _op.forward(p, x, _ctx),
                     op_params, xs, use_reentrant=False,
@@ -195,12 +307,24 @@ class Executor:
                       for y in ys]
             for t, y in zip(op.outputs, ys):
                 values[t.uid] = y
+            if ctx.state_out and new_states is not None:
+                new_states[op.name] = ctx.state_out
         return values
 
-    def _outputs_and_loss(self, params, batch, training, key=None):
+    def _outputs_and_loss(self, params, batch, training, key=None,
+                          states=None):
+        """(loss, logits) of one batch. In training the ops' new state
+        is written into ``states`` in place (detached: no gradient
+        reaches the running statistics)."""
+        new_states: Tree = {}
         values = self.forward_values(
             params, batch, training, self.config.iter_config.seq_length,
-            key)
+            key, states=states, new_states=new_states)
+        if training and states:
+            with torch.no_grad():
+                for op, s in new_states.items():
+                    for k, v in s.items():
+                        states[op][k].copy_(v)
         logits = values[self.model.final_tensor.uid]
         if self._mp_active and MP.is_float_tensor(logits):
             # losses and metrics score f32-upcast logits, the policy's
@@ -211,12 +335,14 @@ class Executor:
             loss = self.loss_fn(logits, batch["label"])
         return loss, logits
 
-    def _compute_grads(self, params: Tree, batch, key=None):
+    def _compute_grads(self, params: Tree, batch, key=None, states=None):
         """(loss, logits, grads) for one batch; grads mirror params.
         The masters are cast inside the walk (the policy) or inside
         each op (a builder's bf16 graph), so the gradients arrive back
-        through the casts in the masters' dtype."""
-        loss, logits = self._outputs_and_loss(params, batch, True, key)
+        through the casts in the masters' dtype. ``states`` is updated
+        in place."""
+        loss, logits = self._outputs_and_loss(params, batch, True, key,
+                                              states)
         names = [(op, k) for op, p in params.items() for k in p]
         leaves = [params[op][k] for op, k in names]
         gs = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -268,7 +394,8 @@ class Executor:
     def _step_body(self, state: TrainState, batch, key, scalar):
         """One optimizer step: gradients, metrics and the in-place
         update; shared by the single- and multi-step programs."""
-        loss, logits, grads = self._compute_grads(state.params, batch, key)
+        loss, logits, grads = self._compute_grads(state.params, batch, key,
+                                                  states=state.states)
         with torch.no_grad():
             metrics = self._metrics(loss, logits, batch)
         self.optimizer.update(state.params, grads, state.opt_state,
@@ -290,7 +417,8 @@ class Executor:
             k, sc = self._unstage(args[-1], nkeys)
             return body(dict(zip(_names, args[:-1])), k, sc)
 
-        bound = [w for tree in (state.params, state.opt_state)
+        bound = [w for tree in (state.params, state.states,
+                                state.opt_state)
                  for w in _leaves(tree)]
         out = self.programs.call(
             family, run, names,
@@ -336,9 +464,13 @@ class Executor:
         """ONE optimizer step over K microbatches (leading (K,) axis of
         ``stacked``, one key each): f32 gradients summed over the
         microbatches, the update applied once with their mean, metrics
-        folded like one K-times batch (sums; the loss their mean)."""
+        folded like one K-times batch (sums; the loss their mean). Op
+        state advances microbatch by microbatch, as JAX's scan carries
+        it. The mean multiplies by f32(1/K): the jitted reference's
+        division by the constant K."""
         self._require_training()
         k_micro = len(keys)
+        inv_k = reciprocal_f32(k_micro)
 
         def body(b, k, sc):
             gacc = {op: {n: torch.zeros_like(w, dtype=torch.float32)
@@ -348,20 +480,20 @@ class Executor:
             for i in range(k_micro):
                 mb = {n: v[i] for n, v in b.items()}
                 loss, logits, grads = self._compute_grads(
-                    state.params, mb, k[i])
+                    state.params, mb, k[i], states=state.states)
                 with torch.no_grad():
                     for op, p in gacc.items():
                         for n in p:
                             p[n] = p[n] + grads[op][n].float()
                     out.append(self._metrics(loss, logits, mb))
             with torch.no_grad():
-                gmean = {op: {n: g / k_micro for n, g in p.items()}
+                gmean = {op: {n: g * inv_k for n, g in p.items()}
                          for op, p in gacc.items()}
                 self.optimizer.update(state.params, gmean, state.opt_state,
                                       state.step, scalar=sc[0])
                 metrics = {n: torch.stack([m[n] for m in out]).sum(
                     dim=0).to(out[0][n].dtype) for n in out[0]}
-                metrics["loss"] = metrics["loss"] / k_micro
+                metrics["loss"] = metrics["loss"] * inv_k
             return metrics
 
         metrics = self._dispatch("train_step_accum", body, state, stacked,
@@ -383,8 +515,10 @@ class Executor:
     # ---------------- eval ----------------
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch):
-        """(logits, metrics) without a gradient."""
-        loss, logits = self._outputs_and_loss(state.params, batch, False)
+        """(logits, metrics) without a gradient, on the running
+        statistics of the op state."""
+        loss, logits = self._outputs_and_loss(state.params, batch, False,
+                                              states=state.states)
         return logits, self._metrics(loss, logits, batch)
 
     def eval_step_multi(self, state: TrainState, stacked):
@@ -398,15 +532,17 @@ class Executor:
             out = []
             for i in range(k_steps):
                 b = {n: a[i] for n, a in zip(_names, args)}
-                loss, logits = self._outputs_and_loss(state.params, b,
-                                                      False)
+                loss, logits = self._outputs_and_loss(
+                    state.params, b, False, states=state.states)
                 out.append(self._metrics(loss, logits, b))
             return {n: torch.stack([m[n] for m in out]) for n in out[0]}
 
         out = self.programs.call(
             "eval_step_multi", run, names,
             self.config.iter_config.seq_length,
-            *(stacked[k] for k in names), bound=list(_leaves(state.params)))
+            *(stacked[k] for k in names),
+            bound=[w for tree in (state.params, state.states)
+                   for w in _leaves(tree)])
         return {k: v.clone() for k, v in out.items()}
 
     # ---------------- data placement ----------------

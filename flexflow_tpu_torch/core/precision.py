@@ -45,6 +45,15 @@ def resolve_dtype(value, knob: str = "dtype") -> torch.dtype:
     return getattr(torch, name)
 
 
+def reciprocal_f32(c: float) -> float:
+    """``float32(1) / float32(c)`` as a Python float (exact in f32). The
+    JAX package runs under ``jax.jit``, where XLA computes ``a / c`` for
+    a constant ``c`` as ``a * f32(1 / c)``: the port multiplies by this
+    wherever the reference divides by a constant (dropout, the KV
+    quantizer's scale, the accumulated step's mean, average pooling)."""
+    return float(np.float32(1) / np.float32(c))
+
+
 def policy_active(config) -> bool:
     """True when the step must cast (compute_dtype != f32)."""
     return getattr(config, "compute_dtype", torch.float32) != torch.float32

@@ -38,6 +38,7 @@ the port's config has no program cache directory).
 
 from __future__ import annotations
 
+import gc
 import hashlib
 import json
 import time
@@ -168,6 +169,12 @@ class ProgramRegistry:
         with torch.cuda.stream(side):
             out = fn(*static_in)            # this call's own run
         graph = torch.cuda.CUDAGraph()
+        # no garbage collection inside the capture: one there can run the
+        # finalizers of an unreachable earlier model (its graphs and their
+        # private memory pools), whose CUDA calls invalidate the capture;
+        # torch.cuda.graph no longer collects on entry by default
+        gc_was_on = gc.isenabled()
+        gc.disable()
         recorded = _launches.start_recording()
         try:
             # thread_local: this thread's unsafe CUDA calls still fail the
@@ -183,6 +190,8 @@ class ProgramRegistry:
                 f"{e}") from e
         finally:
             _launches.stop_recording()
+            if gc_was_on:
+                gc.enable()
         cur.wait_stream(side)
         for t in _tensors(out):             # made on the side stream
             t.record_stream(cur)

@@ -14,14 +14,20 @@
 //   op key   = threefry2x32((k0, k1), (0, fold))       (jax fold_in)
 //   bits_i   = x0 ^ x1 of threefry2x32(op key, (count_hi, i))
 //   u_i      = bitcast((bits_i >> 9) | 0x3F800000) - 1.0f
-//   y_i      = u_i < keep ? round(float(x_i) / keep_c) : 0
-// keep is the keep probability in f32 (bernoulli's p); keep_c is keep
-// rounded to x's type, then widened (JAX's weak typing rounds the Python
-// float of `x / keep` to bf16 first). The division is IEEE f32 (nvcc's
-// default -prec-div=true), rounded to nearest even into x's type. The
-// backward of dropout is this same function of the incoming gradient
-// with the same key: JAX's VJP of where(mask, x / keep, 0) is
-// where(mask, g / keep_c, 0).
+//   y_i      = u_i < keep ? x_i * recip                  (float32)
+//                        : round(float(x_i) / keep_c)    (bfloat16)
+//              else 0
+// keep is the keep probability in f32 (bernoulli's p). The jitted
+// reference computes `x / keep` for an f32 x as x * f32(1 / keep): XLA
+// rewrites a division by a constant into a product with its reciprocal,
+// rounded to f32 once (recip = float32(1) / float32(keep), a launch
+// constant), and so does this kernel. For bf16, keep_c is keep rounded
+// to bf16, then widened (JAX's weak typing rounds the Python float of
+// `x / keep` to bf16 first); the division is IEEE f32 (nvcc's default
+// -prec-div=true), rounded to nearest even into bf16, which is what the
+// jitted reference computes there. The backward of dropout is this same
+// function of the incoming gradient with the same key: JAX's VJP of
+// where(mask, x / keep, 0) is where(mask, g / keep, 0).
 //
 // The key is read from device memory, not passed by value, so a captured
 // CUDA graph replays with each step's key (the executor writes it into
@@ -96,11 +102,22 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// a kept element: the product with the f32 reciprocal (float32), the
+// f32 quotient by keep_c rounded to bf16 (bfloat16)
+__device__ __forceinline__ float kept(float v, float keep_c, float recip) {
+  return __fmul_rn(v, recip);
+}
+__device__ __forceinline__ __nv_bfloat16 kept(__nv_bfloat16 v, float keep_c,
+                                              float recip) {
+  return __float2bfloat16_rn(__bfloat162float(v) / keep_c);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
                    const uint32_t* __restrict__ key, uint32_t fold,
-                   float keep, float keep_c, uint32_t n, uint32_t count_hi) {
+                   float keep, float keep_c, float recip, uint32_t n,
+                   uint32_t count_hi) {
   uint32_t ok0 = 0u, ok1 = fold;               // fold_in(key, fold)
   threefry2x32(key[0], key[1], ok0, ok1);
   const uint32_t stride = gridDim.x * kThreads;
@@ -119,8 +136,7 @@ __global__ void __launch_bounds__(kThreads)
       if (j < n) {  // n < 2^31: i + 4 * stride never wraps
         const float uni =
             __uint_as_float(((h[u] ^ l[u]) >> 9) | 0x3F800000u) - 1.0f;
-        y[j] = uni < keep ? from_f32<T>(to_f32(x[j]) / keep_c)
-                          : from_f32<T>(0.0f);
+        y[j] = uni < keep ? kept(x[j], keep_c, recip) : from_f32<T>(0.0f);
       }
     }
   }
@@ -128,8 +144,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 cudaError_t launch(const void* x, void* y, const void* key, uint32_t fold,
-                   float keep, float keep_c, uint32_t n, uint32_t count_hi,
-                   cudaStream_t s) {
+                   float keep, float keep_c, float recip, uint32_t n,
+                   uint32_t count_hi, cudaStream_t s) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -141,7 +157,8 @@ cudaError_t launch(const void* x, void* y, const void* key, uint32_t fold,
   if (blocks == 0) blocks = 1;
   dropout_kernel<T><<<blocks, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<T*>(y),
-      static_cast<const uint32_t*>(key), fold, keep, keep_c, n, count_hi);
+      static_cast<const uint32_t*>(key), fold, keep, keep_c, recip, n,
+      count_hi);
   return cudaGetLastError();
 }
 
@@ -151,16 +168,17 @@ cudaError_t launch(const void* x, void* y, const void* key, uint32_t fold,
 // high word of every element's 64-bit count (0 for such n).
 extern "C" int dropout_launch(int dtype, const void* x, void* y,
                               const void* key, unsigned int fold,
-                              float keep, float keep_c, long long n,
-                              unsigned int count_hi, void* stream) {
+                              float keep, float keep_c, float recip,
+                              long long n, unsigned int count_hi,
+                              void* stream) {
   if (n < 0 || n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch<float>(x, y, key, fold, keep, keep_c, (uint32_t)n,
-                              count_hi, s);
+    return (int)launch<float>(x, y, key, fold, keep, keep_c, recip,
+                              (uint32_t)n, count_hi, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, y, key, fold, keep, keep_c,
+    return (int)launch<__nv_bfloat16>(x, y, key, fold, keep, keep_c, recip,
                                       (uint32_t)n, count_hi, s);
   return (int)cudaErrorInvalidValue;
 }

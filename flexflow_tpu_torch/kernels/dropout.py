@@ -8,14 +8,18 @@ kernel. Here one fused pass draws the same mask (core/prng.py: the op
 key is ``fold_in(step key, fold)``, element i's bits threefry of (hi32(i),
 lo32(i))) and applies it:
 
-    y = where(u(op key, i) < keep, x / keep_c, 0)
+    y = where(u(op key, i) < keep, kept(x), 0)
 
-``keep`` is the keep probability in f32 (bernoulli's p); ``keep_c`` is
-``keep`` rounded to x's dtype — JAX's weak typing rounds the Python float
-of ``x / keep`` to bf16 under a bf16 tensor (0.9 becomes 0.8984375) — and
-the division is computed in f32, then rounded to x's dtype. The backward
-is the same function of the incoming gradient with the same key (JAX's
-VJP of that ``where``), so no mask is stored.
+``keep`` is the keep probability in f32 (bernoulli's p). The reference is
+the JAX op under ``jax.jit``, where XLA rewrites the division by the
+constant ``keep`` of an f32 x into the product with ``f32(1 / keep)``:
+so for float32, ``kept(x) = x * recip`` with ``recip = float32(1) /
+float32(keep)``. For bfloat16, ``keep_c`` is ``keep`` rounded to bf16 —
+JAX's weak typing rounds the Python float of ``x / keep`` to bf16 first
+(0.9 becomes 0.8984375) — and ``kept(x)`` is the f32 quotient by
+``keep_c`` rounded to bf16, which the jitted reference computes there
+too. The backward is the same function of the incoming gradient with the
+same key (JAX's VJP of that ``where``), so no mask is stored.
 
 CUDA tensors launch the kernel (a build or launch error raises); CPU
 tensors take :func:`dropout_ref`. :func:`dropout` is the differentiable
@@ -28,6 +32,7 @@ import ctypes
 
 import torch
 
+from ..core.precision import reciprocal_f32
 from ..core.prng import op_uniform_torch
 from ._launches import count_launch
 
@@ -40,23 +45,27 @@ MAX_NUMEL = (1 << 31) - 1
 
 def keep_in_dtype(keep: float, dtype) -> float:
     """``keep`` rounded to ``dtype`` (f32 for float32, the bf16 value for
-    bfloat16), as a Python float: the divisor of ``x / keep``."""
+    bfloat16), as a Python float: the divisor of a bf16 ``x / keep``."""
     return float(torch.tensor(keep, dtype=torch.float32).to(dtype).float())
 
 
 # ------------------------------------------------------ plain version
 def dropout_ref(x, key, fold: int, keep: float):
     """Plain version of the kernel, any device: the uniforms from
-    :func:`core.prng.op_uniform_torch`, the f32 (IEEE) division by
-    ``keep_c`` rounded to x's dtype, zeros where the mask is off."""
+    :func:`core.prng.op_uniform_torch`; kept elements are f32 x times the
+    f32 reciprocal of keep, or bf16 x's f32 (IEEE) quotient by
+    ``keep_c`` rounded to bf16; zeros where the mask is off."""
     u = op_uniform_torch(key, fold, x.numel(), x.device).view(x.shape)
     keep_f32 = float(torch.tensor(keep, dtype=torch.float32))
-    # divide by a tensor, not a Python float: on CUDA PyTorch turns a
-    # division by a scalar into a product with its reciprocal, which is
-    # not the IEEE quotient JAX (and the kernel) compute
-    keep_c = torch.tensor(keep_in_dtype(keep, x.dtype),
-                          dtype=torch.float32, device=x.device)
-    kept = (x.float() / keep_c).to(x.dtype)
+    if x.dtype == torch.float32:
+        kept = x * reciprocal_f32(keep)
+    else:
+        # divide by a tensor, not a Python float: on CUDA PyTorch turns
+        # a division by a scalar into a product with its reciprocal,
+        # which is not the IEEE quotient JAX (and the kernel) compute
+        keep_c = torch.tensor(keep_in_dtype(keep, x.dtype),
+                              dtype=torch.float32, device=x.device)
+        kept = (x.float() / keep_c).to(x.dtype)
     return torch.where(u < keep_f32, kept, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 
@@ -64,7 +73,8 @@ def dropout_ref(x, key, fold: int, keep: float):
 # ------------------------------------------------------- CUDA wrapper
 _PTR = ctypes.c_void_p
 _ARGTYPES = [ctypes.c_int, _PTR, _PTR, _PTR, ctypes.c_uint, ctypes.c_float,
-             ctypes.c_float, ctypes.c_longlong, ctypes.c_uint, _PTR]
+             ctypes.c_float, ctypes.c_float, ctypes.c_longlong,
+             ctypes.c_uint, _PTR]
 
 
 def dropout_cuda(x, key, fold: int, keep: float, *, direction="dropout_fwd"):
@@ -98,7 +108,8 @@ def dropout_cuda(x, key, fold: int, keep: float, *, direction="dropout_fwd"):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
                 key.data_ptr(), int(fold) & 0xFFFFFFFF, float(keep),
-                keep_in_dtype(keep, x.dtype), x.numel(), 0, stream)
+                keep_in_dtype(keep, x.dtype), reciprocal_f32(keep),
+                x.numel(), 0, stream)
     if rc != 0:
         err = lib.dropout_error_string
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
@@ -133,7 +144,7 @@ class _Dropout(torch.autograd.Function):
 
 
 def dropout(x, key, fold: int, keep: float):
-    """``where(bernoulli(fold_in(key, fold), keep) , x / keep_c, 0)``,
+    """``where(bernoulli(fold_in(key, fold), keep), kept(x), 0)``,
     differentiable in x. ``key``: the step key, a (2,) int32 tensor on
     x's device."""
     return _Dropout.apply(x, key, fold, keep)

@@ -36,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from ..core.precision import reciprocal_f32
 from ._launches import count_launch
 
 # launches of the CUDA kernel: one per successful launch, nowhere else
@@ -84,14 +85,16 @@ def _qmax_for(dtype) -> float:
 
 def quantize_kv_rows(x, dtype=torch.int8):
     """x (..., D) float -> (codes (..., D) ``dtype``, scales (...) f32):
-    scale = amax(|x|, -1) / qmax, codes = x / scale rounded half to even
+    scale = amax(|x|, -1) * f32(1 / qmax) — the jitted reference's
+    division by the constant qmax is that product — and codes = x /
+    scale (a division by a tensor, IEEE in JAX too) rounded half to even
     (``jnp.rint``; int8 clipped to +-127) or cast to float8_e4m3fn. An
     all-zero row gets scale 0 and codes 0 (it divides by 1, as JAX's
     ``safe``). Each row quantizes on its own, so a token's codes do not
     depend on how the serving step that wrote it was cut."""
     qmax = _qmax_for(dtype)
     xf = x.float()
-    scale = torch.amax(torch.abs(xf), dim=-1) / qmax
+    scale = torch.amax(torch.abs(xf), dim=-1) * reciprocal_f32(qmax)
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     y = xf / safe[..., None]
     if dtype == torch.int8:

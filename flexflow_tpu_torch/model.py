@@ -18,8 +18,12 @@ stream is the JAX package's (core/prng.py): ``_rng`` is
 ``fold_in(_rng, n)`` over a host step mirror (``_host_step``) that a
 checkpoint restore resyncs.
 
+Op state (BatchNorm's running statistics) is read and written with
+``get_states`` / ``set_states``; ``conv_layout='NHWC'`` and
+``sibling_conv_fusion`` take effect in the executor.
+
 Out of the slice, and raising ``NotImplementedError`` when configured:
-a mesh or strategy, the strategy search, pipelines, fusion, NHWC,
+a mesh or strategy, the strategy search, pipelines, fusion groups,
 telemetry, lazy sparse embedding updates and the native loader.
 """
 
@@ -28,7 +32,7 @@ from __future__ import annotations
 import os
 import time
 import warnings
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,9 +42,10 @@ from .core import prng
 from .core.executor import Executor, TrainState
 from .core.optimizers import Optimizer, SGDOptimizer
 from .op import Op
-from .ops import (LSTM, BatchMatmul, Dropout, ElementBinary, Embedding,
-                  LayerNorm, Linear, MultiHeadAttention, Reshape, Softmax,
-                  Split)
+from .ops import (LSTM, BatchMatmul, BatchNorm, Concat, Conv2D, Dropout,
+                  ElementBinary, ElementUnary, Embedding, Flat, LayerNorm,
+                  Linear, MultiHeadAttention, Pool2D, Reduce, Reshape,
+                  Reverse, Softmax, Split, TopK, Transpose)
 from .tensor import Tensor
 from .utils import faults as _faults
 
@@ -88,6 +93,106 @@ class FFModel:
         return op
 
     # ---------------- layers ----------------
+    def conv2d(self, input: Tensor, out_channels: int, kernel_h: int,
+               kernel_w: int, stride_h: int, stride_w: int, padding_h: int,
+               padding_w: int, activation=None, groups: int = 1,
+               use_bias: bool = True, name: Optional[str] = None,
+               kernel_initializer="glorot",
+               bias_initializer="zeros") -> Tensor:
+        op = Conv2D(self, name or self._fresh_name("conv2d"), [input],
+                    out_channels, kernel_h, kernel_w, stride_h, stride_w,
+                    padding_h, padding_w, activation or "none", groups,
+                    use_bias, kernel_initializer, bias_initializer)
+        return self.add_op(op).output
+
+    def pool2d(self, input: Tensor, kernel_h: int, kernel_w: int,
+               stride_h: int, stride_w: int, padding_h: int, padding_w: int,
+               pool_type: str = "max", activation=None,
+               name: Optional[str] = None) -> Tensor:
+        op = Pool2D(self, name or self._fresh_name("pool2d"), [input],
+                    kernel_h, kernel_w, stride_h, stride_w, padding_h,
+                    padding_w, pool_type, activation or "none")
+        return self.add_op(op).output
+
+    def batch_norm(self, input: Tensor, relu: bool = True,
+                   name: Optional[str] = None) -> Tensor:
+        op = BatchNorm(self, name or self._fresh_name("batch_norm"),
+                       [input], relu)
+        return self.add_op(op).output
+
+    def _reduce(self, mode, input, axis, keepdims, name) -> Tensor:
+        op = Reduce(self, name or self._fresh_name(f"reduce_{mode}"),
+                    [input], mode, axis, keepdims)
+        return self.add_op(op).output
+
+    def reduce_mean(self, input: Tensor, axis: int, keepdims: bool = False,
+                    name: Optional[str] = None) -> Tensor:
+        return self._reduce("mean", input, axis, keepdims, name)
+
+    def reduce_sum(self, input: Tensor, axis: int, keepdims: bool = False,
+                   name: Optional[str] = None) -> Tensor:
+        return self._reduce("sum", input, axis, keepdims, name)
+
+    def reduce_max(self, input: Tensor, axis: int, keepdims: bool = False,
+                   name: Optional[str] = None) -> Tensor:
+        return self._reduce("max", input, axis, keepdims, name)
+
+    def _unary(self, mode, input, name=None, scalar=None) -> Tensor:
+        op = ElementUnary(self, name or self._fresh_name(mode), [input],
+                          mode, scalar)
+        return self.add_op(op).output
+
+    def exp(self, input, name=None):
+        return self._unary("exp", input, name)
+
+    def relu(self, input, name=None):
+        return self._unary("relu", input, name)
+
+    def sigmoid(self, input, name=None):
+        return self._unary("sigmoid", input, name)
+
+    def tanh(self, input, name=None):
+        return self._unary("tanh", input, name)
+
+    def elu(self, input, name=None):
+        return self._unary("elu", input, name)
+
+    def gelu(self, input, name=None):
+        return self._unary("gelu", input, name)
+
+    def identity(self, input, name=None):
+        return self._unary("identity", input, name)
+
+    def scalar_multiply(self, input, scalar, name=None):
+        return self._unary("scalar_multiply", input, name, scalar=scalar)
+
+    def concat(self, tensors: Sequence[Tensor], axis: int,
+               name: Optional[str] = None) -> Tensor:
+        op = Concat(self, name or self._fresh_name("concat"), list(tensors),
+                    axis)
+        return self.add_op(op).output
+
+    def flat(self, input: Tensor, name: Optional[str] = None) -> Tensor:
+        op = Flat(self, name or self._fresh_name("flat"), [input])
+        return self.add_op(op).output
+
+    def transpose(self, input: Tensor, perm: Sequence[int],
+                  name: Optional[str] = None) -> Tensor:
+        op = Transpose(self, name or self._fresh_name("transpose"), [input],
+                       list(perm))
+        return self.add_op(op).output
+
+    def reverse(self, input: Tensor, axis: int,
+                name: Optional[str] = None) -> Tensor:
+        op = Reverse(self, name or self._fresh_name("reverse"), [input], axis)
+        return self.add_op(op).output
+
+    def top_k(self, input: Tensor, k: int, sorted: bool = True,
+              name: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+        op = TopK(self, name or self._fresh_name("topk"), [input], k, sorted)
+        self.add_op(op)
+        return op.outputs[0], op.outputs[1]
+
     def dense(self, input: Tensor, out_channels: int, activation=None,
               use_bias: bool = True, name: Optional[str] = None,
               kernel_initializer="glorot",
@@ -206,7 +311,6 @@ class FFModel:
             "search_budget > 0 (strategy search)": cfg.search_budget > 0,
             "pipeline_stages > 1": cfg.pipeline_stages > 1,
             "perform_fusion": cfg.perform_fusion,
-            "conv_layout='NHWC'": cfg.conv_layout == "NHWC",
             "telemetry": cfg.telemetry,
             "sparse_embedding_lazy (lazy sparse embedding updates)":
                 cfg.sparse_embedding_lazy,
@@ -568,8 +672,9 @@ class FFModel:
 
     # ---------------- weight access ----------------
     def get_weights(self, op_name: str) -> Dict[str, np.ndarray]:
-        """Host copies of an op's weights."""
-        return {k: v.detach().float().cpu().numpy()
+        """Host copies of an op's weights (copies on the CPU too, where
+        ``numpy()`` would share the live tensor's memory)."""
+        return {k: v.detach().float().cpu().numpy().copy()
                 for k, v in self.state.params[op_name].items()}
 
     def set_weights(self, op_name: str, weights: Dict[str, np.ndarray]):
@@ -587,3 +692,24 @@ class FFModel:
                     f"match {tuple(cur[k].shape)}")
             with torch.no_grad():
                 cur[k].copy_(src)
+
+    def get_states(self, op_name: str) -> Dict[str, np.ndarray]:
+        """Host copies of an op's non-trainable state (BatchNorm's
+        running statistics)."""
+        return {k: v.detach().cpu().numpy().copy()
+                for k, v in self.state.states[op_name].items()}
+
+    def set_states(self, op_name: str, states: Dict[str, np.ndarray]):
+        """Overwrite an op's state in place (a captured step keeps
+        reading the same tensors)."""
+        cur = self.state.states[op_name]
+        for k, v in states.items():
+            if k not in cur:
+                raise KeyError(f"{op_name} has no state {k!r}; "
+                               f"has {sorted(cur)}")
+            src = torch.as_tensor(np.array(v), dtype=cur[k].dtype)
+            if tuple(src.shape) != tuple(cur[k].shape):
+                raise ValueError(
+                    f"{op_name}.{k}: shape {tuple(src.shape)} does not "
+                    f"match {tuple(cur[k].shape)}")
+            cur[k].copy_(src)

@@ -3,8 +3,11 @@
 Counterpart of ``flexflow_tpu/op.py`` for single-device training: an op
 declares its output shapes and trainable weights and computes its
 forward as a plain function of torch tensors; autograd supplies the
-backward. The JAX package's logical-axis and cost-model hooks wait for
-parallel training and the search.
+backward. Non-trainable state (BatchNorm's running statistics) is
+declared by ``state_specs`` and threaded through ``OpContext``'s
+``state_in``/``state_out``. ``flops`` is the JAX op's forward count, which
+the smoke's MFU reads; the JAX package's logical-axis and byte hooks
+wait for parallel training and the search.
 """
 
 from __future__ import annotations
@@ -34,22 +37,39 @@ class WeightSpec:
     fan_out: Optional[int] = None
 
 
+@dataclasses.dataclass
+class StateSpec:
+    """Non-trainable per-op state (BatchNorm's running statistics),
+    held in the executor's ``states`` tree and written in place by each
+    training step."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype = torch.float32
+    init_value: float = 0.0
+
+
 class OpContext:
     """Per-invocation context handed to ``Op.forward``: training or
     not, the op's random stream (``rng``, a ``core.prng.OpRng`` of the
     step key and the op's fold-in value, or None outside a train step),
-    the ``seq_length`` truncation, and non-trainable state in and out."""
+    the ``seq_length`` truncation, non-trainable state in and out, and
+    the channels-last residency of ``conv_layout='NHWC'``: ``nhwc_in``
+    says the op's 4-d inputs arrive in ``torch.channels_last`` memory,
+    ``nhwc_out`` that its outputs should stay so (core/executor.py)."""
 
     __slots__ = ("training", "rng", "seq_length", "state_in",
-                 "state_out")
+                 "state_out", "nhwc_in", "nhwc_out")
 
     def __init__(self, training: bool, rng=None, seq_length: int = -1,
-                 state_in: Optional[dict] = None):
+                 state_in: Optional[dict] = None, nhwc_in: bool = False,
+                 nhwc_out: bool = False):
         self.training = training
         self.rng = rng
         self.seq_length = seq_length
         self.state_in = state_in or {}
         self.state_out: dict = {}
+        self.nhwc_in = nhwc_in
+        self.nhwc_out = nhwc_out
 
 
 class Op:
@@ -76,6 +96,13 @@ class Op:
 
     def weight_specs(self) -> Dict[str, WeightSpec]:
         return {}
+
+    def state_specs(self) -> Dict[str, StateSpec]:
+        return {}
+
+    def flops(self) -> float:
+        """Forward FLOPs of the whole op (the JAX op's count)."""
+        return 0.0
 
     def forward(self, params: Dict[str, torch.Tensor],
                 xs: List[torch.Tensor], ctx: OpContext

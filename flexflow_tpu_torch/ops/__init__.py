@@ -1,14 +1,18 @@
-"""Ops of the port's training slices (the ops ``build_transformer`` and
-``build_nmt_lstm`` use), each the counterpart of the same-named op of
-``flexflow_tpu/ops``."""
+"""Ops of the port's training slices, each the counterpart of the
+same-named op of ``flexflow_tpu/ops``."""
 
 from .attention import MultiHeadAttention
-from .elementwise import Dropout, ElementBinary, LayerNorm, Softmax
+from .conv import BatchNorm, Conv2D, Flat, Pool2D
+from .elementwise import (Dropout, ElementBinary, ElementUnary, LayerNorm,
+                          Reduce, Softmax)
 from .embedding import Embedding
 from .linear import Linear
 from .rnn import LSTM
-from .tensor_ops import BatchMatmul, Reshape, Split
+from .tensor_ops import (BatchMatmul, Concat, Reshape, Reverse, Split, TopK,
+                         Transpose)
 
-__all__ = ["MultiHeadAttention", "BatchMatmul", "Dropout", "ElementBinary",
-           "LayerNorm", "Softmax", "Embedding", "Linear", "LSTM", "Reshape",
-           "Split"]
+__all__ = ["MultiHeadAttention", "BatchNorm", "Conv2D", "Flat", "Pool2D",
+           "BatchMatmul", "Concat", "Dropout", "ElementBinary",
+           "ElementUnary", "LayerNorm", "Reduce", "Softmax", "Embedding",
+           "Linear", "LSTM", "Reshape", "Reverse", "Split", "TopK",
+           "Transpose"]

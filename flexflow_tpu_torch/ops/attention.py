@@ -128,6 +128,16 @@ class MultiHeadAttention(Op):
                               1.0 - self.dropout)
         return [y]
 
+    def flops(self) -> float:
+        b, lq = self.inputs[0].shape[:2]
+        lk = self.inputs[1].shape[1]
+        e, h, d = self.embed_dim, self.num_heads, self.head_dim
+        proj = 2.0 * b * (lq * self.q_in + lk * self.k_in
+                          + lk * self.v_in) * e
+        attn = 2.0 * b * h * lq * lk * d * 2
+        out = 2.0 * b * lq * e * e
+        return proj + attn + out
+
     def _attend(self, q, k, v, ctx: OpContext):
         """softmax(q.k^T / sqrt(d)).v, (b, s, h, d) layout. The flash
         entry point whenever use_flash is not False, head_dim is at most

@@ -1,5 +1,5 @@
-"""Shared helpers for ops (activation modes); counterpart of
-``flexflow_tpu/ops/common.py``."""
+"""Shared helpers for ops (activation modes, padding math); counterpart
+of ``flexflow_tpu/ops/common.py``."""
 
 from __future__ import annotations
 
@@ -28,3 +28,9 @@ def apply_activation(x: torch.Tensor, mode) -> torch.Tensor:
     if callable(mode):
         return mode(x)
     return _ACTIVATIONS[mode](x)
+
+
+def conv_out_dim(in_size: int, kernel: int, stride: int, pad: int) -> int:
+    """Output spatial size of a conv or pool window (the JAX op's shape
+    math)."""
+    return (in_size + 2 * pad - kernel) // stride + 1

@@ -1,12 +1,26 @@
-"""Elementwise binary ops, dropout, softmax and layer norm; counterpart
-of ``flexflow_tpu/ops/elementwise.py``."""
+"""Elementwise unary and binary ops, axis reductions, dropout, softmax
+and layer norm; counterpart of ``flexflow_tpu/ops/elementwise.py``."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from ..kernels.dropout import dropout
+from ..core.precision import policy_active
+from ..kernels.dropout import dropout, keep_in_dtype
 from ..op import Op, OpContext, WeightSpec
+
+_UNARY = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "elu": F.elu,
+    "exp": torch.exp,
+    # jax.nn.gelu defaults to the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "identity": lambda x: x,
+    "scalar_multiply": None,  # uses attrs["scalar"]
+}
 
 _BINARY = {
     "add": torch.add,
@@ -16,6 +30,79 @@ _BINARY = {
     "max": torch.maximum,
     "min": torch.minimum,
 }
+
+
+class ElementUnary(Op):
+    op_type = "element_unary"
+
+    def __init__(self, model, name, inputs, mode: str, scalar: float = None):
+        super().__init__(model, name, inputs)
+        if mode not in _UNARY:
+            raise ValueError(f"unknown unary mode {mode}")
+        self.mode = mode
+        self.scalar = scalar
+        self.attrs = {"mode": mode, "scalar": scalar}
+
+    def output_shapes(self):
+        return [tuple(self.inputs[0].shape)]
+
+    def forward(self, params, xs, ctx: OpContext):
+        (x,) = xs
+        if self.mode == "scalar_multiply":
+            # JAX's weak typing: a bf16 x times bf16(scalar)
+            return [x * keep_in_dtype(self.scalar, x.dtype)]
+        return [_UNARY[self.mode](x)]
+
+    def flops(self) -> float:
+        return float(self.inputs[0].num_elements)
+
+
+class Reduce(Op):
+    """Mean, sum or max over one axis (never the sample dim 0). Under
+    the mixed-precision policy a low-precision mean or sum accumulates
+    in f32 and returns to the activation dtype, as the JAX op does."""
+
+    op_type = "reduce"
+    _FNS = {"mean": torch.mean, "sum": torch.sum,
+            "max": lambda x, dim, keepdim: torch.amax(x, dim=dim,
+                                                      keepdim=keepdim)}
+
+    def __init__(self, model, name, inputs, mode: str, axis: int,
+                 keepdims: bool = False):
+        super().__init__(model, name, inputs)
+        if mode not in self._FNS:
+            raise ValueError(f"unknown reduce mode {mode!r}")
+        rank = len(inputs[0].shape)
+        axis = axis if axis >= 0 else axis + rank
+        if not 0 < axis < rank:
+            raise ValueError(
+                f"reduce axis {axis} out of range for rank {rank} "
+                f"(the sample dim 0 cannot be reduced)")
+        self.mode = mode
+        self.axis = axis
+        self.keepdims = bool(keepdims)
+        self.attrs = {"mode": mode, "axis": axis, "keepdims": keepdims}
+
+    def output_shapes(self):
+        s = list(self.inputs[0].shape)
+        if self.keepdims:
+            s[self.axis] = 1
+        else:
+            s.pop(self.axis)
+        return [tuple(s)]
+
+    def forward(self, params, xs, ctx: OpContext):
+        (x,) = xs
+        fn = self._FNS[self.mode]
+        if self.mode in ("mean", "sum") and x.dtype != torch.float32 \
+                and x.is_floating_point() \
+                and policy_active(self.model.config):
+            return [fn(x.float(), dim=self.axis,
+                       keepdim=self.keepdims).to(x.dtype)]
+        return [fn(x, dim=self.axis, keepdim=self.keepdims)]
+
+    def flops(self) -> float:
+        return float(self.inputs[0].num_elements)
 
 
 class ElementBinary(Op):
@@ -35,6 +122,9 @@ class ElementBinary(Op):
     def forward(self, params, xs, ctx: OpContext):
         a, b = xs
         return [_BINARY[self.mode](a, b)]
+
+    def flops(self) -> float:
+        return float(self.outputs[0].num_elements)
 
 
 class Dropout(Op):
@@ -84,6 +174,9 @@ class Softmax(Op):
         return [unnormalized / torch.sum(unnormalized, dim=self.axis,
                                          keepdim=True)]
 
+    def flops(self) -> float:
+        return 5.0 * self.inputs[0].num_elements
+
 
 class LayerNorm(Op):
     """Normalize over the last dim with learned scale/bias; statistics
@@ -118,3 +211,6 @@ class LayerNorm(Op):
         if self.elementwise_affine:
             y = y * params["scale"].float() + params["bias"].float()
         return [y.to(x.dtype)]
+
+    def flops(self) -> float:
+        return 8.0 * self.inputs[0].num_elements

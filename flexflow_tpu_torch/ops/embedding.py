@@ -55,6 +55,11 @@ class Embedding(Op):
         return {"kernel": WeightSpec((self.num_entries, self.out_dim),
                                      initializer=self.kernel_initializer)}
 
+    def flops(self) -> float:
+        shape = self.inputs[0].shape
+        bag = shape[-1] if len(shape) > 1 else 1
+        return float(shape[0] * bag * self.out_dim)
+
     def forward(self, params, xs, ctx: OpContext):
         (idx,) = xs
         idx = idx.long().clamp(0, self.num_entries - 1)

@@ -50,3 +50,9 @@ class Linear(Op):
         if self.use_bias:
             y = y + params["bias"].to(x.dtype)
         return [apply_activation(y, self.activation)]
+
+    def flops(self) -> float:
+        batch = 1
+        for s in self.inputs[0].shape[:-1]:
+            batch *= s
+        return 2.0 * batch * self.in_channels * self.out_channels

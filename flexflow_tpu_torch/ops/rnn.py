@@ -55,6 +55,11 @@ class LSTM(Op):
             "b": WeightSpec((4 * h,), initializer="zeros"),
         }
 
+    def flops(self) -> float:
+        b, t, d = self.inputs[0].shape
+        h = self.hidden_size
+        return 2.0 * b * t * (d + h) * 4 * h
+
     def forward(self, params, xs, ctx: OpContext):
         (x,) = xs
         b, t, _ = x.shape

@@ -1,4 +1,5 @@
-"""Shape ops (split, reshape) and the batched matmul; counterpart of
+"""Shape and data-movement ops (concat, split, reshape, transpose,
+reverse, top-k) and the batched matmul; counterpart of
 ``flexflow_tpu/ops/tensor_ops.py``."""
 
 from __future__ import annotations
@@ -8,6 +9,31 @@ from typing import List, Tuple
 import torch
 
 from ..op import Op, OpContext
+
+
+class Concat(Op):
+    """``torch.cat`` along ``axis``. Under ``conv_layout='NHWC'`` a
+    channel concat of channels-last operands stays channels-last (the
+    executor's residency set): the logical axis is unchanged, only the
+    memory format differs."""
+
+    op_type = "concat"
+
+    def __init__(self, model, name, inputs, axis: int):
+        super().__init__(model, name, inputs)
+        self.axis = axis % len(inputs[0].shape)
+        self.attrs = {"axis": self.axis}
+
+    def output_shapes(self):
+        shape = list(self.inputs[0].shape)
+        shape[self.axis] = sum(t.shape[self.axis] for t in self.inputs)
+        return [tuple(shape)]
+
+    def forward(self, params, xs, ctx: OpContext):
+        if ctx.nhwc_in:
+            xs = [x.contiguous(memory_format=torch.channels_last)
+                  for x in xs]
+        return [torch.cat(xs, dim=self.axis)]
 
 
 class Split(Op):
@@ -63,6 +89,69 @@ class Reshape(Op):
         return [xs[0].reshape(self.new_shape)]
 
 
+class Transpose(Op):
+    op_type = "transpose"
+
+    def __init__(self, model, name, inputs, perm: List[int]):
+        super().__init__(model, name, inputs)
+        self.perm = [int(p) for p in perm]
+        self.attrs = {"perm": self.perm}
+
+    def output_shapes(self):
+        s = self.inputs[0].shape
+        return [tuple(s[p] for p in self.perm)]
+
+    def forward(self, params, xs, ctx: OpContext):
+        return [xs[0].permute(self.perm)]
+
+
+class Reverse(Op):
+    op_type = "reverse"
+
+    def __init__(self, model, name, inputs, axis: int):
+        super().__init__(model, name, inputs)
+        self.axis = axis % len(inputs[0].shape)
+        self.attrs = {"axis": self.axis}
+
+    def output_shapes(self):
+        return [tuple(self.inputs[0].shape)]
+
+    def forward(self, params, xs, ctx: OpContext):
+        return [torch.flip(xs[0], dims=(self.axis,))]
+
+
+class TopK(Op):
+    """(values, int32 indices) of the ``k`` largest along the last dim,
+    in descending order, as ``lax.top_k``: equal values keep their
+    order, so a tie goes to the lower index. ``torch.topk`` promises no
+    order among ties on CUDA, so this takes the first k of a stable
+    descending sort, which keeps the rule on every device. ``sorted``
+    is an attribute only: the result is always sorted, as in JAX."""
+
+    op_type = "topk"
+
+    def __init__(self, model, name, inputs, k: int, sorted: bool = True):
+        super().__init__(model, name, inputs)
+        self.k = int(k)
+        self.sorted = sorted
+        self.attrs = {"k": k, "sorted": sorted}
+
+    def output_shapes(self):
+        shape = list(self.inputs[0].shape)
+        shape[-1] = self.k
+        return [tuple(shape), tuple(shape)]
+
+    def output_dtypes(self):
+        return [self.inputs[0].dtype, torch.int32]
+
+    def forward(self, params, xs, ctx: OpContext):
+        (x,) = xs
+        _, order = torch.sort(x.detach(), dim=-1, descending=True,
+                              stable=True)
+        idx = order[..., :self.k]
+        return [torch.gather(x, -1, idx), idx.to(torch.int32)]
+
+
 class BatchMatmul(Op):
     """``a @ b`` over matching leading batch dims, summed in f32 and
     rounded to a's dtype (the JAX op's ``preferred_element_type=f32``).
@@ -108,3 +197,10 @@ class BatchMatmul(Op):
         a = self._seq_mask(a, self.a_seq_length_dim, ctx.seq_length)
         b = self._seq_mask(b, self.b_seq_length_dim, ctx.seq_length)
         return [torch.matmul(a.float(), b.float()).to(a.dtype)]
+
+    def flops(self) -> float:
+        a, b = self.inputs
+        batch = 1
+        for s in a.shape[:-2]:
+            batch *= s
+        return 2.0 * batch * a.shape[-2] * a.shape[-1] * b.shape[-1]

@@ -91,14 +91,19 @@ def from_jax_params(params: Mapping[str, Mapping[str, object]],
     return ff
 
 
-def load_jax_params(ff, params: Mapping[str, Mapping[str, object]]) -> None:
+def load_jax_params(ff, params: Mapping[str, Mapping[str, object]],
+                    states: Optional[Mapping[str, Mapping[str, object]]]
+                    = None) -> None:
     """Copy a ``{op: {name: array}}`` tree — e.g.
     ``{op.name: jax_ff.get_weights(op.name)}`` over a JAX FFModel's ops —
     into a compiled port ``FFModel`` through ``set_weights`` (in place:
     the tensors, and any graph captured over them, stay). The ops,
     weight names and shapes must match the port model's exactly — an
     attention op with ``add_bias_kv`` carries its ``bias_k`` and
-    ``bias_v`` rows like any other weight."""
+    ``bias_v`` rows like any other weight. ``states``, the JAX
+    executor's op state as numpy (``{op: jax_ff.get_states(op)}``:
+    BatchNorm's running statistics), goes in through ``set_states``
+    and must name exactly the port model's stateful ops."""
     have = ff.state.params
     if set(params) != set(have):
         raise ValueError(f"ops differ: {sorted(set(params) ^ set(have))}")
@@ -108,3 +113,12 @@ def load_jax_params(ff, params: Mapping[str, Mapping[str, object]]) -> None:
                              f"{sorted(have[op])}")
         ff.set_weights(op, {k: np.asarray(v, np.float32)
                             for k, v in ws.items()})
+    if states is None:
+        return
+    have = ff.state.states
+    if set(states) != set(have):
+        raise ValueError(f"stateful ops differ: "
+                         f"{sorted(set(states) ^ set(have))}")
+    for op, ss in states.items():
+        ff.set_states(op, {k: np.asarray(v, np.float32)
+                           for k, v in ss.items()})

@@ -1,0 +1,39 @@
+"""ResNet-50 and Inception-v3 at batch 2 trained in both packages on
+the CPU, held against JAX's one-ulp witness, with the planted faults
+that those limits must reject (see test_torch_conv_models.py's
+docstring), in a module of their own so that they run beside it."""
+
+import pytest
+from test_torch_conv_models import DEEP, FAULTS, planted_fault_rejected, \
+    train_pair
+from test_torch_conv_models import test_forward_after_training as _fwd
+from test_torch_conv_models import test_trajectory_losses as _losses
+from test_torch_conv_models import \
+    test_trajectory_running_stats as _stats
+from test_torch_conv_models import test_trajectory_weights as _weights
+
+
+@pytest.fixture(scope="module", params=sorted(DEEP))
+def trained(request):
+    return train_pair(request.param)
+
+
+def test_deep_trajectory_losses(trained):
+    _losses(trained)
+
+
+def test_deep_trajectory_weights(trained):
+    _weights(trained)
+
+
+def test_deep_trajectory_running_stats(trained):
+    _stats(trained)
+
+
+def test_deep_forward_after_training(trained):
+    _fwd(trained)
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_deep_planted_fault_rejected(trained, fault, monkeypatch):
+    planted_fault_rejected(trained, fault, monkeypatch)

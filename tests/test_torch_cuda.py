@@ -1505,3 +1505,145 @@ def test_prefetch_staging_overlaps_first_capture(card, monkeypatch):
     assert capturing.is_set() and staged.is_set()
     assert runs[True][0] == runs[False][0]
     _same_state(runs[True][1], runs[False][1])
+
+
+# ----------------------------------------------- conv sweep and division
+def test_dropout_kernel_f32_multiplies_by_the_reciprocal(card):
+    """f32 kept elements are x * f32(1 / keep), the jitted reference's
+    product, bit for bit on the card; the IEEE quotient differs."""
+    from flexflow_tpu_torch.core import prng
+    from flexflow_tpu_torch.core.precision import reciprocal_f32
+    from flexflow_tpu_torch.kernels import dropout as kd
+    key = torch.from_numpy(prng.key_words(prng.fold_in(prng.prng_key(1),
+                                                       2))).to(card)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (7, 333, 41), np.float32)).to(card)
+    y = kd.dropout_cuda(x, key, 99, 0.7)
+    torch.cuda.synchronize()
+    assert torch.equal(y, kd.dropout_ref(x, key, 99, 0.7))
+    kept = y != 0
+    assert torch.equal(y[kept], x[kept] * reciprocal_f32(0.7))
+    quotient = (x.cpu() / torch.tensor(0.7, dtype=torch.float32)).to(card)
+    assert not torch.equal(y[kept], quotient[kept])
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "float8_e4m3fn"])
+def test_quantize_kv_rows_on_card_equals_cpu(card, kv_dtype):
+    x = torch.from_numpy((np.random.default_rng(3).standard_normal(
+        (5, 3, 16, 72)) * 4).astype(np.float32))
+    x[2, 1, 7] = 0.0
+    dt = getattr(torch, kv_dtype)
+    qc, sc = pr.quantize_kv_rows(x, dt)
+    qg, sg = pr.quantize_kv_rows(x.to(card), dt)
+    assert torch.equal(sg.cpu(), sc)
+    assert torch.equal(qg.cpu().view(torch.uint8), qc.view(torch.uint8))
+
+
+def _resnet18(card, capture, **cfg):
+    import flexflow_tpu_torch as ft
+    m = ft.build_resnet(ft.FFConfig(batch_size=4, seed=0, **cfg), depth=18,
+                        batch_size=4, image_size=32, device=card)
+    m.compile(optimizer=ft.SGDOptimizer(lr=0.01, momentum=0.9),
+              metrics=["accuracy"], capture=capture)
+    return m
+
+
+def _conv_batches(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"input": rng.standard_normal((4, 3, 32, 32), np.float32),
+             "label": rng.integers(0, 10, 4).astype(np.int32)}
+            for _ in range(n)]
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN deterministic and not autotuned for one test (a capture
+    cannot autotune), the flags restored after it."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    yield
+    (torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = saved
+
+
+def _tensors(m):
+    return {f"{tree}.{op}.{k}": w.detach().clone()
+            for tree, t in (("p", m.state.params), ("s", m.state.states))
+            for op, p in t.items() for k, w in p.items()}
+
+
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_captured_resnet18_step_equals_eager(card, layout,
+                                            deterministic_cudnn):
+    """Captured ResNet-18 steps equal eager ones bit for bit: weights,
+    losses and BatchNorm running statistics (cuDNN deterministic, no
+    autotuning: a capture cannot autotune)."""
+    eager = _resnet18(card, False, conv_layout=layout)
+    cap = _resnet18(card, True, conv_layout=layout)
+    batches = _conv_batches(3)
+    le = [float(eager.train_batch(b)["loss"]) for b in batches]
+    lc = [float(cap.train_batch(b)["loss"]) for b in batches]
+    assert lc == le
+    te, tc = _tensors(eager), _tensors(cap)
+    for n in te:
+        assert torch.equal(te[n], tc[n]), n
+    assert cap.compile_counts()["train_step"] == 1
+    # eval reads the running statistics and leaves them
+    before = _tensors(cap)
+    cap.evaluate({"input": batches[0]["input"]}, batches[0]["label"],
+                 batch_size=4)
+    after = _tensors(cap)
+    assert all(torch.equal(before[n], after[n]) for n in before)
+
+
+def test_bn_checkpoint_round_trip(card, tmp_path, deterministic_cudnn):
+    """A BatchNorm model killed after an epoch and resumed equals an
+    uninterrupted run bit for bit, running statistics included."""
+    from flexflow_tpu_torch.utils import faults
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((16, 3, 32, 32), np.float32)
+    y = rng.integers(0, 10, 16).astype(np.int32)
+    ref = _resnet18(card, True)
+    ref.fit({"input": x}, y, epochs=2, verbose=False)
+    ckpt = str(tmp_path / "ckpt")
+    # 4 dispatches an epoch: the 6th is in epoch 1
+    with faults.active("train.dispatch:kill@6"):
+        with pytest.raises(faults.SimulatedKill):
+            _resnet18(card, True).fit({"input": x}, y, epochs=2,
+                                      verbose=False, checkpoint_dir=ckpt)
+    again = _resnet18(card, True)
+    again.fit({"input": x}, y, epochs=2, verbose=False, checkpoint_dir=ckpt)
+    tr, ta = _tensors(ref), _tensors(again)
+    assert any(n.startswith("s.") for n in tr)
+    for n in tr:
+        assert torch.equal(tr[n], ta[n]), n
+
+
+@pytest.mark.parametrize("pool", ["avg", "max"])
+def test_nhwc_pool_gradients_equal_nchw(card, pool):
+    """Pool2D under conv_layout NHWC gives the NCHW op's output and input
+    gradient on the card, and the CPU's (PyTorch's CUDA channels-last
+    average-pool backward with padded overlapping windows is wrong, so
+    the op pools on an NCHW copy)."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.op import OpContext
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (4, 16, 17, 17), np.float32))
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (4, 16, 17, 17), np.float32))
+    outs = {}
+    for layout, dev in (("NCHW", "cpu"), ("NCHW", card), ("NHWC", card)):
+        m = ft.FFModel(ft.FFConfig(conv_layout=layout), device=dev)
+        m.pool2d(m.create_tensor((4, 16, 17, 17), name="x"), 3, 3, 1, 1,
+                 1, 1, pool_type=pool, name="p")
+        xx = x.to(dev).requires_grad_()
+        y = m.ops[-1].forward({}, [xx], OpContext(
+            training=True, nhwc_out=layout == "NHWC"))[0]
+        (gx,) = torch.autograd.grad(y, xx, g.to(dev))
+        outs[(layout, str(dev))] = (y.detach().cpu(), gx.cpu())
+    ref = outs[("NCHW", "cpu")]
+    for k, (y, gx) in outs.items():
+        assert torch.allclose(y, ref[0], rtol=0, atol=1e-6), k
+        assert torch.allclose(gx, ref[1], rtol=0, atol=1e-5), k

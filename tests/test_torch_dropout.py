@@ -1,9 +1,10 @@
 """Dropout in the port held against the JAX package on the CPU.
 
 The ``Dropout`` op and attention's output dropout draw JAX's bernoulli
-masks (core/prng.py) and divide by keep rounded to the tensor's dtype
-(JAX's weak typing: 0.9 becomes 0.8984375 under bf16): forward and VJP
-exact, in f32 and bf16. Then a small dropout model (attention dropout
+masks (core/prng.py) and scale the kept elements as the jitted JAX op
+does: f32 by the product with f32(1 / keep), bf16 by the f32 quotient by
+keep rounded to bf16 (JAX's weak typing: 0.9 becomes 0.8984375): forward
+and VJP exact against ``jax.jit`` of the op, in f32 and bf16. Then a small dropout model (attention dropout
 and a Dropout op after the FFN) trained 5 steps in both packages from
 shared weights, with and without remat: losses to 1e-5 relative and
 weights to 1e-5 absolute (f32 summation order; a wrong mask moves the
@@ -25,6 +26,7 @@ from flexflow_tpu.op import OpContext as JContext
 import flexflow_tpu_torch as ft
 from flexflow_tpu_torch.core import prng
 from flexflow_tpu_torch.core.executor import _stable_hash
+from flexflow_tpu_torch.core.precision import reciprocal_f32
 from flexflow_tpu_torch.kernels import dropout as kd
 from flexflow_tpu_torch.op import OpContext
 
@@ -62,8 +64,13 @@ def test_dropout_op_forward_and_vjp_exact(dtype, rate):
     g = rng.standard_normal(shape, np.float32)
     jkey, prng_op = _keys("drop")
     jx, jg = (jnp.asarray(a, JDT[dtype]) for a in (x, g))
-    jy, vjp = jax.vjp(lambda v: jop.forward({}, [v], _jctx(jkey))[0], jx)
-    (jdx,) = vjp(jg)
+
+    @jax.jit
+    def fwd_vjp(v, cot):
+        y, vjp = jax.vjp(lambda u: jop.forward({}, [u], _jctx(jkey))[0], v)
+        return y, vjp(cot)[0]
+
+    jy, jdx = fwd_vjp(jx, jg)
     tx = torch.from_numpy(x).to(TDT[dtype]).requires_grad_()
     ty = pop.forward({}, [tx], OpContext(training=True, rng=prng_op))[0]
     (tdx,) = torch.autograd.grad(ty, tx, torch.from_numpy(g).to(TDT[dtype]))
@@ -99,7 +106,8 @@ def test_bf16_divides_by_keep_rounded_to_bf16():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_dropout_forward_and_vjp(dtype):
     """Attention's dropout acts on y after wo and bo: the port's output
-    equals where(JAX's mask, its own undropped y / keep_c, 0) exactly,
+    equals where(JAX's mask, its own undropped y scaled as the dropout
+    op scales, 0) exactly,
     and JAX's output to the einsum path's summation order; gradients
     likewise."""
     shape = (2, 12, 32)
@@ -130,8 +138,12 @@ def test_attention_dropout_forward_and_vjp(dtype):
         plain = pop.forward(tp, [tx, tx, tx], OpContext(training=False))[0]
     mask = torch.from_numpy(np.array(
         jax.random.bernoulli(jkey, 1.0 - rate, shape)))
-    want = torch.where(mask, (plain.float() / kd.keep_in_dtype(
-        1.0 - rate, TDT[dtype])).to(TDT[dtype]), 0.0)
+    if dtype == "float32":
+        kept = plain * reciprocal_f32(1.0 - rate)
+    else:
+        kept = (plain.float() / kd.keep_in_dtype(
+            1.0 - rate, TDT[dtype])).to(TDT[dtype])
+    want = torch.where(mask, kept, 0.0)
     assert torch.equal(ty.detach(), want)
     tol = 1e-5 if dtype == "float32" else 5e-2
     np.testing.assert_allclose(ty.detach().float().numpy(), _np(jy),

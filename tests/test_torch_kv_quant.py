@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from flexflow_tpu.config import FFConfig
@@ -81,7 +82,9 @@ def test_quantize_rows_bit_equal_to_jax(kv_dtype):
     x[3, 3] = np.arange(8) - 3.5               # exact halves at int8 grid
     assert np.float32(9.13628) / (np.float32(9.13628) / np.float32(448)) \
         > 448
-    jq, js = jax_quantize(jnp.asarray(x), jdt)
+    # the reference is the jitted function: XLA computes amax / qmax as
+    # amax * f32(1 / qmax), and so does the port
+    jq, js = jax.jit(lambda a: jax_quantize(a, jdt))(jnp.asarray(x))
     tq, ts = pr.quantize_kv_rows(torch.from_numpy(x), tdt)
     assert tq.dtype == tdt and ts.dtype == torch.float32
     assert np.array_equal(_bytes(jq), tq.view(torch.uint8).numpy())

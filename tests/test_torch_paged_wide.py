@@ -6,7 +6,7 @@ meet the JAX package's jnp paths (``_ragged_jnp``, and the decode and
 v1 entry points with ``use_pallas=False``) at H = 40 and 64 and
 D = 520 and 640: the ragged version on f32, bf16, int8 and fp8 pages
 (the 1-byte pages quantized by each package's own
-``quantize_kv_rows``), over a chunk-plus-decode lane layout (a prefill
+``quantize_kv_rows``, JAX's under ``jax.jit`` as its engine runs it), over a chunk-plus-decode lane layout (a prefill
 chunk's lanes on one slot, then one decode lane per other slot, as the
 mixed step lays them out) and a shuffled one. Then the CUDA wrappers'
 CPU-side checks: no head-count limit, and the head_dim limit raising
@@ -20,6 +20,7 @@ bf16 and 1-byte pages convert to f32 exactly — each score a sum of up to
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -77,8 +78,10 @@ def test_ragged_plain_version_matches_jax(h, d, pages, layout):
                                      getattr(torch, pages))
         vq, vs = pr.quantize_kv_rows(torch.from_numpy(vp),
                                      getattr(torch, pages))
-        jkq, jks = jax_quantize(jnp.asarray(kp), getattr(jnp, pages))
-        jvq, jvs = jax_quantize(jnp.asarray(vp), getattr(jnp, pages))
+        # the JAX engine quantizes inside its jitted step
+        jquant = jax.jit(lambda a: jax_quantize(a, getattr(jnp, pages)))
+        jkq, jks = jquant(jnp.asarray(kp))
+        jvq, jvs = jquant(jnp.asarray(vp))
         ours = pr.ragged_attention_ref(tq, kq, vq, tt, ts, tl, scale,
                                        k_scales=ks, v_scales=vs)
         want = _ragged_jnp(jq, jkq, jvq, jt, js, jl, scale,

@@ -1,6 +1,7 @@
 """Where a training step of the PyTorch/CUDA port spends its time.
 
-    python3 tools/torch_train_profile.py [--model transformer|transformer_lm|nmt_lstm]
+    python3 tools/torch_train_profile.py [--model transformer|transformer_lm|nmt_lstm|
+        alexnet|inception|resnet50|candle_uno|seq2seq]
         [--modes captured,eager] [--steps 10] [--feed train_batch|fit|prefetch]
         [--out PATH]
 
@@ -12,7 +13,12 @@ LM (``--model transformer_lm``: ``build_transformer_lm`` at vocab 32000,
 tokens, compute_dtype bfloat16 over f32 masters, momentum 0.9) or the
 NMT LSTM (``--model nmt_lstm``: ``build_nmt_lstm`` at bench.py's full
 preset, batch 256, seq 40, vocab 32000, embed and hidden 1024, 2
-layers), SGD lr 0.01, weights and data from numpy seeds. For each of
+layers), or one of the sweep's models at chip_smoke.py's widths
+(``SWEEP``: AlexNet at batch 256 on 3x32x32, Inception-v3 at batch 32
+on 3x299x299 and ResNet-50 at batch 32 on 3x224x224 in bf16,
+CANDLE-Uno at batch 64 in f32, the seq2seq at batch 64 in bf16; cuDNN
+deterministic and without autotuning, as the smoke runs them), SGD lr
+0.01, weights and data from numpy seeds. For each of
 ``--modes`` — ``captured`` (every step after the first replays the
 train step's CUDA graph, the default path) and ``eager`` (capture off)
 — in turn: 3 warm-up steps, three plain windows of ``--steps`` steps
@@ -20,8 +26,10 @@ train step's CUDA graph, the default path) and ``eager`` (capture off)
 printed), then one window under ``torch.profiler`` (CPU + CUDA
 activities). Prints device time per step
 by kernel class — the hand-written kernels (flash attention or LSTM),
-matmuls, copies, the rest — with each class's share of the profiled wall
-time, and the device's idle share; for the NMT model also the idle
+convolutions (cuDNN), pooling, reductions (BatchNorm's statistics in the
+conv models), elementwise passes (BatchNorm's normalization with ReLU,
+residual adds, casts), matmuls, copies, the rest — with each class's
+share of the profiled wall time, and the device's idle share; for the NMT model also the idle
 time between the LSTM kernels' consecutive step launches.
 ``--feed`` chooses how a window's steps get their batches: one
 ``train_batch`` call a host batch (the default), or one epoch of
@@ -55,6 +63,12 @@ CLASSES = (
     ("lstm_bwd", re.compile(r"lstm_bwd_step_(mma_)?kernel|"
                             r"lstm_dh0_(mma_)?kernel")),
     ("lstm_dwh", re.compile(r"lstm_dwh_(mma_)?kernel")),
+    # cuDNN's convolution kernels and its layout transforms
+    ("conv", re.compile(r"conv|fprop|dgrad|wgrad|cudnn|winograd|"
+                        r"implicit_gemm|nchwToNhwc|nhwcToNchw", re.I)),
+    ("pool", re.compile(r"pool", re.I)),
+    ("reduce", re.compile(r"reduce_kernel|reduction", re.I)),
+    ("elementwise", re.compile(r"elementwise|vectorized", re.I)),
     # cuBLAS names its Hopper GEMMs nvjet_*
     ("matmul", re.compile(r"gemm|matmul|nvjet|sm90_|cutlass|cublas",
                           re.I)),
@@ -88,6 +102,14 @@ def launch_gaps(prof, classes):
 
 def build(cs, model, capture):
     """(model, its batches, samples a step, tokens a step)."""
+    if model in cs.SWEEP:
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        batch, route = cs.SWEEP[model][2], cs.SWEEP[model][3]
+        dtype = torch.float32 if route is None else torch.bfloat16
+        tokens = batch * 20 if model == "seq2seq" else batch
+        return (cs.sweep_model(model, batch, dtype, capture=capture),
+                cs.sweep_batches(model, batch, 4), batch, tokens)
     if model == "nmt_lstm":
         return (cs.nmt_model(torch.bfloat16, None, capture),
                 cs.nmt_batches(4), cs.NB, cs.NB * cs.NT)
@@ -192,7 +214,9 @@ def profile(cs, args, capture):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("transformer", "transformer_lm",
-                                        "nmt_lstm"),
+                                        "nmt_lstm", "alexnet", "inception",
+                                        "resnet50", "candle_uno",
+                                        "seq2seq"),
                     default="transformer")
     ap.add_argument("--modes", default="captured,eager")
     ap.add_argument("--steps", type=int, default=10)
