@@ -1317,10 +1317,10 @@ def record_steps(m, batches, steps=3):
     compute = ex._compute_grads
 
     def record(params, batch, key=None, **kw):
-        loss, logits, g = compute(params, batch, key, **kw)
+        loss, logits, g, sparse_idx = compute(params, batch, key, **kw)
         grads.append({f"{op}.{k}": w.clone() for op, p in g.items()
                       for k, w in p.items()})
-        return loss, logits, g
+        return loss, logits, g, sparse_idx
 
     ex._compute_grads = record
     losses = [float(m.train_batch(batches[i])["loss"]) for i in range(steps)]
@@ -2365,6 +2365,412 @@ def sweep_phase(ls, card: str):
     return out, s2s_launches
 
 
+# DLRM at bench.py's "full" preset (bench.py:205-229): 26 tables of
+# 1,000,000 x 64 f32 (6.66 GB), batch 8192, 13 dense features, bag 1,
+# bottom MLP 512-256-64, top MLP 512-256-1, SGD lr 0.01, MSE, metrics
+# off, ids uniform over each table as bench.py draws them. The CPU
+# parity runs at its "small" preset (26 x 100,000, batch 2048)
+DLRM_FULL = dict(tables=26, vocab=1_000_000, batch=8192)
+DLRM_SMALL = dict(tables=26, vocab=100_000, batch=2048)
+DLRM_DIM = 64
+DLRM_WINDOWS, DLRM_STEPS = 3, 10
+# the sparse-row kernel's checks: 8192 ids a table drawn from 1000 rows
+# (about 8 occurrences a row) with -1, -V and V among them
+DLRM_DUP_ROWS = 1000
+# the card's f32 step against the CPU's at DLRM_SMALL, the same weights
+# and batch: the loss to 1e-5 relative; the update of all weights, and
+# of each (relative to its own norm or UPDATE_FLOOR of the largest), to
+# 1e-2. On the card the forward agrees with a float64 CPU run to 1e-7
+# and each backward product with float64 products of the card's own
+# inputs to 2e-7, but a ReLU input within that rounding of 0 flips its
+# mask, and each flip moves one sample's gradient whole: the first chip
+# run read the update 1.6e-3 off (worst weight 3.8e-3) where the CPU's
+# f32 step sits 4e-7 from float64 (chip diagnostics, PR 12). A wrong
+# row rule (no update, another lr, the sign) reads 1 or more
+DLRM_CPU_LOSS_REL = 1e-5
+DLRM_UPDATE_REL = 1e-2
+# MoE: build_moe_fused at batch 1024 ("auto" takes the sorted dispatch:
+# 2048 slots x 8 experts x capacity 512 > 2^22 mask elements) and 256
+# (dense), build_moe_reference at 1024 (sorted); SGD lr 0.01, 784-wide
+# inputs and labels from a numpy seed. "dense" against "sorted" on the
+# same weights and batches, 3 steps: the one-hot mask contractions hold
+# one nonzero term each, so the two routings give the same sums; limit
+# 1e-6 relative on losses and 1e-6 absolute on weights
+MOE_CELLS = (("fused", 1024), ("fused", 256), ("reference", 1024))
+MOE_PATH_LOSS_REL = 1e-6
+MOE_PATH_WEIGHT_ABS = 1e-6
+MOE_WINDOWS, MOE_STEPS = 3, 20
+
+
+def dlrm_model(tables, vocab, batch, stacked=False, device="cuda",
+               capture=True, sparse=True):
+    """bench.py's DLRM on ``device``, weights from the port's numpy
+    streams of seed 0 (the same on every device)."""
+    import flexflow_tpu_torch as ft
+    m = ft.build_dlrm(ft.FFConfig(batch_size=batch, seed=0,
+                                  sparse_embedding_updates=sparse),
+                      batch_size=batch, embedding_vocab_sizes=(vocab,)
+                      * tables, embedding_dim=DLRM_DIM,
+                      stacked_tables=stacked, device=device)
+    m.compile(optimizer=ft.SGDOptimizer(lr=0.01),
+              loss_type="mean_squared_error", metrics=[], capture=capture)
+    return m
+
+
+def host_weights(m):
+    """Host copies of a model's weights, one tensor at a time (a full
+    device copy of DLRM's tables would double their memory)."""
+    return {f"{op}.{k}": w.detach().cpu()
+            for op, p in m.state.params.items() for k, w in p.items()}
+
+
+def dlrm_batches(tables, vocab, batch, n, seed=0):
+    """n host batches as bench.py draws them: normal dense features,
+    binary labels, ids uniform over each table."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = {"dense_features": rng.standard_normal((batch, 13), np.float32),
+             "label": (rng.random((batch, 1)) > 0.5).astype(np.float32)}
+        for i in range(tables):
+            b[f"sparse_{i}"] = rng.integers(0, vocab, (batch, 1)) \
+                .astype(np.int32)
+        out.append(b)
+    return out
+
+
+SPARSE_RULES = (("exact", 0, (), 0), ("momentum", 1, (0.9,), 1),
+                ("nesterov", 2, (0.9,), 1),
+                ("adam", 3, (0.9, 1 - 0.9, 0.999, 1 - 0.999, 1e-8), 2))
+
+
+def sparse_rows_inputs(sr, t, vocab, n, seed, dup, lazy):
+    """(w, g, skey, order, scalar, rows touched) on the card: t tables of
+    vocab x 64, n ids a table — uniform (the main path's) or, with
+    ``dup``, from DLRM_DUP_ROWS rows with -1, -vocab and vocab among
+    them."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn((t, vocab, DLRM_DIM), generator=gen, device="cuda")
+    g = torch.randn((t, n, DLRM_DIM), generator=gen, device="cuda") * 0.1
+    if dup:
+        ids = rng.integers(0, DLRM_DUP_ROWS, (t, n))
+        ids[:, ::97], ids[:, ::89], ids[:, ::83] = -1, vocab, -vocab
+    else:
+        ids = rng.integers(0, vocab, (t, n))
+    ids_t = torch.from_numpy(ids.astype(np.int32)).cuda()
+    skey, order = sr.sort_rows(ids_t, vocab, lazy)
+    touched = int(sum(len(np.unique(r[(r >= -vocab) & (r < vocab)]
+                                    % vocab)) for r in ids))
+    scalar = torch.tensor(0.01, dtype=torch.float32, device="cuda")
+    return w, g, ids_t, skey, order, scalar, touched
+
+
+def sparse_rows_check(sr):
+    """The kernel against its plain version bit for bit on the card, on
+    ids with many duplicates and out-of-range ids: every rule on one
+    table at the separate-table path's shape (1,000,000 x 64, 8192 ids),
+    the exact rule on the stacked path's (26 tables of it)."""
+    out = {}
+    v, n = DLRM_FULL["vocab"], DLRM_FULL["batch"]
+    cases = [(name, rule, hyper, ns, 1) for name, rule, hyper, ns
+             in SPARSE_RULES] + [("exact stacked", 0, (), 0,
+                                  DLRM_FULL["tables"])]
+    for name, rule, hyper, nslots, t in cases:
+        w, g, _, skey, order, scalar, _ = sparse_rows_inputs(
+            sr, t, v, n, seed=rule + 7 * t, dup=True, lazy=rule != 0)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        slots = [torch.randn(w.shape, generator=gen, device="cuda")
+                 for _ in range(nslots)]
+        if rule == 3:
+            slots[1].abs_()
+        wk, sk = w.clone(), [s.clone() for s in slots]
+        sr.apply_rows_cuda(wk, skey, order, g, rule, scalar, hyper, sk)
+        sr.apply_rows_ref(w, skey, order, g, rule, scalar, hyper, slots)
+        torch.cuda.synchronize()
+        diffs = [float((a - b).abs().max()) for a, b in
+                 zip([wk] + sk, [w] + slots)]
+        same = all(torch.equal(a, b) for a, b in zip([wk] + sk,
+                                                      [w] + slots))
+        if not same:
+            raise AssertionError(f"sparse_rows {name}: kernel differs from "
+                                 f"its plain version (max abs {diffs})")
+        out[name] = {"tables": t, "max_abs_err": max(diffs),
+                     "bit_equal": True}
+        del w, g, wk, sk, slots
+        torch.cuda.empty_cache()
+    log(f"sparse_rows: kernel = plain version bit for bit on "
+        f"{DLRM_DUP_ROWS}-row duplicate ids with -1, -V, V: "
+        f"{', '.join(out)} (1 or {DLRM_FULL['tables']} tables of "
+        f"{v} x {DLRM_DIM}, {n} ids a table)")
+    return out
+
+
+def sparse_rows_time(sr, t):
+    """The exact rule at the main path's input (t tables of 1,000,000 x
+    64, 8192 uniform ids each, keys sorted beforehand): the kernel, its
+    plain version, and index_add_ of the same rows (atomics, no fixed
+    order: the library yardstick) in 3 interleaved rounds, beside the
+    bound: each touched row read and written once, the gradient rows,
+    keys and permutation read once, at the HBM rate."""
+    v, n = DLRM_FULL["vocab"], DLRM_FULL["batch"]
+    w, g, ids, skey, order, scalar, touched = sparse_rows_inputs(
+        sr, t, v, n, seed=5, dup=False, lazy=False)
+    flat = w.view(t * v, DLRM_DIM)
+    gid = (ids.long() + torch.arange(t, device="cuda")[:, None] * v) \
+        .reshape(-1)
+    upd = (-scalar * g).reshape(-1, DLRM_DIM)
+    rounds = yardstick({
+        "kernel": lambda: sr.apply_rows_cuda(w, skey, order, g, 0, scalar),
+        "plain": lambda: sr.apply_rows_ref(w, skey, order, g, 0, scalar),
+        "library": lambda: flat.index_add_(0, gid, upd)}, iters=5)
+    nbytes = (2 * touched * DLRM_DIM * 4 + g.numel() * 4
+              + 2 * skey.numel() * 8)
+    b_ms, b_by = bound(nbytes, 2.0 * g.numel(), torch.float32)
+    med = {k: statistics.median(x) for k, x in rounds.items()}
+    res = {"tables": t, "ids": n, "rows_touched": touched,
+           "ms": med["kernel"], "plain_ms": med["plain"],
+           "library_ms": med["library"], "bound_ms": b_ms,
+           "bound_by": b_by, "ms_rounds": rounds["kernel"],
+           "library_ms_rounds": rounds["library"]}
+    log(f"sparse_rows exact, {t} x {v} x {DLRM_DIM}, {n} ids a table: "
+        f"kernel {spread(rounds['kernel'])} ms, plain "
+        f"{spread(rounds['plain'])}, index_add_ {spread(rounds['library'])}"
+        f", bound {b_ms:.4f} ({b_by}, {nbytes / 1e6:.1f} MB)")
+    del w, g, flat, upd
+    torch.cuda.empty_cache()
+    return res
+
+
+def dlrm_main(sr, card: str, stacked: bool):
+    """The main path at full shape: 3 eager steps against 3 captured
+    ones bit for bit (losses, every table and weight), then 3 windows of
+    DLRM_STEPS captured steps with sparse updates, then the same model
+    with ``sparse_embedding_updates`` off (the dense table update:
+    captured anew) for as many. The kernel's counts are zeroed just
+    before the captured model runs and read before the dense windows."""
+    f = DLRM_FULL
+    host = dlrm_batches(f["tables"], f["vocab"], f["batch"], 3, seed=2)
+    eager = dlrm_model(stacked=stacked, capture=False, **f)
+    dev = [eager.executor.shard_batch(b) for b in host]
+    le = [float(eager.train_batch(b)["loss"]) for b in dev]
+    we = host_weights(eager)       # on the host: out of the peak below
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    sr.launches.update(dict.fromkeys(sr.launches, 0))
+    t0 = time.perf_counter()
+    m = dlrm_model(stacked=stacked, **f)
+    init_s = time.perf_counter() - t0
+    # peak memory over the capturing step: a replay allocates nothing,
+    # its working set stays in the graph's pool
+    torch.cuda.reset_peak_memory_stats()
+    lc = [float(m.train_batch(b)["loss"]) for b in dev]
+    peak = torch.cuda.max_memory_allocated()
+    wdiff = max_weight_diff(we, host_weights(m))
+    if lc != le or wdiff[0] != 0.0:
+        raise AssertionError(f"dlrm stacked={stacked}: captured steps differ "
+                             f"from eager: losses {lc} vs {le}, weights "
+                             f"{wdiff}")
+    del we
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = timed_windows(m, dev[0], DLRM_WINDOWS, DLRM_STEPS)
+    launches = dict(sr.launches)
+    tables = 1 if stacked else f["tables"]
+    want = tables * (3 + DLRM_WINDOWS * DLRM_STEPS)
+    if launches != {"sparse_rows_exact": want, "sparse_rows_lazy": 0}:
+        raise AssertionError(f"dlrm stacked={stacked}: sparse_rows launches "
+                             f"{launches}, want {want} exact")
+    m.config.sparse_embedding_updates = False
+    torch.cuda.reset_peak_memory_stats()
+    float(m.train_batch(dev[0])["loss"])       # captures the dense step
+    peak_dense = torch.cuda.max_memory_allocated()
+    ms_dense = timed_windows(m, dev[0], DLRM_WINDOWS, DLRM_STEPS)
+    if dict(sr.launches) != launches:
+        raise AssertionError("the dense path launched sparse_rows")
+    counts = m.compile_counts()
+    if counts.get("train_step") != 2:
+        raise AssertionError(f"dlrm captures {counts}: want one a routing")
+    if not all(math.isfinite(x) for x in lc):
+        raise AssertionError(f"dlrm: non-finite losses {lc}")
+    b = f["batch"]
+    med, med_d = statistics.median(ms), statistics.median(ms_dense)
+    res = {"stacked": stacked, "batch": b, "init_s": init_s,
+           "table_gb": f["tables"] * f["vocab"] * DLRM_DIM * 4 / 1e9,
+           "losses": lc, "launches": launches, "captures": counts,
+           "sparse": {"step_ms": med, "step_ms_range": [min(ms), max(ms)],
+                      "step_ms_windows": ms, "samples_per_s": b * 1e3 / med,
+                      "peak_mem_gib": peak / 2**30},
+           "dense": {"step_ms": med_d,
+                     "step_ms_range": [min(ms_dense), max(ms_dense)],
+                     "step_ms_windows": ms_dense,
+                     "samples_per_s": b * 1e3 / med_d,
+                     "peak_mem_gib": peak_dense / 2**30}}
+    log(f"dlrm {'stacked' if stacked else 'separate'} [{card}]: "
+        f"{f['tables']} x {f['vocab']} x {DLRM_DIM} f32 "
+        f"({res['table_gb']:.2f} GB), batch {b}; 3 captured steps = 3 "
+        f"eager bit for bit (losses {lc}, every table and weight); sparse "
+        f"updates: step ms median {med:.3f} range {min(ms):.3f}-"
+        f"{max(ms):.3f} over {DLRM_WINDOWS} windows of {DLRM_STEPS}, "
+        f"{b * 1e3 / med:.0f} samples/s, peak {peak / 2**30:.2f} GiB, "
+        f"sparse_rows launches {launches}; dense updates: step ms median "
+        f"{med_d:.3f} range {min(ms_dense):.3f}-{max(ms_dense):.3f}, "
+        f"{b * 1e3 / med_d:.0f} samples/s, peak {peak_dense / 2**30:.2f} "
+        f"GiB")
+    del m, dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def dlrm_cpu_parity():
+    """One f32 step on the card against the port's CPU step at
+    DLRM_SMALL (the same weights and batch): the loss, the update of all
+    weights and of each."""
+    s = DLRM_SMALL
+    batch = dlrm_batches(s["tables"], s["vocab"], s["batch"], 1, seed=1)[0]
+    cpu = dlrm_model(device="cpu", **s)
+    w0 = {n: w.float().clone() for n, w in weights_of(cpu).items()}
+    t0 = time.perf_counter()
+    stc = one_step(cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    card = dlrm_model(capture=False, **s)
+    same = max_weight_diff({n: w.cuda() for n, w in w0.items()},
+                           weights_of(card))
+    if same[0] != 0.0:
+        raise AssertionError(f"dlrm: card and CPU initial weights differ "
+                             f"{same}")
+    stg = one_step(card, batch)
+    del card
+    torch.cuda.empty_cache()
+    res = {"cpu_step_s": cpu_s, "loss_card": stg[0], "loss_cpu": stc[0],
+           **compare_steps(w0, {}, stg, stc),
+           "limits": {"loss_rel": DLRM_CPU_LOSS_REL,
+                      "update_rel": DLRM_UPDATE_REL,
+                      "each": DLRM_UPDATE_REL}}
+    log(f"dlrm card f32 step vs CPU ({s['tables']} x {s['vocab']}, batch "
+        f"{s['batch']}): loss {stg[0]} vs {stc[0]} (rel "
+        f"{res['loss_rel']:.3g}, limit {DLRM_CPU_LOSS_REL}), update rel "
+        f"{res['update_rel']:.3g}, worst weight "
+        f"{res['worst_weights'][0][0]} {res['worst_weights'][0][1]:.3g} "
+        f"(limits {DLRM_UPDATE_REL}); CPU step {cpu_s:.2f} s")
+    if not (res["loss_rel"] <= DLRM_CPU_LOSS_REL
+            and res["update_rel"] <= DLRM_UPDATE_REL
+            and res["worst_weights"][0][1] <= DLRM_UPDATE_REL):
+        raise AssertionError(f"dlrm card vs CPU past the limits: {res}")
+    return res
+
+
+def dlrm_phase(sr, card: str):
+    """The sparse-row kernel's checks and times, the CPU parity, then
+    the separate-table and stacked main paths at full shape."""
+    t0 = time.perf_counter()
+    res = {"kernel_checks": sparse_rows_check(sr),
+           "kernel_time": {"separate": sparse_rows_time(sr, 1),
+                           "stacked": sparse_rows_time(
+                               sr, DLRM_FULL["tables"])},
+           "cpu_parity": dlrm_cpu_parity()}
+    res["separate"] = dlrm_main(sr, card, stacked=False)
+    res["stacked"] = dlrm_main(sr, card, stacked=True)
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
+def moe_model(kind, batch, capture=True, mode="auto"):
+    import flexflow_tpu_torch as ft
+    build = ft.build_moe_fused if kind == "fused" \
+        else ft.build_moe_reference
+    m = build(ft.FFConfig(batch_size=batch, seed=0, moe_dispatch=mode),
+              batch_size=batch, device="cuda")
+    m.compile(optimizer=ft.SGDOptimizer(lr=0.01),
+              loss_type="sparse_categorical_crossentropy", metrics=[],
+              capture=capture)
+    return m
+
+
+def moe_batches(batch, n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"input": rng.standard_normal((batch, 784), np.float32),
+             "label": rng.integers(0, 10, batch).astype(np.int32)}
+            for _ in range(n)]
+
+
+def moe_sorted(m):
+    """The dispatch path a MoE model's routing op takes."""
+    from flexflow_tpu_torch.ops.moe import use_sorted_dispatch
+    for op in m.ops:
+        if op.op_type == "moe_ffn":
+            return op.sorted_path()
+        if op.op_type == "group_by":
+            return use_sorted_dispatch(m, op.k * op.inputs[0].shape[0],
+                                       op.n, op.capacity)
+    raise AssertionError("no MoE routing op")
+
+
+def moe_phase(card: str):
+    """Each MOE_CELLS model: 3 eager steps against 3 captured ones bit
+    for bit, "dense" against "sorted" routing (eager, 3 steps), then 3
+    windows of MOE_STEPS captured steps."""
+    out = {}
+    for kind, batch in MOE_CELLS:
+        host = moe_batches(batch, 3, seed=4)
+        runs = {}
+        for mode in ("dense", "sorted"):
+            m = moe_model(kind, batch, capture=False, mode=mode)
+            dev = [m.executor.shard_batch(b) for b in host]
+            runs[mode] = ([float(m.train_batch(b)["loss"]) for b in dev],
+                          weights_of(m))
+            del m
+        (ld, wd), (ls_, ws) = runs["dense"], runs["sorted"]
+        path_loss = max(abs(a - b) / abs(b) for a, b in zip(ld, ls_))
+        path_w = max_weight_diff(wd, ws)
+        if not (path_loss <= MOE_PATH_LOSS_REL
+                and path_w[0] <= MOE_PATH_WEIGHT_ABS):
+            raise AssertionError(f"moe {kind} b={batch}: dense vs sorted "
+                                 f"losses {ld} vs {ls_}, weights {path_w}")
+        eager = moe_model(kind, batch, capture=False)
+        le = [float(eager.train_batch(b)["loss"]) for b in dev]
+        we = weights_of(eager)
+        del eager
+        m = moe_model(kind, batch)
+        lc = [float(m.train_batch(b)["loss"]) for b in dev]
+        wdiff = max_weight_diff(we, weights_of(m))
+        if lc != le or wdiff[0] != 0.0:
+            raise AssertionError(f"moe {kind} b={batch}: captured steps "
+                                 f"differ from eager: losses {lc} vs {le}, "
+                                 f"weights {wdiff}")
+        if not all(math.isfinite(x) for x in lc):
+            raise AssertionError(f"moe {kind}: non-finite losses {lc}")
+        ms = timed_windows(m, dev[0], MOE_WINDOWS, MOE_STEPS)
+        med = statistics.median(ms)
+        res = {"batch": batch, "sorted_dispatch": moe_sorted(m),
+               "losses": lc, "dense_vs_sorted_loss_rel": path_loss,
+               "dense_vs_sorted_weight_abs": path_w[0],
+               "step_ms": med, "step_ms_range": [min(ms), max(ms)],
+               "step_ms_windows": ms, "samples_per_s": batch * 1e3 / med,
+               "captures": m.compile_counts()}
+        log(f"moe {kind} [{card}] batch {batch} ("
+            f"{'sorted' if res['sorted_dispatch'] else 'dense'} dispatch "
+            f"under auto): 3 captured steps = 3 eager bit for bit (losses "
+            f"{lc}); dense vs sorted: loss rel {path_loss:.3g}, weights "
+            f"{path_w[0]:.3g} (limits {MOE_PATH_LOSS_REL}, "
+            f"{MOE_PATH_WEIGHT_ABS}); step ms median {med:.3f} range "
+            f"{min(ms):.3f}-{max(ms):.3f}, {res['samples_per_s']:.0f} "
+            f"samples/s")
+        out[f"{kind} b={batch}"] = res
+        del m, dev
+        gc.collect()
+        torch.cuda.empty_cache()
+    want = {("fused", 1024): True, ("fused", 256): False,
+            ("reference", 1024): True}
+    got = {(k, b): out[f"{k} b={b}"]["sorted_dispatch"] for k, b in want}
+    if got != want:
+        raise AssertionError(f"moe auto dispatch {got}, want {want}")
+    return out
+
+
 def _kernel_name(sym: str) -> str:
     """A mangled kernel symbol as name[template args, still mangled]:
     the name is the length-prefixed identifier ending in _kernel."""
@@ -2445,6 +2851,7 @@ def main() -> int:
     from flexflow_tpu_torch.kernels import flash_attention as fa
     from flexflow_tpu_torch.kernels import lstm_scan as ls
     from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
+    from flexflow_tpu_torch.kernels import sparse_rows as sr
 
     t_start = time.perf_counter()
     card = card_line()
@@ -2535,6 +2942,8 @@ def main() -> int:
     fitres, drop_launches = fit_loop_phase(kd, fa, card)
     dres_f = dropout_phase(kd)
     swres, s2s_launches = sweep_phase(ls, card)
+    dlres = dlrm_phase(sr, card)
+    moeres = moe_phase(card)
 
     def head(cells):
         """A row's headline numbers: its f32 cell."""
@@ -2644,6 +3053,33 @@ def main() -> int:
             "ptxas": {k: u for k, u in usage.items()
                       if k.startswith("dropout_")}})
     rows[-1]["fit_loop"] = fitres
+    # the sparse-row kernel: no TPU kernel (JAX scatters the rows in XLA);
+    # the headline cell is the separate-table path's (one table a launch)
+    sep = dlres["kernel_time"]["separate"]
+    checks = dlres["kernel_checks"]
+    rows.append({
+        "name": "sparse_rows", "route": "cuda",
+        "source": "flexflow_tpu_torch/kernels/csrc/sparse_rows.cu",
+        "replaces": "flexflow_tpu/core/optimizers.py:151",
+        "replaces_note": "XLA's scatter in SGDOptimizer.sparse_update "
+                         "(exact); the lazy rules at :158 and :231; no "
+                         "Pallas kernel",
+        "launches": dlres["separate"]["launches"]["sparse_rows_exact"],
+        "stacked_launches":
+            dlres["stacked"]["launches"]["sparse_rows_exact"],
+        "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+        **{k: sep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "ms_rounds",
+                               "library_ms_rounds", "rows_touched")},
+        "library_note": "index_add_: the same update with atomics, in no "
+                        "fixed order",
+        "stacked": dlres["kernel_time"]["stacked"], "checks": checks,
+        "ptxas": {k: u for k, u in usage.items()
+                  if k.startswith("sparse_rows_")}})
+    log(json.dumps({"dlrm": {k: v for k, v in dlres.items()
+                             if k not in ("kernel_checks",
+                                          "kernel_time")}}))
+    log(json.dumps({"moe": moeres}))
     log(json.dumps({"sweep": swres}))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

@@ -28,7 +28,11 @@ neither it nor JAX. It serves and trains on one NVIDIA H100:
     crash-safe checkpoints (``core/checkpoint.py``), remat, the runtime
     learning rate, and dropout drawn from JAX's own key stream
     (``core/prng.py``) by a hand-written kernel
-    (``kernels/csrc/dropout.cu``).
+    (``kernels/csrc/dropout.cu``);
+  * DLRM (``build_dlrm``, separate or stacked tables) with the JAX
+    executor's sparse embedding updates, the touched rows updated in a
+    hand-written kernel (``kernels/csrc/sparse_rows.cu``), and the MoE
+    ops and models (``build_moe_reference``, ``build_moe_fused``).
 
 Every serving and training step is one program of a registry
 (``core/programs.py``): on the card it is captured once as a CUDA graph
@@ -39,8 +43,10 @@ and replayed. Entry points run on the card unless the caller passes
 from .config import CompMode, FFConfig, resolve_device
 from .core.optimizers import AdamOptimizer, SGDOptimizer
 from .model import FFModel
-from .models import (build_alexnet, build_candle_uno, build_inception_v3,
-                     build_nmt_lstm, build_nmt_seq2seq, build_resnet)
+from .models import (build_alexnet, build_candle_uno, build_dlrm,
+                     build_inception_v3, build_moe_fused,
+                     build_moe_reference, build_nmt_lstm, build_nmt_seq2seq,
+                     build_resnet)
 from .models.transformer import (LMArch, TransformerLM, build_transformer,
                                  build_transformer_lm)
 from .serve import ServeEngine
@@ -48,7 +54,8 @@ from .weights import from_jax_params, load_jax_params
 
 __all__ = ["CompMode", "FFConfig", "resolve_device", "FFModel", "SGDOptimizer",
            "AdamOptimizer", "LMArch", "TransformerLM", "build_alexnet",
-           "build_candle_uno", "build_inception_v3", "build_nmt_lstm",
+           "build_candle_uno", "build_dlrm", "build_inception_v3",
+           "build_moe_fused", "build_moe_reference", "build_nmt_lstm",
            "build_nmt_seq2seq", "build_resnet",
            "build_transformer", "build_transformer_lm", "ServeEngine",
            "from_jax_params", "load_jax_params"]

@@ -5,8 +5,10 @@ port's slices read, under the same names and defaults, so one set of
 knobs sizes both packages: the serving fields of the serving slice and
 the training fields of the training slice, and the mixed-precision
 policy of ``core/precision.py``, ``remat`` and
-``iter_config.seq_length``, and the conv knobs ``conv_layout`` and
-``sibling_conv_fusion``. A few knobs the port does not run yet
+``iter_config.seq_length``, the conv knobs ``conv_layout`` and
+``sibling_conv_fusion``, the sparse embedding routing
+(``sparse_embedding_updates``, ``sparse_embedding_lazy``) and
+``moe_dispatch``. A few knobs the port does not run yet
 (search, pipelines, fusion, telemetry) are here at their JAX
 defaults so that setting one reaches ``FFModel.compile``, which raises
 ``NotImplementedError`` instead of ignoring it. The rest of the JAX
@@ -59,14 +61,19 @@ class FFConfig:
     # master dtype of float parameters and optimizer state (the
     # mixed-precision policy, core/precision.py)
     param_dtype: torch.dtype = torch.float32
-    # embedding-table updates. The port updates tables densely through
-    # autograd, which is the function of both settings of the JAX
-    # sparse_embedding_updates switch (with plain SGD its sparse update
-    # is "exact", the dense update restricted to the touched rows; the
-    # other optimizers stay dense unless lazy), so it has no such
-    # switch. The lazy rule (stale optimizer slots on untouched rows)
-    # is not ported: FFModel.compile raises when it is asked for
+    # embedding-table updates (core/executor.py _sparse_table_ops, the
+    # JAX executor's routing): a table whose ids are graph inputs trains
+    # through the optimizer's sparse row rule — SGD without momentum
+    # always ("exact": (-lr) * g added once per id occurrence, which is
+    # not the dense update where ids repeat), SGD with momentum and Adam
+    # only when sparse_embedding_lazy opts in (untouched rows keep stale
+    # slots). False trains every table densely through autograd
+    sparse_embedding_updates: bool = True
     sparse_embedding_lazy: bool = False
+    # MoE dispatch (ops/moe.py use_sorted_dispatch): "auto" takes the
+    # sorted scatter above DENSE_MASK_ELEMENT_LIMIT mask elements, else
+    # the dense one-hot mask; "dense" and "sorted" force one path
+    moe_dispatch: str = "auto"
 
     # dtype the step computes in: params and float inputs are cast to
     # it inside the differentiated region, losses and metrics score
@@ -157,6 +164,10 @@ class FFConfig:
             raise ValueError(
                 f"conv_layout must be 'NCHW' or 'NHWC', got "
                 f"{self.conv_layout!r}")
+        if self.moe_dispatch not in ("auto", "dense", "sorted"):
+            raise ValueError(
+                f"moe_dispatch must be 'auto', 'dense' or 'sorted', "
+                f"got {self.moe_dispatch!r}")
         if self.kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"kv_dtype must be one of {KV_DTYPES}, "

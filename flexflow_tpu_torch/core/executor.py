@@ -1,7 +1,7 @@
 """Executor: runs the op graph as single-device train and eval steps.
 
 Counterpart of ``flexflow_tpu/core/executor.py`` without the mesh,
-strategy, fusion groups or sparse tables. The parameter tree has the
+strategy or fusion groups. The parameter tree has the
 JAX package's layout and names, ``{op_name: {weight_name: tensor}}``;
 gradients come from ``torch.autograd.grad`` in place of
 ``jax.value_and_grad``, and the optimizer updates the parameter tensors
@@ -30,6 +30,18 @@ transposes between two array layouts go; a PyTorch tensor carries its
 layout in its strides under an unchanged NCHW shape, so here the same
 pass reduces to choosing each value's memory format, and a consumer
 outside the set only needs ``.contiguous()``.
+
+Sparse tables (``_sparse_table_ops``, the JAX executor's routing): an
+``Embedding`` or ``DistributedEmbedding`` whose ids are graph inputs,
+under ``sparse_embedding_updates`` and an optimizer whose sparse rule
+is "exact" (or "lazy" under ``sparse_embedding_lazy``), has its rows
+gathered outside the differentiated region and handed to the op as
+``"__rows__"``; autograd returns the rows' gradient, and the optimizer's
+``sparse_update`` applies the rule to the touched rows in place
+(``kernels/sparse_rows.py``). The routing is keyed on the live flags and
+the optimizer: a change drops the captured train programs, so the next
+dispatch captures anew. An op's ``ctx.aux_loss`` (MoE's load-balancing
+loss) is added to the loss in op order.
 
 Randomness follows the JAX key chain (core/prng.py): each train step
 gets a step key, and each op draws from ``fold_in(step key,
@@ -67,6 +79,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..op import OpContext
 from ..ops.conv import merged_conv_forward
+from ..ops.embedding import DistributedEmbedding, Embedding
 from . import initializers as I
 from . import losses as L
 from . import metrics as M
@@ -74,7 +87,7 @@ from . import precision as MP
 from .precision import reciprocal_f32
 from .dataloader import host_to_device
 from .optimizers import Optimizer
-from .programs import PinnedRing, ProgramRegistry
+from .programs import PinnedRing, ProgramRegistry, fingerprint_hash
 from .prng import OpRng, key_words
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
@@ -123,6 +136,10 @@ class Executor:
         self.compute_dtype = self.config.compute_dtype
         self.param_dtype = self.config.param_dtype
         self._mp_active = MP.policy_active(self.config)
+        # the sparse-table routing and the key it was computed for
+        self._sparse_ops = None
+        self._sparse_key = None
+        self._last_aux_losses: List[torch.Tensor] = []
         # the train-step program (capture=False: every step eager, the
         # reference runs of the tests and the smoke)
         self.programs = ProgramRegistry(self._fingerprint(), self.device,
@@ -181,7 +198,42 @@ class Executor:
             "conv_layout": self.config.conv_layout,
             "sibling_conv_fusion": bool(self.config.sibling_conv_fusion),
             "device": str(self.device),
+            "sparse_tables": sorted(self._sparse_table_ops()),
         }
+
+    # ---------------- sparse-table routing ----------------
+    _TRAIN_FAMILIES = ("train_step", "train_step_multi", "train_step_accum")
+
+    def _sparse_table_ops(self) -> Dict[str, object]:
+        """{name: op} of the embedding ops that train through the sparse
+        row rule: their ids are graph inputs (so the rows can be gathered
+        before differentiation), ``sparse_embedding_updates`` is on, and
+        the optimizer's ``sparse_mode`` is "exact", or "lazy" with
+        ``sparse_embedding_lazy``. Keyed on the live flags and the
+        optimizer object: when they change after programs were captured,
+        the train programs are dropped (their graphs baked in the old
+        split) and the registry's fingerprint is recomputed."""
+        opt = self.optimizer
+        mode = opt.sparse_mode() if opt is not None else None
+        key = (bool(self.config.sparse_embedding_updates),
+               bool(self.config.sparse_embedding_lazy), opt, mode)
+        if self._sparse_ops is not None and key == self._sparse_key:
+            return self._sparse_ops
+        stale = self._sparse_ops is not None
+        out = {}
+        allowed = mode == "exact" or (
+            mode == "lazy" and self.config.sparse_embedding_lazy)
+        if self.config.sparse_embedding_updates and allowed \
+                and self.comp_mode != "inference":
+            inputs = {t.uid for t in self.model.input_tensors}
+            out = {op.name: op for op in self.model.ops
+                   if isinstance(op, (Embedding, DistributedEmbedding))
+                   and all(t.uid in inputs for t in op.inputs)}
+        self._sparse_ops, self._sparse_key = out, key
+        if stale:
+            self.programs.release(self._TRAIN_FAMILIES)
+            self.programs.fp_hash = fingerprint_hash(self._fingerprint())
+        return out
 
     # ---------------- initialization ----------------
     def init_state(self) -> TrainState:
@@ -252,6 +304,7 @@ class Executor:
         remat = self.config.remat and torch.is_grad_enabled()
         # merged sibling convs' slices, claimed by each member in turn
         merged_pending: Dict[str, torch.Tensor] = {}
+        aux_losses: List[torch.Tensor] = []
         for op in self.model.ops:
             ctx = OpContext(
                 training=training, seq_length=seq_length,
@@ -288,10 +341,12 @@ class Executor:
                 for m, y in zip(group[1:], outs[1:]):
                     merged_pending[m.name] = y
                 ys = [outs[0]]
-            elif remat and op.weight_specs() and not op.state_specs():
+            elif (remat and op.weight_specs() and not op.state_specs()
+                    and not op.has_aux_loss):
                 # recompute this op's activations in the backward; ops
-                # with state are left out, as the JAX executor leaves
-                # them (their state_out must not come from a recompute)
+                # with state or an aux loss are left out, as the JAX
+                # executor leaves them (their state_out and aux_loss must
+                # not come from a recompute)
                 ys = checkpoint(
                     lambda p, x, _op=op, _ctx=ctx: _op.forward(p, x, _ctx),
                     op_params, xs, use_reentrant=False,
@@ -309,6 +364,9 @@ class Executor:
                 values[t.uid] = y
             if ctx.state_out and new_states is not None:
                 new_states[op.name] = ctx.state_out
+            if ctx.aux_loss is not None:
+                aux_losses.append(ctx.aux_loss)
+        self._last_aux_losses = aux_losses
         return values
 
     def _outputs_and_loss(self, params, batch, training, key=None,
@@ -333,14 +391,31 @@ class Executor:
         loss = torch.zeros((), dtype=torch.float32, device=logits.device)
         if self.loss_fn is not None and "label" in batch:
             loss = self.loss_fn(logits, batch["label"])
+        for aux in self._last_aux_losses:
+            loss = loss + aux
         return loss, logits
 
     def _compute_grads(self, params: Tree, batch, key=None, states=None):
-        """(loss, logits, grads) for one batch; grads mirror params.
-        The masters are cast inside the walk (the policy) or inside
-        each op (a builder's bf16 graph), so the gradients arrive back
-        through the casts in the masters' dtype. ``states`` is updated
-        in place."""
+        """(loss, logits, grads, sparse_idx) for one batch; grads mirror
+        the differentiated params. A sparse table's rows are gathered
+        here, outside the differentiated region, and its op reads them as
+        ``"__rows__"``: its entry of ``grads`` is ``{"__rows__": the
+        rows' gradient}`` and ``sparse_idx[name]`` holds its ids as the
+        gather read them. The masters are cast inside the walk (the
+        policy) or inside each op (a builder's bf16 graph), so the
+        gradients arrive back through the casts in the masters' dtype.
+        ``states`` is updated in place."""
+        sparse_ops = self._sparse_table_ops()
+        sparse_idx: Dict[str, torch.Tensor] = {}
+        if sparse_ops:
+            params = dict(params)
+            for name, op in sparse_ops.items():
+                with torch.no_grad():
+                    idx, rows = op.gather(
+                        params[name]["kernel"],
+                        [batch[t.name] for t in op.inputs])
+                sparse_idx[name] = idx
+                params[name] = {"__rows__": rows.requires_grad_(True)}
         loss, logits = self._outputs_and_loss(params, batch, True, key,
                                               states)
         names = [(op, k) for op, p in params.items() for k in p]
@@ -349,7 +424,31 @@ class Executor:
         grads: Tree = {op: {} for op in params}
         for (op, k), w, g in zip(names, leaves, gs):
             grads[op][k] = torch.zeros_like(w) if g is None else g
-        return loss.detach(), logits.detach(), grads
+        return loss.detach(), logits.detach(), grads, sparse_idx
+
+    def _apply_update(self, state: TrainState, grads, sparse_idx, scalar):
+        """The optimizer's dense rule on every parameter but the sparse
+        tables, then its sparse rule on each sparse table (a
+        ``DistributedEmbedding`` stack in one call), all in place."""
+        sparse_ops = self._sparse_table_ops()
+        if not sparse_ops:
+            self.optimizer.update(state.params, grads, state.opt_state,
+                                  state.step, scalar=scalar)
+            return
+        dense = {k: v for k, v in state.params.items()
+                 if k not in sparse_ops}
+        self.optimizer.update(
+            dense, {k: grads[k] for k in dense},
+            {slot: {k: v for k, v in tree.items() if k not in sparse_ops}
+             for slot, tree in state.opt_state.items()},
+            state.step, scalar=scalar)
+        for name in sparse_ops:
+            slots = {slot: tree[name]["kernel"]
+                     for slot, tree in state.opt_state.items()
+                     if name in tree}
+            self.optimizer.sparse_update(
+                state.params[name]["kernel"], sparse_idx[name],
+                grads[name]["__rows__"], slots, state.step, scalar=scalar)
 
     def _metrics(self, loss, logits, batch):
         metrics = {"loss": loss}
@@ -394,12 +493,11 @@ class Executor:
     def _step_body(self, state: TrainState, batch, key, scalar):
         """One optimizer step: gradients, metrics and the in-place
         update; shared by the single- and multi-step programs."""
-        loss, logits, grads = self._compute_grads(state.params, batch, key,
-                                                  states=state.states)
+        loss, logits, grads, sparse_idx = self._compute_grads(
+            state.params, batch, key, states=state.states)
         with torch.no_grad():
             metrics = self._metrics(loss, logits, batch)
-        self.optimizer.update(state.params, grads, state.opt_state,
-                              state.step, scalar=scalar)
+            self._apply_update(state, grads, sparse_idx, scalar)
         return metrics
 
     def _dispatch(self, family: str, body, state: TrainState, batch,
@@ -408,7 +506,8 @@ class Executor:
         program: the batch tensors in sorted-name order, then the staged
         keys and scalars. The static key holds what a captured body
         bakes in: the names, the optimizer's class and hyperparameters
-        (the JAX executor's _opt_sig), seq_length and remat."""
+        (the JAX executor's _opt_sig), seq_length, remat and the sparse
+        tables."""
         names = tuple(sorted(batch))
         aux = self._stage(keys, scalars)
         nkeys = len(keys)
@@ -423,7 +522,8 @@ class Executor:
         out = self.programs.call(
             family, run, names,
             (self._opt_sig(), self.config.iter_config.seq_length,
-             bool(self.config.remat)),
+             bool(self.config.remat), tuple(sorted(
+                 self._sparse_table_ops()))),
             *(batch[k] for k in names), aux, bound=bound)
         self._staging.consumed()
         # this dispatch's own copies: a replay overwrites the outputs
@@ -473,24 +573,46 @@ class Executor:
         inv_k = reciprocal_f32(k_micro)
 
         def body(b, k, sc):
+            sparse_ops = self._sparse_table_ops()
             gacc = {op: {n: torch.zeros_like(w, dtype=torch.float32)
                          for n, w in p.items()}
-                    for op, p in state.params.items()}
+                    for op, p in state.params.items()
+                    if op not in sparse_ops}
+            rows = {name: [] for name in sparse_ops}
+            ids = {name: [] for name in sparse_ops}
             out = []
             for i in range(k_micro):
                 mb = {n: v[i] for n, v in b.items()}
-                loss, logits, grads = self._compute_grads(
+                loss, logits, grads, sidx = self._compute_grads(
                     state.params, mb, k[i], states=state.states)
                 with torch.no_grad():
                     for op, p in gacc.items():
                         for n in p:
                             p[n] = p[n] + grads[op][n].float()
+                    for name in sparse_ops:
+                        rows[name].append(grads[name]["__rows__"])
+                        ids[name].append(sidx[name])
                     out.append(self._metrics(loss, logits, mb))
             with torch.no_grad():
                 gmean = {op: {n: g * inv_k for n, g in p.items()}
                          for op, p in gacc.items()}
-                self.optimizer.update(state.params, gmean, state.opt_state,
-                                      state.step, scalar=sc[0])
+                # the microbatches' row gradients (each times f32(1/K))
+                # and ids concatenated, a stack's per table: one sparse
+                # update, as for the K-times batch
+                sparse_idx = {}
+                for name, op in sparse_ops.items():
+                    r = torch.stack(rows[name]) * inv_k
+                    i = torch.stack(ids[name])
+                    if isinstance(op, DistributedEmbedding):
+                        r = r.movedim(0, 1).reshape(r.shape[1], -1,
+                                                    r.shape[-1])
+                        i = i.movedim(0, 1).reshape(i.shape[1], -1)
+                    else:
+                        r = r.reshape(-1, r.shape[-1])
+                        i = i.reshape(-1)
+                    gmean[name] = {"__rows__": r}
+                    sparse_idx[name] = i
+                self._apply_update(state, gmean, sparse_idx, sc[0])
                 metrics = {n: torch.stack([m[n] for m in out]).sum(
                     dim=0).to(out[0][n].dtype) for n in out[0]}
                 metrics["loss"] = metrics["loss"] * inv_k

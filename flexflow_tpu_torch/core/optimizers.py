@@ -19,6 +19,17 @@ in as a 0-d device tensor (``update(..., scalar=...)``), which the
 executor writes before each step: a captured train step
 (core/programs.py) then reads each step's value instead of one baked in
 at capture, and a new learning rate captures nothing anew.
+
+Embedding tables whose ids are graph inputs take the JAX executor's
+sparse path (core/executor.py ``_sparse_table_ops``): ``sparse_mode``
+says how ``sparse_update`` relates to ``update`` ("exact" for SGD
+without momentum or decay, "lazy" for SGD with momentum and for Adam,
+None with weight decay), and ``sparse_update`` applies the rule to the
+touched rows only, in place, through ``kernels/sparse_rows.py`` (a
+kernel on the card, its plain version on the CPU). "Exact" is not the
+dense rule's value where ids repeat: the dense update sums a row's
+gradients first and then subtracts ``lr * sum``, the sparse one adds
+``(-lr) * g`` once per occurrence, and the JAX default is the latter.
 """
 
 from __future__ import annotations
@@ -27,7 +38,32 @@ from typing import Any, Dict
 
 import torch
 
+from ..kernels import sparse_rows as SR
+
 Tree = Dict[str, Dict[str, torch.Tensor]]
+
+
+def coalesce_rows(idx, g, vocab: int):
+    """JAX's static-shape duplicate coalescing (``coalesce_rows`` of
+    flexflow_tpu/core/optimizers.py): a stable sort of the ids, segment
+    ids by a cumsum of run starts, each segment's gradients summed in
+    sorted order from 0, and unused slots parked at row ``vocab``.
+    Returns (uidx, gsum), both of the input's length n. The sparse
+    rules do this inside ``kernels/sparse_rows.py``."""
+    n = idx.shape[0]
+    sidx, order = torch.sort(idx, stable=True)
+    start = torch.ones(n, dtype=torch.bool, device=idx.device)
+    start[1:] = sidx[1:] != sidx[:-1]
+    seg = torch.cumsum(start.long(), 0) - 1
+    sg = g[order].float()
+    gsum = torch.zeros((n,) + tuple(g.shape[1:]), dtype=torch.float32,
+                       device=g.device)
+    _, rank = SR._runs(sidx)
+    SR._by_rank(rank, torch.ones_like(start),
+                lambda m: gsum.index_add_(0, seg[m], sg[m]))
+    uidx = torch.full((n,), vocab, dtype=idx.dtype, device=idx.device)
+    uidx[seg[start]] = sidx[start]
+    return uidx, gsum
 
 
 def _zeros_like(params: Tree) -> Tree:
@@ -60,13 +96,31 @@ class Optimizer:
         ``scalar`` (a 0-d tensor) stands in for step_scalar(step)."""
         raise NotImplementedError
 
-    def sparse_update(self, *args, **kwargs):
-        """The scatter update of embedding rows: not ported. The port's
-        Embedding trains through the dense update, which is the same
-        function wherever the JAX executor's is not lazy
-        (ops/embedding.py)."""
+    def sparse_mode(self):
+        """How ``sparse_update`` relates to ``update``: "exact" (no row
+        state: the rule restricted to the touched rows), "lazy" (touched
+        rows get the rule on coalesced gradients, untouched rows keep
+        stale slots; torch.optim.SparseAdam's semantics) or None (weight
+        decay touches every row). The executor takes "exact" freely and
+        "lazy" only under ``FFConfig.sparse_embedding_lazy``."""
+        return None
+
+    def sparse_update(self, w, idx, g, slots, step: int, scalar=None):
+        """Apply the rule in place to the rows of the table ``w`` (V, D),
+        or of each table of a (T, V, D) stack, that ``idx`` ((n,) or
+        (T, n); duplicates and out-of-range ids as JAX's scatter takes
+        them) names, with ``g`` the gradient of those gathered rows
+        ((n, D) or (T, n, D)); ``slots`` this table's optimizer slots
+        shaped as w. ``scalar`` (a 0-d tensor on w's device) stands in
+        for step_scalar(step). Returns (w, slots)."""
         raise NotImplementedError(
-            "sparse embedding updates are not ported yet")
+            f"{type(self).__name__} has no sparse row rule")
+
+    def _scalar_tensor(self, w, step, scalar):
+        if scalar is None:
+            scalar = self.step_scalar(step)
+        return torch.as_tensor(scalar, dtype=torch.float32,
+                               device=w.device).reshape(())
 
 
 class SGDOptimizer(Optimizer):
@@ -111,6 +165,22 @@ class SGDOptimizer(Optimizer):
             step_dir = g + self.momentum * v if self.nesterov else v
             w.sub_(lr * step_dir)
         return params, state
+
+    def sparse_mode(self):
+        if self.weight_decay != 0.0:
+            return None
+        return "exact" if self.momentum == 0.0 else "lazy"
+
+    @torch.no_grad()
+    def sparse_update(self, w, idx, g, slots, step, scalar=None):
+        lr = self._scalar_tensor(w, step, scalar)
+        if self.momentum == 0.0:
+            SR.update_rows(w, idx, g, SR.EXACT, lr)
+            return w, slots
+        rule = SR.NESTEROV if self.nesterov else SR.MOMENTUM
+        SR.update_rows(w, idx, g, rule, lr, (self.momentum,),
+                       (slots["v"],))
+        return w, slots
 
 
 class AdamOptimizer(Optimizer):
@@ -158,3 +228,15 @@ class AdamOptimizer(Optimizer):
             v.mul_(b2).add_((1 - b2) * g * g)
             w.sub_(alpha_t * m / (torch.sqrt(v) + self.epsilon))
         return params, state
+
+    def sparse_mode(self):
+        return "lazy" if self.weight_decay == 0.0 else None
+
+    @torch.no_grad()
+    def sparse_update(self, w, idx, g, slots, step, scalar=None):
+        alpha_t = self._scalar_tensor(w, step, scalar)
+        SR.update_rows(w, idx, g, SR.ADAM, alpha_t,
+                       (self.beta1, 1 - self.beta1, self.beta2,
+                        1 - self.beta2, self.epsilon),
+                       (slots["m"], slots["v"]))
+        return w, slots

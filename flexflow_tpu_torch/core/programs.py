@@ -202,11 +202,15 @@ class ProgramRegistry:
         self._compile_s[name] += time.perf_counter() - t0
         return out
 
-    def release(self) -> None:
-        """Drop every captured graph and its static buffers (each graph
-        holds a private memory pool); later calls capture anew."""
-        self._programs.clear()
-        self._seen.clear()
+    def release(self, families: Sequence[str] = None) -> None:
+        """Drop the captured graphs (each holds a private memory pool)
+        and static buffers of ``families``, every family when None;
+        later calls of them capture anew."""
+        keep = (lambda k: False) if families is None \
+            else (lambda k: k[0] not in families)
+        self._programs = {k: p for k, p in self._programs.items()
+                          if keep(k)}
+        self._seen = {k for k in self._seen if keep(k)}
 
     # ---------------- accounting ---------------------------------------
     def compile_counts(self) -> Dict[str, int]:

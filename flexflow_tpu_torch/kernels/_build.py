@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 KERNEL_SOURCES = ("paged_ragged_v2", "flash_attention", "paged_decode",
-                  "lstm_scan", "dropout")
+                  "lstm_scan", "dropout", "sparse_rows")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -24,7 +24,7 @@ Op state (BatchNorm's running statistics) is read and written with
 
 Out of the slice, and raising ``NotImplementedError`` when configured:
 a mesh or strategy, the strategy search, pipelines, fusion groups,
-telemetry, lazy sparse embedding updates and the native loader.
+telemetry and the native loader.
 """
 
 from __future__ import annotations
@@ -42,10 +42,11 @@ from .core import prng
 from .core.executor import Executor, TrainState
 from .core.optimizers import Optimizer, SGDOptimizer
 from .op import Op
-from .ops import (LSTM, BatchMatmul, BatchNorm, Concat, Conv2D, Dropout,
-                  ElementBinary, ElementUnary, Embedding, Flat, LayerNorm,
-                  Linear, MultiHeadAttention, Pool2D, Reduce, Reshape,
-                  Reverse, Softmax, Split, TopK, Transpose)
+from .ops import (LSTM, Aggregate, BatchMatmul, BatchNorm, Concat, Conv2D,
+                  DistributedEmbedding, Dropout, ElementBinary, ElementUnary,
+                  Embedding, Flat, GroupBy, LayerNorm, Linear, MoEFFN,
+                  MultiHeadAttention, Pool2D, Reduce, Reshape, Reverse,
+                  Softmax, Split, TopK, Transpose)
 from .tensor import Tensor
 from .utils import faults as _faults
 
@@ -210,6 +211,45 @@ class FFModel:
                        dtype=dtype)
         return self.add_op(op).output
 
+    def distributed_embedding(self, inputs: Sequence[Tensor],
+                              num_entries: int, out_dim: int,
+                              aggr: str = "sum",
+                              name: Optional[str] = None,
+                              kernel_initializer="glorot",
+                              dtype=None) -> List[Tensor]:
+        """E same-vocab embedding bags as one stacked (E, vocab, dim)
+        weight; one (batch, out_dim) tensor per input, in order."""
+        op = DistributedEmbedding(
+            self, name or self._fresh_name("dist_embedding"), list(inputs),
+            num_entries, out_dim, aggr, kernel_initializer, dtype)
+        self.add_op(op)
+        return list(op.outputs)
+
+    def group_by(self, data: Tensor, assign: Tensor, n: int, alpha: float,
+                 name: Optional[str] = None) -> List[Tensor]:
+        op = GroupBy(self, name or self._fresh_name("group_by"),
+                     [data, assign], n, alpha)
+        return list(self.add_op(op).outputs)
+
+    def aggregate(self, gate_preds: Tensor, gate_assign: Tensor,
+                  exp_preds: Sequence[Tensor], n: int,
+                  name: Optional[str] = None) -> Tensor:
+        op = Aggregate(self, name or self._fresh_name("aggregate"),
+                       [gate_preds, gate_assign] + list(exp_preds), n)
+        return self.add_op(op).output
+
+    def moe_ffn(self, input: Tensor, num_experts: int, k: int,
+                hidden_dim: int, out_dim: int = None,
+                capacity_factor: float = 1.25, activation="relu",
+                aux_loss_weight: float = 1e-2,
+                name: Optional[str] = None) -> Tensor:
+        """The fused MoE FFN (ops/moe_ffn.py); the composable path is
+        softmax + top_k + group_by + aggregate."""
+        op = MoEFFN(self, name or self._fresh_name("moe_ffn"), [input],
+                    num_experts, k, hidden_dim, out_dim, capacity_factor,
+                    activation, aux_loss_weight)
+        return self.add_op(op).output
+
     def lstm(self, input: Tensor, hidden_size: int,
              return_sequences: bool = True,
              name: Optional[str] = None, use_pallas=None) -> Tensor:
@@ -312,8 +352,6 @@ class FFModel:
             "pipeline_stages > 1": cfg.pipeline_stages > 1,
             "perform_fusion": cfg.perform_fusion,
             "telemetry": cfg.telemetry,
-            "sparse_embedding_lazy (lazy sparse embedding updates)":
-                cfg.sparse_embedding_lazy,
         }
         on = [k for k, v in off.items() if v]
         if on:
@@ -673,9 +711,14 @@ class FFModel:
     # ---------------- weight access ----------------
     def get_weights(self, op_name: str) -> Dict[str, np.ndarray]:
         """Host copies of an op's weights (copies on the CPU too, where
-        ``numpy()`` would share the live tensor's memory)."""
-        return {k: v.detach().float().cpu().numpy().copy()
-                for k, v in self.state.params[op_name].items()}
+        ``numpy()`` would share the live tensor's memory); a stacked
+        embedding's kernel in table order."""
+        op = next((o for o in self.ops if o.name == op_name), None)
+        out = {k: v.detach().float().cpu().numpy().copy()
+               for k, v in self.state.params[op_name].items()}
+        if "kernel" in out and hasattr(op, "to_table_order"):
+            out["kernel"] = op.to_table_order(out["kernel"])
+        return out
 
     def set_weights(self, op_name: str, weights: Dict[str, np.ndarray]):
         """Overwrite an op's weights in place (same tensors, so the

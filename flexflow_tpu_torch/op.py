@@ -5,7 +5,9 @@ declares its output shapes and trainable weights and computes its
 forward as a plain function of torch tensors; autograd supplies the
 backward. Non-trainable state (BatchNorm's running statistics) is
 declared by ``state_specs`` and threaded through ``OpContext``'s
-``state_in``/``state_out``. ``flops`` is the JAX op's forward count, which
+``state_in``/``state_out``; an op with ``has_aux_loss`` sets
+``OpContext.aux_loss`` in training, which the executor adds to the
+loss. ``flops`` is the JAX op's forward count, which
 the smoke's MFU reads; the JAX package's logical-axis and byte hooks
 wait for parallel training and the search.
 """
@@ -58,7 +60,7 @@ class OpContext:
     ``nhwc_out`` that its outputs should stay so (core/executor.py)."""
 
     __slots__ = ("training", "rng", "seq_length", "state_in",
-                 "state_out", "nhwc_in", "nhwc_out")
+                 "state_out", "nhwc_in", "nhwc_out", "aux_loss")
 
     def __init__(self, training: bool, rng=None, seq_length: int = -1,
                  state_in: Optional[dict] = None, nhwc_in: bool = False,
@@ -70,6 +72,9 @@ class OpContext:
         self.state_out: dict = {}
         self.nhwc_in = nhwc_in
         self.nhwc_out = nhwc_out
+        # an f32 scalar an op adds to the objective (MoE's load-balancing
+        # loss); the executor sums them into the loss in op order
+        self.aux_loss = None
 
 
 class Op:
@@ -78,6 +83,8 @@ class Op:
     ``{op_name: {weight_name: tensor}}`` tree."""
 
     op_type: str = "op"
+    # sets OpContext.aux_loss in training; kept out of remat
+    has_aux_loss: bool = False
 
     def __init__(self, model: "FFModel", name: str,
                  inputs: Sequence[Tensor]):

@@ -100,7 +100,10 @@ def load_jax_params(ff, params: Mapping[str, Mapping[str, object]],
     the tensors, and any graph captured over them, stay). The ops,
     weight names and shapes must match the port model's exactly — an
     attention op with ``add_bias_kv`` carries its ``bias_k`` and
-    ``bias_v`` rows like any other weight. ``states``, the JAX
+    ``bias_v`` rows like any other weight, a ``DistributedEmbedding``
+    its stacked (E, vocab, dim) kernel in table order (JAX's
+    ``get_weights`` order), a ``MoEFFN`` its ``gate``, ``w1``, ``b1``,
+    ``w2`` and ``b2``. ``states``, the JAX
     executor's op state as numpy (``{op: jax_ff.get_states(op)}``:
     BatchNorm's running statistics), goes in through ``set_states``
     and must name exactly the port model's stateful ops."""

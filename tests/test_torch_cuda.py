@@ -1647,3 +1647,139 @@ def test_nhwc_pool_gradients_equal_nchw(card, pool):
     for k, (y, gx) in outs.items():
         assert torch.allclose(y, ref[0], rtol=0, atol=1e-6), k
         assert torch.allclose(gx, ref[1], rtol=0, atol=1e-5), k
+
+
+# ------------------------------------------------- sparse embedding rows
+_SPARSE_RULES = [(0, (), 0), (1, (0.9,), 1), (2, (0.9,), 1),
+                 (3, (0.9, 1 - 0.9, 0.999, 1 - 0.999, 1e-8), 2)]
+
+
+def _sparse_case(dev, t, vocab, d, n, dup, rule, seed=0):
+    from flexflow_tpu_torch.kernels import sparse_rows as sr
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, 12 if dup else vocab, (t, n))
+    ids[:, ::7], ids[:, ::11], ids[:, ::13] = -1, vocab, -vocab
+    ids[:, ::17] = vocab - 1
+    put = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731,E501
+    w = put(rng.standard_normal((t, vocab, d)))
+    g = put(rng.standard_normal((t, n, d)))
+    slots = [put(rng.standard_normal((t, vocab, d)))
+             for _ in range(_SPARSE_RULES[rule][2])]
+    if rule == 3:
+        slots[1].abs_()
+    skey, order = sr.sort_rows(torch.from_numpy(ids).to(dev), vocab,
+                               lazy=rule != 0)
+    return w, g, slots, skey, order
+
+
+@pytest.mark.parametrize("rule", [0, 1, 2, 3],
+                         ids=["exact", "momentum", "nesterov", "adam"])
+@pytest.mark.parametrize("t,vocab,d,n", [(1, 50, 64, 300), (3, 40, 13, 77),
+                                         (2, 1000, 100, 1024)])
+@pytest.mark.parametrize("dup", [True, False])
+def test_sparse_rows_kernel_matches_plain_version(card, rule, t, vocab, d,
+                                                  n, dup):
+    """Bit for bit: both walk each row's updates in their order of
+    occurrence, with the same roundings and FMAs; out-of-range ids
+    (-1 and -V wrap, V drops, -1 and V-1 alias one row)."""
+    from flexflow_tpu_torch.kernels import sparse_rows as sr
+    w, g, slots, skey, order = _sparse_case(card, t, vocab, d, n, dup, rule)
+    scalar = torch.tensor(0.03, dtype=torch.float32, device=card)
+    hyper = _SPARSE_RULES[rule][1]
+    wk, sk = w.clone(), [s.clone() for s in slots]
+    key = "sparse_rows_exact" if rule == 0 else "sparse_rows_lazy"
+    before = sr.launches[key]
+    sr.apply_rows_cuda(wk, skey, order, g, rule, scalar, hyper, sk)
+    torch.cuda.synchronize()
+    assert sr.launches[key] == before + 1
+    sr.apply_rows_ref(w, skey, order, g, rule, scalar, hyper, slots)
+    for a, b in zip([wk] + sk, [w] + slots):
+        assert torch.equal(a, b), float((a - b).abs().max())
+
+
+def test_sparse_rows_kernel_refuses_what_it_does_not_take(card):
+    from flexflow_tpu_torch.kernels import sparse_rows as sr
+    w, g, slots, skey, order = _sparse_case(card, 1, 50, 8, 20, True, 1)
+    sc = torch.tensor(0.1, device=card)
+    with pytest.raises(ValueError):
+        sr.apply_rows_cuda(w.bfloat16(), skey, order, g, 1, sc, (0.9,),
+                           slots)
+    with pytest.raises(ValueError):
+        sr.apply_rows_cuda(w, skey, order, g, 1, sc, (0.9,), [])
+    with pytest.raises(ValueError):
+        sr.apply_rows_cuda(w.cpu(), skey, order, g, 1, sc, (0.9,), slots)
+
+
+def _small_dlrm(stacked, capture, lazy=False, opt=None):
+    import flexflow_tpu_torch as ft
+    m = ft.build_dlrm(ft.FFConfig(batch_size=64, sparse_embedding_lazy=lazy),
+                      batch_size=64, embedding_vocab_sizes=(1000,) * 8,
+                      stacked_tables=stacked, device="cuda")
+    m.compile(optimizer=opt or ft.SGDOptimizer(lr=0.01),
+              loss_type="mean_squared_error", metrics=[], capture=capture)
+    return m
+
+
+def _dlrm_batches(n, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        b = {"dense_features": rng.standard_normal((64, 13), np.float32),
+             "label": (rng.random((64, 1)) > 0.5).astype(np.float32)}
+        for i in range(8):
+            b[f"sparse_{i}"] = rng.integers(0, 40, (64, 1)).astype(np.int32)
+        out.append(b)
+    return out
+
+
+@pytest.mark.parametrize("stacked", [False, True])
+@pytest.mark.parametrize("opt", ["sgd", "adam_lazy"])
+def test_captured_dlrm_steps_equal_eager(card, stacked, opt):
+    """DLRM's sparse tables on duplicate ids: 3 captured steps (the sort,
+    the gathers and the row kernel replayed) equal 3 eager ones bit for
+    bit, and every step launched the kernel once a table op."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.kernels import sparse_rows as sr
+    lazy = opt == "adam_lazy"
+    mk = (lambda: ft.AdamOptimizer(lr=0.01)) if lazy else \
+        (lambda: ft.SGDOptimizer(lr=0.01))
+    bs = _dlrm_batches(3)
+    eager = _small_dlrm(stacked, False, lazy, mk())
+    le = [float(eager.train_batch(b)["loss"]) for b in bs]
+    key = "sparse_rows_lazy" if lazy else "sparse_rows_exact"
+    before = sr.launches[key]
+    m = _small_dlrm(stacked, True, lazy, mk())
+    lc = [float(m.train_batch(b)["loss"]) for b in bs]
+    assert lc == le
+    assert sr.launches[key] - before == 3 * (1 if stacked else 8)
+    for op in m.ops:
+        if op.weight_specs():
+            for k, w in m.get_weights(op.name).items():
+                np.testing.assert_array_equal(
+                    w, eager.get_weights(op.name)[k])
+    assert m.compile_counts()["train_step"] == 1
+
+
+@pytest.mark.parametrize("kind", ["fused", "reference"])
+@pytest.mark.parametrize("mode", ["dense", "sorted"])
+def test_captured_moe_steps_equal_eager(card, kind, mode):
+    import flexflow_tpu_torch as ft
+    build = ft.build_moe_fused if kind == "fused" \
+        else ft.build_moe_reference
+    rng = np.random.default_rng(1)
+    bs = [{"input": rng.standard_normal((64, 784), np.float32),
+           "label": rng.integers(0, 10, 64).astype(np.int32)}
+          for _ in range(3)]
+    runs = []
+    for capture in (False, True):
+        m = build(ft.FFConfig(batch_size=64, moe_dispatch=mode),
+                  batch_size=64, device="cuda")
+        m.compile(optimizer=ft.SGDOptimizer(lr=0.05), metrics=[],
+                  capture=capture)
+        runs.append(([float(m.train_batch(b)["loss"]) for b in bs],
+                     {op.name: m.get_weights(op.name) for op in m.ops
+                      if op.weight_specs()}))
+    assert runs[0][0] == runs[1][0]
+    for op, ws in runs[0][1].items():
+        for k, w in ws.items():
+            np.testing.assert_array_equal(w, runs[1][1][op][k])

@@ -328,8 +328,18 @@ def test_out_of_scope_runtime_raises():
     m.config.iter_config.seq_length = 8
     assert np.isfinite(float(m.train_batch({"input": x,
                                             "label": y})["loss"]))
+    # sparse row updates are ported (tests/test_torch_sparse_embedding.py
+    # holds them against JAX): one occurrence adds (-lr) * g once, -1
+    # wraps to the last row, an id past the table is dropped; weight
+    # decay has no sparse form
+    w = torch.zeros(4, 2)
+    ft.SGDOptimizer(lr=0.5).sparse_update(
+        w, torch.tensor([1, 1, -1, 7]), torch.ones(4, 2), {}, 0)
+    assert w[:, 0].tolist() == [0.0, -1.0, 0.0, -0.5]
+    assert ft.SGDOptimizer(weight_decay=0.1).sparse_mode() is None
+    from flexflow_tpu_torch.core.optimizers import Optimizer
     with pytest.raises(NotImplementedError):
-        ft.SGDOptimizer().sparse_update()
+        Optimizer().sparse_update(w, None, None, {}, 0)
 
 
 def test_default_device_is_the_card():

@@ -1,9 +1,9 @@
 """Where a training step of the PyTorch/CUDA port spends its time.
 
     python3 tools/torch_train_profile.py [--model transformer|transformer_lm|nmt_lstm|
-        alexnet|inception|resnet50|candle_uno|seq2seq]
+        alexnet|inception|resnet50|candle_uno|seq2seq|dlrm|moe_fused]
         [--modes captured,eager] [--steps 10] [--feed train_batch|fit|prefetch]
-        [--out PATH]
+        [--sparse on|off] [--out PATH]
 
 Trains one of chip_smoke.py's bf16 models on the card: the flagship
 (``--model transformer``, the default: ``build_transformer`` at batch 32,
@@ -17,8 +17,13 @@ layers), or one of the sweep's models at chip_smoke.py's widths
 (``SWEEP``: AlexNet at batch 256 on 3x32x32, Inception-v3 at batch 32
 on 3x299x299 and ResNet-50 at batch 32 on 3x224x224 in bf16,
 CANDLE-Uno at batch 64 in f32, the seq2seq at batch 64 in bf16; cuDNN
-deterministic and without autotuning, as the smoke runs them), SGD lr
-0.01, weights and data from numpy seeds. For each of
+deterministic and without autotuning, as the smoke runs them), DLRM
+(``--model dlrm``: bench.py's "full" preset, 26 tables of 1,000,000 x
+64 f32, batch 8192, f32; ``--sparse on`` trains the tables through the
+sparse row kernel, the default, ``off`` densely) or the fused MoE
+(``--model moe_fused``: ``build_moe_fused`` at batch 1024, f32, the
+sorted dispatch), SGD lr 0.01, weights and data from numpy seeds. For
+each of
 ``--modes`` — ``captured`` (every step after the first replays the
 train step's CUDA graph, the default path) and ``eager`` (capture off)
 — in turn: 3 warm-up steps, three plain windows of ``--steps`` steps
@@ -63,12 +68,17 @@ CLASSES = (
     ("lstm_bwd", re.compile(r"lstm_bwd_step_(mma_)?kernel|"
                             r"lstm_dh0_(mma_)?kernel")),
     ("lstm_dwh", re.compile(r"lstm_dwh_(mma_)?kernel")),
+    ("sparse_rows", re.compile(r"sparse_rows_kernel")),
     # cuDNN's convolution kernels and its layout transforms
     ("conv", re.compile(r"conv|fprop|dgrad|wgrad|cudnn|winograd|"
                         r"implicit_gemm|nchwToNhwc|nhwcToNchw", re.I)),
     ("pool", re.compile(r"pool", re.I)),
     ("reduce", re.compile(r"reduce_kernel|reduction", re.I)),
     ("elementwise", re.compile(r"elementwise|vectorized", re.I)),
+    # the sparse path's stable sort of the ids (cub's radix sort)
+    ("sort", re.compile(r"radix|sort", re.I)),
+    ("gather_scatter", re.compile(r"index|gather|scatter|embedding",
+                                  re.I)),
     # cuBLAS names its Hopper GEMMs nvjet_*
     ("matmul", re.compile(r"gemm|matmul|nvjet|sm90_|cutlass|cublas",
                           re.I)),
@@ -100,8 +110,16 @@ def launch_gaps(prof, classes):
     return total, n
 
 
-def build(cs, model, capture):
+def build(cs, model, capture, sparse=True):
     """(model, its batches, samples a step, tokens a step)."""
+    if model == "dlrm":
+        f = cs.DLRM_FULL
+        m = cs.dlrm_model(capture=capture, sparse=sparse, **f)
+        return m, cs.dlrm_batches(f["tables"], f["vocab"], f["batch"], 4), \
+            f["batch"], f["batch"]
+    if model == "moe_fused":
+        return (cs.moe_model("fused", 1024, capture=capture),
+                cs.moe_batches(1024, 4), 1024, 1024)
     if model in cs.SWEEP:
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
@@ -130,7 +148,8 @@ def feed_arrays(batches, steps):
 
 def profile(cs, args, capture):
     """One mode's numbers: plain windows, then a profiled one."""
-    m, batches, batch, tokens = build(cs, args.model, capture)
+    m, batches, batch, tokens = build(cs, args.model, capture,
+                                      args.sparse == "on")
     for i in range(3):                      # warm every code path
         m.train_batch(batches[i])
 
@@ -184,7 +203,7 @@ def profile(cs, args, capture):
                           "gaps": n, "mean_gap_us": gap_us / max(n, 1),
                           "gap_share": gap_us / (gap_us + dev_us)}
     own = sum(v for k, v in by_cls.items()
-              if k.startswith(("attention", "lstm")))
+              if k.startswith(("attention", "lstm", "sparse_rows")))
     out = {
         "captures": m.compile_counts(),
         "replays": m.executor.programs.replay_counts(),
@@ -216,12 +235,14 @@ def main() -> int:
     ap.add_argument("--model", choices=("transformer", "transformer_lm",
                                         "nmt_lstm", "alexnet", "inception",
                                         "resnet50", "candle_uno",
-                                        "seq2seq"),
+                                        "seq2seq", "dlrm", "moe_fused"),
                     default="transformer")
     ap.add_argument("--modes", default="captured,eager")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--feed", choices=("train_batch", "fit", "prefetch"),
                     default="train_batch")
+    ap.add_argument("--sparse", choices=("on", "off"), default="on",
+                    help="dlrm: sparse_embedding_updates")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -236,11 +257,12 @@ def main() -> int:
         text=True).stdout.strip().splitlines()[0]
     print(card)
     res = {"card": card, "model": args.model, "steps": args.steps,
-           "feed": args.feed, "modes": {}}
+           "feed": args.feed, "sparse": args.sparse, "modes": {}}
     for mode in args.modes.split(","):
         res["modes"][mode] = profile(cs, args, mode == "captured")
         cell = res["modes"][mode]
-        print(f"[{card}] {args.model} {mode} ({args.feed}), {args.steps} "
+        print(f"[{card}] {args.model} {mode} ({args.feed}, sparse "
+              f"{args.sparse}), {args.steps} "
               f"steps a window; "
               f"plain step ms {[round(x, 3) for x in cell['plain_step_ms']]}"
               f", samples/s "
