@@ -70,6 +70,19 @@ wide-head) must not spill — and then:
     against one no-cache ``generate_reference``, all its tokens equal
     an eager engine's run token for token, and its kernel launches
     equal layers x steps; step times and tokens/s captured and eager;
+  * serves and trains under failure and under telemetry
+    (``robust_phase``): the 8 greedy prompts through the captured mixed
+    step and legacy path with transient dispatch faults, a cancel and
+    an immediate deadline (survivors token-identical to the fault-free
+    run, 2 retries, no new capture); a fatal step contained, with a
+    post-mortem bundle in JAX's schema and the next batch exact;
+    telemetry on against off (the same tokens, captures and host
+    synchronizations; step wall and overhead over 5 interleaved runs;
+    the trace's events and the Prometheus counters); the idle share
+    split by the step spans into the host gap between steps and the
+    span's excess over device time; and fit of the dropout LM below at
+    train_dispatch_depth 0, 1, 2 with telemetry off and on, masters bit
+    for bit, step time per depth, and a profiling.trace() file;
   * trains the same LM with dropout 0.1 on each attention op and a
     Dropout(0.1) after each FFN (``dropout_lm_graph``; bf16 policy,
     batch 16 x 512) through ``fit``: (a) prefetch on against off, 3
@@ -109,6 +122,8 @@ without CUDA or outside a checkout. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import gc
 import json
 import math
@@ -1580,6 +1595,414 @@ def serve_phase(pr, fa, card: str, lm):
     return runs
 
 
+# ------------------------------------------- robustness and telemetry
+# the chaos runs: transient dispatch faults at these hits of the path's
+# site (the warmup is hit 1), a cancel at step CHAOS_CANCEL_STEP of the
+# request CHAOS_CANCEL_RID, and an immediate deadline on request
+# CHAOS_DEADLINE_RID (neither shares the four prompts' preamble)
+CHAOS_HITS = "3,6"
+CHAOS_CANCEL_RID, CHAOS_CANCEL_STEP, CHAOS_DEADLINE_RID = 5, 4, 1
+FATAL_HIT = 5
+ONOFF_ROUNDS = 5
+DEPTHS = (0, 1, 2)
+# tools/postmortem.py's schema and required keys (the tool imports JAX)
+POSTMORTEM_SCHEMA = "flexflow_tpu.postmortem/1"
+POSTMORTEM_KEYS = ("schema", "reason", "created_unix_s", "engine",
+                   "compile_counts", "events", "metrics", "drift",
+                   "kv_pool", "faults")
+
+
+class SyncCounter:
+    """Counts host synchronizations (torch.cuda.synchronize, and
+    Stream.synchronize and Event.synchronize) while active."""
+
+    def __enter__(self):
+        self.n = 0
+        self._saved = [(torch.cuda, "synchronize"),
+                       (torch.cuda.Stream, "synchronize"),
+                       (torch.cuda.Event, "synchronize")]
+        self._saved = [(o, a, getattr(o, a)) for o, a in self._saved]
+        for obj, attr, fn in self._saved:
+            def counted(*a, _fn=fn, **k):
+                self.n += 1
+                return _fn(*a, **k)
+            setattr(obj, attr, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, fn in self._saved:
+            setattr(obj, attr, fn)
+
+
+def device_busy_s(fn):
+    """(result of fn(), device busy seconds) under torch.profiler with
+    CUDA activity only (the least host overhead it adds)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    busy = sum(float(e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    return out, busy
+
+
+def idle_split(events, busy_s):
+    """The idle share of a run's steps split by the ported spans (the
+    run's telemetry events): the mean host gap BETWEEN consecutive step
+    spans (scheduling, emission, bookkeeping), the mean span, and the
+    span's excess over the device's busy time a step (``busy_s`` over
+    the steps, from the same steps run again under the profiler:
+    packing, copies, launch and the wait), each also as a share of the
+    step wall (first span start to last span end over the steps)."""
+    spans = sorted((e[3], e[4]) for e in events
+                   if e[0] == "X" and e[2] == "step")
+    n = len(spans)
+    window = spans[-1][0] + spans[-1][1] - spans[0][0]
+    span_ms = 1e3 * sum(d for _, d in spans) / n
+    gap_ms = 1e3 * sum(b[0] - (a[0] + a[1])
+                       for a, b in zip(spans, spans[1:])) / (n - 1)
+    wall_ms = 1e3 * window / n
+    dev_ms = 1e3 * busy_s / n
+    return {"steps": n, "step_wall_ms": wall_ms, "span_ms": span_ms,
+            "gap_ms": gap_ms, "device_ms": dev_ms,
+            "excess_ms": span_ms - dev_ms,
+            "gap_share": gap_ms / wall_ms,
+            "excess_share": (span_ms - dev_ms) / wall_ms,
+            "device_share": dev_ms / wall_ms}
+
+
+def prom_counters(text):
+    """The counter series of a Prometheus text page, as {series: value}."""
+    kinds, out = {}, {}
+    for ln in text.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, fam, kind = ln.split()
+            kinds[fam] = kind
+        elif ln:
+            series, value = ln.rsplit(" ", 1)
+            if kinds.get(series.split("{", 1)[0]) == "counter":
+                out[series] = float(value)
+    return out
+
+
+def robust_phase(pr, fa, card: str, lm):
+    """Serving and training under failure and under telemetry, at the
+    trained LM's full width. (1) chaos: the 8 greedy prompts, 32 new
+    tokens, transient dispatch faults at hits CHAOS_HITS, one cancel and
+    one immediate deadline — survivors token-identical to the
+    fault-free captured run, the cancelled stream a prefix of its
+    stream, 2 retries, no new capture, invariants clean after every
+    step; on the mixed step (serve.mixed) and the legacy path
+    (serve.decode). (2) a fatal step: the in-flight requests fail, a
+    post-mortem bundle in JAX's schema lands in postmortem_dir, the next
+    batch is token-identical, no new capture. (3) telemetry on and off:
+    the same tokens, captures and host synchronizations; step wall
+    over ONOFF_ROUNDS interleaved runs each and the overhead; the
+    trace's events by name; the Prometheus counters. (4) the idle share
+    split by the step spans. (5) fit of the bf16-policy LM, 1 epoch of
+    FIT_STEPS with prefetch, at train_dispatch_depth 0, 1, 2, telemetry
+    on and off: masters bit-equal across all six, one capture; step
+    time at each depth; profiling.trace() writes its trace. Returns
+    its numbers and the kernel launches of its runs."""
+    import tempfile
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.serve import ServeEngine
+    from flexflow_tpu_torch.utils import faults, profiling
+    from flexflow_tpu_torch.utils.telemetry import Telemetry
+    t_phase = time.perf_counter()
+    greedy, _ = serve_prompts(LM_ARCH["vocab_size"])
+    new = 32
+    res, launches = {}, {}
+    paths = (("mixed", FFConfig(), "serve.mixed", "paged_ragged_v2"),
+             ("legacy", FFConfig(serve_chunked_prefill=False),
+              "serve.decode", "paged_decode"))
+
+    def count(kernel):
+        return pr.launches if kernel == "paged_ragged_v2" \
+            else fa.launches["paged_decode"]
+
+    def zero():
+        pr.launches = 0
+        fa.launches["paged_decode"] = 0
+
+    for path, cfg, site, kernel in paths:
+        off = ServeEngine(lm, cfg, device="cuda")
+        on = ServeEngine(lm, cfg, device="cuda", telemetry=Telemetry())
+        counts = off.warmup()
+        if on.warmup() != counts:
+            raise AssertionError(f"{path}: captures on {on.compile_counts()}"
+                                 f" != off {counts}")
+        ref = off.generate(greedy, new)
+        if on.generate(greedy, new) != ref:
+            raise AssertionError(f"{path}: telemetry on changes the tokens")
+        # (3) telemetry on and off, interleaved (the order alternating
+        # by round), each engine's prefix cache in the same state at
+        # each round
+        walls = {"off": [], "on": []}
+        syncs = {"off": [], "on": []}
+        for r in range(ONOFF_ROUNDS):
+            if r == ONOFF_ROUNDS - 1:
+                on.telemetry.clear()    # keep the last run's events
+            order = (("off", off), ("on", on))
+            for key, eng in (order if r % 2 == 0 else order[::-1]):
+                with SyncCounter() as sc:
+                    out = eng.generate(greedy, new)
+                if out != ref:
+                    raise AssertionError(f"{path} telemetry {key}: tokens "
+                                         f"differ from the first run's")
+                st = eng.last_stats
+                walls[key].append(1e3 * st["wall_s"] / st["steps"])
+                syncs[key].append(sc.n)
+        if syncs["on"] != syncs["off"] or \
+                on.compile_counts() != off.compile_counts() != counts:
+            raise AssertionError(f"{path}: synchronizations {syncs} or "
+                                 f"captures {on.compile_counts()} / "
+                                 f"{off.compile_counts()} differ")
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        overhead = med["on"] / med["off"] - 1.0
+        paired = statistics.median(a / b - 1.0 for a, b in
+                                   zip(walls["on"], walls["off"]))
+        events = list(on.telemetry.events)
+        steps = on.last_stats["steps"]
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = on.telemetry.export_chrome_trace(
+                str(Path(tmp) / "trace.json"))
+            with open(trace) as f:
+                doc = json.load(f)
+        by_name = collections.Counter(ev["name"] for ev in
+                                      doc["traceEvents"])
+        counters = prom_counters(on.telemetry.to_prometheus())
+        # (4) the idle split: the last unprofiled run's spans, the device
+        # time of the same steps run once more under the profiler (the
+        # kernel's launches counted from 0 over that run)
+        zero()
+        _, busy = device_busy_s(lambda: on.generate(greedy, new))
+        launches[f"robust_{path}"] = count(kernel)
+        if on.last_stats["steps"] != steps:
+            raise AssertionError(f"{path}: the profiled run took "
+                                 f"{on.last_stats['steps']} steps, not "
+                                 f"{steps}")
+        split = idle_split(events, busy)
+        res[f"onoff_{path}"] = {
+            "step_ms_off": med["off"], "step_ms_on": med["on"],
+            "rounds_off": walls["off"], "rounds_on": walls["on"],
+            "overhead": overhead, "overhead_paired_median": paired,
+            "syncs_per_run": syncs["on"], "captures": counts}
+        res[f"idle_{path}"] = split
+        log(f"robust (3) {path} [{card}]: telemetry on/off token-identical "
+            f"over {ONOFF_ROUNDS} interleaved runs each, captures {counts} "
+            f"both, host synchronizations a run {syncs['on']} both; step "
+            f"wall ms off {spread(walls['off'])}, on "
+            f"{spread(walls['on'])}: overhead {100 * overhead:+.2f}% of "
+            f"the medians ({100 * paired:+.2f}% the median of the rounds' "
+            f"ratios)")
+        log(f"robust (3) {path}: trace events by name {dict(by_name)}")
+        log(f"robust (3) {path}: Prometheus counters "
+            f"{json.dumps(counters, sort_keys=True)}")
+        log(f"robust (4) {path} [{card}]: {split['steps']} steps, step "
+            f"wall {split['step_wall_ms']:.4f} ms = host gap between spans "
+            f"{split['gap_ms']:.4f} ({split['gap_share']:.3f}) + span "
+            f"{split['span_ms']:.4f}, of which device "
+            f"{split['device_ms']:.4f} ({split['device_share']:.3f}) and "
+            f"in-span excess {split['excess_ms']:.4f} "
+            f"({split['excess_share']:.3f}); {kernel} launches "
+            f"{launches[f'robust_{path}']}")
+        on.close()
+        del on
+        # (1) chaos
+        eng = ServeEngine(lm, dataclasses.replace(
+            cfg, fault_spec=f"{site}:transient@{CHAOS_HITS}"), device="cuda")
+        counts = eng.warmup()
+        deadlines = [None] * len(greedy)
+        deadlines[CHAOS_DEADLINE_RID] = 1e-9
+
+        def on_step(step, eng=eng):
+            if step == CHAOS_CANCEL_STEP:
+                if not eng.cancel(CHAOS_CANCEL_RID):
+                    raise AssertionError("chaos: the cancel found no "
+                                         "request")
+            eng.cache.check_invariants()
+
+        out = eng.generate(greedy, new, deadline_s=deadlines,
+                           on_step=on_step)
+        st = eng.last_stats
+        outcomes = [r["outcome"] for r in st["requests"]]
+        for i, (o, r) in enumerate(zip(out, ref)):
+            if i == CHAOS_DEADLINE_RID:
+                ok = o == [] and outcomes[i] == "deadline_expired" and \
+                    st["requests"][i]["ttft_s"] is None
+            elif i == CHAOS_CANCEL_RID:
+                ok = o == r[:len(o)] and len(o) < new and \
+                    outcomes[i] == "cancelled"
+            else:
+                ok = o == r and outcomes[i] == "completed"
+            if not ok:
+                raise AssertionError(f"chaos {path}: request {i} "
+                                     f"({outcomes[i]}) is wrong")
+        if st["retries"] != 2 or eng.compile_counts() != counts:
+            raise AssertionError(f"chaos {path}: retries {st['retries']}, "
+                                 f"captures {eng.compile_counts()} vs "
+                                 f"{counts}")
+        eng.cache.check_invariants()
+        res[f"chaos_{path}"] = {"retries": st["retries"],
+                                "outcomes": outcomes,
+                                "cancelled_tokens": len(
+                                    out[CHAOS_CANCEL_RID]),
+                                "steps": st["steps"]}
+        log(f"robust (1) chaos {path}: {site}:transient@{CHAOS_HITS}, "
+            f"cancel of request {CHAOS_CANCEL_RID} at step "
+            f"{CHAOS_CANCEL_STEP} ({len(out[CHAOS_CANCEL_RID])} tokens, a "
+            f"prefix of its fault-free stream), deadline 1e-9 on request "
+            f"{CHAOS_DEADLINE_RID}: the other {len(greedy) - 2} streams "
+            f"token-identical to the fault-free captured run, retries "
+            f"{st['retries']}, captures {eng.compile_counts()} unchanged, "
+            f"invariants clean after each of {st['steps']} steps")
+        eng.close()
+        del eng
+        # (2) a fatal step, on the mixed path
+        if path == "mixed":
+            with tempfile.TemporaryDirectory() as tmp:
+                eng = ServeEngine(lm, dataclasses.replace(
+                    cfg, fault_spec=f"{site}:fatal@{FATAL_HIT}",
+                    postmortem_dir=tmp), device="cuda")
+                counts = eng.warmup()
+                try:
+                    eng.generate(greedy, new)
+                    raise AssertionError("fatal: the planted fault did not "
+                                         "fire")
+                except faults.InjectedFault:
+                    pass
+                bundles = list(Path(tmp).glob("postmortem-*.json"))
+                if len(bundles) != 1:
+                    raise AssertionError(f"fatal: bundles {bundles}")
+                with open(bundles[0]) as f:
+                    bundle = json.load(f)
+                missing = [k for k in POSTMORTEM_KEYS if k not in bundle]
+                if bundle.get("schema") != POSTMORTEM_SCHEMA or missing \
+                        or bundle["reason"] != "fault_abort":
+                    raise AssertionError(f"fatal: bundle schema "
+                                         f"{bundle.get('schema')}, reason "
+                                         f"{bundle.get('reason')}, missing "
+                                         f"{missing}")
+                eng.cache.check_invariants()
+                out = eng.generate(greedy, new)
+                if out != ref or eng.compile_counts() != counts:
+                    raise AssertionError("fatal: the next batch differs or "
+                                         "captured anew")
+            res["fatal"] = {"detail": bundle["detail"],
+                            "events": len(bundle["events"]),
+                            "fired": bundle["faults"]["fired"]}
+            log(f"robust (2) fatal {site}:fatal@{FATAL_HIT}: "
+                f"{bundle['detail']['failed_inflight']} in-flight requests "
+                f"failed, bundle {bundles[0].name} ({POSTMORTEM_SCHEMA}, "
+                f"{len(bundle['events'])} events, faults "
+                f"{bundle['faults']['fired']}); the next batch "
+                f"token-identical to the fault-free run, captures "
+                f"{eng.compile_counts()} unchanged")
+            eng.close()
+            del eng
+        off.close()
+        del off
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (5) fit under the dispatch window, telemetry on and off
+    m = fit_model()
+    x, y = lm_arrays(LB * FIT_STEPS)
+    trees = (m.state.params, *m.state.opt_state.values())
+    # detached: a clone that autograd records would create each master's
+    # gradient-accumulator node now, on the default stream, and the
+    # captured step's backward would then launch on that stream
+    start = [{op: {k: w.detach().clone() for k, w in p.items()}
+              for op, p in t.items()} for t in trees]
+
+    @torch.no_grad()
+    def reset():
+        for tree, snap in zip(trees, start):
+            for op, p in tree.items():
+                for k, w in p.items():
+                    w.copy_(snap[op][k])
+        m.state.step = m._host_step = 0
+        if hasattr(m, "_fit_rng"):
+            del m._fit_rng
+
+    def run_fit(depth, telemetry):
+        reset()
+        m.config.train_dispatch_depth = depth
+        m.config.telemetry = telemetry
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.fit(x, y, epochs=1, verbose=False, prefetch=True)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / FIT_STEPS
+
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    run_fit(2, False)                       # captures the step
+    masters = {}
+    stats = {}
+    step_ms = {d: [] for d in DEPTHS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for telemetry in (False, True):
+            for depth in DEPTHS:
+                if telemetry and depth == 2:
+                    with profiling.trace(tmp) as where:
+                        run_fit(depth, telemetry)
+                    tfile = Path(where) / profiling.TRACE_FILE
+                    if not tfile.is_file() or tfile.stat().st_size == 0:
+                        raise AssertionError(f"profiling.trace wrote no "
+                                             f"{tfile}")
+                    trace_bytes = tfile.stat().st_size
+                else:
+                    run_fit(depth, telemetry)
+                masters[(depth, telemetry)] = weights_of(m)
+                stats[(depth, telemetry)] = dict(m.last_train_stats)
+                if telemetry != m.telemetry.enabled:
+                    raise AssertionError("fit: telemetry not as asked")
+        for _ in range(3):                  # timed rounds, interleaved
+            for depth in DEPTHS:
+                step_ms[depth].append(run_fit(depth, False))
+    first = masters[(0, False)]
+    for key, w in masters.items():
+        wdiff, worst = max_weight_diff(first, w)
+        if wdiff != 0.0:
+            raise AssertionError(f"fit depth/telemetry {key}: masters "
+                                 f"differ by {wdiff} at {worst}")
+    if m.compile_counts() != {"train_step": 1}:
+        raise AssertionError(f"fit: captures {m.compile_counts()}")
+    fits = 1 + 2 * len(DEPTHS) + 3 * len(DEPTHS)
+    flash = {k: fa.launches[k] for k in fa.FLASH_KERNELS}
+    if flash != dict.fromkeys(flash, LM_ARCH["num_layers"] * FIT_STEPS
+                              * fits):
+        raise AssertionError(f"fit: flash launches {flash} over {fits} "
+                             f"fits of {FIT_STEPS} steps")
+    launches["robust_fit"] = flash
+    for depth in DEPTHS:
+        st = stats[(depth, True)]
+        want = FIT_STEPS if depth == 0 else depth
+        if st["dispatches"] != FIT_STEPS or st["max_in_flight"] != want:
+            raise AssertionError(f"fit depth {depth}: {st}")
+    res["fit"] = {
+        "step_ms": {d: statistics.median(v) for d, v in step_ms.items()},
+        "step_ms_rounds": step_ms,
+        "last_train_stats": {d: stats[(d, True)] for d in DEPTHS},
+        "trace_bytes": trace_bytes}
+    for depth in DEPTHS:
+        log(f"robust (5) fit depth {depth} [{card}]: step ms "
+            f"{spread(step_ms[depth])}; last_train_stats "
+            f"{json.dumps(stats[(depth, True)], sort_keys=True)}")
+    log(f"robust (5) fit: masters bit-equal across depths {DEPTHS} x "
+        f"telemetry off/on after {FIT_STEPS} steps each; captures "
+        f"{m.compile_counts()}; profiling.trace wrote {trace_bytes} bytes")
+    release(m)
+    del m, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"robust phase {time.perf_counter() - t_phase:.1f} s")
+    return res, launches
+
+
 # ---------------------------------------------------- the training loop
 # the LM at full width with GPT-2's resid_pdrop / attn_pdrop of 0.1 where
 # the JAX package applies them (attention's output, a Dropout after each
@@ -2936,6 +3359,7 @@ def main() -> int:
     lres = lstm_phase(ls)
     nres = nmt_train_phase(ls, card)
     sres = serve_phase(pr, fa, card, lm)
+    rres, rlaunches = robust_phase(pr, fa, card, lm)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
@@ -2960,11 +3384,13 @@ def main() -> int:
         "name": "paged_ragged_v2", "route": "cuda",
         "source": "flexflow_tpu_torch/kernels/csrc/paged_ragged_v2.cu",
         "replaces": "flexflow_tpu/kernels/paged_ragged_v2.py:245",
-        "launches": sres["f32"][0]["paged_ragged_v2"], **head(kres),
+        "launches": sres["f32"][0]["paged_ragged_v2"],
+        "robust_launches": rlaunches["robust_mixed"], **head(kres),
         "bf16": kres["bf16"], "int8": kres["int8"], "fp8": kres["fp8"]}, {
         "name": "paged_decode", "route": "cuda", "source": decode_src,
         "replaces": "flexflow_tpu/kernels/flash_attention.py:390",
         "launches": sres["legacy_f32"][0]["paged_decode"],
+        "robust_launches": rlaunches["robust_legacy"],
         **head(dres["paged_decode"]),
         "shapes": dres["paged_decode"]["f32"]["shapes"],
         "bf16": dres["paged_decode"]["bf16"]},
@@ -2992,6 +3418,7 @@ def main() -> int:
             "replaces": f"flexflow_tpu/kernels/flash_attention.py:{line}",
             "launches": tres["launches"][kname],
             "lm_launches": lmres["captured"]["launches"][kname],
+            "robust_fit_launches": rlaunches["robust_fit"][kname],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -3080,6 +3507,7 @@ def main() -> int:
                              if k not in ("kernel_checks",
                                           "kernel_time")}}))
     log(json.dumps({"moe": moeres}))
+    log(json.dumps({"robust": rres}))
     log(json.dumps({"sweep": swres}))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

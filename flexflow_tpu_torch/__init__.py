@@ -32,7 +32,12 @@ neither it nor JAX. It serves and trains on one NVIDIA H100:
   * DLRM (``build_dlrm``, separate or stacked tables) with the JAX
     executor's sparse embedding updates, the touched rows updated in a
     hand-written kernel (``kernels/csrc/sparse_rows.cu``), and the MoE
-    ops and models (``build_moe_reference``, ``build_moe_fused``).
+    ops and models (``build_moe_reference``, ``build_moe_fused``);
+  * serving and training under failure and under telemetry: injected
+    faults retried at the dispatch boundary, cancels, deadlines, crash
+    containment and post-mortem bundles in the engine, the JAX
+    package's telemetry bus, metrics and reports (``utils/``), and
+    ``fit``'s dispatch window (``core/overlap.py``).
 
 Every serving and training step is one program of a registry
 (``core/programs.py``): on the card it is captured once as a CUDA graph

@@ -8,9 +8,11 @@ policy of ``core/precision.py``, ``remat`` and
 ``iter_config.seq_length``, the conv knobs ``conv_layout`` and
 ``sibling_conv_fusion``, the sparse embedding routing
 (``sparse_embedding_updates``, ``sparse_embedding_lazy``) and
-``moe_dispatch``. A few knobs the port does not run yet
-(search, pipelines, fusion, telemetry) are here at their JAX
-defaults so that setting one reaches ``FFModel.compile``, which raises
+``moe_dispatch``, and the robustness and observability knobs
+(``fault_spec``, the serving retry and deadline knobs, telemetry,
+``trace_out``, the metrics endpoint, post-mortems, the SLO budget and
+``train_dispatch_depth``). A few knobs the port does not run yet
+(search, pipelines, fusion) are here at their JAX defaults so that setting one reaches ``FFModel.compile``, which raises
 ``NotImplementedError`` instead of ignoring it. The rest of the JAX
 config has no counterpart yet.
 
@@ -22,10 +24,12 @@ when CUDA is asked for and missing.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from .core.precision import resolve_dtype
+from .utils.faults import FaultSpec
 
 # the ONE --kv-dtype allowlist (flexflow_tpu/config.py KV_DTYPES); the
 # port's engine serves all four (int8/float8_e4m3 on the mixed step only)
@@ -119,6 +123,44 @@ class FFConfig:
     serve_degrade_ladder: bool = True
     serve_reject_stalls: int = 0
 
+    # robustness (utils/faults.py): a fault spec such as
+    # "serve.mixed:transient@2,5;serve.page_pressure:exhaust:0.5@3-9"
+    # arms seeded failures at marked sites, scoped to the engine or
+    # model built from this config (None = the process default,
+    # FLEXFLOW_TPU_FAULTS). serve_request_deadline is the default
+    # per-request wall-clock deadline in seconds (0 = none); a
+    # TransientError at a serving dispatch is retried up to
+    # serve_max_retries times, sleeping serve_retry_backoff_s * 2^k
+    # before retry k + 1
+    fault_spec: Optional[str] = None
+    serve_request_deadline: float = 0.0
+    serve_max_retries: int = 3
+    serve_retry_backoff_s: float = 0.02
+
+    # observability (utils/telemetry.py): telemetry turns the event bus
+    # on; trace_out (a Chrome trace written after every generate() and
+    # fit()), metrics_port (a /metrics endpoint; 0 = an ephemeral port)
+    # and postmortem_dir (bounded failure bundles) each turn it on too.
+    # trace_dir is where utils/profiling.trace() writes the profiler's
+    # trace (None = DEFAULT_TRACE_DIR)
+    telemetry: bool = False
+    trace_out: Optional[str] = None
+    telemetry_buffer_events: int = 65536
+    telemetry_drift_threshold: float = 0.5
+    metrics_port: Optional[int] = None
+    metrics_host: str = "127.0.0.1"
+    postmortem_dir: Optional[str] = None
+    postmortem_events: int = 2048
+    trace_dir: Optional[str] = None
+    # the SLO burn monitor's tolerated violation fraction (utils/slo.py)
+    slo_error_budget: float = 0.01
+    slo_monitor: bool = True
+
+    # fit's dispatch window (core/overlap.py DispatchWindow): up to this
+    # many train dispatches in flight before the oldest one's metrics
+    # are fetched; 1 = synchronous, 0 = unbounded (fetch at epoch end)
+    train_dispatch_depth: int = 2
+
     # recompute each weighted op's activations in the backward
     # (torch.utils.checkpoint), as the JAX executor's jax.checkpoint
     remat: bool = False
@@ -134,7 +176,6 @@ class FFConfig:
     search_budget: int = 0
     pipeline_stages: int = 0
     perform_fusion: bool = False
-    telemetry: bool = False
     iter_config: FFIterationConfig = dataclasses.field(
         default_factory=FFIterationConfig)
 
@@ -199,6 +240,47 @@ class FFConfig:
             raise ValueError(
                 f"serve_reject_stalls must be >= 0 (0 = never), got "
                 f"{self.serve_reject_stalls}")
+        if self.train_dispatch_depth < 0:
+            raise ValueError(
+                f"train_dispatch_depth must be >= 0 (0 = unbounded, "
+                f"1 = synchronous), got {self.train_dispatch_depth}")
+        if self.serve_request_deadline < 0:
+            raise ValueError(
+                f"serve_request_deadline must be >= 0 (0 = none), got "
+                f"{self.serve_request_deadline}")
+        if self.serve_max_retries < 0:
+            raise ValueError(
+                f"serve_max_retries must be >= 0, got "
+                f"{self.serve_max_retries}")
+        if self.serve_retry_backoff_s < 0:
+            raise ValueError(
+                f"serve_retry_backoff_s must be >= 0, got "
+                f"{self.serve_retry_backoff_s}")
+        if self.telemetry_buffer_events < 1:
+            raise ValueError(
+                f"telemetry_buffer_events must be >= 1, got "
+                f"{self.telemetry_buffer_events}")
+        if self.telemetry_drift_threshold < 0:
+            raise ValueError(
+                f"telemetry_drift_threshold must be >= 0, got "
+                f"{self.telemetry_drift_threshold}")
+        if self.metrics_port is not None and not (
+                0 <= int(self.metrics_port) <= 65535):
+            raise ValueError(
+                f"metrics_port must be None (off) or 0..65535 "
+                f"(0 = ephemeral), got {self.metrics_port}")
+        if self.postmortem_events < 1:
+            raise ValueError(
+                f"postmortem_events must be >= 1, got "
+                f"{self.postmortem_events}")
+        if not (0.0 < self.slo_error_budget <= 1.0):
+            raise ValueError(
+                f"slo_error_budget must be in (0, 1] (the tolerated "
+                f"violation fraction), got {self.slo_error_budget}")
+        if self.fault_spec:
+            # parse now, so that a mistyped spec fails here and not in
+            # the middle of a chaos run
+            FaultSpec(self.fault_spec)
 
 
 def resolve_device(device="cuda") -> torch.device:

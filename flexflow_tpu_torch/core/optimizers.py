@@ -71,6 +71,23 @@ def _zeros_like(params: Tree) -> Tree:
                  for k, w in p.items()} for op, p in params.items()}
 
 
+def _sub_scaled(w, d, lr) -> None:
+    """w <- w - lr * d as one FMA, fma(-lr, d, w) rounded once to w's
+    dtype, in place; ``lr`` a 0-d f32 tensor on w's device (addcmul
+    fuses its multiply-add on the CPU and on the card)."""
+    if w.dtype == torch.float32:
+        w.addcmul_(d, -lr)
+    else:
+        w.copy_(torch.addcmul(w.float(), d, -lr))
+
+
+def _sqrt_rn(v):
+    """Correctly rounded f32 sqrt, as XLA's: the card's is; torch's
+    vectorized CPU sqrt is not always, so the CPU takes it in float64
+    and rounds once."""
+    return torch.sqrt(v) if v.is_cuda else torch.sqrt(v.double()).float()
+
+
 def _leaves(*trees):
     """Zip the (op, weight) leaves of trees with the first one's
     structure."""
@@ -150,20 +167,21 @@ class SGDOptimizer(Optimizer):
 
     @torch.no_grad()
     def update(self, params, grads, state, step, scalar=None):
-        # lr in f32 (a Python float is applied in the tensors' f32)
-        lr = self.step_scalar(step) if scalar is None else scalar
+        # jax.jit's arithmetic: XLA fuses each multiply-add of the rule
+        # into one FMA (decay, velocity, nesterov's direction and
+        # w - lr * dir; tests/test_torch_optim_fma.py)
         slots = (state["v"],) if self.momentum != 0.0 else ()
         for w, g, *v in _leaves(params, grads, *slots):
             g = g.float()
             if self.weight_decay != 0.0:
-                g = g + self.weight_decay * w.float()
-            if not v:
-                w.sub_(lr * g)
-                continue
-            (v,) = v
-            v.mul_(self.momentum).add_(g)
-            step_dir = g + self.momentum * v if self.nesterov else v
-            w.sub_(lr * step_dir)
+                g = torch.add(g, w.float(), alpha=self.weight_decay)
+            step_dir = g
+            if v:
+                (v,) = v
+                torch.add(g, v, alpha=self.momentum, out=v)
+                step_dir = torch.add(g, v, alpha=self.momentum) \
+                    if self.nesterov else v
+            _sub_scaled(w, step_dir, self._scalar_tensor(w, step, scalar))
         return params, state
 
     def sparse_mode(self):
@@ -218,15 +236,18 @@ class AdamOptimizer(Optimizer):
 
     @torch.no_grad()
     def update(self, params, grads, state, step, scalar=None):
+        # jax.jit's arithmetic: each moment is one FMA over the rounded
+        # (1 - b) term, m = fma(b1, m, (1 - b1) * g) and
+        # v = fma(b2, v, ((1 - b2) * g) * g); sqrt correctly rounded
         alpha_t = self.alpha_t(step) if scalar is None else scalar
         b1, b2 = self.beta1, self.beta2
         for w, g, m, v in _leaves(params, grads, state["m"], state["v"]):
             g = g.float()
             if self.weight_decay != 0.0:
-                g = g + self.weight_decay * w.float()
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * g * g)
-            w.sub_(alpha_t * m / (torch.sqrt(v) + self.epsilon))
+                g = torch.add(g, w.float(), alpha=self.weight_decay)
+            torch.add((1 - b1) * g, m, alpha=b1, out=m)
+            torch.add((1 - b2) * g * g, v, alpha=b2, out=v)
+            w.sub_(alpha_t * m / (_sqrt_rn(v) + self.epsilon))
         return params, state
 
     def sparse_mode(self):

@@ -22,9 +22,15 @@ Op state (BatchNorm's running statistics) is read and written with
 ``get_states`` / ``set_states``; ``conv_layout='NHWC'`` and
 ``sibling_conv_fusion`` take effect in the executor.
 
+``fit`` keeps up to ``train_dispatch_depth`` dispatches in flight
+before fetching the oldest one's metrics (core/overlap.py), records
+dispatch and fetch spans on ``self.telemetry`` when the config turns
+telemetry on, and leaves its window and gap statistics in
+``last_train_stats``.
+
 Out of the slice, and raising ``NotImplementedError`` when configured:
-a mesh or strategy, the strategy search, pipelines, fusion groups,
-telemetry and the native loader.
+a mesh or strategy, the strategy search, pipelines, fusion groups and
+the native loader.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch
 from .config import CompMode, FFConfig, resolve_device
 from .core import prng
 from .core.executor import Executor, TrainState
+from .core.overlap import DispatchWindow
 from .core.optimizers import Optimizer, SGDOptimizer
 from .op import Op
 from .ops import (LSTM, Aggregate, BatchMatmul, BatchNorm, Concat, Conv2D,
@@ -49,6 +56,7 @@ from .ops import (LSTM, Aggregate, BatchMatmul, BatchNorm, Concat, Conv2D,
                   Softmax, Split, TopK, Transpose)
 from .tensor import Tensor
 from .utils import faults as _faults
+from .utils.telemetry import telemetry_for, train_metrics
 
 
 def _resolve_steps_per_dispatch(spd) -> int:
@@ -74,6 +82,8 @@ class FFModel:
         self.optimizer: Optional[Optimizer] = None
         self._rng = prng.prng_key(self.config.seed)
         self._host_step = 0
+        self.last_train_stats: Optional[dict] = None   # set by fit()
+        self.telemetry = None                          # set by fit()
 
     # ---------------- tensors ----------------
     def create_tensor(self, shape: Sequence[int], dtype=torch.float32,
@@ -351,7 +361,6 @@ class FFModel:
             "search_budget > 0 (strategy search)": cfg.search_budget > 0,
             "pipeline_stages > 1": cfg.pipeline_stages > 1,
             "perform_fusion": cfg.perform_fusion,
-            "telemetry": cfg.telemetry,
         }
         on = [k for k, v in off.items() if v]
         if on:
@@ -509,7 +518,16 @@ class FFModel:
         ``checkpoint_dir`` saves the state asynchronously every
         ``checkpoint_every`` epochs into ``epoch_N`` and resumes a re-run
         from the newest committed epoch, bit for bit. Each dispatch
-        fires the fault site ``train.dispatch`` first. Returns one dict
+        fires the fault site ``train.dispatch`` first. Up to
+        ``config.train_dispatch_depth`` dispatches stay in flight before
+        the oldest one's metrics are fetched (core/overlap.py; 0 fetches
+        at the epoch's end): the losses, metrics and weights are the
+        same at every depth. With telemetry on (``config.telemetry``,
+        ``trace_out``, ...) each dispatch is a ``dispatch`` span on
+        ``("train", "dispatch")``, each fetch a ``fetch_wait`` span and
+        each epoch a span, ``last_train_stats`` folds into
+        ``self.telemetry.metrics``, and the Chrome trace is written to
+        ``trace_out`` on exit, a fault's included. Returns one dict
         per epoch: epoch, loss, throughput (samples/s) and, with the
         accuracy metric, accuracy."""
         steps_per_dispatch = _resolve_steps_per_dispatch(steps_per_dispatch)
@@ -534,10 +552,26 @@ class FFModel:
             return rng.permutation(n)
 
         inj = _faults.injector_for(self.config)
+        tel = self.telemetry = telemetry_for(self.config)
+        win = DispatchWindow(self.config.train_dispatch_depth,
+                             telemetry=tel)
+        gaps: List[float] = []    # host time between dispatches
+        n_dispatches = 0
+        last_end = None
 
         def dispatch(fn, arg):
+            nonlocal n_dispatches, last_end
+            t = time.perf_counter()
+            if last_end is not None:
+                gaps.append(t - last_end)
             inj.fire("train.dispatch")   # before the step touches state
-            return fn(arg)
+            out = fn(arg)
+            last_end = time.perf_counter()
+            n_dispatches += 1
+            if tel.enabled:
+                tel.span(("train", "dispatch"), "dispatch", t, last_end,
+                         args={"dispatch": n_dispatches - 1})
+            return out
 
         history = []
         start_epoch = 0
@@ -557,6 +591,8 @@ class FFModel:
             for epoch in range(start_epoch, ep):
                 idx = draw_perm() if shuffle else np.arange(n)
                 t0 = time.time()
+                t0pc = time.perf_counter()
+                captures0 = sum(self.compile_counts().values())
                 if prefetch:
                     if fit_loader is None:
                         from .core.dataloader import DataLoaderSet
@@ -575,31 +611,45 @@ class FFModel:
                         batch["label"] = y[sel]
                         return batch
 
-                # entries: (metrics, loss weight); weight = microbatches
-                # an entry's (mean) loss stands for, None = (K,) losses
-                entries = []
+                # window entries: (metrics, loss weight); weight =
+                # microbatches an entry's (mean) loss stands for, None =
+                # (K,) losses
                 gas = max(1, grad_accum_steps)
                 group = gas if gas > 1 else max(1, steps_per_dispatch)
                 full = steps - steps % group if group > 1 else 0
                 for s0 in range(0, full, group):
                     mbs = [mk_batch(s) for s in range(s0, s0 + group)]
                     if gas > 1:
-                        entries.append((dispatch(self.train_batch_accum,
-                                                 mbs), len(mbs)))
+                        win.push((dispatch(self.train_batch_accum, mbs),
+                                  len(mbs)))
                     else:
-                        entries.append((dispatch(self.train_batches, mbs),
-                                        None))
+                        win.push((dispatch(self.train_batches, mbs), None))
                 tail = list(range(full, steps))
                 if tail and gas > 1:
                     mbs = [mk_batch(s) for s in tail]
-                    entries.append((dispatch(self.train_batch_accum, mbs),
-                                    len(mbs)))
+                    win.push((dispatch(self.train_batch_accum, mbs),
+                              len(mbs)))
                 else:
                     for s in tail:
-                        entries.append((dispatch(self.train_batch,
-                                                 mk_batch(s)), 1))
-                agg, loss_terms = self._fold(entries)
+                        win.push((dispatch(self.train_batch, mk_batch(s)),
+                                  1))
+                agg, loss_terms = self._fold(win.drain())
                 dt = time.time() - t0
+                if tel.enabled:
+                    t1pc = time.perf_counter()
+                    tel.span(("train", "epoch"), f"epoch {epoch}", t0pc,
+                             t1pc, args={"steps": steps})
+                    # the drift sample: wall per step against the
+                    # simulator's price, skipped for an epoch that
+                    # captured a program (capture time is not step time)
+                    pred = self._predicted_step_s()
+                    if steps and pred and pred[0] and sum(
+                            self.compile_counts().values()) == captures0:
+                        tel.record_drift(
+                            "train", f"bs={bs} group={group} "
+                                     f"accum={grad_accum_steps}",
+                            pred[0], (t1pc - t0pc) / steps,
+                            breakdown=pred[1])
                 out = {"epoch": epoch,
                        "loss": agg.get("loss", 0.0) / max(1, loss_terms),
                        "throughput": steps * bs / dt}
@@ -617,9 +667,56 @@ class FFModel:
                         os.path.join(checkpoint_dir, f"epoch_{epoch}"),
                         self.state, use_async=True, checkpointer=ckptr)
         finally:
+            # in-flight dispatches already updated the state: fetch them
+            # before a fault propagates
+            in_flight_at_exit = win.pending()
+            try:
+                win.drain()
+            except Exception:
+                pass
+            self.last_train_stats = self._train_stats(
+                win, gaps, n_dispatches, in_flight_at_exit)
+            if tel.enabled:
+                train_metrics(self.last_train_stats, registry=tel.metrics)
+                trace_out = self.config.trace_out
+                if trace_out:
+                    try:
+                        tel.export_chrome_trace(trace_out)
+                    except OSError:
+                        pass   # an unwritable path must not fail fit
             if ckptr is not None:   # commit in-flight saves on any exit
                 ckptr.close()
         return history
+
+    @staticmethod
+    def _train_stats(win, gaps, n_dispatches, in_flight_at_exit) -> dict:
+        """One fit() run's dispatch-window instrumentation, the JAX
+        package's fields (utils/profiling.train_report renders them). One
+        device: no gradient buckets, data parallelism 1."""
+        waits = sorted(win.fetch_waits_s)
+        sg = sorted(gaps)
+        return {
+            "dispatches": n_dispatches,
+            "dispatch_depth": win.depth,
+            "max_in_flight": win.max_in_flight,
+            "in_flight_at_exit": in_flight_at_exit,
+            "pending_after_drain": win.pending(),
+            "dispatch_gap_s_mean": (sum(sg) / len(sg)) if sg else 0.0,
+            "dispatch_gap_s_p50": sg[len(sg) // 2] if sg else 0.0,
+            "dispatch_gap_s_max": sg[-1] if sg else 0.0,
+            "fetch_wait_s_total": sum(waits),
+            "fetch_wait_s_max": waits[-1] if waits else 0.0,
+            "grad_buckets": {"count": 0, "bucket_mb": 0.0, "bytes": []},
+            "data_parallel": 1,
+            "est_comm_hidden": 0.0,
+        }
+
+    def _predicted_step_s(self) -> Optional[tuple]:
+        """(predicted seconds per train step, per-task-class breakdown)
+        from the strategy simulator, for the drift calibrator; None
+        when the step cannot be priced, which is always until the
+        search stack is ported (no drift is then recorded)."""
+        return None
 
     def _resume(self, checkpoint_dir: str) -> int:
         """Restore the newest committed ``epoch_N`` of checkpoint_dir

@@ -43,19 +43,34 @@ back packed in one copy into pinned memory. ``compile_counts()`` counts
 the captures; after ``warmup`` it must not grow.
 
 Host-side state (page allocator, prefix registry, scheduler, drafter)
-is the JAX package's, copied; the engine owns the device half. What the
-JAX engine also does and this one does not yet — tensor-parallel
-serving (``serve_mesh``) and LoRA adapters (``adapter_rank``) raise
-``NotImplementedError`` when configured; the host tier, telemetry and
-deadlines/cancel/retry have no knob here.
+is the JAX package's, copied; the engine owns the device half.
+
+Robustness and observability are the JAX engine's: faults fire at the
+dispatch boundary (``serve.mixed``, ``serve.prefill``,
+``serve.decode``) before anything is staged, a ``TransientError`` is
+retried up to ``serve_max_retries`` times with exponential backoff,
+``cancel(rid)`` and per-request deadlines abort requests at the top of
+a step, a failed step fails only the in-flight requests, and, with
+telemetry on, every step is recorded as spans on the engine's tracks
+(after its dispatch returned: nothing is recorded inside a captured
+region), folded into the metrics registry, explained per request and
+black-boxed in post-mortem bundles under ``postmortem_dir``.
+
+What the JAX engine also does and this one does not yet —
+tensor-parallel serving (``serve_mesh``), LoRA adapters
+(``adapter_rank``, ``tenant_ids``) raise ``NotImplementedError`` when
+configured; the host tier has no knob here; drift samples and the
+memory ledger need the search stack.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
-from typing import List, Optional, Sequence, Tuple
+import warnings
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,7 +81,11 @@ from ..kernels.flash_attention import (paged_attention_decode,
                                        paged_attention_ragged)
 from ..kernels.paged_ragged_v2 import quantize_kv_rows
 from ..models.transformer import TransformerLM
-from ..utils.faults import injector_for
+from ..utils.faults import FaultInjector, TransientError, injector_for
+from ..utils.telemetry import (REQUEST_COMPONENTS, MetricsServer,
+                               Telemetry, fold_attribution, pow2_bucket,
+                               serve_metrics, telemetry_for,
+                               write_json_atomic)
 from ..weights import arch_from_model
 from .kv_cache import KVCacheConfig, PagedKVCache
 from .scheduler import (ChunkPlan, ContinuousBatchingScheduler, Request,
@@ -81,14 +100,25 @@ class ServeEngine:
     None). Runs on the card unless ``device="cpu"``; the model must
     live on the same device. ``capture=False`` runs every step eagerly
     instead of replaying its captured CUDA graph (the reference runs of
-    the tests and the smoke; the tokens are the same)."""
+    the tests and the smoke; the tokens are the same). ``faults`` and
+    ``telemetry`` override the injector and the telemetry bus the
+    config resolves (``fault_spec``; ``telemetry``, ``trace_out``,
+    ``metrics_port``, ``postmortem_dir``), as the JAX engine's do."""
 
     # static top-k head width: sampling draws from the top
     # min(TOPK_CAP, vocab) logits of a lane
     TOPK_CAP = 64
 
+    # failure flight recorder: expirations at one sweep that count as a
+    # deadline storm, and the least wall seconds between two
+    # auto-triggered bundles
+    DEADLINE_STORM = 3
+    POSTMORTEM_MIN_INTERVAL_S = 5.0
+
     def __init__(self, model, config: Optional[FFConfig] = None, *,
-                 device="cuda", capture: bool = True):
+                 device="cuda", capture: bool = True,
+                 faults: Optional[FaultInjector] = None,
+                 telemetry: Optional[Telemetry] = None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(
@@ -122,9 +152,30 @@ class ServeEngine:
         self.prefix_cache = bool(cfg.serve_prefix_cache)
         self.prefill_budget = int(cfg.serve_prefill_budget)
         self.admit_watermark = float(cfg.serve_admit_watermark)
-        self.faults = injector_for(cfg)
         self.degrade_ladder = bool(cfg.serve_degrade_ladder)
         self.reject_stalls = int(cfg.serve_reject_stalls)
+        # robustness: the config-scoped injector (fault_spec) unless one
+        # is given, bounded retry of transient dispatch faults,
+        # per-request deadlines, and cancels swept at step boundaries
+        self.faults = faults if faults is not None else injector_for(cfg)
+        self.max_retries = int(cfg.serve_max_retries)
+        self.retry_backoff = float(cfg.serve_retry_backoff_s)
+        self.default_deadline = float(cfg.serve_request_deadline)
+        self._retries = 0           # engine-lifetime retried dispatches
+        self._cancels: set = set()  # rids cancel() marked
+        self._active: Dict[int, Request] = {}
+        # observability: the bus (the shared disabled one when off), its
+        # tracks, the flight recorder, and the last run's requests for
+        # explain_request (rids restart per run; trace ids do not)
+        self.telemetry = telemetry if telemetry is not None \
+            else telemetry_for(cfg)
+        self.trace_out = cfg.trace_out
+        self.set_track_process("serve")
+        self.postmortem_dir = cfg.postmortem_dir
+        self.postmortem_events = int(cfg.postmortem_events)
+        self._postmortem_seq = 0
+        self._postmortem_last = -float("inf")
+        self._last_reqs: Dict[int, Request] = {}
         # speculation needs the mixed step (draft lanes are chunk lanes)
         spec = int(cfg.serve_spec_tokens) if cfg.serve_spec_decode else 0
         self.spec_tokens = spec if self.chunked_prefill else 0
@@ -184,6 +235,13 @@ class ServeEngine:
             self.programs.register(fam)
         self._stage_in = PinnedRing(self.device)
         self._stage_out = PinnedRing(self.device)
+        # the /metrics and /healthz endpoint, started LAST so that a
+        # failure above leaks no bound port or thread; close() stops it
+        self.metrics_server = None
+        if cfg.metrics_port is not None:
+            self.metrics_server = MetricsServer(
+                self.telemetry.to_prometheus, port=int(cfg.metrics_port),
+                host=str(cfg.metrics_host))
 
     def _program_fingerprint(self) -> dict:
         c = self.cache_cfg
@@ -203,9 +261,19 @@ class ServeEngine:
         return self.programs.compile_counts()
 
     def close(self) -> None:
-        """Release the captured graphs (each holds a private memory
-        pool); a later step captures anew."""
+        """Stop the /metrics endpoint and release the captured graphs
+        (each holds a private memory pool). Idempotent; the engine
+        still serves after it, capturing its programs anew."""
+        server, self.metrics_server = self.metrics_server, None
+        if server is not None:
+            server.close()
         self.programs.release()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     # ---------------- device pages and the mixed step ------------------
     def _device_pages(self):
@@ -298,7 +366,19 @@ class ServeEngine:
         the program run (replayed on the card once captured), its
         output fetched by one copy into pinned memory. Returns numpy
         (greedy, topv, topi) — for ``prefill`` the (vocab,) f32 logits
-        — and ends synchronized."""
+        — and ends synchronized.
+
+        The fault site ``serve.{family}`` fires first, before a staging
+        slot is taken, a byte is copied or a graph replays: a fault the
+        injector raises leaves the device and the staging ring as they
+        were. So every retry of a ``TransientError`` (up to
+        ``serve_max_retries``, sleeping ``serve_retry_backoff_s``,
+        doubled at each retry) is safe: unlike the JAX engine, which stops
+        retrying once its donated page arrays are consumed, the port
+        donates nothing and nothing has reached the device yet. An error
+        from the device itself (a CUDA error mid-replay) is not a
+        ``TransientError`` and is never retried."""
+        self._fire_with_retry(f"serve.{family}")
         self._device_pages()
         shapes = tuple(a.shape for a in arrays)
         buf = self._stage_in.take(sum(a.size for a in arrays), torch.int32)
@@ -325,6 +405,35 @@ class ServeEngine:
             return res.view(np.float32)
         k = self.topk_cap
         return res[:, 0], res[:, 1:1 + k].view(np.float32), res[:, 1 + k:]
+
+    def _fire_with_retry(self, site: str) -> None:
+        """Fire ``site``, retrying each TransientError with backoff (the
+        JAX engine's _call_counted): a ``retry`` instant per attempt and
+        a ``retry_backoff`` span over each sleep, on the engine track;
+        raises once the retries are spent."""
+        attempt = 0
+        tel = self.telemetry
+        while True:
+            try:
+                self.faults.fire(site)
+                return
+            except TransientError:
+                attempt += 1
+                if attempt > self.max_retries:
+                    raise
+                self._retries += 1
+                if tel.enabled:
+                    tel.instant(self._ENGINE_TRACK, "retry",
+                                args={"site": site, "attempt": attempt})
+                if self.retry_backoff:
+                    tb = time.perf_counter()
+                    time.sleep(self.retry_backoff * (2 ** (attempt - 1)))
+                    if tel.enabled:
+                        # dead time every request of the step pays: a
+                        # span, so explain_request carves it out as retry
+                        tel.span(self._ENGINE_TRACK, "retry_backoff", tb,
+                                 time.perf_counter(),
+                                 args={"site": site, "attempt": attempt})
 
     def _run_packed(self, family: str, shapes, packed):
         """The program of a family: unpack the lane arrays (views of
@@ -565,31 +674,71 @@ class ServeEngine:
     # ---------------- the serving loop ---------------------------------
     def generate(self, prompts: Sequence[Sequence[int]],
                  max_new_tokens, eos_token: Optional[int] = None,
-                 temperature=None, top_k=None,
-                 sample_seed: int = 0, on_step=None) -> List[List[int]]:
+                 temperature=None, top_k=None, sample_seed: int = 0,
+                 deadline_s=None, on_step=None, on_finish=None,
+                 stream_ids: Optional[Sequence[int]] = None,
+                 stream_offset: int = 0,
+                 trace_ids: Optional[Sequence[int]] = None,
+                 tenant_ids: Optional[Sequence[int]] = None
+                 ) -> List[List[int]]:
         """Decode a ragged batch under continuous batching.
         `max_new_tokens` is an int or a per-prompt sequence; greedy by
         default, per-request seeded temperature/top-k sampling when
         `temperature` is given (scalar or per-prompt; 0 = greedy).
         Returns the generated tokens (prompt excluded) per prompt, in
         order; per-run counters land in `self.last_stats`.
-        `on_step(step_index)` is called after every engine step (the
-        hook invariant checks such as :meth:`check_kv_scales` run
-        from). A mid-batch exception fails only the in-flight requests
-        and the engine keeps serving."""
+
+        `deadline_s` (scalar or per-prompt; FFConfig.
+        serve_request_deadline when None; 0/None = none) bounds each
+        request's wall time from submission: expiry aborts it at the
+        next step boundary with outcome "deadline_expired", and its
+        partial tokens are returned. `cancel(rid)` (rids are
+        `last_stats["requests"][i]["rid"]`, in prompt order) aborts a
+        request the same way. `on_step(step_index)` is called after
+        every engine step (where cancels and invariant checks run);
+        `on_finish(req)` when a request completes, before its slot
+        releases. `stream_ids`/`stream_offset` key the sampled streams
+        (_pick_token), `trace_ids` carry an upstream trace context.
+        `tenant_ids` other than 0 need LoRA adapters (not ported). A
+        mid-batch exception fails only the in-flight requests and the
+        engine keeps serving; with telemetry on, the Chrome trace is
+        written to `trace_out` after every call, one a fault aborted
+        included."""
+        n = len(prompts)
         if isinstance(max_new_tokens, int):
-            max_new_tokens = [max_new_tokens] * len(prompts)
-        if len(max_new_tokens) != len(prompts):
-            raise ValueError(
-                f"max_new_tokens has {len(max_new_tokens)} entries for "
-                f"{len(prompts)} prompts")
-        samples = self._sample_params(temperature, top_k, sample_seed,
-                                      len(prompts), self.topk_cap)
+            max_new_tokens = [max_new_tokens] * n
+        samples = self._sample_params(temperature, top_k, sample_seed, n,
+                                      self.topk_cap)
+        if deadline_s is None and self.default_deadline > 0:
+            deadline_s = self.default_deadline
+        if deadline_s is not None and np.isscalar(deadline_s):
+            deadline_s = [deadline_s] * n
+        for name, arg in (("max_new_tokens", max_new_tokens),
+                          ("deadline_s", deadline_s),
+                          ("stream_ids", stream_ids),
+                          ("trace_ids", trace_ids),
+                          ("tenant_ids", tenant_ids)):
+            if arg is not None and len(arg) != n:
+                raise ValueError(f"{name} has {len(arg)} entries for "
+                                 f"{n} prompts")
+        if tenant_ids is not None and any(tenant_ids):
+            raise NotImplementedError(
+                "tenant_ids != 0 need LoRA adapters, which are not "
+                "ported; the port serves the base model only")
+        per = [dict(eos_token=eos_token, sample=sp,
+                    deadline_s=(deadline_s[i] if deadline_s is not None
+                                else None),
+                    stream_id=(stream_ids[i] if stream_ids is not None
+                               else None),
+                    stream_offset=stream_offset,
+                    trace_id=(trace_ids[i] if trace_ids is not None
+                              else None))
+               for i, sp in enumerate(samples)]
         if self.chunked_prefill:
-            return self._generate_session(prompts, max_new_tokens,
-                                          samples, eos_token, on_step)
-        return self._generate_legacy(prompts, max_new_tokens, samples,
-                                     eos_token, on_step)
+            return self._generate_session(prompts, max_new_tokens, per,
+                                          on_step, on_finish)
+        return self._generate_legacy(prompts, max_new_tokens, per,
+                                     on_step, on_finish)
 
     def start_session(self) -> "ServeSession":
         """Open an incremental serving session: submit requests at any
@@ -598,15 +747,42 @@ class ServeEngine:
         session per engine."""
         return ServeSession(self)
 
-    def _generate_session(self, prompts, max_new_tokens, samples,
-                          eos_token, on_step=None) -> List[List[int]]:
+    def _finish_run(self) -> None:
+        """The tail every generate() runs, a failed one included: clear
+        the cancel marks and the active set, export the fault accounting
+        and write the Chrome trace (an unwritable ``trace_out`` warns
+        and serving goes on)."""
+        self._active.clear()
+        self._cancels.clear()
+        tel = self.telemetry
+        if tel.enabled:
+            tel.record_faults(self.faults)
+            if self.trace_out:
+                try:
+                    tel.export_chrome_trace(self.trace_out)
+                except OSError as e:
+                    warnings.warn(f"trace_out {self.trace_out!r} is not "
+                                  f"writable ({e}); no trace written")
+
+    def _publish(self, stats: dict) -> None:
+        """Check the pool drained, publish ``last_stats`` and fold it
+        into the engine-lifetime registry."""
+        self.cache.check_invariants()
+        assert self.cache.free_pages == self.cache_cfg.usable_pages, \
+            "pages leaked"
+        self.last_stats = stats
+        if self.telemetry.enabled:
+            serve_metrics(stats, registry=self.telemetry.metrics)
+
+    def _generate_session(self, prompts, max_new_tokens, per, on_step,
+                          on_finish) -> List[List[int]]:
         """generate()'s chunked path: one ServeSession, every prompt
         submitted up front, stepped to drain."""
         session = self.start_session()
         reqs = session.reqs
         try:
-            for prompt, mnt, sp in zip(prompts, max_new_tokens, samples):
-                session.submit(prompt, mnt, eos_token=eos_token, sample=sp)
+            for prompt, mnt, kw in zip(prompts, max_new_tokens, per):
+                session.submit(prompt, mnt, on_finish=on_finish, **kw)
             while True:
                 ev = session.step()
                 if ev is None:
@@ -618,15 +794,13 @@ class ServeEngine:
             raise
         finally:
             session.close()
-        self.cache.check_invariants()
-        assert self.cache.free_pages == self.cache_cfg.usable_pages, \
-            "pages leaked"
-        self.last_stats = session.stats_dict()
+            self._finish_run()
+        self._publish(session.stats_dict())
         return [list(r.out_tokens) for r in reqs]
 
     # ---------------- the legacy bucket path ----------------------------
-    def _generate_legacy(self, prompts, max_new_tokens, samples,
-                         eos_token, on_step=None) -> List[List[int]]:
+    def _generate_legacy(self, prompts, max_new_tokens, per, on_step,
+                         on_finish) -> List[List[int]]:
         """generate()'s legacy path (serve_chunked_prefill=False): its
         own scheduler and orphan recovery (the chunked path's
         ServeSession owns both), then :meth:`_run_legacy`."""
@@ -634,9 +808,9 @@ class ServeEngine:
         cache = self.cache
         if cache.free_slots != c.max_seqs:
             # a previous batch died without _fail_inflight running:
-            # reclaim slots/pages and drop the registry, serve on
+            # reclaim slots/pages, reset the pool state, serve on
             cache.release_all()
-            cache.clear_prefix()
+            self._reset_pool_state()
         sched = ContinuousBatchingScheduler(
             cache, prefill_token_budget=self.prefill_budget,
             chunked_prefill=False, admit_watermark=self.admit_watermark,
@@ -645,36 +819,46 @@ class ServeEngine:
             reject_stalls=self.reject_stalls)
         reqs: List[Request] = []
         t0 = time.perf_counter()
-        for prompt, mnt, sp in zip(prompts, max_new_tokens, samples):
-            r = sched.submit(prompt, mnt, eos_token=eos_token, sample=sp)
+        for prompt, mnt, kw in zip(prompts, max_new_tokens, per):
+            deadline = kw.pop("deadline_s")
+            r = sched.submit(prompt, mnt, **kw)
             r.t_submit = time.perf_counter()
+            if deadline and float(deadline) > 0:
+                r.t_deadline = r.t_submit + float(deadline)
             reqs.append(r)
+            self._active[r.rid] = r
         decode_times: List[float] = []   # seconds per step with decodes
         decode_widths: List[int] = []    # decode lanes per such step
         prefill_times: List[Tuple[int, float]] = []  # (bucket, seconds)
         util: List[float] = []           # resident-page fraction per step
+        retries0 = self._retries
         try:
             self._run_legacy(sched, decode_times, decode_widths,
-                             prefill_times, util, on_step)
+                             prefill_times, util, on_step, on_finish)
         except Exception:
             self._fail_inflight(sched, reqs)
             raise
-        cache.check_invariants()
-        assert cache.free_pages == c.usable_pages, "pages leaked"
-        self.last_stats = self._build_stats(
+        finally:
+            self._finish_run()
+        self._publish(self._build_stats(
             reqs, sched, wall=time.perf_counter() - t0, steps=len(util),
-            decode_times=decode_times, decode_widths=decode_widths,
-            prefill_times=prefill_times, util=util)
+            retries0=retries0, decode_times=decode_times,
+            decode_widths=decode_widths, prefill_times=prefill_times,
+            util=util))
+        self._last_reqs = {r.rid: r for r in reqs}
         return [list(r.out_tokens) for r in reqs]
 
     def _run_legacy(self, sched, decode_times, decode_widths,
-                    prefill_times, util, on_step=None) -> None:
-        """The two-step loop: per-request bucketed prefill (each
-        emitting its first token through the host's argsort top-k),
-        then one full-width decode of every running sequence."""
+                    prefill_times, util, on_step=None,
+                    on_finish=None) -> None:
+        """The two-step loop: the abort sweep, per-request bucketed
+        prefill (each emitting its first token through the host's
+        argsort top-k), then one full-width decode of every running
+        sequence."""
         c = self.cache_cfg
         cache = self.cache
         ps = c.page_size
+        tel = self.telemetry
 
         def emit(chunk: ChunkPlan, greedy, topv, topi) -> None:
             req = chunk.req
@@ -684,12 +868,18 @@ class ServeEngine:
                 req.t_first_token = time.perf_counter()
             if req.is_done():
                 req.t_finish = time.perf_counter()
+                if on_finish is not None:
+                    on_finish(req)
                 sched.finish(req)
 
         while sched.has_work():
+            self._sweep_aborts(sched)
+            if not sched.has_work():
+                break
             plan = sched.schedule()
             if not plan.chunks:
                 continue
+            t_step0 = time.perf_counter()
             pre = [ch for ch in plan.chunks if not ch.is_decode]
             dec = [ch for ch in plan.chunks if ch.is_decode]
             for ch in pre:
@@ -738,6 +928,12 @@ class ServeEngine:
                     emit(ch, nxt[ch.req.slot], topv[ch.req.slot],
                          topi[ch.req.slot])
             util.append(1.0 - cache.free_pages / c.usable_pages)
+            if tel.enabled:
+                # the whole step (prefills and the decode) is one span;
+                # no drift sample: the cost model prices the mixed step
+                self._record_step_telemetry(
+                    tel, plan, len(util) - 1, t_step0,
+                    time.perf_counter() - t_step0, sched.rung, util[-1])
             if on_step is not None:
                 on_step(len(util) - 1)
 
@@ -783,21 +979,366 @@ class ServeEngine:
             for off in range(ps):
                 audit("cached page", page, off)
 
+    # ---------------- robustness --------------------------------------
+    def cancel(self, rid: int) -> bool:
+        """Host-side cancellation: mark request `rid` of the generate()
+        in flight for abort at the next step boundary (its pages and
+        prefix pins release through the refcount machinery). Safe from
+        another thread or an `on_step` callback; False when no such
+        request is active (finished, or a stale rid)."""
+        req = self._active.get(rid)
+        if req is None or req.state == RequestState.FINISHED:
+            return False
+        self._cancels.add(rid)
+        return True
+
+    def _sweep_aborts(self, sched) -> None:
+        """Step-boundary sweep, at the top of every step before the
+        scheduler plans: apply pending cancels and expire deadlines, so
+        no aborted request has a chunk in flight and its slot and pages
+        are free for this step's admissions."""
+        now = time.perf_counter()
+        tel = self.telemetry
+        live = list(sched.running.values()) + list(sched.waiting)
+        expired = 0
+        for req in live:
+            if req.rid in self._cancels:
+                # consume the mark, applied or moot: rids restart in a
+                # new session, and a stale mark must not cancel a
+                # stranger
+                self._cancels.discard(req.rid)
+                if sched.abort(req, RequestOutcome.CANCELLED):
+                    req.t_finish = now
+                    if tel.enabled:
+                        tel.instant(self._ENGINE_TRACK, "cancel", t=now,
+                                    args={"rid": req.rid,
+                                          "trace": req.trace_id})
+            elif req.t_deadline and now >= req.t_deadline:
+                if sched.abort(req, RequestOutcome.DEADLINE_EXPIRED):
+                    req.t_finish = now
+                    expired += 1
+                    if tel.enabled:
+                        tel.instant(self._ENGINE_TRACK,
+                                    "deadline_expired", t=now,
+                                    args={"rid": req.rid,
+                                          "trace": req.trace_id})
+        if expired >= self.DEADLINE_STORM:
+            # several requests expiring at one boundary is the latency
+            # collapse an operator needs a black box for
+            self._auto_postmortem("deadline_storm", sched=sched,
+                                  detail={"expired_this_sweep": expired})
+
     def _fail_inflight(self, sched, reqs: Sequence[Request]) -> None:
         """Crash containment: a mid-batch exception fails ONLY the
-        in-flight requests — every live slot releases through the
-        refcount machinery — and the prefix registry is dropped (a step
-        that died may have written part of a page it vouched for). The
+        in-flight requests (every live slot releases through the
+        refcount machinery), a post-mortem bundle is written when
+        ``postmortem_dir`` is armed, and the pool state is reset. The
         exception still propagates; the next generate() serves
         normally."""
+        now = time.perf_counter()
+        failed = 0
         for req in reqs:
             if req.state != RequestState.FINISHED:
-                sched.abort(req, RequestOutcome.FAILED)
+                if sched.abort(req, RequestOutcome.FAILED):
+                    req.t_finish = now
+                    failed += 1
+        # the bundle records the scheduler and pool as the failure left
+        # them, before the reset
+        self._auto_postmortem("fault_abort", sched=sched,
+                              detail={"failed_inflight": failed})
+        self._reset_pool_state()
+
+    def _reset_pool_state(self) -> None:
+        """The tail of both recovery paths (_fail_inflight and the
+        orphaned-slot self-heal): drop the prefix registry wholesale. The
+        port writes its pages in place and donates nothing, so the pool
+        tensors stay; but a step that died may have written part of a
+        page the registry vouches for, so the registry goes, as in the
+        JAX engine, and the next batch's tokens equal JAX's."""
         self.cache.clear_prefix()
         self.cache.check_invariants()
 
-    def _build_stats(self, reqs, sched, *, wall, steps, decode_times,
-                     decode_widths, prefill_times, util) -> dict:
+    # ---------------- telemetry ----------------------------------------
+    def _drift_predicted(self, plan) -> Optional[tuple]:
+        """(predicted seconds, per-task-class breakdown) of this plan's
+        mixed step, from the simulator the placement search prices (the
+        JAX engine prices the step at the plan's pow2 context bucket,
+        :meth:`_ctx_bucket`); None when the step cannot be priced, and
+        then no drift sample is recorded. The port has no simulator
+        yet, so this is always None (tests inject a prediction)."""
+        return None
+
+    @staticmethod
+    def _ctx_bucket(plan) -> int:
+        """The pow2 bucket of the plan's mean decode context (its chunk
+        ends when it decodes nothing): the drift regime's context."""
+        ctxs = [len(ch.req.prompt) + len(ch.req.out_tokens)
+                for ch in plan.chunks
+                if ch.is_decode] or [ch.end for ch in plan.chunks]
+        return pow2_bucket(int(sum(ctxs) / len(ctxs)))
+
+    def _drift_regime(self, n_decode: int, pre_bucket: int,
+                      ctx_bucket: int) -> str:
+        return (f"t=1 kv={self.kv_dtype} dec={n_decode} "
+                f"pre={pre_bucket} ctx={ctx_bucket}")
+
+    def set_track_process(self, proc: str) -> None:
+        """Re-home this engine's telemetry tracks under a new process
+        name (a replica pool labels each replica's tracks)."""
+        self._proc = str(proc)
+        self._ENGINE_TRACK = (self._proc, "engine")
+        self._QUEUE_TRACK = (self._proc, "queue")
+        self._slot_tracks: List[tuple] = []
+
+    def _slot_track(self, slot: int):
+        tracks = self._slot_tracks
+        while len(tracks) <= slot:
+            tracks.append((self._proc, f"slot {len(tracks)}"))
+        return tracks[slot]
+
+    def _record_step_telemetry(self, tel, plan, step_idx: int,
+                               t_start: float, dt: float,
+                               rung: int, occupancy: float) -> None:
+        """One engine step's telemetry, the JAX engine's records: the
+        step span on the engine track, a chunk span per request on its
+        slot track, queue-wait and requeue-wait async spans for this
+        step's admissions, preemption instants, the pool-occupancy and
+        rung counters, and the drift sample where the step can be
+        priced. Called AFTER the dispatch returned (a step a fault
+        killed is never half-recorded), outside any captured region and
+        reading no device value, and handed to the bus in ONE
+        :meth:`Telemetry.emit`."""
+        t_end = t_start + dt
+        dur = max(0.0, dt)
+        now = time.perf_counter()
+        evs = []
+        for req in plan.admitted:
+            if req._t_requeue is not None:
+                # re-admission after preemption: preempt -> readmit, with
+                # the preemption ordinal in the ident so each b/e pairs
+                ident = f"{req.rid}.{req.preemptions}"
+                evs.append(("b", self._QUEUE_TRACK, "requeue_wait",
+                            req._t_requeue, 0.0, ident,
+                            {"rid": req.rid, "trace": req.trace_id,
+                             "preemptions": req.preemptions}))
+                evs.append(("e", self._QUEUE_TRACK, "requeue_wait",
+                            now, 0.0, ident, None))
+                req._t_requeue = None
+            elif not req.t_admit:
+                req.t_admit = now
+                evs.append(("b", self._QUEUE_TRACK, "queue_wait",
+                            req.t_submit, 0.0, req.rid,
+                            {"rid": req.rid, "trace": req.trace_id,
+                             "prompt_tokens": len(req.prompt)}))
+                evs.append(("e", self._QUEUE_TRACK, "queue_wait",
+                            req.t_admit, 0.0, req.rid, None))
+        for victim in plan.preempted:
+            victim._t_requeue = now
+            evs.append(("i", self._ENGINE_TRACK, "preempt", now, 0.0,
+                        None, {"rid": victim.rid,
+                               "trace": victim.trace_id,
+                               "preemptions": victim.preemptions}))
+        drafted = 0
+        for ch in plan.chunks:
+            req = ch.req
+            nd = len(ch.draft_tokens)
+            name = ("spec_decode" if nd
+                    else "decode" if ch.is_decode else "prefill")
+            drafted += nd
+            evs.append(("X", self._slot_track(req.slot), name, t_start,
+                        dur, None, {"rid": req.rid, "trace": req.trace_id,
+                                    "start": ch.start, "end": ch.end,
+                                    "drafted": nd}))
+        n_dec = plan.num_decode_lanes
+        n_pre = plan.num_prefill_lanes
+        evs.append(("X", self._ENGINE_TRACK, "step", t_start, dur,
+                    None, {"step": step_idx, "decode_lanes": n_dec,
+                           "prefill_lanes": n_pre, "drafted": drafted,
+                           "rung": rung}))
+        evs.append(("C", self._ENGINE_TRACK, "pool_occupancy", t_end,
+                    occupancy, None, None))
+        evs.append(("C", self._ENGINE_TRACK, "rung", t_end,
+                    float(rung), None, None))
+        tel.emit(evs)
+        if plan.chunks and self.chunked_prefill:
+            pred = self._drift_predicted(plan)
+            if pred is not None:
+                tel.record_drift(
+                    "serve", self._drift_regime(
+                        n_dec, pow2_bucket(n_pre), self._ctx_bucket(plan)),
+                    pred[0], dt, breakdown=pred[1])
+
+    # ---------------- per-request latency attribution ------------------
+    def explain_request(self, rid: int) -> dict:
+        """Additive latency attribution of request `rid` of the last
+        generate()/session run: its spans folded into ``{queue, routing,
+        prefill, transfer, decode, preempt_stall, retry, host_reload,
+        other}`` seconds that sum to its measured wall latency exactly
+        (utils/telemetry.attribute_request). Needs telemetry and a
+        terminated request; adds ``rid``/``outcome``/``tokens``."""
+        if not self.telemetry.enabled:
+            raise RuntimeError(
+                "explain_request needs telemetry (pass telemetry= or "
+                "set FFConfig.telemetry / trace_out)")
+        req = self._last_reqs.get(rid)
+        if req is None:
+            raise KeyError(
+                f"rid {rid} is not in the last run "
+                f"({sorted(self._last_reqs)})")
+        if not req.t_finish:
+            raise ValueError(
+                f"request {rid} has no finish stamp (outcome "
+                f"{req.outcome!r}) — only terminated requests are "
+                f"attributable")
+        out = self.telemetry.explain_request(
+            req.trace_id, req.t_submit, req.t_finish)
+        out.update(rid=req.rid, outcome=req.outcome,
+                   tokens=len(req.out_tokens), host_reload=None)
+        return out
+
+    def fold_attribution(self, registry=None) -> dict:
+        """Fold every terminated request of the last run through
+        :meth:`explain_request` into `registry` (default: the engine's
+        lifetime registry) and return the per-component second totals.
+        On demand, never on the serving path."""
+        m = registry if registry is not None else self.telemetry.metrics
+        totals = {c: 0.0 for c in REQUEST_COMPONENTS}
+        if not self.telemetry.enabled:
+            # no spans, and the disabled bus's registry is shared
+            return totals
+        for _, req in sorted(self._last_reqs.items()):
+            if not req.t_finish:
+                continue
+            b = self.telemetry.explain_request(
+                req.trace_id, req.t_submit, req.t_finish)
+            fold_attribution(b, m)
+            for c, v in b["components"].items():
+                totals[c] += v
+        return totals
+
+    # ---------------- failure flight recorder ---------------------------
+    def memory_ledger(self) -> dict:
+        """The JAX engine's per-device byte ledger prices the pool
+        against the search stack's cost model, which is not ported."""
+        raise NotImplementedError(
+            "memory_ledger needs the search stack's cost model, which "
+            "is not ported yet")
+
+    def postmortem_bundle(self, reason: str = "manual",
+                          detail: Optional[dict] = None,
+                          sched=None) -> dict:
+        """The bounded post-mortem bundle, in the JAX engine's schema
+        (``flexflow_tpu.postmortem/1``, which ``tools/postmortem.py``
+        loads): the last ``postmortem_events`` ring events, metrics and
+        drift snapshots, scheduler and KV-pool state, fault accounting,
+        capture counts and the trimmed last_stats. Each section is
+        guarded: a collector that fails loses that section only (the
+        memory ledger's always does, until the search stack is
+        ported)."""
+        tel = self.telemetry
+        if sched is None:
+            sched = self._session.sched if self._session else None
+        bundle = {
+            "schema": "flexflow_tpu.postmortem/1",
+            "reason": str(reason),
+            "detail": dict(detail or {}),
+            "created_unix_s": time.time(),
+            "engine": {
+                "mode": "chunked" if self.chunked_prefill else "legacy",
+                "mixed_width": self.mixed_width,
+                "tensor_parallel": 1,
+                "kv_dtype": self.kv_dtype,
+                "max_seqs": self.cache_cfg.max_seqs,
+                "prefill_budget": self.prefill_budget,
+                "track_process": self._proc,
+                "device": str(self.device),
+            },
+            "compile_counts": self.compile_counts(),
+            "events": tel.events_tail(self.postmortem_events),
+            "events_dropped": tel.dropped_events,
+        }
+        for key, collect in (
+                ("metrics", tel.metrics.snapshot),
+                ("drift", tel.drift_snapshot),
+                ("memory_ledger", self.memory_ledger),
+                ("scheduler", (sched.debug_state if sched is not None
+                               else lambda: None)),
+                ("kv_pool", self.cache.debug_state),
+                ("adapter_pool", lambda: None),
+                ("faults", lambda: {
+                    "fired": {s: dict(k) for s, k in
+                              self.faults.fired.items()},
+                    "site_hits": dict(self.faults._count)}),
+                ("last_stats", self._trimmed_last_stats)):
+            try:
+                bundle[key] = collect()
+            except Exception as e:   # a collector bug loses ONE section
+                bundle[key] = {"error": f"{type(e).__name__}: {e}"}
+        return bundle
+
+    def _trimmed_last_stats(self) -> Optional[dict]:
+        st = self.last_stats
+        if not st:
+            return None
+        st = dict(st)
+        reqs = st.get("requests")
+        if isinstance(reqs, list) and len(reqs) > 64:
+            st["requests"] = reqs[-64:]
+            st["requests_trimmed"] = len(reqs) - 64
+        # the per-step lists grow with the run; keep their tails
+        for k in ("decode_step_times_s", "decode_widths",
+                  "prefill_times_s"):
+            v = st.get(k)
+            if isinstance(v, list) and len(v) > 256:
+                st[k] = v[-256:]
+        return st
+
+    def _postmortem_path(self, reason: str) -> str:
+        """``postmortem-<reason>-<pid>-<n>.json`` under postmortem_dir
+        (the working directory when unset), tools/postmortem.py's
+        naming."""
+        base = self.postmortem_dir or "."
+        os.makedirs(base, exist_ok=True)
+        self._postmortem_seq += 1
+        return os.path.join(
+            base, f"postmortem-{reason}-{os.getpid()}-"
+                  f"{self._postmortem_seq}.json")
+
+    def dump_postmortem(self, path: Optional[str] = None,
+                        reason: str = "manual",
+                        detail: Optional[dict] = None,
+                        sched=None) -> str:
+        """Write the bundle atomically (tmp + rename) and return its
+        path. The explicit trigger: always writes, no rate limit."""
+        bundle = self.postmortem_bundle(reason, detail, sched=sched)
+        if path is None:
+            path = self._postmortem_path(reason)
+        return write_json_atomic(path, bundle)
+
+    def _auto_postmortem(self, reason: str, sched=None,
+                         detail: Optional[dict] = None) -> Optional[str]:
+        """The auto-triggered dump (fault abort, deadline storm, rung-4
+        rejection): only with ``postmortem_dir`` armed, at most one
+        every POSTMORTEM_MIN_INTERVAL_S, and it never raises: a black
+        box must not mask the failure it records."""
+        if not self.postmortem_dir or not self.telemetry.enabled:
+            return None
+        now = time.monotonic()
+        if now - self._postmortem_last < self.POSTMORTEM_MIN_INTERVAL_S:
+            return None
+        self._postmortem_last = now
+        try:
+            path = self.dump_postmortem(reason=reason, detail=detail,
+                                        sched=sched)
+            self.telemetry.instant(self._ENGINE_TRACK, "postmortem_dump",
+                                   args={"reason": reason, "path": path})
+            return path
+        except Exception:
+            return None
+
+    def _build_stats(self, reqs, sched, *, wall, steps, retries0,
+                     decode_times, decode_widths, prefill_times,
+                     util) -> dict:
         """The last_stats dict (the JAX engine's keys for what this
         slice serves)."""
         cache = self.cache
@@ -806,6 +1347,7 @@ class ServeEngine:
         return {
             "requests": [
                 {"rid": r.rid, "trace_id": r.trace_id,
+                 "tenant": int(r.tenant_id),
                  "prompt_tokens": len(r.prompt),
                  "new_tokens": len(r.out_tokens),
                  "preemptions": r.preemptions,
@@ -825,6 +1367,7 @@ class ServeEngine:
             "decode_step_times_s": decode_times,
             "decode_widths": decode_widths,
             "prefill_times_s": prefill_times,
+            "compile_counts": self.compile_counts(),
             "prompt_tokens_total": sched.stats["prompt_tokens"],
             "prefill_tokens_computed": sched.stats["prefill_lane_tokens"],
             "prefix_hit_tokens": sched.stats["prefix_hit_tokens"],
@@ -842,9 +1385,12 @@ class ServeEngine:
                 if decode_widths else 0.0),
             "page_util_mean": float(np.mean(util)) if util else 0.0,
             "page_util_max": peak_util,
+            "cancelled": sched.stats["cancelled"],
+            "deadline_expired": sched.stats["deadline_expired"],
             "rejected": sched.stats["rejected"],
             "rejected_requests": [(rr.rid, rr.reason)
                                   for rr in sched.rejected_requests],
+            "retries": self._retries - retries0,
             "degradation_rung_max": sched.stats["degradation_rung_max"],
             "rung_steps": list(sched.stats["rung_steps"]),
             "spec_shed_steps": sched.stats["spec_shed_steps"],
@@ -876,9 +1422,10 @@ class StepEvents:
 class ServeSession:
     """Incremental (steppable) serving over one ServeEngine. The
     session owns the scheduler (and with it the engine's slots); at
-    most one is live per engine until ``close()``. Each step: plan,
-    pack lanes, dispatch the ONE mixed step, then bookkeeping first /
-    emission second / speculative verification last."""
+    most one is live per engine until ``close()``. Each step: sweep
+    cancels and deadlines, plan, pack lanes, dispatch the ONE mixed
+    step, record its telemetry, then bookkeeping first / emission
+    second / speculative verification last."""
 
     def __init__(self, engine: ServeEngine):
         if not engine.chunked_prefill:
@@ -895,9 +1442,9 @@ class ServeSession:
         c = engine.cache_cfg
         if cache.free_slots != c.max_seqs:
             # a previous batch died without _fail_inflight running:
-            # reclaim slots/pages and drop the registry, serve on
+            # reclaim slots/pages, reset the pool state, serve on
             cache.release_all()
-            cache.clear_prefix()
+            engine._reset_pool_state()
         self.sched = ContinuousBatchingScheduler(
             cache, prefill_token_budget=engine.prefill_budget,
             chunked_prefill=True,
@@ -906,10 +1453,13 @@ class ServeSession:
             degrade_ladder=engine.degrade_ladder,
             reject_stalls=engine.reject_stalls)
         self.reqs: List[Request] = []
+        self._on_finish: Dict[int, object] = {}
         self.decode_times: List[float] = []
         self.decode_widths: List[int] = []
         self.prefill_times: List[Tuple[int, float]] = []
         self.util: List[float] = []
+        self._retries0 = engine._retries
+        self._rejected_seen = 0   # the flight recorder's rejection trigger
         self._t0 = time.perf_counter()
         engine._device_pages()
         engine._session = self
@@ -917,19 +1467,42 @@ class ServeSession:
     # ---------------- submission ---------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
                eos_token: Optional[int] = None,
-               sample: Optional[SampleParams] = None) -> Request:
+               sample: Optional[SampleParams] = None,
+               deadline_s: Optional[float] = None,
+               stream_id: Optional[int] = None,
+               stream_offset: int = 0, on_finish=None,
+               trace_id: Optional[int] = None) -> Request:
         """Queue one request (admission happens at the next step()).
-        `sample` is a ready SampleParams (None = greedy)."""
+        `sample` is a ready SampleParams (None = greedy); `deadline_s`
+        (the engine's default deadline when None) bounds its wall time
+        from now; `stream_id`/`stream_offset` key its sampling stream;
+        `trace_id` carries an upstream trace context (None mints one);
+        `on_finish(req)` fires when it completes, before its slot
+        releases."""
         r = self.sched.submit(prompt, int(max_new_tokens),
-                              eos_token=eos_token, sample=sample)
+                              eos_token=eos_token, sample=sample,
+                              stream_id=stream_id,
+                              stream_offset=stream_offset,
+                              trace_id=trace_id)
         r.t_submit = time.perf_counter()
+        if deadline_s is None and self.eng.default_deadline > 0:
+            deadline_s = self.eng.default_deadline
+        if deadline_s and float(deadline_s) > 0:
+            r.t_deadline = r.t_submit + float(deadline_s)
+        if on_finish is not None:
+            self._on_finish[r.rid] = on_finish
         self.reqs.append(r)
+        self.eng._active[r.rid] = r
         return r
 
     # ---------------- emission -----------------------------------------
     def _finish(self, ev: StepEvents, req: Request) -> None:
         req.t_finish = time.perf_counter()
+        cb = self._on_finish.pop(req.rid, None)
+        if cb is not None:
+            cb(req)
         self.sched.finish(req)
+        self.eng._active.pop(req.rid, None)
         ev.finished.append(req)
 
     def _emit(self, ev: StepEvents, chunk: ChunkPlan, greedy, topv,
@@ -970,6 +1543,12 @@ class ServeSession:
             if req.is_done() or not ok:
                 break
         self.sched.complete_spec_chunk(chunk, matched)
+        if eng.telemetry.enabled:
+            eng.telemetry.instant(
+                eng._slot_track(req.slot), "spec_verify",
+                args={"rid": req.rid, "trace": req.trace_id,
+                      "drafted": k, "accepted": matched,
+                      "emitted": emitted})
         ev.emitted.append((req, emitted))
         if req.is_done():
             self._finish(ev, req)
@@ -978,15 +1557,23 @@ class ServeSession:
     # ---------------- the step -----------------------------------------
     def step(self) -> Optional[StepEvents]:
         """Advance one engine step. Returns None when the session is
-        drained, else a StepEvents."""
+        drained (no request survives the abort sweep), else a
+        StepEvents."""
         eng = self.eng
         sched = self.sched
         cache = eng.cache
         c = eng.cache_cfg
+        # the step boundary: cancels and expired deadlines leave HERE,
+        # before any of this step's chunks exist
+        eng._sweep_aborts(sched)
         if not sched.has_work():
             return None
         plan = sched.schedule()
         ev = StepEvents(plan)
+        if sched.stats["rejected"] > self._rejected_seen:
+            # a rung-4 rejection: one bundle per rate-limit window
+            self._rejected_seen = sched.stats["rejected"]
+            eng._auto_postmortem("rejection", sched=sched)
         if not plan.chunks:
             # every waiting request was rejected (rung 4); the next
             # step() re-plans (forced progress: this cannot spin)
@@ -1034,6 +1621,12 @@ class ServeSession:
             cache.page_tables, lane_slots, lane_lens)
         dt = time.perf_counter() - tp
         self.util.append(1.0 - cache.free_pages / c.usable_pages)
+        if eng.telemetry.enabled:
+            # the step span: host time from _dispatch's entry to the end
+            # of its synchronize
+            eng._record_step_telemetry(
+                eng.telemetry, plan, len(self.util) - 1, tp, dt,
+                sched.rung, self.util[-1])
         # bookkeeping FIRST (page commits hash the context as it was
         # when the chunk ran), emission second; speculative chunks
         # verify LAST — their residency bookkeeping is a function of
@@ -1067,12 +1660,26 @@ class ServeSession:
         return self.eng._build_stats(
             self.reqs, self.sched,
             wall=time.perf_counter() - self._t0,
-            steps=len(self.util), decode_times=self.decode_times,
+            steps=len(self.util), retries0=self._retries0,
+            decode_times=self.decode_times,
             decode_widths=self.decode_widths,
             prefill_times=self.prefill_times, util=self.util)
 
     def close(self) -> None:
         """Release the session (idempotent): the engine can open a new
-        one. Does NOT abort live requests — drain first."""
+        one. Does NOT abort live requests — drain first, or cancel."""
         if self.eng._session is self:
             self.eng._session = None
+        if self.reqs:
+            # the closed session's requests are explain_request's
+            # namespace (rids restart per session)
+            self.eng._last_reqs = {r.rid: r for r in self.reqs}
+        for r in self.reqs:
+            self.eng._active.pop(r.rid, None)
+            self.eng._cancels.discard(r.rid)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -50,22 +50,14 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-import itertools
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence
 
 from ..utils.faults import FaultInjector
+from ..utils.telemetry import next_trace_id
 from .adapters import tenant_prefix_salt
 from .kv_cache import PagedKVCache, prefix_page_keys
 from .speculative import DraftControl, Drafter, PromptLookupDrafter
-
-# process-unique request trace ids (flexflow_tpu/utils/telemetry.py
-# next_trace_id): minted at submit, carried on every Request
-_TRACE_IDS = itertools.count(1)
-
-
-def next_trace_id() -> int:
-    return next(_TRACE_IDS)
 
 
 class RequestState(enum.Enum):

@@ -1,8 +1,11 @@
 """Deterministic fault injection — the chaos-testing substrate.
 
 A copy of ``flexflow_tpu/utils/faults.py``: the port keeps its own so
-it never imports the JAX package. Of its sites, the serving slice uses
-``serve.page_pressure`` (scheduler step sizing).
+it never imports the JAX package. The port fires ``serve.mixed``,
+``serve.prefill`` and ``serve.decode`` at the engine's dispatch
+boundary, ``serve.page_pressure`` in the scheduler, ``train.dispatch``
+in ``fit``, and the checkpoint sites; ``FFConfig.fault_spec`` scopes a
+spec to the engine or model built from that config.
 
 A production replica lives with preempted VMs, transient device
 errors, client disconnects and kill -9 mid-checkpoint; none of those
@@ -53,8 +56,8 @@ Sites in the tree today:
 
 The default injector is process-global and EMPTY (every call is a
 cheap dict miss); configure it via the ``FLEXFLOW_TPU_FAULTS`` env
-var, ``FFConfig.fault_spec`` / ``--fault-spec`` (the serve engine
-builds a config-scoped injector), or the :func:`active` context
+var, ``FFConfig.fault_spec`` (the serve engine and ``fit`` build a
+config-scoped injector), or the :func:`active` context
 manager in tests.
 """
 

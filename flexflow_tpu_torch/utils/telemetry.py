@@ -1,0 +1,1130 @@
+"""Unified telemetry: structured event bus, metrics, drift calibration.
+
+A copy of ``flexflow_tpu/utils/telemetry.py`` (pure host Python, no
+device code), kept in the port so it never imports the JAX package:
+
+  * :class:`Telemetry` — the event bus. Spans, instants, async spans
+    and counter samples land in a BOUNDED ring buffer stamped from one
+    ``time.perf_counter`` clock; a record is one tuple append (one
+    attribute read when disabled). The port's ServeEngine marks
+    per-request lifecycle spans (queue wait, prefill and decode
+    chunks, preemption, speculation verify, retries, cancel and
+    deadline) and ``fit`` marks dispatch and fetch-wait spans.
+  * :class:`MetricsRegistry` — counters, gauges and histograms with
+    nearest-rank quantiles, exported as Prometheus text or a JSON
+    snapshot. The canonical metric definitions live here
+    (:func:`serve_metrics`, :func:`train_metrics`), and
+    ``utils/profiling``'s reports render from them.
+  * the Chrome trace-event export (``trace_out``), the per-request
+    latency attribution (:func:`attribute_request`), the live scrape
+    endpoint (:class:`MetricsServer`) and the simulator-drift store
+    (:meth:`Telemetry.record_drift`). The port records drift only
+    where a step can be priced, which needs the search stack (not
+    ported yet).
+
+Contract: telemetry on vs off gives the same tokens and weights and no
+new capture (everything here runs on the host, outside any captured
+region, and reads no device value).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import itertools
+import json
+import os
+import threading
+import time
+from collections import deque
+from typing import Dict, Iterable, List, Optional, Tuple
+
+__all__ = [
+    "MetricsRegistry", "MetricsServer", "Telemetry", "telemetry_for",
+    "pct", "pow2_bucket", "serve_metrics", "train_metrics",
+    "next_trace_id", "attribute_request", "fold_attribution",
+    "write_json_atomic", "REQUEST_COMPONENTS",
+]
+
+
+# ---------------------------------------------------------------------------
+# Trace-context propagation (docs/observability.md "Trace-id
+# propagation"): one process-wide counter mints a per-request trace id
+# at the FIRST tier that sees the request — the router's submit, a
+# DisaggCluster's generate, or the scheduler itself for a plain engine
+# — and the id rides the Request / ServeSession / PageShipment through
+# every engine it crosses, so every span of one request's life carries
+# the same `trace` arg no matter which replica/role recorded it.
+# ---------------------------------------------------------------------------
+_TRACE_IDS = itertools.count(1)
+
+
+def next_trace_id() -> int:
+    """Mint a process-unique request trace id (monotonic int; `next`
+    on an itertools.count is atomic under the GIL). Host bookkeeping
+    only — minting never touches a device program, so the telemetry
+    on == off token-identity contract is untouched."""
+    return next(_TRACE_IDS)
+
+
+def pct(sorted_vals: List[float], q: float) -> float:
+    """Nearest-rank percentile of an ascending list — THE percentile
+    definition of this repo (serve_report, serve_percentiles and every
+    exported histogram quantile share it, so a report line and its
+    BENCH record can never disagree)."""
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1, max(0, int(round(
+        q / 100.0 * (len(sorted_vals) - 1)))))
+    return sorted_vals[i]
+
+
+def pow2_bucket(n: int) -> int:
+    """Round up to a power of two (0 stays 0) — the drift calibrator's
+    regime-bucketing for prefill lane counts and context lengths, so a
+    long run collapses into a handful of comparable regimes instead of
+    one regime per distinct step shape."""
+    n = int(n)
+    if n <= 0:
+        return 0
+    return 1 << (n - 1).bit_length()
+
+
+def write_json_atomic(path: str, doc: dict) -> str:
+    """Write a JSON document via tmp + rename so no partially-written
+    artifact is ever visible (the checkpoint promote discipline applied
+    to observability artifacts: traces, post-mortem bundles, snapshot
+    dumps). Non-JSON-native values stringify rather than fail — a
+    flight recorder must never crash on its own payload."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as f:
+        json.dump(doc, f, default=str)
+    os.replace(tmp, path)
+    return path
+
+
+# ---------------------------------------------------------------------------
+# Per-request critical-path attribution (docs/observability.md
+# "Per-request latency attribution"): fold one request's spans into an
+# additive breakdown of where its measured latency went. The fold is an
+# INTERVAL PARTITION of [t_submit, t_finish): every elementary segment
+# of the request's wall life is assigned to exactly one component (the
+# highest-priority interval covering it), so the components — plus the
+# explicit "other" bucket for host/scheduling time no span covers — sum
+# to the measured latency EXACTLY by construction (gated within 1%).
+# ---------------------------------------------------------------------------
+
+REQUEST_COMPONENTS = ("queue", "routing", "prefill", "transfer",
+                      "decode", "preempt_stall", "retry",
+                      "host_reload", "other")
+
+# span name -> component for trace-matched spans
+_SPAN_CLASS = {"prefill": "prefill", "decode": "decode",
+               "spec_decode": "decode", "kv_handoff": "transfer",
+               "host_reload": "host_reload", "routing": "routing"}
+# overlap priority (highest wins per elementary segment): compute beats
+# the queue-wait span that legitimately overlaps a request's FIRST
+# chunk (t_admit is stamped after the admitting step's dispatch), a
+# host-tier page reload (serve/host_tier.py) likewise happens inside
+# the admitting schedule() pass so it must beat queue, and retry
+# backoff carves time out of the compute span that covers it
+_CLASS_PRIORITY = {"retry": 8, "decode": 7, "prefill": 6,
+                   "transfer": 5, "host_reload": 4,
+                   "preempt_stall": 3, "queue": 2, "routing": 1}
+
+
+def attribute_request(events: Iterable[tuple], trace_id,
+                      *, t_submit: float, t_finish: float) -> dict:
+    """Attribute one request's measured latency across
+    :data:`REQUEST_COMPONENTS` from raw telemetry ring tuples.
+
+    `events` are ``(ph, track, name, ts, dur, ident, args)`` tuples on
+    the TRACE clock; `t_submit` / `t_finish` must be on the same clock
+    (:meth:`Telemetry.explain_request` rebases the Request's raw
+    perf_counter stamps). Interval sources:
+
+      * trace-matched ``X`` spans — prefill / decode / spec_decode
+        chunk spans, ``kv_handoff`` transfer spans, the router's
+        ``routing`` span;
+      * trace-matched ``b``/``e`` async pairs — ``queue_wait`` (queue)
+        and ``requeue_wait`` (preempt_stall); a pair still open at
+        t_finish closes there (a request aborted while waiting);
+      * ``retry_backoff`` spans carry no trace (a step's retry stalls
+        every request in it) — their intersection with THIS request's
+        compute spans is attributed to ``retry``.
+
+    Returns ``{"trace_id", "latency_s", "components": {component:
+    seconds}, "attributed_s"}`` where ``sum(components.values()) ==
+    latency_s`` exactly (``other`` absorbs uncovered host time) and
+    ``attributed_s`` is the span-covered (non-``other``) total."""
+    t0, t1 = float(t_submit), float(t_finish)
+    comps = {c: 0.0 for c in REQUEST_COMPONENTS}
+    out = {"trace_id": trace_id, "latency_s": max(0.0, t1 - t0),
+           "components": comps, "attributed_s": 0.0}
+    if t1 <= t0:
+        return out
+    ivals: List[Tuple[str, float, float]] = []
+    retry_ivals: List[Tuple[float, float]] = []
+    open_async: Dict[Tuple[str, object], float] = {}
+    for ph, _track, name, ts, dur, ident, args in events:
+        tid = args.get("trace") if args else None
+        if ph == "X":
+            if name == "retry_backoff":
+                retry_ivals.append((ts, ts + dur))
+            cls = _SPAN_CLASS.get(name)
+            if cls is not None and tid == trace_id:
+                ivals.append((cls, ts, ts + dur))
+        elif ph == "b" and tid == trace_id \
+                and name in ("queue_wait", "requeue_wait"):
+            open_async[(name, ident)] = ts
+        elif ph == "e":
+            s = open_async.pop((name, ident), None)
+            if s is not None:
+                ivals.append(("queue" if name == "queue_wait"
+                              else "preempt_stall", s, ts))
+    for (name, _ident), s in open_async.items():
+        ivals.append(("queue" if name == "queue_wait"
+                      else "preempt_stall", s, t1))
+    clipped = [(cls, max(s, t0), min(e, t1))
+               for cls, s, e in ivals if min(e, t1) > max(s, t0)]
+    if retry_ivals:
+        compute = [(s, e) for cls, s, e in clipped
+                   if cls in ("prefill", "decode")]
+        for rs, re_ in retry_ivals:
+            for s, e in compute:
+                s2, e2 = max(rs, s), min(re_, e)
+                if e2 > s2:
+                    clipped.append(("retry", s2, e2))
+    bounds = sorted({t0, t1, *(x for _c, s, e in clipped
+                               for x in (s, e))})
+    for a, b in zip(bounds, bounds[1:]):
+        mid = (a + b) / 2.0
+        best = None
+        for cls, s, e in clipped:
+            if s <= mid < e and (best is None
+                                 or _CLASS_PRIORITY[cls]
+                                 > _CLASS_PRIORITY[best]):
+                best = cls
+        comps[best if best is not None else "other"] += b - a
+    out["attributed_s"] = sum(v for c, v in comps.items()
+                              if c != "other")
+    return out
+
+
+def fold_attribution(breakdown: dict, registry: "MetricsRegistry"
+                     ) -> None:
+    """Fold one request's attribution into a registry — the pool-level
+    aggregate (`serve_latency_attribution_seconds_total{component}` /
+    `serve_latency_attributed_requests_total` counters plus the
+    derived `serve_latency_attribution_fraction{component}` gauges),
+    so /metrics answers "where does this tier's latency GO" without
+    re-walking the trace."""
+    m = registry
+    m.inc("serve_latency_attributed_requests_total")
+    m.inc("serve_latency_attributed_seconds_total",
+          breakdown["latency_s"])
+    for comp, v in breakdown["components"].items():
+        m.inc("serve_latency_attribution_seconds_total", v,
+              component=comp)
+    total = m.counter("serve_latency_attributed_seconds_total")
+    for comp in REQUEST_COMPONENTS:
+        v = m.counter("serve_latency_attribution_seconds_total",
+                      component=comp)
+        m.set("serve_latency_attribution_fraction",
+              v / total if total > 0 else 0.0, component=comp)
+
+
+def _label_key(labels: Dict[str, object]) -> str:
+    """Prometheus-style series key: ``name{k="v",...}`` tail."""
+    if not labels:
+        return ""
+    body = ",".join(f'{k}="{labels[k]}"' for k in sorted(labels))
+    return "{" + body + "}"
+
+
+class MetricsRegistry:
+    """Counters, gauges and histograms keyed by name + optional labels.
+
+    Histograms keep exact count/sum totals plus a bounded window of
+    recent samples (the quantile source — nearest-rank over the
+    window, the same :func:`pct` the reports use). Everything is plain
+    host Python. Mutation is guarded by ONE lock (`_lock`) so the
+    wall-clock fabric's replica worker threads can increment shared
+    counters without losing read-modify-write races; single-threaded
+    behavior is unchanged (an uncontended acquire is ~100ns, inside
+    the <= 3% recording-overhead gate). Readers take the same lock
+    only for whole-registry exports (snapshot/to_prometheus) — point
+    reads stay lock-free dict gets."""
+
+    HIST_WINDOW = 4096
+
+    def __init__(self, lock: Optional[threading.Lock] = None):
+        self.counters: Dict[str, float] = {}
+        self.gauges: Dict[str, float] = {}
+        self._hists: Dict[str, dict] = {}
+        # shared with the owning Telemetry when there is one, so the
+        # whole recording surface serializes on a single lock
+        self._lock = lock if lock is not None else threading.Lock()
+
+    # ---------------- recording ---------------------------------------
+    def inc(self, name: str, value: float = 1.0, **labels) -> None:
+        key = name + _label_key(labels)
+        with self._lock:
+            self.counters[key] = self.counters.get(key, 0.0) \
+                + float(value)
+
+    def counter_set(self, name: str, value: float, **labels) -> None:
+        """Absolute-set a counter — for sources that track their own
+        cumulative totals (compile counts, fault-injector fired
+        counts), where re-adding each snapshot would double-count."""
+        with self._lock:
+            self.counters[name + _label_key(labels)] = float(value)
+
+    def set(self, name: str, value: float, **labels) -> None:
+        with self._lock:
+            self.gauges[name + _label_key(labels)] = float(value)
+
+    def observe(self, name: str, value: float, **labels) -> None:
+        key = name + _label_key(labels)
+        with self._lock:
+            h = self._hists.get(key)
+            if h is None:
+                h = self._hists[key] = {
+                    "count": 0, "sum": 0.0,
+                    "window": deque(maxlen=self.HIST_WINDOW)}
+            h["count"] += 1
+            h["sum"] += float(value)
+            h["window"].append(float(value))
+
+    # ---------------- reading -----------------------------------------
+    def counter(self, name: str, default: float = 0.0, **labels) -> float:
+        return self.counters.get(name + _label_key(labels), default)
+
+    def gauge(self, name: str, default: float = 0.0, **labels) -> float:
+        return self.gauges.get(name + _label_key(labels), default)
+
+    def quantile(self, name: str, q: float, **labels) -> float:
+        h = self._hists.get(name + _label_key(labels))
+        if not h or not h["window"]:
+            return 0.0
+        return pct(sorted(h["window"]), q)
+
+    def hist_count(self, name: str, **labels) -> int:
+        h = self._hists.get(name + _label_key(labels))
+        return int(h["count"]) if h else 0
+
+    # ---------------- export ------------------------------------------
+    def snapshot(self) -> dict:
+        """JSON-ready snapshot: every counter/gauge value plus each
+        histogram's count/sum/min/max and p50/p90/p99 (nearest-rank
+        over the retained window)."""
+        with self._lock:
+            counters = dict(self.counters)
+            gauges = dict(self.gauges)
+            hwins = {key: (h["count"], h["sum"], list(h["window"]))
+                     for key, h in self._hists.items()}
+        hists = {}
+        for key, (count, total, window) in hwins.items():
+            win = sorted(window)
+            hists[key] = {
+                "count": count, "sum": total,
+                "min": win[0] if win else 0.0,
+                "max": win[-1] if win else 0.0,
+                "p50": pct(win, 50), "p90": pct(win, 90),
+                "p99": pct(win, 99),
+            }
+        return {"counters": counters,
+                "gauges": gauges,
+                "histograms": hists}
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition format (one ``# TYPE`` line per
+        metric family; histogram quantiles as `{quantile="..."}`
+        summary series plus `_count`/`_sum`)."""
+        with self._lock:
+            counters = dict(self.counters)
+            gauges = dict(self.gauges)
+            hists = {key: (h["count"], h["sum"], list(h["window"]))
+                     for key, h in self._hists.items()}
+        lines: List[str] = []
+        fams = set()
+
+        def family(key: str) -> str:
+            return key.split("{", 1)[0]
+
+        def type_line(key: str, typ: str) -> None:
+            fam = family(key)
+            if fam not in fams:
+                fams.add(fam)
+                lines.append(f"# TYPE {fam} {typ}")
+
+        for key in sorted(counters):
+            type_line(key, "counter")
+            lines.append(f"{key} {counters[key]:g}")
+        for key in sorted(gauges):
+            type_line(key, "gauge")
+            lines.append(f"{key} {gauges[key]:g}")
+        for key in sorted(hists):
+            count, total, window = hists[key]
+            fam, _, tail = key.partition("{")
+            base_labels = ("{" + tail) if tail else ""
+            type_line(key, "summary")
+            win = sorted(window)
+            for q in (0.5, 0.9, 0.99):
+                if base_labels:
+                    series = (f"{fam}{base_labels[:-1]},"
+                              f'quantile="{q}"}}')
+                else:
+                    series = f'{fam}{{quantile="{q}"}}'
+                lines.append(f"{series} {pct(win, q * 100):g}")
+            lines.append(f"{fam}_count{base_labels} {count}")
+            lines.append(f"{fam}_sum{base_labels} {total:g}")
+        return "\n".join(lines) + "\n"
+
+
+class _DriftStat:
+    """Accumulated predicted-vs-measured seconds for one regime.
+
+    ``breakdown`` (optional) accumulates the predicted seconds per
+    task CLASS for the regime — the attribution vector
+    :meth:`Telemetry.task_drift_snapshot` aligns measured steps
+    against."""
+
+    __slots__ = ("predicted_s", "measured_s", "count", "breakdown")
+
+    def __init__(self):
+        self.predicted_s = 0.0
+        self.measured_s = 0.0
+        self.count = 0
+        self.breakdown: Optional[Dict[str, float]] = None
+
+
+class Telemetry:
+    """The event bus + metrics + drift store one engine or model owns.
+
+    Events are ``(ph, track, name, ts, dur, ident, args)`` tuples in a
+    bounded ring (``max_events``); ``track`` is a (process, thread)
+    string pair that the Chrome exporter maps to pid/tid. ``enabled``
+    is checked by every caller BEFORE building the record, so a
+    disabled Telemetry costs one attribute read per site."""
+
+    # chaos-proof cap on drift regimes: a pathological workload cannot
+    # grow the store without bound (drops are counted, never silent)
+    MAX_DRIFT_REGIMES = 512
+
+    def __init__(self, enabled: bool = True, max_events: int = 65536,
+                 drift_threshold: float = 0.5,
+                 t0: Optional[float] = None):
+        self.enabled = bool(enabled)
+        self.max_events = int(max_events)
+        self.drift_threshold = float(drift_threshold)
+        self.events: deque = deque(maxlen=self.max_events)
+        # ONE lock serializes every mutation on this bus — metric
+        # read-modify-writes, ring eviction accounting, drift-stat
+        # accumulation — so replica worker threads (serve/router.py
+        # wall-clock mode) share a Telemetry without losing updates
+        self._lock = threading.Lock()
+        self.metrics = MetricsRegistry(lock=self._lock)
+        self.dropped_events = 0
+        self._drift: Dict[Tuple[str, str], _DriftStat] = {}
+        self.drift_regimes_dropped = 0
+        # ONE monotonic clock zero for every span in the buffer. An
+        # explicit `t0` pins the epoch instead — t0=0.0 makes every
+        # recorder take trace-absolute seconds, which is how the
+        # simulated-schedule exporters emit exact simulator times.
+        self._t0 = time.perf_counter() if t0 is None else float(t0)
+
+    # ---------------- clock -------------------------------------------
+    def now(self) -> float:
+        """Seconds on the trace clock (monotonic, zero at creation)."""
+        return time.perf_counter() - self._t0
+
+    def _rel(self, t: float) -> float:
+        # callers pass raw perf_counter stamps; store trace-relative
+        return t - self._t0
+
+    # ---------------- recording (hot path: ONE append) ----------------
+    def span(self, track: Tuple[str, str], name: str, t_start: float,
+             t_end: float, args: Optional[dict] = None) -> None:
+        """Complete span [t_start, t_end) (perf_counter stamps)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            if len(self.events) == self.max_events:
+                self.dropped_events += 1
+            self.events.append(("X", track, name, self._rel(t_start),
+                                max(0.0, t_end - t_start), None, args))
+
+    def instant(self, track: Tuple[str, str], name: str,
+                t: Optional[float] = None,
+                args: Optional[dict] = None) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            if len(self.events) == self.max_events:
+                self.dropped_events += 1
+            self.events.append(
+                ("i", track, name,
+                 self.now() if t is None else self._rel(t),
+                 0.0, None, args))
+
+    def async_span(self, track: Tuple[str, str], name: str, ident,
+                   t_start: float, t_end: float,
+                   args: Optional[dict] = None) -> None:
+        """Async (b/e) span — the Chrome-trace form for intervals that
+        legitimately overlap on one track (queue-wait of concurrently
+        waiting requests)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            n = len(self.events)
+            if n >= self.max_events:        # both appends evict
+                self.dropped_events += 2
+            elif n == self.max_events - 1:  # the second append evicts
+                self.dropped_events += 1
+            self.events.append(("b", track, name, self._rel(t_start),
+                                0.0, ident, args))
+            self.events.append(("e", track, name, self._rel(t_end),
+                                0.0, ident, None))
+
+    def counter(self, track: Tuple[str, str], name: str, value: float,
+                t: Optional[float] = None) -> None:
+        """Counter-track sample (Perfetto renders these as a stepped
+        line — pool occupancy, degradation rung)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            if len(self.events) == self.max_events:
+                self.dropped_events += 1
+            self.events.append(
+                ("C", track, name,
+                 self.now() if t is None else self._rel(t),
+                 float(value), None, None))
+
+    def emit(self, events: Iterable[tuple]) -> None:
+        """Bulk raw-event append — the per-step hot path of
+        ServeEngine hands the WHOLE step's records over in one call
+        instead of ~10 method calls. Each item is a finished
+        ``(ph, track, name, t_abs, dur_or_value, ident, args)`` tuple
+        whose timestamp is an ABSOLUTE perf_counter stamp; it is
+        rebased to the trace clock here. Eviction accounting matches
+        the one-at-a-time recorders: every event pushed out of the
+        bounded ring (or unbuffered because the batch itself overflows
+        it) counts as dropped."""
+        if not self.enabled:
+            return
+        t0 = self._t0
+        evs = [(ph, tr, nm, ts - t0, d, i, a)
+               for ph, tr, nm, ts, d, i, a in events]
+        with self._lock:
+            over = len(self.events) + len(evs) - self.max_events
+            if over > 0:
+                self.dropped_events += over
+            self.events.extend(evs)
+
+    @contextlib.contextmanager
+    def timed(self, track: Tuple[str, str], name: str,
+              args: Optional[dict] = None):
+        if not self.enabled:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.span(track, name, t0, time.perf_counter(), args)
+
+    # ---------------- drift calibration --------------------------------
+    def record_drift(self, domain: str, regime: str, predicted_s: float,
+                     measured_s: float,
+                     breakdown: Optional[Dict[str, float]] = None
+                     ) -> None:
+        """One step's measured wall time next to the cost model's
+        predicted time for the same regime (a stable string of NAMED
+        fields like ``"t=1 kv=float32 dec=4 pre=0 ctx=64"`` — named so
+        drift_report reads without a decoder ring). ``breakdown``
+        optionally carries the prediction's per-task-class seconds
+        (``Simulator.step_breakdown`` / ``serve_step_breakdown``) for
+        the attribution pass."""
+        if not self.enabled:
+            return
+        key = (str(domain), str(regime))
+        with self._lock:
+            st = self._drift.get(key)
+            if st is None:
+                if len(self._drift) >= self.MAX_DRIFT_REGIMES:
+                    self.drift_regimes_dropped += 1
+                    return
+                st = self._drift[key] = _DriftStat()
+            st.predicted_s += float(predicted_s)
+            st.measured_s += float(measured_s)
+            st.count += 1
+            if breakdown:
+                if st.breakdown is None:
+                    st.breakdown = {}
+                b = st.breakdown
+                for cls, v in breakdown.items():
+                    b[cls] = b.get(cls, 0.0) + float(v)
+
+    def drift_snapshot(self, threshold: Optional[float] = None) -> dict:
+        """Per-regime predicted/measured accounting:
+        ``{domain: {regime: {predicted_ms_per_step, measured_ms_per_step,
+        ratio, count, flagged}}}`` where ``ratio`` is measured /
+        predicted and ``flagged`` marks drift beyond ``threshold``
+        (default: the construction-time threshold) in either
+        direction — ratio above ``1 + threshold`` or below
+        ``1 / (1 + threshold)``."""
+        thr = self.drift_threshold if threshold is None else float(
+            threshold)
+        out: Dict[str, dict] = {}
+        with self._lock:
+            drift = dict(self._drift)
+        for (domain, regime), st in drift.items():
+            pred = st.predicted_s / st.count if st.count else 0.0
+            meas = st.measured_s / st.count if st.count else 0.0
+            ratio = (meas / pred) if pred > 0 else 0.0
+            flagged = bool(
+                pred > 0 and (ratio > 1.0 + thr
+                              or ratio < 1.0 / (1.0 + thr)))
+            out.setdefault(domain, {})[regime] = {
+                "predicted_ms_per_step": pred * 1e3,
+                "measured_ms_per_step": meas * 1e3,
+                "ratio": ratio,
+                "count": st.count,
+                "flagged": flagged,
+            }
+        return out
+
+    def task_drift_snapshot(self) -> dict:
+        """Per-task-class drift attribution: fold the per-regime
+        measured/predicted accounting down to ``{domain: {class:
+        {predicted_s, attributed_measured_s, ratio}}}`` — turning
+        "regime X is 1.4x off" into "the all-reduce term is 1.4x off",
+        which is what ``measure.calibrate`` needs targeted at.
+
+        Regimes mix the classes in different proportions, so the fold
+        is an alignment, not a per-regime split: when enough regimes
+        with distinct mixes exist, a least-squares solve of
+        ``measured_r ~= sum_c ratio_c * predicted_{r,c}`` recovers the
+        per-class scale factors (method "lstsq"); otherwise each
+        regime's measured seconds are attributed to its classes by
+        predicted share and the per-class totals ratioed (method
+        "share"). Only regimes recorded WITH a breakdown
+        participate."""
+        by_domain: Dict[str, list] = {}
+        with self._lock:
+            drift = dict(self._drift)
+        for (domain, _regime), st in drift.items():
+            if st.breakdown and st.count:
+                by_domain.setdefault(domain, []).append(st)
+        out: Dict[str, dict] = {}
+        for domain, stats in by_domain.items():
+            classes = sorted({c for st in stats for c in st.breakdown})
+            pred = {c: 0.0 for c in classes}
+            attr = {c: 0.0 for c in classes}
+            for st in stats:
+                tot = sum(st.breakdown.values())
+                for c in classes:
+                    p = st.breakdown.get(c, 0.0)
+                    pred[c] += p
+                    # attribute the regime's measured seconds to its
+                    # classes by predicted share
+                    attr[c] += st.measured_s * (p / tot) if tot else 0.0
+            ratios = {c: (attr[c] / pred[c]) if pred[c] > 0 else 0.0
+                      for c in classes}
+            method = "share"
+            # solve only the classes that predicted ANY time: a class
+            # every breakdown carries at 0.0 (an unified engine's
+            # "transfer" column, a fits-in-HBM run's hbm_penalty) is an
+            # all-zero column that would pin rank below full and lock
+            # the solve out forever — its ratio is 0 by definition
+            solve = [c for c in classes if pred[c] > 0.0]
+            if len(stats) >= len(solve) >= 1:
+                try:
+                    import numpy as np
+                    # weight regimes by sample count: X rows are the
+                    # mean per-step class vectors, y the mean measured
+                    X = np.array([[st.breakdown.get(c, 0.0) / st.count
+                                   for c in solve] for st in stats])
+                    y = np.array([st.measured_s / st.count
+                                  for st in stats])
+                    w = np.sqrt([st.count for st in stats])
+                    sol, _, rank, _ = np.linalg.lstsq(
+                        X * w[:, None], y * w, rcond=None)
+                    if rank == len(solve) \
+                            and np.all(np.isfinite(sol)):
+                        ratios = {c: 0.0 for c in classes}
+                        ratios.update({c: max(0.0, float(s))
+                                       for c, s in zip(solve, sol)})
+                        # keep the columns reconciled: under lstsq the
+                        # attributed seconds ARE ratio * predicted, so
+                        # attr/pred always equals the printed ratio
+                        attr = {c: ratios[c] * pred[c] for c in classes}
+                        method = "lstsq"
+                except Exception:
+                    pass  # attribution falls back to the share fold
+            out[domain] = {
+                "method": method,
+                "regimes": len(stats),
+                "classes": {c: {
+                    "predicted_s": pred[c],
+                    "attributed_measured_s": attr[c],
+                    "ratio": ratios[c],
+                } for c in classes},
+            }
+        return out
+
+    def drift_report(self, threshold: Optional[float] = None) -> str:
+        """Human rendering of :meth:`drift_snapshot` — per-regime
+        measured/predicted ratios (regime keys are named
+        ``dec=/pre=/ctx=``-style fields, never bare tuples) with a
+        DRIFT flag past the threshold, followed by the per-task-class
+        attribution table (:meth:`task_drift_snapshot`) when breakdowns
+        were recorded. The flag is the recalibration signal: a TERM the
+        machine model consistently mis-prices is exactly where
+        ``measure.calibrate`` should spend its next measurement."""
+        snap = self.drift_snapshot(threshold)
+        if not snap:
+            return "drift: no samples recorded"
+        lines = [f"{'domain':8s} {'regime':44s} {'steps':>6s} "
+                 f"{'pred ms':>9s} {'meas ms':>9s} {'meas/pred':>10s}"]
+        for domain in sorted(snap):
+            for regime in sorted(snap[domain]):
+                r = snap[domain][regime]
+                lines.append(
+                    f"{domain:8s} {regime:44s} {r['count']:>6d} "
+                    f"{r['predicted_ms_per_step']:>9.3f} "
+                    f"{r['measured_ms_per_step']:>9.3f} "
+                    f"{r['ratio']:>10.3f}"
+                    + ("  DRIFT" if r["flagged"] else ""))
+        if self.drift_regimes_dropped:
+            lines.append(f"({self.drift_regimes_dropped} regimes past "
+                         f"the {self.MAX_DRIFT_REGIMES}-regime cap "
+                         f"dropped)")
+        task = self.task_drift_snapshot()
+        if task:
+            thr = self.drift_threshold if threshold is None \
+                else float(threshold)
+            lines.append("")
+            lines.append(
+                f"{'domain':8s} {'task class':20s} {'pred s':>10s} "
+                f"{'attr s':>10s} {'ratio':>7s}   (per-task drift "
+                f"attribution)")
+            for domain in sorted(task):
+                t = task[domain]
+                for cls in sorted(t["classes"]):
+                    r = t["classes"][cls]
+                    flag = r["ratio"] > 1.0 + thr or (
+                        0.0 < r["ratio"] < 1.0 / (1.0 + thr))
+                    lines.append(
+                        f"{domain:8s} {cls:20s} "
+                        f"{r['predicted_s']:>10.4f} "
+                        f"{r['attributed_measured_s']:>10.4f} "
+                        f"{r['ratio']:>7.3f}"
+                        + ("  DRIFT" if flag else ""))
+                lines.append(
+                    f"{domain:8s} ({t['method']} over "
+                    f"{t['regimes']} regime(s))")
+        return "\n".join(lines)
+
+    # ---------------- per-request views ---------------------------------
+    def request_events(self, trace_id) -> List[tuple]:
+        """Every buffered event of one request's causally-linked
+        timeline: events whose args carry this ``trace`` id, plus the
+        ``e`` closers of its async spans (which carry no args by
+        design). Order is buffer (emission) order — timestamps within
+        are on the ONE trace clock, so sorting by ts reconstructs the
+        cross-engine timeline (router route -> queue_wait -> prefill
+        chunks -> kv_handoff -> decode chunks) no matter which
+        replica/role recorded each span."""
+        out: List[tuple] = []
+        open_idents = set()
+        with self._lock:
+            evs = list(self.events)
+        for ev in evs:
+            ph, _track, name, _ts, _dur, ident, args = ev
+            if args is not None and args.get("trace") == trace_id:
+                out.append(ev)
+                if ph == "b":
+                    open_idents.add((name, ident))
+            elif ph == "e" and (name, ident) in open_idents:
+                out.append(ev)
+                open_idents.discard((name, ident))
+        return out
+
+    def explain_request(self, trace_id, t_submit: float,
+                        t_finish: float) -> dict:
+        """Per-request latency attribution over the buffered events
+        (:func:`attribute_request`); `t_submit` / `t_finish` are the
+        Request's RAW perf_counter stamps — rebased to the trace clock
+        here, so the caller never touches the clock epoch."""
+        with self._lock:
+            evs = list(self.events)
+        return attribute_request(
+            evs, trace_id,
+            t_submit=self._rel(t_submit), t_finish=self._rel(t_finish))
+
+    def events_tail(self, n: int = 2048) -> List[list]:
+        """The last `n` ring events in JSON-ready form (`[ph, [proc,
+        thread], name, ts, dur, ident, args]`) — the flight recorder's
+        bounded span payload."""
+        with self._lock:
+            evs = list(self.events)
+        if n >= 0:
+            evs = evs[-n:] if n else []
+        return [[ph, list(track), name, ts, dur, ident, args]
+                for ph, track, name, ts, dur, ident, args in evs]
+
+    # ---------------- fault observability ------------------------------
+    def record_faults(self, injector) -> None:
+        """Export a FaultInjector's lifetime accounting (fired sites by
+        kind, per-site hit counters) into the metrics registry, so
+        chaos runs are inspectable post-hoc. Absolute-set:
+        the injector already accumulates."""
+        if not self.enabled or injector is None:
+            return
+        for site, kinds in getattr(injector, "fired", {}).items():
+            for kind, n in kinds.items():
+                self.metrics.counter_set("fault_fired_total", n,
+                                         site=site, kind=kind)
+        for site, n in getattr(injector, "_count", {}).items():
+            self.metrics.counter_set("fault_site_hits_total", n,
+                                     site=site)
+
+    # ---------------- exporters ----------------------------------------
+    def export_chrome_trace(self, path: str,
+                            metadata: Optional[dict] = None) -> str:
+        """Write the event buffer as Chrome trace-event JSON (the
+        ``{"traceEvents": [...]}`` object form) loadable in Perfetto /
+        ``chrome://tracing``. Tracks become pid/tid pairs with ``M``
+        metadata naming them; ts/dur are microseconds on the trace
+        clock. ``metadata`` lands under a top-level ``"metadata"`` key
+        (ignored by viewers; how the simulated-schedule export stamps
+        its exact makespan next to the display-unit events). Returns
+        the path written."""
+        pids: Dict[str, int] = {}
+        tids: Dict[Tuple[str, str], int] = {}
+        out: List[dict] = []
+        with self._lock:
+            evs = list(self.events)
+        for ph, track, name, ts, dur, ident, args in evs:
+            proc, thread = track
+            pid = pids.setdefault(proc, len(pids) + 1)
+            tid = tids.setdefault(track, len(tids) + 1)
+            ev = {"ph": ph, "name": name, "pid": pid, "tid": tid,
+                  "ts": ts * 1e6, "cat": proc}
+            if ph == "X":
+                ev["dur"] = dur * 1e6
+            elif ph == "i":
+                ev["s"] = "t"
+            elif ph in ("b", "e"):
+                ev["id"] = str(ident)
+            elif ph == "C":
+                ev["args"] = {name: dur}  # dur slot carries the value
+            if args and ph != "C":
+                ev["args"] = dict(args)
+            out.append(ev)
+        meta: List[dict] = []
+        for proc, pid in pids.items():
+            meta.append({"ph": "M", "name": "process_name", "pid": pid,
+                         "tid": 0, "args": {"name": proc}})
+        for (proc, thread), tid in tids.items():
+            meta.append({"ph": "M", "name": "thread_name",
+                         "pid": pids[proc], "tid": tid,
+                         "args": {"name": thread}})
+        doc = {"traceEvents": meta + out, "displayTimeUnit": "ms"}
+        if metadata:
+            doc["metadata"] = dict(metadata)
+        # tmp + rename: no partially-written trace is visible
+        return write_json_atomic(path, doc)
+
+    def metrics_snapshot(self) -> dict:
+        """The full machine-readable snapshot: metrics + drift + event
+        accounting — what serve_bench/train_bench embed into their
+        BENCH_*.json records."""
+        return {
+            "metrics": self.metrics.snapshot(),
+            "drift": self.drift_snapshot(),
+            "task_drift": self.task_drift_snapshot(),
+            "events_buffered": len(self.events),
+            "events_dropped": self.dropped_events,
+        }
+
+    def to_prometheus(self) -> str:
+        return self.metrics.to_prometheus()
+
+    def clear(self) -> None:
+        with self._lock:
+            self.events.clear()
+            self.dropped_events = 0
+
+
+class MetricsServer:
+    """Live scrape endpoint: a stdlib ``http.server`` thread serving
+    ``/metrics`` (Prometheus text from a callable — the engine's
+    lifetime :class:`MetricsRegistry`) and ``/healthz`` (liveness).
+    This is the hook a replica autoscaler polls (docs/observability.md
+    "The metrics endpoint"); enabled by ``--metrics-port`` on FFConfig
+    (port 0 binds an ephemeral port — ``self.port`` is the bound one).
+    ``close()`` shuts the thread down cleanly and is idempotent; the
+    serving hot path never touches the server (scrapes read the
+    GIL-atomic registry from the server thread)."""
+
+    def __init__(self, render, port: int = 0, host: str = "127.0.0.1"):
+        import http.server
+        import threading
+        self._render = render
+
+        class _Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(h):
+                if h.path == "/healthz":
+                    body = b"ok\n"
+                    ctype = "text/plain; charset=utf-8"
+                elif h.path == "/metrics":
+                    try:
+                        body = str(render()).encode()
+                    except Exception as e:  # a render bug must not
+                        h.send_error(500, str(e))  # kill the thread
+                        return
+                    ctype = "text/plain; version=0.0.4; charset=utf-8"
+                else:
+                    h.send_error(404)
+                    return
+                h.send_response(200)
+                h.send_header("Content-Type", ctype)
+                h.send_header("Content-Length", str(len(body)))
+                h.end_headers()
+                h.wfile.write(body)
+
+            def log_message(h, *a):  # no per-scrape stderr noise
+                pass
+
+        self._httpd = http.server.ThreadingHTTPServer(
+            (host, int(port)), _Handler)
+        self._httpd.daemon_threads = True
+        self.host = host
+        self.port = int(self._httpd.server_address[1])
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="ff-metrics",
+            daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        httpd, self._httpd = self._httpd, None
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+            self._thread.join(timeout=5.0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+# one shared disabled instance: the off path costs an attribute read
+_DISABLED = Telemetry(enabled=False, max_events=1)
+
+
+def telemetry_for(config=None) -> Telemetry:
+    """The Telemetry a subsystem should use (the ``injector_for``
+    idiom): a FRESH enabled bus when ``config.telemetry``,
+    ``config.trace_out``, ``config.metrics_port`` or
+    ``config.postmortem_dir`` asks for one — each engine/model gets
+    its own buffer — else the shared disabled instance (recording is
+    a no-op attribute check). The flight recorder implies telemetry:
+    a post-mortem bundle without the span ring would be a corpse with
+    no black box."""
+    if config is not None and (
+            getattr(config, "telemetry", False)
+            or getattr(config, "trace_out", None)
+            or getattr(config, "postmortem_dir", None)
+            or getattr(config, "metrics_port", None) is not None):
+        return Telemetry(
+            enabled=True,
+            max_events=int(getattr(config, "telemetry_buffer_events",
+                                   65536)),
+            drift_threshold=float(getattr(config,
+                                          "telemetry_drift_threshold",
+                                          0.5)))
+    return _DISABLED
+
+
+# ---------------------------------------------------------------------------
+# Canonical metric definitions — serve_report/train_report render FROM
+# these snapshots, and the exporters publish the same registry, so the
+# human report and the machine numbers share one source of truth.
+# ---------------------------------------------------------------------------
+
+def serve_metrics(stats: dict,
+                  registry: Optional[MetricsRegistry] = None,
+                  role: Optional[str] = None,
+                  replica: Optional[str] = None,
+                  tenant: Optional[str] = None) -> MetricsRegistry:
+    """Fold one ServeEngine.last_stats dict into a MetricsRegistry:
+    counters for tokens/requests/robustness events, gauges for
+    rates/occupancy, histograms for TTFT / TPOT (per-token decode
+    latency — each decode step's wall time divided over the tokens it
+    produced, the batched-decode amortization) and request latency.
+    Pass the engine's registry to ACCUMULATE across generate() calls
+    (counters add, gauges overwrite, histograms extend); the default
+    fresh registry is what serve_report renders from.
+
+    ``role`` / ``replica`` fold the LABELED split instead
+    (disaggregated serving's per-role split, serve/disagg.py, and the
+    multi-replica router's per-replica split, serve/router.py): only
+    the latency histograms and the core token/request counters, each
+    under ``{role=...}`` / ``{replica=...}`` labels, so a
+    DisaggCluster / ReplicaPool can split TTFT/TPOT percentiles per
+    engine WITHOUT double-counting the unlabeled aggregates — the
+    same no-double-counting fold for both label axes, which is what
+    lets the autoscaler and disagg_report/router_report read
+    per-engine latency from ONE registry instead of scraping engines
+    individually (docs/observability.md). ``tenant`` is the third
+    label axis (multi-tenant adapter serving, serve/adapters.py):
+    fold a tenant-filtered stats dict under ``{tenant=...}`` to split
+    latency and token counters per adapter tenant without touching
+    the unlabeled aggregates."""
+    m = registry if registry is not None else MetricsRegistry()
+    lab = {}
+    if role is not None:
+        lab["role"] = str(role)
+    if replica is not None:
+        lab["replica"] = str(replica)
+    if tenant is not None:
+        lab["tenant"] = str(tenant)
+    if lab:
+        for r in stats.get("requests", []):
+            m.inc("serve_requests_total",
+                  outcome=r.get("outcome", "completed"), **lab)
+            if r.get("ttft_s") is not None:
+                m.observe("serve_ttft_seconds", r["ttft_s"], **lab)
+            if r.get("latency_s") is not None:
+                m.observe("serve_request_latency_seconds",
+                          r["latency_s"], **lab)
+        for t, w in zip(stats.get("decode_step_times_s", []),
+                        stats.get("decode_widths", [])):
+            if w > 0:
+                m.observe("serve_tpot_seconds", t / w, **lab)
+        m.inc("serve_tokens_generated_total",
+              stats.get("total_new_tokens", 0), **lab)
+        m.inc("serve_engine_steps_total", stats.get("steps", 0), **lab)
+        m.inc("serve_decode_steps_total",
+              stats.get("decode_steps", 0), **lab)
+        m.inc("serve_prefill_tokens_computed_total",
+              stats.get("prefill_tokens_computed", 0), **lab)
+        m.inc("serve_prefix_hit_tokens_total",
+              stats.get("prefix_hit_tokens", 0), **lab)
+        return m
+    for r in stats.get("requests", []):
+        m.inc("serve_requests_total",
+              outcome=r.get("outcome", "completed"))
+        if r.get("ttft_s") is not None:
+            m.observe("serve_ttft_seconds", r["ttft_s"])
+        if r.get("latency_s") is not None:
+            m.observe("serve_request_latency_seconds", r["latency_s"])
+    for t, w in zip(stats.get("decode_step_times_s", []),
+                    stats.get("decode_widths", [])):
+        if w > 0:
+            m.observe("serve_tpot_seconds", t / w)
+    m.inc("serve_tokens_generated_total",
+          stats.get("total_new_tokens", 0))
+    m.inc("serve_engine_steps_total", stats.get("steps", 0))
+    m.inc("serve_decode_steps_total", stats.get("decode_steps", 0))
+    m.inc("serve_prompt_tokens_total",
+          stats.get("prompt_tokens_total", 0))
+    m.inc("serve_prefill_tokens_computed_total",
+          stats.get("prefill_tokens_computed", 0))
+    m.inc("serve_prefix_hit_tokens_total",
+          stats.get("prefix_hit_tokens", 0))
+    m.inc("serve_preemptions_total", stats.get("preemptions", 0))
+    m.inc("serve_retries_total", stats.get("retries", 0))
+    for k in ("cancelled", "deadline_expired", "rejected"):
+        m.inc(f"serve_{k}_total", stats.get(k, 0))
+    for rung, n in enumerate(stats.get("rung_steps") or []):
+        m.inc("serve_rung_steps_total", n, rung=rung)
+    m.inc("serve_spec_drafted_tokens_total",
+          stats.get("spec_drafted_tokens", 0))
+    m.inc("serve_spec_accepted_tokens_total",
+          stats.get("spec_accepted_tokens", 0))
+    m.set("serve_wall_seconds", stats.get("wall_s", 0.0))
+    m.set("serve_tokens_per_sec", stats.get("tokens_per_sec", 0.0))
+    m.set("serve_pool_occupancy_peak", stats.get("page_util_max", 0.0))
+    m.set("serve_pool_occupancy_mean", stats.get("page_util_mean", 0.0))
+    pt = stats.get("prompt_tokens_total", 0)
+    m.set("serve_prefix_hit_rate",
+          stats.get("prefix_hit_tokens", 0) / pt if pt else 0.0)
+    m.set("serve_spec_acceptance", stats.get("spec_acceptance", 0.0))
+    m.set("serve_steps_per_decode_token",
+          stats.get("steps_per_decode_token", 0.0))
+    m.set("serve_degradation_rung_max",
+          stats.get("degradation_rung_max", 0))
+    for prog, n in (stats.get("compile_counts") or {}).items():
+        m.counter_set("serve_compiled_programs", n, program=prog)
+    # engine-lifetime prefix-cache counters track their own totals
+    for k, v in (stats.get("cache") or {}).items():
+        if isinstance(v, (int, float)):
+            m.counter_set(f"serve_prefix_cache_{k}_total", v)
+    # host-tier counters/gauges (hierarchical prefix cache,
+    # serve/host_tier.py) — block absent when the tier is unarmed;
+    # the store tracks its own lifetime totals, so counter_set
+    ht = stats.get("host_tier") or {}
+    for k in ("spills", "reloads", "hits", "misses", "evictions"):
+        if k in ht:
+            m.counter_set(f"serve_host_tier_{k}_total", ht[k])
+    if ht:
+        m.set("serve_host_tier_bytes", float(ht.get("bytes", 0)))
+        m.set("serve_host_tier_occupancy",
+              float(ht.get("occupancy", 0.0)))
+        m.set("serve_host_tier_pages", ht.get("pages", 0))
+        m.counter_set("serve_host_tier_reload_pages_total",
+                      ht.get("reload_pages", 0))
+        m.counter_set("serve_host_tier_recompute_chosen_total",
+                      ht.get("recompute_chosen", 0))
+    # adapter-pool counters/gauges (multi-tenant LoRA serving,
+    # serve/adapters.py) — block absent when the pool is unarmed
+    ad = stats.get("adapter_pool") or {}
+    for k in ("hits", "misses", "loads", "evictions", "releases",
+              "blocked_admissions", "blocked_steps"):
+        if k in ad:
+            m.counter_set(f"serve_adapter_{k}_total", ad[k])
+    if ad:
+        m.set("serve_adapter_pool_occupancy",
+              float(ad.get("occupancy", 0.0)))
+        m.set("serve_adapter_resident_tenants",
+              ad.get("resident_tenants", 0))
+        m.set("serve_adapter_registered_tenants",
+              ad.get("registered_tenants", 0))
+    return m
+
+
+def train_metrics(stats: dict,
+                  registry: Optional[MetricsRegistry] = None
+                  ) -> MetricsRegistry:
+    """Fold one fit() run's last_train_stats into a MetricsRegistry —
+    the source train_report renders from and train_bench exports."""
+    m = registry if registry is not None else MetricsRegistry()
+    if not stats:
+        return m
+    m.inc("train_dispatches_total", stats.get("dispatches", 0))
+    m.set("train_dispatch_depth", stats.get("dispatch_depth", 0))
+    m.set("train_max_in_flight", stats.get("max_in_flight", 0))
+    m.set("train_in_flight_at_exit", stats.get("in_flight_at_exit", 0))
+    m.set("train_dispatch_gap_seconds_mean",
+          stats.get("dispatch_gap_s_mean", 0.0))
+    m.set("train_dispatch_gap_seconds_p50",
+          stats.get("dispatch_gap_s_p50", 0.0))
+    m.set("train_dispatch_gap_seconds_max",
+          stats.get("dispatch_gap_s_max", 0.0))
+    m.set("train_fetch_wait_seconds_total",
+          stats.get("fetch_wait_s_total", 0.0))
+    m.set("train_fetch_wait_seconds_max",
+          stats.get("fetch_wait_s_max", 0.0))
+    m.set("train_data_parallel", stats.get("data_parallel", 1))
+    m.set("train_est_comm_hidden", stats.get("est_comm_hidden", 0.0))
+    b = stats.get("grad_buckets") or {}
+    m.set("train_grad_buckets", b.get("count", 0))
+    m.set("train_grad_bucket_mb", b.get("bucket_mb", 0.0))
+    for i, nbytes in enumerate(b.get("bytes", []) or []):
+        m.set("train_grad_bucket_bytes", nbytes, bucket=i)
+    return m

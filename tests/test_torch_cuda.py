@@ -1783,3 +1783,69 @@ def test_captured_moe_steps_equal_eager(card, kind, mode):
     for op, ws in runs[0][1].items():
         for k, w in ws.items():
             np.testing.assert_array_equal(w, runs[1][1][op][k])
+
+
+@pytest.mark.parametrize("spec", [None, "serve.mixed:transient@3,5",
+                                  "serve.mixed:fatal@4"])
+def test_staging_ring_under_retried_and_fatal_steps(card, spec):
+    """On the card the pinned staging ring's events guard the slots a
+    queued copy still reads. A retried step fires before a slot is
+    taken, so it leaves the ring where a clean run leaves it and the
+    tokens and captures of a clean run; a fatal step leaves no slot
+    taken and unmarked, and the next batch replays the same graph."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.serve import ServeEngine
+    from flexflow_tpu_torch.utils.faults import InjectedFault
+    cfg = FFConfig(kv_page_size=8, kv_num_pages=73, serve_max_seqs=8,
+                   serve_prefill_budget=48, serve_retry_backoff_s=0.0)
+    lm = _small_lm(cfg)
+    ref = ServeEngine(lm, cfg)
+    ref.warmup()
+    eng = ServeEngine(lm, dataclasses.replace(cfg, fault_spec=spec))
+    counts = eng.warmup()
+    prompts = _prompts()
+    want = ref.generate(prompts, 8)
+    taken = []
+    orig = eng._stage_in.take
+    eng._stage_in.take = lambda *a: (taken.append(1), orig(*a))[1]
+    if spec and "fatal" in spec:
+        with pytest.raises(InjectedFault):
+            eng.generate(prompts, 8)
+        assert len(taken) == 2     # steps 2 and 3; the 4th fired first
+        assert eng._stage_in._events[eng._stage_in._i] is not None
+    else:
+        assert eng.generate(prompts, 8) == want
+        assert eng.last_stats["retries"] == (2 if spec else 0)
+        assert len(taken) == ref.last_stats["steps"]
+        assert eng._stage_in._i == ref._stage_in._i
+    assert eng.generate(prompts, 8) == want
+    assert eng.compile_counts() == counts
+
+
+@pytest.mark.parametrize("opt", ["sgd_nesterov", "sgd_decay", "adam"])
+def test_dense_update_on_card_equals_cpu(card, opt):
+    """The dense f32 rules' FMAs (torch.add with alpha, addcmul) and
+    Adam's sqrt on the card give the CPU's results bit for bit."""
+    from flexflow_tpu_torch.core import optimizers as po
+    o = {"sgd_nesterov": po.SGDOptimizer(lr=0.05, momentum=0.9,
+                                         nesterov=True),
+         "sgd_decay": po.SGDOptimizer(lr=0.05, momentum=0.9,
+                                      weight_decay=0.3),
+         "adam": po.AdamOptimizer(lr=0.01)}[opt]
+    rng = np.random.default_rng(5)
+    arrs = {k: rng.standard_normal((1000, 257)).astype(np.float32)
+            for k in ("w", "g", "a", "b")}
+    arrs["b"] = np.abs(arrs["b"]) * np.float32(1e-2)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        t = {k: torch.from_numpy(v.copy()).to(dev) for k, v in arrs.items()}
+        tree = lambda x: {"op": {"k": x}}  # noqa: E731
+        state = ({"m": tree(t["a"]), "v": tree(t["b"])} if opt == "adam"
+                 else {"v": tree(t["a"])})
+        sc = torch.tensor(o.step_scalar(4), dtype=torch.float32,
+                          device=dev)
+        for _ in range(3):
+            o.update(tree(t["w"]), tree(t["g"]), state, 4, scalar=sc)
+        res[dev] = [x.cpu() for x in (t["w"], t["a"], t["b"])]
+    for a, b in zip(res["cpu"], res["cuda"]):
+        assert torch.equal(a, b)

@@ -254,7 +254,7 @@ CONFIG_KNOBS = {
     "telemetry": dict(telemetry=True),
 }
 # ported since these cases were written: compile takes them and they train
-PORTED_CONFIG = {"remat", "nhwc"}
+PORTED_CONFIG = {"remat", "nhwc", "telemetry"}
 
 
 @pytest.mark.parametrize("knob", sorted(CONFIG_KNOBS))
