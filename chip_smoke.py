@@ -77,12 +77,24 @@ wide-head) must not spill — and then:
     run, 2 retries, no new capture); a fatal step contained, with a
     post-mortem bundle in JAX's schema and the next batch exact;
     telemetry on against off (the same tokens, captures and host
-    synchronizations; step wall and overhead over 5 interleaved runs;
-    the trace's events and the Prometheus counters); the idle share
-    split by the step spans into the host gap between steps and the
-    span's excess over device time; and fit of the dropout LM below at
-    train_dispatch_depth 0, 1, 2 with telemetry off and on, masters bit
-    for bit, step time per depth, and a profiling.trace() file;
+    synchronizations; step wall and the median paired overhead with its
+    spread over 11 interleaved paired rounds; the trace's events and
+    the Prometheus counters); the idle share split by the step spans
+    into the host gap between steps and the span's excess over device
+    time; and fit of the dropout LM below at train_dispatch_depth 0, 1,
+    2 with telemetry off and on, masters bit for bit, step time per
+    depth, and a profiling.trace() file;
+  * serves the same LM beyond one engine (``tier_phase``): the 8
+    greedy prompts under LoRA tenants 0-3 (rank 16, one rank 8 padded)
+    on f32 and int8 pages, each stream held against its tenant's
+    merged-weight reference by the tie rule and the captured engine
+    against an eager one, and the LoRA step's wall and device ms by
+    class against the base step's; a host tier of 8 MB under two
+    alternating working sets on f32 and int8 pages (pages spill and
+    reload, tokens those of the tier-off run) and the pinned page-batch
+    copy rate beside the priced one; two replicas serving 64 timed
+    requests under each router policy, every completed stream equal to
+    one engine's, and the prefix-hit pages of each;
   * trains the same LM with dropout 0.1 on each attention op and a
     Dropout(0.1) after each FFN (``dropout_lm_graph``; bf16 policy,
     batch 16 x 512) through ``fit``: (a) prefetch on against off, 3
@@ -1519,6 +1531,7 @@ def serve_phase(pr, fa, card: str, lm):
                        if eng.chunked_prefill else
                        {"prefill": len(eng.buckets), "decode": 1,
                         "mixed": 0})
+        want_counts.update({"adapter": 0, "export": 0, "import": 0})
         if counts != want_counts:
             raise AssertionError(f"{run}: captures after warmup {counts} "
                                  f"!= {want_counts}")
@@ -1603,7 +1616,10 @@ def serve_phase(pr, fa, card: str, lm):
 CHAOS_HITS = "3,6"
 CHAOS_CANCEL_RID, CHAOS_CANCEL_STEP, CHAOS_DEADLINE_RID = 5, 4, 1
 FATAL_HIT = 5
-ONOFF_ROUNDS = 5
+# telemetry on/off: interleaved paired rounds on each path (the order
+# alternating by round); the overhead is the median of the rounds'
+# on/off ratios, with their spread
+ONOFF_ROUNDS = 11
 DEPTHS = (0, 1, 2)
 # tools/postmortem.py's schema and required keys (the tool imports JAX)
 POSTMORTEM_SCHEMA = "flexflow_tpu.postmortem/1"
@@ -1762,8 +1778,8 @@ def robust_phase(pr, fa, card: str, lm):
                                  f"{off.compile_counts()} differ")
         med = {k: statistics.median(v) for k, v in walls.items()}
         overhead = med["on"] / med["off"] - 1.0
-        paired = statistics.median(a / b - 1.0 for a, b in
-                                   zip(walls["on"], walls["off"]))
+        ratios = [a / b - 1.0 for a, b in zip(walls["on"], walls["off"])]
+        paired = statistics.median(ratios)
         events = list(on.telemetry.events)
         steps = on.last_stats["steps"]
         with tempfile.TemporaryDirectory() as tmp:
@@ -1789,6 +1805,7 @@ def robust_phase(pr, fa, card: str, lm):
             "step_ms_off": med["off"], "step_ms_on": med["on"],
             "rounds_off": walls["off"], "rounds_on": walls["on"],
             "overhead": overhead, "overhead_paired_median": paired,
+            "overhead_paired_rounds": ratios,
             "syncs_per_run": syncs["on"], "captures": counts}
         res[f"idle_{path}"] = split
         log(f"robust (3) {path} [{card}]: telemetry on/off token-identical "
@@ -1796,8 +1813,10 @@ def robust_phase(pr, fa, card: str, lm):
             f"both, host synchronizations a run {syncs['on']} both; step "
             f"wall ms off {spread(walls['off'])}, on "
             f"{spread(walls['on'])}: overhead {100 * overhead:+.2f}% of "
-            f"the medians ({100 * paired:+.2f}% the median of the rounds' "
-            f"ratios)")
+            f"the medians; paired: median {100 * paired:+.2f}% of the "
+            f"{ONOFF_ROUNDS} rounds' ratios, spread "
+            f"{100 * min(ratios):+.2f}% to {100 * max(ratios):+.2f}% "
+            f"(the 3% contract is read, not enforced, here)")
         log(f"robust (3) {path}: trace events by name {dict(by_name)}")
         log(f"robust (3) {path}: Prometheus counters "
             f"{json.dumps(counters, sort_keys=True)}")
@@ -2007,6 +2026,370 @@ def robust_phase(pr, fa, card: str, lm):
 # the LM at full width with GPT-2's resid_pdrop / attn_pdrop of 0.1 where
 # the JAX package applies them (attention's output, a Dropout after each
 # block's FFN), trained through fit under the bf16 policy
+# ------------------------------------------- the serving tier
+# LoRA: the pool's rank, and the 8 greedy prompts' tenants (0 the base
+# model; 1 and 2 at rank 16; 3 at rank 8, zero-padded into the pool)
+TIER_RANK = 16
+TIER_TENANTS = (0, 1, 2, 3, 0, 1, 2, 3)
+TIER_RANKS = {1: 16, 2: 16, 3: 8}
+# the host tier: its budget, and a page pool too small for two working
+# sets of TIER_SET prompts (each a 64-token prefix shared by two of
+# them plus a 16-token tail; ~30 pages a set with the 32 new tokens),
+# so a working set's parked prefix pages are evicted (spilled) by the
+# next set and reloaded by its return; 36 pages is the least pool that
+# holds one 512-token sequence (32 pages) with room to spare
+TIER_HOST_MB = 8.0
+TIER_HOST_PAGES = 36
+TIER_SET = 6
+# the router: two replicas, JAX's router bench stream at full width
+TIER_TRAFFIC = dict(requests=64, tenants=4, prefix_tokens=48,
+                    vocab=32000, max_prompt=96, seed=0)
+TIER_RATE = 0.25          # arrivals per priced step (price_probe(64))
+# profiler classes of the LoRA step (first match wins); the per-lane
+# slab gather is index_select (indexSelect*Index kernels, or the
+# vectorized gather of newer PyTorch)
+LORA_CLASSES = (
+    ("attention", re.compile(r"ragged_v2_\w*kernel")),
+    ("slab_gather", re.compile(r"indexSelect|index_select|gather",
+                               re.I)),
+    ("matmul", re.compile(r"gemm|gemv|matmul|sm90_|cutlass|cublas", re.I)),
+    ("topk", re.compile(r"topk|sort|radix|argmax|reduce_kernel.*max",
+                        re.I)),
+    ("kv_scatter", re.compile(r"index_put|indexing|scatter", re.I)),
+    ("copy", re.compile(r"memcpy|memset|copy", re.I)),
+)
+
+
+def device_ms_by_class(fn, classes):
+    """(result of fn(), {class: device ms}) under torch.profiler, CUDA
+    activity only; every kernel lands in the first class whose pattern
+    matches its name, else "other"."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ms = collections.defaultdict(float)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        cls = next((c for c, pat in classes if pat.search(e.key)),
+                   "other")
+        ms[cls] += float(e.self_device_time_total) / 1e3
+    if not ms:
+        raise RuntimeError("the profiler saw no device time")
+    return out, dict(ms)
+
+
+def tier_adapters():
+    """{tenant: (weights, scale)} at the LM's shapes, from numpy seeds
+    (make_tenant_adapters): tenants 1, 2 at rank 16, tenant 3 at rank
+    8."""
+    from flexflow_tpu_torch.serve.adapters import make_tenant_adapters
+    shape = dict(num_layers=LM_ARCH["num_layers"],
+                 hidden=LM_ARCH["hidden"], num_heads=LM_ARCH["num_heads"],
+                 head_dim=LM_ARCH["hidden"] // LM_ARCH["num_heads"],
+                 ff_dim=LM_ARCH["ff_dim"])
+    return {t: make_tenant_adapters(rank=r, tenants=1, seed=100 + t,
+                                    **shape)[1]
+            for t, r in TIER_RANKS.items()}
+
+
+def tier_host_sets(vocab, seed=1):
+    """Two working sets of TIER_SET prompts: pairs sharing a 64-token
+    prefix, each with its own 16-token tail."""
+    rng = np.random.default_rng(seed)
+    rand = lambda n: [int(x) for x in rng.integers(1, vocab, n)]  # noqa
+    sets = []
+    for _ in range(2):
+        pres = [rand(64) for _ in range(TIER_SET // 2)]
+        sets.append([pres[i // 2] + rand(16) for i in range(TIER_SET)])
+    return sets
+
+
+def tier_phase(pr, card: str, lm):
+    """The serving tier at the trained LM's full width. (1) LoRA: the 8
+    greedy prompts x 32 new tokens under tenants TIER_TENANTS through a
+    rank-16 adapter pool (qkv, wo, ff1, ff2), on f32 and int8 pages:
+    each adapted stream against ``generate_reference`` on its tenant's
+    merged weights (``merge_adapter_params``) under the tie rule
+    (PARITY_MARGIN on f32, the pool's kv_tie_margin on int8), the
+    captured engine token for token an eager one's, no capture after
+    warmup and the adapter loads; then the mixed f32 step with tenants
+    against the unarmed engine's: step wall over 3 interleaved runs and
+    device ms by class (the slab gather its own). (2) the host tier: two
+    working sets alternating a, b, a over a TIER_HOST_PAGES-page pool
+    with an 8 MB store, f32 and int8 pages: pages spill and reload
+    (reload_pages > 0), the tokens those of the same runs with the tier
+    off (tie rule), no new capture; and the pinned host-to-device copy
+    rate of a page batch beside the priced ``host_transfer``. (3) the
+    router: two replicas serve TIER_TRAFFIC at TIER_RATE / price, once
+    per policy: every completed stream equal to a single engine's
+    (exact, else within the tie rule), no capture after warmup, every
+    page back; prefix-hit pages per policy. Kernel 1's launches of each
+    main run are counted from 0 just before it."""
+    t_phase = time.perf_counter()
+    res, launches = {}, {}
+    for part in (tier_lora, tier_host, tier_router):
+        r, n = part(pr, card, lm)
+        res.update(r)
+        launches.update(n)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"tier phase {res['phase_s']:.1f} s")
+    return res, launches
+
+
+def tier_lora(pr, card: str, lm):
+    """tier_phase (1): LoRA tokens, captured = eager, and the LoRA step
+    against the base step."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.models.transformer import TransformerLM
+    from flexflow_tpu_torch.serve import ServeEngine, merge_adapter_params
+    greedy, _ = serve_prompts(LM_ARCH["vocab_size"])
+    tenants = list(TIER_TENANTS)
+    new = 32
+    res, launches = {}, {}
+    adapters = tier_adapters()
+
+    # (1) LoRA: one merged-weight reference per tenant (pages play no
+    # part in it), shared by both page types
+    base = ServeEngine(lm, FFConfig(), device="cuda")
+    refs = [None] * len(greedy)
+    merged = {0: base.lm}
+    for t, (w, sc) in adapters.items():
+        merged[t] = TransformerLM(base.arch, merge_adapter_params(
+            base.params, w, sc))
+    for t in sorted(merged):
+        idx = [i for i, x in enumerate(tenants) if x == t]
+        base.lm = merged[t]
+        for i, r in zip(idx, base.generate_reference(
+                [greedy[i] for i in idx], new)):
+            refs[i] = r
+    base.lm = merged[0]
+    for kv in ("float32", "int8"):
+        cfg = FFConfig(kv_dtype=kv, adapter_rank=TIER_RANK)
+        runs = {}
+        for mode, capture in (("captured", True), ("eager", False)):
+            eng = ServeEngine(lm, cfg, device="cuda", capture=capture)
+            counts = eng.warmup()
+            for t, (w, sc) in adapters.items():
+                eng.register_adapter(t, w, scale=sc)
+            pr.launches = 0
+            out = eng.generate(greedy, new, tenant_ids=tenants)
+            runs[mode] = (eng, out, pr.launches, counts)
+        eng, out, n_launch, counts = runs["captured"]
+        if runs["eager"][1] != out:
+            raise AssertionError(f"lora {kv}: captured tokens differ from "
+                                 f"the eager run's")
+        st = eng.last_stats
+        if eng.compile_counts() != counts or counts["adapter"] != 1:
+            raise AssertionError(f"lora {kv}: captures {counts} -> "
+                                 f"{eng.compile_counts()}")
+        if n_launch != eng.num_layers * st["steps"] or not n_launch:
+            raise AssertionError(f"lora {kv}: kernel 1 launches {n_launch}"
+                                 f" != {eng.num_layers} x {st['steps']}")
+        margin = PARITY_MARGIN if kv == "float32" else eng.kv_tie_margin
+        exact = 0
+        for t in sorted(merged):
+            idx = [i for i, x in enumerate(tenants) if x == t]
+            eng.lm = merged[t]
+            exact += eng.assert_token_parity(
+                [greedy[i] for i in idx], [out[i] for i in idx],
+                [refs[i] for i in idx], margin=margin)
+        eng.lm = merged[0]
+        pool = st["adapter_pool"]
+        launches[f"lora_{kv}"] = n_launch
+        res[f"lora_{kv}"] = {"steps": st["steps"], "exact": exact,
+                             "captures": counts, "adapter_pool": pool}
+        log(f"tier (1) lora {kv} [{card}]: tenants {tenants} (rank "
+            f"{TIER_RANKS}, pool rank {TIER_RANK}, {pool['usable_slots']} "
+            f"slots of {pool['bytes_per_slot'] / 2**20:.2f} MiB): "
+            f"{exact}/{len(greedy)} streams token-identical to their "
+            f"tenant's merged-weight reference (rest diverge at a tie <= "
+            f"{margin}); captured = eager token for token; loads "
+            f"{pool['loads']}; captures {counts} unchanged; kernel 1 "
+            f"launches {n_launch} = {eng.num_layers} x {st['steps']}")
+        if kv == "float32":
+            lora_eng = eng
+        for e, *_ in runs.values():
+            if e is not lora_eng:
+                e.close()
+        del runs
+    # the LoRA step against the base step: the armed engine with
+    # tenants, the unarmed one without; walls interleaved, then one
+    # profiled run each
+    base.warmup()
+    walls = {"base": [], "lora": []}
+    for r in range(3):
+        for key in (("base", "lora") if r % 2 == 0 else ("lora", "base")):
+            eng = base if key == "base" else lora_eng
+            eng.generate(greedy, new, tenant_ids=None if key == "base"
+                         else tenants)
+            st = eng.last_stats
+            walls[key].append(1e3 * st["wall_s"] / st["steps"])
+    prof = {}
+    for key, eng in (("base", base), ("lora", lora_eng)):
+        _, ms = device_ms_by_class(lambda: eng.generate(
+            greedy, new, tenant_ids=None if key == "base" else tenants),
+            LORA_CLASSES)
+        steps = eng.last_stats["steps"]
+        prof[key] = {c: v / steps for c, v in sorted(ms.items())}
+        prof[key]["total"] = sum(ms.values()) / steps
+    res["lora_step"] = {"wall_ms": walls, "device_ms_per_step": prof}
+    log(f"tier (1) lora step [{card}]: mixed f32, step wall ms base "
+        f"{spread(walls['base'])}, with tenants {spread(walls['lora'])}; "
+        f"device ms a step by class: base "
+        f"{json.dumps({k: round(v, 4) for k, v in prof['base'].items()})}"
+        f", lora {json.dumps({k: round(v, 4) for k, v in prof['lora'].items()})}")
+    lora_eng.close()
+    base.close()
+    del lora_eng, base, merged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    return res, launches
+
+
+def tier_host(pr, card: str, lm):
+    """tier_phase (2): spill and reload on f32 and int8 pages, and the
+    host link's copy rate."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.search.machine_model import \
+        default_machine_model
+    from flexflow_tpu_torch.serve import ServeEngine
+    new = 32
+    res, launches = {}, {}
+    sets = tier_host_sets(LM_ARCH["vocab_size"])
+    for kv in ("float32", "int8"):
+        outs = {}
+        for tier in (True, False):
+            eng = ServeEngine(lm, FFConfig(
+                kv_dtype=kv, kv_num_pages=1 + TIER_HOST_PAGES,
+                host_tier_mb=TIER_HOST_MB, serve_host_tier=tier),
+                device="cuda")
+            counts = eng.warmup()
+            pr.launches = 0
+            outs[tier] = [eng.generate(p, new) for p in
+                          (sets[0], sets[1], sets[0])]
+            if tier:
+                n_launch = pr.launches
+                host = eng.last_stats["host_tier"]
+                if eng.compile_counts() != counts or \
+                        counts["export"] != 1 or counts["import"] != 1:
+                    raise AssertionError(f"host {kv}: captures {counts} "
+                                         f"-> {eng.compile_counts()}")
+                on_eng, on_counts = eng, counts
+            else:
+                off_eng = eng
+        if host["reload_pages"] <= 0 or host["spilled_pages"] <= 0 \
+                or not n_launch:
+            raise AssertionError(f"host {kv}: no spill/reload {host}, "
+                                 f"kernel 1 launches {n_launch}")
+        margin = PARITY_MARGIN if kv == "float32" else \
+            off_eng.kv_tie_margin
+        exact = sum(off_eng.assert_token_parity(p, a, b, margin=margin)
+                    for p, a, b in zip((sets[0], sets[1], sets[0]),
+                                       outs[True], outs[False]))
+        decisions = collections.Counter(
+            (r.host_reload or {}).get("chose") for r in
+            on_eng._last_reqs.values())
+        launches[f"host_{kv}"] = n_launch
+        res[f"host_{kv}"] = {"host_tier": host, "exact": exact,
+                             "decisions": dict(decisions)}
+        log(f"tier (2) host {kv} [{card}]: rounds a, b, a over "
+            f"{TIER_HOST_PAGES} pages and an {TIER_HOST_MB:g} MB store: "
+            f"spilled {host['spilled_pages']} pages, reloaded "
+            f"{host['reload_pages']} in {host['reload_events']} events "
+            f"(priced {1e3 * host['reload_priced_s']:.4f} ms), recompute "
+            f"chosen {host['recompute_chosen']}, last round's decisions "
+            f"{dict(decisions)}; {exact}/{3 * TIER_SET} streams "
+            f"token-identical to the tier-off run (rest at a tie <= "
+            f"{margin}); captures {on_counts} unchanged; kernel 1 "
+            f"launches {n_launch}")
+        c = on_eng.cache_cfg
+        on_eng.close()
+        off_eng.close()
+        del on_eng, off_eng
+    # the host link: pinned host -> device copies of one page batch
+    # (pages_per_seq f32 pages of k and v), against the priced copy
+    nbytes = 2 * c.num_layers * c.pages_per_seq * c.page_size \
+        * c.num_heads * c.head_dim * 4
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    copies = [cuda_ms(lambda: dst.copy_(src, non_blocking=True), 10)
+              for _ in range(3)]
+    priced = 1e3 * default_machine_model().host_transfer(nbytes)
+    rate = nbytes / (statistics.median(copies) / 1e3) / 1e9
+    res["host_link"] = {"bytes": nbytes, "copy_ms": copies,
+                        "gb_per_s": rate, "priced_ms": priced}
+    log(f"tier (2) host link [{card}]: a page batch ({c.pages_per_seq} "
+        f"f32 pages, {nbytes / 2**20:.2f} MiB) pinned host -> device ms "
+        f"{spread(copies)} = {rate:.2f} GB/s; priced host_transfer "
+        f"{priced:.4f} ms ({nbytes / priced / 1e6:.2f} GB/s, the "
+        f"uncalibrated spec-sheet rate)")
+    del src, dst
+
+    return res, launches
+
+
+def tier_router(pr, card: str, lm):
+    """tier_phase (3): two replicas behind each policy."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.serve import (ReplicaPool, ServeEngine,
+                                          TrafficSpec, make_traffic)
+    res, launches = {}, {}
+    ref_eng = ServeEngine(lm, FFConfig(), device="cuda")
+    ref_eng.warmup()
+    for policy in ("affinity", "round_robin"):
+        pool = ReplicaPool(lm, 2, policy=policy, config=FFConfig())
+        price = pool.price_probe(64)
+        traffic = make_traffic(TrafficSpec(rate_rps=TIER_RATE / price,
+                                           **TIER_TRAFFIC))
+        pr.launches = 0
+        rres = pool.run(traffic)
+        n_launch = pr.launches
+        pool.assert_zero_recompiles()
+        pool.check_drained()
+        want = ref_eng.generate([t.prompt for t in traffic],
+                                [t.max_new for t in traffic],
+                                stream_ids=[t.stream_id for t in traffic])
+        done = [(t.prompt, rec["tokens"], w) for t, rec, w in
+                zip(traffic, rres["requests"], want)
+                if rec["outcome"] == "completed"]
+        exact = sum(o == w for _, o, w in done)
+        if exact < len(done):
+            ref_eng.assert_token_parity([p for p, _, _ in done],
+                                        [o for _, o, _ in done],
+                                        [w for _, _, w in done],
+                                        margin=PARITY_MARGIN)
+        hits = {f"replica{r.idx}": r.session.stats_dict()[
+            "prefix_hit_tokens"] // r.engine.cache_cfg.page_size
+            for r in pool.replicas}
+        if not n_launch or len(done) != len(traffic):
+            raise AssertionError(f"router {policy}: kernel 1 launches "
+                                 f"{n_launch}, {len(done)} of "
+                                 f"{len(traffic)} completed")
+        launches[f"router_{policy}"] = n_launch
+        res[f"router_{policy}"] = {
+            k: rres[k] for k in ("goodput_per_s", "makespan_s",
+                                 "completed", "tokens_total", "routing",
+                                 "per_replica")}
+        res[f"router_{policy}"]["prefix_hit_pages"] = hits
+        log(f"tier (3) router {policy} [{card}]: {len(traffic)} requests "
+            f"over 2 replicas at {TIER_RATE} / {1e3 * price:.4f} ms; "
+            f"{exact}/{len(done)} completed streams equal the single "
+            f"engine's exactly (rest within the tie rule <= "
+            f"{PARITY_MARGIN}); prefix-hit pages {hits} (total "
+            f"{sum(hits.values())}); routing {rres['routing']}; virtual "
+            f"makespan {1e3 * rres['makespan_s']:.3f} ms; no capture after "
+            f"warmup, every page back; kernel 1 launches {n_launch}")
+        pool.close()
+        del pool
+    ref_eng.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
 LM_DROPOUT = 0.1
 FIT_STEPS = 8
 DROPOUT_SHAPES = ((LB, TS, 512), (3, 1001, 77))
@@ -3360,6 +3743,7 @@ def main() -> int:
     nres = nmt_train_phase(ls, card)
     sres = serve_phase(pr, fa, card, lm)
     rres, rlaunches = robust_phase(pr, fa, card, lm)
+    tierres, tlaunches = tier_phase(pr, card, lm)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
@@ -3385,7 +3769,8 @@ def main() -> int:
         "source": "flexflow_tpu_torch/kernels/csrc/paged_ragged_v2.cu",
         "replaces": "flexflow_tpu/kernels/paged_ragged_v2.py:245",
         "launches": sres["f32"][0]["paged_ragged_v2"],
-        "robust_launches": rlaunches["robust_mixed"], **head(kres),
+        "robust_launches": rlaunches["robust_mixed"],
+        "tier_launches": tlaunches, **head(kres),
         "bf16": kres["bf16"], "int8": kres["int8"], "fp8": kres["fp8"]}, {
         "name": "paged_decode", "route": "cuda", "source": decode_src,
         "replaces": "flexflow_tpu/kernels/flash_attention.py:390",
@@ -3508,6 +3893,7 @@ def main() -> int:
                                           "kernel_time")}}))
     log(json.dumps({"moe": moeres}))
     log(json.dumps({"robust": rres}))
+    log(json.dumps({"tier": tierres}))
     log(json.dumps({"sweep": swres}))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

@@ -8,10 +8,11 @@ policy of ``core/precision.py``, ``remat`` and
 ``iter_config.seq_length``, the conv knobs ``conv_layout`` and
 ``sibling_conv_fusion``, the sparse embedding routing
 (``sparse_embedding_updates``, ``sparse_embedding_lazy``) and
-``moe_dispatch``, and the robustness and observability knobs
+``moe_dispatch``, the robustness and observability knobs
 (``fault_spec``, the serving retry and deadline knobs, telemetry,
 ``trace_out``, the metrics endpoint, post-mortems, the SLO budget and
-``train_dispatch_depth``). A few knobs the port does not run yet
+``train_dispatch_depth``), and the serving tier's LoRA adapter, host
+tier and replica-pool knobs. A few knobs the port does not run yet
 (search, pipelines, fusion) are here at their JAX defaults so that setting one reaches ``FFModel.compile``, which raises
 ``NotImplementedError`` instead of ignoring it. The rest of the JAX
 config has no counterpart yet.
@@ -24,7 +25,7 @@ when CUDA is asked for and missing.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -113,11 +114,44 @@ class FFConfig:
     # kernels/paged_ragged_v2.py _tile_for). It changes no result
     serve_attn_block_kv: int = 0
 
-    # serving knobs of the JAX package the port does not run yet, at
-    # their JAX defaults; ServeEngine raises NotImplementedError for any
-    # other value: the tensor-parallel serve mesh and LoRA adapters
+    # the tensor-parallel serve mesh, at its JAX default: ServeEngine
+    # raises NotImplementedError for any other value (ROADMAP module
+    # items 5 and 7: the 2-D mesh search and torch.distributed)
     serve_mesh: str = ""
+
+    # multi-tenant LoRA adapters (serve/adapters.py): adapter_rank > 0
+    # arms the device slab pool, one slot per resident tenant, gathered
+    # per lane inside the one mixed step (chunked prefill only);
+    # adapter_pool_mb sizes the slot count by byte budget (0 = 1 +
+    # serve_max_seqs slots); tenant_adapters is the synthetic tenant
+    # count traffic mixes register (tenants 1..N)
     adapter_rank: int = 0
+    adapter_pool_mb: float = 0.0
+    tenant_adapters: int = 4
+
+    # host-RAM tier below the page pool (serve/host_tier.py): byte
+    # budget of the store that evicted prefix pages spill to and reload
+    # from when the priced copy beats recompute (0 = unarmed)
+    host_tier_mb: float = 0.0
+    serve_host_tier: bool = True
+
+    # multi-replica serving (serve/router.py): replicas behind a
+    # prefix-affinity ("affinity") or "round_robin" router on the
+    # virtual clock; slo_ttft_ms / slo_tpot_ms define goodput under SLO
+    # (0 = that bound waived); serve_autoscale arms the autoscaler, up
+    # to serve_autoscale_max replicas (0 = 2x serve_replicas).
+    # serve_replicas="auto" (the 2-D mesh search, ROADMAP module items
+    # 5 and 7), serve_wall_clock and serve_disagg (the wall-clock
+    # fabric and the disaggregated roles, module item 4's next slice)
+    # raise NotImplementedError where they would be served
+    serve_replicas: Union[int, str] = 1
+    router_policy: str = "affinity"
+    slo_ttft_ms: float = 0.0
+    slo_tpot_ms: float = 0.0
+    serve_autoscale: bool = False
+    serve_autoscale_max: int = 0
+    serve_wall_clock: bool = False
+    serve_disagg: bool = False
 
     # graceful-degradation ladder (serve/scheduler.py)
     serve_degrade_ladder: bool = True
@@ -217,6 +251,10 @@ class FFConfig:
             raise ValueError(
                 f"kv_pool_mb must be >= 0 (0 = size by kv_num_pages), "
                 f"got {self.kv_pool_mb}")
+        if self.host_tier_mb < 0:
+            raise ValueError(
+                f"host_tier_mb must be >= 0 (0 = host tier unarmed), "
+                f"got {self.host_tier_mb}")
         if self.serve_attn_block_kv < 0:
             raise ValueError(
                 f"serve_attn_block_kv must be >= 0 (0 = default), "
@@ -228,6 +266,22 @@ class FFConfig:
             raise ValueError(
                 f"serve_prefill_budget must be >= 1, got "
                 f"{self.serve_prefill_budget}")
+        if self.adapter_rank < 0:
+            raise ValueError(
+                f"adapter_rank must be >= 0 (0 = adapters unarmed), "
+                f"got {self.adapter_rank}")
+        if self.adapter_pool_mb < 0:
+            raise ValueError(
+                f"adapter_pool_mb must be >= 0 (0 = size by "
+                f"serve_max_seqs), got {self.adapter_pool_mb}")
+        if self.tenant_adapters < 0:
+            raise ValueError(
+                f"tenant_adapters must be >= 0, got "
+                f"{self.tenant_adapters}")
+        if self.adapter_rank > 0 and not self.serve_chunked_prefill:
+            raise ValueError(
+                "adapter_rank > 0 needs chunked prefill (the per-lane "
+                "adapter gather lives in the one mixed step)")
         if not 0.0 <= self.serve_admit_watermark < 1.0:
             raise ValueError(
                 f"serve_admit_watermark must be in [0, 1), got "
@@ -277,6 +331,32 @@ class FFConfig:
             raise ValueError(
                 f"slo_error_budget must be in (0, 1] (the tolerated "
                 f"violation fraction), got {self.slo_error_budget}")
+        if isinstance(self.serve_replicas, str):
+            if self.serve_replicas.strip() != "auto":
+                raise ValueError(
+                    f"serve_replicas must be an integer >= 1 or "
+                    f"'auto', got {self.serve_replicas!r}")
+        elif self.serve_replicas < 1:
+            raise ValueError(
+                f"serve_replicas must be >= 1, got "
+                f"{self.serve_replicas}")
+        if self.router_policy not in ("affinity", "round_robin"):
+            raise ValueError(
+                f"router_policy must be 'affinity' or 'round_robin', "
+                f"got {self.router_policy!r}")
+        if self.slo_ttft_ms < 0 or self.slo_tpot_ms < 0:
+            raise ValueError(
+                f"slo_ttft_ms/slo_tpot_ms must be >= 0 (0 = no "
+                f"bound), got {self.slo_ttft_ms}/{self.slo_tpot_ms}")
+        if self.serve_autoscale_max < 0:
+            raise ValueError(
+                f"serve_autoscale_max must be >= 0 (0 = 2x "
+                f"serve_replicas), got {self.serve_autoscale_max}")
+        if self.serve_wall_clock and self.serve_autoscale:
+            raise ValueError(
+                "serve_wall_clock and serve_autoscale are mutually "
+                "exclusive: the autoscaler replays on the virtual "
+                "clock only")
         if self.fault_spec:
             # parse now, so that a mistyped spec fails here and not in
             # the middle of a chaos run

@@ -24,6 +24,8 @@ counterpart of a compile is a capture:
 - On the CPU (the caller chose it) and with ``capture=False`` (the
   eager reference runs of the tests and the smoke) the registry counts
   signatures the same way and runs ``fn`` eagerly.
+- ``call_eager`` always runs eagerly and counts the same way: the
+  serving engine's in-place adapter loads and page export/import.
 
 Arguments are tensors, whose shape and dtype key the signature (a
 pinned host tensor fills its device buffer with one asynchronous copy),
@@ -147,6 +149,20 @@ class ProgramRegistry:
         self._replays[name] += 1
         _launches.replay_launches(prog.launches)
         return prog.static_out
+
+    def call_eager(self, name: str, fn, *args):
+        """Run ``fn(*args)`` eagerly on the current stream, counted
+        like a capture (one per new signature): the programs that
+        write device state in place between steps and must not be
+        replayed from static buffers (the engine's adapter slot loads
+        and page imports, and the exports beside them)."""
+        if name not in self._compiles:
+            self.register(name)
+        key = (name, self.signature(args))
+        if key not in self._seen:
+            self._seen.add(key)
+            self._compiles[name] += 1
+        return fn(*args)
 
     def _side_stream(self):
         if self._stream is None:

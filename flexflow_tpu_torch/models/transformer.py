@@ -150,25 +150,66 @@ class TransformerLM:
             return x
         return layer_norm(self.params[f"layer{i}_ln1"], x, self.arch.ln_eps)
 
-    def attn_qkv(self, i, h):
-        """h (..., E) -> q, k, v (..., H, D)."""
+    def attn_qkv(self, i, h, lora=None):
+        """h (..., E) -> q, k, v (..., H, D). ``lora`` (the mixed step
+        only, h (T, E)) is the lanes' gathered adapter rows of layer i,
+        (a_qkv (T, 3, E, r), b_qkv (T, 3, r, H, D), scale (T,)): each
+        lane adds its tenant's low-rank delta, u = h.A, d = u.B, d *
+        scale (the JAX engine's order); lanes of slot 0 gather the zero
+        slab and add exactly 0.0."""
         p = self.params[f"layer{i}_attn"]
-        return tuple(torch.einsum("...e,ehd->...hd", h, p[w].to(h.dtype))
-                     for w in ("wq", "wk", "wv"))
+        q, k, v = (torch.einsum("...e,ehd->...hd", h, p[w].to(h.dtype))
+                   for w in ("wq", "wk", "wv"))
+        if lora is not None:
+            a, b, s = lora
+            u = torch.einsum("te,tjer->tjr", h, a.to(h.dtype))
+            d = torch.einsum("tjr,tjrhd->tjhd", u, b.to(h.dtype))
+            d = d * s.to(h.dtype)[:, None, None, None]
+            q, k, v = q + d[:, 0], k + d[:, 1], v + d[:, 2]
+        return q, k, v
 
-    def attn_out(self, i, o, x):
+    def attn_out(self, i, o, x, lora=None):
+        """The output projection and residual; ``lora`` = (a_wo (T, H,
+        D, r), b_wo (T, r, E), scale (T,)) adds each lane's delta
+        before the bias."""
         p = self.params[f"layer{i}_attn"]
         y = torch.einsum("...hd,hde->...e", o, p["wo"].to(o.dtype))
+        if lora is not None:
+            a, b, s = lora
+            u = torch.einsum("thd,thdr->tr", o, a.to(o.dtype))
+            y = y + torch.einsum("tr,tre->te", u, b.to(o.dtype)) \
+                * s.to(o.dtype)[:, None]
         if "bo" in p:
             y = y + p["bo"].to(y.dtype)
         return x + y
 
-    def ffn(self, i, x):
+    def ffn(self, i, x, lora=None):
+        """The FFN block and residual. ``lora`` = (a_ff1, b_ff1, a_ff2,
+        b_ff2, scale) adds ff1's delta BEFORE the activation (the
+        merged reference folds A.B into the kernel relu then sees) and
+        ff2's before its bias."""
         h = layer_norm(self.params[f"layer{i}_ln2"], x, self.arch.ln_eps) \
             if self.arch.layer_norm else x
-        h = dense(self.params[f"layer{i}_ff1"], h, activation="relu")
-        h = dense(self.params[f"layer{i}_ff2"], h)
-        return x + h
+        if lora is None:
+            h = dense(self.params[f"layer{i}_ff1"], h, activation="relu")
+            h = dense(self.params[f"layer{i}_ff2"], h)
+            return x + h
+        a1, b1, a2, b2, s = lora
+        s = s.to(h.dtype)[:, None]
+        p1 = self.params[f"layer{i}_ff1"]
+        z = torch.matmul(h, p1["kernel"].to(h.dtype))
+        u1 = torch.einsum("te,ter->tr", h, a1.to(h.dtype))
+        z = z + torch.einsum("tr,trf->tf", u1, b1.to(h.dtype)) * s
+        if "bias" in p1:
+            z = z + p1["bias"].to(z.dtype)
+        h2 = torch.relu(z)
+        p2 = self.params[f"layer{i}_ff2"]
+        y = torch.matmul(h2, p2["kernel"].to(h2.dtype))
+        u2 = torch.einsum("tf,tfr->tr", h2, a2.to(h2.dtype))
+        y = y + torch.einsum("tr,tre->te", u2, b2.to(h2.dtype)) * s
+        if "bias" in p2:
+            y = y + p2["bias"].to(y.dtype)
+        return x + y
 
     def head(self, x):
         if self.arch.layer_norm:

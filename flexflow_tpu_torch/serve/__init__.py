@@ -1,12 +1,26 @@
 """Serving on the PyTorch/CUDA port: the paged KV cache, the
-continuous-batching scheduler and the mixed-step engine
-(``flexflow_tpu/serve`` is the reference)."""
+continuous-batching scheduler, the mixed-step engine with LoRA adapters
+and the host tier, and the multi-replica router with its traffic
+harness (``flexflow_tpu/serve`` is the reference)."""
 
+from .adapters import (AdapterConfig, AdapterPool, make_tenant_adapters,
+                       merge_adapter_params, tenant_prefix_salt)
+from .disagg import PageShipment
 from .engine import ServeEngine, ServeSession, StepEvents
-from .kv_cache import KVCacheConfig, PagedKVCache
+from .host_tier import HostPageStore
+from .kv_cache import KVCacheConfig, PagedKVCache, prefix_page_keys
+from .router import Autoscaler, Replica, ReplicaPool
 from .scheduler import (ChunkPlan, ContinuousBatchingScheduler, Request,
                         SampleParams, StepPlan)
+from .traffic import (TrafficRequest, TrafficSpec, make_traffic,
+                      rescale_arrivals, tenant_prefixes)
 
 __all__ = ["ServeEngine", "ServeSession", "StepEvents", "KVCacheConfig",
-           "PagedKVCache", "ChunkPlan", "ContinuousBatchingScheduler",
-           "Request", "SampleParams", "StepPlan"]
+           "PagedKVCache", "prefix_page_keys", "ChunkPlan",
+           "ContinuousBatchingScheduler", "Request", "SampleParams",
+           "StepPlan", "AdapterConfig", "AdapterPool",
+           "make_tenant_adapters", "merge_adapter_params",
+           "tenant_prefix_salt", "PageShipment", "HostPageStore",
+           "Autoscaler", "Replica", "ReplicaPool", "TrafficRequest",
+           "TrafficSpec", "make_traffic", "rescale_arrivals",
+           "tenant_prefixes"]

@@ -2,8 +2,10 @@
 
 Counterpart of ``flexflow_tpu/serve/engine.py`` on one device: chunked
 prefill, prefix cache, speculative decoding, float32, bfloat16, int8 or
-float8_e4m3 pages, and the legacy bucket path
-(``serve_chunked_prefill=False``); no adapters, no host tier.
+float8_e4m3 pages, the legacy bucket path
+(``serve_chunked_prefill=False``), per-lane LoRA adapters
+(``adapter_rank``) and the host-RAM tier below the page pool
+(``host_tier_mb``).
 
 Each step packs `serve_prefill_budget + serve_max_seqs` LANES, each one
 (sequence, position) query token: prompt chunks from any number of
@@ -56,10 +58,24 @@ telemetry on, every step is recorded as spans on the engine's tracks
 region), folded into the metrics registry, explained per request and
 black-boxed in post-mortem bundles under ``postmortem_dir``.
 
+LoRA adapters (serve/adapters.py): each tenant's (A, B) factors live
+in fixed device slabs (slot 0 the zero slab of the base model); every
+lane of the mixed step gathers its tenant's slot and adds the low-rank
+deltas to qkv, wo, ff1 (before the activation) and ff2. A tenant load
+copies its rows into its slot in place, outside any captured step, so
+a captured mixed step reads it — the CUDA-graph counterpart of JAX's
+donated load. The deltas are plain torch products, as they are XLA
+products in the JAX engine.
+
+Page export and import (``export_kv``, ``import_kv``) move whole page
+rows between the pool and host numpy in the JAX layout; the host tier
+(serve/host_tier.py) spills evicted prefix pages through the export
+and reloads a priced host hit through the import, which writes the
+live pool tensors in place.
+
 What the JAX engine also does and this one does not yet —
-tensor-parallel serving (``serve_mesh``), LoRA adapters
-(``adapter_rank``, ``tenant_ids``) raise ``NotImplementedError`` when
-configured; the host tier has no knob here; drift samples and the
+tensor-parallel serving (``serve_mesh``) and the disaggregated roles
+(``serve_disagg``) raise ``NotImplementedError``; drift samples and the
 memory ledger need the search stack.
 """
 
@@ -82,11 +98,14 @@ from ..kernels.flash_attention import (paged_attention_decode,
 from ..kernels.paged_ragged_v2 import quantize_kv_rows
 from ..models.transformer import TransformerLM
 from ..utils.faults import FaultInjector, TransientError, injector_for
-from ..utils.telemetry import (REQUEST_COMPONENTS, MetricsServer,
+from ..utils.telemetry import (PACKED, REQUEST_COMPONENTS, MetricsServer,
                                Telemetry, fold_attribution, pow2_bucket,
                                serve_metrics, telemetry_for,
                                write_json_atomic)
 from ..weights import arch_from_model
+from .adapters import AdapterConfig, AdapterPool, tenant_prefix_salt
+from .disagg import PageShipment
+from .host_tier import HostPageStore
 from .kv_cache import KVCacheConfig, PagedKVCache
 from .scheduler import (ChunkPlan, ContinuousBatchingScheduler, Request,
                         RequestOutcome, RequestState, SampleParams)
@@ -103,7 +122,9 @@ class ServeEngine:
     the tests and the smoke; the tokens are the same). ``faults`` and
     ``telemetry`` override the injector and the telemetry bus the
     config resolves (``fault_spec``; ``telemetry``, ``trace_out``,
-    ``metrics_port``, ``postmortem_dir``), as the JAX engine's do."""
+    ``metrics_port``, ``postmortem_dir``), as the JAX engine's do;
+    ``host_tier`` is a shared :class:`HostPageStore` (a replica pool's)
+    that wins over the private one ``host_tier_mb`` arms."""
 
     # static top-k head width: sampling draws from the top
     # min(TOPK_CAP, vocab) logits of a lane
@@ -118,7 +139,8 @@ class ServeEngine:
     def __init__(self, model, config: Optional[FFConfig] = None, *,
                  device="cuda", capture: bool = True,
                  faults: Optional[FaultInjector] = None,
-                 telemetry: Optional[Telemetry] = None):
+                 telemetry: Optional[Telemetry] = None,
+                 host_tier: Optional[HostPageStore] = None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(
@@ -138,12 +160,15 @@ class ServeEngine:
         self.num_heads = arch.num_heads
         self.head_dim = arch.head_dim
         self.act_dtype = arch.dtype
-        for knob, unset in (("serve_mesh", ""), ("adapter_rank", 0)):
-            if getattr(cfg, knob) != unset:
-                raise NotImplementedError(
-                    f"{knob}={getattr(cfg, knob)!r}: tensor-parallel "
-                    f"serving and LoRA adapters are not ported; the port "
-                    f"serves one device, base model only")
+        if cfg.serve_mesh != "":
+            raise NotImplementedError(
+                f"serve_mesh={cfg.serve_mesh!r}: tensor-parallel serving "
+                f"is not ported (ROADMAP module items 5 and 7); the port "
+                f"serves one device")
+        if cfg.serve_disagg:
+            raise NotImplementedError(
+                "serve_disagg: the disaggregated prefill/decode roles "
+                "are not ported yet (ROADMAP module item 4)")
         self.chunked_prefill = bool(cfg.serve_chunked_prefill)
         self.cache_cfg = KVCacheConfig.from_ff(
             cfg, num_layers=self.num_layers, num_heads=self.num_heads,
@@ -209,10 +234,50 @@ class ServeEngine:
         # pays off if committed pages outlive the batch that wrote them
         self.cache = PagedKVCache(self.cache_cfg,
                                   prefix_cache=self.prefix_cache)
+        # the host-RAM tier (serve/host_tier.py) below the page pool: a
+        # shared store (a replica pool's) wins, else host_tier_mb arms a
+        # private one. It needs the prefix cache (a spilled page is
+        # found again only through its chain key)
+        self.host_tier = None
+        if self.prefix_cache and self.chunked_prefill \
+                and bool(cfg.serve_host_tier):
+            if host_tier is not None:
+                self.host_tier = host_tier
+            elif float(cfg.host_tier_mb) > 0:
+                self.host_tier = HostPageStore(float(cfg.host_tier_mb))
+        self.cache.host_tier = self.host_tier
+        self._host_mm = None       # machine model pricing the host copy
+        self._host_reload_s = 0.0  # priced copy seconds, pending step
+        self._host_reload_stats = {"reload_events": 0,
+                                   "reload_pages": 0,
+                                   "spilled_pages": 0,
+                                   "recompute_chosen": 0,
+                                   "reload_priced_s": 0.0}
         self._k_pages: Optional[torch.Tensor] = None
         self._v_pages: Optional[torch.Tensor] = None
         self._k_scales: Optional[torch.Tensor] = None
         self._v_scales: Optional[torch.Tensor] = None
+        # page rows the export/import move: the page arrays, plus the
+        # scale arrays of a quantized pool
+        self._n_pools = 4 if self.kv_quantized else 2
+        # multi-tenant LoRA adapters (serve/adapters.py): fixed
+        # rank-padded slabs allocated once, slot 0 the zero slab of the
+        # base model, armed by adapter_rank > 0
+        self.adapters = None
+        self.adapter_cfg = None
+        self._adapter_slabs: Optional[Dict[str, torch.Tensor]] = None
+        if int(cfg.adapter_rank) > 0:
+            if not self.chunked_prefill:
+                raise ValueError(
+                    "adapter_rank > 0 needs the chunked mixed program "
+                    "(the per-lane adapter gather lives in the mixed "
+                    "step); the legacy bucket path serves base-only")
+            self.adapter_cfg = AdapterConfig.from_ff(
+                cfg, num_layers=self.num_layers, hidden=arch.hidden,
+                num_heads=self.num_heads, head_dim=self.head_dim,
+                ff_dim=arch.ff_dim,
+                act_itemsize=int(self.act_dtype.itemsize))
+            self.adapters = AdapterPool(self.adapter_cfg)
         # prompt-length buckets of the legacy prefill: powers of two
         # from one page up to the serveable length (the page-table
         # ceiling, capped at the positions the model learned)
@@ -231,7 +296,10 @@ class ServeEngine:
         # the serving programs, in the JAX engine's families
         self.programs = ProgramRegistry(self._program_fingerprint(),
                                         self.device, capture=capture)
-        for fam in ("prefill", "decode", "mixed"):
+        # the JAX engine's six families: the serving steps, the adapter
+        # slot load and the page export/import (run eagerly and counted)
+        for fam in ("prefill", "decode", "mixed", "adapter", "export",
+                    "import"):
             self.programs.register(fam)
         self._stage_in = PinnedRing(self.device)
         self._stage_out = PinnedRing(self.device)
@@ -245,6 +313,7 @@ class ServeEngine:
 
     def _program_fingerprint(self) -> dict:
         c = self.cache_cfg
+        ac = self.adapter_cfg
         return {"arch": {k: str(v) for k, v in
                          dataclasses.asdict(self.arch).items()},
                 "mixed_width": self.mixed_width, "max_seqs": c.max_seqs,
@@ -252,6 +321,8 @@ class ServeEngine:
                 "pages_per_seq": c.pages_per_seq, "kv_dtype": self.kv_dtype,
                 "topk_cap": self.topk_cap,
                 "chunked_prefill": self.chunked_prefill,
+                "adapter_rank": 0 if ac is None else ac.rank,
+                "adapter_slots": 0 if ac is None else ac.num_slots,
                 "device": str(self.device)}
 
     def compile_counts(self) -> dict:
@@ -277,6 +348,9 @@ class ServeEngine:
 
     # ---------------- device pages and the mixed step ------------------
     def _device_pages(self):
+        """The page pool (and scale arrays) on the device, allocated at
+        the first call; so are the adapter slabs, so that every tensor
+        a captured step reads exists before its first dispatch."""
         if self._k_pages is None:
             self._k_pages, self._v_pages = \
                 self.cache.alloc_device_cache(self.device)
@@ -284,7 +358,389 @@ class ServeEngine:
             self._k_scales, self._v_scales = \
                 self.cache.alloc_scale_arrays(self.device)
             self.cache.register_scale_meta(self._k_scales, self._v_scales)
+        self._device_adapters()
         return self._k_pages, self._v_pages
+
+    # ---------------- adapter pool: device half -----------------------
+    def _adapter_row_shapes(self) -> Dict[str, tuple]:
+        """{slab: one tenant's host rows}: adapters._weight_shapes at
+        the pool's rank, (L, ...) a factor, plus the () scale."""
+        from .adapters import _weight_shapes
+        ac = self.adapter_cfg
+        shapes = dict(_weight_shapes(ac, ac.rank, ac.ff_dim))
+        shapes["scale"] = ()
+        return shapes
+
+    def _adapter_slab_shapes(self) -> Dict[str, tuple]:
+        """{slab: device shape}: each factor (L, num_slots, ...) — layer
+        first, so that a layer's slab is one contiguous block the
+        per-lane gather indexes along its slots (JAX stacks slots first
+        and gathers every layer at once: the same values) — and the
+        (num_slots,) f32 per-slot scale."""
+        s = self.adapter_cfg.num_slots
+        return {k: (sh[0], s) + sh[1:] if sh else (s,)
+                for k, sh in self._adapter_row_shapes().items()}
+
+    def _device_adapters(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The resident slabs, allocated once (lazily, like the pages):
+        A/B factors at the activation dtype, per-slot scales f32, all
+        zeros until tenants load — so slot 0 stays the zero slab of the
+        base model (nothing ever writes it). Loads copy into them in
+        place, so the tensors a captured mixed step reads never
+        move."""
+        if self.adapters is None:
+            return None
+        if self._adapter_slabs is None:
+            self._adapter_slabs = {
+                key: torch.zeros(shape, device=self.device,
+                                 dtype=(torch.float32 if key == "scale"
+                                        else self.act_dtype))
+                for key, shape in self._adapter_slab_shapes().items()}
+        return self._adapter_slabs
+
+    def _adapter_load(self, slot: int, rows: Dict[str, np.ndarray]) -> None:
+        """Copy one tenant's host rows (f32; cast to the slab dtype as
+        JAX's ``.astype`` does) into ``slot`` of every slab, in place,
+        counted as the ``adapter`` family (one signature: every (slot,
+        tenant) load is the same program)."""
+        slabs = self._device_adapters()
+
+        def load(slot_t, *tensors):
+            slot = int(slot_t)
+            for key, t in zip(sorted(rows), tensors):
+                dst = slabs[key][slot] if key == "scale" \
+                    else slabs[key][:, slot]
+                dst.copy_(t, non_blocking=True)
+        self._fire_with_retry("serve.adapter")
+        self.programs.call_eager(
+            "adapter", load, torch.tensor(slot, dtype=torch.int32),
+            *(torch.from_numpy(np.asarray(rows[k], np.float32))
+              for k in sorted(rows)))
+
+    def register_adapter(self, tenant_id: int, weights, *,
+                         scale: float = 1.0) -> None:
+        """Register a tenant's LoRA weights with the pool (a host copy;
+        the device load happens on demand at admission). ``weights`` is
+        the adapters.ADAPTER_SLABS dict at the model's ff width and any
+        rank <= the pool rank (zero-padded: exact)."""
+        if self.adapters is None:
+            raise RuntimeError(
+                "engine has no adapter pool (set adapter_rank > 0)")
+        self.adapters.register(tenant_id, weights, scale=scale,
+                               ff_dim=self.arch.ff_dim)
+
+    def adapter_resident(self, tenant_id: int) -> bool:
+        """Whether a tenant's adapter holds a slab slot — the router's
+        adapter-affinity signal."""
+        return self.adapters is not None \
+            and self.adapters.resident(tenant_id)
+
+    def _drain_adapter_loads(self) -> int:
+        """Load every pending tenant into its slot — the session calls
+        this BEFORE each mixed dispatch, so no lane gathers a slot its
+        tenant has not landed in. Returns the loads made (a stall the
+        plan sees, never a new capture)."""
+        if self.adapters is None:
+            return 0
+        pending = self.adapters.take_pending()
+        for slot, tenant in pending:
+            w, sc = self.adapters.host_weights(tenant)
+            rows = dict(w)
+            rows["scale"] = np.float32(sc)
+            self._adapter_load(slot, rows)
+            if self.telemetry.enabled:
+                self.telemetry.instant(
+                    self._ENGINE_TRACK, "adapter_load",
+                    args={"tenant": tenant, "slot": slot})
+        return len(pending)
+
+    # ---------------- page export and import --------------------------
+    # Whole page rows — (layers, page, offset, head[, dim]) blocks of the
+    # pool tensors, and of the scale tensors on quantized pools — move
+    # between the pool and host numpy, the page-index vector padded to
+    # pages_per_seq with the sink page 0 (one signature per family). The
+    # host layout is the JAX engine's byte for byte; bf16 and fp8 rows
+    # travel as uint16 and uint8 views.
+    _HOST_VIEW = {torch.bfloat16: (torch.int16, np.uint16),
+                  torch.float8_e4m3fn: (torch.uint8, np.uint8)}
+
+    def _pool_args(self) -> tuple:
+        args = (self._k_pages, self._v_pages)
+        if self.kv_quantized:
+            args += (self._k_scales, self._v_scales)
+        return args
+
+    def _pad_idx(self, pages: Sequence[int]) -> np.ndarray:
+        c = self.cache_cfg
+        if len(pages) > c.pages_per_seq:
+            raise ValueError(
+                f"shipment of {len(pages)} pages exceeds this pool's "
+                f"page-table ceiling ({c.pages_per_seq})")
+        idx = np.zeros((c.pages_per_seq,), np.int32)
+        idx[:len(pages)] = pages
+        return idx
+
+    def _export_rows(self, idx: np.ndarray) -> List[np.ndarray]:
+        """Gather the page rows at ``idx`` of every pool tensor to host
+        numpy (counted as ``export``): (L, len(idx), ps, H[, D])."""
+        self._device_pages()
+        self._fire_with_retry("serve.export")
+
+        def gather(i, *pools):
+            i = i.to(self.device).long()
+            out = []
+            for pool in pools:
+                rows = pool.index_select(1, i)
+                view = self._HOST_VIEW.get(rows.dtype)
+                if view is not None:
+                    out.append(rows.view(view[0]).cpu().numpy()
+                               .view(view[1]))
+                else:
+                    out.append(rows.cpu().numpy())
+            return out
+        return self.programs.call_eager(
+            "export", gather, torch.from_numpy(idx), *self._pool_args())
+
+    def _import_rows(self, idx: np.ndarray,
+                     rows: Sequence[np.ndarray]) -> None:
+        """Scatter host page rows into the pool tensors at ``idx``, in
+        place (counted as ``import``): the tensors a captured mixed step
+        reads never move. Padding entries write their zero rows into the
+        sink page (never read unmasked)."""
+        self._device_pages()
+        self._fire_with_retry("serve.import")
+
+        def scatter(i, *src):
+            i = i.to(self.device).long()
+            for pool, r in zip(self._pool_args(), src):
+                t = r.to(self.device, non_blocking=True)
+                if pool.element_size() == 1:
+                    pool.view(torch.uint8).index_copy_(
+                        1, i, t.view(torch.uint8))
+                else:
+                    pool.index_copy_(1, i, t.view(pool.dtype))
+        # numpy's uint16 (bf16 rows) enters torch as int16: the pool's
+        # view then reinterprets the same bits
+        self.programs.call_eager(
+            "import", scatter, torch.from_numpy(idx),
+            *(torch.from_numpy(np.ascontiguousarray(
+                r.view(np.int16) if r.dtype == np.uint16 else r))
+              for r in rows))
+
+    def export_kv(self, slot: int, tokens: Sequence[int],
+                  stream_id: Optional[int] = None,
+                  trace_id: Optional[int] = None,
+                  tenant_id: int = 0) -> Optional[PageShipment]:
+        """Ship ``slot``'s full resident pages to the host: the prefill
+        half of a disaggregated handoff. Returns a PageShipment (the
+        chain keys, the page rows and scale rows as host numpy, the
+        geometry stamp), or None when the slot has no full page yet.
+        Must run while the slot is still mapped (from generate()'s
+        ``on_finish``)."""
+        pages, keys, ntokens = self.cache.export_pages(
+            slot, tokens, prev=tenant_prefix_salt(tenant_id))
+        if not pages:
+            return None
+        n = len(pages)
+        # copy the real pages' slice: a view would pin the whole padded
+        # gather for the shipment's life
+        host = [r[:, :n].copy()
+                for r in self._export_rows(self._pad_idx(pages))]
+        c = self.cache_cfg
+        return PageShipment(
+            keys=list(keys), ntokens=int(ntokens),
+            k_rows=host[0], v_rows=host[1],
+            k_scale_rows=host[2] if self.kv_quantized else None,
+            v_scale_rows=host[3] if self.kv_quantized else None,
+            page_size=c.page_size, num_layers=c.num_layers,
+            num_heads=c.num_heads, head_dim=c.head_dim,
+            kv_dtype=c.kv_dtype, stream_id=stream_id,
+            trace_id=trace_id, tenant_id=int(tenant_id))
+
+    def import_kv(self, ship: PageShipment) -> int:
+        """Adopt a PageShipment into this pool: the decode half of a
+        handoff. Registers the chain keys (already-resident keys dedupe
+        to nothing) and writes the needed rows into freshly parked
+        pages, so the next admission prefix-matches the prompt as if it
+        had been computed here. Returns the pages written (0 = full
+        dedupe); the caller checks ``cache.free_pages`` first."""
+        c = self.cache_cfg
+        if (ship.page_size, ship.num_layers, ship.num_heads,
+                ship.head_dim, ship.kv_dtype) != (
+                c.page_size, c.num_layers, c.num_heads, c.head_dim,
+                c.kv_dtype):
+            raise ValueError(
+                f"shipment geometry {ship.signature()} does not match "
+                f"this pool ({(c.page_size, c.num_layers, c.num_heads, c.head_dim, c.kv_dtype)})")
+        todo = self.cache.import_pages(ship.keys)
+        if not todo:
+            return 0
+        idx = self._pad_idx([page for _, page in todo])
+        srcs = [ship.k_rows, ship.v_rows]
+        if self.kv_quantized:
+            srcs += [ship.k_scale_rows, ship.v_scale_rows]
+        rows = []
+        for src in srcs:
+            buf = np.zeros((src.shape[0], c.pages_per_seq)
+                           + src.shape[2:], src.dtype)
+            for j, (chain_i, _) in enumerate(todo):
+                buf[:, j] = src[:, chain_i]
+            rows.append(buf)
+        self._import_rows(idx, rows)
+        return len(todo)
+
+    def _host_row_shapes(self) -> List[tuple]:
+        """(shape, numpy dtype) of each pool's padded export rows."""
+        c = self.cache_cfg
+        val = (c.num_layers, c.pages_per_seq, c.page_size, c.num_heads,
+               c.head_dim)
+        dt = self.cache_cfg.storage_dtype
+        view = self._HOST_VIEW.get(dt)
+        npdt = view[1] if view is not None else \
+            torch.empty((), dtype=dt).numpy().dtype
+        shapes = [(val, npdt), (val, npdt)]
+        if self.kv_quantized:
+            shapes += [(val[:-1], np.float32), (val[:-1], np.float32)]
+        return shapes
+
+    def warmup_handoff(self) -> Dict[str, int]:
+        """Run the export and import once on sink-page dummies (a no-op
+        on the pool's content), so no handoff or host-tier traffic
+        counts a new program after warmup. Returns compile_counts()."""
+        idx = np.zeros((self.cache_cfg.pages_per_seq,), np.int32)
+        self._export_rows(idx)
+        self._import_rows(idx, [np.zeros(sh, dt)
+                                for sh, dt in self._host_row_shapes()])
+        return self.compile_counts()
+
+    # ---------------- the host tier ------------------------------------
+    def _drain_spills(self) -> int:
+        """Ship queued evicted-page content to the host tier through the
+        export. MUST run before any dispatch that writes the pool: a
+        queued page may already be remapped to a new slot, and its old
+        rows survive only until the next write. The session calls this
+        right before each mixed dispatch; a reload drains before its
+        import for the same reason."""
+        store = self.host_tier
+        if store is None:
+            return 0
+        pending = self.cache.take_pending_spills()
+        if not pending:
+            return 0
+        latest = {}          # a page queued twice keeps its newest key
+        for page, key in pending:
+            latest[page] = key
+        todo = [(p, k) for p, k in latest.items()
+                if not store.contains(k)]
+        if not todo:
+            return 0
+        c = self.cache_cfg
+        shipped = 0
+        for i in range(0, len(todo), c.pages_per_seq):
+            batch = todo[i:i + c.pages_per_seq]
+            host = self._export_rows(self._pad_idx([p for p, _ in batch]))
+            for j, (_, key) in enumerate(batch):
+                if store.put(key, [h[:, j] for h in host]):
+                    shipped += 1
+        self._host_reload_stats["spilled_pages"] += shipped
+        if self.telemetry.enabled and shipped:
+            self.telemetry.instant(self._ENGINE_TRACK, "host_spill",
+                                   args={"pages": shipped})
+        return shipped
+
+    def _host_step_price(self, ctx_len: int) -> float:
+        """Predicted seconds of ONE mixed step at this context — the
+        recompute side of the spill-vs-recompute decision, from the cost
+        stack the drift calibrator prices (None in the port until the
+        search stack is ported), else the analytic fallback the
+        router's virtual clock uses (JAX's formula)."""
+        pred = self._drift_predicted(pow2_bucket(max(1, ctx_len)))
+        if pred is not None:
+            return float(pred[0])
+        return 1e-4 * (1.0 + self.mixed_width / 512.0) \
+            * (1.0 + ctx_len / 2048.0)
+
+    def _host_reload(self, req, keys, cached_pages,
+                     max_pages: int) -> int:
+        """The scheduler's admission hook when the host tier is armed:
+        extend a device prefix match with host-resident pages IF the
+        priced copy (the machine model's ``host_transfer``) beats
+        recomputing those tokens (steps times the step price). Reloaded
+        pages park like an import (hashed, refcount 0), so the
+        scheduler's re-match picks them up; ``free_pages`` is unchanged
+        (free -> parked). Returns the pages made resident; the decision
+        is recorded on the request either way (explain_request)."""
+        store, cache = self.host_tier, self.cache
+        resident = len(cached_pages)
+        run = cache.match_prefix_host(keys, resident)
+        if run <= 0:
+            return 0
+        c = self.cache_cfg
+        m = min(run, int(max_pages))
+        decision = {"host_matched_pages": int(run),
+                    "reloaded_pages": 0, "dma_s": 0.0,
+                    "recompute_s": 0.0, "chose": "none"}
+        req.host_reload = decision
+        if m <= 0:
+            return 0
+        if self._host_mm is None:
+            from ..search.machine_model import default_machine_model
+            self._host_mm = default_machine_model()
+        dma_s = float(self._host_mm.host_transfer(
+            float(m) * float(c.page_bytes)))
+        steps = -(-(m * c.page_size) // max(1, self.prefill_budget))
+        recompute_s = steps * self._host_step_price(len(req.prompt))
+        decision.update(dma_s=dma_s, recompute_s=recompute_s)
+        if dma_s >= recompute_s:
+            decision["chose"] = "recompute"
+            self._host_reload_stats["recompute_chosen"] += 1
+            return 0
+        # protect the device-matched refcount-0 run from the import's
+        # eviction cascade (allocation evicts the LRU-oldest)
+        cache.touch(cached_pages)
+        t0 = time.perf_counter()
+        # fetch rows FIRST: on a shared store another replica's puts may
+        # have evicted part of the matched run since the probe
+        fetched = []
+        for key in keys[resident:resident + m]:
+            rows = store.get(key)
+            if rows is None:
+                break
+            fetched.append(rows)
+        val_shape = (c.num_layers, c.page_size, c.num_heads, c.head_dim)
+        if not fetched or tuple(fetched[0][0].shape) != val_shape:
+            decision["chose"] = "store_miss"  # raced away / foreign
+            return 0                          # geometry: never scatter
+        todo = cache.import_pages(keys[resident:resident + len(fetched)])
+        if not todo:
+            decision["chose"] = "store_miss"
+            return 0
+        # the allocation above may have queued evictions of its own:
+        # their content must ship before the import overwrites it
+        self._drain_spills()
+        idx = self._pad_idx([page for _, page in todo])
+        rows = []
+        for pool_i in range(self._n_pools):
+            src0 = fetched[0][pool_i]
+            buf = np.zeros((src0.shape[0], c.pages_per_seq)
+                           + src0.shape[1:], src0.dtype)
+            for j, (chain_i, _) in enumerate(todo):
+                buf[:, j] = fetched[chain_i][pool_i]
+            rows.append(buf)
+        self._import_rows(idx, rows)
+        n = len(todo)
+        decision.update(chose="reload", reloaded_pages=n)
+        self._host_reload_stats["reload_events"] += 1
+        self._host_reload_stats["reload_pages"] += n
+        self._host_reload_stats["reload_priced_s"] += dma_s
+        self._host_reload_s += dma_s
+        if self.telemetry.enabled:
+            self.telemetry.span(
+                self._ENGINE_TRACK, "host_reload", t0,
+                time.perf_counter(),
+                args={"trace": req.trace_id, "rid": req.rid,
+                      "pages": n, "dma_s": dma_s})
+        return n
 
     def bucket_for(self, prompt_len: int) -> int:
         for b in self.buckets:
@@ -330,22 +786,39 @@ class ServeEngine:
 
     @torch.no_grad()
     def _mixed_body(self, tokens, positions, write_pages, write_offs,
-                    page_tables, lane_slots, lane_lens):
+                    page_tables, lane_slots, lane_lens,
+                    lane_adapters=None):
         """ONE serving step over `mixed_width` lanes (all (T,) int32 on
         the device, host-built): the token to embed, its position, the
         physical (page, offset) its K/V lands in (inactive lanes aim at
         the sink page 0), the page-table row it reads and its visible
         length (position + 1; inactive lanes 1, so the masked softmax
-        stays NaN-free). Returns (greedy (T,) int32, top-k values (T, K)
-        f32, top-k ids (T, K) int32)."""
+        stays NaN-free), and on an adapter-armed engine its adapter
+        slot (0: the zero slab of the base model). Returns (greedy (T,)
+        int32, top-k values (T, K) f32, top-k ids (T, K) int32)."""
         m = self.lm
         kp, vp = self._device_pages()
         ks, vs = self._k_scales, self._v_scales
         x = m.embed(tokens, positions)                      # (T, E)
         scale = 1.0 / math.sqrt(self.head_dim)
         where = (write_pages.long(), write_offs.long())
+        slabs = la = ad_s = None
+        if lane_adapters is not None:
+            # each lane's slot rows, gathered per layer from the layer's
+            # contiguous slab (the JAX engine gathers the whole stack
+            # once and slices per layer: the same values, a sixth of the
+            # transient memory here)
+            slabs = self._device_adapters()
+            la = lane_adapters.long()
+            ad_s = slabs["scale"].index_select(0, la)       # (T,)
         for i in range(self.num_layers):
-            q, k, v = m.attn_qkv(i, m.attn_in(i, x))       # (T, H, D)
+            lora = None if slabs is None else {
+                key: slabs[key][i].index_select(0, la)
+                for key in ("a_qkv", "b_qkv", "a_wo", "b_wo", "a_ff1",
+                            "b_ff1", "a_ff2", "b_ff2")}
+            q, k, v = m.attn_qkv(
+                i, m.attn_in(i, x), lora=None if lora is None else
+                (lora["a_qkv"], lora["b_qkv"], ad_s))       # (T, H, D)
             # every lane's row lands (quantized, on int8/fp8 pools)
             # BEFORE any lane attends, so what a lane reads back this
             # very step is already the stored value
@@ -355,8 +828,11 @@ class ServeEngine:
                 scale=scale, block_kv=self.attn_block_kv or None,
                 k_scales=ks[i] if self.kv_quantized else None,
                 v_scales=vs[i] if self.kv_quantized else None)
-            x = m.attn_out(i, o, x)
-            x = m.ffn(i, x)
+            x = m.attn_out(i, o, x, lora=None if lora is None else
+                           (lora["a_wo"], lora["b_wo"], ad_s))
+            x = m.ffn(i, x, lora=None if lora is None else
+                      (lora["a_ff1"], lora["b_ff1"], lora["a_ff2"],
+                       lora["b_ff2"], ad_s))
         return self._greedy_topk(x)
 
     def _dispatch(self, family: str, *arrays):
@@ -390,6 +866,8 @@ class ServeEngine:
         bound += [t for t in (self._k_pages, self._v_pages,
                               self._k_scales, self._v_scales)
                   if t is not None]
+        if self._adapter_slabs is not None:
+            bound += list(self._adapter_slabs.values())
         out = self.programs.call(family, self._run_packed, family, shapes,
                                  buf, bound=bound)
         self._stage_in.consumed()
@@ -405,6 +883,16 @@ class ServeEngine:
             return res.view(np.float32)
         k = self.topk_cap
         return res[:, 0], res[:, 1:1 + k].view(np.float32), res[:, 1 + k:]
+
+    def _dispatch_mixed(self, *arrays, lane_adapters=None):
+        """One mixed step: the seven lane arrays, plus the lanes'
+        adapter slots on an adapter-armed engine (all 0 — the base
+        slab — when None)."""
+        if self.adapters is not None:
+            if lane_adapters is None:
+                lane_adapters = np.zeros((self.mixed_width,), np.int32)
+            arrays = arrays + (lane_adapters,)
+        return self._dispatch("mixed", *arrays)
 
     def _fire_with_retry(self, site: str) -> None:
         """Fire ``site``, retrying each TransientError with backoff (the
@@ -492,8 +980,18 @@ class ServeEngine:
         if self.chunked_prefill:
             t = self.mixed_width
             z = np.zeros((t,), np.int32)
-            self._dispatch("mixed", z, z, z, z, tables, z,
-                           np.ones((t,), np.int32))
+            self._dispatch_mixed(z, z, z, z, tables, z,
+                                 np.ones((t,), np.int32))
+            if self.adapters is not None:
+                # the slot load on all-zero rows aimed at the base slot
+                # (zeros into zeros: a no-op on content), host f32 like
+                # every real load
+                self._adapter_load(0, {
+                    k: np.zeros(sh, np.float32)
+                    for k, sh in self._adapter_row_shapes().items()})
+            if self.host_tier is not None:
+                # spills and reloads run the export and import
+                self.warmup_handoff()
         else:
             pt_row = np.zeros((c.pages_per_seq,), np.int32)
             one = np.ones((1,), np.int32)
@@ -699,7 +1197,8 @@ class ServeEngine:
         `on_finish(req)` when a request completes, before its slot
         releases. `stream_ids`/`stream_offset` key the sampled streams
         (_pick_token), `trace_ids` carry an upstream trace context.
-        `tenant_ids` other than 0 need LoRA adapters (not ported). A
+        `tenant_ids` pick each request's registered LoRA adapter (0 =
+        the base model; others need ``adapter_rank > 0``). A
         mid-batch exception fails only the in-flight requests and the
         engine keeps serving; with telemetry on, the Chrome trace is
         written to `trace_out` after every call, one a fault aborted
@@ -721,11 +1220,14 @@ class ServeEngine:
             if arg is not None and len(arg) != n:
                 raise ValueError(f"{name} has {len(arg)} entries for "
                                  f"{n} prompts")
-        if tenant_ids is not None and any(tenant_ids):
-            raise NotImplementedError(
-                "tenant_ids != 0 need LoRA adapters, which are not "
-                "ported; the port serves the base model only")
+        if tenant_ids is not None and any(tenant_ids) \
+                and self.adapters is None:
+            raise ValueError(
+                "tenant_ids != 0 need an armed adapter pool "
+                "(adapter_rank > 0); this engine serves base-only")
         per = [dict(eos_token=eos_token, sample=sp,
+                    tenant_id=(int(tenant_ids[i]) if tenant_ids is not None
+                               else 0),
                     deadline_s=(deadline_s[i] if deadline_s is not None
                                 else None),
                     stream_id=(stream_ids[i] if stream_ids is not None
@@ -1054,28 +1556,23 @@ class ServeEngine:
         port writes its pages in place and donates nothing, so the pool
         tensors stay; but a step that died may have written part of a
         page the registry vouches for, so the registry goes, as in the
-        JAX engine, and the next batch's tokens equal JAX's."""
+        JAX engine, and the next batch's tokens equal JAX's. Queued host
+        spills go with the registry, and so does a priced reload no step
+        claimed."""
         self.cache.clear_prefix()
+        self._host_reload_s = 0.0
         self.cache.check_invariants()
 
     # ---------------- telemetry ----------------------------------------
-    def _drift_predicted(self, plan) -> Optional[tuple]:
-        """(predicted seconds, per-task-class breakdown) of this plan's
-        mixed step, from the simulator the placement search prices (the
-        JAX engine prices the step at the plan's pow2 context bucket,
-        :meth:`_ctx_bucket`); None when the step cannot be priced, and
-        then no drift sample is recorded. The port has no simulator
-        yet, so this is always None (tests inject a prediction)."""
+    def _drift_predicted(self, ctx_bucket: int) -> Optional[tuple]:
+        """(predicted seconds, per-task-class breakdown) of one mixed
+        step at this pow2 context bucket, from the simulator the
+        placement search prices; None when the step cannot be priced:
+        then no drift sample is recorded, and the host tier and the
+        replica pool price a step by their analytic fallback. The port
+        has no simulator yet, so this is always None (tests inject a
+        prediction)."""
         return None
-
-    @staticmethod
-    def _ctx_bucket(plan) -> int:
-        """The pow2 bucket of the plan's mean decode context (its chunk
-        ends when it decodes nothing): the drift regime's context."""
-        ctxs = [len(ch.req.prompt) + len(ch.req.out_tokens)
-                for ch in plan.chunks
-                if ch.is_decode] or [ch.end for ch in plan.chunks]
-        return pow2_bucket(int(sum(ctxs) / len(ctxs)))
 
     def _drift_regime(self, n_decode: int, pre_bucket: int,
                       ctx_bucket: int) -> str:
@@ -1096,6 +1593,14 @@ class ServeEngine:
             tracks.append((self._proc, f"slot {len(tracks)}"))
         return tracks[slot]
 
+    # args layouts of the packed step records (Telemetry.emit_packed)
+    _CHUNK_ARGS = ("rid", "trace", "start", "end", "drafted")
+    _STEP_ARGS = ("step", "decode_lanes", "prefill_lanes", "drafted",
+                  "rung")
+    _WAIT_ARGS = ("rid", "trace", "prompt_tokens")
+    _PREEMPT_ARGS = ("rid", "trace", "preemptions")
+    _SPEC_ARGS = ("rid", "trace", "drafted", "accepted", "emitted")
+
     def _record_step_telemetry(self, tel, plan, step_idx: int,
                                t_start: float, dt: float,
                                rung: int, occupancy: float) -> None:
@@ -1104,68 +1609,82 @@ class ServeEngine:
         slot track, queue-wait and requeue-wait async spans for this
         step's admissions, preemption instants, the pool-occupancy and
         rung counters, and the drift sample where the step can be
-        priced. Called AFTER the dispatch returned (a step a fault
-        killed is never half-recorded), outside any captured region and
-        reading no device value, and handed to the bus in ONE
-        :meth:`Telemetry.emit`."""
-        t_end = t_start + dt
-        dur = max(0.0, dt)
+        priced (at the mean decode context before emission, as in JAX,
+        summed in the chunk loop). Called AFTER the dispatch
+        returned (a step a fault killed is never half-recorded),
+        outside any captured region and reading no device value. Each
+        event is one flat packed tuple (absolute stamp, args as a key
+        tuple and values) handed to the bus in ONE
+        :meth:`Telemetry.emit_packed`: the args dicts and the trace
+        clock's stamps are built when the ring is read or exported."""
+        P = PACKED
+        dur = dt if dt > 0.0 else 0.0
         now = time.perf_counter()
-        evs = []
+        qt, et = self._QUEUE_TRACK, self._ENGINE_TRACK
+        recs = []
         for req in plan.admitted:
             if req._t_requeue is not None:
                 # re-admission after preemption: preempt -> readmit, with
                 # the preemption ordinal in the ident so each b/e pairs
                 ident = f"{req.rid}.{req.preemptions}"
-                evs.append(("b", self._QUEUE_TRACK, "requeue_wait",
-                            req._t_requeue, 0.0, ident,
-                            {"rid": req.rid, "trace": req.trace_id,
-                             "preemptions": req.preemptions}))
-                evs.append(("e", self._QUEUE_TRACK, "requeue_wait",
-                            now, 0.0, ident, None))
+                recs.append((P, "b", qt, "requeue_wait", req._t_requeue,
+                             0.0, ident, self._PREEMPT_ARGS, req.rid,
+                             req.trace_id, req.preemptions))
+                recs.append((P, "e", qt, "requeue_wait", now, 0.0, ident,
+                             None))
                 req._t_requeue = None
             elif not req.t_admit:
                 req.t_admit = now
-                evs.append(("b", self._QUEUE_TRACK, "queue_wait",
-                            req.t_submit, 0.0, req.rid,
-                            {"rid": req.rid, "trace": req.trace_id,
-                             "prompt_tokens": len(req.prompt)}))
-                evs.append(("e", self._QUEUE_TRACK, "queue_wait",
-                            req.t_admit, 0.0, req.rid, None))
+                recs.append((P, "b", qt, "queue_wait", req.t_submit, 0.0,
+                             req.rid, self._WAIT_ARGS, req.rid,
+                             req.trace_id, len(req.prompt)))
+                recs.append((P, "e", qt, "queue_wait", now, 0.0, req.rid,
+                             None))
         for victim in plan.preempted:
             victim._t_requeue = now
-            evs.append(("i", self._ENGINE_TRACK, "preempt", now, 0.0,
-                        None, {"rid": victim.rid,
-                               "trace": victim.trace_id,
-                               "preemptions": victim.preemptions}))
-        drafted = 0
+            recs.append((P, "i", et, "preempt", now, 0.0, None,
+                         self._PREEMPT_ARGS, victim.rid, victim.trace_id,
+                         victim.preemptions))
+        tracks = self._slot_tracks
+        ck = self._CHUNK_ARGS
+        drafted = n_dec = n_pre = ctx_dec = ctx_end = 0
         for ch in plan.chunks:
             req = ch.req
             nd = len(ch.draft_tokens)
-            name = ("spec_decode" if nd
-                    else "decode" if ch.is_decode else "prefill")
+            if nd:
+                name = "spec_decode"
+            elif ch.is_decode:
+                name = "decode"
+            else:
+                name = "prefill"
+            if ch.is_decode:
+                n_dec += 1
+                ctx_dec += len(req.prompt) + len(req.out_tokens)
+            else:
+                n_pre += ch.end - ch.start
+            ctx_end += ch.end
             drafted += nd
-            evs.append(("X", self._slot_track(req.slot), name, t_start,
-                        dur, None, {"rid": req.rid, "trace": req.trace_id,
-                                    "start": ch.start, "end": ch.end,
-                                    "drafted": nd}))
-        n_dec = plan.num_decode_lanes
-        n_pre = plan.num_prefill_lanes
-        evs.append(("X", self._ENGINE_TRACK, "step", t_start, dur,
-                    None, {"step": step_idx, "decode_lanes": n_dec,
-                           "prefill_lanes": n_pre, "drafted": drafted,
-                           "rung": rung}))
-        evs.append(("C", self._ENGINE_TRACK, "pool_occupancy", t_end,
-                    occupancy, None, None))
-        evs.append(("C", self._ENGINE_TRACK, "rung", t_end,
-                    float(rung), None, None))
-        tel.emit(evs)
+            slot = req.slot
+            track = tracks[slot] if slot < len(tracks) \
+                else self._slot_track(slot)
+            recs.append((P, "X", track, name, t_start, dur, None, ck,
+                         req.rid, req.trace_id, ch.start, ch.end, nd))
+        t_end = t_start + dt
+        recs.append((P, "X", et, "step", t_start, dur, None,
+                     self._STEP_ARGS, step_idx, n_dec, n_pre, drafted,
+                     rung))
+        recs.append((P, "C", et, "pool_occupancy", t_end, occupancy, None,
+                     None))
+        recs.append((P, "C", et, "rung", t_end, float(rung), None, None))
+        tel.emit_packed(recs)
         if plan.chunks and self.chunked_prefill:
-            pred = self._drift_predicted(plan)
+            ctx_b = pow2_bucket(int(ctx_dec / n_dec) if n_dec else
+                                int(ctx_end / len(plan.chunks)))
+            pred = self._drift_predicted(ctx_b)
             if pred is not None:
                 tel.record_drift(
                     "serve", self._drift_regime(
-                        n_dec, pow2_bucket(n_pre), self._ctx_bucket(plan)),
+                        n_dec, pow2_bucket(n_pre), ctx_b),
                     pred[0], dt, breakdown=pred[1])
 
     # ---------------- per-request latency attribution ------------------
@@ -1193,7 +1712,10 @@ class ServeEngine:
         out = self.telemetry.explain_request(
             req.trace_id, req.t_submit, req.t_finish)
         out.update(rid=req.rid, outcome=req.outcome,
-                   tokens=len(req.out_tokens), host_reload=None)
+                   tokens=len(req.out_tokens),
+                   # the admission-time spill-vs-recompute decision
+                   # (None when the host tier never matched it)
+                   host_reload=req.host_reload)
         return out
 
     def fold_attribution(self, registry=None) -> dict:
@@ -1264,7 +1786,9 @@ class ServeEngine:
                 ("scheduler", (sched.debug_state if sched is not None
                                else lambda: None)),
                 ("kv_pool", self.cache.debug_state),
-                ("adapter_pool", lambda: None),
+                ("adapter_pool", lambda: (
+                    self.adapters.debug_state()
+                    if self.adapters is not None else None)),
                 ("faults", lambda: {
                     "fired": {s: dict(k) for s, k in
                               self.faults.fired.items()},
@@ -1398,17 +1922,34 @@ class ServeEngine:
             "kv_pool": {**cache.pool_report(), "occupancy": peak_util,
                         "kv_exact": self.kv_exact,
                         "attn_block_kv": self.attn_block_kv},
+            # the host tier (None unarmed): the store's occupancy and
+            # counters plus THIS engine's reload accounting
+            "host_tier": (
+                {**self.host_tier.report(),
+                 **{k: (float(v) if isinstance(v, float) else int(v))
+                    for k, v in self._host_reload_stats.items()}}
+                if self.host_tier is not None else None),
+            # the adapter pool (None unarmed): slot geometry, residency
+            # and the hit/evict/load/stall counters
+            "adapter_pool": (
+                {**self.adapters.pool_report(),
+                 **{k: int(v) for k, v in self.adapters.stats.items()},
+                 "blocked_steps": sched.stats["adapter_blocked_steps"]}
+                if self.adapters is not None else None),
         }
 
 
 class StepEvents:
-    """What one :meth:`ServeSession.step` did: ``emitted`` is
-    [(request, tokens emitted this step)], ``finished`` the requests
-    that completed THIS step, ``dispatched`` False for a planning-only
-    iteration."""
+    """What one :meth:`ServeSession.step` did — the replica pool's view
+    of a replica's progress: ``emitted`` is [(request, tokens emitted
+    this step)], ``finished`` the requests that completed THIS step,
+    ``ctx_mean`` the mean decode-context length (the pricing regime of
+    the virtual clock), ``host_reload_s`` the priced host-tier copy
+    seconds this step's admissions spent, ``dispatched`` False for a
+    planning-only iteration."""
 
     __slots__ = ("dispatched", "step_index", "plan", "emitted",
-                 "finished", "wall_s")
+                 "finished", "ctx_mean", "wall_s", "host_reload_s")
 
     def __init__(self, plan=None):
         self.dispatched = False
@@ -1416,7 +1957,9 @@ class StepEvents:
         self.plan = plan
         self.emitted: List[Tuple[Request, int]] = []
         self.finished: List[Request] = []
+        self.ctx_mean = 0
         self.wall_s = 0.0
+        self.host_reload_s = 0.0
 
 
 class ServeSession:
@@ -1451,7 +1994,10 @@ class ServeSession:
             admit_watermark=engine.admit_watermark,
             spec_tokens=engine.spec_tokens, faults=engine.faults,
             degrade_ladder=engine.degrade_ladder,
-            reject_stalls=engine.reject_stalls)
+            reject_stalls=engine.reject_stalls,
+            adapter_pool=engine.adapters,
+            host_reload=(engine._host_reload
+                         if engine.host_tier is not None else None))
         self.reqs: List[Request] = []
         self._on_finish: Dict[int, object] = {}
         self.decode_times: List[float] = []
@@ -1460,6 +2006,7 @@ class ServeSession:
         self.util: List[float] = []
         self._retries0 = engine._retries
         self._rejected_seen = 0   # the flight recorder's rejection trigger
+        self._spec_recs: List[tuple] = []   # a step's spec_verify events
         self._t0 = time.perf_counter()
         engine._device_pages()
         engine._session = self
@@ -1471,19 +2018,21 @@ class ServeSession:
                deadline_s: Optional[float] = None,
                stream_id: Optional[int] = None,
                stream_offset: int = 0, on_finish=None,
-               trace_id: Optional[int] = None) -> Request:
+               trace_id: Optional[int] = None,
+               tenant_id: int = 0) -> Request:
         """Queue one request (admission happens at the next step()).
         `sample` is a ready SampleParams (None = greedy); `deadline_s`
         (the engine's default deadline when None) bounds its wall time
         from now; `stream_id`/`stream_offset` key its sampling stream;
         `trace_id` carries an upstream trace context (None mints one);
         `on_finish(req)` fires when it completes, before its slot
-        releases."""
+        releases; `tenant_id` selects the tenant's registered LoRA
+        adapter (0 = the base model)."""
         r = self.sched.submit(prompt, int(max_new_tokens),
                               eos_token=eos_token, sample=sample,
                               stream_id=stream_id,
                               stream_offset=stream_offset,
-                              trace_id=trace_id)
+                              trace_id=trace_id, tenant_id=tenant_id)
         r.t_submit = time.perf_counter()
         if deadline_s is None and self.eng.default_deadline > 0:
             deadline_s = self.eng.default_deadline
@@ -1494,6 +2043,9 @@ class ServeSession:
         self.reqs.append(r)
         self.eng._active[r.rid] = r
         return r
+
+    def has_work(self) -> bool:
+        return self.sched.has_work()
 
     # ---------------- emission -----------------------------------------
     def _finish(self, ev: StepEvents, req: Request) -> None:
@@ -1544,11 +2096,12 @@ class ServeSession:
                 break
         self.sched.complete_spec_chunk(chunk, matched)
         if eng.telemetry.enabled:
-            eng.telemetry.instant(
-                eng._slot_track(req.slot), "spec_verify",
-                args={"rid": req.rid, "trace": req.trace_id,
-                      "drafted": k, "accepted": matched,
-                      "emitted": emitted})
+            # packed, and handed to the bus with the step's other
+            # verifications in one emit_packed
+            self._spec_recs.append((
+                PACKED, "i", eng._slot_track(req.slot), "spec_verify",
+                time.perf_counter(), 0.0, None, eng._SPEC_ARGS, req.rid,
+                req.trace_id, k, matched, emitted))
         ev.emitted.append((req, emitted))
         if req.is_done():
             self._finish(ev, req)
@@ -1570,6 +2123,9 @@ class ServeSession:
             return None
         plan = sched.schedule()
         ev = StepEvents(plan)
+        # claim the priced host-tier copy this plan's admissions spent
+        # (carried even on planning-only iterations)
+        ev.host_reload_s, eng._host_reload_s = eng._host_reload_s, 0.0
         if sched.stats["rejected"] > self._rejected_seen:
             # a rung-4 rejection: one bundle per rate-limit window
             self._rejected_seen = sched.stats["rejected"]
@@ -1586,12 +2142,16 @@ class ServeSession:
         write_offs = np.zeros((t_w,), np.int32)
         lane_slots = np.zeros((t_w,), np.int32)
         lane_lens = np.ones((t_w,), np.int32)      # NaN-free padding
+        # inactive lanes gather adapter slot 0 (the zero base slab)
+        lane_adapters = np.zeros((t_w,), np.int32) \
+            if eng.adapters is not None else None
         lane = 0
         emitters: List[Tuple[ChunkPlan, int]] = []
         spec_emitters: List[Tuple[ChunkPlan, int]] = []
         for ch in plan.chunks:
             ctx = ch.req.context
             row = cache.page_tables[ch.req.slot]
+            lane0 = lane
             for pos in range(ch.start, ch.end):
                 tokens[lane] = ctx[pos]
                 positions[lane] = pos
@@ -1613,12 +2173,20 @@ class ServeSession:
                     lane += 1
             elif ch.emits:
                 emitters.append((ch, lane - 1))
+            if lane_adapters is not None:
+                lane_adapters[lane0:lane] = ch.req.adapter_slot or 0
         assert lane <= t_w, (
             f"scheduler packed {lane} lanes into a {t_w}-lane step")
+        # land the adapters this plan admitted BEFORE their lanes
+        # dispatch, and ship queued evictions to the host tier before
+        # the step overwrites their pages
+        eng._drain_adapter_loads()
+        eng._drain_spills()
         tp = time.perf_counter()
-        greedy, topv, topi = eng._dispatch(
-            "mixed", tokens, positions, write_pages, write_offs,
-            cache.page_tables, lane_slots, lane_lens)
+        greedy, topv, topi = eng._dispatch_mixed(
+            tokens, positions, write_pages, write_offs,
+            cache.page_tables, lane_slots, lane_lens,
+            lane_adapters=lane_adapters)
         dt = time.perf_counter() - tp
         self.util.append(1.0 - cache.free_pages / c.usable_pages)
         if eng.telemetry.enabled:
@@ -1642,6 +2210,9 @@ class ServeSession:
         for ch, ln in spec_emitters:
             dec_tokens += self._emit_spec(ev, ch, ln, greedy, topv,
                                           topi)
+        if self._spec_recs:
+            eng.telemetry.emit_packed(self._spec_recs)
+            self._spec_recs = []
         if plan.num_decode_lanes:
             self.decode_times.append(dt)
             # width = tokens this step's decode chunks EMITTED
@@ -1652,6 +2223,12 @@ class ServeSession:
         ev.dispatched = True
         ev.step_index = len(self.util) - 1
         ev.wall_s = dt
+        # the mean decode context after this step's emission (chunk
+        # ends when nothing decodes): the virtual clock's price regime
+        ctxs = [len(ch.req.prompt) + len(ch.req.out_tokens)
+                for ch in plan.chunks if ch.is_decode] \
+            or [ch.end for ch in plan.chunks]
+        ev.ctx_mean = int(sum(ctxs) / len(ctxs))
         return ev
 
     # ---------------- stats / lifecycle --------------------------------

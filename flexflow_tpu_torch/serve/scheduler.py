@@ -1,9 +1,9 @@
 """Continuous-batching scheduler with chunked prefill and preemption.
 
 A copy of ``flexflow_tpu/serve/scheduler.py`` (pure host bookkeeping),
-kept in the port so it never imports the JAX package. The port serves
-the base model only, so ``adapter_pool`` is always None here, and the
-host-tier hook ``host_reload`` stays unarmed.
+kept in the port so it never imports the JAX package; the engine arms
+``adapter_pool`` (LoRA tenants) and ``host_reload`` (the host tier) as
+the JAX engine does.
 
 Policy (the "continuous batching" of Orca / vLLM plus Sarathi-style
 chunked prefill, re-cut for TPU static shapes — see docs/serving.md):
@@ -55,7 +55,7 @@ from typing import Deque, Dict, List, Optional, Sequence
 
 from ..utils.faults import FaultInjector
 from ..utils.telemetry import next_trace_id
-from .adapters import tenant_prefix_salt
+from .adapters import AdapterPool, tenant_prefix_salt
 from .kv_cache import PagedKVCache, prefix_page_keys
 from .speculative import DraftControl, Drafter, PromptLookupDrafter
 
@@ -282,7 +282,7 @@ class ContinuousBatchingScheduler:
                  faults: Optional[FaultInjector] = None,
                  degrade_ladder: bool = True,
                  reject_stalls: int = 0,
-                 adapter_pool=None,
+                 adapter_pool: Optional[AdapterPool] = None,
                  host_reload=None):
         self.cache = cache
         # hierarchical host tier (serve/host_tier.py): the engine's

@@ -36,7 +36,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 __all__ = [
     "MetricsRegistry", "MetricsServer", "Telemetry", "telemetry_for",
@@ -56,6 +56,10 @@ __all__ = [
 # the same `trace` arg no matter which replica/role recorded it.
 # ---------------------------------------------------------------------------
 _TRACE_IDS = itertools.count(1)
+
+
+# first element of a packed ring record (Telemetry.emit_packed)
+PACKED = "packed"
 
 
 def next_trace_id() -> int:
@@ -417,7 +421,10 @@ class Telemetry:
         self.enabled = bool(enabled)
         self.max_events = int(max_events)
         self.drift_threshold = float(drift_threshold)
-        self.events: deque = deque(maxlen=self.max_events)
+        # the ring: JAX's (ph, track, name, ts, dur, ident, args)
+        # tuples, or the engine's packed step records (emit_packed),
+        # materialized into the same tuples when read (`events`)
+        self._ring: deque = deque(maxlen=self.max_events)
         # ONE lock serializes every mutation on this bus — metric
         # read-modify-writes, ring eviction accounting, drift-stat
         # accumulation — so replica worker threads (serve/router.py
@@ -432,6 +439,29 @@ class Telemetry:
         # recorder take trace-absolute seconds, which is how the
         # simulated-schedule exporters emit exact simulator times.
         self._t0 = time.perf_counter() if t0 is None else float(t0)
+
+    # ---------------- the ring ----------------------------------------
+    @property
+    def events(self) -> List[tuple]:
+        """The buffered events, oldest first, as JAX's ``(ph, track,
+        name, ts, dur, ident, args)`` tuples (ts on the trace clock)."""
+        with self._lock:
+            return self._materialize()
+
+    def _materialize(self) -> List[tuple]:
+        """The ring as event tuples (caller holds the lock): packed
+        records get their trace-relative stamp and their args dict
+        here, at export, never on the recording path."""
+        t0 = self._t0
+        out = []
+        for r in self._ring:
+            if r[0] is PACKED:
+                keys = r[7]
+                out.append((r[1], r[2], r[3], r[4] - t0, r[5], r[6],
+                            dict(zip(keys, r[8:])) if keys else None))
+            else:
+                out.append(r)
+        return out
 
     # ---------------- clock -------------------------------------------
     def now(self) -> float:
@@ -449,9 +479,9 @@ class Telemetry:
         if not self.enabled:
             return
         with self._lock:
-            if len(self.events) == self.max_events:
+            if len(self._ring) == self.max_events:
                 self.dropped_events += 1
-            self.events.append(("X", track, name, self._rel(t_start),
+            self._ring.append(("X", track, name, self._rel(t_start),
                                 max(0.0, t_end - t_start), None, args))
 
     def instant(self, track: Tuple[str, str], name: str,
@@ -460,9 +490,9 @@ class Telemetry:
         if not self.enabled:
             return
         with self._lock:
-            if len(self.events) == self.max_events:
+            if len(self._ring) == self.max_events:
                 self.dropped_events += 1
-            self.events.append(
+            self._ring.append(
                 ("i", track, name,
                  self.now() if t is None else self._rel(t),
                  0.0, None, args))
@@ -476,14 +506,14 @@ class Telemetry:
         if not self.enabled:
             return
         with self._lock:
-            n = len(self.events)
+            n = len(self._ring)
             if n >= self.max_events:        # both appends evict
                 self.dropped_events += 2
             elif n == self.max_events - 1:  # the second append evicts
                 self.dropped_events += 1
-            self.events.append(("b", track, name, self._rel(t_start),
+            self._ring.append(("b", track, name, self._rel(t_start),
                                 0.0, ident, args))
-            self.events.append(("e", track, name, self._rel(t_end),
+            self._ring.append(("e", track, name, self._rel(t_end),
                                 0.0, ident, None))
 
     def counter(self, track: Tuple[str, str], name: str, value: float,
@@ -493,9 +523,9 @@ class Telemetry:
         if not self.enabled:
             return
         with self._lock:
-            if len(self.events) == self.max_events:
+            if len(self._ring) == self.max_events:
                 self.dropped_events += 1
-            self.events.append(
+            self._ring.append(
                 ("C", track, name,
                  self.now() if t is None else self._rel(t),
                  float(value), None, None))
@@ -516,10 +546,26 @@ class Telemetry:
         evs = [(ph, tr, nm, ts - t0, d, i, a)
                for ph, tr, nm, ts, d, i, a in events]
         with self._lock:
-            over = len(self.events) + len(evs) - self.max_events
+            over = len(self._ring) + len(evs) - self.max_events
             if over > 0:
                 self.dropped_events += over
-            self.events.extend(evs)
+            self._ring.extend(evs)
+
+    def emit_packed(self, records: Sequence[tuple]) -> None:
+        """Bulk append of packed records — the serving engine's per-step
+        hot path: each is ``(PACKED, ph, track, name, t_abs, dur_or_value,
+        ident, keys, *values)`` with an ABSOLUTE perf_counter stamp and
+        its args as a key tuple (a module constant of the caller, or
+        None) and the values, flat. Nothing is rebased and no dict is
+        built here; readers see the event tuple :meth:`emit` would have
+        stored. Eviction accounting as :meth:`emit`."""
+        if not self.enabled:
+            return
+        with self._lock:
+            over = len(self._ring) + len(records) - self.max_events
+            if over > 0:
+                self.dropped_events += over
+            self._ring.extend(records)
 
     @contextlib.contextmanager
     def timed(self, track: Tuple[str, str], name: str,
@@ -739,7 +785,7 @@ class Telemetry:
         out: List[tuple] = []
         open_idents = set()
         with self._lock:
-            evs = list(self.events)
+            evs = self._materialize()
         for ev in evs:
             ph, _track, name, _ts, _dur, ident, args = ev
             if args is not None and args.get("trace") == trace_id:
@@ -758,7 +804,7 @@ class Telemetry:
         Request's RAW perf_counter stamps — rebased to the trace clock
         here, so the caller never touches the clock epoch."""
         with self._lock:
-            evs = list(self.events)
+            evs = self._materialize()
         return attribute_request(
             evs, trace_id,
             t_submit=self._rel(t_submit), t_finish=self._rel(t_finish))
@@ -768,7 +814,7 @@ class Telemetry:
         thread], name, ts, dur, ident, args]`) — the flight recorder's
         bounded span payload."""
         with self._lock:
-            evs = list(self.events)
+            evs = self._materialize()
         if n >= 0:
             evs = evs[-n:] if n else []
         return [[ph, list(track), name, ts, dur, ident, args]
@@ -805,7 +851,7 @@ class Telemetry:
         tids: Dict[Tuple[str, str], int] = {}
         out: List[dict] = []
         with self._lock:
-            evs = list(self.events)
+            evs = self._materialize()
         for ph, track, name, ts, dur, ident, args in evs:
             proc, thread = track
             pid = pids.setdefault(proc, len(pids) + 1)
@@ -845,7 +891,7 @@ class Telemetry:
             "metrics": self.metrics.snapshot(),
             "drift": self.drift_snapshot(),
             "task_drift": self.task_drift_snapshot(),
-            "events_buffered": len(self.events),
+            "events_buffered": len(self._ring),
             "events_dropped": self.dropped_events,
         }
 
@@ -854,7 +900,7 @@ class Telemetry:
 
     def clear(self) -> None:
         with self._lock:
-            self.events.clear()
+            self._ring.clear()
             self.dropped_events = 0
 
 

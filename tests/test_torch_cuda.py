@@ -1121,8 +1121,9 @@ def test_captured_mixed_step_equals_eager_bitwise(card, kv_dtype):
     lm = _small_lm(cfg)
     cap = ServeEngine(lm, cfg)
     eager = ServeEngine(lm, cfg, capture=False)
-    assert cap.warmup() == eager.warmup() == {"prefill": 0, "decode": 0,
-                                              "mixed": 1}
+    assert cap.warmup() == eager.warmup() == {
+        "prefill": 0, "decode": 0, "mixed": 1, "adapter": 0, "export": 0,
+        "import": 0}
     rng = np.random.default_rng(7)
     pr.launches = 0
     for n in (5, 17, 30, 9):
@@ -1150,7 +1151,8 @@ def test_captured_legacy_steps_equal_eager_bitwise(card):
     cap, eager = ServeEngine(lm, cfg), ServeEngine(lm, cfg, capture=False)
     counts = cap.warmup()
     assert counts == eager.warmup() == {
-        "prefill": len(cap.buckets), "decode": 1, "mixed": 0}
+        "prefill": len(cap.buckets), "decode": 1, "mixed": 0,
+        "adapter": 0, "export": 0, "import": 0}
     prompts = _prompts()
     fa.launches["paged_decode"] = 0
     out = cap.generate(prompts, 8)
@@ -1849,3 +1851,72 @@ def test_dense_update_on_card_equals_cpu(card, opt):
         res[dev] = [x.cpu() for x in (t["w"], t["a"], t["b"])]
     for a, b in zip(res["cpu"], res["cuda"]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16", "int8",
+                                      "float8_e4m3"])
+def test_export_import_bytes_on_card(card, kv_dtype):
+    """Page export and import on every page type on the card: a
+    prompt's pages leave one engine and enter another in place (the
+    pool tensors do not move), the importer serves the prompt from
+    them with the exporter's tokens, and its own export is the same
+    bytes."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.serve import ServeEngine
+    cfg = FFConfig(kv_page_size=8, kv_num_pages=73, serve_max_seqs=8,
+                   serve_prefill_budget=48, kv_dtype=kv_dtype)
+    lm = _small_lm(cfg)
+    src, dst = ServeEngine(lm, cfg), ServeEngine(lm, cfg)
+    src.warmup()
+    dst.warmup()
+    before = dst._k_pages.data_ptr()
+    prompt = _prompts()[2]
+    ships = []
+    out = src.generate([prompt], 6, on_finish=lambda r: ships.append(
+        src.export_kv(r.slot, r.context)))
+    ship = ships[0]
+    assert dst.import_kv(ship) == ship.num_pages
+    assert dst._k_pages.data_ptr() == before
+    again = []
+    assert dst.generate([prompt], 6, on_finish=lambda r: again.append(
+        dst.export_kv(r.slot, r.context))) == out
+    assert dst.last_stats["prefix_hit_tokens"] > 0
+    for name in ("k_rows", "v_rows", "k_scale_rows", "v_scale_rows"):
+        a, b = getattr(ship, name), getattr(again[0], name)
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+    assert dst.compile_counts()["import"] == 1
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_captured_adapted_step_equals_eager(card, kv_dtype):
+    """The mixed step with per-lane adapters, captured, against the
+    same engine eagerly: tenants 0-3 (one rank-padded) in one batch,
+    token for token, the loads landing in place in the slabs a captured
+    graph reads, no capture after warmup."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.serve import ServeEngine
+    from flexflow_tpu_torch.serve.adapters import make_tenant_adapters
+    cfg = FFConfig(kv_page_size=8, kv_num_pages=73, serve_max_seqs=8,
+                   serve_prefill_budget=48, kv_dtype=kv_dtype,
+                   adapter_rank=8)
+    lm = _small_lm(cfg)
+    shape = dict(num_layers=2, hidden=128, num_heads=4, head_dim=32,
+                 ff_dim=256)
+    ads = dict(make_tenant_adapters(rank=8, tenants=2, seed=5, **shape))
+    ads[3] = make_tenant_adapters(rank=4, tenants=1, seed=6, **shape)[1]
+    outs, engines = [], []
+    for capture in (True, False):
+        eng = ServeEngine(lm, cfg, capture=capture)
+        counts = eng.warmup()
+        slabs = {k: t.data_ptr() for k, t in eng._adapter_slabs.items()}
+        for t, (w, sc) in ads.items():
+            eng.register_adapter(t, w, scale=sc)
+        outs.append(eng.generate(_prompts(), 6, tenant_ids=[1, 0, 3, 2]))
+        assert eng.compile_counts() == counts
+        assert {k: t.data_ptr() for k, t in
+                eng._adapter_slabs.items()} == slabs
+        engines.append(eng)
+    assert outs[0] == outs[1]
+    assert engines[0].last_stats["adapter_pool"]["loads"] == 3

@@ -221,7 +221,8 @@ def test_serve_engine_bf16_exactness():
     eng = TorchEngine(pff, device="cpu")
     assert eng.act_dtype == torch.bfloat16
     c0 = eng.warmup()
-    assert c0 == {"prefill": 0, "decode": 0, "mixed": 1}
+    assert c0 == {"prefill": 0, "decode": 0, "mixed": 1, "adapter": 0,
+                  "export": 0, "import": 0}
     rng = np.random.RandomState(0)
     prompts = [list(rng.randint(1, 32, n)) for n in (4, 9)]
     out = eng.generate(prompts, max_new_tokens=6)

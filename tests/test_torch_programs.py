@@ -4,10 +4,10 @@ eagerly; the serving engine's and the executor's counts equal the JAX
 engine's and executor's on the same geometry, mixed and legacy alike,
 after warmup() and after generate().
 
-The JAX engine also registers the families ``adapter``, ``export`` and
-``import`` (LoRA adapters and the host tier), which the port does not
-serve: they must read 0 there, and every family the port has must read
-what the JAX one reads.
+Both engines register the same six families: the serving steps and
+``adapter``, ``export`` and ``import`` (LoRA adapters and the host
+tier, 0 on these unarmed engines); every family must read what the JAX
+one reads.
 """
 
 from functools import partial
@@ -106,12 +106,11 @@ def test_recorded_launches_count_at_every_replay():
 
 # -------------------------------------------------------------- engines
 def _jax_counts(counts):
-    """The JAX engine's counts on the families the port serves; the
-    others must be 0."""
-    extra = {k: v for k, v in counts.items()
-             if k not in ("prefill", "decode", "mixed")}
-    assert extra == dict.fromkeys(("adapter", "export", "import"), 0)
-    return {k: counts[k] for k in ("prefill", "decode", "mixed")}
+    """The JAX engine's counts, family by family (the adapter and
+    handoff families must be 0 on these unarmed engines)."""
+    assert {k: counts[k] for k in ("adapter", "export", "import")} == \
+        dict.fromkeys(("adapter", "export", "import"), 0)
+    return dict(counts)
 
 
 @pytest.mark.parametrize("chunked", [True, False],
@@ -128,9 +127,11 @@ def test_engine_counts_equal_jax(chunked):
     assert teng.compile_counts() == _jax_counts(jeng.compile_counts())
     warm = teng.warmup()
     assert warm == teng.compile_counts() == _jax_counts(jeng.warmup())
-    assert warm == ({"prefill": 0, "decode": 0, "mixed": 1} if chunked
+    handoff = {"adapter": 0, "export": 0, "import": 0}
+    assert warm == ({"prefill": 0, "decode": 0, "mixed": 1, **handoff}
+                    if chunked
                     else {"prefill": len(teng.buckets), "decode": 1,
-                          "mixed": 0})
+                          "mixed": 0, **handoff})
     rng = np.random.default_rng(1)
     prompts = [[int(x) for x in rng.integers(1, 89, n)]
                for n in (5, 20, 50)] + [[3, 4] * 9]

@@ -470,8 +470,8 @@ def test_postmortem_bundles_load_with_the_tool(lm, tmp_path):
 def test_generate_arguments_match_jax(clean):
     """on_finish fires before the slot releases, stream_ids key the
     sampled streams and trace_ids carry through, as in JAX; bad lengths
-    raise ValueError in both; tenant ids other than 0 need LoRA
-    adapters (the port raises NotImplementedError, JAX a ValueError)."""
+    raise ValueError in both; tenant ids other than 0 need an armed
+    adapter pool (a ValueError in both on this unarmed engine)."""
     jeng, teng = clean
     prompts = _prompts(np.random.RandomState(9), 3)
     seen = {"jax": [], "torch": []}
@@ -495,8 +495,9 @@ def test_generate_arguments_match_jax(clean):
                     dict(trace_ids=[1, 2])):
             with pytest.raises(ValueError, match="entries for"):
                 eng.generate(prompts, 2, **bad)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        teng.generate(prompts, 2, tenant_ids=[0, 1, 0])
+    for eng in (jeng, teng):
+        with pytest.raises(ValueError, match="adapter pool"):
+            eng.generate(prompts, 2, tenant_ids=[0, 1, 0])
     _assert_clean(teng)
 
 

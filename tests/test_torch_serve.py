@@ -208,14 +208,15 @@ def test_failed_step_fails_only_inflight_requests(lm):
 
 
 def test_unported_configurations_raise(lm):
-    """Tensor-parallel serving and LoRA adapters are not ported and
-    raise; int8/fp8 pages and the legacy path now serve."""
+    """Tensor-parallel serving and the disaggregated roles are not
+    ported and raise; int8/fp8 pages, the legacy path and LoRA
+    adapters now serve."""
     _, model = lm
-    for knob in (dict(serve_mesh="2"), dict(adapter_rank=4)):
+    for knob in (dict(serve_mesh="2"), dict(serve_disagg=True)):
         with pytest.raises(NotImplementedError, match=list(knob)[0]):
             TorchEngine(model, TorchConfig(**knob), device="cpu")
     for knob in (dict(kv_dtype="int8"), dict(kv_dtype="float8_e4m3"),
-                 dict(serve_chunked_prefill=False)):
+                 dict(serve_chunked_prefill=False), dict(adapter_rank=4)):
         TorchEngine(model, TorchConfig(**knob), device="cpu")
     if not torch.cuda.is_available():
         # the entry points default to the card and never fall back
