@@ -2390,6 +2390,292 @@ def tier_router(pr, card: str, lm):
     return res, launches
 
 
+# ------------------------------------------- disaggregated serving
+# the wall-clock router: SLOs in measured mixed-step walls of this run
+# (the f32 step of disagg (a)); arrivals paced so that TIER_RATE of
+# them land per measured step
+WALL_SLO_TTFT_STEPS = 40.0
+WALL_SLO_TPOT_STEPS = 4.0
+LEDGER_REL = 0.05          # memory_ledger's accounting vs live tensors
+
+
+def disagg_phase(pr, card: str, lm):
+    """Disaggregated serving, the wall-clock router and the serve cost
+    stack at the trained LM's full width. (a) ``measure.calibrate`` on
+    the card; the mixed f32 step (the trained LM) and a bf16 one (the
+    same architecture under compute_dtype bfloat16) predicted by
+    ``simulate_serve_step`` with the model's default factors and this
+    run's calibration, against the measured step wall and device ms. (b)
+    ``memory_ledger`` of the f32 engine after a generate: ledger_vs_live
+    within LEDGER_REL, total_bytes beside max_memory_allocated. (c) a
+    1:1 DisaggCluster on f32 and int8 pages, in process and over TCP:
+    the 8 greedy prompts x 32 new tokens against the unified engine's
+    (exact, else the tie rule: PARITY_MARGIN on f32, the pool's margin
+    on int8), the handoff's pages, bytes and measured seconds against
+    host_transfer's price, the decode role's step against the unified
+    one's, kernel 1's launches per role (layers x steps) and no capture
+    after warmup. (d) two replicas on the wall clock, threaded and
+    round-robin, over tier_router's stream: every stream's tokens those
+    of the virtual run (else the tie rule), explain_request summing to
+    the measured latency, both goodputs and their ratio. (e)
+    ``optimize_serve_disagg``'s ratio table for this LM at 2 devices.
+    Kernel 1's launches of each main run are counted from 0 just before
+    it."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.search import measure
+    from flexflow_tpu_torch.search.machine_model import \
+        default_machine_model
+    from flexflow_tpu_torch.search.serve_place import optimize_serve_disagg
+    from flexflow_tpu_torch.search.simulator import simulate_serve_step
+    from flexflow_tpu_torch.serve import (DisaggCluster, ReplicaPool,
+                                          ServeEngine, TrafficSpec,
+                                          make_traffic, probe_serve_arch)
+    from flexflow_tpu_torch.utils.telemetry import Telemetry, pow2_bucket
+    t_phase = time.perf_counter()
+    res, launches = {}, {}
+    greedy, _ = serve_prompts(LM_ARCH["vocab_size"])
+    new = 32
+    ctx_b = pow2_bucket(int(sum(len(p) + new // 2 for p in greedy)
+                            / len(greedy)))
+
+    # (a) calibration, and the predicted mixed step against the measured
+    mm = default_machine_model()
+    default = default_machine_model()
+    cal = measure.calibrate(mm)
+    res["calibration"] = cal
+    log(f"disagg (a) calibration [{card}]: "
+        f"{json.dumps({k: round(v, 6) for k, v in cal.items()})} "
+        f"(fractions of the datasheet peaks; step_overhead_s seconds)")
+    lm16 = lm_model("bfloat16")
+    steps = {}
+    f32_eng = None
+    for name, model in (("f32", lm), ("bf16", lm16)):
+        eng = ServeEngine(model, FFConfig(), device="cuda")
+        eng.warmup()
+        torch.cuda.reset_peak_memory_stats()
+        out, busy = device_busy_s(lambda: eng.generate(greedy, new))
+        st = eng.last_stats
+        arch = eng.serve_arch(context=ctx_b)
+        pred = {k: 1e3 * simulate_serve_step(arch, 1, m,
+                                             lanes=eng.mixed_width)
+                for k, m in (("default", default),
+                             ("calibrated", mm))}
+        steps[name] = {
+            "steps": st["steps"], "context_bucket": ctx_b,
+            "lanes": eng.mixed_width,
+            "wall_ms": 1e3 * st["wall_s"] / st["steps"],
+            "device_ms": 1e3 * busy / st["steps"],
+            "predicted_ms": pred}
+        log(f"disagg (a) mixed {name} step [{card}]: {eng.mixed_width} "
+            f"lanes at context bucket {ctx_b}: predicted "
+            f"{pred['default']:.4f} ms (the model's defaults) / "
+            f"{pred['calibrated']:.4f} ms (this run's calibration); "
+            f"measured wall "
+            f"{steps[name]['wall_ms']:.4f} ms, device "
+            f"{steps[name]['device_ms']:.4f} ms a step over "
+            f"{st['steps']} steps")
+        if name == "f32":
+            f32_eng, f32_out = eng, out
+        else:
+            eng.close()
+    res["mixed_step"] = steps
+    del lm16
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the memory ledger after a generate
+    led = f32_eng.memory_ledger()
+    peak = torch.cuda.max_memory_allocated()
+    ratio = led["ledger_vs_live"]
+    if ratio is None or abs(ratio - 1.0) > LEDGER_REL:
+        raise AssertionError(f"memory_ledger: ledger_vs_live {ratio} "
+                             f"outside {LEDGER_REL}")
+    res["ledger"] = {k: led[k] for k in (
+        "params_bytes", "kv_pool_bytes", "activation_est_bytes",
+        "total_bytes", "live_bytes", "ledger_vs_live",
+        "sim_hbm_input_bytes")}
+    res["ledger"]["max_memory_allocated"] = peak
+    log(f"disagg (b) memory ledger [{card}]: params "
+        f"{led['params_bytes'] / 2**20:.2f} MiB, KV pool "
+        f"{led['kv_pool_bytes'] / 2**20:.2f} MiB, activation estimate "
+        f"{led['activation_est_bytes'] / 2**20:.2f} MiB, total "
+        f"{led['total_bytes'] / 2**20:.2f} MiB; live tensors "
+        f"{led['live_bytes'] / 2**20:.2f} MiB (ledger_vs_live "
+        f"{ratio:.4f}); max_memory_allocated over the generate "
+        f"{peak / 2**20:.2f} MiB (the trained model's optimizer state "
+        f"and the step's temporaries included)")
+    uni_dec_ms = 1e3 * float(np.mean(
+        f32_eng.last_stats["decode_step_times_s"] or [0.0]))
+    f32_eng.close()
+
+    # (c) the 1:1 cluster, in process and over TCP, f32 and int8 pages
+    clusters = {}
+    for kv in ("float32", "int8"):
+        uni = ServeEngine(lm, FFConfig(kv_dtype=kv), device="cuda")
+        uni.warmup()
+        ref = uni.generate(greedy, new)
+        uni_st = uni.last_stats
+        for transport in ("", "tcp"):
+            cfg = FFConfig(kv_dtype=kv, serve_transport=transport)
+            with DisaggCluster(lm, config=cfg, device="cuda") as cl:
+                counts = cl.warmup()
+                pr.launches = 0
+                out = cl.generate(greedy, new)
+                n_launch = pr.launches
+                st = cl.last_stats
+                if cl.compile_counts() != counts:
+                    raise AssertionError(
+                        f"disagg {kv} {transport or 'inproc'}: captures "
+                        f"{counts} -> {cl.compile_counts()}")
+                role_steps = {
+                    role: sum(x["steps"] for x in st["roles"][role])
+                    for role in ("prefill", "decode")}
+                want = cl.prefill[0].num_layers * sum(
+                    role_steps.values())
+                if n_launch != want or not n_launch:
+                    raise AssertionError(
+                        f"disagg {kv}: kernel 1 launches {n_launch} != "
+                        f"{want} (layers x role steps {role_steps})")
+                exact = sum(o == r for o, r in zip(out, ref))
+                margin = PARITY_MARGIN if kv == "float32" else \
+                    uni.kv_tie_margin
+                if exact < len(ref):
+                    uni.assert_token_parity(greedy, out, ref,
+                                            margin=margin)
+                hand = st["handoff"]
+                priced = mm.host_transfer(hand["handoff_bytes"])
+                dec = st["roles"]["decode"][0]
+                dec_ms = 1e3 * float(np.mean(
+                    dec["decode_step_times_s"] or [0.0]))
+                uni_ms = 1e3 * float(np.mean(
+                    uni_st["decode_step_times_s"] or [0.0]))
+                key = f"{kv}_{transport or 'inproc'}"
+                launches[f"disagg_{key}"] = n_launch
+                clusters[key] = {
+                    "exact": exact, "handoff": hand,
+                    "handoff_priced_s": priced,
+                    "decode_step_ms": dec_ms,
+                    "unified_decode_step_ms": uni_ms,
+                    "role_steps": role_steps,
+                    "decode_budget": cl.decode_budget,
+                    "wall_s": st["wall_s"],
+                    "unified_wall_s": uni_st["wall_s"],
+                    "captures": counts}
+                if transport:
+                    clusters[key]["frames"] = dict(cl._receiver.stats)
+                log(f"disagg (c) {key} [{card}]: {exact}/{len(ref)} "
+                    f"streams equal the unified engine's exactly (rest "
+                    f"within the tie rule <= {margin}); handoff "
+                    f"{hand['handoff_requests']} requests, "
+                    f"{hand['handoff_pages']} pages, "
+                    f"{hand['handoff_bytes'] / 2**20:.3f} MiB in "
+                    f"{1e3 * hand['handoff_seconds']:.3f} ms measured "
+                    f"(import side; "
+                    f"{hand['handoff_bytes'] / max(hand['handoff_seconds'], 1e-12) / 1e9:.2f}"
+                    f" GB/s) vs {1e3 * priced:.4f} ms priced by "
+                    f"host_transfer; decode-role step "
+                    f"{dec_ms:.4f} ms ({cl.decode_budget}-lane stub) vs "
+                    f"unified {uni_ms:.4f} ms; kernel 1 launches "
+                    f"{n_launch} = {cl.prefill[0].num_layers} layers x "
+                    f"{role_steps}; captures {counts} unchanged")
+        uni.close()
+    res["cluster"] = clusters
+
+    # (d) the router on the wall clock, threaded and round-robin
+    step_s = steps["f32"]["wall_ms"] / 1e3
+    ref_eng = ServeEngine(lm, FFConfig(), device="cuda")
+    ref_eng.warmup()
+    probe = ReplicaPool(lm, 2, config=FFConfig())
+    price = probe.price_probe(64)
+    traffic = make_traffic(TrafficSpec(rate_rps=TIER_RATE / price,
+                                       **TIER_TRAFFIC))
+    virt = probe.run(traffic)
+    probe.close()
+    slo = dict(slo_ttft_s=WALL_SLO_TTFT_STEPS * step_s,
+               slo_tpot_s=WALL_SLO_TPOT_STEPS * step_s)
+    wall = {}
+    for threaded in (True, False):
+        tel = Telemetry()
+        pool = ReplicaPool(lm, 2, config=FFConfig(), telemetry=tel)
+        pr.launches = 0
+        wres = pool.run(traffic, wall_clock=True, wall_threads=threaded,
+                        time_scale=step_s / price, dwell_s=0.0, **slo)
+        n_launch = pr.launches
+        pool.assert_zero_recompiles()
+        pool.check_drained()
+        vt = {r["stream_id"]: r["tokens"] for r in virt["requests"]}
+        pairs = [(t.prompt, rec["tokens"], vt[rec["stream_id"]])
+                 for t, rec in zip(traffic, wres["requests"])]
+        exact = sum(a == b for _, a, b in pairs)
+        if exact < len(pairs):
+            ref_eng.assert_token_parity([p for p, _, _ in pairs],
+                                        [a for _, a, _ in pairs],
+                                        [b for _, _, b in pairs],
+                                        margin=PARITY_MARGIN)
+        worst = 0.0
+        for rec in wres["requests"]:
+            b = pool.explain_request(rec["stream_id"])
+            worst = max(worst, abs(sum(b["components"].values())
+                                   - b["latency_s"])
+                        / max(b["latency_s"], 1e-12))
+        if worst > 0.01:
+            raise AssertionError(f"wall explain_request off by "
+                                 f"{worst:.4f} of the latency")
+        steps_by = sum(r["steps"] for r in wres["per_replica"])
+        if n_launch != ref_eng.num_layers * steps_by or not n_launch:
+            raise AssertionError(f"wall router: kernel 1 launches "
+                                 f"{n_launch} != layers x {steps_by}")
+        key = "threaded" if threaded else "round_robin"
+        launches[f"wall_{key}"] = n_launch
+        wall[key] = {k: wres[k] for k in (
+            "goodput_per_s", "makespan_s", "slo_attainment", "completed",
+            "tokens_total")}
+        wall[key].update(exact=exact, explain_worst_rel=worst,
+                         busy_wall_s=[r["busy_wall_s"]
+                                      for r in wres["per_replica"]])
+        log(f"disagg (d) wall router {key} [{card}]: {len(traffic)} "
+            f"requests over 2 replicas, arrivals at {TIER_RATE} per "
+            f"measured step ({1e3 * step_s:.3f} ms), SLO ttft "
+            f"{1e3 * slo['slo_ttft_s']:.2f} ms tpot "
+            f"{1e3 * slo['slo_tpot_s']:.2f} ms: goodput "
+            f"{wres['goodput_per_s']:.2f} req/s, attainment "
+            f"{wres['slo_attainment']:.3f}, makespan "
+            f"{wres['makespan_s']:.3f} s; {exact}/{len(pairs)} streams "
+            f"equal the virtual run's; explain_request within "
+            f"{worst:.2e} of the latency; kernel 1 launches {n_launch}")
+        pool.close()
+    wall["goodput_ratio"] = wall["threaded"]["goodput_per_s"] / max(
+        wall["round_robin"]["goodput_per_s"], 1e-12)
+    res["wall_router"] = wall
+    log(f"disagg (d) threaded / round-robin goodput [{card}]: "
+        f"{wall['goodput_ratio']:.3f}")
+    ref_eng.close()
+
+    # (e) the ratio search for this LM at 2 devices
+    arch = dataclasses.replace(probe_serve_arch(lm, FFConfig()),
+                               handoff_stub_lanes=32)
+    place = optimize_serve_disagg(arch, 2, mm=mm,
+                                  config=FFConfig(search_cost_cache=False))
+    res["ratio_search"] = {
+        "ratio": place.ratio, "ratio_table": place.ratio_table,
+        "decode_step_s": place.decode_step_s,
+        "prefill_step_s": place.prefill_step_s,
+        "transfer_s": place.transfer_s,
+        "unified_tpot_s": place.unified_tpot_s,
+        "tpot_reduction": place.tpot_reduction_vs_unified()}
+    log(f"disagg (e) ratio search at 2 devices [{card}, calibrated]: "
+        f"{place.ratio} (table {place.ratio_table}); decode step "
+        f"{1e3 * place.decode_step_s:.4f} ms vs unified TPOT "
+        f"{1e3 * place.unified_tpot_s:.4f} ms "
+        f"({place.tpot_reduction_vs_unified():.3f}x), transfer "
+        f"{1e3 * place.transfer_s:.4f} ms a request")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"disagg phase {res['phase_s']:.1f} s")
+    return res, launches
+
+
 LM_DROPOUT = 0.1
 FIT_STEPS = 8
 DROPOUT_SHAPES = ((LB, TS, 512), (3, 1001, 77))
@@ -3744,6 +4030,7 @@ def main() -> int:
     sres = serve_phase(pr, fa, card, lm)
     rres, rlaunches = robust_phase(pr, fa, card, lm)
     tierres, tlaunches = tier_phase(pr, card, lm)
+    disres, dlaunches = disagg_phase(pr, card, lm)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
@@ -3770,7 +4057,8 @@ def main() -> int:
         "replaces": "flexflow_tpu/kernels/paged_ragged_v2.py:245",
         "launches": sres["f32"][0]["paged_ragged_v2"],
         "robust_launches": rlaunches["robust_mixed"],
-        "tier_launches": tlaunches, **head(kres),
+        "tier_launches": tlaunches, "disagg_launches": dlaunches,
+        **head(kres),
         "bf16": kres["bf16"], "int8": kres["int8"], "fp8": kres["fp8"]}, {
         "name": "paged_decode", "route": "cuda", "source": decode_src,
         "replaces": "flexflow_tpu/kernels/flash_attention.py:390",
@@ -3894,6 +4182,7 @@ def main() -> int:
     log(json.dumps({"moe": moeres}))
     log(json.dumps({"robust": rres}))
     log(json.dumps({"tier": tierres}))
+    log(json.dumps({"disagg": disres}))
     log(json.dumps({"sweep": swres}))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

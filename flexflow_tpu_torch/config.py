@@ -11,8 +11,9 @@ policy of ``core/precision.py``, ``remat`` and
 ``moe_dispatch``, the robustness and observability knobs
 (``fault_spec``, the serving retry and deadline knobs, telemetry,
 ``trace_out``, the metrics endpoint, post-mortems, the SLO budget and
-``train_dispatch_depth``), and the serving tier's LoRA adapter, host
-tier and replica-pool knobs. A few knobs the port does not run yet
+``train_dispatch_depth``), the serving tier's LoRA adapter, host
+tier, replica-pool, wall-clock, disaggregation and transport knobs, and
+the search stack's machine file and cost cache. A few knobs the port does not run yet
 (search, pipelines, fusion) are here at their JAX defaults so that setting one reaches ``FFModel.compile``, which raises
 ``NotImplementedError`` instead of ignoring it. The rest of the JAX
 config has no counterpart yet.
@@ -114,10 +115,22 @@ class FFConfig:
     # kernels/paged_ragged_v2.py _tile_for). It changes no result
     serve_attn_block_kv: int = 0
 
-    # the tensor-parallel serve mesh, at its JAX default: ServeEngine
-    # raises NotImplementedError for any other value (ROADMAP module
-    # items 5 and 7: the 2-D mesh search and torch.distributed)
+    # the tensor-parallel serve mesh: "" one device, "N" that degree,
+    # "auto" the placement search's degree (search/serve_place.py). The
+    # port serves one device: a degree above 1 raises
+    # NotImplementedError (ROADMAP module item 7)
     serve_mesh: str = ""
+
+    # the search stack (search/): machine_model_file overrides fields
+    # of the card's MachineSpec from JSON (the JAX package's file
+    # format); the serve searches keep their step prices in a
+    # persistent cost cache (search_cost_cache; cost_cache_file None =
+    # costcache.json under the kernels' build directory) and trace
+    # their walks (search_trace)
+    machine_model_file: Optional[str] = None
+    search_cost_cache: bool = True
+    cost_cache_file: Optional[str] = None
+    search_trace: bool = True
 
     # multi-tenant LoRA adapters (serve/adapters.py): adapter_rank > 0
     # arms the device slab pool, one slot per resident tenant, gathered
@@ -140,10 +153,11 @@ class FFConfig:
     # virtual clock; slo_ttft_ms / slo_tpot_ms define goodput under SLO
     # (0 = that bound waived); serve_autoscale arms the autoscaler, up
     # to serve_autoscale_max replicas (0 = 2x serve_replicas).
-    # serve_replicas="auto" (the 2-D mesh search, ROADMAP module items
-    # 5 and 7), serve_wall_clock and serve_disagg (the wall-clock
-    # fabric and the disaggregated roles, module item 4's next slice)
-    # raise NotImplementedError where they would be served
+    # serve_replicas="auto" boots the (tensor, replicas) shape of the
+    # 2-D mesh search (a searched tensor degree above 1 raises,
+    # ROADMAP module item 7). serve_wall_clock runs the pool in real
+    # time, each replica on its own worker thread (not with the
+    # autoscaler, which replays on the virtual clock)
     serve_replicas: Union[int, str] = 1
     router_policy: str = "affinity"
     slo_ttft_ms: float = 0.0
@@ -151,7 +165,21 @@ class FFConfig:
     serve_autoscale: bool = False
     serve_autoscale_max: int = 0
     serve_wall_clock: bool = False
+
+    # disaggregated prefill/decode serving (serve/disagg.py):
+    # serve_disagg makes serve.engine_for build a DisaggCluster;
+    # serve_disagg_ratio is "P:D" engine counts ("" = 1:1, "auto" =
+    # the placement search's ratio table); serve_disagg_decode_budget
+    # is the decode role's prefill-lane stub (0 = two pages' worth).
+    # serve_transport "tcp" ships the page handoffs as socket frames
+    # (serve/transport.py; "" = in process) to a receiver bound at
+    # serve_transport_host:serve_transport_port (0 = ephemeral)
     serve_disagg: bool = False
+    serve_disagg_ratio: str = ""
+    serve_disagg_decode_budget: int = 0
+    serve_transport: str = ""
+    serve_transport_host: str = "127.0.0.1"
+    serve_transport_port: int = 0
 
     # graceful-degradation ladder (serve/scheduler.py)
     serve_degrade_ladder: bool = True
@@ -352,6 +380,42 @@ class FFConfig:
             raise ValueError(
                 f"serve_autoscale_max must be >= 0 (0 = 2x "
                 f"serve_replicas), got {self.serve_autoscale_max}")
+        sr = str(self.serve_disagg_ratio or "").strip()
+        if sr and sr != "auto":
+            parts = sr.split(":")
+            ok = len(parts) == 2
+            if ok:
+                try:
+                    ok = int(parts[0]) >= 1 and int(parts[1]) >= 1
+                except ValueError:
+                    ok = False
+            if not ok:
+                raise ValueError(
+                    f"serve_disagg_ratio must be '', 'auto', or "
+                    f"'P:D' with positive engine counts, got "
+                    f"{self.serve_disagg_ratio!r}")
+        if self.serve_disagg_decode_budget < 0:
+            raise ValueError(
+                f"serve_disagg_decode_budget must be >= 0 (0 = two "
+                f"pages' worth), got {self.serve_disagg_decode_budget}")
+        if str(self.serve_transport or "").strip() not in ("", "tcp"):
+            raise ValueError(
+                f"serve_transport must be '' (in-process) or 'tcp', "
+                f"got {self.serve_transport!r}")
+        if not 0 <= int(self.serve_transport_port) <= 65535:
+            raise ValueError(
+                f"serve_transport_port must be 0..65535 (0 = "
+                f"ephemeral), got {self.serve_transport_port}")
+        sm = str(self.serve_mesh or "").strip()
+        if sm and sm != "auto":
+            try:
+                ok = int(sm) >= 1
+            except ValueError:
+                ok = False
+            if not ok:
+                raise ValueError(
+                    f"serve_mesh must be '', 'auto', or a positive "
+                    f"tensor-parallel degree, got {self.serve_mesh!r}")
         if self.serve_wall_clock and self.serve_autoscale:
             raise ValueError(
                 "serve_wall_clock and serve_autoscale are mutually "

@@ -73,14 +73,20 @@ rows between the pool and host numpy in the JAX layout; the host tier
 and reloads a priced host hit through the import, which writes the
 live pool tensors in place.
 
-What the JAX engine also does and this one does not yet —
-tensor-parallel serving (``serve_mesh``) and the disaggregated roles
-(``serve_disagg``) raise ``NotImplementedError``; drift samples and the
-memory ledger need the search stack.
+Every step is priced by the port's serve cost stack (search/): the
+prediction is a drift sample beside the measured step, the price of a
+host-tier reload's recompute side, and the replica pool's virtual step.
+``memory_ledger`` accounts the engine's device bytes in the JAX
+schema. The disaggregated roles are engines of this class built by
+``serve/disagg.DisaggCluster``. What the JAX engine also does and this
+one does not yet: tensor-parallel serving (``serve_mesh`` resolving to
+a degree above 1 raises ``NotImplementedError``, ROADMAP module item
+7).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -104,11 +110,55 @@ from ..utils.telemetry import (PACKED, REQUEST_COMPONENTS, MetricsServer,
                                write_json_atomic)
 from ..weights import arch_from_model
 from .adapters import AdapterConfig, AdapterPool, tenant_prefix_salt
-from .disagg import PageShipment
 from .host_tier import HostPageStore
 from .kv_cache import KVCacheConfig, PagedKVCache
 from .scheduler import (ChunkPlan, ContinuousBatchingScheduler, Request,
                         RequestOutcome, RequestState, SampleParams)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype ("float32", "bfloat16", ...)."""
+    return str(dtype).replace("torch.", "")
+
+
+def _serve_arch(arch, cfg, acfg, context: int):
+    from ..search.cost_model import ServeArch
+    from .kv_cache import QUANTIZED_KV_DTYPES, kv_storage_dtype
+    kv_name = str(cfg.kv_dtype)
+    return ServeArch(
+        num_layers=arch.num_layers, hidden=arch.hidden,
+        num_heads=arch.num_heads, head_dim=arch.head_dim,
+        ff_dim=arch.ff_dim, vocab=arch.vocab,
+        decode_lanes=int(cfg.serve_max_seqs),
+        prefill_lanes=int(cfg.serve_prefill_budget),
+        context=int(context),
+        kv_dtype=kv_name,
+        kv_itemsize=float(kv_storage_dtype(kv_name).itemsize),
+        kv_scales=kv_name in QUANTIZED_KV_DTYPES,
+        act_itemsize=float(arch.dtype.itemsize),
+        act_dtype=_dtype_name(arch.dtype),
+        adapter_rank=acfg.rank if acfg is not None else 0,
+        adapter_slots=acfg.num_slots if acfg is not None else 0)
+
+
+def probe_serve_arch(model, config=None, context=None):
+    """The ServeArch a ServeEngine over ``model`` and ``config`` would
+    price, without building the engine — what ReplicaPool's
+    ``serve_replicas="auto"`` feeds the 2-D mesh search before any
+    replica exists: decode lanes = the slot reserve, prefill lanes =
+    the budget, steady-state context = 3/4 of the learned positions,
+    the adapter pool's geometry from the ``adapter_*`` knobs."""
+    cfg = config if config is not None else model.config
+    arch = arch_from_model(model)
+    acfg = None
+    if int(cfg.adapter_rank) > 0:
+        acfg = AdapterConfig.from_ff(
+            cfg, num_layers=arch.num_layers, hidden=arch.hidden,
+            num_heads=arch.num_heads, head_dim=arch.head_dim,
+            ff_dim=arch.ff_dim, act_itemsize=int(arch.dtype.itemsize))
+    return _serve_arch(arch, cfg, acfg,
+                       context if context is not None
+                       else max(1, arch.max_positions * 3 // 4))
 
 
 class ServeEngine:
@@ -146,6 +196,12 @@ class ServeEngine:
             raise ValueError(
                 f"model lives on {model.device}, engine asked for "
                 f"{self.device}")
+        # the engine's own CUDA stream: the wall-clock replica pool
+        # steps each replica on its worker thread under on_stream(), so
+        # replicas overlap on the card instead of serializing on the
+        # default stream (None on the CPU)
+        self.stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
         self.arch = arch = arch_from_model(model)
         if model.state is None:
             model.compile(comp_mode=CompMode.INFERENCE)
@@ -160,15 +216,15 @@ class ServeEngine:
         self.num_heads = arch.num_heads
         self.head_dim = arch.head_dim
         self.act_dtype = arch.dtype
-        if cfg.serve_mesh != "":
-            raise NotImplementedError(
-                f"serve_mesh={cfg.serve_mesh!r}: tensor-parallel serving "
-                f"is not ported (ROADMAP module items 5 and 7); the port "
-                f"serves one device")
-        if cfg.serve_disagg:
-            raise NotImplementedError(
-                "serve_disagg: the disaggregated prefill/decode roles "
-                "are not ported yet (ROADMAP module item 4)")
+        self.hidden = arch.hidden
+        self.ff_dim = arch.ff_dim
+        # steady-state context the placement search prices at: 3/4 of
+        # the serveable length (the JAX engine's max_seq_len default)
+        self._max_seq_len = self.max_positions
+        # the priced step of each pow2 context bucket (_drift_predicted)
+        self._drift_cache: Dict[int, Optional[tuple]] = {}
+        self._drift_mm = None
+        self._resolve_serve_mesh()
         self.chunked_prefill = bool(cfg.serve_chunked_prefill)
         self.cache_cfg = KVCacheConfig.from_ff(
             cfg, num_layers=self.num_layers, num_heads=self.num_heads,
@@ -345,6 +401,58 @@ class ServeEngine:
 
     def __exit__(self, *exc):
         self.close()
+
+    def on_stream(self):
+        """Context that makes this engine's own stream current (a no-op
+        on the CPU): staging copies, replays, event records and the
+        step's synchronize then stay on it."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    # ---------------- placement -----------------------------------------
+    def _resolve_serve_mesh(self) -> None:
+        """The tensor-parallel degree from FFConfig.serve_mesh: "" (one
+        device), "N", or "auto" (the placement search over the visible
+        cards, search/serve_place.optimize_serve). The port serves one
+        device: a degree above 1, given or searched, raises."""
+        cfg = self.config
+        self.serve_placement = None
+        sm = str(cfg.serve_mesh or "").strip()
+        tp = 1
+        if sm == "auto":
+            from ..search.serve_place import optimize_serve
+            place = optimize_serve(self.serve_arch(),
+                                   max(1, torch.cuda.device_count()),
+                                   config=cfg)
+            self.serve_placement = place
+            tp = place.tensor_parallel
+        elif sm:
+            tp = int(sm)
+        if tp > 1:
+            raise NotImplementedError(
+                f"serve_mesh={sm!r} resolves to tensor degree {tp}: "
+                f"tensor-parallel serving is not ported (ROADMAP module "
+                f"item 7); the port serves one device")
+        self.tp = 1
+
+    def serve_arch(self, context: Optional[int] = None):
+        """The ServeArch the placement search prices for this engine's
+        model and serving knobs (search/cost_model.serve_step_tasks):
+        decode lanes = the slot reserve, prefill lanes = the budget,
+        steady-state context defaulting to 3/4 of the serveable length,
+        KV traffic at the page format's itemsize — the JAX engine's
+        fields, value for value."""
+        acfg = getattr(self, "adapter_cfg", None)
+        if acfg is None and int(self.config.adapter_rank) > 0:
+            acfg = AdapterConfig.from_ff(
+                self.config, num_layers=self.num_layers,
+                hidden=self.hidden, num_heads=self.num_heads,
+                head_dim=self.head_dim, ff_dim=self.ff_dim,
+                act_itemsize=int(self.act_dtype.itemsize))
+        return _serve_arch(self.arch, self.config, acfg,
+                           context if context is not None
+                           else max(1, self._max_seq_len * 3 // 4))
 
     # ---------------- device pages and the mixed step ------------------
     def _device_pages(self):
@@ -537,6 +645,7 @@ class ServeEngine:
         geometry stamp), or None when the slot has no full page yet.
         Must run while the slot is still mapped (from generate()'s
         ``on_finish``)."""
+        from .disagg import PageShipment
         pages, keys, ntokens = self.cache.export_pages(
             slot, tokens, prev=tenant_prefix_salt(tenant_id))
         if not pages:
@@ -651,9 +760,8 @@ class ServeEngine:
     def _host_step_price(self, ctx_len: int) -> float:
         """Predicted seconds of ONE mixed step at this context — the
         recompute side of the spill-vs-recompute decision, from the cost
-        stack the drift calibrator prices (None in the port until the
-        search stack is ported), else the analytic fallback the
-        router's virtual clock uses (JAX's formula)."""
+        stack the drift calibrator prices, else the analytic fallback
+        the router's virtual clock uses (JAX's formula)."""
         pred = self._drift_predicted(pow2_bucket(max(1, ctx_len)))
         if pred is not None:
             return float(pred[0])
@@ -1566,17 +1674,41 @@ class ServeEngine:
     # ---------------- telemetry ----------------------------------------
     def _drift_predicted(self, ctx_bucket: int) -> Optional[tuple]:
         """(predicted seconds, per-task-class breakdown) of one mixed
-        step at this pow2 context bucket, from the simulator the
-        placement search prices; None when the step cannot be priced:
-        then no drift sample is recorded, and the host tier and the
-        replica pool price a step by their analytic fallback. The port
-        has no simulator yet, so this is always None (tests inject a
-        prediction)."""
-        return None
+        step at this pow2 context bucket, from the cost stack the
+        placement search prices (cost_model.serve_step_tasks ->
+        simulator.simulate_serve_step, and the breakdown drift_report
+        folds per task class). The fixed-shape step dispatches every
+        lane, so the price varies only with the context: one dict hit
+        per step after a bucket's first. Priced on the machine model
+        ``machine_model_file`` describes when set, else the card's
+        (search/machine_model.default_machine_model). None when the
+        cost stack cannot price the step."""
+        if ctx_bucket not in self._drift_cache:
+            try:
+                from ..search import machine_model
+                from ..search.simulator import (serve_step_breakdown,
+                                                simulate_serve_step)
+                arch = self.serve_arch(context=max(1, ctx_bucket))
+                mm = None
+                mf = self.config.machine_model_file
+                if mf:
+                    if self._drift_mm is None:
+                        self._drift_mm = \
+                            machine_model.default_machine_model(
+                                machine_file=mf)
+                    mm = self._drift_mm
+                self._drift_cache[ctx_bucket] = (
+                    float(simulate_serve_step(arch, self.tp, mm,
+                                              lanes=self.mixed_width)),
+                    serve_step_breakdown(arch, self.tp, mm,
+                                         lanes=self.mixed_width))
+            except Exception:
+                self._drift_cache[ctx_bucket] = None
+        return self._drift_cache[ctx_bucket]
 
     def _drift_regime(self, n_decode: int, pre_bucket: int,
                       ctx_bucket: int) -> str:
-        return (f"t=1 kv={self.kv_dtype} dec={n_decode} "
+        return (f"t={self.tp} kv={self.kv_dtype} dec={n_decode} "
                 f"pre={pre_bucket} ctx={ctx_bucket}")
 
     def set_track_process(self, proc: str) -> None:
@@ -1740,11 +1872,69 @@ class ServeEngine:
 
     # ---------------- failure flight recorder ---------------------------
     def memory_ledger(self) -> dict:
-        """The JAX engine's per-device byte ledger prices the pool
-        against the search stack's cost model, which is not ported."""
-        raise NotImplementedError(
-            "memory_ledger needs the search stack's cost model, which "
-            "is not ported yet")
+        """Device byte accounting of this engine in the JAX engine's
+        schema — params, KV pages and scale rows, the mixed step's
+        activation estimate, the adapter pool — beside the simulator's
+        memory-penalty input (cost_model.serve_device_bytes).
+        ``live_bytes`` reads the engine's real tensors (the parameters
+        and the allocated pools and slabs); ``ledger_vs_live`` holds
+        the accounting against them. Components land as
+        ``serve_hbm_bytes{component=...}`` gauges when telemetry is
+        on."""
+        from ..search import machine_model
+        from ..search.cost_model import serve_device_bytes
+        from ..search.explain import pytree_device_bytes
+        c = self.cache_cfg
+        t = max(1, self.tp)
+        params = pytree_device_bytes(self.params)
+        kv_pool = float(c.pool_device_bytes)   # values + scale rows
+        act_itemsize = float(self.act_dtype.itemsize)
+        # the live set of ONE mixed step: lane activations through the
+        # widest tensors (qkv, ffn hidden, logits) — an estimate
+        activations = float(self.mixed_width) * act_itemsize * (
+            self.hidden + 3.0 * self.num_heads * self.head_dim / t
+            + float(self.ff_dim) / t + float(self.vocab_size) / t)
+        adapter = (float(self.adapter_cfg.pool_device_bytes)
+                   if self.adapter_cfg is not None else 0.0)
+        total = params + kv_pool + activations + adapter
+        pools_live = self._k_pages is not None
+        adapters_live = self._adapter_slabs is not None
+        live = params + pytree_device_bytes(
+            (self._k_pages, self._v_pages,
+             self._k_scales, self._v_scales, self._adapter_slabs))
+        sim_input = float(serve_device_bytes(self.serve_arch(), t))
+        ledger = {
+            "tensor_parallel": t,
+            "params_bytes": params,
+            "kv_pool_bytes": kv_pool,
+            "activation_est_bytes": activations,
+            "adapter_bytes": adapter,
+            "total_bytes": total,
+            "live_bytes": live,
+            "pools_live": pools_live,
+            "adapters_live": adapters_live,
+            "ledger_vs_live": (
+                (params + kv_pool
+                 + (adapter if adapters_live else 0.0)) / live
+                if pools_live and live > 0 else None),
+            "sim_hbm_input_bytes": sim_input,
+        }
+        try:
+            mm = machine_model.default_machine_model(
+                machine_file=self.config.machine_model_file)
+            ledger["hbm_capacity_bytes"] = float(mm.spec.hbm_capacity)
+            ledger["hbm_utilization"] = total / ledger[
+                "hbm_capacity_bytes"]
+        except Exception:
+            pass  # no machine model: the byte accounting stands alone
+        tel = self.telemetry
+        if tel.enabled:
+            for comp in ("params", "kv_pool", "activation_est",
+                         "adapter", "total", "live",
+                         "sim_hbm_input"):
+                tel.metrics.set("serve_hbm_bytes",
+                                ledger[f"{comp}_bytes"], component=comp)
+        return ledger
 
     def postmortem_bundle(self, reason: str = "manual",
                           detail: Optional[dict] = None,
@@ -1754,9 +1944,7 @@ class ServeEngine:
         loads): the last ``postmortem_events`` ring events, metrics and
         drift snapshots, scheduler and KV-pool state, fault accounting,
         capture counts and the trimmed last_stats. Each section is
-        guarded: a collector that fails loses that section only (the
-        memory ledger's always does, until the search stack is
-        ported)."""
+        guarded: a collector that fails loses that section only."""
         tel = self.telemetry
         if sched is None:
             sched = self._session.sched if self._session else None
@@ -1768,7 +1956,7 @@ class ServeEngine:
             "engine": {
                 "mode": "chunked" if self.chunked_prefill else "legacy",
                 "mixed_width": self.mixed_width,
-                "tensor_parallel": 1,
+                "tensor_parallel": self.tp,
                 "kv_dtype": self.kv_dtype,
                 "max_seqs": self.cache_cfg.max_seqs,
                 "prefill_budget": self.prefill_budget,

@@ -5,35 +5,42 @@ a deterministic virtual clock; the port's copy of
   * :class:`ReplicaPool` — N ``ServeEngine`` replicas over ONE model,
     each behind a long-lived :class:`~.engine.ServeSession`, serving a
     timed traffic stream (serve/traffic.py) on a VIRTUAL clock: each
-    replica's step advances its clock by the priced step time, so
+    replica's step advances its clock by the cost stack's price of the
+    step (``_price``: the engine's drift prediction, the same
+    ``simulate_serve_step`` the placement search prices), so
     TTFT/TPOT/goodput under SLO are reproducible numbers and autoscaler
     decisions replay exactly at one seed — while the TOKENS come from
-    the real engines, token for token a single-replica engine's. The
-    port has no cost model yet, so a step is priced by JAX's analytic
-    fallback (``_price``), which the JAX pool takes too when its cost
-    stack cannot price the arch. All replicas live on one card, each
-    an engine with its own captured steps; a shared host tier
+    the real engines, token for token a single-replica engine's. All
+    replicas live on one card, each an engine with its own captured
+    steps and its own CUDA stream; a shared host tier
     (``host_tier_mb``) serves every replica.
+  * the WALL clock (``run(wall_clock=True)``, ``serve_wall_clock``):
+    the same traffic in real time, arrivals paced on the wall clock and
+    each replica stepping on its own worker thread on its engine's
+    stream (``wall_threads=False`` steps them round-robin from one
+    thread, the A/B baseline), goodput under SLO a measured number.
   * prefix-affinity routing — the replica whose chain-hash prefix
     registry holds the LONGEST matching prefix of the prompt (one dict
     probe per page-aligned block, extended through the router's pending
     pins), then host-tier and adapter residency, then a tenant-sticky
     hash; a load-aware spill off degradation rung or occupancy.
   * :class:`Autoscaler` — a replica-count control loop reading only
-    exported registry gauges, with hysteresis and cooldown; without a
-    priced decode table (the port has no placement search yet) it
-    scales on the SLO and occupancy triggers alone.
+    exported registry gauges, with hysteresis and cooldown, its target
+    priced off the placement search's decode table
+    (search/serve_place.optimize_serve) or the 2-D mesh table of
+    ``serve_replicas="auto"``.
 
-Not ported yet: the wall-clock mode (``wall_clock=True``,
-``serve_wall_clock``; ROADMAP module item 4) and
-``serve_replicas="auto"`` (the 2-D serve-mesh search; module items 5
-and 7) raise ``NotImplementedError``.
+``serve_replicas="auto"`` boots the (tensor, replicas) shape of the 2-D
+mesh search (search/serve_place.optimize_serve_mesh); a searched tensor
+degree above 1 raises ``NotImplementedError`` (ROADMAP module item 7).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import queue
+import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -84,6 +91,12 @@ class Replica:
         self.draining = False       # not routable; steps until empty
         self.inflight: set = set()  # stream ids tracked on this replica
         self._plan_only = 0
+        # wall-clock mode: the step/submit mutual exclusion (the
+        # worker thread holds it across session.step(), the router
+        # thread across session.submit()) and the measured wall
+        # seconds this replica's steps consumed
+        self.lock = threading.Lock()
+        self.busy_wall_s = 0.0
         # the zero-recompile baseline: capture counts right after
         # warmup — the router gate compares against THIS snapshot
         self.warm_counts = engine.compile_counts()
@@ -121,15 +134,13 @@ class Autoscaler:
     ``down_patience`` cold ones, with a ``cooldown_s`` dead time
     after every action — a steady load settles, it never flaps.
 
-    A per-degree decode table (JAX's ``optimize_serve`` returns one;
-    the port has no placement search yet, so only a caller gives it)
-    prices the decision: one replica sustains ``decode_lanes /
+    The per-degree decode table ``optimize_serve`` returns prices the
+    decision: one replica sustains ``decode_lanes /
     decode_table[tp]`` tokens/sec, so the windowed demand divides
     into a TARGET replica count — demand above the live set's priced
     capacity is a scale-up signal even before the SLO breaks, and a
     scale-down is refused while the target says the remaining
-    replicas could not carry the load. JAX's 2-D mesh table
-    (``mesh_table``) comes with the mesh search."""
+    replicas could not carry the load."""
 
     def __init__(self, registry: MetricsRegistry, *,
                  slo_ttft_s: float = 0.0, slo_tpot_s: float = 0.0,
@@ -139,7 +150,9 @@ class Autoscaler:
                  down_patience: int = 4, cooldown_s: float = 0.0,
                  decode_table: Optional[Dict[int, float]] = None,
                  tensor_parallel: int = 1,
-                 decode_lanes: Optional[int] = None):
+                 decode_lanes: Optional[int] = None,
+                 mesh_table: Optional[Dict[Tuple[int, int],
+                                           dict]] = None):
         if min_replicas < 1 or max_replicas < min_replicas:
             raise ValueError(
                 f"need 1 <= min_replicas <= max_replicas, got "
@@ -166,7 +179,13 @@ class Autoscaler:
                 or min(decode_table.values())
             if step_s and decode_lanes:
                 self.capacity_tps = float(decode_lanes) / float(step_s)
+        # the 2-D mesh search's (t, r) price table
+        # (ServeMeshPlacement.table): when present, target pricing
+        # reads the searched pool-capacity column at THIS degree
+        # instead of extrapolating the 1-D decode table — scale
+        # decisions and placement agree on one price
         self.tensor_parallel = int(tensor_parallel)
+        self.mesh_table = dict(mesh_table) if mesh_table else None
         self.events: List[dict] = []
         self._hot = 0
         self._cold = 0
@@ -178,7 +197,8 @@ class Autoscaler:
         """Build from FFConfig's slo_ttft_ms / slo_tpot_ms /
         serve_autoscale_max knobs (max 0 = 2x serve_replicas)."""
         sr = getattr(config, "serve_replicas", 1)
-        n = 1 if isinstance(sr, str) else int(sr)
+        n = 1 if isinstance(sr, str) else int(sr)   # "auto": the pool
+        #   passes the searched count through max_replicas explicitly
         mx = int(getattr(config, "serve_autoscale_max", 0)) or 2 * n
         kw.setdefault("slo_ttft_s",
                       float(getattr(config, "slo_ttft_ms", 0.0)) / 1e3)
@@ -188,9 +208,29 @@ class Autoscaler:
         return cls(registry, **kw)
 
     def target_replicas(self, demand_tps: float) -> Optional[int]:
-        """Priced target count: windowed demand / decode-table capacity
-        (at least min_replicas). None when no table was supplied."""
-        if demand_tps <= 0 or not self.capacity_tps:
+        """Priced target count. With a 2-D mesh table: the smallest
+        replica count whose searched (t, r) cell sustains the windowed
+        token demand at this pool's tensor degree (extrapolated from
+        the per-replica capacity past the priced grid). Otherwise the
+        1-D path: windowed demand / decode-table capacity. None when
+        no table was supplied."""
+        if demand_tps <= 0:
+            return None
+        if self.mesh_table:
+            rows = sorted(
+                (int(r), cell) for (t, r), cell in
+                self.mesh_table.items()
+                if int(t) == self.tensor_parallel
+                and float(cell.get("tokens_per_s", 0.0)) > 0)
+            if rows:
+                for r, cell in rows:
+                    if float(cell["tokens_per_s"]) >= demand_tps:
+                        return max(self.min_replicas, r)
+                r1, c1 = rows[0]
+                per = float(c1["tokens_per_s"]) / max(1, r1)
+                return max(self.min_replicas,
+                           math.ceil(demand_tps / per))
+        if not self.capacity_tps:
             return None
         return max(self.min_replicas,
                    math.ceil(demand_tps / self.capacity_tps))
@@ -279,12 +319,33 @@ class ReplicaPool:
         self.config = cfg
         engine_kwargs = dict(engine_kwargs or {})
         engine_kwargs.setdefault("device", device)
+        # serve_replicas="auto": ONE search prices tensor degree x
+        # replica count over the visible cards and the pool boots the
+        # searched (t, r) shape; an explicit serve_mesh N pins the
+        # degree. The placement is kept on self.mesh_placement (the
+        # autoscaler's target pricing and router_report read it). The
+        # port serves one device per engine: a searched t > 1 raises
+        self.mesh_placement = None
         sr = cfg.serve_replicas
-        if num_replicas is None and isinstance(sr, str):
-            raise NotImplementedError(
-                "serve_replicas='auto' needs the 2-D serve-mesh search, "
-                "which is not ported yet (ROADMAP module items 5 and 7); "
-                "give the replica count")
+        if num_replicas is None and isinstance(sr, str) \
+                and sr.strip() == "auto":
+            import torch
+            from ..search.serve_place import optimize_serve_mesh
+            from .engine import probe_serve_arch
+            sm = str(cfg.serve_mesh or "").strip()
+            fixed_t = int(sm) if sm and sm != "auto" else None
+            place = optimize_serve_mesh(
+                probe_serve_arch(model, cfg),
+                max(1, torch.cuda.device_count()),
+                config=cfg, fixed_tensor=fixed_t)
+            if place.tensor_parallel > 1:
+                raise NotImplementedError(
+                    f"serve_replicas='auto' searched tensor degree "
+                    f"{place.tensor_parallel} x {place.replicas} "
+                    f"replicas: tensor-parallel serving is not ported "
+                    f"(ROADMAP module item 7)")
+            self.mesh_placement = place
+            num_replicas = place.replicas
         if num_replicas is None:
             num_replicas = int(sr)
         if num_replicas < 1:
@@ -612,7 +673,7 @@ class ReplicaPool:
         # trace context is minted HERE — the first tier that sees the
         # request — and rides the Request into whichever replica wins,
         # so the routing decision and every downstream engine span
-        # share one causally-linked timeline (docs/observability.md)
+        # share one causally-linked timeline 
         trace_id = next_trace_id()
         t_route0 = time.perf_counter()
         replica, info = self.route(tr.prompt, tenant=tr.tenant)
@@ -711,12 +772,13 @@ class ReplicaPool:
 
     # ---------------- virtual-clock pricing ----------------------------
     def _price(self, replica: Replica, ev: StepEvents) -> float:
-        """Virtual seconds of one mixed step: the drift calibrator's
-        prediction (engine._drift_predicted, at the step's pow2 context
-        bucket) where the cost stack can price the step — never yet in
-        the port — else JAX's deterministic analytic fallback.
-        Deterministic by construction: the whole virtual cluster
-        replays at one seed."""
+        """Virtual seconds of one mixed step: the SAME cost-stack
+        pricing the placement search and the drift calibrator use
+        (engine._drift_predicted -> simulate_serve_step at the
+        engine's fixed lane width, cached per context bucket), with
+        JAX's deterministic analytic fallback when the cost stack
+        cannot price the arch. Deterministic by construction — the
+        whole virtual cluster replays at one seed."""
         eng = replica.engine
         ctx_b = pow2_bucket(max(1, ev.ctx_mean))
         pred = eng._drift_predicted(ctx_b)
@@ -760,6 +822,31 @@ class ReplicaPool:
         m.counter_set("serve_host_tier_recompute_chosen_total",
                       host["recompute_chosen"])
         return host
+
+    def _mesh_block(self) -> Optional[dict]:
+        """The 2-D placement block of last_stats (serve_replicas=
+        "auto"): the chosen (t, r) cell with its priced goodput, every
+        rejected neighbor cell with ITS price, and the HBM-infeasible
+        degrees — the chosen-vs-rejected discipline router_report
+        renders. None on explicitly-sized pools."""
+        p = self.mesh_placement
+        if p is None:
+            return None
+        cells = {}
+        for (t, r), cell in p.table.items():
+            cells[f"{t}x{r}"] = {
+                k: cell[k] for k in ("goodput_per_s", "tokens_per_s",
+                                     "tpot_s", "ttft_s")}
+        return {
+            "tensor_parallel": p.tensor_parallel,
+            "replicas": p.replicas,
+            "tensor_axis_dims": list(p.tensor_axis_dims),
+            "data_axis_dims": list(p.data_axis_dims),
+            "goodput_per_s": p.goodput_per_s,
+            "num_devices": p.num_devices,
+            "table": cells,
+            "infeasible": [dict(d) for d in p.infeasible],
+        }
 
     # ---------------- the serving loop ---------------------------------
     def _finalize(self, tracked: dict, t_end: float,
@@ -902,15 +989,35 @@ class ReplicaPool:
     def _default_autoscaler(self) -> Autoscaler:
         """The serve_autoscale autoscaler: SLOs and ceiling from
         FFConfig, evaluation cadence and cooldown scaled off the priced
-        step. No decode table: the port has no placement search yet,
-        which is the JAX pool's own branch for an arch its cost stack
-        cannot price (pure SLO and occupancy triggers)."""
+        step, per-replica capacity from the placement search's decode
+        table (or the 2-D mesh table when the pool was searched)."""
         price = self.price_probe(64)
+        eng = self.replicas[0].engine
+        table = None
+        mesh_table = None
+        kw = {}
+        if self.mesh_placement is not None:
+            # the 2-D search already priced the (t, r) grid: target
+            # pricing reads THAT table; the ceiling covers the searched
+            # count
+            mesh_table = self.mesh_placement.table
+            table = self.mesh_placement.decode_by_degree
+            kw["max_replicas"] = max(
+                2 * self.mesh_placement.replicas,
+                int(self.config.serve_autoscale_max))
+        else:
+            try:
+                from ..search.serve_place import optimize_serve
+                table = optimize_serve(
+                    eng.serve_arch(), max(1, eng.tp),
+                    config=self.config).decode_by_degree
+            except Exception:
+                pass  # unpriceable arch: pure SLO/occupancy triggers
         return Autoscaler.from_config(
             self.config, self.metrics, interval_s=20.0 * price,
-            cooldown_s=40.0 * price, decode_table=None,
-            tensor_parallel=1,
-            decode_lanes=int(self.config.serve_max_seqs))
+            cooldown_s=40.0 * price, decode_table=table,
+            mesh_table=mesh_table, tensor_parallel=max(1, eng.tp),
+            decode_lanes=int(self.config.serve_max_seqs), **kw)
 
     def _maybe_park(self, r: Replica) -> None:
         """A draining replica parks (warm, routable again on the next
@@ -998,14 +1105,28 @@ class ReplicaPool:
             autoscaler: Optional[Autoscaler] = None,
             slo_monitor=None,
             sample_seed: int = 0, on_step=None,
-            wall_clock: Optional[bool] = None) -> dict:
+            wall_clock: Optional[bool] = None,
+            wall_threads: bool = True,
+            time_scale: float = 1.0,
+            dwell_s: float = 0.0) -> dict:
         """Serve a timed traffic stream and return the
         goodput-under-SLO accounting (also stashed on ``last_stats``).
 
-        The VIRTUAL clock prices each step (``_price``) and replays
-        deterministically at one seed. ``wall_clock=True`` (or
-        ``serve_wall_clock``), JAX's real-time fabric, raises
-        ``NotImplementedError`` in the port (ROADMAP module item 4).
+        Two clocks. The VIRTUAL clock prices each step (``_price``) and
+        replays deterministically at one seed — authoritative for
+        search A/Bs and autoscaler replay. ``wall_clock=True`` (or
+        ``serve_wall_clock``) serves the SAME traffic in real time:
+        arrivals pace on the wall clock (``tr.t_arrival * time_scale``
+        seconds after run start) and each replica runs its session
+        step loop on its own worker thread, on its engine's own CUDA
+        stream (``wall_threads=False`` steps them round-robin from one
+        thread — the A/B baseline), so goodput under SLO is a measured
+        wall number. TOKENS are identical across all modes: sampling
+        keys on stream ids, never on the clock. ``dwell_s`` holds each
+        dispatched step for at least that many wall seconds — a
+        stand-in for device time on a host whose "device" is its own
+        CPU; on the card the device's own time is the dwell (run at
+        0).
 
         Virtual event loop: the next event is the earlier of (the next
         arrival, the busy replica with the smallest clock). Arrivals
@@ -1026,7 +1147,18 @@ class ReplicaPool:
         if wall_clock is None:
             wall_clock = bool(self.config.serve_wall_clock)
         if wall_clock:
-            return self._run_wall(traffic)
+            if autoscaler is not None or bool(
+                    getattr(self.config, "serve_autoscale", False)):
+                raise ValueError(
+                    "the autoscaler replays on the virtual clock "
+                    "only (its decisions must be reproducible at one "
+                    "seed) — run wall-clock without serve_autoscale")
+            return self._run_wall(
+                traffic, slo_ttft_s=slo_ttft_s,
+                slo_tpot_s=slo_tpot_s, eos_token=eos_token,
+                slo_monitor=slo_monitor, sample_seed=sample_seed,
+                on_step=on_step, threaded=bool(wall_threads),
+                time_scale=float(time_scale), dwell_s=float(dwell_s))
         self._clock = "virtual"
         if autoscaler is None and bool(getattr(self.config,
                                                "serve_autoscale",
@@ -1218,7 +1350,7 @@ class ReplicaPool:
             "routing": {k: self.stats[k] - stats0[k]
                         for k in self.stats},
             "host_tier": self._host_tier_block(),
-            "mesh_placement": None,     # no 2-D placement search yet
+            "mesh_placement": self._mesh_block(),
             "scale_events": list(self.scale_events[events0:]),
             "per_replica": [
                 {"replica": r.idx, "live": r.live,
@@ -1241,33 +1373,315 @@ class ReplicaPool:
         return self.last_stats
 
     # ---------------- wall-clock serving --------------------------------
-    def _run_wall(self, traffic: Sequence[TrafficRequest]) -> dict:
-        """The wall-clock fabric (each replica stepping on its own
-        worker thread, arrivals paced on the wall clock): not ported
-        yet, it comes with the disaggregated roles (ROADMAP module
-        item 4)."""
-        raise NotImplementedError(
-            "wall-clock serving (wall_clock=True, serve_wall_clock) is "
-            "not ported yet (ROADMAP module item 4); the port's pool "
-            "runs on the virtual clock")
-
-    def _wall_step(self, r: Replica, w_start: float, dwell_s: float):
-        """One locked step of the wall-clock fabric: not ported yet."""
-        raise NotImplementedError(
-            "wall-clock serving is not ported yet (ROADMAP module "
-            "item 4)")
-
     def _wall_apply(self, r: Replica, ev, t_end: float, busy: float,
                     slo_ttft_s, slo_tpot_s, on_step) -> None:
-        """The wall-clock fabric's state update: not ported yet."""
-        raise NotImplementedError(
-            "wall-clock serving is not ported yet (ROADMAP module "
-            "item 4)")
+        """Apply one replica step's outcome to the pool's tracking
+        state. Wall mode's single mutation point for router state:
+        workers only step sessions and report here, so first-token
+        stamps, cancels, finalization, and ``on_step`` all happen on
+        the router thread — same ordering discipline as the virtual
+        loop, just fed from a queue."""
+        if ev is None:
+            self._sweep_terminal(r, t_end, slo_ttft_s, slo_tpot_s)
+            self._maybe_park(r)
+            return
+        if not ev.dispatched:
+            r._plan_only += 1
+            if r._plan_only > _MAX_PLAN_ONLY:
+                raise RuntimeError(
+                    f"replica{r.idx} re-planned {_MAX_PLAN_ONLY} "
+                    f"steps without dispatching — scheduler wedged")
+            self._sweep_terminal(r, t_end, slo_ttft_s, slo_tpot_s)
+            return
+        r._plan_only = 0
+        r.busy_wall_s += busy
+        r.steps += 1
+        r.peak_occupancy = max(r.peak_occupancy, r.occupancy())
+        for req, n in ev.emitted:
+            tracked = self._inflight.get(req.stream_id)
+            if tracked is None:
+                continue
+            if tracked["tokens_emitted"] == 0:
+                tracked["t_first"] = t_end
+            tracked["tokens_emitted"] += n
+            r.tokens += n
+            ca = tracked["cancel_after"]
+            if ca is not None and not tracked["cancel_sent"] \
+                    and tracked["tokens_emitted"] >= ca:
+                # engine.cancel is thread-safe by contract (the worker
+                # may be mid-step); the abort lands at the request's
+                # next chunk boundary exactly as in virtual mode
+                self.cancel(req.stream_id)
+        self._sweep_terminal(r, t_end, slo_ttft_s, slo_tpot_s)
+        self._maybe_park(r)
+        if on_step is not None:
+            on_step(r, ev)
+
+    def _wall_step(self, r: Replica, w_start: float, dwell_s: float):
+        """One locked session step on the replica engine's own CUDA
+        stream (so replicas stepping on separate threads overlap on the
+        card instead of serializing on the default stream), then the
+        dwell floor; returns ``(kind, ev, t_end, busy_s)``. The dwell
+        sleep happens OUTSIDE the lock: it models time the host is
+        blocked on the device, during which the router may submit into
+        this replica."""
+        t0 = time.perf_counter()
+        with r.lock, r.engine.on_stream():
+            try:
+                ev = r.session.step()
+            except Exception:
+                # contain exactly as the virtual loop: fail the
+                # in-flight requests, reopen the session, keep the
+                # rest of the pool serving
+                r.engine._fail_inflight(r.session.sched,
+                                        r.session.reqs)
+                r.session.close()
+                r.session = r.engine.start_session()
+                return ("fail", None,
+                        time.perf_counter() - w_start, 0.0)
+        elapsed = time.perf_counter() - t0
+        if ev is not None and ev.dispatched and dwell_s > elapsed:
+            time.sleep(dwell_s - elapsed)
+            elapsed = dwell_s
+        return ("step", ev, time.perf_counter() - w_start, elapsed)
+
+    def _run_wall(self, traffic: Sequence[TrafficRequest], *,
+                  slo_ttft_s, slo_tpot_s, eos_token, slo_monitor,
+                  sample_seed, on_step, threaded: bool,
+                  time_scale: float, dwell_s: float) -> dict:
+        """Serve the traffic stream in real time. Arrivals pace on the wall clock —
+        request i submits ``(t_arrival - t0) * time_scale`` wall
+        seconds after run start — and timestamps (t_arrival, t_first,
+        t_finish) are run-relative wall seconds on ONE clock, so
+        ``explain_request`` still sums exactly to measured latency.
+
+        ``threaded=True``: each replica's session step loop runs on
+        its own worker thread; the worker holds ``replica.lock``
+        across ``session.step()`` (the router thread holds it across
+        ``session.submit()``) and reports completed steps into a
+        queue the router thread drains — all router state mutates on
+        the router thread. ``threaded=False`` steps busy replicas
+        round-robin from the router thread: the A/B baseline.
+
+        No autoscaler here (it replays on the virtual clock), and no
+        auto-armed SLO monitor — pass one explicitly to tick it on
+        wall time. Tokens are identical to the virtual run at the
+        same seed: sampling keys on stream ids, never on the
+        clock."""
+        slo_monitor = slo_monitor or None
+        self._sample_seed = int(sample_seed)
+        self._records = {}
+        self._req_refs = {}
+        self._w_first.clear()
+        self._w_done.clear()
+        stats0 = dict(self.stats)
+        events0 = len(self.scale_events)
+        self._rr_next = 0
+        for r in self.replicas:
+            if r.session.reqs and not r.session.has_work():
+                r.session.close()
+                r.session = r.engine.start_session()
+        n_start = len(self.routable())
+        arrivals = sorted(traffic,
+                          key=lambda r: (r.t_arrival, r.stream_id))
+        t0_virtual = arrivals[0].t_arrival if arrivals else 0.0
+        sched = [(tr.t_arrival - t0_virtual) * time_scale
+                 for tr in arrivals]
+        self._clock = "wall"
+        done_q: "queue.Queue" = queue.Queue()
+        stop = threading.Event()
+        wakes = [threading.Event() for _ in self.replicas]
+        workers: List[threading.Thread] = []
+        w_start = time.perf_counter()
+
+        def _worker(r: Replica, wake: threading.Event) -> None:
+            while not stop.is_set():
+                if not r.has_work():
+                    wake.wait(0.005)
+                    wake.clear()
+                    continue
+                kind, ev, t_end, busy = self._wall_step(
+                    r, w_start, dwell_s)
+                done_q.put((kind, r.idx, ev, t_end, busy))
+
+        try:
+            if threaded:
+                for r, wake in zip(self.replicas, wakes):
+                    t = threading.Thread(
+                        target=_worker, args=(r, wake),
+                        name=f"replica{r.idx}-step", daemon=True)
+                    t.start()
+                    workers.append(t)
+            next_slo = (slo_monitor.interval_s
+                        if slo_monitor is not None else None)
+            i = 0
+            rr = 0
+            t_now = 0.0
+            last_progress = time.perf_counter()
+            while True:
+                t_now = time.perf_counter() - w_start
+                while i < len(arrivals) and sched[i] <= t_now + 1e-9:
+                    tr = arrivals[i]
+                    # submit holds EVERY replica lock (idx order):
+                    # route() reads all replicas' queue/cache state
+                    # and session.submit mutates the winner — both
+                    # must not interleave with a worker's step
+                    for r in self.replicas:
+                        r.lock.acquire()
+                    try:
+                        tracked = self.submit(tr, eos_token=eos_token)
+                    finally:
+                        for r in reversed(self.replicas):
+                            r.lock.release()
+                    # SLOs measure from the SCHEDULED wall arrival —
+                    # router lag between the pacer and submit() is
+                    # queueing delay the tier must answer for
+                    tracked["t_arrival"] = sched[i]
+                    if threaded:
+                        wakes[tracked["replica"]].set()
+                    i += 1
+                    last_progress = time.perf_counter()
+                if i >= len(arrivals) and not self._inflight:
+                    break
+                if threaded:
+                    timeout = 0.05 if i >= len(arrivals) else \
+                        min(0.05, max(0.0, sched[i] - t_now))
+                    try:
+                        item = done_q.get(timeout=timeout) \
+                            if timeout > 0 else done_q.get_nowait()
+                    except queue.Empty:
+                        if i >= len(arrivals) \
+                                and not any(r.has_work()
+                                            for r in self.replicas):
+                            break  # drained: a raced cancel's record
+                        if time.perf_counter() - last_progress > 60.0:
+                            raise RuntimeError(
+                                "wall-clock pool made no progress "
+                                "for 60s with work pending")
+                        continue
+                    while item is not None:
+                        kind, idx, ev, t_end, busy = item
+                        r = self.replicas[idx]
+                        if kind == "fail":
+                            self._sweep_terminal(r, t_end, slo_ttft_s,
+                                                 slo_tpot_s)
+                        else:
+                            self._wall_apply(r, ev, t_end, busy,
+                                             slo_ttft_s, slo_tpot_s,
+                                             on_step)
+                        last_progress = time.perf_counter()
+                        try:
+                            item = done_q.get_nowait()
+                        except queue.Empty:
+                            item = None
+                else:
+                    busy_rs = [r for r in self.replicas
+                               if r.has_work()]
+                    if not busy_rs:
+                        if i < len(arrivals):
+                            time.sleep(
+                                min(0.05,
+                                    max(0.0, sched[i] - t_now)))
+                            continue
+                        break  # drained: a raced cancel's record
+                    r = busy_rs[rr % len(busy_rs)]
+                    rr += 1
+                    kind, ev, t_end, busy = self._wall_step(
+                        r, w_start, dwell_s)
+                    if kind == "fail":
+                        self._sweep_terminal(r, t_end, slo_ttft_s,
+                                             slo_tpot_s)
+                    else:
+                        self._wall_apply(r, ev, t_end, busy,
+                                         slo_ttft_s, slo_tpot_s,
+                                         on_step)
+                    last_progress = time.perf_counter()
+                if slo_monitor is not None:
+                    t_now = time.perf_counter() - w_start
+                    while t_now >= next_slo:
+                        slo_monitor.observe(next_slo)
+                        next_slo += slo_monitor.interval_s
+        finally:
+            stop.set()
+            for wake in wakes:
+                wake.set()
+            for t in workers:
+                t.join(timeout=5.0)
+            self._clock = "virtual"
+        t_final = time.perf_counter() - w_start
+        # drain-time finalization still belongs to the wall run (the
+        # finally above restored the label for the exception paths)
+        self._clock = "wall"
+        for sid in list(self._inflight):
+            self._finalize(self._inflight[sid], t_final, slo_ttft_s,
+                           slo_tpot_s)
+        for r in self.replicas:
+            self._maybe_park(r)
+        self._export_gauges(t_final)
+        self._clock = "virtual"
+        if slo_monitor is not None:
+            slo_monitor.observe(t_final)
+            slo_monitor.finish(t_final)
+        records = [self._records[sid]
+                   for sid in sorted(self._records)]
+        makespan = max(1e-12, t_final)
+        ok = sum(1 for rec in records if rec["slo_ok"])
+        completed = sum(1 for rec in records
+                        if rec["outcome"] == RequestOutcome.COMPLETED)
+        for r in self.replicas:
+            st = r.session.stats_dict()
+            serve_metrics(st, registry=self.metrics)
+            serve_metrics(st, registry=self.metrics,
+                          replica=str(r.idx))
+        self.last_stats = {
+            "mode": "router",
+            "clock": "wall",
+            "wall_threads": threaded,
+            "time_scale": time_scale,
+            "dwell_s": dwell_s,
+            "policy": self.policy,
+            "autoscaled": False,
+            "replicas_start": n_start,
+            "replicas_end": len(self.routable()),
+            "replicas_total": len(self.replicas),
+            "requests": records,
+            "goodput_per_s": ok / makespan,
+            "slo_attainment": ok / len(records) if records else 0.0,
+            "slo_ttft_s": slo_ttft_s, "slo_tpot_s": slo_tpot_s,
+            "makespan_s": makespan,
+            "completed": completed,
+            "slo_ok": ok,
+            "cancelled": sum(
+                1 for rec in records
+                if rec["outcome"] == RequestOutcome.CANCELLED),
+            "tokens_total": sum(len(rec["tokens"])
+                                for rec in records),
+            "routing": {k: self.stats[k] - stats0[k]
+                        for k in self.stats},
+            "host_tier": self._host_tier_block(),
+            "mesh_placement": self._mesh_block(),
+            "scale_events": list(self.scale_events[events0:]),
+            "per_replica": [
+                {"replica": r.idx, "live": r.live,
+                 "assigned": r.assigned, "steps": r.steps,
+                 "tokens": r.tokens,
+                 "busy_virtual_s": r.busy_s,
+                 "busy_wall_s": r.busy_wall_s,
+                 "peak_occupancy": r.peak_occupancy}
+                for r in self.replicas],
+            "slo_attainment_budget": self.metrics.gauge(
+                "serve_pool_slo_attainment", 1.0),
+            "slo_alerts": (list(slo_monitor.events)
+                           if slo_monitor is not None else []),
+        }
+        if self.telemetry.enabled:
+            self.last_stats["attribution"] = self.fold_attribution()
+        return self.last_stats
 
     # ---------------- per-request observability -------------------------
     def explain_request(self, stream_id: int) -> dict:
         """Cross-engine latency attribution for one routed request of
-        the last run, by stream id (docs/observability.md): the trace
+        the last run, by stream id : the trace
         id minted at submit ties the router's routing span, the
         replica's queue_wait, its prefill/decode chunk spans and any
         preempt/retry stalls into one additive WALL-clock breakdown

@@ -20,6 +20,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from flexflow_tpu.config import FFConfig
 from flexflow_tpu.models.transformer import build_transformer_lm
@@ -36,6 +37,18 @@ from flexflow_tpu_torch.utils.profiling import serve_report
 from flexflow_tpu_torch.utils.telemetry import serve_metrics
 
 VOCAB = 512
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 ARCH = dict(num_layers=2, hidden=32, num_heads=4, head_dim=8, ff_dim=64)
 GEOMETRY = dict(kv_page_size=8, kv_num_pages=73, serve_max_seqs=8,
                 serve_prefill_budget=48, adapter_rank=16)

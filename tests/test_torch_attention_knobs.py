@@ -11,6 +11,7 @@ from functools import partial
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from flexflow_tpu import FFConfig as JConfig
 from flexflow_tpu import FFModel as JModel
@@ -22,6 +23,20 @@ from flexflow_tpu_torch.core.losses import \
     sparse_categorical_crossentropy as ploss
 
 B, S, E, H, C = 3, 7, 16, 2, 5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = 1e-5
 
 

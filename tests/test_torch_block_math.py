@@ -20,6 +20,19 @@ from flexflow_tpu_torch.models.transformer import layer_norm
 from flexflow_tpu_torch.serve import ServeEngine as TorchEngine
 from flexflow_tpu_torch.weights import arch_from_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 1e-5
 
 

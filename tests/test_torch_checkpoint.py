@@ -12,6 +12,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import flexflow_tpu_torch as ft
 from flexflow_tpu_torch.config import CompMode
@@ -21,6 +22,18 @@ from flexflow_tpu_torch.core.checkpoint import (restore_checkpoint,
 from flexflow_tpu_torch.core.dataloader import DataLoaderSet
 from flexflow_tpu_torch.utils import faults
 from flexflow_tpu_torch.utils.faults import SimulatedKill
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _ckpt_model(seed=0, bs=16, mode=CompMode.TRAINING, dropout=0.25):

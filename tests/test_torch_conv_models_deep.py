@@ -4,6 +4,7 @@ that those limits must reject (see test_torch_conv_models.py's
 docstring), in a module of their own so that they run beside it."""
 
 import pytest
+import torch
 from test_torch_conv_models import DEEP, FAULTS, planted_fault_rejected, \
     train_pair
 from test_torch_conv_models import test_forward_after_training as _fwd
@@ -11,6 +12,18 @@ from test_torch_conv_models import test_trajectory_losses as _losses
 from test_torch_conv_models import \
     test_trajectory_running_stats as _stats
 from test_torch_conv_models import test_trajectory_weights as _weights
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module", params=sorted(DEEP))

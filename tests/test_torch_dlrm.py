@@ -16,6 +16,7 @@ measured gap is 1.5e-8).
 
 import numpy as np
 import pytest
+import torch
 
 from flexflow_tpu import FFConfig as JConfig
 from flexflow_tpu import SGDOptimizer as JSGD
@@ -24,6 +25,20 @@ from flexflow_tpu.models.dlrm import build_dlrm as jbuild_dlrm
 import flexflow_tpu_torch as ft
 
 B, NT, V, D = 64, 8, 1000, 64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 FWD_ABS = 1e-6
 LOSS_REL = 1e-5
 WEIGHT_ABS = 1e-6

@@ -26,6 +26,19 @@ import torch
 from flexflow_tpu.kernels import flash_attention as jfa
 from flexflow_tpu_torch.kernels import flash_attention as fa
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # f32: summation order only; bf16: where p and ds round (the Pallas
 # kernel against the running max of its 64-key block, the plain piece
 # against the row's final max)

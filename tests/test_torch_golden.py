@@ -19,6 +19,18 @@ from flexflow_tpu import FFConfig, FFModel
 from flexflow_tpu.op import OpContext
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _ctx():
     return OpContext(training=False, rng=None, seq_length=-1,
                      state_in={}, mesh=None, op_strategy=None)

@@ -7,11 +7,24 @@ snapshots and both check_invariants() must agree exactly.
 
 import numpy as np
 import pytest
+import torch
 
 from flexflow_tpu.serve import kv_cache as jax_kv
 from flexflow_tpu.serve import scheduler as jax_sched
 from flexflow_tpu_torch.serve import kv_cache as torch_kv
 from flexflow_tpu_torch.serve import scheduler as torch_sched
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _plan_key(plan):

@@ -5,10 +5,10 @@ package.
 The store is a copy: JAX's store unit tests run on both stores as
 parametrised cases and must leave the same stats, reports and LRU
 order. The engines (vocab 61, hidden 32, 4 heads, 2 layers, 4-token
-pages) are priced identically: the JAX engine's simulator price is
-taken away (``_drift_predicted`` returns None, so both take JAX's
-analytic step price) and one ``host_transfer`` is injected into both —
-cheap to force every host match to reload, dear to force recompute.
+pages) are priced identically: both engines price a step with their
+cost stack on the JAX package's machine numbers, and one
+``host_transfer`` is injected into both — cheap to force every host
+match to reload, dear to force recompute.
 Then alternating working sets over a pool too small for both drive
 parked chains through spill, host eviction and reload on f32 and int8
 pages, and every token, decision and counter must be the JAX engine's
@@ -21,19 +21,46 @@ prefix-matches them.
 
 import numpy as np
 import pytest
+import torch
 
 from flexflow_tpu.config import FFConfig
 from flexflow_tpu.models.transformer import build_transformer_lm
+from flexflow_tpu.search import machine_model as jax_machine
 from flexflow_tpu.serve import ServeEngine
 from flexflow_tpu.serve import host_tier as jht
 
 import flexflow_tpu_torch as ft
+from flexflow_tpu_torch.search import machine_model as torch_machine
 from flexflow_tpu_torch.serve import ServeEngine as TorchEngine
 from flexflow_tpu_torch.serve import host_tier as tht
 from flexflow_tpu_torch.serve.disagg import PageShipment
 from flexflow_tpu_torch.utils.telemetry import REQUEST_COMPONENTS, Telemetry
 
 VOCAB = 61
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
+def _jax_machine_numbers(monkeypatch):
+    """Both packages price a step on the same machine: the port's
+    machine model holds the JAX package's default numbers, read at run
+    time (the port's own are the H100's)."""
+    monkeypatch.setattr(
+        torch_machine, "default_machine_model",
+        lambda mesh=None, spec=None, machine_file=None:
+        torch_machine.H100MachineModel.like(
+            jax_machine.default_machine_model(machine_file=machine_file)))
 
 
 # ---------------------------------------------------------------- store
@@ -149,12 +176,12 @@ def lm():
 
 def _pair(lm, link_s, telemetry=False, **geo):
     """A JAX and a port engine with the host tier armed, priced alike:
-    no simulator price on the JAX side, one injected host link."""
+    both on the cost stack at JAX's machine numbers, one injected host
+    link."""
     jff, model = lm
     jeng = ServeEngine(jff, config=FFConfig(batch_size=1, **geo))
     teng = TorchEngine(model, ft.FFConfig(**geo), device="cpu",
                        telemetry=Telemetry() if telemetry else None)
-    jeng._drift_predicted = lambda ctx_bucket: None
     jeng._host_mm = _Link(link_s)
     teng._host_mm = _Link(link_s)
     assert teng.warmup() == jeng.warmup()

@@ -1,6 +1,6 @@
 """The port stands alone: no module of flexflow_tpu_torch, and not
-chip_smoke.py, imports JAX or the JAX package, and importing the
-serving and training packages leaves JAX unloaded."""
+chip_smoke.py, imports JAX, ml_dtypes or the JAX package, and importing
+the serving, search and training packages leaves them unloaded."""
 
 import ast
 import subprocess
@@ -16,7 +16,7 @@ SOURCES = sorted((ROOT / "flexflow_tpu_torch").rglob("*.py")) \
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flexflow_tpu")
+    return top in ("jax", "jaxlib", "flexflow_tpu", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -38,13 +38,15 @@ def test_sources_found():
     assert {"engine.py", "paged_ragged_v2.py", "chip_smoke.py",
             "flash_attention.py", "executor.py", "model.py",
             "attention.py", "optimizers.py", "lstm_scan.py", "rnn.py",
-            "embedding.py", "nmt_lstm.py"} <= names
+            "embedding.py", "nmt_lstm.py", "disagg.py", "transport.py",
+            "serve_place.py", "mesh.py"} <= names
 
 
 def test_import_leaves_jax_unloaded():
-    code = ("import sys, flexflow_tpu_torch.serve, flexflow_tpu_torch; "
+    code = ("import sys, flexflow_tpu_torch.serve, flexflow_tpu_torch, "
+            "flexflow_tpu_torch.search, flexflow_tpu_torch.serve.transport; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flexflow_tpu')]; "
+            "('jax', 'jaxlib', 'flexflow_tpu', 'ml_dtypes')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

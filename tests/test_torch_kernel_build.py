@@ -13,6 +13,18 @@ from flexflow_tpu_torch.kernels import _build
 from flexflow_tpu_torch.kernels import flash_attention as fa
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bf16(shape, seed=0):
     rng = np.random.default_rng(seed)
     return torch.from_numpy(rng.standard_normal(shape, np.float32)) \

@@ -47,6 +47,19 @@ from flexflow_tpu_torch.kernels import flash_attention as fa
 from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
 from flexflow_tpu_torch.serve import ServeEngine as TorchEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = 1e-6
 TIE_MARGIN = {"int8": 0.05, "float8_e4m3": 0.25}
 FORMATS = {"int8": (jnp.int8, torch.int8),

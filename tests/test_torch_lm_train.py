@@ -45,6 +45,20 @@ from flexflow_tpu_torch.core.losses import \
 from flexflow_tpu_torch.serve import ServeEngine as TorchEngine
 
 VOCAB, SEQ, BATCH = 64, 16, 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ARCH = dict(vocab_size=VOCAB, max_seq_len=SEQ, hidden=32, num_heads=4,
             num_layers=2, ff_dim=64)
 SERVE = dict(kv_page_size=8, kv_num_pages=33, serve_max_seqs=4,

@@ -28,6 +28,19 @@ import flexflow_tpu_torch as ft
 from flexflow_tpu_torch.kernels import lstm_scan as pls
 from flexflow_tpu_torch.op import OpContext
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # the JAX kernels' test shapes (tests/test_lstm_pallas.py): the Pallas
 # entry point takes B % 8 == 0 and H % 128 == 0 only
 T, B, H = 6, 8, 128

@@ -32,6 +32,19 @@ import flexflow_tpu_torch as ft
 from flexflow_tpu_torch.op import OpContext
 from flexflow_tpu_torch.ops import moe as pmoe
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B = 32
 FWD_ABS = 1e-5
 LOSS_REL = 1e-5

@@ -28,6 +28,19 @@ from flexflow_tpu.core import optimizers as jopt
 import flexflow_tpu_torch as ft
 from flexflow_tpu_torch.core import optimizers as popt
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHAPES = [(37, 53), (1000, 257), (7,)]
 SGD_KW = [dict(momentum=0.0), dict(momentum=0.9),
           dict(momentum=0.9, nesterov=True),

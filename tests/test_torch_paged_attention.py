@@ -23,6 +23,18 @@ from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
 from flexflow_tpu_torch.kernels.flash_attention import paged_attention_ragged
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(seed, t=12, h=4, d=8, ps=4, pp=6, s=5):
     """Random page tables over a shuffled pool; lanes pick rows at
     random (t > s, so lanes share rows) and lengths in [1, pp*ps],

@@ -31,6 +31,19 @@ import torch
 from flexflow_tpu.kernels import flash_attention as jfa
 from flexflow_tpu_torch.kernels import flash_attention as fa
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ATOL = {"float32": 1e-6, "bfloat16": 1e-5}
 PS, PP = 4, 6            # 24 keys a row at most
 

@@ -34,6 +34,19 @@ from flexflow_tpu.kernels.paged_ragged_v2 import (
 from flexflow_tpu_torch.kernels import flash_attention as fa
 from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32_ATOL = 1e-5
 HEADS = [40, 64]
 HEAD_DIMS = [520, 640]

@@ -34,6 +34,19 @@ from flexflow_tpu_torch.core.precision import (cast_floats, policy_active,
                                                resolve_dtype)
 from flexflow_tpu_torch.serve import ServeEngine as TorchEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 PARITY_TOL = 0.05
 BF16_REL = 2e-2
 BF16_TIE_MARGIN = 0.05

@@ -20,6 +20,18 @@ from flexflow_tpu_torch.core import prng
 from flexflow_tpu_torch.core.executor import _stable_hash
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("seed", [0, 7, 123456, 2**31 - 1, -1, -5])
 def test_prng_key_matches_jax(seed):
     np.testing.assert_array_equal(prng.prng_key(seed),

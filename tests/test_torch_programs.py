@@ -32,6 +32,19 @@ from flexflow_tpu_torch.core.programs import (PinnedRing, ProgramRegistry,
 from flexflow_tpu_torch.kernels import _launches
 from flexflow_tpu_torch.serve import ServeEngine as TorchEngine
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 GEOMETRY = dict(kv_page_size=8, kv_num_pages=73, serve_max_seqs=8,
                 serve_prefill_budget=48)
 ARCH = dict(vocab_size=89, max_seq_len=64, hidden=32, num_heads=4,

@@ -1,9 +1,10 @@
 """The port's multi-replica tier (serve/router.py) on its virtual
 clock, against the JAX package's ReplicaPool.
 
-Both pools price a step identically: the JAX engines' simulator price
-is taken away (``_drift_predicted`` returns None), so both take JAX's
-analytic fallback, the only price the port has. At one traffic seed
+Both pools price a step with their own serve cost stack
+(``_drift_predicted``, simulate_serve_step) on the same machine numbers
+— the port's machine model holds the JAX package's, read at run time.
+At one traffic seed
 the two pools must then route every stream to the same replica and
 give the same tokens, outcomes and virtual TTFT/TPOT — under affinity
 and round-robin routing, with sampling and mid-generation cancels, with
@@ -14,15 +15,20 @@ pins, spill under pressure, deterministic routing, cancel reclaiming
 its pin, round-robin, single-replica token identity, the autoscaler's
 gauge-only decisions, chaos invariants after every step, reruns that
 do not double-count, and the config knobs. JAX's three wall-clock tests
-are not ported: the wall-clock fabric raises NotImplementedError here,
-as ``serve_replicas="auto"``, ``serve_disagg`` and ``serve_mesh`` do.
+run on the port's fabric: tokens identical to the virtual run threaded
+and single-threaded, explain_request summing to the measured latency,
+and the autoscaler refused on the wall clock. ``serve_replicas="auto"``
+boots the 2-D search's shape, JAX's; a tensor degree above 1 raises
+NotImplementedError (ROADMAP module item 7).
 """
 
 import numpy as np
 import pytest
+import torch
 
 from flexflow_tpu.config import FFConfig
 from flexflow_tpu.models.transformer import build_transformer_lm
+from flexflow_tpu.search import machine_model as jax_machine
 from flexflow_tpu.serve import Autoscaler as JAutoscaler
 from flexflow_tpu.serve import ReplicaPool as JPool
 from flexflow_tpu.serve import ServeEngine as JEngine
@@ -30,6 +36,7 @@ from flexflow_tpu.serve.adapters import make_tenant_adapters
 from flexflow_tpu.utils.telemetry import MetricsRegistry as JRegistry
 
 import flexflow_tpu_torch as ft
+from flexflow_tpu_torch.search import machine_model as torch_machine
 from flexflow_tpu_torch.serve import (Autoscaler, ReplicaPool,
                                       ServeEngine, TrafficRequest,
                                       TrafficSpec, make_traffic)
@@ -40,11 +47,28 @@ from flexflow_tpu_torch.utils.telemetry import MetricsRegistry, Telemetry
 VOCAB = 61
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
-def _analytic_price(monkeypatch):
-    """Both pools price a step by JAX's analytic fallback."""
-    monkeypatch.setattr(JEngine, "_drift_predicted",
-                        lambda self, ctx_bucket: None)
+def _jax_machine_numbers(monkeypatch):
+    """Both packages price a step on the same machine: the port's
+    machine model holds the JAX package's default numbers, read at run
+    time (the port's own are the H100's)."""
+    monkeypatch.setattr(
+        torch_machine, "default_machine_model",
+        lambda mesh=None, spec=None, machine_file=None:
+        torch_machine.H100MachineModel.like(
+            jax_machine.default_machine_model(machine_file=machine_file)))
 
 
 def _geo(page_size=4, pool_pages=48, budget=8, max_seqs=4, **kw):
@@ -466,6 +490,37 @@ def test_autoscaler_reads_only_gauges(mod, reg):
     assert c.evaluate(2.0)["direction"] == "down"
 
 
+@pytest.mark.parametrize("mod,reg", [(JAutoscaler, JRegistry),
+                                     (Autoscaler, MetricsRegistry)],
+                         ids=["jax", "torch"])
+def test_autoscaler_target_reads_mesh_table(mod, reg):
+    """JAX's rigged-table case: the same gauges, only the 2-D (t, r)
+    table differs, and the weak table flips the decision to a
+    scale-up priced off the searched cells."""
+    decode_table = {1: 0.004}
+    weak = {(1, r): {"tokens_per_s": 100.0 * r} for r in range(1, 9)}
+    strong = {(1, r): {"tokens_per_s": 1000.0 * r} for r in range(1, 9)}
+
+    def run(mesh_table):
+        m = reg()
+        m.set("serve_pool_replicas_live", 1.0)
+        m.set("serve_pool_decode_tokens_per_s_window", 500.0)
+        m.set("serve_pool_occupancy_mean", 0.5)
+        m.set("serve_pool_queue_depth", 0.0)
+        a = mod(m, min_replicas=1, max_replicas=8, interval_s=1.0,
+                up_patience=1, decode_table=decode_table,
+                tensor_parallel=1, decode_lanes=4, mesh_table=mesh_table)
+        assert a.target_replicas(500.0) == (5 if mesh_table is weak
+                                            else 1)
+        return a.evaluate(t_now=10.0)
+
+    assert run(None) is None
+    assert run(strong) is None
+    decision = run(weak)
+    assert decision is not None and decision["direction"] == "up"
+    assert "priced target" in decision["reason"]
+
+
 def test_autoscaler_config_and_flag():
     m = MetricsRegistry()
     with pytest.raises(ValueError, match="min_replicas"):
@@ -482,8 +537,12 @@ def test_autoscaler_config_and_flag():
                  slo_tpot_ms=1000.0, serve_autoscale_max=2)
     res = pool.run(traffic)
     assert res["autoscaled"]
-    # no decode table in the port: SLO and occupancy triggers only
-    assert pool._default_autoscaler().capacity_tps is None
+    # the priced decode table is the placement search's, JAX's
+    scaler = pool._default_autoscaler()
+    jscaler = _jpool(1, serve_autoscale=True, slo_ttft_ms=1000.0,
+                     slo_tpot_ms=1000.0,
+                     serve_autoscale_max=2)._default_autoscaler()
+    assert scaler.capacity_tps == jscaler.capacity_tps > 0
     pool.close()
 
 
@@ -503,30 +562,112 @@ def test_config_validation_as_jax(bad, match):
 
 
 def test_from_config_and_unported_paths_raise():
-    """serve_replicas / router_policy build the pool; the wall clock,
-    serve_replicas='auto', the disaggregated roles and the serve mesh
-    raise NotImplementedError naming their ROADMAP item."""
+    """serve_replicas / router_policy build the pool;
+    serve_replicas='auto' boots the 2-D mesh search's (1, r) shape,
+    JAX's; tensor-parallel serving raises NotImplementedError naming
+    its ROADMAP item."""
     _, model = _models()
     pool = ReplicaPool.from_config(
         model, config=ft.FFConfig(**_geo(serve_replicas=2,
                                          router_policy="round_robin")),
         device="cpu")
     assert len(pool.replicas) == 2 and pool.policy == "round_robin"
-    with pytest.raises(NotImplementedError, match="item 4"):
-        pool.run(_traffic(n=2), wall_clock=True)
+    assert pool.mesh_placement is None
     pool.close()
-    wall = _pool(serve_wall_clock=True)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        wall.run(_traffic(n=2))
-    wall.close()
-    with pytest.raises(NotImplementedError, match="items 5 and 7"):
-        ReplicaPool(model, config=ft.FFConfig(
-            **_geo(serve_replicas="auto")), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ServeEngine(model, ft.FFConfig(**_geo(serve_disagg=True)),
-                    device="cpu")
-    with pytest.raises(NotImplementedError, match="items 5 and 7"):
+    auto = ReplicaPool(model, config=ft.FFConfig(
+        **_geo(serve_replicas="auto")), device="cpu")
+    jff, _ = _models()
+    jauto = JPool(jff, config=FFConfig(batch_size=1,
+                                       **_geo(serve_replicas="auto")))
+    p, jp = auto.mesh_placement, jauto.mesh_placement
+    assert (p.tensor_parallel, p.replicas) == (1, len(auto.replicas))
+    # the port searches the visible cards (none here: one device), the
+    # JAX pool its 8 CPU devices: every cell the port priced is JAX's
+    assert p.table and all(jp.table[k] == v for k, v in p.table.items())
+    assert auto._default_autoscaler().mesh_table == p.table
+    for q in (auto, jauto):
+        q.close()
+    with pytest.raises(NotImplementedError, match="item 7"):
         ServeEngine(model, ft.FFConfig(**_geo(serve_mesh="2")),
                     device="cpu")
     with pytest.raises(ValueError, match="replica"):
         ReplicaPool(model, 0, config=ft.FFConfig(**_geo()), device="cpu")
+
+
+# -------------------------------------------------- wall-clock fabric
+def _toks(res):
+    return {r["stream_id"]: r["tokens"] for r in res["requests"]}
+
+
+def test_wall_clock_token_identity_both_modes():
+    """The same traffic serves token-identically on the virtual clock,
+    the threaded wall clock (each replica on its worker thread and its
+    engine's stream) and the single-threaded wall baseline; one
+    coherent clock per run; wall runs label their own histograms; a
+    pool replays virtual after a wall run."""
+    traffic = _traffic(n=14, seed=4, sample_frac=0.3, tenants=2,
+                       cancel_frac=0.0, rate_rps=300.0)
+    pool = _pool()
+    virt = pool.run(traffic, sample_seed=3)
+    assert all(r["outcome"] == "completed" for r in virt["requests"])
+    pool.close()
+    pool = _pool()
+    wall = pool.run(traffic, sample_seed=3, wall_clock=True,
+                    time_scale=0.2, dwell_s=0.002)
+    assert _toks(wall) == _toks(virt)
+    assert wall["clock"] == "wall" and wall["wall_threads"]
+    for rec in wall["requests"]:
+        assert rec["t_arrival"] <= rec["t_finish"] \
+            <= wall["makespan_s"] + 1e-9
+        if rec["ttft_s"] is not None:
+            assert rec["ttft_s"] >= 0.0
+    assert pool.metrics.hist_count("serve_router_ttft_wall_seconds") > 0
+    assert pool.metrics.hist_count(
+        "serve_router_ttft_virtual_seconds") == 0
+    assert any(p["busy_wall_s"] > 0 for p in wall["per_replica"])
+    pool.assert_zero_recompiles()
+    pool.check_drained()
+    assert _toks(pool.run(traffic, sample_seed=3)) == _toks(virt)
+    pool.close()
+    pool = _pool()
+    single = pool.run(traffic, sample_seed=3, wall_clock=True,
+                      wall_threads=False, time_scale=0.2, dwell_s=0.002)
+    assert _toks(single) == _toks(virt)
+    assert single["clock"] == "wall" and not single["wall_threads"]
+    pool.close()
+
+
+def test_wall_clock_attribution_sums_to_measured_latency():
+    tel = Telemetry()
+    pool = _pool(telemetry=tel)
+    traffic = _traffic(n=10, seed=6, cancel_frac=0.0, rate_rps=300.0)
+    res = pool.run(traffic, sample_seed=1, wall_clock=True,
+                   time_scale=0.2, dwell_s=0.002)
+    from flexflow_tpu_torch.utils.telemetry import REQUEST_COMPONENTS
+    assert set(res["attribution"]) == set(REQUEST_COMPONENTS)
+    for rec in res["requests"][:4]:
+        b = pool.explain_request(rec["stream_id"])
+        assert b["replica"] == rec["replica"]
+        assert abs(sum(b["components"].values()) - b["latency_s"]) \
+            <= 1e-9 + 0.01 * b["latency_s"]
+    pool.close()
+
+
+def test_wall_clock_refuses_autoscaler_and_reads_config():
+    traffic = _traffic(n=4, seed=0, cancel_frac=0.0)
+    pool = _pool()
+    price = pool.price_probe(64)
+    with pytest.raises(ValueError, match="virtual clock"):
+        pool.run(traffic, wall_clock=True,
+                 autoscaler=_scaler(Autoscaler, pool, price))
+    pool.close()
+    pool = _pool(serve_wall_clock=True)
+    res = pool.run(traffic, sample_seed=0, time_scale=0.1)
+    assert res["clock"] == "wall"
+    pool.close()
+    cfg = ft.FFConfig(serve_wall_clock=True, serve_transport="tcp",
+                      serve_transport_port=0)
+    assert cfg.serve_wall_clock and cfg.serve_transport == "tcp"
+    for mod, kw in ((FFConfig, dict(batch_size=1)), (ft.FFConfig, {})):
+        with pytest.raises(ValueError, match="serve_transport"):
+            mod(**kw, serve_transport="udp")

@@ -26,6 +26,19 @@ from flexflow_tpu_torch import from_jax_params
 from flexflow_tpu_torch.serve import ServeEngine as TorchEngine
 from flexflow_tpu_torch.weights import arch_from_params
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TIE_MARGIN = 1e-4
 BF16_TIE_MARGIN = 0.05
 GEOMETRY = dict(kv_page_size=8, serve_max_seqs=8, serve_prefill_budget=48)
@@ -208,16 +221,19 @@ def test_failed_step_fails_only_inflight_requests(lm):
 
 
 def test_unported_configurations_raise(lm):
-    """Tensor-parallel serving and the disaggregated roles are not
-    ported and raise; int8/fp8 pages, the legacy path and LoRA
-    adapters now serve."""
+    """Tensor-parallel serving is not ported and raises, naming its
+    ROADMAP item; int8/fp8 pages, the legacy path, LoRA adapters, a
+    one-device serve_mesh and an engine of a serve_disagg config (the
+    cluster is DisaggCluster's) serve."""
     _, model = lm
-    for knob in (dict(serve_mesh="2"), dict(serve_disagg=True)):
-        with pytest.raises(NotImplementedError, match=list(knob)[0]):
-            TorchEngine(model, TorchConfig(**knob), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        TorchEngine(model, TorchConfig(serve_mesh="2"), device="cpu")
     for knob in (dict(kv_dtype="int8"), dict(kv_dtype="float8_e4m3"),
-                 dict(serve_chunked_prefill=False), dict(adapter_rank=4)):
-        TorchEngine(model, TorchConfig(**knob), device="cpu")
+                 dict(serve_chunked_prefill=False), dict(adapter_rank=4),
+                 dict(serve_mesh="1"), dict(serve_mesh="auto"),
+                 dict(serve_disagg=True)):
+        assert TorchEngine(model, TorchConfig(**knob),
+                           device="cpu").tp == 1
     if not torch.cuda.is_available():
         # the entry points default to the card and never fall back
         with pytest.raises(RuntimeError, match="CUDA is not available"):

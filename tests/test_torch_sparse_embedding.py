@@ -33,6 +33,20 @@ from flexflow_tpu_torch.core import optimizers as popt
 from flexflow_tpu_torch.kernels import sparse_rows as SR
 
 V, D, N = 1000, 64, 4096
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 LR_SCALE = 0.7
 
 

@@ -38,19 +38,46 @@ import torch
 
 from flexflow_tpu.config import FFConfig
 from flexflow_tpu.models.transformer import build_transformer_lm
+from flexflow_tpu.search import machine_model as jax_machine
 from flexflow_tpu.serve import ServeEngine
 from flexflow_tpu.utils import slo as jslo
 from flexflow_tpu.utils import telemetry as jtel
 from flexflow_tpu.utils.faults import FaultInjector
 
 import flexflow_tpu_torch as ft
+from flexflow_tpu_torch.search import machine_model as torch_machine
 from flexflow_tpu_torch.serve import ServeEngine as TorchEngine
 from flexflow_tpu_torch.utils import faults as tfaults
 from flexflow_tpu_torch.utils import profiling
 from flexflow_tpu_torch.utils import slo as tslo
 from flexflow_tpu_torch.utils import telemetry as ttel
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 VOCAB = 89
+
+
+@pytest.fixture(autouse=True)
+def _jax_machine_numbers(monkeypatch):
+    """Both packages price a step on the same machine: the port's
+    machine model holds the JAX package's default numbers, read at run
+    time (the port's own are the H100's)."""
+    monkeypatch.setattr(
+        torch_machine, "default_machine_model",
+        lambda mesh=None, spec=None, machine_file=None:
+        torch_machine.H100MachineModel.like(
+            jax_machine.default_machine_model(machine_file=machine_file)))
 GEOMETRY = dict(kv_page_size=8, kv_num_pages=73, serve_max_seqs=8,
                 serve_prefill_budget=48, serve_retry_backoff_s=0.0)
 # program families the JAX engine registers and the port does not yet
@@ -385,15 +412,32 @@ def test_explain_request_partitions_by_jax_rules(lm):
         teng.explain_request(99)
 
 
-def test_drift_records_an_injected_prediction(lm, monkeypatch):
-    """No simulator in the port: no drift sample by default. With the
-    prediction injected (as JAX's suite rigs its cost model) the port
-    records JAX's regimes and flags them on the threshold."""
+def test_drift_samples_equal_jax(lm):
+    """Every mixed step is priced by the port's serve cost stack: on the
+    JAX package's machine numbers the port records JAX's drift regimes
+    with JAX's predicted seconds and its per-class breakdown, bit for
+    bit."""
     jeng, teng = _pair(lm)
     prompts = _prompts(np.random.RandomState(3), 4)
     _gen(jeng, teng, prompts, 4)
-    assert not teng.telemetry.drift_snapshot()
-    jeng.telemetry._drift.clear()   # JAX's simulator priced that run
+    snap = teng.telemetry.drift_snapshot()["serve"]
+    jsnap = jeng.telemetry.drift_snapshot()["serve"]
+    assert snap and set(snap) == set(jsnap)
+    for regime, d in snap.items():
+        assert d["count"] == jsnap[regime]["count"]
+        assert d["predicted_ms_per_step"] == \
+            jsnap[regime]["predicted_ms_per_step"]
+    for ctx in (16, 64):
+        tp, jp = teng._drift_predicted(ctx), jeng._drift_predicted(ctx)
+        assert tp[0] == jp[0] and tp[1] == jp[1]
+
+
+def test_drift_records_an_injected_prediction(lm, monkeypatch):
+    """With the prediction injected (as JAX's suite rigs its cost
+    model) the port records JAX's regimes and flags them on the
+    threshold."""
+    jeng, teng = _pair(lm)
+    prompts = _prompts(np.random.RandomState(3), 4)
     for cls in (ServeEngine, TorchEngine):
         monkeypatch.setattr(cls, "_drift_predicted",
                             lambda self, *key: (1.0, None))

@@ -7,10 +7,24 @@ arrival rescale and the spec validation are JAX's."""
 import dataclasses
 
 import pytest
+import torch
 
 from flexflow_tpu.serve import traffic as jtraffic
 
 from flexflow_tpu_torch.serve import traffic as ttraffic
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 SPECS = {
     "poisson": dict(requests=40, seed=0),

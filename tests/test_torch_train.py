@@ -27,6 +27,19 @@ from flexflow_tpu.op import OpContext as JContext
 import flexflow_tpu_torch as ft
 from flexflow_tpu_torch.op import OpContext
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_cpu_thread():
+    """The port's CPU computations here run at test shapes, and beside
+    other test workers on one host each worker's intra-op thread pool
+    oversubscribes the cores (a serving case that takes 2 s alone took
+    25 s beside two other workers). One thread for this module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # the small model of every slice test: batch 4, seq 16, hidden 32,
 # 4 heads (head_dim 8), 2 layers, ff 64, 4 classes
 ARCH = dict(seq_len=16, hidden=32, num_heads=4, num_layers=2, ff_dim=64,
