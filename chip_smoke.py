@@ -135,6 +135,7 @@ without CUDA or outside a checkout. Imports nothing of JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1313,15 +1314,22 @@ def nmt_batches(n, seed=0):
     return out
 
 
+def nmt_graph(dtype, use_pallas=None, **cfg):
+    """build_nmt_lstm at full width on the card, not compiled (``cfg``:
+    more FFConfig fields)."""
+    from flexflow_tpu_torch import FFConfig, build_nmt_lstm
+    return build_nmt_lstm(FFConfig(batch_size=NB, seed=0, **cfg),
+                          batch_size=NB, seq_len=NT, vocab_size=NV,
+                          embed_dim=NH, hidden=NH, num_layers=NL,
+                          dtype=dtype, use_pallas=use_pallas, device="cuda")
+
+
 def nmt_model(dtype, use_pallas, capture=True):
     """build_nmt_lstm at full width on the card, SGD lr 0.01; weights
     from the port's numpy streams, the same for every model built
     here. ``capture=False`` runs every step eagerly."""
-    from flexflow_tpu_torch import FFConfig, SGDOptimizer, build_nmt_lstm
-    m = build_nmt_lstm(FFConfig(batch_size=NB, seed=0), batch_size=NB,
-                       seq_len=NT, vocab_size=NV, embed_dim=NH, hidden=NH,
-                       num_layers=NL, dtype=dtype, use_pallas=use_pallas,
-                       device="cuda")
+    from flexflow_tpu_torch import SGDOptimizer
+    m = nmt_graph(dtype, use_pallas)
     m.compile(optimizer=SGDOptimizer(lr=0.01),
               loss_type="sparse_categorical_crossentropy",
               metrics=["accuracy"], capture=capture)
@@ -3033,7 +3041,8 @@ PARITY_BATCH = 4
 # weight's update, and the running statistics' change. The yardstick is
 # the function's own conditioning, read on the CPU: the same CPU step
 # from the weights moved by one ulp each (up or down at random; three
-# numpy seeds, each measure at its largest over the three). A deep
+# numpy seeds, each measure at its largest over the three; its update
+# taken from the moved weights). A deep
 # ReLU net's gradient is not continuous: one activation that crosses 0
 # under a rounding change moves the whole update below it, and in
 # ResNet-50 and Inception a one-ulp change of the weights moves the
@@ -3042,7 +3051,9 @@ PARITY_BATCH = 4
 # measure is held within SPREAD_FACTOR times that witness, or the fixed
 # limit below where that is larger; the other models meet the fixed
 # limits (their witness is logged). The loss is a forward quantity and
-# has a fixed limit
+# has a fixed limit. Beside each difference the smoke counts the ReLU
+# outputs whose mask differs (relu_masks): a difference past the fixed
+# limits with no mask flipped is reported as a fault
 CPU_LOSS_REL = 1e-4
 UPDATE_REL = 1e-3
 STATES_REL = 1e-5
@@ -3107,27 +3118,30 @@ def states_of(m):
             for op, st in m.state.states.items() for k, s in st.items()}
 
 
-def update_err(w0, wa, wb):
+def update_err(w0, wa, wb, w0a=None):
     """||du_a - du_b|| / ||du_b|| over all weights concatenated, du the
-    change from w0 (each on the CPU, f32)."""
+    change from w0 (each on the CPU, f32); run a's change is taken from
+    ``w0a`` when its step started elsewhere (a one-ulp witness)."""
+    w0a = w0 if w0a is None else w0a
     num = den = 0.0
     for n, w in w0.items():
-        da = wa[n].float().cpu() - w
+        da = wa[n].float().cpu() - w0a[n]
         db = wb[n].float().cpu() - w
         num += float((da - db).square().sum())
         den += float(db.square().sum())
     return math.sqrt(num / den)
 
 
-def worst_updates(w0, wa, wb, n=3):
+def worst_updates(w0, wa, wb, n=3, w0a=None):
     """The n weights whose updates differ most: [(name, ||du_a - du_b|| /
     max(||du_b||, UPDATE_FLOOR x the largest ||du_b|| of the model),
     ||du_b||)]. The floor holds a weight whose update is tiny to an
     absolute error instead (a conv bias before a BatchNorm: its true
     update is zero, what is left is rounding)."""
+    w0a = w0 if w0a is None else w0a
     rows = []
     for k, w in w0.items():
-        da = wa[k].float().cpu() - w
+        da = wa[k].float().cpu() - w0a[k]
         db = wb[k].float().cpu() - w
         rows.append((k, float((da - db).norm()), float(db.norm())))
     floor = UPDATE_FLOOR * max(nb for _, _, nb in rows)
@@ -3169,12 +3183,71 @@ def move_one_ulp(m, seed=0):
                     up, torch.tensor(math.inf), torch.tensor(-math.inf))))
 
 
-def compare_steps(w0, s0, a, b):
-    """The measures of step a = (loss, weights, states) against step b."""
+def compare_steps(w0, s0, a, b, w0a=None):
+    """The measures of step a = (loss, weights, states) against step b,
+    both updates taken from w0 (run a's from ``w0a`` when given)."""
     return {"loss_rel": abs(a[0] - b[0]) / abs(b[0]),
-            "update_rel": update_err(w0, a[1], b[1]),
-            "worst_weights": worst_updates(w0, a[1], b[1]),
+            "update_rel": update_err(w0, a[1], b[1], w0a),
+            "worst_weights": worst_updates(w0, a[1], b[1], w0a=w0a),
             "states_rel": states_err(s0, a[2], b[2])}
+
+
+def relu_sites(m):
+    """The ops of m whose output is a ReLU's: batch norms with relu,
+    relu units, and convs and denses with a relu activation."""
+    return [op for op in m.ops
+            if (op.op_type == "batch_norm" and op.relu)
+            or (op.op_type == "element_unary" and op.mode == "relu")
+            or getattr(op, "activation", None) == "relu"]
+
+
+@contextlib.contextmanager
+def relu_masks(m, into):
+    """Record into ``into``, per ReLU site of m, the mask (output > 0)
+    of the first forward the site runs, on the host (an eager step:
+    a replayed graph runs no Python)."""
+    sites = relu_sites(m)
+    for op in sites:
+        def wrapped(params, xs, ctx, op=op, f=op.forward):
+            ys = f(params, xs, ctx)
+            if op.name not in into:
+                into[op.name] = (ys[0].detach() > 0).cpu()
+            return ys
+        op.forward = wrapped
+    try:
+        yield
+    finally:
+        for op in sites:
+            del op.forward      # back to the class's method
+
+
+def mask_flips(a, b):
+    """The ReLU outputs whose mask differs between two runs' records:
+    {"flips", "sites" (sites with a flip), "outputs" (all recorded)}."""
+    per = {k: int((a[k] != b[k]).sum()) for k in a if k in b}
+    return {"flips": sum(per.values()),
+            "sites": sum(1 for v in per.values() if v),
+            "outputs": sum(int(a[k].numel()) for k in per)}
+
+
+def masked_step(m, batch):
+    """one_step with the ReLU masks of its forward: (step, masks)."""
+    masks = {}
+    with relu_masks(m, masks):
+        st = one_step(m, batch)
+    return st, masks
+
+
+def unexplained(what, measures, flips, loss_limit, update_limit):
+    """A difference past the fixed f32 limits with no ReLU mask flipped
+    is not explained by the masks: a fault, reported."""
+    if flips["flips"] == 0 and (measures["loss_rel"] > loss_limit
+                                or measures["update_rel"] > update_limit):
+        log(f"FAULT: {what}: a difference with no ReLU mask flipped: "
+            f"loss rel {measures['loss_rel']:.3g}, update rel "
+            f"{measures['update_rel']:.3g}")
+        return [what]
+    return []
 
 
 def sweep_parity(name):
@@ -3192,14 +3265,20 @@ def sweep_parity(name):
     w0 = {n: w.float().clone() for n, w in weights_of(cpu).items()}
     s0 = states_of(cpu)
     t0 = time.perf_counter()
-    stc = one_step(cpu, batch)
+    stc, mcpu = masked_step(cpu, batch)
     cpu_s = time.perf_counter() - t0
     del cpu
     runs = []
     for seed in range(WITNESS_SEEDS):
         ulp = sweep_model(name, PARITY_BATCH, torch.float32, device="cpu")
         move_one_ulp(ulp, seed)
-        runs.append(compare_steps(w0, s0, one_step(ulp, batch), stc))
+        # the witness's update is taken from its own (moved) weights: an
+        # update below a weight's f32 spacing (most of the seq2seq's)
+        # would otherwise count the one-ulp move itself as a difference
+        wu = {n: w.float().clone() for n, w in weights_of(ulp).items()}
+        stu, mulp = masked_step(ulp, batch)
+        runs.append({**compare_steps(w0, s0, stu, stc, w0a=wu),
+                     "mask_flips": mask_flips(mulp, mcpu)})
         del ulp
     # each measure at its largest over the seeds (running statistics:
     # None in a model without them)
@@ -3209,7 +3288,12 @@ def sweep_parity(name):
         "worst_weights": max((r["worst_weights"] for r in runs),
                              key=lambda e: e[0][1]),
         "states_rel": max((r["states_rel"] or 0.0 for r in runs),
-                          default=0.0) if s0 else None}
+                          default=0.0) if s0 else None,
+        "mask_flips": [r["mask_flips"] for r in runs],
+        "seed_update_rel": [r["update_rel"] for r in runs],
+        "unexplained": sum((unexplained(
+            f"{name} one-ulp witness seed {k}", r, r["mask_flips"],
+            CPU_LOSS_REL, UPDATE_REL) for k, r in enumerate(runs)), [])}
     card = sweep_model(name, PARITY_BATCH, torch.float32, capture=False)
     same = max_weight_diff({n: w.cuda() for n, w in w0.items()},
                            weights_of(card))
@@ -3217,11 +3301,14 @@ def sweep_parity(name):
         raise AssertionError(f"{name}: card and CPU initial weights differ "
                              f"{same}")
     groups = len(card.executor._conv_merge_leader)
-    stg = one_step(card, batch)
+    stg, mcard = masked_step(card, batch)
     del card
     res = {"cpu_step_s": cpu_s, "loss_card": stg[0], "loss_cpu": stc[0],
            **compare_steps(w0, s0, stg, stc), "ulp_witness": witness,
-           "sibling_groups": groups}
+           "sibling_groups": groups, "mask_flips": mask_flips(mcard, mcpu)}
+    res["unexplained"] = unexplained(f"{name} card vs CPU", res,
+                                     res["mask_flips"], CPU_LOSS_REL,
+                                     UPDATE_REL)
     knobs = {}
     if name not in ("candle_uno", "seq2seq"):
         knobs["nhwc"] = {"conv_layout": "NHWC"}
@@ -3230,7 +3317,12 @@ def sweep_parity(name):
     for kname, cfg in knobs.items():
         m = sweep_model(name, PARITY_BATCH, torch.float32, capture=False,
                         **cfg)
-        res[kname] = compare_steps(w0, s0, one_step(m, batch), stg)
+        stk, mk = masked_step(m, batch)
+        res[kname] = {**compare_steps(w0, s0, stk, stg),
+                      "mask_flips": mask_flips(mk, mcard)}
+        res["unexplained"] += unexplained(
+            f"{name} {kname} vs card", res[kname],
+            res[kname]["mask_flips"], KNOB_LOSS_REL, UPDATE_REL)
         del m
     torch.cuda.empty_cache()
     by_witness = {"update_rel": max(UPDATE_REL, SPREAD_FACTOR
@@ -3433,6 +3525,19 @@ def sweep_phase(ls, card: str):
             f"{w['states_rel']}, loss rel {w['loss_rel']:.3g}; knobs "
             f"{ {k: p[k] for k in ('nhwc', 'no_sibling_fusion') if k in p} }"
             f" ({p['sibling_groups']} sibling groups)")
+        fl = p["mask_flips"]
+        log(f"sweep {name}: ReLU masks flipped, card vs CPU: {fl['flips']} "
+            f"of {fl['outputs']} outputs at {fl['sites']} sites (update "
+            f"rel {p['update_rel']:.3g}); one-ulp witness seeds: "
+            + ", ".join(f"{r['flips']} at {r['sites']} sites (update rel "
+                        f"{u:.3g})"
+                        for r, u in zip(w["mask_flips"],
+                                        w["seed_update_rel"]))
+            + "".join(f"; {k} vs card: {p[k]['mask_flips']['flips']} at "
+                      f"{p[k]['mask_flips']['sites']} sites (update rel "
+                      f"{p[k]['update_rel']:.3g})"
+                      for k in ("nhwc", "no_sibling_fusion") if k in p)
+            + f"; unexplained {p['unexplained'] + w['unexplained']}")
         if name == "seq2seq":
             res["lstm_kernels"] = seq2seq_lstm_check(ls)
             res["scan_parity"] = {
@@ -3725,7 +3830,7 @@ def dlrm_cpu_parity():
     cpu = dlrm_model(device="cpu", **s)
     w0 = {n: w.float().clone() for n, w in weights_of(cpu).items()}
     t0 = time.perf_counter()
-    stc = one_step(cpu, batch)
+    stc, mcpu = masked_step(cpu, batch)
     cpu_s = time.perf_counter() - t0
     del cpu
     card = dlrm_model(capture=False, **s)
@@ -3734,20 +3839,27 @@ def dlrm_cpu_parity():
     if same[0] != 0.0:
         raise AssertionError(f"dlrm: card and CPU initial weights differ "
                              f"{same}")
-    stg = one_step(card, batch)
+    stg, mcard = masked_step(card, batch)
     del card
     torch.cuda.empty_cache()
     res = {"cpu_step_s": cpu_s, "loss_card": stg[0], "loss_cpu": stc[0],
            **compare_steps(w0, {}, stg, stc),
+           "mask_flips": mask_flips(mcard, mcpu),
            "limits": {"loss_rel": DLRM_CPU_LOSS_REL,
                       "update_rel": DLRM_UPDATE_REL,
                       "each": DLRM_UPDATE_REL}}
+    res["unexplained"] = unexplained("dlrm card vs CPU", res,
+                                     res["mask_flips"], CPU_LOSS_REL,
+                                     UPDATE_REL)
     log(f"dlrm card f32 step vs CPU ({s['tables']} x {s['vocab']}, batch "
         f"{s['batch']}): loss {stg[0]} vs {stc[0]} (rel "
         f"{res['loss_rel']:.3g}, limit {DLRM_CPU_LOSS_REL}), update rel "
         f"{res['update_rel']:.3g}, worst weight "
         f"{res['worst_weights'][0][0]} {res['worst_weights'][0][1]:.3g} "
-        f"(limits {DLRM_UPDATE_REL}); CPU step {cpu_s:.2f} s")
+        f"(limits {DLRM_UPDATE_REL}); ReLU masks flipped "
+        f"{res['mask_flips']['flips']} of {res['mask_flips']['outputs']} "
+        f"outputs at {res['mask_flips']['sites']} sites, unexplained "
+        f"{res['unexplained']}; CPU step {cpu_s:.2f} s")
     if not (res["loss_rel"] <= DLRM_CPU_LOSS_REL
             and res["update_rel"] <= DLRM_UPDATE_REL
             and res["worst_weights"][0][1] <= DLRM_UPDATE_REL):
@@ -3861,6 +3973,366 @@ def moe_phase(card: str):
     if got != want:
         raise AssertionError(f"moe auto dispatch {got}, want {want}")
     return out
+
+
+# the search phase (search_phase): calibration runs `SEARCH_CAL_STEPS`
+# timed steps after one warm step (the capture) per model; grounding
+# measures the top `SEARCH_TOP_OPS` op signatures; the searches anneal
+# `SEARCH_BUDGET` proposals on descriptions of 8 H100s
+SEARCH_CAL_STEPS = 10
+SEARCH_TOP_OPS = 4
+SEARCH_BUDGET = 1000
+SEARCH_SEED = 0
+SEARCH_MESHES = (((8,), ("data",)), ((2, 4), ("data", "model")))
+# ResNet-50's grounded conv chain: ImageNet's shape at the sweep's batch
+SEARCH_RESNET = dict(batch_size=32, image_size=224)
+# memory_ledger's live bytes against the allocator's growth across the
+# model's compile (its parameters and optimizer slots)
+LEDGER_LIVE_REL = 1e-2
+
+
+def search_calibrate(fa, ls):
+    """(a) calibrate_simulator on the encoder (bf16 policy and
+    activations, b=32, s=512), the LM (bf16 policy, 16 x 512) and the
+    NMT (bf16 activations, f32 policy, b=256, T=40): measured and
+    pre-calibration predicted seconds per step, their ratio, and the
+    kernels' launches held to layers x (1 warm + SEARCH_CAL_STEPS)."""
+    from flexflow_tpu_torch import FFConfig, SGDOptimizer, build_transformer
+    from flexflow_tpu_torch.core.precision import dtype_name
+    out = {}
+    steps = SEARCH_CAL_STEPS
+    for name in ("encoder", "lm", "nmt"):
+        if name == "encoder":
+            m = build_transformer(
+                FFConfig(batch_size=TB, seed=0, compute_dtype="bfloat16"),
+                batch_size=TB, dtype=torch.bfloat16, device="cuda",
+                **TRAIN_ARCH)
+            m.compile(optimizer=SGDOptimizer(lr=0.01),
+                      loss_type="sparse_categorical_crossentropy",
+                      metrics=[])
+            batch, table, names, layers = (
+                train_batches(1)[0], fa.launches, fa.FLASH_KERNELS,
+                TRAIN_ARCH["num_layers"])
+        elif name == "lm":
+            m = lm_model("bfloat16")
+            batch, table, names, layers = (
+                lm_batches(1)[0], fa.launches, fa.FLASH_KERNELS,
+                LM_ARCH["num_layers"])
+        else:
+            m = nmt_model(torch.bfloat16, None)
+            batch, table, names, layers = (
+                nmt_batches(1)[0], ls.launches,
+                ("lstm_fwd", "lstm_bwd"), NL)
+        table.update(dict.fromkeys(table, 0))
+        measured, predicted = m.calibrate_simulator(batch, steps=steps)
+        launches = {k: table[k] for k in names}
+        want = layers * (steps + 1)
+        if launches != dict.fromkeys(names, want):
+            raise AssertionError(f"search (a) {name}: launches {launches} "
+                                 f"!= {layers} layers x {steps + 1} steps")
+        out[name] = {"measured_ms": measured * 1e3,
+                     "predicted_ms": predicted * 1e3,
+                     "measured_over_predicted": measured / predicted,
+                     "time_scale": m.simulator.time_scale,
+                     "launches": launches,
+                     "policy": dtype_name(m.config.compute_dtype)}
+        log(f"search (a) calibrate {name}: measured {measured * 1e3:.4f} "
+            f"ms/step (CUDA events, {steps} steps), predicted before "
+            f"calibration {predicted * 1e3:.4f} ms, measured/predicted "
+            f"{measured / predicted:.3f}; launches {launches} (= {layers}"
+            f" layers x {steps + 1} steps)")
+        release(m)
+    return out
+
+
+def search_ground(fa, ls):
+    """(b) measure_top_ops on the encoder and the NMT: each grounded
+    op's measured forward and backward beside its analytic price (the
+    attention op runs the flash kernels, the LSTM op the recurrence
+    kernels: measure_op checks their launches); then
+    conv_in_situ_factor and ResNet-50's grounded conv chain."""
+    from flexflow_tpu_torch import FFConfig, build_resnet, build_transformer
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    from flexflow_tpu_torch.parallel.pconfig import Strategy
+    from flexflow_tpu_torch.search import op_measure
+    from flexflow_tpu_torch.search.cost_model import op_cost
+    from flexflow_tpu_torch.search.measure import calibrated_machine_model
+    from flexflow_tpu_torch.search.simulator import Simulator
+    mesh = make_mesh((1,), ("data",))
+    mm = calibrated_machine_model(mesh)
+    out = {"launches": {}}
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    ls.launches.update(dict.fromkeys(ls.launches, 0))
+    models = {
+        "encoder": build_transformer(
+            FFConfig(batch_size=TB, seed=0, compute_dtype="bfloat16",
+                     measure_top_ops=SEARCH_TOP_OPS),
+            batch_size=TB, dtype=torch.bfloat16, device="cuda",
+            **TRAIN_ARCH),
+        "nmt": nmt_graph(torch.bfloat16, measure_top_ops=SEARCH_TOP_OPS),
+        "resnet50": build_resnet(
+            FFConfig(batch_size=SEARCH_RESNET["batch_size"], seed=0,
+                     compute_dtype="bfloat16",
+                     measure_top_ops=SEARCH_TOP_OPS),
+            depth=50, num_classes=1000, device="cuda", **SEARCH_RESNET)}
+    out["conv_in_situ_factor"] = op_measure.conv_in_situ_factor()
+    wants = {"encoder": "multihead_attention", "nmt": "lstm",
+             "resnet50": "conv2d"}
+    for name, m in models.items():
+        sim = Simulator(m, mesh, mm)
+        want = wants[name]
+        if want not in {o.op_type for o in m.ops
+                        if o.name in sim._measured_set}:
+            # the top signatures by analytic time (which move with the
+            # calibrated factors) may miss it: ground its priciest op too
+            def price(o):
+                c = op_cost(o, Strategy().for_op(o.name), mesh, mm)
+                return c.fwd + c.bwd
+            sim._measured_set.add(max((o for o in m.ops
+                                       if o.op_type == want), key=price).name)
+        rows = {}
+        kinds = set()
+        for op in m.ops:
+            if op.name not in sim._measured_set:
+                continue
+            s = Strategy().for_op(op.name)
+            a = op_cost(op, s, mesh, mm)
+            g = sim._op_cost(op, Strategy())
+            sig = op_measure.op_signature(op, 1)
+            if sig in kinds:
+                continue
+            kinds.add(sig)
+            rows[op.name] = {"op_type": op.op_type,
+                             "analytic_fwd_ms": a.fwd * 1e3,
+                             "analytic_bwd_ms": a.bwd * 1e3,
+                             "measured_fwd_ms": g.fwd * 1e3,
+                             "measured_bwd_ms": g.bwd * 1e3}
+            log(f"search (b) ground {name} {op.name} ({op.op_type}): "
+                f"measured fwd {g.fwd * 1e3:.4f} bwd {g.bwd * 1e3:.4f} ms, "
+                f"analytic fwd {a.fwd * 1e3:.4f} bwd {a.bwd * 1e3:.4f} ms")
+        out[name] = {"ops": rows,
+                     "grounded_ops": len(sim._measured_set),
+                     "step_ms": sim.simulate(Strategy()) * 1e3}
+        if want not in {r["op_type"] for r in rows.values()}:
+            raise AssertionError(f"search (b) {name}: no {want} op among "
+                                 f"the grounded {list(rows)}")
+    out["launches"] = {**{k: fa.launches[k] for k in fa.FLASH_KERNELS},
+                       **{k: ls.launches[k]
+                          for k in ("lstm_fwd", "lstm_bwd")}}
+    if not all(out["launches"].values()):
+        raise AssertionError(f"search (b): a kernel did not launch while "
+                             f"measured: {out['launches']}")
+    log(f"search (b) conv_in_situ_factor {out['conv_in_situ_factor']:.4f};"
+        f" measurement launches {out['launches']}")
+    del models
+    torch.cuda.empty_cache()
+    return out
+
+
+def search_drift_memory():
+    """(c) fit on the LM (bf16 policy) for 3 epochs of 3 steps with
+    telemetry on: drift samples > 0 and the drift report; (d) its
+    memory_ledger: live bytes against the allocator's growth across the
+    compile, and the activation estimate beside the step's peak."""
+    from functools import partial
+    from flexflow_tpu_torch import FFConfig, SGDOptimizer, build_transformer_lm
+    from flexflow_tpu_torch.core.losses import \
+        sparse_categorical_crossentropy
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    m = build_transformer_lm(
+        FFConfig(batch_size=LB, seed=0, compute_dtype="bfloat16",
+                 telemetry=True),
+        batch_size=LB, device="cuda", **LM_ARCH)
+    m.compile(optimizer=SGDOptimizer(lr=0.01, momentum=0.9),
+              loss_type=partial(sparse_categorical_crossentropy,
+                                from_logits=True), metrics=[])
+    torch.cuda.synchronize()
+    live = torch.cuda.memory_allocated() - base
+    bs = lm_batches(3)
+    x = {k: np.concatenate([b[k] for b in bs]) for k in ("tokens",
+                                                          "positions")}
+    y = np.concatenate([b["label"] for b in bs])
+    torch.cuda.reset_peak_memory_stats()
+    hist = m.fit(x, y, epochs=3, verbose=False, shuffle=False)
+    peak = torch.cuda.max_memory_allocated() - base
+    drift = m.telemetry.drift_snapshot().get("train", {})
+    samples = sum(d["count"] for d in drift.values())
+    if samples <= 0:
+        raise AssertionError(f"search (c): no drift samples ({drift})")
+    report = m.telemetry.drift_report()
+    c = {"drift": drift, "samples": samples, "report": report,
+         "losses": [h["loss"] for h in hist],
+         "predicted_ms": m._predicted_step_s()[0] * 1e3}
+    log(f"search (c) drift: {samples} samples, {json.dumps(drift)}")
+    log(f"search (c) drift report: {json.dumps(report)}")
+    ledger = m.memory_ledger()
+    ratio = ledger["live_bytes"] / live
+    d = {"ledger": ledger, "allocator_live_bytes": live,
+         "ledger_vs_live": ratio, "peak_bytes": peak,
+         "activation_est_bytes": ledger["activation_est_bytes"],
+         "peak_over_live_bytes": peak - live}
+    log(f"search (d) memory: ledger live {ledger['live_bytes']:.0f} B vs "
+        f"the allocator's {live} B (ratio {ratio:.5f}, limit "
+        f"{LEDGER_LIVE_REL}); activation estimate "
+        f"{ledger['activation_est_bytes']:.0f} B beside the fit's peak "
+        f"above the live bytes {peak - live} B (max_memory_allocated "
+        f"{peak + base} B)")
+    if abs(ratio - 1.0) > LEDGER_LIVE_REL:
+        raise AssertionError(f"search (d): ledger_vs_live {ratio}")
+    release(m)
+    return c, d
+
+
+def search_models():
+    """The searched models, built on the card and not compiled: the
+    encoder and the LM (bf16 policy, parameter parallelism on) and DLRM
+    "full" (separate tables, device placement on, the SGD optimizer's
+    sparse rows priced as compile would)."""
+    import flexflow_tpu_torch as ft
+    kw = dict(seed=0, compute_dtype="bfloat16",
+              enable_parameter_parallel=True, grad_bucket_mb=0.0)
+    enc = ft.build_transformer(ft.FFConfig(batch_size=TB, **kw),
+                               batch_size=TB, dtype=torch.bfloat16,
+                               device="cuda", **TRAIN_ARCH)
+    lm = ft.build_transformer_lm(ft.FFConfig(batch_size=LB, **kw),
+                                 batch_size=LB, device="cuda", **LM_ARCH)
+    f = DLRM_FULL
+    dl = ft.build_dlrm(
+        ft.FFConfig(batch_size=f["batch"], seed=0, grad_bucket_mb=0.0,
+                    enable_parameter_parallel=True,
+                    enable_device_placement=True),
+        batch_size=f["batch"], embedding_vocab_sizes=(f["vocab"],)
+        * f["tables"], embedding_dim=DLRM_DIM, device="cuda")
+    for m in (enc, lm, dl):
+        m.optimizer = ft.SGDOptimizer(lr=0.01)
+    return {"encoder": enc, "lm": lm, "dlrm": dl}
+
+
+def search_optimize(outdir):
+    """(e) optimize over descriptions of 8 H100s ((8,) data, (2, 4)
+    data x model) for the encoder, the LM and DLRM, in both engines
+    with one seed: each search's wall, its best simulated step and DP's
+    beside it (the winner no slower), the winner's explain_report head,
+    a strategy file round trip; then optimize_with_mesh(devices=8) on
+    the LM."""
+    from flexflow_tpu_torch.parallel import strategy_io
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    from flexflow_tpu_torch.parallel.pconfig import Strategy
+    from flexflow_tpu_torch.search import mcmc
+    from flexflow_tpu_torch.search.explain import (explain_placement,
+                                                   explain_report)
+    from flexflow_tpu_torch.search.simulator import Simulator
+    from flexflow_tpu_torch import native
+    t0 = time.perf_counter()
+    native.get_lib()        # g++ builds the engine here, outside the walls
+    out = {"native_build_s": time.perf_counter() - t0}
+    log(f"search (e) native engine built from flexflow_tpu_torch/csrc in "
+        f"{out['native_build_s']:.2f} s")
+    models = search_models()
+    for name, m in models.items():
+        for shape, axes in SEARCH_MESHES:
+            mesh = make_mesh(shape, axes)
+            mm = mcmc.search_machine_model(m, mesh)
+            key = f"{name} {'x'.join(map(str, shape))}"
+            cell = {}
+            for engine in ("python", "native"):
+                sim = Simulator(m, mesh, mm)
+                dp = sim.simulate(Strategy())
+                t0 = time.perf_counter()
+                best = mcmc.optimize(m, budget=SEARCH_BUDGET, mesh=mesh,
+                                     seed=SEARCH_SEED, simulator=sim,
+                                     use_native=engine == "native",
+                                     chains=1)
+                wall = time.perf_counter() - t0
+                cost = sim.simulate(best)
+                stats = m.search_stats
+                if stats["engine"] != engine:
+                    raise AssertionError(f"search (e) {key}: ran "
+                                         f"{stats['engine']}, not {engine}")
+                if not cost <= dp:
+                    raise AssertionError(f"search (e) {key} {engine}: "
+                                         f"best {cost} slower than DP {dp}")
+                sharded = sorted({f"{op}:{ax}" for op, st in
+                                  best.op_strategies.items()
+                                  for ax, v in st.axis_map.items()
+                                  if v == "model" or ax == "__devices__"})
+                cell[engine] = {"wall_s": wall, "best_ms": cost * 1e3,
+                                "dp_ms": dp * 1e3,
+                                "proposals": stats["proposals"],
+                                "proposals_per_sec":
+                                    stats["proposals_per_sec"],
+                                "sharded": sharded[:12],
+                                "n_sharded": len(sharded)}
+                log(f"search (e) {key} {engine}: {SEARCH_BUDGET} proposals"
+                    f" in {wall:.3f} s, best {cost * 1e3:.4f} ms vs DP "
+                    f"{dp * 1e3:.4f} ms; model/pinned maps {len(sharded)}"
+                    f" {sharded[:6]}")
+            info = explain_placement(m, mesh, best, simulator=sim)
+            head = explain_report(info).splitlines()[:6]
+            cell["explain_head"] = head
+            for line in head:
+                log(f"search (e) {key} explain: {line}")
+            path = outdir / f"strategy_{name}_{'x'.join(map(str, shape))}"
+            best.save(str(path) + ".json")
+            back = Strategy.load(str(path) + ".json")
+            # the reference's text format keeps what divides the mesh:
+            # its round trip is a fixed point (load, save, same text)
+            strategy_io.save_strategies_to_file(m, best, mesh,
+                                                str(path) + ".txt")
+            text = strategy_io.load_strategies_from_file(
+                m, mesh, str(path) + ".txt")
+            strategy_io.save_strategies_to_file(m, text, mesh,
+                                                str(path) + ".2.txt")
+            same = ({k: v.axis_map for k, v in back.op_strategies.items()}
+                    == {k: v.axis_map for k, v in best.op_strategies.items()}
+                    and sim.simulate(back) == cost
+                    and Path(str(path) + ".txt").read_text()
+                    == Path(str(path) + ".2.txt").read_text())
+            if not same:
+                raise AssertionError(f"search (e) {key}: the strategy "
+                                     f"file round trip changed it")
+            cell["round_trip"] = same
+            out[key] = cell
+    lm = models["lm"]
+    t0 = time.perf_counter()
+    strat, mesh = mcmc.optimize_with_mesh(lm, budget=SEARCH_BUDGET,
+                                          seed=SEARCH_SEED, devices=8,
+                                          chains=1)
+    wall = time.perf_counter() - t0
+    sim = Simulator(lm, mesh, mcmc.search_machine_model(lm, mesh))
+    out["lm optimize_with_mesh"] = {
+        "mesh": dict(mesh.shape), "wall_s": wall,
+        "best_ms": sim.simulate(strat) * 1e3,
+        "dp_ms": sim.simulate(Strategy()) * 1e3,
+        "mesh_shapes": lm.search_stats["mesh_shapes"]}
+    log(f"search (e) lm optimize_with_mesh(devices=8): mesh "
+        f"{dict(mesh.shape)} of {lm.search_stats['mesh_shapes']} shapes "
+        f"in {wall:.3f} s, best {out['lm optimize_with_mesh']['best_ms']:.4f}"
+        f" ms vs DP on it {out['lm optimize_with_mesh']['dp_ms']:.4f} ms")
+    del models
+    return out
+
+
+def search_phase(fa, ls):
+    """The search stack on the card: (a) calibration, (b) grounding in
+    measured ops, (c) fit's drift samples, (d) the memory ledger, (e)
+    strategy searches over descriptions of 8 H100s. Returns its numbers
+    and the kernels' launches of (a) and (b)."""
+    from flexflow_tpu_torch.search.measure import calibrated_machine_model
+    t0 = time.perf_counter()
+    outdir = HERE / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
+    calibrated_machine_model()      # measured once, kept per card
+    res = {"calibration": search_calibrate(fa, ls)}
+    res["grounding"] = search_ground(fa, ls)
+    res["drift"], res["memory"] = search_drift_memory()
+    res["search"] = search_optimize(outdir)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"search phase: {res['phase_s']:.1f} s")
+    return res
 
 
 def _kernel_name(sym: str) -> str:
@@ -4039,6 +4511,9 @@ def main() -> int:
     swres, s2s_launches = sweep_phase(ls, card)
     dlres = dlrm_phase(sr, card)
     moeres = moe_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    searchres = search_phase(fa, ls)
 
     def head(cells):
         """A row's headline numbers: its f32 cell."""
@@ -4092,6 +4567,11 @@ def main() -> int:
             "launches": tres["launches"][kname],
             "lm_launches": lmres["captured"]["launches"][kname],
             "robust_fit_launches": rlaunches["robust_fit"][kname],
+            "search_launches": {
+                k: searchres["calibration"][k]["launches"][kname]
+                for k in ("encoder", "lm")},
+            "search_measure_launches":
+                searchres["grounding"]["launches"][kname],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -4117,6 +4597,10 @@ def main() -> int:
             "launches": nres["launches"][kname],
             "seq2seq_launches": s2s_launches[0][kname],
             "seq2seq_device_launches": s2s_launches[1][kname],
+            "search_launches":
+                searchres["calibration"]["nmt"]["launches"][kname],
+            "search_measure_launches":
+                searchres["grounding"]["launches"][kname],
             "seq2seq_shapes": swres["seq2seq"]["lstm_kernels"],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
@@ -4184,6 +4668,7 @@ def main() -> int:
     log(json.dumps({"tier": tierres}))
     log(json.dumps({"disagg": disres}))
     log(json.dumps({"sweep": swres}))
+    log(json.dumps({"search": searchres}, default=str))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -37,7 +37,12 @@ neither it nor JAX. It serves and trains on one NVIDIA H100:
     faults retried at the dispatch boundary, cancels, deadlines, crash
     containment and post-mortem bundles in the engine, the JAX
     package's telemetry bus, metrics and reports (``utils/``), and
-    ``fit``'s dispatch window (``core/overlap.py``).
+    ``fit``'s dispatch window (``core/overlap.py``);
+  * the strategy search (``search/``, ``parallel/``, ``native/``):
+    models priced on descriptions of machines of any size, strategies
+    searched in a Python and a native C++ engine, exported, explained,
+    and grounded on the card (op measurement, calibrated steps, fit's
+    drift samples); a strategy is kept on one device, nothing sharded.
 
 Every serving and training step is one program of a registry
 (``core/programs.py``): on the card it is captured once as a CUDA graph

@@ -13,9 +13,13 @@ policy of ``core/precision.py``, ``remat`` and
 ``trace_out``, the metrics endpoint, post-mortems, the SLO budget and
 ``train_dispatch_depth``), the serving tier's LoRA adapter, host
 tier, replica-pool, wall-clock, disaggregation and transport knobs, and
-the search stack's machine file and cost cache. A few knobs the port does not run yet
-(search, pipelines, fusion) are here at their JAX defaults so that setting one reaches ``FFModel.compile``, which raises
-``NotImplementedError`` instead of ignoring it. The rest of the JAX
+the search stack's machine file and cost cache, and the strategy
+search's fields (gates, budget, chains, strategy files, measurement,
+exports, gradient buckets, pipeline planning, fusion, the mesh
+description). Knobs that would need a mesh that executes
+(``pipeline_stages > 1``, a mesh of more than one device) reach
+``FFModel.compile``, which raises ``NotImplementedError`` naming
+ROADMAP module item 2 instead of ignoring them. The rest of the JAX
 config has no counterpart yet.
 
 Device policy: every entry point runs on the card unless the caller
@@ -26,7 +30,7 @@ when CUDA is asked for and missing.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -232,12 +236,63 @@ class FFConfig:
     # "NHWC": conv, pool and batch-norm values stay in channels_last
     # memory between those ops (core/executor.py); shapes stay NCHW
     conv_layout: str = "NCHW"
-    # knobs of the JAX package the port does not run yet, at their JAX
-    # defaults; FFModel.compile raises NotImplementedError for any other
-    # value
+    # the strategy search (search/mcmc.py, the JAX package's fields and
+    # defaults). compile(search_budget > 0) runs it; without a mesh (one
+    # device) the model's strategy stays as it is, as in JAX.
+    # search_chains 0 = min(4, cpu_count) parallel annealing chains;
+    # search_delta_sim re-simulates only the moved op per proposal;
+    # search_overlap_backward_sync lets gradient syncs overlap the
+    # backward (bucket-granular when grad_bucket_mb > 0);
+    # search_mesh_shapes searches the mesh factorization too
     search_budget: int = 0
+    search_alpha: float = 0.05
+    search_overlap_backward_sync: bool = True
+    search_delta_sim: bool = True
+    search_chains: int = 0
+    search_mesh_shapes: bool = False
+    # strategy files (parallel/pconfig.Strategy JSON, or the reference's
+    # text or .pb formats on import)
+    import_strategy_file: Optional[str] = None
+    export_strategy_file: Optional[str] = None
+    # the search's gates: which logical axes its candidates may map
+    enable_sample_parallel: bool = True
+    enable_parameter_parallel: bool = False
+    enable_attribute_parallel: bool = False
+    enable_sequence_parallel: bool = False
+    enable_expert_parallel: bool = False
+    enable_pipeline_parallel: bool = False
+    enable_propagation: bool = False
+    enable_device_placement: bool = False
+    # sequence-parallel attention lowering the cost model prices
+    # (parallel/ulysses.sp_mode_for): "auto", "ring" or "alltoall"
+    sp_attention: str = "auto"
+    # ground the top-N ops (by analytic time) in measurements on the
+    # card (search/op_measure.py); 0 = analytic only
+    measure_top_ops: int = 0
+    # DOT export of the simulated task graph, and the Perfetto export
+    # of the winning strategy's simulated schedule
+    taskgraph_file: Optional[str] = None
+    schedule_trace_file: Optional[str] = None
+    # gradient-sync bucket size the simulator prices (core/overlap.py
+    # resolve_bucket_mb): 0 = one monolithic sync, None = auto from the
+    # machine model. On one device there is no sync to bucket
+    grad_bucket_mb: Optional[float] = None
+    # pipeline planning the simulator reads (parallel/graph_pipeline.py);
+    # compile raises for pipeline_stages > 1 (executing a pipeline needs
+    # a mesh, ROADMAP module item 2)
     pipeline_stages: int = 0
+    pipeline_microbatches: int = 4
+    pipeline_schedule: str = "gpipe"
+    pipeline_virtual_stages: int = 1
+    # fusion groups (core/fusion.py): the simulator costs a
+    # same-strategy chain as one task; on one device the executor runs
+    # the same ops either way
     perform_fusion: bool = False
+    # mesh description (parallel/mesh.make_mesh): None = one device.
+    # compile raises for a mesh of more than one device (ROADMAP module
+    # item 2)
+    mesh_shape: Optional[Sequence[int]] = None
+    mesh_axes: Optional[Sequence[str]] = None
     iter_config: FFIterationConfig = dataclasses.field(
         default_factory=FFIterationConfig)
 
@@ -263,6 +318,32 @@ class FFConfig:
             raise ValueError(
                 f"kv_num_pages must be >= 2 (page 0 is the serving "
                 f"sink page), got {self.kv_num_pages}")
+        if self.pipeline_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(
+                f"pipeline_schedule must be 'gpipe' or '1f1b', got "
+                f"{self.pipeline_schedule!r}")
+        if self.sp_attention not in ("auto", "ring", "alltoall"):
+            raise ValueError(
+                f"sp_attention must be 'auto', 'ring' or 'alltoall', "
+                f"got {self.sp_attention!r}")
+        if self.pipeline_virtual_stages < 1:
+            raise ValueError(
+                f"pipeline_virtual_stages must be >= 1, got "
+                f"{self.pipeline_virtual_stages}")
+        if self.grad_bucket_mb is not None and self.grad_bucket_mb < 0:
+            raise ValueError(
+                f"grad_bucket_mb must be >= 0 (0 = monolithic sync, "
+                f"unset = auto-tune), got {self.grad_bucket_mb}")
+        if self.search_chains < 0:
+            raise ValueError(
+                f"search_chains must be >= 0 (0 = auto), got "
+                f"{self.search_chains}")
+        if self.pipeline_virtual_stages > 1 \
+                and self.pipeline_schedule != "1f1b":
+            raise ValueError(
+                "pipeline_virtual_stages > 1 requires "
+                "pipeline_schedule='1f1b' (interleaving lives in the "
+                "explicit-gradient schedule)")
         if self.conv_layout not in ("NCHW", "NHWC"):
             raise ValueError(
                 f"conv_layout must be 'NCHW' or 'NHWC', got "

@@ -1,7 +1,9 @@
 """Executor: runs the op graph as single-device train and eval steps.
 
-Counterpart of ``flexflow_tpu/core/executor.py`` without the mesh,
-strategy or fusion groups. The parameter tree has the
+Counterpart of ``flexflow_tpu/core/executor.py`` on one device: a
+model's strategy shards nothing here (its per-table embedding
+placement is ignored with the JAX executor's meshless warning), and
+fusion groups pin no sharding. The parameter tree has the
 JAX package's layout and names, ``{op_name: {weight_name: tensor}}``;
 gradients come from ``torch.autograd.grad`` in place of
 ``jax.value_and_grad``, and the optimizer updates the parameter tensors
@@ -149,12 +151,29 @@ class Executor:
         # the runtime LR multiplier (FFModel.set_learning_rate), staged
         # into every train program with its step's scalar
         self._lr_scale = 1.0
-        # sibling-conv groups by leader name (config.sibling_conv_fusion)
+        # a strategy's per-table device placement of stacked embeddings
+        # (the JAX executor lowers it before any weight_specs() read):
+        # without a mesh it is ignored with a warning, as JAX's
+        # meshless compile does
+        from ..ops.embedding import DistributedEmbedding
+        strategy = getattr(model, "strategy", None)
+        for op in model.ops:
+            if isinstance(op, DistributedEmbedding):
+                ids = (strategy.for_op(op.name).device_ids
+                       if strategy is not None else None)
+                op.apply_placement(ids or None, None)
+        # sibling-conv groups by leader name (config.sibling_conv_fusion);
+        # as in the JAX executor, a group whose members carry different
+        # strategies runs unmerged
         self._conv_merge_leader = {}
         if self.config.sibling_conv_fusion:
-            from .fusion import conv_sibling_groups
-            self._conv_merge_leader = {g[0].name: g for g in
-                                       conv_sibling_groups(model)}
+            from .fusion import _strategy_key, conv_sibling_groups
+            for g in conv_sibling_groups(model):
+                if strategy is not None and len(
+                        {_strategy_key(strategy, op.name)
+                         for op in g}) > 1:
+                    continue
+                self._conv_merge_leader[g[0].name] = g
         self._nhwc_resident, self._nhwc_reads = (
             self._compute_nhwc_resident()
             if self.config.conv_layout == "NHWC" else (set(), set()))

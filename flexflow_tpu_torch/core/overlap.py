@@ -1,15 +1,20 @@
-"""The train loop's dispatch window.
+"""The train loop's dispatch window and the gradient-bucket planner.
 
-Counterpart of ``DispatchWindow`` in ``flexflow_tpu/core/overlap.py``.
-The JAX module's bucketed gradient sync (``grad_bucket_mb``) needs a
-data-parallel mesh and is not ported yet.
+Counterpart of ``flexflow_tpu/core/overlap.py``: ``DispatchWindow``,
+and the pricing half of the bucketed gradient sync —
+``eligible_sparse_ops``, ``auto_bucket_mb``, ``resolve_bucket_mb`` and
+``grad_buckets`` — which the strategy simulator reads to price the
+partition a data-parallel executor would sync in
+(``FFConfig.grad_bucket_mb``). The executor's bucketed sync itself
+waits for ROADMAP module item 2.1: on one device there is nothing to
+sync.
 """
 
 from __future__ import annotations
 
 import collections
 import time
-from typing import List
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -104,3 +109,149 @@ class DispatchWindow:
         out = self._done
         self._done = []
         return out
+
+
+def eligible_sparse_ops(model) -> set:
+    """Names of embedding-family ops the executor routes through the
+    sparse row-update path (mirror of ``Executor._sparse_table_ops``,
+    shared so the simulator's bucket partition matches the executor's
+    without holding an executor). Before compile() assigns an optimizer
+    the set is empty — the conservative (dense) reading the cost model
+    already uses."""
+    from ..ops.embedding import DistributedEmbedding, Embedding
+    cfg = model.config
+    opt = getattr(model, "optimizer", None)
+    mode = None
+    if opt is not None:
+        try:
+            mode = opt.sparse_mode()
+        except Exception:
+            mode = None
+    allowed = mode == "exact" or (
+        mode == "lazy" and getattr(cfg, "sparse_embedding_lazy", False))
+    out = set()
+    if getattr(cfg, "sparse_embedding_updates", True) and allowed:
+        input_uids = {t.uid for t in model.input_tensors}
+        for op in model.ops:
+            if isinstance(op, (Embedding, DistributedEmbedding)) \
+                    and all(t.uid in input_uids for t in op.inputs):
+                out.add(op.name)
+    return out
+
+
+# auto_bucket_mb bounds: never fewer than one bucket or more than this
+# many (beyond ~32 the per-bucket launch latency dominates any overlap
+# win), and never a bucket outside [1, 64] MiB (below 1 MiB a v5-class
+# all-reduce is pure latency; above 64 MiB the last bucket's sync can
+# no longer hide behind any remaining backward).
+AUTO_MAX_BUCKETS = 32
+AUTO_MIN_MB = 1.0
+AUTO_MAX_MB = 64.0
+# fraction of the estimated backward time the per-bucket launch
+# latencies may consume before we stop splitting finer
+AUTO_LATENCY_FRACTION = 0.1
+
+
+def auto_bucket_mb(model, mesh=None, machine=None) -> float:
+    """Machine-model-derived gradient-sync bucket size, used when
+    FFConfig.grad_bucket_mb is unset (None = auto).
+
+    The granularity trade is bandwidth-vs-latency: the TOTAL sync bytes
+    and the total backward compute are fixed, so splitting finer only
+    adds per-bucket all-reduce launch latency while anchoring syncs
+    earlier in the backward. We size buckets from the machine model —
+    effectively interconnect bandwidth x the expected backward slice a
+    bucket must hide under: estimate the backward time (2x forward
+    FLOPs at the calibrated MXU rate), allow AUTO_LATENCY_FRACTION of
+    it for per-bucket launch latency (2(a-1) ICI hops per ring
+    all-reduce), split the dense master bytes into that many buckets,
+    and floor each bucket at the interconnect's bandwidth-latency
+    product (a smaller bucket's all-reduce is pure latency — nothing
+    for the backward to overlap). No data axis (or no dense weights)
+    resolves to 0 = monolithic: there is no sync to overlap.
+
+    Deterministic for a given (model, mesh): the executor (real step)
+    and the simulator (search pricing) both resolve through
+    resolve_bucket_mb, so they partition identically and the resolved
+    value — not the None sentinel — folds into the cost-cache machine
+    fingerprint."""
+    data = int(mesh.shape.get("data", 1)) if mesh is not None else 1
+    if data <= 1:
+        return 0.0
+    sparse = eligible_sparse_ops(model)
+    total_bytes = sum(
+        float(op.weight_bytes()) for op in model.ops
+        if op.name not in sparse and op.weight_specs()
+        and op.weight_bytes() > 0)
+    if total_bytes <= 0:
+        return 0.0
+    if machine is None:
+        from ..search.machine_model import default_machine_model
+        machine = default_machine_model(mesh)
+    eff = machine.efficiency.get("matmul", 0.5)
+    t_bwd = 2.0 * sum(float(op.flops()) for op in model.ops) \
+        / max(machine.peak_flops_for(None) * eff, 1.0)
+    per_bucket_lat = 2.0 * (data - 1) * machine.spec.ici_latency
+    n = max(1, min(AUTO_MAX_BUCKETS,
+                   int(AUTO_LATENCY_FRACTION * t_bwd
+                       / max(per_bucket_lat, 1e-12))))
+    bw = machine.spec.ici_bandwidth \
+        * machine.efficiency.get("collective", 0.75)
+    floor_bytes = bw * per_bucket_lat   # bandwidth-latency product
+    bucket_bytes = max(total_bytes / n, floor_bytes)
+    return float(min(max(bucket_bytes / (1 << 20), AUTO_MIN_MB),
+                     AUTO_MAX_MB))
+
+
+def resolve_bucket_mb(config, model, mesh=None, machine=None) -> float:
+    """The ONE resolution point for FFConfig.grad_bucket_mb: explicit
+    values (including 0 = monolithic) are authoritative; None
+    auto-tunes from the machine model (auto_bucket_mb). Both the
+    executor's sync-point partition and the simulator's bucket pricing
+    — and the cost-cache fingerprint — use the value returned here."""
+    raw = getattr(config, "grad_bucket_mb", None)
+    if raw is not None:
+        return float(raw)
+    try:
+        return auto_bucket_mb(model, mesh=mesh, machine=machine)
+    except Exception:
+        # a half-built model (no ops yet) or an exotic mesh must not
+        # break compile — fall back to the legacy monolithic sync
+        return 0.0
+
+
+def grad_buckets(model, bucket_mb: float,
+                 sparse_ops: Optional[set] = None
+                 ) -> List[Tuple[List[str], float]]:
+    """Walk-order contiguous gradient-sync buckets.
+
+    Returns ``[(member op names, master-param bytes), ...]`` over the
+    ops that contribute DENSE float gradients to the data-parallel sync
+    (weighted ops minus the sparse-update tables, whose row gradients
+    scatter outside the bucketed reduction). A bucket closes once its
+    cumulative ``op.weight_bytes()`` (the f32-declared master basis —
+    strategy-independent, so executor and simulator always agree)
+    reaches ``bucket_mb`` MiB. ``bucket_mb <= 0`` returns [] (legacy
+    monolithic sync)."""
+    if bucket_mb is None or bucket_mb <= 0:
+        return []
+    if sparse_ops is None:
+        sparse_ops = eligible_sparse_ops(model)
+    limit = float(bucket_mb) * (1 << 20)
+    buckets: List[Tuple[List[str], float]] = []
+    cur: List[str] = []
+    cur_bytes = 0.0
+    for op in model.ops:
+        if op.name in sparse_ops or not op.weight_specs():
+            continue
+        w = float(op.weight_bytes())
+        if w <= 0:
+            continue
+        cur.append(op.name)
+        cur_bytes += w
+        if cur_bytes >= limit:
+            buckets.append((cur, cur_bytes))
+            cur, cur_bytes = [], 0.0
+    if cur:
+        buckets.append((cur, cur_bytes))
+    return buckets

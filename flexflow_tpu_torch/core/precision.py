@@ -45,6 +45,17 @@ def resolve_dtype(value, knob: str = "dtype") -> torch.dtype:
     return getattr(torch, name)
 
 
+def dtype_name(dtype) -> str:
+    """The JAX package's name of a dtype ("float32", "bfloat16",
+    "int32", ...) for a torch dtype (or anything numpy names): the one
+    mapping from torch dtypes to the strings the cost model prices at
+    and the cost caches key on, so that a price or a fingerprint means
+    the same thing in both packages."""
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).replace("torch.", "")
+    return np.dtype(dtype).name
+
+
 def reciprocal_f32(c: float) -> float:
     """``float32(1) / float32(c)`` as a Python float (exact in f32). The
     JAX package runs under ``jax.jit``, where XLA computes ``a / c`` for

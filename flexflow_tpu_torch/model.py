@@ -28,9 +28,22 @@ dispatch and fetch spans on ``self.telemetry`` when the config turns
 telemetry on, and leaves its window and gap statistics in
 ``last_train_stats``.
 
-Out of the slice, and raising ``NotImplementedError`` when configured:
-a mesh or strategy, the strategy search, pipelines, fusion groups and
-the native loader.
+The strategy stack of the JAX package's compile runs here on one
+device: ``FFModel(strategy=)`` and ``compile(strategy=)`` keep a
+strategy, ``import_strategy_file`` / ``export_strategy_file`` read and
+write it, and ``search_budget > 0`` runs ``search.mcmc.optimize``,
+which — as JAX's compile on one device — keeps the model's strategy:
+there is no mesh to search over (search a mesh description with
+``optimize(model, mesh=make_mesh(...))``). The strategy is kept,
+priced and exported; nothing is sharded. ``calibrate_simulator`` grounds
+the strategy simulator in measured train steps on the card,
+``_predicted_step_s`` gives ``fit``'s drift samples their prediction,
+and ``memory_ledger`` sets the live parameter and optimizer bytes
+beside the simulator's memory input.
+
+Raising ``NotImplementedError`` when configured: a mesh of more than
+one device and ``pipeline_stages > 1``, which need a mesh that
+executes (ROADMAP module item 2).
 """
 
 from __future__ import annotations
@@ -59,6 +72,18 @@ from .utils import faults as _faults
 from .utils.telemetry import telemetry_for, train_metrics
 
 
+def _check_mesh(mesh) -> None:
+    """A mesh description of one device is accepted; a larger one needs
+    the process groups of ROADMAP module item 2."""
+    if mesh is not None and int(mesh.size) > 1:
+        raise NotImplementedError(
+            f"a mesh of {int(mesh.size)} devices ({dict(mesh.shape)}) "
+            f"needs the multi-device executor (ROADMAP module item 2); "
+            f"the port runs one device — search and price a mesh "
+            f"description with search.mcmc.optimize(model, mesh=...) "
+            f"instead")
+
+
 def _resolve_steps_per_dispatch(spd) -> int:
     """"auto" -> 1: the JAX package groups 8 steps a dispatch only on a
     TPU backend, and 1 elsewhere. The one rule for fit() and
@@ -69,11 +94,13 @@ def _resolve_steps_per_dispatch(spd) -> int:
 class FFModel:
     def __init__(self, config: Optional[FFConfig] = None, mesh=None,
                  strategy=None, device="cuda"):
-        if mesh is not None or strategy is not None:
-            raise NotImplementedError(
-                "meshes and parallel strategies are not ported yet")
         self.config = config or FFConfig()
+        _check_mesh(mesh)
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.strategy = strategy
+        self.simulator = None       # set by calibrate_simulator()
+        self.search_stats = None    # set by search.mcmc.optimize*
         self.ops: List[Op] = []
         self.input_tensors: List[Tensor] = []
         self._name_counts: Dict[str, int] = {}
@@ -357,15 +384,20 @@ class FFModel:
     # ---------------- compile ----------------
     def _check_config(self) -> None:
         cfg = self.config
-        off = {
-            "search_budget > 0 (strategy search)": cfg.search_budget > 0,
-            "pipeline_stages > 1": cfg.pipeline_stages > 1,
-            "perform_fusion": cfg.perform_fusion,
-        }
-        on = [k for k, v in off.items() if v]
-        if on:
+        if cfg.pipeline_stages > 1:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(on)}")
+                f"pipeline_stages={cfg.pipeline_stages} needs a mesh "
+                f"that executes a pipeline (ROADMAP module item 2); the "
+                f"simulator prices staged strategies on a mesh "
+                f"description")
+        if cfg.mesh_shape is not None:
+            import math
+            n = math.prod(int(s) for s in cfg.mesh_shape)
+            if n > 1:
+                raise NotImplementedError(
+                    f"mesh_shape={tuple(cfg.mesh_shape)} ({n} devices) "
+                    f"needs the multi-device executor (ROADMAP module "
+                    f"item 2)")
 
     def compile(self, optimizer: Optional[Optimizer] = None,
                 loss_type: Optional[str] = "sparse_categorical_crossentropy",
@@ -376,15 +408,77 @@ class FFModel:
         training mode, the optimizer's slots) on the model's device.
         ``capture=False`` runs every train step eagerly instead of
         replaying a captured CUDA graph (the reference runs of the
-        tests and the smoke; the results are the same)."""
-        if mesh is not None or strategy is not None:
-            raise NotImplementedError(
-                "meshes and parallel strategies are not ported yet")
+        tests and the smoke; the results are the same).
+
+        The strategy steps of the JAX compile run first: ``mesh`` (a
+        description of one device) and ``strategy`` replace the model's,
+        ``import_strategy_file`` loads one when the model has none,
+        ``search_budget > 0`` runs the strategy search (with no mesh it
+        keeps the strategy, as JAX's does) and ``export_strategy_file``
+        writes its result. A strategy's ``pipeline`` block sets the
+        pipeline knobs, and ``pipeline_stages > 1`` then raises."""
         self.config.validate()   # catch post-construction field edits
-        self._check_config()
+        if mesh is not None:
+            _check_mesh(mesh)
+            self.mesh = mesh
+        if strategy is not None:
+            self.strategy = strategy
         if optimizer is None:
             optimizer = SGDOptimizer(lr=self.config.learning_rate)
         self.optimizer = optimizer
+        if self.strategy is None and self.config.import_strategy_file:
+            self.strategy = self._load_strategy_file(
+                self.config.import_strategy_file)
+        if self.config.search_budget > 0:
+            if self.config.search_mesh_shapes:
+                from .search.mcmc import optimize_with_mesh
+                self.strategy, mesh = optimize_with_mesh(
+                    self, budget=self.config.search_budget,
+                    alpha=self.config.search_alpha)
+                _check_mesh(mesh)
+                self.mesh = mesh
+            else:
+                from .search.mcmc import optimize
+                self.strategy = optimize(
+                    self, budget=self.config.search_budget,
+                    alpha=self.config.search_alpha)
+            if self.config.export_strategy_file:
+                self.strategy.save(self.config.export_strategy_file)
+        pl = (getattr(self.strategy, "pipeline", None)
+              if self.strategy is not None else None)
+        if pl:
+            if not isinstance(pl, dict) \
+                    or not isinstance(pl.get("stages"), int) \
+                    or pl["stages"] < 1:
+                raise ValueError(
+                    f"strategy.pipeline must be a dict with an int "
+                    f"\"stages\" >= 1 (got {pl!r})")
+            self.config.pipeline_stages = pl["stages"]
+            self.config.pipeline_virtual_stages = int(
+                pl.get("virtual_stages", 1))
+            self.config.pipeline_schedule = pl.get(
+                "schedule", self.config.pipeline_schedule)
+            self.config.pipeline_microbatches = int(pl.get(
+                "microbatches", self.config.pipeline_microbatches))
+            self.config.validate()
+        self._check_config()
+        if self.strategy is not None:
+            # meshless compile: pins cannot execute — say so, as JAX's
+            # compile does
+            pinned = [op.name for op in self.ops
+                      if self.strategy.for_op(op.name).device_ids
+                      and op.op_type != "distributed_embedding"]
+            if pinned:
+                warnings.warn(
+                    f"strategy pins {pinned} to explicit devices but "
+                    f"there is no mesh; placement is ignored "
+                    f"(replicated single-device execution)")
+        if self.config.pipeline_virtual_stages > 1:
+            warnings.warn(
+                "pipeline_virtual_stages > 1 only applies to auto-cut "
+                "pipelines (--pipeline-stages); this compile's stages "
+                "come from pins or no pipeline at all — interleaving "
+                "was NOT applied")
         self.executor = Executor(self, optimizer, loss_type, metrics,
                                  comp_mode=comp_mode, capture=capture)
         self.comp_mode = comp_mode
@@ -394,6 +488,24 @@ class FFModel:
         self._next_rng()
         self.state = self.executor.init_state()
         self._host_step = 0  # mirrors state.step for the train key
+
+    def _load_strategy_file(self, path: str):
+        """import_strategy_file: the JSON of ``Strategy.save`` (either
+        package's), else the reference's text or FFProtoBuf ``.pb``
+        formats, which resolve against a mesh."""
+        from .parallel.pconfig import Strategy
+        from .parallel.strategy_io import load_reference_strategy_file
+        if not path.endswith(".pb"):
+            try:
+                return Strategy.load(path)
+            except (ValueError, UnicodeDecodeError):
+                pass  # not our JSON: try the reference text format
+        if self.mesh is None:
+            raise ValueError(
+                f"importing the reference strategy format from {path!r} "
+                f"needs a mesh (splits/device ids resolve against mesh "
+                f"axes); pass mesh= or use the native JSON format")
+        return load_reference_strategy_file(self, self.mesh, path)
 
     # ---------------- keys ----------------
     def _next_rng(self) -> np.ndarray:
@@ -553,6 +665,9 @@ class FFModel:
 
         inj = _faults.injector_for(self.config)
         tel = self.telemetry = telemetry_for(self.config)
+        # re-price the drift prediction per fit(): the strategy, mesh or
+        # bucket layout may have changed since the last fit
+        self.__dict__.pop("_drift_predicted_step_s", None)
         win = DispatchWindow(self.config.train_dispatch_depth,
                              telemetry=tel)
         gaps: List[float] = []    # host time between dispatches
@@ -711,12 +826,132 @@ class FFModel:
             "est_comm_hidden": 0.0,
         }
 
+    def _sim_mesh(self):
+        """The mesh description the simulator prices this model on:
+        the model's, else one device on the data axis."""
+        if self.mesh is not None:
+            return self.mesh
+        from .parallel.mesh import single_device_mesh
+        return single_device_mesh()
+
     def _predicted_step_s(self) -> Optional[tuple]:
         """(predicted seconds per train step, per-task-class breakdown)
-        from the strategy simulator, for the drift calibrator; None
-        when the step cannot be priced, which is always until the
-        search stack is ported (no drift is then recorded)."""
-        return None
+        for THIS model on its mesh and strategy — the overlap-exact task
+        graph the strategy search prices (search/simulator.Simulator),
+        which the telemetry drift calibrator compares measured steps
+        against. Cached for the duration of one fit() (fit's prologue
+        drops the cache); None when the model cannot be priced (drift
+        then goes unrecorded), as in the JAX package."""
+        if not hasattr(self, "_drift_predicted_step_s"):
+            try:
+                from .parallel.pconfig import Strategy
+                from .search.simulator import Simulator
+                sim = Simulator(self, self._sim_mesh())
+                strat = (self.strategy if self.strategy is not None
+                         else Strategy())
+                self._drift_predicted_step_s = (
+                    float(sim.simulate(strat)),
+                    sim.step_breakdown(strat))
+            except Exception:
+                self._drift_predicted_step_s = None
+        return self._drift_predicted_step_s
+
+    def calibrate_simulator(self, batch: Optional[Dict] = None,
+                            steps: int = 10):
+        """Ground the strategy simulator in measured train steps on the
+        card: price the model's strategy on the card's calibrated
+        machine model (search/measure.calibrated_machine_model), run one
+        warm step (the capture), then time ``steps`` steps between CUDA
+        events after a synchronize, set the simulator's end-to-end time
+        scale from the measured mean and keep it as ``self.simulator``.
+        Returns (measured_step_seconds, predicted_step_seconds), the
+        prediction being the simulator's PRE-calibration estimate — the
+        number to hold against the MLSys'19 30% simulator-error
+        envelope. Requires compile(); raises on the CPU (it measures the
+        card)."""
+        from .parallel.pconfig import Strategy
+        from .search.measure import calibrated_machine_model
+        from .search.simulator import Simulator
+
+        if self.executor is None:
+            raise RuntimeError("compile() before calibrating")
+        if self.device.type != "cuda":
+            raise RuntimeError(
+                "calibrate_simulator measures train steps on the card: "
+                "this model lives on the CPU")
+        if batch is None:
+            from .core.dataloader import synthetic_batch
+            batch = synthetic_batch(self)
+        mesh = self._sim_mesh()
+        sim = Simulator(self, mesh, calibrated_machine_model(
+            mesh, machine_file=self.config.machine_model_file))
+        strategy = self.strategy or Strategy()
+        predicted = sim.simulate(strategy)
+        staged = self.executor.shard_batch(batch)
+        self.train_batch(staged)           # the capture (or warm-up)
+        torch.cuda.synchronize(self.device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            self.train_batch(staged)
+        end.record()
+        end.synchronize()
+        measured = start.elapsed_time(end) * 1e-3 / steps
+        sim.calibrate_end_to_end(strategy, measured)
+        self.simulator = sim
+        return measured, predicted
+
+    def memory_ledger(self) -> dict:
+        """Per-device byte accounting of training in the JAX package's
+        schema: parameters and optimizer state from the live tensors
+        (search/explain.pytree_device_bytes) beside the simulator's
+        memory input (Simulator.memory_per_device: weights, optimizer
+        mirror and an activation estimate per op), the residual reported
+        as the activation estimate. Components land as
+        ``train_hbm_bytes{component=...}`` gauges when a fit()
+        telemetry bus is live."""
+        from .search.explain import pytree_device_bytes
+        params = opt = 0.0
+        if self.state is not None:
+            params = pytree_device_bytes(self.state.params)
+            opt = pytree_device_bytes(self.state.opt_state)
+        sim_bytes = None
+        try:
+            from .parallel.pconfig import Strategy
+            from .search.simulator import Simulator
+            sim = Simulator(self, self._sim_mesh())
+            sim_bytes = float(sim.memory_per_device(
+                self.strategy if self.strategy is not None
+                else Strategy()))
+            hbm = float(sim.mm.spec.hbm_capacity)
+        except Exception:
+            hbm = None
+        ledger = {
+            "params_bytes": params,
+            "optimizer_bytes": opt,
+            "live_bytes": params + opt,
+            "sim_hbm_input_bytes": sim_bytes,
+            # the cost model's activation/workspace share: its memory
+            # input beyond the live persistent buffers
+            "activation_est_bytes": (max(0.0, sim_bytes - params - opt)
+                                     if sim_bytes is not None else None),
+        }
+        if hbm:
+            ledger["hbm_capacity_bytes"] = hbm
+            ledger["hbm_utilization"] = (
+                (sim_bytes if sim_bytes is not None
+                 else params + opt) / hbm)
+        tel = self.telemetry
+        if tel is not None and tel.enabled:
+            for comp in ("params", "optimizer", "live"):
+                tel.metrics.set("train_hbm_bytes",
+                                ledger[f"{comp}_bytes"],
+                                component=comp)
+            if sim_bytes is not None:
+                tel.metrics.set("train_hbm_bytes", sim_bytes,
+                                component="sim_hbm_input")
+        return ledger
 
     def _resume(self, checkpoint_dir: str) -> int:
         """Restore the newest committed ``epoch_N`` of checkpoint_dir

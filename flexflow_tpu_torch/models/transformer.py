@@ -240,6 +240,7 @@ def build_transformer_lm(config: Optional[FFConfig] = None,
                          batch_size: Optional[int] = None, hidden: int = 256,
                          num_heads: int = 4, num_layers: int = 2,
                          ff_dim: int = 512, dtype=None,
+                         mesh=None, strategy=None,
                          layer_norm: bool = True, device="cuda") -> FFModel:
     """Causal decoder LM, the JAX builder's graph: token +
     learned-position embeddings (inputs ``tokens`` and ``positions``,
@@ -253,7 +254,7 @@ def build_transformer_lm(config: Optional[FFConfig] = None,
     if dtype is None:
         dtype = cfg.compute_dtype
     bs = batch_size or cfg.batch_size
-    ff = FFModel(cfg, device=device)
+    ff = FFModel(cfg, mesh=mesh, strategy=strategy, device=device)
     tokens = ff.create_tensor((bs, max_seq_len), dtype=torch.int32,
                               name="tokens")
     positions = ff.create_tensor((bs, max_seq_len), dtype=torch.int32,
@@ -283,6 +284,7 @@ def build_transformer(config: Optional[FFConfig] = None,
                       hidden: int = 512, num_heads: int = 8,
                       num_layers: int = 6, ff_dim: int = 2048,
                       num_classes: int = 10, dtype=torch.float32,
+                      mesh=None, strategy=None,
                       use_flash=None, layer_norm: bool = False,
                       device="cuda") -> FFModel:
     """The Transformer encoder classifier (the reference's
@@ -293,7 +295,7 @@ def build_transformer(config: Optional[FFConfig] = None,
     takes the einsum attention path."""
     cfg = config or FFConfig()
     bs = batch_size or cfg.batch_size
-    ff = FFModel(cfg, device=device)
+    ff = FFModel(cfg, mesh=mesh, strategy=strategy, device=device)
     t = ff.create_tensor((bs, seq_len, hidden), dtype=dtype, name="input")
     for i in range(num_layers):
         a_in = ff.layer_norm(t, name=f"layer{i}_ln1") if layer_norm else t

@@ -8,8 +8,15 @@ declared by ``state_specs`` and threaded through ``OpContext``'s
 ``state_in``/``state_out``; an op with ``has_aux_loss`` sets
 ``OpContext.aux_loss`` in training, which the executor adds to the
 loss. ``flops`` is the JAX op's forward count, which
-the smoke's MFU reads; the JAX package's logical-axis and byte hooks
-wait for parallel training and the search.
+the smoke's MFU and the cost model read.
+
+The sharding contract is the JAX package's: ``output_axes`` and
+``input_axes`` name each tensor dimension by a logical axis
+(``SAMPLE``, ``CHANNEL_OUT``, ...), ``WeightSpec.axes`` names each
+weight dimension, and ``bytes_accessed`` / ``weight_bytes`` feed the
+cost model (search/cost_model.py). A strategy maps those logical axes
+onto the axes of a mesh description; the search prices it, and nothing
+is sharded: the port trains on one device.
 """
 
 from __future__ import annotations
@@ -24,19 +31,43 @@ from .tensor import Tensor
 if TYPE_CHECKING:
     from .model import FFModel
 
+# Logical axis vocabulary (the JAX package's): "sample" is the batch
+# dim (splitting it is data parallelism), "channel*" splits are tensor
+# parallelism, "seq" sequence parallelism, "expert" expert parallelism,
+# "layer" pipeline stages, "table" stacked embedding tables
+SAMPLE = "sample"
+CHANNEL = "channel"
+CHANNEL_IN = "channel_in"
+CHANNEL_OUT = "channel_out"
+SEQ = "seq"
+HEAD = "head"
+HEIGHT = "height"
+WIDTH = "width"
+EXPERT = "expert"
+VOCAB = "vocab"
+LAYER = "layer"
+TABLE = "table"
+REPLICA = None  # a dimension never split
+
 
 @dataclasses.dataclass
 class WeightSpec:
     """Declaration of one trainable parameter of an op.
 
     ``fan_in``/``fan_out`` override shape-derived fans for fan-scaled
-    initializers (attention's stacked (E, H, D) weights)."""
+    initializers (attention's stacked (E, H, D) weights). ``axes``
+    names the logical axis of each dimension (None: never split)."""
 
     shape: Tuple[int, ...]
     dtype: torch.dtype = torch.float32
     initializer: str = "glorot"  # name into core.initializers
     fan_in: Optional[int] = None
     fan_out: Optional[int] = None
+    axes: Tuple[Optional[str], ...] = None  # logical axis per dim
+
+    def __post_init__(self):
+        if self.axes is None:
+            self.axes = tuple([None] * len(self.shape))
 
 
 @dataclasses.dataclass
@@ -107,9 +138,51 @@ class Op:
     def state_specs(self) -> Dict[str, StateSpec]:
         return {}
 
+    # ---- sharding contract ----
+    def output_axes(self) -> List[Tuple[Optional[str], ...]]:
+        """Logical axis name per output dim; default: sample on dim 0."""
+        out = []
+        for shp in [t.shape for t in self.outputs]:
+            axes = [None] * len(shp)
+            if len(shp) > 0:
+                axes[0] = SAMPLE
+            out.append(tuple(axes))
+        return out
+
+    def input_axes(self) -> List[Tuple[Optional[str], ...]]:
+        """Logical axis name per input dim (used for resharding cost)."""
+        out = []
+        for t in self.inputs:
+            axes = [None] * len(t.shape)
+            if len(t.shape) > 0:
+                axes[0] = SAMPLE
+            out.append(tuple(axes))
+        return out
+
+    # ---- cost-model contract ----
     def flops(self) -> float:
         """Forward FLOPs of the whole op (the JAX op's count)."""
         return 0.0
+
+    def bytes_accessed(self) -> float:
+        total = 0
+        for t in list(self.inputs) + list(self.outputs):
+            total += t.size_bytes()
+        for spec in self.weight_specs().values():
+            n = 1
+            for s in spec.shape:
+                n *= s
+            total += n * spec.dtype.itemsize
+        return float(total)
+
+    def weight_bytes(self) -> float:
+        total = 0
+        for spec in self.weight_specs().values():
+            n = 1
+            for s in spec.shape:
+                n *= s
+            total += n * spec.dtype.itemsize
+        return float(total)
 
     def forward(self, params: Dict[str, torch.Tensor],
                 xs: List[torch.Tensor], ctx: OpContext

@@ -25,7 +25,8 @@ import torch
 from ..kernels.dropout import dropout as apply_dropout
 from ..kernels.flash_attention import (MAX_HEAD_DIM, attention_ref,
                                        flash_attention_bshd)
-from ..op import Op, OpContext, WeightSpec
+from ..op import (CHANNEL_IN, CHANNEL_OUT, HEAD, SAMPLE, SEQ, Op,
+                  OpContext, WeightSpec)
 
 
 class MultiHeadAttention(Op):
@@ -76,21 +77,28 @@ class MultiHeadAttention(Op):
         init = self.kernel_initializer
         specs = {
             "wq": WeightSpec((self.q_in, h, d), initializer=init,
-                             fan_in=self.q_in, fan_out=e),
+                             fan_in=self.q_in, fan_out=e,
+                             axes=(CHANNEL_IN, HEAD, None)),
             "wk": WeightSpec((self.k_in, h, d), initializer=init,
-                             fan_in=self.k_in, fan_out=e),
+                             fan_in=self.k_in, fan_out=e,
+                             axes=(CHANNEL_IN, HEAD, None)),
             "wv": WeightSpec((self.v_in, h, d), initializer=init,
-                             fan_in=self.v_in, fan_out=e),
+                             fan_in=self.v_in, fan_out=e,
+                             axes=(CHANNEL_IN, HEAD, None)),
             "wo": WeightSpec((h, d, e), initializer=init,
-                             fan_in=e, fan_out=e),
+                             fan_in=e, fan_out=e,
+                             axes=(HEAD, None, CHANNEL_OUT)),
         }
         if self.use_bias:
-            specs["bo"] = WeightSpec((e,), initializer="zeros")
+            specs["bo"] = WeightSpec((e,), initializer="zeros",
+                                     axes=(CHANNEL_OUT,))
         if self.add_bias_kv:
             # one learned extra key/value position (torch
             # MultiheadAttention's bias_k/bias_v)
-            specs["bias_k"] = WeightSpec((1, h, d), initializer="zeros")
-            specs["bias_v"] = WeightSpec((1, h, d), initializer="zeros")
+            specs["bias_k"] = WeightSpec((1, h, d), initializer="zeros",
+                                         axes=(None, HEAD, None))
+            specs["bias_v"] = WeightSpec((1, h, d), initializer="zeros",
+                                         axes=(None, HEAD, None))
         return specs
 
     def forward(self, params, xs, ctx: OpContext):
@@ -128,6 +136,12 @@ class MultiHeadAttention(Op):
                               1.0 - self.dropout)
         return [y]
 
+    def output_axes(self):
+        return [(SAMPLE, SEQ, CHANNEL_OUT)]
+
+    def input_axes(self):
+        return [(SAMPLE, SEQ, CHANNEL_IN)] * 3
+
     def flops(self) -> float:
         b, lq = self.inputs[0].shape[:2]
         lk = self.inputs[1].shape[1]
@@ -154,9 +168,15 @@ class MultiHeadAttention(Op):
                                dtype=k.dtype, device=k.device)
             k = torch.cat([k, zero], dim=1)
             v = torch.cat([v, zero], dim=1)
-        if (self.use_flash is False or q.shape[-1] > MAX_HEAD_DIM
-                or self.add_bias_kv or self.add_zero_attn
-                or seq_length >= 0):
+        if not self.uses_flash(seq_length):
             return attention_ref(q, k, v, causal=self.causal,
                                  seq_length=seq_length)
         return flash_attention_bshd(q, k, v, causal=self.causal)
+
+    def uses_flash(self, seq_length: int = -1) -> bool:
+        """Whether the op's core runs through the flash entry point (on
+        CUDA the hand-written kernels) at this ``seq_length``."""
+        return not (self.use_flash is False
+                    or self.head_dim > MAX_HEAD_DIM
+                    or self.add_bias_kv or self.add_zero_attn
+                    or seq_length >= 0)

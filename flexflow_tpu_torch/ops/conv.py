@@ -38,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.precision import reciprocal_f32
-from ..op import Op, OpContext, StateSpec, WeightSpec
+from ..op import (CHANNEL, CHANNEL_IN, CHANNEL_OUT, HEIGHT, SAMPLE, WIDTH,
+                  Op, OpContext, StateSpec, WeightSpec)
 from .common import AC_MODE_NONE, apply_activation, conv_out_dim
 
 _CL = torch.channels_last
@@ -86,10 +87,12 @@ class Conv2D(Op):
         kh, kw = self.kernel
         specs = {"kernel": WeightSpec(
             (self.out_channels, self.in_channels // self.groups, kh, kw),
-            initializer=self.kernel_initializer)}
+            initializer=self.kernel_initializer,
+            axes=(CHANNEL_OUT, CHANNEL_IN, None, None))}
         if self.use_bias:
             specs["bias"] = WeightSpec((self.out_channels,),
-                                       initializer=self.bias_initializer)
+                                       initializer=self.bias_initializer,
+                                       axes=(CHANNEL_OUT,))
         return specs
 
     def forward(self, params, xs, ctx: OpContext):
@@ -100,6 +103,12 @@ class Conv2D(Op):
                         self.stride, self.padding, nhwc, self.activation,
                         self.groups)
         return [_nchw(y, nhwc, ctx.nhwc_out)]
+
+    def output_axes(self):
+        return [(SAMPLE, CHANNEL_OUT, HEIGHT, WIDTH)]
+
+    def input_axes(self):
+        return [(SAMPLE, CHANNEL_IN, HEIGHT, WIDTH)]
 
     def flops(self) -> float:
         n = self.inputs[0].shape[0]
@@ -196,6 +205,12 @@ class Pool2D(Op):
         y = apply_activation(y, self.activation)
         return [_nchw(y, nhwc, ctx.nhwc_out)]
 
+    def output_axes(self):
+        return [(SAMPLE, CHANNEL, HEIGHT, WIDTH)]
+
+    def input_axes(self):
+        return [(SAMPLE, CHANNEL, HEIGHT, WIDTH)]
+
     def flops(self) -> float:
         n, c = self.inputs[0].shape[:2]
         kh, kw = self.kernel
@@ -224,8 +239,10 @@ class BatchNorm(Op):
 
     def weight_specs(self):
         c = self.num_channels
-        return {"scale": WeightSpec((c,), initializer="ones"),
-                "bias": WeightSpec((c,), initializer="zeros")}
+        return {"scale": WeightSpec((c,), initializer="ones",
+                                    axes=(CHANNEL,)),
+                "bias": WeightSpec((c,), initializer="zeros",
+                                   axes=(CHANNEL,))}
 
     def state_specs(self):
         c = self.num_channels
@@ -268,6 +285,15 @@ class BatchNorm(Op):
             y = torch.relu(y)
         return [_nchw(y, nhwc, ctx.nhwc_out)]
 
+    def output_axes(self):
+        n = len(self.outputs[0].shape)
+        axes = [None] * n
+        axes[0] = SAMPLE
+        axes[1] = CHANNEL
+        return [tuple(axes)]
+
+    input_axes = output_axes
+
     def flops(self) -> float:
         return 8.0 * self.inputs[0].num_elements
 
@@ -287,3 +313,11 @@ class Flat(Op):
     def forward(self, params, xs, ctx: OpContext):
         (x,) = xs
         return [x.reshape(x.shape[0], -1)]
+
+    def output_axes(self):
+        return [(SAMPLE, CHANNEL)]
+
+    def input_axes(self):
+        axes = [None] * len(self.inputs[0].shape)
+        axes[0] = SAMPLE
+        return [tuple(axes)]

@@ -8,7 +8,7 @@ import torch.nn.functional as F
 
 from ..core.precision import policy_active
 from ..kernels.dropout import dropout, keep_in_dtype
-from ..op import Op, OpContext, WeightSpec
+from ..op import CHANNEL, SAMPLE, SEQ, Op, OpContext, WeightSpec
 
 _UNARY = {
     "relu": torch.relu,
@@ -32,7 +32,32 @@ _BINARY = {
 }
 
 
-class ElementUnary(Op):
+def _passthrough_axes(shape):
+    """Logical axes of a rank-preserving op's tensor: (sample, seq,
+    channel) at rank 3, sample only otherwise (the conv ops label NCHW
+    tensors themselves)."""
+    n = len(shape)
+    axes = [None] * n
+    if n >= 1:
+        axes[0] = SAMPLE
+    if n == 3:
+        axes[1] = SEQ
+        axes[2] = CHANNEL
+    return [tuple(axes)]
+
+
+class PassthroughAxesMixin:
+    """Logical-axis labels of rank-preserving ops: the outputs carry
+    the input's SAMPLE/SEQ/CHANNEL labels."""
+
+    def output_axes(self):
+        return _passthrough_axes(self.outputs[0].shape)
+
+    def input_axes(self):
+        return [_passthrough_axes(t.shape)[0] for t in self.inputs]
+
+
+class ElementUnary(PassthroughAxesMixin, Op):
     op_type = "element_unary"
 
     def __init__(self, model, name, inputs, mode: str, scalar: float = None):
@@ -101,11 +126,22 @@ class Reduce(Op):
                        keepdim=self.keepdims).to(x.dtype)]
         return [fn(x, dim=self.axis, keepdim=self.keepdims)]
 
+    def output_axes(self):
+        in_axes = list(_passthrough_axes(self.inputs[0].shape)[0])
+        if self.keepdims:
+            in_axes[self.axis] = None
+        else:
+            in_axes.pop(self.axis)
+        return [tuple(in_axes)]
+
+    def input_axes(self):
+        return [_passthrough_axes(self.inputs[0].shape)[0]]
+
     def flops(self) -> float:
         return float(self.inputs[0].num_elements)
 
 
-class ElementBinary(Op):
+class ElementBinary(PassthroughAxesMixin, Op):
     op_type = "element_binary"
 
     def __init__(self, model, name, inputs, mode: str):
@@ -127,7 +163,7 @@ class ElementBinary(Op):
         return float(self.outputs[0].num_elements)
 
 
-class Dropout(Op):
+class Dropout(PassthroughAxesMixin, Op):
     """``jnp.where(bernoulli(op key, keep, shape), x / keep, 0)`` with
     JAX's key chain (core/prng.py), through the dropout kernel
     (kernels/dropout.py) on the card. Eval mode and ``rate <= 0`` pass x
@@ -152,7 +188,7 @@ class Dropout(Op):
         return [dropout(x, ctx.rng.key, ctx.rng.fold, 1.0 - self.rate)]
 
 
-class Softmax(Op):
+class Softmax(PassthroughAxesMixin, Op):
     """``jax.nn.softmax`` op for op, in the input dtype: the JAX op
     casts to f32 only under the mixed-precision policy, which the port
     does not run, so a bf16 graph's softmax runs in bf16 there too."""
@@ -178,7 +214,7 @@ class Softmax(Op):
         return 5.0 * self.inputs[0].num_elements
 
 
-class LayerNorm(Op):
+class LayerNorm(PassthroughAxesMixin, Op):
     """Normalize over the last dim with learned scale/bias; statistics
     in f32 (population variance), output in the input dtype."""
 
@@ -199,8 +235,10 @@ class LayerNorm(Op):
         if not self.elementwise_affine:
             return {}
         c = self.num_channels
-        return {"scale": WeightSpec((c,), initializer="ones"),
-                "bias": WeightSpec((c,), initializer="zeros")}
+        return {"scale": WeightSpec((c,), initializer="ones",
+                                    axes=(CHANNEL,)),
+                "bias": WeightSpec((c,), initializer="zeros",
+                                   axes=(CHANNEL,))}
 
     def forward(self, params, xs, ctx: OpContext):
         (x,) = xs

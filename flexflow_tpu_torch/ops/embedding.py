@@ -32,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.precision import reciprocal_f32
-from ..op import Op, OpContext, WeightSpec
+from ..op import (CHANNEL_OUT, SAMPLE, TABLE, VOCAB, Op, OpContext,
+                  WeightSpec)
 
 AGGR_MODE_NONE = "none"
 AGGR_MODE_SUM = "sum"
@@ -67,7 +68,20 @@ class Embedding(Op):
 
     def weight_specs(self):
         return {"kernel": WeightSpec((self.num_entries, self.out_dim),
-                                     initializer=self.kernel_initializer)}
+                                     initializer=self.kernel_initializer,
+                                     axes=(VOCAB, CHANNEL_OUT))}
+
+    def output_axes(self):
+        n = len(self.outputs[0].shape)
+        axes = [None] * n
+        axes[0] = SAMPLE
+        axes[-1] = CHANNEL_OUT
+        return [tuple(axes)]
+
+    def input_axes(self):
+        axes = [None] * len(self.inputs[0].shape)
+        axes[0] = SAMPLE
+        return [tuple(axes)]
 
     def flops(self) -> float:
         shape = self.inputs[0].shape
@@ -194,7 +208,20 @@ class DistributedEmbedding(Op):
         return {"kernel": WeightSpec(
             (self.num_slots, self.num_entries, self.out_dim),
             initializer=self.kernel_initializer,
-            fan_in=self.num_entries, fan_out=self.out_dim)}
+            fan_in=self.num_entries, fan_out=self.out_dim,
+            axes=(TABLE, VOCAB, CHANNEL_OUT))}
+
+    def output_axes(self):
+        n = len(self.outputs[0].shape)   # 3-d when aggr == "none"
+        axes = [None] * n
+        axes[0] = SAMPLE
+        axes[-1] = CHANNEL_OUT
+        return [tuple(axes)] * self.num_tables
+
+    def input_axes(self):
+        axes = [None] * len(self.inputs[0].shape)
+        axes[0] = SAMPLE
+        return [tuple(axes)] * self.num_tables
 
     def flops(self) -> float:
         bs, bag = self.inputs[0].shape[0], self.inputs[0].shape[-1]

@@ -6,7 +6,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from ..op import Op, OpContext, WeightSpec
+from ..op import (CHANNEL_IN, CHANNEL_OUT, SAMPLE, SEQ, Op, OpContext,
+                  WeightSpec)
 from .common import AC_MODE_NONE, apply_activation
 
 
@@ -34,10 +35,12 @@ class Linear(Op):
         # kernel stored (in, out), as in the JAX package
         specs = {"kernel": WeightSpec(
             (self.in_channels, self.out_channels),
-            initializer=self.kernel_initializer)}
+            initializer=self.kernel_initializer,
+            axes=(CHANNEL_IN, CHANNEL_OUT))}
         if self.use_bias:
             specs["bias"] = WeightSpec((self.out_channels,),
-                                       initializer=self.bias_initializer)
+                                       initializer=self.bias_initializer,
+                                       axes=(CHANNEL_OUT,))
         return specs
 
     def forward(self, params, xs, ctx: OpContext):
@@ -50,6 +53,24 @@ class Linear(Op):
         if self.use_bias:
             y = y + params["bias"].to(x.dtype)
         return [apply_activation(y, self.activation)]
+
+    def output_axes(self):
+        n = len(self.outputs[0].shape)
+        axes = [None] * n
+        axes[0] = SAMPLE
+        if n == 3:
+            axes[1] = SEQ   # (batch, seq, features)
+        axes[-1] = CHANNEL_OUT
+        return [tuple(axes)]
+
+    def input_axes(self):
+        n = len(self.inputs[0].shape)
+        axes = [None] * n
+        axes[0] = SAMPLE
+        if n == 3:
+            axes[1] = SEQ
+        axes[-1] = CHANNEL_IN
+        return [tuple(axes)]
 
     def flops(self) -> float:
         batch = 1

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ..op import Op, OpContext
+from ..op import SAMPLE, Op, OpContext
 
 # Above this many mask elements (S * E * C floats) the dense dispatch mask
 # is waste; the sorted scatter does the same routing. Override with
@@ -142,6 +142,9 @@ class GroupBy(Op):
                                      xrep.float()).to(data.dtype)
         return [expert_in[i] for i in range(self.n)]
 
+    def output_axes(self):
+        return [(SAMPLE, None)] * self.n
+
 
 class Aggregate(Op):
     """inputs (gate_preds (B, k), assign (B, k), exp_pred_0..n-1 (cap,
@@ -173,3 +176,6 @@ class Aggregate(Op):
         gathered = gathered.reshape(b, k, -1)
         out = torch.sum(gathered * gate[:, :, None].float(), dim=1)
         return [out.to(experts.dtype)]
+
+    def output_axes(self):
+        return [(SAMPLE, None)]

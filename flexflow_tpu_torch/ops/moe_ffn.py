@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..core.precision import reciprocal_f32
-from ..op import Op, OpContext, WeightSpec
+from ..op import CHANNEL, EXPERT, SAMPLE, SEQ, Op, OpContext, WeightSpec
 from .common import AC_MODE_RELU, apply_activation
 from .moe import (dispatch_indices, dispatch_mask, sorted_combine,
                   sorted_dispatch, use_sorted_dispatch)
@@ -71,13 +71,16 @@ class MoEFFN(Op):
                       self.out_dim)
         init = self.kernel_initializer
         return {
-            "gate": WeightSpec((d, e), initializer=init),
+            "gate": WeightSpec((d, e), initializer=init,
+                               axes=(CHANNEL, None)),
             "w1": WeightSpec((e, d, h), initializer=init, fan_in=d,
-                             fan_out=h),
-            "b1": WeightSpec((e, h), initializer="zeros"),
+                             fan_out=h, axes=(EXPERT, None, None)),
+            "b1": WeightSpec((e, h), initializer="zeros",
+                             axes=(EXPERT, None)),
             "w2": WeightSpec((e, h, o), initializer=init, fan_in=h,
-                             fan_out=o),
-            "b2": WeightSpec((e, o), initializer="zeros"),
+                             fan_out=o, axes=(EXPERT, None, None)),
+            "b2": WeightSpec((e, o), initializer="zeros",
+                             axes=(EXPERT, None)),
         }
 
     def sorted_path(self) -> bool:
@@ -134,6 +137,16 @@ class MoEFFN(Op):
             ctx.aux_loss = (self.aux_loss_weight * e
                             * torch.sum(f * p)).float()
         return [out.to(dt).reshape(tuple(x.shape[:-1]) + (self.out_dim,))]
+
+    def output_axes(self):
+        n = len(self.outputs[0].shape)
+        axes = [None] * n
+        axes[0] = SAMPLE
+        if n == 3:
+            axes[1] = SEQ
+        return [tuple(axes)]
+
+    input_axes = output_axes
 
     def flops(self) -> float:
         gate = 2.0 * self.n_tokens * self.in_dim * self.num_experts

@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from ..kernels.lstm_scan import lstm_sequence
-from ..op import Op, OpContext, WeightSpec
+from ..op import (CHANNEL_IN, CHANNEL_OUT, SAMPLE, SEQ, Op, OpContext,
+                  WeightSpec)
 
 
 class LSTM(Op):
@@ -49,11 +50,22 @@ class LSTM(Op):
         h = self.hidden_size
         return {
             "wx": WeightSpec((self.in_dim, 4 * h),
-                             initializer=self.kernel_initializer),
+                             initializer=self.kernel_initializer,
+                             axes=(CHANNEL_IN, CHANNEL_OUT)),
             "wh": WeightSpec((h, 4 * h),
-                             initializer=self.kernel_initializer),
-            "b": WeightSpec((4 * h,), initializer="zeros"),
+                             initializer=self.kernel_initializer,
+                             axes=(None, CHANNEL_OUT)),
+            "b": WeightSpec((4 * h,), initializer="zeros",
+                            axes=(CHANNEL_OUT,)),
         }
+
+    def output_axes(self):
+        if self.return_sequences:
+            return [(SAMPLE, SEQ, CHANNEL_OUT)]
+        return [(SAMPLE, CHANNEL_OUT)]
+
+    def input_axes(self):
+        return [(SAMPLE, SEQ, CHANNEL_IN)]
 
     def flops(self) -> float:
         b, t, d = self.inputs[0].shape

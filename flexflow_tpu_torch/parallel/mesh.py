@@ -1,20 +1,86 @@
-"""The analytic description of the machine the cost model prices
-(``flexflow_tpu/parallel/mesh.py``'s ``MachineSpec``).
+"""Mesh descriptions and the analytic machine description the cost
+model prices (``flexflow_tpu/parallel/mesh.py``).
 
-The field names are the JAX package's, so one ``machine_model_file``
-JSON means the same thing to both packages. The defaults are JAX's (a
-TPU v5p slice); :meth:`MachineSpec.h100` describes the card the port
-runs on. Meshes (``make_mesh``) come with tensor-parallel serving
-(ROADMAP module item 7).
+A mesh here is a *description*: :class:`MeshShape` holds the ordered
+axis sizes, the axis names and an array of device indices, the fields
+of a ``jax.sharding.Mesh`` the search reads. The strategy search prices
+strategies on it for a machine of any size; the port executes on one
+device, and the process groups that would run a mesh of several cards
+wait for ROADMAP module item 2 (``FFModel(mesh=)`` with more than one
+device raises until then).
+
+``MachineSpec``'s field names are the JAX package's, so one
+``machine_model_file`` JSON means the same thing to both packages. The
+defaults are JAX's (a TPU v5p slice); :meth:`MachineSpec.h100`
+describes the card the port runs on.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Sequence
 
+import numpy as np
+
+# canonical axis names (the JAX package's): data parallelism, tensor
+# parallelism, sequence parallelism, expert parallelism, pipeline stages
+DATA = "data"
+MODEL = "model"
+SEQ_AX = "seq"
+EXPERT_AX = "expert"
+PIPE = "pipe"
 # serving-side tensor parallelism's one mesh axis (the JAX package's
 # parallel/mesh.TENSOR)
 TENSOR = "tensor"
+
+ALL_AXES = (DATA, MODEL, SEQ_AX, EXPERT_AX, PIPE)
+
+
+class MeshShape:
+    """A mesh description: ``shape`` (axis name -> size, in axis
+    order), ``axis_names``, ``size`` (the device count) and
+    ``devices`` (a numpy array of device indices of that shape) — what
+    ``jax.sharding.Mesh`` offers the cost model and the search."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 devices=None):
+        shape = tuple(int(s) for s in shape)
+        axes = tuple(axes)
+        if len(shape) != len(axes):
+            raise ValueError(
+                f"mesh shape {shape} and axes {axes} differ in length")
+        if len(set(axes)) != len(axes):
+            raise ValueError(f"mesh axis names repeat: {axes}")
+        if any(s < 1 for s in shape):
+            raise ValueError(f"mesh axis sizes must be >= 1: {shape}")
+        n = int(np.prod(shape, dtype=np.int64))
+        devices = np.asarray(np.arange(n) if devices is None
+                             else devices).reshape(-1)[:n]
+        if devices.size != n:
+            raise ValueError(
+                f"mesh needs {n} devices, have {devices.size}")
+        self.axis_names = axes
+        self.shape = dict(zip(axes, shape))
+        self.devices = devices.reshape(shape)
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    def __repr__(self):
+        return f"MeshShape({self.shape})"
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              devices: Optional[Sequence] = None) -> MeshShape:
+    """A mesh description of axis sizes and names over device indices
+    0..n-1 (or the first n of ``devices``). It describes a machine, so
+    it may be larger than the cards present."""
+    return MeshShape(shape, axes, devices)
+
+
+def single_device_mesh() -> MeshShape:
+    return make_mesh((1,), (DATA,))
 
 
 @dataclasses.dataclass

@@ -9,8 +9,9 @@ so repeated searches skip re-deriving costs. The fingerprint covers the
 MachineSpec numbers, the efficiency factors, the torus/DCN layout, the
 mesh shape and the pricing code itself: any change to what the cost
 formulas would see invalidates the entries (rows of other fingerprints
-stay in the file, unused). The port's serve placement search is its
-only writer yet (search/serve_place.py).
+stay in the file, unused). Its writers are the training simulator's
+per-(op, axis map) rows (search/simulator.py) and the serve placement
+search's step prices (search/serve_place.py).
 
 Path: ``costcache.json`` under the kernels' git-ignored build directory
 (``flexflow_tpu_torch/_build``; root overridable with
@@ -39,7 +40,7 @@ _PRICING_SRC_HASH: Optional[str] = None
 
 def _pricing_source_hash() -> str:
     """Hash of the pricing-code sources (cost_model, machine_model,
-    serve_place): an edited cost formula changes the fingerprint
+    op_measure, serve_place): an edited cost formula changes the fingerprint
     automatically, so stale cache entries can never be served by a
     forgotten COST_MODEL_VERSION bump. Memoized per process."""
     global _PRICING_SRC_HASH
@@ -47,7 +48,7 @@ def _pricing_source_hash() -> str:
         h = hashlib.sha256()
         base = os.path.dirname(os.path.abspath(__file__))
         for mod in ("cost_model.py", "machine_model.py",
-                    "serve_place.py"):
+                    "op_measure.py", "serve_place.py"):
             try:
                 with open(os.path.join(base, mod), "rb") as f:
                     h.update(f.read())

@@ -7,8 +7,8 @@ interface and the same formulas (``TPUMachineModel``'s), over
 datasheet figures in the spec, f32 matmuls at the CUDA cores' rate
 (the port runs f32 with TF32 off), and ``efficiency`` factors measured
 on the card by ``search/measure.py`` (the collective factor is still a
-guess). A mesh here is anything with a ``shape`` mapping of axis name to
-size and a ``size`` (the port builds no meshes yet).
+guess). A mesh here is a description (parallel/mesh.MeshShape, or
+anything with a ``shape`` mapping of axis name to size and a ``size``).
 """
 
 from __future__ import annotations

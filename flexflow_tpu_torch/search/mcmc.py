@@ -1,0 +1,769 @@
+"""MCMC strategy search; counterpart of ``flexflow_tpu/search/mcmc.py``,
+whole.
+
+Direct analog of the reference `FFModel::optimize` (model.cc:1905-1968):
+simulated annealing over per-op strategies, starting from pure data
+parallelism, with two move types — `rewrite` (re-strategize one random op)
+and, with probability 0.25, `propagate` (copy an op's strategy to a graph
+neighbor; reference model.cc:1807-1903) — accepting uphill moves with
+probability exp(-alpha * delta), and resetting to the best strategy every
+budget/100 iterations.
+
+The candidate set per op is the TPU-native strategy space: which logical
+axes map to which mesh axes, gated by the same CLI flags the reference
+used (--enable-parameter-parallel etc., config.h:139-141) plus the new
+SP/EP/PP axes.
+
+The walk, its random stream and its float arithmetic are the JAX
+package's, so the same model, mesh description, seed and budget find
+the same strategy at the same simulated cost in both packages. A mesh
+here is a description (parallel/mesh.MeshShape): the search prices a
+machine of any size from one card or from the CPU. Searches of a model
+on the card price on the card's calibrated machine model
+(search/measure.calibrated_machine_model); a model built with
+``device="cpu"`` prices on ``default_machine_model`` (the H100
+datasheet, or a ``machine_model_file``). ``search_stats["engine"]``
+says which engine ran: "native" (csrc/mcmc.cc, built at first use) or
+"python".
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import random
+import time
+from typing import Dict, List, Optional
+
+from ..parallel.pconfig import DEVICE_KEY, OpStrategy, Strategy
+from . import machine_model as _machine
+from .simulator import Simulator, op_edges
+
+
+def search_machine_model(model, mesh):
+    """The machine model a search of ``model`` prices on: the card's
+    calibrated model when the model lives on the card, the datasheet
+    model (or ``machine_model_file``'s) when it was built for the
+    CPU."""
+    cfg = model.config
+    dev = getattr(model, "device", None)
+    if dev is not None and getattr(dev, "type", None) == "cuda":
+        from .measure import calibrated_machine_model
+        return calibrated_machine_model(
+            mesh, machine_file=cfg.machine_model_file)
+    return _machine.default_machine_model(
+        mesh, machine_file=cfg.machine_model_file)
+
+
+def _resolve_chains(cfg, chains: Optional[int]) -> int:
+    """Number of parallel annealing chains: explicit arg >
+    FFConfig.search_chains > min(4, cpu_count)."""
+    if chains is None:
+        chains = int(getattr(cfg, "search_chains", 0) or 0)
+    if chains <= 0:
+        chains = min(4, os.cpu_count() or 1)
+    return max(1, chains)
+
+
+def _chain_seed(seed: int, k: int) -> int:
+    """Per-chain RNG seed derived from cfg.seed; chain 0 reproduces the
+    single-chain walk for the same base seed."""
+    return seed + 7919 * k
+
+
+def candidate_maps(op, mesh, cfg, op_index: int = 0) -> List[Dict[str, str]]:
+    """Enumerate legal axis maps for one op on this mesh.
+
+    `op_index` seeds the round-robin device for device-explicit placement
+    candidates (the reference's DLRM strategy generator assigns table i
+    to GPU i % n, dlrm_strategy.py)."""
+    axes = mesh.shape
+    cands: List[Dict[str, str]] = []
+    base: Dict[str, str] = {}
+    if "data" in axes and cfg.enable_sample_parallel:
+        base = {"sample": "data"}
+    cands.append(dict(base))          # pure DP (or replicated)
+    if not base:
+        cands.append({})
+
+    model_ax = "model" if "model" in axes else None
+    if model_ax:
+        tp_ok = cfg.enable_parameter_parallel or cfg.enable_attribute_parallel
+        if tp_ok and op.op_type in ("linear", "lstm"):
+            cands.append({**base, "channel_out": model_ax})
+        if cfg.enable_attribute_parallel and op.op_type == "conv2d":
+            cands.append({**base, "channel_out": model_ax})
+        if tp_ok and op.op_type == "multihead_attention":
+            cands.append({**base, "head": model_ax})
+        if cfg.enable_parameter_parallel and op.op_type == "embedding":
+            cands.append({**base, "vocab": model_ax})
+        if cfg.enable_parameter_parallel \
+                and op.op_type == "distributed_embedding":
+            cands.append({**base, "vocab": model_ax})
+            cands.append({**base, "table": model_ax})
+
+    # device-explicit placement ("Operator"/"Parameter" dims of SOAP:
+    # reference ParallelConfig.device_ids, config.h:47-73) — pin the
+    # whole op to one device, round-robin by op index like the DLRM
+    # strategy generator. OPT-IN (--enable-device-placement): GSPMD
+    # executes these as replication, so by default the search only
+    # offers executable candidates (table sharding on
+    # distributed_embedding is the executable placement form).
+    n_dev = int(mesh.size) if hasattr(mesh, "size") else 1
+    if (getattr(cfg, "enable_device_placement", False)
+            and op.op_type == "embedding" and n_dev > 1):
+        cands.append({DEVICE_KEY: (op_index % n_dev,)})
+    if (getattr(cfg, "enable_device_placement", False)
+            and op.op_type == "distributed_embedding" and n_dev > 1):
+        # per-table explicit ids (the DLRM strategy-generator pattern,
+        # dlrm_strategy.cc:1-50) — EXECUTABLE via the op's slot layout:
+        # round-robin and blocked assignments (shared with
+        # tools/gen_dlrm_strategy.py via placement_assignment)
+        from ..parallel.pconfig import placement_assignment
+        ntab = getattr(op, "num_tables", 1)
+        cands.append({DEVICE_KEY: placement_assignment(
+            ntab, n_dev, "round_robin")})
+        if ntab >= n_dev:
+            cands.append({DEVICE_KEY: placement_assignment(
+                ntab, n_dev, "blocked")})
+
+    if cfg.enable_sequence_parallel and "seq" in axes:
+        if op.op_type in ("multihead_attention", "linear", "lstm",
+                          "element_unary", "element_binary", "dropout",
+                          "softmax", "moe_ffn"):
+            cands.append({**base, "seq": "seq"})
+            if model_ax and op.op_type == "multihead_attention":
+                cands.append({**base, "seq": "seq", "head": model_ax})
+
+    if cfg.enable_expert_parallel and op.op_type == "moe_ffn":
+        ep_ax = "expert" if "expert" in axes else model_ax
+        if ep_ax:
+            cands.append({**base, "expert": ep_ax})
+
+    if cfg.enable_pipeline_parallel and op.op_type == "pipeline_blocks":
+        if "pipe" in axes:
+            cands.append({**base, "layer": "pipe"})
+
+    # dedupe
+    seen = set()
+    out = []
+    for c in cands:
+        key = tuple(sorted(c.items()))
+        if key not in seen:
+            seen.add(key)
+            out.append(c)
+    return out
+
+
+def _pipe_candidate_sizes(mesh) -> List[int]:
+    """Non-data mesh-axis sizes a pipeline could ride — the shared
+    enumeration for v=1 staged candidates and the v>1 sweep."""
+    return sorted({size for name, size in mesh.shape.items()
+                   if name != "data" and size > 1})
+
+
+def _pin_free_strategy(mesh) -> Strategy:
+    """The data-default strategy staged candidates build on."""
+    return Strategy(default=OpStrategy({"sample": "data"}
+                                       if "data" in mesh.shape else {}))
+
+
+def staged_strategies(model, mesh, cfg) -> List[Strategy]:
+    """Whole-graph pipeline candidates: flops-balanced stage cuts
+    expressed as per-op whole-device pins (the executable graph-PP form,
+    core/staged.py) — one candidate per viable non-data mesh-axis size.
+    These are GLOBAL moves (a single op's pin is useless alone; the
+    reference's propagate move spread placements the same way,
+    model.cc:1807-1903)."""
+    if not getattr(cfg, "enable_pipeline_parallel", False):
+        return []
+    if any(op.op_type == "pipeline_blocks" for op in model.ops):
+        # the uniform-stack meta-op already owns the pipe axis (and
+        # the native engine prices it); don't nest graph-level stages
+        return []
+    from ..parallel.graph_pipeline import (
+        balanced_stages, build_stage_plan, pick_pipe_axis)
+    out: List[Strategy] = []
+    for S in _pipe_candidate_sizes(mesh):
+        if pick_pipe_axis(mesh, S) is None or len(model.ops) < 2:
+            continue
+        stage_of = balanced_stages(model, S)
+        if max(stage_of.values()) < 1:
+            continue
+        try:
+            build_stage_plan(model, stage_of)  # stateful ops etc.
+        except (ValueError, NotImplementedError):
+            continue
+        s = _pin_free_strategy(mesh)
+        for op in model.ops:
+            if op.op_type == "distributed_embedding":
+                continue  # table placement has its own executable form
+            s.set(op.name, OpStrategy({DEVICE_KEY: (stage_of[op.name],)}))
+        out.append(s)
+    return out
+
+
+def _divisor_splits(n: int, num_axes: int):
+    """All tuples (d0..dk) with product n, each di >= 1."""
+    if num_axes == 1:
+        yield (n,)
+        return
+    d = 1
+    while d <= n:
+        if n % d == 0:
+            for rest in _divisor_splits(n // d, num_axes - 1):
+                yield (d,) + rest
+        d += 1
+
+
+def enumerate_mesh_shapes(n_devices: int, model, cfg
+                          ) -> List[Dict[str, int]]:
+    """Candidate mesh factorizations of `n_devices` over the axes this
+    model + the search gates can actually use.
+
+    The degree analog of the reference sampling ND part counts
+    (`get_random_parallel_config` model.cc:512; linear.cu:1074-1107
+    out-channel divisors): the TPU strategy space fixes degrees via the
+    mesh, so searching degrees = searching mesh shapes."""
+    op_types = {op.op_type for op in model.ops}
+    axes = ["data"]
+    if ((cfg.enable_parameter_parallel or cfg.enable_attribute_parallel)
+            and op_types & {"linear", "conv2d", "multihead_attention",
+                            "embedding", "lstm", "moe_ffn"}):
+        axes.append("model")
+    if (cfg.enable_sequence_parallel
+            and op_types & {"multihead_attention", "linear", "lstm",
+                            "moe_ffn"}):
+        axes.append("seq")
+    if cfg.enable_expert_parallel and "moe_ffn" in op_types:
+        axes.append("expert")
+    if cfg.enable_pipeline_parallel and (
+            "pipeline_blocks" in op_types or len(model.ops) >= 2):
+        axes.append("pipe")
+    shapes = []
+    seen = set()
+    for split in _divisor_splits(n_devices, len(axes)):
+        # drop size-1 axes (except data, which names the default axis)
+        shape = {ax: s for ax, s in zip(axes, split)
+                 if s > 1 or ax == "data"}
+        key = tuple(sorted(shape.items()))
+        if key not in seen:
+            seen.add(key)
+            shapes.append(shape)
+    return shapes
+
+
+def optimize_with_mesh(model, budget: int = 1000, alpha: float = 0.05,
+                       devices=None, seed: Optional[int] = None,
+                       verbose: bool = False,
+                       chains: Optional[int] = None):
+    """Search strategy AND mesh factorization jointly: enumerate mesh
+    shapes of the device count, anneal within each, return the
+    (strategy, mesh) pair with the best simulated step time.
+
+    Reference analog: the MCMC search samples parallel DEGREES per op
+    (model.cc:512); GSPMD fixes degrees at mesh construction, so the
+    degree search moves to the outer loop. Activated by
+    --search-mesh-shapes (FFConfig.search_mesh_shapes).
+
+    Mesh-shape candidates are distributed over a thread pool (the
+    annealing phase mutates no shared config state and the per-op cost
+    caches are shared read-mostly stores); the interleaved-pipeline
+    upgrade — which prices candidates THROUGH the config knobs — runs
+    serially afterwards, per shape.
+
+    ``devices`` is a device count or a list of device indices; by
+    default the model's mesh description's devices, else
+    ``torch.cuda.device_count()``."""
+    from ..parallel.mesh import make_mesh
+
+    if devices is None:
+        if model.mesh is not None:
+            devices = list(model.mesh.devices.flat)
+        else:
+            import torch
+            devices = torch.cuda.device_count()
+    if isinstance(devices, int):
+        devices = list(range(devices))
+    devices = list(devices)
+    n = len(devices)
+    if n < 1:
+        raise ValueError(
+            "optimize_with_mesh needs at least one device: pass "
+            "devices= (a count or a list of device indices)")
+    cfg = model.config
+    if seed is None:
+        seed = int(getattr(cfg, "seed", 0) or 0)
+    shapes = enumerate_mesh_shapes(n, model, cfg)
+    t0 = time.perf_counter()
+    # budget is the TOTAL iteration count across all factorizations
+    # (reference --budget semantics): a per-shape floor would silently
+    # multiply a deliberately small budget several-fold
+    per_budget = max(1, budget // max(1, len(shapes)))
+    # optimize() records an interleaved-pipeline win on the config
+    # knobs (_interleaved_upgrade) — snapshot/restore them per shape so
+    # one shape's win cannot distort another shape's pricing, then
+    # re-apply only the WINNING shape's knobs at the end
+    base_knobs = (cfg.pipeline_stages, cfg.pipeline_virtual_stages)
+
+    def anneal_shape(shape):
+        mesh = make_mesh(tuple(shape.values()), tuple(shape.keys()),
+                         devices)
+        sim = Simulator(model, mesh, search_machine_model(model, mesh))
+        found, cost, sim, stats = _optimize_impl(
+            model, per_budget, alpha, mesh, seed, False, sim, None,
+            chains=1)
+        if cost is None:
+            cost = sim.simulate(found)
+        return shape, mesh, sim, found, cost, stats
+
+    workers = min(max(1, len(shapes)), _resolve_chains(cfg, chains))
+    if workers > 1 and len(shapes) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            annealed = list(pool.map(anneal_shape, shapes))
+    else:
+        annealed = [anneal_shape(s) for s in shapes]
+
+    best = None  # (cost, strategy, mesh, sim, pipeline_knobs, stats)
+    agg_stats: Dict[str, object] = {}
+    for shape, mesh, sim, found, cost, stats in annealed:
+        strat = _interleaved_upgrade(model, cfg, mesh, sim, found,
+                                     best_cost=cost, verbose=False)
+        if strat is not found:  # upgrade won: re-price under its knobs
+            cost = sim.simulate(strat)
+        knobs = (cfg.pipeline_stages, cfg.pipeline_virtual_stages)
+        cfg.pipeline_stages, cfg.pipeline_virtual_stages = base_knobs
+        _merge_stats(agg_stats, stats)
+        if verbose:
+            print(f"[search/mesh] {shape}: {cost*1e3:.3f} ms/step")
+        if best is None or cost < best[0]:
+            best = (cost, strat, mesh, sim, knobs, stats)
+    cfg.pipeline_stages, cfg.pipeline_virtual_stages = best[4]
+    # _merge_stats last-wins on nested dicts; the convergence trace the
+    # report should show is the WINNING shape's walk, not the last one
+    if "trace" in best[5]:
+        agg_stats["trace"] = best[5]["trace"]
+    if verbose:
+        print(f"[search/mesh] best: {dict(best[2].shape)} "
+              f"at {best[0]*1e3:.3f} ms/step")
+    if cfg.taskgraph_file:  # re-export for the WINNING mesh (inner runs
+        # each wrote their own shape's graph; last is not best)
+        best[3].simulate(best[1], dot_path=cfg.taskgraph_file)
+    _export_schedule_trace(cfg, best[3], best[1], agg_stats)
+    best[3].flush_cost_cache()
+    # per-shape wall times overlap in the pool — summing them (what
+    # _merge_stats did for the counters) would understate proposals/sec
+    # by the worker count; report real elapsed time instead
+    agg_stats["wall_s"] = time.perf_counter() - t0
+    agg_stats["mesh_shapes"] = len(shapes)
+    agg_stats["chains"] = 1  # per-shape annealing runs single-chain
+    props = agg_stats.get("proposals", 0)
+    agg_stats["proposals_per_sec"] = (props / agg_stats["wall_s"]
+                                      if agg_stats["wall_s"] > 0 else 0.0)
+    model.search_stats = agg_stats
+    return best[1], best[2]
+
+
+def _merge_stats(agg: Dict[str, object], stats: Dict[str, object]) -> None:
+    """Accumulate one search's counters into an aggregate report dict
+    (numeric fields add; nested dicts merge; everything else last-wins)."""
+    for k, v in stats.items():
+        if isinstance(v, (int, float)) and isinstance(agg.get(k), (int,
+                                                                   float)):
+            agg[k] = agg[k] + v
+        elif isinstance(v, dict):
+            agg[k] = dict(v)
+        else:
+            agg[k] = v
+    if "wall_s" in agg and agg.get("proposals"):
+        agg["proposals_per_sec"] = (agg["proposals"] / agg["wall_s"]
+                                    if agg["wall_s"] > 0 else 0.0)
+
+
+def _interleaved_upgrade(model, cfg, mesh, sim, best, best_cost=None,
+                         verbose=False):
+    """Search the virtual-stage dimension: price auto-cut interleaved
+    pipelines (D devices x v chunks, v in {2, 4}) against the per-op
+    search winner through the same tick-table pricing the executor's
+    schedule defines (simulator._price_1f1b_ticks). The v dimension
+    cannot ride a Strategy — pins express at most one stage per device
+    — so, like optimize_with_mesh returning a mesh, a win is recorded
+    on the CONFIG knobs compile's auto-cut lowering reads
+    (pipeline_stages, pipeline_virtual_stages) and the returned
+    strategy carries no pins. Gated exactly like the executor:
+    interleaving requires the 1f1b schedule."""
+    if mesh is None or not getattr(cfg, "enable_pipeline_parallel",
+                                   False):
+        return best
+    if getattr(cfg, "pipeline_schedule", "gpipe") != "1f1b":
+        return best
+    if any(op.op_type == "pipeline_blocks" for op in model.ops):
+        return best
+    from ..parallel.graph_pipeline import pick_pipe_axis
+    base_knobs = (cfg.pipeline_stages, cfg.pipeline_virtual_stages)
+    pin_free = _pin_free_strategy(mesh)
+    if best_cost is None:
+        best_cost = sim.simulate(best)
+    win = None
+    try:
+        for D in _pipe_candidate_sizes(mesh):
+            if pick_pipe_axis(mesh, D) is None:
+                continue
+            for v in (2, 4):
+                cfg.pipeline_stages = D
+                cfg.pipeline_virtual_stages = v
+                stage_of = sim._staged_assignment(pin_free)
+                if stage_of is None or \
+                        max(stage_of.values()) + 1 != D * v:
+                    continue  # graph too small for D*v real stages
+                c = sim.simulate(pin_free)
+                if c < best_cost:
+                    best_cost, win = c, (D, v)
+                    if verbose:
+                        print(f"[search] interleaved pipeline wins: "
+                              f"{D} devices x v={v} "
+                              f"{c*1e3:.3f} ms/step")
+    finally:
+        cfg.pipeline_stages, cfg.pipeline_virtual_stages = base_knobs
+    if win is None:
+        return best
+    cfg.pipeline_stages, cfg.pipeline_virtual_stages = win
+    # carried on the strategy too, so --export round-trips the whole
+    # plan (pins cannot express v stages per device)
+    pin_free.pipeline = {
+        "stages": win[0], "virtual_stages": win[1],
+        "schedule": "1f1b",
+        "microbatches": int(getattr(cfg, "pipeline_microbatches", 4)),
+    }
+    return pin_free
+
+
+def _anneal_chain(model, sim: Simulator, cands, staged, edges,
+                  searchable, init: Strategy, init_cost: float,
+                  budget: int, alpha: float, seed: int,
+                  verbose: bool, chain: int = 0, trace=None):
+    """One annealing chain (the body of the reference FFModel::optimize
+    loop, model.cc:1905-1968) over `sim`. Proposal costs come from the
+    DELTA path (simulate_delta: re-cost only the moved op, replay the
+    cached scheduled task graph) whenever the template applies; moves
+    that change task-graph structure — staged jumps, pipeline-expansion
+    or placement flips — fall back to a full simulate() and rebase the
+    template. A periodic re-sync full-simulates the current strategy
+    and counts any divergence (stats["drift_resyncs"]); the delta
+    replay is exact, so a nonzero count means a bug, not noise.
+
+    `trace` (search/trace.SearchTrace) records every proposal — pure
+    observation AFTER each accept decision, so traced walks consume
+    the RNG identically to untraced ones (bit-identical results)."""
+    cfg = model.config
+    rng = random.Random(seed)
+    current = init.copy()
+    cur_cost = init_cost
+    best, best_cost = current.copy(), cur_cost
+    delta_on = sim.delta_rebase(current)
+    if trace is not None:
+        trace.record_best(-1, chain, best_cost)
+
+    reset_every = max(1, budget // 100)
+    resync_every = max(64, reset_every)
+    for it in range(budget):
+        if it > 0 and it % reset_every == 0 and cur_cost > best_cost:
+            current, cur_cost = best.copy(), best_cost
+            delta_on = sim.delta_rebase(current)
+        elif delta_on and it > 0 and it % resync_every == 0:
+            # periodic drift re-sync: ground the delta-tracked cost in
+            # a full simulation (guards template-splicing bugs; the
+            # replay is exact, so any divergence counted here is a bug)
+            full = sim.simulate(current)
+            if not math.isclose(full, cur_cost, rel_tol=1e-9,
+                                abs_tol=1e-15):
+                sim.stats["drift_resyncs"] += 1
+                cur_cost = full
+                delta_on = sim.delta_rebase(current)
+
+        # global staged-pipeline move: jump to (or mutate microbatching
+        # of) a whole-graph stage cut — per-op moves cannot assemble a
+        # viable pipeline one pin at a time
+        if staged and rng.random() < 0.1:
+            nxt = rng.choice(staged).copy()
+            nxt_cost = sim.simulate(nxt)
+            delta = nxt_cost - cur_cost
+            temp = alpha * cur_cost
+            accepted = delta <= 0 or rng.random() < math.exp(
+                -delta / max(1e-12, temp))
+            if accepted:
+                current, cur_cost = nxt, nxt_cost
+                delta_on = sim.delta_rebase(current)
+                if cur_cost < best_cost:
+                    best, best_cost = current.copy(), cur_cost
+                    if trace is not None:
+                        trace.record_best(it, chain, best_cost)
+                    if verbose:
+                        print(f"[search] iter {it}: staged pipeline "
+                              f"{best_cost*1e3:.3f} ms/step")
+            if trace is not None:
+                trace.record(it, chain, "staged", None, delta,
+                             accepted, temp, "full")
+            continue
+        # rewrite/propagate moves mutate `current` IN PLACE (one op's
+        # entry swapped, restored on rejection) — copying the whole
+        # strategy per proposal costs more than the delta simulation
+        # itself at small-graph scale
+        # propagation move is opt-in (reference --enable-propagation,
+        # model.cc:2374), fired with prob 0.25 like model.cc:1807-1903
+        if cfg.enable_propagation and rng.random() < 0.25 and edges:
+            # propagate along a random edge (reference propagation move)
+            src, dst = rng.choice(edges)
+            m = current.for_op(src.name).axis_map
+            if m in cands.get(dst.name, []):
+                changed, new_map = dst.name, dict(m)
+                kind = "propagate"
+            else:
+                op = rng.choice(searchable)
+                changed = op.name
+                new_map = dict(rng.choice(cands[op.name]))
+                kind = "rewrite"
+        else:
+            op = rng.choice(searchable)
+            changed = op.name
+            new_map = dict(rng.choice(cands[op.name]))
+            kind = "rewrite"
+        # .get: after an accepted staged jump `current` only carries
+        # the pinned ops' entries (for_op falls back to the default)
+        prev = current.op_strategies.get(changed)
+        current.set(changed, OpStrategy(new_map))
+
+        tok = sim.simulate_delta(current, (changed,)) if delta_on else None
+        nxt_cost = tok.cost if tok is not None else sim.simulate(current)
+        delta = nxt_cost - cur_cost
+        temp = alpha * cur_cost
+        accepted = delta <= 0 or rng.random() < math.exp(
+            -delta / max(1e-12, temp))
+        if accepted:
+            cur_cost = nxt_cost
+            if tok is None:
+                # structural move accepted outside the template
+                delta_on = sim.delta_rebase(current)
+            if cur_cost < best_cost:
+                best, best_cost = current.copy(), cur_cost
+                if trace is not None:
+                    trace.record_best(it, chain, best_cost)
+                if verbose:
+                    print(f"[search] iter {it}: {best_cost*1e3:.3f} ms/step")
+        else:
+            if prev is None:
+                del current.op_strategies[changed]
+            else:
+                current.op_strategies[changed] = prev
+            if tok is not None:
+                sim.delta_reject(tok)
+        if trace is not None:
+            trace.record(it, chain, kind, changed, delta, accepted,
+                         temp, "delta" if tok is not None else "full")
+
+    if verbose:
+        print(f"[search] chain {chain} best estimated step time: "
+              f"{best_cost*1e3:.3f} ms")
+    return best, best_cost
+
+
+def _optimize_impl(model, budget: int, alpha: float, mesh, seed: int,
+                   verbose: bool, simulator: Optional[Simulator],
+                   use_native: Optional[bool], chains: int):
+    """Engine dispatch + annealing; returns (best, best_cost, sim,
+    stats) with NO config-knob side effects (the interleaved upgrade
+    and taskgraph export stay with the caller, so mesh-shape sweeps
+    and chains can run this concurrently)."""
+    cfg = model.config
+    # fused searches must anneal in the Python engine (the native table
+    # cannot price fusion folding); optimize() raises on an explicit
+    # use_native=True, every other caller (incl. optimize_with_mesh's
+    # per-shape runs) gets coerced here
+    if cfg.perform_fusion and use_native is not True:
+        use_native = False
+    sim = simulator or Simulator(
+        model, mesh, search_machine_model(model, mesh))
+    # bucketed grad-sync pricing (grad_bucket_mb) exists only in the
+    # Python event loop — the native table lowers one sync task per op;
+    # anneal in Python so the search prices the overlap the executor
+    # actually delivers (explicit use_native=True keeps the native walk
+    # with its pre-bucket sync model)
+    if (sim.overlap and sim.bucket_mb > 0
+            and int(mesh.shape.get("data", 1)) > 1
+            and use_native is not True):
+        use_native = False
+
+    cands = {op.name: candidate_maps(op, mesh, cfg, op_index=i)
+             for i, op in enumerate(model.ops)}
+    t0 = time.perf_counter()
+    trace = None  # per-proposal search tracing (search/trace.py);
+    # created once the per-chain budget is known below
+
+    def stats_for(sims, proposals, engine="python"):
+        out: Dict[str, object] = {}
+        for s in sims:
+            _merge_stats(out, s.search_stats())
+        out["engine"] = engine
+        out["proposals"] = proposals
+        out["chains"] = len(sims)
+        out["wall_s"] = time.perf_counter() - t0
+        out["proposals_per_sec"] = (proposals / out["wall_s"]
+                                    if out["wall_s"] > 0 else 0.0)
+        if trace is not None:
+            out["trace"] = trace.summary()
+        return out
+
+    # graph-PP staged candidates: a staged strategy's simulated cost is
+    # INDEPENDENT of the per-op assignment (the whole graph runs as one
+    # pipeline), so the native engine needn't anneal through them — run
+    # the native search over the per-op space and compare the winner
+    # against each staged candidate afterward (priced by the Python
+    # staged expansion). Equivalent outcome to the Python loop's global
+    # staged moves, native speed retained.
+    staged = staged_strategies(model, mesh, cfg)
+    if use_native is not False:
+        from .native_search import optimize_native
+        found = optimize_native(model, sim, cands, budget, alpha, seed,
+                                verbose=verbose)
+        if found is not None:
+            best = found
+            best_cost = None
+            if staged:  # compare only when candidates exist: the
+                best_cost = sim.simulate(found)  # extra sim is theirs
+                for st in staged:
+                    c = sim.simulate(st)
+                    if c < best_cost:
+                        best, best_cost = st, c
+                        if verbose:
+                            print(f"[search] staged pipeline wins: "
+                                  f"{best_cost*1e3:.3f} ms/step")
+            return best, best_cost, sim, stats_for([sim], budget,
+                                                   engine="native")
+        if use_native is True:
+            raise RuntimeError(
+                "native search requested but FLEXFLOW_TORCH_NO_NATIVE "
+                "turns the native engine off")
+    _, edges = op_edges(model)
+
+    init = (model.strategy or Strategy()).copy()
+    # materialize every op's map so moves are local
+    for op in model.ops:
+        init.set(op.name, init.for_op(op.name).copy())
+    init_cost = sim.simulate(init)
+    best, best_cost = init.copy(), init_cost
+
+    # staged candidates compete even when no per-op axis choice exists
+    for s in staged:
+        c = sim.simulate(s)
+        if c < best_cost:
+            best, best_cost = s.copy(), c
+
+    searchable = [op for op in model.ops if len(cands[op.name]) > 1]
+    if not searchable or budget <= 0:
+        return best, best_cost, sim, stats_for([sim], 0)
+
+    # K independent chains over a shared read-only candidate set and
+    # one process-wide persistent cost cache; the TOTAL budget is split
+    # across chains (reference --budget semantics — chains diversify
+    # the walk, they don't multiply the work) and the best strategy
+    # across chains wins, ties to the lowest chain id for determinism.
+    per_chain = max(1, budget // chains)
+    if getattr(cfg, "search_trace", True):
+        from .trace import SearchTrace
+        trace = SearchTrace(budget=per_chain, chains=chains)
+    sims = [sim] + [Simulator(model, mesh, sim.mm,
+                              overlap_backward_sync=sim.overlap)
+                    for _ in range(chains - 1)]
+    for s_ in sims[1:]:
+        s_.time_scale = sim.time_scale
+        s_.step_overhead = sim.step_overhead
+
+    def run_chain(k):
+        return _anneal_chain(model, sims[k], cands, staged, edges,
+                             searchable, init, init_cost, per_chain,
+                             alpha, _chain_seed(seed, k), verbose,
+                             chain=k, trace=trace)
+
+    if chains == 1:
+        results = [run_chain(0)]
+    else:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=chains) as pool:
+            results = list(pool.map(run_chain, range(chains)))
+    for cb, cc in results:
+        if cc < best_cost:
+            best, best_cost = cb, cc
+    return best, best_cost, sim, stats_for(sims, per_chain * chains)
+
+
+def optimize(model, budget: int = 1000, alpha: float = 0.05,
+             mesh=None, seed: Optional[int] = None, verbose: bool = False,
+             simulator: Optional[Simulator] = None,
+             use_native: Optional[bool] = None,
+             chains: Optional[int] = None) -> Strategy:
+    """Anneal over strategies; returns the best found.
+
+    Reference contract: called from compile() when search_budget > 0
+    (model.cc:1561-1570); unlike the reference we do NOT exit the process
+    after search — the found strategy is used directly (and exported when
+    --export is set).
+
+    The annealing loop runs in the native C++ engine (csrc/mcmc.cc),
+    built with g++ at first use — the analog of the reference keeping
+    search+simulation in C++ — unless the search needs the Python
+    engine (fusion folding, bucketed sync pricing) or
+    FLEXFLOW_TORCH_NO_NATIVE is set; a failed build raises with g++'s
+    message. `use_native=False` forces the Python path, which anneals K parallel chains
+    (--search-chains) with delta re-simulation per move
+    (Simulator.simulate_delta) and a shared persistent cost cache.
+
+    `seed=None` resolves to FFConfig.seed, and ALL randomness flows
+    through per-chain `random.Random` instances — same seed, same
+    strategy, reproducibly. Search counters land on
+    `model.search_stats` (profiling.search_report renders them)."""
+    mesh = mesh or model.mesh
+    if mesh is None:
+        return model.strategy or Strategy()
+    cfg = model.config
+    if seed is None:
+        seed = int(getattr(cfg, "seed", 0) or 0)
+    # The native engine mirrors the Python simulator task-for-task —
+    # including per-device resources for placed candidates and GPipe
+    # event-loop expansion (csrc/mcmc.cc). The one remaining Python-only
+    # capability is FUSION folding (same-strategy chains costed as one
+    # task), so fused searches route to the Python engine.
+    if cfg.perform_fusion:
+        if use_native is True:
+            raise ValueError("native search does not support "
+                             "perform_fusion; use the Python engine")
+        use_native = False
+    best, best_cost, sim, stats = _optimize_impl(
+        model, budget, alpha, mesh, seed, verbose, simulator,
+        use_native, _resolve_chains(cfg, chains))
+    # the interleaved-variant comparison and --taskgraph export run on
+    # every return path; `best_cost` spares a re-simulation when known
+    strategy = _interleaved_upgrade(model, cfg, mesh, sim, best,
+                                    best_cost=best_cost, verbose=verbose)
+    if cfg.taskgraph_file:
+        sim.simulate(strategy, dot_path=cfg.taskgraph_file)
+    _export_schedule_trace(cfg, sim, strategy, stats)
+    sim.flush_cost_cache()
+    model.search_stats = stats
+    return strategy
+
+
+def _export_schedule_trace(cfg, sim, strategy, stats) -> None:
+    """--schedule-trace: Perfetto export of the winning strategy's
+    simulated event-loop schedule (Simulator.export_schedule), summary
+    stashed in the search stats. An unwritable path must not fail the
+    search that found the strategy."""
+    path = getattr(cfg, "schedule_trace_file", None)
+    if not path:
+        return
+    try:
+        stats["schedule_trace"] = sim.export_schedule(strategy, path)
+    except OSError as e:
+        import warnings
+        warnings.warn(f"schedule-trace export to {path!r} failed "
+                      f"({type(e).__name__}: {e})")

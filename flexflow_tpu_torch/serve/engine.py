@@ -98,6 +98,7 @@ import numpy as np
 import torch
 
 from ..config import CompMode, FFConfig, resolve_device
+from ..core.precision import dtype_name
 from ..core.programs import PinnedRing, ProgramRegistry
 from ..kernels.flash_attention import (paged_attention_decode,
                                        paged_attention_ragged)
@@ -116,11 +117,6 @@ from .scheduler import (ChunkPlan, ContinuousBatchingScheduler, Request,
                         RequestOutcome, RequestState, SampleParams)
 
 
-def _dtype_name(dtype: torch.dtype) -> str:
-    """numpy's name of a torch dtype ("float32", "bfloat16", ...)."""
-    return str(dtype).replace("torch.", "")
-
-
 def _serve_arch(arch, cfg, acfg, context: int):
     from ..search.cost_model import ServeArch
     from .kv_cache import QUANTIZED_KV_DTYPES, kv_storage_dtype
@@ -136,7 +132,7 @@ def _serve_arch(arch, cfg, acfg, context: int):
         kv_itemsize=float(kv_storage_dtype(kv_name).itemsize),
         kv_scales=kv_name in QUANTIZED_KV_DTYPES,
         act_itemsize=float(arch.dtype.itemsize),
-        act_dtype=_dtype_name(arch.dtype),
+        act_dtype=dtype_name(arch.dtype),
         adapter_rank=acfg.rank if acfg is not None else 0,
         adapter_slots=acfg.num_slots if acfg is not None else 0)
 

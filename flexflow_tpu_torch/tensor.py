@@ -46,6 +46,9 @@ class Tensor:
             n *= s
         return n
 
+    def size_bytes(self) -> int:
+        return self.num_elements * self.dtype.itemsize
+
     def __repr__(self):
         prod = self.owner_op.name if self.owner_op is not None else "input"
         return (f"Tensor({self.name}, shape={self.shape}, "

@@ -1,6 +1,7 @@
 """The port stands alone: no module of flexflow_tpu_torch, and not
-chip_smoke.py, imports JAX, ml_dtypes or the JAX package, and importing
-the serving, search and training packages leaves them unloaded."""
+chip_smoke.py, imports JAX, ml_dtypes or the JAX package, importing
+the serving, search and training packages leaves them unloaded, and the
+native search engine builds from flexflow_tpu_torch/csrc alone."""
 
 import ast
 import subprocess
@@ -39,14 +40,43 @@ def test_sources_found():
             "flash_attention.py", "executor.py", "model.py",
             "attention.py", "optimizers.py", "lstm_scan.py", "rnn.py",
             "embedding.py", "nmt_lstm.py", "disagg.py", "transport.py",
-            "serve_place.py", "mesh.py"} <= names
+            "serve_place.py", "mesh.py", "pconfig.py", "strategy_io.py",
+            "graph_pipeline.py", "ulysses.py", "cost_model.py",
+            "simulator.py", "mcmc.py", "native_search.py",
+            "op_measure.py", "explain.py", "fusion.py", "overlap.py",
+            "wrappers.py"} <= names
 
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, flexflow_tpu_torch.serve, flexflow_tpu_torch, "
-            "flexflow_tpu_torch.search, flexflow_tpu_torch.serve.transport; "
+            "flexflow_tpu_torch.search, flexflow_tpu_torch.serve.transport, "
+            "flexflow_tpu_torch.parallel.strategy_io, "
+            "flexflow_tpu_torch.parallel.graph_pipeline, "
+            "flexflow_tpu_torch.search.native_search, "
+            "flexflow_tpu_torch.search.op_measure, "
+            "flexflow_tpu_torch.native.wrappers; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flexflow_tpu', 'ml_dtypes')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_native_loader_reads_only_port_sources():
+    """The g++ command names sources and an include directory under
+    flexflow_tpu_torch/csrc only, and every file the sources include
+    from the repository is there."""
+    from flexflow_tpu_torch import native
+    csrc = ROOT / "flexflow_tpu_torch" / "csrc"
+    assert native.CSRC == csrc
+    assert native.BUILD_DIR == ROOT / "flexflow_tpu_torch" / "_build"
+    for f in native.SOURCES + native.HEADERS:
+        text = (csrc / f).read_text()
+        assert (csrc / f).is_file()
+        for line in text.splitlines():
+            if line.startswith('#include "'):
+                inc = line.split('"')[1]
+                assert (csrc / inc).is_file(), (f, inc)
+                assert inc in native.HEADERS, (f, inc)
+    names = {p.name for p in csrc.iterdir()}
+    assert names >= set(native.SOURCES + native.HEADERS)

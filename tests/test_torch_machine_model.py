@@ -7,14 +7,13 @@ same machine numbers — the port's model holds JAX's, read at run time
 (``H100MachineModel.like``) — every price must equal JAX's exactly, on a
 grid of specs, topologies, arches, dtypes, degrees and handoff loads.
 JAX's machine-model cases run on both packages' ``assign_axis_topology``
-and ``default_machine_model`` (a mesh here is any object with a
-``shape`` mapping and a ``size``). The port's own numbers are the H100
+and ``default_machine_model`` (the port's on its mesh description,
+parallel/mesh.make_mesh). The port's own numbers are the H100
 datasheet's; calibration measures the card or raises."""
 
 import dataclasses
 import json
 import os
-import types
 
 import pytest
 
@@ -25,6 +24,7 @@ from flexflow_tpu.search import machine_model as jmm
 from flexflow_tpu.search import simulator as jsim
 
 from flexflow_tpu_torch.parallel.mesh import MachineSpec
+from flexflow_tpu_torch.parallel.mesh import make_mesh as tmake_mesh
 from flexflow_tpu_torch.search import cost_model as tcm
 from flexflow_tpu_torch.search import machine_model as tmm
 from flexflow_tpu_torch.search import measure
@@ -34,9 +34,8 @@ MB = 1 << 20
 
 
 def _mesh(shape, axes):
-    """(JAX mesh, the port's stand-in) of one shape."""
-    jm = make_mesh(shape, axes)
-    return jm, types.SimpleNamespace(shape=dict(jm.shape), size=jm.size)
+    """(JAX mesh, the port's mesh description) of one shape."""
+    return make_mesh(shape, axes), tmake_mesh(shape, axes)
 
 
 def _models(spec_kw=None, **model_kw):

@@ -267,7 +267,9 @@ CONFIG_KNOBS = {
     "telemetry": dict(telemetry=True),
 }
 # ported since these cases were written: compile takes them and they train
-PORTED_CONFIG = {"remat", "nhwc", "telemetry"}
+# (search and fusion on one device keep the model's strategy and ops, as
+# the JAX compile does: tests/test_torch_search_fit.py)
+PORTED_CONFIG = {"remat", "nhwc", "telemetry", "search", "fusion"}
 
 
 @pytest.mark.parametrize("knob", sorted(CONFIG_KNOBS))
@@ -330,11 +332,18 @@ def test_out_of_scope_attention_raises(kw):
 
 
 def test_out_of_scope_runtime_raises():
-    with pytest.raises(NotImplementedError):
-        ft.FFModel(ft.FFConfig(), mesh=object(), device="cpu")
+    """A mesh of more than one device still raises (ROADMAP module item
+    2); a strategy is ported: compile keeps it on one device, as JAX's
+    does (tests/test_torch_search_fit.py). The test keeps its name from
+    when both raised."""
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    from flexflow_tpu_torch.parallel.pconfig import Strategy
+    with pytest.raises(NotImplementedError, match="item 2"):
+        ft.FFModel(ft.FFConfig(), mesh=make_mesh((2,), ("data",)),
+                   device="cpu")
     m = _model()
-    with pytest.raises(NotImplementedError):
-        m.compile(strategy=object())
+    m.compile(strategy=Strategy())
+    assert m.strategy is not None
     m.compile()
     x, y = _data(BATCH, seed=6)
     # seq_length is ported: the key mask trains
