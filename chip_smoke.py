@@ -125,6 +125,25 @@ wide-head) must not spill — and then:
     steps through them against 3 on the scan cell, and their launches on
     its main path (``seq2seq_launches`` in the lstm rows).
 
+  * runs the executing mesh (``mesh_phase``, after every earlier
+    phase; its ranks are processes spawned after the build, loading the
+    parent's kernels): (a) one NCCL rank per visible card trains the
+    README's LM (bf16 policy, 16 x 512, captured) on ``default_mesh()``
+    with grad_bucket_mb auto, 0 and 25 MB against the same model
+    without a mesh — at world 1 the losses and masters bit for bit —
+    with step ms beside the no-mesh step, the buckets and the
+    collective launches a step; (b) prints NCCL's refusal of two ranks
+    on one card, then runs two gloo ranks on it, eager, the dropout LM
+    at full width in the f32 policy on (2,) data with ZeRO-1 and on
+    (1, 2) data x model under megatron_strategy (kernels 2-4 on 4 of 8
+    heads, the dropout kernel at each rank's offset), held against the
+    one-rank card run at f32 (MESH_LOSS_REL, MESH_WEIGHT_ABS), every
+    rank's flash and dropout launches counted (layers x steps), the
+    bytes staged through host memory a step; (c) ``compile(
+    search_budget=...)`` of the LM on (b)'s mesh, the winner's
+    explain_report head and simulated step beside the measured eager
+    step (no speed: gloo stages every collective through the host).
+
 Every phase raises on failure. Prints the card (name, power limit), the
 build, each kernel's error and times, the training and serving numbers,
 the script's wall time, then one line ``{"kernels": [...]}`` and, last,
@@ -929,19 +948,25 @@ def lm_batches(n, seed=0):
     return out
 
 
-def lm_model(compute_dtype, use_flash=True, capture=True):
+def lm_model(compute_dtype, use_flash=True, capture=True, mesh=None,
+             strategy=None, arch=None, batch=None, **cfg):
     """The LM at full width on the card under ``compute_dtype``'s
     policy (f32 masters). Weights come from the port's numpy streams
     seeded by (config.seed, op, weight), so every model built here
     starts from the same weights. ``use_flash=False`` puts the attention
-    ops on the einsum path; ``capture=False`` runs every step eagerly."""
+    ops on the einsum path; ``capture=False`` runs every step eagerly;
+    ``mesh``/``strategy`` run it on an executing mesh (``cfg``: more
+    FFConfig fields)."""
     from functools import partial
     from flexflow_tpu_torch import FFConfig, SGDOptimizer, build_transformer_lm
     from flexflow_tpu_torch.core.losses import \
         sparse_categorical_crossentropy
+    batch = batch or LB
     m = build_transformer_lm(
-        FFConfig(batch_size=LB, seed=0, compute_dtype=compute_dtype),
-        batch_size=LB, device="cuda", **LM_ARCH)
+        FFConfig(batch_size=batch, seed=0, compute_dtype=compute_dtype,
+                 **cfg),
+        batch_size=batch, device="cuda", mesh=mesh, strategy=strategy,
+        **(arch or LM_ARCH))
     if not use_flash:
         for op in m.ops:
             if op.name.endswith("_attn"):
@@ -2691,16 +2716,18 @@ DROPOUT_SHAPES = ((LB, TS, 512), (3, 1001, 77))
 
 def dropout_lm_graph(batch, vocab_size, max_seq_len, hidden, num_heads,
                      num_layers, ff_dim, compute_dtype="bfloat16",
-                     remat=False, seed=0, device="cuda", p=LM_DROPOUT):
+                     remat=False, seed=0, device="cuda", p=LM_DROPOUT,
+                     mesh=None, strategy=None):
     """build_transformer_lm's graph, op for op with its op names, plus
     dropout ``p`` on each attention op and a Dropout(p) after each
     block's FFN, built with the port's FFModel calls
     (``build_transformer_lm`` takes no dropout argument, as the JAX
-    function does not)."""
+    function does not); on an executing ``mesh`` under ``strategy``
+    when given."""
     from flexflow_tpu_torch import FFConfig, FFModel
     cfg = FFConfig(batch_size=batch, seed=seed, compute_dtype=compute_dtype,
                    remat=remat)
-    ff = FFModel(cfg, device=device)
+    ff = FFModel(cfg, device=device, mesh=mesh, strategy=strategy)
     tokens = ff.create_tensor((batch, max_seq_len), dtype=torch.int32,
                               name="tokens")
     positions = ff.create_tensor((batch, max_seq_len), dtype=torch.int32,
@@ -4335,6 +4362,324 @@ def search_phase(fa, ls):
     return res
 
 
+# ---------------------------------------------------------------- mesh
+# the executing mesh: held steps a run, timed captured steps of
+# (a), the search budget of (c); (b) against the one-rank card run at
+# f32 (the global sums of two ranks' partial sums in another order)
+MESH_STEPS = 3
+MESH_B_STEPS = 2
+MESH_TIMED = 10
+MESH_ROUNDS = 4
+MESH_SEARCH_BUDGET = 200
+MESH_LOSS_REL = 1e-5
+MESH_WEIGHT_ABS = 1e-5
+# (a)'s explicit bucket size: 4 buckets of the LM's 208 MB of dense f32
+# masters (the embedding tables train densely under momentum): the token
+# table alone, then about two blocks a bucket, the last with the head
+MESH_BUCKET_MB = 25.0
+
+
+def mesh_ms(m, batch, n):
+    """Mean wall ms of n train steps between CUDA events, after a
+    synchronize (the step's device work and its host work both)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        m.train_batch(batch)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def mesh_lm_loss():
+    from functools import partial
+    from flexflow_tpu_torch.core.losses import \
+        sparse_categorical_crossentropy
+    return partial(sparse_categorical_crossentropy, from_logits=True)
+
+
+def mesh_rank_a(steps, timed):
+    """(a) on one NCCL rank of one card each: the README's LM at full
+    width, bf16 policy, captured, on ``default_mesh()`` with
+    grad_bucket_mb auto, 0 and MESH_BUCKET_MB (auto resolves to 0 on a
+    data axis of one rank, as JAX's does: the explicit size runs the
+    bucket hooks inside the capture), against the same model without
+    a mesh. At world 1 the losses and masters must be bit-identical."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch.parallel import collectives as C
+    from flexflow_tpu_torch.parallel.mesh import default_mesh
+    world = dist.get_world_size()
+    data = lm_batches(steps + 1)
+    out = {"backend": str(dist.get_backend()), "world": world,
+           "rank": dist.get_rank()}
+    ref = lm_model("bfloat16")
+    ref_losses = [float(ref.train_batch(b)["loss"]) for b in data[:steps]]
+    ref_w = weights_of(ref)
+    models = {"nomesh": ref}
+    for mb in (None, 0.0, MESH_BUCKET_MB):
+        key = "auto" if mb is None else f"{mb:g}"
+        m = lm_model("bfloat16", mesh=default_mesh(), grad_bucket_mb=mb)
+        losses = [float(m.train_batch(b)["loss"]) for b in data[:steps]]
+        cell = {"losses": losses, "ref_losses": ref_losses}
+        if world == 1:
+            wdiff, worst = max_weight_diff(weights_of(m), ref_w)
+            cell["max_weight_diff"] = wdiff
+            if losses != ref_losses or wdiff != 0.0:
+                raise AssertionError(
+                    f"mesh (a) bucket {key}: the one-rank mesh changed the "
+                    f"arithmetic: losses {losses} vs {ref_losses}, weights "
+                    f"by {wdiff} at {worst}")
+        C.reset_counts()
+        mesh_ms(m, data[steps], timed)
+        cell["collectives_per_step"] = {
+            k: v / timed for k, v in C.launches.items() if v}
+        info = m.executor.grad_bucket_info()
+        cell["buckets"] = info["count"]
+        cell["bucket_mb"] = info["bucket_mb"]
+        cell["captures"] = m.compile_counts()
+        out[key] = cell
+        models[key] = m
+    # the step times in interleaved rounds (no mesh first, then last),
+    # the median of each model's rounds
+    order = list(models)
+    rounds = {k: [] for k in order}
+    for r in range(MESH_ROUNDS):
+        for k in (order if r % 2 == 0 else order[::-1]):
+            rounds[k].append(mesh_ms(models[k], data[steps], timed))
+    out["nomesh_step_ms"] = statistics.median(rounds["nomesh"])
+    out["nomesh_rounds"] = rounds["nomesh"]
+    for k in order[1:]:
+        out[k]["step_ms"] = statistics.median(rounds[k])
+        out[k]["rounds"] = rounds[k]
+    for m in models.values():
+        release(m)
+    return out
+
+
+def mesh_rank_b(kind, steps):
+    """(b) on two gloo ranks of one card, eager: ``dp`` is the dropout
+    LM at full width, f32 policy, on (2,) data with ZeRO-1; ``tp`` the
+    same on (1, 2) data x model under megatron_strategy (4 of 8 heads a
+    rank). Rank 0 also trains the one-rank card run (no mesh) from the
+    same weights and keys; the global weights are held against it."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.kernels import dropout as kd
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel import collectives as C
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    from flexflow_tpu_torch.parallel.pconfig import megatron_strategy
+    rank = dist.get_rank()
+    data = lm_batches(steps)
+    mesh, strat, zero = ((make_mesh((2,), ("data",)), None, True)
+                         if kind == "dp" else
+                         (make_mesh((1, 2), ("data", "model")),
+                          megatron_strategy(), False))
+
+    def build(mesh=None, strategy=None):
+        m = dropout_lm_graph(LB, compute_dtype="float32", mesh=mesh,
+                             strategy=strategy, **LM_ARCH)
+        m.config.zero_optimizer_sharding = zero and mesh is not None
+        m.compile(optimizer=SGDOptimizer(lr=0.01, momentum=0.9),
+                  loss_type=mesh_lm_loss(), metrics=[], capture=False)
+        return m
+
+    out = {"kind": kind, "rank": rank}
+    ref = None
+    if rank == 0:
+        ref = build()
+        out["ref_losses"] = [float(ref.train_batch(b)["loss"])
+                             for b in data]
+        ref_w = {op: {k: v.detach().cpu() for k, v in p.items()}
+                 for op, p in ref.state.params.items()}
+        release(ref)
+        del ref
+    dist.barrier()
+    m = build(mesh, strat)
+    fl0 = dict(fa.launches)
+    dr0 = dict(kd.launches)
+    C.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["losses"] = [float(m.train_batch(b)["loss"]) for b in data]
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+    out["flash_launches"] = {k: fa.launches[k] - fl0.get(k, 0)
+                             for k in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")}
+    out["dropout_launches"] = {k: kd.launches[k] - dr0[k]
+                               for k in kd.launches}
+    out["collectives_per_step"] = {k: v / steps
+                                   for k, v in C.launches.items() if v}
+    out["staged_mb_per_step"] = sum(C.staged_bytes.values()) / steps / 1e6
+    out["heads_local"] = int(m.state.params["layer0_attn"]["wq"].shape[1])
+    out["zero_slots"] = len(m.executor._zero_dims)
+    glob = {op.name: m.get_weights(op.name) for op in m.ops
+            if op.weight_specs()}
+    if rank == 0:
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(out["losses"], out["ref_losses"]))
+        wdiff = max(float(np.abs(glob[op][k] - ref_w[op][k].numpy()).max())
+                    for op in glob for k in glob[op])
+        out["max_loss_rel"], out["max_weight_abs"] = rel, wdiff
+        if not (rel <= MESH_LOSS_REL and wdiff <= MESH_WEIGHT_ABS):
+            raise AssertionError(
+                f"mesh (b) {kind}: against the one-rank card run, loss "
+                f"rel {rel} (limit {MESH_LOSS_REL}), weights {wdiff} "
+                f"(limit {MESH_WEIGHT_ABS})")
+    n_layers = LM_ARCH["num_layers"]
+    want = n_layers * steps
+    if any(v != want for v in out["flash_launches"].values()):
+        raise AssertionError(f"mesh (b) {kind}: flash launches "
+                             f"{out['flash_launches']}, want {want} each")
+    want_d = 2 * n_layers * steps
+    if any(v != want_d for v in out["dropout_launches"].values()):
+        raise AssertionError(f"mesh (b) {kind}: dropout launches "
+                             f"{out['dropout_launches']}, want {want_d}")
+    release(m)
+    return out
+
+
+def mesh_rank_c(budget, steps):
+    """(c) compile(search_budget=...) of the LM on (b)'s (1, 2) mesh:
+    the search prices the card's calibrated machine model and compile
+    executes its winner, the same on both ranks."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch import (FFConfig, SGDOptimizer,
+                                    build_transformer_lm)
+    from flexflow_tpu_torch.parallel import collectives as C
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    from flexflow_tpu_torch.search.explain import (explain_placement,
+                                                   explain_report)
+    from flexflow_tpu_torch.search.mcmc import search_machine_model
+    from flexflow_tpu_torch.search.simulator import Simulator
+    mesh = make_mesh((1, 2), ("data", "model"))
+    cfg = FFConfig(batch_size=LB, seed=0, search_budget=budget,
+                   search_chains=1, enable_parameter_parallel=True)
+    m = build_transformer_lm(cfg, batch_size=LB, device="cuda", mesh=mesh,
+                             **LM_ARCH)
+    t0 = time.perf_counter()
+    m.compile(optimizer=SGDOptimizer(lr=0.01, momentum=0.9),
+              loss_type=mesh_lm_loss(), metrics=[], capture=False)
+    search_s = time.perf_counter() - t0
+    maps = {op: dict(st.axis_map)
+            for op, st in sorted(m.strategy.op_strategies.items())}
+    every = C.gather_objects(json.dumps(maps, sort_keys=True),
+                             m.executor.bm, "model")
+    if len(set(every)) != 1:
+        raise AssertionError("mesh (c): the ranks' searches disagree")
+    sim = Simulator(m, mesh, search_machine_model(m, mesh))
+    sim_ms = sim.simulate(m.strategy) * 1e3
+    head = explain_report(explain_placement(m, mesh, m.strategy,
+                                            simulator=sim)).splitlines()[:6]
+    data = lm_batches(steps + 1)
+    m.train_batch(data[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(m.train_batch(b)["loss"]) for b in data[1:]]
+    measured = (time.perf_counter() - t0) * 1e3 / steps
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"mesh (c): losses {losses}")
+    split = sorted(f"{op}:{ax}" for op, am in maps.items()
+                   for ax, v in am.items() if v == "model")
+    out = {"search_s": search_s, "sim_step_ms": sim_ms,
+           "measured_eager_step_ms": measured, "explain_head": head,
+           "model_maps": len(split), "model_maps_head": split[:8],
+           "losses": losses}
+    release(m)
+    return out
+
+
+def mesh_nccl_two_ranks():
+    t = torch.ones(4, device="cuda")
+    import torch.distributed as dist
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    return t.tolist()
+
+
+def mesh_phase(card: str):
+    """The executing mesh on the card (see the module docstring): (a)
+    NCCL, one rank per card; (b) two gloo ranks on the one card, after
+    NCCL's verdict on two ranks on one device; (c) the search's winner
+    executed on (b)'s mesh. The ranks are processes of their own,
+    spawned after every kernel was built (they load the parent's
+    builds)."""
+    import tempfile
+    from flexflow_tpu_torch import native
+    from flexflow_tpu_torch.parallel.launch import RankPool
+    from flexflow_tpu_torch.search.measure import calibrated_machine_model
+    t0 = time.perf_counter()
+    calibrated_machine_model()      # on disk for the ranks' searches
+    native.get_lib()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="ff_mesh_"))
+    res = {}
+    world = torch.cuda.device_count()
+    with RankPool(world, str(tmp / "a"), backend="nccl", device="cuda",
+                  threads=0, timeout_s=600) as pool:
+        ra = pool.run(mesh_rank_a, MESH_STEPS, MESH_TIMED)
+    res["a"] = ra[0]
+    a = ra[0]
+    for key in ("auto", "0", f"{MESH_BUCKET_MB:g}"):
+        c = a[key]
+        log(f"mesh (a) backend {a['backend']} world {a['world']} bucket "
+            f"{key} ({c['bucket_mb']:.3f} MB, {c['buckets']} buckets): "
+            f"captured step {c['step_ms']:.3f} ms vs no mesh "
+            f"{a['nomesh_step_ms']:.3f} ms (medians of {MESH_ROUNDS} "
+            f"interleaved rounds of {MESH_TIMED} steps; {card}); "
+            f"collectives a step "
+            f"{c['collectives_per_step']}; losses bit-identical to the "
+            f"no-mesh run: {c['losses'] == c['ref_losses']}")
+    try:
+        with RankPool(2, str(tmp / "n"), backend="nccl", device="cuda",
+                      threads=0, timeout_s=120) as pool:
+            pool.run(mesh_nccl_two_ranks)
+        verdict, backend_b = "NCCL accepted two ranks on one card", "nccl"
+    except Exception as e:           # noqa: BLE001 - printed: NCCL's verdict
+        lines = [ln.strip() for ln in str(e).splitlines()
+                 if "rror" in ln or "uplicate" in ln]
+        verdict, backend_b = " | ".join(lines[-2:])[:400], "gloo"
+    res["nccl_two_ranks_one_card"] = verdict
+    log(f"mesh (b) NCCL with two ranks on one card: {verdict}")
+    log(f"mesh (b) two ranks on the one card over {backend_b}"
+        + (", eager; every collective staged through pinned host memory"
+           if backend_b == "gloo" else ""))
+    with RankPool(2, str(tmp / "b"), backend=backend_b, device="cuda",
+                  threads=0, timeout_s=600) as pool:
+        for kind in ("dp", "tp"):
+            rb = pool.run(mesh_rank_b, kind, MESH_B_STEPS)
+            res[f"b_{kind}"] = rb
+            r0 = rb[0]
+            log(f"mesh (b) {kind}: vs the one-rank card run loss rel "
+                f"{r0['max_loss_rel']:.3e}, weights abs "
+                f"{r0['max_weight_abs']:.3e}; flash launches a rank "
+                f"{[r['flash_launches'] for r in rb]} on "
+                f"{r0['heads_local']} heads; dropout "
+                f"{[r['dropout_launches'] for r in rb]}; staged "
+                f"{[round(r['staged_mb_per_step'], 3) for r in rb]} MB a "
+                f"step; collectives a step {r0['collectives_per_step']}; "
+                f"eager step {[round(r['step_ms'], 1) for r in rb]} ms; "
+                f"ZeRO-1 slots {r0['zero_slots']}")
+        rc = pool.run(mesh_rank_c, MESH_SEARCH_BUDGET, MESH_B_STEPS)
+    c = res["c"] = rc[0]
+    for line in c["explain_head"]:
+        log(f"mesh (c) explain: {line}")
+    log(f"mesh (c) search {MESH_SEARCH_BUDGET} proposals in "
+        f"{c['search_s']:.2f} s; winner's model splits {c['model_maps']} "
+        f"{c['model_maps_head']}; simulated step {c['sim_step_ms']:.3f} ms"
+        f" vs measured eager step {c['measured_eager_step_ms']:.1f} ms "
+        f"(two {backend_b} ranks on one card"
+        + (", collectives staged through host memory: the measured step is"
+           " no speed" if backend_b == "gloo" else "") + ")")
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"mesh phase: {res['phase_s']:.1f} s")
+    return res
+
+
 def _kernel_name(sym: str) -> str:
     """A mangled kernel symbol as name[template args, still mangled]:
     the name is the length-prefixed identifier ending in _kernel."""
@@ -4491,6 +4836,9 @@ def main() -> int:
             raise AssertionError(f"{name}: tensor-core kernels without "
                                  f"HMMA in SASS: {bare + missing}")
 
+    if "--only-mesh" in sys.argv[1:]:
+        log(json.dumps({"mesh": mesh_phase(card)}, default=str))
+        return 0
     kres = kernel_phase(pr)
     dres = paged_decode_phase(fa)
     fres = flash_phase(fa)
@@ -4514,6 +4862,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     searchres = search_phase(fa, ls)
+    gc.collect()
+    torch.cuda.empty_cache()
+    meshres = mesh_phase(card)
 
     def head(cells):
         """A row's headline numbers: its f32 cell."""
@@ -4572,6 +4923,10 @@ def main() -> int:
                 for k in ("encoder", "lm")},
             "search_measure_launches":
                 searchres["grounding"]["launches"][kname],
+            "mesh_launches": {
+                kind: [r["flash_launches"][kname]
+                       for r in meshres[f"b_{kind}"]]
+                for kind in ("dp", "tp")},
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -4631,6 +4986,10 @@ def main() -> int:
             "replaces_note": "jax.random.bernoulli in XLA, no Pallas "
                              "kernel; also ops/attention.py:156",
             "launches": drop_launches[kname], **cells[head_cell],
+            "mesh_launches": {
+                kind: [r["dropout_launches"][kname]
+                       for r in meshres[f"b_{kind}"]]
+                for kind in ("dp", "tp")},
             "library_note": "torch.nn.functional.dropout: same work, "
                             "another random stream",
             "cells": {c: v for c, v in cells.items() if c != head_cell},
@@ -4669,6 +5028,7 @@ def main() -> int:
     log(json.dumps({"disagg": disres}))
     log(json.dumps({"sweep": swres}))
     log(json.dumps({"search": searchres}, default=str))
+    log(json.dumps({"mesh": meshres}, default=str))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

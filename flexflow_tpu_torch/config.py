@@ -16,11 +16,11 @@ tier, replica-pool, wall-clock, disaggregation and transport knobs, and
 the search stack's machine file and cost cache, and the strategy
 search's fields (gates, budget, chains, strategy files, measurement,
 exports, gradient buckets, pipeline planning, fusion, the mesh
-description). Knobs that would need a mesh that executes
-(``pipeline_stages > 1``, a mesh of more than one device) reach
-``FFModel.compile``, which raises ``NotImplementedError`` naming
-ROADMAP module item 2 instead of ignoring them. The rest of the JAX
-config has no counterpart yet.
+description, ZeRO-1). A mesh of several devices executes on a
+process group of its size (parallel/mesh.py); knobs this port does not
+execute yet (``pipeline_stages > 1``) reach ``FFModel.compile``, which
+raises ``NotImplementedError`` naming their ROADMAP item instead of
+ignoring them. The rest of the JAX config has no counterpart yet.
 
 Device policy: every entry point runs on the card unless the caller
 asks for the CPU. There is no fallback — :func:`resolve_device` raises
@@ -273,13 +273,18 @@ class FFConfig:
     # of the winning strategy's simulated schedule
     taskgraph_file: Optional[str] = None
     schedule_trace_file: Optional[str] = None
-    # gradient-sync bucket size the simulator prices (core/overlap.py
-    # resolve_bucket_mb): 0 = one monolithic sync, None = auto from the
-    # machine model. On one device there is no sync to bucket
+    # gradient-sync bucket size (core/overlap.py resolve_bucket_mb),
+    # priced by the simulator and executed on a mesh's data axis: 0 =
+    # one all-reduce after the backward, None = auto from the machine
+    # model. On one device there is no sync to bucket
     grad_bucket_mb: Optional[float] = None
+    # ZeRO-1: split the dense parameters' optimizer slots over the
+    # `data` axis of an executing mesh (core/executor.py); warns and
+    # does nothing on a mesh without a data axis of several ranks
+    zero_optimizer_sharding: bool = False
     # pipeline planning the simulator reads (parallel/graph_pipeline.py);
-    # compile raises for pipeline_stages > 1 (executing a pipeline needs
-    # a mesh, ROADMAP module item 2)
+    # compile raises for pipeline_stages > 1 (executing a pipeline is
+    # ROADMAP item 2.3)
     pipeline_stages: int = 0
     pipeline_microbatches: int = 4
     pipeline_schedule: str = "gpipe"
@@ -288,9 +293,9 @@ class FFConfig:
     # same-strategy chain as one task; on one device the executor runs
     # the same ops either way
     perform_fusion: bool = False
-    # mesh description (parallel/mesh.make_mesh): None = one device.
-    # compile raises for a mesh of more than one device (ROADMAP module
-    # item 2)
+    # mesh (parallel/mesh.make_mesh): None = one device; a mesh of
+    # several devices executes on a process group of its size (axes
+    # default to data, model, seq, expert, pipe in order)
     mesh_shape: Optional[Sequence[int]] = None
     mesh_axes: Optional[Sequence[str]] = None
     iter_config: FFIterationConfig = dataclasses.field(

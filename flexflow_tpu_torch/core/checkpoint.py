@@ -25,6 +25,13 @@ checkpoint into the model's tensors in place (a captured step keeps
 reading the same memory) and resyncs ``_host_step``, so a resumed run's
 dropout stream continues exactly. An INFERENCE-compiled model restores
 params and step and skips the optimizer slots.
+
+On an executing mesh (pass the model's ``executor``) every rank takes
+part in gathering the global state (``Executor.global_state``), rank 0
+alone writes it — the same ``state.pt`` as one device's, so a mesh
+checkpoint loads on one device and the reverse — and the other ranks
+wait at a barrier after the commit. A restore reads the global file on
+every rank and keeps each rank's blocks (``Executor.local_state``).
 """
 
 from __future__ import annotations
@@ -73,13 +80,35 @@ def _host_tree(tree):
     return {k: _host_tree(v) for k, v in tree.items()}
 
 
-def _payload(state: TrainState) -> dict:
+def _payload(state: TrainState, executor=None) -> dict:
     """Host copies of the state (a device-to-host copy synchronizes, so
-    the snapshot is complete when this returns)."""
+    the snapshot is complete when this returns); on a mesh the global
+    state, gathered from every rank."""
+    if _on_mesh(executor):
+        g = executor.global_state(state)
+        return {"params": _host_tree(g["params"]),
+                "states": _host_tree(g["states"]),
+                "opt_state": _host_tree(g["opt_state"]),
+                "step": g["step"]}
     return {"params": _host_tree(state.params),
             "states": _host_tree(state.states),
             "opt_state": _host_tree(state.opt_state),
             "step": int(state.step)}
+
+
+def _on_mesh(executor) -> bool:
+    return executor is not None and getattr(executor, "bm", None) is not None
+
+
+def _writer(executor) -> bool:
+    """Whether this rank writes: rank 0 of a mesh, or the one device."""
+    return not _on_mesh(executor) or executor.bm.rank == 0
+
+
+def _barrier(executor) -> None:
+    if _on_mesh(executor):
+        from ..parallel.collectives import barrier
+        barrier(executor.bm)
 
 
 def _write(tmp: str, payload: dict) -> None:
@@ -99,14 +128,18 @@ class AsyncSaver:
     Until then it is invisible at its final path — the crash contract
     of the synchronous save, stretched over the worker."""
 
-    def __init__(self):
+    def __init__(self, executor=None):
         self._pending: Optional[tuple] = None
+        self.executor = executor
 
     def save(self, path: str, state: TrainState) -> None:
         self._commit_pending()
         path = os.path.abspath(path)
         default_injector().fire("ckpt.save")
-        payload = _payload(state)           # snapshot on this thread
+        payload = _payload(state, self.executor)   # snapshot here
+        if not _writer(self.executor):
+            self._pending = (None, path, None, [])
+            return
         err: list = []
 
         def work():
@@ -125,12 +158,14 @@ class AsyncSaver:
             return
         tmp, final, worker, err = self._pending
         self._pending = None
-        worker.join()
-        if err:
-            raise err[0]
-        # the staged kill point: tmp is complete, final not yet swung
-        default_injector().fire("ckpt.commit")
-        _promote(tmp, final)
+        if worker is not None:
+            worker.join()
+            if err:
+                raise err[0]
+            # the staged kill point: tmp is complete, final not yet swung
+            default_injector().fire("ckpt.commit")
+            _promote(tmp, final)
+        _barrier(self.executor)
 
     def wait_until_finished(self) -> None:
         self._commit_pending()
@@ -140,22 +175,27 @@ class AsyncSaver:
 
 
 def save_checkpoint(path: str, state: TrainState, use_async: bool = False,
-                    checkpointer=None):
+                    checkpointer=None, executor=None):
     """Save a TrainState to ``path`` (a directory), atomically. With
     ``use_async`` the write runs on a worker and an :class:`AsyncSaver`
     is returned: keep it and call ``wait_until_finished()`` (or
     ``close()``) before relying on the checkpoint; pass it back as
-    ``checkpointer`` to reuse it."""
+    ``checkpointer`` to reuse it. ``executor``: the model's, for a
+    state on an executing mesh (every rank calls this)."""
     if use_async:
-        saver = checkpointer if checkpointer is not None else AsyncSaver()
+        saver = (checkpointer if checkpointer is not None
+                 else AsyncSaver(executor))
         saver.save(path, state)
         return saver
     path = os.path.abspath(path)
     default_injector().fire("ckpt.save")
-    _write(path + ".tmp", _payload(state))
-    # the staged kill point: tmp is complete, path not yet swung
-    default_injector().fire("ckpt.commit")
-    _promote(path + ".tmp", path)
+    payload = _payload(state, executor)
+    if _writer(executor):
+        _write(path + ".tmp", payload)
+        # the staged kill point: tmp is complete, path not yet swung
+        default_injector().fire("ckpt.commit")
+        _promote(path + ".tmp", path)
+    _barrier(executor)
     return None
 
 
@@ -188,14 +228,21 @@ def _like(saved, template, what: str):
             for k in template}
 
 
-def restore_checkpoint(path: str, state: TrainState) -> TrainState:
+def restore_checkpoint(path: str, state: TrainState,
+                       executor=None) -> TrainState:
     """A new TrainState with ``state``'s structure, devices and dtypes,
     read from ``path``. An INFERENCE-compiled model (``opt_state ==
-    {}``) reads params and step only, skipping the on-disk slots."""
+    {}``) reads params and step only, skipping the on-disk slots. On a
+    mesh (``executor``) each rank keeps its blocks of the global
+    file."""
     path = os.path.abspath(path)
-    recover_promoted(path)
+    if _writer(executor):
+        recover_promoted(path)
+    _barrier(executor)
     payload = torch.load(os.path.join(path, STATE_FILE),
                          map_location="cpu", weights_only=True)
+    if _on_mesh(executor):
+        payload = executor.local_state(payload)
     params = _like(payload["params"], state.params, "params")
     states = _like(payload.get("states", {}), state.states, "states")
     opt = (_like(payload["opt_state"], state.opt_state, "opt_state")
@@ -209,7 +256,8 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
 def save_model(model, path: str, use_async: bool = False):
     """Returns the AsyncSaver when ``use_async`` (see save_checkpoint),
     else None."""
-    return save_checkpoint(path, model.state, use_async=use_async)
+    return save_checkpoint(path, model.state, use_async=use_async,
+                           executor=model.executor)
 
 
 def _copy_into(dst, src):
@@ -224,7 +272,7 @@ def _copy_into(dst, src):
 def restore_model(model, path: str) -> None:
     """Restore ``path`` into the model's tensors IN PLACE and resync the
     per-step key mirror (``_host_step``) from the restored step."""
-    restored = restore_checkpoint(path, model.state)
+    restored = restore_checkpoint(path, model.state, model.executor)
     _copy_into(model.state.params, restored.params)
     _copy_into(model.state.states, restored.states)
     if model.state.opt_state:

@@ -21,6 +21,15 @@ reads it has completed (its event). So the copy of batch i+1 overlaps
 step i, where the synchronous path's pageable copy waits for the device
 to finish the queued work first. Batch order and contents are
 byte-identical to the synchronous path and to JAX's loader.
+
+``mesh=``: on an executing mesh each rank's loaders yield its block of
+every global batch, rows ``[c*b/d, (c+1)*b/d)`` of the batch's order,
+``c`` the rank's ``data`` coordinate and ``d`` the ``data`` axis size
+(ranks that differ only on ``model`` get the same rows): the process-
+local batches of JAX's ``place_process_local``, which the executor takes
+as they are. The global order, prefetch, pinned slots and the copy
+stream are unchanged; :func:`host_to_device` is the placement of the
+rank's rows.
 """
 
 from __future__ import annotations
@@ -53,13 +62,39 @@ def placed_dtype(src: torch.dtype, dtype=None) -> torch.dtype:
     return want if want is not None else _NARROW.get(src, src)
 
 
-def host_to_device(host, device, dtype=None) -> torch.Tensor:
+def host_to_device(host, device, dtype=None, mesh=None) -> torch.Tensor:
     """A host array (or a tensor) on ``device`` at
-    :func:`placed_dtype`, cast in the transfer."""
+    :func:`placed_dtype`, cast in the transfer. With an executing
+    ``mesh`` the host batch is this process's rows, its block of the
+    global batch (JAX's ``place_process_local``: a mesh with no
+    ``data`` axis to split the batch over raises)."""
+    if mesh is not None:
+        from ..parallel.mesh import bound_mesh
+        from ..parallel.sharding import batch_sharding, place_process_local
+        bm = bound_mesh(mesh)
+        if bm is not None:
+            host = place_process_local(
+                host, batch_sharding(bm, np.ndim(host)), bm)
     t = host if isinstance(host, torch.Tensor) else torch.as_tensor(
         np.asarray(host))
     return torch.as_tensor(t, device=device,
                            dtype=placed_dtype(t.dtype, dtype))
+
+
+def _rank_rows(mesh, batch_size: int):
+    """(first row, rows) of this rank's block of a global batch."""
+    if mesh is None:
+        return 0, batch_size
+    from ..parallel.mesh import bound_mesh
+    bm = bound_mesh(mesh)
+    if bm is None or "data" not in bm.groups:
+        return 0, batch_size
+    d = bm.axis_size("data")
+    if batch_size % d:
+        raise ValueError(f"batch size {batch_size} does not split over "
+                         f"{d} data ranks")
+    n = batch_size // d
+    return bm.coord("data") * n, n
 
 
 class SingleDataLoader:
@@ -69,9 +104,9 @@ class SingleDataLoader:
     def __init__(self, name: str, data: np.ndarray, batch_size: int,
                  mesh=None, shuffle: bool = False, seed: int = 0,
                  drop_last: bool = True, dtype=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("meshes are not ported yet")
         self.name = name
+        # this rank's rows of each batch: (offset, count)
+        self._rows = _rank_rows(mesh, int(batch_size))
         self.data = np.asarray(data)
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
@@ -107,7 +142,9 @@ class SingleDataLoader:
                 raise StopIteration
         sel = self._order[self._pos:self._pos + self.batch_size]
         self._pos += self.batch_size
-        return host_to_device(self.data[sel], self.device, self.dtype)
+        lo, n = self._rows
+        return host_to_device(self.data[sel[lo:lo + n]], self.device,
+                              self.dtype)
 
 
 class _PinnedStager:
@@ -191,6 +228,10 @@ class DataLoaderSet:
     def num_batches(self) -> int:
         return next(iter(self.loaders.values())).num_batches
 
+    def _rows(self):
+        """(first row, rows) of this rank's block of each batch."""
+        return next(iter(self.loaders.values()))._rows
+
     def _epoch_order(self) -> np.ndarray:
         order = np.arange(next(iter(self.loaders.values())).num_samples)
         if self.shuffle:
@@ -263,8 +304,9 @@ class DataLoaderSet:
             return
         # iterator-local slicing: the loaders' cursors stay untouched
         bs = self.batch_size
+        lo, n_rows = self._rows()
         for i in range(self.num_batches):
-            sel = order[i * bs:(i + 1) * bs]
+            sel = order[i * bs:(i + 1) * bs][lo:lo + n_rows]
             yield {k: host_to_device(l.data[sel], self.device, l.dtype)
                    for k, l in self.loaders.items()}
 
@@ -281,12 +323,14 @@ class DataLoaderSet:
         stager = (_PinnedStager(self.loaders, self.device)
                   if self.device.type == "cuda" else None)
 
+        lo, n_rows = self._rows()
+
         def gather() -> None:
             try:
                 for i in range(self.num_batches):
                     if stop.is_set():
                         return
-                    sel = order[i * bs:(i + 1) * bs]
+                    sel = order[i * bs:(i + 1) * bs][lo:lo + n_rows]
                     if stager is not None:
                         q.put(stager.stage(sel))
                     else:

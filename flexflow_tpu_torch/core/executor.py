@@ -1,9 +1,10 @@
-"""Executor: runs the op graph as single-device train and eval steps.
+"""Executor: runs the op graph as train and eval steps, on one device
+or on an executing mesh.
 
-Counterpart of ``flexflow_tpu/core/executor.py`` on one device: a
-model's strategy shards nothing here (its per-table embedding
-placement is ignored with the JAX executor's meshless warning), and
-fusion groups pin no sharding. The parameter tree has the
+Counterpart of ``flexflow_tpu/core/executor.py``. Without a mesh a
+model's strategy shards nothing (its per-table embedding placement is
+ignored with the JAX executor's meshless warning). The mesh half is
+described below, after the one-device walk. The parameter tree has the
 JAX package's layout and names, ``{op_name: {weight_name: tensor}}``;
 gradients come from ``torch.autograd.grad`` in place of
 ``jax.value_and_grad``, and the optimizer updates the parameter tensors
@@ -69,10 +70,53 @@ later one replays it. The step keys and the optimizer's per-step scalar
 (SGD's lr, Adam's ``alpha_t``, each times the runtime LR multiplier of
 ``set_learning_rate``) enter as one staged int32 input through a pinned
 ring, so neither a new key nor a new learning rate captures anew.
+
+The mesh half (a model whose mesh is bound to a process group,
+parallel/mesh.py). JAX hands GSPMD a sharding per parameter and per
+op output and XLA inserts the collectives; here every rank runs the
+walk on its blocks and the collectives are explicit:
+
+* Init: every rank computes the global parameters (the same seeded
+  streams) and keeps its block by ``weight_sharding`` (JAX's layout:
+  ``P(None, "model")`` for a column-split kernel). Op state and the
+  step counter are replicated.
+* The walk: a value carries its layout; before an op runs, each input
+  is resharded (parallel/sharding.reshard) to the layout the op's
+  local rule reads (``Op.mesh_input_specs``), each weight to the one
+  it reads it in (``Op.mesh_weight_specs``); the outputs come in
+  ``Op.mesh_output_specs`` and are resharded to JAX's pin
+  (``op_output_sharding``) at the boundary ops only — every op, or
+  the last op of each fusion group under ``perform_fusion``, as JAX
+  pins them. A tensor keeps its NCHW shape under
+  ``conv_layout='NHWC'`` (channels-last is a memory format here), so
+  the pin needs no permutation (JAX's ``_permute_nhwc_sharding``).
+* The loss and metrics are the global batch's: the loss is the mean of
+  the ranks' means (each rank holds b/d rows) — ``all_reduce`` over
+  ``data`` times f32(1/d) — and the metric sums are summed over
+  ``data``. History is the same on every rank.
+* Gradients: each rank's gradient is its part of the global batch's;
+  the dense ones are summed over ``data`` (core/overlap.GradSync: in
+  buckets launched from gradient hooks while the backward runs, or one
+  all-reduce after it when ``grad_bucket_mb`` is 0). Parameters
+  replicated over ``model`` get whole gradients on every rank (the
+  tensor-parallel rules' ``copy_to`` sums their partial input
+  gradients), so nothing is summed over ``model``. Sparse tables
+  all-gather their ids and row gradients over ``data`` in rank order
+  (the global batch order) and every rank applies the same row update,
+  so the tables stay identical on every rank.
+* ZeRO-1 (``zero_optimizer_sharding`` on a ``data`` axis of more than
+  one rank, JAX's ``zero_applicable``): the optimizer slots of each
+  dense parameter are split over ``data`` on its first unsplit
+  dimension that divides; the update reduce-scatters that gradient,
+  updates the rank's slice of the parameter with its slots, and
+  all-gathers the parameter.
+* Strategies this slice does not execute raise ``NotImplementedError``
+  naming their ROADMAP item (:func:`check_executable`).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -93,6 +137,82 @@ from .programs import PinnedRing, ProgramRegistry, fingerprint_hash
 from .prng import OpRng, key_words
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
+
+# the ROADMAP items that execute what this slice leaves out
+_ITEM = {"seq": "2.4 (sequence parallelism)",
+         "expert": "2.5 (expert parallelism and placed embeddings)",
+         "table": "2.5 (expert parallelism and placed embeddings)",
+         "pipe": "2.3 (pipelines)",
+         "layer": "2.3 (pipelines)"}
+
+
+def zero_applicable(config, mesh) -> bool:
+    """The single ZeRO-1 eligibility rule (JAX's): requested and a
+    ``data`` axis of more than one rank to shard over."""
+    return bool(getattr(config, "zero_optimizer_sharding", False)
+                and mesh is not None
+                and mesh.shape.get("data", 1) > 1)
+
+
+def check_executable(model, strategy, mesh, config) -> None:
+    """Raise ``NotImplementedError`` naming its ROADMAP item for what
+    this slice does not execute on a mesh: mesh axes beyond ``data``
+    and ``model``, pipeline stages, device pins, ``seq`` / ``expert``
+    / ``table`` splits, ``channel_out`` on conv2d and lstm, split
+    stacked embeddings, and a batch that does not split over ``data``.
+    Linear ``channel_out``, attention ``head`` and embedding ``vocab``
+    over ``model`` execute; any other weight a strategy splits is
+    stored split and read whole."""
+    from ..op import SAMPLE
+    from ..parallel.pconfig import DEVICE_KEY
+    from ..parallel.sharding import spec_for_axes, weight_sharding
+    for ax, n in mesh.shape.items():
+        if ax not in ("data", "model") and n > 1:
+            raise NotImplementedError(
+                f"mesh axis {ax!r} of {n} devices: ROADMAP item "
+                f"{_ITEM.get(ax, '2.6 (layouts beyond data and model)')}")
+    if config.pipeline_stages > 1:
+        raise NotImplementedError(
+            f"pipeline_stages={config.pipeline_stages}: ROADMAP item "
+            f"{_ITEM['pipe']}")
+    ndata = mesh.shape.get("data", 1)
+    for op in model.ops:
+        st = strategy.for_op(op.name)
+        if st.axis_map.get(DEVICE_KEY):
+            raise NotImplementedError(
+                f"{op.name}: device pins {st.axis_map[DEVICE_KEY]} on an "
+                f"executing mesh: ROADMAP item {_ITEM['table']}")
+        for logical, target in st.axis_map.items():
+            if logical in ("seq", "expert", "table", "layer") \
+                    and target is not None:
+                item = _ITEM[logical if logical != "layer" else "pipe"]
+                raise NotImplementedError(
+                    f"{op.name}: {logical} -> {target}: ROADMAP item "
+                    f"{item}")
+        split = [k for k, w in op.weight_specs().items()
+                 if any(mesh.shape.get(n, 1) > 1
+                        for e in weight_sharding(w, st, mesh) if e
+                        for n in ((e,) if isinstance(e, str) else e))]
+        if split and op.op_type in ("conv2d", "lstm"):
+            raise NotImplementedError(
+                f"{op.name}: channel_out over a mesh axis on "
+                f"{op.op_type}: ROADMAP item 2.7 (conv and LSTM "
+                f"channel_out)")
+        if split and op.op_type in ("distributed_embedding", "moe_ffn"):
+            raise NotImplementedError(
+                f"{op.name}: split {split} on {op.op_type}: ROADMAP item "
+                f"{_ITEM['table']}")
+        if ndata > 1:
+            for t, axes in zip(op.outputs, op.output_axes()):
+                sample = tuple(a if a == SAMPLE else None for a in axes)
+                spec = spec_for_axes(sample, st, mesh, t.shape)
+                if SAMPLE not in axes or "data" not in spec:
+                    raise NotImplementedError(
+                        f"{op.name}: output {tuple(t.shape)} is not split "
+                        f"over the {ndata} data ranks (its batch does not "
+                        f"divide, or the strategy leaves it whole): "
+                        f"ROADMAP item 2.6 (layouts beyond data and "
+                        f"model)")
 
 
 class TrainState:
@@ -142,6 +262,21 @@ class Executor:
         self._sparse_ops = None
         self._sparse_key = None
         self._last_aux_losses: List[torch.Tensor] = []
+        # the executing mesh (None on one device); planned below
+        from ..parallel.mesh import bound_mesh
+        from ..parallel.pconfig import Strategy
+        self.bm = bound_mesh(getattr(model, "mesh", None))
+        if self.bm is not None and self.bm.staging and capture \
+                and self.device.type == "cuda":
+            raise ValueError(
+                "a gloo mesh on the card stages every collective through "
+                "host memory, which a CUDA graph cannot capture: compile "
+                "with capture=False (or give each rank a card of its own "
+                "and NCCL)")
+        self.strategy = getattr(model, "strategy", None) or Strategy()
+        self._zero_dims: Dict[tuple, int] = {}
+        self._layouts: Dict[int, tuple] = {}
+        self._grad_sync = None
         # the train-step program (capture=False: every step eager, the
         # reference runs of the tests and the smoke)
         self.programs = ProgramRegistry(self._fingerprint(), self.device,
@@ -161,6 +296,10 @@ class Executor:
             if isinstance(op, DistributedEmbedding):
                 ids = (strategy.for_op(op.name).device_ids
                        if strategy is not None else None)
+                if ids and self.bm is not None:
+                    raise NotImplementedError(
+                        f"{op.name}: device-explicit table placement on "
+                        f"an executing mesh (ROADMAP item 2.5)")
                 op.apply_placement(ids or None, None)
         # sibling-conv groups by leader name (config.sibling_conv_fusion);
         # as in the JAX executor, a group whose members carry different
@@ -177,6 +316,60 @@ class Executor:
         self._nhwc_resident, self._nhwc_reads = (
             self._compute_nhwc_resident()
             if self.config.conv_layout == "NHWC" else (set(), set()))
+        if self.bm is not None:
+            self._plan_mesh()
+
+    # ---------------- the mesh plan ----------------
+    def _plan_mesh(self) -> None:
+        """Layouts of every weight (stored and read), input and output
+        on the bound mesh, the pinned boundary ops, ZeRO-1's slot
+        dimensions; raises for a strategy this slice does not
+        execute."""
+        from ..parallel.sharding import (effective_op_strategy,
+                                         op_output_sharding,
+                                         weight_sharding)
+        bm, model = self.bm, self.model
+        check_executable(model, self.strategy, bm, self.config)
+        self._op_strat = {}
+        self._wstore: Dict[str, Dict[str, tuple]] = {}
+        self._wwant: Dict[str, Dict[str, tuple]] = {}
+        self._in_specs, self._out_specs, self._pins = {}, {}, {}
+        boundary = None
+        if self.config.perform_fusion:
+            from .fusion import boundary_ops, compute_fusion_groups
+            boundary = boundary_ops(compute_fusion_groups(model,
+                                                          self.strategy))
+        for op in model.ops:
+            st = self.strategy.for_op(op.name)
+            self._op_strat[op.name] = st
+            eff = effective_op_strategy(op, st, bm)
+            self._wstore[op.name] = {
+                k: weight_sharding(w, eff, bm)
+                for k, w in op.weight_specs().items()}
+            self._wwant[op.name] = op.mesh_weight_specs(st, bm)
+            self._in_specs[op.name] = op.mesh_input_specs(st, bm)
+            self._out_specs[op.name] = op.mesh_output_specs(st, bm)
+            if boundary is None or op.name in boundary:
+                self._pins[op.name] = op_output_sharding(op, st, bm)
+        self._batch = int(model.input_tensors[0].shape[0]) \
+            if model.input_tensors else 0
+        self._ndata = bm.axis_size("data") if "data" in bm.groups else 1
+        if getattr(self.config, "zero_optimizer_sharding", False) \
+                and not zero_applicable(self.config, bm):
+            warnings.warn(
+                "--zero has no effect on this mesh: no `data` axis of "
+                "more than one rank to shard the optimizer slots over "
+                f"(mesh {dict(bm.shape)})")
+
+    def _final_spec(self) -> tuple:
+        """The layout the loss reads the final tensor in: its batch
+        split over ``data``, every other dimension whole."""
+        from ..parallel.sharding import spec_for_axes
+        from ..op import _sample_only
+        op = self.model.ops[-1]
+        return spec_for_axes(_sample_only(op.output_axes()[0]),
+                             self._op_strat[op.name], self.bm,
+                             op.outputs[0].shape)
 
     def _compute_nhwc_resident(self):
         """(uids of values kept channels-last, names of ops that read
@@ -218,6 +411,9 @@ class Executor:
             "sibling_conv_fusion": bool(self.config.sibling_conv_fusion),
             "device": str(self.device),
             "sparse_tables": sorted(self._sparse_table_ops()),
+            "mesh": (None if self.bm is None else
+                     (self.bm.axis_names, tuple(self.bm.shape.values()),
+                      self.bm.rank, self.bm.backend)),
         }
 
     # ---------------- sparse-table routing ----------------
@@ -286,6 +482,14 @@ class Executor:
                 dtype = spec.dtype
                 if dtype == torch.float32:
                     dtype = self.param_dtype
+                if self.bm is not None:
+                    # every rank computed the same global array: keep
+                    # this rank's block
+                    from ..parallel.sharding import place_global
+                    op_params[wname] = place_global(
+                        arr, self._wstore[op.name][wname], self.bm,
+                        self.device, dtype).requires_grad_(True)
+                    continue
                 op_params[wname] = torch.tensor(
                     arr, dtype=dtype,
                     device=self.device).requires_grad_(True)
@@ -293,7 +497,41 @@ class Executor:
         opt_state = (self.optimizer.init_state(params)
                      if self.optimizer and self.comp_mode != "inference"
                      else {})
+        opt_state = self._zero_shard_slots(params, opt_state)
         return TrainState(params, opt_state, 0, states)
+
+    def _zero_shard_slots(self, params: Tree, opt_state):
+        """ZeRO-1: each dense parameter's slots as this rank's block
+        over ``data`` on the first dimension the layout leaves whole
+        and ``data`` divides (JAX's ``_zero_shard_slots``); the
+        embedding tables keep theirs whole (their row updates address
+        rows by id), as do scalars. Records the dimension a
+        parameter's slots are split on in ``_zero_dims``."""
+        self._zero_dims = {}
+        if not opt_state or self.bm is None \
+                or not zero_applicable(self.config, self.bm):
+            return opt_state
+        nd = self._ndata
+        tables = {op.name for op in self.model.ops
+                  if op.op_type in ("embedding", "distributed_embedding")}
+        for op_name, p in params.items():
+            if op_name in tables:
+                continue
+            for w, t in p.items():
+                store = list(self._wstore[op_name][w])
+                store += [None] * (t.dim() - len(store))
+                for d in range(t.dim()):
+                    if store[d] is None and t.shape[d] % nd == 0:
+                        self._zero_dims[(op_name, w)] = d
+                        shape = list(t.shape)
+                        shape[d] //= nd
+                        for tree in opt_state.values():
+                            if op_name in tree and w in tree[op_name]:
+                                tree[op_name][w] = torch.zeros(
+                                    shape, dtype=tree[op_name][w].dtype,
+                                    device=self.device)
+                        break
+        return opt_state
 
     # ---------------- forward ----------------
     def forward_values(self, params: Tree, inputs: Dict[str, torch.Tensor],
@@ -324,23 +562,50 @@ class Executor:
         # merged sibling convs' slices, claimed by each member in turn
         merged_pending: Dict[str, torch.Tensor] = {}
         aux_losses: List[torch.Tensor] = []
+        bm = self.bm
+        if bm is not None:
+            from ..parallel.sharding import batch_sharding, reshard
+            layouts = self._layouts = {
+                t.uid: batch_sharding(bm, len(t.shape))
+                for t in self.model.input_tensors}
+            # one reshard a (value, layout): consumers share it
+            moved: Dict[tuple, torch.Tensor] = {}
+            shard_ix = bm.coord("data")
+        else:
+            shard_ix = 0
         for op in self.model.ops:
             ctx = OpContext(
                 training=training, seq_length=seq_length,
-                rng=(OpRng(key, _stable_hash(op.name))
+                rng=(OpRng(key, _stable_hash(op.name), shard_ix)
                      if key is not None else None),
                 state_in=states.get(op.name),
                 nhwc_in=op.name in self._nhwc_reads,
                 nhwc_out=bool(op.outputs) and op.outputs[0].uid
-                in self._nhwc_resident)
+                in self._nhwc_resident,
+                mesh=bm, strategy=(self._op_strat[op.name]
+                                   if bm is not None else None))
             xs = []
-            for t in op.inputs:
+            for i, t in enumerate(op.inputs):
                 v = values[t.uid]
                 if t.uid in self._nhwc_resident \
                         and op.name not in self._nhwc_reads:
                     v = v.contiguous()      # this consumer reads NCHW
+                if bm is not None:
+                    want = self._in_specs[op.name][i]
+                    if want != layouts[t.uid]:
+                        mk = (t.uid, want)
+                        if mk not in moved:
+                            moved[mk] = reshard(v, layouts[t.uid], want,
+                                                bm)
+                        v = moved[mk]
                 xs.append(v)
             op_params = params.get(op.name, {})
+            if bm is not None and op_params:
+                store, want = self._wstore[op.name], self._wwant[op.name]
+                op_params = {
+                    k: (reshard(w, store[k], want[k], bm)
+                        if k in store and store[k] != want[k] else w)
+                    for k, w in op_params.items()}
             if op.name in merged_pending:
                 ys = [merged_pending.pop(op.name)]
             elif op.name in self._conv_merge_leader:
@@ -379,6 +644,15 @@ class Executor:
                 ys = [y.to(self.compute_dtype) if MP.is_float_tensor(y)
                       and y.dtype != self.compute_dtype else y
                       for y in ys]
+            if bm is not None:
+                outs = self._out_specs[op.name]
+                pins = self._pins.get(op.name)
+                if pins is not None:
+                    ys = [reshard(y, o, p, bm)
+                          for y, o, p in zip(ys, outs, pins)]
+                    outs = pins
+                for t, sp in zip(op.outputs, outs):
+                    layouts[t.uid] = sp
             for t, y in zip(op.outputs, ys):
                 values[t.uid] = y
             if ctx.state_out and new_states is not None:
@@ -403,6 +677,11 @@ class Executor:
                     for k, v in s.items():
                         states[op][k].copy_(v)
         logits = values[self.model.final_tensor.uid]
+        if self.bm is not None:
+            from ..parallel.sharding import reshard
+            logits = reshard(logits,
+                             self._layouts[self.model.final_tensor.uid],
+                             self._final_spec(), self.bm)
         if self._mp_active and MP.is_float_tensor(logits):
             # losses and metrics score f32-upcast logits, the policy's
             # one exempt region
@@ -410,6 +689,13 @@ class Executor:
         loss = torch.zeros((), dtype=torch.float32, device=logits.device)
         if self.loss_fn is not None and "label" in batch:
             loss = self.loss_fn(logits, batch["label"])
+            if self.bm is not None and "data" in self.bm.groups:
+                # the global batch's mean: every rank holds b/d rows, so
+                # it is the mean of the ranks' means (all_reduce: the
+                # loss is replicated, its gradient whole on every rank)
+                from ..parallel.collectives import all_reduce
+                loss = all_reduce(loss, self.bm, "data") \
+                    * reciprocal_f32(self._ndata)
         for aux in self._last_aux_losses:
             loss = loss + aux
         return loss, logits
@@ -426,55 +712,186 @@ class Executor:
         ``states`` is updated in place."""
         sparse_ops = self._sparse_table_ops()
         sparse_idx: Dict[str, torch.Tensor] = {}
+        bm = self.bm
         if sparse_ops:
             params = dict(params)
             for name, op in sparse_ops.items():
                 with torch.no_grad():
-                    idx, rows = op.gather(
-                        params[name]["kernel"],
-                        [batch[t.name] for t in op.inputs])
+                    xs = [batch[t.name] for t in op.inputs]
+                    ax = (op._tp(self._op_strat[name], bm)
+                          if bm is not None and isinstance(op, Embedding)
+                          else None)
+                    idx, rows = (op.gather(params[name]["kernel"], xs,
+                                           bm, ax) if ax else
+                                 op.gather(params[name]["kernel"], xs))
+                    col = self._table_col_axis(name)
+                    if col is not None:
+                        # a table stored split on its embedding dim:
+                        # the rows' columns from every rank
+                        from ..parallel.collectives import gather_tensor
+                        rows = gather_tensor(rows, bm, col, rows.dim() - 1)
                 sparse_idx[name] = idx
                 params[name] = {"__rows__": rows.requires_grad_(True)}
-        loss, logits = self._outputs_and_loss(params, batch, True, key,
-                                              states)
-        names = [(op, k) for op, p in params.items() for k in p]
-        leaves = [params[op][k] for op, k in names]
-        gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        sync = self._sync() if bm is not None else None
+        handles = sync.arm(params) if sync is not None else []
+        try:
+            loss, logits = self._outputs_and_loss(params, batch, True, key,
+                                                  states)
+            names = [(op, k) for op, p in params.items() for k in p]
+            leaves = [params[op][k] for op, k in names]
+            gs = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for h in handles:
+                h.remove()
         grads: Tree = {op: {} for op in params}
         for (op, k), w, g in zip(names, leaves, gs):
             grads[op][k] = torch.zeros_like(w) if g is None else g
+        if bm is not None:
+            self._sync_grads(sync, grads, sparse_ops, sparse_idx)
         return loss.detach(), logits.detach(), grads, sparse_idx
+
+    def _table_col_axis(self, name: str):
+        """The mesh axis a sparse table's embedding dim is stored split
+        over (JAX's layout of a table whose vocab does not divide), or
+        None."""
+        if self.bm is None:
+            return None
+        spec = self._wstore[name]["kernel"]
+        entry = spec[-1] if len(spec) == len(
+            self.model.state.params[name]["kernel"].shape) else None
+        return entry if isinstance(entry, str) else None
+
+    # ---------------- gradient sync on a mesh ----------------
+    def _sync(self):
+        """The dense gradient sync over ``data`` (core/overlap.GradSync),
+        built once per sparse routing: the walk-order buckets of
+        ``grad_bucket_mb`` (auto-tuned for this mesh when unset), the
+        sparse tables and ZeRO-1's parameters left out."""
+        if "data" not in self.bm.groups:
+            return None
+        key = tuple(sorted(self._sparse_table_ops()))
+        if self._grad_sync is None or self._grad_sync_key != key:
+            from .overlap import GradSync, grad_buckets, resolve_bucket_mb
+            mb = resolve_bucket_mb(self.config, self.model,
+                                   mesh=self.bm.mesh)
+            self._grad_bucket_mb = mb
+            params = self.model.state.params
+            dense = [(op, k) for op, p in params.items() for k in p
+                     if op not in key and (op, k) not in self._zero_dims]
+            if mb > 0:
+                order = {op: i for i, (names, _) in enumerate(
+                    grad_buckets(self.model, mb, sparse_ops=set(key)))
+                    for op in names}
+                buckets: List[list] = [[] for _ in set(order.values())]
+                for op, k in dense:
+                    buckets[order[op]].append((op, k))
+                buckets = [b for b in buckets if b]
+            else:
+                buckets = [dense] if dense else []
+            self._grad_sync = GradSync(self.bm, "data", buckets, params,
+                                       hooked=mb > 0)
+            self._grad_sync_key = key
+        return self._grad_sync
+
+    def grad_bucket_info(self) -> Dict:
+        """Bucket layout for fit's train stats: count, size, bytes."""
+        if self.bm is None or "data" not in self.bm.groups:
+            return {"count": 0, "bucket_mb": 0.0, "bytes": []}
+        sync = self._sync()
+        return {"count": len(sync.buckets) if sync.hooked else 0,
+                "bucket_mb": float(self._grad_bucket_mb),
+                "bytes": sync.bucket_bytes() if sync.hooked else []}
+
+    def _sync_grads(self, sync, grads: Tree, sparse_ops, sparse_idx):
+        """Finish the step's gradient sync in place of ``grads``: the
+        dense buckets summed over ``data``; ZeRO-1 parameters
+        reduce-scattered to this rank's block; each sparse table's ids
+        and row gradients all-gathered over ``data`` in rank order."""
+        from ..parallel import collectives as C
+        bm = self.bm
+        if sync is not None:
+            for (op, k), g in sync.finish(grads).items():
+                grads[op][k] = g
+        for (op, k), d in self._zero_dims.items():
+            grads[op][k] = C.reduce_scatter_tensor(grads[op][k], bm,
+                                                   "data", d)
+        if "data" not in bm.groups:
+            return
+        for name, op in sparse_ops.items():
+            bdim = 1 if isinstance(op, DistributedEmbedding) else 0
+            sparse_idx[name] = C.gather_tensor(sparse_idx[name], bm,
+                                               "data", bdim)
+            grads[name]["__rows__"] = C.gather_tensor(
+                grads[name]["__rows__"], bm, "data", bdim)
 
     def _apply_update(self, state: TrainState, grads, sparse_idx, scalar):
         """The optimizer's dense rule on every parameter but the sparse
         tables, then its sparse rule on each sparse table (a
         ``DistributedEmbedding`` stack in one call), all in place."""
         sparse_ops = self._sparse_table_ops()
-        if not sparse_ops:
+        if not sparse_ops and not self._zero_dims:
             self.optimizer.update(state.params, grads, state.opt_state,
                                   state.step, scalar=scalar)
             return
         dense = {k: v for k, v in state.params.items()
                  if k not in sparse_ops}
+        zero = self._zero_dims
+        if zero:
+            # ZeRO-1: the rank's slice of each such parameter (a view:
+            # the rule updates it in place) against its sliced gradient
+            # and its slots' block
+            c = self.bm.coord("data")
+            dense = {op: {k: (w.detach().narrow(
+                zero[(op, k)], c * (w.shape[zero[(op, k)]] // self._ndata),
+                w.shape[zero[(op, k)]] // self._ndata)
+                if (op, k) in zero else w) for k, w in p.items()}
+                for op, p in dense.items()}
         self.optimizer.update(
             dense, {k: grads[k] for k in dense},
             {slot: {k: v for k, v in tree.items() if k not in sparse_ops}
              for slot, tree in state.opt_state.items()},
             state.step, scalar=scalar)
+        if zero:
+            from ..parallel.collectives import gather_tensor
+            for (op, k), d in zero.items():
+                full = gather_tensor(dense[op][k].contiguous(), self.bm,
+                                     "data", d)
+                state.params[op][k].data.copy_(full)
         for name in sparse_ops:
             slots = {slot: tree[name]["kernel"]
                      for slot, tree in state.opt_state.items()
                      if name in tree}
+            table = state.params[name]["kernel"]
+            idx = sparse_idx[name]
+            op = sparse_ops[name]
+            ax = (op._tp(self._op_strat[name], self.bm)
+                  if self.bm is not None and isinstance(op, Embedding)
+                  else None)
+            if ax is not None:
+                # a row block: only the owning rank updates a row
+                idx = op.local_ids(idx, self.bm, ax, table.shape[0])
+            rows = grads[name]["__rows__"]
+            col = self._table_col_axis(name)
+            if col is not None:
+                # a column block: this rank's columns of every row
+                from ..parallel.collectives import local_slice
+                rows = local_slice(rows, self.bm, col, rows.dim() - 1)
             self.optimizer.sparse_update(
-                state.params[name]["kernel"], sparse_idx[name],
-                grads[name]["__rows__"], slots, state.step, scalar=scalar)
+                table, idx, rows, slots, state.step, scalar=scalar)
 
     def _metrics(self, loss, logits, batch):
+        """The loss and the metric sums; on a mesh the sums are summed
+        over ``data`` (the loss is global already)."""
         metrics = {"loss": loss}
         if "label" in batch and self.metric_names:
             sparse = self.loss_name.startswith("sparse")
-            metrics.update(M.compute_metrics(
-                self.metric_names, logits, batch["label"], sparse))
+            sums = M.compute_metrics(self.metric_names, logits,
+                                     batch["label"], sparse)
+            if self.bm is not None and "data" in self.bm.groups:
+                from ..parallel.collectives import all_reduce_
+                for v in sums.values():
+                    all_reduce_(v, self.bm, "data")
+            metrics.update(sums)
         return metrics
 
     def _require_training(self):
@@ -593,10 +1010,7 @@ class Executor:
 
         def body(b, k, sc):
             sparse_ops = self._sparse_table_ops()
-            gacc = {op: {n: torch.zeros_like(w, dtype=torch.float32)
-                         for n, w in p.items()}
-                    for op, p in state.params.items()
-                    if op not in sparse_ops}
+            gacc = None
             rows = {name: [] for name in sparse_ops}
             ids = {name: [] for name in sparse_ops}
             out = []
@@ -604,6 +1018,13 @@ class Executor:
                 mb = {n: v[i] for n, v in b.items()}
                 loss, logits, grads, sidx = self._compute_grads(
                     state.params, mb, k[i], states=state.states)
+                if gacc is None:
+                    # shaped as the gradients (ZeRO-1's are blocks)
+                    gacc = {op: {n: torch.zeros_like(grads[op][n],
+                                                     dtype=torch.float32)
+                                 for n in p}
+                            for op, p in state.params.items()
+                            if op not in sparse_ops}
                 with torch.no_grad():
                     for op, p in gacc.items():
                         for n in p:
@@ -686,6 +1107,52 @@ class Executor:
                    for w in _leaves(tree)])
         return {k: v.clone() for k, v in out.items()}
 
+    # ---------------- global state (checkpoints on a mesh) -----------
+    def _slot_spec(self, op: str, w: str, ndim: int) -> tuple:
+        """The layout of a slot of parameter (op, w): the parameter's,
+        plus ``data`` on ZeRO-1's dimension."""
+        spec = list(self._wstore[op][w]) + [None] * ndim
+        spec = spec[:ndim]
+        d = self._zero_dims.get((op, w))
+        if d is not None:
+            spec[d] = "data"
+        while spec and spec[-1] is None:
+            spec.pop()
+        return tuple(spec)
+
+    def global_state(self, state: TrainState) -> dict:
+        """Every tensor of ``state`` in its global shape (gathered from
+        the ranks' blocks; every rank calls it): the parameters, the op
+        state and the optimizer slots, and the step."""
+        from ..parallel.sharding import gather
+        bm = self.bm
+        params = {op: {k: gather(v.detach(), self._wstore[op][k], bm)
+                       for k, v in p.items()}
+                  for op, p in state.params.items()}
+        opt = {slot: {op: {k: gather(v, self._slot_spec(op, k, v.dim()),
+                                     bm) for k, v in p.items()}
+                      for op, p in tree.items()}
+               for slot, tree in state.opt_state.items()}
+        return {"params": params, "states": state.states,
+                "opt_state": opt, "step": int(state.step)}
+
+    def local_state(self, payload: dict) -> dict:
+        """The inverse of :meth:`global_state` on a payload read from
+        disk: this rank's block of every tensor."""
+        from ..parallel.sharding import shard
+        bm = self.bm
+        out = dict(payload)
+        out["params"] = {op: {k: shard(v, self._wstore[op][k], bm)
+                              for k, v in p.items()}
+                         for op, p in payload["params"].items()
+                         if op in self._wstore}
+        out["opt_state"] = {
+            slot: {op: {k: shard(v, self._slot_spec(op, k, v.dim()), bm)
+                        for k, v in p.items()}
+                   for op, p in tree.items() if op in self._wstore}
+            for slot, tree in payload.get("opt_state", {}).items()}
+        return out
+
     # ---------------- data placement ----------------
     @property
     def declared_input_dtypes(self) -> Dict[str, torch.dtype]:
@@ -707,8 +1174,32 @@ class Executor:
         trains in bf16); other keys (labels) as the JAX loader places
         them (core/dataloader.py ``host_to_device``)."""
         declared = self.declared_input_dtypes
-        return {k: host_to_device(v, self.device, declared.get(k))
+        return {k: host_to_device(self._rank_rows(v), self.device,
+                                  declared.get(k))
                 for k, v in batch.items()}
+
+    def _rank_rows(self, v, dim: int = 0):
+        """On a mesh, this rank's rows of a batch: a batch of the
+        model's (global) batch size is cut to the rank's block over
+        ``data`` (rows ``[c*b/d, (c+1)*b/d)``, ``c`` the rank's data
+        coordinate; ranks on ``model`` get the same rows); a batch of
+        b/d rows is taken as the rank's own (the process-local batch of
+        JAX's ``place_process_local``). Anything else raises."""
+        if self.bm is None or self._ndata == 1:
+            return v
+        n = v.shape[dim]
+        local = self._batch // self._ndata
+        if n == local:
+            return v
+        if n != self._batch:
+            raise ValueError(
+                f"batch of {n} rows on a mesh of {self._ndata} data "
+                f"ranks: pass the global batch ({self._batch} rows) or "
+                f"this rank's block ({local} rows)")
+        c = self.bm.coord("data")
+        sl = [slice(None)] * v.ndim
+        sl[dim] = slice(c * local, (c + 1) * local)
+        return v[tuple(sl)]
 
     def shard_batch_stacked(self, batches: List[Dict]
                             ) -> Dict[str, torch.Tensor]:
@@ -718,7 +1209,7 @@ class Executor:
         declared = self.declared_input_dtypes
         out = {}
         for k in batches[0]:
-            vals = [b[k] for b in batches]
+            vals = [self._rank_rows(b[k]) for b in batches]
             if all(isinstance(v, torch.Tensor) for v in vals):
                 out[k] = host_to_device(torch.stack(vals), self.device,
                                         declared.get(k))

@@ -4,17 +4,28 @@ Counterpart of ``flexflow_tpu/core/overlap.py``: ``DispatchWindow``,
 and the pricing half of the bucketed gradient sync —
 ``eligible_sparse_ops``, ``auto_bucket_mb``, ``resolve_bucket_mb`` and
 ``grad_buckets`` — which the strategy simulator reads to price the
-partition a data-parallel executor would sync in
-(``FFConfig.grad_bucket_mb``). The executor's bucketed sync itself
-waits for ROADMAP module item 2.1: on one device there is nothing to
-sync.
+partition the data-parallel executor syncs in (``FFConfig.grad_bucket_mb``)
+— and its executing half, :class:`GradSync`.
+
+JAX anchors each bucket's all-reduce inside the backward with a
+``custom_vjp`` tag (``make_bucket_tagger``) and XLA schedules it. Here a
+gradient hook on each parameter copies its gradient into its bucket's
+flat buffer as autograd produces it; the hook that completes a bucket
+launches the bucket's all-reduce at once (on a communication stream of
+its own on the card, so the rest of the backward runs beside it; gloo
+runs it on its own thread on the CPU), and the update waits for every
+bucket after the backward. ``grad_bucket_mb=0`` is one flat all-reduce
+after the backward. At two ranks a sum is ``a + b`` in any order, so
+the bucketed and the monolithic sync are bit-identical; above two a
+ring's summation order depends on where an element falls in its buffer,
+so they agree to f32 rounding.
 """
 
 from __future__ import annotations
 
 import collections
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -255,3 +266,140 @@ def grad_buckets(model, bucket_mb: float,
     if cur:
         buckets.append((cur, cur_bytes))
     return buckets
+
+
+class GradSync:
+    """The dense gradient sum over one mesh axis, in buckets.
+
+    ``buckets`` lists ``(op, weight)`` keys in walk order, a bucket a
+    list; ``params`` gives each key's tensor (its shape and dtype; a
+    bucket keeps one flat buffer a dtype). With ``hooked`` the buckets
+    launch from gradient hooks during the backward (:meth:`arm`), else
+    all at once in :meth:`finish`. A parameter whose gradient never
+    arrives (unused in this step) contributes zeros."""
+
+    def __init__(self, bm, axis: str, buckets: List[list], params,
+                 hooked: bool = True):
+        self.bm, self.axis, self.hooked = bm, axis, hooked
+        self.buckets = [list(b) for b in buckets]
+        self._where: Dict[tuple, tuple] = {}
+        self._layout: List[Dict[torch.dtype, int]] = []
+        for bi, b in enumerate(self.buckets):
+            sizes: Dict[torch.dtype, int] = {}
+            for key in b:
+                t = params[key[0]][key[1]]
+                off = sizes.get(t.dtype, 0)
+                self._where[key] = (bi, t.dtype, off, t.numel(),
+                                    tuple(t.shape))
+                sizes[t.dtype] = off + t.numel()
+            self._layout.append(sizes)
+        self.launched = 0      # bucket all-reduces of the last step
+        self._reset()
+
+    def bucket_bytes(self) -> List[int]:
+        return [sum(n * dt.itemsize for dt, n in sizes.items())
+                for sizes in self._layout]
+
+    def _reset(self) -> None:
+        self._bufs: List[Optional[Dict]] = [None] * len(self.buckets)
+        self._left = [len(b) for b in self.buckets]
+        self._done = [False] * len(self.buckets)
+        self._pending: List = []
+        self._comm = None
+        self._cur = None
+
+    def _stream_ctx(self, dev):
+        """The communication stream's context under NCCL on the card
+        (forked from the stream the backward runs on), else nothing."""
+        import contextlib
+        if dev.type != "cuda" or self.bm.backend != "nccl":
+            return contextlib.nullcontext()
+        if self._comm is None:
+            self._comm = _comm_stream(dev)
+        cur = torch.cuda.current_stream(dev)
+        if self._cur is None:
+            self._cur = cur
+        self._comm.wait_stream(cur)
+        return torch.cuda.stream(self._comm)
+
+    def _alloc(self, bi: int, dev) -> Dict:
+        if self._bufs[bi] is None:
+            self._bufs[bi] = {dt: torch.zeros(n, dtype=dt, device=dev)
+                              for dt, n in self._layout[bi].items()}
+        return self._bufs[bi]
+
+    def _launch(self, bi: int) -> None:
+        from ..parallel.collectives import all_reduce_
+        self._done[bi] = True
+        for buf in self._bufs[bi].values():
+            self._pending.append(all_reduce_(buf, self.bm, self.axis,
+                                             async_op=True))
+        self.launched += 1
+
+    def _put(self, key, g) -> None:
+        bi, dt, off, n, _ = self._where[key]
+        with self._stream_ctx(g.device):
+            bufs = self._alloc(bi, g.device)
+            bufs[dt][off:off + n].copy_(g.reshape(-1))
+            if self._comm is not None:
+                g.record_stream(self._comm)
+            self._left[bi] -= 1
+            if self._left[bi] == 0 and self.hooked:
+                self._launch(bi)
+
+    def arm(self, params) -> list:
+        """Register this step's hooks on the bucketed parameters (the
+        caller removes the returned handles after the backward)."""
+        self._reset()
+        self.launched = 0
+        if not self.hooked:
+            return []
+        handles = []
+        for key in self._where:
+            t = params[key[0]][key[1]]
+            if t.requires_grad:
+                handles.append(t.register_hook(
+                    lambda g, _k=key: self._put(_k, g)))
+        return handles
+
+    def finish(self, grads) -> Dict[tuple, torch.Tensor]:
+        """Launch what is left (every bucket when not hooked), wait for
+        all of them, and return the summed gradients as views of the
+        buffers, by key."""
+        if not self.hooked:
+            self._reset()
+            self.launched = 0
+            for key in self._where:
+                self._put(key, grads[key[0]][key[1]])
+        for bi, b in enumerate(self.buckets):
+            if not self._done[bi]:
+                # the monolithic launch, or a bucket some of whose
+                # parameters got no gradient this step (their zeros)
+                dev = grads[b[0][0]][b[0][1]].device
+                with self._stream_ctx(dev):
+                    self._alloc(bi, dev)
+                    self._launch(bi)
+        for p in self._pending:
+            p.wait()
+        if self._comm is not None:
+            cur = self._cur or torch.cuda.current_stream()
+            cur.wait_stream(self._comm)
+            for bufs in self._bufs:
+                for buf in (bufs or {}).values():
+                    buf.record_stream(cur)
+        out = {}
+        for key, (bi, dt, off, n, shape) in self._where.items():
+            out[key] = self._bufs[bi][dt][off:off + n].view(shape)
+        self._reset()
+        return out
+
+
+_COMM: Dict = {}
+
+
+def _comm_stream(dev):
+    """One communication stream a card."""
+    s = _COMM.get(dev)
+    if s is None:
+        s = _COMM[dev] = torch.cuda.Stream(dev)
+    return s

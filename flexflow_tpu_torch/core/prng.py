@@ -49,6 +49,15 @@ class OpRng(NamedTuple):
 
     key: torch.Tensor
     fold: int
+    # this rank's block of the batch on an executing mesh: the dropout
+    # counter of a local tensor starts at shard * its element count,
+    # the global index of its first element (0 on one device)
+    shard: int = 0
+
+    def offset(self, x: torch.Tensor) -> int:
+        """The global element index of ``x``'s first element, ``x``
+        this rank's block of a tensor split on dim 0 over ``data``."""
+        return self.shard * x.numel()
 
 
 def _threefry_torch(k0, k1, x0, x1):
@@ -127,16 +136,18 @@ def key_words(key) -> np.ndarray:
 
 # ---------------------------------------------------- device bits
 def op_uniform_torch(key: torch.Tensor, fold: int, numel: int,
-                     device) -> torch.Tensor:
+                     device, offset: int = 0) -> torch.Tensor:
     """The f32 uniforms of ``bernoulli(fold_in(key, fold), ·, (numel,))``
     as a flat tensor, from a (2,) int32 step-key tensor: the op key is
     folded in on the device, so nothing is read back to the host (a
-    captured step may run this)."""
+    captured step may run this). ``offset``: the elements are
+    ``offset .. offset + numel - 1`` of the stream (a rank's block of
+    a larger tensor)."""
     words = key.to(device=device, dtype=torch.int64) & M32
     zero = torch.zeros((), dtype=torch.int64, device=device)
     ok0, ok1 = _threefry_torch(words[0], words[1], zero,
                                zero + (int(fold) & M32))
-    i = torch.arange(numel, dtype=torch.int64, device=device)
+    i = torch.arange(numel, dtype=torch.int64, device=device) + int(offset)
     y0, y1 = _threefry_torch(ok0, ok1, i >> 32, i & M32)
     bits = (y0 ^ y1) >> 9
     return (bits | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0

@@ -26,6 +26,16 @@ counterpart of a compile is a capture:
   signatures the same way and runs ``fn`` eagerly.
 - ``call_eager`` always runs eagerly and counts the same way: the
   serving engine's in-place adapter loads and page export/import.
+- On an executing mesh under NCCL a train step with its collectives is
+  one program as on one device: the gradient buckets' hooks run during
+  the capture (their all-reduces issued on a communication stream
+  forked from the capture stream and joined before the update), and a
+  replay runs the captured NCCL all-reduces; the collectives' launch
+  counts are recorded like the kernels'. A gloo mesh on the card
+  stages its collectives through host memory and cannot be captured:
+  its steps run with ``capture=False``. The signature counts are the
+  local batch's shapes, one count a signature as on one device, equal
+  to JAX's ``compile_counts()`` on the same mesh.
 
 Arguments are tensors, whose shape and dtype key the signature (a
 pinned host tensor fills its device buffer with one asynchronous copy),

@@ -12,7 +12,8 @@
 // elements, a step key (k0, k1) read from device memory and the op's
 // fold-in value `fold` (its _stable_hash, a launch constant):
 //   op key   = threefry2x32((k0, k1), (0, fold))       (jax fold_in)
-//   bits_i   = x0 ^ x1 of threefry2x32(op key, (count_hi, i))
+//   bits_i   = x0 ^ x1 of threefry2x32(op key, (hi32(base + i),
+//                                               lo32(base + i)))
 //   u_i      = bitcast((bits_i >> 9) | 0x3F800000) - 1.0f
 //   y_i      = u_i < keep ? x_i * recip                  (float32)
 //                        : round(float(x_i) / keep_c)    (bfloat16)
@@ -32,8 +33,11 @@
 // The key is read from device memory, not passed by value, so a captured
 // CUDA graph replays with each step's key (the executor writes it into
 // the graph's static input before each replay). The element index is a
-// 64-bit count split into two words; the wrapper takes n < 2^31 and
-// passes the high word (0) explicitly.
+// 64-bit count split into two words, base + i: on one device base is 0;
+// on an executing mesh x is a rank's block of a tensor split on its
+// first dimension and base is the global index of the block's first
+// element, so every rank draws the mask the one-device run draws for
+// the same global elements. The wrapper takes n < 2^31.
 //
 // Bound on an H100 SXM at the LM's activation (16 x 512 x 512, bf16): it
 // reads x once and writes y once, 16.8 MB, 0.005 ms at 3.35 TB/s. The
@@ -117,7 +121,7 @@ __global__ void __launch_bounds__(kThreads)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
                    const uint32_t* __restrict__ key, uint32_t fold,
                    float keep, float keep_c, float recip, uint32_t n,
-                   uint32_t count_hi) {
+                   uint64_t base) {
   uint32_t ok0 = 0u, ok1 = fold;               // fold_in(key, fold)
   threefry2x32(key[0], key[1], ok0, ok1);
   const uint32_t stride = gridDim.x * kThreads;
@@ -126,8 +130,9 @@ __global__ void __launch_bounds__(kThreads)
     uint32_t h[kUnroll], l[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      h[u] = count_hi;
-      l[u] = i + u * stride;
+      const uint64_t g = base + (uint64_t)(i + u * stride);
+      h[u] = (uint32_t)(g >> 32);
+      l[u] = (uint32_t)g;
       threefry2x32(ok0, ok1, h[u], l[u]);
     }
 #pragma unroll
@@ -145,7 +150,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 cudaError_t launch(const void* x, void* y, const void* key, uint32_t fold,
                    float keep, float keep_c, float recip, uint32_t n,
-                   uint32_t count_hi, cudaStream_t s) {
+                   uint64_t base, cudaStream_t s) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -158,28 +163,29 @@ cudaError_t launch(const void* x, void* y, const void* key, uint32_t fold,
   dropout_kernel<T><<<blocks, kThreads, 0, s>>>(
       static_cast<const T*>(x), static_cast<T*>(y),
       static_cast<const uint32_t*>(key), fold, keep, keep_c, recip, n,
-      count_hi);
+      base);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype 0: float32, 1: bfloat16. n must be below 2^31; count_hi is the
-// high word of every element's 64-bit count (0 for such n).
+// dtype 0: float32, 1: bfloat16. n must be below 2^31; base (>= 0) is
+// the 64-bit count of the first element.
 extern "C" int dropout_launch(int dtype, const void* x, void* y,
                               const void* key, unsigned int fold,
                               float keep, float keep_c, float recip,
-                              long long n, unsigned int count_hi,
+                              long long n, long long base,
                               void* stream) {
-  if (n < 0 || n >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  if (n < 0 || n >= (1LL << 31) || base < 0)
+    return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch<float>(x, y, key, fold, keep, keep_c, recip,
-                              (uint32_t)n, count_hi, s);
+                              (uint32_t)n, (uint64_t)base, s);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(x, y, key, fold, keep, keep_c, recip,
-                                      (uint32_t)n, count_hi, s);
+                                      (uint32_t)n, (uint64_t)base, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,6 +21,12 @@ JAX's weak typing rounds the Python float of ``x / keep`` to bf16 first
 too. The backward is the same function of the incoming gradient with the
 same key (JAX's VJP of that ``where``), so no mask is stored.
 
+On an executing mesh a rank holds a block of the tensor: ``offset`` is
+the global index of the block's first element (the rank's data
+coordinate times the block's size), and the kernel and the plain
+version draw elements ``offset .. offset + n - 1`` of the stream, the
+mask the one-device run draws for the same global elements.
+
 CUDA tensors launch the kernel (a build or launch error raises); CPU
 tensors take :func:`dropout_ref`. :func:`dropout` is the differentiable
 entry point the ops call.
@@ -50,12 +56,13 @@ def keep_in_dtype(keep: float, dtype) -> float:
 
 
 # ------------------------------------------------------ plain version
-def dropout_ref(x, key, fold: int, keep: float):
+def dropout_ref(x, key, fold: int, keep: float, offset: int = 0):
     """Plain version of the kernel, any device: the uniforms from
     :func:`core.prng.op_uniform_torch`; kept elements are f32 x times the
     f32 reciprocal of keep, or bf16 x's f32 (IEEE) quotient by
     ``keep_c`` rounded to bf16; zeros where the mask is off."""
-    u = op_uniform_torch(key, fold, x.numel(), x.device).view(x.shape)
+    u = op_uniform_torch(key, fold, x.numel(), x.device,
+                         offset).view(x.shape)
     keep_f32 = float(torch.tensor(keep, dtype=torch.float32))
     if x.dtype == torch.float32:
         kept = x * reciprocal_f32(keep)
@@ -74,10 +81,11 @@ def dropout_ref(x, key, fold: int, keep: float):
 _PTR = ctypes.c_void_p
 _ARGTYPES = [ctypes.c_int, _PTR, _PTR, _PTR, ctypes.c_uint, ctypes.c_float,
              ctypes.c_float, ctypes.c_float, ctypes.c_longlong,
-             ctypes.c_uint, _PTR]
+             ctypes.c_longlong, _PTR]
 
 
-def dropout_cuda(x, key, fold: int, keep: float, *, direction="dropout_fwd"):
+def dropout_cuda(x, key, fold: int, keep: float, offset: int = 0, *,
+                 direction="dropout_fwd"):
     """Launch ``dropout_kernel`` on the current stream. x float32 or
     bfloat16 on CUDA, fewer than 2^31 elements; key a (2,) int32 tensor
     on x's device. Raises on anything else and on a failed launch."""
@@ -96,6 +104,8 @@ def dropout_cuda(x, key, fold: int, keep: float, *, direction="dropout_fwd"):
                          f"on {key.device}")
     if not 0.0 < keep <= 1.0:
         raise ValueError(f"keep must be in (0, 1], got {keep}")
+    if offset < 0 or offset + x.numel() > (1 << 62):
+        raise ValueError(f"element offset {offset} out of range")
     from ._build import load_library
     lib = load_library("dropout")
     fn = lib.dropout_launch
@@ -109,7 +119,7 @@ def dropout_cuda(x, key, fold: int, keep: float, *, direction="dropout_fwd"):
         rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
                 key.data_ptr(), int(fold) & 0xFFFFFFFF, float(keep),
                 keep_in_dtype(keep, x.dtype), reciprocal_f32(keep),
-                x.numel(), 0, stream)
+                x.numel(), int(offset), stream)
     if rc != 0:
         err = lib.dropout_error_string
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
@@ -119,32 +129,33 @@ def dropout_cuda(x, key, fold: int, keep: float, *, direction="dropout_fwd"):
     return y
 
 
-def _apply(x, key, fold, keep, direction):
+def _apply(x, key, fold, keep, direction, offset=0):
     """CUDA tensors launch the kernel, CPU tensors take the plain
     version; no fallback between the two."""
     if x.device.type == "cuda":
-        return dropout_cuda(x, key, fold, keep, direction=direction)
+        return dropout_cuda(x, key, fold, keep, offset, direction=direction)
     if x.device.type == "cpu":
-        return dropout_ref(x, key, fold, keep)
+        return dropout_ref(x, key, fold, keep, offset)
     raise ValueError(f"unsupported device {x.device}")
 
 
 class _Dropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, key, fold, keep):
-        ctx.fold, ctx.keep = fold, keep
+    def forward(ctx, x, key, fold, keep, offset):
+        ctx.fold, ctx.keep, ctx.offset = fold, keep, offset
         ctx.save_for_backward(key)
-        return _apply(x, key, fold, keep, "dropout_fwd")
+        return _apply(x, key, fold, keep, "dropout_fwd", offset)
 
     @staticmethod
     def backward(ctx, g):
         (key,) = ctx.saved_tensors
         return (_apply(g.contiguous(), key, ctx.fold, ctx.keep,
-                       "dropout_bwd"), None, None, None)
+                       "dropout_bwd", ctx.offset), None, None, None, None)
 
 
-def dropout(x, key, fold: int, keep: float):
+def dropout(x, key, fold: int, keep: float, offset: int = 0):
     """``where(bernoulli(fold_in(key, fold), keep), kept(x), 0)``,
     differentiable in x. ``key``: the step key, a (2,) int32 tensor on
-    x's device."""
-    return _Dropout.apply(x, key, fold, keep)
+    x's device; ``offset``: the global index of x's first element when
+    x is a rank's block of a larger tensor."""
+    return _Dropout.apply(x, key, fold, keep, int(offset))

@@ -28,22 +28,33 @@ dispatch and fetch spans on ``self.telemetry`` when the config turns
 telemetry on, and leaves its window and gap statistics in
 ``last_train_stats``.
 
-The strategy stack of the JAX package's compile runs here on one
-device: ``FFModel(strategy=)`` and ``compile(strategy=)`` keep a
-strategy, ``import_strategy_file`` / ``export_strategy_file`` read and
-write it, and ``search_budget > 0`` runs ``search.mcmc.optimize``,
-which — as JAX's compile on one device — keeps the model's strategy:
-there is no mesh to search over (search a mesh description with
-``optimize(model, mesh=make_mesh(...))``). The strategy is kept,
-priced and exported; nothing is sharded. ``calibrate_simulator`` grounds
-the strategy simulator in measured train steps on the card,
-``_predicted_step_s`` gives ``fit``'s drift samples their prediction,
-and ``memory_ledger`` sets the live parameter and optimizer bytes
-beside the simulator's memory input.
+The strategy stack of the JAX package's compile: ``FFModel(strategy=)``
+and ``compile(strategy=)`` keep a strategy, ``import_strategy_file`` /
+``export_strategy_file`` read and write it, and ``search_budget > 0``
+runs ``search.mcmc.optimize`` on the model's mesh (with no mesh it
+keeps the model's strategy, as JAX's compile on one device does);
+``search_mesh_shapes`` runs ``optimize_with_mesh`` over the running
+process group's ranks and executes the winning mesh.
 
-Raising ``NotImplementedError`` when configured: a mesh of more than
-one device and ``pipeline_stages > 1``, which need a mesh that
-executes (ROADMAP module item 2).
+A mesh executes (``FFModel(mesh=)``, ``compile(mesh=)``,
+``FFConfig.mesh_shape``): one process a rank on a ``torch.distributed``
+group of exactly ``mesh.size`` ranks (parallel/mesh.init_distributed;
+a mesh of several devices without one raises), each rank running the
+executor's mesh half on its blocks (core/executor.py). ``train_batch``
+and its siblings take the global batch or this rank's rows, ``fit``
+and ``evaluate`` the whole dataset on every rank, each rank feeding its
+rows; losses, metrics and history are the global batch's and the same
+on every rank; ``get_weights`` / ``set_weights`` gather and shard;
+``forward`` returns the global batch's output. ``calibrate_simulator``
+grounds the strategy simulator in measured train steps on the card,
+``_predicted_step_s`` gives ``fit``'s drift samples their prediction on
+the executing mesh, and ``memory_ledger`` sets this rank's live
+parameter and optimizer bytes (its blocks) beside the simulator's
+memory input.
+
+Raising ``NotImplementedError`` when configured, naming the ROADMAP
+item that executes it: ``pipeline_stages > 1`` (2.3), and the strategies
+``core/executor.check_executable`` refuses.
 """
 
 from __future__ import annotations
@@ -73,15 +84,24 @@ from .utils.telemetry import telemetry_for, train_metrics
 
 
 def _check_mesh(mesh) -> None:
-    """A mesh description of one device is accepted; a larger one needs
-    the process groups of ROADMAP module item 2."""
-    if mesh is not None and int(mesh.size) > 1:
-        raise NotImplementedError(
+    """A mesh of several devices executes on a process group of its
+    size (one process a rank): raise, naming init_distributed, when
+    there is none."""
+    if mesh is None or int(mesh.size) <= 1:
+        return
+    import torch.distributed as dist
+    running = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if running else 0
+    if world != int(mesh.size):
+        raise RuntimeError(
             f"a mesh of {int(mesh.size)} devices ({dict(mesh.shape)}) "
-            f"needs the multi-device executor (ROADMAP module item 2); "
-            f"the port runs one device — search and price a mesh "
-            f"description with search.mcmc.optimize(model, mesh=...) "
-            f"instead")
+            f"executes on a torch.distributed group of {int(mesh.size)} "
+            f"ranks, one process a rank; "
+            + (f"the running group has {world}" if running else
+               "none is running: call "
+               "flexflow_tpu_torch.parallel.mesh.init_distributed() in "
+               "every rank first (torchrun's environment, or "
+               "init_method='file://...')"))
 
 
 def _resolve_steps_per_dispatch(spd) -> int:
@@ -387,17 +407,16 @@ class FFModel:
         if cfg.pipeline_stages > 1:
             raise NotImplementedError(
                 f"pipeline_stages={cfg.pipeline_stages} needs a mesh "
-                f"that executes a pipeline (ROADMAP module item 2); the "
+                f"that executes a pipeline (ROADMAP item 2.3); the "
                 f"simulator prices staged strategies on a mesh "
                 f"description")
-        if cfg.mesh_shape is not None:
-            import math
-            n = math.prod(int(s) for s in cfg.mesh_shape)
-            if n > 1:
-                raise NotImplementedError(
-                    f"mesh_shape={tuple(cfg.mesh_shape)} ({n} devices) "
-                    f"needs the multi-device executor (ROADMAP module "
-                    f"item 2)")
+        if cfg.mesh_shape is not None and self.mesh is None:
+            from .parallel.mesh import make_mesh
+            shape = tuple(int(s) for s in cfg.mesh_shape)
+            axes = tuple(cfg.mesh_axes) if cfg.mesh_axes else \
+                ("data", "model", "seq", "expert", "pipe")[:len(shape)]
+            self.mesh = make_mesh(shape, axes)
+            _check_mesh(self.mesh)
 
     def compile(self, optimizer: Optional[Optimizer] = None,
                 loss_type: Optional[str] = "sparse_categorical_crossentropy",
@@ -408,15 +427,19 @@ class FFModel:
         training mode, the optimizer's slots) on the model's device.
         ``capture=False`` runs every train step eagerly instead of
         replaying a captured CUDA graph (the reference runs of the
-        tests and the smoke; the results are the same).
+        tests and the smoke; the results are the same; a gloo mesh on
+        the card must run so, its collectives staging through host
+        memory).
 
-        The strategy steps of the JAX compile run first: ``mesh`` (a
-        description of one device) and ``strategy`` replace the model's,
-        ``import_strategy_file`` loads one when the model has none,
-        ``search_budget > 0`` runs the strategy search (with no mesh it
-        keeps the strategy, as JAX's does) and ``export_strategy_file``
-        writes its result. A strategy's ``pipeline`` block sets the
-        pipeline knobs, and ``pipeline_stages > 1`` then raises."""
+        The strategy steps of the JAX compile run first: ``mesh`` and
+        ``strategy`` replace the model's, ``import_strategy_file``
+        loads one when the model has none, ``search_budget > 0`` runs
+        the strategy search on the model's mesh (with no mesh it keeps
+        the strategy, as JAX's does; with ``search_mesh_shapes`` it
+        searches the factorizations of the running group's ranks and
+        executes the winner) and ``export_strategy_file`` writes its
+        result. A strategy's ``pipeline`` block sets the pipeline
+        knobs, and ``pipeline_stages > 1`` then raises."""
         self.config.validate()   # catch post-construction field edits
         if mesh is not None:
             _check_mesh(mesh)
@@ -431,10 +454,14 @@ class FFModel:
                 self.config.import_strategy_file)
         if self.config.search_budget > 0:
             if self.config.search_mesh_shapes:
+                import torch.distributed as dist
                 from .search.mcmc import optimize_with_mesh
+                world = (dist.get_world_size()
+                         if dist.is_available() and dist.is_initialized()
+                         else None)
                 self.strategy, mesh = optimize_with_mesh(
                     self, budget=self.config.search_budget,
-                    alpha=self.config.search_alpha)
+                    alpha=self.config.search_alpha, devices=world)
                 _check_mesh(mesh)
                 self.mesh = mesh
             else:
@@ -462,7 +489,8 @@ class FFModel:
                 "microbatches", self.config.pipeline_microbatches))
             self.config.validate()
         self._check_config()
-        if self.strategy is not None:
+        if self.strategy is not None and (self.mesh is None
+                                          or int(self.mesh.size) <= 1):
             # meshless compile: pins cannot execute — say so, as JAX's
             # compile does
             pinned = [op.name for op in self.ops
@@ -522,8 +550,15 @@ class FFModel:
 
     # ---------------- steps ----------------
     def forward(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
+        """The final tensor of one batch in eval mode (the prediction).
+        On a mesh every rank gets the global batch's output, gathered
+        from the ranks' rows."""
         logits, _ = self.executor.eval_step(
             self.state, self.executor.shard_batch(batch))
+        ex = self.executor
+        if ex.bm is not None:
+            from .parallel.sharding import gather
+            logits = gather(logits, ex._final_spec(), ex.bm)
         return logits
 
     def compile_counts(self) -> Dict[str, int]:
@@ -713,6 +748,8 @@ class FFModel:
                         from .core.dataloader import DataLoaderSet
                         fit_loader = DataLoaderSet(
                             {**{k: x[k] for k in names}, "label": y}, bs,
+                            mesh=self.mesh if self.executor.bm is not None
+                            else None,
                             shuffle=False, device=self.device,
                             dtypes=self.executor.declared_input_dtypes)
                     it = fit_loader.iter_with_order(idx)
@@ -780,7 +817,8 @@ class FFModel:
                         and (epoch + 1) % max(1, checkpoint_every) == 0:
                     ckptr = save_checkpoint(
                         os.path.join(checkpoint_dir, f"epoch_{epoch}"),
-                        self.state, use_async=True, checkpointer=ckptr)
+                        self.state, use_async=True, checkpointer=ckptr,
+                        executor=self.executor)
         finally:
             # in-flight dispatches already updated the state: fetch them
             # before a fault propagates
@@ -789,8 +827,11 @@ class FFModel:
                 win.drain()
             except Exception:
                 pass
+            ex = self.executor
             self.last_train_stats = self._train_stats(
-                win, gaps, n_dispatches, in_flight_at_exit)
+                win, gaps, n_dispatches, in_flight_at_exit,
+                ex.grad_bucket_info(), ex._ndata if ex.bm is not None
+                else 1)
             if tel.enabled:
                 train_metrics(self.last_train_stats, registry=tel.metrics)
                 trace_out = self.config.trace_out
@@ -804,10 +845,11 @@ class FFModel:
         return history
 
     @staticmethod
-    def _train_stats(win, gaps, n_dispatches, in_flight_at_exit) -> dict:
+    def _train_stats(win, gaps, n_dispatches, in_flight_at_exit,
+                     buckets, data_parallel) -> dict:
         """One fit() run's dispatch-window instrumentation, the JAX
-        package's fields (utils/profiling.train_report renders them). One
-        device: no gradient buckets, data parallelism 1."""
+        package's fields (utils/profiling.train_report renders them),
+        with the executor's gradient buckets and data parallelism."""
         waits = sorted(win.fetch_waits_s)
         sg = sorted(gaps)
         return {
@@ -821,8 +863,8 @@ class FFModel:
             "dispatch_gap_s_max": sg[-1] if sg else 0.0,
             "fetch_wait_s_total": sum(waits),
             "fetch_wait_s_max": waits[-1] if waits else 0.0,
-            "grad_buckets": {"count": 0, "bucket_mb": 0.0, "bytes": []},
-            "data_parallel": 1,
+            "grad_buckets": buckets,
+            "data_parallel": data_parallel,
             "est_comm_hidden": 0.0,
         }
 
@@ -1023,8 +1065,10 @@ class FFModel:
         from .core.dataloader import SingleDataLoader
         name = (tensor_or_name if isinstance(tensor_or_name, str)
                 else tensor_or_name.name)
+        mesh = self.mesh if (self.executor is not None
+                             and self.executor.bm is not None) else None
         return SingleDataLoader(name, data, self.config.batch_size,
-                                device=self.device)
+                                mesh=mesh, device=self.device)
 
     # ---------------- learning rate ----------------
     def set_learning_rate(self, lr: float) -> None:
@@ -1044,23 +1088,36 @@ class FFModel:
     def get_weights(self, op_name: str) -> Dict[str, np.ndarray]:
         """Host copies of an op's weights (copies on the CPU too, where
         ``numpy()`` would share the live tensor's memory); a stacked
-        embedding's kernel in table order."""
+        embedding's kernel in table order. On a mesh the global weights,
+        gathered from the ranks' blocks (every rank calls it)."""
         op = next((o for o in self.ops if o.name == op_name), None)
-        out = {k: v.detach().float().cpu().numpy().copy()
-               for k, v in self.state.params[op_name].items()}
+        ex = self.executor
+        out = {}
+        for k, v in self.state.params[op_name].items():
+            v = v.detach()
+            if ex.bm is not None:
+                from .parallel.sharding import gather
+                v = gather(v, ex._wstore[op_name][k], ex.bm)
+            out[k] = v.float().cpu().numpy().copy()
         if "kernel" in out and hasattr(op, "to_table_order"):
             out["kernel"] = op.to_table_order(out["kernel"])
         return out
 
     def set_weights(self, op_name: str, weights: Dict[str, np.ndarray]):
         """Overwrite an op's weights in place (same tensors, so the
-        optimizer's view of them is unchanged)."""
+        optimizer's view of them is unchanged). On a mesh ``weights``
+        are the global ones and each rank keeps its block."""
         cur = self.state.params[op_name]
+        ex = self.executor
         for k, v in weights.items():
             if k not in cur:
                 raise KeyError(f"{op_name} has no weight {k!r}; "
                                f"has {sorted(cur)}")
-            src = torch.as_tensor(np.array(v), dtype=cur[k].dtype)
+            v = np.array(v)
+            if ex.bm is not None:
+                from .parallel.sharding import shard
+                v = shard(v, ex._wstore[op_name][k], ex.bm)
+            src = torch.as_tensor(v, dtype=cur[k].dtype)
             if tuple(src.shape) != tuple(cur[k].shape):
                 raise ValueError(
                     f"{op_name}.{k}: shape {tuple(src.shape)} does not "

@@ -15,8 +15,21 @@ The sharding contract is the JAX package's: ``output_axes`` and
 (``SAMPLE``, ``CHANNEL_OUT``, ...), ``WeightSpec.axes`` names each
 weight dimension, and ``bytes_accessed`` / ``weight_bytes`` feed the
 cost model (search/cost_model.py). A strategy maps those logical axes
-onto the axes of a mesh description; the search prices it, and nothing
-is sharded: the port trains on one device.
+onto the axes of a mesh; the search prices it.
+
+On an executing mesh (parallel/mesh.BoundMesh) each op runs its *local
+rule*: from the blocks of its inputs in the layouts it declares
+(:meth:`Op.mesh_input_specs`) and of its weights in the layouts it
+reads them in (:meth:`Op.mesh_weight_specs`), it computes the blocks of
+its outputs in the layouts of :meth:`Op.mesh_output_specs`, calling the
+collectives of parallel/collectives.py where GSPMD would have inserted
+them. The default rule is data parallelism: inputs and outputs split
+on their ``sample`` dimension over ``data`` and every weight whole, a
+local computation for the ops whose rows are independent. The ops whose
+rows are not (BatchNorm, Dropout's counter, Reshape, the MoE ops) and
+the tensor-parallel ones (Linear ``channel_out``, attention ``head``,
+Embedding ``vocab``) override it in their modules; ``OpContext.mesh``
+and ``OpContext.strategy`` hand them the mesh and their strategy.
 """
 
 from __future__ import annotations
@@ -48,6 +61,27 @@ VOCAB = "vocab"
 LAYER = "layer"
 TABLE = "table"
 REPLICA = None  # a dimension never split
+
+
+def _sample_only(axes):
+    return tuple(a if a == SAMPLE else None for a in axes)
+
+
+def tp_axis(op, strategy, mesh, weight: str, dim: int):
+    """The mesh axis that ``op``'s strategy splits dimension ``dim`` of
+    weight ``weight`` over (JAX's weight_sharding), or None."""
+    if mesh is None or strategy is None:
+        return None
+    from .parallel.sharding import weight_sharding
+    spec = weight_sharding(op.weight_specs()[weight], strategy, mesh)
+    entry = spec[dim] if dim < len(spec) else None
+    if entry is None:
+        return None
+    if not isinstance(entry, str):
+        raise NotImplementedError(
+            f"{op.name}: weight {weight!r} split over several mesh axes "
+            f"{entry} (ROADMAP item 2.6)")
+    return entry
 
 
 @dataclasses.dataclass
@@ -91,11 +125,12 @@ class OpContext:
     ``nhwc_out`` that its outputs should stay so (core/executor.py)."""
 
     __slots__ = ("training", "rng", "seq_length", "state_in",
-                 "state_out", "nhwc_in", "nhwc_out", "aux_loss")
+                 "state_out", "nhwc_in", "nhwc_out", "aux_loss", "mesh",
+                 "strategy")
 
     def __init__(self, training: bool, rng=None, seq_length: int = -1,
                  state_in: Optional[dict] = None, nhwc_in: bool = False,
-                 nhwc_out: bool = False):
+                 nhwc_out: bool = False, mesh=None, strategy=None):
         self.training = training
         self.rng = rng
         self.seq_length = seq_length
@@ -106,6 +141,15 @@ class OpContext:
         # an f32 scalar an op adds to the objective (MoE's load-balancing
         # loss); the executor sums them into the loss in op order
         self.aux_loss = None
+        # the executing mesh (parallel/mesh.BoundMesh) and the op's
+        # OpStrategy, or None on one device
+        self.mesh = mesh
+        self.strategy = strategy
+
+    def data_split(self) -> bool:
+        """Whether the batch is split over a ``data`` axis (a
+        one-rank axis included: its collectives still run)."""
+        return self.mesh is not None and "data" in self.mesh.groups
 
 
 class Op:
@@ -158,6 +202,27 @@ class Op:
                 axes[0] = SAMPLE
             out.append(tuple(axes))
         return out
+
+    # ---- executing on a mesh (the local rule's layouts) ----
+    def mesh_input_specs(self, strategy, mesh) -> list:
+        """The layout each input is read in: its ``sample`` dimension
+        split as the strategy maps it, every other dimension whole."""
+        from .parallel.sharding import spec_for_axes
+        return [spec_for_axes(_sample_only(ax), strategy, mesh, t.shape)
+                for ax, t in zip(self.input_axes(), self.inputs)]
+
+    def mesh_output_specs(self, strategy, mesh) -> list:
+        """The layout the local rule produces each output in: its
+        ``sample`` dimension split, every other dimension whole."""
+        from .parallel.sharding import spec_for_axes
+        return [spec_for_axes(_sample_only(ax), strategy, mesh, t.shape)
+                for ax, t in zip(self.output_axes(), self.outputs)]
+
+    def mesh_weight_specs(self, strategy, mesh) -> dict:
+        """The layout each weight is read in: whole (a weight stored
+        split is gathered, its gradient sliced back); the
+        tensor-parallel ops read their split weights as stored."""
+        return {k: () for k in self.weight_specs()}
 
     # ---- cost-model contract ----
     def flops(self) -> float:

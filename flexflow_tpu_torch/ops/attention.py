@@ -16,6 +16,15 @@ block, so its flash call raises and falls back — and the port decides
 the same before any launch: those take :func:`attention_ref`. Dropout
 applies to the op's output, after ``wo`` and ``bo``, with the JAX key
 chain (kernels/dropout.py).
+
+On a mesh whose strategy maps ``head`` onto an axis (Megatron's
+attention split), the projections are column-parallel (``wq``, ``wk``,
+``wv`` and their biases stored split on the head dimension, the inputs
+through ``copy_to``), the flash kernels run on the rank's h/m heads,
+the output projection ``wo`` is row-parallel (split on its head
+dimension) and its partial products are summed by an ``all_reduce``
+before ``bo`` (read whole) and the dropout, whose counter starts at
+the rank's block of the batch.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ from ..kernels.dropout import dropout as apply_dropout
 from ..kernels.flash_attention import (MAX_HEAD_DIM, attention_ref,
                                        flash_attention_bshd)
 from ..op import (CHANNEL_IN, CHANNEL_OUT, HEAD, SAMPLE, SEQ, Op,
-                  OpContext, WeightSpec)
+                  OpContext, WeightSpec, tp_axis)
 
 
 class MultiHeadAttention(Op):
@@ -101,8 +110,29 @@ class MultiHeadAttention(Op):
                                          axes=(None, HEAD, None))
         return specs
 
+    def _tp(self, strategy, mesh):
+        return tp_axis(self, strategy, mesh, "wq", 1)
+
+    def mesh_weight_specs(self, strategy, mesh):
+        ax = self._tp(strategy, mesh)
+        split = {"wq": (None, ax), "wk": (None, ax), "wv": (None, ax),
+                 "wo": (ax,), "bias_k": (None, ax), "bias_v": (None, ax)}
+        return {k: (split.get(k, ()) if ax else ())
+                for k in self.weight_specs()}
+
     def forward(self, params, xs, ctx: OpContext):
         q_in, k_in, v_in = xs
+        ax = (self._tp(ctx.strategy, ctx.mesh)
+              if ctx.mesh is not None else None)
+        if ax is not None:
+            # one copy_to a distinct input: its gradient is the sum of
+            # the ranks' head-partial gradients
+            from ..parallel.collectives import copy_to
+            q_c = copy_to(q_in, ctx.mesh, ax)
+            k_c = q_c if k_in is q_in else copy_to(k_in, ctx.mesh, ax)
+            v_c = (q_c if v_in is q_in else k_c if v_in is k_in
+                   else copy_to(v_in, ctx.mesh, ax))
+            q_in, k_in, v_in = q_c, k_c, v_c
         if self._fused_qkv:
             # self-attention: ONE (E, 3*H*D) projection GEMM
             w = torch.stack([params["wq"], params["wk"], params["wv"]],
@@ -129,11 +159,15 @@ class MultiHeadAttention(Op):
                 b, *params["bias_v"].shape)], dim=1)
         o = self._attend(q, k, v, ctx)
         y = torch.einsum("bshd,hde->bse", o, params["wo"].to(o.dtype))
+        if ax is not None:
+            from ..parallel.collectives import all_reduce
+            y = all_reduce(y, ctx.mesh, ax)
         if self.use_bias:
             y = y + params["bo"].to(y.dtype)
         if self.dropout > 0.0 and ctx.training and ctx.rng is not None:
             y = apply_dropout(y, ctx.rng.key, ctx.rng.fold,
-                              1.0 - self.dropout)
+                              1.0 - self.dropout,
+                              offset=ctx.rng.offset(y))
         return [y]
 
     def output_axes(self):

@@ -217,12 +217,29 @@ class Pool2D(Op):
         return float(n * c * self.out_h * self.out_w * kh * kw)
 
 
+def _global_moments(xf, dims, shape_k, mesh):
+    """The batch mean and biased variance over the GLOBAL batch of a
+    batch split over ``data``, as GSPMD computes JAX's jnp.mean/jnp.var
+    there: f32 local sums, summed over the ranks (``psum``: the result
+    feeds every rank's rows, so its gradient is summed back), divided
+    by the global count; the variance's second pass centres on the
+    global mean. Every rank gets the same statistics, so the running
+    statistics stay identical on every rank."""
+    from ..parallel.collectives import psum
+    n = xf.numel() // xf.shape[1] * mesh.axis_size("data")
+    mean = psum(xf.sum(dim=dims), mesh, "data") / n
+    var = psum(torch.square(xf - mean.view(shape_k)).sum(dim=dims),
+               mesh, "data") / n
+    return mean, var
+
+
 class BatchNorm(Op):
     """Training-mode batch norm with running statistics as op state
     (``running_mean``, ``running_var``): training normalizes with the
     batch's biased statistics and moves the running ones by
     ``MOMENTUM``; eval normalizes with the running ones and writes them
-    back unchanged."""
+    back unchanged. With the batch split over ``data`` the statistics
+    are the global batch's (:func:`_global_moments`)."""
 
     op_type = "batch_norm"
     MOMENTUM = 0.9
@@ -258,10 +275,13 @@ class BatchNorm(Op):
         if ctx.training:
             # jnp.mean / jnp.var of x in f32: two passes, biased
             xf = x.float()
-            mean = xf.mean(dim=dims)
             shape_k = [1] * x.dim()
             shape_k[1] = -1
-            var = torch.square(xf - mean.view(shape_k)).mean(dim=dims)
+            if ctx.data_split():
+                mean, var = _global_moments(xf, dims, shape_k, ctx.mesh)
+            else:
+                mean = xf.mean(dim=dims)
+                var = torch.square(xf - mean.view(shape_k)).mean(dim=dims)
             with torch.no_grad():
                 m = self.MOMENTUM
                 ctx.state_out["running_mean"] = (

@@ -185,7 +185,8 @@ class Dropout(PassthroughAxesMixin, Op):
         (x,) = xs
         if not ctx.training or self.rate <= 0.0:
             return [x]
-        return [dropout(x, ctx.rng.key, ctx.rng.fold, 1.0 - self.rate)]
+        return [dropout(x, ctx.rng.key, ctx.rng.fold, 1.0 - self.rate,
+                        offset=ctx.rng.offset(x))]
 
 
 class Softmax(PassthroughAxesMixin, Op):

@@ -19,9 +19,16 @@ dim) gradient. The two differ where ids repeat: JAX's sparse "exact" SGD
 adds ``(-lr) * g`` once per occurrence, the dense rule subtracts ``lr``
 times the summed gradient.
 
+On a mesh whose strategy maps ``vocab`` onto an axis, an ``Embedding``
+table is stored split by rows: each rank looks up the ids it owns
+(zeros for the others), and an ``all_reduce`` over the axis sums the
+rows — exactly, since each row is nonzero on one rank — before the bag
+is reduced. Under sparse updates only the owning rank updates a row
+(:meth:`Embedding.local_ids`).
+
 ``DistributedEmbedding`` stacks E same-vocab tables into one (E, vocab,
-dim) weight on one device; a device-explicit placement needs a mesh
-(ROADMAP item 7).
+dim) weight; a device-explicit placement, and its ``table``/``vocab``
+splits, need ROADMAP item 2.5.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ import torch.nn.functional as F
 
 from ..core.precision import reciprocal_f32
 from ..op import (CHANNEL_OUT, SAMPLE, TABLE, VOCAB, Op, OpContext,
-                  WeightSpec)
+                  WeightSpec, tp_axis)
 
 AGGR_MODE_NONE = "none"
 AGGR_MODE_SUM = "sum"
@@ -88,18 +95,48 @@ class Embedding(Op):
         bag = shape[-1] if len(shape) > 1 else 1
         return float(shape[0] * bag * self.out_dim)
 
-    def gather(self, table, xs):
+    def _tp(self, strategy, mesh):
+        return tp_axis(self, strategy, mesh, "kernel", 0)
+
+    def mesh_weight_specs(self, strategy, mesh):
+        ax = self._tp(strategy, mesh)
+        return {"kernel": (ax,) if ax else ()}
+
+    def gather(self, table, xs, mesh=None, axis=None):
         """(ids, rows): the ids as the gather reads them and the rows of
-        ``table`` they name, the executor's pre-gather."""
+        ``table`` they name, the executor's pre-gather. With ``axis``
+        the table is this rank's block of rows over that axis: the
+        masked lookup summed over the axis."""
         (idx,) = xs
-        return idx, F.embedding(idx.long().clamp(0, self.num_entries - 1),
-                                table)
+        clamped = idx.long().clamp(0, self.num_entries - 1)
+        if axis is None:
+            return idx, F.embedding(clamped, table)
+        from ..parallel.collectives import all_reduce
+        n_local = table.shape[0]
+        lid = clamped - mesh.coord(axis) * n_local
+        own = (lid >= 0) & (lid < n_local)
+        rows = F.embedding(lid.clamp(0, n_local - 1), table)
+        rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
+        return idx, all_reduce(rows, mesh, axis)
+
+    def local_ids(self, idx, mesh, axis, n_local: int):
+        """Sparse-update ids for this rank's block of rows: an id it
+        owns (negative ids wrap, as the one-device scatter takes them)
+        as its local row, any other as ``n_local``, which the row
+        update drops."""
+        i = idx.long()
+        r = torch.where(i < 0, i + self.num_entries, i)
+        lid = r - mesh.coord(axis) * n_local
+        own = (lid >= 0) & (lid < n_local)
+        return torch.where(own, lid, torch.full_like(lid, n_local))
 
     def forward(self, params, xs, ctx: OpContext):
         if "__rows__" in params:
             emb = params["__rows__"]   # pre-gathered by the executor
         else:
-            emb = self.gather(params["kernel"], xs)[1]
+            ax = (self._tp(ctx.strategy, ctx.mesh)
+                  if ctx.mesh is not None else None)
+            emb = self.gather(params["kernel"], xs, ctx.mesh, ax)[1]
         return [_aggregate(emb, self.aggr).to(self.out_dtype)]
 
 

@@ -1,4 +1,12 @@
-"""Dense / Linear layer; counterpart of ``flexflow_tpu/ops/linear.py``."""
+"""Dense / Linear layer; counterpart of ``flexflow_tpu/ops/linear.py``.
+
+On a mesh whose strategy maps ``channel_out`` onto an axis (the
+Megatron column split), the kernel and bias are stored split on their
+out dimension; the local rule passes the whole input through
+``copy_to`` (its gradient is each rank's partial sum, all-reduced in
+the backward), multiplies by the local columns and leaves the output
+split on its last dimension. A consumer that needs it whole gathers it
+(core/executor.py reshards at the consumer), as GSPMD would."""
 
 from __future__ import annotations
 
@@ -7,7 +15,7 @@ from typing import Dict, List, Tuple
 import torch
 
 from ..op import (CHANNEL_IN, CHANNEL_OUT, SAMPLE, SEQ, Op, OpContext,
-                  WeightSpec)
+                  WeightSpec, tp_axis)
 from .common import AC_MODE_NONE, apply_activation
 
 
@@ -43,8 +51,33 @@ class Linear(Op):
                                        axes=(CHANNEL_OUT,))
         return specs
 
+    def _tp(self, strategy, mesh):
+        return tp_axis(self, strategy, mesh, "kernel", 1)
+
+    def mesh_weight_specs(self, strategy, mesh):
+        ax = self._tp(strategy, mesh)
+        specs = {"kernel": (None, ax) if ax else ()}
+        if self.use_bias:
+            specs["bias"] = (ax,) if ax else ()
+        return specs
+
+    def mesh_output_specs(self, strategy, mesh):
+        (spec,) = super().mesh_output_specs(strategy, mesh)
+        ax = self._tp(strategy, mesh)
+        if ax is None:
+            return [spec]
+        n = len(self.outputs[0].shape)
+        full = list(spec) + [None] * (n - len(spec))
+        full[-1] = ax
+        return [tuple(full)]
+
     def forward(self, params, xs, ctx: OpContext):
         (x,) = xs
+        if ctx.mesh is not None:
+            ax = self._tp(ctx.strategy, ctx.mesh)
+            if ax is not None:
+                from ..parallel.collectives import copy_to
+                x = copy_to(x, ctx.mesh, ax)
         # jnp.dot(..., preferred_element_type=f32).astype(x.dtype): the
         # matmul accumulates in f32 and rounds once to x's dtype (a bf16
         # GEMM reduces in f32, resolve_device), then the bias is added

@@ -12,6 +12,18 @@ exact in both packages: the stable sort is ``torch.sort(stable=True)``,
 JAX's ``argsort`` is stable too. Ids outside [0, E) route nowhere, as
 ``jax.nn.one_hot`` zeroes them. The products are plain PyTorch: JAX
 computes them in XLA, outside any Pallas kernel.
+
+With the batch split over ``data`` the routing stays the global batch's
+(GSPMD computes JAX's global ``cumsum``): the capacity comes from the
+global token count (the op is built on global shapes), and a slot's
+rank in its expert counts the slots of the earlier ranks too — each rank
+adds the exclusive prefix of the other ranks' per-expert counts
+(:func:`expert_prefix`) to its local ranks. GroupBy scatters its slots
+at their global positions and reduce-scatters the buffers over
+``data``, so each rank holds its block of every expert's capacity
+(the layout JAX pins); Aggregate gathers the expert outputs back
+(``gather_sum``: its gradient is each rank's partial, reduce-scattered)
+and combines its own tokens.
 """
 
 from __future__ import annotations
@@ -33,25 +45,44 @@ def _one_hot(ids, n: int):
             == torch.arange(n, device=ids.device)).to(torch.float32)
 
 
-def dispatch_mask(assign, n_experts: int, capacity: int):
+def expert_prefix(assign, n_experts: int, mesh):
+    """(n_experts,) int32: the slots the ranks before this one (in
+    ``data`` coordinate order, the global batch order) route to each
+    expert. Not differentiable; one all-gather of the counts."""
+    from ..parallel.collectives import gather_tensor
+    flat = assign.reshape(-1).long()
+    ok = (flat >= 0) & (flat < n_experts)
+    counts = torch.zeros(n_experts, dtype=torch.int32, device=flat.device)
+    counts.index_add_(0, flat[ok], torch.ones_like(flat[ok],
+                                                     dtype=torch.int32))
+    every = gather_tensor(counts[None], mesh, "data", 0)
+    c = mesh.coord("data")
+    return every[:c].sum(dim=0).to(torch.int32)
+
+
+def dispatch_mask(assign, n_experts: int, capacity: int, prefix=None):
     """(batch, k) expert ids -> (batch * k, n_experts, capacity) f32
     dispatch mask: one-hot expert times one-hot rank within the expert,
-    zero where the rank reaches the capacity."""
+    zero where the rank reaches the capacity. ``prefix`` (n_experts,)
+    is added to every rank (the earlier ranks' slots on a mesh)."""
     flat = assign.reshape(-1).to(torch.int32)
     onehot = _one_hot(flat, n_experts)
     ranks = torch.cumsum(onehot, dim=0) * onehot - onehot
+    if prefix is not None:
+        ranks = ranks + onehot * prefix.float()
     rank = torch.sum(ranks, dim=1).to(torch.int32)
     keep = (rank < capacity).to(torch.float32)
     pos = _one_hot(rank, capacity)
     return onehot[:, :, None] * pos[:, None, :] * keep[:, None, None]
 
 
-def dispatch_indices(assign, n_experts: int, capacity: int):
+def dispatch_indices(assign, n_experts: int, capacity: int, prefix=None):
     """The routing of :func:`dispatch_mask` as (pos (S,), keep (S,)):
     ``pos = expert * capacity + rank`` indexes the flat (E * C, ...)
     buffer, a dropped slot parks at E * C. The ranks come from a stable
     sort of the expert ids and a cummax of run starts, so they equal the
-    mask's cumsum ranks exactly."""
+    mask's cumsum ranks exactly. ``prefix`` as in
+    :func:`dispatch_mask`."""
     flat = assign.reshape(-1).to(torch.int32)
     s = flat.shape[0]
     _, order = torch.sort(flat, stable=True)
@@ -63,6 +94,8 @@ def dispatch_indices(assign, n_experts: int, capacity: int):
                                          torch.zeros_like(idx)), 0).values
     rank = torch.zeros(s, dtype=torch.int32, device=flat.device)
     rank[order] = idx - run_start
+    if prefix is not None:
+        rank = rank + prefix[flat.long().clamp(0, n_experts - 1)]
     keep = (rank < capacity) & (flat >= 0) & (flat < n_experts)
     pos = torch.where(keep, flat * capacity + rank,
                       torch.full_like(flat, n_experts * capacity))
@@ -131,6 +164,14 @@ class GroupBy(Op):
     def forward(self, params, xs, ctx: OpContext):
         data, assign = xs
         xrep = torch.repeat_interleave(data, self.k, dim=0)
+        if ctx.data_split():
+            from ..parallel.collectives import reduce_scatter
+            prefix = expert_prefix(assign, self.n, ctx.mesh)
+            pos, keep = dispatch_indices(assign, self.n, self.capacity,
+                                         prefix)
+            buf = sorted_dispatch(xrep, pos, keep, self.n, self.capacity)
+            buf = reduce_scatter(buf, ctx.mesh, "data", 1)
+            return [buf[i] for i in range(self.n)]
         if use_sorted_dispatch(self.model, xrep.shape[0], self.n,
                                self.capacity):
             pos, keep = dispatch_indices(assign, self.n, self.capacity)
@@ -170,7 +211,12 @@ class Aggregate(Op):
     def forward(self, params, xs, ctx: OpContext):
         gate, assign = xs[0], xs[1]
         experts = torch.stack(xs[2:], dim=0)
-        mask = dispatch_mask(assign, self.n, self.capacity)
+        prefix = None
+        if ctx.data_split():
+            from ..parallel.collectives import gather_sum
+            experts = gather_sum(experts, ctx.mesh, "data", 1)
+            prefix = expert_prefix(assign, self.n, ctx.mesh)
+        mask = dispatch_mask(assign, self.n, self.capacity, prefix)
         gathered = torch.einsum("snc,ncd->sd", mask, experts.float())
         b, k = assign.shape
         gathered = gathered.reshape(b, k, -1)

@@ -9,7 +9,17 @@ each expert's two-layer FFN as batched products summed in f32; the
 combine weighted by the gates; and in training the load-balancing loss
 ``aux_loss_weight * E * sum_e f_e p_e`` set on ``ctx.aux_loss`` (the
 executor adds it to the objective). The expert GEMMs are ``torch.bmm``:
-JAX computes them in XLA. On one device the expert axis is not sharded.
+JAX computes them in XLA.
+
+With the batch split over ``data`` (the expert axis is never split in
+this port: ``expert`` parallelism is ROADMAP item 2.5) each rank routes
+its own tokens with the global routing: the capacity is the global
+batch's, a slot's rank adds the earlier ranks' per-expert counts
+(ops/moe.py ``expert_prefix``), and the expert FFN, a function of each
+buffer row alone, runs on the rank's own rows. The load-balancing loss
+takes its two means over the global batch (``all_reduce`` of the
+local sums: the loss is replicated, so each rank's gradient of it is
+whole).
 """
 
 from __future__ import annotations
@@ -19,8 +29,8 @@ import torch
 from ..core.precision import reciprocal_f32
 from ..op import CHANNEL, EXPERT, SAMPLE, SEQ, Op, OpContext, WeightSpec
 from .common import AC_MODE_RELU, apply_activation
-from .moe import (dispatch_indices, dispatch_mask, sorted_combine,
-                  sorted_dispatch, use_sorted_dispatch)
+from .moe import (dispatch_indices, dispatch_mask, expert_prefix,
+                  sorted_combine, sorted_dispatch, use_sorted_dispatch)
 
 
 def _bmm_f32(a, b, dtype):
@@ -107,9 +117,14 @@ class MoEFFN(Op):
             gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
 
         xrep = torch.repeat_interleave(tokens, k, dim=0)
-        sorted_path = self.sorted_path()
+        mesh = ctx.mesh if ctx.data_split() else None
+        prefix = (expert_prefix(assign, e, mesh) if mesh is not None
+                  else None)
+        # a mesh routes through the sorted scatter: its buffer rows are
+        # the dense mask's, exactly, and it takes the global ranks
+        sorted_path = mesh is not None or self.sorted_path()
         if sorted_path:
-            pos, kept = dispatch_indices(assign, e, cap)
+            pos, kept = dispatch_indices(assign, e, cap, prefix)
             expert_in = sorted_dispatch(xrep, pos, kept, e, cap)
         else:
             mask = dispatch_mask(assign, e, cap)
@@ -130,10 +145,17 @@ class MoEFFN(Op):
             # GShard: E * sum_e f_e * p_e, f_e the share of tokens whose
             # top-1 is e, p_e the mean gate probability of e (means as
             # jax.jit computes them: sums times f32(1 / N))
-            inv_n = reciprocal_f32(n)
             f = torch.sum(torch.nn.functional.one_hot(
-                assign[:, 0].long(), e).float(), dim=0) * inv_n
-            p = torch.sum(probs, dim=0) * inv_n
+                assign[:, 0].long(), e).float(), dim=0)
+            p = torch.sum(probs, dim=0)
+            if mesh is not None:
+                from ..parallel.collectives import all_reduce
+                f = all_reduce(f, mesh, "data")
+                p = all_reduce(p, mesh, "data")
+                n = n * mesh.axis_size("data")
+            inv_n = reciprocal_f32(n)
+            f = f * inv_n
+            p = p * inv_n
             ctx.aux_loss = (self.aux_loss_weight * e
                             * torch.sum(f * p)).float()
         return [out.to(dt).reshape(tuple(x.shape[:-1]) + (self.out_dim,))]

@@ -86,6 +86,10 @@ class Reshape(Op):
         return [self.new_shape]
 
     def forward(self, params, xs, ctx: OpContext):
+        if ctx.mesh is not None and xs[0].shape[0] != \
+                self.inputs[0].shape[0]:
+            # a block of the batch: the batch stays the leading factor
+            return [xs[0].reshape((-1,) + tuple(self.new_shape[1:]))]
         return [xs[0].reshape(self.new_shape)]
 
 

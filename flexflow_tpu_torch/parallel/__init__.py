@@ -1,17 +1,23 @@
-"""Parallel layout of the port: mesh descriptions and the machine
-description (``mesh``), per-op strategies (``pconfig``), strategy files
-(``strategy_io``) and the planners the simulator reads
-(``graph_pipeline``, ``ulysses``). Nothing here executes a mesh: the
-port trains on one device (ROADMAP module item 2)."""
+"""Parallel layout of the port: mesh descriptions, the machine
+description and the executing mesh's process groups (``mesh``), per-op
+strategies (``pconfig``), layouts and resharding (``sharding``), the
+collectives (``collectives``), local rank processes (``launch``),
+strategy files (``strategy_io``) and the planners the simulator reads
+(``graph_pipeline``, ``ulysses``). Data parallelism and linear,
+attention and embedding tensor parallelism execute (core/executor.py);
+pipelines, sequence and expert parallelism wait for ROADMAP items
+2.3-2.5."""
 
 from .mesh import (ALL_AXES, DATA, EXPERT_AX, MODEL, PIPE, SEQ_AX, TENSOR,
-                   MachineSpec, MeshShape, make_mesh, single_device_mesh)
+                   BoundMesh, MachineSpec, MeshShape, default_mesh,
+                   init_distributed, make_mesh, single_device_mesh)
 from .pconfig import (DEVICE_KEY, OpStrategy, ParallelConfig, Strategy,
                       megatron_strategy, placement_assignment,
                       sequence_parallel_strategy)
 
 __all__ = ["ALL_AXES", "DATA", "EXPERT_AX", "MODEL", "PIPE", "SEQ_AX",
-           "TENSOR", "MachineSpec", "MeshShape", "make_mesh",
+           "TENSOR", "BoundMesh", "MachineSpec", "MeshShape",
+           "default_mesh", "init_distributed", "make_mesh",
            "single_device_mesh", "DEVICE_KEY", "OpStrategy",
            "ParallelConfig", "Strategy", "megatron_strategy",
            "placement_assignment", "sequence_parallel_strategy"]

@@ -1,0 +1,320 @@
+"""The collectives of an executing mesh, over one mesh axis at a time.
+
+The JAX package never calls a collective: GSPMD inserts them from the
+shardings it is given. The port has no GSPMD for its own kernels, so
+each op's local rule (and the executor around it) calls the ones GSPMD
+would have inserted, from this module — the only one that knows the
+backend. Each takes a :class:`parallel.mesh.BoundMesh` and an axis
+name; an axis the mesh lacks is size 1 and the call is the identity
+with no launch.
+
+Differentiable forms (``torch.autograd.Function``), each the adjoint
+pair of the one-device semantics they stand for:
+
+``all_reduce``      sum of the ranks' partial values; backward: identity
+                    (the sum feeds computation replicated over the axis,
+                    whose gradient every rank already holds in full)
+``copy_to``         identity; backward: all-reduce (a value replicated
+                    over the axis feeds computation sharded over it, so
+                    each rank holds part of its gradient)
+``psum``            ``copy_to(all_reduce(x))``: a sum whose result feeds
+                    sharded computation (BatchNorm's batch statistics)
+``all_gather(dim)`` shards concatenated along ``dim``; backward: the
+                    rank's slice of the (full) gradient
+``gather_sum(dim)`` the same gather feeding sharded computation;
+                    backward: reduce-scatter
+``split(dim)``      the rank's slice of a replicated value; backward:
+                    all-gather
+``reduce_scatter(dim)`` the slice of the sum; backward: all-gather
+
+Under NCCL the tensors go to NCCL as they are (on the current stream,
+so a CUDA-graph capture records them and a replay runs them; an
+all-reduce on a second stream forked from the capture stream replays
+right on an H100, tools/torch_mesh_probe.py). Under gloo with CUDA
+tensors — ranks that share a card — every collective stages
+explicitly: the tensor is copied to a pinned host buffer, the
+collective runs on the host copy and the result is copied back; the
+bytes are counted in ``staged_bytes`` and a gloo step cannot be
+captured (the copies synchronize with the host), so such steps run
+with ``capture=False``. gloo itself refuses none of the collectives
+used here on CUDA tensors (all_reduce, all_gather_into_tensor,
+reduce_scatter_tensor, broadcast and list all_gather each gave the
+right values on an H100 with the card's torch: tools/torch_mesh_probe.py)
+— it copies through the host inside the call; the explicit staging
+makes those copies visible, counted and the same for every
+collective. Staging is never used under NCCL or on the CPU. Every
+launch counts once in ``launches`` (through
+``kernels/_launches.count_launch``, so a launch recorded in a capture
+counts at each replay); a failed collective raises.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from ..kernels._launches import count_launch
+
+# collective launches by kind (one a call that reaches the backend)
+launches = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
+            "barrier": 0}
+# bytes copied between the card and pinned host memory by gloo staging
+staged_bytes = {"to_host": 0, "to_device": 0}
+
+
+def reset_counts() -> None:
+    for k in launches:
+        launches[k] = 0
+    for k in staged_bytes:
+        staged_bytes[k] = 0
+
+
+def _group(bm, axis):
+    """(process group, size) of ``axis``, or (None, 1) when the mesh
+    has no such axis."""
+    if bm is None or axis not in bm.groups:
+        return None, 1
+    return bm.groups[axis], bm.axis_size(axis)
+
+
+def _stages(bm, t: torch.Tensor) -> bool:
+    return bm.backend == "gloo" and t.device.type == "cuda"
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)                         # synchronous: gloo reads it next
+    staged_bytes["to_host"] += t.numel() * t.element_size()
+    return h
+
+
+def _to_device(dst: torch.Tensor, h: torch.Tensor) -> None:
+    dst.copy_(h)
+    staged_bytes["to_device"] += h.numel() * h.element_size()
+
+
+class Pending:
+    """An all-reduce in flight (``all_reduce_(async_op=True)``):
+    :meth:`wait` completes it, staged results copied back."""
+
+    __slots__ = ("work", "host", "dst")
+
+    def __init__(self, work, host=None, dst=None):
+        self.work, self.host, self.dst = work, host, dst
+
+    def wait(self) -> None:
+        if self.work is not None:
+            self.work.wait()
+            self.work = None
+        if self.host is not None:
+            _to_device(self.dst, self.host)
+            self.host = None
+
+
+def all_reduce_(t: torch.Tensor, bm, axis: str, async_op: bool = False):
+    """Sum ``t`` over ``axis`` in place. With ``async_op`` returns a
+    :class:`Pending` (the gradient buckets), else None."""
+    import torch.distributed as dist
+    g, n = _group(bm, axis)
+    if g is None:
+        return Pending(None) if async_op else None
+    count_launch(launches, "all_reduce")
+    if _stages(bm, t):
+        h = _to_host(t)
+        work = dist.all_reduce(h, group=g, async_op=async_op)
+        if async_op:
+            return Pending(work, h, t)
+        _to_device(t, h)
+        return None
+    work = dist.all_reduce(t, group=g, async_op=async_op)
+    return Pending(work) if async_op else None
+
+
+def gather_tensor(t: torch.Tensor, bm, axis: str, dim: int = 0
+                  ) -> torch.Tensor:
+    """The ranks' ``t`` along ``axis`` concatenated on ``dim`` in
+    coordinate order (not differentiable)."""
+    import torch.distributed as dist
+    g, n = _group(bm, axis)
+    if g is None:
+        return t
+    count_launch(launches, "all_gather")
+    src = t.movedim(dim, 0).contiguous()
+    staged = _stages(bm, src)
+    if staged:
+        src = _to_host(src)
+    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    dist.all_gather_into_tensor(out, src, group=g)
+    if staged:
+        host = out
+        out = torch.empty(host.shape, dtype=host.dtype, device=t.device)
+        _to_device(out, host)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter_tensor(t: torch.Tensor, bm, axis: str, dim: int = 0
+                          ) -> torch.Tensor:
+    """The rank's slice along ``dim`` of the sum of the ranks' ``t``
+    over ``axis`` (not differentiable)."""
+    import torch.distributed as dist
+    g, n = _group(bm, axis)
+    if g is None:
+        return t
+    count_launch(launches, "reduce_scatter")
+    src = t.movedim(dim, 0).contiguous()
+    if src.shape[0] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
+                         f"does not divide over {n} ranks")
+    staged = _stages(bm, src)
+    if staged:
+        src = _to_host(src)
+    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    dist.reduce_scatter_tensor(out, src, group=g)
+    if staged:
+        host = out
+        out = torch.empty(host.shape, dtype=host.dtype, device=t.device)
+        _to_device(out, host)
+    return out.movedim(0, dim).contiguous()
+
+
+def local_slice(t: torch.Tensor, bm, axis: str, dim: int) -> torch.Tensor:
+    """This rank's contiguous slice of a replicated ``t`` along
+    ``dim`` over ``axis`` (no communication)."""
+    g, n = _group(bm, axis)
+    if g is None or n == 1:
+        return t
+    size = t.shape[dim]
+    if size % n:
+        raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
+                         f"over {n} ranks of {axis!r}")
+    part = size // n
+    return t.narrow(dim, bm.coord(axis) * part, part).contiguous()
+
+
+def gather_objects(obj, bm, axis: str) -> List:
+    """Python objects of every rank of ``axis``, in coordinate order."""
+    import torch.distributed as dist
+    g, n = _group(bm, axis)
+    if g is None:
+        return [obj]
+    out = [None] * n
+    dist.all_gather_object(out, obj, group=g)
+    return out
+
+
+def barrier(bm=None) -> None:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        count_launch(launches, "barrier")
+        if dist.get_backend() == "nccl":
+            dist.barrier(device_ids=[torch.cuda.current_device()])
+        else:
+            dist.barrier()
+
+
+# ------------------------------------------------ differentiable forms
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bm, axis):
+        y = x.clone()
+        all_reduce_(y, bm, axis)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bm, axis):
+        ctx.bm, ctx.axis = bm, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        all_reduce_(g, ctx.bm, ctx.axis)
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bm, axis, dim):
+        ctx.bm, ctx.axis, ctx.dim = bm, axis, dim
+        return gather_tensor(x, bm, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return local_slice(g, ctx.bm, ctx.axis, ctx.dim), None, None, None
+
+
+class _GatherSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bm, axis, dim):
+        ctx.bm, ctx.axis, ctx.dim = bm, axis, dim
+        return gather_tensor(x, bm, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_tensor(g, ctx.bm, ctx.axis, ctx.dim),
+                None, None, None)
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bm, axis, dim):
+        ctx.bm, ctx.axis, ctx.dim = bm, axis, dim
+        return local_slice(x, bm, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_tensor(g, ctx.bm, ctx.axis, ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bm, axis, dim):
+        ctx.bm, ctx.axis, ctx.dim = bm, axis, dim
+        return reduce_scatter_tensor(x, bm, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_tensor(g, ctx.bm, ctx.axis, ctx.dim), None, None, None
+
+
+def _trivial(bm, axis) -> bool:
+    return _group(bm, axis)[0] is None
+
+
+def all_reduce(x, bm, axis: str):
+    return x if _trivial(bm, axis) else _AllReduce.apply(x, bm, axis)
+
+
+def copy_to(x, bm, axis: str):
+    return x if _trivial(bm, axis) else _CopyTo.apply(x, bm, axis)
+
+
+def psum(x, bm, axis: str):
+    return copy_to(all_reduce(x, bm, axis), bm, axis)
+
+
+def all_gather(x, bm, axis: str, dim: int):
+    return x if _trivial(bm, axis) else _AllGather.apply(x, bm, axis, dim)
+
+
+def gather_sum(x, bm, axis: str, dim: int):
+    return x if _trivial(bm, axis) else _GatherSum.apply(x, bm, axis, dim)
+
+
+def split(x, bm, axis: str, dim: int):
+    return x if _trivial(bm, axis) else _Split.apply(x, bm, axis, dim)
+
+
+def reduce_scatter(x, bm, axis: str, dim: int):
+    return (x if _trivial(bm, axis)
+            else _ReduceScatter.apply(x, bm, axis, dim))

@@ -1,13 +1,22 @@
 """Mesh descriptions and the analytic machine description the cost
 model prices (``flexflow_tpu/parallel/mesh.py``).
 
-A mesh here is a *description*: :class:`MeshShape` holds the ordered
+A mesh is first a *description*: :class:`MeshShape` holds the ordered
 axis sizes, the axis names and an array of device indices, the fields
 of a ``jax.sharding.Mesh`` the search reads. The strategy search prices
-strategies on it for a machine of any size; the port executes on one
-device, and the process groups that would run a mesh of several cards
-wait for ROADMAP module item 2 (``FFModel(mesh=)`` with more than one
-device raises until then).
+strategies on it for a machine of any size, with no process group.
+
+A mesh *executes* once it is bound (:meth:`MeshShape.bind`) to a
+``torch.distributed`` process group of exactly ``size`` ranks, one
+process a rank (:func:`init_distributed`): device index ``i`` of the
+description is rank ``i``, each rank gets its coordinate on every axis
+and one subgroup per axis (the ranks that differ only in that axis's
+coordinate, a row or column of the device grid). The backend is NCCL
+when every rank has a card of its own and gloo on the CPU; ranks that
+share one card must ask for gloo (NCCL refuses two ranks on one device)
+and their collectives stage through host memory
+(parallel/collectives.py). :func:`default_mesh` puts every rank on
+``data``.
 
 ``MachineSpec``'s field names are the JAX package's, so one
 ``machine_model_file`` JSON means the same thing to both packages. The
@@ -18,9 +27,11 @@ describes the card the port runs on.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+import os
+from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 # canonical axis names (the JAX package's): data parallelism, tensor
 # parallelism, sequence parallelism, expert parallelism, pipeline stages
@@ -69,6 +80,195 @@ class MeshShape:
 
     def __repr__(self):
         return f"MeshShape({self.shape})"
+
+    def bind(self) -> "BoundMesh":
+        """This mesh on the running process group: the rank's
+        coordinates and one subgroup per axis. Every rank calls it (the
+        subgroups are made collectively, in the same order everywhere);
+        the result is cached, so binding the same description again
+        makes no new groups. Raises when no group of exactly ``size``
+        ranks is running."""
+        import torch.distributed as dist
+        if not dist.is_available() or not dist.is_initialized():
+            raise RuntimeError(
+                f"a mesh of {self.size} devices ({self.shape}) executes "
+                f"on a torch.distributed process group of {self.size} "
+                f"ranks: call parallel.mesh.init_distributed() first "
+                f"(one process a rank)")
+        world = dist.get_world_size()
+        if world != self.size:
+            raise RuntimeError(
+                f"mesh {self.shape} has {self.size} devices but the "
+                f"process group has {world} ranks")
+        key = (self.axis_names, tuple(self.shape.values()),
+               tuple(int(d) for d in self.devices.reshape(-1)), _GEN[0])
+        bound = _BOUND.get(key)
+        if bound is None:
+            bound = _BOUND[key] = BoundMesh(self)
+        return bound
+
+
+# bound meshes by (axes, shape, devices, process-group generation)
+_BOUND: Dict[tuple, "BoundMesh"] = {}
+_GEN = [0]
+# the running group's facts (init_distributed)
+_DIST: Dict[str, object] = {}
+
+
+class BoundMesh:
+    """A mesh description bound to the running process group: ``rank``,
+    ``world``, ``backend``, the rank's ``coords`` (axis -> coordinate),
+    ``groups`` (axis -> the subgroup along that axis, in coordinate
+    order) and ``group_ranks`` (axis -> the global ranks of that
+    subgroup). ``staging`` says whether the collectives stage CUDA
+    tensors through host memory (gloo on a card)."""
+
+    def __init__(self, mesh: MeshShape):
+        import torch.distributed as dist
+        self.mesh = mesh
+        self.shape = mesh.shape
+        self.axis_names = mesh.axis_names
+        self.size = mesh.size
+        self.rank = dist.get_rank()
+        self.world = dist.get_world_size()
+        self.backend = str(dist.get_backend())
+        where = np.argwhere(mesh.devices == self.rank)
+        if len(where) != 1:
+            raise RuntimeError(
+                f"rank {self.rank} appears {len(where)} times in the "
+                f"mesh's device grid {mesh.devices.tolist()}")
+        coord = tuple(int(c) for c in where[0])
+        self.coords = dict(zip(mesh.axis_names, coord))
+        self.groups = {}
+        self.group_ranks = {}
+        grid = mesh.devices
+        for ax_i, ax in enumerate(mesh.axis_names):
+            # every line of the grid along this axis, in a fixed order:
+            # new_group is collective over the whole world
+            moved = np.moveaxis(grid, ax_i, -1).reshape(
+                -1, grid.shape[ax_i])
+            for line in moved:
+                ranks = [int(r) for r in line]
+                g = dist.new_group(ranks) if self.world > 1 else \
+                    dist.group.WORLD
+                if self.rank in ranks:
+                    self.groups[ax] = g
+                    self.group_ranks[ax] = ranks
+
+    def axis_size(self, axis: str) -> int:
+        return int(self.shape.get(axis, 1))
+
+    def coord(self, axis: str) -> int:
+        return int(self.coords.get(axis, 0))
+
+    @property
+    def staging(self) -> bool:
+        return self.backend == "gloo" and _DIST.get("device_type") == "cuda"
+
+    def __repr__(self):
+        return (f"BoundMesh({self.shape}, rank={self.rank}, "
+                f"coords={self.coords}, backend={self.backend})")
+
+
+def init_distributed(backend: Optional[str] = None,
+                     init_method: Optional[str] = None,
+                     rank: Optional[int] = None,
+                     world_size: Optional[int] = None,
+                     device: Optional[str] = None) -> dict:
+    """Join (or start) the process group this process's rank trains in.
+
+    Rank, world size and the local rank come from the arguments, else
+    from torchrun's ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``; the
+    rendezvous is ``init_method`` (tests pass a ``file://`` path), else
+    ``env://`` over ``MASTER_ADDR`` / ``MASTER_PORT``. ``device`` is
+    the device the rank's models live on: the card (card
+    ``LOCAL_RANK`` modulo the cards present) unless the caller passes
+    ``device="cpu"``; a rank asked for the card that finds none
+    raises. The backend is ``gloo`` on the CPU and ``nccl`` on the card
+    when every local rank has a card of its own; ranks that share a
+    card must pass ``backend="gloo"`` (NCCL refuses two ranks on one
+    device with its own error, "Duplicate GPU detected"). Returns the
+    group's facts (backend, rank, world, local_rank, device). A second
+    call returns them without a new group."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return dict(_DIST)
+    env = os.environ
+    rank = int(rank if rank is not None else env.get("RANK", 0))
+    world = int(world_size if world_size is not None
+                else env.get("WORLD_SIZE", 1))
+    local_rank = int(env.get("LOCAL_RANK", rank))
+    local_world = int(env.get("LOCAL_WORLD_SIZE", world))
+    if init_method is None:
+        if "MASTER_ADDR" not in env or "MASTER_PORT" not in env:
+            raise ValueError(
+                "init_distributed needs an init_method (file://... or "
+                "tcp://host:port) or torchrun's MASTER_ADDR/MASTER_PORT")
+        init_method = "env://"
+    cuda = torch.cuda.is_available()
+    ncards = torch.cuda.device_count() if cuda else 0
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and not cuda:
+        raise RuntimeError(
+            "init_distributed: the rank's device is the card but CUDA is "
+            "not available (pass device='cpu' to run ranks on the CPU)")
+    if backend is None:
+        if dev.type == "cpu":
+            backend = "gloo"
+        elif ncards >= local_world:
+            backend = "nccl"
+        else:
+            raise ValueError(
+                f"{local_world} local ranks share {ncards} card(s): NCCL "
+                f"takes one rank a card, so pass backend='gloo' to run "
+                f"ranks that share a card")
+    if dev.type == "cuda":
+        torch.cuda.set_device(local_rank % ncards)
+    kw = {}
+    if backend == "nccl":
+        kw["device_id"] = torch.device("cuda", local_rank % ncards)
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world, **kw)
+    _GEN[0] += 1
+    _DIST.clear()
+    _DIST.update(backend=backend, rank=rank, world=world,
+                 local_rank=local_rank, device=str(dev),
+                 device_type=dev.type)
+    return dict(_DIST)
+
+
+def shutdown_distributed() -> None:
+    """Leave the process group (and forget the meshes bound on it)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _BOUND.clear()
+    _DIST.clear()
+
+
+def default_mesh() -> MeshShape:
+    """Every rank of the running group on ``data`` (one device without
+    a group)."""
+    import torch.distributed as dist
+    n = (dist.get_world_size()
+         if dist.is_available() and dist.is_initialized() else 1)
+    return make_mesh((n,), (DATA,))
+
+
+def bound_mesh(mesh) -> Optional[BoundMesh]:
+    """The executing form of ``mesh`` for a model: None for no mesh, or
+    for a one-device mesh unless a group of exactly one rank runs (the
+    meshless path: a one-device model inside a rank of a larger group
+    is that rank's own), else :meth:`MeshShape.bind` (which raises when
+    a mesh of several devices has no group of its size)."""
+    if mesh is None:
+        return None
+    import torch.distributed as dist
+    running = dist.is_available() and dist.is_initialized()
+    if int(mesh.size) == 1 and not (running
+                                    and dist.get_world_size() == 1):
+        return None
+    return mesh.bind()
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str],

@@ -192,6 +192,12 @@ class ServeEngine:
             raise ValueError(
                 f"model lives on {model.device}, engine asked for "
                 f"{self.device}")
+        from ..parallel.mesh import bound_mesh
+        if getattr(model, "mesh", None) is not None \
+                and bound_mesh(model.mesh) is not None:
+            raise NotImplementedError(
+                "serving a model on an executing mesh (tensor-parallel "
+                "serving): ROADMAP item 2.2")
         # the engine's own CUDA stream: the wall-clock replica pool
         # steps each replica on its worker thread under on_stream(), so
         # replicas overlap on the card instead of serializing on the

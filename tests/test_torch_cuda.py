@@ -1920,3 +1920,24 @@ def test_captured_adapted_step_equals_eager(card, kv_dtype):
         engines.append(eng)
     assert outs[0] == outs[1]
     assert engines[0].last_stats["adapter_pool"]["loads"] == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_on_a_head_slice(card, dtype):
+    """A tensor-parallel rank's heads taken as a slice of a wider
+    (b, s, h, d) tensor (non-contiguous over the heads): the wrapper
+    runs the kernels on the slice's strides, forward and backward,
+    and equals the slice of the whole tensor's attention."""
+    q, k, v, _ = _flash_inputs(card, dtype, 2, 96, 96, 8, 64, seed=9)
+    sl = slice(2, 6)
+    qs, ks, vs = (x[:, :, sl].requires_grad_() for x in (q, k, v))
+    assert not qs.is_contiguous()
+    o = fa.flash_attention_bshd(qs, ks, vs, causal=True)
+    g = torch.autograd.grad(o.float().sum(), (qs, ks, vs))
+    whole = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    ow = fa.flash_attention_bshd(*whole, causal=True)
+    gw = torch.autograd.grad(ow[:, :, sl].float().sum(), whole)
+    tol = FLASH_F32_REL if dtype == torch.float32 else FLASH_BF16_REL
+    assert _rel_err(o, ow[:, :, sl]) <= tol
+    for a, b in zip(g, gw):
+        assert _rel_err(a, b[:, :, sl]) <= tol

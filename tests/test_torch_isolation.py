@@ -1,7 +1,9 @@
 """The port stands alone: no module of flexflow_tpu_torch, and not
 chip_smoke.py, imports JAX, ml_dtypes or the JAX package, importing
-the serving, search and training packages leaves them unloaded, and the
-native search engine builds from flexflow_tpu_torch/csrc alone."""
+the serving, search and training packages — and the executing mesh's
+collectives, layouts, rank pool and the executor's mesh half — leaves
+them unloaded, and the native search engine builds from
+flexflow_tpu_torch/csrc alone."""
 
 import ast
 import subprocess
@@ -44,7 +46,8 @@ def test_sources_found():
             "graph_pipeline.py", "ulysses.py", "cost_model.py",
             "simulator.py", "mcmc.py", "native_search.py",
             "op_measure.py", "explain.py", "fusion.py", "overlap.py",
-            "wrappers.py"} <= names
+            "wrappers.py", "collectives.py", "sharding.py",
+            "launch.py"} <= names
 
 
 def test_import_leaves_jax_unloaded():
@@ -54,7 +57,11 @@ def test_import_leaves_jax_unloaded():
             "flexflow_tpu_torch.parallel.graph_pipeline, "
             "flexflow_tpu_torch.search.native_search, "
             "flexflow_tpu_torch.search.op_measure, "
-            "flexflow_tpu_torch.native.wrappers; "
+            "flexflow_tpu_torch.native.wrappers, "
+            "flexflow_tpu_torch.parallel.collectives, "
+            "flexflow_tpu_torch.parallel.sharding, "
+            "flexflow_tpu_torch.parallel.launch, "
+            "flexflow_tpu_torch.core.executor; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flexflow_tpu', 'ml_dtypes')]; "
             "assert not bad, bad")

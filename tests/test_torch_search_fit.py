@@ -132,22 +132,29 @@ def test_drift_prediction_and_ledger_equal_jax():
 
 
 def test_mesh_and_measurement_boundaries():
-    """A mesh of one device is taken; a larger one, a mesh_shape of
-    several devices and pipeline_stages > 1 raise naming ROADMAP module
-    item 2; measurement raises without a card."""
+    """A mesh of one device is taken; a larger one, or a mesh_shape of
+    several devices, needs a process group of its size and raises
+    naming init_distributed without one (the mesh executes:
+    tests/test_torch_mesh*.py); pipeline_stages > 1 raises naming
+    ROADMAP item 2.3; measurement raises without a card."""
     m = ft.build_transformer(ft.FFConfig(batch_size=BATCH),
                              batch_size=BATCH, device="cpu",
                              mesh=make_mesh((1,), ("data",)), **ARCH)
     m.compile(metrics=[])
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         ft.FFModel(ft.FFConfig(), mesh=make_mesh((2, 4), ("data", "model")),
                    device="cpu")
-    for kw in (dict(pipeline_stages=2), dict(mesh_shape=(2,),
-                                             mesh_axes=("data",))):
-        bad = ft.build_transformer(ft.FFConfig(batch_size=BATCH, **kw),
-                                   batch_size=BATCH, device="cpu", **ARCH)
-        with pytest.raises(NotImplementedError, match="item 2"):
-            bad.compile(metrics=[])
+    bad = ft.build_transformer(ft.FFConfig(batch_size=BATCH,
+                                           pipeline_stages=2),
+                               batch_size=BATCH, device="cpu", **ARCH)
+    with pytest.raises(NotImplementedError, match="item 2.3"):
+        bad.compile(metrics=[])
+    bad = ft.build_transformer(ft.FFConfig(batch_size=BATCH,
+                                           mesh_shape=(2,),
+                                           mesh_axes=("data",)),
+                               batch_size=BATCH, device="cpu", **ARCH)
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        bad.compile(metrics=[])
     with pytest.raises(RuntimeError, match="CPU|CUDA"):
         m.calibrate_simulator(steps=2)
     with pytest.raises(RuntimeError, match="CUDA"):

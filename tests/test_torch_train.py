@@ -332,13 +332,15 @@ def test_out_of_scope_attention_raises(kw):
 
 
 def test_out_of_scope_runtime_raises():
-    """A mesh of more than one device still raises (ROADMAP module item
-    2); a strategy is ported: compile keeps it on one device, as JAX's
-    does (tests/test_torch_search_fit.py). The test keeps its name from
-    when both raised."""
+    """A mesh of more than one device needs a process group of its
+    size: without one it raises naming init_distributed (it executes:
+    tests/test_torch_mesh*.py); a strategy is ported:
+    compile keeps it on one device, as JAX's does
+    (tests/test_torch_search_fit.py). The test keeps its name from when
+    both raised."""
     from flexflow_tpu_torch.parallel.mesh import make_mesh
     from flexflow_tpu_torch.parallel.pconfig import Strategy
-    with pytest.raises(NotImplementedError, match="item 2"):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         ft.FFModel(ft.FFConfig(), mesh=make_mesh((2,), ("data",)),
                    device="cpu")
     m = _model()
