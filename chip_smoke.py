@@ -144,6 +144,25 @@ wide-head) must not spill — and then:
     explain_report head and simulated step beside the measured eager
     step (no speed: gloo stages every collective through the host).
 
+  * serves the README's LM tensor-parallel (``tp_serve_phase``, last):
+    two gloo ranks sharing the card each run a t = 2 ``ServeEngine``
+    (4 of 8 heads, kernel 1 on them, eager: every collective staged
+    through pinned host memory) on the 8 greedy prompts with 32 new
+    tokens: (a) f32 pages, the ranks' tokens against this process's
+    one-device captured engine (tie rule PARITY_MARGIN), kernel 1's
+    launches a rank (layers x steps), the collectives and the bytes
+    staged a step beside the engine's analytic collective payload, the
+    eager step wall; (b) int8 pages, each rank's codes and scales
+    against the one-device engine's rows of its heads by layer (codes
+    off by a grid step, which must be at most one; scales' relative
+    difference; layers bit for bit), the tokens by the int8 tie rule;
+    (c) a 1:1 DisaggCluster of t = 2 roles equal to the t = 2 unified
+    engine token for token, and a t = 2 export imported into a
+    one-device engine with equal rows; (d) kernel 1 at
+    H = 4 and H = 2 (f32, int8 pages) against its plain version, timed
+    beside it and its bound. ``--only-tp-serve`` runs the build and
+    this phase alone.
+
 Every phase raises on failure. Prints the card (name, power limit), the
 build, each kernel's error and times, the training and serving numbers,
 the script's wall time, then one line ``{"kernels": [...]}`` and, last,
@@ -313,19 +332,20 @@ def bound(nbytes: float, flops: float, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_inputs(dtype, device, seed=0):
+def kernel_inputs(dtype, device, seed=0, heads=HEADS):
     """The mixed step's attention inputs: one sequence's 512-token
     prefill chunk (slot 0, lanes at positions 0..511) plus 8 decode
     lanes (slots 0..7) at lengths spread over 1..512, on page tables
-    that map the whole 256-page pool in a shuffled order."""
+    that map the whole 256-page pool in a shuffled order; ``heads``
+    heads (a rank's at t > 1)."""
     rng = np.random.default_rng(seed)
-    shape = (NUM_PAGES, PAGE, HEADS, HEAD_DIM)
+    shape = (NUM_PAGES, PAGE, heads, HEAD_DIM)
     kp = torch.from_numpy(rng.standard_normal(shape, np.float32))
     vp = torch.from_numpy(rng.standard_normal(shape, np.float32))
     tables = rng.permutation(np.arange(1, NUM_PAGES)).reshape(
         MAX_SEQS, PAGES_PER_SEQ).astype(np.int32)
     t = T_PREFILL + MAX_SEQS
-    q = torch.from_numpy(rng.standard_normal((t, HEADS, HEAD_DIM),
+    q = torch.from_numpy(rng.standard_normal((t, heads, HEAD_DIM),
                                              np.float32))
     slots = np.concatenate([np.zeros(T_PREFILL, np.int32),
                             np.arange(MAX_SEQS, dtype=np.int32)])
@@ -350,13 +370,14 @@ def attention_bound(q, kp, tables, slots, lens):
     live = set()
     for s, n in zip(s_np, l_np):
         live.update(int(p) for p in t_np[s, :-(-int(n) // PAGE)])
-    page_bytes = PAGE * HEADS * HEAD_DIM * kp.element_size()
+    heads = kp.shape[-2]
+    page_bytes = PAGE * heads * HEAD_DIM * kp.element_size()
     if kp.element_size() == 1:
-        page_bytes += PAGE * HEADS * 4
+        page_bytes += PAGE * heads * 4
     nbytes = (2 * len(live) * page_bytes + 2 * q.numel() * q.element_size()
               + tables.numel() * 4
               + (1 if slots is None else 2) * len(l_np) * 4)
-    flops = 4.0 * float(l_np.astype(np.int64).sum()) * HEADS * HEAD_DIM
+    flops = 4.0 * float(l_np.astype(np.int64).sum()) * heads * HEAD_DIM
     return bound(nbytes, flops, kp.dtype)
 
 
@@ -4680,6 +4701,424 @@ def mesh_phase(card: str):
     return res
 
 
+# -------------------------------------------- tensor-parallel serving
+TP_DEGREE = 2
+TP_NEW = 32
+TP_INT8_MARGIN = 0.05   # the int8 pool's kv_tie_margin
+# int8 rows of a t = 2 rank against the one-device engine's: every code
+# within one grid step and every scale within SCALE_REL relative (the
+# tier-1 test's limits: a code flipped at a rounding boundary moves the
+# next layer's input by a grid step, and the flips compound); layer 0 bit
+# for bit unless the q/k/v witness shows the rank's projection rounding
+# differently, and then at most LAYER0_CODES_OFF of its codes a step off
+# and its scales within LAYER0_SCALE_REL
+TP_SCALE_REL = 1e-2
+TP_LAYER0_CODES_OFF = 1e-4
+TP_LAYER0_SCALE_REL = 1e-5
+# f32 rows a t = 2 engine exports against a one-device engine's export of
+# the same prompt, relative to the layer's largest |row|
+TP_SHIP_REL = 1e-4
+
+
+def tp_lm():
+    """The README's LM at full width on this process's card, f32, for
+    inference, from the port's seeded initializers (the same weights in
+    every process)."""
+    from flexflow_tpu_torch import FFConfig, build_transformer_lm
+    from flexflow_tpu_torch.config import CompMode
+    m = build_transformer_lm(FFConfig(batch_size=1, seed=0), batch_size=1,
+                             device="cuda", **LM_ARCH)
+    m.compile(comp_mode=CompMode.INFERENCE)
+    return m
+
+
+def tp_pool_rows(eng):
+    """The engine's page pool tensors as numpy (int8 codes, f32
+    scales)."""
+    return [t.cpu().numpy() for t in eng._pool_args()]
+
+
+def tp_rank_serve(kv_dtype):
+    """(a), (b) on one gloo rank: the 8 greedy prompts through a t = 2
+    engine, eager (gloo stages every collective through pinned host
+    memory). Counts from 0 after warmup: kernel 1's launches on this
+    rank, the collectives and the bytes staged; the eager step walls."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
+    from flexflow_tpu_torch.parallel import collectives as C
+    from flexflow_tpu_torch.serve import ServeEngine
+    lm = tp_lm()
+    greedy, _ = serve_prompts(LM_ARCH["vocab_size"])
+    eng = ServeEngine(lm, FFConfig(kv_dtype=kv_dtype), device="cuda",
+                      tensor_parallel=TP_DEGREE, capture=False)
+    counts = eng.warmup()
+    torch.cuda.synchronize()
+    pr.launches = 0
+    C.reset_counts()
+    out = eng.generate(greedy, TP_NEW)
+    st = eng.last_stats
+    res = {"out": out, "launches": pr.launches, "steps": st["steps"],
+           "heads_local": eng.cache_cfg.heads_per_device,
+           "collectives": dict(C.launches),
+           "staged": dict(C.staged_bytes), "sharding": st["sharding"],
+           "step_ms": 1e3 * st["wall_s"] / st["steps"],
+           "captures_stable": eng.compile_counts() == counts,
+           "lockstep_checks": eng._lockstep.checks}
+    if eng.kv_quantized:
+        res["rows"] = tp_pool_rows(eng)
+    return res
+
+
+def tp_int8_rows(ranks, ref, h):
+    """Each rank's int8 pool (codes, scales) against the one-device
+    pool's rows of the rank's heads, by layer: the codes off by a grid
+    step and the most steps, the largest relative scale difference and
+    where it sits (layer, page, offset, head: the two scales), and
+    whether the layer is bit for bit."""
+    L = ref[0].shape[0]
+    out = {"codes": 2 * int(ref[0][0].size),
+           "code_off": [0] * L, "code_steps": 0, "scale_rel": [0.0] * L,
+           "bit_equal": [True] * L, "worst_at": None}
+    worst = -1.0
+    for c, (kq, vq, ks, vs) in enumerate(ranks):
+        sl = slice(c * h, (c + 1) * h)
+        for mine, whole in ((kq, ref[0]), (vq, ref[1])):
+            d = np.abs(mine.astype(np.int32)
+                       - whole[..., sl, :].astype(np.int32))
+            out["code_steps"] = max(out["code_steps"], int(d.max()))
+            for layer in range(L):
+                out["code_off"][layer] += int((d[layer] > 0).sum())
+                out["bit_equal"][layer] &= not d[layer].any()
+        for mine, whole in ((ks, ref[2]), (vs, ref[3])):
+            part = whole[..., sl]
+            rel = np.abs(mine - part) / np.maximum(np.abs(part), 1e-30)
+            for layer in range(L):
+                m = float(rel[layer].max())
+                out["scale_rel"][layer] = max(out["scale_rel"][layer], m)
+                out["bit_equal"][layer] &= bool(
+                    np.array_equal(mine[layer], part[layer]))
+                if m > worst:
+                    worst = m
+                    at = np.unravel_index(int(rel[layer].argmax()),
+                                          rel[layer].shape)
+                    out["worst_at"] = {
+                        "layer": layer, "page": int(at[0]),
+                        "offset": int(at[1]), "head": c * h + int(at[2]),
+                        "scales": [float(mine[layer][at]),
+                                   float(part[layer][at])]}
+    return out
+
+
+def tp_gemm_witness(eng, greedy):
+    """Where a t = 2 rank's layer-0 K/V can part from the one-device
+    engine's: the same f32 rows (the LayerNorm of the prompts' embedded
+    tokens, the mixed step's width T of them) projected onto one rank's
+    heads of wk and wv (a contiguous (E, H/t, D) block, as _shard_params
+    copies it) against the matching slice of the projection onto all
+    heads. The inputs of that projection agree bit for bit (the sharded
+    embedding's all-reduce adds exact zeros); cuBLAS may pick another
+    kernel, and so another summation order, for the narrower matrix.
+    Returns the elements that differ, the largest relative difference
+    and the largest |difference| over the largest |element|, per rank
+    and matrix."""
+    lm, T = eng.lm, eng.mixed_width
+    flat = [t for p in greedy for t in p][:T]
+    dev = eng.device
+    tokens = torch.tensor(flat, dtype=torch.int32, device=dev)
+    positions = torch.arange(T, device=dev) % LM_ARCH["max_seq_len"]
+    h = HEADS // TP_DEGREE
+    out = {"elements": T * h * HEAD_DIM, "differ": {}, "max_rel": {},
+           "max_over_max": {}}
+    with torch.no_grad():
+        x = lm.attn_in(0, lm.embed(tokens, positions))
+        for w in ("wk", "wv"):
+            kernel = lm.params["layer0_attn"][w]
+            whole = torch.einsum("...e,ehd->...hd", x, kernel)
+            for c in range(TP_DEGREE):
+                block = kernel.narrow(1, c * h, h).clone(
+                    memory_format=torch.contiguous_format)
+                part = torch.einsum("...e,ehd->...hd", x, block)
+                ref = whole[:, c * h:(c + 1) * h]
+                d = (part - ref).abs()
+                out["differ"][f"{w} rank {c}"] = int((d > 0).sum())
+                out["max_rel"][f"{w} rank {c}"] = float(
+                    (d / ref.abs().clamp_min(1e-30)).max())
+                out["max_over_max"][f"{w} rank {c}"] = float(
+                    d.max() / ref.abs().max())
+    return out
+
+
+def tp_ship_rows(ship, own):
+    """A t = 2 engine's shipment against a one-device engine's export of
+    the same prompt, by layer: the largest |difference| over the layer's
+    largest |row|, and whether the layer's rows are bit for bit."""
+    rel, bit = [], []
+    for layer in range(ship.k_rows.shape[0]):
+        worst, same = 0.0, True
+        for a, b in ((ship.k_rows, own.k_rows), (ship.v_rows, own.v_rows)):
+            worst = max(worst, float(np.abs(a[layer] - b[layer]).max()
+                                     / max(np.abs(b[layer]).max(), 1e-30)))
+            same &= bool(np.array_equal(a[layer], b[layer]))
+        rel.append(worst)
+        bit.append(same)
+    return {"rel": rel, "bit_equal": bit}
+
+
+def tp_rank_handoff():
+    """(c) on one gloo rank: a 1:1 cluster of t = 2 roles (serve_mesh
+    "2") against the t = 2 unified engine, and a t = 2 export imported
+    into a one-device engine on this rank's card and held against a
+    one-device engine's own export of the same prompt (a misordered or
+    repeated head block in the export's all-gather would show there)."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
+    from flexflow_tpu_torch.serve import DisaggCluster, ServeEngine
+    lm = tp_lm()
+    greedy, _ = serve_prompts(LM_ARCH["vocab_size"])
+    cfg = FFConfig(serve_mesh=str(TP_DEGREE), serve_spec_decode=False)
+    res = {}
+    with DisaggCluster(lm, config=cfg, device="cuda", capture=False) as cl:
+        counts = cl.warmup()
+        pr.launches = 0
+        res["cluster"] = cl.generate(greedy, TP_NEW)
+        res["cluster_launches"] = pr.launches
+        res["degrees"] = [e.tp for _, e in cl.engines()]
+        res["cluster_stable"] = cl.compile_counts() == counts
+        res["handoff_pages"] = cl.stats["handoff_pages"]
+    uni = ServeEngine(lm, cfg, device="cuda", capture=False)
+    uni.warmup()
+    res["unified"] = uni.generate(greedy, TP_NEW)
+    one = ServeEngine(lm, FFConfig(serve_spec_decode=False), device="cuda",
+                      capture=False)
+    one.warmup()
+    one.warmup_handoff()
+    ships = []
+    uni.generate([greedy[4]], 1, on_finish=lambda r: ships.append(
+        uni.export_kv(r.slot, r.context)))
+    ship = ships[0]
+    res["ship_pages"] = ship.num_pages
+    res["written"] = one.import_kv(ship)
+    pages = [one.cache._page_of_hash[k] for k in ship.keys]
+    got = [t[:, pages].cpu().numpy() for t in one._pool_args()]
+    res["rows_equal"] = all(np.array_equal(g, r) for g, r in
+                            zip(got, (ship.k_rows, ship.v_rows)))
+    ref = ServeEngine(lm, FFConfig(serve_spec_decode=False), device="cuda",
+                      capture=False)
+    ref.warmup()
+    owns = []
+    ref.generate([greedy[4]], 1, on_finish=lambda r: owns.append(
+        ref.export_kv(r.slot, r.context)))
+    own = owns[0]
+    res["keys_equal"] = list(own.keys) == list(ship.keys) \
+        and own.k_rows.shape == ship.k_rows.shape
+    res["ship_rows"] = tp_ship_rows(ship, own) if res["keys_equal"] \
+        else None
+    return res
+
+
+def tp_kernel_check(pr):
+    """(d) kernel 1 at H = 4 and H = 2 (the heads of a rank at t = 2 and
+    t = 4) on the mixed step's other shapes, f32 and int8 pages, against
+    its plain version; timed beside it and its bound."""
+    dev = torch.device("cuda")
+    scale = 1.0 / math.sqrt(HEAD_DIM)
+    out = {}
+    for heads in (HEADS // 2, HEADS // 4):
+        for name, dtype, tol in (("f32", torch.float32, F32_TOL),
+                                 ("int8", torch.int8, QUANT_REL_TOL)):
+            quant = dtype == torch.int8
+            args = kernel_inputs(torch.float32, dev, heads=heads)
+            kw = {}
+            if quant:
+                q, kp, vp, *rest = args
+                kq, ks = pr.quantize_kv_rows(kp, dtype)
+                vq, vs = pr.quantize_kv_rows(vp, dtype)
+                args = (q, kq, vq, *rest)
+                kw = {"k_scales": ks, "v_scales": vs}
+            got = pr.paged_ragged_v2_cuda(*args, scale, **kw)
+            torch.cuda.synchronize()
+            ref = pr.ragged_attention_ref(*args, scale, **kw)
+            err, rel = check_err(f"paged_ragged_v2 H={heads} {name}", got,
+                                 ref, tol, relative=quant)
+            k_ms = cuda_ms(lambda: pr.paged_ragged_v2_cuda(
+                *args, scale, **kw), 50)
+            p_ms = cuda_ms(lambda: pr.ragged_attention_ref(
+                *args, scale, **kw), 5)
+            b_ms, b_by = attention_bound(args[0], args[1], *args[3:])
+            out[f"H={heads} {name}"] = {
+                "max_abs_err": err, "err_over_max_ref": rel, "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+            log(f"tp_serve (d) kernel paged_ragged_v2 [{name} pages, "
+                f"T=520 H={heads} D=64 ps=16 pp=32 P=257]: max_abs_err="
+                f"{err:.3g} err/max|ref|={rel:.3g} (tol {tol}"
+                f"{' relative' if quant else ''}) kernel_ms={k_ms:.4f} "
+                f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+            del args, kw, got, ref
+    return out
+
+
+def tp_serve_phase(pr, card: str):
+    """Tensor-parallel serving on the card (see the module docstring):
+    two gloo ranks sharing it run t = 2 engines, eager; the one-device
+    captured engine of this process is their reference."""
+    import tempfile
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.parallel.launch import RankPool
+    from flexflow_tpu_torch.serve import ServeEngine
+    t0 = time.perf_counter()
+    res = {}
+    res["kernel"] = tp_kernel_check(pr)
+    greedy, _ = serve_prompts(LM_ARCH["vocab_size"])
+    lm = tp_lm()
+    one = {}
+    for kv in ("float32", "int8"):
+        eng = ServeEngine(lm, FFConfig(kv_dtype=kv), device="cuda")
+        eng.warmup()
+        pr.launches = 0
+        out = eng.generate(greedy, TP_NEW)
+        one[kv] = {"out": out, "steps": eng.last_stats["steps"],
+                   "launches": pr.launches, "eng": eng,
+                   "rows": tp_pool_rows(eng) if eng.kv_quantized else None}
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="ff_tp_"))
+    with RankPool(TP_DEGREE, str(tmp / "init"), backend="gloo",
+                  device="cuda", threads=0, timeout_s=600) as pool:
+        ranks = {kv: pool.run(tp_rank_serve, kv)
+                 for kv in ("float32", "int8")}
+        hand = pool.run(tp_rank_handoff)
+    L = LM_ARCH["num_layers"]
+    res["witness"] = wit = tp_gemm_witness(one["float32"]["eng"], greedy)
+    witness_differs = any(wit["differ"].values())
+    log(f"tp_serve witness [{card}]: layer 0's k/v projection of "
+        f"{one['float32']['eng'].mixed_width} f32 rows onto one rank's "
+        f"{HEADS // TP_DEGREE} heads against the slice of the projection "
+        f"onto all {HEADS}: elements "
+        f"that differ {wit['differ']} of {wit['elements']} each, largest "
+        f"relative difference "
+        f"{ {k: f'{v:.3g}' for k, v in wit['max_rel'].items()} }, largest "
+        f"|difference| / max|element| "
+        f"{ {k: f'{v:.3g}' for k, v in wit['max_over_max'].items()} }")
+    for kv, rs in ranks.items():
+        ref = one[kv]
+        eng = ref["eng"]
+        if any(r["out"] != rs[0]["out"] for r in rs):
+            raise AssertionError(f"tp_serve {kv}: the ranks' tokens differ")
+        margin = PARITY_MARGIN if kv == "float32" else TP_INT8_MARGIN
+        exact = eng.assert_token_parity(greedy, rs[0]["out"], ref["out"],
+                                        margin=margin)
+        if kv == "float32" and exact != len(greedy):
+            raise AssertionError(
+                f"tp_serve (a) f32: {exact}/{len(greedy)} greedy streams "
+                f"token-identical to the one-device engine, want all")
+        steps = rs[0]["steps"]
+        for r in rs:
+            if r["launches"] != L * steps or not r["captures_stable"]:
+                raise AssertionError(
+                    f"tp_serve {kv}: kernel 1 launched {r['launches']} "
+                    f"times, want {L} layers x {steps} steps")
+        r0 = rs[0]
+        tie = "" if kv == "float32" else \
+            f" (the rest diverge at a tie <= {margin})"
+        coll = {k: v / steps for k, v in r0["collectives"].items() if v}
+        staged = {k: v / steps / 2**20 for k, v in r0["staged"].items()}
+        cell = {"exact_streams": exact, "streams": len(greedy),
+                "steps": steps, "one_device_steps": ref["steps"],
+                "launches": [r["launches"] for r in rs],
+                "one_device_launches": ref["launches"],
+                "heads_local": r0["heads_local"],
+                "collectives_per_step": coll,
+                "staged_mib_per_step": staged,
+                "analytic_collective_mib_per_step":
+                    r0["sharding"]["collective_bytes_per_step"] / 2**20,
+                "eager_step_ms": [r["step_ms"] for r in rs]}
+        log(f"tp_serve ({'a' if kv == 'float32' else 'b'}) {kv} pages, t="
+            f"{TP_DEGREE} on two gloo ranks sharing the card [{card}]: "
+            f"{exact}/{len(greedy)} greedy streams token-identical to the "
+            f"one-device captured engine{tie}; steps {steps} (one device "
+            f"{ref['steps']}); kernel "
+            f"1 launches a rank {cell['launches']} on {r0['heads_local']} "
+            f"heads (= {L} layers x {steps} steps; one device "
+            f"{ref['launches']} on {HEADS}); collectives a step {coll}; "
+            f"staged through host memory a step "
+            f"{ {k: round(v, 3) for k, v in staged.items()} } MiB beside "
+            f"the analytic payload "
+            f"{cell['analytic_collective_mib_per_step']:.3f} MiB; eager "
+            f"step {[round(x, 1) for x in cell['eager_step_ms']]} ms "
+            f"(staged through the host: no speed)")
+        if kv == "int8":
+            h = HEADS // TP_DEGREE
+            cell["rows"] = rows = tp_int8_rows(
+                [r["rows"] for r in rs], ref["rows"], HEADS // TP_DEGREE)
+            log(f"tp_serve (b) int8 rows against the one-device engine's "
+                f"rows of each rank's heads, by layer: codes off by a "
+                f"grid step {rows['code_off']} of {rows['codes']} (at most "
+                f"{rows['code_steps']} step), scale rel max "
+                f"{[f'{x:.3g}' for x in rows['scale_rel']]} (worst at "
+                f"{rows['worst_at']}), bit for bit {rows['bit_equal']}")
+            bad = []
+            if rows["code_steps"] > 1:
+                bad.append(f"a code {rows['code_steps']} steps off")
+            if max(rows["scale_rel"]) > TP_SCALE_REL:
+                bad.append(f"scales {max(rows['scale_rel']):.3g} "
+                           f"relative off (limit {TP_SCALE_REL})")
+            if not witness_differs and not rows["bit_equal"][0]:
+                bad.append("layer 0 not bit for bit though the rank's "
+                           "q/k/v projection rounds as the whole one")
+            if rows["code_off"][0] > TP_LAYER0_CODES_OFF * rows["codes"]:
+                bad.append(f"layer 0: {rows['code_off'][0]} codes off "
+                           f"(limit {TP_LAYER0_CODES_OFF} of "
+                           f"{rows['codes']})")
+            if rows["scale_rel"][0] > TP_LAYER0_SCALE_REL:
+                bad.append(f"layer 0 scales {rows['scale_rel'][0]:.3g} "
+                           f"relative off (limit {TP_LAYER0_SCALE_REL})")
+            if bad:
+                raise AssertionError(f"tp_serve (b) int8 rows: {bad}; "
+                                     f"{rows}")
+        res["f32" if kv == "float32" else kv] = cell
+    h0 = hand[0]
+    for r in hand:
+        sr = r["ship_rows"]
+        ship_ok = sr is not None and max(sr["rel"]) <= TP_SHIP_REL \
+            and (witness_differs or sr["bit_equal"][0])
+        if r["cluster"] != r["unified"] or r["cluster"] != h0["cluster"] \
+                or r["degrees"] != [TP_DEGREE] * 2 \
+                or not r["cluster_stable"] or not r["rows_equal"] \
+                or r["written"] != r["ship_pages"] or not ship_ok:
+            raise AssertionError(
+                f"tp_serve (c) handoff: cluster == unified "
+                f"{r['cluster'] == r['unified']}, degrees {r['degrees']}, "
+                f"stable {r['cluster_stable']}, rows equal "
+                f"{r['rows_equal']}, {r['written']}/{r['ship_pages']} "
+                f"pages written, keys equal {r['keys_equal']}, export "
+                f"against the one-device export {sr} (limit "
+                f"{TP_SHIP_REL}; layer 0 bit for bit unless the witness "
+                f"differs)")
+    res["handoff"] = {"cluster_launches": [r["cluster_launches"]
+                                           for r in hand],
+                      "handoff_pages": h0["handoff_pages"],
+                      "ship_pages": h0["ship_pages"],
+                      "ship_rows": h0["ship_rows"]}
+    log(f"tp_serve (c) 1:1 cluster of t={TP_DEGREE} roles, f32 pages: "
+        f"{len(greedy)}/{len(greedy)} streams token-identical to the "
+        f"t={TP_DEGREE} unified engine ({h0['handoff_pages']} pages handed "
+        f"off; kernel 1 launches a rank {res['handoff']['cluster_launches']}"
+        f"); a t={TP_DEGREE} export of {h0['ship_pages']} pages imported "
+        f"into a one-device engine with equal rows, and against a "
+        f"one-device engine's export of the same prompt by layer: "
+        f"largest |diff| / max|row| "
+        f"{[f'{x:.3g}' for x in h0['ship_rows']['rel']]} (limit "
+        f"{TP_SHIP_REL}), bit for bit {h0['ship_rows']['bit_equal']}")
+    for kv in one:
+        one[kv]["eng"].close()
+    del one, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"tp_serve phase: {res['phase_s']:.1f} s")
+    return res
+
+
 def _kernel_name(sym: str) -> str:
     """A mangled kernel symbol as name[template args, still mangled]:
     the name is the length-prefixed identifier ending in _kernel."""
@@ -4839,6 +5278,10 @@ def main() -> int:
     if "--only-mesh" in sys.argv[1:]:
         log(json.dumps({"mesh": mesh_phase(card)}, default=str))
         return 0
+    if "--only-tp-serve" in sys.argv[1:]:
+        log(json.dumps({"tp_serve": tp_serve_phase(pr, card)},
+                       default=str))
+        return 0
     kres = kernel_phase(pr)
     dres = paged_decode_phase(fa)
     fres = flash_phase(fa)
@@ -4865,6 +5308,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     meshres = mesh_phase(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tpres = tp_serve_phase(pr, card)
 
     def head(cells):
         """A row's headline numbers: its f32 cell."""
@@ -4884,8 +5330,13 @@ def main() -> int:
         "launches": sres["f32"][0]["paged_ragged_v2"],
         "robust_launches": rlaunches["robust_mixed"],
         "tier_launches": tlaunches, "disagg_launches": dlaunches,
+        # tp_serve_phase: a rank's launches at t = 2 (its 4 of 8 heads)
+        "tp_launches": {"f32": tpres["f32"]["launches"],
+                        "int8": tpres["int8"]["launches"],
+                        "cluster": tpres["handoff"]["cluster_launches"]},
         **head(kres),
-        "bf16": kres["bf16"], "int8": kres["int8"], "fp8": kres["fp8"]}, {
+        "bf16": kres["bf16"], "int8": kres["int8"], "fp8": kres["fp8"],
+        "tp_heads": tpres["kernel"]}, {
         "name": "paged_decode", "route": "cuda", "source": decode_src,
         "replaces": "flexflow_tpu/kernels/flash_attention.py:390",
         "launches": sres["legacy_f32"][0]["paged_decode"],
@@ -5029,6 +5480,7 @@ def main() -> int:
     log(json.dumps({"sweep": swres}))
     log(json.dumps({"search": searchres}, default=str))
     log(json.dumps({"mesh": meshres}, default=str))
+    log(json.dumps({"tp_serve": tpres}, default=str))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -120,9 +120,9 @@ class FFConfig:
     serve_attn_block_kv: int = 0
 
     # the tensor-parallel serve mesh: "" one device, "N" that degree,
-    # "auto" the placement search's degree (search/serve_place.py). The
-    # port serves one device: a degree above 1 raises
-    # NotImplementedError (ROADMAP module item 7)
+    # "auto" the placement search's degree (search/serve_place.py). A
+    # degree above 1 shards the engine over that many ranks of the
+    # running process group (serve/engine.py)
     serve_mesh: str = ""
 
     # the search stack (search/): machine_model_file overrides fields
@@ -158,10 +158,10 @@ class FFConfig:
     # (0 = that bound waived); serve_autoscale arms the autoscaler, up
     # to serve_autoscale_max replicas (0 = 2x serve_replicas).
     # serve_replicas="auto" boots the (tensor, replicas) shape of the
-    # 2-D mesh search (a searched tensor degree above 1 raises,
-    # ROADMAP module item 7). serve_wall_clock runs the pool in real
-    # time, each replica on its own worker thread (not with the
-    # autoscaler, which replays on the virtual clock)
+    # 2-D mesh search. serve_wall_clock runs the pool in real time,
+    # each replica on its own worker thread (not with the autoscaler,
+    # which replays on the virtual clock, nor at a tensor degree above
+    # 1, ROADMAP item 2.8)
     serve_replicas: Union[int, str] = 1
     router_policy: str = "affinity"
     slo_ttft_ms: float = 0.0

@@ -104,6 +104,7 @@ class ProgramRegistry:
 
     def __init__(self, fingerprint: Dict[str, Any], device,
                  capture: bool = True):
+        self.fingerprint = dict(fingerprint)
         self.fp_hash = fingerprint_hash(fingerprint)
         self.device = torch.device(device)
         self.capture = bool(capture) and self.device.type == "cuda"

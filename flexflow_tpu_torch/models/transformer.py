@@ -22,6 +22,14 @@ functions (serve/engine.py ``_ln``, ``_dense``, ``_embed``,
 ``_attn_qkv``, ``_attn_out``, ``_ffn``, ``_head``): LayerNorm statistics
 in f32, matmuls in the activation dtype, attention probabilities kept
 in f32 through the p.v product.
+
+``ShardedLM`` is the same block math on one rank of a tensor-parallel
+serving group (the JAX engine's ``_embed_tp``, ``_head_tp`` and the
+``psum_axis`` of ``_attn_out``/``_ffn``): a vocab block of the
+embedding, H/t heads of wq/wk/wv and wo, a column block of ff1, a row
+block of ff2 and a vocab block of the head, with the collectives of
+``parallel/collectives.py`` where JAX's shard_map body has its psums and
+its one all-gather.
 """
 
 from __future__ import annotations
@@ -168,6 +176,16 @@ class TransformerLM:
             q, k, v = q + d[:, 0], k + d[:, 1], v + d[:, 2]
         return q, k, v
 
+    def _reduce(self, y):
+        """The sum of a row-parallel projection's partial outputs over
+        the tensor group: nothing to sum on one device."""
+        return y
+
+    def _gather_cols(self, y):
+        """The logits' column blocks of the tensor group, concatenated:
+        one device holds them all."""
+        return y
+
     def attn_out(self, i, o, x, lora=None):
         """The output projection and residual; ``lora`` = (a_wo (T, H,
         D, r), b_wo (T, r, E), scale (T,)) adds each lane's delta
@@ -179,6 +197,7 @@ class TransformerLM:
             u = torch.einsum("thd,thdr->tr", o, a.to(o.dtype))
             y = y + torch.einsum("tr,tre->te", u, b.to(o.dtype)) \
                 * s.to(o.dtype)[:, None]
+        y = self._reduce(y)
         if "bo" in p:
             y = y + p["bo"].to(y.dtype)
         return x + y
@@ -192,8 +211,11 @@ class TransformerLM:
             if self.arch.layer_norm else x
         if lora is None:
             h = dense(self.params[f"layer{i}_ff1"], h, activation="relu")
-            h = dense(self.params[f"layer{i}_ff2"], h)
-            return x + h
+            p2 = self.params[f"layer{i}_ff2"]
+            y = self._reduce(torch.matmul(h, p2["kernel"].to(h.dtype)))
+            if "bias" in p2:
+                y = y + p2["bias"].to(y.dtype)
+            return x + y
         a1, b1, a2, b2, s = lora
         s = s.to(h.dtype)[:, None]
         p1 = self.params[f"layer{i}_ff1"]
@@ -207,6 +229,7 @@ class TransformerLM:
         y = torch.matmul(h2, p2["kernel"].to(h2.dtype))
         u2 = torch.einsum("tf,tfr->tr", h2, a2.to(h2.dtype))
         y = y + torch.einsum("tr,tre->te", u2, b2.to(h2.dtype)) * s
+        y = self._reduce(y)
         if "bias" in p2:
             y = y + p2["bias"].to(y.dtype)
         return x + y
@@ -214,7 +237,7 @@ class TransformerLM:
     def head(self, x):
         if self.arch.layer_norm:
             x = layer_norm(self.params["final_ln"], x, self.arch.ln_eps)
-        return dense(self.params["lm_head"], x)
+        return self._gather_cols(dense(self.params["lm_head"], x))
 
     def hidden_states(self, tokens, on_kv=None):
         """Causal no-cache forward of (B, S) tokens up to the final
@@ -233,6 +256,62 @@ class TransformerLM:
             x = self.attn_out(i, o, x)
             x = self.ffn(i, x)
         return x
+
+
+class ShardedLM(TransformerLM):
+    """:class:`TransformerLM`'s block math on one rank of the ``axis``
+    group of the bound mesh ``bm``, over ``shards``: the rank's blocks
+    of the parameters in the layouts of the JAX engine's
+    ``_shard_params`` (built by the serving engine; ff and vocab padded
+    to a multiple of the degree, the head's pad columns biased -1e30).
+    The one-device order of operations is kept, with the collectives
+    where JAX's shard_map body has them, so f32 serving stays exact:
+
+    - the embedding gathers the rows this rank owns (indices clamped in
+      range, the rest masked to exact 0.0) and all-reduces, which is
+      exact: each row has one owner;
+    - q, k, v are the rank's heads (their LoRA deltas too), attention
+      and the pages are per head;
+    - wo contracts the rank's heads, its LoRA delta a local partial,
+      then the all-reduce, then ``bo``;
+    - ff1 is the rank's columns (bias, ReLU), ff2 contracts them, then
+      the all-reduce, then ff2's bias — never the bias before the sum;
+    - the final LayerNorm, the rank's logit columns, and one all-gather
+      of them on dim 1.
+
+    Runs under ``no_grad`` (the collectives are the plain forms)."""
+
+    def __init__(self, arch: LMArch, shards, bm, axis: str):
+        self.arch = arch
+        self.params = shards
+        self.bm = bm
+        self.axis = axis
+        rows = shards["tok_embed"]["kernel"].shape[0]
+        self._vocab_rows = rows
+        self._vocab_lo = bm.coord(axis) * rows
+
+    def embed(self, tokens, positions):
+        from ..parallel.collectives import all_reduce_
+        te = self.params["tok_embed"]["kernel"]
+        pe = self.params["pos_embed"]["kernel"]
+        idx = tokens.long() - self._vocab_lo
+        own = (idx >= 0) & (idx < self._vocab_rows)
+        t = te[idx.clamp(0, self._vocab_rows - 1)]
+        t = torch.where(own[..., None], t, torch.zeros((), dtype=t.dtype,
+                                                       device=t.device))
+        all_reduce_(t, self.bm, self.axis)
+        p = pe[positions.long().clamp(0, pe.shape[0] - 1)]
+        return (t + p).to(self.arch.dtype)
+
+    def _reduce(self, y):
+        from ..parallel.collectives import all_reduce_
+        y = y.contiguous()
+        all_reduce_(y, self.bm, self.axis)
+        return y
+
+    def _gather_cols(self, y):
+        from ..parallel.collectives import gather_tensor
+        return gather_tensor(y, self.bm, self.axis, dim=y.dim() - 1)
 
 
 def build_transformer_lm(config: Optional[FFConfig] = None,

@@ -206,7 +206,7 @@ class DistributedEmbedding(Op):
         """A per-table device placement. Without a mesh it cannot
         execute: warn and keep plain stacking, as the JAX op does on a
         meshless compile. With a mesh it needs the slot layout of the
-        parallel machinery, which is not ported (ROADMAP item 7)."""
+        parallel machinery, which is not ported (ROADMAP item 2.5)."""
         if device_ids is not None and mesh is not None:
             raise NotImplementedError(
                 f"{self.name}: device-explicit table placement needs a "

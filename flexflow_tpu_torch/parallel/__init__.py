@@ -4,13 +4,15 @@ strategies (``pconfig``), layouts and resharding (``sharding``), the
 collectives (``collectives``), local rank processes (``launch``),
 strategy files (``strategy_io``) and the planners the simulator reads
 (``graph_pipeline``, ``ulysses``). Data parallelism and linear,
-attention and embedding tensor parallelism execute (core/executor.py);
+attention and embedding tensor parallelism execute (core/executor.py),
+and so does tensor-parallel serving (serve/engine.py);
 pipelines, sequence and expert parallelism wait for ROADMAP items
 2.3-2.5."""
 
 from .mesh import (ALL_AXES, DATA, EXPERT_AX, MODEL, PIPE, SEQ_AX, TENSOR,
                    BoundMesh, MachineSpec, MeshShape, default_mesh,
-                   init_distributed, make_mesh, single_device_mesh)
+                   init_distributed, make_mesh, serve_tensor_mesh,
+                   single_device_mesh)
 from .pconfig import (DEVICE_KEY, OpStrategy, ParallelConfig, Strategy,
                       megatron_strategy, placement_assignment,
                       sequence_parallel_strategy)
@@ -18,6 +20,6 @@ from .pconfig import (DEVICE_KEY, OpStrategy, ParallelConfig, Strategy,
 __all__ = ["ALL_AXES", "DATA", "EXPERT_AX", "MODEL", "PIPE", "SEQ_AX",
            "TENSOR", "BoundMesh", "MachineSpec", "MeshShape",
            "default_mesh", "init_distributed", "make_mesh",
-           "single_device_mesh", "DEVICE_KEY", "OpStrategy",
+           "serve_tensor_mesh", "single_device_mesh", "DEVICE_KEY", "OpStrategy",
            "ParallelConfig", "Strategy", "megatron_strategy",
            "placement_assignment", "sequence_parallel_strategy"]

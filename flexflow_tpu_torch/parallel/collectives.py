@@ -46,19 +46,28 @@ collective. Staging is never used under NCCL or on the CPU. Every
 launch counts once in ``launches`` (through
 ``kernels/_launches.count_launch``, so a launch recorded in a capture
 counts at each replay); a failed collective raises.
+
+Tensor-parallel serving runs under ``no_grad`` and calls the plain
+forms: :func:`all_reduce_` in place after each row-parallel projection
+and :func:`gather_tensor` on dim 1 for the logits. Its ranks each run a
+whole engine (scheduler, page tables, sampling) and must take the same
+host decisions step by step; :class:`Lockstep` checks that they do and
+carries the one decision that reads a clock (see its docstring).
 """
 
 from __future__ import annotations
 
-from typing import List
+import hashlib
+from typing import Any, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..kernels._launches import count_launch
 
 # collective launches by kind (one a call that reaches the backend)
 launches = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-            "barrier": 0}
+            "barrier": 0, "lockstep": 0}
 # bytes copied between the card and pinned host memory by gloo staging
 staged_bytes = {"to_host": 0, "to_device": 0}
 
@@ -203,6 +212,114 @@ def gather_objects(obj, bm, axis: str) -> List:
     out = [None] * n
     dist.all_gather_object(out, obj, group=g)
     return out
+
+
+class LockstepError(RuntimeError):
+    """The ranks of a tensor group disagree on host state they must
+    share; raised on every rank of the group at the same check."""
+
+
+def digest(*parts) -> int:
+    """A 63-bit digest of byte buffers (numpy arrays, bytes or str)."""
+    h = hashlib.blake2b(digest_size=8)
+    for p in parts:
+        if isinstance(p, np.ndarray):
+            p = np.ascontiguousarray(p).view(np.uint8)
+        elif isinstance(p, str):
+            p = p.encode()
+        h.update(memoryview(p))
+    return int.from_bytes(h.digest(), "little") >> 1
+
+
+class Lockstep:
+    """The lockstep guard of the ranks of one ``axis`` group that each
+    run the same host program (a tensor-parallel serving engine a rank:
+    every rank schedules, pages and samples for itself, and only the
+    device step is sharded).
+
+    :meth:`check` runs before each sharded step: the ranks all-gather
+    the digest and byte count of what they are about to feed it (the
+    packed lane buffer) and each compares every rank's row with its
+    own, so a rank that diverged raises :class:`LockstepError` on every
+    rank before the step runs — neither a hang in a later collective
+    nor tokens computed from mixed inputs. Cost: one all-gather of two
+    int64 words a rank (16 bytes; gloo, host memory).
+
+    :meth:`exchange` runs at each step boundary, before the scheduler
+    plans: every rank sends a digest of its live requests and a list of
+    items (its cancel marks; rank 0 also the requests its clock found
+    past their deadlines). A digest that differs raises as above; the
+    items come back as every rank's list, in coordinate order, so that
+    the clock is read on rank 0 only and every rank applies the same
+    aborts. Cost: one all-gather of two int64 words a rank, and only
+    when some rank has items, an object all-gather of them (a pickled
+    list of small ints a rank; torch runs it as two all-gathers).
+
+    So a step costs 2 all-gathers of 16 bytes a rank, and one object
+    all-gather more when an abort is pending. The words travel in host
+    memory on every backend, over the axis's gloo group
+    (``BoundMesh.host_groups``: a gloo twin of the NCCL group under
+    NCCL), so the guard never copies to or from the card and never
+    waits for it: a captured step's replay is not held up by a device
+    sync. The host does wait for the other ranks' words, so a step
+    starts no earlier than the slowest rank's packing. Each call counts
+    once in ``launches["lockstep"]``. Nothing here reads a clock, and
+    retries and stall counts are functions of the step sequence (the
+    fault injector fires by count), so honest ranks agree."""
+
+    def __init__(self, bm, axis: str):
+        self.bm, self.axis = bm, axis
+        _, self.size = _group(bm, axis)
+        self.group = bm.host_groups.get(axis) if bm is not None else None
+        self.checks = 0
+
+    def _words(self, words: Sequence[int]) -> np.ndarray:
+        import torch.distributed as dist
+        count_launch(launches, "lockstep")
+        t = torch.tensor([int(w) for w in words], dtype=torch.int64)
+        out = torch.empty((self.size * t.numel(),), dtype=t.dtype)
+        dist.all_gather_into_tensor(out, t, group=self.group)
+        return out.numpy().reshape(self.size, -1)
+
+    def _compare(self, what: str, rows: np.ndarray) -> None:
+        mine = rows[self.bm.coord(self.axis)]
+        off = [r for r in range(self.size) if not np.array_equal(
+            rows[r], mine)]
+        if off:
+            raise LockstepError(
+                f"lockstep guard ({what}, check {self.checks}): rank "
+                f"{self.bm.rank} (coordinate {self.bm.coord(self.axis)} "
+                f"of {self.axis!r}) and coordinates {off} differ "
+                f"({rows.tolist()}); the ranks of a tensor-parallel "
+                f"engine must be given the same requests in the same "
+                f"order")
+
+    def check(self, what: str, *buffers) -> None:
+        """Raise on every rank unless every rank's ``buffers`` hold the
+        same bytes."""
+        if self.group is None:
+            return
+        self.checks += 1
+        nbytes = sum(np.asarray(b).nbytes for b in buffers)
+        self._compare(what, self._words((digest(*buffers), nbytes)))
+
+    def exchange(self, what: str, state: int,
+                 items: Optional[List[Any]]) -> List[List[Any]]:
+        """Every rank's ``items`` (a picklable list), after checking
+        that every rank's ``state`` digest is the same."""
+        if self.group is None:
+            return [list(items or [])]
+        import torch.distributed as dist
+        self.checks += 1
+        items = list(items or [])
+        rows = self._words((state, len(items)))
+        self._compare(what, rows[:, :1])
+        if not rows[:, 1].any():
+            return [[] for _ in range(self.size)]
+        count_launch(launches, "lockstep")
+        out: List[Any] = [None] * self.size
+        dist.all_gather_object(out, items, group=self.group)
+        return out
 
 
 def barrier(bm=None) -> None:

@@ -120,8 +120,12 @@ class BoundMesh:
     ``world``, ``backend``, the rank's ``coords`` (axis -> coordinate),
     ``groups`` (axis -> the subgroup along that axis, in coordinate
     order) and ``group_ranks`` (axis -> the global ranks of that
-    subgroup). ``staging`` says whether the collectives stage CUDA
-    tensors through host memory (gloo on a card)."""
+    subgroup). ``host_groups`` (axis -> a gloo group of the same
+    ranks) carries small host-side exchanges (the serving lockstep
+    guard) without a device round trip: the axis group itself under
+    gloo, a gloo twin of it under NCCL. ``staging`` says whether the
+    collectives stage CUDA tensors through host memory (gloo on a
+    card)."""
 
     def __init__(self, mesh: MeshShape):
         import torch.distributed as dist
@@ -140,6 +144,7 @@ class BoundMesh:
         coord = tuple(int(c) for c in where[0])
         self.coords = dict(zip(mesh.axis_names, coord))
         self.groups = {}
+        self.host_groups = {}
         self.group_ranks = {}
         grid = mesh.devices
         for ax_i, ax in enumerate(mesh.axis_names):
@@ -151,8 +156,11 @@ class BoundMesh:
                 ranks = [int(r) for r in line]
                 g = dist.new_group(ranks) if self.world > 1 else \
                     dist.group.WORLD
+                h = dist.new_group(ranks, backend="gloo") \
+                    if self.world > 1 and self.backend != "gloo" else g
                 if self.rank in ranks:
                     self.groups[ax] = g
+                    self.host_groups[ax] = h
                     self.group_ranks[ax] = ranks
 
     def axis_size(self, axis: str) -> int:
@@ -269,6 +277,29 @@ def bound_mesh(mesh) -> Optional[BoundMesh]:
                                     and dist.get_world_size() == 1):
         return None
     return mesh.bind()
+
+
+def serve_tensor_mesh(tensor_parallel: int,
+                      devices: Optional[Sequence] = None) -> MeshShape:
+    """The 1-D serving mesh ServeEngine shards the mixed step over:
+    ``tensor_parallel`` devices on the ``tensor`` axis (head-parallel
+    attention and head-sharded KV pages, a vocab-sharded embedding and
+    head). It executes bound to a process group of exactly that many
+    ranks (:meth:`MeshShape.bind`), one engine a rank; every engine of a
+    process (the replicas of a pool, the roles of a cluster) binds the
+    same description and so shares the one ``tensor`` group."""
+    return make_mesh((int(tensor_parallel),), (TENSOR,), devices)
+
+
+def serve_devices() -> int:
+    """The devices a serving placement search prices over: the running
+    process group's world size, else the visible cards (at least 1).
+    One engine spans at most the group (its tensor degree must equal
+    the world size to execute)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return int(dist.get_world_size())
+    return max(1, torch.cuda.device_count())
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str],

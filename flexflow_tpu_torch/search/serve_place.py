@@ -17,9 +17,9 @@ It is pure pricing, the JAX package's code on the port's machine model:
 on the same machine numbers and seed both packages pick the same
 placement. Step prices persist in the shared CostCache under a
 fingerprint folding the serve signature, so a placement or KV-dtype
-flip is a guaranteed miss. The port runs one device per engine: a
-searched degree above 1 is refused where an engine would be built
-(ROADMAP module item 7).
+flip is a guaranteed miss. A searched degree above 1 runs as a
+tensor-parallel engine on that many ranks of the process group
+(serve/engine.py).
 """
 
 from __future__ import annotations
@@ -157,11 +157,24 @@ def price_placement(arch: ServeArch, t: int, mm: H100MachineModel,
     return dec, pre
 
 
+def resident_penalty(arch: ServeArch, t: int, mm: H100MachineModel,
+                     resident_bytes: float) -> float:
+    """The memory penalty that ``resident_bytes`` held beside a degree
+    t > 1's shards add to its step (0 at t = 1, whose shards are the
+    whole parameters)."""
+    if t <= 1 or not resident_bytes:
+        return 0.0
+    b = serve_device_bytes(arch, t)
+    return mm.memory_penalty(b + float(resident_bytes)) \
+        - mm.memory_penalty(b)
+
+
 def optimize_serve(arch: ServeArch, num_devices: int, *,
                    mm: Optional[H100MachineModel] = None,
                    config=None, budget: int = 64, alpha: float = 0.05,
                    seed: Optional[int] = None,
-                   disaggregated: bool = False):
+                   disaggregated: bool = False,
+                   resident_bytes: float = 0.0):
     """Pick the serve placement by simulated annealing over
     (degree, axis assignment) — the reference's Metropolis walk with
     the training search's relative-delta acceptance — then return
@@ -178,7 +191,12 @@ def optimize_serve(arch: ServeArch, num_devices: int, *,
     ``disaggregated=True`` searches the SPLIT serving space instead
     (prefill:decode engine ratio × per-role tensor degree, the page-
     handoff link priced on the host link) and returns a
-    :class:`DisaggPlacement` — see :func:`optimize_serve_disagg`."""
+    :class:`DisaggPlacement` — see :func:`optimize_serve_disagg`.
+
+    ``resident_bytes`` (the port's, not JAX's; default 0 prices as
+    JAX does): bytes every degree above 1 holds on each device beside
+    its shards — the serving engine keeps the model's whole parameters
+    on the card at t > 1 — added to the memory penalty's input."""
     if disaggregated:
         return optimize_serve_disagg(arch, num_devices, mm=mm,
                                      config=config, seed=seed)
@@ -206,6 +224,8 @@ def optimize_serve(arch: ServeArch, num_devices: int, *,
         t, dims = cand
         dec, pre = price_placement(arch, t, mm, dims, cache=cache,
                                    fingerprint=fingerprint)
+        extra = resident_penalty(arch, t, mm, resident_bytes)
+        dec, pre = dec + extra, pre + extra
         return dec + PREFILL_WEIGHT * pre, dec, pre
 
     rng = random.Random(seed)
@@ -475,7 +495,8 @@ def optimize_serve_mesh(arch: ServeArch, num_devices: int, *,
                         budget: int = 96, alpha: float = 0.05,
                         seed: Optional[int] = None,
                         fixed_tensor: Optional[int] = None,
-                        fixed_replicas: Optional[int] = None
+                        fixed_replicas: Optional[int] = None,
+                        resident_bytes: float = 0.0
                         ) -> ServeMeshPlacement:
     """The paper's ONE-search discipline applied to the serving pool:
     a single Metropolis walk over 2-D (tensor degree x replica count)
@@ -493,7 +514,8 @@ def optimize_serve_mesh(arch: ServeArch, num_devices: int, *,
     ``fixed_tensor``/``fixed_replicas`` pin one dimension (an explicit
     serve_mesh="N" beside serve_replicas="auto", or vice versa).
     Step prices persist in the shared CostCache under the widened
-    :func:`_mesh_fingerprint`."""
+    :func:`_mesh_fingerprint`. ``resident_bytes`` counts in every
+    degree above 1's residency, as in :func:`optimize_serve`."""
     if mm is None:
         mm = _machine.default_machine_model(
             machine_file=getattr(config, "machine_model_file", None)
@@ -525,7 +547,8 @@ def optimize_serve_mesh(arch: ServeArch, num_devices: int, *,
     infeasible: List[dict] = []
     feasible: List[int] = []
     for t in degrees:
-        b = serve_device_bytes(arch, t)
+        b = serve_device_bytes(arch, t) \
+            + (float(resident_bytes) if t > 1 else 0.0)
         if b > hbm:
             infeasible.append({
                 "tensor": t, "device_bytes": b, "hbm_capacity": hbm,

@@ -185,7 +185,10 @@ class DisaggCluster:
 
     Everything is synchronous host-side orchestration in one process,
     both roles' steps on the same card: the win is structural — decode
-    steps stop paying for prefill lanes. ``config`` overrides the
+    steps stop paying for prefill lanes. Each role engine resolves
+    ``serve_mesh`` itself, as JAX's do: at a degree above 1 every rank
+    of the tensor group runs the same cluster, its roles sharded, and
+    the shipments carry whole rows. ``config`` overrides the
     model's (as ServeEngine's does); the roles run on ``device`` (the
     card unless "cpu") and replay captured steps unless
     ``capture=False``."""
@@ -323,20 +326,22 @@ class DisaggCluster:
         serve_disagg_ratio "" = 1:1, "P:D" = those engine counts,
         "auto" = the placement search's ratio table
         (search/serve_place.optimize_serve_disagg over this model's
-        ServeArch at `num_devices` — default: the visible card count,
-        floored at 2 so the split exists). The winning DisaggPlacement
-        lands on `cluster.placement`. A searched per-role tensor degree
-        above 1 raises (ROADMAP module item 7)."""
+        ServeArch at `num_devices` — default: the process group's world
+        size, else the visible card count, floored at 2 so the split
+        exists). The winning DisaggPlacement lands on
+        `cluster.placement`. As in JAX only its engine counts are used:
+        each role engine resolves its own tensor degree from
+        ``serve_mesh``."""
         cfg = kw.get("config") or model.config
         sr = str(cfg.serve_disagg_ratio or "").strip()
         p = d = 1
         placement = None
         if sr == "auto":
-            import torch
+            from ..parallel.mesh import serve_devices
             from ..search.serve_place import optimize_serve
             from .engine import probe_serve_arch
             ndev = int(num_devices) if num_devices else max(
-                2, torch.cuda.device_count())
+                2, serve_devices())
             ps = int(cfg.kv_page_size)
             stub = int(cfg.serve_disagg_decode_budget or 0) or 2 * ps
             # price the decode role at the stub width the cluster will
@@ -345,12 +350,6 @@ class DisaggCluster:
                                        handoff_stub_lanes=stub)
             placement = optimize_serve(arch, ndev, config=cfg,
                                        disaggregated=True)
-            if placement.prefill_tensor > 1 or placement.decode_tensor > 1:
-                raise NotImplementedError(
-                    f"the ratio search placed the roles at tensor "
-                    f"degrees {placement.prefill_tensor} (prefill) and "
-                    f"{placement.decode_tensor} (decode): tensor-parallel "
-                    f"serving is not ported (ROADMAP module item 7)")
             p, d = (placement.prefill_engines,
                     placement.decode_engines)
         elif sr:

@@ -78,10 +78,32 @@ prediction is a drift sample beside the measured step, the price of a
 host-tier reload's recompute side, and the replica pool's virtual step.
 ``memory_ledger`` accounts the engine's device bytes in the JAX
 schema. The disaggregated roles are engines of this class built by
-``serve/disagg.DisaggCluster``. What the JAX engine also does and this
-one does not yet: tensor-parallel serving (``serve_mesh`` resolving to
-a degree above 1 raises ``NotImplementedError``, ROADMAP module item
-7).
+``serve/disagg.DisaggCluster``.
+
+Tensor-parallel serving (``tensor_parallel=t``, ``mesh=`` a mesh with a
+``tensor`` axis, or ``serve_mesh`` "N" / "auto"): the JAX engine is one
+controller driving shard_map over t devices; the port runs one process
+a rank of a ``torch.distributed`` group of t ranks
+(``parallel.mesh.init_distributed`` on every rank first), each rank an
+engine of its own. Every rank runs the whole host program — scheduler,
+prefix cache, page tables, sampling — and only the mixed step is
+sharded: each rank holds H/t heads of every attention layer and of the
+page pool, a column block of ff1, a row block of ff2 and a vocab block
+of the embedding and the head (``_shard_params``, taken once at
+construction as JAX's are), and runs kernel 1 on its heads; each layer
+all-reduces after wo and before ff2's bias, the embedding once (exact)
+and the logits are all-gathered, so every rank samples the same tokens
+(``models/transformer.ShardedLM``). Before every sharded step the ranks
+check that they are about to feed it the same lane buffer, and the
+deadline sweep reads rank 0's clock only (``parallel/collectives
+.Lockstep``): a rank given other requests raises on every rank instead
+of hanging or serving wrong tokens. Page export gathers the head shards
+into whole one-device rows; import takes whole rows and keeps the
+rank's heads, so shipments and host-tier pages interchange with
+one-device engines. Under NCCL the step is captured with its
+collectives; gloo ranks sharing a card stage every collective through
+host memory and need ``capture=False``. The legacy bucket path serves
+one device only, as in JAX.
 """
 
 from __future__ import annotations
@@ -157,6 +179,36 @@ def probe_serve_arch(model, config=None, context=None):
                        else max(1, arch.max_positions * 3 // 4))
 
 
+# pad bias for vocab columns the head padding invents (vocab % t != 0):
+# a padded logit must never win argmax or enter the top-k window
+_PAD_LOGIT_BIAS = -1e30
+
+# the dimension of one tenant's (L, ...) adapter rows that a tensor-
+# parallel engine splits (JAX's _adapter_specs): B factors where their
+# output is sharded (heads, padded ff), A factors where they contract a
+# sharded dimension (wo's heads, ff2's ff); the other slabs replicate
+_ADAPTER_SPLIT = {"b_qkv": 3, "a_wo": 1, "b_ff1": 2, "a_ff2": 1}
+
+
+def _serving_params(model):
+    """The LM's whole parameter tensors: the model's live ones, except
+    where an executing mesh splits a weight (attention ``head``, Linear
+    ``channel_out``, Embedding ``vocab`` blocks): those are gathered from
+    the ranks' blocks (every rank builds the engine; copies, taken once
+    at construction). A data mesh's parameters are replicated and stay
+    live references."""
+    ex = getattr(model, "executor", None)
+    bm = getattr(ex, "bm", None)
+    params = model.state.params
+    if bm is None:
+        return params
+    from ..parallel.sharding import gather
+    with torch.no_grad():
+        return {op: {k: gather(v, ex._wstore[op][k], bm)
+                     for k, v in ws.items()}
+                for op, ws in params.items()}
+
+
 class ServeEngine:
     """Continuous-batching generation over an FFModel of
     :func:`~flexflow_tpu_torch.build_transformer_lm`.
@@ -170,7 +222,11 @@ class ServeEngine:
     config resolves (``fault_spec``; ``telemetry``, ``trace_out``,
     ``metrics_port``, ``postmortem_dir``), as the JAX engine's do;
     ``host_tier`` is a shared :class:`HostPageStore` (a replica pool's)
-    that wins over the private one ``host_tier_mb`` arms."""
+    that wins over the private one ``host_tier_mb`` arms.
+    ``tensor_parallel`` or ``mesh`` (a mesh description with a
+    ``tensor`` axis) shards the mixed step over that many ranks of the
+    running process group, one engine a rank (module docstring); they
+    win over ``serve_mesh``."""
 
     # static top-k head width: sampling draws from the top
     # min(TOPK_CAP, vocab) logits of a lane
@@ -186,18 +242,13 @@ class ServeEngine:
                  device="cuda", capture: bool = True,
                  faults: Optional[FaultInjector] = None,
                  telemetry: Optional[Telemetry] = None,
-                 host_tier: Optional[HostPageStore] = None):
+                 host_tier: Optional[HostPageStore] = None,
+                 tensor_parallel: Optional[int] = None, mesh=None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(
                 f"model lives on {model.device}, engine asked for "
                 f"{self.device}")
-        from ..parallel.mesh import bound_mesh
-        if getattr(model, "mesh", None) is not None \
-                and bound_mesh(model.mesh) is not None:
-            raise NotImplementedError(
-                "serving a model on an executing mesh (tensor-parallel "
-                "serving): ROADMAP item 2.2")
         # the engine's own CUDA stream: the wall-clock replica pool
         # steps each replica on its worker thread under on_stream(), so
         # replicas overlap on the card instead of serializing on the
@@ -208,8 +259,10 @@ class ServeEngine:
         if model.state is None:
             model.compile(comp_mode=CompMode.INFERENCE)
         self.model = model
-        # the block math over the model's live parameter tensors
-        self.params = model.state.params
+        # the block math over the model's parameter tensors: its live
+        # ones, or the whole tensors gathered from an executing mesh's
+        # blocks (_serving_params)
+        self.params = _serving_params(model)
         self.lm = TransformerLM(arch, self.params)
         self.config = cfg = config if config is not None else model.config
         self.vocab_size = arch.vocab
@@ -226,11 +279,23 @@ class ServeEngine:
         # the priced step of each pow2 context bucket (_drift_predicted)
         self._drift_cache: Dict[int, Optional[tuple]] = {}
         self._drift_mm = None
-        self._resolve_serve_mesh()
+        self._resolve_serve_mesh(mesh, tensor_parallel)
         self.chunked_prefill = bool(cfg.serve_chunked_prefill)
+        if self.tp > 1 and not self.chunked_prefill:
+            raise ValueError(
+                "sharded serving (serve_mesh / tensor_parallel > 1) "
+                "shards the ONE mixed program; the legacy bucket-"
+                "prefill path is single-device only")
+        if self.tp > 1 and capture and self.bm.staging:
+            raise ValueError(
+                "a gloo tensor group on the card stages every "
+                "collective through host memory, which a CUDA graph "
+                "cannot capture: build the engine with capture=False "
+                "(or give each rank a card of its own and NCCL)")
         self.cache_cfg = KVCacheConfig.from_ff(
             cfg, num_layers=self.num_layers, num_heads=self.num_heads,
-            head_dim=self.head_dim, max_seq_len=self.max_positions)
+            head_dim=self.head_dim, max_seq_len=self.max_positions,
+            tensor_parallel=self.tp)
         self.cache_cfg.validate()
         self.prefix_cache = bool(cfg.serve_prefix_cache)
         self.prefill_budget = int(cfg.serve_prefill_budget)
@@ -282,7 +347,10 @@ class ServeEngine:
                 f"the legacy bucket-prefill path supports "
                 f"float32/bfloat16")
         # the kernel's tuning knob (0 = kernel default); any value >= 0
-        # serves (kernels/paged_ragged_v2.py _tile_for)
+        # serves (kernels/paged_ragged_v2.py _tile_for). The kernel maps
+        # its tiles from the shapes it is called with, so at t > 1 it
+        # sizes them for the rank's H/t heads (JAX's choose_block_kv is
+        # called with heads_per_device for the same reason)
         self.attn_block_kv = int(cfg.serve_attn_block_kv)
         # the one mixed-step geometry: every prefill-budget token plus
         # one decode lane per slot always fits
@@ -330,11 +398,15 @@ class ServeEngine:
                     "adapter_rank > 0 needs the chunked mixed program "
                     "(the per-lane adapter gather lives in the mixed "
                     "step); the legacy bucket path serves base-only")
+            # at the padded ff width and the degree: the B factors
+            # split where their output is sharded, the A factors where
+            # they contract a sharded dimension (_ADAPTER_SPLIT)
             self.adapter_cfg = AdapterConfig.from_ff(
                 cfg, num_layers=self.num_layers, hidden=arch.hidden,
                 num_heads=self.num_heads, head_dim=self.head_dim,
-                ff_dim=arch.ff_dim,
-                act_itemsize=int(self.act_dtype.itemsize))
+                ff_dim=self._ff_pad,
+                act_itemsize=int(self.act_dtype.itemsize),
+                tensor_parallel=self.tp)
             self.adapters = AdapterPool(self.adapter_cfg)
         # prompt-length buckets of the legacy prefill: powers of two
         # from one page up to the serveable length (the page-table
@@ -347,6 +419,24 @@ class ServeEngine:
             self.buckets.append(b)
             b *= 2
         self.buckets.append(cap)
+        # the mixed step's parameters and block math: the model's on one
+        # device; at t > 1 the rank's shards (copies taken here, as the
+        # JAX engine's _shard_params does at construction: a model
+        # trained after this is served at t > 1 by a new engine), while
+        # self.lm keeps serving the one-device reference paths
+        # (generate_reference, the tie rule's margin forward)
+        self._lockstep = None
+        if self.tp > 1:
+            from ..models.transformer import ShardedLM
+            from ..parallel.collectives import Lockstep
+            from ..parallel.mesh import TENSOR
+            self._step_params = self._shard_params()
+            self.step_lm = ShardedLM(arch, self._step_params, self.bm,
+                                     TENSOR)
+            self._lockstep = Lockstep(self.bm, TENSOR)
+        else:
+            self._step_params = self.params
+            self.step_lm = self.lm
         # at most ONE live ServeSession owns the scheduler/slots
         self._session: Optional["ServeSession"] = None
         self.boot_stats: Optional[dict] = None
@@ -381,6 +471,7 @@ class ServeEngine:
                 "chunked_prefill": self.chunked_prefill,
                 "adapter_rank": 0 if ac is None else ac.rank,
                 "adapter_slots": 0 if ac is None else ac.num_slots,
+                "tp": self.tp, "ff_pad": self._ff_pad,
                 "device": str(self.device)}
 
     def compile_counts(self) -> dict:
@@ -413,30 +504,152 @@ class ServeEngine:
         return torch.cuda.stream(self.stream)
 
     # ---------------- placement -----------------------------------------
-    def _resolve_serve_mesh(self) -> None:
-        """The tensor-parallel degree from FFConfig.serve_mesh: "" (one
-        device), "N", or "auto" (the placement search over the visible
-        cards, search/serve_place.optimize_serve). The port serves one
-        device: a degree above 1, given or searched, raises."""
+    def _resolve_serve_mesh(self, mesh, tensor_parallel) -> None:
+        """Resolve (tp, tp_mesh, bm), JAX's precedence: an explicit
+        ``mesh`` (a MeshShape with a ``tensor`` axis) or
+        ``tensor_parallel`` wins; otherwise FFConfig.serve_mesh: "" one
+        device, "N" degree N, "auto" the placement search over
+        ``parallel.mesh.serve_devices()`` (the process group's world
+        size, else the visible cards). num_heads must divide by the
+        degree; ff and vocab are padded to a multiple of it. A degree
+        above 1 binds the mesh to the running process group, which must
+        have exactly that many ranks."""
+        from ..parallel.mesh import TENSOR, serve_devices, \
+            serve_tensor_mesh
         cfg = self.config
         self.serve_placement = None
-        sm = str(cfg.serve_mesh or "").strip()
-        tp = 1
-        if sm == "auto":
-            from ..search.serve_place import optimize_serve
-            place = optimize_serve(self.serve_arch(),
-                                   max(1, torch.cuda.device_count()),
-                                   config=cfg)
-            self.serve_placement = place
-            tp = place.tensor_parallel
-        elif sm:
-            tp = int(sm)
-        if tp > 1:
-            raise NotImplementedError(
-                f"serve_mesh={sm!r} resolves to tensor degree {tp}: "
-                f"tensor-parallel serving is not ported (ROADMAP module "
-                f"item 7); the port serves one device")
+        if mesh is None and tensor_parallel is None:
+            sm = str(cfg.serve_mesh or "").strip()
+            if sm == "auto":
+                from ..search.serve_place import optimize_serve
+                arch = self.serve_arch()
+                # a degree above 1 keeps the whole parameters beside
+                # its shards (self.params): the memory penalty sees them
+                place = optimize_serve(arch, serve_devices(), config=cfg,
+                                       resident_bytes=arch.weight_bytes())
+                self.serve_placement = place
+                tensor_parallel = place.tensor_parallel
+            elif sm:
+                tensor_parallel = int(sm)
         self.tp = 1
+        self.tp_mesh = None
+        if mesh is not None:
+            if TENSOR not in mesh.shape:
+                raise ValueError(
+                    f"serve mesh needs a {TENSOR!r} axis, got "
+                    f"{dict(mesh.shape)}")
+            self.tp = int(mesh.shape[TENSOR])
+            self.tp_mesh = mesh if self.tp > 1 else None
+        elif tensor_parallel is not None and int(tensor_parallel) > 1:
+            self.tp = int(tensor_parallel)
+            self.tp_mesh = serve_tensor_mesh(self.tp)
+        if self.tp > 1 and self.num_heads % self.tp != 0:
+            raise ValueError(
+                f"sharded serving needs num_heads ({self.num_heads}) "
+                f"divisible by the tensor degree ({self.tp})")
+        # ff/vocab need not divide: their shards pad (zero ff columns
+        # contribute exact zeros; pad vocab columns carry a -1e30 bias
+        # so they never win argmax or enter the top-k)
+        self._ff_pad = -(-self.ff_dim // self.tp) * self.tp
+        self._vocab_pad = -(-self.vocab_size // self.tp) * self.tp
+        self.bm = None
+        if self.tp_mesh is not None:
+            try:
+                self.bm = self.tp_mesh.bind()
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"tensor-parallel serving at degree {self.tp} runs "
+                    f"one engine on each rank of a process group of "
+                    f"{self.tp_mesh.size} ranks "
+                    f"(parallel.mesh.init_distributed on every rank): "
+                    f"{e}") from e
+
+    def _shard_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """This rank's blocks of the LM parameters (JAX's
+        ``_shard_params``, whose PartitionSpecs each line names), as
+        copies on the engine's device:
+
+          wq/wk/wv (E, H, D)  -> heads column-parallel
+          wo       (H, D, E)  -> heads row-parallel (all-reduce after)
+          ff1      (E, F)     -> column-parallel (+ bias block), padded
+          ff2      (F, E)     -> row-parallel (all-reduce before bias)
+          lm_head  (E, V)     -> vocab column-parallel (all-gather at
+                                 the logits; pad columns biased -1e30,
+                                 a bias made up when the head has none)
+          tok_embed (V, E)    -> vocab row-parallel (masked local
+                                 gather + exact all-reduce)
+          everything else     -> replicated (LNs, pos_embed, biases)"""
+        from ..parallel.mesh import TENSOR
+        t, c = self.tp, self.bm.coord(TENSOR)
+
+        def pad_to(a, axis, size, value=0.0):
+            extra = size - a.shape[axis]
+            if extra <= 0:
+                return a
+            shape = list(a.shape)
+            shape[axis] = extra
+            return torch.cat([a, torch.full(shape, value, dtype=a.dtype,
+                                             device=a.device)], dim=axis)
+
+        def block(a, axis):
+            n = a.shape[axis] // t
+            return a.narrow(axis, c * n, n)
+
+        vp, fp = self._vocab_pad, self._ff_pad
+        out: Dict[str, Dict[str, torch.Tensor]] = {}
+        for name, p in self.params.items():
+            o = {}
+            for key, arr in p.items():
+                a = arr.detach()
+                if name == "tok_embed" and key == "kernel":
+                    a = block(pad_to(a, 0, vp), 0)
+                elif name.endswith("_attn") and key in ("wq", "wk", "wv"):
+                    a = block(a, 1)
+                elif name.endswith("_attn") and key == "wo":
+                    a = block(a, 0)
+                elif name.endswith("_ff1") and key == "kernel":
+                    a = block(pad_to(a, 1, fp), 1)
+                elif name.endswith("_ff1") and key == "bias":
+                    a = block(pad_to(a, 0, fp), 0)
+                elif name.endswith("_ff2") and key == "kernel":
+                    a = block(pad_to(a, 0, fp), 0)
+                elif name == "lm_head" and key == "kernel":
+                    a = block(pad_to(a, 1, vp), 1)
+                elif name == "lm_head" and key == "bias":
+                    a = block(pad_to(a, 0, vp, _PAD_LOGIT_BIAS), 0)
+                o[key] = a.to(self.device).clone(
+                    memory_format=torch.contiguous_format)
+            if name == "lm_head" and "bias" not in p \
+                    and vp > self.vocab_size:
+                # padded vocab columns must never win argmax: make up a
+                # bias (+0.0 on real columns is exact)
+                b = torch.zeros((vp,), dtype=self.act_dtype,
+                                device=self.device)
+                b[self.vocab_size:] = _PAD_LOGIT_BIAS
+                o["bias"] = block(b, 0).clone()
+            out[name] = o
+        return out
+
+    def _sharding_stats(self) -> Optional[dict]:
+        """The last_stats/serve_report sharding block (JAX's): mesh
+        shape, heads per device, per-device KV pool bytes, and the
+        analytic per-step collective payload (2 all-reduces of the lane
+        activations per layer + the embedding all-reduce + the final
+        logits all-gather). None on one device."""
+        if self.tp <= 1:
+            return None
+        c = self.cache_cfg
+        T = self.mixed_width
+        act = int(self.act_dtype.itemsize)
+        coll = ((2 * self.num_layers + 1) * T * self.hidden * act
+                + T * self._vocab_pad * act)
+        return {
+            "mesh": {"tensor": self.tp},
+            "tensor_parallel": self.tp,
+            "heads_per_device": self.num_heads // self.tp,
+            "kv_pool_device_bytes": int(c.pool_device_bytes),
+            "collective_bytes_per_step": int(coll),
+        }
 
     def serve_arch(self, context: Optional[int] = None):
         """The ServeArch the placement search prices for this engine's
@@ -486,10 +699,28 @@ class ServeEngine:
         first, so that a layer's slab is one contiguous block the
         per-lane gather indexes along its slots (JAX stacks slots first
         and gathers every layer at once: the same values) — and the
-        (num_slots,) f32 per-slot scale."""
+        (num_slots,) f32 per-slot scale; at t > 1 the rank's block of
+        each split slab (_ADAPTER_SPLIT)."""
         s = self.adapter_cfg.num_slots
-        return {k: (sh[0], s) + sh[1:] if sh else (s,)
-                for k, sh in self._adapter_row_shapes().items()}
+        out = {}
+        for k, sh in self._adapter_row_shapes().items():
+            sh = list(sh)
+            if k in _ADAPTER_SPLIT:
+                sh[_ADAPTER_SPLIT[k]] //= self.tp
+            out[k] = (sh[0], s) + tuple(sh[1:]) if sh else (s,)
+        return out
+
+    def _adapter_rows_local(self, key: str, rows: np.ndarray) -> np.ndarray:
+        """This rank's block of one tenant's rows of slab ``key`` (the
+        rows themselves on one device)."""
+        d = _ADAPTER_SPLIT.get(key)
+        if self.tp <= 1 or d is None:
+            return rows
+        from ..parallel.mesh import TENSOR
+        n = rows.shape[d] // self.tp
+        return np.take(rows, range(self.bm.coord(TENSOR) * n,
+                                   (self.bm.coord(TENSOR) + 1) * n),
+                       axis=d)
 
     def _device_adapters(self) -> Optional[Dict[str, torch.Tensor]]:
         """The resident slabs, allocated once (lazily, like the pages):
@@ -524,7 +755,8 @@ class ServeEngine:
         self._fire_with_retry("serve.adapter")
         self.programs.call_eager(
             "adapter", load, torch.tensor(slot, dtype=torch.int32),
-            *(torch.from_numpy(np.asarray(rows[k], np.float32))
+            *(torch.from_numpy(self._adapter_rows_local(
+                k, np.asarray(rows[k], np.float32)))
               for k in sorted(rows)))
 
     def register_adapter(self, tenant_id: int, weights, *,
@@ -592,21 +824,28 @@ class ServeEngine:
 
     def _export_rows(self, idx: np.ndarray) -> List[np.ndarray]:
         """Gather the page rows at ``idx`` of every pool tensor to host
-        numpy (counted as ``export``): (L, len(idx), ps, H[, D])."""
+        numpy (counted as ``export``): (L, len(idx), ps, H[, D]). At
+        t > 1 each rank gathers its heads and one all-gather on the head
+        axis assembles whole rows, the one-device layout, on every rank
+        (JAX's ``_export_tp_impl`` returns the same global rows)."""
         self._device_pages()
         self._fire_with_retry("serve.export")
 
         def gather(i, *pools):
+            from ..parallel.collectives import gather_tensor
+            from ..parallel.mesh import TENSOR
             i = i.to(self.device).long()
             out = []
             for pool in pools:
                 rows = pool.index_select(1, i)
                 view = self._HOST_VIEW.get(rows.dtype)
                 if view is not None:
-                    out.append(rows.view(view[0]).cpu().numpy()
-                               .view(view[1]))
-                else:
-                    out.append(rows.cpu().numpy())
+                    rows = rows.view(view[0])
+                if self.tp > 1:
+                    rows = gather_tensor(rows, self.bm, TENSOR, dim=3)
+                rows = rows.cpu().numpy()
+                out.append(rows.view(view[1]) if view is not None
+                           else rows)
             return out
         return self.programs.call_eager(
             "export", gather, torch.from_numpy(idx), *self._pool_args())
@@ -616,9 +855,16 @@ class ServeEngine:
         """Scatter host page rows into the pool tensors at ``idx``, in
         place (counted as ``import``): the tensors a captured mixed step
         reads never move. Padding entries write their zero rows into the
-        sink page (never read unmasked)."""
+        sink page (never read unmasked). ``rows`` are whole rows, the
+        one-device layout; at t > 1 each rank keeps its heads (no
+        collective: every rank holds the same rows)."""
         self._device_pages()
         self._fire_with_retry("serve.import")
+        if self.tp > 1:
+            from ..parallel.mesh import TENSOR
+            h = self.cache_cfg.heads_per_device
+            lo = self.bm.coord(TENSOR) * h
+            rows = [r[:, :, :, lo:lo + h] for r in rows]
 
         def scatter(i, *src):
             i = i.to(self.device).long()
@@ -883,13 +1129,14 @@ class ServeEngine:
                 where, codes.view(torch.uint8))
             scales[i].index_put_(where, sc)
 
-    def _greedy_topk(self, x):
-        """Logits of the final hidden rows x (N, E), reduced on the
-        device to (greedy (N,) int32, top-k values (N, K) f32, top-k
-        ids (N, K) int32). argmax returns the FIRST maximum, as
-        jnp.argmax does (the parity contract with
-        generate_reference)."""
-        logits = self.lm.head(x)                            # (N, V)
+    def _greedy_topk(self, x, lm):
+        """Logits of the final hidden rows x (N, E) through ``lm``'s
+        head, reduced on the device to (greedy (N,) int32, top-k values
+        (N, K) f32, top-k ids (N, K) int32). argmax returns the FIRST
+        maximum, as jnp.argmax does (the parity contract with
+        generate_reference). At t > 1 the logits are the all-gathered
+        (N, vocab_pad) columns, the pad columns at -1e30."""
+        logits = lm.head(x)                                 # (N, V)
         topv, topi = torch.topk(logits, self.topk_cap, dim=-1)
         return (torch.argmax(logits, dim=-1).to(torch.int32),
                 topv.float(), topi.to(torch.int32))
@@ -905,8 +1152,10 @@ class ServeEngine:
         length (position + 1; inactive lanes 1, so the masked softmax
         stays NaN-free), and on an adapter-armed engine its adapter
         slot (0: the zero slab of the base model). Returns (greedy (T,)
-        int32, top-k values (T, K) f32, top-k ids (T, K) int32)."""
-        m = self.lm
+        int32, top-k values (T, K) f32, top-k ids (T, K) int32). At
+        t > 1 the same body runs on every rank over its shards and its
+        heads of the pages (``ShardedLM``)."""
+        m = self.step_lm
         kp, vp = self._device_pages()
         ks, vs = self._k_scales, self._v_scales
         x = m.embed(tokens, positions)                      # (T, E)
@@ -943,7 +1192,7 @@ class ServeEngine:
             x = m.ffn(i, x, lora=None if lora is None else
                       (lora["a_ff1"], lora["b_ff1"], lora["a_ff2"],
                        lora["b_ff2"], ad_s))
-        return self._greedy_topk(x)
+        return self._greedy_topk(x, m)
 
     def _dispatch(self, family: str, *arrays):
         """Run one step of ``family`` (``mixed``, ``decode`` or
@@ -972,7 +1221,11 @@ class ServeEngine:
         for a in arrays:
             host[off:off + a.size] = a.reshape(-1)
             off += a.size
-        bound = [w for p in self.params.values() for w in p.values()]
+        if self._lockstep is not None:
+            # every rank about to feed the sharded step the same lanes
+            self._lockstep.check(f"serve.{family}", host[:off])
+        bound = [w for p in self._step_params.values()
+                 for w in p.values()]
         bound += [t for t in (self._k_pages, self._v_pages,
                               self._k_scales, self._v_scales)
                   if t is not None]
@@ -1074,7 +1327,7 @@ class ServeEngine:
                                        seq_lens, scale=scale)
             x = m.attn_out(i, o, x)
             x = m.ffn(i, x)
-        return self._greedy_topk(x)
+        return self._greedy_topk(x, m)
 
     def warmup(self) -> dict:
         """Allocate the page pool and ready the active path's programs
@@ -1612,9 +1865,14 @@ class ServeEngine:
         now = time.perf_counter()
         tel = self.telemetry
         live = list(sched.running.values()) + list(sched.waiting)
+        cancels = {r.rid for r in live if r.rid in self._cancels}
+        due = {r.rid for r in live
+               if r.t_deadline and now >= r.t_deadline}
+        if self._lockstep is not None:
+            cancels, due = self._agree_aborts(live, cancels, due)
         expired = 0
         for req in live:
-            if req.rid in self._cancels:
+            if req.rid in cancels:
                 # consume the mark, applied or moot: rids restart in a
                 # new session, and a stale mark must not cancel a
                 # stranger
@@ -1625,7 +1883,7 @@ class ServeEngine:
                         tel.instant(self._ENGINE_TRACK, "cancel", t=now,
                                     args={"rid": req.rid,
                                           "trace": req.trace_id})
-            elif req.t_deadline and now >= req.t_deadline:
+            elif req.rid in due:
                 if sched.abort(req, RequestOutcome.DEADLINE_EXPIRED):
                     req.t_finish = now
                     expired += 1
@@ -1639,6 +1897,26 @@ class ServeEngine:
             # collapse an operator needs a black box for
             self._auto_postmortem("deadline_storm", sched=sched,
                                   detail={"expired_this_sweep": expired})
+
+    def _agree_aborts(self, live, cancels, due):
+        """The abort sweep's decisions at t > 1, the same on every rank
+        (``Lockstep.exchange``): the union of the ranks' cancel marks,
+        and the deadlines rank 0's clock found past (the one clock read
+        that decides anything on the host). Raises on every rank when
+        the ranks' live requests differ."""
+        from ..parallel.collectives import digest
+        from ..parallel.mesh import TENSOR
+        state = np.array([(r.rid, len(r.prompt), len(r.out_tokens))
+                          for r in live], np.int64)
+        items = [("c", rid) for rid in sorted(cancels)]
+        if self.bm.coord(TENSOR) == 0:
+            items += [("e", rid) for rid in sorted(due)]
+        every = self._lockstep.exchange(
+            "serve.sweep", digest(state, str(len(live))), items)
+        cancels = {rid for got in every for kind, rid in got
+                   if kind == "c"}
+        due = {rid for kind, rid in every[0] if kind == "e"}
+        return cancels, due
 
     def _fail_inflight(self, sched, reqs: Sequence[Request]) -> None:
         """Crash containment: a mid-batch exception fails ONLY the
@@ -1877,37 +2155,46 @@ class ServeEngine:
         """Device byte accounting of this engine in the JAX engine's
         schema — params, KV pages and scale rows, the mixed step's
         activation estimate, the adapter pool — beside the simulator's
-        memory-penalty input (cost_model.serve_device_bytes).
-        ``live_bytes`` reads the engine's real tensors (the parameters
-        and the allocated pools and slabs); ``ledger_vs_live`` holds
-        the accounting against them. Components land as
-        ``serve_hbm_bytes{component=...}`` gauges when telemetry is
-        on."""
+        memory-penalty input (cost_model.serve_device_bytes), per
+        device: at t > 1 one rank's shards and pools, and
+        ``reference_params_bytes``, the whole parameters the rank keeps
+        on its card beside them (self.params: the one-device reference
+        paths read them, and the model holds them; 0 at t = 1, where
+        the step reads them). ``live_bytes`` reads the engine's real
+        tensors (both sets of parameters and the allocated pools and
+        slabs); ``ledger_vs_live`` holds the accounting against them.
+        Components land as ``serve_hbm_bytes{component=...}`` gauges
+        when telemetry is on."""
         from ..search import machine_model
         from ..search.cost_model import serve_device_bytes
         from ..search.explain import pytree_device_bytes
         c = self.cache_cfg
         t = max(1, self.tp)
-        params = pytree_device_bytes(self.params)
+        params = pytree_device_bytes(self._step_params)
+        whole = pytree_device_bytes(self.params) if t > 1 else 0.0
         kv_pool = float(c.pool_device_bytes)   # values + scale rows
         act_itemsize = float(self.act_dtype.itemsize)
         # the live set of ONE mixed step: lane activations through the
         # widest tensors (qkv, ffn hidden, logits) — an estimate
         activations = float(self.mixed_width) * act_itemsize * (
             self.hidden + 3.0 * self.num_heads * self.head_dim / t
-            + float(self.ff_dim) / t + float(self.vocab_size) / t)
+            + float(self._ff_pad) / t + float(self._vocab_pad) / t)
         adapter = (float(self.adapter_cfg.pool_device_bytes)
                    if self.adapter_cfg is not None else 0.0)
-        total = params + kv_pool + activations + adapter
+        total = params + whole + kv_pool + activations + adapter
         pools_live = self._k_pages is not None
         adapters_live = self._adapter_slabs is not None
         live = params + pytree_device_bytes(
-            (self._k_pages, self._v_pages,
+            (self.params if t > 1 else None, self._k_pages, self._v_pages,
              self._k_scales, self._v_scales, self._adapter_slabs))
-        sim_input = float(serve_device_bytes(self.serve_arch(), t))
+        arch = self.serve_arch()
+        # what the placement search prices (resident_bytes at t > 1)
+        sim_input = float(serve_device_bytes(arch, t)) \
+            + (float(arch.weight_bytes()) if t > 1 else 0.0)
         ledger = {
             "tensor_parallel": t,
             "params_bytes": params,
+            "reference_params_bytes": whole,
             "kv_pool_bytes": kv_pool,
             "activation_est_bytes": activations,
             "adapter_bytes": adapter,
@@ -1916,7 +2203,7 @@ class ServeEngine:
             "pools_live": pools_live,
             "adapters_live": adapters_live,
             "ledger_vs_live": (
-                (params + kv_pool
+                (params + whole + kv_pool
                  + (adapter if adapters_live else 0.0)) / live
                 if pools_live and live > 0 else None),
             "sim_hbm_input_bytes": sim_input,
@@ -2108,6 +2395,8 @@ class ServeEngine:
             "degradation_rung_max": sched.stats["degradation_rung_max"],
             "rung_steps": list(sched.stats["rung_steps"]),
             "spec_shed_steps": sched.stats["spec_shed_steps"],
+            # tensor-parallel facts (None on one device)
+            "sharding": self._sharding_stats(),
             "cache": dict(cache.stats),   # engine-lifetime counters
             "kv_pool": {**cache.pool_report(), "occupancy": peak_util,
                         "kv_exact": self.kv_exact,

@@ -219,6 +219,13 @@ class KVCacheConfig:
                 self.num_heads)
 
     @property
+    def device_scale_shape(self):
+        """:attr:`scale_shape` at ``heads_per_device`` heads: the scale
+        tensors one device (one rank of a tensor-parallel engine)
+        holds."""
+        return self.scale_shape[:-1] + (self.heads_per_device,)
+
+    @property
     def page_bytes(self) -> int:
         """Device bytes ONE page costs across all layers: K + V values
         at kv_dtype itemsize, plus the f32 scale rows when quantized.
@@ -812,30 +819,32 @@ class PagedKVCache:
     # ---------------- device arrays -----------------------------------
     def alloc_device_cache(self, device, dtype=None):
         """The (k_pages, v_pages) device tensors, each
-        (num_layers, num_pages, page_size, num_heads, head_dim) at the
-        configured kv_dtype (dtype overrides), zeroed on `device`.
+        (num_layers, num_pages, page_size, heads, head_dim) at the
+        configured kv_dtype (dtype overrides), zeroed on `device`;
+        ``heads`` is ``heads_per_device``: all of them on one device,
+        the rank's H/t heads on a rank of a tensor-parallel engine.
         Created once per engine; the mixed step updates them in place,
         never through this manager. Quantized pools pair with
         :meth:`alloc_scale_arrays`."""
         c = self.cfg
-        shape = (c.num_layers, c.num_pages, c.page_size, c.num_heads,
-                 c.head_dim)
+        shape = (c.num_layers, c.num_pages, c.page_size,
+                 c.heads_per_device, c.head_dim)
         dt = dtype or c.storage_dtype
         return (torch.zeros(shape, dtype=dt, device=device),
                 torch.zeros(shape, dtype=dt, device=device))
 
     def alloc_scale_arrays(self, device):
         """The (k_scales, v_scales) f32 per-page scale tensors for
-        quantized (int8/fp8) pools (cfg.scale_shape), zeroed on
-        `device`."""
-        if not self.cfg.quantized:
+        quantized (int8/fp8) pools (cfg.scale_shape, at
+        ``heads_per_device`` heads), zeroed on `device`."""
+        c = self.cfg
+        if not c.quantized:
             raise RuntimeError(
                 f"scale arrays exist only for quantized (int8/fp8) "
-                f"pools (kv_dtype={self.cfg.kv_dtype})")
-        return (torch.zeros(self.cfg.scale_shape, dtype=torch.float32,
-                            device=device),
-                torch.zeros(self.cfg.scale_shape, dtype=torch.float32,
-                            device=device))
+                f"pools (kv_dtype={c.kv_dtype})")
+        shape = c.device_scale_shape
+        return (torch.zeros(shape, dtype=torch.float32, device=device),
+                torch.zeros(shape, dtype=torch.float32, device=device))
 
     def register_scale_meta(self, k_scales, v_scales) -> None:
         """Record the scale-array geometry the engine allocated so
@@ -953,9 +962,9 @@ class PagedKVCache:
         if c.quantized:
             if self._scale_meta is not None:
                 ks_shape, ks_dt, vs_shape, vs_dt = self._scale_meta
-                assert ks_shape == c.scale_shape == vs_shape, (
+                assert ks_shape == c.device_scale_shape == vs_shape, (
                     f"scale arrays {ks_shape}/{vs_shape} do not match "
-                    f"the pool geometry {c.scale_shape}")
+                    f"the pool geometry {c.device_scale_shape}")
                 assert ks_dt == vs_dt == str(torch.float32), (
                     f"scale arrays must be float32, got {ks_dt}/{vs_dt}")
         else:

@@ -31,8 +31,14 @@ a deterministic virtual clock; the port's copy of
     ``serve_replicas="auto"``.
 
 ``serve_replicas="auto"`` boots the (tensor, replicas) shape of the 2-D
-mesh search (search/serve_place.optimize_serve_mesh); a searched tensor
-degree above 1 raises ``NotImplementedError`` (ROADMAP module item 7).
+mesh search (search/serve_place.optimize_serve_mesh), priced over the
+process group's world size (the visible cards without a group): r
+replicas of degree t, each a tensor-parallel engine over the same t
+ranks, as JAX's replicas all sit on its first t devices. On the virtual
+clock every rank runs the same pool and takes the same decisions. The
+wall clock at t > 1 raises ``NotImplementedError`` (ROADMAP item 2.8):
+its replicas would issue their collectives from their own threads in
+an order that differs between ranks.
 """
 
 from __future__ import annotations
@@ -320,32 +326,33 @@ class ReplicaPool:
         engine_kwargs = dict(engine_kwargs or {})
         engine_kwargs.setdefault("device", device)
         # serve_replicas="auto": ONE search prices tensor degree x
-        # replica count over the visible cards and the pool boots the
-        # searched (t, r) shape; an explicit serve_mesh N pins the
-        # degree. The placement is kept on self.mesh_placement (the
-        # autoscaler's target pricing and router_report read it). The
-        # port serves one device per engine: a searched t > 1 raises
+        # replica count over the process group's world size (the
+        # visible cards without a group) and the pool boots the
+        # searched (t, r) shape; an explicit serve_mesh N (or
+        # engine_kwargs' tensor_parallel) pins the degree. The placement
+        # is kept on self.mesh_placement (the autoscaler's target
+        # pricing and router_report read it)
         self.mesh_placement = None
         sr = cfg.serve_replicas
         if num_replicas is None and isinstance(sr, str) \
                 and sr.strip() == "auto":
-            import torch
+            from ..parallel.mesh import serve_devices
             from ..search.serve_place import optimize_serve_mesh
             from .engine import probe_serve_arch
             sm = str(cfg.serve_mesh or "").strip()
             fixed_t = int(sm) if sm and sm != "auto" else None
+            if "tensor_parallel" in engine_kwargs:
+                fixed_t = int(engine_kwargs["tensor_parallel"])
+            arch = probe_serve_arch(model, cfg)
+            # a degree above 1 keeps the whole parameters on the card
+            # beside its shards (ServeEngine.memory_ledger)
             place = optimize_serve_mesh(
-                probe_serve_arch(model, cfg),
-                max(1, torch.cuda.device_count()),
-                config=cfg, fixed_tensor=fixed_t)
-            if place.tensor_parallel > 1:
-                raise NotImplementedError(
-                    f"serve_replicas='auto' searched tensor degree "
-                    f"{place.tensor_parallel} x {place.replicas} "
-                    f"replicas: tensor-parallel serving is not ported "
-                    f"(ROADMAP module item 7)")
+                arch, serve_devices(), config=cfg, fixed_tensor=fixed_t,
+                resident_bytes=arch.weight_bytes())
             self.mesh_placement = place
             num_replicas = place.replicas
+            engine_kwargs.setdefault("tensor_parallel",
+                                     place.tensor_parallel)
         if num_replicas is None:
             num_replicas = int(sr)
         if num_replicas < 1:
@@ -1147,6 +1154,13 @@ class ReplicaPool:
         if wall_clock is None:
             wall_clock = bool(self.config.serve_wall_clock)
         if wall_clock:
+            if any(r.engine.tp > 1 for r in self.replicas):
+                raise NotImplementedError(
+                    "the wall-clock pool steps its replicas from worker "
+                    "threads (or in arrival-paced turns) whose order "
+                    "differs between the ranks of a tensor-parallel "
+                    "engine: serve t > 1 replicas on the virtual clock "
+                    "(ROADMAP item 2.8)")
             if autoscaler is not None or bool(
                     getattr(self.config, "serve_autoscale", False)):
                 raise ValueError(

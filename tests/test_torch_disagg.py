@@ -1,8 +1,8 @@
 """The port's disaggregated prefill/decode cluster (serve/disagg.py)
 against the JAX package's DisaggCluster, on shared weights.
 
-JAX's cluster cases run on the port, except the tensor-parallel one
-(ROADMAP module item 7). Where JAX's suite holds the cluster against
+JAX's cluster cases run on the port; the tensor-parallel one runs on
+gloo ranks in tests/test_torch_serve_shard_tier.py. Where JAX's suite holds the cluster against
 the unified engine, the port's is held against the port's unified
 engine (itself JAX's, tests/test_torch_serve.py); on top, the port's
 cluster must equal JAX's cluster: tokens, handoff counts, dedupe and

@@ -18,8 +18,8 @@ do not double-count, and the config knobs. JAX's three wall-clock tests
 run on the port's fabric: tokens identical to the virtual run threaded
 and single-threaded, explain_request summing to the measured latency,
 and the autoscaler refused on the wall clock. ``serve_replicas="auto"``
-boots the 2-D search's shape, JAX's; a tensor degree above 1 raises
-NotImplementedError (ROADMAP module item 7).
+boots the 2-D search's shape, JAX's; at a tensor degree above 1 it
+serves on gloo ranks (tests/test_torch_serve_shard_tier.py).
 """
 
 import numpy as np
@@ -564,8 +564,9 @@ def test_config_validation_as_jax(bad, match):
 def test_from_config_and_unported_paths_raise():
     """serve_replicas / router_policy build the pool;
     serve_replicas='auto' boots the 2-D mesh search's (1, r) shape,
-    JAX's; tensor-parallel serving raises NotImplementedError naming
-    its ROADMAP item."""
+    JAX's; a tensor-parallel engine without a process group of its
+    degree raises naming init_distributed (the pool at t > 1:
+    tests/test_torch_serve_shard_tier.py)."""
     _, model = _models()
     pool = ReplicaPool.from_config(
         model, config=ft.FFConfig(**_geo(serve_replicas=2,
@@ -587,7 +588,7 @@ def test_from_config_and_unported_paths_raise():
     assert auto._default_autoscaler().mesh_table == p.table
     for q in (auto, jauto):
         q.close()
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         ServeEngine(model, ft.FFConfig(**_geo(serve_mesh="2")),
                     device="cpu")
     with pytest.raises(ValueError, match="replica"):

@@ -221,12 +221,13 @@ def test_failed_step_fails_only_inflight_requests(lm):
 
 
 def test_unported_configurations_raise(lm):
-    """Tensor-parallel serving is not ported and raises, naming its
-    ROADMAP item; int8/fp8 pages, the legacy path, LoRA adapters, a
-    one-device serve_mesh and an engine of a serve_disagg config (the
-    cluster is DisaggCluster's) serve."""
+    """A tensor degree above 1 needs a process group of that many ranks
+    and raises without one, naming init_distributed (it serves on one,
+    tests/test_torch_serve_shard.py); int8/fp8 pages, the legacy path,
+    LoRA adapters, a one-device serve_mesh and an engine of a
+    serve_disagg config (the cluster is DisaggCluster's) serve."""
     _, model = lm
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(RuntimeError, match="init_distributed"):
         TorchEngine(model, TorchConfig(serve_mesh="2"), device="cpu")
     for knob in (dict(kv_dtype="int8"), dict(kv_dtype="float8_e4m3"),
                  dict(serve_chunked_prefill=False), dict(adapter_rank=4),
