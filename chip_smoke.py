@@ -163,6 +163,27 @@ wide-head) must not spill — and then:
     beside it and its bound. ``--only-tp-serve`` runs the build and
     this phase alone.
 
+  * runs sequence parallelism, expert parallelism and placed tables
+    (``sp_phase``, last) on two gloo ranks sharing the card, eager:
+    (a) the dropout LM at full width on a (1, 2) data x seq mesh under
+    sequence_parallel_strategy(), f32 and under the bf16 policy, once
+    through the all-to-all core (kernels 2-4 on each rank's 4 of 8
+    heads over the whole sequence) and once through the ring, against
+    the one-device run of the same weights and keys (f32 at
+    MESH_LOSS_REL / MESH_WEIGHT_ABS, bf16 at SP_BF16_LOSS_REL and each
+    update within SP_BF16_UPDATE_REL of its own), the flash and dropout
+    launches a rank (the dropout kernel on blocks of the sequence: one
+    run a row), the collectives and the MiB staged a step; (b) kernels
+    2-4 at the all-to-all core's per-rank shape (b=16, s=512, h=4,
+    d=64, causal, f32 and bf16) against their plain pieces, timed
+    beside their bounds and SDPA; (c) build_moe_fused on (1, 2) data x
+    expert against the one-device run; (d) DLRM "full" stacked with
+    its 26 tables placed round-robin over the two ranks, sparse
+    updates, against the one-device step, each rank holding exactly
+    its slots, sparse_rows launches a rank; (e) the NCCL branches of
+    the all-to-all and the ring on one NCCL rank at axis size 1.
+    ``--only-sp`` runs the build and this phase alone.
+
 Every phase raises on failure. Prints the card (name, power limit), the
 build, each kernel's error and times, the training and serving numbers,
 the script's wall time, then one line ``{"kernels": [...]}`` and, last,
@@ -577,18 +598,18 @@ def paged_decode_phase(fa):
     return res
 
 
-def flash_bounds(dtype, causal, b=TB):
+def flash_bounds(dtype, causal, b=TB, h=TH):
     """{kernel: (bound_ms, bound_by)} of the three flash kernels at the
-    training shapes, batch ``b``. Flops count the (query, key) pairs this run
+    training shapes, batch ``b``, ``h`` heads. Flops count the (query, key) pairs this run
     computes — all s^2 of them, or the s(s+1)/2 on or below the
     diagonal when causal — at 4d (forward: q.k, p.v), 6d (dq: q.k,
     do.v, ds.k) and 8d (dkv: also p^T.do, ds^T.q) per pair. Bytes read
     each input once and write each output once: (b, s, h, d) operands
     in the input type, lse and delta f32 (b, h, s)."""
     pairs = TS * (TS + 1) / 2 if causal else float(TS * TS)
-    per = b * TH * TD * pairs
-    op = b * TS * TH * TD * torch.tensor([], dtype=dtype).element_size()
-    row = b * TH * TS * 4
+    per = b * h * TD * pairs
+    op = b * TS * h * TD * torch.tensor([], dtype=dtype).element_size()
+    row = b * h * TS * 4
     return {"flash_fwd": bound(4 * op + row, 4 * per, dtype),
             "flash_bwd_dq": bound(5 * op + 2 * row, 6 * per, dtype),
             "flash_bwd_dkv": bound(6 * op + 2 * row, 8 * per, dtype)}
@@ -5119,6 +5140,423 @@ def tp_serve_phase(pr, card: str):
     return res
 
 
+# ------------------------------ sequence and expert parallelism, placed
+# tables: two gloo ranks sharing the card
+SP_STEPS = 2
+# f32: the one-rank card run's limits (MESH_LOSS_REL, MESH_WEIGHT_ABS):
+# a rank's sums of partial gradients over data x seq reduce in another
+# order than one device. Under the bf16 policy every activation rounds
+# to bf16 (2^-8 relative) and a rank's GEMMs (4096 of the 8192 token
+# rows; the ring's f32 hops where one device runs the flash kernels)
+# round otherwise than the one-device run's, so a bf16 run is held to
+# its losses within SP_BF16_LOSS_REL relative and each weight's update
+# within SP_BF16_UPDATE_REL of the one-device run's update of it (L2
+# norms): a gradient summed over one rank too few or too many moves an
+# update by half or double, far past either limit.
+SP_BF16_LOSS_REL = 1e-2
+SP_BF16_UPDATE_REL = 0.2
+SP_MOE_BATCH = 1024
+# a rank's heads in the all-to-all core at seq 2
+SP_HEADS = TH // 2
+
+
+def _host_params(m):
+    return {f"{op}.{k}": w.detach().float().cpu().clone()
+            for op, p in m.state.params.items() for k, w in p.items()}
+
+
+def sp_rank_lm(steps):
+    """(a) on a gloo rank sharing the card: the dropout LM at full width
+    on a (1, 2) data x seq mesh under sequence_parallel_strategy(), in
+    f32 and under the bf16 policy, through the all-to-all core (kernels
+    2-4 on 4 of 8 heads over the whole sequence) and through the ring,
+    eager, against the one-device run of the same weights and keys on
+    the same card (each rank runs that reference itself)."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch import SGDOptimizer
+    from flexflow_tpu_torch.kernels import dropout as kd
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel import collectives as C
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    from flexflow_tpu_torch.parallel.pconfig import \
+        sequence_parallel_strategy
+    rank = dist.get_rank()
+    data = lm_batches(steps)
+    mesh = make_mesh((1, 2), ("data", "seq"))
+
+    def build(dtype, mode=None):
+        m = dropout_lm_graph(LB, compute_dtype=dtype,
+                             mesh=mesh if mode else None,
+                             strategy=(sequence_parallel_strategy()
+                                       if mode else None), **LM_ARCH)
+        if mode:
+            m.config.sp_attention = mode
+        m.compile(optimizer=SGDOptimizer(lr=0.01, momentum=0.9),
+                  loss_type=mesh_lm_loss(), metrics=[], capture=False)
+        return m
+
+    seen = {"flash": [], "dropout": []}
+    bshd, apply0 = fa.flash_attention_bshd, kd._apply
+
+    def flash_spy(q, k, v, **kw):
+        seen["flash"].append(tuple(q.shape))
+        return bshd(q, k, v, **kw)
+
+    def drop_spy(x, key, fold, keep, direction, offset=0, rows=None):
+        seen["dropout"].append((tuple(x.shape), int(offset), rows))
+        return apply0(x, key, fold, keep, direction, offset, rows)
+
+    out = {"rank": rank}
+    for dtype in ("float32", "bfloat16"):
+        ref = build(dtype)
+        init = _host_params(ref)
+        ref_losses = [float(ref.train_batch(b)["loss"]) for b in data]
+        ref_w = _host_params(ref)
+        release(ref)
+        del ref
+        top_update = max(float((ref_w[n] - init[n]).abs().max())
+                         for n in init)
+        for mode in ("alltoall", "ring"):
+            m = build(dtype, mode)
+            fl0, dr0 = dict(fa.launches), dict(kd.launches)
+            seen["flash"].clear()
+            seen["dropout"].clear()
+            fa.flash_attention_bshd, kd._apply = flash_spy, drop_spy
+            C.reset_counts()
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = [float(m.train_batch(b)["loss"]) for b in data]
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3 / steps
+            finally:
+                fa.flash_attention_bshd, kd._apply = bshd, apply0
+            coll = {k: v / steps for k, v in C.launches.items() if v}
+            staged = sum(C.staged_bytes.values()) / steps / 2**20
+            glob = _host_params(m)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                            ref_losses))
+            wdiff = max(float((glob[n] - ref_w[n]).abs().max())
+                        for n in ref_w)
+            # each weight's update against the one-device run's, relative
+            # to that update (L2 norms; weights the steps left unmoved
+            # skipped)
+            upd = max(float((glob[n] - ref_w[n]).norm()
+                            / (ref_w[n] - init[n]).norm())
+                      for n in ref_w if float((ref_w[n] - init[n]).norm()))
+            if dtype == "float32":
+                lim = (MESH_LOSS_REL, MESH_WEIGHT_ABS)
+                got = wdiff
+            else:
+                lim = (SP_BF16_LOSS_REL, SP_BF16_UPDATE_REL)
+                got = upd
+            flash = {k: fa.launches[k] - fl0.get(k, 0)
+                     for k in ("flash_fwd", "flash_bwd_dq",
+                               "flash_bwd_dkv")}
+            drop = {k: kd.launches[k] - dr0[k] for k in kd.launches}
+            cell = {"losses": losses, "ref_losses": ref_losses,
+                    "max_loss_rel": rel, "max_weight_abs": wdiff,
+                    "max_update_rel": upd,
+                    "limits": lim, "largest_update": top_update,
+                    "flash_launches": flash, "dropout_launches": drop,
+                    "flash_shape": seen["flash"][0] if seen["flash"]
+                    else None,
+                    "dropout_blocks": seen["dropout"][:2],
+                    "collectives_per_step": coll,
+                    "staged_mib_per_step": staged, "step_ms": step_ms}
+            out[f"{dtype} {mode}"] = cell
+            release(m)
+            del m
+            if not (rel <= lim[0] and got <= lim[1]):
+                raise AssertionError(
+                    f"sp (a) {dtype} {mode} rank {rank}: against the "
+                    f"one-device run loss rel {rel} (limit {lim[0]}), "
+                    f"weights abs {wdiff}, updates rel {upd} (limit "
+                    f"{lim[1]})")
+            layers = LM_ARCH["num_layers"]
+            want = layers * steps if mode == "alltoall" else 0
+            if any(v != want for v in flash.values()):
+                raise AssertionError(f"sp (a) {dtype} {mode}: flash "
+                                     f"launches {flash}, want {want} each")
+            if mode == "alltoall" and cell["flash_shape"] != (
+                    LB, TS, SP_HEADS, TD):
+                raise AssertionError(f"sp (a): the all-to-all core ran on "
+                                     f"{cell['flash_shape']}")
+            if any(v != 2 * layers * steps for v in drop.values()):
+                raise AssertionError(f"sp (a) {dtype} {mode}: dropout "
+                                     f"launches {drop}")
+    return out
+
+
+def sp_rank_moe(steps):
+    """(c) build_moe_fused at batch SP_MOE_BATCH (8 experts, top-2) on a
+    (1, 2) data x expert mesh under JAX's expert_parallel strategy
+    ({"sample": "data", "expert": "expert"}): each rank holds 4
+    experts; against the one-device run on the card at f32 limits."""
+    import torch.distributed as dist
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.parallel import collectives as C
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    from flexflow_tpu_torch.parallel.pconfig import OpStrategy, Strategy
+    rank = dist.get_rank()
+    host = moe_batches(SP_MOE_BATCH, steps, seed=4)
+
+    def build(mesh=None, st=None):
+        m = ft.build_moe_fused(ft.FFConfig(batch_size=SP_MOE_BATCH, seed=0),
+                               batch_size=SP_MOE_BATCH, device="cuda",
+                               mesh=mesh, strategy=st)
+        m.compile(optimizer=ft.SGDOptimizer(lr=0.01),
+                  loss_type="sparse_categorical_crossentropy", metrics=[],
+                  capture=False)
+        return m
+
+    ref = build()
+    ref_losses = [float(ref.train_batch(b)["loss"]) for b in host]
+    ref_w = _host_params(ref)
+    del ref
+    m = build(make_mesh((1, 2), ("data", "expert")),
+              Strategy(default=OpStrategy({"sample": "data",
+                                           "expert": "expert"})))
+    local = tuple(m.state.params["moe"]["w1"].shape)
+    C.reset_counts()
+    losses = [float(m.train_batch(b)["loss"]) for b in host]
+    coll = {k: v / steps for k, v in C.launches.items() if v}
+    glob = {f"{op}.{k}": torch.from_numpy(v)
+            for op in m.state.params
+            for k, v in m.get_weights(op).items()}
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    wdiff = max(float((glob[n] - ref_w[n]).abs().max()) for n in ref_w)
+    if not (rel <= MESH_LOSS_REL and wdiff <= MESH_WEIGHT_ABS) \
+            or local[0] * 2 != next(o for o in m.ops
+                                    if o.op_type == "moe_ffn").num_experts:
+        raise AssertionError(f"sp (c) rank {rank}: loss rel {rel}, weights "
+                             f"{wdiff}, local w1 {local}")
+    return {"rank": rank, "local_w1": local, "losses": losses,
+            "ref_losses": ref_losses, "max_loss_rel": rel,
+            "max_weight_abs": wdiff, "collectives_per_step": coll}
+
+
+def sp_rank_dlrm(steps):
+    """(d) DLRM "full", stacked (26 tables of 1M x 64), on a (2,) data
+    mesh with the tables placed round-robin over the two ranks
+    (placement_assignment, the DLRM generator's scheme), sparse SGD
+    updates through sparse_rows.cu on each rank's slots; against the
+    one-device step on the card from the same weights (the reference's
+    tables permuted to the slot layout's draw), each rank checking its
+    own slots."""
+    import torch.distributed as dist
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.kernels import sparse_rows as sr
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    from flexflow_tpu_torch.parallel.pconfig import (DEVICE_KEY, OpStrategy,
+                                                     Strategy,
+                                                     placement_assignment)
+    rank = dist.get_rank()
+    f = DLRM_FULL
+    ids = placement_assignment(f["tables"], 2, "round_robin")
+    st = Strategy(default=OpStrategy({"sample": "data"}))
+    st.set("emb_tables", OpStrategy({DEVICE_KEY: ids}))
+    host = dlrm_batches(f["tables"], f["vocab"], f["batch"], steps, seed=2)
+    t0 = time.perf_counter()
+    m = ft.build_dlrm(ft.FFConfig(batch_size=f["batch"], seed=0,
+                                  sparse_embedding_updates=True),
+                      batch_size=f["batch"], embedding_vocab_sizes=(
+                          f["vocab"],) * f["tables"], embedding_dim=DLRM_DIM,
+                      stacked_tables=True, device="cuda",
+                      mesh=make_mesh((2,), ("data",)), strategy=st)
+    m.compile(optimizer=ft.SGDOptimizer(lr=0.01),
+              loss_type="mean_squared_error", metrics=[], capture=False)
+    init_s = time.perf_counter() - t0
+    op = next(o for o in m.ops if o.op_type == "distributed_embedding")
+    k = op.num_slots // 2
+    mine = list(op._slots[rank * k:(rank + 1) * k])
+    if sorted(mine) != [t for t in range(f["tables"]) if ids[t] == rank] \
+            or tuple(m.state.params["emb_tables"]["kernel"].shape) != (
+                k, f["vocab"], DLRM_DIM):
+        raise AssertionError(f"sp (d) rank {rank}: slots {mine} for "
+                             f"placement {ids}")
+    sr.launches.update(dict.fromkeys(sr.launches, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(m.train_batch(b)["loss"]) for b in host]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = dict(sr.launches)
+    ref = dlrm_model(stacked=True, capture=False, **f)
+    with torch.no_grad():
+        # the slot layout drew table t's rows where the one-device run
+        # drew slot t's: permute the reference to the same tables
+        kern = ref.state.params["emb_tables"]["kernel"]
+        kern.copy_(kern[list(op._slot_of_table)])
+    ref_losses = [float(ref.train_batch(b)["loss"]) for b in host]
+    with torch.no_grad():
+        rk = ref.state.params["emb_tables"]["kernel"]
+        tdiff = max(float((m.state.params["emb_tables"]["kernel"][j]
+                           - rk[t]).abs().max())
+                    for j, t in enumerate(mine))
+        ddiff = max(float((w - ref.state.params[o][n]).abs().max())
+                    for o, p in m.state.params.items() if o != "emb_tables"
+                    for n, w in p.items())
+    del ref
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    if not (rel <= MESH_LOSS_REL and max(tdiff, ddiff) <= MESH_WEIGHT_ABS):
+        raise AssertionError(f"sp (d) rank {rank}: loss rel {rel}, slots "
+                             f"{tdiff}, dense {ddiff}")
+    if launches != {"sparse_rows_exact": steps, "sparse_rows_lazy": 0}:
+        raise AssertionError(f"sp (d) rank {rank}: sparse_rows launches "
+                             f"{launches}, want {steps} exact")
+    return {"rank": rank, "slots": mine, "losses": losses,
+            "ref_losses": ref_losses, "max_loss_rel": rel,
+            "max_slot_abs": tdiff, "max_dense_abs": ddiff,
+            "sparse_rows_launches": launches, "step_ms": step_ms,
+            "init_s": init_s}
+
+
+def sp_rank_nccl():
+    """The NCCL branches on one NCCL rank, at axis size 1: the
+    all-to-all core through NCCL's all_to_all_single against the flash
+    kernels alone, and a ring of one rank (no hop)."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel import collectives as C
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    from flexflow_tpu_torch.parallel.ring_attention import ring_attention
+    from flexflow_tpu_torch.parallel.ulysses import alltoall_attention
+    bm = make_mesh((1, 1), ("data", "seq")).bind()
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (2, 256, SP_HEADS, TD), np.float32)).cuda().bfloat16()
+        for _ in range(3))
+    C.reset_counts()
+    a2a = alltoall_attention(q, k, v, bm, causal=True)
+    ring = ring_attention(q, k, v, bm, causal=True)
+    whole = fa.flash_attention_bshd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err_a2a = float((a2a.float() - whole.float()).abs().max())
+    err_ring = float((ring.float() - whole.float()).abs().max()
+                     / whole.float().abs().max())
+    if err_a2a != 0.0 or err_ring > FLASH_TOL[torch.bfloat16] \
+            or C.launches["all_to_all"] != 4 or C.launches["ppermute"]:
+        raise AssertionError(f"sp (e) NCCL at axis size 1: all-to-all "
+                             f"core {err_a2a}, ring {err_ring}, launches "
+                             f"{dict(C.launches)}")
+    return {"backend": bm.backend, "alltoall_vs_flash_abs": err_a2a,
+            "ring_vs_flash_rel": err_ring,
+            "all_to_all_launches": C.launches["all_to_all"]}
+
+
+def ulysses_kernel_check(fa):
+    """(b) kernels 2-4 at the all-to-all core's per-rank shape of the
+    README LM at seq 2 (b=16, s=512, 4 heads, d=64, causal), f32 and
+    bf16: each against its plain piece (FLASH_TOL), timed beside its
+    bound and scaled_dot_product_attention in 3 interleaved rounds."""
+    dev = torch.device("cuda")
+    scale = 1.0 / math.sqrt(TD)
+    res = {}
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        rng = np.random.default_rng(13)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            (LB, TS, SP_HEADS, TD), np.float32)).to(dev).to(dtype)
+            for _ in range(4))
+        kw = {"causal": True, "scale": scale}
+        errs, bargs = flash_errors(fa, q, k, v, do, kw)
+        plain = {
+            "flash_fwd": cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, **kw), 3),
+            "flash_bwd_dq": cuda_ms(
+                lambda: fa.flash_bwd_dq_ref(*bargs, **kw), 3),
+            "flash_bwd_dkv": cuda_ms(
+                lambda: fa.flash_bwd_dkv_ref(*bargs, **kw), 3)}
+        lib_fwd, lib_bwd = sdpa_fns(q, k, v, do, True)
+        rounds = yardstick({
+            "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, **kw),
+            "sdpa_fwd": lib_fwd,
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(*bargs, **kw),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(*bargs, **kw),
+            "sdpa_bwd": lib_bwd})
+        bounds = flash_bounds(dtype, True, LB, SP_HEADS)
+        for kname in plain:
+            b_ms, b_by = bounds[kname]
+            lib = "sdpa_fwd" if kname == "flash_fwd" else "sdpa_bwd"
+            res.setdefault(kname, {})[f"ulysses_{dname}_causal"] = {
+                "shape": f"b={LB} s={TS} h={SP_HEADS} d={TD}",
+                "max_abs_err": errs[kname][0],
+                "err_over_max_ref": errs[kname][1],
+                "ms": statistics.median(rounds[kname]),
+                "plain_ms": plain[kname], "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": statistics.median(rounds[lib]),
+                "ms_rounds": rounds[kname], "library_ms_rounds": rounds[lib]}
+            log(f"sp (b) kernel {kname} [ulysses {dname} causal, b={LB} "
+                f"s={TS} h={SP_HEADS} d={TD}]: max_abs_err="
+                f"{errs[kname][0]:.3g} err/max|ref|={errs[kname][1]:.3g} "
+                f"kernel_ms={spread(rounds[kname])} plain_ms="
+                f"{plain[kname]:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                f"library_ms={spread(rounds[lib])}")
+        del q, k, v, do, bargs, lib_fwd, lib_bwd
+        torch.cuda.empty_cache()
+    return res
+
+
+def sp_phase(fa, card: str):
+    """Sequence parallelism, expert parallelism and placed tables on two
+    gloo ranks sharing the card (eager: every collective staged through
+    pinned host memory; NCCL refuses two ranks on one card), spawned as
+    ``mesh_phase`` (b) spawns them: (a) the README LM, (c) the MoE, (d)
+    DLRM "full" placed; then (b) kernels 2-4 at the all-to-all core's
+    per-rank shape in this process and (e) the NCCL branches on one
+    NCCL rank at axis size 1."""
+    import tempfile
+    from flexflow_tpu_torch.parallel.launch import RankPool
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="ff_sp_"))
+    res = {}
+    with RankPool(2, str(tmp / "g"), backend="gloo", device="cuda",
+                  threads=0, timeout_s=900) as pool:
+        ra = pool.run(sp_rank_lm, SP_STEPS)
+        rc = pool.run(sp_rank_moe, SP_STEPS)
+        rd = pool.run(sp_rank_dlrm, SP_STEPS)
+    res["lm"], res["moe"], res["dlrm"] = ra, rc, rd
+    for key in ("float32 alltoall", "float32 ring", "bfloat16 alltoall",
+                "bfloat16 ring"):
+        c = [r[key] for r in ra]
+        log(f"sp (a) LM {key} on (1, 2) data x seq, two gloo ranks on one "
+            f"card ({card}): vs the one-device run loss rel "
+            f"{max(x['max_loss_rel'] for x in c):.3e}, weights abs "
+            f"{max(x['max_weight_abs'] for x in c):.3e}, updates rel "
+            f"{max(x['max_update_rel'] for x in c):.3e} (limits "
+            f"{c[0]['limits'][0]:.3g}, {c[0]['limits'][1]:.3g}; largest "
+            f"update {c[0]['largest_update']:.3e}); flash launches a rank "
+            f"{[x['flash_launches'] for x in c]} on "
+            f"{c[0]['flash_shape']}; dropout {[x['dropout_launches'] for x in c]}"
+            f", first blocks (shape, offset, rows) "
+            f"{[x['dropout_blocks'] for x in c]}; collectives a step "
+            f"{c[0]['collectives_per_step']}; staged "
+            f"{[round(x['staged_mib_per_step'], 2) for x in c]} MiB a "
+            f"step; eager step {[round(x['step_ms'], 1) for x in c]} ms")
+    log(f"sp (c) MoE fused b={SP_MOE_BATCH} on (1, 2) data x expert: local "
+        f"w1 {rc[0]['local_w1']}; loss rel "
+        f"{max(r['max_loss_rel'] for r in rc):.3e}, weights abs "
+        f"{max(r['max_weight_abs'] for r in rc):.3e}; collectives a step "
+        f"{rc[0]['collectives_per_step']}")
+    log(f"sp (d) DLRM full stacked, round-robin placement on (2,) data: "
+        f"slots {[r['slots'] for r in rd]}; loss rel "
+        f"{max(r['max_loss_rel'] for r in rd):.3e}, slots abs "
+        f"{max(r['max_slot_abs'] for r in rd):.3e}, dense abs "
+        f"{max(r['max_dense_abs'] for r in rd):.3e}; sparse_rows a rank "
+        f"{[r['sparse_rows_launches'] for r in rd]}; eager step "
+        f"{[round(r['step_ms'], 1) for r in rd]} ms; init "
+        f"{[round(r['init_s'], 1) for r in rd]} s")
+    res["kernels"] = ulysses_kernel_check(fa)
+    with RankPool(1, str(tmp / "n"), backend="nccl", device="cuda",
+                  threads=0, timeout_s=300) as pool:
+        res["nccl"] = pool.run(sp_rank_nccl)[0]
+    log(f"sp (e) NCCL at axis size 1: {res['nccl']}")
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"sp phase: {res['phase_s']:.1f} s")
+    return res
+
+
 def _kernel_name(sym: str) -> str:
     """A mangled kernel symbol as name[template args, still mangled]:
     the name is the length-prefixed identifier ending in _kernel."""
@@ -5282,6 +5720,9 @@ def main() -> int:
         log(json.dumps({"tp_serve": tp_serve_phase(pr, card)},
                        default=str))
         return 0
+    if "--only-sp" in sys.argv[1:]:
+        log(json.dumps({"sp": sp_phase(fa, card)}, default=str))
+        return 0
     kres = kernel_phase(pr)
     dres = paged_decode_phase(fa)
     fres = flash_phase(fa)
@@ -5311,6 +5752,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tpres = tp_serve_phase(pr, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spres = sp_phase(fa, card)
 
     def head(cells):
         """A row's headline numbers: its f32 cell."""
@@ -5378,6 +5822,14 @@ def main() -> int:
                 kind: [r["flash_launches"][kname]
                        for r in meshres[f"b_{kind}"]]
                 for kind in ("dp", "tp")},
+            # sp_phase (a): a rank's launches through the all-to-all
+            # core (4 of 8 heads, the whole sequence), and the ring's
+            "sp_launches": {
+                key: [r[key]["flash_launches"][kname]
+                      for r in spres["lm"]]
+                for key in ("float32 alltoall", "bfloat16 alltoall",
+                            "float32 ring", "bfloat16 ring")},
+            "ulysses": spres["kernels"][kname],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -5441,6 +5893,12 @@ def main() -> int:
                 kind: [r["dropout_launches"][kname]
                        for r in meshres[f"b_{kind}"]]
                 for kind in ("dp", "tp")},
+            # sp_phase (a): on blocks of the sequence (one run a row)
+            "sp_launches": {
+                key: [r[key]["dropout_launches"][kname]
+                      for r in spres["lm"]]
+                for key in ("float32 alltoall", "bfloat16 alltoall",
+                            "float32 ring", "bfloat16 ring")},
             "library_note": "torch.nn.functional.dropout: same work, "
                             "another random stream",
             "cells": {c: v for c, v in cells.items() if c != head_cell},
@@ -5461,6 +5919,9 @@ def main() -> int:
         "launches": dlres["separate"]["launches"]["sparse_rows_exact"],
         "stacked_launches":
             dlres["stacked"]["launches"]["sparse_rows_exact"],
+        # sp_phase (d): a rank's launches on its placed slots
+        "sp_launches": [r["sparse_rows_launches"]["sparse_rows_exact"]
+                        for r in spres["dlrm"]],
         "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
         **{k: sep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "ms_rounds",
@@ -5481,6 +5942,8 @@ def main() -> int:
     log(json.dumps({"search": searchres}, default=str))
     log(json.dumps({"mesh": meshres}, default=str))
     log(json.dumps({"tp_serve": tpres}, default=str))
+    log(json.dumps({"sp": {k: v for k, v in spres.items()
+                           if k != "kernels"}}, default=str))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -90,28 +90,54 @@ walk on its blocks and the collectives are explicit:
   pins them. A tensor keeps its NCHW shape under
   ``conv_layout='NHWC'`` (channels-last is a memory format here), so
   the pin needs no permutation (JAX's ``_permute_nhwc_sharding``).
+* The sequence (``seq`` in the strategy, ROADMAP item 2.4): a
+  position-local op (``Op.seq_local``: linear, the elementwise ops,
+  layer norm, softmax over the last dimension, dropout, a (batch, seq)
+  embedding lookup) and attention (ring or all-to-all attention,
+  ops/attention.py) read and write blocks of the sequence; every other
+  op reads it whole through the walk's reshards. A graph input a
+  consumer reads in blocks is fed as the rank's block of positions
+  (the LM's ``tokens`` and ``positions``, the latter global
+  positions), and so are labels whose final tensor the loss reads in
+  blocks. A pin never gathers or cuts the sequence: that is the local
+  rule's business. Dropout draws at the block's global elements (one
+  run a row, core/prng.OpRng).
 * The loss and metrics are the global batch's: the loss is the mean of
-  the ranks' means (each rank holds b/d rows) — ``all_reduce`` over
-  ``data`` times f32(1/d) — and the metric sums are summed over
-  ``data``. History is the same on every rank.
-* Gradients: each rank's gradient is its part of the global batch's;
-  the dense ones are summed over ``data`` (core/overlap.GradSync: in
-  buckets launched from gradient hooks while the backward runs, or one
-  all-reduce after it when ``grad_bucket_mb`` is 0). Parameters
-  replicated over ``model`` get whole gradients on every rank (the
+  the ranks' means (each rank holds b/d rows, of s/n positions on a
+  sequence split) — ``all_reduce`` over ``data`` (and ``seq``) times
+  f32(1/(d n)) — and the metric sums are summed over the same axes.
+  History is the same on every rank.
+* Gradients: each weight's gradient is summed over the axes its op's
+  inputs are split over (``Op.mesh_grad_axes``): ``data``, and ``data``
+  and ``seq`` together for an op reading blocks of the sequence (one
+  group of both axes, ``BoundMesh.subgroup``) — core/overlap.GradSync,
+  one a set of axes, in buckets launched from gradient hooks while the
+  backward runs, or one all-reduce after it when ``grad_bucket_mb`` is
+  0. A rank that computes from inputs read whole over an axis holds the
+  whole gradient, and a sum over that axis would multiply it by the
+  axis size: so parameters replicated over ``model`` (the
   tensor-parallel rules' ``copy_to`` sums their partial input
-  gradients), so nothing is summed over ``model``. Sparse tables
-  all-gather their ids and row gradients over ``data`` in rank order
-  (the global batch order) and every rank applies the same row update,
-  so the tables stay identical on every rank.
+  gradients), the MoE's experts over ``expert`` (their outputs'
+  all-gather takes the rank's slice in its backward) and a placed or
+  slot-split stacked table (its rank looks up its slots for the whole
+  batch) are not summed over those axes. Sparse tables all-gather their
+  ids and row gradients over the axes their op names
+  (``sparse_batch_axes``: the sequence's, then ``data``), in the global
+  batch order, and every rank applies the same row update to its block,
+  so the tables stay identical on every rank that holds them.
 * ZeRO-1 (``zero_optimizer_sharding`` on a ``data`` axis of more than
   one rank, JAX's ``zero_applicable``): the optimizer slots of each
   dense parameter are split over ``data`` on its first unsplit
   dimension that divides; the update reduce-scatters that gradient,
   updates the rank's slice of the parameter with its slots, and
   all-gathers the parameter.
-* Strategies this slice does not execute raise ``NotImplementedError``
-  naming their ROADMAP item (:func:`check_executable`).
+* Experts and tables: ``expert`` over a mesh axis splits the MoE's
+  experts (ops/moe_ffn.py); a stacked embedding's per-table placement
+  (JAX's slot layout, applied at every compile) and its ``table`` and
+  ``vocab`` splits are looked up where they live (ops/embedding.py); a
+  device pin on any other op executes replicated, as GSPMD runs it.
+* Strategies that do not execute raise ``NotImplementedError`` naming
+  their ROADMAP item (:func:`check_executable`).
 """
 
 from __future__ import annotations
@@ -139,11 +165,12 @@ from .prng import OpRng, key_words
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
 # the ROADMAP items that execute what this slice leaves out
-_ITEM = {"seq": "2.4 (sequence parallelism)",
-         "expert": "2.5 (expert parallelism and placed embeddings)",
-         "table": "2.5 (expert parallelism and placed embeddings)",
-         "pipe": "2.3 (pipelines)",
-         "layer": "2.3 (pipelines)"}
+_ITEM = {"pipe": "2.3 (pipelines)",
+         "layer": "2.3 (pipelines)",
+         "layout": "2.6 (layouts beyond these axes)",
+         "channel": "2.7 (conv and LSTM channel_out)"}
+# the mesh axes that execute
+_AXES = ("data", "model", "seq", "expert")
 
 
 def zero_applicable(config, mesh) -> bool:
@@ -156,21 +183,26 @@ def zero_applicable(config, mesh) -> bool:
 
 def check_executable(model, strategy, mesh, config) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for what
-    this slice does not execute on a mesh: mesh axes beyond ``data``
-    and ``model``, pipeline stages, device pins, ``seq`` / ``expert``
-    / ``table`` splits, ``channel_out`` on conv2d and lstm, split
-    stacked embeddings, and a batch that does not split over ``data``.
-    Linear ``channel_out``, attention ``head`` and embedding ``vocab``
-    over ``model`` execute; any other weight a strategy splits is
-    stored split and read whole."""
+    does not execute on a mesh: mesh axes beyond ``data``, ``model``,
+    ``seq`` and ``expert`` (``pipe`` and pipeline stages: item 2.3;
+    others: 2.6), a ``layer`` split (2.3), ``channel_out`` on conv2d
+    and lstm (2.7), a stacked embedding split on both its slots and
+    its vocab, and a batch that does not split over ``data`` (2.6).
+    Linear ``channel_out``, attention ``head``, embedding ``vocab``,
+    the ``seq`` split (position-local ops on blocks of the sequence,
+    attention through ring or all-to-all attention, every other op
+    reading the sequence whole), ``expert`` on MoE, ``table`` and
+    ``vocab`` on stacked embeddings and device pins (a stacked
+    embedding's per-table placement in slots; on any other op a pin
+    executes replicated, as GSPMD runs it) execute; any other weight a
+    strategy splits is stored split and read whole."""
     from ..op import SAMPLE
-    from ..parallel.pconfig import DEVICE_KEY
     from ..parallel.sharding import spec_for_axes, weight_sharding
     for ax, n in mesh.shape.items():
-        if ax not in ("data", "model") and n > 1:
+        if ax not in _AXES and n > 1:
             raise NotImplementedError(
                 f"mesh axis {ax!r} of {n} devices: ROADMAP item "
-                f"{_ITEM.get(ax, '2.6 (layouts beyond data and model)')}")
+                f"{_ITEM.get(ax, _ITEM['layout'])}")
     if config.pipeline_stages > 1:
         raise NotImplementedError(
             f"pipeline_stages={config.pipeline_stages}: ROADMAP item "
@@ -178,17 +210,16 @@ def check_executable(model, strategy, mesh, config) -> None:
     ndata = mesh.shape.get("data", 1)
     for op in model.ops:
         st = strategy.for_op(op.name)
-        if st.axis_map.get(DEVICE_KEY):
+        if st.axis_map.get("layer") is not None:
             raise NotImplementedError(
-                f"{op.name}: device pins {st.axis_map[DEVICE_KEY]} on an "
-                f"executing mesh: ROADMAP item {_ITEM['table']}")
-        for logical, target in st.axis_map.items():
-            if logical in ("seq", "expert", "table", "layer") \
-                    and target is not None:
-                item = _ITEM[logical if logical != "layer" else "pipe"]
-                raise NotImplementedError(
-                    f"{op.name}: {logical} -> {target}: ROADMAP item "
-                    f"{item}")
+                f"{op.name}: layer -> {st.axis_map['layer']}: ROADMAP "
+                f"item {_ITEM['layer']}")
+        seq = st.axis_map.get("seq")
+        if seq is not None and not isinstance(seq, str) and any(
+                mesh.shape.get(a, 1) > 1 for a in seq):
+            raise NotImplementedError(
+                f"{op.name}: seq over several mesh axes {seq}: ROADMAP "
+                f"item {_ITEM['layout']}")
         split = [k for k, w in op.weight_specs().items()
                  if any(mesh.shape.get(n, 1) > 1
                         for e in weight_sharding(w, st, mesh) if e
@@ -196,13 +227,16 @@ def check_executable(model, strategy, mesh, config) -> None:
         if split and op.op_type in ("conv2d", "lstm"):
             raise NotImplementedError(
                 f"{op.name}: channel_out over a mesh axis on "
-                f"{op.op_type}: ROADMAP item 2.7 (conv and LSTM "
-                f"channel_out)")
-        if split and op.op_type in ("distributed_embedding", "moe_ffn"):
-            raise NotImplementedError(
-                f"{op.name}: split {split} on {op.op_type}: ROADMAP item "
-                f"{_ITEM['table']}")
-        if ndata > 1:
+                f"{op.op_type}: ROADMAP item {_ITEM['channel']}")
+        if op.op_type == "distributed_embedding":
+            slots, vocab = op.split_axes(st, mesh)
+            if slots and vocab:
+                raise NotImplementedError(
+                    f"{op.name}: slots split over {slots} and vocab over "
+                    f"{vocab!r} at once: ROADMAP item {_ITEM['layout']}")
+        if ndata > 1 and not st.device_ids:
+            # (a device-pinned op reads its inputs whole and writes its
+            # outputs whole, replicated over the mesh as GSPMD runs it)
             for t, axes in zip(op.outputs, op.output_axes()):
                 sample = tuple(a if a == SAMPLE else None for a in axes)
                 spec = spec_for_axes(sample, st, mesh, t.shape)
@@ -211,8 +245,7 @@ def check_executable(model, strategy, mesh, config) -> None:
                         f"{op.name}: output {tuple(t.shape)} is not split "
                         f"over the {ndata} data ranks (its batch does not "
                         f"divide, or the strategy leaves it whole): "
-                        f"ROADMAP item 2.6 (layouts beyond data and "
-                        f"model)")
+                        f"ROADMAP item {_ITEM['layout']}")
 
 
 class TrainState:
@@ -287,20 +320,16 @@ class Executor:
         # into every train program with its step's scalar
         self._lr_scale = 1.0
         # a strategy's per-table device placement of stacked embeddings
-        # (the JAX executor lowers it before any weight_specs() read):
-        # without a mesh it is ignored with a warning, as JAX's
-        # meshless compile does
-        from ..ops.embedding import DistributedEmbedding
+        # (the JAX executor lowers it before any weight_specs() read, at
+        # every compile): slots over the executing mesh; without one it
+        # is ignored with a warning, as JAX's meshless compile does
         strategy = getattr(model, "strategy", None)
         for op in model.ops:
             if isinstance(op, DistributedEmbedding):
                 ids = (strategy.for_op(op.name).device_ids
                        if strategy is not None else None)
-                if ids and self.bm is not None:
-                    raise NotImplementedError(
-                        f"{op.name}: device-explicit table placement on "
-                        f"an executing mesh (ROADMAP item 2.5)")
-                op.apply_placement(ids or None, None)
+                op.apply_placement(ids or None, self.bm.mesh
+                                   if self.bm is not None else None)
         # sibling-conv groups by leader name (config.sibling_conv_fusion);
         # as in the JAX executor, a group whose members carry different
         # strategies runs unmerged
@@ -354,6 +383,7 @@ class Executor:
         self._batch = int(model.input_tensors[0].shape[0]) \
             if model.input_tensors else 0
         self._ndata = bm.axis_size("data") if "data" in bm.groups else 1
+        self._plan_seq()
         if getattr(self.config, "zero_optimizer_sharding", False) \
                 and not zero_applicable(self.config, bm):
             warnings.warn(
@@ -361,15 +391,84 @@ class Executor:
                 "more than one rank to shard the optimizer slots over "
                 f"(mesh {dict(bm.shape)})")
 
+    def _plan_seq(self) -> None:
+        """The sequence split's share of the plan: each op's pins keep
+        the local rule's sequence layout (a ``seq`` entry is the local
+        rule's business: a pin never gathers or cuts the sequence, so a
+        position-local op's block flows to the next one); the layout of
+        every graph input (its batch over ``data``, and its sequence
+        where a consumer reads it in blocks); the layout the loss reads
+        the final tensor in and the axes the loss and metrics sum over;
+        the axes each weight's gradient is summed over
+        (``Op.mesh_grad_axes``) and each op's random stream's sequence
+        block. The process groups of several axes these need are made
+        here, in the same order on every rank."""
+        from ..parallel.sharding import _padded, batch_sharding
+        bm, model = self.bm, self.model
+        seq_axes = {st.mesh_axis_for("seq")
+                    for st in self._op_strat.values()} - {None}
+        seq_axes = {a for a in seq_axes if isinstance(a, str)}
+        for name, pins in list(self._pins.items()):
+            outs = self._out_specs[name]
+            fixed = []
+            for pin, out in zip(pins, outs):
+                nd = max(len(pin), len(out), 2)
+                p, o = _padded(pin, nd), _padded(out, nd)
+                for d in range(nd):
+                    if p[d] in seq_axes or o[d] in seq_axes:
+                        p[d] = o[d]
+                while p and p[-1] is None:
+                    p.pop()
+                fixed.append(tuple(p))
+            self._pins[name] = fixed
+        # graph inputs: the batch over data; the sequence (dim 1) as the
+        # first consumer that reads it in blocks reads it
+        self._input_specs = {}
+        for t in model.input_tensors:
+            spec = list(batch_sharding(bm, len(t.shape)))
+            reads = [_padded(self._in_specs[op.name][i], 2)[1]
+                     for op in model.ops for i, u in enumerate(op.inputs)
+                     if u.uid == t.uid]
+            seq = next((e for e in reads if e in seq_axes), None)
+            if seq is not None and len(t.shape) > 1:
+                spec = _padded(spec, 2)
+                spec[1] = seq
+            self._input_specs[t.uid] = tuple(spec)
+        # the loss reads the final tensor's batch and sequence as the
+        # final op's local rule writes them, every other dimension whole
+        from ..op import SAMPLE, SEQ
+        fop = model.ops[-1]
+        out = _padded(self._out_specs[fop.name][0],
+                      len(fop.outputs[0].shape))
+        final = [e if ax in (SAMPLE, SEQ) else None
+                 for e, ax in zip(out, fop.output_axes()[0])]
+        while final and final[-1] is None:
+            final.pop()
+        self._final = tuple(final)
+        self._loss_axes = tuple(a for a in bm.axis_names
+                                if a in final or a == "data")
+        self._grad_axes = {}
+        for op in model.ops:
+            if op.weight_specs():
+                self._grad_axes[op.name] = op.mesh_grad_axes(
+                    self._op_strat[op.name], bm)
+        self._seq_block = {}
+        for op in model.ops:
+            spec = _padded(self._in_specs[op.name][0], 2) \
+                if op.inputs else [None, None]
+            if spec[1] in seq_axes:
+                self._seq_block[op.name] = (bm.coord(spec[1]),
+                                            bm.axis_size(spec[1]))
+        for axes in [self._loss_axes] + sorted(
+                set(self._grad_axes.values())):
+            if len(axes) > 1:
+                bm.subgroup(axes)
+
     def _final_spec(self) -> tuple:
         """The layout the loss reads the final tensor in: its batch
-        split over ``data``, every other dimension whole."""
-        from ..parallel.sharding import spec_for_axes
-        from ..op import _sample_only
-        op = self.model.ops[-1]
-        return spec_for_axes(_sample_only(op.output_axes()[0]),
-                             self._op_strat[op.name], self.bm,
-                             op.outputs[0].shape)
+        split over ``data`` (and its sequence over ``seq`` where the
+        final op writes blocks of it), every other dimension whole."""
+        return self._final
 
     def _compute_nhwc_resident(self):
         """(uids of values kept channels-last, names of ops that read
@@ -564,19 +663,20 @@ class Executor:
         aux_losses: List[torch.Tensor] = []
         bm = self.bm
         if bm is not None:
-            from ..parallel.sharding import batch_sharding, reshard
-            layouts = self._layouts = {
-                t.uid: batch_sharding(bm, len(t.shape))
-                for t in self.model.input_tensors}
+            from ..parallel.sharding import reshard
+            layouts = self._layouts = dict(self._input_specs)
             # one reshard a (value, layout): consumers share it
             moved: Dict[tuple, torch.Tensor] = {}
             shard_ix = bm.coord("data")
+            seq_block = self._seq_block
         else:
             shard_ix = 0
+            seq_block = {}
         for op in self.model.ops:
             ctx = OpContext(
                 training=training, seq_length=seq_length,
-                rng=(OpRng(key, _stable_hash(op.name), shard_ix)
+                rng=(OpRng(key, _stable_hash(op.name), shard_ix,
+                           seq_block.get(op.name, (0, 1)))
                      if key is not None else None),
                 state_in=states.get(op.name),
                 nhwc_in=op.name in self._nhwc_reads,
@@ -689,13 +789,15 @@ class Executor:
         loss = torch.zeros((), dtype=torch.float32, device=logits.device)
         if self.loss_fn is not None and "label" in batch:
             loss = self.loss_fn(logits, batch["label"])
-            if self.bm is not None and "data" in self.bm.groups:
-                # the global batch's mean: every rank holds b/d rows, so
-                # it is the mean of the ranks' means (all_reduce: the
-                # loss is replicated, its gradient whole on every rank)
+            if self.bm is not None and self._loss_axes:
+                # the global batch's mean: every rank holds b/d rows (of
+                # s/n positions on a sequence split), so it is the mean
+                # of the ranks' means (all_reduce: the loss is
+                # replicated, its gradient whole on every rank)
                 from ..parallel.collectives import all_reduce
-                loss = all_reduce(loss, self.bm, "data") \
-                    * reciprocal_f32(self._ndata)
+                axes = self._loss_axes
+                loss = all_reduce(loss, self.bm, axes) \
+                    * reciprocal_f32(self.bm.axis_size(axes))
         for aux in self._last_aux_losses:
             loss = loss + aux
         return loss, logits
@@ -718,12 +820,17 @@ class Executor:
             for name, op in sparse_ops.items():
                 with torch.no_grad():
                     xs = [batch[t.name] for t in op.inputs]
-                    ax = (op._tp(self._op_strat[name], bm)
-                          if bm is not None and isinstance(op, Embedding)
-                          else None)
-                    idx, rows = (op.gather(params[name]["kernel"], xs,
-                                           bm, ax) if ax else
-                                 op.gather(params[name]["kernel"], xs))
+                    if bm is not None:
+                        # the ids in the layout the op reads them in (a
+                        # pinned op: the whole batch's)
+                        from ..parallel.sharding import reshard
+                        xs = [reshard(x, self._input_specs[t.uid], want,
+                                      bm) for x, t, want in zip(
+                                          xs, op.inputs,
+                                          self._in_specs[name])]
+                    idx, rows = op.gather(
+                        params[name]["kernel"], xs, bm,
+                        self._op_strat[name] if bm is not None else None)
                     col = self._table_col_axis(name)
                     if col is not None:
                         # a table stored split on its embedding dim:
@@ -732,8 +839,8 @@ class Executor:
                         rows = gather_tensor(rows, bm, col, rows.dim() - 1)
                 sparse_idx[name] = idx
                 params[name] = {"__rows__": rows.requires_grad_(True)}
-        sync = self._sync() if bm is not None else None
-        handles = sync.arm(params) if sync is not None else []
+        syncs = self._sync() if bm is not None else []
+        handles = [h for sync in syncs for h in sync.arm(params)]
         try:
             loss, logits = self._outputs_and_loss(params, batch, True, key,
                                                   states)
@@ -747,7 +854,7 @@ class Executor:
         for (op, k), w, g in zip(names, leaves, gs):
             grads[op][k] = torch.zeros_like(w) if g is None else g
         if bm is not None:
-            self._sync_grads(sync, grads, sparse_ops, sparse_idx)
+            self._sync_grads(syncs, grads, sparse_ops, sparse_idx)
         return loss.detach(), logits.detach(), grads, sparse_idx
 
     def _table_col_axis(self, name: str):
@@ -763,12 +870,14 @@ class Executor:
 
     # ---------------- gradient sync on a mesh ----------------
     def _sync(self):
-        """The dense gradient sync over ``data`` (core/overlap.GradSync),
-        built once per sparse routing: the walk-order buckets of
-        ``grad_bucket_mb`` (auto-tuned for this mesh when unset), the
-        sparse tables and ZeRO-1's parameters left out."""
-        if "data" not in self.bm.groups:
-            return None
+        """The dense gradient syncs (core/overlap.GradSync), one for each
+        set of mesh axes a weight's gradient is summed over (``data``;
+        ``data`` and ``seq`` for a position-local op on a sequence
+        split; none for a weight computed whole on every rank), built
+        once per sparse routing: the walk-order buckets of
+        ``grad_bucket_mb`` (auto-tuned for this mesh when unset) cut by
+        those sets, the sparse tables and ZeRO-1's parameters left
+        out."""
         key = tuple(sorted(self._sparse_table_ops()))
         if self._grad_sync is None or self._grad_sync_key != key:
             from .overlap import GradSync, grad_buckets, resolve_bucket_mb
@@ -777,19 +886,23 @@ class Executor:
             self._grad_bucket_mb = mb
             params = self.model.state.params
             dense = [(op, k) for op, p in params.items() for k in p
-                     if op not in key and (op, k) not in self._zero_dims]
-            if mb > 0:
-                order = {op: i for i, (names, _) in enumerate(
-                    grad_buckets(self.model, mb, sparse_ops=set(key)))
-                    for op in names}
-                buckets: List[list] = [[] for _ in set(order.values())]
-                for op, k in dense:
-                    buckets[order[op]].append((op, k))
-                buckets = [b for b in buckets if b]
-            else:
-                buckets = [dense] if dense else []
-            self._grad_sync = GradSync(self.bm, "data", buckets, params,
-                                       hooked=mb > 0)
+                     if op not in key and (op, k) not in self._zero_dims
+                     and self._grad_axes.get(op)]
+            order = {op: i for i, (names, _) in enumerate(
+                grad_buckets(self.model, mb, sparse_ops=set(key)))
+                for op in names}       # no buckets (mb 0): one a sync
+            cut: Dict[tuple, list] = {}
+            for op, k in dense:
+                cut.setdefault((self._grad_axes[op], order.get(op, 0)),
+                               []).append((op, k))
+            by_axes: Dict[tuple, list] = {}
+            for (axes, _), b in sorted(cut.items(),
+                                       key=lambda kv: kv[0][1]):
+                by_axes.setdefault(axes, []).append(b)
+            self._grad_sync = [GradSync(self.bm, axes if len(axes) > 1
+                                        else axes[0], buckets, params,
+                                        hooked=mb > 0)
+                               for axes, buckets in by_axes.items()]
             self._grad_sync_key = key
         return self._grad_sync
 
@@ -797,32 +910,40 @@ class Executor:
         """Bucket layout for fit's train stats: count, size, bytes."""
         if self.bm is None or "data" not in self.bm.groups:
             return {"count": 0, "bucket_mb": 0.0, "bytes": []}
-        sync = self._sync()
-        return {"count": len(sync.buckets) if sync.hooked else 0,
+        syncs = self._sync()
+        hooked = [s for s in syncs if s.hooked]
+        return {"count": sum(len(s.buckets) for s in hooked),
                 "bucket_mb": float(self._grad_bucket_mb),
-                "bytes": sync.bucket_bytes() if sync.hooked else []}
+                "bytes": [b for s in hooked for b in s.bucket_bytes()]}
 
-    def _sync_grads(self, sync, grads: Tree, sparse_ops, sparse_idx):
+    def _sync_grads(self, syncs, grads: Tree, sparse_ops, sparse_idx):
         """Finish the step's gradient sync in place of ``grads``: the
-        dense buckets summed over ``data``; ZeRO-1 parameters
-        reduce-scattered to this rank's block; each sparse table's ids
-        and row gradients all-gathered over ``data`` in rank order."""
+        dense buckets summed over their axes; ZeRO-1 parameters
+        reduce-scattered over ``data`` (after a sum over their other
+        axes); each sparse table's ids and row gradients all-gathered
+        in the global batch's order over the axes its op names
+        (``sparse_batch_axes``: the sequence's, then ``data``)."""
         from ..parallel import collectives as C
         bm = self.bm
-        if sync is not None:
+        for sync in syncs:
             for (op, k), g in sync.finish(grads).items():
                 grads[op][k] = g
         for (op, k), d in self._zero_dims.items():
+            rest = tuple(a for a in self._grad_axes.get(op, ("data",))
+                         if a != "data")
+            if rest:
+                g = grads[op][k].clone()
+                C.all_reduce_(g, bm, rest if len(rest) > 1 else rest[0])
+                grads[op][k] = g
             grads[op][k] = C.reduce_scatter_tensor(grads[op][k], bm,
                                                    "data", d)
-        if "data" not in bm.groups:
-            return
         for name, op in sparse_ops.items():
-            bdim = 1 if isinstance(op, DistributedEmbedding) else 0
-            sparse_idx[name] = C.gather_tensor(sparse_idx[name], bm,
-                                               "data", bdim)
-            grads[name]["__rows__"] = C.gather_tensor(
-                grads[name]["__rows__"], bm, "data", bdim)
+            for axis, dim in op.sparse_batch_axes(self._op_strat[name],
+                                                  bm):
+                sparse_idx[name] = C.gather_tensor(sparse_idx[name], bm,
+                                                   axis, dim)
+                grads[name]["__rows__"] = C.gather_tensor(
+                    grads[name]["__rows__"], bm, axis, dim)
 
     def _apply_update(self, state: TrainState, grads, sparse_idx, scalar):
         """The optimizer's dense rule on every parameter but the sparse
@@ -864,12 +985,10 @@ class Executor:
             table = state.params[name]["kernel"]
             idx = sparse_idx[name]
             op = sparse_ops[name]
-            ax = (op._tp(self._op_strat[name], self.bm)
-                  if self.bm is not None and isinstance(op, Embedding)
-                  else None)
-            if ax is not None:
+            if self.bm is not None:
                 # a row block: only the owning rank updates a row
-                idx = op.local_ids(idx, self.bm, ax, table.shape[0])
+                idx = op.update_ids(idx, table, self._op_strat[name],
+                                    self.bm)
             rows = grads[name]["__rows__"]
             col = self._table_col_axis(name)
             if col is not None:
@@ -887,10 +1006,10 @@ class Executor:
             sparse = self.loss_name.startswith("sparse")
             sums = M.compute_metrics(self.metric_names, logits,
                                      batch["label"], sparse)
-            if self.bm is not None and "data" in self.bm.groups:
+            if self.bm is not None and self._loss_axes:
                 from ..parallel.collectives import all_reduce_
                 for v in sums.values():
-                    all_reduce_(v, self.bm, "data")
+                    all_reduce_(v, self.bm, self._loss_axes)
             metrics.update(sums)
         return metrics
 
@@ -1120,17 +1239,30 @@ class Executor:
             spec.pop()
         return tuple(spec)
 
+    def _placed(self) -> Dict[str, object]:
+        """{name: op} of the stacked embeddings laid out in slots."""
+        return {op.name: op for op in self.model.ops
+                if getattr(op, "placement", None)}
+
     def global_state(self, state: TrainState) -> dict:
         """Every tensor of ``state`` in its global shape (gathered from
         the ranks' blocks; every rank calls it): the parameters, the op
-        state and the optimizer slots, and the step."""
+        state and the optimizer slots, and the step. A placed stacked
+        embedding's kernel and its slots in table order (the one-device
+        layout, which the checkpoint keeps)."""
         from ..parallel.sharding import gather
-        bm = self.bm
-        params = {op: {k: gather(v.detach(), self._wstore[op][k], bm)
+        bm, placed = self.bm, self._placed()
+
+        def glob(op, k, v, spec):
+            v = gather(v, spec, bm)
+            return (placed[op].to_table_order(v)
+                    if op in placed and k == "kernel" else v)
+        params = {op: {k: glob(op, k, v.detach(), self._wstore[op][k])
                        for k, v in p.items()}
                   for op, p in state.params.items()}
-        opt = {slot: {op: {k: gather(v, self._slot_spec(op, k, v.dim()),
-                                     bm) for k, v in p.items()}
+        opt = {slot: {op: {k: glob(op, k, v,
+                                   self._slot_spec(op, k, v.dim()))
+                           for k, v in p.items()}
                       for op, p in tree.items()}
                for slot, tree in state.opt_state.items()}
         return {"params": params, "states": state.states,
@@ -1140,14 +1272,20 @@ class Executor:
         """The inverse of :meth:`global_state` on a payload read from
         disk: this rank's block of every tensor."""
         from ..parallel.sharding import shard
-        bm = self.bm
+        bm, placed = self.bm, self._placed()
+
+        def local(op, k, v, spec):
+            if op in placed and k == "kernel":
+                v = placed[op].from_table_order(v)
+            return shard(v, spec, bm)
         out = dict(payload)
-        out["params"] = {op: {k: shard(v, self._wstore[op][k], bm)
+        out["params"] = {op: {k: local(op, k, v, self._wstore[op][k])
                               for k, v in p.items()}
                          for op, p in payload["params"].items()
                          if op in self._wstore}
         out["opt_state"] = {
-            slot: {op: {k: shard(v, self._slot_spec(op, k, v.dim()), bm)
+            slot: {op: {k: local(op, k, v,
+                                 self._slot_spec(op, k, v.dim()))
                         for k, v in p.items()}
                    for op, p in tree.items() if op in self._wstore}
             for slot, tree in payload.get("opt_state", {}).items()}
@@ -1174,9 +1312,56 @@ class Executor:
         trains in bf16); other keys (labels) as the JAX loader places
         them (core/dataloader.py ``host_to_device``)."""
         declared = self.declared_input_dtypes
-        return {k: host_to_device(self._rank_rows(v), self.device,
+        return {k: host_to_device(self._rank_block(k, v), self.device,
                                   declared.get(k))
                 for k, v in batch.items()}
+
+    def _seq_cut(self, name: str):
+        """(mesh axis, global length) of dim 1 of batch entry ``name``
+        when the rank holds a block of its sequence (a graph input a
+        consumer reads in blocks; the labels when the loss reads the
+        final tensor so), else None."""
+        if self.bm is None:
+            return None
+        from ..parallel.sharding import _padded
+        if name == "label":
+            spec = _padded(self._final, 2)
+            shape = self.model.final_tensor.shape
+        else:
+            t = next((t for t in self.model.input_tensors
+                      if t.name == name), None)
+            if t is None:
+                return None
+            spec = _padded(self._input_specs[t.uid], 2)
+            shape = t.shape
+        if not isinstance(spec[1], str) or len(shape) < 2:
+            return None
+        return spec[1], int(shape[1])
+
+    def _rank_block(self, name: str, v, dim: int = 0):
+        """This rank's block of batch entry ``name``: its rows
+        (:meth:`_rank_rows`), then, where the rank holds a block of the
+        sequence, its positions: a dim ``dim + 1`` of the global length
+        is cut to the rank's block over the axis, one of the block's
+        length is taken as the rank's own, anything else raises."""
+        v = self._rank_rows(v, dim)
+        cut = self._seq_cut(name)
+        if cut is None:
+            return v
+        axis, length = cut
+        n = self.bm.axis_size(axis)
+        have = v.shape[dim + 1]
+        if have == length // n:
+            return v
+        if have != length:
+            raise ValueError(
+                f"{name!r}: sequence of {have} on a mesh of {n} {axis!r} "
+                f"ranks: pass the whole sequence ({length}) or this "
+                f"rank's block ({length // n})")
+        c = self.bm.coord(axis)
+        sl = [slice(None)] * v.ndim
+        sl[dim + 1] = slice(c * (length // n), (c + 1) * (length // n))
+        return v[tuple(sl)]
 
     def _rank_rows(self, v, dim: int = 0):
         """On a mesh, this rank's rows of a batch: a batch of the
@@ -1209,7 +1394,7 @@ class Executor:
         declared = self.declared_input_dtypes
         out = {}
         for k in batches[0]:
-            vals = [self._rank_rows(b[k]) for b in batches]
+            vals = [self._rank_block(k, b[k]) for b in batches]
             if all(isinstance(v, torch.Tensor) for v in vals):
                 out[k] = host_to_device(torch.stack(vals), self.device,
                                         declared.get(k))

@@ -269,7 +269,8 @@ def grad_buckets(model, bucket_mb: float,
 
 
 class GradSync:
-    """The dense gradient sum over one mesh axis, in buckets.
+    """The dense gradient sum over one mesh axis (or a tuple of axes,
+    summed as one group), in buckets.
 
     ``buckets`` lists ``(op, weight)`` keys in walk order, a bucket a
     list; ``params`` gives each key's tensor (its shape and dtype; a

@@ -50,14 +50,35 @@ class OpRng(NamedTuple):
     key: torch.Tensor
     fold: int
     # this rank's block of the batch on an executing mesh: the dropout
-    # counter of a local tensor starts at shard * its element count,
-    # the global index of its first element (0 on one device)
+    # counter of a local tensor starts at the global index of its first
+    # element (0 on one device)
     shard: int = 0
+    # (coordinate, count) of the rank's block of the sequence (dim 1)
+    # when the op's tensors are split over ``seq`` too: then the rank's
+    # elements of a (b, s, ...) tensor are b runs, one a row
+    seq: tuple = (0, 1)
 
     def offset(self, x: torch.Tensor) -> int:
         """The global element index of ``x``'s first element, ``x``
-        this rank's block of a tensor split on dim 0 over ``data``."""
-        return self.shard * x.numel()
+        this rank's block of a tensor split on dim 0 over ``data`` (and
+        on dim 1 over ``seq``)."""
+        c, n = self.seq
+        if n == 1:
+            return self.shard * x.numel()
+        s_local = x.shape[1]
+        inner = x.numel() // (x.shape[0] * s_local) if x.numel() else 0
+        return (self.shard * x.shape[0] * s_local * n + c * s_local) * inner
+
+    def rows(self, x: torch.Tensor):
+        """None for a block whose elements are contiguous in the global
+        tensor (a split on dim 0 only), else (row_len, row_stride): the
+        block's rows of ``row_len`` elements lie ``row_stride`` apart in
+        the global order (a block of the sequence)."""
+        c, n = self.seq
+        if n == 1 or x.numel() == 0:
+            return None
+        row = x.numel() // x.shape[0]
+        return row, row * n
 
 
 def _threefry_torch(k0, k1, x0, x1):
@@ -136,18 +157,24 @@ def key_words(key) -> np.ndarray:
 
 # ---------------------------------------------------- device bits
 def op_uniform_torch(key: torch.Tensor, fold: int, numel: int,
-                     device, offset: int = 0) -> torch.Tensor:
+                     device, offset: int = 0, rows=None) -> torch.Tensor:
     """The f32 uniforms of ``bernoulli(fold_in(key, fold), ·, (numel,))``
     as a flat tensor, from a (2,) int32 step-key tensor: the op key is
     folded in on the device, so nothing is read back to the host (a
     captured step may run this). ``offset``: the elements are
     ``offset .. offset + numel - 1`` of the stream (a rank's block of
-    a larger tensor)."""
+    a larger tensor); with ``rows = (row_len, row_stride)`` element j
+    is ``offset + (j // row_len) * row_stride + j % row_len`` (a block
+    of the sequence: one run a row)."""
     words = key.to(device=device, dtype=torch.int64) & M32
     zero = torch.zeros((), dtype=torch.int64, device=device)
     ok0, ok1 = _threefry_torch(words[0], words[1], zero,
                                zero + (int(fold) & M32))
-    i = torch.arange(numel, dtype=torch.int64, device=device) + int(offset)
+    i = torch.arange(numel, dtype=torch.int64, device=device)
+    if rows is not None:
+        row_len, row_stride = (int(r) for r in rows)
+        i = (i // row_len) * row_stride + i % row_len
+    i = i + int(offset)
     y0, y1 = _threefry_torch(ok0, ok1, i >> 32, i & M32)
     bits = (y0 ^ y1) >> 9
     return (bits | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0

@@ -33,11 +33,14 @@
 // The key is read from device memory, not passed by value, so a captured
 // CUDA graph replays with each step's key (the executor writes it into
 // the graph's static input before each replay). The element index is a
-// 64-bit count split into two words, base + i: on one device base is 0;
-// on an executing mesh x is a rank's block of a tensor split on its
-// first dimension and base is the global index of the block's first
-// element, so every rank draws the mask the one-device run draws for
-// the same global elements. The wrapper takes n < 2^31.
+// 64-bit count split into two words: on one device element i's count is
+// i (base 0); on an executing mesh x is a rank's block of a larger tensor
+// and its counts are the elements' global indices, so every rank draws
+// the mask the one-device run draws for the same global elements. A
+// block of the batch (dim 0 split) is contiguous: base + i, row_len 0.
+// A block of the sequence (dim 1 split too) is one run a row: element i
+// is base + (i / row_len) * row_stride + i % row_len. The wrapper takes
+// n < 2^31.
 //
 // Bound on an H100 SXM at the LM's activation (16 x 512 x 512, bf16): it
 // reads x once and writes y once, 16.8 MB, 0.005 ms at 3.35 TB/s. The
@@ -116,12 +119,14 @@ __device__ __forceinline__ __nv_bfloat16 kept(__nv_bfloat16 v, float keep_c,
   return __float2bfloat16_rn(__bfloat162float(v) / keep_c);
 }
 
-template <typename T>
+// kRows: a block of the sequence (one run a row); without it the
+// contiguous block's code, as the one-device path has always run it
+template <typename T, bool kRows>
 __global__ void __launch_bounds__(kThreads)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ y,
                    const uint32_t* __restrict__ key, uint32_t fold,
                    float keep, float keep_c, float recip, uint32_t n,
-                   uint64_t base) {
+                   uint64_t base, uint32_t row_len, uint64_t row_stride) {
   uint32_t ok0 = 0u, ok1 = fold;               // fold_in(key, fold)
   threefry2x32(key[0], key[1], ok0, ok1);
   const uint32_t stride = gridDim.x * kThreads;
@@ -130,7 +135,12 @@ __global__ void __launch_bounds__(kThreads)
     uint32_t h[kUnroll], l[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      const uint64_t g = base + (uint64_t)(i + u * stride);
+      const uint32_t j = i + u * stride;
+      // a block of the sequence: row j / row_len of the global order
+      const uint64_t g =
+          base + (kRows ? (uint64_t)(j / row_len) * row_stride +
+                              (j % row_len)
+                        : (uint64_t)j);
       h[u] = (uint32_t)(g >> 32);
       l[u] = (uint32_t)g;
       threefry2x32(ok0, ok1, h[u], l[u]);
@@ -150,7 +160,8 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 cudaError_t launch(const void* x, void* y, const void* key, uint32_t fold,
                    float keep, float keep_c, float recip, uint32_t n,
-                   uint64_t base, cudaStream_t s) {
+                   uint64_t base, uint32_t row_len, uint64_t row_stride,
+                   cudaStream_t s) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -160,32 +171,43 @@ cudaError_t launch(const void* x, void* y, const void* key, uint32_t fold,
   uint32_t cap = (uint32_t)(sms > 0 ? sms : 132) * 8u;
   uint32_t blocks = want < cap ? want : cap;
   if (blocks == 0) blocks = 1;
-  dropout_kernel<T><<<blocks, kThreads, 0, s>>>(
-      static_cast<const T*>(x), static_cast<T*>(y),
-      static_cast<const uint32_t*>(key), fold, keep, keep_c, recip, n,
-      base);
+  if (row_len == 0u)
+    dropout_kernel<T, false><<<blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<T*>(y),
+        static_cast<const uint32_t*>(key), fold, keep, keep_c, recip, n,
+        base, row_len, row_stride);
+  else
+    dropout_kernel<T, true><<<blocks, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<T*>(y),
+        static_cast<const uint32_t*>(key), fold, keep, keep_c, recip, n,
+        base, row_len, row_stride);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype 0: float32, 1: bfloat16. n must be below 2^31; base (>= 0) is
-// the 64-bit count of the first element.
+// the 64-bit count of the first element; row_len 0 for a contiguous
+// block, else the run length (dividing n, at most row_stride).
 extern "C" int dropout_launch(int dtype, const void* x, void* y,
                               const void* key, unsigned int fold,
                               float keep, float keep_c, float recip,
-                              long long n, long long base,
-                              void* stream) {
-  if (n < 0 || n >= (1LL << 31) || base < 0)
+                              long long n, long long base, long long row_len,
+                              long long row_stride, void* stream) {
+  if (n < 0 || n >= (1LL << 31) || base < 0 || row_len < 0 ||
+      row_len >= (1LL << 31) || (row_len > 0 && row_stride < row_len))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return (int)launch<float>(x, y, key, fold, keep, keep_c, recip,
-                              (uint32_t)n, (uint64_t)base, s);
+                              (uint32_t)n, (uint64_t)base,
+                              (uint32_t)row_len, (uint64_t)row_stride, s);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(x, y, key, fold, keep, keep_c, recip,
-                                      (uint32_t)n, (uint64_t)base, s);
+                                      (uint32_t)n, (uint64_t)base,
+                                      (uint32_t)row_len,
+                                      (uint64_t)row_stride, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -22,10 +22,13 @@ too. The backward is the same function of the incoming gradient with the
 same key (JAX's VJP of that ``where``), so no mask is stored.
 
 On an executing mesh a rank holds a block of the tensor: ``offset`` is
-the global index of the block's first element (the rank's data
-coordinate times the block's size), and the kernel and the plain
-version draw elements ``offset .. offset + n - 1`` of the stream, the
-mask the one-device run draws for the same global elements.
+the global index of the block's first element, and the kernel and the
+plain version draw the stream at the block's global indices, the mask
+the one-device run draws for the same global elements. A block of the
+batch (dim 0 split over ``data``) is contiguous: elements ``offset ..
+offset + n - 1``. A block of the sequence too (dim 1 split over
+``seq``) is one run a row: ``rows = (row_len, row_stride)`` puts local
+element j at ``offset + (j // row_len) * row_stride + j % row_len``.
 
 CUDA tensors launch the kernel (a build or launch error raises); CPU
 tensors take :func:`dropout_ref`. :func:`dropout` is the differentiable
@@ -56,13 +59,14 @@ def keep_in_dtype(keep: float, dtype) -> float:
 
 
 # ------------------------------------------------------ plain version
-def dropout_ref(x, key, fold: int, keep: float, offset: int = 0):
+def dropout_ref(x, key, fold: int, keep: float, offset: int = 0,
+                rows=None):
     """Plain version of the kernel, any device: the uniforms from
     :func:`core.prng.op_uniform_torch`; kept elements are f32 x times the
     f32 reciprocal of keep, or bf16 x's f32 (IEEE) quotient by
     ``keep_c`` rounded to bf16; zeros where the mask is off."""
     u = op_uniform_torch(key, fold, x.numel(), x.device,
-                         offset).view(x.shape)
+                         offset, rows).view(x.shape)
     keep_f32 = float(torch.tensor(keep, dtype=torch.float32))
     if x.dtype == torch.float32:
         kept = x * reciprocal_f32(keep)
@@ -81,14 +85,16 @@ def dropout_ref(x, key, fold: int, keep: float, offset: int = 0):
 _PTR = ctypes.c_void_p
 _ARGTYPES = [ctypes.c_int, _PTR, _PTR, _PTR, ctypes.c_uint, ctypes.c_float,
              ctypes.c_float, ctypes.c_float, ctypes.c_longlong,
-             ctypes.c_longlong, _PTR]
+             ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+             _PTR]
 
 
-def dropout_cuda(x, key, fold: int, keep: float, offset: int = 0, *,
-                 direction="dropout_fwd"):
+def dropout_cuda(x, key, fold: int, keep: float, offset: int = 0,
+                 rows=None, *, direction="dropout_fwd"):
     """Launch ``dropout_kernel`` on the current stream. x float32 or
     bfloat16 on CUDA, fewer than 2^31 elements; key a (2,) int32 tensor
-    on x's device. Raises on anything else and on a failed launch."""
+    on x's device; ``rows`` as in :func:`dropout_ref`. Raises on
+    anything else and on a failed launch."""
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, got "
                          f"{x.device}")
@@ -106,6 +112,11 @@ def dropout_cuda(x, key, fold: int, keep: float, offset: int = 0, *,
         raise ValueError(f"keep must be in (0, 1], got {keep}")
     if offset < 0 or offset + x.numel() > (1 << 62):
         raise ValueError(f"element offset {offset} out of range")
+    row_len, row_stride = (0, 0) if rows is None else (int(r)
+                                                         for r in rows)
+    if rows is not None and not (0 < row_len <= row_stride
+                                 and x.numel() % row_len == 0):
+        raise ValueError(f"rows {rows} do not tile {x.numel()} elements")
     from ._build import load_library
     lib = load_library("dropout")
     fn = lib.dropout_launch
@@ -119,7 +130,7 @@ def dropout_cuda(x, key, fold: int, keep: float, offset: int = 0, *,
         rc = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), y.data_ptr(),
                 key.data_ptr(), int(fold) & 0xFFFFFFFF, float(keep),
                 keep_in_dtype(keep, x.dtype), reciprocal_f32(keep),
-                x.numel(), int(offset), stream)
+                x.numel(), int(offset), row_len, row_stride, stream)
     if rc != 0:
         err = lib.dropout_error_string
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
@@ -129,33 +140,38 @@ def dropout_cuda(x, key, fold: int, keep: float, offset: int = 0, *,
     return y
 
 
-def _apply(x, key, fold, keep, direction, offset=0):
+def _apply(x, key, fold, keep, direction, offset=0, rows=None):
     """CUDA tensors launch the kernel, CPU tensors take the plain
     version; no fallback between the two."""
     if x.device.type == "cuda":
-        return dropout_cuda(x, key, fold, keep, offset, direction=direction)
+        return dropout_cuda(x, key, fold, keep, offset, rows,
+                            direction=direction)
     if x.device.type == "cpu":
-        return dropout_ref(x, key, fold, keep, offset)
+        return dropout_ref(x, key, fold, keep, offset, rows)
     raise ValueError(f"unsupported device {x.device}")
 
 
 class _Dropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, key, fold, keep, offset):
-        ctx.fold, ctx.keep, ctx.offset = fold, keep, offset
+    def forward(ctx, x, key, fold, keep, offset, rows):
+        ctx.fold, ctx.keep, ctx.offset, ctx.rows = fold, keep, offset, rows
         ctx.save_for_backward(key)
-        return _apply(x, key, fold, keep, "dropout_fwd", offset)
+        return _apply(x, key, fold, keep, "dropout_fwd", offset, rows)
 
     @staticmethod
     def backward(ctx, g):
         (key,) = ctx.saved_tensors
         return (_apply(g.contiguous(), key, ctx.fold, ctx.keep,
-                       "dropout_bwd", ctx.offset), None, None, None, None)
+                       "dropout_bwd", ctx.offset, ctx.rows),
+                None, None, None, None, None)
 
 
-def dropout(x, key, fold: int, keep: float, offset: int = 0):
+def dropout(x, key, fold: int, keep: float, offset: int = 0, rows=None):
     """``where(bernoulli(fold_in(key, fold), keep), kept(x), 0)``,
     differentiable in x. ``key``: the step key, a (2,) int32 tensor on
     x's device; ``offset``: the global index of x's first element when
-    x is a rank's block of a larger tensor."""
-    return _Dropout.apply(x, key, fold, keep, int(offset))
+    x is a rank's block of a larger tensor; ``rows``: (row_len,
+    row_stride) when the block is one of the sequence (None: the block
+    is contiguous in the global order)."""
+    return _Dropout.apply(x, key, fold, keep, int(offset),
+                          None if rows is None else tuple(rows))

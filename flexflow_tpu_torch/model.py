@@ -41,10 +41,12 @@ A mesh executes (``FFModel(mesh=)``, ``compile(mesh=)``,
 group of exactly ``mesh.size`` ranks (parallel/mesh.init_distributed;
 a mesh of several devices without one raises), each rank running the
 executor's mesh half on its blocks (core/executor.py). ``train_batch``
-and its siblings take the global batch or this rank's rows, ``fit``
+and its siblings take the global batch or this rank's rows (and, on a
+sequence split, the whole sequence or this rank's positions), ``fit``
 and ``evaluate`` the whole dataset on every rank, each rank feeding its
 rows; losses, metrics and history are the global batch's and the same
-on every rank; ``get_weights`` / ``set_weights`` gather and shard;
+on every rank; ``get_weights`` / ``set_weights`` gather and shard (a
+placed stacked embedding's kernel in table order);
 ``forward`` returns the global batch's output. ``calibrate_simulator``
 grounds the strategy simulator in measured train steps on the card,
 ``_predicted_step_s`` gives ``fit``'s drift samples their prediction on
@@ -1105,15 +1107,29 @@ class FFModel:
 
     def set_weights(self, op_name: str, weights: Dict[str, np.ndarray]):
         """Overwrite an op's weights in place (same tensors, so the
-        optimizer's view of them is unchanged). On a mesh ``weights``
-        are the global ones and each rank keeps its block."""
+        optimizer's view of them is unchanged); a stacked embedding's
+        kernel in table order, whatever its placement. On a mesh
+        ``weights`` are the global ones and each rank keeps its block
+        (every rank calls it)."""
         cur = self.state.params[op_name]
         ex = self.executor
+        op = next((o for o in self.ops if o.name == op_name), None)
         for k, v in weights.items():
             if k not in cur:
                 raise KeyError(f"{op_name} has no weight {k!r}; "
                                f"has {sorted(cur)}")
             v = np.array(v)
+            if k == "kernel" and getattr(op, "placement", None):
+                # table order in, the slot layout stored (pad slots
+                # keep their values)
+                glob = None
+                if op.has_pads():
+                    glob = cur[k].detach()
+                    if ex.bm is not None:
+                        from .parallel.sharding import gather
+                        glob = gather(glob, ex._wstore[op_name][k], ex.bm)
+                    glob = glob.float().cpu().numpy()
+                v = op.from_table_order(v, glob)
             if ex.bm is not None:
                 from .parallel.sharding import shard
                 v = shard(v, ex._wstore[op_name][k], ex.bm)

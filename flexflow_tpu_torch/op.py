@@ -67,6 +67,10 @@ def _sample_only(axes):
     return tuple(a if a == SAMPLE else None for a in axes)
 
 
+def _sample_seq(axes):
+    return tuple(a if a in (SAMPLE, SEQ) else None for a in axes)
+
+
 def tp_axis(op, strategy, mesh, weight: str, dim: int):
     """The mesh axis that ``op``'s strategy splits dimension ``dim`` of
     weight ``weight`` over (JAX's weight_sharding), or None."""
@@ -204,19 +208,45 @@ class Op:
         return out
 
     # ---- executing on a mesh (the local rule's layouts) ----
+    # a position-local op: each position of a (batch, seq, ...) tensor
+    # is computed from the same position of its inputs alone, so the
+    # local rule may read and write blocks of the sequence
+    seq_local: bool = False
+
+    def _local_axes(self, axes):
+        return _sample_seq(axes) if self.seq_local else _sample_only(axes)
+
     def mesh_input_specs(self, strategy, mesh) -> list:
         """The layout each input is read in: its ``sample`` dimension
-        split as the strategy maps it, every other dimension whole."""
+        split as the strategy maps it (and its ``seq`` dimension, for a
+        :attr:`seq_local` op), every other dimension whole."""
         from .parallel.sharding import spec_for_axes
-        return [spec_for_axes(_sample_only(ax), strategy, mesh, t.shape)
+        return [spec_for_axes(self._local_axes(ax), strategy, mesh,
+                              t.shape)
                 for ax, t in zip(self.input_axes(), self.inputs)]
 
     def mesh_output_specs(self, strategy, mesh) -> list:
         """The layout the local rule produces each output in: its
-        ``sample`` dimension split, every other dimension whole."""
+        ``sample`` dimension split (and ``seq``, for a :attr:`seq_local`
+        op), every other dimension whole."""
         from .parallel.sharding import spec_for_axes
-        return [spec_for_axes(_sample_only(ax), strategy, mesh, t.shape)
+        return [spec_for_axes(self._local_axes(ax), strategy, mesh,
+                              t.shape)
                 for ax, t in zip(self.output_axes(), self.outputs)]
+
+    def mesh_grad_axes(self, strategy, mesh) -> tuple:
+        """The mesh axes this op's weight gradients are summed over: the
+        axes its local rule's inputs are split over (ranks that differ
+        on them compute from different rows or positions, so each holds
+        a part of the gradient) — ``data``, and ``seq`` for a
+        :attr:`seq_local` op on a sequence split. A rank that computes
+        from its inputs read whole over an axis holds the whole
+        gradient, which a sum over that axis would multiply by its
+        size. In the mesh's axis order."""
+        from .parallel.sharding import _names
+        used = {n for spec in self.mesh_input_specs(strategy, mesh)
+                for e in spec for n in _names(e)}
+        return tuple(a for a in mesh.axis_names if a in used)
 
     def mesh_weight_specs(self, strategy, mesh) -> dict:
         """The layout each weight is read in: whole (a weight stored

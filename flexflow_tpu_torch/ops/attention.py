@@ -25,9 +25,21 @@ the output projection ``wo`` is row-parallel (split on its head
 dimension) and its partial products are summed by an ``all_reduce``
 before ``bo`` (read whole) and the dropout, whose counter starts at
 the rank's block of the batch.
+
+Sequence parallelism (ROADMAP item 2.4): where the strategy maps
+``seq`` onto a mesh axis and JAX's guards pass (:meth:`_sp`), the op
+reads its inputs as blocks of the sequence, projects its block, runs
+the core over the axis — ``parallel/ulysses.alltoall_attention`` (on
+the card the flash kernels on the rank's h/n heads) or
+``parallel/ring_attention.ring_attention``, as ``sp_mode_for`` picks —
+and writes its block of the output; the output dropout draws the mask
+at the block's global elements. With ``head`` over another axis too,
+the core runs on the rank's h/m heads.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -113,6 +125,50 @@ class MultiHeadAttention(Op):
     def _tp(self, strategy, mesh):
         return tp_axis(self, strategy, mesh, "wq", 1)
 
+    def _sp(self, strategy, mesh):
+        """The mesh axis the op's sequence-parallel dispatch runs over,
+        or None: JAX's guards (``_attend``) — ``seq`` maps to a mesh
+        axis of more than one device, neither ``add_zero_attn`` nor
+        ``add_bias_kv``, the query and key lengths divide by its size
+        and the batch by the ``sample`` axis's. The ``seq_length``
+        truncation, a runtime knob, is the forward's guard. Where these
+        fail the op reads its inputs whole over the axis, JAX's
+        graceful degradation."""
+        if mesh is None or strategy is None:
+            return None
+        ax = strategy.mesh_axis_for(SEQ)
+        if not isinstance(ax, str) or mesh.shape.get(ax, 1) <= 1:
+            return None
+        n = mesh.shape[ax]
+        if self.add_zero_attn or self.add_bias_kv \
+                or self.inputs[0].shape[1] % n \
+                or self.inputs[1].shape[1] % n:
+            return None
+        data_ax = strategy.mesh_axis_for(SAMPLE)
+        data_ax = data_ax if isinstance(data_ax, str) else "data"
+        if self.inputs[0].shape[0] % mesh.shape.get(data_ax, 1):
+            return None
+        if ax == self._tp(strategy, mesh):
+            return None
+        return ax
+
+    def mesh_input_specs(self, strategy, mesh):
+        """Each input's batch split over ``data`` and, where the
+        sequence-parallel guards pass (:meth:`_sp`), its sequence over
+        the ``seq`` axis; else the sequence whole."""
+        from ..parallel.sharding import spec_for_axes
+        from ..op import _sample_only, _sample_seq
+        pick = _sample_seq if self._sp(strategy, mesh) else _sample_only
+        return [spec_for_axes(pick(ax), strategy, mesh, t.shape)
+                for ax, t in zip(self.input_axes(), self.inputs)]
+
+    def mesh_output_specs(self, strategy, mesh):
+        from ..parallel.sharding import spec_for_axes
+        from ..op import _sample_only, _sample_seq
+        pick = _sample_seq if self._sp(strategy, mesh) else _sample_only
+        return [spec_for_axes(pick(ax), strategy, mesh, t.shape)
+                for ax, t in zip(self.output_axes(), self.outputs)]
+
     def mesh_weight_specs(self, strategy, mesh):
         ax = self._tp(strategy, mesh)
         split = {"wq": (None, ax), "wk": (None, ax), "wv": (None, ax),
@@ -157,7 +213,12 @@ class MultiHeadAttention(Op):
                 b, *params["bias_k"].shape)], dim=1)
             v = torch.cat([v, params["bias_v"].to(v.dtype).expand(
                 b, *params["bias_v"].shape)], dim=1)
-        o = self._attend(q, k, v, ctx)
+        sp = (self._sp(ctx.strategy, ctx.mesh)
+              if ctx.mesh is not None else None)
+        if sp is not None:
+            o = self._attend_sp(q, k, v, ctx, sp)
+        else:
+            o = self._attend(q, k, v, ctx)
         y = torch.einsum("bshd,hde->bse", o, params["wo"].to(o.dtype))
         if ax is not None:
             from ..parallel.collectives import all_reduce
@@ -167,7 +228,8 @@ class MultiHeadAttention(Op):
         if self.dropout > 0.0 and ctx.training and ctx.rng is not None:
             y = apply_dropout(y, ctx.rng.key, ctx.rng.fold,
                               1.0 - self.dropout,
-                              offset=ctx.rng.offset(y))
+                              offset=ctx.rng.offset(y),
+                              rows=ctx.rng.rows(y))
         return [y]
 
     def output_axes(self):
@@ -206,6 +268,41 @@ class MultiHeadAttention(Op):
             return attention_ref(q, k, v, causal=self.causal,
                                  seq_length=seq_length)
         return flash_attention_bshd(q, k, v, causal=self.causal)
+
+    def _attend_sp(self, q, k, v, ctx: OpContext, axis: str):
+        """The sequence-parallel core on this rank's (b, s/n, h, d)
+        blocks (JAX's ``_attend`` dispatch): ``sp_mode_for`` picks the
+        lowering — ``alltoall_attention`` (parallel/ulysses.py: the
+        rank's h/n heads over the whole sequence through the flash
+        kernels) or ``ring_attention`` (parallel/ring_attention.py).
+        Under a ``seq_length`` truncation (JAX's guard) the blocks are
+        gathered and the one-device core runs on the whole sequence,
+        the rank keeping its block of the output."""
+        from ..parallel import collectives as C
+        from ..parallel.ring_attention import ring_attention
+        from ..parallel.ulysses import alltoall_attention, sp_mode_for
+        mesh = ctx.mesh
+        seq_length = ctx.seq_length if ctx.seq_length is not None else -1
+        if seq_length >= 0:
+            whole = [C.all_gather(x, mesh, axis, 1) for x in (q, k, v)]
+            o = self._attend(*whole, ctx)
+            return C.split(o, mesh, axis, 1)
+        n = mesh.axis_size(axis)
+        data_ax = ctx.strategy.mesh_axis_for(SAMPLE)
+        data_ax = data_ax if isinstance(data_ax, str) else "data"
+        b_global = self.inputs[0].shape[0]
+        mode = sp_mode_for(
+            getattr(self.model.config, "sp_attention", "auto"),
+            num_heads=self.num_heads, seq_size=n,
+            batch_local=b_global // max(1, mesh.axis_size(data_ax)),
+            seq_q=self.inputs[0].shape[1], seq_kv=self.inputs[1].shape[1])
+        scale = 1.0 / math.sqrt(self.head_dim)
+        if mode == "alltoall" and q.shape[2] % n == 0:
+            return alltoall_attention(q, k, v, mesh, seq_axis=axis,
+                                      causal=self.causal, scale=scale,
+                                      use_flash=self.use_flash)
+        return ring_attention(q, k, v, mesh, seq_axis=axis,
+                              causal=self.causal, scale=scale)
 
     def uses_flash(self, seq_length: int = -1) -> bool:
         """Whether the op's core runs through the flash entry point (on

@@ -59,6 +59,7 @@ class PassthroughAxesMixin:
 
 class ElementUnary(PassthroughAxesMixin, Op):
     op_type = "element_unary"
+    seq_local = True
 
     def __init__(self, model, name, inputs, mode: str, scalar: float = None):
         super().__init__(model, name, inputs)
@@ -142,7 +143,12 @@ class Reduce(Op):
 
 
 class ElementBinary(PassthroughAxesMixin, Op):
+    """``a (op) b`` with numpy broadcasting. Position-local: an input
+    broadcast along the sequence (size 1 there) is read whole on that
+    dimension and broadcasts against the other's block."""
+
     op_type = "element_binary"
+    seq_local = True
 
     def __init__(self, model, name, inputs, mode: str):
         super().__init__(model, name, inputs)
@@ -171,6 +177,7 @@ class Dropout(PassthroughAxesMixin, Op):
     the stream comes from the model's key."""
 
     op_type = "dropout"
+    seq_local = True
 
     def __init__(self, model, name, inputs, rate: float, seed: int = 0):
         super().__init__(model, name, inputs)
@@ -186,7 +193,7 @@ class Dropout(PassthroughAxesMixin, Op):
         if not ctx.training or self.rate <= 0.0:
             return [x]
         return [dropout(x, ctx.rng.key, ctx.rng.fold, 1.0 - self.rate,
-                        offset=ctx.rng.offset(x))]
+                        offset=ctx.rng.offset(x), rows=ctx.rng.rows(x))]
 
 
 class Softmax(PassthroughAxesMixin, Op):
@@ -200,6 +207,11 @@ class Softmax(PassthroughAxesMixin, Op):
         super().__init__(model, name, inputs)
         self.axis = axis
         self.attrs = {"axis": axis}
+
+    @property
+    def seq_local(self) -> bool:
+        # position-local when it normalizes over the last dimension
+        return self.axis in (-1, len(self.inputs[0].shape) - 1)
 
     def output_shapes(self):
         return [tuple(self.inputs[0].shape)]
@@ -220,6 +232,7 @@ class LayerNorm(PassthroughAxesMixin, Op):
     in f32 (population variance), output in the input dtype."""
 
     op_type = "layer_norm"
+    seq_local = True
 
     def __init__(self, model, name, inputs, eps: float = 1e-5,
                  elementwise_affine: bool = True):

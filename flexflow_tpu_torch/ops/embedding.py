@@ -27,20 +27,26 @@ is reduced. Under sparse updates only the owning rank updates a row
 (:meth:`Embedding.local_ids`).
 
 ``DistributedEmbedding`` stacks E same-vocab tables into one (E, vocab,
-dim) weight; a device-explicit placement, and its ``table``/``vocab``
-splits, need ROADMAP item 2.5.
+dim) weight; a device-explicit placement lays it out in device slots,
+and on a mesh each rank looks up the slots it holds (see the class).
+
+On a ``seq`` split an ``Embedding`` of (batch, seq) ids with ``aggr
+"none"`` is position-local: each rank looks up its block of the
+sequence (the LM's ``tokens`` and ``positions``, the latter holding
+global positions).
 """
 
 from __future__ import annotations
 
 import warnings
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.precision import reciprocal_f32
-from ..op import (CHANNEL_OUT, SAMPLE, TABLE, VOCAB, Op, OpContext,
-                  WeightSpec, tp_axis)
+from ..op import (CHANNEL_OUT, SAMPLE, SEQ, TABLE, VOCAB, Op, OpContext,
+                  WeightSpec, _sample_only, tp_axis)
 
 AGGR_MODE_NONE = "none"
 AGGR_MODE_SUM = "sum"
@@ -95,6 +101,19 @@ class Embedding(Op):
         bag = shape[-1] if len(shape) > 1 else 1
         return float(shape[0] * bag * self.out_dim)
 
+    @property
+    def seq_local(self) -> bool:
+        # (batch, seq) ids looked up row by row: each position's row
+        # from its own id
+        return (self.aggr == AGGR_MODE_NONE
+                and len(self.inputs[0].shape) == 2)
+
+    def _local_axes(self, axes):
+        # the ids' dim 1 (the output's too) is the sequence
+        if not self.seq_local:
+            return _sample_only(axes)
+        return (SAMPLE, SEQ) + (None,) * (len(axes) - 2)
+
     def _tp(self, strategy, mesh):
         return tp_axis(self, strategy, mesh, "kernel", 0)
 
@@ -102,13 +121,15 @@ class Embedding(Op):
         ax = self._tp(strategy, mesh)
         return {"kernel": (ax,) if ax else ()}
 
-    def gather(self, table, xs, mesh=None, axis=None):
+    def gather(self, table, xs, mesh=None, strategy=None):
         """(ids, rows): the ids as the gather reads them and the rows of
-        ``table`` they name, the executor's pre-gather. With ``axis``
-        the table is this rank's block of rows over that axis: the
-        masked lookup summed over the axis."""
+        ``table`` they name, the executor's pre-gather and the forward's
+        lookup. On a ``vocab`` split the table is this rank's block of
+        rows over that axis: the masked lookup summed over the axis."""
         (idx,) = xs
         clamped = idx.long().clamp(0, self.num_entries - 1)
+        axis = (self._tp(strategy, mesh) if mesh is not None
+                and strategy is not None else None)
         if axis is None:
             return idx, F.embedding(clamped, table)
         from ..parallel.collectives import all_reduce
@@ -118,6 +139,23 @@ class Embedding(Op):
         rows = F.embedding(lid.clamp(0, n_local - 1), table)
         rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
         return idx, all_reduce(rows, mesh, axis)
+
+    def sparse_batch_axes(self, strategy, mesh) -> list:
+        """(axis, dim) pairs, in order, to all-gather a sparse update's
+        ids and row gradients over, so every rank holds the global
+        batch's in its order: the sequence's axis on dim 1 first (a
+        position-local lookup on a ``seq`` split), then the batch's."""
+        spec = self.mesh_input_specs(strategy, mesh)[0]
+        return [(spec[d], d) for d in reversed(range(len(spec)))
+                if isinstance(spec[d], str)]
+
+    def update_ids(self, idx, table, strategy, mesh):
+        """The ids a sparse update of this rank's table block takes
+        (:meth:`local_ids` on a ``vocab`` split, else ``idx``)."""
+        ax = self._tp(strategy, mesh)
+        if ax is None:
+            return idx
+        return self.local_ids(idx, mesh, ax, table.shape[0])
 
     def local_ids(self, idx, mesh, axis, n_local: int):
         """Sparse-update ids for this rank's block of rows: an id it
@@ -134,9 +172,8 @@ class Embedding(Op):
         if "__rows__" in params:
             emb = params["__rows__"]   # pre-gathered by the executor
         else:
-            ax = (self._tp(ctx.strategy, ctx.mesh)
-                  if ctx.mesh is not None else None)
-            emb = self.gather(params["kernel"], xs, ctx.mesh, ax)[1]
+            emb = self.gather(params["kernel"], xs, ctx.mesh,
+                              ctx.strategy)[1]
         return [_aggregate(emb, self.aggr).to(self.out_dtype)]
 
 
@@ -170,9 +207,30 @@ class DistributedEmbedding(Op):
     """E same-vocab embedding bags as ONE stacked (E, vocab, dim) weight:
     inputs are E index tensors of shape (batch, bag), outputs E tensors
     (batch, dim) in the same order (a drop-in for a list of
-    ``Embedding`` ops, models/dlrm.py). On one device the tables are
-    stacked in table order; ``apply_placement`` keeps the JAX op's
-    meshless behaviour (a placement is ignored with a warning)."""
+    ``Embedding`` ops, models/dlrm.py).
+
+    Device-explicit placement (the reference's per-table device ids, a
+    DLRM strategy's tables pinned to devices): :meth:`apply_placement`
+    lowers a per-table device-id tuple into JAX's slot layout — tables
+    grouped by device, each device padded to K slots, stacked (n_dev *
+    K, vocab, dim) with the slot axis over the WHOLE mesh in rank order
+    (``parallel/sharding.effective_op_strategy``), so slot block d lives
+    on rank d. ``get_weights`` and ``set_weights`` speak table order
+    (:meth:`to_table_order`, :meth:`from_table_order`).
+
+    On an executing mesh, a kernel whose slot axis is split (a
+    placement, or ``table`` over a mesh axis) is looked up where it
+    lives: each rank gathers the batch's ids over ``data`` (every
+    rank's slots serve the whole batch), looks up its own slots, and
+    the slots' outputs are all-gathered over the slot axes in slot
+    order, each rank keeping its rows of the batch — so its outputs,
+    in table order, are the one-device ones for its rows. The backward
+    of that gather takes the rank's slots, whose gradient is then whole
+    (the rank computed them from the whole batch): nothing is summed
+    over ``data`` (:meth:`mesh_grad_axes`), and a sparse update touches
+    the rank's slots only. A kernel split on ``vocab`` looks up the
+    rows each rank owns and sums them over the axis (exact: each row
+    lives on one rank), as ``Embedding`` does."""
 
     op_type = "distributed_embedding"
 
@@ -199,38 +257,105 @@ class DistributedEmbedding(Op):
         self.attrs = {"num_tables": self.num_tables,
                       "num_entries": num_entries, "out_dim": out_dim,
                       "aggr": aggr}
+        # device-explicit placement (apply_placement): per-table device
+        # ids, slot -> table (-1 a pad), table -> slot
         self.placement = None
+        self._slots = None
+        self._slot_of_table = None
         self.num_slots = self.num_tables
 
     def apply_placement(self, device_ids, mesh=None) -> None:
-        """A per-table device placement. Without a mesh it cannot
-        execute: warn and keep plain stacking, as the JAX op does on a
-        meshless compile. With a mesh it needs the slot layout of the
-        parallel machinery, which is not ported (ROADMAP item 2.5)."""
-        if device_ids is not None and mesh is not None:
-            raise NotImplementedError(
-                f"{self.name}: device-explicit table placement needs a "
-                f"mesh, which is not ported yet")
-        if device_ids is not None:
+        """Lower per-table ``device_ids`` to the slot layout (see the
+        class docstring), or reset to plain stacking when None. Called
+        at every compile, so a strategy change relays out the weight. A
+        length-1 tuple pins every table to that one device. Without a
+        mesh a placement cannot execute: it is ignored with a warning
+        and the stacking stays plain (no padded slots), as in JAX's
+        meshless compile."""
+        if device_ids is not None and len(device_ids) == 1 \
+                and self.num_tables > 1:
+            device_ids = tuple(device_ids) * self.num_tables
+        if device_ids is not None and mesh is None:
             warnings.warn(
                 f"{self.name}: device-explicit placement {device_ids} "
                 f"ignored — no mesh to place on (meshless compile)")
-        self.placement = None
-        self.num_slots = self.num_tables
+            device_ids = None
+        if device_ids is None:
+            self.placement = None
+            self._slots = None
+            self._slot_of_table = None
+            self.num_slots = self.num_tables
+            return
+        if len(device_ids) != self.num_tables:
+            raise ValueError(
+                f"{self.name}: device_ids length {len(device_ids)} != "
+                f"num_tables {self.num_tables} (per-table placement "
+                f"needs one device id per table, or exactly one id to "
+                f"pin all tables)")
+        n_dev = int(mesh.size)
+        ids = [int(d) for d in device_ids]
+        if any(d < 0 or d >= n_dev for d in ids):
+            raise ValueError(
+                f"{self.name}: device ids {ids} out of range for "
+                f"{n_dev} devices")
+        groups = [[] for _ in range(n_dev)]
+        for t, d in enumerate(ids):
+            groups[d].append(t)
+        k = max(1, max(len(g) for g in groups))
+        if n_dev * k >= 4 * self.num_tables:
+            warnings.warn(
+                f"{self.name}: placement {ids} pads {self.num_tables} "
+                f"tables to {n_dev * k} slots "
+                f"({n_dev * k / self.num_tables:.1f}x kernel memory); "
+                f"balance tables across devices to avoid the padding")
+        slots = []
+        for g in groups:
+            slots += g + [-1] * (k - len(g))
+        self.placement = tuple(ids)
+        self._slots = tuple(slots)
+        self._slot_of_table = tuple(slots.index(t)
+                                    for t in range(self.num_tables))
+        self.num_slots = n_dev * k
 
     def to_table_order(self, kernel):
-        """The kernel in table order: on one device the layout is table
-        order already."""
-        return kernel
+        """A (num_slots, vocab, dim) slot-layout kernel in TABLE order
+        (num_tables, vocab, dim), the pads dropped: what ``get_weights``
+        returns whatever the placement."""
+        if self._slot_of_table is None:
+            return kernel
+        return kernel[list(self._slot_of_table)]
 
     def from_table_order(self, kernel_tables, current=None):
-        """Inverse of :meth:`to_table_order`."""
-        return kernel_tables
+        """The inverse of :meth:`to_table_order`: a table-ordered kernel
+        (numpy or a tensor) scattered into the slot layout, the pad
+        slots keeping ``current``'s values (zeros without it: a pad
+        slot is never read into an output)."""
+        if self._slot_of_table is None:
+            return kernel_tables
+        shape = (self.num_slots,) + tuple(kernel_tables.shape[1:])
+        if isinstance(kernel_tables, torch.Tensor):
+            out = (kernel_tables.new_zeros(shape) if current is None
+                   else current.clone())
+        else:
+            out = (np.zeros(shape, np.asarray(kernel_tables).dtype)
+                   if current is None else np.array(current, copy=True))
+        for t, s in enumerate(self._slot_of_table):
+            out[s] = kernel_tables[t]
+        return out
+
+    def has_pads(self) -> bool:
+        return self._slots is not None and -1 in self._slots
 
     def slot_ids(self, xs):
-        """The E index tensors stacked (E, batch, bag) int32, in the
-        order the kernel is laid out in."""
-        return torch.stack([x.to(torch.int32) for x in xs], dim=0)
+        """The index tensors stacked (num_slots, batch, bag) int32 in
+        the order the kernel is laid out in; a pad slot reads row 0 of
+        its (unused) pad table."""
+        if self._slots is None:
+            cols = list(xs)
+        else:
+            zero = torch.zeros_like(xs[0])
+            cols = [xs[t] if t >= 0 else zero for t in self._slots]
+        return torch.stack([c.to(torch.int32) for c in cols], dim=0)
 
     def output_shapes(self):
         shape = tuple(self.inputs[0].shape)
@@ -264,16 +389,128 @@ class DistributedEmbedding(Op):
         bs, bag = self.inputs[0].shape[0], self.inputs[0].shape[-1]
         return float(self.num_tables * bs * bag * self.out_dim)
 
-    def gather(self, table, xs):
-        """(ids (E, batch, bag), rows (E, batch, bag, dim)): the
-        executor's pre-gather."""
+    # ---- on an executing mesh ----
+    def _kernel_spec(self, strategy, mesh) -> tuple:
+        """The kernel's stored layout (JAX's, placement lowered)."""
+        from ..parallel.sharding import (effective_op_strategy,
+                                         weight_sharding, _padded)
+        st = effective_op_strategy(self, strategy, mesh)
+        return tuple(_padded(weight_sharding(
+            self.weight_specs()["kernel"], st, mesh), 3))
+
+    def split_axes(self, strategy, mesh):
+        """(slot axes, vocab axis): the mesh axes the kernel's slot
+        dimension is stored split over (a tuple, or None) and the axis
+        its vocab dimension is (or None)."""
+        from ..parallel.sharding import _names
+        if mesh is None or strategy is None:
+            return None, None
+        spec = self._kernel_spec(strategy, mesh)
+        slots = _names(spec[0]) or None
+        vocab = _names(spec[1])
+        if len(vocab) > 1:
+            raise NotImplementedError(
+                f"{self.name}: vocab split over several mesh axes "
+                f"{vocab} (ROADMAP item 2.6)")
+        return slots, (vocab[0] if vocab else None)
+
+    def _data_axis(self, strategy, mesh):
+        from ..parallel.sharding import spec_for_axes
+        spec = spec_for_axes(self.input_axes()[0], strategy, mesh,
+                             self.inputs[0].shape)
+        return spec[0] if spec and isinstance(spec[0], str) else None
+
+    def mesh_weight_specs(self, strategy, mesh):
+        slots, vocab = self.split_axes(strategy, mesh)
+        if slots or vocab:
+            # looked up where it lives (a channel split is read whole)
+            spec = list(self._kernel_spec(strategy, mesh))
+            spec[2] = None
+            while spec and spec[-1] is None:
+                spec.pop()
+            return {"kernel": tuple(spec)}
+        return {"kernel": ()}
+
+    def mesh_grad_axes(self, strategy, mesh) -> tuple:
+        if self.split_axes(strategy, mesh)[0]:
+            # the rank's slots computed from the whole batch: their
+            # gradient is whole, nothing to sum
+            return ()
+        return super().mesh_grad_axes(strategy, mesh)
+
+    def sparse_batch_axes(self, strategy, mesh) -> list:
+        """(axis, dim) pairs, in order, to all-gather a sparse update's
+        ids and row gradients over (the global batch's rows on every
+        rank): none for a slot-split kernel (its rows already are)."""
+        if self.split_axes(strategy, mesh)[0]:
+            return []
+        d = self._data_axis(strategy, mesh)
+        return [(d, 1)] if d else []
+
+    def update_ids(self, idx, table, strategy, mesh):
+        """The ids a sparse update of this rank's kernel block takes: a
+        vocab split's rows the rank does not own as ``n_local`` (the
+        update drops them; negative ids wrap first, as the one-device
+        scatter takes them); otherwise ``idx``."""
+        vocab = self.split_axes(strategy, mesh)[1]
+        if vocab is None:
+            return idx
+        n_local = table.shape[1]
+        i = idx.long()
+        r = torch.where(i < 0, i + self.num_entries, i)
+        lid = r - mesh.coord(vocab) * n_local
+        own = (lid >= 0) & (lid < n_local)
+        return torch.where(own, lid, torch.full_like(lid, n_local))
+
+    def gather(self, table, xs, mesh=None, strategy=None):
+        """(ids, rows): the ids as the gather reads them and the rows of
+        ``table`` (this rank's block of the kernel) they name — the
+        executor's pre-gather, and the forward's lookup. A slot-split
+        kernel: the whole batch's ids of the rank's slots. A vocab
+        split: the masked lookup summed over the axis."""
         ids = self.slot_ids(xs)
-        return ids, _slot_gather(table, ids)
+        slots, vocab = self.split_axes(strategy, mesh)
+        if slots:
+            from ..parallel.collectives import gather_tensor
+            d = self._data_axis(strategy, mesh)
+            if d is not None:
+                ids = gather_tensor(ids, mesh, d, 1)
+            k = table.shape[0]
+            c = mesh.coord(slots if len(slots) > 1 else slots[0])
+            ids = ids[c * k:(c + 1) * k]
+            return ids, _slot_gather(table, ids)
+        if vocab is None:
+            return ids, _slot_gather(table, ids)
+        from ..parallel.collectives import all_reduce
+        s, v = ids.shape[0], self.num_entries
+        gid = (ids.long() + (torch.arange(s, device=ids.device) * v)[
+            :, None, None]).clamp(0, s * v - 1)
+        slot, row = gid // v, gid % v
+        n_local = table.shape[1]
+        lid = row - mesh.coord(vocab) * n_local
+        own = (lid >= 0) & (lid < n_local)
+        local = (slot * n_local + lid.clamp(0, n_local - 1))
+        rows = F.embedding(local, table.reshape(-1, table.shape[-1]))
+        rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
+        return ids, all_reduce(rows, mesh, vocab)
 
     def forward(self, params, xs, ctx: OpContext):
+        mesh, st = ctx.mesh, ctx.strategy
         if "__rows__" in params:
             emb = params["__rows__"]   # pre-gathered by the executor
         else:
-            emb = self.gather(params["kernel"], xs)[1]
+            emb = self.gather(params["kernel"], xs, mesh, st)[1]
         emb = _aggregate(emb, self.aggr)
-        return [emb[s].to(self.out_dtype) for s in range(self.num_tables)]
+        slots = self.split_axes(st, mesh)[0]
+        if slots:
+            # every slot's outputs for the whole batch, then this rank's
+            # rows of them
+            from ..parallel.collectives import all_gather, split
+            emb = all_gather(emb, mesh, slots if len(slots) > 1
+                             else slots[0], 0)
+            d = self._data_axis(st, mesh)
+            if d is not None:
+                emb = split(emb, mesh, d, 1)
+        order = (self._slot_of_table if self._slot_of_table is not None
+                 else range(self.num_tables))
+        return [emb[s].to(self.out_dtype) for s in order]

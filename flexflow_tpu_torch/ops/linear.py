@@ -21,6 +21,7 @@ from .common import AC_MODE_NONE, apply_activation
 
 class Linear(Op):
     op_type = "linear"
+    seq_local = True
 
     def __init__(self, model, name, inputs, out_channels: int,
                  activation=AC_MODE_NONE, use_bias: bool = True,

@@ -11,15 +11,26 @@ combine weighted by the gates; and in training the load-balancing loss
 executor adds it to the objective). The expert GEMMs are ``torch.bmm``:
 JAX computes them in XLA.
 
-With the batch split over ``data`` (the expert axis is never split in
-this port: ``expert`` parallelism is ROADMAP item 2.5) each rank routes
-its own tokens with the global routing: the capacity is the global
-batch's, a slot's rank adds the earlier ranks' per-expert counts
-(ops/moe.py ``expert_prefix``), and the expert FFN, a function of each
-buffer row alone, runs on the rank's own rows. The load-balancing loss
-takes its two means over the global batch (``all_reduce`` of the
-local sums: the loss is replicated, so each rank's gradient of it is
-whole).
+With the batch split over ``data`` each rank routes its own tokens
+with the global routing: the capacity is the global batch's, a slot's
+rank adds the earlier ranks' per-expert counts (ops/moe.py
+``expert_prefix``), and the expert FFN, a function of each buffer row
+alone, runs on the rank's own rows. The load-balancing loss takes its
+two means over the global batch (``all_reduce`` of the local sums: the
+loss is replicated, so each rank's gradient of it is whole).
+
+Expert parallelism (a strategy mapping ``expert`` onto a mesh axis,
+JAX's ``{"sample": "data", "expert": "expert"}`` or the search's
+``expert`` over ``model``): ``w1``, ``b1``, ``w2`` and ``b2`` are
+stored split on their expert dimension, a rank holding E/n experts.
+The tokens are replicated over that axis, so every rank of it routes
+and dispatches the same buffers; each runs its own experts on its
+slice of them (``split``: the buffers' gradient is gathered back, the
+tokens' then whole), and the combine needs every expert's rows, which
+an ``all_gather`` brings (as GSPMD gathers them). The combine is
+computed alike on every rank, so the gather's backward takes the
+rank's slice of a whole gradient — a sum there would multiply the
+experts' gradients by n.
 """
 
 from __future__ import annotations
@@ -27,7 +38,8 @@ from __future__ import annotations
 import torch
 
 from ..core.precision import reciprocal_f32
-from ..op import CHANNEL, EXPERT, SAMPLE, SEQ, Op, OpContext, WeightSpec
+from ..op import (CHANNEL, EXPERT, SAMPLE, SEQ, Op, OpContext, WeightSpec,
+                  tp_axis)
 from .common import AC_MODE_RELU, apply_activation
 from .moe import (dispatch_indices, dispatch_mask, expert_prefix,
                   sorted_combine, sorted_dispatch, use_sorted_dispatch)
@@ -93,6 +105,15 @@ class MoEFFN(Op):
                              axes=(EXPERT, None)),
         }
 
+    def _ep(self, strategy, mesh):
+        """The mesh axis the experts are split over, or None."""
+        return tp_axis(self, strategy, mesh, "w1", 0)
+
+    def mesh_weight_specs(self, strategy, mesh):
+        ax = self._ep(strategy, mesh)
+        return {k: ((ax,) if ax and k != "gate" else ())
+                for k in self.weight_specs()}
+
     def sorted_path(self) -> bool:
         return use_sorted_dispatch(self.model, self.n_tokens * self.k,
                                    self.num_experts, self.capacity)
@@ -130,11 +151,19 @@ class MoEFFN(Op):
             mask = dispatch_mask(assign, e, cap)
             expert_in = torch.einsum("snc,sd->ncd", mask,
                                      xrep.float()).to(dt)
+        ep = (self._ep(ctx.strategy, ctx.mesh)
+              if ctx.mesh is not None else None)
+        if ep is not None:
+            from ..parallel.collectives import split
+            expert_in = split(expert_in, ctx.mesh, ep, 0)
         h = _bmm_f32(expert_in, params["w1"].to(dt), dt)
         h = apply_activation(h + params["b1"][:, None, :].to(dt),
                              self.activation)
         out_e = _bmm_f32(h, params["w2"].to(dt), dt)
         out_e = out_e + params["b2"][:, None, :].to(dt)
+        if ep is not None:
+            from ..parallel.collectives import all_gather
+            out_e = all_gather(out_e, ctx.mesh, ep, 0)
         if sorted_path:
             combined = sorted_combine(out_e, pos, kept).float()
         else:

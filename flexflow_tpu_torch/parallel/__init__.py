@@ -3,11 +3,12 @@ description and the executing mesh's process groups (``mesh``), per-op
 strategies (``pconfig``), layouts and resharding (``sharding``), the
 collectives (``collectives``), local rank processes (``launch``),
 strategy files (``strategy_io``) and the planners the simulator reads
-(``graph_pipeline``, ``ulysses``). Data parallelism and linear,
-attention and embedding tensor parallelism execute (core/executor.py),
-and so does tensor-parallel serving (serve/engine.py);
-pipelines, sequence and expert parallelism wait for ROADMAP items
-2.3-2.5."""
+(``graph_pipeline``, ``ulysses``). Data parallelism; linear,
+attention and embedding tensor parallelism; sequence parallelism
+(``ring_attention``, ``ulysses.alltoall_attention``); expert parallelism
+and placed embedding tables execute (core/executor.py), and so does
+tensor-parallel serving (serve/engine.py); pipelines wait for ROADMAP
+item 2.3."""
 
 from .mesh import (ALL_AXES, DATA, EXPERT_AX, MODEL, PIPE, SEQ_AX, TENSOR,
                    BoundMesh, MachineSpec, MeshShape, default_mesh,

@@ -26,6 +26,16 @@ pair of the one-device semantics they stand for:
 ``split(dim)``      the rank's slice of a replicated value; backward:
                     all-gather
 ``reduce_scatter(dim)`` the slice of the sum; backward: all-gather
+``all_to_all(split, concat)`` JAX's tiled ``lax.all_to_all`` (the
+                    Ulysses re-partition, parallel/ulysses.py); backward:
+                    the inverse all-to-all
+``ppermute(shift)`` JAX's ``lax.ppermute`` one block along the axis (the
+                    ring's K/V hop, parallel/ring_attention.py); backward:
+                    the reverse shift
+
+An axis may also be a tuple of mesh axes: the group of the ranks that
+differ only on them (``BoundMesh.subgroup``), as the gradient sync of
+a data x seq mesh sums over both.
 
 Under NCCL the tensors go to NCCL as they are (on the current stream,
 so a CUDA-graph capture records them and a replay runs them; an
@@ -67,7 +77,7 @@ from ..kernels._launches import count_launch
 
 # collective launches by kind (one a call that reaches the backend)
 launches = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-            "barrier": 0, "lockstep": 0}
+            "all_to_all": 0, "ppermute": 0, "barrier": 0, "lockstep": 0}
 # bytes copied between the card and pinned host memory by gloo staging
 staged_bytes = {"to_host": 0, "to_device": 0}
 
@@ -81,10 +91,37 @@ def reset_counts() -> None:
 
 def _group(bm, axis):
     """(process group, size) of ``axis``, or (None, 1) when the mesh
-    has no such axis."""
-    if bm is None or axis not in bm.groups:
+    has no such axis. A tuple of axes names the group of the ranks that
+    differ only on those axes (``BoundMesh.subgroup``; its members in
+    the row-major order of the axes as the mesh orders them)."""
+    if bm is None:
+        return None, 1
+    if isinstance(axis, tuple):
+        axes = tuple(a for a in bm.axis_names if a in axis)
+        if not axes:
+            return None, 1
+        if len(axes) > 1:
+            return bm.subgroup(axes)[0], bm.axis_size(axes)
+        axis = axes[0]
+    if axis not in bm.groups:
         return None, 1
     return bm.groups[axis], bm.axis_size(axis)
+
+
+def _ranks(bm, axis) -> List[int]:
+    """The global ranks of ``axis``'s group, in coordinate order."""
+    if isinstance(axis, tuple):
+        axes = tuple(a for a in bm.axis_names if a in axis)
+        if len(axes) > 1:
+            return bm.subgroup(axes)[1]
+        axis = axes[0]
+    return bm.group_ranks[axis]
+
+
+def _coord(bm, axis) -> int:
+    if isinstance(axis, tuple):
+        return bm.coord(tuple(a for a in bm.axis_names if a in axis))
+    return bm.coord(axis)
 
 
 def _stages(bm, t: torch.Tensor) -> bool:
@@ -200,7 +237,67 @@ def local_slice(t: torch.Tensor, bm, axis: str, dim: int) -> torch.Tensor:
         raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split "
                          f"over {n} ranks of {axis!r}")
     part = size // n
-    return t.narrow(dim, bm.coord(axis) * part, part).contiguous()
+    return t.narrow(dim, _coord(bm, axis) * part, part).contiguous()
+
+
+def all_to_all_tensor(t: torch.Tensor, bm, axis, split_dim: int,
+                      concat_dim: int) -> torch.Tensor:
+    """JAX's ``lax.all_to_all(t, axis, split_dim, concat_dim,
+    tiled=True)`` (not differentiable): ``t`` cut into n blocks along
+    ``split_dim``, block j sent to coordinate j, and the blocks received
+    concatenated along ``concat_dim`` in coordinate order. One
+    ``all_to_all_single`` over a buffer of the n blocks stacked."""
+    import torch.distributed as dist
+    g, n = _group(bm, axis)
+    if g is None:
+        return t
+    if t.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of "
+                         f"{tuple(t.shape)} does not split over {n} ranks")
+    count_launch(launches, "all_to_all")
+    src = torch.stack(t.chunk(n, dim=split_dim)).contiguous()
+    staged = _stages(bm, src)
+    if staged:
+        src = _to_host(src)
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=g)
+    if staged:
+        host = out
+        out = torch.empty(host.shape, dtype=host.dtype, device=t.device)
+        _to_device(out, host)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+def ppermute_tensor(t: torch.Tensor, bm, axis, shift: int = 1
+                    ) -> torch.Tensor:
+    """JAX's ``lax.ppermute`` by ``shift`` along ``axis`` (not
+    differentiable): this rank's ``t`` goes to coordinate ``(c + shift)
+    mod n`` and the block of coordinate ``(c - shift) mod n`` comes
+    back. The send and the receive are one ``batch_isend_irecv``, so a
+    ring of any size cannot deadlock; the peers are global ranks (from
+    the group's members). A shift by a multiple of the axis size (an
+    axis of one rank) is the identity, with no launch."""
+    import torch.distributed as dist
+    g, n = _group(bm, axis)
+    if g is None or n == 1 or shift % n == 0:
+        return t
+    count_launch(launches, "ppermute")
+    ranks, c = _ranks(bm, axis), _coord(bm, axis)
+    dst, src = ranks[(c + shift) % n], ranks[(c - shift) % n]
+    send = t.contiguous()
+    staged = _stages(bm, send)
+    if staged:
+        send = _to_host(send)
+    recv = torch.empty_like(send)
+    ops = [dist.P2POp(dist.isend, send, dst, group=g),
+           dist.P2POp(dist.irecv, recv, src, group=g)]
+    for w in dist.batch_isend_irecv(ops):
+        w.wait()
+    if staged:
+        host = recv
+        recv = torch.empty(host.shape, dtype=host.dtype, device=t.device)
+        _to_device(recv, host)
+    return recv
 
 
 def gather_objects(obj, bm, axis: str) -> List:
@@ -435,3 +532,43 @@ def split(x, bm, axis: str, dim: int):
 def reduce_scatter(x, bm, axis: str, dim: int):
     return (x if _trivial(bm, axis)
             else _ReduceScatter.apply(x, bm, axis, dim))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bm, axis, split_dim, concat_dim):
+        ctx.bm, ctx.axis = bm, axis
+        ctx.dims = (split_dim, concat_dim)
+        return all_to_all_tensor(x, bm, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return (all_to_all_tensor(g.contiguous(), ctx.bm, ctx.axis,
+                                  concat_dim, split_dim),
+                None, None, None, None)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bm, axis, shift):
+        ctx.bm, ctx.axis, ctx.shift = bm, axis, shift
+        return ppermute_tensor(x, bm, axis, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ppermute_tensor(g.contiguous(), ctx.bm, ctx.axis,
+                                -ctx.shift), None, None, None)
+
+
+def all_to_all(x, bm, axis, split_dim: int, concat_dim: int):
+    """Differentiable :func:`all_to_all_tensor`; its backward is the
+    inverse all-to-all (``split_dim`` and ``concat_dim`` swapped)."""
+    return (x if _trivial(bm, axis) else
+            _AllToAll.apply(x, bm, axis, split_dim, concat_dim))
+
+
+def ppermute(x, bm, axis, shift: int = 1):
+    """Differentiable :func:`ppermute_tensor`; its backward shifts the
+    gradient the other way (``-shift``)."""
+    return x if _trivial(bm, axis) else _PPermute.apply(x, bm, axis, shift)

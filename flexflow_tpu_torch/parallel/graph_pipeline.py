@@ -15,8 +15,8 @@ What the strategy simulator reads, and no execution:
 
 The executing half — parameter packing, ``pipeline_logits`` and
 ``pipeline_1f1b_grads`` over a mesh's pipe axis — waits for ROADMAP
-module items 2.3-2.6; ``FFModel.compile`` raises for
-``pipeline_stages > 1`` until then.
+module item 2.3; ``FFModel.compile`` raises for ``pipeline_stages > 1``
+until then.
 """
 
 from __future__ import annotations

@@ -146,6 +146,7 @@ class BoundMesh:
         self.groups = {}
         self.host_groups = {}
         self.group_ranks = {}
+        self._subgroups = {}
         grid = mesh.devices
         for ax_i, ax in enumerate(mesh.axis_names):
             # every line of the grid along this axis, in a fixed order:
@@ -163,11 +164,55 @@ class BoundMesh:
                     self.host_groups[ax] = h
                     self.group_ranks[ax] = ranks
 
-    def axis_size(self, axis: str) -> int:
+    def axis_size(self, axis) -> int:
+        """The size of ``axis``, or of a tuple of axes (their
+        product)."""
+        if isinstance(axis, tuple):
+            return int(np.prod([self.axis_size(a) for a in axis],
+                               dtype=np.int64))
         return int(self.shape.get(axis, 1))
 
-    def coord(self, axis: str) -> int:
+    def coord(self, axis) -> int:
+        """The rank's coordinate on ``axis``; on a tuple of axes its
+        row-major index over them (the first axis major), the block a
+        spec entry naming those axes gives this rank."""
+        if isinstance(axis, tuple):
+            c = 0
+            for a in axis:
+                c = c * self.axis_size(a) + self.coord(a)
+            return c
         return int(self.coords.get(axis, 0))
+
+    def subgroup(self, axes: tuple):
+        """The group of the ranks that differ from this one only in
+        their coordinates on ``axes`` (several mesh axes taken as one),
+        its members in the row-major order of :meth:`coord`. Made on
+        first use and cached: every rank must ask for the same axes in
+        the same order (``new_group`` is collective over the world),
+        which a program every rank runs alike does."""
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if not axes:
+            return None
+        if len(axes) == 1:
+            return self.groups[axes[0]], self.group_ranks[axes[0]]
+        hit = self._subgroups.get(axes)
+        if hit is not None:
+            return hit
+        import torch.distributed as dist
+        grid = self.mesh.devices
+        idx = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(grid.ndim) if i not in idx]
+        moved = np.transpose(grid, rest + idx).reshape(
+            -1, int(np.prod([grid.shape[i] for i in idx])))
+        mine = None
+        for line in moved:
+            ranks = [int(r) for r in line]
+            g = dist.new_group(ranks) if self.world > 1 else \
+                dist.group.WORLD
+            if self.rank in ranks:
+                mine = (g, ranks)
+        self._subgroups[axes] = mine
+        return mine
 
     @property
     def staging(self) -> bool:

@@ -8,8 +8,9 @@ axis sizes, explicit device ids from the mesh layout. ``ParallelConfig``
 is the reference's per-op view (strategy file I/O). ``Strategy.save``
 and ``Strategy.load`` write and read the JAX package's JSON, so a
 strategy file written by either package loads in the other. The port
-prices, searches and exports strategies; it executes them on one
-device, where nothing is sharded.
+prices, searches and exports strategies, and executes them on a mesh
+bound to a process group (core/executor.py); on one device nothing is
+sharded.
 """
 
 from __future__ import annotations
@@ -175,8 +176,8 @@ DATA_PARALLEL = Strategy()
 
 def sequence_parallel_strategy(seq_axis: str = "seq") -> Strategy:
     """SP/CP: activations sharded over the sequence dim; attention runs
-    as ring attention over `seq_axis` (new capability vs the reference,
-    SURVEY.md 2.4)."""
+    as ring or all-to-all attention over `seq_axis` (``sp_attention``;
+    new capability vs the reference, SURVEY.md 2.4)."""
     return Strategy(default=OpStrategy({"sample": "data",
                                         "seq": seq_axis}))
 

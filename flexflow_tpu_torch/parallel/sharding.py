@@ -86,8 +86,9 @@ def weight_sharding(spec: WeightSpec, strategy: OpStrategy, mesh) -> Spec:
 def effective_op_strategy(op: Op, strategy: OpStrategy,
                           mesh) -> OpStrategy:
     """JAX's rule: a device-placed stacked embedding shards its
-    ``table`` axis over the whole mesh. (Placement itself waits for
-    ROADMAP item 2.5: the executor refuses it on a mesh.)"""
+    ``table`` axis over the whole mesh, in the mesh's axis order, so
+    slot block d lives on rank d (ops/embedding.py
+    ``DistributedEmbedding``)."""
     if mesh is not None and getattr(op, "placement", None):
         am = dict(strategy.axis_map)
         am[TABLE] = tuple(mesh.axis_names)

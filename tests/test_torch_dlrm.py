@@ -144,8 +144,9 @@ def test_dlrm_dense_updates_match_jax_dense():
 
 def test_distributed_embedding_meshless_placement():
     """A placement without a mesh is ignored with a warning (the JAX
-    op's meshless compile); with a mesh it needs the parallel slot
-    layout, which is not ported. The kernel is in table order."""
+    op's meshless compile); with a mesh description it lays the tables
+    out in device slots (JAX's layout), and ``None`` resets it. The
+    kernel is in table order."""
     pff = ft.build_dlrm(ft.FFConfig(batch_size=8), batch_size=8,
                         embedding_vocab_sizes=(50,) * 3,
                         stacked_tables=True, device="cpu")
@@ -153,8 +154,12 @@ def test_distributed_embedding_meshless_placement():
     with pytest.warns(UserWarning, match="no mesh"):
         op.apply_placement((0, 1, 0))
     assert op.placement is None and op.num_slots == 3
-    with pytest.raises(NotImplementedError):
-        op.apply_placement((0, 1, 0), mesh=object())
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    op.apply_placement((0, 1, 0), mesh=make_mesh((2,), ("data",)))
+    assert op.placement == (0, 1, 0) and op.num_slots == 4
+    assert op._slots == (0, 2, 1, -1)
+    op.apply_placement(None, mesh=make_mesh((2,), ("data",)))
+    assert op.placement is None and op.num_slots == 3
     assert op.flops() == 3 * 8 * 1 * 64
     pff.compile(metrics=[], loss_type="mean_squared_error")
     k = pff.get_weights("emb_tables")["kernel"]
