@@ -184,6 +184,23 @@ wide-head) must not spill — and then:
     the all-to-all and the ring on one NCCL rank at axis size 1.
     ``--only-sp`` runs the build and this phase alone.
 
+  * runs pipelines (``pp_phase``, last) on two gloo ranks sharing the
+    card, eager: (a) the README LM auto-cut over a (2,) pipe mesh
+    (flops-balanced: the 512 x 32000 head weighs about 4.5 blocks, so
+    the cut is uneven; printed), M = 4 microbatches, under GPipe and
+    1F1B, f32 against the one-device run of the same weights
+    (MESH_LOSS_REL / MESH_WEIGHT_ABS after 2 SGD steps) and the bf16
+    policy (PP_BF16_LOSS_REL, PP_BF16_UPDATE_REL); (b) interleaved, v = 2 (4 stages on the
+    2 ranks, 1F1B), f32 against the same one-device run; (c) per rank
+    its resident parameter and slot bytes against its PackSpec rows,
+    its flash launches (its attention layers x M, each direction), the
+    sends and receives and the MiB staged a step; (d) kernels 2-4 at
+    the microbatch shape (b=4, s=512, h=8, d=64, causal, f32 and bf16)
+    against their plain pieces, timed beside their bounds and SDPA; (e)
+    the LM's block stacked 6 deep as ``pipeline_blocks`` with ``layer ->
+    pipe`` against its one-device loop. ``--only-pp`` runs the build
+    and this phase alone.
+
 Every phase raises on failure. Prints the card (name, power limit), the
 build, each kernel's error and times, the training and serving numbers,
 the script's wall time, then one line ``{"kernels": [...]}`` and, last,
@@ -5557,6 +5574,330 @@ def sp_phase(fa, card: str):
     return res
 
 
+# ----------------------------------- pipelines: two gloo ranks on the card
+PP_STEPS = 2
+PP_MICRO = 4
+# (d) the microbatch of the LM at M = PP_MICRO: b = LB / M
+PP_MB = LB // PP_MICRO
+# The bf16 policy's limits, set from readings on an H100 (80GB HBM3,
+# 700 W): a sound pipelined run reads a loss 2.3e-6 relative and
+# updates 6.3e-2 relative of the one-device run's (f32 reads 2.45e-2:
+# two SGD steps move a weight by a few ulps, so the update's rounding
+# dominates); a last stage that took its loss on bf16 logits read
+# 1.39e-3 on the loss. A gradient summed once too often, or without
+# its 1/M, moves an update by 1 or M - 1 relative.
+PP_BF16_LOSS_REL = 1e-4
+PP_BF16_UPDATE_REL = 0.1
+
+
+def _pp_cut(m):
+    """{stage: [op names]} of a pipelined model's plan."""
+    plan = m.executor.plan
+    return {s: [op.name for op in ops] for s, ops in enumerate(plan.stages)}
+
+
+def _pp_run(dtype, data, mesh=None, strategy=None, build=None, **cfg):
+    """Train ``data`` on a model (the LM at full width unless ``build``)
+    eagerly; returns the losses, the global weights (host, f32; every
+    rank gathers them from their owners), the flash launches, the
+    point-to-point and collective launches a step, the MiB staged a
+    step, the step time and, on a pipeline, the cut, the rank's
+    attention ops, its resident bytes beside its PackSpec rows and its
+    in-flight peaks."""
+    from flexflow_tpu_torch.core.staged import StagedExecutor
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel import collectives as C
+    m = (build or lm_model)(dtype, capture=False, mesh=mesh,
+                            strategy=strategy, **cfg)
+    ex = m.executor
+    staged = isinstance(ex, StagedExecutor)
+    fl0 = {k: fa.launches[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")}
+    C.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [float(m.train_batch(b)["loss"]) for b in data]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / len(data)
+    out = {"losses": losses, "step_ms": step_ms,
+           "flash_launches": {k: fa.launches[k] - v
+                              for k, v in fl0.items()},
+           "p2p_per_step": {k: v / len(data) for k, v in C.launches.items()
+                            if v},
+           "staged_mib_per_step": sum(C.staged_bytes.values())
+           / len(data) / 2 ** 20}
+    if staged:
+        own = [op.name for s in ex._own_stages for op in ex.plan.stages[s]]
+        out.update(cut=_pp_cut(m), stages=list(ex._own_stages),
+                   attn_ops=[n for n in own
+                             if n.endswith("_attn") or n == "pipeline"],
+                   resident=ex.resident_bytes(m.state),
+                   peak=dict(ex.last_peak))
+    out["weights"] = {op.name: {k: torch.from_numpy(v)
+                                for k, v in m.get_weights(op.name).items()}
+                      for op in m.ops if op.weight_specs()}
+    release(m)
+    del m
+    return out
+
+
+def _pp_compare(got, ref, init, dtype):
+    """(loss rel, weight abs, update rel, limits, ok) of a run against
+    the one-device one: f32 at MESH_LOSS_REL / MESH_WEIGHT_ABS, bf16 at
+    PP_BF16_LOSS_REL / PP_BF16_UPDATE_REL (each weight's update against
+    the one-device update of it, L2 norms)."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                  ref["losses"]))
+    pairs = [(got["weights"][op][k], w, init[op][k])
+             for op, ws in ref["weights"].items() for k, w in ws.items()]
+    wabs = max(float((a - b).abs().max()) for a, b, _ in pairs)
+    upd = max(float((a - b).norm() / (b - i).norm())
+              for a, b, i in pairs if float((b - i).norm()))
+    if dtype == "float32":
+        lim, worst = (MESH_LOSS_REL, MESH_WEIGHT_ABS), wabs
+    else:
+        lim, worst = (PP_BF16_LOSS_REL, PP_BF16_UPDATE_REL), upd
+    return rel, wabs, upd, lim, rel <= lim[0] and worst <= lim[1]
+
+
+def pp_rank_lm(steps):
+    """(a)-(c) on a gloo rank sharing the card: the README LM at full
+    width auto-cut over a (2,) pipe mesh, M = PP_MICRO, under GPipe and
+    1F1B, f32 and the bf16 policy, and interleaved (v = 2: 4 stages on
+    2 ranks) under 1F1B in f32, each against the one-device run of the
+    same weights on the card (each rank runs it); the rank's flash
+    launches, transfers, staged MiB and resident bytes."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    rank = dist.get_rank()
+    data = lm_batches(steps)
+    mesh = make_mesh((2,), ("pipe",))
+    out = {"rank": rank}
+    refs, inits = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        m = lm_model(dtype, capture=False)
+        inits[dtype] = {op: {k: w.detach().float().cpu().clone()
+                             for k, w in ws.items()}
+                        for op, ws in m.state.params.items()}
+        release(m)
+        del m
+        refs[dtype] = _pp_run(dtype, data)
+    cases = [(d, s, 1) for d in ("float32", "bfloat16")
+             for s in ("gpipe", "1f1b")] + [("float32", "1f1b", 2)]
+    for dtype, sched, v in cases:
+        got = _pp_run(dtype, data, mesh, pipeline_stages=2,
+                      pipeline_schedule=sched,
+                      pipeline_microbatches=PP_MICRO,
+                      pipeline_virtual_stages=v)
+        rel, wabs, upd, lim, ok = _pp_compare(got, refs[dtype],
+                                              inits[dtype], dtype)
+        layers = len(got["attn_ops"])
+        want = layers * PP_MICRO * steps
+        res = got["resident"]
+        cell = {k: got[k] for k in ("losses", "flash_launches",
+                                    "p2p_per_step", "staged_mib_per_step",
+                                    "step_ms", "cut", "stages", "attn_ops",
+                                    "resident", "peak")}
+        cell.update(ref_losses=refs[dtype]["losses"],
+                    ref_step_ms=refs[dtype]["step_ms"],
+                    max_loss_rel=rel, max_weight_abs=wabs,
+                    max_update_rel=upd, limits=lim)
+        key = f"{dtype} {sched}" + (f" v={v}" if v > 1 else "")
+        out[key] = cell
+        if not ok:
+            raise AssertionError(
+                f"pp (a) {key} rank {rank}: against the one-device run "
+                f"loss rel {rel} (limit {lim[0]}), weights abs {wabs}, "
+                f"updates rel {upd} (limit {lim[1]})")
+        if any(n != want for n in got["flash_launches"].values()):
+            raise AssertionError(
+                f"pp (c) {key} rank {rank}: flash launches "
+                f"{got['flash_launches']}, want {want} each ({layers} "
+                f"attention layers x {PP_MICRO} microbatches x {steps})")
+        if res["params"] != res["pack_params"] or any(
+                s != res["pack_slot"] for s in res["slots"].values()):
+            raise AssertionError(f"pp (c) {key} rank {rank}: resident "
+                                 f"bytes {res} are not its PackSpec rows")
+    return out
+
+
+def _pp_blocks_model(dtype, capture=False, mesh=None, strategy=None,
+                     **cfg):
+    """The LM at full width with its 6 blocks as one ``pipeline_blocks``
+    op (M = PP_MICRO): the embeddings, the stack, the final norm and the
+    head."""
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    a = LM_ARCH
+
+    def block(sub, t):
+        x = sub.layer_norm(t, name="ln1")
+        x = sub.multihead_attention(x, x, x, a["hidden"], a["num_heads"],
+                                    causal=True, name="attn")
+        t = sub.add(x, t, name="res1")
+        x = sub.layer_norm(t, name="ln2")
+        x = sub.dense(sub.dense(x, a["ff_dim"], activation="relu",
+                                name="ff1"), a["hidden"], name="ff2")
+        return sub.add(x, t, name="res2")
+
+    m = FFModel(FFConfig(batch_size=LB, seed=0, compute_dtype=dtype, **cfg),
+                mesh=mesh, strategy=strategy, device="cuda")
+    tok = m.create_tensor((LB, TS), dtype=torch.int32, name="tokens")
+    pos = m.create_tensor((LB, TS), dtype=torch.int32, name="positions")
+    t = m.add(m.embedding(tok, a["vocab_size"], a["hidden"], aggr="none",
+                          name="tok_embed"),
+              m.embedding(pos, a["max_seq_len"], a["hidden"], aggr="none",
+                          name="pos_embed"), name="embed_add")
+    t = m.pipeline_blocks(t, block, a["num_layers"],
+                          num_microbatches=PP_MICRO, name="pipeline")
+    m.dense(m.layer_norm(t, name="final_ln"), a["vocab_size"],
+            name="lm_head")
+    m.compile(optimizer=SGDOptimizer(lr=0.01, momentum=0.9),
+              loss_type=mesh_lm_loss(), metrics=[], capture=capture)
+    return m
+
+
+def pp_rank_blocks(steps):
+    """(e) on a gloo rank: the LM's block stacked 6 deep as
+    ``pipeline_blocks`` with ``layer -> pipe`` on a (2,) pipe mesh (3
+    layers a rank, GPipe over the axis, M = PP_MICRO) against its
+    one-device loop, f32, from the same weights."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    from flexflow_tpu_torch.parallel.pconfig import OpStrategy, Strategy
+    data = lm_batches(steps)
+    m = _pp_blocks_model("float32")
+    init = {op: {k: w.detach().float().cpu().clone() for k, w in ws.items()}
+            for op, ws in m.state.params.items()}
+    release(m)
+    del m
+    ref = _pp_run("float32", data, build=_pp_blocks_model)
+    got = _pp_run("float32", data, make_mesh((2,), ("pipe",)),
+                  Strategy(default=OpStrategy({"layer": "pipe"})),
+                  build=_pp_blocks_model)
+    rel, wabs, upd, lim, ok = _pp_compare(got, ref, init, "float32")
+    want = LM_ARCH["num_layers"] // 2 * PP_MICRO * steps
+    out = {"rank": dist.get_rank(), "losses": got["losses"],
+           "ref_losses": ref["losses"], "max_loss_rel": rel,
+           "max_weight_abs": wabs, "limits": lim,
+           "flash_launches": got["flash_launches"],
+           "ref_flash_launches": ref["flash_launches"],
+           "p2p_per_step": got["p2p_per_step"],
+           "staged_mib_per_step": got["staged_mib_per_step"],
+           "step_ms": got["step_ms"], "ref_step_ms": ref["step_ms"]}
+    if not ok or any(n != want for n in got["flash_launches"].values()):
+        raise AssertionError(f"pp (e) rank {out['rank']}: {out}")
+    return out
+
+
+def pp_kernel_check(fa):
+    """(d) kernels 2-4 at the pipelined LM's microbatch shape (b =
+    PP_MB, s = 512, 8 heads, d = 64, causal), f32 and bf16: each against
+    its plain piece (FLASH_TOL), timed beside its bound and
+    scaled_dot_product_attention in 3 interleaved rounds."""
+    dev = torch.device("cuda")
+    scale = 1.0 / math.sqrt(TD)
+    res = {}
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        rng = np.random.default_rng(17)
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(
+            (PP_MB, TS, TH, TD), np.float32)).to(dev).to(dtype)
+            for _ in range(4))
+        kw = {"causal": True, "scale": scale}
+        errs, bargs = flash_errors(fa, q, k, v, do, kw)
+        plain = {
+            "flash_fwd": cuda_ms(lambda: fa.flash_fwd_ref(q, k, v, **kw), 3),
+            "flash_bwd_dq": cuda_ms(
+                lambda: fa.flash_bwd_dq_ref(*bargs, **kw), 3),
+            "flash_bwd_dkv": cuda_ms(
+                lambda: fa.flash_bwd_dkv_ref(*bargs, **kw), 3)}
+        lib_fwd, lib_bwd = sdpa_fns(q, k, v, do, True)
+        rounds = yardstick({
+            "flash_fwd": lambda: fa.flash_fwd_cuda(q, k, v, **kw),
+            "sdpa_fwd": lib_fwd,
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(*bargs, **kw),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(*bargs, **kw),
+            "sdpa_bwd": lib_bwd})
+        bounds = flash_bounds(dtype, True, PP_MB, TH)
+        for kname in plain:
+            b_ms, b_by = bounds[kname]
+            lib = "sdpa_fwd" if kname == "flash_fwd" else "sdpa_bwd"
+            res.setdefault(kname, {})[f"pp_{dname}_causal"] = {
+                "shape": f"b={PP_MB} s={TS} h={TH} d={TD}",
+                "max_abs_err": errs[kname][0],
+                "err_over_max_ref": errs[kname][1],
+                "ms": statistics.median(rounds[kname]),
+                "plain_ms": plain[kname], "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": statistics.median(rounds[lib]),
+                "ms_rounds": rounds[kname], "library_ms_rounds": rounds[lib]}
+            log(f"pp (d) kernel {kname} [microbatch {dname} causal, "
+                f"b={PP_MB} s={TS} h={TH} d={TD}]: max_abs_err="
+                f"{errs[kname][0]:.3g} err/max|ref|={errs[kname][1]:.3g} "
+                f"kernel_ms={spread(rounds[kname])} plain_ms="
+                f"{plain[kname]:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                f"library_ms={spread(rounds[lib])}")
+        del q, k, v, do, bargs, lib_fwd, lib_bwd
+        torch.cuda.empty_cache()
+    return res
+
+
+def pp_phase(fa, card: str):
+    """Pipelines on two gloo ranks sharing the card (eager: every
+    transfer staged through pinned host memory; NCCL refuses two ranks
+    on one card), spawned as ``sp_phase`` spawns them: (a)-(c) the
+    README LM auto-cut over pipe = 2, (e) its blocks stacked as
+    ``pipeline_blocks``; then (d) kernels 2-4 at the microbatch shape
+    in this process."""
+    import tempfile
+    from flexflow_tpu_torch.parallel.launch import RankPool
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="ff_pp_"))
+    res = {}
+    with RankPool(2, str(tmp / "g"), backend="gloo", device="cuda",
+                  threads=0, timeout_s=900) as pool:
+        ra = pool.run(pp_rank_lm, PP_STEPS)
+        re_ = pool.run(pp_rank_blocks, PP_STEPS)
+    res["lm"], res["blocks"] = ra, re_
+    log(f"pp (a) the cut of the LM at pipe = 2: "
+        f"{ra[0]['float32 gpipe']['cut']}")
+    log(f"pp (a) the cut at v = 2 (stage s on rank s mod 2): "
+        f"{ra[0]['float32 1f1b v=2']['cut']}")
+    for key in ("float32 gpipe", "float32 1f1b", "bfloat16 gpipe",
+                "bfloat16 1f1b", "float32 1f1b v=2"):
+        c = [r[key] for r in ra]
+        log(f"pp (a) LM {key} M={PP_MICRO} on (2,) pipe, two gloo ranks "
+            f"on one card ({card}): vs the one-device run loss rel "
+            f"{max(x['max_loss_rel'] for x in c):.3e}, weights abs "
+            f"{max(x['max_weight_abs'] for x in c):.3e}, updates rel "
+            f"{max(x['max_update_rel'] for x in c):.3e} (limits "
+            f"{c[0]['limits'][0]:.3g}, {c[0]['limits'][1]:.3g})")
+        log(f"pp (c) {key}: a rank's stages {[x['stages'] for x in c]}, "
+            f"attention ops {[x['attn_ops'] for x in c]}, flash launches "
+            f"{[x['flash_launches'] for x in c]}; transfers and "
+            f"collectives a step {[x['p2p_per_step'] for x in c]}; staged "
+            f"{[round(x['staged_mib_per_step'], 2) for x in c]} MiB a "
+            f"step; resident {[x['resident'] for x in c]}; in-flight "
+            f"peaks {[x['peak'] for x in c]}; eager step "
+            f"{[round(x['step_ms'], 1) for x in c]} ms (one device "
+            f"{[round(x['ref_step_ms'], 1) for x in c]} ms)")
+    log(f"pp (e) pipeline_blocks LM stack (layer -> pipe, 3 layers a rank)"
+        f": vs the one-device loop loss rel "
+        f"{max(r['max_loss_rel'] for r in re_):.3e}, weights abs "
+        f"{max(r['max_weight_abs'] for r in re_):.3e}; flash launches "
+        f"{[r['flash_launches'] for r in re_]} (one device "
+        f"{re_[0]['ref_flash_launches']}); transfers a step "
+        f"{[r['p2p_per_step'] for r in re_]}; staged "
+        f"{[round(r['staged_mib_per_step'], 2) for r in re_]} MiB a step;"
+        f" eager step {[round(r['step_ms'], 1) for r in re_]} ms (one "
+        f"device {round(re_[0]['ref_step_ms'], 1)} ms)")
+    res["kernels"] = pp_kernel_check(fa)
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"pp phase: {res['phase_s']:.1f} s")
+    return res
+
+
 def _kernel_name(sym: str) -> str:
     """A mangled kernel symbol as name[template args, still mangled]:
     the name is the length-prefixed identifier ending in _kernel."""
@@ -5723,6 +6064,9 @@ def main() -> int:
     if "--only-sp" in sys.argv[1:]:
         log(json.dumps({"sp": sp_phase(fa, card)}, default=str))
         return 0
+    if "--only-pp" in sys.argv[1:]:
+        log(json.dumps({"pp": pp_phase(fa, card)}, default=str))
+        return 0
     kres = kernel_phase(pr)
     dres = paged_decode_phase(fa)
     fres = flash_phase(fa)
@@ -5755,6 +6099,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     spres = sp_phase(fa, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ppres = pp_phase(fa, card)
 
     def head(cells):
         """A row's headline numbers: its f32 cell."""
@@ -5830,6 +6177,18 @@ def main() -> int:
                 for key in ("float32 alltoall", "bfloat16 alltoall",
                             "float32 ring", "bfloat16 ring")},
             "ulysses": spres["kernels"][kname],
+            # pp_phase (a), (b), (e): a rank's launches in the pipelined
+            # LM's stages (its attention layers x M microbatches a step)
+            # and in the pipeline_blocks stack; (d) the microbatch shape
+            "pp_launches": {
+                **{key: [r[key]["flash_launches"][kname]
+                         for r in ppres["lm"]]
+                   for key in ("float32 gpipe", "float32 1f1b",
+                               "bfloat16 gpipe", "bfloat16 1f1b",
+                               "float32 1f1b v=2")},
+                "blocks": [r["flash_launches"][kname]
+                           for r in ppres["blocks"]]},
+            "pp": ppres["kernels"][kname],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -5943,6 +6302,8 @@ def main() -> int:
     log(json.dumps({"mesh": meshres}, default=str))
     log(json.dumps({"tp_serve": tpres}, default=str))
     log(json.dumps({"sp": {k: v for k, v in spres.items()
+                           if k != "kernels"}}, default=str))
+    log(json.dumps({"pp": {k: v for k, v in ppres.items()
                            if k != "kernels"}}, default=str))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))

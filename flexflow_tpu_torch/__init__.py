@@ -42,7 +42,12 @@ neither it nor JAX. It serves and trains on one NVIDIA H100:
     models priced on descriptions of machines of any size, strategies
     searched in a Python and a native C++ engine, exported, explained,
     and grounded on the card (op measurement, calibrated steps, fit's
-    drift samples); a strategy is kept on one device, nothing sharded.
+    drift samples);
+  * meshes that execute, one process a rank on ``torch.distributed``
+    (``parallel/``): data, tensor, sequence and expert parallelism,
+    placed tables, tensor-parallel serving, and pipelines — pinned or
+    auto-cut stages under GPipe, 1F1B and interleaved schedules
+    (``core/staged.py``) and stacked blocks (``ops/pipeline.py``).
 
 Every serving and training step is one program of a registry
 (``core/programs.py``): on the card it is captured once as a CUDA graph

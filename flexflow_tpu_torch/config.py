@@ -15,12 +15,12 @@ policy of ``core/precision.py``, ``remat`` and
 tier, replica-pool, wall-clock, disaggregation and transport knobs, and
 the search stack's machine file and cost cache, and the strategy
 search's fields (gates, budget, chains, strategy files, measurement,
-exports, gradient buckets, pipeline planning, fusion, the mesh
-description, ZeRO-1). A mesh of several devices executes on a
-process group of its size (parallel/mesh.py); knobs this port does not
-execute yet (``pipeline_stages > 1``) reach ``FFModel.compile``, which
-raises ``NotImplementedError`` naming their ROADMAP item instead of
-ignoring them. The rest of the JAX config has no counterpart yet.
+exports, gradient buckets, pipelines, fusion, the mesh description,
+ZeRO-1). A mesh of several devices executes on a process group of its
+size (parallel/mesh.py), pipelines included (``pipeline_stages > 1``
+needs a mesh axis of the stage count, or ``FFModel.compile`` raises
+JAX's ``ValueError``). The rest of the JAX config has no counterpart
+yet.
 
 Device policy: every entry point runs on the card unless the caller
 asks for the CPU. There is no fallback — :func:`resolve_device` raises
@@ -282,9 +282,9 @@ class FFConfig:
     # `data` axis of an executing mesh (core/executor.py); warns and
     # does nothing on a mesh without a data axis of several ranks
     zero_optimizer_sharding: bool = False
-    # pipeline planning the simulator reads (parallel/graph_pipeline.py);
-    # compile raises for pipeline_stages > 1 (executing a pipeline is
-    # ROADMAP item 2.3)
+    # pipelines (parallel/graph_pipeline.py): the simulator prices them
+    # and compile executes them on a mesh with a non-data axis of the
+    # stage count (core/staged.py)
     pipeline_stages: int = 0
     pipeline_microbatches: int = 4
     pipeline_schedule: str = "gpipe"

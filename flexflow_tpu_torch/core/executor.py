@@ -134,8 +134,13 @@ walk on its blocks and the collectives are explicit:
 * Experts and tables: ``expert`` over a mesh axis splits the MoE's
   experts (ops/moe_ffn.py); a stacked embedding's per-table placement
   (JAX's slot layout, applied at every compile) and its ``table`` and
-  ``vocab`` splits are looked up where they live (ops/embedding.py); a
-  device pin on any other op executes replicated, as GSPMD runs it.
+  ``vocab`` splits are looked up where they live (ops/embedding.py).
+* Pipelines: whole-op pins that form a forward pipeline, and
+  ``pipeline_stages > 1``, run under core/staged.py's StagedExecutor
+  (FFModel.compile chooses it); a pin it falls back from executes
+  replicated here, as GSPMD runs it. A ``layer`` split of stacked blocks
+  runs their GPipe over the axis (ops/pipeline.py); every other op runs
+  replicated over ``pipe``.
 * Strategies that do not execute raise ``NotImplementedError`` naming
   their ROADMAP item (:func:`check_executable`).
 """
@@ -164,13 +169,12 @@ from .prng import OpRng, key_words
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
-# the ROADMAP items that execute what this slice leaves out
-_ITEM = {"pipe": "2.3 (pipelines)",
-         "layer": "2.3 (pipelines)",
-         "layout": "2.6 (layouts beyond these axes)",
+# the ROADMAP items that execute what the port leaves out
+_ITEM = {"layout": "2.6 (layouts beyond these axes)",
          "channel": "2.7 (conv and LSTM channel_out)"}
-# the mesh axes that execute
-_AXES = ("data", "model", "seq", "expert")
+# the mesh axes that execute (``pipe``: replicated here, its stages run
+# by core/staged.py, its stacked blocks by ops/pipeline.py)
+_AXES = ("data", "model", "seq", "expert", "pipe")
 
 
 def zero_applicable(config, mesh) -> bool:
@@ -184,18 +188,20 @@ def zero_applicable(config, mesh) -> bool:
 def check_executable(model, strategy, mesh, config) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for what
     does not execute on a mesh: mesh axes beyond ``data``, ``model``,
-    ``seq`` and ``expert`` (``pipe`` and pipeline stages: item 2.3;
-    others: 2.6), a ``layer`` split (2.3), ``channel_out`` on conv2d
+    ``seq``, ``expert`` and ``pipe`` (2.6), ``channel_out`` on conv2d
     and lstm (2.7), a stacked embedding split on both its slots and
     its vocab, and a batch that does not split over ``data`` (2.6).
     Linear ``channel_out``, attention ``head``, embedding ``vocab``,
     the ``seq`` split (position-local ops on blocks of the sequence,
     attention through ring or all-to-all attention, every other op
     reading the sequence whole), ``expert`` on MoE, ``table`` and
-    ``vocab`` on stacked embeddings and device pins (a stacked
-    embedding's per-table placement in slots; on any other op a pin
-    executes replicated, as GSPMD runs it) execute; any other weight a
-    strategy splits is stored split and read whole."""
+    ``vocab`` on stacked embeddings, ``layer`` on stacked blocks (a
+    GPipe over the axis, ops/pipeline.py) and device pins execute: a
+    stacked embedding's per-table placement in slots, and whole-op pins
+    that form a pipeline as its stages (FFModel.compile hands those to
+    core/staged.py); the pins that FFModel.compile falls back from run
+    replicated, as GSPMD runs them. Any other weight a strategy splits
+    is stored split and read whole."""
     from ..op import SAMPLE
     from ..parallel.sharding import spec_for_axes, weight_sharding
     for ax, n in mesh.shape.items():
@@ -203,17 +209,9 @@ def check_executable(model, strategy, mesh, config) -> None:
             raise NotImplementedError(
                 f"mesh axis {ax!r} of {n} devices: ROADMAP item "
                 f"{_ITEM.get(ax, _ITEM['layout'])}")
-    if config.pipeline_stages > 1:
-        raise NotImplementedError(
-            f"pipeline_stages={config.pipeline_stages}: ROADMAP item "
-            f"{_ITEM['pipe']}")
     ndata = mesh.shape.get("data", 1)
     for op in model.ops:
         st = strategy.for_op(op.name)
-        if st.axis_map.get("layer") is not None:
-            raise NotImplementedError(
-                f"{op.name}: layer -> {st.axis_map['layer']}: ROADMAP "
-                f"item {_ITEM['layer']}")
         seq = st.axis_map.get("seq")
         if seq is not None and not isinstance(seq, str) and any(
                 mesh.shape.get(a, 1) > 1 for a in seq):
@@ -572,12 +570,7 @@ class Executor:
                 continue
             op_params = {}
             for wname, spec in wspecs.items():
-                rng = np.random.default_rng(
-                    [self.config.seed, _stable_hash(op.name),
-                     _stable_hash(wname)])
-                arr = I.resolve(spec.initializer)(
-                    rng, spec.shape, fan_in=spec.fan_in,
-                    fan_out=spec.fan_out)
+                arr = self._init_array(op, wname, spec)
                 dtype = spec.dtype
                 if dtype == torch.float32:
                     dtype = self.param_dtype
@@ -598,6 +591,25 @@ class Executor:
                      else {})
         opt_state = self._zero_shard_slots(params, opt_state)
         return TrainState(params, opt_state, 0, states)
+
+    def _init_array(self, op, wname: str, spec) -> np.ndarray:
+        """The initial value of weight ``wname`` of ``op``: a numpy
+        stream seeded by (config.seed, op name, weight name). A stacked
+        weight (``spec.stacked``: a leading layer dimension,
+        ops/pipeline.py) draws each layer's slice from its own stream,
+        (seed, op, weight, layer), at the slice's shape and fans, as
+        JAX's ``_stacked_init`` draws each from its own key."""
+        init = I.resolve(spec.initializer)
+        seed = [self.config.seed, _stable_hash(op.name),
+                _stable_hash(wname)]
+        if getattr(spec, "stacked", False):
+            return np.stack([
+                init(np.random.default_rng(seed + [layer]),
+                     tuple(spec.shape[1:]), fan_in=spec.fan_in,
+                     fan_out=spec.fan_out)
+                for layer in range(spec.shape[0])])
+        return init(np.random.default_rng(seed), spec.shape,
+                    fan_in=spec.fan_in, fan_out=spec.fan_out)
 
     def _zero_shard_slots(self, params: Tree, opt_state):
         """ZeRO-1: each dense parameter's slots as this rank's block
@@ -1226,6 +1238,81 @@ class Executor:
                    for w in _leaves(tree)])
         return {k: v.clone() for k, v in out.items()}
 
+    # ---------------- weight and state access (FFModel.get_weights) ---
+    def get_op_weights(self, state: TrainState, op_name: str
+                       ) -> Dict[str, np.ndarray]:
+        """Host copies of an op's weights (copies on the CPU too, where
+        ``numpy()`` would share the live tensor's memory); a stacked
+        embedding's kernel in table order. On a mesh the global weights,
+        gathered from the ranks' blocks (every rank calls it)."""
+        op = next((o for o in self.model.ops if o.name == op_name), None)
+        out = {}
+        for k, v in state.params[op_name].items():
+            v = v.detach()
+            if self.bm is not None:
+                from ..parallel.sharding import gather
+                v = gather(v, self._wstore[op_name][k], self.bm)
+            out[k] = v.float().cpu().numpy().copy()
+        if "kernel" in out and hasattr(op, "to_table_order"):
+            out["kernel"] = op.to_table_order(out["kernel"])
+        return out
+
+    def set_op_weights(self, state: TrainState, op_name: str,
+                       weights: Dict[str, np.ndarray]) -> None:
+        """Overwrite an op's weights in place (same tensors, so the
+        optimizer's view of them is unchanged); a stacked embedding's
+        kernel in table order, whatever its placement. On a mesh
+        ``weights`` are the global ones and each rank keeps its block
+        (every rank calls it)."""
+        cur = state.params[op_name]
+        op = next((o for o in self.model.ops if o.name == op_name), None)
+        for k, v in weights.items():
+            if k not in cur:
+                raise KeyError(f"{op_name} has no weight {k!r}; "
+                               f"has {sorted(cur)}")
+            v = np.array(v)
+            if k == "kernel" and getattr(op, "placement", None):
+                # table order in, the slot layout stored (pad slots
+                # keep their values)
+                glob = None
+                if op.has_pads():
+                    glob = cur[k].detach()
+                    if self.bm is not None:
+                        from ..parallel.sharding import gather
+                        glob = gather(glob, self._wstore[op_name][k],
+                                      self.bm)
+                    glob = glob.float().cpu().numpy()
+                v = op.from_table_order(v, glob)
+            if self.bm is not None:
+                from ..parallel.sharding import shard
+                v = shard(v, self._wstore[op_name][k], self.bm)
+            src = torch.as_tensor(v, dtype=cur[k].dtype)
+            if tuple(src.shape) != tuple(cur[k].shape):
+                raise ValueError(
+                    f"{op_name}.{k}: shape {tuple(src.shape)} does not "
+                    f"match {tuple(cur[k].shape)}")
+            with torch.no_grad():
+                cur[k].copy_(src)
+
+    def get_op_states(self, state: TrainState, op_name: str
+                      ) -> Dict[str, np.ndarray]:
+        return {k: v.detach().cpu().numpy().copy()
+                for k, v in state.states[op_name].items()}
+
+    def set_op_states(self, state: TrainState, op_name: str,
+                      states: Dict[str, np.ndarray]) -> None:
+        cur = state.states[op_name]
+        for k, v in states.items():
+            if k not in cur:
+                raise KeyError(f"{op_name} has no state {k!r}; "
+                               f"has {sorted(cur)}")
+            src = torch.as_tensor(np.array(v), dtype=cur[k].dtype)
+            if tuple(src.shape) != tuple(cur[k].shape):
+                raise ValueError(
+                    f"{op_name}.{k}: shape {tuple(src.shape)} does not "
+                    f"match {tuple(cur[k].shape)}")
+            cur[k].copy_(src)
+
     # ---------------- global state (checkpoints on a mesh) -----------
     def _slot_spec(self, op: str, w: str, ndim: int) -> tuple:
         """The layout of a slot of parameter (op, w): the parameter's,
@@ -1292,6 +1379,21 @@ class Executor:
         return out
 
     # ---------------- data placement ----------------
+    @property
+    def loader_mesh(self):
+        """The mesh a data loader cuts its batches for (each rank's rows
+        over ``data``), or None when the batches go whole to
+        :meth:`shard_batch`."""
+        return self.model.mesh if self.bm is not None else None
+
+    def global_output(self, logits: torch.Tensor) -> torch.Tensor:
+        """The global batch's final tensor from this rank's
+        (``FFModel.forward``; every rank calls it on a mesh)."""
+        if self.bm is None:
+            return logits
+        from ..parallel.sharding import gather
+        return gather(logits, self._final_spec(), self.bm)
+
     @property
     def declared_input_dtypes(self) -> Dict[str, torch.dtype]:
         """Target device dtype per input name, THE dtype rule for

@@ -155,6 +155,19 @@ def key_words(key) -> np.ndarray:
     return np.asarray(key, np.uint32).view(np.int32)
 
 
+def fold_in_tensor(key: torch.Tensor, data: int) -> torch.Tensor:
+    """``fold_in(key, data)`` of a (2,) int32 device key tensor, on the
+    device (nothing read back to the host): the key of microbatch
+    ``data`` of a pipelined step (parallel/graph_pipeline.py)."""
+    words = key.to(dtype=torch.int64) & M32
+    zero = torch.zeros((), dtype=torch.int64, device=key.device)
+    y0, y1 = _threefry_torch(words[0], words[1], zero,
+                             zero + (int(data) & M32))
+    out = torch.stack([y0, y1])
+    # the uint32 words as int32 (two's complement), the key tensors' form
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(torch.int32)
+
+
 # ---------------------------------------------------- device bits
 def op_uniform_torch(key: torch.Tensor, fold: int, numel: int,
                      device, offset: int = 0, rows=None) -> torch.Tensor:

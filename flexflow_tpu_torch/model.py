@@ -54,9 +54,16 @@ the executing mesh, and ``memory_ledger`` sets this rank's live
 parameter and optimizer bytes (its blocks) beside the simulator's
 memory input.
 
-Raising ``NotImplementedError`` when configured, naming the ROADMAP
-item that executes it: ``pipeline_stages > 1`` (2.3), and the strategies
-``core/executor.check_executable`` refuses.
+Pipelines (JAX's compile, ``_lower_placement``): whole-op device pins
+on a mesh with a non-``data`` axis of the stage count execute as
+pipeline stages, and ``pipeline_stages > 1`` cuts flops-balanced stages
+(``pipeline_virtual_stages`` of them a rank under 1F1B), both under
+core/staged.py's StagedExecutor; pins that cannot run so warn and run
+replicated, and ``pipeline_stages > 1`` without a matching axis raises
+JAX's ``ValueError``. ``pipeline_blocks`` stacks identical blocks, a
+GPipe over the axis a strategy maps ``layer`` to (ops/pipeline.py).
+The strategies ``core/executor.check_executable`` refuses raise
+``NotImplementedError`` naming the ROADMAP item that executes them.
 """
 
 from __future__ import annotations
@@ -78,8 +85,8 @@ from .op import Op
 from .ops import (LSTM, Aggregate, BatchMatmul, BatchNorm, Concat, Conv2D,
                   DistributedEmbedding, Dropout, ElementBinary, ElementUnary,
                   Embedding, Flat, GroupBy, LayerNorm, Linear, MoEFFN,
-                  MultiHeadAttention, Pool2D, Reduce, Reshape, Reverse,
-                  Softmax, Split, TopK, Transpose)
+                  MultiHeadAttention, PipelineBlocks, Pool2D, Reduce,
+                  Reshape, Reverse, Softmax, Split, TopK, Transpose)
 from .tensor import Tensor
 from .utils import faults as _faults
 from .utils.telemetry import telemetry_for, train_metrics
@@ -309,6 +316,18 @@ class FFModel:
                     activation, aux_loss_weight)
         return self.add_op(op).output
 
+    def pipeline_blocks(self, input: Tensor, block_builder, num_layers: int,
+                        num_microbatches: int = 4,
+                        name: Optional[str] = None) -> Tensor:
+        """A stack of identical shape-preserving blocks with first-class
+        pipeline parallelism (a GPipe over the mesh axis the strategy
+        maps ``layer`` to; ops/pipeline.py). ``block_builder(sub_model,
+        t)`` builds one block with the layer API."""
+        op = PipelineBlocks(self, name or self._fresh_name("pipeline"),
+                            [input], block_builder, num_layers,
+                            num_microbatches)
+        return self.add_op(op).output
+
     def lstm(self, input: Tensor, hidden_size: int,
              return_sequences: bool = True,
              name: Optional[str] = None, use_pallas=None) -> Tensor:
@@ -406,12 +425,6 @@ class FFModel:
     # ---------------- compile ----------------
     def _check_config(self) -> None:
         cfg = self.config
-        if cfg.pipeline_stages > 1:
-            raise NotImplementedError(
-                f"pipeline_stages={cfg.pipeline_stages} needs a mesh "
-                f"that executes a pipeline (ROADMAP item 2.3); the "
-                f"simulator prices staged strategies on a mesh "
-                f"description")
         if cfg.mesh_shape is not None and self.mesh is None:
             from .parallel.mesh import make_mesh
             shape = tuple(int(s) for s in cfg.mesh_shape)
@@ -441,7 +454,8 @@ class FFModel:
         searches the factorizations of the running group's ranks and
         executes the winner) and ``export_strategy_file`` writes its
         result. A strategy's ``pipeline`` block sets the pipeline
-        knobs, and ``pipeline_stages > 1`` then raises."""
+        knobs; pins and ``pipeline_stages > 1`` then lower to pipeline
+        stages as JAX's compile lowers them (:meth:`_lower_placement`)."""
         self.config.validate()   # catch post-construction field edits
         if mesh is not None:
             _check_mesh(mesh)
@@ -491,10 +505,103 @@ class FFModel:
                 "microbatches", self.config.pipeline_microbatches))
             self.config.validate()
         self._check_config()
-        if self.strategy is not None and (self.mesh is None
-                                          or int(self.mesh.size) <= 1):
-            # meshless compile: pins cannot execute — say so, as JAX's
-            # compile does
+        stage_of, pipe_axis, vstages_applied = self._lower_placement()
+        if self.config.pipeline_virtual_stages > 1 \
+                and not vstages_applied:
+            warnings.warn(
+                "pipeline_virtual_stages > 1 only applies to auto-cut "
+                "pipelines (--pipeline-stages); this compile's stages "
+                "come from pins or no pipeline at all — interleaving "
+                "was NOT applied")
+        if stage_of is not None and pipe_axis is not None:
+            from .core.staged import StagedExecutor
+            self.executor = StagedExecutor(
+                self, optimizer, loss_type, metrics, stage_of=stage_of,
+                pipe_axis=pipe_axis,
+                num_microbatches=self.config.pipeline_microbatches,
+                schedule=self.config.pipeline_schedule,
+                comp_mode=comp_mode, capture=capture)
+        else:
+            self.executor = Executor(self, optimizer, loss_type, metrics,
+                                     comp_mode=comp_mode, capture=capture)
+        self.comp_mode = comp_mode
+        # the JAX compile splits the model key once (init_state's key):
+        # the port's initializers use numpy streams, but the split keeps
+        # _rng, and so every dropout mask, on JAX's chain
+        self._next_rng()
+        self.state = self.executor.init_state()
+        self._host_step = 0  # mirrors state.step for the train key
+
+    def _lower_placement(self):
+        """JAX's device-explicit placement lowering: (stage_of, pipe
+        axis, whether pipeline_virtual_stages was applied). Whole-op pins
+        on a mesh execute as pipeline stages (stage order = device-id
+        order) over a non-``data`` axis of the stage count
+        (``pick_pipe_axis``); pins that cannot form a forward pipeline,
+        a single-stage placement and a mesh without such an axis warn
+        and run replicated. ``pipeline_stages > 1`` cuts
+        ``pipeline_stages * pipeline_virtual_stages`` flops-balanced
+        stages and raises without a matching axis (with no mesh too)."""
+        from .parallel.graph_pipeline import (assignment_from_pins,
+                                              balanced_stages,
+                                              build_stage_plan,
+                                              pick_pipe_axis)
+        cfg = self.config
+        stage_of = pipe_axis = None
+        vstages_applied = False
+        if self.strategy is not None and self.mesh is not None:
+            try:
+                stage_of = assignment_from_pins(self, self.strategy)
+                if stage_of is not None:
+                    build_stage_plan(self, stage_of)  # viability check
+            except (ValueError, NotImplementedError) as e:
+                warnings.warn(
+                    f"strategy pins ops to explicit devices but the "
+                    f"placement cannot execute as a pipeline "
+                    f"({e}); falling back to replication")
+                stage_of = None
+            if stage_of is not None:
+                n_stages = max(stage_of.values()) + 1
+                if n_stages < 2:
+                    warnings.warn(
+                        "strategy pins every op to one device; a "
+                        "single-stage placement has no pipelined "
+                        "lowering — executing as plain (replicated) "
+                        "SPMD")
+                    stage_of = None
+                else:
+                    pipe_axis = pick_pipe_axis(self.mesh, n_stages)
+                    if pipe_axis is None:
+                        warnings.warn(
+                            f"strategy pins ops across {n_stages} "
+                            f"devices but the mesh "
+                            f"{dict(self.mesh.shape)} has no non-data "
+                            f"axis of that size to pipeline over; "
+                            f"executing as replication")
+                        stage_of = None
+        if stage_of is None and cfg.pipeline_stages > 1:
+            vstages = max(1, cfg.pipeline_virtual_stages)
+            vstages_applied = True
+            stage_of = balanced_stages(self, cfg.pipeline_stages * vstages)
+            n_stages = max(stage_of.values()) + 1  # clamped to op count
+            if n_stages % vstages != 0:
+                raise ValueError(
+                    f"pipeline_virtual_stages={vstages} needs "
+                    f"{cfg.pipeline_stages * vstages} stages but this "
+                    f"graph only supports {n_stages} (too few ops); "
+                    f"lower the stage or virtual-stage count")
+            pipe_axis = (pick_pipe_axis(self.mesh, n_stages // vstages)
+                         if self.mesh is not None else None)
+            if pipe_axis is None:
+                raise ValueError(
+                    f"pipeline_stages={cfg.pipeline_stages} (=> "
+                    f"{n_stages} stages for this graph) needs a mesh "
+                    f"axis of size {max(1, n_stages // vstages)} to "
+                    f"pipeline over (mesh: "
+                    f"{dict(self.mesh.shape) if self.mesh else None})")
+        if stage_of is None and self.strategy is not None \
+                and self.mesh is None:
+            # meshless compile: pins cannot execute at all — say so
             pinned = [op.name for op in self.ops
                       if self.strategy.for_op(op.name).device_ids
                       and op.op_type != "distributed_embedding"]
@@ -503,21 +610,7 @@ class FFModel:
                     f"strategy pins {pinned} to explicit devices but "
                     f"there is no mesh; placement is ignored "
                     f"(replicated single-device execution)")
-        if self.config.pipeline_virtual_stages > 1:
-            warnings.warn(
-                "pipeline_virtual_stages > 1 only applies to auto-cut "
-                "pipelines (--pipeline-stages); this compile's stages "
-                "come from pins or no pipeline at all — interleaving "
-                "was NOT applied")
-        self.executor = Executor(self, optimizer, loss_type, metrics,
-                                 comp_mode=comp_mode, capture=capture)
-        self.comp_mode = comp_mode
-        # the JAX compile splits the model key once (init_state's key):
-        # the port's initializers use numpy streams, but the split keeps
-        # _rng, and so every dropout mask, on JAX's chain
-        self._next_rng()
-        self.state = self.executor.init_state()
-        self._host_step = 0  # mirrors state.step for the train key
+        return stage_of, pipe_axis, vstages_applied
 
     def _load_strategy_file(self, path: str):
         """import_strategy_file: the JSON of ``Strategy.save`` (either
@@ -557,11 +650,7 @@ class FFModel:
         from the ranks' rows."""
         logits, _ = self.executor.eval_step(
             self.state, self.executor.shard_batch(batch))
-        ex = self.executor
-        if ex.bm is not None:
-            from .parallel.sharding import gather
-            logits = gather(logits, ex._final_spec(), ex.bm)
-        return logits
+        return self.executor.global_output(logits)
 
     def compile_counts(self) -> Dict[str, int]:
         """Exact captures (on the CPU or with capture off: new batch
@@ -750,8 +839,7 @@ class FFModel:
                         from .core.dataloader import DataLoaderSet
                         fit_loader = DataLoaderSet(
                             {**{k: x[k] for k in names}, "label": y}, bs,
-                            mesh=self.mesh if self.executor.bm is not None
-                            else None,
+                            mesh=self.executor.loader_mesh,
                             shuffle=False, device=self.device,
                             dtypes=self.executor.declared_input_dtypes)
                     it = fit_loader.iter_with_order(idx)
@@ -1067,8 +1155,8 @@ class FFModel:
         from .core.dataloader import SingleDataLoader
         name = (tensor_or_name if isinstance(tensor_or_name, str)
                 else tensor_or_name.name)
-        mesh = self.mesh if (self.executor is not None
-                             and self.executor.bm is not None) else None
+        mesh = (self.executor.loader_mesh if self.executor is not None
+                else None)
         return SingleDataLoader(name, data, self.config.batch_size,
                                 mesh=mesh, device=self.device)
 
@@ -1088,76 +1176,21 @@ class FFModel:
 
     # ---------------- weight access ----------------
     def get_weights(self, op_name: str) -> Dict[str, np.ndarray]:
-        """Host copies of an op's weights (copies on the CPU too, where
-        ``numpy()`` would share the live tensor's memory); a stacked
-        embedding's kernel in table order. On a mesh the global weights,
-        gathered from the ranks' blocks (every rank calls it)."""
-        op = next((o for o in self.ops if o.name == op_name), None)
-        ex = self.executor
-        out = {}
-        for k, v in self.state.params[op_name].items():
-            v = v.detach()
-            if ex.bm is not None:
-                from .parallel.sharding import gather
-                v = gather(v, ex._wstore[op_name][k], ex.bm)
-            out[k] = v.float().cpu().numpy().copy()
-        if "kernel" in out and hasattr(op, "to_table_order"):
-            out["kernel"] = op.to_table_order(out["kernel"])
-        return out
+        """Host copies of an op's weights (core/executor.py
+        ``get_op_weights``; every rank calls it on a mesh)."""
+        return self.executor.get_op_weights(self.state, op_name)
 
     def set_weights(self, op_name: str, weights: Dict[str, np.ndarray]):
-        """Overwrite an op's weights in place (same tensors, so the
-        optimizer's view of them is unchanged); a stacked embedding's
-        kernel in table order, whatever its placement. On a mesh
-        ``weights`` are the global ones and each rank keeps its block
-        (every rank calls it)."""
-        cur = self.state.params[op_name]
-        ex = self.executor
-        op = next((o for o in self.ops if o.name == op_name), None)
-        for k, v in weights.items():
-            if k not in cur:
-                raise KeyError(f"{op_name} has no weight {k!r}; "
-                               f"has {sorted(cur)}")
-            v = np.array(v)
-            if k == "kernel" and getattr(op, "placement", None):
-                # table order in, the slot layout stored (pad slots
-                # keep their values)
-                glob = None
-                if op.has_pads():
-                    glob = cur[k].detach()
-                    if ex.bm is not None:
-                        from .parallel.sharding import gather
-                        glob = gather(glob, ex._wstore[op_name][k], ex.bm)
-                    glob = glob.float().cpu().numpy()
-                v = op.from_table_order(v, glob)
-            if ex.bm is not None:
-                from .parallel.sharding import shard
-                v = shard(v, ex._wstore[op_name][k], ex.bm)
-            src = torch.as_tensor(v, dtype=cur[k].dtype)
-            if tuple(src.shape) != tuple(cur[k].shape):
-                raise ValueError(
-                    f"{op_name}.{k}: shape {tuple(src.shape)} does not "
-                    f"match {tuple(cur[k].shape)}")
-            with torch.no_grad():
-                cur[k].copy_(src)
+        """Overwrite an op's weights in place (core/executor.py
+        ``set_op_weights``; every rank calls it on a mesh)."""
+        self.executor.set_op_weights(self.state, op_name, weights)
 
     def get_states(self, op_name: str) -> Dict[str, np.ndarray]:
         """Host copies of an op's non-trainable state (BatchNorm's
         running statistics)."""
-        return {k: v.detach().cpu().numpy().copy()
-                for k, v in self.state.states[op_name].items()}
+        return self.executor.get_op_states(self.state, op_name)
 
     def set_states(self, op_name: str, states: Dict[str, np.ndarray]):
         """Overwrite an op's state in place (a captured step keeps
         reading the same tensors)."""
-        cur = self.state.states[op_name]
-        for k, v in states.items():
-            if k not in cur:
-                raise KeyError(f"{op_name} has no state {k!r}; "
-                               f"has {sorted(cur)}")
-            src = torch.as_tensor(np.array(v), dtype=cur[k].dtype)
-            if tuple(src.shape) != tuple(cur[k].shape):
-                raise ValueError(
-                    f"{op_name}.{k}: shape {tuple(src.shape)} does not "
-                    f"match {tuple(cur[k].shape)}")
-            cur[k].copy_(src)
+        self.executor.set_op_states(self.state, op_name, states)

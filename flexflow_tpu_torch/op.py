@@ -102,6 +102,9 @@ class WeightSpec:
     fan_in: Optional[int] = None
     fan_out: Optional[int] = None
     axes: Tuple[Optional[str], ...] = None  # logical axis per dim
+    # a leading layer dimension whose slices initialize independently
+    # (ops/pipeline.py's stacked blocks)
+    stacked: bool = False
 
     def __post_init__(self):
         if self.axes is None:
@@ -164,6 +167,9 @@ class Op:
     op_type: str = "op"
     # sets OpContext.aux_loss in training; kept out of remat
     has_aux_loss: bool = False
+    # the training output reads state_in (an EMA-style norm would): a
+    # 1F1B pipeline cannot run it (core/staged.py)
+    training_output_reads_state: bool = False
 
     def __init__(self, model: "FFModel", name: str,
                  inputs: Sequence[Tensor]):

@@ -9,6 +9,7 @@ from .embedding import DistributedEmbedding, Embedding
 from .linear import Linear
 from .moe import Aggregate, GroupBy
 from .moe_ffn import MoEFFN
+from .pipeline import PipelineBlocks
 from .rnn import LSTM
 from .tensor_ops import (BatchMatmul, Concat, Reshape, Reverse, Split, TopK,
                          Transpose)
@@ -17,5 +18,6 @@ __all__ = ["MultiHeadAttention", "BatchNorm", "Conv2D", "Flat", "Pool2D",
            "BatchMatmul", "Concat", "Dropout", "ElementBinary",
            "ElementUnary", "LayerNorm", "Reduce", "Softmax", "Embedding",
            "DistributedEmbedding",
-           "Linear", "LSTM", "Aggregate", "GroupBy", "MoEFFN", "Reshape", "Reverse", "Split", "TopK",
+           "Linear", "LSTM", "Aggregate", "GroupBy", "MoEFFN", "PipelineBlocks",
+           "Reshape", "Reverse", "Split", "TopK",
            "Transpose"]

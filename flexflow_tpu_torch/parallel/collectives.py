@@ -33,6 +33,21 @@ pair of the one-device semantics they stand for:
                     ring's K/V hop, parallel/ring_attention.py); backward:
                     the reverse shift
 
+The stage-to-stage pairs of a pipeline (parallel/graph_pipeline.py,
+parallel/pipeline.py) are not differentiable forms: the schedules move
+activations forward with :func:`send_next` / :func:`recv_prev` and
+cotangents back with :func:`send_prev` / :func:`recv_next`, along the
+``pipe`` axis as a ring (the peers are the global ranks of the axis's
+group, coordinate ``c + 1`` and ``c - 1`` modulo its size). Each makes
+a :class:`P2P` and :func:`post` posts all of a rank's transfers of one
+schedule step together in one ``batch_isend_irecv`` and waits for them,
+so no schedule can deadlock (under gloo a lone blocking ``send`` whose
+peer is itself sending would hang both ranks). Each transfer counts once
+in ``launches`` (``"send"``, ``"recv"``); under NCCL they run as they
+are (their completion ordered before the current stream's later work),
+under gloo with CUDA tensors they stage through pinned host memory like
+every other collective; a failed transfer raises from its wait.
+
 An axis may also be a tuple of mesh axes: the group of the ranks that
 differ only on them (``BoundMesh.subgroup``), as the gradient sync of
 a data x seq mesh sums over both.
@@ -77,7 +92,8 @@ from ..kernels._launches import count_launch
 
 # collective launches by kind (one a call that reaches the backend)
 launches = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-            "all_to_all": 0, "ppermute": 0, "barrier": 0, "lockstep": 0}
+            "all_to_all": 0, "ppermute": 0, "barrier": 0, "lockstep": 0,
+            "send": 0, "recv": 0}
 # bytes copied between the card and pinned host memory by gloo staging
 staged_bytes = {"to_host": 0, "to_device": 0}
 
@@ -298,6 +314,102 @@ def ppermute_tensor(t: torch.Tensor, bm, axis, shift: int = 1
         recv = torch.empty(host.shape, dtype=host.dtype, device=t.device)
         _to_device(recv, host)
     return recv
+
+
+class P2P:
+    """One point-to-point transfer of a schedule step: ``kind`` "send"
+    or "recv", the tensor (sent, or received into in place) and the
+    peer's global rank on the axis's group. Made by :func:`send_next`
+    and its siblings, posted by :func:`post`."""
+
+    __slots__ = ("kind", "tensor", "peer", "group", "host")
+
+    def __init__(self, kind, tensor, peer, group):
+        self.kind, self.tensor, self.peer, self.group = (kind, tensor,
+                                                         peer, group)
+        self.host = None
+
+
+def _peer(bm, axis, shift: int) -> tuple:
+    g, n = _group(bm, axis)
+    if g is None or n == 1:
+        raise ValueError(f"a pipeline transfer needs a {axis!r} axis of "
+                         f"more than one rank (mesh {bm})")
+    ranks, c = _ranks(bm, axis), _coord(bm, axis)
+    return ranks[(c + shift) % n], g
+
+
+def send_next(t: torch.Tensor, bm, axis: str = "pipe") -> P2P:
+    """Send ``t`` to coordinate ``c + 1`` of ``axis`` (an activation to
+    the next stage)."""
+    peer, g = _peer(bm, axis, 1)
+    return P2P("send", t.contiguous(), peer, g)
+
+
+def recv_prev(buf: torch.Tensor, bm, axis: str = "pipe") -> P2P:
+    """Receive into ``buf`` from coordinate ``c - 1`` (the previous
+    stage's activation)."""
+    peer, g = _peer(bm, axis, -1)
+    return P2P("recv", buf, peer, g)
+
+
+def send_prev(t: torch.Tensor, bm, axis: str = "pipe") -> P2P:
+    """Send ``t`` to coordinate ``c - 1`` (a cotangent to the previous
+    stage)."""
+    peer, g = _peer(bm, axis, -1)
+    return P2P("send", t.contiguous(), peer, g)
+
+
+def recv_next(buf: torch.Tensor, bm, axis: str = "pipe") -> P2P:
+    """Receive into ``buf`` from coordinate ``c + 1`` (the next stage's
+    cotangent)."""
+    peer, g = _peer(bm, axis, 1)
+    return P2P("recv", buf, peer, g)
+
+
+def post(bm, ops: Sequence[P2P]) -> None:
+    """Post one schedule step's transfers together (one
+    ``batch_isend_irecv``) and wait for all of them; received tensors
+    are filled in place. Under gloo with CUDA tensors each transfer
+    stages through pinned host memory (counted in ``staged_bytes``)."""
+    import torch.distributed as dist
+    if not ops:
+        return
+    staged = bm.backend == "gloo"
+    posted = []
+    for op in ops:
+        count_launch(launches, op.kind)
+        t = op.tensor
+        if staged and t.device.type == "cuda":
+            if op.kind == "send":
+                op.host = _to_host(t)
+            else:
+                op.host = torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True)
+        buf = op.host if op.host is not None else t
+        fn = dist.isend if op.kind == "send" else dist.irecv
+        posted.append(dist.P2POp(fn, buf, op.peer, group=op.group))
+    for w in dist.batch_isend_irecv(posted):
+        w.wait()
+    for op in ops:
+        if op.kind == "recv" and op.host is not None:
+            _to_device(op.tensor, op.host)
+        op.host = None
+
+
+def broadcast_from(t: torch.Tensor, bm, axis: str, src: int
+                   ) -> torch.Tensor:
+    """JAX's ``psum(where(coord == src, t, 0), axis)``: coordinate
+    ``src``'s ``t`` on every rank of ``axis`` (an all-reduce in which
+    the other ranks contribute zeros; not differentiable). Returns a
+    new tensor; ``t`` is left as it is."""
+    g, n = _group(bm, axis)
+    if g is None:
+        return t
+    out = t.detach().clone() if _coord(bm, axis) == src \
+        else torch.zeros_like(t)
+    all_reduce_(out, bm, axis)
+    return out
 
 
 def gather_objects(obj, bm, axis: str) -> List:

@@ -103,11 +103,18 @@ def load_jax_params(ff, params: Mapping[str, Mapping[str, object]],
     ``bias_v`` rows like any other weight, a ``DistributedEmbedding``
     its stacked (E, vocab, dim) kernel in table order (JAX's
     ``get_weights`` order), a ``MoEFFN`` its ``gate``, ``w1``, ``b1``,
-    ``w2`` and ``b2``. ``states``, the JAX
+    ``w2`` and ``b2``, a ``PipelineBlocks`` its stacked ``"{op}.{name}"``
+    arrays (L, ...). A JAX staged (pipelined) model's weights, read op
+    by op through its ``get_weights``, load into a port model of the
+    same graph, pipelined or not (every rank calls this; each keeps its
+    stages' ops). ``states``, the JAX
     executor's op state as numpy (``{op: jax_ff.get_states(op)}``:
     BatchNorm's running statistics), goes in through ``set_states``
     and must name exactly the port model's stateful ops."""
-    have = ff.state.params
+    # the graph's weights and states (on a pipeline a rank holds only
+    # its stages' tensors; set_weights hands each op to its owner)
+    have = {op.name: set(op.weight_specs()) for op in ff.ops
+            if op.weight_specs()}
     if set(params) != set(have):
         raise ValueError(f"ops differ: {sorted(set(params) ^ set(have))}")
     for op, ws in params.items():
@@ -118,7 +125,7 @@ def load_jax_params(ff, params: Mapping[str, Mapping[str, object]],
                             for k, v in ws.items()})
     if states is None:
         return
-    have = ff.state.states
+    have = {op.name for op in ff.ops if op.state_specs()}
     if set(states) != set(have):
         raise ValueError(f"stateful ops differ: "
                          f"{sorted(set(states) ^ set(have))}")

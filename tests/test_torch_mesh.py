@@ -354,20 +354,22 @@ def test_planted_faults_are_rejected(pool, fault, name, kw):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("conv", "2.7"), ("lstm", "2.7"), ("pipe_axis", "2.3"),
-    ("layer", "2.3"), ("other_axis", "2.6"),
-    ("pipeline_stages", "2.3"), ("serving", "2.8")])
+    ("conv", "2.7"), ("lstm", "2.7"), ("other_axis", "2.6"),
+    ("serving", "2.8")])
 def test_left_out_strategies_raise_naming_their_item(pool, case, item):
     for msg in pool.run(J.left_out, case):
         assert msg is not None and f"item {item}" in msg, msg
 
 
-@pytest.mark.parametrize("case", ["seq", "expert", "table", "pins"])
+@pytest.mark.parametrize("case", ["seq", "expert", "table", "pins",
+                                  "pipe_axis", "layer", "pipeline_stages"])
 def test_sequence_expert_table_and_pins_execute(pool, case):
-    """What items 2.4 and 2.5 added no longer raises: a ``seq`` split,
-    ``expert`` and ``table`` over a mesh axis, a per-table device pin
-    (their numbers: tests/test_torch_seq_parallel.py,
-    _expert_parallel.py, _placed_embedding.py)."""
+    """What items 2.3-2.5 added no longer raises: a ``seq`` split,
+    ``expert`` and ``table`` over a mesh axis, a per-table device pin, a
+    ``pipe`` axis, a ``layer`` split and ``pipeline_stages`` on a mesh
+    with a ``pipe`` axis of the stage count (their numbers:
+    tests/test_torch_seq_parallel.py, _expert_parallel.py,
+    _placed_embedding.py, _graph_pipeline.py, _pipeline.py)."""
     assert pool.run(J.left_out, case) == [None, None]
 
 

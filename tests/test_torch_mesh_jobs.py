@@ -349,10 +349,19 @@ def _digest(a) -> str:
     return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
+def is_staged(ex) -> bool:
+    """Whether ``ex`` runs a pipeline (core/staged.py)."""
+    from flexflow_tpu_torch.core.staged import StagedExecutor
+    return isinstance(ex, StagedExecutor)
+
+
 def _whole_digests(ff):
     """Digests of the parameters and sparse tables this rank holds
     whole (a block differs across ranks by design)."""
     ex = ff.executor
+    if is_staged(ex):          # a pipeline rank holds its ops whole
+        return {f"{op}.{k}": _digest(_to_np(v))
+                for op, p in ff.state.params.items() for k, v in p.items()}
     return {f"{op}.{k}": _digest(_to_np(v))
             for op, p in ff.state.params.items() for k, v in p.items()
             if not any(e is not None for e in ex._wstore[op][k])}
@@ -364,6 +373,18 @@ def _rank_facts(ff):
     for bit), its slots' shapes, the stored layouts and the gradient
     buckets."""
     ex = ff.executor
+    if is_staged(ex):
+        # a pipeline rank (core/staged.py): its stages, ops, resident
+        # bytes beside its PackSpec rows, and in-flight peaks
+        return {"coords": dict(ex.bm.coords),
+                "stages": list(ex._own_stages),
+                "params": {op: {k: (tuple(v.shape), _digest(_to_np(v)))
+                                for k, v in p.items()}
+                           for op, p in ff.state.params.items()},
+                "resident": ex.resident_bytes(ff.state),
+                "peak": dict(ex.last_peak),
+                "cut": {op.name: s for op, s in
+                        ((o, ex.plan.stage_of[o.name]) for o in ff.ops)}}
     return {
         "coords": dict(ex.bm.coords),
         "params": {op: {k: (tuple(v.shape), _digest(_to_np(v)))
@@ -526,7 +547,8 @@ def plant(fault):
 def left_out(case):
     """The NotImplementedError (its message) of a strategy or knob left
     out, on the group's two ranks; None if nothing raised (the
-    sequence, expert, table and pinned cases, which execute)."""
+    sequence, expert, table, pinned and pipeline cases, which
+    execute)."""
     import flexflow_tpu_torch as ft
     mk = ft.parallel.mesh.make_mesh
     dm = mk((1, 2), ("data", "model"))
@@ -540,7 +562,7 @@ def left_out(case):
         "pipe_axis": ("mlp", mk((2,), ("pipe",)), None, {}),
         "layer": ("mlp", dm, "layer", {}),
         "other_axis": ("mlp", mk((2,), ("tensor",)), None, {}),
-        "pipeline_stages": ("mlp", mk((2,), ("data",)), None,
+        "pipeline_stages": ("mlp", mk((2,), ("pipe",)), None,
                             {"pipeline_stages": 2}),
         "serving": ("lm", mk((2,), ("data",)), None, {}),
     }[case]

@@ -135,8 +135,10 @@ def test_mesh_and_measurement_boundaries():
     """A mesh of one device is taken; a larger one, or a mesh_shape of
     several devices, needs a process group of its size and raises
     naming init_distributed without one (the mesh executes:
-    tests/test_torch_mesh*.py); pipeline_stages > 1 raises naming
-    ROADMAP item 2.3; measurement raises without a card."""
+    tests/test_torch_mesh*.py); pipeline_stages > 1 with no mesh raises
+    JAX's ValueError (pipelines execute on a mesh with a pipe axis:
+    tests/test_torch_graph_pipeline.py); measurement raises without a
+    card."""
     m = ft.build_transformer(ft.FFConfig(batch_size=BATCH),
                              batch_size=BATCH, device="cpu",
                              mesh=make_mesh((1,), ("data",)), **ARCH)
@@ -147,7 +149,7 @@ def test_mesh_and_measurement_boundaries():
     bad = ft.build_transformer(ft.FFConfig(batch_size=BATCH,
                                            pipeline_stages=2),
                                batch_size=BATCH, device="cpu", **ARCH)
-    with pytest.raises(NotImplementedError, match="item 2.3"):
+    with pytest.raises(ValueError, match="needs a mesh axis of size 2"):
         bad.compile(metrics=[])
     bad = ft.build_transformer(ft.FFConfig(batch_size=BATCH,
                                            mesh_shape=(2,),
