@@ -201,6 +201,23 @@ wide-head) must not spill — and then:
     pipe`` against its one-device loop. ``--only-pp`` runs the build
     and this phase alone.
 
+  * runs ``channel_out`` on conv and LSTM (``channel_phase``, last): (c)
+    kernels 7-8 in the split form at a rank's shape (T=40, B=256,
+    Hin=1024, Hu=512, f32 and bf16) against their split plain versions,
+    the two-block forward stepped in one process against whole-H kernel
+    7 bit for bit and the two-block backward against kernel 8, one
+    block's walk timed beside the whole-H kernels and cuDNN with its
+    bound; then on two gloo ranks sharing the card, eager, (a) the NMT
+    at full width on (1, 2) data x model with channel_out on both LSTMs,
+    f32 and bf16, 2 steps against the one-rank card run (f32 at
+    MESH_LOSS_REL / MESH_WEIGHT_ABS, bf16 at NMT_BF16_LOSS_REL and each
+    gradient within NMT_GRAD_REL), each rank's kernel 7/8 walks and
+    device kernels, the collectives and MiB staged a step; (b) AlexNet
+    at the sweep's shape with channel_out on its convs, f32, against the
+    one-rank run; (d) on one NCCL rank, the NMT captured on a model axis
+    of one rank bit for bit with the no-mesh step (the whole-H kernels
+    run there). ``--only-channel`` runs the build and this phase alone.
+
 Every phase raises on failure. Prints the card (name, power limit), the
 build, each kernel's error and times, the training and serving numbers,
 the script's wall time, then one line ``{"kernels": [...]}`` and, last,
@@ -3700,6 +3717,30 @@ def dlrm_model(tables, vocab, batch, stacked=False, device="cuda",
     return m
 
 
+@contextlib.contextmanager
+def zero_init():
+    """Models built inside skip the numpy streams (every weight starts
+    at zero), for a model whose weights are then copied from another on
+    the card: DLRM "full" draws 1.7 G numbers a build."""
+    from flexflow_tpu_torch.core.executor import Executor
+    old = Executor._init_array
+    Executor._init_array = lambda self, op, wname, spec: np.zeros(
+        spec.shape, np.float32)
+    try:
+        yield
+    finally:
+        Executor._init_array = old
+
+
+def copy_weights(dst, src):
+    """Copy a {op: {name: tensor}} tree into model ``dst``'s parameters
+    in place, on the card."""
+    with torch.no_grad():
+        for op, p in dst.state.params.items():
+            for k, w in p.items():
+                w.copy_(src[op][k])
+
+
 def host_weights(m):
     """Host copies of a model's weights, one tensor at a time (a full
     device copy of DLRM's tables would double their memory)."""
@@ -3834,7 +3875,13 @@ def dlrm_main(sr, card: str, stacked: bool):
     before the captured model runs and read before the dense windows."""
     f = DLRM_FULL
     host = dlrm_batches(f["tables"], f["vocab"], f["batch"], 3, seed=2)
+    t0 = time.perf_counter()
     eager = dlrm_model(stacked=stacked, capture=False, **f)
+    init_s = time.perf_counter() - t0
+    # the captured model starts from the eager one's initial weights,
+    # copied on the card (one build from the numpy streams, not two)
+    w0 = {op: {k: w.detach().clone() for k, w in p.items()}
+          for op, p in eager.state.params.items()}
     dev = [eager.executor.shard_batch(b) for b in host]
     le = [float(eager.train_batch(b)["loss"]) for b in dev]
     we = host_weights(eager)       # on the host: out of the peak below
@@ -3843,8 +3890,13 @@ def dlrm_main(sr, card: str, stacked: bool):
     torch.cuda.empty_cache()
     sr.launches.update(dict.fromkeys(sr.launches, 0))
     t0 = time.perf_counter()
-    m = dlrm_model(stacked=stacked, **f)
-    init_s = time.perf_counter() - t0
+    with zero_init():
+        m = dlrm_model(stacked=stacked, **f)
+    copy_weights(m, w0)
+    del w0
+    gc.collect()
+    torch.cuda.empty_cache()
+    copy_s = time.perf_counter() - t0
     # peak memory over the capturing step: a replay allocates nothing,
     # its working set stays in the graph's pool
     torch.cuda.reset_peak_memory_stats()
@@ -3880,6 +3932,7 @@ def dlrm_main(sr, card: str, stacked: bool):
     b = f["batch"]
     med, med_d = statistics.median(ms), statistics.median(ms_dense)
     res = {"stacked": stacked, "batch": b, "init_s": init_s,
+           "second_build_s": copy_s,
            "table_gb": f["tables"] * f["vocab"] * DLRM_DIM * 4 / 1e9,
            "losses": lc, "launches": launches, "captures": counts,
            "sparse": {"step_ms": med, "step_ms_range": [min(ms), max(ms)],
@@ -3892,7 +3945,9 @@ def dlrm_main(sr, card: str, stacked: bool):
                      "peak_mem_gib": peak_dense / 2**30}}
     log(f"dlrm {'stacked' if stacked else 'separate'} [{card}]: "
         f"{f['tables']} x {f['vocab']} x {DLRM_DIM} f32 "
-        f"({res['table_gb']:.2f} GB), batch {b}; 3 captured steps = 3 "
+        f"({res['table_gb']:.2f} GB), batch {b}; build {init_s:.1f} s from "
+        f"the numpy streams, the captured model's {copy_s:.1f} s from the "
+        f"eager one's initial weights on the card; 3 captured steps = 3 "
         f"eager bit for bit (losses {lc}, every table and weight); sparse "
         f"updates: step ms median {med:.3f} range {min(ms):.3f}-"
         f"{max(ms):.3f} over {DLRM_WINDOWS} windows of {DLRM_STEPS}, "
@@ -5898,6 +5953,456 @@ def pp_phase(fa, card: str):
     return res
 
 
+# ------------------------------------------- channel_out on conv and LSTM
+CH_STEPS = 2
+CH_NCCL_STEPS = 3
+# kernels 7-8 in the split form at a rank's shape on a model axis of two:
+# the NMT's T and B, Hin = NH (the gathered h), Hu = NH / 2
+CH_RANKS = 2
+CH_HU = NH // CH_RANKS
+
+
+def ch_strategy(ops):
+    """``sample -> data`` on every op, and ``channel_out -> model`` on
+    ``ops``: the search's winner's form on the NMT's LSTMs and
+    AlexNet's convs."""
+    from flexflow_tpu_torch.parallel.pconfig import OpStrategy, Strategy
+    st = Strategy(default=OpStrategy({"sample": "data"}))
+    for name in ops:
+        st.set(name, OpStrategy({"sample": "data", "channel_out": "model"}))
+    return st
+
+
+def ch_nmt(dtype, mesh=None, strategy=None, capture=False):
+    """build_nmt_lstm at full width (nmt_graph's), SGD lr 0.01."""
+    from flexflow_tpu_torch import FFConfig, SGDOptimizer, build_nmt_lstm
+    m = build_nmt_lstm(FFConfig(batch_size=NB, seed=0), batch_size=NB,
+                       seq_len=NT, vocab_size=NV, embed_dim=NH, hidden=NH,
+                       num_layers=NL, dtype=dtype, device="cuda", mesh=mesh,
+                       strategy=strategy)
+    m.compile(optimizer=SGDOptimizer(lr=0.01),
+              loss_type="sparse_categorical_crossentropy", metrics=[],
+              capture=capture)
+    return m
+
+
+def ch_blocks(m, tree):
+    """This rank's blocks of a global {op.weight: tensor} tree, in the
+    layouts the mesh model ``m`` stores them (a sparse table's row
+    gradient, ``__rows__``, is the global batch's on every rank)."""
+    from flexflow_tpu_torch.parallel.sharding import shard
+    ex = m.executor
+    out = {}
+    for n, w in tree.items():
+        op, k = n.split(".")
+        out[n] = shard(w, ex._wstore[op][k], ex.bm) \
+            if k in ex._wstore[op] else w
+    return out
+
+
+def ch_compare(m, losses, ref_losses, grads=None, ref_grads=None):
+    """Loss rel, the weights' largest absolute difference and each
+    weight's gradient error (relative L2 over the steps, grad_errs) of a
+    mesh model's rank against the one-rank run's blocks."""
+    out = {"loss_rel": max(abs(a - b) / abs(b)
+                           for a, b in zip(losses, ref_losses))}
+    if grads is not None:
+        errs = grad_errs([{n: g for n, g in s.items()} for s in grads],
+                         [ch_blocks(m, s) for s in ref_grads])
+        worst = max(errs, key=errs.get)
+        out["grad_rel"] = {n: e for n, e in errs.items() if "lstm" in n}
+        out["worst_grad"] = (worst, errs[worst])
+    return out
+
+
+def channel_rank_nmt(steps):
+    """(a) on two gloo ranks of one card, eager: the NMT at full width on
+    a (1, 2) data x model mesh with channel_out on both LSTMs, f32 and
+    bf16, ``steps`` SGD steps, against the one-rank card run of the same
+    weights and batches (each rank trains it too: it holds the blocks of
+    every gradient and weight it is compared with)."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch.kernels import lstm_scan as ls
+    from flexflow_tpu_torch.parallel import collectives as C
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    batches = nmt_batches(steps)
+    mesh = make_mesh((1, CH_RANKS), ("data", "model"))
+    strat = ch_strategy([f"lstm_{i}" for i in range(NL)])
+    out = {"rank": dist.get_rank()}
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        ref = ch_nmt(dtype)
+        ref_losses, ref_grads = record_steps(ref, batches, steps)
+        ref_w = weights_of(ref)
+        release(ref)
+        del ref
+        dist.barrier()
+        m = ch_nmt(dtype, mesh, strat)
+        for counts in (ls.launches, ls.device_launches):
+            counts.update(dict.fromkeys(counts, 0))
+        C.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, grads = record_steps(m, batches, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cell = ch_compare(m, losses, ref_losses, grads, ref_grads)
+        del grads, ref_grads
+        mine = weights_of(m)
+        theirs = ch_blocks(m, ref_w)
+        cell["weight_abs"] = max_weight_diff(mine, theirs)
+        del mine, theirs, ref_w
+        cell.update(
+            losses=losses, ref_losses=ref_losses, step_ms=wall * 1e3 / steps,
+            launches=dict(ls.launches),
+            device_launches=dict(ls.device_launches),
+            collectives_per_step={k: v / steps for k, v in C.launches.items()
+                                  if v},
+            staged_mib_per_step=sum(C.staged_bytes.values()) / steps / 2**20,
+            wh_local=tuple(m.state.params["lstm_0"]["wh"].shape))
+        want = NL * steps
+        if cell["launches"] != {"lstm_fwd": want, "lstm_bwd": want} or \
+                cell["device_launches"] != {"lstm_fwd": want * NT,
+                                            "lstm_bwd": want * (2 * NT + 1)}:
+            raise AssertionError(
+                f"channel (a) {dname}: kernel 7/8 launches "
+                f"{cell['launches']}, device {cell['device_launches']}; want "
+                f"{want} walks each, {want * NT} and {want * (2 * NT + 1)} "
+                f"device kernels")
+        if dtype == torch.float32:
+            ok = (cell["loss_rel"] <= MESH_LOSS_REL
+                  and cell["weight_abs"][0] <= MESH_WEIGHT_ABS)
+        else:
+            ok = (cell["loss_rel"] <= NMT_BF16_LOSS_REL
+                  and cell["worst_grad"][1] <= NMT_GRAD_REL[dtype])
+        if not ok:
+            raise AssertionError(f"channel (a) {dname} on rank "
+                                 f"{out['rank']}: {cell}")
+        out[dname] = cell
+        release(m)
+        del m
+    return out
+
+
+def channel_rank_alexnet(steps):
+    """(b) AlexNet at the sweep's shape (batch 256, 3 x 32 x 32, 10
+    classes), f32, with channel_out on its five convs, on the same mesh,
+    against the one-rank card run (cuDNN deterministic, not autotuned,
+    TF32 off)."""
+    import torch.distributed as dist
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    _, kw, batch, _, _ = SWEEP["alexnet"]
+    data = sweep_batches("alexnet", batch, steps)
+
+    def build(mesh=None, strategy=None):
+        m = ft.build_alexnet(ft.FFConfig(batch_size=batch, seed=0),
+                             batch_size=batch, device="cuda", mesh=mesh,
+                             strategy=strategy, **kw)
+        m.compile(optimizer=ft.SGDOptimizer(lr=0.01),
+                  loss_type="sparse_categorical_crossentropy", metrics=[],
+                  capture=False)
+        return m
+
+    ref = build()
+    convs = [op.name for op in ref.ops if op.op_type == "conv2d"]
+    ref_losses = [float(ref.train_batch(b)["loss"]) for b in data]
+    ref_w = weights_of(ref)
+    release(ref)
+    del ref
+    dist.barrier()
+    m = build(make_mesh((1, CH_RANKS), ("data", "model")),
+              ch_strategy(convs))
+    t0 = time.perf_counter()
+    losses = [float(m.train_batch(b)["loss"]) for b in data]
+    torch.cuda.synchronize()
+    cell = ch_compare(m, losses, ref_losses)
+    cell.update(weight_abs=max_weight_diff(weights_of(m),
+                                           ch_blocks(m, ref_w)),
+                losses=losses, ref_losses=ref_losses,
+                step_ms=(time.perf_counter() - t0) * 1e3 / steps,
+                convs_split=[op for op in convs if m.executor._wwant[op][
+                    "kernel"] == ("model",)])
+    release(m)
+    if not (cell["loss_rel"] <= MESH_LOSS_REL
+            and cell["weight_abs"][0] <= MESH_WEIGHT_ABS
+            and cell["convs_split"] == convs):
+        raise AssertionError(f"channel (b) on rank {dist.get_rank()}: "
+                             f"{cell}")
+    return cell
+
+
+def channel_rank_nccl(steps):
+    """(d) one NCCL rank: the NMT (bf16, captured) on a (1, 1) data x
+    model mesh with channel_out on both LSTMs against the same model
+    without a mesh, bit for bit; at one rank the op takes the whole-H
+    kernels (T device kernels a forward call, T + 2 a backward call), not
+    the split launchers."""
+    from flexflow_tpu_torch.kernels import lstm_scan as ls
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    batches = nmt_batches(steps)
+    out = {}
+    runs = {}
+    for key, mesh, strat in (
+            ("nomesh", None, None),
+            ("mesh", make_mesh((1, 1), ("data", "model")),
+             ch_strategy([f"lstm_{i}" for i in range(NL)]))):
+        m = ch_nmt(torch.bfloat16, mesh, strat, capture=True)
+        for counts in (ls.launches, ls.device_launches):
+            counts.update(dict.fromkeys(counts, 0))
+        losses = [float(m.train_batch(b)["loss"]) for b in batches]
+        runs[key] = (losses, weights_of(m))
+        out[key] = {"losses": losses, "captures": m.compile_counts(),
+                    "launches": dict(ls.launches),
+                    "device_launches": dict(ls.device_launches)}
+        release(m)
+        del m
+    wdiff = max_weight_diff(runs["mesh"][1], runs["nomesh"][1])
+    out["max_weight_diff"] = wdiff
+    want = NL * steps
+    for key in runs:
+        if out[key]["device_launches"] != {"lstm_fwd": want * NT,
+                                           "lstm_bwd": want * (NT + 2)}:
+            raise AssertionError(f"channel (d) {key}: device launches "
+                                 f"{out[key]['device_launches']}")
+    if runs["mesh"][0] != runs["nomesh"][0] or wdiff[0] != 0.0:
+        raise AssertionError(f"channel (d): the one-rank model axis changed "
+                             f"the arithmetic: {out}")
+    return out
+
+
+def ch_split_walk(ls, xg0, wh0, h0w, c0b, hist, cs0, dys0, add):
+    """Callables that run one block's kernels at the rank's shape,
+    exactly the launches of a split walk: T forward steps reading
+    h_{t-1} from the gathered history; T backward steps and T partial dh
+    products, then dwh (the addend a fixed f32 block: timing only).
+    Each is enqueued from Python a launch at a time; ``ch_graphed``
+    replays them from a CUDA graph."""
+    steps = xg0.shape[0]
+    ys = torch.empty(cs0.shape, dtype=xg0.dtype, device="cuda")
+    cs = torch.empty_like(cs0)
+    dxg = torch.empty_like(xg0)
+    dc = torch.zeros_like(c0b)
+    part = torch.empty((xg0.shape[1], wh0.shape[0]), dtype=torch.float32,
+                       device="cuda")
+    dwh = torch.empty(tuple(wh0.shape), dtype=torch.float32, device="cuda")
+
+    def fwd():
+        for t in range(steps):
+            ls._cuda_fwd_step(xg0[t], wh0, h0w if t == 0 else hist[t - 1],
+                              c0b if t == 0 else cs0[t - 1], ys[t], cs[t])
+
+    def bwd():
+        dc.zero_()
+        for t in reversed(range(steps)):
+            ls._cuda_bwd_step(xg0[t], wh0, h0w if t == 0 else hist[t - 1],
+                              c0b if t == 0 else cs0[t - 1], cs0[t], dys0[t],
+                              add if t + 1 < steps else None, dxg[t], dc)
+            ls._cuda_dh_partial(dxg[t], wh0, part)
+        ls._cuda_dwh(h0w, hist, dxg, dwh)
+    return fwd, bwd
+
+
+def ch_graphed(fn):
+    """fn's launches captured once into a CUDA graph: a callable that
+    replays them, so that a timing reads the kernels' device time and
+    not the host's enqueue of one launch at a time."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return g.replay
+
+
+def ch_split_bounds(dtype):
+    """{kernel: (bound_ms, bound_by)} of one rank's split walk at T=NT,
+    B=NB, Hin=NH, Hu=CH_HU. Flops: the forward's T products (B, Hin) x
+    (Hin, 4Hu); the backward's three (the recompute, the partial dh,
+    dwh). Bytes, each input read once and each output written once:
+    forward xg, wh, the history h_{t-1} (T, B, Hin), c0 in, ys and cs
+    out; backward xg, wh, the history, c0, cs, dys and the f32 addends
+    in, dxg, the f32 partials (T, B, Hin), dwh (f32), dc0 out."""
+    e = torch.tensor([], dtype=dtype).element_size()
+    tbu, tbi = NT * NB * CH_HU, NT * NB * NH
+    flops = 2.0 * NT * NB * NH * 4 * CH_HU
+    fwd_bytes = ((4 * tbu + NH * 4 * CH_HU + tbi + tbu) * e
+                 + NB * CH_HU * 4 + tbu * 4)
+    bwd_bytes = ((4 * tbu + NH * 4 * CH_HU + tbi + tbu + 4 * tbu) * e
+                 + 2 * NB * CH_HU * 4 + tbu * 4 * 2 + tbi * 4
+                 + NH * 4 * CH_HU * 4)
+    return {"lstm_fwd": bound(fwd_bytes, flops, dtype),
+            "lstm_bwd": bound(bwd_bytes, 3 * flops, dtype)}
+
+
+def ch_kernel_check(ls):
+    """(c) Kernels 7-8 in the split form at a rank's shape (two blocks of
+    the NMT's H = 1024, Hu = 512 each, stepped in one process with the
+    halves concatenated each step), f32 and bf16: against the split
+    plain versions (LSTM_TOL), the two-block forward against whole-H
+    kernel 7 bit for bit (the same contraction), the two-block backward
+    against whole-H kernel 8 (NMT_GRAD_REL); then one block's walk timed
+    beside the whole-H kernels and cuDNN's layer in 3 interleaved
+    rounds, with its bound: replayed from a CUDA graph (the kernels'
+    device time: ms) and enqueued from Python a launch at a time, as an
+    eager rank runs them (eager_ms)."""
+    from flexflow_tpu_torch import resolve_device
+    resolve_device("cuda")      # TF32 off: the plain versions and cuDNN
+    res = {}
+    for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        tol = LSTM_TOL[dtype]
+        xg, wh, h0, c0, dys = lstm_inputs(dtype)
+        xgs, whs = ls.blocks_of(xg, CH_RANKS), ls.blocks_of(wh, CH_RANKS)
+        c0s = [c.contiguous() for c in c0.chunk(CH_RANKS, 1)]
+        dyss = [d.contiguous() for d in dys.chunk(CH_RANKS, 2)]
+        h0w = h0.float().to(dtype).contiguous()
+        css, hist = ls.lstm_fwd_split(xgs, whs, h0w, c0s, ls.cat_gather)
+        css_p, hist_p = ls.lstm_fwd_split(xgs, whs, h0w, c0s, ls.cat_gather,
+                                          plain=True)
+        torch.cuda.synchronize()
+        errs = {"lstm_fwd": [
+            check_err(f"split lstm_fwd {dname} ys", hist, hist_p, tol, True),
+            *(check_err(f"split lstm_fwd {dname} cs{b}", c, p, tol, True)
+              for b, (c, p) in enumerate(zip(css, css_p)))]}
+        ys, cs = ls.lstm_fwd_cuda(xg, wh, h0, c0)
+        bitwise = bool(torch.equal(hist, ys)
+                       and torch.equal(torch.cat(css, 2), cs))
+        got = ls.lstm_bwd_split(xgs, whs, h0w, c0s, css, hist, dyss,
+                                ls.sum_scatter)
+        want = ls.lstm_bwd_split(xgs, whs, h0w, c0s, css, hist, dyss,
+                                 ls.sum_scatter, plain=True)
+        torch.cuda.synchronize()
+        errs["lstm_bwd"] = [
+            check_err(f"split lstm_bwd {dname} {n}{b}", a, p, tol, True)
+            for n, ga, gp in zip(("dxg", "dwh", "dh0", "dc0"), got, want)
+            for b, (a, p) in enumerate(zip(ga, gp))]
+        whole = ls.lstm_bwd_cuda(xg, wh, h0, c0, ys, cs, dys)
+
+        def joined(blocks):
+            lead, hu = blocks[0].shape[:-1], blocks[0].shape[-1] // 4
+            return torch.stack([b.reshape(lead + (4, hu)) for b in blocks],
+                               dim=-2).reshape(lead + (-1,))
+        mine = (joined(got[0]), joined(got[1]), torch.cat(got[2], 1),
+                torch.cat(got[3], 1))
+        vs_whole = {n: float((a.float() - w.float()).norm()
+                             / w.float().norm())
+                    for n, a, w in zip(("dxg", "dwh", "dh0", "dc0"), mine,
+                                       whole)}
+        del got, want, mine, css_p, hist_p
+        if not bitwise:
+            raise AssertionError(f"channel (c) {dname}: the two-block "
+                                 f"forward differs from whole-H kernel 7")
+        if max(vs_whole.values()) > NMT_GRAD_REL[dtype]:
+            raise AssertionError(f"channel (c) {dname}: the two-block "
+                                 f"backward against whole-H kernel 8 "
+                                 f"{vs_whole} > {NMT_GRAD_REL[dtype]}")
+        add = torch.randn((NB, CH_HU), device="cuda") * 1e-2
+        sfwd, sbwd = ch_split_walk(ls, xgs[0], whs[0], h0w, c0s[0], hist,
+                                   css[0], dyss[0], add)
+        bargs = (xg, wh, h0, c0, ys, cs, dys)
+        fns = {"split_fwd": ch_graphed(sfwd), "split_bwd": ch_graphed(sbwd),
+               "split_fwd_eager": sfwd, "split_bwd_eager": sbwd,
+               "whole_fwd": lambda: ls.lstm_fwd_cuda(xg, wh, h0, c0),
+               "whole_bwd": lambda: ls.lstm_bwd_cuda(*bargs)}
+        lib = cudnn_fns(dtype)
+        if lib is not None:
+            fns.update(cudnn_fwd=lib[0], cudnn_bwd=lib[2])
+        rounds = yardstick(fns)
+        bounds = ch_split_bounds(dtype)
+        for kname, short in (("lstm_fwd", "fwd"), ("lstm_bwd", "bwd")):
+            lib_r = rounds.get(f"cudnn_{short}")
+            b_ms, b_by = bounds[kname]
+            res.setdefault(kname, {})[dname] = {
+                "shape": f"T={NT} B={NB} Hin={NH} Hu={CH_HU}",
+                "max_abs_err": max(x[0] for x in errs[kname]),
+                "err_over_max_ref": max(x[1] for x in errs[kname]),
+                "ms": statistics.median(rounds[f"split_{short}"]),
+                "ms_rounds": rounds[f"split_{short}"],
+                "eager_ms": statistics.median(
+                    rounds[f"split_{short}_eager"]),
+                "eager_ms_rounds": rounds[f"split_{short}_eager"],
+                "whole_ms": statistics.median(rounds[f"whole_{short}"]),
+                "whole_ms_rounds": rounds[f"whole_{short}"],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None if lib_r is None
+                else statistics.median(lib_r),
+                "library_ms_rounds": lib_r,
+                **({"fwd_bit_for_bit_vs_whole": bitwise}
+                   if kname == "lstm_fwd" else
+                   {"bwd_rel_vs_whole": vs_whole})}
+            c = res[kname][dname]
+            log(f"channel (c) kernel {kname} split [{dname}, {c['shape']}]:"
+                f" err/max|plain| {c['err_over_max_ref']:.3g} (tol {tol}); "
+                + (f"two-block forward = whole-H kernel 7 bit for bit: "
+                   f"{bitwise}" if kname == "lstm_fwd" else
+                   f"two-block backward vs whole-H kernel 8 (rel L2) "
+                   f"{ {k: f'{v:.3g}' for k, v in vs_whole.items()} }")
+                + f"; split ms {spread(rounds[f'split_{short}'])} (graph "
+                f"replay; enqueued a launch at a time "
+                f"{spread(rounds[f'split_{short}_eager'])}) vs whole-H"
+                f" {spread(rounds[f'whole_{short}'])} "
+                f"({c['ms'] / c['whole_ms']:.3f}x), bound {b_ms:.4f} "
+                f"({b_by}), cuDNN H={NH} "
+                f"{'null' if lib_r is None else spread(lib_r)}")
+        del xg, wh, h0, c0, dys, xgs, whs, css, hist, ys, cs, whole, fns
+        del lib, bargs, sfwd, sbwd
+        torch.cuda.empty_cache()
+    return res
+
+
+def channel_phase(ls, card: str):
+    """channel_out on conv and LSTM (see the module docstring): (c) the
+    split kernels in this process, then (a) and (b) on two gloo ranks
+    sharing the card, (d) on one NCCL rank. The ranks are processes
+    spawned after every kernel was built."""
+    import tempfile
+    from flexflow_tpu_torch.parallel.launch import RankPool
+    t0 = time.perf_counter()
+    res = {"kernels": ch_kernel_check(ls)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="ff_ch_"))
+    with RankPool(CH_RANKS, str(tmp / "g"), backend="gloo", device="cuda",
+                  threads=0, timeout_s=600) as pool:
+        res["nmt"] = pool.run(channel_rank_nmt, CH_STEPS)
+        res["alexnet"] = pool.run(channel_rank_alexnet, CH_STEPS)
+    for dname in ("f32", "bf16"):
+        cells = [r[dname] for r in res["nmt"]]
+        c0 = cells[0]
+        log(f"channel (a) nmt {dname} [{card}]: (1, 2) data x model, "
+            f"channel_out on both LSTMs (wh {c0['wh_local']} a rank), "
+            f"{CH_STEPS} eager steps against the one-rank card run: loss "
+            f"rel {[f'{c['loss_rel']:.3e}' for c in cells]}, weights abs "
+            f"{[f'{c['weight_abs'][0]:.3e}' for c in cells]}, worst "
+            f"gradient {[c['worst_grad'] for c in cells]}; kernel 7/8 "
+            f"launches a rank {[c['launches'] for c in cells]}, device "
+            f"{[c['device_launches'] for c in cells]}; collectives a step "
+            f"{c0['collectives_per_step']}; staged "
+            f"{[round(c['staged_mib_per_step'], 1) for c in cells]} MiB a "
+            f"step; eager step {[round(c['step_ms'], 1) for c in cells]} "
+            f"ms (two gloo ranks on one card: no speed)")
+    cells = res["alexnet"]
+    log(f"channel (b) alexnet f32 b=256 [{card}]: channel_out on "
+        f"{cells[0]['convs_split']}: loss rel "
+        f"{[f'{c['loss_rel']:.3e}' for c in cells]}, weights abs "
+        f"{[f'{c['weight_abs'][0]:.3e}' for c in cells]}, eager step "
+        f"{[round(c['step_ms'], 1) for c in cells]} ms")
+    with RankPool(1, str(tmp / "n"), backend="nccl", device="cuda",
+                  threads=0, timeout_s=600) as pool:
+        res["nccl"] = pool.run(channel_rank_nccl, CH_NCCL_STEPS)[0]
+    d = res["nccl"]
+    log(f"channel (d) one NCCL rank, (1, 1) data x model, nmt bf16 "
+        f"captured: losses {d['mesh']['losses']} = no mesh "
+        f"{d['nomesh']['losses']}, weights max diff "
+        f"{d['max_weight_diff'][0]}; device launches "
+        f"{d['mesh']['device_launches']} (whole-H: {NT} a forward call, "
+        f"{NT + 2} a backward call)")
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"channel phase: {res['phase_s']:.1f} s")
+    return res
+
+
 def _kernel_name(sym: str) -> str:
     """A mangled kernel symbol as name[template args, still mangled]:
     the name is the length-prefixed identifier ending in _kernel."""
@@ -6067,6 +6572,9 @@ def main() -> int:
     if "--only-pp" in sys.argv[1:]:
         log(json.dumps({"pp": pp_phase(fa, card)}, default=str))
         return 0
+    if "--only-channel" in sys.argv[1:]:
+        log(json.dumps({"channel": channel_phase(ls, card)}, default=str))
+        return 0
     kres = kernel_phase(pr)
     dres = paged_decode_phase(fa)
     fres = flash_phase(fa)
@@ -6102,6 +6610,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ppres = pp_phase(fa, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    chres = channel_phase(ls, card)
 
     def head(cells):
         """A row's headline numbers: its f32 cell."""
@@ -6224,6 +6735,17 @@ def main() -> int:
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "port_layer_ms": head["port_layer_ms"],
             "device_launches": nres["device_launches"][kname],
+            # channel_phase (a): a rank's walks in the split form (one a
+            # layer a step) and the device kernels they enqueued (T a
+            # forward walk, 2T + 1 a backward walk), f32 and bf16; (c)
+            # the split form at the rank's shape
+            "channel_launches": {
+                d: [r[d]["launches"][kname] for r in chres["nmt"]]
+                for d in ("f32", "bf16")},
+            "channel_device_launches": {
+                d: [r[d]["device_launches"][kname] for r in chres["nmt"]]
+                for d in ("f32", "bf16")},
+            "split": chres["kernels"][kname],
             "ms_rounds": head["ms_rounds"],
             "library_ms_rounds": head["library_ms_rounds"],
             **{k: head[k] for k in ("library_fwd_bwd_ms",
@@ -6305,6 +6827,8 @@ def main() -> int:
                            if k != "kernels"}}, default=str))
     log(json.dumps({"pp": {k: v for k, v in ppres.items()
                            if k != "kernels"}}, default=str))
+    log(json.dumps({"channel": {k: v for k, v in chres.items()
+                                if k != "kernels"}}, default=str))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

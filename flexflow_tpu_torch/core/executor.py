@@ -169,9 +169,8 @@ from .prng import OpRng, key_words
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
-# the ROADMAP items that execute what the port leaves out
-_ITEM = {"layout": "2.6 (layouts beyond these axes)",
-         "channel": "2.7 (conv and LSTM channel_out)"}
+# the ROADMAP item that executes what the port leaves out
+_ITEM = {"layout": "2.6 (layouts beyond these axes)"}
 # the mesh axes that execute (``pipe``: replicated here, its stages run
 # by core/staged.py, its stacked blocks by ops/pipeline.py)
 _AXES = ("data", "model", "seq", "expert", "pipe")
@@ -188,10 +187,12 @@ def zero_applicable(config, mesh) -> bool:
 def check_executable(model, strategy, mesh, config) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP item for what
     does not execute on a mesh: mesh axes beyond ``data``, ``model``,
-    ``seq``, ``expert`` and ``pipe`` (2.6), ``channel_out`` on conv2d
-    and lstm (2.7), a stacked embedding split on both its slots and
-    its vocab, and a batch that does not split over ``data`` (2.6).
-    Linear ``channel_out``, attention ``head``, embedding ``vocab``,
+    ``seq``, ``expert`` and ``pipe``, a stacked embedding split on both
+    its slots and its vocab, and a batch that does not split over
+    ``data`` (2.6). Linear, conv2d and lstm ``channel_out`` (a conv's
+    output channels a rank, an LSTM's hidden units a rank with h
+    gathered every step: ops/conv.py, ops/rnn.py), attention ``head``,
+    embedding ``vocab``,
     the ``seq`` split (position-local ops on blocks of the sequence,
     attention through ring or all-to-all attention, every other op
     reading the sequence whole), ``expert`` on MoE, ``table`` and
@@ -203,7 +204,7 @@ def check_executable(model, strategy, mesh, config) -> None:
     replicated, as GSPMD runs them. Any other weight a strategy splits
     is stored split and read whole."""
     from ..op import SAMPLE
-    from ..parallel.sharding import spec_for_axes, weight_sharding
+    from ..parallel.sharding import spec_for_axes
     for ax, n in mesh.shape.items():
         if ax not in _AXES and n > 1:
             raise NotImplementedError(
@@ -218,14 +219,6 @@ def check_executable(model, strategy, mesh, config) -> None:
             raise NotImplementedError(
                 f"{op.name}: seq over several mesh axes {seq}: ROADMAP "
                 f"item {_ITEM['layout']}")
-        split = [k for k, w in op.weight_specs().items()
-                 if any(mesh.shape.get(n, 1) > 1
-                        for e in weight_sharding(w, st, mesh) if e
-                        for n in ((e,) if isinstance(e, str) else e))]
-        if split and op.op_type in ("conv2d", "lstm"):
-            raise NotImplementedError(
-                f"{op.name}: channel_out over a mesh axis on "
-                f"{op.op_type}: ROADMAP item {_ITEM['channel']}")
         if op.op_type == "distributed_embedding":
             slots, vocab = op.split_axes(st, mesh)
             if slots and vocab:
@@ -330,7 +323,9 @@ class Executor:
                                    if self.bm is not None else None)
         # sibling-conv groups by leader name (config.sibling_conv_fusion);
         # as in the JAX executor, a group whose members carry different
-        # strategies runs unmerged
+        # strategies runs unmerged, and so on a mesh does one whose
+        # members do not all split their output channels (an
+        # out_channels that the axis does not divide)
         self._conv_merge_leader = {}
         if self.config.sibling_conv_fusion:
             from .fusion import _strategy_key, conv_sibling_groups
@@ -338,6 +333,10 @@ class Executor:
                 if strategy is not None and len(
                         {_strategy_key(strategy, op.name)
                          for op in g}) > 1:
+                    continue
+                if self.bm is not None and len(
+                        {op._tp(self.strategy.for_op(op.name), self.bm)
+                         is None for op in g}) > 1:
                     continue
                 self._conv_merge_leader[g[0].name] = g
         self._nhwc_resident, self._nhwc_reads = (
@@ -353,7 +352,6 @@ class Executor:
         dimensions; raises for a strategy this slice does not
         execute."""
         from ..parallel.sharding import (effective_op_strategy,
-                                         op_output_sharding,
                                          weight_sharding)
         bm, model = self.bm, self.model
         check_executable(model, self.strategy, bm, self.config)
@@ -377,7 +375,7 @@ class Executor:
             self._in_specs[op.name] = op.mesh_input_specs(st, bm)
             self._out_specs[op.name] = op.mesh_output_specs(st, bm)
             if boundary is None or op.name in boundary:
-                self._pins[op.name] = op_output_sharding(op, st, bm)
+                self._pins[op.name] = op.mesh_pin_specs(st, bm)
         self._batch = int(model.input_tensors[0].shape[0]) \
             if model.input_tensors else 0
         self._ndata = bm.axis_size("data") if "data" in bm.groups else 1
@@ -705,10 +703,18 @@ class Executor:
                 if bm is not None:
                     want = self._in_specs[op.name][i]
                     if want != layouts[t.uid]:
-                        mk = (t.uid, want)
+                        nhwc = (v.dim() == 4
+                                and op.name in self._nhwc_reads)
+                        mk = (t.uid, want, nhwc)
                         if mk not in moved:
                             moved[mk] = reshard(v, layouts[t.uid], want,
                                                 bm)
+                            if nhwc:
+                                # a gathered channel block comes back in
+                                # neither memory format: hand an NHWC
+                                # reader the channels-last it expects
+                                moved[mk] = moved[mk].contiguous(
+                                    memory_format=torch.channels_last)
                         v = moved[mk]
                 xs.append(v)
             op_params = params.get(op.name, {})
@@ -727,13 +733,15 @@ class Executor:
                 # its residency speaks for the group
                 if remat:
                     outs = checkpoint(
-                        lambda ps, x, _g=group, _o=ctx.nhwc_out:
-                        merged_conv_forward(_g, ps, x, _o),
+                        lambda ps, x, _g=group, _c=ctx:
+                        merged_conv_forward(_g, ps, x, _c.nhwc_out,
+                                            _c.mesh, _c.strategy),
                         plist, xs[0], use_reentrant=False,
                         preserve_rng_state=False)
                 else:
                     outs = merged_conv_forward(group, plist, xs[0],
-                                               ctx.nhwc_out)
+                                               ctx.nhwc_out, ctx.mesh,
+                                               ctx.strategy)
                 for m, y in zip(group[1:], outs[1:]):
                     merged_pending[m.name] = y
                 ys = [outs[0]]

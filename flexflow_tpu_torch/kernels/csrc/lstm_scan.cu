@@ -79,6 +79,22 @@
 // reads are issued before the ring), so its step tile reads ~0.4 MB and
 // the 128 tiles ~48 MB a step, a third of the backward's.
 //
+// The split form (ops/rnn.py on a mesh whose model axis splits the gate
+// columns): a rank holds the [i, f, g, o] columns of its Hu = H/n units,
+// wh (Hin, 4Hu) with Hin = H the whole contraction, and every step needs
+// all of h_{t-1}, which the ranks gather between two steps. So the
+// kernels take Hin (the rows of wh, the width of h_{t-1}) and Hu (the
+// units: xg/4, ys, cs, dys) apart, and the split launchers run one step,
+// or one product, a call: the forward step reads h_{t-1} from the
+// caller's gathered history; the backward step takes the dh carry as an
+// f32 addend (the ranks' partial products summed by a reduce-scatter)
+// in place of computing dlin_{t+1}.wh^T itself; the partial product
+// dlin_t.wh_local^T -> (B, Hin) f32 is the dh0 kernel's; dwh reads
+// h_{t-1} from the history. A forward walk is T launches, a backward walk
+// 2T + 1. The tiles are the whole-H kernels' (64 rows x 32 units x 4
+// gates a CTA): at Hu 512 a step is 64 CTAs on 132 SMs. With Hin == Hu
+// the whole-sequence launchers run, as without a mesh.
+//
 // The f32 forward and backward run on the CUDA cores: operands
 // staged through shared memory as f32 in slices of 16, two buffers
 // deep, the next slice's global loads issued before the current slice's
@@ -157,22 +173,23 @@ __device__ __forceinline__ void staged(int depth, Load load, Store store,
   }
 }
 
-// acc[r][g][u] += sum_k hp[b0 + tr*4 + r][k] * wh[k][g*H + j0 + tu*2 + u]
-// over k < H: the recurrent product of a step tile, all four gates.
-// hp is (B, H), wh (H, 4H), both of type T. sa/sb: 2 x kSlice floats.
+// acc[r][g][u] += sum_k hp[b0 + tr*4 + r][k] * wh[k][g*Hu + j0 + tu*2 + u]
+// over k < Hin: the recurrent product of a step tile, all four gates.
+// hp is (B, Hin), wh (Hin, 4Hu), both of type T (Hin = Hu = H but in
+// the split form). sa/sb: 2 x kSlice floats.
 template <typename T>
 __device__ __forceinline__ void recurrent_product(
-    const T* __restrict__ hp, const T* __restrict__ wh, int B, int H, int b0,
-    int j0, float* sa, float* sb, float (&acc)[4][4][2]) {
+    const T* __restrict__ hp, const T* __restrict__ wh, int B, int Hin,
+    int Hu, int b0, int j0, float* sa, float* sb, float (&acc)[4][4][2]) {
   const int tid = threadIdx.x, tr = tid / 16, tu = tid % 16;
-  const int64_t H4 = 4 * (int64_t)H;
+  const int64_t H4 = 4 * (int64_t)Hu;
   // A slice (64 rows x 16 k) -> sa[kk][m]: 4 a thread, k fastest
   auto load = [&](int k0, float (&ra)[4], float (&rb)[8]) {
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       const int i = tid + p * kThreads, m = i / kBK, k = k0 + i % kBK;
       const int b = b0 + m;
-      ra[p] = (b < B && k < H) ? to_f32(hp[(int64_t)b * H + k]) : 0.f;
+      ra[p] = (b < B && k < Hin) ? to_f32(hp[(int64_t)b * Hin + k]) : 0.f;
     }
     // B slice (16 k x 4 gates x 32 units) -> sb[kk][g*32 + u]: 8 a
     // thread, units fastest
@@ -180,8 +197,9 @@ __device__ __forceinline__ void recurrent_product(
     for (int p = 0; p < 8; ++p) {
       const int i = tid + p * kThreads, u = i % kBU, g = (i / kBU) % 4;
       const int k = k0 + i / kBN, j = j0 + u;
-      rb[p] = (j < H && k < H) ? to_f32(wh[(int64_t)k * H4 + g * H + j])
-                               : 0.f;
+      rb[p] = (j < Hu && k < Hin)
+                  ? to_f32(wh[(int64_t)k * H4 + (int64_t)g * Hu + j])
+                  : 0.f;
     }
   };
   auto store = [&](int buf, float (&ra)[4], float (&rb)[8]) {
@@ -215,19 +233,21 @@ __device__ __forceinline__ void recurrent_product(
       }
     }
   };
-  staged<4, 8>(H, load, store, compute);
+  staged<4, 8>(Hin, load, store, compute);
 }
 
 // dacc[r][u] += sum_c d[b0 + tr*4 + r][c] * wh[j0 + tu*2 + u][c] over
-// c < 4H: the product dlin.wh^T that carries dh, for a step tile's rows
-// and its 32 units (rows of wh). d is (B, 4H) of type T.
+// c < H4: the product dlin.wh^T that carries dh, for a step tile's rows
+// and its 32 rows j < Hr of wh (the units of h_{t-1}). d is (B, H4) and
+// wh (Hr, H4), of type T: H4 = 4H and Hr = H, or 4Hu and Hin in the
+// split form's partial product.
 template <typename T>
 __device__ __forceinline__ void dh_product(const T* __restrict__ d,
                                            const T* __restrict__ wh, int B,
-                                           int H, int b0, int j0, float* sa,
-                                           float* sb, float (&dacc)[4][2]) {
+                                           int Hr, int H4, int b0, int j0,
+                                           float* sa, float* sb,
+                                           float (&dacc)[4][2]) {
   const int tid = threadIdx.x, tr = tid / 16, tu = tid % 16;
-  const int H4 = 4 * H;
   // A slice (64 rows x 16 c) -> sa[kk][m]; wh slice (32 rows x 16 c) ->
   // sb[kk][u]: 4 and 2 a thread, c fastest in both
   auto load = [&](int c0, float (&ra)[4], float (&rb)[2]) {
@@ -241,7 +261,7 @@ __device__ __forceinline__ void dh_product(const T* __restrict__ d,
     for (int p = 0; p < 2; ++p) {
       const int i = tid + p * kThreads, u = i / kBK, c = c0 + i % kBK;
       const int j = j0 + u;
-      rb[p] = (j < H && c < H4) ? to_f32(wh[(int64_t)j * H4 + c]) : 0.f;
+      rb[p] = (j < Hr && c < H4) ? to_f32(wh[(int64_t)j * H4 + c]) : 0.f;
     }
   };
   auto store = [&](int buf, float (&ra)[4], float (&rb)[2]) {
@@ -279,34 +299,36 @@ __device__ __forceinline__ void dh_product(const T* __restrict__ d,
 }
 
 // ------------------------------------------------------------- forward
-// One time step: xg, ys, cs point at step t's (B, 4H) / (B, H) slices;
-// hp = ys_{t-1} (or h0 in wh's type), cp = cs_{t-1} (or c0 in f32).
+// One time step: xg, ys, cs point at step t's (B, 4Hu) / (B, Hu) slices;
+// hp = ys_{t-1} (or h0 in wh's type), (B, Hin): the whole-H walk reads
+// it from ys (Hin = Hu = H), the split form from the gathered history;
+// cp = cs_{t-1} (or c0 in f32).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     lstm_fwd_step_kernel(const T* __restrict__ xg, const T* __restrict__ wh,
                          const T* __restrict__ hp,
                          const float* __restrict__ cp, T* __restrict__ ys,
-                         float* __restrict__ cs, int B, int H) {
+                         float* __restrict__ cs, int B, int Hin, int Hu) {
   __shared__ __align__(16) float sa[2 * kSlice];
   __shared__ __align__(16) float sb[2 * kSlice];
   const int b0 = blockIdx.y * kBM, j0 = blockIdx.x * kBU;
   const int tr = threadIdx.x / 16, tu = threadIdx.x % 16;
   float acc[4][4][2] = {};
-  recurrent_product(hp, wh, B, H, b0, j0, sa, sb, acc);
-  const int64_t H4 = 4 * (int64_t)H;
+  recurrent_product(hp, wh, B, Hin, Hu, b0, j0, sa, sb, acc);
+  const int64_t H4 = 4 * (int64_t)Hu;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int b = b0 + tr * 4 + r;
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int j = j0 + tu * 2 + u;
-      if (b >= B || j >= H) continue;
+      if (b >= B || j >= Hu) continue;
       const T* x = xg + (int64_t)b * H4 + j;
       const float i = sigmoid(to_f32(x[0]) + acc[r][0][u]);
-      const float f = sigmoid(to_f32(x[H]) + acc[r][1][u]);
-      const float g = tanhf(to_f32(x[2 * H]) + acc[r][2][u]);
-      const float o = sigmoid(to_f32(x[3 * H]) + acc[r][3][u]);
-      const int64_t idx = (int64_t)b * H + j;
+      const float f = sigmoid(to_f32(x[Hu]) + acc[r][1][u]);
+      const float g = tanhf(to_f32(x[2 * Hu]) + acc[r][2][u]);
+      const float o = sigmoid(to_f32(x[3 * Hu]) + acc[r][3][u]);
+      const int64_t idx = (int64_t)b * Hu + j;
       const float c = f * cp[idx] + i * g;
       ys[idx] = from_f32<T>(o * tanhf(c));
       cs[idx] = c;
@@ -315,90 +337,97 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------ backward
-// One reverse step t. dnext = dxg_{t+1} (null at t = T-1: dh carry 0);
-// dc is the (B, H) f32 dc carry, read and overwritten in place (each
-// element by the one thread that owns it).
+// One reverse step t. The dh carry: dnext = dxg_{t+1} (whole H; null at
+// t = T-1: carry 0), or in the split form dh_add, the f32 (B, Hu) sum
+// of the ranks' partial products (null at t = T-1); at most one is
+// given. dc is the (B, Hu) f32 dc carry, read and overwritten in place
+// (each element by the one thread that owns it).
 template <typename T>
 __global__ void __launch_bounds__(kThreads) lstm_bwd_step_kernel(
     const T* __restrict__ xg, const T* __restrict__ wh,
     const T* __restrict__ hp, const float* __restrict__ cp,
     const float* __restrict__ cs, const T* __restrict__ dys,
-    const T* __restrict__ dnext, T* __restrict__ dxg, float* __restrict__ dc,
-    int B, int H) {
+    const T* __restrict__ dnext, const float* __restrict__ dh_add,
+    T* __restrict__ dxg, float* __restrict__ dc, int B, int Hin, int Hu) {
   __shared__ __align__(16) float sa[2 * kSlice];
   __shared__ __align__(16) float sb[2 * kSlice];
   const int b0 = blockIdx.y * kBM, j0 = blockIdx.x * kBU;
   const int tr = threadIdx.x / 16, tu = threadIdx.x % 16;
+  const int64_t H4 = 4 * (int64_t)Hu;
   float dacc[4][2] = {};
-  if (dnext != nullptr) dh_product(dnext, wh, B, H, b0, j0, sa, sb, dacc);
+  if (dnext != nullptr)
+    dh_product(dnext, wh, B, Hin, (int)H4, b0, j0, sa, sb, dacc);
   float acc[4][4][2] = {};
-  recurrent_product(hp, wh, B, H, b0, j0, sa, sb, acc);
-  const int64_t H4 = 4 * (int64_t)H;
+  recurrent_product(hp, wh, B, Hin, Hu, b0, j0, sa, sb, acc);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int b = b0 + tr * 4 + r;
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int j = j0 + tu * 2 + u;
-      if (b >= B || j >= H) continue;
+      if (b >= B || j >= Hu) continue;
       const T* x = xg + (int64_t)b * H4 + j;
       const float i = sigmoid(to_f32(x[0]) + acc[r][0][u]);
-      const float f = sigmoid(to_f32(x[H]) + acc[r][1][u]);
-      const float g = tanhf(to_f32(x[2 * H]) + acc[r][2][u]);
-      const float o = sigmoid(to_f32(x[3 * H]) + acc[r][3][u]);
-      const int64_t idx = (int64_t)b * H + j;
+      const float f = sigmoid(to_f32(x[Hu]) + acc[r][1][u]);
+      const float g = tanhf(to_f32(x[2 * Hu]) + acc[r][2][u]);
+      const float o = sigmoid(to_f32(x[3 * Hu]) + acc[r][3][u]);
+      const int64_t idx = (int64_t)b * Hu + j;
       const float tanh_c = tanhf(cs[idx]);
-      const float dh = to_f32(dys[idx]) + dacc[r][u];
+      const float dh =
+          to_f32(dys[idx]) + (dh_add != nullptr ? dh_add[idx] : dacc[r][u]);
       const float dcv = dh * o * (1.f - tanh_c * tanh_c) + dc[idx];
       const float dov = dh * tanh_c;
       const float di = dcv * g, dg = dcv * i, df = dcv * cp[idx];
       T* dx = dxg + (int64_t)b * H4 + j;
       dx[0] = from_f32<T>(di * i * (1.f - i));
-      dx[H] = from_f32<T>(df * f * (1.f - f));
-      dx[2 * H] = from_f32<T>(dg * (1.f - g * g));
-      dx[3 * H] = from_f32<T>(dov * o * (1.f - o));
+      dx[Hu] = from_f32<T>(df * f * (1.f - f));
+      dx[2 * Hu] = from_f32<T>(dg * (1.f - g * g));
+      dx[3 * Hu] = from_f32<T>(dov * o * (1.f - o));
       dc[idx] = dcv * f;
     }
   }
 }
 
-// dh0 = dlin_0.wh^T (dlin_0 read from dxg_0), f32 (B, H).
+// dh = d.wh^T, f32 (B, Hin), d (B, 4Hu) and wh (Hin, 4Hu): dh0 =
+// dlin_0.wh^T (dlin_0 read from dxg_0) of the whole-H walk (Hin = Hu
+// = H), and the split form's partial product of every reverse step.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     lstm_dh0_kernel(const T* __restrict__ d, const T* __restrict__ wh,
-                    float* __restrict__ dh0, int B, int H) {
+                    float* __restrict__ dh0, int B, int Hin, int Hu) {
   __shared__ __align__(16) float sa[2 * kSlice];
   __shared__ __align__(16) float sb[2 * kSlice];
   const int b0 = blockIdx.y * kBM, j0 = blockIdx.x * kBU;
   const int tr = threadIdx.x / 16, tu = threadIdx.x % 16;
   float dacc[4][2] = {};
-  dh_product(d, wh, B, H, b0, j0, sa, sb, dacc);
+  dh_product(d, wh, B, Hin, 4 * Hu, b0, j0, sa, sb, dacc);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int b = b0 + tr * 4 + r;
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int j = j0 + tu * 2 + u;
-      if (b < B && j < H) dh0[(int64_t)b * H + j] = dacc[r][u];
+      if (b < B && j < Hin) dh0[(int64_t)b * Hin + j] = dacc[r][u];
     }
   }
 }
 
 // dwh[k][c] = sum_n hs_prev[n][k] * dxg[n][c] over the n < T*B rows of
-// the sequence, f32 (H, 4H). hs_prev row n is h0[n] for n < B, else
-// ys[n - B] (ys is (T, B, H), so row n - B of its (T*B, H) view). A
+// the sequence, f32 (Hin, 4Hu). hs_prev row n is h0[n] for n < B, else
+// ys[n - B] (ys is (T, B, Hin), so row n - B of its (T*B, Hin) view):
+// the whole-H walk's ys, or the split form's gathered history. A
 // 64 (k) x 128 (c) tile a CTA; a thread holds rows tr*4.. and the
 // columns tu*4.. and 64 + tu*4...
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     lstm_dwh_kernel(const T* __restrict__ h0, const T* __restrict__ ys,
                     const T* __restrict__ dxg, float* __restrict__ dwh,
-                    int rows, int B, int H) {
+                    int rows, int B, int Hin, int Hu) {
   __shared__ __align__(16) float sa[2 * kSlice];
   __shared__ __align__(16) float sb[2 * kSlice];
   const int tid = threadIdx.x, tr = tid / 16, tu = tid % 16;
   const int m0 = blockIdx.y * kBM, c0 = blockIdx.x * kBN;
-  const int H4 = 4 * H;
+  const int H4 = 4 * Hu;
   float acc[4][8] = {};
   // hs_prev slice (16 rows x 64 k) -> sa[kk][m], k fastest; dxg slice
   // (16 rows x 128 c) -> sb[kk][n], c fastest: 4 and 8 a thread
@@ -406,8 +435,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       const int i = tid + p * kThreads, n = n0 + i / kBM, k = m0 + i % kBM;
-      const T* row = n < B ? h0 + (int64_t)n * H : ys + (int64_t)(n - B) * H;
-      ra[p] = (n < rows && k < H) ? to_f32(row[k]) : 0.f;
+      const T* row =
+          n < B ? h0 + (int64_t)n * Hin : ys + (int64_t)(n - B) * Hin;
+      ra[p] = (n < rows && k < Hin) ? to_f32(row[k]) : 0.f;
     }
 #pragma unroll
     for (int p = 0; p < 8; ++p) {
@@ -449,7 +479,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int k = m0 + tr * 4 + r;
-    if (k >= H) continue;
+    if (k >= Hin) continue;
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int c = c0 + (q < 4 ? tu * 4 + q : 64 + tu * 4 + q - 4);
@@ -516,30 +546,31 @@ __device__ __forceinline__ void ring(int n, Load load, Compute compute) {
 __device__ __forceinline__ int clamp8(int n) { return max(0, min(8, n)); }
 
 // The recurrent product h_{t-1}.wh of the step tile (b0, j0), slice by
-// slice over k < H: 8 warps as 2 (rows) x 4 (gates), warp (wm, g)
-// summing rows b0 + wm*32 + 16i, wh columns g*H + j0 + 8j.. into
-// acc[i][j]; B comes from row-major wh through ldmatrix.trans.
+// slice over k < Hin: 8 warps as 2 (rows) x 4 (gates), warp (wm, g)
+// summing rows b0 + wm*32 + 16i, wh columns g*Hu + j0 + 8j.. into
+// acc[i][j]; B comes from row-major wh through ldmatrix.trans. hp is
+// (B, Hin), wh (Hin, 4Hu).
 __device__ __forceinline__ void recurrent_load(
     bf16* st, const bf16* __restrict__ hp, const bf16* __restrict__ wh,
-    int B, int H, int b0, int j0, int k0, bool vec) {
+    int B, int Hin, int Hu, int b0, int j0, int k0, bool vec) {
   const int tid = threadIdx.x;
-  const int64_t H4 = 4 * (int64_t)H;
+  const int64_t H4 = 4 * (int64_t)Hu;
   bf16* sb = st + kBM * kLdK;
 #pragma unroll
   for (int p = 0; p < 2; ++p) {        // h_{t-1}: 64 rows x 8 chunks
     const int i = tid + p * kThreads, r = i >> 3, c = (i & 7) * 8;
     const int b = b0 + r, k = k0 + c;
-    const int valid = b < B ? clamp8(H - k) : 0;
-    tc::stage_chunk(st + r * kLdK + c, valid ? hp + (int64_t)b * H + k : hp,
-                    valid, vec);
+    const int valid = b < B ? clamp8(Hin - k) : 0;
+    tc::stage_chunk(st + r * kLdK + c,
+                    valid ? hp + (int64_t)b * Hin + k : hp, valid, vec);
   }
 #pragma unroll
   for (int p = 0; p < 4; ++p) {        // wh: 64 k x 16 chunks (4 gates)
     const int i = tid + p * kThreads, kr = i >> 4, cc = i & 15;
     const int g = cc >> 2, u = (cc & 3) * 8, k = k0 + kr, j = j0 + u;
-    const int valid = k < H ? clamp8(H - j) : 0;
+    const int valid = k < Hin ? clamp8(Hu - j) : 0;
     tc::stage_chunk(sb + kr * kLdN + g * kBU + u,
-                    valid ? wh + (int64_t)k * H4 + (int64_t)g * H + j : wh,
+                    valid ? wh + (int64_t)k * H4 + (int64_t)g * Hu + j : wh,
                     valid, vec);
   }
 }
@@ -572,16 +603,17 @@ __device__ __forceinline__ void recurrent_mma(const bf16* st,
 }
 
 // The product d.wh^T that carries dh, for the step tile's rows and its
-// 32 units, slice by slice over c < 4H; d is (B, 4H). The rows of wh are
-// the col-major B that mma wants (plain ldmatrix). 8 warps as 2 (rows) x
-// 4 (k16 steps kq and kq + 4 of a slice), warp (wm, kq) summing rows
-// b0 + wm*32 + 16i, units j0 + 8j.. into dacc[i][j]: the 4 partials meet
-// in dh_partials_to_smem.
+// 32 units j < Hr (rows of wh), slice by slice over c < H4; d is (B, H4),
+// wh (Hr, H4) (H4 = 4H, Hr = H; the split form's partial product: 4Hu
+// and Hin). The rows of wh are the col-major B that mma wants (plain
+// ldmatrix). 8 warps as 2 (rows) x 4 (k16 steps kq and kq + 4 of a
+// slice), warp (wm, kq) summing rows b0 + wm*32 + 16i, units j0 + 8j..
+// into dacc[i][j]: the 4 partials meet in dh_partials_to_smem.
 __device__ __forceinline__ void dh_load(bf16* st, const bf16* __restrict__ d,
                                         const bf16* __restrict__ wh, int B,
-                                        int H, int b0, int j0, int c0,
-                                        bool vec) {
-  const int tid = threadIdx.x, H4 = 4 * H;
+                                        int Hr, int H4, int b0, int j0,
+                                        int c0, bool vec) {
+  const int tid = threadIdx.x;
   bf16* sw = st + kBM * kLdKd;
 #pragma unroll
   for (int p = 0; p < 4; ++p) {        // dlin: 64 rows x 16 chunks
@@ -595,7 +627,7 @@ __device__ __forceinline__ void dh_load(bf16* st, const bf16* __restrict__ d,
   for (int p = 0; p < 2; ++p) {        // wh rows: 32 units x 16 chunks
     const int i = tid + p * kThreads, r = i >> 4, c = (i & 15) * 8;
     const int j = j0 + r;
-    const int valid = j < H ? clamp8(H4 - (c0 + c)) : 0;
+    const int valid = j < Hr ? clamp8(H4 - (c0 + c)) : 0;
     tc::stage_chunk(sw + r * kLdKd + c,
                     valid ? wh + (int64_t)j * H4 + c0 + c : wh, valid, vec);
   }
@@ -657,30 +689,33 @@ __device__ __forceinline__ float dh_sum(const float* sdh, int r, int u) {
          sdh[(2 * kBM + r) * kLdDh + u] + sdh[(3 * kBM + r) * kLdDh + u];
 }
 
-// One reverse step t, as lstm_bwd_step_kernel: the dh product, then the
-// gate recompute, both on the tensor cores; the f32 sums meet in shared
-// memory so that one thread holds i, f, g, o and dh of a (row, unit).
+// One reverse step t, as lstm_bwd_step_kernel: the dh product (none
+// in the split form, which adds dh_add), then the gate recompute, both
+// on the tensor cores; the f32 sums meet in shared memory so that one
+// thread holds i, f, g, o and dh of a (row, unit).
 __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_step_mma_kernel(
     const bf16* __restrict__ xg, const bf16* __restrict__ wh,
     const bf16* __restrict__ hp, const float* __restrict__ cp,
     const float* __restrict__ cs, const bf16* __restrict__ dys,
-    const bf16* __restrict__ dnext, bf16* __restrict__ dxg,
-    float* __restrict__ dc, int B, int H, int vec) {
+    const bf16* __restrict__ dnext, const float* __restrict__ dh_add,
+    bf16* __restrict__ dxg, float* __restrict__ dc, int B, int Hin, int Hu,
+    int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ring_smem = reinterpret_cast<bf16*>(smem_raw);
   const int b0 = blockIdx.y * kBM, j0 = blockIdx.x * kBU;
   float dacc[2][4][4] = {}, acc[2][4][4] = {};
   // one ring over both products: the dh product's slices (none at
   // t = T-1), then the recompute's, with no drain between them
-  const int n_dh = dnext != nullptr ? (4 * H + kSKd - 1) / kSKd : 0;
+  const int n_dh = dnext != nullptr ? (4 * Hu + kSKd - 1) / kSKd : 0;
   ring<kStepStages>(
-      n_dh + (H + kSK - 1) / kSK,
+      n_dh + (Hin + kSK - 1) / kSK,
       [&](int st, int sl) {
         bf16* s = ring_smem + st * kStepStage;
         if (sl < n_dh)
-          dh_load(s, dnext, wh, B, H, b0, j0, sl * kSKd, vec);
+          dh_load(s, dnext, wh, B, Hin, 4 * Hu, b0, j0, sl * kSKd, vec);
         else
-          recurrent_load(s, hp, wh, B, H, b0, j0, (sl - n_dh) * kSK, vec);
+          recurrent_load(s, hp, wh, B, Hin, Hu, b0, j0, (sl - n_dh) * kSK,
+                         vec);
       },
       [&](int st, int sl) {
         const bf16* s = ring_smem + st * kStepStage;
@@ -703,45 +738,48 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_bwd_step_mma_kernel(
              frag_col(j, e)] = acc[i][j][e];
   dh_partials_to_smem(sdh, dacc);
   __syncthreads();
-  const int64_t H4 = 4 * (int64_t)H;
+  const int64_t H4 = 4 * (int64_t)Hu;
   for (int idx = threadIdx.x; idx < kBM * kBU; idx += kThreads) {
     const int r = idx / kBU, u = idx % kBU, b = b0 + r, j = j0 + u;
-    if (b >= B || j >= H) continue;
+    if (b >= B || j >= Hu) continue;
     const float* lin = slin + r * kLdLin + u;
     const bf16* x = xg + (int64_t)b * H4 + j;
     const float i = sigmoid(to_f32(x[0]) + lin[0]);
-    const float f = sigmoid(to_f32(x[H]) + lin[kBU]);
-    const float g = tanhf(to_f32(x[2 * H]) + lin[2 * kBU]);
-    const float o = sigmoid(to_f32(x[3 * H]) + lin[3 * kBU]);
-    const int64_t idx2 = (int64_t)b * H + j;
+    const float f = sigmoid(to_f32(x[Hu]) + lin[kBU]);
+    const float g = tanhf(to_f32(x[2 * Hu]) + lin[2 * kBU]);
+    const float o = sigmoid(to_f32(x[3 * Hu]) + lin[3 * kBU]);
+    const int64_t idx2 = (int64_t)b * Hu + j;
     const float tanh_c = tanhf(cs[idx2]);
-    const float dh = to_f32(dys[idx2]) + dh_sum(sdh, r, u);
+    const float dh = to_f32(dys[idx2]) +
+                     (dh_add != nullptr ? dh_add[idx2] : dh_sum(sdh, r, u));
     const float dcv = dh * o * (1.f - tanh_c * tanh_c) + dc[idx2];
     const float dov = dh * tanh_c;
     const float di = dcv * g, dg = dcv * i, df = dcv * cp[idx2];
     bf16* dx = dxg + (int64_t)b * H4 + j;
     dx[0] = __float2bfloat16(di * i * (1.f - i));
-    dx[H] = __float2bfloat16(df * f * (1.f - f));
-    dx[2 * H] = __float2bfloat16(dg * (1.f - g * g));
-    dx[3 * H] = __float2bfloat16(dov * o * (1.f - o));
+    dx[Hu] = __float2bfloat16(df * f * (1.f - f));
+    dx[2 * Hu] = __float2bfloat16(dg * (1.f - g * g));
+    dx[3 * Hu] = __float2bfloat16(dov * o * (1.f - o));
     dc[idx2] = dcv * f;
   }
 }
 
-// dh0 = dlin_0.wh^T with the dh product's slices, f32 (B, H)
+// dh = d.wh^T with the dh product's slices, f32 (B, Hin): dh0 of the
+// whole-H walk, the split form's partial product (as lstm_dh0_kernel)
 __global__ void __launch_bounds__(kThreads, 1)
     lstm_dh0_mma_kernel(const bf16* __restrict__ d,
                         const bf16* __restrict__ wh,
-                        float* __restrict__ dh0, int B, int H, int vec) {
+                        float* __restrict__ dh0, int B, int Hin, int Hu,
+                        int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ring_smem = reinterpret_cast<bf16*>(smem_raw);
   const int b0 = blockIdx.y * kBM, j0 = blockIdx.x * kBU;
   float dacc[2][4][4] = {};
   ring<kStepStages>(
-      (4 * H + kSKd - 1) / kSKd,
+      (4 * Hu + kSKd - 1) / kSKd,
       [&](int st, int sl) {
-        dh_load(ring_smem + st * kStepStage, d, wh, B, H, b0, j0, sl * kSKd,
-                vec);
+        dh_load(ring_smem + st * kStepStage, d, wh, B, Hin, 4 * Hu, b0, j0,
+                sl * kSKd, vec);
       },
       [&](int st, int) { dh_mma(ring_smem + st * kStepStage, dacc); });
   float* sdh = reinterpret_cast<float*>(smem_raw);
@@ -749,11 +787,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
   for (int idx = threadIdx.x; idx < kBM * kBU; idx += kThreads) {
     const int r = idx / kBU, u = idx % kBU, b = b0 + r, j = j0 + u;
-    if (b < B && j < H) dh0[(int64_t)b * H + j] = dh_sum(sdh, r, u);
+    if (b < B && j < Hin) dh0[(int64_t)b * Hin + j] = dh_sum(sdh, r, u);
   }
 }
 
-// dwh = hs_prev^T.dxg over the T*B rows, f32 (H, 4H), on the tensor
+// dwh = hs_prev^T.dxg over the T*B rows, f32 (Hin, 4Hu), on the tensor
 // cores: a 128 (k) x 128 (c) tile a CTA, slices of 32 rows; both
 // operands are row-major over the summed rows, so both come through
 // ldmatrix.trans. 8 warps as 2 (64 k) x 4 (32 c).
@@ -767,14 +805,14 @@ __global__ void __launch_bounds__(kThreads)
     lstm_dwh_mma_kernel(const bf16* __restrict__ h0,
                         const bf16* __restrict__ ys,
                         const bf16* __restrict__ dxg,
-                        float* __restrict__ dwh, int rows, int B, int H,
-                        int vec) {
+                        float* __restrict__ dwh, int rows, int B, int Hin,
+                        int Hu, int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ring_smem = reinterpret_cast<bf16*>(smem_raw);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp >> 2, wn = warp & 3;
   const int m0 = blockIdx.y * kWM, c0 = blockIdx.x * kWN;
-  const int H4 = 4 * H;
+  const int H4 = 4 * Hu;
   float acc[4][4][4] = {};
   auto load = [&](int st, int sl) {
     bf16* sa = ring_smem + st * kDwhStage;
@@ -784,9 +822,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int p = 0; p < 2; ++p) {      // 32 rows x 16 chunks each
       const int i = tid + p * kThreads, rr = i >> 4, cc = (i & 15) * 8;
       const int n = n0 + rr;
-      const bf16* hrow = n < B ? h0 + (int64_t)n * H
-                               : ys + (int64_t)(n - B) * H;
-      const int va = n < rows ? clamp8(H - (m0 + cc)) : 0;
+      const bf16* hrow = n < B ? h0 + (int64_t)n * Hin
+                               : ys + (int64_t)(n - B) * Hin;
+      const int va = n < rows ? clamp8(Hin - (m0 + cc)) : 0;
       tc::stage_chunk(sa + rr * kLdW128 + cc, va ? hrow + m0 + cc : h0, va,
                       vec);
       const int vb = n < rows ? clamp8(H4 - (c0 + cc)) : 0;
@@ -827,7 +865,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; e += 2) {
         const int k = m0 + wm * 64 + frag_row(i, e);
         const int c = c0 + wn * 32 + frag_col(j, e);  // even; 4H is even
-        if (k < H && c < H4)
+        if (k < Hin && c < H4)
           *reinterpret_cast<float2*>(dwh + (int64_t)k * H4 + c) =
               make_float2(acc[i][j][e], acc[i][j][e + 1]);
       }
@@ -857,7 +895,8 @@ static_assert(kFwdSmem <= 232448, "the ring fits an SM's shared memory");
 __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_step_mma_kernel(
     const bf16* __restrict__ xg, const bf16* __restrict__ wh,
     const bf16* __restrict__ hp, const float* __restrict__ cp,
-    bf16* __restrict__ ys, float* __restrict__ cs, int B, int H, int vec) {
+    bf16* __restrict__ ys, float* __restrict__ cs, int B, int Hin, int Hu,
+    int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* ring_smem = reinterpret_cast<bf16*>(smem_raw);
   const int b0 = blockIdx.y * kBM, j0 = blockIdx.x * kBU;
@@ -866,23 +905,23 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_step_mma_kernel(
   // their device-memory latency hides behind the product
   constexpr int kOut = kBM * kBU / kThreads;
   float xin[kOut][4], cin[kOut];
-  const int64_t H4 = 4 * (int64_t)H;
+  const int64_t H4 = 4 * (int64_t)Hu;
 #pragma unroll
   for (int k = 0; k < kOut; ++k) {
     const int idx = threadIdx.x + k * kThreads;
     const int r = idx / kBU, u = idx % kBU, b = b0 + r, j = j0 + u;
-    const bool in = b < B && j < H;
+    const bool in = b < B && j < Hu;
     const bf16* x = xg + (int64_t)b * H4 + j;
 #pragma unroll
-    for (int g = 0; g < 4; ++g) xin[k][g] = in ? to_f32(x[g * H]) : 0.f;
-    cin[k] = in ? cp[(int64_t)b * H + j] : 0.f;
+    for (int g = 0; g < 4; ++g) xin[k][g] = in ? to_f32(x[g * Hu]) : 0.f;
+    cin[k] = in ? cp[(int64_t)b * Hu + j] : 0.f;
   }
   float acc[2][4][4] = {};
   ring<kFwdStages>(
-      (H + kSK - 1) / kSK,
+      (Hin + kSK - 1) / kSK,
       [&](int st, int sl) {
-        recurrent_load(ring_smem + st * kFwdStage, hp, wh, B, H, b0, j0,
-                       sl * kSK, vec);
+        recurrent_load(ring_smem + st * kFwdStage, hp, wh, B, Hin, Hu, b0,
+                       j0, sl * kSK, vec);
       },
       [&](int st, int) { recurrent_mma(ring_smem + st * kFwdStage, acc); });
   // the ring is drained: stage the sums in its place
@@ -901,13 +940,13 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_step_mma_kernel(
   for (int k = 0; k < kOut; ++k) {
     const int idx = threadIdx.x + k * kThreads;
     const int r = idx / kBU, u = idx % kBU, b = b0 + r, j = j0 + u;
-    if (b >= B || j >= H) continue;
+    if (b >= B || j >= Hu) continue;
     const float* lin = slin + r * kLdLin + u;
     const float i = sigmoid(xin[k][0] + lin[0]);
     const float f = sigmoid(xin[k][1] + lin[kBU]);
     const float g = tanhf(xin[k][2] + lin[2 * kBU]);
     const float o = sigmoid(xin[k][3] + lin[3 * kBU]);
-    const int64_t idx2 = (int64_t)b * H + j;
+    const int64_t idx2 = (int64_t)b * Hu + j;
     const float c = f * cin[k] + i * g;
     ys[idx2] = __float2bfloat16(o * tanhf(c));
     cs[idx2] = c;
@@ -915,6 +954,112 @@ __global__ void __launch_bounds__(kThreads, 1) lstm_fwd_step_mma_kernel(
 }
 
 
+// The shared memory each tensor-core kernel asks for past 48 KB.
+cudaError_t set_smem_limits() {
+  cudaError_t e;
+  if ((e = cudaFuncSetAttribute(lstm_fwd_step_mma_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)kFwdSmem)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(lstm_bwd_step_mma_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)kStepSmem)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(lstm_dh0_mma_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)kStepSmem)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(lstm_dwh_mma_kernel,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)kDwhSmem)) != cudaSuccess)
+    return e;
+  return cudaSuccess;
+}
+
+// 16-byte copies when every row and every gate block starts 16-byte
+// aligned: Hin and Hu multiples of 8 (the arrays themselves come from
+// the caching allocator)
+int vec_ok(int Hin, int Hu) { return Hin % 8 == 0 && Hu % 8 == 0; }
+
+dim3 step_grid(int B, int Hu) {
+  return dim3((Hu + kBU - 1) / kBU, (B + kBM - 1) / kBM);
+}
+
+// One forward step of B rows: xg (B, 4Hu), wh (Hin, 4Hu), hp (B, Hin) in
+// T; cp (B, Hu) f32 in; ys (B, Hu) in T and cs (B, Hu) f32 out.
+template <typename T>
+cudaError_t fwd_step(const T* xg, const T* wh, const T* hp, const float* cp,
+                     T* ys, float* cs, int B, int Hin, int Hu,
+                     cudaStream_t stream, int* launched) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    lstm_fwd_step_mma_kernel<<<step_grid(B, Hu), kThreads, kFwdSmem,
+                               stream>>>(xg, wh, hp, cp, ys, cs, B, Hin, Hu,
+                                         vec_ok(Hin, Hu));
+  } else {  // f32: the CUDA-core kernel, exact f32 sums
+    lstm_fwd_step_kernel<T><<<step_grid(B, Hu), kThreads, 0, stream>>>(
+        xg, wh, hp, cp, ys, cs, B, Hin, Hu);
+  }
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++*launched;
+  return e;
+}
+
+// One reverse step: the dh carry from dnext's product (whole H) or the
+// addend dh_add (split form), either may be null (t = T-1).
+template <typename T>
+cudaError_t bwd_step(const T* xg, const T* wh, const T* hp, const float* cp,
+                     const float* cs, const T* dys, const T* dnext,
+                     const float* dh_add, T* dxg, float* dc, int B, int Hin,
+                     int Hu, cudaStream_t stream, int* launched) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    lstm_bwd_step_mma_kernel<<<step_grid(B, Hu), kThreads, kStepSmem,
+                               stream>>>(xg, wh, hp, cp, cs, dys, dnext,
+                                         dh_add, dxg, dc, B, Hin, Hu,
+                                         vec_ok(Hin, Hu));
+  } else {
+    lstm_bwd_step_kernel<T><<<step_grid(B, Hu), kThreads, 0, stream>>>(
+        xg, wh, hp, cp, cs, dys, dnext, dh_add, dxg, dc, B, Hin, Hu);
+  }
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++*launched;
+  return e;
+}
+
+// out (B, Hin) f32 = d (B, 4Hu) . wh^T (wh (Hin, 4Hu)).
+template <typename T>
+cudaError_t dh_partial(const T* d, const T* wh, float* out, int B, int Hin,
+                       int Hu, cudaStream_t stream, int* launched) {
+  const dim3 grid((Hin + kBU - 1) / kBU, (B + kBM - 1) / kBM);
+  if constexpr (std::is_same_v<T, bf16>) {
+    lstm_dh0_mma_kernel<<<grid, kThreads, kStepSmem, stream>>>(
+        d, wh, out, B, Hin, Hu, vec_ok(Hin, Hu));
+  } else {
+    lstm_dh0_kernel<T><<<grid, kThreads, 0, stream>>>(d, wh, out, B, Hin,
+                                                       Hu);
+  }
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++*launched;
+  return e;
+}
+
+// dwh (Hin, 4Hu) f32 over the Tn*B rows: h_{t-1} from h0 (B, Hin) and
+// ys (Tn, B, Hin), dlin from dxg (Tn, B, 4Hu).
+template <typename T>
+cudaError_t dwh_sum(const T* h0, const T* ys, const T* dxg, float* dwh,
+                    int Tn, int B, int Hin, int Hu, cudaStream_t stream,
+                    int* launched) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    const dim3 wgrid((4 * Hu + kWN - 1) / kWN, (Hin + kWM - 1) / kWM);
+    lstm_dwh_mma_kernel<<<wgrid, kThreads, kDwhSmem, stream>>>(
+        h0, ys, dxg, dwh, Tn * B, B, Hin, Hu, vec_ok(Hin, Hu));
+  } else {
+    const dim3 wgrid((4 * Hu + kBN - 1) / kBN, (Hin + kBM - 1) / kBM);
+    lstm_dwh_kernel<T><<<wgrid, kThreads, 0, stream>>>(h0, ys, dxg, dwh,
+                                                        Tn * B, B, Hin, Hu);
+  }
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) ++*launched;
+  return e;
+}
+
+// The whole-H walks: every step reads h_{t-1} from ys (h0 at t = 0).
 template <typename T>
 cudaError_t fwd(const void* xg_, const void* wh_, const void* h0_,
                 const float* c0, void* ys_, float* cs, int Tn, int B, int H,
@@ -924,33 +1069,13 @@ cudaError_t fwd(const void* xg_, const void* wh_, const void* h0_,
   const T* h0 = static_cast<const T*>(h0_);
   T* ys = static_cast<T*>(ys_);
   const int64_t bh = (int64_t)B * H, bh4 = 4 * bh;
-  const dim3 grid((H + kBU - 1) / kBU, (B + kBM - 1) / kBM);
   cudaError_t e;
-  if constexpr (std::is_same_v<T, bf16>) {
-    // 16-byte copies when every row starts 16-byte aligned (H % 8 == 0)
-    const int vec = H % 8 == 0;
-    auto step = lstm_fwd_step_mma_kernel;
-    if ((e = cudaFuncSetAttribute(step,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kFwdSmem)) != cudaSuccess)
+  for (int t = 0; t < Tn; ++t) {
+    const T* hp = t == 0 ? h0 : ys + (t - 1) * bh;
+    const float* cp = t == 0 ? c0 : cs + (t - 1) * bh;
+    if ((e = fwd_step<T>(xg + t * bh4, wh, hp, cp, ys + t * bh, cs + t * bh,
+                         B, H, H, stream, launched)) != cudaSuccess)
       return e;
-    for (int t = 0; t < Tn; ++t) {
-      const bf16* hp = t == 0 ? h0 : ys + (t - 1) * bh;
-      const float* cp = t == 0 ? c0 : cs + (t - 1) * bh;
-      step<<<grid, kThreads, kFwdSmem, stream>>>(
-          xg + t * bh4, wh, hp, cp, ys + t * bh, cs + t * bh, B, H, vec);
-      if ((e = cudaGetLastError()) != cudaSuccess) return e;
-      ++*launched;
-    }
-  } else {  // f32: the CUDA-core kernel, exact f32 sums
-    for (int t = 0; t < Tn; ++t) {
-      const T* hp = t == 0 ? h0 : ys + (t - 1) * bh;
-      const float* cp = t == 0 ? c0 : cs + (t - 1) * bh;
-      lstm_fwd_step_kernel<T><<<grid, kThreads, 0, stream>>>(
-          xg + t * bh4, wh, hp, cp, ys + t * bh, cs + t * bh, B, H);
-      if ((e = cudaGetLastError()) != cudaSuccess) return e;
-      ++*launched;
-    }
   }
   return cudaSuccess;
 }
@@ -968,73 +1093,28 @@ cudaError_t bwd(const void* xg_, const void* wh_, const void* h0_,
   const T* dys = static_cast<const T*>(dys_);
   T* dxg = static_cast<T*>(dxg_);
   const int64_t bh = (int64_t)B * H, bh4 = 4 * bh;
-  const dim3 grid((H + kBU - 1) / kBU, (B + kBM - 1) / kBM);
   cudaError_t e;
-  if constexpr (std::is_same_v<T, bf16>) {
-    // 16-byte copies when every row starts 16-byte aligned: H a multiple
-    // of 8 (the arrays themselves come from the caching allocator)
-    const int vec = H % 8 == 0;
-    auto step = lstm_bwd_step_mma_kernel;
-    auto dh0k = lstm_dh0_mma_kernel;
-    auto dwhk = lstm_dwh_mma_kernel;
-    if ((e = cudaFuncSetAttribute(step,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kStepSmem)) != cudaSuccess ||
-        (e = cudaFuncSetAttribute(dh0k,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kStepSmem)) != cudaSuccess ||
-        (e = cudaFuncSetAttribute(dwhk,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)kDwhSmem)) != cudaSuccess)
+  for (int t = Tn - 1; t >= 0; --t) {
+    const T* hp = t == 0 ? h0 : ys + (t - 1) * bh;
+    const float* cp = t == 0 ? c0 : cs + (t - 1) * bh;
+    const T* dnext = t + 1 < Tn ? dxg + (t + 1) * bh4 : nullptr;
+    if ((e = bwd_step<T>(xg + t * bh4, wh, hp, cp, cs + t * bh, dys + t * bh,
+                         dnext, nullptr, dxg + t * bh4, dc, B, H, H, stream,
+                         launched)) != cudaSuccess)
       return e;
-    for (int t = Tn - 1; t >= 0; --t) {
-      const bf16* hp = t == 0 ? h0 : ys + (t - 1) * bh;
-      const float* cp = t == 0 ? c0 : cs + (t - 1) * bh;
-      const bf16* dnext = t + 1 < Tn ? dxg + (t + 1) * bh4 : nullptr;
-      step<<<grid, kThreads, kStepSmem, stream>>>(
-          xg + t * bh4, wh, hp, cp, cs + t * bh, dys + t * bh, dnext,
-          dxg + t * bh4, dc, B, H, vec);
-      if ((e = cudaGetLastError()) != cudaSuccess) return e;
-      ++*launched;
-    }
-    dh0k<<<grid, kThreads, kStepSmem, stream>>>(dxg, wh, dh0, B, H, vec);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    ++*launched;
-    const dim3 wgrid((4 * H + kWN - 1) / kWN, (H + kWM - 1) / kWM);
-    dwhk<<<wgrid, kThreads, kDwhSmem, stream>>>(h0, ys, dxg, dwh, Tn * B, B,
-                                                H, vec);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    ++*launched;
-    return cudaSuccess;
-  } else {  // f32: the CUDA-core kernels, exact f32 sums
-    for (int t = Tn - 1; t >= 0; --t) {
-      const T* hp = t == 0 ? h0 : ys + (t - 1) * bh;
-      const float* cp = t == 0 ? c0 : cs + (t - 1) * bh;
-      const T* dnext = t + 1 < Tn ? dxg + (t + 1) * bh4 : nullptr;
-      lstm_bwd_step_kernel<T><<<grid, kThreads, 0, stream>>>(
-          xg + t * bh4, wh, hp, cp, cs + t * bh, dys + t * bh, dnext,
-          dxg + t * bh4, dc, B, H);
-      if ((e = cudaGetLastError()) != cudaSuccess) return e;
-      ++*launched;
-    }
-    lstm_dh0_kernel<T><<<grid, kThreads, 0, stream>>>(dxg, wh, dh0, B, H);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    ++*launched;
-    const dim3 wgrid((4 * H + kBN - 1) / kBN, (H + kBM - 1) / kBM);
-    lstm_dwh_kernel<T><<<wgrid, kThreads, 0, stream>>>(h0, ys, dxg, dwh,
-                                                        Tn * B, B, H);
-    if ((e = cudaGetLastError()) != cudaSuccess) return e;
-    ++*launched;
-    return cudaSuccess;
   }
+  if ((e = dh_partial<T>(dxg, wh, dh0, B, H, H, stream, launched)) !=
+      cudaSuccess)
+    return e;
+  return dwh_sum<T>(h0, ys, dxg, dwh, Tn, B, H, H, stream, launched);
 }
 
-// T*B*4H and (H, 4H) index within int64 offsets; T*B rows and the grid
-// within int
-bool valid(int Tn, int B, int H) {
-  return Tn >= 1 && B >= 1 && H >= 1 && (int64_t)Tn * B < (1LL << 31) &&
-         4LL * H < (1LL << 31) && (B + kBM - 1) / kBM <= 65535 &&
-         (H + kBM - 1) / kBM <= 65535;
+// T*B*4Hu and (Hin, 4Hu) index within int64 offsets; T*B rows and the
+// grids within int
+bool valid(int Tn, int B, int Hin, int Hu) {
+  return Tn >= 1 && B >= 1 && Hin >= 1 && Hu >= 1 &&
+         (int64_t)Tn * B < (1LL << 31) && 4LL * Hu < (1LL << 31) &&
+         (B + kBM - 1) / kBM <= 65535 && (Hin + kBM - 1) / kBM <= 65535;
 }
 
 }  // namespace
@@ -1052,13 +1132,14 @@ extern "C" int lstm_fwd_launch(int dtype, const void* xg, const void* wh,
                                const void* h0, const float* c0, void* ys,
                                float* cs, int Tn, int B, int H,
                                void* stream, int* launched) {
-  if (!valid(Tn, B, H)) return (int)cudaErrorInvalidValue;
+  if (!valid(Tn, B, H, H)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if ((e = set_smem_limits()) != cudaSuccess) return (int)e;
   if (dtype == 0)
     return (int)fwd<float>(xg, wh, h0, c0, ys, cs, Tn, B, H, s, launched);
   if (dtype == 1)
-    return (int)fwd<__nv_bfloat16>(xg, wh, h0, c0, ys, cs, Tn, B, H, s,
-                                   launched);
+    return (int)fwd<bf16>(xg, wh, h0, c0, ys, cs, Tn, B, H, s, launched);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1068,14 +1149,112 @@ extern "C" int lstm_bwd_launch(int dtype, const void* xg, const void* wh,
                                const void* dys, void* dxg, float* dwh,
                                float* dh0, float* dc0, int Tn, int B, int H,
                                void* stream, int* launched) {
-  if (!valid(Tn, B, H)) return (int)cudaErrorInvalidValue;
+  if (!valid(Tn, B, H, H)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if ((e = set_smem_limits()) != cudaSuccess) return (int)e;
   if (dtype == 0)
     return (int)bwd<float>(xg, wh, h0, c0, ys, cs, dys, dxg, dwh, dh0, dc0,
                            Tn, B, H, s, launched);
   if (dtype == 1)
-    return (int)bwd<__nv_bfloat16>(xg, wh, h0, c0, ys, cs, dys, dxg, dwh,
-                                   dh0, dc0, Tn, B, H, s, launched);
+    return (int)bwd<bf16>(xg, wh, h0, c0, ys, cs, dys, dxg, dwh, dh0, dc0,
+                          Tn, B, H, s, launched);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split form's launchers: one step, or one product, a call, so that
+// the caller can run a collective between two steps. A rank holds the
+// [i, f, g, o] columns of its Hu hidden units: xg_t (B, 4Hu), wh
+// (Hin, 4Hu), and h_{t-1} (B, Hin) from the gathered history, all in
+// the dtype; cp, cs_t, dc, dh_add (B, Hu) f32. With Hin == Hu these are
+// the whole-H walks' kernels on the same arguments.
+extern "C" int lstm_fwd_step_launch(int dtype, const void* xg,
+                                    const void* wh, const void* hp,
+                                    const float* cp, void* ys, float* cs,
+                                    int B, int Hin, int Hu, void* stream,
+                                    int* launched) {
+  if (!valid(1, B, Hin, Hu)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if ((e = set_smem_limits()) != cudaSuccess) return (int)e;
+  if (dtype == 0)
+    return (int)fwd_step<float>(
+        static_cast<const float*>(xg), static_cast<const float*>(wh),
+        static_cast<const float*>(hp), cp, static_cast<float*>(ys), cs, B,
+        Hin, Hu, s, launched);
+  if (dtype == 1)
+    return (int)fwd_step<bf16>(
+        static_cast<const bf16*>(xg), static_cast<const bf16*>(wh),
+        static_cast<const bf16*>(hp), cp, static_cast<bf16*>(ys), cs, B, Hin,
+        Hu, s, launched);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dh = dys_t + dh_add (the rank's block of the summed partial products;
+// null at t = T-1); writes dxg_t (B, 4Hu) and updates the dc carry.
+extern "C" int lstm_bwd_step_launch(int dtype, const void* xg,
+                                    const void* wh, const void* hp,
+                                    const float* cp, const float* cs,
+                                    const void* dys, const float* dh_add,
+                                    void* dxg, float* dc, int B, int Hin,
+                                    int Hu, void* stream, int* launched) {
+  if (!valid(1, B, Hin, Hu)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if ((e = set_smem_limits()) != cudaSuccess) return (int)e;
+  if (dtype == 0)
+    return (int)bwd_step<float>(
+        static_cast<const float*>(xg), static_cast<const float*>(wh),
+        static_cast<const float*>(hp), cp, cs,
+        static_cast<const float*>(dys), nullptr, dh_add,
+        static_cast<float*>(dxg), dc, B, Hin, Hu, s, launched);
+  if (dtype == 1)
+    return (int)bwd_step<bf16>(
+        static_cast<const bf16*>(xg), static_cast<const bf16*>(wh),
+        static_cast<const bf16*>(hp), cp, cs, static_cast<const bf16*>(dys),
+        nullptr, dh_add, static_cast<bf16*>(dxg), dc, B, Hin, Hu, s,
+        launched);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The partial dh_{t-1} of a rank: out (B, Hin) f32 = d (B, 4Hu) . wh^T,
+// d = dxg_t in the dtype (dlin_t as the kernel rounded it).
+extern "C" int lstm_dh_partial_launch(int dtype, const void* d,
+                                      const void* wh, float* out, int B,
+                                      int Hin, int Hu, void* stream,
+                                      int* launched) {
+  if (!valid(1, B, Hin, Hu)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if ((e = set_smem_limits()) != cudaSuccess) return (int)e;
+  if (dtype == 0)
+    return (int)dh_partial<float>(static_cast<const float*>(d),
+                                  static_cast<const float*>(wh), out, B, Hin,
+                                  Hu, s, launched);
+  if (dtype == 1)
+    return (int)dh_partial<bf16>(static_cast<const bf16*>(d),
+                                 static_cast<const bf16*>(wh), out, B, Hin,
+                                 Hu, s, launched);
+  return (int)cudaErrorInvalidValue;
+}
+
+// A rank's dwh (Hin, 4Hu) f32: h_{t-1} from h0 (B, Hin) and the gathered
+// history (T, B, Hin), dlin from dxg (T, B, 4Hu).
+extern "C" int lstm_dwh_launch(int dtype, const void* h0, const void* hist,
+                               const void* dxg, float* dwh, int Tn, int B,
+                               int Hin, int Hu, void* stream, int* launched) {
+  if (!valid(Tn, B, Hin, Hu)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if ((e = set_smem_limits()) != cudaSuccess) return (int)e;
+  if (dtype == 0)
+    return (int)dwh_sum<float>(
+        static_cast<const float*>(h0), static_cast<const float*>(hist),
+        static_cast<const float*>(dxg), dwh, Tn, B, Hin, Hu, s, launched);
+  if (dtype == 1)
+    return (int)dwh_sum<bf16>(
+        static_cast<const bf16*>(h0), static_cast<const bf16*>(hist),
+        static_cast<const bf16*>(dxg), dwh, Tn, B, Hin, Hu, s, launched);
   return (int)cudaErrorInvalidValue;
 }
 

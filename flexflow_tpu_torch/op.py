@@ -27,8 +27,8 @@ them. The default rule is data parallelism: inputs and outputs split
 on their ``sample`` dimension over ``data`` and every weight whole, a
 local computation for the ops whose rows are independent. The ops whose
 rows are not (BatchNorm, Dropout's counter, Reshape, the MoE ops) and
-the tensor-parallel ones (Linear ``channel_out``, attention ``head``,
-Embedding ``vocab``) override it in their modules; ``OpContext.mesh``
+the tensor-parallel ones (Linear, Conv2D and LSTM ``channel_out``,
+attention ``head``, Embedding ``vocab``) override it in their modules; ``OpContext.mesh``
 and ``OpContext.strategy`` hand them the mesh and their strategy.
 """
 
@@ -239,6 +239,13 @@ class Op:
         return [spec_for_axes(self._local_axes(ax), strategy, mesh,
                               t.shape)
                 for ax, t in zip(self.output_axes(), self.outputs)]
+
+    def mesh_pin_specs(self, strategy, mesh) -> list:
+        """The layout each output is pinned to where the executor pins
+        it (JAX's ``op_output_sharding``); an op whose local rule writes
+        an output whole that JAX's pin would cut keeps it whole."""
+        from .parallel.sharding import op_output_sharding
+        return op_output_sharding(self, strategy, mesh)
 
     def mesh_grad_axes(self, strategy, mesh) -> tuple:
         """The mesh axes this op's weight gradients are summed over: the

@@ -28,6 +28,17 @@ plain tensor arithmetic, under these rules:
     and the mean cast to x's dtype, the affine in x's dtype — not
     ``F.batch_norm``, which rounds differently and updates its running
     variance with the unbiased estimate where JAX uses the biased one.
+
+On a mesh whose strategy maps ``channel_out`` onto an axis, a Conv2D's
+kernel and bias are stored and read split on their out dimension: the
+local rule reads the input whole through ``copy_to`` (its gradient
+summed over the axis) and writes the rank's block of output channels,
+left split on dimension 1; a consumer that reads it whole gathers it
+(core/executor.py reshards at the consumer), as GSPMD would. A grouped
+conv whose groups the axis divides takes the rank's groups and their
+input channels (``split``: its input gradient is the rank's channels
+alone); any other grouped conv reads its kernel whole. Pool2D,
+BatchNorm and the activations read the channels whole.
 """
 
 from __future__ import annotations
@@ -39,7 +50,7 @@ import torch.nn.functional as F
 
 from ..core.precision import reciprocal_f32
 from ..op import (CHANNEL, CHANNEL_IN, CHANNEL_OUT, HEIGHT, SAMPLE, WIDTH,
-                  Op, OpContext, StateSpec, WeightSpec)
+                  Op, OpContext, StateSpec, WeightSpec, tp_axis)
 from .common import AC_MODE_NONE, apply_activation, conv_out_dim
 
 _CL = torch.channels_last
@@ -95,13 +106,48 @@ class Conv2D(Op):
                                        axes=(CHANNEL_OUT,))
         return specs
 
+    def _tp(self, strategy, mesh):
+        """The mesh axis the output channels split over (the kernel
+        stored split on its out dimension, and a grouped conv's groups
+        dividing over the axis), or None."""
+        ax = tp_axis(self, strategy, mesh, "kernel", 0)
+        if ax is not None and self.groups > 1 \
+                and self.groups % mesh.axis_size(ax):
+            return None
+        return ax
+
+    def mesh_weight_specs(self, strategy, mesh):
+        ax = self._tp(strategy, mesh)
+        if ax is None:
+            return super().mesh_weight_specs(strategy, mesh)
+        return {k: (ax,) for k in self.weight_specs()}
+
+    def mesh_output_specs(self, strategy, mesh):
+        (spec,) = super().mesh_output_specs(strategy, mesh)
+        ax = self._tp(strategy, mesh)
+        if ax is None:
+            return [spec]
+        full = list(spec) + [None] * (2 - len(spec))
+        full[1] = ax
+        return [tuple(full)]
+
     def forward(self, params, xs, ctx: OpContext):
         (x,) = xs
+        groups = self.groups
+        ax = self._tp(ctx.strategy, ctx.mesh) if ctx.mesh is not None \
+            else None
+        if ax is not None:
+            from ..parallel.collectives import copy_to, split
+            if groups > 1:      # the rank's groups read their channels
+                x = split(x, ctx.mesh, ax, 1)
+                groups //= ctx.mesh.axis_size(ax)
+            else:
+                x = copy_to(x, ctx.mesh, ax)
         nhwc = self.model.config.conv_layout == "NHWC"
         y = _conv_apply(x, params["kernel"].to(x.dtype),
                         params["bias"] if self.use_bias else None,
                         self.stride, self.padding, nhwc, self.activation,
-                        self.groups)
+                        groups)
         return [_nchw(y, nhwc, ctx.nhwc_out)]
 
     def output_axes(self):
@@ -134,21 +180,31 @@ def _conv_apply(x, kernel, bias, stride, padding, nhwc, activation,
 
 
 def merged_conv_forward(ops: List[Conv2D], params_list, x,
-                        nhwc_out: bool = False) -> List[torch.Tensor]:
+                        nhwc_out: bool = False, mesh=None,
+                        strategy=None) -> List[torch.Tensor]:
     """Sibling Conv2D ops (core/fusion.conv_sibling_groups: one input,
     one geometry) as ONE conv: kernels concatenated along channel-out,
     the output split back per member. Each output channel's
     contraction is the same as alone; autograd slices the gradient back
     to the per-op kernels, so optimizer and checkpoint state stay per
-    layer. The leader's geometry speaks for the group."""
+    layer. The leader's geometry speaks for the group. On a mesh whose
+    strategy splits the members' output channels (the executor merges
+    only a group whose members all split), each member's block is its
+    kernel's rows here, and the input comes through ``copy_to``."""
     lead = ops[0]
+    if mesh is not None:
+        ax = lead._tp(strategy, mesh)
+        if ax is not None:
+            from ..parallel.collectives import copy_to
+            x = copy_to(x, mesh, ax)
     nhwc = lead.model.config.conv_layout == "NHWC"
     kernel = torch.cat([p["kernel"].to(x.dtype) for p in params_list], 0)
     bias = (torch.cat([p["bias"] for p in params_list])
             if lead.use_bias else None)
     y = _conv_apply(x, kernel, bias, lead.stride, lead.padding, nhwc,
                     lead.activation)
-    outs = torch.split(y, [op.out_channels for op in ops], dim=1)
+    outs = torch.split(y, [p["kernel"].shape[0] for p in params_list],
+                       dim=1)
     return [_nchw(o, nhwc, nhwc_out) for o in outs]
 
 

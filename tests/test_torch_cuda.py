@@ -987,6 +987,43 @@ def test_lstm_kernels_match_plain_versions(card, dtype, t, b, h):
                                              "lstm_bwd": t + 2}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h,n", [(3, 70, 40, 2), (2, 33, 96, 4),
+                                     (4, 64, 128, 2), (3, 20, 36, 2)])
+def test_lstm_split_kernels_match_plain_versions(card, dtype, t, b, h, n):
+    """The split form's launchers (one step, or one partial dh product, a
+    launch; h_{t-1} from the gathered history), n blocks stepped in one
+    process: against the split plain versions, Hu = H/n off the 32-unit
+    tiles and rows not 16-byte aligned (H/n = 20, 18), and the n-block
+    forward equal to the whole-H kernel bit for bit."""
+    xg, wh, h0, c0, dys = _lstm_inputs(card, dtype, t, b, h, seed=t + b)
+    xgs, whs = ls.blocks_of(xg, n), ls.blocks_of(wh, n)
+    c0s = [c.contiguous() for c in c0.chunk(n, 1)]
+    dyss = [d.contiguous() for d in dys.chunk(n, 2)]
+    h0w = h0.to(dtype)
+    before = dict(ls.device_launches)
+    css, hist = ls.lstm_fwd_split(xgs, whs, h0w, c0s, ls.cat_gather)
+    got = ls.lstm_bwd_split(xgs, whs, h0w, c0s, css, hist, dyss,
+                            ls.sum_scatter)
+    torch.cuda.synchronize()
+    assert {k: ls.device_launches[k] - before[k]
+            for k in ls.device_launches} == {"lstm_fwd": n * t,
+                                             "lstm_bwd": n * (2 * t + 1)}
+    css_p, hist_p = ls.lstm_fwd_split(xgs, whs, h0w, c0s, ls.cat_gather,
+                                      plain=True)
+    want = ls.lstm_bwd_split(xgs, whs, h0w, c0s, css, hist, dyss,
+                             ls.sum_scatter, plain=True)
+    assert _rel_err(hist, hist_p) <= LSTM_REL[dtype]
+    for c, cp in zip(css, css_p):
+        assert _rel_err(c, cp) <= LSTM_REL[dtype]
+    for name, gs, ws in zip(("dxg", "dwh", "dh0", "dc0"), got, want):
+        for g, w in zip(gs, ws):
+            assert g.dtype == w.dtype, name
+            assert _rel_err(g, w) <= LSTM_REL[dtype], name
+    ys, cs = ls.lstm_fwd_cuda(xg, wh, h0, c0)
+    assert torch.equal(hist, ys) and torch.equal(torch.cat(css, 2), cs)
+
+
 @pytest.mark.parametrize("t,b,h,wh_scale", [(3, 3, 20, 0.1),
                                             (5, 70, 1000, 0.1),
                                             (40, 256, 1024, 0.03)])

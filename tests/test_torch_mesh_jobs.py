@@ -394,8 +394,10 @@ def _rank_facts(ff):
                       for op, p in t.items()}
                   for s, t in ff.state.opt_state.items()},
         "store": {op: dict(w) for op, w in ex._wstore.items()},
+        "read": {op: dict(w) for op, w in ex._wwant.items()},
         "buckets": ex.grad_bucket_info(),
         "zero_dims": dict(ex._zero_dims),
+        "grad_axes": dict(ex._grad_axes),
     }
 
 
@@ -547,8 +549,8 @@ def plant(fault):
 def left_out(case):
     """The NotImplementedError (its message) of a strategy or knob left
     out, on the group's two ranks; None if nothing raised (the
-    sequence, expert, table, pinned and pipeline cases, which
-    execute)."""
+    sequence, expert, table, pinned, pipeline and conv and LSTM
+    channel_out cases, which execute)."""
     import flexflow_tpu_torch as ft
     mk = ft.parallel.mesh.make_mesh
     dm = mk((1, 2), ("data", "model"))
