@@ -218,6 +218,26 @@ wide-head) must not spill — and then:
     of one rank bit for bit with the no-mesh step (the whole-H kernels
     run there). ``--only-channel`` runs the build and this phase alone.
 
+  * runs layouts over several mesh axes (``layout_phase``, last) on four
+    gloo ranks sharing the card, eager: (a) the README LM at full width
+    on (2, 2) data x model with every linear's channel_out, attention's
+    head and the embeddings' vocab over ("model", "data") — the FSDP
+    layout: a rank stores a quarter of each split weight and runs the
+    tensor-parallel rule over model on the weight gathered over data —
+    f32 and under the bf16 policy, against the one-device run (f32 at
+    MESH_LOSS_REL / MESH_WEIGHT_ABS, bf16 at SP_BF16_LOSS_REL and each
+    update within SP_BF16_UPDATE_REL of its own), a rank's resident
+    parameter bytes against the whole, the collectives and the MiB
+    staged a step, the flash launches a rank; (b) the LM with seq over
+    ("seq", "model") on (1, 2, 2) data x model x seq, through the
+    all-to-all core (kernels 2-4 on 2 of 8 heads over the whole
+    sequence) and the ring, held the same way; (c) kernels 2-4 at (b)'s
+    per-rank shape (b=16, s=512, h=2, d=64, causal, f32 and bf16)
+    against their plain pieces, timed beside their bounds and SDPA; (d)
+    on one NCCL rank, the LM captured on (1, 1) data x model carrying
+    (a)'s tuple entries bit for bit with the no-mesh step.
+    ``--only-layout`` runs the build and this phase alone.
+
 Every phase raises on failure. Prints the card (name, power limit), the
 build, each kernel's error and times, the training and serving numbers,
 the script's wall time, then one line ``{"kernels": [...]}`` and, last,
@@ -5516,18 +5536,20 @@ def sp_rank_nccl():
             "all_to_all_launches": C.launches["all_to_all"]}
 
 
-def ulysses_kernel_check(fa):
+def ulysses_kernel_check(fa, heads=SP_HEADS, tag="ulysses",
+                         phase="sp (b)"):
     """(b) kernels 2-4 at the all-to-all core's per-rank shape of the
-    README LM at seq 2 (b=16, s=512, 4 heads, d=64, causal), f32 and
-    bf16: each against its plain piece (FLASH_TOL), timed beside its
-    bound and scaled_dot_product_attention in 3 interleaved rounds."""
+    README LM at seq 2 (b=16, s=512, 4 heads, d=64, causal; ``heads``
+    for another axis size), f32 and bf16: each against its plain piece
+    (FLASH_TOL), timed beside its bound and
+    scaled_dot_product_attention in 3 interleaved rounds."""
     dev = torch.device("cuda")
     scale = 1.0 / math.sqrt(TD)
     res = {}
     for dname, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         rng = np.random.default_rng(13)
         q, k, v, do = (torch.from_numpy(rng.standard_normal(
-            (LB, TS, SP_HEADS, TD), np.float32)).to(dev).to(dtype)
+            (LB, TS, heads, TD), np.float32)).to(dev).to(dtype)
             for _ in range(4))
         kw = {"causal": True, "scale": scale}
         errs, bargs = flash_errors(fa, q, k, v, do, kw)
@@ -5544,12 +5566,12 @@ def ulysses_kernel_check(fa):
             "flash_bwd_dq": lambda: fa.flash_bwd_dq_cuda(*bargs, **kw),
             "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_cuda(*bargs, **kw),
             "sdpa_bwd": lib_bwd})
-        bounds = flash_bounds(dtype, True, LB, SP_HEADS)
+        bounds = flash_bounds(dtype, True, LB, heads)
         for kname in plain:
             b_ms, b_by = bounds[kname]
             lib = "sdpa_fwd" if kname == "flash_fwd" else "sdpa_bwd"
-            res.setdefault(kname, {})[f"ulysses_{dname}_causal"] = {
-                "shape": f"b={LB} s={TS} h={SP_HEADS} d={TD}",
+            res.setdefault(kname, {})[f"{tag}_{dname}_causal"] = {
+                "shape": f"b={LB} s={TS} h={heads} d={TD}",
                 "max_abs_err": errs[kname][0],
                 "err_over_max_ref": errs[kname][1],
                 "ms": statistics.median(rounds[kname]),
@@ -5557,8 +5579,8 @@ def ulysses_kernel_check(fa):
                 "bound_by": b_by,
                 "library_ms": statistics.median(rounds[lib]),
                 "ms_rounds": rounds[kname], "library_ms_rounds": rounds[lib]}
-            log(f"sp (b) kernel {kname} [ulysses {dname} causal, b={LB} "
-                f"s={TS} h={SP_HEADS} d={TD}]: max_abs_err="
+            log(f"{phase} kernel {kname} [{tag} {dname} causal, b={LB} "
+                f"s={TS} h={heads} d={TD}]: max_abs_err="
                 f"{errs[kname][0]:.3g} err/max|ref|={errs[kname][1]:.3g} "
                 f"kernel_ms={spread(rounds[kname])} plain_ms="
                 f"{plain[kname]:.4f} bound_ms={b_ms:.4f} ({b_by}) "
@@ -6403,6 +6425,238 @@ def channel_phase(ls, card: str):
     return res
 
 
+# ------------------- layouts over several mesh axes: four gloo ranks
+LAY_STEPS = 2
+LAY_NCCL_STEPS = 2
+LAY_RANKS = 4
+# (a) the FSDP layout: every linear's channel_out, attention's head and
+# the embeddings' vocab over ("model", "data") on (2, 2) data x model
+LAY_ENTRY = ("model", "data")
+# (b) the sequence over ("seq", "model") on (1, 2, 2): 8 heads over the
+# product of 4 in the all-to-all core, 2 a rank
+LAY_SEQ = ("seq", "model")
+LAY_HEADS = TH // 4
+
+
+def lay_strategy(kind):
+    from flexflow_tpu_torch.parallel.pconfig import OpStrategy, Strategy
+    if kind == "fsdp":
+        return Strategy(default=OpStrategy({
+            "sample": "data", "channel_out": LAY_ENTRY, "head": LAY_ENTRY,
+            "vocab": LAY_ENTRY}))
+    return Strategy(default=OpStrategy({"sample": "data", "seq": LAY_SEQ}))
+
+
+def lay_mesh(kind):
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    if kind == "fsdp":
+        return make_mesh((2, 2), ("data", "model"))
+    return make_mesh((1, 2, 2), ("data", "model", "seq"))
+
+
+def layout_rank_lm(kind, steps):
+    """(a) / (b) on a gloo rank sharing the card: the README LM at full
+    width on the layout ``kind`` ("fsdp": (2, 2) data x model with
+    channel_out, head and vocab over ("model", "data"); "seq": (1, 2, 2)
+    data x model x seq with seq over ("seq", "model")), eager, against
+    the one-device run of the same weights on the same card (each rank
+    runs that reference itself): f32 and under the bf16 policy; "seq"
+    through the all-to-all core and through the ring."""
+    import torch.distributed as dist
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.ops import attention as att
+    from flexflow_tpu_torch.parallel import collectives as C
+    rank = dist.get_rank()
+    data = lm_batches(steps)
+    mesh, st = lay_mesh(kind), lay_strategy(kind)
+    modes = ("alltoall", "ring") if kind == "seq" else ("auto",)
+    seen = []
+    bshd = fa.flash_attention_bshd
+
+    def flash_spy(q, k, v, **kw):
+        seen.append(tuple(q.shape))
+        return bshd(q, k, v, **kw)
+
+    out = {"rank": rank}
+    for dtype in ("float32", "bfloat16"):
+        ref = lm_model(dtype, capture=False)
+        init = _host_params(ref)
+        whole_bytes = sum(w.numel() * w.element_size()
+                          for p in ref.state.params.values()
+                          for w in p.values())
+        ref_losses = [float(ref.train_batch(b)["loss"]) for b in data]
+        ref_w = _host_params(ref)
+        release(ref)
+        del ref
+        for mode in modes:
+            m = lm_model(dtype, capture=False, mesh=mesh, strategy=st,
+                         sp_attention=mode)
+            resident = sum(w.numel() * w.element_size()
+                           for p in m.state.params.values()
+                           for w in p.values())
+            split = sum(1 for op, p in m.executor._wstore.items()
+                        for k, s in p.items() if any(
+                            e is not None for e in s))
+            # the op's core (ops/attention.py) and the all-to-all core
+            # (parallel/ulysses.py) both reach the entry point
+            fa.flash_attention_bshd = att.flash_attention_bshd = flash_spy
+            seen.clear()
+            C.reset_counts()
+            fl0 = dict(fa.launches)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = [float(m.train_batch(b)["loss"]) for b in data]
+                torch.cuda.synchronize()
+                step_ms = (time.perf_counter() - t0) * 1e3 / steps
+            finally:
+                fa.flash_attention_bshd = att.flash_attention_bshd = bshd
+            flash = {k: fa.launches[k] - fl0.get(k, 0)
+                     for k in ("flash_fwd", "flash_bwd_dq",
+                               "flash_bwd_dkv")}
+            coll = {k: v / steps for k, v in C.launches.items() if v}
+            staged = sum(C.staged_bytes.values()) / steps / 2**20
+            glob = {f"{op}.{k}": torch.from_numpy(v)
+                    for op in m.state.params
+                    for k, v in m.get_weights(op).items()}
+            release(m)
+            del m
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(losses, ref_losses))
+            wdiff = max(float((glob[n] - ref_w[n]).abs().max())
+                        for n in ref_w)
+            upd = max(float((glob[n] - ref_w[n]).norm()
+                            / (ref_w[n] - init[n]).norm())
+                      for n in ref_w if float((ref_w[n] - init[n]).norm()))
+            if dtype == "float32":
+                lim, got = (MESH_LOSS_REL, MESH_WEIGHT_ABS), wdiff
+            else:
+                lim, got = (SP_BF16_LOSS_REL, SP_BF16_UPDATE_REL), upd
+            cell = {"losses": losses, "ref_losses": ref_losses,
+                    "max_loss_rel": rel, "max_weight_abs": wdiff,
+                    "max_update_rel": upd, "limits": lim,
+                    "resident_param_bytes": resident,
+                    "whole_param_bytes": whole_bytes,
+                    "split_weights": split,
+                    "flash_launches": flash,
+                    "flash_shape": seen[0] if seen else None,
+                    "collectives_per_step": coll,
+                    "staged_mib_per_step": staged, "step_ms": step_ms}
+            out[f"{dtype} {mode}"] = cell
+            if not (rel <= lim[0] and got <= lim[1]):
+                raise AssertionError(
+                    f"layout ({kind}) {dtype} {mode} rank {rank}: against "
+                    f"the one-device run loss rel {rel} (limit {lim[0]}), "
+                    f"weights abs {wdiff}, updates rel {upd} (limit "
+                    f"{lim[1]})")
+            layers = LM_ARCH["num_layers"]
+            want = 0 if mode == "ring" else layers * steps
+            shape = ((LB // 2, TS, TH // 2, TD) if kind == "fsdp"
+                     else (LB, TS, LAY_HEADS, TD))
+            if any(v != want for v in flash.values()) or (
+                    want and cell["flash_shape"] != shape):
+                raise AssertionError(
+                    f"layout ({kind}) {dtype} {mode}: flash launches "
+                    f"{flash} on {cell['flash_shape']}, want {want} each "
+                    f"on {shape}")
+            if kind == "fsdp" and not resident * 3 < whole_bytes:
+                raise AssertionError(
+                    f"layout (a) rank {rank}: {resident} resident "
+                    f"parameter bytes of {whole_bytes}")
+    return out
+
+
+def layout_rank_nccl(steps):
+    """(d) one NCCL rank: the LM (bf16 policy, captured) on a (1, 1)
+    data x model mesh carrying (a)'s tuple entries against the same
+    model without a mesh, bit for bit."""
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.parallel import collectives as C
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    data = lm_batches(steps, seed=3)
+    out, runs = {}, {}
+    for key, mesh, st in (
+            ("nomesh", None, None),
+            ("mesh", make_mesh((1, 1), ("data", "model")),
+             lay_strategy("fsdp"))):
+        m = lm_model("bfloat16", capture=True, mesh=mesh, strategy=st)
+        C.reset_counts()
+        fl0 = dict(fa.launches)
+        losses = [float(m.train_batch(b)["loss"]) for b in data]
+        runs[key] = (losses, weights_of(m))
+        out[key] = {"losses": losses, "captures": m.compile_counts(),
+                    "collectives": {k: v for k, v in C.launches.items()
+                                    if v},
+                    "flash_launches": {k: fa.launches[k] - fl0.get(k, 0)
+                                       for k in ("flash_fwd",
+                                                 "flash_bwd_dq",
+                                                 "flash_bwd_dkv")}}
+        release(m)
+        del m
+    wdiff = max_weight_diff(runs["mesh"][1], runs["nomesh"][1])
+    out["max_weight_diff"] = wdiff
+    if runs["mesh"][0] != runs["nomesh"][0] or wdiff[0] != 0.0 \
+            or out["mesh"]["captures"].get("train_step") != 1:
+        raise AssertionError(f"layout (d): the one-rank tuple entries "
+                             f"changed the arithmetic: {out}")
+    return out
+
+
+def layout_phase(fa, card: str):
+    """Layouts over several mesh axes (see the module docstring): (a)
+    and (b) on four gloo ranks sharing the card, (c) kernels 2-4 at
+    (b)'s per-rank all-to-all shape in this process, (d) on one NCCL
+    rank. Four ranks that cannot share the card fail the phase."""
+    import tempfile
+    from flexflow_tpu_torch.parallel.launch import RankPool
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="ff_lay_"))
+    res = {}
+    with RankPool(LAY_RANKS, str(tmp / "g"), backend="gloo",
+                  device="cuda", threads=2, timeout_s=900) as pool:
+        res["fsdp"] = pool.run(layout_rank_lm, "fsdp", LAY_STEPS)
+        res["seq"] = pool.run(layout_rank_lm, "seq", LAY_STEPS)
+    for kind, where in (("fsdp", f"(2, 2) data x model, channel_out, "
+                                 f"head and vocab over {LAY_ENTRY}"),
+                        ("seq", f"(1, 2, 2) data x model x seq, seq over "
+                                f"{LAY_SEQ}")):
+        tag = "(a)" if kind == "fsdp" else "(b)"
+        for key in [k for k in res[kind][0] if k != "rank"]:
+            c = [r[key] for r in res[kind]]
+            log(f"layout {tag} LM {key} on {where}, four gloo ranks on one "
+                f"card ({card}): vs the one-device run loss rel "
+                f"{max(x['max_loss_rel'] for x in c):.3e}, weights abs "
+                f"{max(x['max_weight_abs'] for x in c):.3e}, updates rel "
+                f"{max(x['max_update_rel'] for x in c):.3e} (limits "
+                f"{c[0]['limits'][0]:.3g}, {c[0]['limits'][1]:.3g}); "
+                f"resident parameter bytes a rank "
+                f"{[x['resident_param_bytes'] for x in c]} of "
+                f"{c[0]['whole_param_bytes']} ({c[0]['split_weights']} "
+                f"weights split); flash launches a rank "
+                f"{[x['flash_launches'] for x in c]} on "
+                f"{c[0]['flash_shape']}; collectives a step "
+                f"{c[0]['collectives_per_step']}; staged "
+                f"{[round(x['staged_mib_per_step'], 1) for x in c]} MiB a "
+                f"step; eager step {[round(x['step_ms'], 1) for x in c]} "
+                f"ms (four gloo ranks on one card: no speed)")
+    res["kernels"] = ulysses_kernel_check(fa, heads=LAY_HEADS,
+                                          tag="layout", phase="layout (c)")
+    with RankPool(1, str(tmp / "n"), backend="nccl", device="cuda",
+                  threads=0, timeout_s=600) as pool:
+        res["nccl"] = pool.run(layout_rank_nccl, LAY_NCCL_STEPS)[0]
+    d = res["nccl"]
+    log(f"layout (d) one NCCL rank, (1, 1) data x model with (a)'s tuple "
+        f"entries, LM bf16 captured: losses {d['mesh']['losses']} = no "
+        f"mesh {d['nomesh']['losses']}, weights max diff "
+        f"{d['max_weight_diff'][0]}; collectives {d['mesh']['collectives']}"
+        f"; flash launches {d['mesh']['flash_launches']}")
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"layout phase: {res['phase_s']:.1f} s")
+    return res
+
+
 def _kernel_name(sym: str) -> str:
     """A mangled kernel symbol as name[template args, still mangled]:
     the name is the length-prefixed identifier ending in _kernel."""
@@ -6575,6 +6829,9 @@ def main() -> int:
     if "--only-channel" in sys.argv[1:]:
         log(json.dumps({"channel": channel_phase(ls, card)}, default=str))
         return 0
+    if "--only-layout" in sys.argv[1:]:
+        log(json.dumps({"layout": layout_phase(fa, card)}, default=str))
+        return 0
     kres = kernel_phase(pr)
     dres = paged_decode_phase(fa)
     fres = flash_phase(fa)
@@ -6613,6 +6870,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     chres = channel_phase(ls, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    layres = layout_phase(fa, card)
 
     def head(cells):
         """A row's headline numbers: its f32 cell."""
@@ -6700,6 +6960,19 @@ def main() -> int:
                 "blocks": [r["flash_launches"][kname]
                            for r in ppres["blocks"]]},
             "pp": ppres["kernels"][kname],
+            # layout_phase (a), (b): a rank's launches under the FSDP
+            # layout (4 of 8 heads, 8 of 16 rows) and through the
+            # all-to-all core over ("seq", "model") (2 of 8 heads, the
+            # whole sequence); (c) that per-rank shape
+            "layout_launches": {
+                **{f"fsdp {d}": [r[f"{d} auto"]["flash_launches"][kname]
+                                 for r in layres["fsdp"]]
+                   for d in ("float32", "bfloat16")},
+                **{f"seq {d} {mo}": [r[f"{d} {mo}"]["flash_launches"][
+                    kname] for r in layres["seq"]]
+                   for d in ("float32", "bfloat16")
+                   for mo in ("alltoall", "ring")}},
+            "layout": layres["kernels"][kname],
             "max_abs_err": head["max_abs_err"], "ms": head["ms"],
             "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
@@ -6829,6 +7102,8 @@ def main() -> int:
                            if k != "kernels"}}, default=str))
     log(json.dumps({"channel": {k: v for k, v in chres.items()
                                 if k != "kernels"}}, default=str))
+    log(json.dumps({"layout": {k: v for k, v in layres.items()
+                               if k != "kernels"}}, default=str))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

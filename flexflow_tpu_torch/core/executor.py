@@ -104,13 +104,22 @@ walk on its blocks and the collectives are explicit:
   run a row, core/prng.OpRng).
 * The loss and metrics are the global batch's: the loss is the mean of
   the ranks' means (each rank holds b/d rows, of s/n positions on a
-  sequence split) — ``all_reduce`` over ``data`` (and ``seq``) times
-  f32(1/(d n)) — and the metric sums are summed over the same axes.
+  sequence split) — ``all_reduce`` over the axes the final tensor's
+  batch and sequence are split over times f32(1/(d n)) — and the
+  metric sums are summed over the same axes. A final tensor computed
+  whole on every rank (a batch that ``data`` does not divide, or a last
+  op the strategy leaves whole) is scored whole: no sum, no factor.
   History is the same on every rank.
 * Gradients: each weight's gradient is summed over the axes its op's
   inputs are split over (``Op.mesh_grad_axes``): ``data``, and ``data``
   and ``seq`` together for an op reading blocks of the sequence (one
-  group of both axes, ``BoundMesh.subgroup``) — core/overlap.GradSync,
+  group of both axes, ``BoundMesh.subgroup``), once. A weight stored
+  split over one of those axes and read gathered over it (the FSDP
+  layout, ``channel_out`` over ``("model", "data")``: the local rule
+  runs over ``model`` and reads the weight gathered over ``data``)
+  gets that sum from the gather's backward, a reduce-scatter
+  (``reshard(partial=...)``), and GradSync leaves that axis out of its
+  sum — core/overlap.GradSync,
   one a set of axes, in buckets launched from gradient hooks while the
   backward runs, or one all-reduce after it when ``grad_bucket_mb`` is
   0. A rank that computes from inputs read whole over an axis holds the
@@ -141,8 +150,24 @@ walk on its blocks and the collectives are explicit:
   replicated here, as GSPMD runs it. A ``layer`` split of stacked blocks
   runs their GPipe over the axis (ops/pipeline.py); every other op runs
   replicated over ``pipe``.
-* Strategies that do not execute raise ``NotImplementedError`` naming
-  their ROADMAP item (:func:`check_executable`).
+* Layouts over several mesh axes: a spec entry may be a tuple of mesh
+  axes, the dimension split over their product in the entry's order
+  (the first axis major): a weight's ``channel_out``, ``head``,
+  ``vocab`` or ``expert`` (the op's rule over the product group, less
+  the axes that split its input: ``op.tp_axis``), the sequence
+  (``seq`` over ``("seq", "model")``: ring and all-to-all attention
+  over the product group, the LM's tokens, positions and labels cut by
+  the rank's block index), a stacked table's slots and vocab at once.
+  A mesh axis beyond ``data``, ``model``, ``seq``, ``expert`` and
+  ``pipe`` is an axis like any other: one no strategy entry names runs
+  every op replicated over it, one an entry names plays the role of
+  the logical axis mapped to it. An op whose batch does not split (a
+  global batch ``data`` does not divide, or ``sample`` mapped to None)
+  reads its input gathered, runs whole on every rank and writes its
+  output whole; its weights' gradients are whole and summed over
+  nothing. Each graph input's batch is cut by the entry its first
+  consumer reads it in (:meth:`Executor._rank_rows`), the labels by
+  the final tensor's.
 """
 
 from __future__ import annotations
@@ -169,13 +194,6 @@ from .prng import OpRng, key_words
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
 
-# the ROADMAP item that executes what the port leaves out
-_ITEM = {"layout": "2.6 (layouts beyond these axes)"}
-# the mesh axes that execute (``pipe``: replicated here, its stages run
-# by core/staged.py, its stacked blocks by ops/pipeline.py)
-_AXES = ("data", "model", "seq", "expert", "pipe")
-
-
 def zero_applicable(config, mesh) -> bool:
     """The single ZeRO-1 eligibility rule (JAX's): requested and a
     ``data`` axis of more than one rank to shard over."""
@@ -184,59 +202,17 @@ def zero_applicable(config, mesh) -> bool:
                 and mesh.shape.get("data", 1) > 1)
 
 
-def check_executable(model, strategy, mesh, config) -> None:
-    """Raise ``NotImplementedError`` naming its ROADMAP item for what
-    does not execute on a mesh: mesh axes beyond ``data``, ``model``,
-    ``seq``, ``expert`` and ``pipe``, a stacked embedding split on both
-    its slots and its vocab, and a batch that does not split over
-    ``data`` (2.6). Linear, conv2d and lstm ``channel_out`` (a conv's
-    output channels a rank, an LSTM's hidden units a rank with h
-    gathered every step: ops/conv.py, ops/rnn.py), attention ``head``,
-    embedding ``vocab``,
-    the ``seq`` split (position-local ops on blocks of the sequence,
-    attention through ring or all-to-all attention, every other op
-    reading the sequence whole), ``expert`` on MoE, ``table`` and
-    ``vocab`` on stacked embeddings, ``layer`` on stacked blocks (a
-    GPipe over the axis, ops/pipeline.py) and device pins execute: a
-    stacked embedding's per-table placement in slots, and whole-op pins
-    that form a pipeline as its stages (FFModel.compile hands those to
-    core/staged.py); the pins that FFModel.compile falls back from run
-    replicated, as GSPMD runs them. Any other weight a strategy splits
-    is stored split and read whole."""
-    from ..op import SAMPLE
-    from ..parallel.sharding import spec_for_axes
-    for ax, n in mesh.shape.items():
-        if ax not in _AXES and n > 1:
-            raise NotImplementedError(
-                f"mesh axis {ax!r} of {n} devices: ROADMAP item "
-                f"{_ITEM.get(ax, _ITEM['layout'])}")
-    ndata = mesh.shape.get("data", 1)
-    for op in model.ops:
-        st = strategy.for_op(op.name)
-        seq = st.axis_map.get("seq")
-        if seq is not None and not isinstance(seq, str) and any(
-                mesh.shape.get(a, 1) > 1 for a in seq):
-            raise NotImplementedError(
-                f"{op.name}: seq over several mesh axes {seq}: ROADMAP "
-                f"item {_ITEM['layout']}")
-        if op.op_type == "distributed_embedding":
-            slots, vocab = op.split_axes(st, mesh)
-            if slots and vocab:
-                raise NotImplementedError(
-                    f"{op.name}: slots split over {slots} and vocab over "
-                    f"{vocab!r} at once: ROADMAP item {_ITEM['layout']}")
-        if ndata > 1 and not st.device_ids:
-            # (a device-pinned op reads its inputs whole and writes its
-            # outputs whole, replicated over the mesh as GSPMD runs it)
-            for t, axes in zip(op.outputs, op.output_axes()):
-                sample = tuple(a if a == SAMPLE else None for a in axes)
-                spec = spec_for_axes(sample, st, mesh, t.shape)
-                if SAMPLE not in axes or "data" not in spec:
-                    raise NotImplementedError(
-                        f"{op.name}: output {tuple(t.shape)} is not split "
-                        f"over the {ndata} data ranks (its batch does not "
-                        f"divide, or the strategy leaves it whole): "
-                        f"ROADMAP item {_ITEM['layout']}")
+def _runs(spec) -> set:
+    """Every run (contiguous part) of two or more axes of the tuple
+    entries of ``spec``: the groups a gather or slice over part of an
+    entry takes."""
+    out = set()
+    for e in spec:
+        if isinstance(e, tuple):
+            for i in range(len(e)):
+                for j in range(i + 2, len(e) + 1):
+                    out.add(tuple(e[i:j]))
+    return out
 
 
 class TrainState:
@@ -349,12 +325,10 @@ class Executor:
     def _plan_mesh(self) -> None:
         """Layouts of every weight (stored and read), input and output
         on the bound mesh, the pinned boundary ops, ZeRO-1's slot
-        dimensions; raises for a strategy this slice does not
-        execute."""
+        dimensions."""
         from ..parallel.sharding import (effective_op_strategy,
                                          weight_sharding)
         bm, model = self.bm, self.model
-        check_executable(model, self.strategy, bm, self.config)
         self._op_strat = {}
         self._wstore: Dict[str, Dict[str, tuple]] = {}
         self._wwant: Dict[str, Dict[str, tuple]] = {}
@@ -388,22 +362,32 @@ class Executor:
                 f"(mesh {dict(bm.shape)})")
 
     def _plan_seq(self) -> None:
-        """The sequence split's share of the plan: each op's pins keep
-        the local rule's sequence layout (a ``seq`` entry is the local
-        rule's business: a pin never gathers or cuts the sequence, so a
-        position-local op's block flows to the next one); the layout of
-        every graph input (its batch over ``data``, and its sequence
-        where a consumer reads it in blocks); the layout the loss reads
-        the final tensor in and the axes the loss and metrics sum over;
-        the axes each weight's gradient is summed over
-        (``Op.mesh_grad_axes``) and each op's random stream's sequence
-        block. The process groups of several axes these need are made
-        here, in the same order on every rank."""
-        from ..parallel.sharding import _padded, batch_sharding
+        """The sequence split's and the batch's share of the plan: each
+        op's pins keep the local rule's sequence layout (a ``seq`` entry
+        is the local rule's business: a pin never gathers or cuts the
+        sequence, so a position-local op's block flows to the next one);
+        the layout of every graph input (its batch as its first consumer
+        reads it, and its sequence where a consumer reads it in blocks);
+        the layout the loss reads the final tensor in and the axes the
+        loss and metrics sum over; the axes each weight's gradient is
+        summed over and those its gather's backward sums it over; each
+        op's batch axis and random stream's blocks. The process groups of
+        several axes these need are made here, in the same order on
+        every rank."""
+        from ..op import SAMPLE, SEQ
+        from ..parallel.sharding import (_names, _padded, batch_sharding,
+                                         block_index, gathered_axes)
         bm, model = self.bm, self.model
-        seq_axes = {st.mesh_axis_for("seq")
-                    for st in self._op_strat.values()} - {None}
-        seq_axes = {a for a in seq_axes if isinstance(a, str)}
+        # the sequence entries the local rules read and write (a name or
+        # a tuple, as spec_for_axes resolved them)
+        seq_axes = set()
+        for op in model.ops:
+            for specs, axes in ((self._in_specs[op.name], op.input_axes()),
+                                (self._out_specs[op.name],
+                                 op.output_axes())):
+                for spec, ax in zip(specs, axes):
+                    seq_axes.update(e for e, a in zip(spec, ax)
+                                    if a == SEQ and e is not None)
         for name, pins in list(self._pins.items()):
             outs = self._out_specs[name]
             fixed = []
@@ -417,22 +401,26 @@ class Executor:
                     p.pop()
                 fixed.append(tuple(p))
             self._pins[name] = fixed
-        # graph inputs: the batch over data; the sequence (dim 1) as the
-        # first consumer that reads it in blocks reads it
+        # graph inputs: the batch over ``data`` where it divides (JAX's
+        # batch_sharding), else as its first consumer reads it; the
+        # sequence (dim 1) as the first consumer that reads it in blocks
         self._input_specs = {}
         for t in model.input_tensors:
-            spec = list(batch_sharding(bm, len(t.shape)))
-            reads = [_padded(self._in_specs[op.name][i], 2)[1]
+            reads = [_padded(self._in_specs[op.name][i], 2)
                      for op in model.ops for i, u in enumerate(op.inputs)
                      if u.uid == t.uid]
-            seq = next((e for e in reads if e in seq_axes), None)
+            spec = list(batch_sharding(bm, len(t.shape)))
+            if reads and (not spec or t.shape[0] % bm.axis_size(spec[0])):
+                spec = [reads[0][0]]
+            seq = next((r[1] for r in reads if r[1] in seq_axes), None)
             if seq is not None and len(t.shape) > 1:
                 spec = _padded(spec, 2)
                 spec[1] = seq
+            while spec and spec[-1] is None:
+                spec.pop()
             self._input_specs[t.uid] = tuple(spec)
         # the loss reads the final tensor's batch and sequence as the
         # final op's local rule writes them, every other dimension whole
-        from ..op import SAMPLE, SEQ
         fop = model.ops[-1]
         out = _padded(self._out_specs[fop.name][0],
                       len(fop.outputs[0].shape))
@@ -441,22 +429,48 @@ class Executor:
         while final and final[-1] is None:
             final.pop()
         self._final = tuple(final)
-        self._loss_axes = tuple(a for a in bm.axis_names
-                                if a in final or a == "data")
-        self._grad_axes = {}
+        split = {n for e in final for n in _names(e)}
+        self._loss_axes = tuple(a for a in bm.axis_names if a in split)
+        # the axes each weight's gradient is partial over: summed by the
+        # backward of its gather where the read gathers that axis
+        # (partial), by GradSync over the rest (sync); never both
+        self._grad_axes, self._partial, self._sync_axes = {}, {}, {}
         for op in model.ops:
-            if op.weight_specs():
-                self._grad_axes[op.name] = op.mesh_grad_axes(
-                    self._op_strat[op.name], bm)
-        self._seq_block = {}
+            if not op.weight_specs():
+                continue
+            axes = op.mesh_grad_axes(self._op_strat[op.name], bm)
+            self._grad_axes[op.name] = axes
+            for k in op.weight_specs():
+                gone = gathered_axes(self._wstore[op.name][k],
+                                     self._wwant[op.name][k])
+                self._partial[(op.name, k)] = tuple(
+                    a for a in axes if a in gone)
+                self._sync_axes[(op.name, k)] = tuple(
+                    a for a in axes if a not in gone)
+        self._batch_axis, self._shard_ix, self._seq_block = {}, {}, {}
         for op in model.ops:
             spec = _padded(self._in_specs[op.name][0], 2) \
                 if op.inputs else [None, None]
+            self._batch_axis[op.name] = spec[0]
+            self._shard_ix[op.name] = block_index(spec[0], bm)[0]
             if spec[1] in seq_axes:
-                self._seq_block[op.name] = (bm.coord(spec[1]),
-                                            bm.axis_size(spec[1]))
+                self._seq_block[op.name] = block_index(spec[1], bm)
+        # every group of several axes a step uses, made now in one
+        # order: the loss's and the syncs', and each run of a tuple
+        # entry a collective may take (a gather runs over a run of the
+        # entry's axes)
+        runs = set()
+        for table in (self._in_specs, self._out_specs, self._pins):
+            for specs in table.values():
+                for spec in specs:
+                    runs.update(_runs(spec))
+        for table in (self._wstore, self._wwant):
+            for specs in table.values():
+                for spec in specs.values():
+                    runs.update(_runs(spec))
+        runs.update(_runs(self._final))
         for axes in [self._loss_axes] + sorted(
-                set(self._grad_axes.values())):
+                set(self._sync_axes.values())) + sorted(runs):
             if len(axes) > 1:
                 bm.subgroup(axes)
 
@@ -627,6 +641,10 @@ class Executor:
             if op_name in tables:
                 continue
             for w, t in p.items():
+                if "data" not in self._sync_axes.get((op_name, w), ()):
+                    # a gradient whole over data, or summed over it by
+                    # its gather's backward: nothing for ZeRO to scatter
+                    continue
                 store = list(self._wstore[op_name][w])
                 store += [None] * (t.dim() - len(store))
                 for d in range(t.dim()):
@@ -677,15 +695,15 @@ class Executor:
             layouts = self._layouts = dict(self._input_specs)
             # one reshard a (value, layout): consumers share it
             moved: Dict[tuple, torch.Tensor] = {}
-            shard_ix = bm.coord("data")
-            seq_block = self._seq_block
+            shard_ix, seq_block = self._shard_ix, self._seq_block
+            batch_axis = self._batch_axis
         else:
-            shard_ix = 0
-            seq_block = {}
+            shard_ix, seq_block, batch_axis = {}, {}, {}
         for op in self.model.ops:
             ctx = OpContext(
                 training=training, seq_length=seq_length,
-                rng=(OpRng(key, _stable_hash(op.name), shard_ix,
+                rng=(OpRng(key, _stable_hash(op.name),
+                           shard_ix.get(op.name, 0),
                            seq_block.get(op.name, (0, 1)))
                      if key is not None else None),
                 state_in=states.get(op.name),
@@ -693,7 +711,8 @@ class Executor:
                 nhwc_out=bool(op.outputs) and op.outputs[0].uid
                 in self._nhwc_resident,
                 mesh=bm, strategy=(self._op_strat[op.name]
-                                   if bm is not None else None))
+                                   if bm is not None else None),
+                batch_axis=batch_axis.get(op.name))
             xs = []
             for i, t in enumerate(op.inputs):
                 v = values[t.uid]
@@ -721,7 +740,8 @@ class Executor:
             if bm is not None and op_params:
                 store, want = self._wstore[op.name], self._wwant[op.name]
                 op_params = {
-                    k: (reshard(w, store[k], want[k], bm)
+                    k: (reshard(w, store[k], want[k], bm,
+                                self._partial[(op.name, k)])
                         if k in store and store[k] != want[k] else w)
                     for k, w in op_params.items()}
             if op.name in merged_pending:
@@ -835,6 +855,7 @@ class Executor:
         sparse_ops = self._sparse_table_ops()
         sparse_idx: Dict[str, torch.Tensor] = {}
         bm = self.bm
+        from ..parallel.sharding import _padded, reshard
         if sparse_ops:
             params = dict(params)
             for name, op in sparse_ops.items():
@@ -843,13 +864,24 @@ class Executor:
                     if bm is not None:
                         # the ids in the layout the op reads them in (a
                         # pinned op: the whole batch's)
-                        from ..parallel.sharding import reshard
                         xs = [reshard(x, self._input_specs[t.uid], want,
                                       bm) for x, t, want in zip(
                                           xs, op.inputs,
                                           self._in_specs[name])]
+                    table = params[name]["kernel"]
+                    if bm is not None:
+                        # the lookup reads the table's rows as the op's
+                        # rule does (a block gathered over the axes that
+                        # split its ids; its columns as stored: they are
+                        # gathered below); the update writes the stored
+                        # block
+                        store = self._wstore[name]["kernel"]
+                        read = _padded(self._wwant[name]["kernel"],
+                                       table.dim())
+                        read[-1] = _padded(store, table.dim())[-1]
+                        table = reshard(table, store, tuple(read), bm)
                     idx, rows = op.gather(
-                        params[name]["kernel"], xs, bm,
+                        table, xs, bm,
                         self._op_strat[name] if bm is not None else None)
                     col = self._table_col_axis(name)
                     if col is not None:
@@ -878,15 +910,15 @@ class Executor:
         return loss.detach(), logits.detach(), grads, sparse_idx
 
     def _table_col_axis(self, name: str):
-        """The mesh axis a sparse table's embedding dim is stored split
-        over (JAX's layout of a table whose vocab does not divide), or
-        None."""
+        """The mesh axis (or tuple of axes) a sparse table's embedding
+        dim is stored split over (JAX's layout of a table whose vocab
+        does not divide), or None."""
         if self.bm is None:
             return None
         spec = self._wstore[name]["kernel"]
         entry = spec[-1] if len(spec) == len(
             self.model.state.params[name]["kernel"].shape) else None
-        return entry if isinstance(entry, str) else None
+        return entry
 
     # ---------------- gradient sync on a mesh ----------------
     def _sync(self):
@@ -907,14 +939,14 @@ class Executor:
             params = self.model.state.params
             dense = [(op, k) for op, p in params.items() for k in p
                      if op not in key and (op, k) not in self._zero_dims
-                     and self._grad_axes.get(op)]
+                     and self._sync_axes.get((op, k))]
             order = {op: i for i, (names, _) in enumerate(
                 grad_buckets(self.model, mb, sparse_ops=set(key)))
                 for op in names}       # no buckets (mb 0): one a sync
             cut: Dict[tuple, list] = {}
             for op, k in dense:
-                cut.setdefault((self._grad_axes[op], order.get(op, 0)),
-                               []).append((op, k))
+                cut.setdefault((self._sync_axes[(op, k)],
+                                order.get(op, 0)), []).append((op, k))
             by_axes: Dict[tuple, list] = {}
             for (axes, _), b in sorted(cut.items(),
                                        key=lambda kv: kv[0][1]):
@@ -949,7 +981,7 @@ class Executor:
             for (op, k), g in sync.finish(grads).items():
                 grads[op][k] = g
         for (op, k), d in self._zero_dims.items():
-            rest = tuple(a for a in self._grad_axes.get(op, ("data",))
+            rest = tuple(a for a in self._sync_axes[(op, k)]
                          if a != "data")
             if rest:
                 g = grads[op][k].clone()
@@ -1390,9 +1422,16 @@ class Executor:
     @property
     def loader_mesh(self):
         """The mesh a data loader cuts its batches for (each rank's rows
-        over ``data``), or None when the batches go whole to
-        :meth:`shard_batch`."""
-        return self.model.mesh if self.bm is not None else None
+        over ``data``, where every input's batch and the labels' are
+        split over ``data`` alone), or None when the batches go whole to
+        :meth:`shard_batch`, which cuts them by their own entries."""
+        if self.bm is None:
+            return None
+        from ..parallel.sharding import _padded
+        specs = list(self._input_specs.values()) + [self._final]
+        if any(_padded(sp, 1)[0] != "data" for sp in specs):
+            return None
+        return self.model.mesh
 
     def global_output(self, logits: torch.Tensor) -> torch.Tensor:
         """The global batch's final tensor from this rank's
@@ -1426,25 +1465,27 @@ class Executor:
                                   declared.get(k))
                 for k, v in batch.items()}
 
+    def _batch_spec(self, name: str) -> tuple:
+        """The layout of batch entry ``name`` on the rank: a graph
+        input's (:attr:`_input_specs`), else the labels' (the final
+        tensor's batch and sequence, as the loss reads them)."""
+        t = next((t for t in self.model.input_tensors if t.name == name),
+                 None)
+        return self._input_specs[t.uid] if t is not None else self._final
+
     def _seq_cut(self, name: str):
-        """(mesh axis, global length) of dim 1 of batch entry ``name``
-        when the rank holds a block of its sequence (a graph input a
-        consumer reads in blocks; the labels when the loss reads the
-        final tensor so), else None."""
+        """(mesh axis or tuple, global length) of dim 1 of batch entry
+        ``name`` when the rank holds a block of its sequence (a graph
+        input a consumer reads in blocks; the labels when the loss reads
+        the final tensor so), else None."""
         if self.bm is None:
             return None
         from ..parallel.sharding import _padded
-        if name == "label":
-            spec = _padded(self._final, 2)
-            shape = self.model.final_tensor.shape
-        else:
-            t = next((t for t in self.model.input_tensors
-                      if t.name == name), None)
-            if t is None:
-                return None
-            spec = _padded(self._input_specs[t.uid], 2)
-            shape = t.shape
-        if not isinstance(spec[1], str) or len(shape) < 2:
+        t = next((t for t in self.model.input_tensors if t.name == name),
+                 None)
+        shape = t.shape if t is not None else self.model.final_tensor.shape
+        spec = _padded(self._batch_spec(name), 2)
+        if spec[1] is None or len(shape) < 2:
             return None
         return spec[1], int(shape[1])
 
@@ -1452,14 +1493,18 @@ class Executor:
         """This rank's block of batch entry ``name``: its rows
         (:meth:`_rank_rows`), then, where the rank holds a block of the
         sequence, its positions: a dim ``dim + 1`` of the global length
-        is cut to the rank's block over the axis, one of the block's
-        length is taken as the rank's own, anything else raises."""
-        v = self._rank_rows(v, dim)
+        is cut to the rank's block over the entry (its block index over
+        a tuple of axes), one of the block's length is taken as the
+        rank's own, anything else raises."""
+        if self.bm is None:
+            return v
+        from ..parallel.sharding import _padded, block_index
+        v = self._rank_rows(v, _padded(self._batch_spec(name), 1)[0], dim)
         cut = self._seq_cut(name)
         if cut is None:
             return v
         axis, length = cut
-        n = self.bm.axis_size(axis)
+        c, n = block_index(axis, self.bm)
         have = v.shape[dim + 1]
         if have == length // n:
             return v
@@ -1468,30 +1513,33 @@ class Executor:
                 f"{name!r}: sequence of {have} on a mesh of {n} {axis!r} "
                 f"ranks: pass the whole sequence ({length}) or this "
                 f"rank's block ({length // n})")
-        c = self.bm.coord(axis)
         sl = [slice(None)] * v.ndim
         sl[dim + 1] = slice(c * (length // n), (c + 1) * (length // n))
         return v[tuple(sl)]
 
-    def _rank_rows(self, v, dim: int = 0):
-        """On a mesh, this rank's rows of a batch: a batch of the
-        model's (global) batch size is cut to the rank's block over
-        ``data`` (rows ``[c*b/d, (c+1)*b/d)``, ``c`` the rank's data
-        coordinate; ranks on ``model`` get the same rows); a batch of
-        b/d rows is taken as the rank's own (the process-local batch of
-        JAX's ``place_process_local``). Anything else raises."""
-        if self.bm is None or self._ndata == 1:
+    def _rank_rows(self, v, entry, dim: int = 0):
+        """On a mesh, this rank's rows of a batch whose batch dimension
+        is laid out by spec entry ``entry`` (an axis, a tuple of axes,
+        or None): a batch of the model's (global) batch size is cut to
+        the rank's block over the entry (rows ``[c*b/d, (c+1)*b/d)``,
+        ``c`` the rank's block index, ``d`` the entry's size; ranks that
+        differ on other axes get the same rows); a batch of b/d rows is
+        taken as the rank's own (the process-local batch of JAX's
+        ``place_process_local``). With no entry every rank takes the
+        whole batch. Anything else raises."""
+        from ..parallel.sharding import block_index
+        c, parts = block_index(entry, self.bm)
+        if parts == 1:
             return v
         n = v.shape[dim]
-        local = self._batch // self._ndata
+        local = self._batch // parts
         if n == local:
             return v
         if n != self._batch:
             raise ValueError(
-                f"batch of {n} rows on a mesh of {self._ndata} data "
+                f"batch of {n} rows on a mesh of {parts} {entry!r} "
                 f"ranks: pass the global batch ({self._batch} rows) or "
                 f"this rank's block ({local} rows)")
-        c = self.bm.coord("data")
         sl = [slice(None)] * v.ndim
         sl[dim] = slice(c * local, (c + 1) * local)
         return v[tuple(sl)]

@@ -227,8 +227,10 @@ class StagedExecutor(Executor):
                     seg.shape)
 
     # ---------------- batches ----------------
-    def _seq_cut(self, name: str):
-        return None
+    def _rank_block(self, name: str, v, dim: int = 0):
+        # every batch entry is cut by rows alone (no stage reads a block
+        # of the sequence)
+        return self._rank_rows(v, dim)
 
     def _rank_rows(self, v, dim: int = 0):
         """This rank's rows of a batch: rows ``[c mb/n, (c+1) mb/n)`` of

@@ -62,8 +62,9 @@ core/staged.py's StagedExecutor; pins that cannot run so warn and run
 replicated, and ``pipeline_stages > 1`` without a matching axis raises
 JAX's ``ValueError``. ``pipeline_blocks`` stacks identical blocks, a
 GPipe over the axis a strategy maps ``layer`` to (ops/pipeline.py).
-The strategies ``core/executor.check_executable`` refuses raise
-``NotImplementedError`` naming the ROADMAP item that executes them.
+Every layout a strategy describes executes on a mesh, entries over
+several mesh axes and mesh axes of any name included
+(core/executor.py).
 """
 
 from __future__ import annotations

@@ -72,20 +72,36 @@ def _sample_seq(axes):
 
 
 def tp_axis(op, strategy, mesh, weight: str, dim: int):
-    """The mesh axis that ``op``'s strategy splits dimension ``dim`` of
-    weight ``weight`` over (JAX's weight_sharding), or None."""
+    """The mesh axis — a name, or a tuple of names in the entry's order
+    — that ``op``'s tensor-parallel rule runs over for dimension ``dim``
+    of weight ``weight``, or None. It is the weight's stored entry
+    (JAX's weight_sharding) less the axes that split the op's input
+    (:func:`input_split_axes`): the rank stores its block over the
+    product of the entry's axes, and where an axis of the entry also
+    splits the input (``data`` in the FSDP layout ``("model",
+    "data")``), the rule runs over the axes left and the weight is
+    gathered over that axis before use (core/executor.py)."""
     if mesh is None or strategy is None:
         return None
-    from .parallel.sharding import weight_sharding
+    from .parallel.sharding import _names, weight_sharding
     spec = weight_sharding(op.weight_specs()[weight], strategy, mesh)
     entry = spec[dim] if dim < len(spec) else None
-    if entry is None:
+    split = input_split_axes(op, strategy, mesh)
+    names = tuple(n for n in _names(entry) if n not in split)
+    if not names:
         return None
-    if not isinstance(entry, str):
-        raise NotImplementedError(
-            f"{op.name}: weight {weight!r} split over several mesh axes "
-            f"{entry} (ROADMAP item 2.6)")
-    return entry
+    return names[0] if len(names) == 1 else names
+
+
+def input_split_axes(op, strategy, mesh) -> set:
+    """The mesh axes the op's inputs are split over on the dimensions
+    its local rule reads in blocks (the batch, and the sequence of a
+    :attr:`Op.seq_local` op)."""
+    from .parallel.sharding import _names, spec_for_axes
+    return {n for ax, t in zip(op.input_axes(), op.inputs)
+            for e in spec_for_axes(op._local_axes(ax), strategy, mesh,
+                                   t.shape)
+            for n in _names(e)}
 
 
 @dataclasses.dataclass
@@ -133,11 +149,12 @@ class OpContext:
 
     __slots__ = ("training", "rng", "seq_length", "state_in",
                  "state_out", "nhwc_in", "nhwc_out", "aux_loss", "mesh",
-                 "strategy")
+                 "strategy", "batch_axis")
 
     def __init__(self, training: bool, rng=None, seq_length: int = -1,
                  state_in: Optional[dict] = None, nhwc_in: bool = False,
-                 nhwc_out: bool = False, mesh=None, strategy=None):
+                 nhwc_out: bool = False, mesh=None, strategy=None,
+                 batch_axis=None):
         self.training = training
         self.rng = rng
         self.seq_length = seq_length
@@ -152,11 +169,15 @@ class OpContext:
         # OpStrategy, or None on one device
         self.mesh = mesh
         self.strategy = strategy
+        # the mesh axis (a name or a tuple) the op's input batch is
+        # split over, or None where the op reads the whole batch
+        self.batch_axis = batch_axis
 
     def data_split(self) -> bool:
-        """Whether the batch is split over a ``data`` axis (a
-        one-rank axis included: its collectives still run)."""
-        return self.mesh is not None and "data" in self.mesh.groups
+        """Whether the op's batch is split over a mesh axis
+        (:attr:`batch_axis`; a one-rank axis included: its collectives
+        still run)."""
+        return self.mesh is not None and self.batch_axis is not None
 
 
 class Op:
@@ -255,7 +276,9 @@ class Op:
         :attr:`seq_local` op on a sequence split. A rank that computes
         from its inputs read whole over an axis holds the whole
         gradient, which a sum over that axis would multiply by its
-        size. In the mesh's axis order."""
+        size. In the mesh's axis order. A weight read gathered over one
+        of these axes gets that sum from its gather's backward instead
+        (core/executor.py ``_partial``)."""
         from .parallel.sharding import _names
         used = {n for spec in self.mesh_input_specs(strategy, mesh)
                 for e in spec for n in _names(e)}

@@ -126,20 +126,27 @@ class MultiHeadAttention(Op):
         return tp_axis(self, strategy, mesh, "wq", 1)
 
     def _sp(self, strategy, mesh):
-        """The mesh axis the op's sequence-parallel dispatch runs over,
-        or None: JAX's guards (``_attend``) — ``seq`` maps to a mesh
-        axis of more than one device, neither ``add_zero_attn`` nor
-        ``add_bias_kv``, the query and key lengths divide by its size
-        and the batch by the ``sample`` axis's. The ``seq_length``
-        truncation, a runtime knob, is the forward's guard. Where these
-        fail the op reads its inputs whole over the axis, JAX's
-        graceful degradation."""
+        """The mesh axis — or tuple of axes, their product taken in the
+        entry's order — the op's sequence-parallel dispatch runs over,
+        or None: JAX's guards (``_attend``) — ``seq`` maps to mesh axes
+        of more than one device (as ``spec_for_axes`` resolves it: an
+        axis the batch already took drops out), neither
+        ``add_zero_attn`` nor ``add_bias_kv``, the query and key lengths
+        divide by its size and the batch by the ``sample`` axis's, and
+        no axis of it splits the heads. The ``seq_length`` truncation, a
+        runtime knob, is the forward's guard. Where these fail the op
+        reads its inputs whole over the axis, JAX's graceful
+        degradation."""
         if mesh is None or strategy is None:
             return None
-        ax = strategy.mesh_axis_for(SEQ)
-        if not isinstance(ax, str) or mesh.shape.get(ax, 1) <= 1:
+        from ..op import _sample_seq
+        from ..parallel.sharding import _names, spec_for_axes
+        spec = spec_for_axes(_sample_seq(self.input_axes()[0]), strategy,
+                             mesh, self.inputs[0].shape)
+        ax = spec[1] if len(spec) > 1 else None
+        if ax is None or mesh.axis_size(ax) <= 1:
             return None
-        n = mesh.shape[ax]
+        n = mesh.axis_size(ax)
         if self.add_zero_attn or self.add_bias_kv \
                 or self.inputs[0].shape[1] % n \
                 or self.inputs[1].shape[1] % n:
@@ -148,7 +155,7 @@ class MultiHeadAttention(Op):
         data_ax = data_ax if isinstance(data_ax, str) else "data"
         if self.inputs[0].shape[0] % mesh.shape.get(data_ax, 1):
             return None
-        if ax == self._tp(strategy, mesh):
+        if set(_names(ax)) & set(_names(self._tp(strategy, mesh))):
             return None
         return ax
 

@@ -273,19 +273,21 @@ class Pool2D(Op):
         return float(n * c * self.out_h * self.out_w * kh * kw)
 
 
-def _global_moments(xf, dims, shape_k, mesh):
+def _global_moments(xf, dims, shape_k, mesh, axis="data"):
     """The batch mean and biased variance over the GLOBAL batch of a
-    batch split over ``data``, as GSPMD computes JAX's jnp.mean/jnp.var
+    batch split over ``axis`` (the op's batch axis: ``data``, or
+    whatever entry the strategy maps ``sample`` to), as GSPMD computes
+    JAX's jnp.mean/jnp.var
     there: f32 local sums, summed over the ranks (``psum``: the result
     feeds every rank's rows, so its gradient is summed back), divided
     by the global count; the variance's second pass centres on the
     global mean. Every rank gets the same statistics, so the running
     statistics stay identical on every rank."""
     from ..parallel.collectives import psum
-    n = xf.numel() // xf.shape[1] * mesh.axis_size("data")
-    mean = psum(xf.sum(dim=dims), mesh, "data") / n
+    n = xf.numel() // xf.shape[1] * mesh.axis_size(axis)
+    mean = psum(xf.sum(dim=dims), mesh, axis) / n
     var = psum(torch.square(xf - mean.view(shape_k)).sum(dim=dims),
-               mesh, "data") / n
+               mesh, axis) / n
     return mean, var
 
 
@@ -334,7 +336,8 @@ class BatchNorm(Op):
             shape_k = [1] * x.dim()
             shape_k[1] = -1
             if ctx.data_split():
-                mean, var = _global_moments(xf, dims, shape_k, ctx.mesh)
+                mean, var = _global_moments(xf, dims, shape_k, ctx.mesh,
+                                            ctx.batch_axis)
             else:
                 mean = xf.mean(dim=dims)
                 var = torch.square(xf - mean.view(shape_k)).mean(dim=dims)

@@ -19,12 +19,16 @@ dim) gradient. The two differ where ids repeat: JAX's sparse "exact" SGD
 adds ``(-lr) * g`` once per occurrence, the dense rule subtracts ``lr``
 times the summed gradient.
 
-On a mesh whose strategy maps ``vocab`` onto an axis, an ``Embedding``
-table is stored split by rows: each rank looks up the ids it owns
-(zeros for the others), and an ``all_reduce`` over the axis sums the
-rows — exactly, since each row is nonzero on one rank — before the bag
-is reduced. Under sparse updates only the owning rank updates a row
-(:meth:`Embedding.local_ids`).
+On a mesh whose strategy maps ``vocab`` onto an axis, or a tuple of
+axes (their product, the first axis major), an ``Embedding`` table is
+stored split by rows: each rank looks up the ids it owns (zeros for the
+others), and an ``all_reduce`` over the axis (the product group) sums
+the rows — exactly, since each row is nonzero on one rank — before the
+bag is reduced. Where an axis of the entry also splits the ids' batch
+(``("model", "data")``), the lookup runs over the axes left on the
+table gathered over that axis (core/executor.py; ``op.tp_axis``).
+Under sparse updates only the owning rank updates a row of its stored
+block (:meth:`Embedding.local_ids`).
 
 ``DistributedEmbedding`` stacks E same-vocab tables into one (E, vocab,
 dim) weight; a device-explicit placement lays it out in device slots,
@@ -143,16 +147,21 @@ class Embedding(Op):
     def sparse_batch_axes(self, strategy, mesh) -> list:
         """(axis, dim) pairs, in order, to all-gather a sparse update's
         ids and row gradients over, so every rank holds the global
-        batch's in its order: the sequence's axis on dim 1 first (a
-        position-local lookup on a ``seq`` split), then the batch's."""
+        batch's in its order: the sequence's axis (or tuple) on dim 1
+        first (a position-local lookup on a ``seq`` split), then the
+        batch's."""
         spec = self.mesh_input_specs(strategy, mesh)[0]
         return [(spec[d], d) for d in reversed(range(len(spec)))
-                if isinstance(spec[d], str)]
+                if spec[d] is not None]
 
     def update_ids(self, idx, table, strategy, mesh):
-        """The ids a sparse update of this rank's table block takes
-        (:meth:`local_ids` on a ``vocab`` split, else ``idx``)."""
-        ax = self._tp(strategy, mesh)
+        """The ids a sparse update of this rank's stored table block
+        takes (:meth:`local_ids` over the stored vocab entry, else
+        ``idx``)."""
+        from ..parallel.sharding import weight_sharding
+        spec = weight_sharding(self.weight_specs()["kernel"], strategy,
+                               mesh)
+        ax = spec[0] if spec else None
         if ax is None:
             return idx
         return self.local_ids(idx, mesh, ax, table.shape[0])
@@ -228,9 +237,13 @@ class DistributedEmbedding(Op):
     of that gather takes the rank's slots, whose gradient is then whole
     (the rank computed them from the whole batch): nothing is summed
     over ``data`` (:meth:`mesh_grad_axes`), and a sparse update touches
-    the rank's slots only. A kernel split on ``vocab`` looks up the
-    rows each rank owns and sums them over the axis (exact: each row
-    lives on one rank), as ``Embedding`` does."""
+    the rank's slots only. A kernel split on ``vocab`` (over one axis
+    or a tuple) looks up the rows each rank owns and sums them over the
+    vocab axes' group (exact: each row lives on one rank), as
+    ``Embedding`` does; with the slots split too, the rank holds its
+    vocab block of its slots and runs the slot rule, then the vocab
+    rule. Where the vocab entry shares an axis with the batch the ids
+    are gathered over the batch first, as for slots."""
 
     op_type = "distributed_embedding"
 
@@ -399,26 +412,39 @@ class DistributedEmbedding(Op):
             self.weight_specs()["kernel"], st, mesh), 3))
 
     def split_axes(self, strategy, mesh):
-        """(slot axes, vocab axis): the mesh axes the kernel's slot
-        dimension is stored split over (a tuple, or None) and the axis
-        its vocab dimension is (or None)."""
+        """(slot axes, vocab axes): the mesh axes the kernel's slot
+        dimension and its vocab dimension are stored split over, each a
+        tuple in its entry's order, or None."""
         from ..parallel.sharding import _names
         if mesh is None or strategy is None:
             return None, None
         spec = self._kernel_spec(strategy, mesh)
-        slots = _names(spec[0]) or None
-        vocab = _names(spec[1])
-        if len(vocab) > 1:
-            raise NotImplementedError(
-                f"{self.name}: vocab split over several mesh axes "
-                f"{vocab} (ROADMAP item 2.6)")
-        return slots, (vocab[0] if vocab else None)
+        return _names(spec[0]) or None, _names(spec[1]) or None
 
     def _data_axis(self, strategy, mesh):
+        """The entry (an axis or a tuple) the ids' batch is split over,
+        or None."""
         from ..parallel.sharding import spec_for_axes
         spec = spec_for_axes(self.input_axes()[0], strategy, mesh,
                              self.inputs[0].shape)
-        return spec[0] if spec and isinstance(spec[0], str) else None
+        return spec[0] if spec else None
+
+    def _ids_gathered(self, strategy, mesh):
+        """The batch's entry where the lookup gathers the ids over it
+        first, else None: a slot-split kernel (every rank's slots serve
+        the whole batch) or a vocab entry that shares an axis with the
+        batch's (the ranks of the vocab group must look up the same
+        ids)."""
+        from ..parallel.sharding import _names
+        if mesh is None or strategy is None:
+            return None
+        slots, vocab = self.split_axes(strategy, mesh)
+        d = self._data_axis(strategy, mesh)
+        if d is None:
+            return None
+        if slots or set(_names(d)) & set(vocab or ()):
+            return d
+        return None
 
     def mesh_weight_specs(self, strategy, mesh):
         slots, vocab = self.split_axes(strategy, mesh)
@@ -432,8 +458,8 @@ class DistributedEmbedding(Op):
         return {"kernel": ()}
 
     def mesh_grad_axes(self, strategy, mesh) -> tuple:
-        if self.split_axes(strategy, mesh)[0]:
-            # the rank's slots computed from the whole batch: their
+        if self._ids_gathered(strategy, mesh) is not None:
+            # the rank's block computed from the whole batch: its
             # gradient is whole, nothing to sum
             return ()
         return super().mesh_grad_axes(strategy, mesh)
@@ -441,8 +467,9 @@ class DistributedEmbedding(Op):
     def sparse_batch_axes(self, strategy, mesh) -> list:
         """(axis, dim) pairs, in order, to all-gather a sparse update's
         ids and row gradients over (the global batch's rows on every
-        rank): none for a slot-split kernel (its rows already are)."""
-        if self.split_axes(strategy, mesh)[0]:
+        rank): none where the lookup gathered the ids (its rows already
+        are the whole batch's)."""
+        if self._ids_gathered(strategy, mesh) is not None:
             return []
         d = self._data_axis(strategy, mesh)
         return [(d, 1)] if d else []
@@ -452,33 +479,36 @@ class DistributedEmbedding(Op):
         vocab split's rows the rank does not own as ``n_local`` (the
         update drops them; negative ids wrap first, as the one-device
         scatter takes them); otherwise ``idx``."""
+        from ..parallel.sharding import block_index
         vocab = self.split_axes(strategy, mesh)[1]
         if vocab is None:
             return idx
         n_local = table.shape[1]
         i = idx.long()
         r = torch.where(i < 0, i + self.num_entries, i)
-        lid = r - mesh.coord(vocab) * n_local
+        lid = r - block_index(vocab, mesh)[0] * n_local
         own = (lid >= 0) & (lid < n_local)
         return torch.where(own, lid, torch.full_like(lid, n_local))
 
     def gather(self, table, xs, mesh=None, strategy=None):
         """(ids, rows): the ids as the gather reads them and the rows of
         ``table`` (this rank's block of the kernel) they name — the
-        executor's pre-gather, and the forward's lookup. A slot-split
-        kernel: the whole batch's ids of the rank's slots. A vocab
-        split: the masked lookup summed over the axis."""
+        executor's pre-gather, and the forward's lookup. The slot rule,
+        then the vocab rule: the ids gathered over the batch's axes
+        where :meth:`_ids_gathered` says so, the rank's slots of them
+        (a slot-split kernel), and on a vocab split the masked lookup
+        in the rank's vocab block summed over the vocab axes' group."""
+        from ..parallel.sharding import _axis, block_index
         ids = self.slot_ids(xs)
         slots, vocab = self.split_axes(strategy, mesh)
-        if slots:
+        d = self._ids_gathered(strategy, mesh)
+        if d is not None:
             from ..parallel.collectives import gather_tensor
-            d = self._data_axis(strategy, mesh)
-            if d is not None:
-                ids = gather_tensor(ids, mesh, d, 1)
+            ids = gather_tensor(ids, mesh, d, 1)
+        if slots:
             k = table.shape[0]
-            c = mesh.coord(slots if len(slots) > 1 else slots[0])
+            c = block_index(slots, mesh)[0]
             ids = ids[c * k:(c + 1) * k]
-            return ids, _slot_gather(table, ids)
         if vocab is None:
             return ids, _slot_gather(table, ids)
         from ..parallel.collectives import all_reduce
@@ -487,12 +517,12 @@ class DistributedEmbedding(Op):
             :, None, None]).clamp(0, s * v - 1)
         slot, row = gid // v, gid % v
         n_local = table.shape[1]
-        lid = row - mesh.coord(vocab) * n_local
+        lid = row - block_index(vocab, mesh)[0] * n_local
         own = (lid >= 0) & (lid < n_local)
         local = (slot * n_local + lid.clamp(0, n_local - 1))
         rows = F.embedding(local, table.reshape(-1, table.shape[-1]))
         rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
-        return ids, all_reduce(rows, mesh, vocab)
+        return ids, all_reduce(rows, mesh, _axis(vocab))
 
     def forward(self, params, xs, ctx: OpContext):
         mesh, st = ctx.mesh, ctx.strategy
@@ -502,15 +532,15 @@ class DistributedEmbedding(Op):
             emb = self.gather(params["kernel"], xs, mesh, st)[1]
         emb = _aggregate(emb, self.aggr)
         slots = self.split_axes(st, mesh)[0]
+        from ..parallel.collectives import all_gather, split
         if slots:
-            # every slot's outputs for the whole batch, then this rank's
-            # rows of them
-            from ..parallel.collectives import all_gather, split
-            emb = all_gather(emb, mesh, slots if len(slots) > 1
-                             else slots[0], 0)
-            d = self._data_axis(st, mesh)
-            if d is not None:
-                emb = split(emb, mesh, d, 1)
+            # every slot's outputs for the whole batch
+            from ..parallel.sharding import _axis
+            emb = all_gather(emb, mesh, _axis(slots), 0)
+        d = self._ids_gathered(st, mesh)
+        if d is not None:
+            # this rank's rows of the whole batch's outputs
+            emb = split(emb, mesh, d, 1)
         order = (self._slot_of_table if self._slot_of_table is not None
                  else range(self.num_tables))
         return [emb[s].to(self.out_dtype) for s in order]

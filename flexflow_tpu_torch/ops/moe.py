@@ -45,18 +45,19 @@ def _one_hot(ids, n: int):
             == torch.arange(n, device=ids.device)).to(torch.float32)
 
 
-def expert_prefix(assign, n_experts: int, mesh):
+def expert_prefix(assign, n_experts: int, mesh, axis="data"):
     """(n_experts,) int32: the slots the ranks before this one (in
-    ``data`` coordinate order, the global batch order) route to each
-    expert. Not differentiable; one all-gather of the counts."""
+    ``axis`` coordinate order, the global batch order; ``axis`` the
+    op's batch axis) route to each expert. Not differentiable; one
+    all-gather of the counts."""
     from ..parallel.collectives import gather_tensor
     flat = assign.reshape(-1).long()
     ok = (flat >= 0) & (flat < n_experts)
     counts = torch.zeros(n_experts, dtype=torch.int32, device=flat.device)
     counts.index_add_(0, flat[ok], torch.ones_like(flat[ok],
                                                      dtype=torch.int32))
-    every = gather_tensor(counts[None], mesh, "data", 0)
-    c = mesh.coord("data")
+    every = gather_tensor(counts[None], mesh, axis, 0)
+    c = mesh.coord(axis)
     return every[:c].sum(dim=0).to(torch.int32)
 
 
@@ -166,11 +167,12 @@ class GroupBy(Op):
         xrep = torch.repeat_interleave(data, self.k, dim=0)
         if ctx.data_split():
             from ..parallel.collectives import reduce_scatter
-            prefix = expert_prefix(assign, self.n, ctx.mesh)
+            prefix = expert_prefix(assign, self.n, ctx.mesh,
+                                   ctx.batch_axis)
             pos, keep = dispatch_indices(assign, self.n, self.capacity,
                                          prefix)
             buf = sorted_dispatch(xrep, pos, keep, self.n, self.capacity)
-            buf = reduce_scatter(buf, ctx.mesh, "data", 1)
+            buf = reduce_scatter(buf, ctx.mesh, ctx.batch_axis, 1)
             return [buf[i] for i in range(self.n)]
         if use_sorted_dispatch(self.model, xrep.shape[0], self.n,
                                self.capacity):
@@ -214,8 +216,9 @@ class Aggregate(Op):
         prefix = None
         if ctx.data_split():
             from ..parallel.collectives import gather_sum
-            experts = gather_sum(experts, ctx.mesh, "data", 1)
-            prefix = expert_prefix(assign, self.n, ctx.mesh)
+            experts = gather_sum(experts, ctx.mesh, ctx.batch_axis, 1)
+            prefix = expert_prefix(assign, self.n, ctx.mesh,
+                                   ctx.batch_axis)
         mask = dispatch_mask(assign, self.n, self.capacity, prefix)
         gathered = torch.einsum("snc,ncd->sd", mask, experts.float())
         b, k = assign.shape

@@ -139,8 +139,8 @@ class MoEFFN(Op):
 
         xrep = torch.repeat_interleave(tokens, k, dim=0)
         mesh = ctx.mesh if ctx.data_split() else None
-        prefix = (expert_prefix(assign, e, mesh) if mesh is not None
-                  else None)
+        prefix = (expert_prefix(assign, e, mesh, ctx.batch_axis)
+                  if mesh is not None else None)
         # a mesh routes through the sorted scatter: its buffer rows are
         # the dense mask's, exactly, and it takes the global ranks
         sorted_path = mesh is not None or self.sorted_path()
@@ -179,9 +179,9 @@ class MoEFFN(Op):
             p = torch.sum(probs, dim=0)
             if mesh is not None:
                 from ..parallel.collectives import all_reduce
-                f = all_reduce(f, mesh, "data")
-                p = all_reduce(p, mesh, "data")
-                n = n * mesh.axis_size("data")
+                f = all_reduce(f, mesh, ctx.batch_axis)
+                p = all_reduce(p, mesh, ctx.batch_axis)
+                n = n * mesh.axis_size(ctx.batch_axis)
             inv_n = reciprocal_f32(n)
             f = f * inv_n
             p = p * inv_n

@@ -48,9 +48,13 @@ are (their completion ordered before the current stream's later work),
 under gloo with CUDA tensors they stage through pinned host memory like
 every other collective; a failed transfer raises from its wait.
 
-An axis may also be a tuple of mesh axes: the group of the ranks that
-differ only on them (``BoundMesh.subgroup``), as the gradient sync of
-a data x seq mesh sums over both.
+An axis may also be a tuple of mesh axes, a spec entry that splits a
+dimension over their product: the group of the ranks that differ only
+on them (``BoundMesh.subgroup``), its members in the entry's own
+row-major order (the first axis major, the order of
+``BoundMesh.coord``), so a gather, an all-to-all or a ring hop over
+it moves block j to or from member j. A sum does not care for the
+order: the gradient sync of a data x seq mesh sums over both.
 
 Under NCCL the tensors go to NCCL as they are (on the current stream,
 so a CUDA-graph capture records them and a replay runs them; an
@@ -105,20 +109,29 @@ def reset_counts() -> None:
         staged_bytes[k] = 0
 
 
+def _entry(bm, axis):
+    """``axis`` as the mesh knows it: a name, or a tuple of the names
+    the mesh has in the entry's own order (one name: that name)."""
+    if not isinstance(axis, tuple):
+        return axis
+    axes = tuple(a for a in axis if a in bm.shape)
+    return axes[0] if len(axes) == 1 else axes
+
+
 def _group(bm, axis):
     """(process group, size) of ``axis``, or (None, 1) when the mesh
     has no such axis. A tuple of axes names the group of the ranks that
-    differ only on those axes (``BoundMesh.subgroup``; its members in
-    the row-major order of the axes as the mesh orders them)."""
+    differ only on those axes (``BoundMesh.subgroup``): its members in
+    the row-major order of the axes *as the entry orders them*, the
+    order of ``BoundMesh.coord`` over the same tuple, so a gather over
+    it concatenates the entry's blocks in block order."""
     if bm is None:
         return None, 1
+    axis = _entry(bm, axis)
+    if axis == ():
+        return None, 1
     if isinstance(axis, tuple):
-        axes = tuple(a for a in bm.axis_names if a in axis)
-        if not axes:
-            return None, 1
-        if len(axes) > 1:
-            return bm.subgroup(axes)[0], bm.axis_size(axes)
-        axis = axes[0]
+        return bm.subgroup(axis)[0], bm.axis_size(axis)
     if axis not in bm.groups:
         return None, 1
     return bm.groups[axis], bm.axis_size(axis)
@@ -126,18 +139,44 @@ def _group(bm, axis):
 
 def _ranks(bm, axis) -> List[int]:
     """The global ranks of ``axis``'s group, in coordinate order."""
+    axis = _entry(bm, axis)
     if isinstance(axis, tuple):
-        axes = tuple(a for a in bm.axis_names if a in axis)
-        if len(axes) > 1:
-            return bm.subgroup(axes)[1]
-        axis = axes[0]
+        return bm.subgroup(axis)[1]
     return bm.group_ranks[axis]
 
 
 def _coord(bm, axis) -> int:
-    if isinstance(axis, tuple):
-        return bm.coord(tuple(a for a in bm.axis_names if a in axis))
-    return bm.coord(axis)
+    return bm.coord(_entry(bm, axis))
+
+
+def _pos(bm, axis):
+    """The process group's position of each member of ``axis``'s
+    group, member j (block j of the entry) first, or None where they
+    agree. ``torch.distributed`` orders a group's ranks by their global
+    rank, whatever order ``new_group`` was given them in; an entry whose
+    axes are not in the mesh's order (``("model", "data")`` on a
+    ``("data", "model")`` mesh) numbers its blocks otherwise, so every
+    collective whose result depends on the order maps through this."""
+    ranks = _ranks(bm, axis)
+    order = sorted(ranks)
+    if order == ranks:
+        return None
+    return [order.index(r) for r in ranks]
+
+
+def _to_blocks(t: torch.Tensor, pos) -> torch.Tensor:
+    """The (n, ...) chunks of ``t`` in group order put in block order."""
+    return t if pos is None else t[pos]
+
+
+def _to_group(t: torch.Tensor, pos) -> torch.Tensor:
+    """The (n, ...) chunks of ``t`` in block order put in group order."""
+    if pos is None:
+        return t
+    inv = [0] * len(pos)
+    for j, p in enumerate(pos):
+        inv[p] = j
+    return t[inv]
 
 
 def _stages(bm, t: torch.Tensor) -> bool:
@@ -196,7 +235,10 @@ def all_reduce_(t: torch.Tensor, bm, axis: str, async_op: bool = False):
 def gather_tensor(t: torch.Tensor, bm, axis: str, dim: int = 0
                   ) -> torch.Tensor:
     """The ranks' ``t`` along ``axis`` concatenated on ``dim`` in
-    coordinate order (not differentiable)."""
+    coordinate order (not differentiable), contiguous: a weight gathered
+    on its last dimension is laid out as the whole weight is (a strided
+    view would send cuBLAS down another operand order and round the
+    product otherwise)."""
     import torch.distributed as dist
     g, n = _group(bm, axis)
     if g is None:
@@ -213,7 +255,11 @@ def gather_tensor(t: torch.Tensor, bm, axis: str, dim: int = 0
         host = out
         out = torch.empty(host.shape, dtype=host.dtype, device=t.device)
         _to_device(out, host)
-    return out.movedim(0, dim)
+    pos = _pos(bm, axis)
+    if pos is not None:
+        out = _to_blocks(out.reshape((n,) + tuple(src.shape)), pos
+                         ).reshape(out.shape)
+    return out.movedim(0, dim).contiguous()
 
 
 def reduce_scatter_tensor(t: torch.Tensor, bm, axis: str, dim: int = 0
@@ -229,6 +275,10 @@ def reduce_scatter_tensor(t: torch.Tensor, bm, axis: str, dim: int = 0
     if src.shape[0] % n:
         raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
                          f"does not divide over {n} ranks")
+    pos = _pos(bm, axis)
+    if pos is not None:
+        src = _to_group(src.reshape((n, -1) + tuple(src.shape[1:])), pos
+                        ).reshape(src.shape)
     staged = _stages(bm, src)
     if staged:
         src = _to_host(src)
@@ -271,7 +321,9 @@ def all_to_all_tensor(t: torch.Tensor, bm, axis, split_dim: int,
         raise ValueError(f"all_to_all: dim {split_dim} of "
                          f"{tuple(t.shape)} does not split over {n} ranks")
     count_launch(launches, "all_to_all")
-    src = torch.stack(t.chunk(n, dim=split_dim)).contiguous()
+    pos = _pos(bm, axis)
+    src = _to_group(torch.stack(t.chunk(n, dim=split_dim)), pos
+                    ).contiguous()
     staged = _stages(bm, src)
     if staged:
         src = _to_host(src)
@@ -281,7 +333,7 @@ def all_to_all_tensor(t: torch.Tensor, bm, axis, split_dim: int,
         host = out
         out = torch.empty(host.shape, dtype=host.dtype, device=t.device)
         _to_device(out, host)
-    return torch.cat(out.unbind(0), dim=concat_dim)
+    return torch.cat(_to_blocks(out, pos).unbind(0), dim=concat_dim)
 
 
 def ppermute_tensor(t: torch.Tensor, bm, axis, shift: int = 1
@@ -406,8 +458,9 @@ def broadcast_from(t: torch.Tensor, bm, axis: str, src: int
     g, n = _group(bm, axis)
     if g is None:
         return t
-    out = t.detach().clone() if _coord(bm, axis) == src \
-        else torch.zeros_like(t)
+    out = t.detach().clone(memory_format=torch.contiguous_format) \
+        if _coord(bm, axis) == src else torch.zeros_like(
+            t, memory_format=torch.contiguous_format)
     all_reduce_(out, bm, axis)
     return out
 
@@ -420,7 +473,8 @@ def gather_objects(obj, bm, axis: str) -> List:
         return [obj]
     out = [None] * n
     dist.all_gather_object(out, obj, group=g)
-    return out
+    pos = _pos(bm, axis)
+    return out if pos is None else [out[p] for p in pos]
 
 
 class LockstepError(RuntimeError):
@@ -546,7 +600,7 @@ def barrier(bm=None) -> None:
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, bm, axis):
-        y = x.clone()
+        y = x.clone(memory_format=torch.contiguous_format)
         all_reduce_(y, bm, axis)
         return y
 
@@ -563,7 +617,9 @@ class _CopyTo(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
+        # NCCL takes contiguous tensors only (a gradient may arrive as a
+        # strided view)
+        g = g.clone(memory_format=torch.contiguous_format)
         all_reduce_(g, ctx.bm, ctx.axis)
         return g, None, None
 

@@ -186,11 +186,17 @@ class BoundMesh:
     def subgroup(self, axes: tuple):
         """The group of the ranks that differ from this one only in
         their coordinates on ``axes`` (several mesh axes taken as one),
-        its members in the row-major order of :meth:`coord`. Made on
-        first use and cached: every rank must ask for the same axes in
-        the same order (``new_group`` is collective over the world),
-        which a program every rank runs alike does."""
-        axes = tuple(a for a in self.axis_names if a in axes)
+        its members in the row-major order of :meth:`coord` over
+        ``axes`` *as given* (the first axis major): a spec entry
+        ``("model", "data")`` on a ``("data", "model")`` mesh lists its
+        members model-major, so member j holds block j of the entry
+        (the process group itself numbers them by global rank: the
+        collectives map between the two, parallel/collectives.py). Axes
+        the mesh lacks are dropped. Made on first use and cached by the
+        entry: every rank must ask for the same entries in the same
+        order (``new_group`` is collective over the world), which a
+        program every rank runs alike does."""
+        axes = tuple(a for a in axes if a in self.shape)
         if not axes:
             return None
         if len(axes) == 1:

@@ -16,6 +16,12 @@ Pallas kernel, and so do these: plain torch products. The backward is
 autograd's through the hops and the ``ppermute``s (whose adjoint shifts
 the gradient back), as JAX differentiates through its ``scan``. The
 last hop's rotation, whose result JAX's scan discards, is not sent.
+
+``seq_axis`` may be a tuple of mesh axes (``seq`` over ``("seq",
+"model")``): the ring runs over their product group, coordinate ``c``
+the rank's block index over the tuple in the entry's order
+(``BoundMesh.coord``), so the hop order is ``(c - step) mod n`` there
+too.
 """
 
 from __future__ import annotations

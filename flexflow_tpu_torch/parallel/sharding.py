@@ -20,11 +20,13 @@ as its block, :func:`shard` and :func:`gather` go between a global
 tensor and its blocks, and :func:`reshard` — the counterpart of
 ``with_sharding_constraint`` — moves a block from one layout to another
 with the differentiable collectives of ``parallel/collectives.py``:
-an all-gather for each axis the source splits a dimension over and the
-destination does not (its backward takes the rank's slice: the
-gathered value feeds computation replicated over that axis), then the
-rank's slice for each axis the destination adds (backward:
-all-gather).
+an all-gather for the axes the source splits a dimension over and the
+destination does not (one collective a run of them, over the run's
+group in the entry's order; its backward takes the rank's slice: the
+gathered value feeds computation replicated over those axes — or, for
+the axes named ``partial``, a reduce-scatter of a gradient each rank
+holds a part of), then the rank's slice for the axes the destination
+adds (backward: all-gather).
 """
 
 from __future__ import annotations
@@ -114,6 +116,21 @@ def _padded(spec: Spec, ndim: int) -> list:
     return list(spec) + [None] * (ndim - len(spec))
 
 
+def gathered_axes(src: Spec, dst: Spec) -> set:
+    """The mesh axes :func:`reshard` gathers from ``src`` to ``dst``:
+    on each dimension the source's axes past the prefix the two
+    entries share."""
+    nd = max(len(src), len(dst))
+    out = set()
+    for have, want in zip(_padded(src, nd), _padded(dst, nd)):
+        have, want = _names(have), _names(want)
+        k = 0
+        while k < min(len(have), len(want)) and have[k] == want[k]:
+            k += 1
+        out.update(have[k:])
+    return out
+
+
 def block_index(entry, bm) -> Tuple[int, int]:
     """(block index, block count) of this rank for one spec entry."""
     idx, parts = 0, 1
@@ -147,14 +164,22 @@ def shard(x, spec: Spec, bm):
 
 def gather(x: torch.Tensor, spec: Spec, bm) -> torch.Tensor:
     """The global tensor from every rank's block (every rank calls it;
-    not differentiable)."""
+    not differentiable): one gather a split dimension, over the group
+    of its entry (its axes in the entry's order, so the blocks come
+    back in block order)."""
     if bm is None:
         return x
     for d, e in enumerate(_padded(spec, x.dim())):
-        # minor axis first: its blocks are adjacent in the global order
-        for n in reversed(_names(e)):
-            x = C.gather_tensor(x, bm, n, d)
+        names = _names(e)
+        if names:
+            x = C.gather_tensor(x, bm, _axis(names), d)
     return x
+
+
+def _axis(names: tuple):
+    """A run of axis names as one collective's axis: the name, or the
+    tuple (a group in the run's order)."""
+    return names[0] if len(names) == 1 else tuple(names)
 
 
 def place_global(arr, spec: Spec, bm, device, dtype=None) -> torch.Tensor:
@@ -183,9 +208,22 @@ def place_process_local(host, spec: Spec, bm, device=None, dtype=None):
     return torch.as_tensor(np.asarray(host), device=device, dtype=dtype)
 
 
-def reshard(x: torch.Tensor, src: Spec, dst: Spec, bm) -> torch.Tensor:
+def reshard(x: torch.Tensor, src: Spec, dst: Spec, bm,
+            partial: Sequence[str] = ()) -> torch.Tensor:
     """``x`` (this rank's block under ``src``) as its block under
-    ``dst``, differentiably: gathers first, then slices."""
+    ``dst``, differentiably: gathers first, then slices. On each
+    dimension the longest major prefix the two entries share stays; the
+    rest of the source's axes are gathered, the minor ones first, each
+    run of them in one collective over the run's group (in the entry's
+    order); the axes the destination adds are sliced off in one step.
+
+    ``partial`` names the axes over which the gradient reaching the
+    gathered value is partial (a weight gathered over an axis that
+    splits its op's input: each rank's gradient comes from its own
+    rows). A gather over such an axis is ``gather_sum``, whose backward
+    reduce-scatters — the one sum that gradient gets over that axis —
+    and any other gather is ``all_gather``, whose backward takes the
+    rank's slice of a gradient that is whole."""
     if bm is None:
         return x
     nd = x.dim()
@@ -194,15 +232,22 @@ def reshard(x: torch.Tensor, src: Spec, dst: Spec, bm) -> torch.Tensor:
         return x
     for d in range(nd):
         have, want = _names(s[d]), _names(t[d])
-        # keep the longest common major prefix, gather the rest
         k = 0
         while k < min(len(have), len(want)) and have[k] == want[k]:
             k += 1
-        for n in reversed(have[k:]):
-            x = C.all_gather(x, bm, n, d)
+        rest = list(have[k:])
+        while rest:
+            # the longest minor run of one kind (partial or not)
+            kind = rest[-1] in partial
+            j = len(rest)
+            while j > 0 and (rest[j - 1] in partial) == kind:
+                j -= 1
+            run = _axis(tuple(rest[j:]))
+            x = (C.gather_sum if kind else C.all_gather)(x, bm, run, d)
+            del rest[j:]
         s[d] = have[:k] or None
     for d in range(nd):
         have, want = _names(s[d]), _names(t[d])
-        for n in want[len(have):]:
-            x = C.split(x, bm, n, d)
+        if want[len(have):]:
+            x = C.split(x, bm, _axis(want[len(have):]), d)
     return x

@@ -19,7 +19,9 @@ most the kernels' largest), without JAX's TPU-tuned
 ``flash_profitable`` gate; a caller-custom scale takes the einsum path,
 as in JAX (the kernels bake in 1/sqrt(d)). On the CPU the core is the
 kernels' plain version. There is no fallback: a kernel that fails to
-build or launch raises.
+build or launch raises. ``seq_axis`` may be a tuple of mesh axes: the
+all-to-alls run over their product group in the entry's block order,
+and each rank takes h/n heads of n = the product.
 """
 
 from __future__ import annotations

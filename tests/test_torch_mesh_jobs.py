@@ -520,7 +520,7 @@ def plant(fault):
     if fault == "bn_local":
         import torch
 
-        def local(xf, dims, shape_k, mesh):
+        def local(xf, dims, shape_k, mesh, axis="data"):
             mean = xf.mean(dim=dims)
             return mean, torch.square(xf - mean.view(shape_k)).mean(
                 dim=dims)
@@ -549,8 +549,8 @@ def plant(fault):
 def left_out(case):
     """The NotImplementedError (its message) of a strategy or knob left
     out, on the group's two ranks; None if nothing raised (the
-    sequence, expert, table, pinned, pipeline and conv and LSTM
-    channel_out cases, which execute)."""
+    sequence, expert, table, pinned, pipeline, conv and LSTM
+    channel_out and other-axis cases, which execute)."""
     import flexflow_tpu_torch as ft
     mk = ft.parallel.mesh.make_mesh
     dm = mk((1, 2), ("data", "model"))
