@@ -163,6 +163,23 @@ wide-head) must not spill — and then:
     beside it and its bound. ``--only-tp-serve`` runs the build and
     this phase alone.
 
+  * runs the wall-clock pool at t = 2 over a model kept on the host
+    (``pool_tp_phase``, after ``tp_serve_phase``) on two gloo ranks
+    sharing the card, eager: (a) each rank boots a pool of two t = 2
+    replicas from the README LM built on the host (the card's allocated
+    bytes beside each replica's memory ledger: a rank's shards, no whole
+    copy) and serves a seeded stream of 16 greedy requests on the wall
+    clock in lockstep; the ranks' records equal, the streams against
+    this process's one-device captured pool (tie rule PARITY_MARGIN),
+    kernel 1's launches a rank (layers x steps), the lockstep calls a
+    tick and their wall cost, makespan and goodput (no speed: two gloo
+    ranks share the card); (b) the allocator capped at the host pool's
+    own peak plus half the whole parameters: the host pool serves the
+    stream's first requests under it, the same pool over the LM built
+    on the card runs out of memory; (c) kernel 1 at H = 4 (a rank's
+    heads), f32 pages, against its plain version. ``--only-pool-tp``
+    runs the build and this phase alone.
+
   * runs sequence parallelism, expert parallelism and placed tables
     (``sp_phase``, last) on two gloo ranks sharing the card, eager:
     (a) the dropout LM at full width on a (1, 2) data x seq mesh under
@@ -5029,16 +5046,20 @@ def tp_rank_handoff():
     return res
 
 
-def tp_kernel_check(pr):
+def tp_kernel_check(pr, heads_list=(HEADS // 2, HEADS // 4),
+                    pages=("f32", "int8"), tag="tp_serve (d)"):
     """(d) kernel 1 at H = 4 and H = 2 (the heads of a rank at t = 2 and
     t = 4) on the mixed step's other shapes, f32 and int8 pages, against
-    its plain version; timed beside it and its bound."""
+    its plain version; timed beside it and its bound. ``heads_list`` and
+    ``pages`` pick the cells, ``tag`` names the phase in the log."""
     dev = torch.device("cuda")
     scale = 1.0 / math.sqrt(HEAD_DIM)
     out = {}
-    for heads in (HEADS // 2, HEADS // 4):
+    for heads in heads_list:
         for name, dtype, tol in (("f32", torch.float32, F32_TOL),
                                  ("int8", torch.int8, QUANT_REL_TOL)):
+            if name not in pages:
+                continue
             quant = dtype == torch.int8
             args = kernel_inputs(torch.float32, dev, heads=heads)
             kw = {}
@@ -5061,7 +5082,7 @@ def tp_kernel_check(pr):
             out[f"H={heads} {name}"] = {
                 "max_abs_err": err, "err_over_max_ref": rel, "ms": k_ms,
                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
-            log(f"tp_serve (d) kernel paged_ragged_v2 [{name} pages, "
+            log(f"{tag} kernel paged_ragged_v2 [{name} pages, "
                 f"T=520 H={heads} D=64 ps=16 pp=32 P=257]: max_abs_err="
                 f"{err:.3g} err/max|ref|={rel:.3g} (tol {tol}"
                 f"{' relative' if quant else ''}) kernel_ms={k_ms:.4f} "
@@ -5229,6 +5250,272 @@ def tp_serve_phase(pr, card: str):
     torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t0
     log(f"tp_serve phase: {res['phase_s']:.1f} s")
+    return res
+
+
+# ------------------------------ the wall-clock pool at t = 2, host weights
+POOL_TP_REPLICAS = 2
+# about 16 greedy requests arriving over about 0.8 s (the t = 2 steps are
+# eager, staged through host memory): requests arrive while others decode
+POOL_TP_TRAFFIC = dict(requests=16, seed=5, rate_rps=20.0, tenants=2,
+                       prefix_tokens=48, max_prompt=160, max_new_cap=16,
+                       sample_frac=0.0)
+POOL_TP_CAPPED = 4            # (b): the requests served under the cap
+
+
+def pool_tp_traffic():
+    from flexflow_tpu_torch.serve.traffic import TrafficSpec, make_traffic
+    return make_traffic(TrafficSpec(vocab=LM_ARCH["vocab_size"],
+                                    **POOL_TP_TRAFFIC))
+
+
+def pool_tp_host_lm():
+    """The README LM at full width on the host, f32, for inference, from
+    the port's seeded initializers: tp_lm()'s weights, bit for bit (the
+    initializers draw from numpy)."""
+    from flexflow_tpu_torch import FFConfig, build_transformer_lm
+    from flexflow_tpu_torch.config import CompMode
+    m = build_transformer_lm(FFConfig(batch_size=1, seed=0), batch_size=1,
+                             device="cpu", **LM_ARCH)
+    m.compile(comp_mode=CompMode.INFERENCE)
+    return m
+
+
+def pool_tp_pool(lm, traffic=None):
+    """A pool of POOL_TP_REPLICAS t = 2 replicas over ``lm`` on this
+    rank's card, eager (gloo stages every collective through host
+    memory); serving ``traffic`` on the wall clock when given."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.serve import ReplicaPool
+    pool = ReplicaPool(lm, POOL_TP_REPLICAS, config=FFConfig(
+        serve_spec_decode=False), device="cuda",
+        engine_kwargs=dict(tensor_parallel=TP_DEGREE, capture=False))
+    res = None
+    if traffic is not None:
+        res = pool.run(traffic, sample_seed=0, wall_clock=True)
+    return pool, res
+
+
+def pool_tp_rank_serve():
+    """(a) on one gloo rank: the host LM's t = 2 pool booted (the card's
+    allocated bytes beside each replica's memory ledger), then the
+    stream on the wall clock in lockstep, kernel 1 and the collectives
+    counted from 0 just before it."""
+    from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
+    from flexflow_tpu_torch.parallel import collectives as C
+    lm = pool_tp_host_lm()
+    base = torch.cuda.memory_allocated()
+    pool, _ = pool_tp_pool(lm)
+    torch.cuda.synchronize()
+    res = {"allocated_boot": torch.cuda.memory_allocated() - base,
+           "ledgers": [r.engine.memory_ledger() for r in pool.replicas],
+           "whole_params_bytes": float(sum(
+               t.nbytes for p in lm.state.params.values()
+               for t in p.values())),
+           "degrees": [r.engine.tp for r in pool.replicas],
+           "heads_local": pool.replicas[0].engine.cache_cfg
+           .heads_per_device}
+    traffic = pool_tp_traffic()
+    steps0 = sum(r.steps for r in pool.replicas)
+    pr.launches = 0
+    C.reset_counts()
+    st = pool.run(traffic, sample_seed=0, wall_clock=True)
+    res["launches"] = pr.launches
+    res["collectives"] = dict(C.launches)
+    res["steps"] = sum(r.steps for r in pool.replicas) - steps0
+    pool.assert_zero_recompiles()
+    pool.check_drained()
+    res["records"] = [(r["stream_id"], r["replica"], r["outcome"],
+                       r["tokens"], r["t_arrival"], r["ttft_s"],
+                       r["t_finish"]) for r in st["requests"]]
+    res.update({k: st[k] for k in (
+        "lockstep", "wall_threads", "lockstep_ticks", "lockstep_calls",
+        "lockstep_wall_s", "makespan_s", "goodput_per_s", "completed",
+        "tokens_total")})
+    pool.close()
+    del pool, lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def pool_tp_rank_capped():
+    """(b) on one gloo rank: the host LM's pool boots and serves the
+    stream's first POOL_TP_CAPPED requests uncapped, which sets the cap:
+    the peak bytes allocated (the larger of the two ranks') plus half
+    the whole parameters. Under that cap (``set_per_process_memory_
+    fraction``) the same run must pass, and the same pool over the LM
+    built on the card must run out of memory while it boots (the model
+    alone holds the whole parameters: half more than the cap leaves).
+    Both ranks allocate alike, so both fail at the same allocation."""
+    import torch.distributed as dist
+    traffic = pool_tp_traffic()[:POOL_TP_CAPPED]
+    lm = pool_tp_host_lm()
+    whole = float(sum(t.nbytes for p in lm.state.params.values()
+                      for t in p.values()))
+
+    def host_run():
+        pool, st = pool_tp_pool(lm, traffic)
+        done = st["completed"]
+        pool.close()
+        del pool, st
+        gc.collect()
+        torch.cuda.empty_cache()
+        return done
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_reserved()
+    res = {"uncapped_completed": host_run()}
+    peak = torch.tensor([float(torch.cuda.max_memory_allocated())],
+                        dtype=torch.float64)
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+    res["uncapped_peak"] = float(peak.item())
+    cap = base + res["uncapped_peak"] + 0.5 * whole
+    res["cap_bytes"] = cap
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        res["host_completed"] = host_run()
+        res["host_peak"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res["card_oom"] = None
+        try:
+            card = tp_lm()
+            pool, _ = pool_tp_pool(card)
+            pool.close()
+            del pool
+        except torch.cuda.OutOfMemoryError as e:
+            res["card_oom"] = str(e).splitlines()[0][:160]
+        res["card_peak"] = torch.cuda.max_memory_allocated()
+    finally:
+        card = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    return res
+
+
+def pool_tp_phase(pr, card: str):
+    """The wall-clock pool at t = 2 over a model on the host (see the
+    module docstring): two gloo ranks sharing the card, each booting a
+    pool of two t = 2 replicas from the README LM kept on the host; the
+    one-device captured pool of this process over the same weights is
+    their reference."""
+    import tempfile
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.parallel.launch import RankPool
+    from flexflow_tpu_torch.serve import ReplicaPool
+    t0 = time.perf_counter()
+    res = {"kernel": tp_kernel_check(pr, heads_list=(HEADS // TP_DEGREE,),
+                                     pages=("f32",), tag="pool_tp (c)")}
+    traffic = pool_tp_traffic()
+    lm = tp_lm()
+    one = ReplicaPool(lm, POOL_TP_REPLICAS, config=FFConfig(
+        serve_spec_decode=False), device="cuda")
+    ref = {r["stream_id"]: r["tokens"]
+           for r in one.run(traffic, sample_seed=0)["requests"]}
+    tmp = Path(tempfile.mkdtemp(prefix="ff_pool_tp_"))
+    with RankPool(TP_DEGREE, str(tmp / "init"), backend="gloo",
+                  device="cuda", threads=0, timeout_s=600) as ranks:
+        rs = ranks.run(pool_tp_rank_serve)
+        capped = ranks.run(pool_tp_rank_capped)
+    r0 = rs[0]
+    whole = r0["whole_params_bytes"]
+    L = LM_ARCH["num_layers"]
+    bad = []
+    if any(r["records"] != r0["records"] for r in rs):
+        bad.append("the ranks' records differ")
+    if any(r["degrees"] != [TP_DEGREE] * POOL_TP_REPLICAS for r in rs):
+        bad.append(f"degrees {[r['degrees'] for r in rs]}")
+    if not (r0["lockstep"] and r0["wall_threads"] is False):
+        bad.append("not the lockstep loop")
+    if r0["completed"] != len(traffic):
+        bad.append(f"{r0['completed']}/{len(traffic)} completed")
+    for r in rs:
+        if r["launches"] != L * r["steps"] or not r["launches"]:
+            bad.append(f"kernel 1 launched {r['launches']} times, want "
+                       f"{L} layers x {r['steps']} steps")
+        for led in r["ledgers"]:
+            if led["reference_params_bytes"] != 0.0 \
+                    or abs(led["ledger_vs_live"] - 1.0) > LEDGER_REL:
+                bad.append(f"ledger {led}")
+    by_sid = {t.stream_id: t for t in traffic}
+    sids = [rec[0] for rec in r0["records"]]
+    eng = one.replicas[0].engine
+    exact = eng.assert_token_parity(
+        [by_sid[s].prompt for s in sids], [rec[3] for rec in r0["records"]],
+        [ref[s] for s in sids], margin=PARITY_MARGIN)
+    for r in capped:
+        if r["host_completed"] != POOL_TP_CAPPED \
+                or r["uncapped_completed"] != POOL_TP_CAPPED:
+            bad.append(f"(b) under the cap the host pool completed "
+                       f"{r['host_completed']}/{POOL_TP_CAPPED}")
+        if r["card_oom"] is None:
+            bad.append("(b) the pool over the LM on the card did not run "
+                       "out of memory under the cap")
+    if bad:
+        raise AssertionError(f"pool_tp: {bad}")
+    per = [led["params_bytes"] for led in r0["ledgers"]]
+    ticks = r0["lockstep_ticks"]
+    res.update({
+        "exact_streams": exact, "streams": len(sids),
+        "launches": [r["launches"] for r in rs],
+        "steps": [r["steps"] for r in rs],
+        "heads_local": r0["heads_local"],
+        "params_bytes_per_engine": per, "whole_params_bytes": whole,
+        "params_bytes_before": per[0] + whole,
+        "allocated_boot": [r["allocated_boot"] for r in rs],
+        "ledger_total_bytes": [sum(led["total_bytes"]
+                                   for led in r["ledgers"]) for r in rs],
+        "ledger_live_bytes": [sum(led["live_bytes"]
+                                  for led in r["ledgers"]) for r in rs],
+        "lockstep_ticks": ticks,
+        "lockstep_calls_per_tick": r0["lockstep_calls"] / ticks,
+        "lockstep_ms_per_call": [1e3 * r["lockstep_wall_s"]
+                                 / r["lockstep_calls"] for r in rs],
+        "makespan_s": r0["makespan_s"], "goodput_per_s": r0["goodput_per_s"],
+        "tokens_total": r0["tokens_total"],
+        "collectives_per_step": {k: v / r0["steps"] for k, v in
+                                 r0["collectives"].items() if v},
+        "capped": capped})
+    log(f"pool_tp (a) t={TP_DEGREE} pool of {POOL_TP_REPLICAS} replicas "
+        f"over the LM on the host, wall clock in lockstep, two gloo ranks "
+        f"sharing the card [{card}]: {exact}/{len(sids)} streams "
+        f"token-identical to the one-device captured pool (the rest "
+        f"diverge at a tie <= {PARITY_MARGIN}); records equal on both "
+        f"ranks; kernel 1 launches a rank {res['launches']} on "
+        f"{r0['heads_local']} heads (= {L} layers x steps {res['steps']}); "
+        f"lockstep {ticks} ticks, "
+        f"{res['lockstep_calls_per_tick']:.2f} calls a tick, "
+        f"{[round(x, 4) for x in res['lockstep_ms_per_call']]} ms a call "
+        f"(the wait for the other rank included); makespan "
+        f"{r0['makespan_s']:.3f} s, goodput {r0['goodput_per_s']:.3f} "
+        f"requests/s, {r0['tokens_total']} tokens (two gloo ranks share "
+        f"one card and stage through the host: no speed)")
+    log(f"pool_tp (b) a rank's parameter bytes an engine "
+        f"{[int(x) for x in per]} of {int(whole)} whole (before: the "
+        f"shards beside the whole, {int(per[0] + whole)}); the card's "
+        f"allocated bytes after boot {res['allocated_boot']} beside the "
+        f"ledgers' live {[int(x) for x in res['ledger_live_bytes']]} and "
+        f"total {[int(x) for x in res['ledger_total_bytes']]}; the host "
+        f"pool's first {POOL_TP_CAPPED} requests uncapped peak at "
+        f"{int(capped[0]['uncapped_peak'])} bytes allocated; capped at "
+        f"{[int(r['cap_bytes']) for r in capped]} (that peak + half the "
+        f"whole parameters): the host pool served "
+        f"{[r['host_completed'] for r in capped]} requests, peak "
+        f"{[r['host_peak'] for r in capped]}; the pool over the LM on the "
+        f"card ran out of memory booting (peak "
+        f"{[r['card_peak'] for r in capped]}): "
+        f"{[r['card_oom'] for r in capped]}")
+    one.close()
+    del one, lm, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"pool_tp phase: {res['phase_s']:.1f} s")
     return res
 
 
@@ -6820,6 +7107,9 @@ def main() -> int:
         log(json.dumps({"tp_serve": tp_serve_phase(pr, card)},
                        default=str))
         return 0
+    if "--only-pool-tp" in sys.argv[1:]:
+        log(json.dumps({"pool_tp": pool_tp_phase(pr, card)}, default=str))
+        return 0
     if "--only-sp" in sys.argv[1:]:
         log(json.dumps({"sp": sp_phase(fa, card)}, default=str))
         return 0
@@ -6863,6 +7153,9 @@ def main() -> int:
     tpres = tp_serve_phase(pr, card)
     gc.collect()
     torch.cuda.empty_cache()
+    ptres = pool_tp_phase(pr, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     spres = sp_phase(fa, card)
     gc.collect()
     torch.cuda.empty_cache()
@@ -6896,6 +7189,10 @@ def main() -> int:
         "tp_launches": {"f32": tpres["f32"]["launches"],
                         "int8": tpres["int8"]["launches"],
                         "cluster": tpres["handoff"]["cluster_launches"]},
+        # pool_tp_phase (a): a rank's launches in the t = 2 pool over the
+        # LM on the host, on the wall clock in lockstep; (c) its shape
+        "pool_tp_launches": ptres["launches"],
+        "pool_tp_heads": ptres["kernel"],
         **head(kres),
         "bf16": kres["bf16"], "int8": kres["int8"], "fp8": kres["fp8"],
         "tp_heads": tpres["kernel"]}, {
@@ -7096,6 +7393,7 @@ def main() -> int:
     log(json.dumps({"search": searchres}, default=str))
     log(json.dumps({"mesh": meshres}, default=str))
     log(json.dumps({"tp_serve": tpres}, default=str))
+    log(json.dumps({"pool_tp": ptres}, default=str))
     log(json.dumps({"sp": {k: v for k, v in spres.items()
                            if k != "kernels"}}, default=str))
     log(json.dumps({"pp": {k: v for k, v in ppres.items()

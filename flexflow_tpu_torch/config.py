@@ -19,8 +19,16 @@ exports, gradient buckets, pipelines, fusion, the mesh description,
 ZeRO-1). A mesh of several devices executes on a process group of its
 size (parallel/mesh.py), pipelines included (``pipeline_stages > 1``
 needs a mesh axis of the stage count, or ``FFModel.compile`` raises
-JAX's ``ValueError``). The rest of the JAX config has no counterpart
-yet.
+JAX's ``ValueError``).
+
+The command line is JAX's: ``FFConfig(argv=...)`` and
+:meth:`FFConfig.from_args` parse the reference's flags through JAX's
+three tables (``_FLAG_MAP``, ``_BOOL_FLAGS``, ``_NEG_BOOL_FLAGS``) and
+``--seq-length``, each flag setting the field of the same name; flags
+no table names are left alone, so a script's own flags pass through.
+``python -m flexflow_tpu_torch`` (``__main__.py``) runs a script with
+them. JAX's ``multi_step_unroll`` has no counterpart (the port has no
+scan whose carry could double).
 
 Device policy: every entry point runs on the card unless the caller
 asks for the CPU. There is no fallback — :func:`resolve_device` raises
@@ -30,6 +38,8 @@ when CUDA is asked for and missing.
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 from typing import Optional, Sequence, Union
 
 import torch
@@ -51,6 +61,14 @@ class CompMode:
     INFERENCE = "inference"
 
 
+def _int_or_auto(v) -> Union[int, str]:
+    """--serve-replicas value parser: an explicit replica count, or
+    'auto' to resolve the pool shape through the 2-D serve-mesh search
+    (search/serve_place.optimize_serve_mesh)."""
+    s = str(v).strip()
+    return "auto" if s == "auto" else int(s)
+
+
 @dataclasses.dataclass
 class FFIterationConfig:
     """Per-iteration runtime config: ``seq_length`` >= 0 masks the
@@ -63,10 +81,15 @@ class FFIterationConfig:
 class FFConfig:
     """The serving and training knobs of ``flexflow_tpu.config.FFConfig``."""
 
-    # training (model.py fit/compile, core/executor.py init_state)
+    # training (model.py fit/compile, core/executor.py init_state).
+    # iterations and weight_decay are the reference's fields, kept with
+    # JAX's defaults for the scripts that read them: nothing in either
+    # package does (an optimizer takes its own weight_decay)
     batch_size: int = 64
     epochs: int = 1
+    iterations: int = 1
     learning_rate: float = 0.01
+    weight_decay: float = 0.0001
     seed: int = 0
     # master dtype of float parameters and optimizer state (the
     # mixed-precision policy, core/precision.py)
@@ -112,6 +135,12 @@ class FFConfig:
     # speculative decoding (serve/speculative.py)
     serve_spec_decode: bool = True
     serve_spec_tokens: int = 4
+
+    # the JAX package's AOT program cache directory (--program-cache-
+    # dir): parsed and kept, and ignored by the port, which has no AOT
+    # cache (a CUDA graph cannot be serialized; each process captures
+    # its own steps)
+    program_cache_dir: Optional[str] = None
 
     # tuning knob of the ragged paged-attention kernel: KV tokens per
     # work item in the JAX package, any value >= 0; the port maps it
@@ -159,9 +188,10 @@ class FFConfig:
     # to serve_autoscale_max replicas (0 = 2x serve_replicas).
     # serve_replicas="auto" boots the (tensor, replicas) shape of the
     # 2-D mesh search. serve_wall_clock runs the pool in real time,
-    # each replica on its own worker thread (not with the autoscaler,
-    # which replays on the virtual clock, nor at a tensor degree above
-    # 1, ROADMAP item 2.8)
+    # each replica on its own worker thread, or at a tensor degree
+    # above 1 every replica from one thread in lockstep on rank 0's
+    # clock (not with the autoscaler, which replays on the virtual
+    # clock)
     serve_replicas: Union[int, str] = 1
     router_policy: str = "affinity"
     slo_ttft_ms: float = 0.0
@@ -202,6 +232,13 @@ class FFConfig:
     serve_request_deadline: float = 0.0
     serve_max_retries: int = 3
     serve_retry_backoff_s: float = 0.02
+
+    # the reference's debugging switches and synthetic input (config.h:
+    # 131), kept with JAX's defaults for the scripts that read them;
+    # nothing in either package does
+    profiling: bool = False
+    log_instance_creation: bool = False
+    synthetic_input: bool = False
 
     # observability (utils/telemetry.py): telemetry turns the event bus
     # on; trace_out (a Chrome trace written after every generate() and
@@ -300,9 +337,201 @@ class FFConfig:
     mesh_axes: Optional[Sequence[str]] = None
     iter_config: FFIterationConfig = dataclasses.field(
         default_factory=FFIterationConfig)
+    # flags to parse at construction (parse_args); None leaves the
+    # process's argv alone, as a library must. A training or serving
+    # script calls FFConfig.from_args(). Consumed there (reset to None),
+    # so that a dataclasses.replace of the config (a serving role's, a
+    # replica's) does not parse the flags again over the fields it
+    # replaces
+    argv: Optional[Sequence[str]] = None
 
     def __post_init__(self):
+        if self.argv is not None:
+            self.parse_args(self.argv)
+            self.argv = None
         self.validate()
+
+    @classmethod
+    def from_args(cls, argv: Optional[Sequence[str]] = None
+                  ) -> "FFConfig":
+        """The config of a training or serving script: its command
+        line parsed (``sys.argv[1:]`` unless ``argv`` is given)."""
+        return cls(argv=list(sys.argv[1:]) if argv is None
+                   else list(argv))
+
+    # the reference's flags (FFConfig::parse_args, model.cc:2258-2379)
+    # and the JAX package's, JAX's three tables: flag -> (field, type)
+    _FLAG_MAP = {
+        "-b": ("batch_size", int),
+        "--batch-size": ("batch_size", int),
+        "-e": ("epochs", int),
+        "--epochs": ("epochs", int),
+        "--iterations": ("iterations", int),
+        "-lr": ("learning_rate", float),
+        "--learning-rate": ("learning_rate", float),
+        "-wd": ("weight_decay", float),
+        "--weight-decay": ("weight_decay", float),
+        "--search-budget": ("search_budget", int),
+        "--budget": ("search_budget", int),
+        "--search-alpha": ("search_alpha", float),
+        "--alpha": ("search_alpha", float),
+        "--search-chains": ("search_chains", int),
+        "--cost-cache": ("cost_cache_file", str),
+        "--import": ("import_strategy_file", str),
+        "--import-strategy": ("import_strategy_file", str),
+        "--export": ("export_strategy_file", str),
+        "--export-strategy": ("export_strategy_file", str),
+        "--machine-model-file": ("machine_model_file", str),
+        "--taskgraph": ("taskgraph_file", str),
+        "--seed": ("seed", int),
+        "--grad-bucket-mb": ("grad_bucket_mb", float),
+        "--train-dispatch-depth": ("train_dispatch_depth", int),
+        "--compute-dtype": ("compute_dtype", str),
+        "--param-dtype": ("param_dtype", str),
+        "--conv-layout": ("conv_layout", str),
+        "--measure-ops": ("measure_top_ops", int),
+        "--moe-dispatch": ("moe_dispatch", str),
+        "--sp-attention": ("sp_attention", str),
+        "--pipeline-stages": ("pipeline_stages", int),
+        "--pipeline-microbatches": ("pipeline_microbatches", int),
+        "--pipeline-schedule": ("pipeline_schedule", str),
+        "--pipeline-virtual-stages": ("pipeline_virtual_stages", int),
+        "--kv-page-size": ("kv_page_size", int),
+        "--kv-num-pages": ("kv_num_pages", int),
+        "--kv-dtype": ("kv_dtype", str),
+        "--kv-pool-mb": ("kv_pool_mb", float),
+        "--host-tier-mb": ("host_tier_mb", float),
+        "--program-cache-dir": ("program_cache_dir", str),
+        "--serve-attn-block-kv": ("serve_attn_block_kv", int),
+        "--serve-max-seqs": ("serve_max_seqs", int),
+        "--serve-prefill-budget": ("serve_prefill_budget", int),
+        "--adapter-rank": ("adapter_rank", int),
+        "--adapter-pool-mb": ("adapter_pool_mb", float),
+        "--tenant-adapters": ("tenant_adapters", int),
+        "--serve-admit-watermark": ("serve_admit_watermark", float),
+        "--spec-tokens": ("serve_spec_tokens", int),
+        "--fault-spec": ("fault_spec", str),
+        "--request-deadline": ("serve_request_deadline", float),
+        "--serve-max-retries": ("serve_max_retries", int),
+        "--serve-retry-backoff": ("serve_retry_backoff_s", float),
+        "--serve-reject-stalls": ("serve_reject_stalls", int),
+        "--serve-mesh": ("serve_mesh", str),
+        "--serve-disagg-ratio": ("serve_disagg_ratio", str),
+        "--serve-disagg-decode-budget": ("serve_disagg_decode_budget",
+                                         int),
+        "--serve-replicas": ("serve_replicas", _int_or_auto),
+        "--router-policy": ("router_policy", str),
+        "--slo-ttft-ms": ("slo_ttft_ms", float),
+        "--slo-tpot-ms": ("slo_tpot_ms", float),
+        "--autoscale-max": ("serve_autoscale_max", int),
+        "--transport": ("serve_transport", str),
+        "--transport-host": ("serve_transport_host", str),
+        "--transport-port": ("serve_transport_port", int),
+        "--trace-out": ("trace_out", str),
+        "--trace-dir": ("trace_dir", str),
+        "--telemetry-buffer": ("telemetry_buffer_events", int),
+        "--drift-threshold": ("telemetry_drift_threshold", float),
+        "--metrics-port": ("metrics_port", int),
+        "--metrics-host": ("metrics_host", str),
+        "--schedule-trace": ("schedule_trace_file", str),
+        "--postmortem-dir": ("postmortem_dir", str),
+        "--postmortem-events": ("postmortem_events", int),
+        "--slo-error-budget": ("slo_error_budget", float),
+    }
+    # flag -> field set True
+    _BOOL_FLAGS = {
+        "--profiling": "profiling",
+        "--fusion": "perform_fusion",
+        "--remat": "remat",
+        "--overlap": "search_overlap_backward_sync",
+        "--enable-parameter-parallel": "enable_parameter_parallel",
+        "--enable-attribute-parallel": "enable_attribute_parallel",
+        "--enable-sample-parallel": "enable_sample_parallel",
+        "--enable-sequence-parallel": "enable_sequence_parallel",
+        "--enable-expert-parallel": "enable_expert_parallel",
+        "--enable-pipeline-parallel": "enable_pipeline_parallel",
+        "--enable-propagation": "enable_propagation",
+        "--search-mesh-shapes": "search_mesh_shapes",
+        "--enable-device-placement": "enable_device_placement",
+        "--zero": "zero_optimizer_sharding",
+        "--synthetic-input": "synthetic_input",
+        "--sparse-embedding-lazy": "sparse_embedding_lazy",
+        "--telemetry": "telemetry",
+        "--serve-disagg": "serve_disagg",
+        "--autoscale": "serve_autoscale",
+        "--wall-clock": "serve_wall_clock",
+    }
+    # flag -> field set False
+    _NEG_BOOL_FLAGS = {
+        "--no-overlap-sync": "search_overlap_backward_sync",
+        "--no-sparse-embedding": "sparse_embedding_updates",
+        "--no-sibling-conv-fusion": "sibling_conv_fusion",
+        "--no-delta-sim": "search_delta_sim",
+        "--no-cost-cache": "search_cost_cache",
+        "--no-chunked-prefill": "serve_chunked_prefill",
+        "--no-prefix-cache": "serve_prefix_cache",
+        "--no-host-tier": "serve_host_tier",
+        "--no-spec-decode": "serve_spec_decode",
+        "--no-degrade-ladder": "serve_degrade_ladder",
+        "--no-search-trace": "search_trace",
+        "--no-slo-monitor": "slo_monitor",
+    }
+
+    def parse_args(self, argv: Sequence[str]) -> None:
+        """Set the fields the flags of ``argv`` name (JAX's tables and
+        ``--seq-length``); any other argument is skipped, as in JAX. A
+        value flag at the end of ``argv``, with no value, is skipped
+        too. Call :meth:`validate` after a direct call; construction
+        does."""
+        i = 0
+        argv = list(argv)
+        while i < len(argv):
+            a = argv[i]
+            if a in self._FLAG_MAP and i + 1 < len(argv):
+                field, typ = self._FLAG_MAP[a]
+                setattr(self, field, typ(argv[i + 1]))
+                i += 2
+                continue
+            if a in self._BOOL_FLAGS:
+                setattr(self, self._BOOL_FLAGS[a], True)
+                i += 1
+                continue
+            if a in self._NEG_BOOL_FLAGS:
+                setattr(self, self._NEG_BOOL_FLAGS[a], False)
+                i += 1
+                continue
+            if a == "--seq-length" and i + 1 < len(argv):
+                self.iter_config.seq_length = int(argv[i + 1])
+                i += 2
+                continue
+            i += 1
+
+    # -- the job's devices, read where parallel/mesh.serve_devices reads
+    @property
+    def num_devices(self) -> int:
+        """The job's devices: the running process group's world size
+        (one card, or one CPU process, a rank), else the visible cards
+        (at least 1)."""
+        from .parallel.mesh import serve_devices
+        return serve_devices()
+
+    @property
+    def workers_per_node(self) -> int:
+        """The devices of this node: in a process group its ranks on
+        this node (torchrun's ``LOCAL_WORLD_SIZE``; every rank when it
+        is unset, ranks launched on one machine), else the visible
+        cards (at least 1)."""
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            world = int(dist.get_world_size())
+            return max(1, min(world, int(os.environ.get(
+                "LOCAL_WORLD_SIZE", world))))
+        return max(1, torch.cuda.device_count())
+
+    @property
+    def num_nodes(self) -> int:
+        """The job's nodes: its devices over the devices of a node."""
+        return max(1, self.num_devices // self.workers_per_node)
 
     def validate(self) -> None:
         """Normalize the precision policy to torch dtypes (names such

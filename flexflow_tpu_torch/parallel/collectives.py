@@ -87,7 +87,8 @@ carries the one decision that reads a clock (see its docstring).
 from __future__ import annotations
 
 import hashlib
-from typing import Any, List, Optional, Sequence
+import time
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -518,6 +519,14 @@ class Lockstep:
     when some rank has items, an object all-gather of them (a pickled
     list of small ints a rank; torch runs it as two all-gathers).
 
+    :meth:`lead` runs at each tick of the wall-clock replica pool
+    (serve/router.py): every rank sends a digest of the pool's host
+    state and its own decision (arrivals now due, the replica to step,
+    the stamps of its clock); a digest that differs raises as above,
+    and rank 0's decision comes back on every rank, so that the ranks
+    submit, route and step alike on rank 0's clock. Cost: one
+    all-gather of 1 + n int64 words a rank for a decision of n numbers.
+
     So a step costs 2 all-gathers of 16 bytes a rank, and one object
     all-gather more when an abort is pending. The words travel in host
     memory on every backend, over the axis's gloo group
@@ -526,22 +535,30 @@ class Lockstep:
     waits for it: a captured step's replay is not held up by a device
     sync. The host does wait for the other ranks' words, so a step
     starts no earlier than the slowest rank's packing. Each call counts
-    once in ``launches["lockstep"]``. Nothing here reads a clock, and
-    retries and stall counts are functions of the step sequence (the
-    fault injector fires by count), so honest ranks agree."""
+    once in ``launches["lockstep"]``, and in ``calls`` and ``wall_s``
+    (its wall seconds, the wait for the other ranks included) of this
+    guard. No decision here reads a clock (:meth:`lead` carries the
+    one its callers read on rank 0), and retries and stall counts are
+    functions of the step sequence (the fault injector fires by count),
+    so honest ranks agree."""
 
     def __init__(self, bm, axis: str):
         self.bm, self.axis = bm, axis
         _, self.size = _group(bm, axis)
         self.group = bm.host_groups.get(axis) if bm is not None else None
         self.checks = 0
+        self.calls = 0
+        self.wall_s = 0.0
 
     def _words(self, words: Sequence[int]) -> np.ndarray:
         import torch.distributed as dist
         count_launch(launches, "lockstep")
+        t0 = time.perf_counter()
         t = torch.tensor([int(w) for w in words], dtype=torch.int64)
         out = torch.empty((self.size * t.numel(),), dtype=t.dtype)
         dist.all_gather_into_tensor(out, t, group=self.group)
+        self.calls += 1
+        self.wall_s += time.perf_counter() - t0
         return out.numpy().reshape(self.size, -1)
 
     def _compare(self, what: str, rows: np.ndarray) -> None:
@@ -580,9 +597,29 @@ class Lockstep:
         if not rows[:, 1].any():
             return [[] for _ in range(self.size)]
         count_launch(launches, "lockstep")
+        t0 = time.perf_counter()
         out: List[Any] = [None] * self.size
         dist.all_gather_object(out, items, group=self.group)
+        self.calls += 1
+        self.wall_s += time.perf_counter() - t0
         return out
+
+    def lead(self, what: str, state: int,
+             decision: Sequence[float]) -> Tuple[float, ...]:
+        """Rank 0's ``decision`` on every rank, after checking that
+        every rank's ``state`` digest is the same. Each rank passes its
+        own decision, a sequence of numbers of one length on every rank
+        (what its own clock would decide), and takes rank 0's; each
+        number travels as the bits of a float64, so integers below 2**53
+        come back exact."""
+        mine = np.asarray([float(v) for v in decision], np.float64)
+        if self.group is None:
+            return tuple(float(v) for v in mine)
+        self.checks += 1
+        rows = self._words([state, *mine.view(np.int64).tolist()])
+        self._compare(what, rows[:, :1])
+        return tuple(float(v) for v in
+                     np.ascontiguousarray(rows[0, 1:]).view(np.float64))
 
 
 def barrier(bm=None) -> None:

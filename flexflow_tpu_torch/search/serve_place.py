@@ -195,8 +195,10 @@ def optimize_serve(arch: ServeArch, num_devices: int, *,
 
     ``resident_bytes`` (the port's, not JAX's; default 0 prices as
     JAX does): bytes every degree above 1 holds on each device beside
-    its shards — the serving engine keeps the model's whole parameters
-    on the card at t > 1 — added to the memory penalty's input."""
+    its shards — the model's own parameters when it lives on the card
+    (``serve.engine.card_param_bytes``), 0 for a model kept on the
+    host, which prices exactly as JAX does — added to the memory
+    penalty's input."""
     if disaggregated:
         return optimize_serve_disagg(arch, num_devices, mm=mm,
                                      config=config, seed=seed)

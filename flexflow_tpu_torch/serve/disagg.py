@@ -231,7 +231,9 @@ class DisaggCluster:
             # each role: the chunked mixed step at its own budget, the
             # prefix cache the handoff lands in, and no scrape endpoint
             # (the cluster owns the one /metrics); the engines share
-            # the model's parameter tensors
+            # the model's parameter tensors where the model lives on
+            # the card, and copy what their steps read from a model on
+            # the host (their shards at t > 1)
             role_cfg = dataclasses.replace(
                 cfg, serve_prefill_budget=int(budget),
                 serve_chunked_prefill=True, serve_prefix_cache=True,

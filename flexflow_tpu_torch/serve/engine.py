@@ -90,7 +90,9 @@ prefix cache, page tables, sampling — and only the mixed step is
 sharded: each rank holds H/t heads of every attention layer and of the
 page pool, a column block of ff1, a row block of ff2 and a vocab block
 of the embedding and the head (``_shard_params``, taken once at
-construction as JAX's are), and runs kernel 1 on its heads; each layer
+construction as JAX's are, from a model on the card or on the host: a
+model on the host leaves only its shards on each card), and runs
+kernel 1 on its heads; each layer
 all-reduces after wo and before ff2's bias, the embedding once (exact)
 and the logits are all-gathered, so every rank samples the same tokens
 (``models/transformer.ShardedLM``). Before every sharded step the ranks
@@ -190,21 +192,48 @@ _PAD_LOGIT_BIAS = -1e30
 _ADAPTER_SPLIT = {"b_qkv": 3, "a_wo": 1, "b_ff1": 2, "a_ff2": 1}
 
 
+def _on_card(t: torch.Tensor, device: torch.device) -> bool:
+    """Whether ``t`` lives on the engine's ``device``, where a step may
+    read it in place. A tensor anywhere else (a model kept on the host)
+    reaches the device only as the copies a step or a reference path
+    reads."""
+    return t.device == device
+
+
+def card_param_bytes(model, device) -> float:
+    """The bytes of ``model``'s own parameters that live on ``device``:
+    what an engine of degree t > 1 over the model holds on its card
+    beside its shards, which the ``"auto"`` searches price at every
+    degree above 1 (``resident_bytes``). 0 for a model kept on the
+    host."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return float(sum(t.nbytes for ws in model.state.params.values()
+                     for t in ws.values() if _on_card(t, dev)))
+
+
 def _serving_params(model):
     """The LM's whole parameter tensors: the model's live ones, except
     where an executing mesh splits a weight (attention ``head``, Linear
     ``channel_out``, Embedding ``vocab`` blocks): those are gathered from
-    the ranks' blocks (every rank builds the engine; copies, taken once
-    at construction). A data mesh's parameters are replicated and stay
-    live references."""
+    the ranks' blocks to the host (every rank builds the engine; copies,
+    taken once at construction), so no rank's card holds a whole copy
+    beside the model's blocks. A data mesh's parameters are replicated
+    and stay live references."""
     ex = getattr(model, "executor", None)
     bm = getattr(ex, "bm", None)
     params = model.state.params
     if bm is None:
         return params
     from ..parallel.sharding import gather
+
+    def whole(v, spec):
+        g = gather(v, spec, bm)
+        return g if g is v else g.cpu()
+
     with torch.no_grad():
-        return {op: {k: gather(v, ex._wstore[op][k], bm)
+        return {op: {k: whole(v, ex._wstore[op][k])
                      for k, v in ws.items()}
                 for op, ws in params.items()}
 
@@ -214,10 +243,15 @@ class ServeEngine:
     :func:`~flexflow_tpu_torch.build_transformer_lm`.
 
     Serving knobs come from ``config`` (an FFConfig; the model's when
-    None). Runs on the card unless ``device="cpu"``; the model must
-    live on the same device. ``capture=False`` runs every step eagerly
-    instead of replaying its captured CUDA graph (the reference runs of
-    the tests and the smoke; the tokens are the same). ``faults`` and
+    None). Runs on the card unless ``device="cpu"``. The model lives on
+    the same device, or on the host, the way to serve a model larger
+    than one card: the engine then copies to its device only what its
+    step reads (a rank's shards at t > 1, the whole parameters once at
+    t = 1), and the reference paths copy the whole parameters for the
+    call only (:meth:`generate_reference`). ``capture=False`` runs every
+    step eagerly instead of replaying its captured CUDA graph (the
+    reference runs of the tests and the smoke; the tokens are the
+    same). ``faults`` and
     ``telemetry`` override the injector and the telemetry bus the
     config resolves (``fault_spec``; ``telemetry``, ``trace_out``,
     ``metrics_port``, ``postmortem_dir``), as the JAX engine's do;
@@ -245,10 +279,11 @@ class ServeEngine:
                  host_tier: Optional[HostPageStore] = None,
                  tensor_parallel: Optional[int] = None, mesh=None):
         self.device = resolve_device(device)
-        if model.device != self.device:
+        if model.device != self.device and model.device.type != "cpu":
             raise ValueError(
                 f"model lives on {model.device}, engine asked for "
-                f"{self.device}")
+                f"{self.device} (a model on the host serves from any "
+                f"device)")
         # the engine's own CUDA stream: the wall-clock replica pool
         # steps each replica on its worker thread under on_stream(), so
         # replicas overlap on the card instead of serializing on the
@@ -260,8 +295,9 @@ class ServeEngine:
             model.compile(comp_mode=CompMode.INFERENCE)
         self.model = model
         # the block math over the model's parameter tensors: its live
-        # ones, or the whole tensors gathered from an executing mesh's
-        # blocks (_serving_params)
+        # ones, or the whole tensors gathered to the host from an
+        # executing mesh's blocks (_serving_params); on the card or on
+        # the host. The reference paths run it (_reference_lm)
         self.params = _serving_params(model)
         self.lm = TransformerLM(arch, self.params)
         self.config = cfg = config if config is not None else model.config
@@ -419,12 +455,15 @@ class ServeEngine:
             self.buckets.append(b)
             b *= 2
         self.buckets.append(cap)
-        # the mixed step's parameters and block math: the model's on one
-        # device; at t > 1 the rank's shards (copies taken here, as the
-        # JAX engine's _shard_params does at construction: a model
-        # trained after this is served at t > 1 by a new engine), while
-        # self.lm keeps serving the one-device reference paths
-        # (generate_reference, the tie rule's margin forward)
+        # the mixed step's parameters and block math: at t > 1 the
+        # rank's shards, cut from the whole tensors (on the host or the
+        # card) and copied to the device (taken here, as the JAX
+        # engine's _shard_params does at construction: a model trained
+        # after this is served at t > 1 by a new engine); at t = 1 the
+        # whole tensors, copied to the device once where they are not
+        # there (a model on the card is served from its live tensors).
+        # self.lm runs the one-device reference paths (generate_
+        # reference, the tie rule's margin forward)
         self._lockstep = None
         if self.tp > 1:
             from ..models.transformer import ShardedLM
@@ -435,8 +474,10 @@ class ServeEngine:
                                      TENSOR)
             self._lockstep = Lockstep(self.bm, TENSOR)
         else:
-            self._step_params = self.params
-            self.step_lm = self.lm
+            self._step_params = self._on_device(self.params)
+            self.step_lm = self.lm \
+                if self._step_params is self.params \
+                else TransformerLM(arch, self._step_params)
         # at most ONE live ServeSession owns the scheduler/slots
         self._session: Optional["ServeSession"] = None
         self.boot_stats: Optional[dict] = None
@@ -523,10 +564,14 @@ class ServeEngine:
             if sm == "auto":
                 from ..search.serve_place import optimize_serve
                 arch = self.serve_arch()
-                # a degree above 1 keeps the whole parameters beside
-                # its shards (self.params): the memory penalty sees them
-                place = optimize_serve(arch, serve_devices(), config=cfg,
-                                       resident_bytes=arch.weight_bytes())
+                # a degree above 1 holds the model's own parameters on
+                # its card beside its shards when the model lives there
+                # (none of a model on the host): the memory penalty sees
+                # them
+                place = optimize_serve(
+                    arch, serve_devices(), config=cfg,
+                    resident_bytes=card_param_bytes(self.model,
+                                                    self.device))
                 self.serve_placement = place
                 tensor_parallel = place.tensor_parallel
             elif sm:
@@ -566,8 +611,9 @@ class ServeEngine:
 
     def _shard_params(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """This rank's blocks of the LM parameters (JAX's
-        ``_shard_params``, whose PartitionSpecs each line names), as
-        copies on the engine's device:
+        ``_shard_params``, whose PartitionSpecs each line names), cut
+        from the whole tensors where they live (the host or the card)
+        and copied to the engine's device:
 
           wq/wk/wv (E, H, D)  -> heads column-parallel
           wo       (H, D, E)  -> heads row-parallel (all-reduce after)
@@ -617,8 +663,8 @@ class ServeEngine:
                     a = block(pad_to(a, 1, vp), 1)
                 elif name == "lm_head" and key == "bias":
                     a = block(pad_to(a, 0, vp, _PAD_LOGIT_BIAS), 0)
-                o[key] = a.to(self.device).clone(
-                    memory_format=torch.contiguous_format)
+                o[key] = a.to(self.device, copy=True,
+                              memory_format=torch.contiguous_format)
             if name == "lm_head" and "bias" not in p \
                     and vp > self.vocab_size:
                 # padded vocab columns must never win argmax: make up a
@@ -629,6 +675,46 @@ class ServeEngine:
                 o["bias"] = block(b, 0).clone()
             out[name] = o
         return out
+
+    def _on_device(self, params):
+        """``params`` with every tensor that is not on the engine's
+        device copied there (the same dict where all are)."""
+        if all(_on_card(t, self.device) for p in params.values()
+               for t in p.values()):
+            return params
+        with torch.no_grad():
+            return {op: {k: t if _on_card(t, self.device) else
+                         t.detach().to(self.device, copy=True)
+                         for k, t in p.items()}
+                    for op, p in params.items()}
+
+    @contextlib.contextmanager
+    def _reference_lm(self):
+        """The one-device LM the reference paths run, on the device:
+        ``self.lm`` where its parameters are there (a model on the card,
+        or at t = 1 the step's own copy of them), else a copy of its
+        parameters on the device for the call only, freed on exit. The
+        reference's GEMMs run on the card either way, so the tie rule's
+        margins are the same; a copy that does not fit raises the
+        device's out-of-memory error."""
+        lm = self.lm
+        if self.tp == 1 and lm.params is self.params:
+            lm = self.step_lm
+        params = self._on_device(lm.params)
+        yield lm if params is lm.params else TransformerLM(lm.arch, params)
+        del params
+
+    def _card_model_params(self) -> List[torch.Tensor]:
+        """The model's own parameter tensors on the engine's device
+        that the step does not read: what the card holds beside the
+        step's parameters (at t > 1 the model's tensors when it lives
+        on the card; none of a model on the host, nor at t = 1 where
+        the step reads the model's live tensors)."""
+        step = {id(t) for p in self._step_params.values()
+                for t in p.values()}
+        return [t for p in self.model.state.params.values()
+                for t in p.values()
+                if _on_card(t, self.device) and id(t) not in step]
 
     def _sharding_stats(self) -> Optional[dict]:
         """The last_stats/serve_report sharding block (JAX's): mesh
@@ -1315,7 +1401,7 @@ class ServeEngine:
         attended: position i sees keys 0..i). Non-decoding lanes compute
         garbage the host never reads. Returns (greedy, topv, topi) as
         :meth:`_greedy_topk`."""
-        m = self.lm
+        m = self.step_lm
         kp, vp = self._device_pages()
         x = m.embed(tokens, positions)                      # (B, E)
         scale = 1.0 / math.sqrt(self.head_dim)
@@ -1432,11 +1518,12 @@ class ServeEngine:
         return self._forward_tokens(tokens[None, :], length, kv=pt_row)
 
     @torch.no_grad()
-    def _forward_tokens(self, tokens, length, kv=None):
+    def _forward_tokens(self, tokens, length, kv=None, lm=None):
         """Logits (vocab,) at position length-1 of the causal forward
         over (1, S) tokens (positions >= length are padding and never
         seen by position length-1); ``length`` an int or a (1,) int
-        tensor on the tokens' device. ``kv = pt_row`` (the sequence's
+        tensor on the tokens' device; ``lm`` the block math (the
+        step's at t = 1 when None). ``kv = pt_row`` (the sequence's
         (pages_per_seq,) page-table row) also scatters each layer's K/V
         of every position into the sequence's pages on the way through
         (the legacy prefill; padded positions land past the mapped range
@@ -1453,15 +1540,17 @@ class ServeEngine:
 
             def on_kv(i, k, v):
                 self._write_kv(i, where, k[0], v[0])
-        x = self.lm.hidden_states(tokens, on_kv=on_kv)
+        lm = self.step_lm if lm is None else lm
+        x = lm.hidden_states(tokens, on_kv=on_kv)
         last = torch.as_tensor(length, device=x.device).long().reshape(1)
         # a gather, not x[0, length - 1]: the row stays a device value
-        return self.lm.head(x[0].index_select(0, last - 1))[0]
+        return lm.head(x[0].index_select(0, last - 1))[0]
 
-    def _context_logits(self, ctx: Sequence[int]) -> np.ndarray:
+    def _context_logits(self, ctx: Sequence[int], lm) -> np.ndarray:
         toks = torch.tensor([list(ctx)], dtype=torch.int64,
                             device=self.device)
-        return self._forward_tokens(toks, len(ctx)).float().cpu().numpy()
+        return self._forward_tokens(toks, len(ctx),
+                                    lm=lm).float().cpu().numpy()
 
     @staticmethod
     def first_divergence(a, b) -> Optional[int]:
@@ -1492,16 +1581,22 @@ class ServeEngine:
         if margin is None:
             margin = self.kv_tie_margin
         exact = 0
+        diverged = []
         for pr, o, r in zip(prompts, out, ref):
             j = self.first_divergence(o, r)
             if j is None:
                 exact += 1
-                continue
-            logits = self._context_logits(list(pr) + list(r[:j]))
-            gap = float(logits[r[j]] - logits[o[j]])
-            assert 0.0 <= gap <= margin, (
-                f"flipped a non-tie token — reference margin "
-                f"{gap:.6g} > {margin} at position {j}")
+            else:
+                diverged.append((pr, o, r, j))
+        if not diverged:
+            return exact
+        with self._reference_lm() as lm:
+            for pr, o, r, j in diverged:
+                logits = self._context_logits(list(pr) + list(r[:j]), lm)
+                gap = float(logits[r[j]] - logits[o[j]])
+                assert 0.0 <= gap <= margin, (
+                    f"flipped a non-tie token — reference margin "
+                    f"{gap:.6g} > {margin} at position {j}")
         return exact
 
     def generate_reference(self, prompts: Sequence[Sequence[int]],
@@ -1510,26 +1605,30 @@ class ServeEngine:
                            ) -> List[List[int]]:
         """Naive no-cache greedy decode: re-forward the WHOLE sequence
         for every new token, one request at a time. O(n^2) per token —
-        the correctness oracle generate() is tested against."""
+        the correctness oracle generate() is tested against. It runs on
+        the device over the whole parameters (``_reference_lm``: a copy
+        for the call only where the card holds none)."""
         if isinstance(max_new_tokens, int):
             max_new_tokens = [max_new_tokens] * len(prompts)
         if len(max_new_tokens) != len(prompts):
             raise ValueError(
                 f"max_new_tokens has {len(max_new_tokens)} entries for "
                 f"{len(prompts)} prompts")
-        out: List[List[int]] = []
-        for prompt, mnt in zip(prompts, max_new_tokens):
+        for mnt in max_new_tokens:
             if mnt < 1:  # mirror scheduler.submit's contract
                 raise ValueError(f"max_new_tokens must be >= 1, got {mnt}")
-            toks = list(prompt)
-            new: List[int] = []
-            while len(new) < mnt:
-                tok = int(np.argmax(self._context_logits(toks)))
-                new.append(tok)
-                toks.append(tok)
-                if eos_token is not None and tok == eos_token:
-                    break
-            out.append(new)
+        out: List[List[int]] = []
+        with self._reference_lm() as lm:
+            for prompt, mnt in zip(prompts, max_new_tokens):
+                toks = list(prompt)
+                new: List[int] = []
+                while len(new) < mnt:
+                    tok = int(np.argmax(self._context_logits(toks, lm)))
+                    new.append(tok)
+                    toks.append(tok)
+                    if eos_token is not None and tok == eos_token:
+                        break
+                out.append(new)
         return out
 
     # ---------------- the serving loop ---------------------------------
@@ -2157,11 +2256,15 @@ class ServeEngine:
         activation estimate, the adapter pool — beside the simulator's
         memory-penalty input (cost_model.serve_device_bytes), per
         device: at t > 1 one rank's shards and pools, and
-        ``reference_params_bytes``, the whole parameters the rank keeps
-        on its card beside them (self.params: the one-device reference
-        paths read them, and the model holds them; 0 at t = 1, where
-        the step reads them). ``live_bytes`` reads the engine's real
-        tensors (both sets of parameters and the allocated pools and
+        ``reference_params_bytes``, the model's own parameters the card
+        holds beside the step's (``_card_model_params``: the model's
+        tensors when it lives on the card and the step reads copies of
+        them, its shards at t > 1, which leaves the reference paths
+        reading the model's; 0 for a model on the host, whose reference
+        paths copy the whole parameters for the call only, and 0 at
+        t = 1 on a model's live tensors, which the step reads).
+        ``live_bytes`` reads the engine's real tensors (the step's
+        parameters, the model's beside them and the allocated pools and
         slabs); ``ledger_vs_live`` holds the accounting against them.
         Components land as ``serve_hbm_bytes{component=...}`` gauges
         when telemetry is on."""
@@ -2171,7 +2274,8 @@ class ServeEngine:
         c = self.cache_cfg
         t = max(1, self.tp)
         params = pytree_device_bytes(self._step_params)
-        whole = pytree_device_bytes(self.params) if t > 1 else 0.0
+        beside = self._card_model_params()
+        whole = pytree_device_bytes(beside)
         kv_pool = float(c.pool_device_bytes)   # values + scale rows
         act_itemsize = float(self.act_dtype.itemsize)
         # the live set of ONE mixed step: lane activations through the
@@ -2185,12 +2289,12 @@ class ServeEngine:
         pools_live = self._k_pages is not None
         adapters_live = self._adapter_slabs is not None
         live = params + pytree_device_bytes(
-            (self.params if t > 1 else None, self._k_pages, self._v_pages,
+            (beside, self._k_pages, self._v_pages,
              self._k_scales, self._v_scales, self._adapter_slabs))
         arch = self.serve_arch()
         # what the placement search prices (resident_bytes at t > 1)
         sim_input = float(serve_device_bytes(arch, t)) \
-            + (float(arch.weight_bytes()) if t > 1 else 0.0)
+            + (whole if t > 1 else 0.0)
         ledger = {
             "tensor_parallel": t,
             "params_bytes": params,

@@ -35,10 +35,13 @@ mesh search (search/serve_place.optimize_serve_mesh), priced over the
 process group's world size (the visible cards without a group): r
 replicas of degree t, each a tensor-parallel engine over the same t
 ranks, as JAX's replicas all sit on its first t devices. On the virtual
-clock every rank runs the same pool and takes the same decisions. The
-wall clock at t > 1 raises ``NotImplementedError`` (ROADMAP item 2.8):
-its replicas would issue their collectives from their own threads in
-an order that differs between ranks.
+clock every rank runs the same pool and takes the same decisions. On
+the wall clock every rank runs the pool from one thread, and rank 0's
+clock decides for all (``ReplicaPool._run_lockstep``): at each tick
+``parallel/collectives.Lockstep.lead`` checks that the ranks hold the
+same host state and carries rank 0's arrivals, step order and stamps,
+so every rank issues the sharded steps' collectives in one order and
+keeps the same records.
 """
 
 from __future__ import annotations
@@ -51,6 +54,9 @@ import time
 from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
+
+from ..parallel.collectives import Lockstep, LockstepError, digest
 from ..utils.telemetry import (REQUEST_COMPONENTS, MetricsRegistry,
                                Telemetry, fold_attribution, next_trace_id,
                                pct, pow2_bucket, serve_metrics,
@@ -338,17 +344,22 @@ class ReplicaPool:
                 and sr.strip() == "auto":
             from ..parallel.mesh import serve_devices
             from ..search.serve_place import optimize_serve_mesh
-            from .engine import probe_serve_arch
+            from ..config import CompMode, resolve_device
+            from .engine import card_param_bytes, probe_serve_arch
             sm = str(cfg.serve_mesh or "").strip()
             fixed_t = int(sm) if sm and sm != "auto" else None
             if "tensor_parallel" in engine_kwargs:
                 fixed_t = int(engine_kwargs["tensor_parallel"])
             arch = probe_serve_arch(model, cfg)
-            # a degree above 1 keeps the whole parameters on the card
-            # beside its shards (ServeEngine.memory_ledger)
+            if model.state is None:
+                model.compile(comp_mode=CompMode.INFERENCE)
+            # a degree above 1 holds the model's own parameters on its
+            # card beside its shards when the model lives there, none
+            # of a model on the host (ServeEngine.memory_ledger)
             place = optimize_serve_mesh(
                 arch, serve_devices(), config=cfg, fixed_tensor=fixed_t,
-                resident_bytes=arch.weight_bytes())
+                resident_bytes=card_param_bytes(
+                    model, resolve_device(engine_kwargs["device"])))
             self.mesh_placement = place
             num_replicas = place.replicas
             engine_kwargs.setdefault("tensor_parallel",
@@ -1128,7 +1139,10 @@ class ReplicaPool:
         step loop on its own worker thread, on its engine's own CUDA
         stream (``wall_threads=False`` steps them round-robin from one
         thread — the A/B baseline), so goodput under SLO is a measured
-        wall number. TOKENS are identical across all modes: sampling
+        wall number. Tensor-parallel replicas (t > 1) step round-robin
+        from one thread on every rank, in lockstep on rank 0's clock,
+        whatever ``wall_threads`` says (:meth:`_run_lockstep`). TOKENS
+        are identical across all modes: sampling
         keys on stream ids, never on the clock. ``dwell_s`` holds each
         dispatched step for at least that many wall seconds — a
         stand-in for device time on a host whose "device" is its own
@@ -1154,13 +1168,6 @@ class ReplicaPool:
         if wall_clock is None:
             wall_clock = bool(self.config.serve_wall_clock)
         if wall_clock:
-            if any(r.engine.tp > 1 for r in self.replicas):
-                raise NotImplementedError(
-                    "the wall-clock pool steps its replicas from worker "
-                    "threads (or in arrival-paced turns) whose order "
-                    "differs between the ranks of a tensor-parallel "
-                    "engine: serve t > 1 replicas on the virtual clock "
-                    "(ROADMAP item 2.8)")
             if autoscaler is not None or bool(
                     getattr(self.config, "serve_autoscale", False)):
                 raise ValueError(
@@ -1443,6 +1450,10 @@ class ReplicaPool:
         with r.lock, r.engine.on_stream():
             try:
                 ev = r.session.step()
+            except LockstepError:
+                # the ranks of a t > 1 replica disagree: every rank
+                # raises at the same check, so the pool stops on all
+                raise
             except Exception:
                 # contain exactly as the virtual loop: fail the
                 # in-flight requests, reopen the session, keep the
@@ -1475,7 +1486,9 @@ class ReplicaPool:
         ``session.submit()``) and reports completed steps into a
         queue the router thread drains — all router state mutates on
         the router thread. ``threaded=False`` steps busy replicas
-        round-robin from the router thread: the A/B baseline.
+        round-robin from the router thread: the A/B baseline. A pool
+        of tensor-parallel replicas runs :meth:`_run_lockstep` in
+        either case.
 
         No autoscaler here (it replays on the virtual clock), and no
         auto-armed SLO monitor — pass one explicitly to tick it on
@@ -1502,6 +1515,15 @@ class ReplicaPool:
         sched = [(tr.t_arrival - t0_virtual) * time_scale
                  for tr in arrivals]
         self._clock = "wall"
+        lockstep = None
+        if any(r.engine.tp > 1 for r in self.replicas):
+            from ..parallel.mesh import TENSOR
+            lead = self.replicas[0].engine
+            lockstep = Lockstep(lead.bm, TENSOR)
+            threaded = False
+            guards = [lockstep] + [r.engine._lockstep
+                                   for r in self.replicas]
+            calls0 = [(g.calls, g.wall_s) for g in guards]
         done_q: "queue.Queue" = queue.Queue()
         stop = threading.Event()
         wakes = [threading.Event() for _ in self.replicas]
@@ -1518,64 +1540,98 @@ class ReplicaPool:
                     r, w_start, dwell_s)
                 done_q.put((kind, r.idx, ev, t_end, busy))
 
+        t_final = None
         try:
-            if threaded:
-                for r, wake in zip(self.replicas, wakes):
-                    t = threading.Thread(
-                        target=_worker, args=(r, wake),
-                        name=f"replica{r.idx}-step", daemon=True)
-                    t.start()
-                    workers.append(t)
-            next_slo = (slo_monitor.interval_s
-                        if slo_monitor is not None else None)
-            i = 0
-            rr = 0
-            t_now = 0.0
-            last_progress = time.perf_counter()
-            while True:
-                t_now = time.perf_counter() - w_start
-                while i < len(arrivals) and sched[i] <= t_now + 1e-9:
-                    tr = arrivals[i]
-                    # submit holds EVERY replica lock (idx order):
-                    # route() reads all replicas' queue/cache state
-                    # and session.submit mutates the winner — both
-                    # must not interleave with a worker's step
-                    for r in self.replicas:
-                        r.lock.acquire()
-                    try:
-                        tracked = self.submit(tr, eos_token=eos_token)
-                    finally:
-                        for r in reversed(self.replicas):
-                            r.lock.release()
-                    # SLOs measure from the SCHEDULED wall arrival —
-                    # router lag between the pacer and submit() is
-                    # queueing delay the tier must answer for
-                    tracked["t_arrival"] = sched[i]
-                    if threaded:
-                        wakes[tracked["replica"]].set()
-                    i += 1
-                    last_progress = time.perf_counter()
-                if i >= len(arrivals) and not self._inflight:
-                    break
+            if lockstep is not None:
+                t_final = self._run_lockstep(
+                    lockstep, arrivals, sched, w_start,
+                    slo_ttft_s=slo_ttft_s, slo_tpot_s=slo_tpot_s,
+                    eos_token=eos_token, slo_monitor=slo_monitor,
+                    on_step=on_step, dwell_s=dwell_s)
+            else:
                 if threaded:
-                    timeout = 0.05 if i >= len(arrivals) else \
-                        min(0.05, max(0.0, sched[i] - t_now))
-                    try:
-                        item = done_q.get(timeout=timeout) \
-                            if timeout > 0 else done_q.get_nowait()
-                    except queue.Empty:
-                        if i >= len(arrivals) \
-                                and not any(r.has_work()
-                                            for r in self.replicas):
+                    for r, wake in zip(self.replicas, wakes):
+                        t = threading.Thread(
+                            target=_worker, args=(r, wake),
+                            name=f"replica{r.idx}-step", daemon=True)
+                        t.start()
+                        workers.append(t)
+                next_slo = (slo_monitor.interval_s
+                            if slo_monitor is not None else None)
+                i = 0
+                rr = 0
+                t_now = 0.0
+                last_progress = time.perf_counter()
+                while True:
+                    t_now = time.perf_counter() - w_start
+                    while i < len(arrivals) and sched[i] <= t_now + 1e-9:
+                        tr = arrivals[i]
+                        # submit holds EVERY replica lock (idx order):
+                        # route() reads all replicas' queue/cache state
+                        # and session.submit mutates the winner — both
+                        # must not interleave with a worker's step
+                        for r in self.replicas:
+                            r.lock.acquire()
+                        try:
+                            tracked = self.submit(tr, eos_token=eos_token)
+                        finally:
+                            for r in reversed(self.replicas):
+                                r.lock.release()
+                        # SLOs measure from the SCHEDULED wall arrival —
+                        # router lag between the pacer and submit() is
+                        # queueing delay the tier must answer for
+                        tracked["t_arrival"] = sched[i]
+                        if threaded:
+                            wakes[tracked["replica"]].set()
+                        i += 1
+                        last_progress = time.perf_counter()
+                    if i >= len(arrivals) and not self._inflight:
+                        break
+                    if threaded:
+                        timeout = 0.05 if i >= len(arrivals) else \
+                            min(0.05, max(0.0, sched[i] - t_now))
+                        try:
+                            item = done_q.get(timeout=timeout) \
+                                if timeout > 0 else done_q.get_nowait()
+                        except queue.Empty:
+                            if i >= len(arrivals) \
+                                    and not any(r.has_work()
+                                                for r in self.replicas):
+                                break  # drained: a raced cancel's record
+                            if time.perf_counter() - last_progress > 60.0:
+                                raise RuntimeError(
+                                    "wall-clock pool made no progress "
+                                    "for 60s with work pending")
+                            continue
+                        while item is not None:
+                            kind, idx, ev, t_end, busy = item
+                            r = self.replicas[idx]
+                            if kind == "fail":
+                                self._sweep_terminal(r, t_end, slo_ttft_s,
+                                                     slo_tpot_s)
+                            else:
+                                self._wall_apply(r, ev, t_end, busy,
+                                                 slo_ttft_s, slo_tpot_s,
+                                                 on_step)
+                            last_progress = time.perf_counter()
+                            try:
+                                item = done_q.get_nowait()
+                            except queue.Empty:
+                                item = None
+                    else:
+                        busy_rs = [r for r in self.replicas
+                                   if r.has_work()]
+                        if not busy_rs:
+                            if i < len(arrivals):
+                                time.sleep(
+                                    min(0.05,
+                                        max(0.0, sched[i] - t_now)))
+                                continue
                             break  # drained: a raced cancel's record
-                        if time.perf_counter() - last_progress > 60.0:
-                            raise RuntimeError(
-                                "wall-clock pool made no progress "
-                                "for 60s with work pending")
-                        continue
-                    while item is not None:
-                        kind, idx, ev, t_end, busy = item
-                        r = self.replicas[idx]
+                        r = busy_rs[rr % len(busy_rs)]
+                        rr += 1
+                        kind, ev, t_end, busy = self._wall_step(
+                            r, w_start, dwell_s)
                         if kind == "fail":
                             self._sweep_terminal(r, t_end, slo_ttft_s,
                                                  slo_tpot_s)
@@ -1584,37 +1640,11 @@ class ReplicaPool:
                                              slo_ttft_s, slo_tpot_s,
                                              on_step)
                         last_progress = time.perf_counter()
-                        try:
-                            item = done_q.get_nowait()
-                        except queue.Empty:
-                            item = None
-                else:
-                    busy_rs = [r for r in self.replicas
-                               if r.has_work()]
-                    if not busy_rs:
-                        if i < len(arrivals):
-                            time.sleep(
-                                min(0.05,
-                                    max(0.0, sched[i] - t_now)))
-                            continue
-                        break  # drained: a raced cancel's record
-                    r = busy_rs[rr % len(busy_rs)]
-                    rr += 1
-                    kind, ev, t_end, busy = self._wall_step(
-                        r, w_start, dwell_s)
-                    if kind == "fail":
-                        self._sweep_terminal(r, t_end, slo_ttft_s,
-                                             slo_tpot_s)
-                    else:
-                        self._wall_apply(r, ev, t_end, busy,
-                                         slo_ttft_s, slo_tpot_s,
-                                         on_step)
-                    last_progress = time.perf_counter()
-                if slo_monitor is not None:
-                    t_now = time.perf_counter() - w_start
-                    while t_now >= next_slo:
-                        slo_monitor.observe(next_slo)
-                        next_slo += slo_monitor.interval_s
+                    if slo_monitor is not None:
+                        t_now = time.perf_counter() - w_start
+                        while t_now >= next_slo:
+                            slo_monitor.observe(next_slo)
+                            next_slo += slo_monitor.interval_s
         finally:
             stop.set()
             for wake in wakes:
@@ -1622,7 +1652,8 @@ class ReplicaPool:
             for t in workers:
                 t.join(timeout=5.0)
             self._clock = "virtual"
-        t_final = time.perf_counter() - w_start
+        if t_final is None:
+            t_final = time.perf_counter() - w_start
         # drain-time finalization still belongs to the wall run (the
         # finally above restored the label for the exception paths)
         self._clock = "wall"
@@ -1651,6 +1682,7 @@ class ReplicaPool:
             "mode": "router",
             "clock": "wall",
             "wall_threads": threaded,
+            "lockstep": lockstep is not None,
             "time_scale": time_scale,
             "dwell_s": dwell_s,
             "policy": self.policy,
@@ -1688,9 +1720,99 @@ class ReplicaPool:
             "slo_alerts": (list(slo_monitor.events)
                            if slo_monitor is not None else []),
         }
+        if lockstep is not None:
+            # the pool's ticks and every lockstep call of the run (the
+            # pool's leads, the engines' sweeps and lane checks) with
+            # their wall seconds, the wait for the other ranks included
+            self.last_stats["lockstep_ticks"] = lockstep.checks
+            self.last_stats["lockstep_calls"] = sum(
+                g.calls - c for g, (c, _) in zip(guards, calls0))
+            self.last_stats["lockstep_wall_s"] = sum(
+                g.wall_s - w for g, (_, w) in zip(guards, calls0))
         if self.telemetry.enabled:
             self.last_stats["attribution"] = self.fold_attribution()
         return self.last_stats
+
+    def _lockstep_state(self, i: int, pending) -> int:
+        """A digest of the pool's host state at a lockstep tick: the
+        arrivals submitted, the replica whose step awaits its stamp,
+        every replica's counters and every tracked request's progress
+        — what two ranks given the same decisions hold alike."""
+        rows = [(i, -1 if pending is None else pending[0].idx,
+                 len(self._inflight), len(self._records), 0)]
+        rows += [(r.idx, int(r.has_work()), r.steps, r.tokens,
+                  len(r.inflight)) for r in self.replicas]
+        rows += [(sid, t["replica"], t["tokens_emitted"],
+                  int(t["cancel_sent"]), len(t["req"].out_tokens))
+                 for sid, t in sorted(self._inflight.items())]
+        return digest(np.array(rows, np.int64))
+
+    def _run_lockstep(self, lockstep, arrivals, sched, w_start: float, *,
+                      slo_ttft_s, slo_tpot_s, eos_token, slo_monitor,
+                      on_step, dwell_s: float) -> float:
+        """The wall loop of tensor-parallel replicas: every rank runs
+        the whole pool, and the collectives of a replica's sharded step
+        match only when every rank submits, routes and steps alike. So
+        one thread a rank steps the busy replicas round-robin, and at
+        each tick rank 0's decision (``Lockstep.lead``) rules every
+        rank: the arrivals its clock finds due, the replica to step,
+        the end stamp of the last step (stamped on rank 0's clock, and
+        applied a tick late on every rank) and the tick's time, which
+        the SLO monitor ticks on. A rank that paced arrivals or stepped
+        a replica on its own holds other host state, and the next
+        tick's digest raises ``LockstepError`` on every rank; cancels
+        and deadline aborts ride the engines' own ``Lockstep.exchange``.
+        Only rank 0 sleeps while nothing is due; the others wait in the
+        next tick's gather. Returns the run's end on rank 0's clock."""
+        from ..parallel.mesh import TENSOR
+        leads = self.replicas[0].engine.bm.coord(TENSOR) == 0
+        next_slo = (slo_monitor.interval_s
+                    if slo_monitor is not None else None)
+        i = 0
+        rr = 0
+        pending = None      # (replica, kind, ev, busy) of the last step
+        t_stamp = 0.0       # this rank's end stamp of that step
+        while True:
+            state = self._lockstep_state(i, pending)
+            t_now = time.perf_counter() - w_start
+            due = 0
+            while i + due < len(arrivals) \
+                    and sched[i + due] <= t_now + 1e-9:
+                due += 1
+            busy = [r.idx for r in self.replicas if r.has_work()]
+            pick = busy[rr % len(busy)] if busy else -1
+            stop = pending is None and i >= len(arrivals) and not busy
+            t_prev, due, pick, stop, t_now = lockstep.lead(
+                "pool.tick", state,
+                (t_stamp, due, pick, float(stop), t_now))
+            due, pick = int(due), int(pick)
+            if pending is not None:
+                r, kind, ev, busy_s = pending
+                pending = None
+                if kind == "fail":
+                    self._sweep_terminal(r, t_prev, slo_ttft_s,
+                                         slo_tpot_s)
+                else:
+                    self._wall_apply(r, ev, t_prev, busy_s, slo_ttft_s,
+                                     slo_tpot_s, on_step)
+            if stop:
+                return t_now
+            for tr in arrivals[i:i + due]:
+                tracked = self.submit(tr, eos_token=eos_token)
+                tracked["t_arrival"] = sched[i]
+                i += 1
+            if slo_monitor is not None:
+                while t_now >= next_slo:
+                    slo_monitor.observe(next_slo)
+                    next_slo += slo_monitor.interval_s
+            if pick >= 0:
+                r = self.replicas[pick]
+                rr += 1
+                kind, ev, t_stamp, busy_s = self._wall_step(
+                    r, w_start, dwell_s)
+                pending = (r, kind, ev, busy_s)
+            elif leads and due == 0 and i < len(arrivals):
+                time.sleep(min(0.05, max(0.0, sched[i] - t_now)))
 
     # ---------------- per-request observability -------------------------
     def explain_request(self, stream_id: int) -> dict:

@@ -353,25 +353,21 @@ def test_planted_faults_are_rejected(pool, fault, name, kw):
         assert_close_runs(bad[0], one, what=f"{name} with {fault}")
 
 
-@pytest.mark.parametrize("case,item", [("serving", "2.8")])
-def test_left_out_strategies_raise_naming_their_item(pool, case, item):
-    for msg in pool.run(J.left_out, case):
-        assert msg is not None and f"item {item}" in msg, msg
-
-
 @pytest.mark.parametrize("case", ["seq", "expert", "table", "pins",
                                   "pipe_axis", "layer", "pipeline_stages",
-                                  "conv", "lstm", "other_axis"])
+                                  "conv", "lstm", "other_axis",
+                                  "serving"])
 def test_sequence_expert_table_and_pins_execute(pool, case):
-    """What items 2.3-2.7 added no longer raises: a ``seq`` split,
+    """What items 2.3-2.8 added no longer raises: a ``seq`` split,
     ``expert`` and ``table`` over a mesh axis, a per-table device pin, a
     ``pipe`` axis, a ``layer`` split, ``pipeline_stages`` on a mesh with
     a ``pipe`` axis of the stage count, ``channel_out`` on conv2d and
-    lstm, and a mesh axis beyond the five (``tensor``, named by no
-    entry: every op replicated over it) (their numbers:
-    tests/test_torch_seq_parallel.py, _expert_parallel.py,
-    _placed_embedding.py, _graph_pipeline.py, _pipeline.py,
-    _channel_out.py, _layouts.py)."""
+    lstm, a mesh axis beyond the five (``tensor``, named by no entry:
+    every op replicated over it), and a t = 2 replica pool on the wall
+    clock (their numbers: tests/test_torch_seq_parallel.py,
+    _expert_parallel.py, _placed_embedding.py, _graph_pipeline.py,
+    _pipeline.py, _channel_out.py, _layouts.py,
+    _serve_wall_tp.py)."""
     assert pool.run(J.left_out, case) == [None, None]
 
 

@@ -550,7 +550,8 @@ def left_out(case):
     """The NotImplementedError (its message) of a strategy or knob left
     out, on the group's two ranks; None if nothing raised (the
     sequence, expert, table, pinned, pipeline, conv and LSTM
-    channel_out and other-axis cases, which execute)."""
+    channel_out, other-axis and wall-clock serving cases, which
+    execute)."""
     import flexflow_tpu_torch as ft
     mk = ft.parallel.mesh.make_mesh
     dm = mk((1, 2), ("data", "model"))
@@ -578,8 +579,8 @@ def left_out(case):
         ff = MODELS[name](ft, cfg, mesh, st)
         ff.compile(metrics=[], capture=False)
         if case == "serving":
-            # the model on its data mesh serves at t = 2, but not on
-            # the wall clock
+            # the model on its data mesh serves at t = 2, on the wall
+            # clock too
             from flexflow_tpu_torch.serve import ReplicaPool
             pool = ReplicaPool(ff, 1, device="cpu", config=ft.FFConfig(
                 batch_size=1, kv_page_size=8, kv_num_pages=33,

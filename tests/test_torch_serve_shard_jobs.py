@@ -379,8 +379,8 @@ def cluster(weights, kw, ps, new, transport=""):
 
 def pool_auto(weights, kw, spec_kw):
     """``serve_replicas="auto"``: the pool boots the searched (t, r)
-    shape and serves a seeded traffic stream on the virtual clock; the
-    wall clock refuses it at t > 1."""
+    shape and serves a seeded traffic stream on the virtual clock, then
+    the same stream on the wall clock (in lockstep at t > 1)."""
     import flexflow_tpu_torch as ft
     from flexflow_tpu_torch.serve.traffic import TrafficSpec, make_traffic
     m = model(weights)
@@ -395,11 +395,13 @@ def pool_auto(weights, kw, spec_kw):
     pool.check_drained()
     out["records"] = [(r["stream_id"], r["outcome"], r["tokens"])
                       for r in res["requests"]]
-    try:
-        pool.run(traffic, wall_clock=True)
-        out["wall"] = None
-    except NotImplementedError as e:
-        out["wall"] = str(e)
+    wall = pool.run(traffic, slo_ttft_s=1.0, slo_tpot_s=1.0,
+                    sample_seed=0, wall_clock=True)
+    pool.assert_zero_recompiles()
+    pool.check_drained()
+    out["wall"] = [(r["stream_id"], r["outcome"], r["tokens"])
+                   for r in wall["requests"]]
+    out["wall_lockstep"] = wall["lockstep"]
     pool.close()
     return out
 
@@ -446,3 +448,293 @@ def mesh_trained(strategy, mesh_shape, mesh_axes, kw, ps, new):
             out["live"] = eng.params["lm_head"]["kernel"] is \
                 ff.state.params["lm_head"]["kernel"]
     return out
+
+
+# ------------------------------------- the wall clock and host weights
+def stream_records(res):
+    """A pool run's records as the ranks must hold them alike: stream,
+    replica, outcome, tokens and the stamps."""
+    return [(r["stream_id"], r["replica"], r["outcome"], r["tokens"],
+             r["t_arrival"], r["ttft_s"], r["tpot_s"], r["t_finish"])
+            for r in res["requests"]]
+
+
+def wall_pool(weights, kw, spec_kw, time_scale, dwell_s,
+              modes=(True, False), slo=None):
+    """A t = 2 pool of 2 replicas: the traffic on the virtual clock,
+    then on the wall clock once for each ``wall_threads`` of ``modes``
+    (with ``slo`` (TTFT, TPOT seconds) each under those SLOs and the
+    pool's burn-rate monitor); the records of each run and what the
+    wall runs report."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.serve.traffic import TrafficSpec, make_traffic
+    traffic = make_traffic(TrafficSpec(**spec_kw))
+    pool = ft.serve.ReplicaPool(
+        model(weights), 2, config=ft.FFConfig(**kw), device="cpu",
+        engine_kwargs=dict(tensor_parallel=2))
+    out = {"degrees": [r.engine.tp for r in pool.replicas]}
+    virt = pool.run(traffic, sample_seed=0)
+    out["virtual"] = stream_records(virt)
+    for threads in modes:
+        steps0 = sum(r.steps for r in pool.replicas)
+        slo_kw = {}
+        if slo is not None:
+            slo_kw = dict(slo_ttft_s=slo[0], slo_tpot_s=slo[1],
+                          slo_monitor=pool._default_slo_monitor(*slo))
+        res = pool.run(traffic, sample_seed=0, wall_clock=True,
+                       wall_threads=threads, time_scale=time_scale,
+                       dwell_s=dwell_s, **slo_kw)
+        pool.assert_zero_recompiles()
+        pool.check_drained()
+        out[threads] = {k: res[k] for k in (
+            "clock", "wall_threads", "lockstep", "lockstep_ticks",
+            "lockstep_calls", "lockstep_wall_s", "makespan_s",
+            "goodput_per_s", "cancelled", "slo_alerts")}
+        out[threads]["records"] = stream_records(res)
+        out[threads]["steps"] = sum(r.steps for r in pool.replicas) \
+            - steps0
+    pool.close()
+    return out
+
+
+class _RunsAhead:
+    """A clock that runs 10 s ahead at every read: every arrival is due
+    at once by it."""
+
+    def __init__(self, real):
+        self.real, self.reads = real, 0
+
+    def perf_counter(self):
+        self.reads += 1
+        return self.real.perf_counter() + 10.0 * self.reads
+
+    def __getattr__(self, name):
+        return getattr(self.real, name)
+
+
+def plant_wall(fault):
+    """Break rank 1 of a lockstep wall pool: ``own_clock`` paces its
+    arrivals on its own clock (one that runs far ahead), ``own_order``
+    steps the next replica after the one rank 0 names. Returns the
+    undo."""
+    from flexflow_tpu_torch.parallel.collectives import Lockstep
+    from flexflow_tpu_torch.serve import router
+    if rank() != 1:
+        return lambda: None
+    lead = Lockstep.lead
+    old_time = router.time
+
+    def own(self, what, state, decision):
+        got = list(lead(self, what, state, decision))
+        if fault == "own_clock":
+            got[1] = decision[1]
+        elif got[2] >= 0:
+            got[2] = (got[2] + 1) % 2
+        return tuple(got)
+
+    if fault == "own_clock":
+        router.time = _RunsAhead(old_time)
+    elif fault != "own_order":
+        raise KeyError(fault)
+    Lockstep.lead = own
+
+    def undo():
+        Lockstep.lead = lead
+        router.time = old_time
+    return undo
+
+
+def wall_fault(weights, kw, spec_kw, fault):
+    """A t = 2 pool of 2 replicas on the wall clock with ``fault``
+    planted on rank 1: the LockstepError each rank raised (its message),
+    or None."""
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.parallel.collectives import LockstepError
+    from flexflow_tpu_torch.serve.traffic import TrafficSpec, make_traffic
+    traffic = make_traffic(TrafficSpec(**spec_kw))
+    pool = ft.serve.ReplicaPool(
+        model(weights), 2, config=ft.FFConfig(**kw), device="cpu",
+        engine_kwargs=dict(tensor_parallel=2))
+    undo = plant_wall(fault)
+    try:
+        pool.run(traffic, sample_seed=0, wall_clock=True,
+                 wall_threads=False, time_scale=1.0, dwell_s=0.002)
+        return None
+    except LockstepError as e:
+        return str(e)
+    finally:
+        undo()
+
+
+def _held_on_host():
+    """Serve as from a model kept on the host: the engine's device
+    holds none of the model's tensors (on the CPU, where both are the
+    same memory, the engine is told so). Returns the undo."""
+    from flexflow_tpu_torch.serve import engine as E
+    old = E._on_card
+    E._on_card = lambda t, device: False
+    return lambda: setattr(E, "_on_card", old)
+
+
+def _tensors(obj, seen=None, depth=0):
+    """Every tensor reachable from ``obj`` through dicts, lists, tuples
+    and object attributes."""
+    import torch
+    seen = set() if seen is None else seen
+    if id(obj) in seen or depth > 8:
+        return []
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        items = list(obj.values())
+    elif isinstance(obj, (list, tuple, set)):
+        items = list(obj)
+    elif hasattr(obj, "__dict__") and not isinstance(obj, type):
+        items = list(vars(obj).values())
+    else:
+        return []
+    out = []
+    for x in items:
+        out += _tensors(x, seen, depth + 1)
+    return out
+
+
+def whole_copies(eng):
+    """The engine's tensors, outside the host-side model and its whole
+    tensors (``model``, ``params``, ``lm``), that have the whole shape
+    of a weight a rank holds a block of: a whole copy on the device."""
+    split = {("tok_embed", "kernel"), ("lm_head", "kernel"),
+             ("lm_head", "bias")}
+    for i in range(eng.num_layers):
+        split |= {(f"layer{i}_attn", k) for k in ("wq", "wk", "wv", "wo")}
+        split |= {(f"layer{i}_ff1", "kernel"), (f"layer{i}_ff1", "bias"),
+                  (f"layer{i}_ff2", "kernel")}
+    shapes = {tuple(eng.params[op][k].shape) for op, k in split
+              if k in eng.params[op]}
+    skip = {id(eng.model), id(eng.params), id(eng.lm)}
+    found = []
+    for name, val in vars(eng).items():
+        if id(val) in skip:
+            continue
+        found += [(name, tuple(t.shape)) for t in _tensors(val)
+                  if tuple(t.shape) in shapes]
+    return found
+
+
+def host_served(weights, kw, ps, new, mesh_trained=False):
+    """A model held on the host (``_held_on_host``), served at t = 2 —
+    the model of ``weights``, or the mesh tests' LM trained one SGD step
+    on a (1, 2) data x model mesh under megatron: the engine's whole
+    copies on the device after boot, after a serving run, and after the
+    reference paths; the ledger; whether the reference paths ran on a
+    copy of their own and freed it; the streams."""
+    import contextlib
+    import gc
+    import weakref
+    undo = _held_on_host()
+    try:
+        if mesh_trained:
+            m = _megatron_lm()
+        else:
+            m = model(weights)
+        eng = engine(m, kw, 2)
+        out = {"copies_boot": whole_copies(eng)}
+        eng.warmup()
+        got = eng.generate(ps, new)
+        out["copies_served"] = whole_copies(eng)
+        out["ledger"] = eng.memory_ledger()
+        out["pool_tensor_bytes"] = int(sum(
+            t.numel() * t.element_size() for t in eng._pool_args()))
+        spied = []
+        inner = eng._reference_lm
+
+        @contextlib.contextmanager
+        def spy():
+            with inner() as lm:
+                ts = [t for p in lm.params.values() for t in p.values()]
+                spied.append((any(t is h for t in ts
+                                  for p in m.state.params.values()
+                                  for h in p.values()),
+                              [weakref.ref(t) for t in ts]))
+                del ts
+                yield lm
+        eng._reference_lm = spy
+        ref = eng.generate_reference(ps, new)
+        out["copies_reference"] = whole_copies(eng)
+        out["exact"] = eng.assert_token_parity(ps, got, ref)
+        # a stream that parts from the reference at its first token
+        # sends the tie rule to its margin forward (any margin passes:
+        # the reference's own pick leads)
+        flipped = [[(ref[0][0] + 1) % eng.vocab_size] + ref[0][1:]]
+        out["flipped_exact"] = eng.assert_token_parity(
+            ps[:1], flipped, ref[:1], margin=1e30)
+        out["copies_parity"] = whole_copies(eng)
+        gc.collect()
+        out["reference_runs"] = [
+            (shared, sum(r() is not None for r in refs))
+            for shared, refs in spied]
+        out["outs"], out["ref"] = got, ref
+        out["weights"] = {op: {k: v.detach().numpy().copy()
+                               for k, v in ws.items()}
+                          for op, ws in eng.params.items()}
+        return out
+    finally:
+        undo()
+
+
+def _megatron_lm():
+    """The mesh tests' LM trained one SGD step on a (1, 2) data x model
+    mesh under megatron (head, channel_out and vocab splits)."""
+    import flexflow_tpu_torch as ft
+    import test_torch_mesh_jobs as MJ
+    from flexflow_tpu_torch.parallel.mesh import make_mesh
+    ff = MJ.MODELS["lm"](ft, ft.FFConfig(batch_size=4),
+                         make_mesh((1, 2), ("data", "model")),
+                         MJ._strategy(ft, "megatron"))
+    ff.compile(optimizer=ft.SGDOptimizer(lr=0.1),
+               loss_type=MJ.lm_loss(ft), metrics=[], capture=False)
+    for b in MJ.batches("lm", 1, 4):
+        ff.train_batch(b)
+    return ff
+
+
+def auto_placements(weights, kw, numbers, host):
+    """The ``"auto"`` searches of a model on the host (``host``) or on
+    the card, on the machine ``numbers`` (the fields of a machine
+    model, JAX's): the engine's ``serve_mesh="auto"`` placement and the
+    pool's ``serve_replicas="auto"`` one (or the ValueError the pool's
+    search raised), as dicts."""
+    import dataclasses
+    import flexflow_tpu_torch as ft
+    from flexflow_tpu_torch.parallel.mesh import MachineSpec
+    from flexflow_tpu_torch.search import machine_model as tmm
+    mm = tmm.H100MachineModel(
+        spec=MachineSpec(**numbers["spec"]),
+        efficiency=dict(numbers["efficiency"]),
+        dtype_flops_scale=dict(numbers["dtype_flops_scale"]),
+        dcn_axes=tuple(numbers["dcn_axes"]),
+        axis_topology=dict(numbers["axis_topology"]))
+    old = tmm.default_machine_model
+    tmm.default_machine_model = lambda *a, **k: mm
+    undo = _held_on_host() if host else (lambda: None)
+    try:
+        m = model(weights)
+        eng = engine(m, dict(kw, serve_mesh="auto"))
+        out = {"engine": dataclasses.asdict(eng.serve_placement),
+               "ledger_reference": eng.memory_ledger()[
+                   "reference_params_bytes"]}
+        try:
+            pool = ft.serve.ReplicaPool(
+                m, config=ft.FFConfig(**dict(kw, serve_replicas="auto",
+                                             serve_mesh="auto")),
+                device="cpu")
+            out["pool"] = dataclasses.asdict(pool.mesh_placement)
+            out["pool_degrees"] = [r.engine.tp for r in pool.replicas]
+            pool.close()
+        except ValueError as e:
+            out["pool"] = f"ValueError: {e}"
+        return out
+    finally:
+        undo()
+        tmm.default_machine_model = old

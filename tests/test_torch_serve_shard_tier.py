@@ -132,8 +132,8 @@ def test_pool_boots_searched_placement_token_identity(jlm, pool):
     """serve_replicas "auto" with serve_mesh "2" pinning the degree:
     the 2-D search prices the group's world size, the pool boots its
     (2, r) shape, and every completed request equals the one-device
-    engine's stream (the aborted ones a prefix of it); the wall clock
-    refuses t > 1, naming ROADMAP item 2.8."""
+    engine's stream (the aborted ones a prefix of it); the same pool on
+    the wall clock, in lockstep, keeps the virtual run's records."""
     _, w = jlm
     kw = J.cfg_kw(spec=False, serve_replicas="auto", serve_mesh="2")
     spec = dict(requests=8, seed=4, rate_rps=2000.0, tenants=2,
@@ -152,7 +152,7 @@ def test_pool_boots_searched_placement_token_identity(jlm, pool):
     for r in res:
         t, n = r["placement"]
         assert t == 2 and r["replicas"] == n and r["degrees"] == [2] * n
-        assert "item 2.8" in r["wall"]
+        assert r["wall"] == r["records"] and r["wall_lockstep"]
         assert r["records"] == res[0]["records"]
         assert len(r["records"]) == len(traffic)
         assert sum(o == "completed" for _, o, _ in r["records"]) > 0
