@@ -255,6 +255,26 @@ wide-head) must not spill — and then:
     (a)'s tuple entries bit for bit with the no-mesh step.
     ``--only-layout`` runs the build and this phase alone.
 
+  * runs the frontends (``frontend_phase``, last), f32 with TF32 off:
+    (a) a Keras text classifier at the NMT's full width (Embedding(32000,
+    1024) over 40 tokens -> LSTM(1024) x 2 -> Dense(46, softmax), batch
+    256, SGD lr 0.01) trained 3 steps by ``keras.Model.fit`` with the
+    step captured, its LSTM ops on kernels 7 and 8 and its embedding's
+    rows on the sparse-row kernel, launches counted; held against the
+    same graph on the scan cell (losses and each weight's gradient at the
+    NMT phase's limits, from an eager kernel run that must equal the
+    captured one bit for bit), then ``predict`` on 512 rows (kernel 7's
+    launches, probabilities and argmax agreement); (b) the same model
+    through ``fit(prefetch=True)``, the native row loader against the
+    Python one, weights bit for bit, and each loader's host milliseconds
+    a batch; (c) the CIFAR-10 CNN of
+    ``examples/python/pytorch/cifar10_cnn_torch.py`` (batch 64) imported
+    through torch.fx and through ONNX (torch's TorchScript exporter, the
+    wire reader), each forward held against the module's own on the card
+    at 1e-5, then 3 captured steps each; (d) the host embedding-bag at
+    DLRM's width (D 64, bags of 8), native against numpy.
+    ``--only-frontend`` runs the build and this phase alone.
+
 Every phase raises on failure. Prints the card (name, power limit), the
 build, each kernel's error and times, the training and serving numbers,
 the script's wall time, then one line ``{"kernels": [...]}`` and, last,
@@ -6944,6 +6964,449 @@ def layout_phase(fa, card: str):
     return res
 
 
+# --------------------------------------------------------------------------
+# the frontends: Keras, the native loader, torch.fx and ONNX
+# --------------------------------------------------------------------------
+# (a) the Keras text classifier at the NMT's full width: token ids (NB,
+# NT) over a vocabulary of NV -> Embedding(NV, NH) -> LSTM(NH, every
+# position) -> LSTM(NH, the last) -> Dense(KERAS_CLASSES, softmax), SGD
+# lr 0.01, trained by keras.Model.fit for KERAS_STEPS epochs of one batch
+# (one step and one loss each); the label is the first token modulo the
+# classes, so it rides the recurrence to the last position
+KERAS_CLASSES = 46
+KERAS_STEPS = 3
+KERAS_PREDICT = 2 * NB
+KERAS_TIMED = 10
+# kernel path vs the scan cell: the NMT phase's limits (losses at
+# NMT_F32_LOSS_REL, each weight's gradient at NMT_GRAD_REL); predict's
+# probabilities at NMT_F32_LOSS_REL of the largest, and argmax agreement
+# at least KERAS_ARGMAX (two near-tied classes may swap)
+KERAS_ARGMAX = 0.98
+# (b) the loaders alone: LOADER_BATCHES batches a round, LOADER_ROUNDS
+# interleaved rounds
+LOADER_BATCHES = 16
+LOADER_ROUNDS = 3
+# (c) the CIFAR-10 CNN of examples/python/pytorch/cifar10_cnn_torch.py at
+# batch 64, imported through torch.fx and through ONNX: each forward on
+# the card against the module's own at FX_REL of the largest output
+FX_BATCH = 64
+FX_REL = 1e-5
+FX_STEPS = 3
+# (d) the host embedding-bag at DLRM's width: a table of BAG_VOCAB rows
+# of DLRM_DIM, BAG_BATCH bags of BAG_LEN ids, a tenth of them padding
+BAG_VOCAB, BAG_BATCH, BAG_LEN = 100_000, 8192, 8
+BAG_REL = 1e-6
+
+
+def keras_classifier(capture=True, use_pallas=None):
+    """The Keras classifier compiled on the card, weights from the
+    port's numpy streams at seed 0 (the same for every build).
+    ``capture=False`` runs each step eagerly; ``use_pallas=False`` puts
+    its LSTM ops on the scan cell."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.frontends import keras
+    keras.layers.reset_layer_uids()
+    m = keras.Sequential([
+        keras.layers.Embedding(NV, NH, input_shape=(NT,)),
+        keras.layers.LSTM(NH, return_sequences=True),
+        keras.layers.LSTM(NH),
+        keras.layers.Dense(KERAS_CLASSES, activation="softmax"),
+    ], config=FFConfig(batch_size=NB, seed=0))
+    m.compile(optimizer=keras.SGD(learning_rate=0.01),
+              loss="sparse_categorical_crossentropy", metrics=["accuracy"])
+    ff = m.build_model(NB)
+    if not capture:
+        ff.executor.programs.capture = False
+    for op in ff.ops:
+        if op.op_type == "lstm":
+            op.use_pallas = use_pallas
+    return m
+
+
+def keras_data(n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, NV, (n, NT)).astype(np.int32)
+    return x, (x[:, 0] % KERAS_CLASSES).astype(np.int32)
+
+
+def keras_fit(m, x, y, record=False):
+    """KERAS_STEPS epochs of keras.Model.fit over one batch: (losses,
+    host weights, each step's gradients if ``record`` — an eager model
+    only: a replay runs no Python)."""
+    ex, grads = m.ffmodel.executor, []
+    if record:
+        compute = ex._compute_grads
+
+        def recorder(params, batch, key=None, **kw):
+            loss, logits, g, sparse_idx = compute(params, batch, key, **kw)
+            grads.append({f"{op}.{k}": w.detach().clone()
+                          for op, p in g.items() for k, w in p.items()})
+            return loss, logits, g, sparse_idx
+
+        ex._compute_grads = recorder
+    try:
+        hist = m.fit(x, y, batch_size=NB, epochs=KERAS_STEPS, verbose=False)
+    finally:
+        if record:
+            del ex._compute_grads
+    return [h["loss"] for h in hist], weights_of(m.ffmodel), grads
+
+
+def keras_path(ls, sr, card: str):
+    """(a): the scan cell and the kernels eagerly with their gradients
+    recorded, then the main path — the kernels, the step captured — with
+    the launch counts zeroed just before its fit and read just after,
+    and predict on KERAS_PREDICT rows."""
+    x, y = keras_data(NB)
+    xp, _ = keras_data(KERAS_PREDICT, seed=1)
+    scan = keras_classifier(capture=False, use_pallas=False)
+    lsc, wsc, gsc = keras_fit(scan, x, y, record=True)
+    eager = keras_classifier(capture=False)
+    le, we, ge = keras_fit(eager, x, y, record=True)
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = grad_errs(ge, gsc)
+    del ge, gsc
+    m = keras_classifier()
+    for counts in (ls.launches, ls.device_launches, sr.launches):
+        counts.update(dict.fromkeys(counts, 0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lc, wc, _ = keras_fit(m, x, y)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches, device = dict(ls.launches), dict(ls.device_launches)
+    rows = dict(sr.launches)
+    for counts in (ls.launches, ls.device_launches):
+        counts.update(dict.fromkeys(counts, 0))
+    pc = m.predict(xp, batch_size=NB)
+    plaunch, pdevice = dict(ls.launches), dict(ls.device_launches)
+    ps = scan.predict(xp, batch_size=NB)
+    # the captured step's wall, replayed KERAS_TIMED times
+    ff = m.ffmodel
+    batch = {ff.input_tensors[0].name: x, "label": y}
+    float(ff.train_batch(batch)["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = [ff.train_batch(batch) for _ in range(KERAS_TIMED)]
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / KERAS_TIMED
+    if not all(math.isfinite(float(t["loss"])) for t in timed):
+        raise AssertionError("keras: a non-finite loss in the timed steps")
+    del m, scan, ff, timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = max(errs, key=errs.get)
+    wdiff = max_weight_diff(we, wc)
+    prob_rel = float(np.abs(pc - ps).max() / np.abs(ps).max())
+    agree = float((pc.argmax(1) == ps.argmax(1)).mean())
+    res = {"losses": lc, "eager_losses": le, "scan_losses": lsc,
+           "grad_rel": errs, "worst_grad": [worst, errs[worst]],
+           "launches": launches, "device_launches": device,
+           "sparse_rows_launches": rows, "predict_launches": plaunch,
+           "predict_device_launches": pdevice,
+           "predict_prob_rel": prob_rel, "predict_argmax_agree": agree,
+           "captured_vs_eager_weights": wdiff,
+           "scan_vs_kernel_weights": max_weight_diff(wsc, wc),
+           "fit_s": fit_s, "step_ms": step_ms}
+    log(f"frontend (a) keras LSTM classifier [{card}]: Embedding({NV}, "
+        f"{NH}) -> LSTM({NH}) x {NL} -> Dense({KERAS_CLASSES}), batch {NB} "
+        f"x {NT}, f32, {KERAS_STEPS} keras fit steps captured: losses "
+        f"{lc}, eager {le} (weights max diff {wdiff[0]}); the scan cell "
+        f"{lsc} (tol rel {NMT_F32_LOSS_REL}); gradient |g_k - g_scan| / "
+        f"|g_scan| worst {errs[worst]:.3g} at {worst} (limit "
+        f"{NMT_GRAD_REL[torch.float32]}); launches {launches}, device "
+        f"{device}, sparse_rows {rows}; fit {fit_s:.2f} s, capture "
+        f"included; a captured step {step_ms:.3f} ms over {KERAS_TIMED}")
+    log(f"frontend (a) keras predict {KERAS_PREDICT} rows: lstm launches "
+        f"{plaunch} (device {pdevice}); probabilities vs the scan cell rel "
+        f"{prob_rel:.3e} (limit {NMT_F32_LOSS_REL}), argmax agreement "
+        f"{agree:.4f} (at least {KERAS_ARGMAX})")
+    want = NL * KERAS_STEPS
+    if launches != {"lstm_fwd": want, "lstm_bwd": want} or device != {
+            "lstm_fwd": want * NT, "lstm_bwd": want * (NT + 2)}:
+        raise AssertionError(f"keras lstm launches {launches}, device "
+                             f"{device}: want {want} calls each")
+    if rows != {"sparse_rows_exact": KERAS_STEPS, "sparse_rows_lazy": 0}:
+        raise AssertionError(f"keras sparse_rows launches {rows}")
+    wantp = NL * KERAS_PREDICT // NB
+    if plaunch != {"lstm_fwd": wantp, "lstm_bwd": 0} or \
+            pdevice["lstm_fwd"] != wantp * NT:
+        raise AssertionError(f"keras predict launches {plaunch} {pdevice}")
+    if lc != le or wdiff[0] != 0.0:
+        raise AssertionError(f"keras captured steps differ from eager: "
+                             f"losses {lc} vs {le}, weights {wdiff}")
+    if not all(abs(a - b) <= NMT_F32_LOSS_REL * abs(b)
+               for a, b in zip(lc, lsc)):
+        raise AssertionError(f"keras losses {lc} vs scan {lsc}")
+    if not errs[worst] <= NMT_GRAD_REL[torch.float32]:
+        raise AssertionError(f"keras gradient of {worst} differs by "
+                             f"{errs[worst]}")
+    if not (prob_rel <= NMT_F32_LOSS_REL and agree >= KERAS_ARGMAX):
+        raise AssertionError(f"keras predict rel {prob_rel}, argmax "
+                             f"agreement {agree}")
+    return res
+
+
+@contextlib.contextmanager
+def native_off(off=True):
+    """FLEXFLOW_TORCH_NO_NATIVE set inside (the library turned off)."""
+    import os
+    if off:
+        os.environ["FLEXFLOW_TORCH_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("FLEXFLOW_TORCH_NO_NATIVE", None)
+
+
+def loader_path(card: str):
+    """(b): fit(prefetch=True) on the classifier through the native
+    loader and through the Python loader, 3 steps each, bit for bit;
+    then the loaders alone: the host gather of a batch, and an epoch of
+    LOADER_BATCHES batches staged to the card."""
+    from flexflow_tpu_torch import native
+    from flexflow_tpu_torch.core.dataloader import DataLoaderSet
+    from flexflow_tpu_torch.native import wrappers as nw
+    t0 = time.perf_counter()
+    native.get_lib()           # built from this checkout's csrc, if absent
+    build_s = time.perf_counter() - t0
+    x, y = keras_data(3 * NB, seed=2)
+    calls = [0]
+    real_next = nw.NativePrefetchLoader.next_batch
+
+    def counted(self):
+        calls[0] += 1
+        return real_next(self)
+
+    out, weights = {}, {}
+    nw.NativePrefetchLoader.next_batch = counted
+    try:
+        for name in ("native", "python"):
+            with native_off(name == "python"):
+                calls[0] = 0
+                m = keras_classifier()
+                ff = m.ffmodel
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                h = ff.fit({ff.input_tensors[0].name: x}, y, batch_size=NB,
+                           epochs=1, verbose=False, prefetch=True)
+                torch.cuda.synchronize()
+                out[name] = {"loss": h[0]["loss"],
+                             "native_batches": calls[0],
+                             "fit_s": time.perf_counter() - t1}
+                weights[name] = weights_of(ff)
+                del m, ff
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        nw.NativePrefetchLoader.next_batch = real_next
+    diff = max_weight_diff(weights["native"], weights["python"])
+    # the loaders alone, in interleaved rounds
+    xl, yl = keras_data(LOADER_BATCHES * NB, seed=3)
+    data = {"input": xl, "label": yl}
+    order = np.random.default_rng(4).permutation(len(yl))
+    gather = {"native": [], "numpy": []}
+    epoch = {"native": [], "python": []}
+    nl = nw.NativePrefetchLoader(data, NB)
+    try:
+        for _ in range(LOADER_ROUNDS):
+            nl.start_epoch(order)
+            t1 = time.perf_counter()
+            for _ in range(LOADER_BATCHES):
+                b = nl.next_batch()
+                _ = {k: np.array(v, copy=True) for k, v in b.items()}
+            gather["native"].append(
+                1e3 * (time.perf_counter() - t1) / LOADER_BATCHES)
+            t1 = time.perf_counter()
+            for i in range(LOADER_BATCHES):
+                sel = order[i * NB:(i + 1) * NB]
+                _ = {k: v[sel] for k, v in data.items()}
+            gather["numpy"].append(
+                1e3 * (time.perf_counter() - t1) / LOADER_BATCHES)
+            for name in ("native", "python"):
+                ds = DataLoaderSet(data, NB, shuffle=False, device="cuda",
+                                   use_native=name == "native")
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                for _ in ds.iter_with_order(order):
+                    pass
+                torch.cuda.synchronize()
+                epoch[name].append(
+                    1e3 * (time.perf_counter() - t1) / LOADER_BATCHES)
+                ds.close()
+    finally:
+        nl.close()
+    res = {**out, "weights_diff": diff, "native_build_s": build_s,
+           "library": native.library_path().name, "gather_ms": gather,
+           "epoch_ms_per_batch": epoch, "batch_bytes": NB * (NT + 1) * 4}
+    log(f"frontend (b) fit(prefetch=True) [{card}]: native loader (library "
+        f"{res['library']}, ready in {build_s:.2f} s) vs Python loader: "
+        f"losses {out['native']['loss']} / {out['python']['loss']}, weights "
+        f"max diff {diff[0]}; native batches taken "
+        f"{out['native']['native_batches']} / "
+        f"{out['python']['native_batches']}; fit s "
+        f"{out['native']['fit_s']:.2f} / {out['python']['fit_s']:.2f} "
+        f"(capture included)")
+    log(f"frontend (b) loader host ms a batch of {NB} x {NT} int32 ids and "
+        f"labels ({res['batch_bytes']} B): gather native {gather['native']}"
+        f" numpy {gather['numpy']}; an epoch of {LOADER_BATCHES} batches "
+        f"staged to the card, ms a batch: native {epoch['native']} python "
+        f"{epoch['python']}")
+    if out["native"]["native_batches"] != 3 or \
+            out["python"]["native_batches"] != 0:
+        raise AssertionError(f"loader paths not taken: {out}")
+    if diff[0] != 0.0 or out["native"]["loss"] != out["python"]["loss"]:
+        raise AssertionError(f"fit(prefetch) native vs python: {out}, "
+                             f"weights {diff}")
+    return res
+
+
+class CifarCNN(torch.nn.Module):
+    """The CNN of examples/python/pytorch/cifar10_cnn_torch.py: conv
+    3->32 and 32->32 with a residual add, max-pool, fc 8192->256, fc
+    256->10, softmax."""
+
+    def __init__(self):
+        super().__init__()
+        nn = torch.nn
+        self.conv1 = nn.Conv2d(3, 32, 3, padding=1)
+        self.relu1 = nn.ReLU()
+        self.conv2 = nn.Conv2d(32, 32, 3, padding=1)
+        self.relu2 = nn.ReLU()
+        self.pool = nn.MaxPool2d(2)
+        self.flat = nn.Flatten()
+        self.fc1 = nn.Linear(32 * 16 * 16, 256)
+        self.relu3 = nn.ReLU()
+        self.fc2 = nn.Linear(256, 10)
+        self.sm = nn.Softmax(dim=-1)
+
+    def forward(self, x):
+        a = self.relu1(self.conv1(x))
+        b = self.relu2(self.conv2(a))
+        t = self.pool(a + b)
+        t = self.relu3(self.fc1(self.flat(t)))
+        return self.sm(self.fc2(t))
+
+
+def import_path(card: str):
+    """(c): the CIFAR-10 CNN through torch.fx (PyTorchModel.apply, then
+    import_weights) and through ONNX (export_torch_onnx, then ONNXModel,
+    its weights staged for compile), each forward on the card against
+    the module's own, then FX_STEPS captured steps each from the same
+    weights and batches."""
+    import copy
+    import tempfile
+    from flexflow_tpu_torch import FFConfig, FFModel, SGDOptimizer
+    from flexflow_tpu_torch.frontends.onnx import (HAS_ONNX, ONNXModel,
+                                                   export_torch_onnx)
+    from flexflow_tpu_torch.frontends.torchfx import PyTorchModel
+    torch.manual_seed(0)
+    module = CifarCNN().eval()
+    host_module = copy.deepcopy(module)
+    module = module.cuda()
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((FX_BATCH, 3, 32, 32), np.float32)
+    ys = [rng.integers(0, 10, FX_BATCH).astype(np.int32)
+          for _ in range(FX_STEPS)]
+    with torch.no_grad():
+        want = module(torch.from_numpy(x).cuda())
+    res = {"onnx_package": HAS_ONNX}
+    with tempfile.TemporaryDirectory() as td:
+        path = str(Path(td) / "cifar10_cnn.onnx")
+        t0 = time.perf_counter()
+        export_torch_onnx(host_module, torch.from_numpy(x), path,
+                          input_names=["input"], output_names=["output"])
+        res["onnx_export_s"] = time.perf_counter() - t0
+        res["onnx_bytes"] = Path(path).stat().st_size
+        for kind in ("torchfx", "onnx"):
+            ff = FFModel(FFConfig(batch_size=FX_BATCH))
+            inp = ff.create_tensor((FX_BATCH, 3, 32, 32), name="input")
+            if kind == "torchfx":
+                ptm = PyTorchModel(module)
+                ptm.apply(ff, [inp])
+            else:
+                ONNXModel(path).apply(ff, {"input": inp})
+            ff.compile(optimizer=SGDOptimizer(lr=0.01),
+                       loss_type="sparse_categorical_crossentropy",
+                       metrics=["accuracy"])
+            if kind == "torchfx":
+                ptm.import_weights(ff)
+            got = ff.forward({"input": x})
+            rel = float((got - want).abs().max() / want.abs().max())
+            losses = [float(ff.train_batch({"input": x, "label": ys[i]})
+                            ["loss"]) for i in range(FX_STEPS)]
+            res[kind] = {"forward_rel": rel, "losses": losses,
+                         "ops": [op.op_type for op in ff.ops],
+                         "captures": ff.compile_counts()}
+            del ff
+            gc.collect()
+            torch.cuda.empty_cache()
+    for kind in ("torchfx", "onnx"):
+        r = res[kind]
+        log(f"frontend (c) {kind} CIFAR-10 CNN [{card}] batch {FX_BATCH} "
+            f"x 3 x 32 x 32, f32: forward vs the module's on the card rel "
+            f"{r['forward_rel']:.3e} (limit {FX_REL}); ops {r['ops']}; "
+            f"{FX_STEPS} steps {r['captures']}, losses {r['losses']}")
+    log(f"frontend (c) onnx: exported by torch's TorchScript exporter in "
+        f"{res['onnx_export_s']:.2f} s ({res['onnx_bytes']} B), read by "
+        f"{'the onnx package' if HAS_ONNX else 'the wire reader'}")
+    la, lb = res["torchfx"]["losses"], res["onnx"]["losses"]
+    if not all(r["forward_rel"] <= FX_REL for r in (res["torchfx"],
+                                                    res["onnx"])):
+        raise AssertionError(f"imported forwards differ: {res}")
+    if not all(math.isfinite(v) for v in la + lb) or not all(
+            abs(a - b) <= FX_REL * abs(b) for a, b in zip(la, lb)):
+        raise AssertionError(f"torchfx losses {la} vs onnx {lb}")
+    return res
+
+
+def bag_path():
+    """(d): the host embedding-bag, native against numpy, sum and mean,
+    timed on the host."""
+    from flexflow_tpu_torch.native.wrappers import embedding_bag
+    rng = np.random.default_rng(6)
+    table = rng.standard_normal((BAG_VOCAB, DLRM_DIM), np.float32)
+    idx = rng.integers(0, BAG_VOCAB, (BAG_BATCH, BAG_LEN))
+    idx[rng.random(idx.shape) < 0.1] = -1
+    res = {}
+    for mode in ("sum", "mean"):
+        times, outs = {}, {}
+        for name in ("native", "numpy"):
+            with native_off(name == "numpy"):
+                embedding_bag(table, idx, mode)
+                t0 = time.perf_counter()
+                outs[name] = embedding_bag(table, idx, mode)
+                times[name] = 1e3 * (time.perf_counter() - t0)
+        err = float(np.abs(outs["native"] - outs["numpy"]).max())
+        res[mode] = {"max_abs_err": err, "ms": times,
+                     "max_abs": max(1.0, float(np.abs(outs["numpy"]).max())),
+                     "bitwise": bool((outs["native"] == outs["numpy"]).all())}
+    log(f"frontend (d) host embedding_bag, {BAG_BATCH} bags of {BAG_LEN} "
+        f"over ({BAG_VOCAB}, {DLRM_DIM}) f32, a tenth padding: native vs "
+        f"numpy {res} (ms on the host)")
+    for mode, r in res.items():
+        if not r["max_abs_err"] <= BAG_REL * r["max_abs"]:
+            raise AssertionError(f"embedding_bag {mode}: {r}")
+    return res
+
+
+def frontend_phase(ls, sr, card: str):
+    """The frontends (see the module docstring): (a) the Keras LSTM
+    classifier, (b) the native loader under fit(prefetch=True), (c)
+    torch.fx and ONNX imports of the CIFAR-10 CNN, (d) the host
+    embedding-bag. f32, TF32 off (resolve_device)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"keras": keras_path(ls, sr, card), "loader": loader_path(card),
+           "import": import_path(card), "embedding_bag": bag_path()}
+    res["phase_s"] = time.perf_counter() - t0
+    log(f"frontend phase: {res['phase_s']:.1f} s")
+    return res
+
+
 def _kernel_name(sym: str) -> str:
     """A mangled kernel symbol as name[template args, still mangled]:
     the name is the length-prefixed identifier ending in _kernel."""
@@ -7122,6 +7585,10 @@ def main() -> int:
     if "--only-layout" in sys.argv[1:]:
         log(json.dumps({"layout": layout_phase(fa, card)}, default=str))
         return 0
+    if "--only-frontend" in sys.argv[1:]:
+        log(json.dumps({"frontend": frontend_phase(ls, sr, card)},
+                       default=str))
+        return 0
     kres = kernel_phase(pr)
     dres = paged_decode_phase(fa)
     fres = flash_phase(fa)
@@ -7166,6 +7633,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     layres = layout_phase(fa, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    feres = frontend_phase(ls, sr, card)
 
     def head(cells):
         """A row's headline numbers: its f32 cell."""
@@ -7316,6 +7786,13 @@ def main() -> int:
                 d: [r[d]["device_launches"][kname] for r in chres["nmt"]]
                 for d in ("f32", "bf16")},
             "split": chres["kernels"][kname],
+            # frontend_phase (a): the Keras classifier's captured fit
+            # (3 steps) and its predict (2 batches)
+            "keras_launches": feres["keras"]["launches"][kname],
+            "keras_device_launches":
+                feres["keras"]["device_launches"][kname],
+            "keras_predict_launches":
+                feres["keras"]["predict_launches"][kname],
             "ms_rounds": head["ms_rounds"],
             "library_ms_rounds": head["library_ms_rounds"],
             **{k: head[k] for k in ("library_fwd_bwd_ms",
@@ -7373,6 +7850,9 @@ def main() -> int:
         # sp_phase (d): a rank's launches on its placed slots
         "sp_launches": [r["sparse_rows_launches"]["sparse_rows_exact"]
                         for r in spres["dlrm"]],
+        # frontend_phase (a): the Keras classifier's embedding rows
+        "keras_launches":
+            feres["keras"]["sparse_rows_launches"]["sparse_rows_exact"],
         "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
         **{k: sep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                "library_ms", "ms_rounds",
@@ -7402,6 +7882,7 @@ def main() -> int:
                                 if k != "kernels"}}, default=str))
     log(json.dumps({"layout": {k: v for k, v in layres.items()
                                if k != "kernels"}}, default=str))
+    log(json.dumps({"frontend": feres}, default=str))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -55,7 +55,7 @@ and replayed. Entry points run on the card unless the caller passes
 ``device="cpu"``.
 """
 
-from .config import CompMode, FFConfig, resolve_device
+from .config import CompMode, FFConfig, ParameterSyncType, resolve_device
 from .core.optimizers import AdamOptimizer, SGDOptimizer
 from .model import FFModel
 from .models import (build_alexnet, build_candle_uno, build_dlrm,
@@ -65,9 +65,11 @@ from .models import (build_alexnet, build_candle_uno, build_dlrm,
 from .models.transformer import (LMArch, TransformerLM, build_transformer,
                                  build_transformer_lm)
 from .serve import ServeEngine
+from .tensor import Parameter, Tensor
 from .weights import from_jax_params, load_jax_params
 
-__all__ = ["CompMode", "FFConfig", "resolve_device", "FFModel", "SGDOptimizer",
+__all__ = ["CompMode", "FFConfig", "ParameterSyncType", "resolve_device",
+           "FFModel", "Tensor", "Parameter", "SGDOptimizer",
            "AdamOptimizer", "LMArch", "TransformerLM", "build_alexnet",
            "build_candle_uno", "build_dlrm", "build_inception_v3",
            "build_moe_fused", "build_moe_reference", "build_nmt_lstm",

@@ -32,7 +32,9 @@ scan whose carry could double).
 
 Device policy: every entry point runs on the card unless the caller
 asks for the CPU. There is no fallback — :func:`resolve_device` raises
-when CUDA is asked for and missing.
+when CUDA is asked for and missing. :func:`torch_dtype` is the one map
+from the dtypes a caller of the JAX package passes (numpy's, JAX's,
+names) to the torch dtype a port ``Tensor`` holds.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import os
 import sys
 from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from .core.precision import resolve_dtype
@@ -59,6 +62,17 @@ class CompMode:
 
     TRAINING = "training"
     INFERENCE = "inference"
+
+
+class ParameterSyncType:
+    """How the reference moved a parameter's gradients (ffconst.h:44-48),
+    kept for its API with JAX's string values. The port's gradient sum
+    is the executor's (``GradSync`` over torch.distributed on a mesh),
+    whatever this says."""
+
+    NONE = "none"
+    PS = "ps"
+    NCCL = "nccl"
 
 
 def _int_or_auto(v) -> Union[int, str]:
@@ -769,3 +783,21 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
     return dev
+
+
+def torch_dtype(dtype) -> Optional[torch.dtype]:
+    """The torch dtype of ``dtype``: a torch dtype as it is, a name
+    (``"int32"``, ``"bfloat16"``), or anything ``np.dtype`` reads — a
+    numpy dtype or scalar type, or a JAX one such as ``jnp.int32`` (it
+    carries its numpy dtype), so a frontend that passes JAX's dtypes
+    builds the same tensors. None stays None."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, str):
+        named = getattr(torch, dtype.replace("torch.", ""), None)
+        if isinstance(named, torch.dtype):
+            return named
+    try:
+        return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+    except TypeError as e:
+        raise TypeError(f"no torch dtype for {dtype!r}") from e

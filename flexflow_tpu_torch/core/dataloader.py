@@ -1,5 +1,4 @@
-"""Data loading; counterpart of ``flexflow_tpu/core/dataloader.py``
-without the native C++ loader (``use_native=True`` raises).
+"""Data loading; counterpart of ``flexflow_tpu/core/dataloader.py``.
 
 The dataset stays in host numpy. A batch lands on the device through
 :func:`host_to_device`, the one placement rule of the port's batches
@@ -22,6 +21,18 @@ step i, where the synchronous path's pageable copy waits for the device
 to finish the queued work first. Batch order and contents are
 byte-identical to the synchronous path and to JAX's loader.
 
+The rows of a batch are gathered by the native C++ loader
+(``csrc/dataloader.cc`` through ``native.wrappers.NativePrefetchLoader``)
+whenever the native library is on, as JAX's ``DataLoaderSet`` does
+(``use_native=None``; ``use_native=False`` gathers in Python, and
+``use_native=True`` with the library turned off raises, as a failed
+build does). Its batches are views into the loader's double buffer,
+valid only until its next ``next_batch``: the thread that takes a view
+copies this rank's rows out of it (into the pinned slot on the card)
+before it asks for the next batch, and only then queues the
+host-to-device copy. The batches are the Python path's, batch for
+batch.
+
 ``mesh=``: on an executing mesh each rank's loaders yield its block of
 every global batch, rows ``[c*b/d, (c+1)*b/d)`` of the batch's order,
 ``c`` the rank's ``data`` coordinate and ``d`` the ``data`` axis size
@@ -40,25 +51,17 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from ..config import resolve_device
+from ..config import resolve_device, torch_dtype
 
 # JAX's canonical dtypes with 64-bit types off
 _NARROW = {torch.float64: torch.float32, torch.int64: torch.int32,
            torch.uint64: torch.uint32, torch.complex128: torch.complex64}
 
 
-def as_torch_dtype(dtype) -> Optional[torch.dtype]:
-    """A torch dtype from a torch dtype or a numpy dtype (the JAX
-    loader's ``dtypes`` are numpy's)."""
-    if dtype is None or isinstance(dtype, torch.dtype):
-        return dtype
-    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
-
-
 def placed_dtype(src: torch.dtype, dtype=None) -> torch.dtype:
     """The dtype a batch of ``src`` lands in: the declared ``dtype``,
     else ``src`` narrowed as JAX narrows it."""
-    want = as_torch_dtype(dtype)
+    want = torch_dtype(dtype)
     return want if want is not None else _NARROW.get(src, src)
 
 
@@ -111,7 +114,7 @@ class SingleDataLoader:
         self.batch_size = int(batch_size)
         self.shuffle = shuffle
         self.drop_last = drop_last
-        self.dtype = as_torch_dtype(dtype)  # cast in the transfer
+        self.dtype = torch_dtype(dtype)  # cast in the transfer
         self.device = resolve_device(device)
         self._rng = np.random.RandomState(seed)
         self._order = np.arange(len(self.data))
@@ -150,9 +153,10 @@ class SingleDataLoader:
 class _PinnedStager:
     """The worker's side of a prefetching epoch on the card: a ring of
     pinned host buffers per input and a copy stream. :meth:`stage`
-    gathers a batch's rows into a free slot (``torch.index_select``,
-    which runs on several cores and outside the GIL, where a numpy
-    fancy index is one core), queues the slot's non-blocking copy and,
+    fills a free slot with a batch's rows — gathered from the dataset
+    (``torch.index_select``, which runs on several cores and outside the
+    GIL, where a numpy fancy index is one core) or copied from the
+    native loader's views — queues the slot's non-blocking copy and,
     where the batch's dtype differs from the data's, the cast, both on
     the copy stream; it returns (device batch, event). The cast on the
     card rounds as the host's would (to nearest even)."""
@@ -167,22 +171,30 @@ class _PinnedStager:
         self.events = [None] * depth
         self.n = 0
 
-    def stage(self, sel):
+    def stage(self, sel=None, rows=None):
+        """Stage the rows ``sel`` of the dataset, or the host arrays
+        ``rows`` (one per input: the native loader's views, copied into
+        the slot before this returns)."""
         s = self.n % len(self.slots)
         self.n += 1
         if self.events[s] is not None:      # the copy reading it is done
             self.events[s].synchronize()
-        idx = torch.from_numpy(np.asarray(sel, dtype=np.int64))
+        idx = None if sel is None else torch.from_numpy(
+            np.asarray(sel, dtype=np.int64))
         out = {}
         with torch.cuda.stream(self.stream):
             for k, l in self.loaders.items():
                 src = self.src[k]
-                shape = (len(sel),) + tuple(src.shape[1:])
+                n = len(sel) if sel is not None else len(rows[k])
+                shape = (n,) + tuple(src.shape[1:])
                 host = self.slots[s].get(k)
                 if host is None or tuple(host.shape) != shape:
                     host = self.slots[s][k] = torch.empty(
                         shape, dtype=src.dtype, pin_memory=True)
-                torch.index_select(src, 0, idx, out=host)
+                if idx is not None:
+                    torch.index_select(src, 0, idx, out=host)
+                else:
+                    host.copy_(torch.from_numpy(rows[k]))
                 dev = torch.empty(shape, dtype=src.dtype, device=self.device)
                 dev.copy_(host, non_blocking=True)
                 out[k] = dev.to(placed_dtype(src.dtype, l.dtype))
@@ -192,21 +204,27 @@ class _PinnedStager:
         return out, ev
 
 
+def _own_rows(view: np.ndarray, lo: int, n: int) -> np.ndarray:
+    """This rank's rows of a native batch, copied out of the loader's
+    buffer, which its next ``next_batch`` overwrites."""
+    return np.array(view[lo:lo + n], copy=True)
+
+
 class DataLoaderSet:
     """Batches several SingleDataLoaders in lockstep (inputs + label),
     the shape FFModel.fit consumes. ``prefetch`` (the default) stages
     batches on a worker thread, two ahead of the consumer; on the card
     through pinned buffers and a copy stream of its own (module
-    docstring). ``prefetch=False`` is the synchronous path."""
+    docstring). ``prefetch=False`` is the synchronous path. The rows
+    are gathered by the native loader when ``use_native`` is not False
+    and the native library is on; ``use_native=True`` raises when it is
+    turned off. :meth:`close` stops the native loader's thread."""
 
     def __init__(self, arrays: Dict[str, np.ndarray], batch_size: int,
                  mesh=None, shuffle: bool = True, seed: int = 0,
                  use_native: Optional[bool] = None,
                  dtypes: Optional[Dict] = None,
                  prefetch: bool = True, device="cuda"):
-        if use_native:
-            raise NotImplementedError(
-                "the native C++ loader is not ported yet (use_native=True)")
         n = {len(v) for v in arrays.values()}
         if len(n) != 1:
             raise ValueError("all arrays must have equal sample counts")
@@ -223,6 +241,19 @@ class DataLoaderSet:
         self.shuffle = shuffle
         self.batch_size = batch_size
         self.prefetch = bool(prefetch)
+        self._native = None
+        if use_native is not False:
+            from .. import native
+            if native.available():
+                from ..native.wrappers import NativePrefetchLoader
+                self._native = NativePrefetchLoader(
+                    {k: np.asarray(v) for k, v in arrays.items()},
+                    batch_size, drop_last=True)
+            elif use_native:
+                raise RuntimeError(
+                    "the native loader was asked for (use_native=True) "
+                    "but the native library is turned off "
+                    "(FLEXFLOW_TORCH_NO_NATIVE)")
 
     @property
     def num_batches(self) -> int:
@@ -283,9 +314,12 @@ class DataLoaderSet:
         return True
 
     def close(self) -> None:
-        """Nothing outlives an epoch's iterator (its worker thread and
-        pinned buffers); kept for the JAX loader's interface. Safe to
-        call more than once."""
+        """Stop the native loader's thread and free its buffers (an
+        epoch's own worker thread and pinned buffers end with its
+        iterator). Safe to call more than once."""
+        if self._native is not None:
+            self._native.close()
+            self._native = None
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         return self.iter_with_order(self._epoch_order())
@@ -299,22 +333,43 @@ class DataLoaderSet:
         if len(order) != n:
             raise ValueError(f"order has {len(order)} entries for {n} "
                              f"samples")
+        if self._native is not None:
+            self._native.start_epoch(order)
         if self.prefetch and self.num_batches > 1:
             yield from self._iter_prefetch(order)
             return
         # iterator-local slicing: the loaders' cursors stay untouched
-        bs = self.batch_size
-        lo, n_rows = self._rows()
         for i in range(self.num_batches):
-            sel = order[i * bs:(i + 1) * bs][lo:lo + n_rows]
-            yield {k: host_to_device(l.data[sel], self.device, l.dtype)
-                   for k, l in self.loaders.items()}
+            yield {k: host_to_device(rows, self.device,
+                                     self.loaders[k].dtype)
+                   for k, rows in self._host_rows(order, i).items()}
+
+    def _host_rows(self, order: np.ndarray, i: int) -> Dict[str, np.ndarray]:
+        """Batch i's rows of this rank, one host array per input: the
+        native loader's next batch copied out of its buffer, or a
+        gather from the dataset."""
+        lo, n_rows = self._rows()
+        if self._native is not None:
+            return {k: _own_rows(v, lo, n_rows)
+                    for k, v in self._native_view(i).items()}
+        bs = self.batch_size
+        sel = order[i * bs:(i + 1) * bs][lo:lo + n_rows]
+        return {k: l.data[sel] for k, l in self.loaders.items()}
+
+    def _native_view(self, i: int) -> Dict[str, np.ndarray]:
+        """The native loader's batch i (views into its buffer)."""
+        view = self._native.next_batch()
+        if view is None:
+            raise RuntimeError(f"the native loader ended the epoch before "
+                               f"batch {i}")
+        return view
 
     def _iter_prefetch(self, order: np.ndarray
                        ) -> Iterator[Dict[str, torch.Tensor]]:
         """A worker thread stages batches up to two ahead; the order and
         the contents are those of the synchronous path (the worker walks
-        the same slices), only the time of staging changes."""
+        the same slices, or takes the native loader's batches in turn),
+        only the time of staging changes."""
         import queue
         import threading
         bs = self.batch_size
@@ -330,13 +385,20 @@ class DataLoaderSet:
                 for i in range(self.num_batches):
                     if stop.is_set():
                         return
-                    sel = order[i * bs:(i + 1) * bs][lo:lo + n_rows]
-                    if stager is not None:
+                    if stager is not None and self._native is None:
+                        sel = order[i * bs:(i + 1) * bs][lo:lo + n_rows]
                         q.put(stager.stage(sel))
+                    elif stager is not None:
+                        # the views are copied into the slot before the
+                        # next next_batch can overwrite them
+                        q.put(stager.stage(rows={
+                            k: v[lo:lo + n_rows]
+                            for k, v in self._native_view(i).items()}))
                     else:
-                        q.put(({k: host_to_device(l.data[sel], self.device,
-                                                  l.dtype)
-                                for k, l in self.loaders.items()}, None))
+                        q.put(({k: host_to_device(
+                            rows, self.device, self.loaders[k].dtype)
+                            for k, rows in self._host_rows(order, i).items()},
+                            None))
                 q.put(None)                          # end of epoch
             except BaseException as e:               # surface in consumer
                 q.put(e)

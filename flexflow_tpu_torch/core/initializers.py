@@ -56,6 +56,34 @@ def he_normal(rng: np.random.Generator, shape, fan_in=None,
         .astype(np.float32)
 
 
+def make_constant(value: float) -> Callable:
+    """An initializer filling every entry with ``value`` (f32)."""
+    def init(rng, shape, fan_in=None, fan_out=None) -> np.ndarray:
+        return np.full(shape, value, np.float32)
+    return init
+
+
+def make_uniform(minv: float, maxv: float, seed: int = 0) -> Callable:
+    """An initializer drawing uniformly from [minv, maxv) on the
+    parameter's generator (``seed`` is kept for the JAX signature,
+    which ignores it too)."""
+    def init(rng: np.random.Generator, shape, fan_in=None,
+             fan_out=None) -> np.ndarray:
+        return rng.uniform(minv, maxv, shape).astype(np.float32)
+    return init
+
+
+def make_normal(mean: float = 0.0, stddev: float = 1.0,
+                seed: int = 0) -> Callable:
+    """An initializer drawing from N(mean, stddev^2) on the parameter's
+    generator (``seed`` as in :func:`make_uniform`)."""
+    def init(rng: np.random.Generator, shape, fan_in=None,
+             fan_out=None) -> np.ndarray:
+        return (mean + stddev * rng.standard_normal(shape)) \
+            .astype(np.float32)
+    return init
+
+
 INITIALIZERS: Dict[str, Callable] = {
     "glorot": glorot_uniform,
     "glorot_uniform": glorot_uniform,

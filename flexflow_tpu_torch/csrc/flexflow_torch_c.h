@@ -1,15 +1,15 @@
-/* flexflow_torch_c.h — flat C API over the port's native search engine:
- * the search part of flexflow_tpu/csrc/flexflow_tpu_c.h.
+/* flexflow_torch_c.h — flat C API over the port's native library, the
+ * counterpart of flexflow_tpu/csrc/flexflow_tpu_c.h.
  *
  *   - ffsim_*    event-driven task-graph simulator
  *                (analog of src/runtime/simulator.cc:330-629)
  *   - ffsearch_* MCMC strategy-search annealing loop
  *                (analog of FFModel::optimize, src/runtime/model.cc:1905-1968)
+ *   - ffdl_*     prefetching batch gatherer for the data pipeline, and
+ *                the host embedding-bag
  *
  * Python binds this header with ctypes (flexflow_tpu_torch/native/
- * __init__.py); every entry point is usable from C as well.  The
- * prefetching data loader and the host embedding-bag of the JAX
- * package's native runtime are not part of this library.
+ * __init__.py); every entry point is usable from C as well.
  */
 #ifndef FLEXFLOW_TORCH_C_H
 #define FLEXFLOW_TORCH_C_H
@@ -124,6 +124,44 @@ double ffsearch_simulate_assignment(int32_t n_ops,
                                     double time_scale,
                                     double step_overhead,
                                     const int32_t *assignment);
+
+/* ---------------- data loader ----------------
+ * A loader gathers rows from n_arrays host arrays (equal sample counts)
+ * into per-batch contiguous buffers on a background thread,
+ * double-buffered — the prefetch analog of the reference's next_batch
+ * index-launched copies (flexflow_dataloader.cc:649-740). */
+typedef void *ffdl_handle_t;
+
+/* row_bytes[k] = bytes per sample of array k (product of non-batch dims
+ * times itemsize; arrays must be C-contiguous). */
+ffdl_handle_t ffdl_create(int32_t n_arrays,
+                          const void *const *data_ptrs,
+                          const int64_t *row_bytes,
+                          int64_t n_samples,
+                          int32_t batch_size,
+                          int32_t drop_last);
+
+/* Begin an epoch over `order` (len n_samples, caller-owned permutation;
+ * copied internally).  Restarts prefetching from batch 0. */
+void ffdl_start_epoch(ffdl_handle_t h, const int64_t *order);
+
+int32_t ffdl_num_batches(ffdl_handle_t h);
+
+/* Blocks until the next batch is gathered; fills out_ptrs[k] with the
+ * internal buffer for array k (valid until the following ffdl_next_batch
+ * or ffdl_destroy).  out_rows receives the row count (last batch may be
+ * short when drop_last=0).  Returns the batch index, or -1 at epoch end. */
+int32_t ffdl_next_batch(ffdl_handle_t h, void **out_ptrs, int32_t *out_rows);
+
+void ffdl_destroy(ffdl_handle_t h);
+
+/* Host-side embedding-bag (reference src/ops/embedding_avx2.cc role in
+ * the data pipeline): out[b] = reduce(table[indices[b, :]]) with
+ * mode 0=sum, 1=mean; negative/out-of-range indices are padding and are
+ * skipped.  indices is (batch, bag_size) row-major; out is (batch, dim). */
+void ffdl_embedding_bag(const float *table, int64_t num_entries,
+                        int32_t dim, const int64_t *indices, int64_t batch,
+                        int32_t bag_size, int32_t mode, float *out);
 
 /* ---------------- misc ---------------- */
 const char *flexflow_torch_native_version(void);

@@ -20,7 +20,13 @@ checkpoint restore resyncs.
 
 Op state (BatchNorm's running statistics) is read and written with
 ``get_states`` / ``set_states``; ``conv_layout='NHWC'`` and
-``sibling_conv_fusion`` take effect in the executor.
+``sibling_conv_fusion`` take effect in the executor. A frontend stages
+imported weights and op state on ``imported_weights`` /
+``imported_states``, which ``compile`` applies once the state exists,
+on every executor path. The reference's legacy calls are kept:
+``summary`` (JAX's table), ``init_layers`` and ``zero_gradients`` (a
+no-op: each step's gradients are fresh ``torch.autograd.grad``
+values).
 
 ``fit`` keeps up to ``train_dispatch_depth`` dispatches in flight
 before fetching the oldest one's metrics (core/overlap.py), records
@@ -77,7 +83,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .config import CompMode, FFConfig, resolve_device
+from .config import CompMode, FFConfig, resolve_device, torch_dtype
 from .core import prng
 from .core.executor import Executor, TrainState
 from .core.overlap import DispatchWindow
@@ -141,11 +147,17 @@ class FFModel:
         self._host_step = 0
         self.last_train_stats: Optional[dict] = None   # set by fit()
         self.telemetry = None                          # set by fit()
+        # weights and op state ({op: {name: array}}) a frontend staged
+        # before compile; compile applies them once the state exists
+        self.imported_weights: Dict[str, Dict[str, np.ndarray]] = {}
+        self.imported_states: Dict[str, Dict[str, np.ndarray]] = {}
 
     # ---------------- tensors ----------------
     def create_tensor(self, shape: Sequence[int], dtype=torch.float32,
                       name: Optional[str] = None) -> Tensor:
-        t = Tensor(tuple(shape), dtype,
+        """An input of the graph. ``dtype`` is a torch dtype or one
+        ``config.torch_dtype`` maps (numpy's, JAX's, a name)."""
+        t = Tensor(tuple(shape), torch_dtype(dtype),
                    name=name or self._fresh_name("input"), is_input=True)
         self.input_tensors.append(t)
         return t
@@ -532,6 +544,10 @@ class FFModel:
         self._next_rng()
         self.state = self.executor.init_state()
         self._host_step = 0  # mirrors state.step for the train key
+        for op_name, ws in self.imported_weights.items():
+            self.set_weights(op_name, ws)
+        for op_name, ss in self.imported_states.items():
+            self.set_states(op_name, ss)
 
     def _lower_placement(self):
         """JAX's device-explicit placement lowering: (stage_of, pipe
@@ -645,6 +661,17 @@ class FFModel:
         return sub
 
     # ---------------- steps ----------------
+    def init_layers(self) -> None:
+        """The reference's step API: compile with the defaults if the
+        model has no state yet."""
+        if self.state is None:
+            self.compile()
+
+    def zero_gradients(self) -> None:
+        """The reference's step API. Nothing to zero: each step's
+        gradients are the fresh values of ``torch.autograd.grad``
+        (core/executor.py), never accumulated into ``.grad`` buffers."""
+
     def forward(self, batch: Dict[str, np.ndarray]) -> torch.Tensor:
         """The final tensor of one batch in eval mode (the prediction).
         On a mesh every rank gets the global batch's output, gathered
@@ -933,6 +960,8 @@ class FFModel:
                         pass   # an unwritable path must not fail fit
             if ckptr is not None:   # commit in-flight saves on any exit
                 ckptr.close()
+            if fit_loader is not None:   # the native loader's thread
+                fit_loader.close()
         return history
 
     @staticmethod
@@ -1174,6 +1203,20 @@ class FFModel:
     def get_learning_rate(self) -> float:
         base = float(getattr(self.optimizer, "lr", 0.0) or 0.0)
         return base * float(getattr(self.executor, "_lr_scale", 1.0))
+
+    def summary(self) -> str:
+        """One line per op (name, type, first output's shape, weight
+        count from ``weight_specs``) and the total: JAX's table,
+        character for character."""
+        lines = [f"{'op':30s} {'type':20s} {'output':24s} {'params':>12s}"]
+        total = 0
+        for op in self.ops:
+            n = sum(int(np.prod(s.shape)) for s in op.weight_specs().values())
+            total += n
+            lines.append(f"{op.name:30s} {op.op_type:20s} "
+                         f"{str(op.outputs[0].shape):24s} {n:>12,d}")
+        lines.append(f"total params: {total:,d}")
+        return "\n".join(lines)
 
     # ---------------- weight access ----------------
     def get_weights(self, op_name: str) -> Dict[str, np.ndarray]:

@@ -1,6 +1,9 @@
-"""The port's native search engine: the C++ task-graph simulator and
-MCMC annealing loop (``flexflow_tpu_torch/csrc/``: ``simulator.cc``,
-``mcmc.cc``, ``sim_core.h``, ``flexflow_torch_c.h``), bound with ctypes.
+"""The port's native library, bound with ctypes: the search engine (the
+C++ task-graph simulator and MCMC annealing loop, ``simulator.cc``,
+``mcmc.cc``, ``sim_core.h``) and the data pipeline's prefetching row
+gatherer and host embedding-bag (``dataloader.cc``,
+``embedding_bag.cc``), all declared in ``flexflow_torch_c.h`` under
+``flexflow_tpu_torch/csrc/``.
 
 The library is compiled with g++ at first use into the git-ignored
 ``flexflow_tpu_torch/_build/``, as ``kernels/_build.py`` builds the CUDA
@@ -10,10 +13,12 @@ the build writes a temporary file and renames it, so concurrent
 builders never load a half-written library. It reads only
 ``flexflow_tpu_torch/csrc/``.
 
-A failed build raises with g++'s message: the search does not fall
-through to its Python engine behind the caller's back. Setting
-``FLEXFLOW_TORCH_NO_NATIVE`` turns the engine off (:func:`available`
-is then False and ``search.mcmc.optimize`` anneals in Python).
+A failed build raises with g++'s message: neither the search nor the
+loader falls through to its Python path behind the caller's back.
+Setting ``FLEXFLOW_TORCH_NO_NATIVE`` turns the library off
+(:func:`available` is then False): ``search.mcmc.optimize`` anneals in
+Python, ``DataLoaderSet`` gathers rows in Python and
+``wrappers.embedding_bag`` reduces in numpy.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("simulator.cc", "mcmc.cc")
+SOURCES = ("simulator.cc", "mcmc.cc", "dataloader.cc", "embedding_bag.cc")
 HEADERS = ("flexflow_torch_c.h", "sim_core.h")
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
 
@@ -57,9 +62,9 @@ def build() -> Path:
     cxx = shutil.which("g++")
     if cxx is None:
         raise RuntimeError(
-            "the native search engine needs g++ to build "
+            "the native library needs g++ to build "
             "flexflow_tpu_torch/csrc (set FLEXFLOW_TORCH_NO_NATIVE to "
-            "search with the Python engine)")
+            "search and load data in Python)")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [cxx, *CXX_FLAGS, "-I", str(CSRC),
@@ -68,7 +73,7 @@ def build() -> Path:
     if p.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"g++ failed to build the native search engine "
+            f"g++ failed to build the native library "
             f"({' '.join(cmd)}):\n{p.stdout}{p.stderr}")
     os.replace(tmp, out)
     return out
@@ -100,6 +105,27 @@ def _declare(lib: ctypes.CDLL) -> None:
         ctypes.c_int32, ctypes.c_double, ctypes.c_double,
         ctypes.c_double, i32p]
 
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    vpp = ctypes.POINTER(ctypes.c_void_p)
+    lib.ffdl_create.restype = ctypes.c_void_p
+    lib.ffdl_create.argtypes = [ctypes.c_int32, vpp, i64p,
+                                ctypes.c_int64, ctypes.c_int32,
+                                ctypes.c_int32]
+    lib.ffdl_start_epoch.restype = None
+    lib.ffdl_start_epoch.argtypes = [ctypes.c_void_p, i64p]
+    lib.ffdl_num_batches.restype = ctypes.c_int32
+    lib.ffdl_num_batches.argtypes = [ctypes.c_void_p]
+    lib.ffdl_next_batch.restype = ctypes.c_int32
+    lib.ffdl_next_batch.argtypes = [ctypes.c_void_p, vpp, i32p]
+    lib.ffdl_destroy.restype = None
+    lib.ffdl_destroy.argtypes = [ctypes.c_void_p]
+
+    f32p = ctypes.POINTER(ctypes.c_float)
+    lib.ffdl_embedding_bag.restype = None
+    lib.ffdl_embedding_bag.argtypes = [
+        f32p, ctypes.c_int64, ctypes.c_int32, i64p, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32, f32p]
+
     lib.flexflow_torch_native_version.restype = ctypes.c_char_p
     lib.flexflow_torch_native_version.argtypes = []
 
@@ -112,7 +138,7 @@ def get_lib() -> ctypes.CDLL:
         return _lib
     if not available():
         raise RuntimeError(
-            "the native search engine is turned off "
+            "the native library is turned off "
             "(FLEXFLOW_TORCH_NO_NATIVE)")
     with _lock:
         if _lib is None:
@@ -123,7 +149,8 @@ def get_lib() -> ctypes.CDLL:
 
 
 def available() -> bool:
-    """Whether the search uses the native engine: True unless
+    """Whether the native library is on (the search's engine, the
+    loader's gatherer, the embedding-bag): True unless
     FLEXFLOW_TORCH_NO_NATIVE is set. It does not try the build — a
-    build that fails raises when the engine is first used."""
+    build that fails raises when the library is first used."""
     return not os.environ.get("FLEXFLOW_TORCH_NO_NATIVE")

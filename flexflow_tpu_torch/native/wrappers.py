@@ -1,22 +1,28 @@
-"""Thin numpy-level wrappers over the native search engine's C API
-(``flexflow_tpu/native/wrappers.py``'s search part): the event-loop
+"""Thin numpy-level wrappers over the native library's C API
+(``flexflow_tpu/native/wrappers.py``'s counterparts): the event-loop
 simulator of one task graph, the per-(op, candidate) ``CostTable``, the
-annealing loop and the simulation of one candidate assignment. Each
-builds the library at first use (``native.get_lib``) and raises when it
-cannot."""
+annealing loop and the simulation of one candidate assignment, the
+prefetching row gatherer (``NativePrefetchLoader``) and the host
+``embedding_bag``. Each builds the library at first use
+(``native.get_lib``) and raises when it cannot; ``embedding_bag``
+reduces in numpy when the library is turned off, as JAX's does."""
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from . import get_lib
+from . import available, get_lib
 
 
 def _i32(a) -> np.ndarray:
     return np.ascontiguousarray(a, dtype=np.int32)
+
+
+def _i64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.int64)
 
 
 def _f64(a) -> np.ndarray:
@@ -25,6 +31,8 @@ def _f64(a) -> np.ndarray:
 
 def _p(a: np.ndarray):
     ct = {np.dtype(np.int32): ctypes.c_int32,
+          np.dtype(np.int64): ctypes.c_int64,
+          np.dtype(np.float32): ctypes.c_float,
           np.dtype(np.float64): ctypes.c_double}[a.dtype]
     return a.ctypes.data_as(ctypes.POINTER(ct))
 
@@ -169,3 +177,124 @@ def simulate_assignment(table: CostTable, edges: Sequence[Tuple[int, int]],
         len(edges), _p(e_src), _p(e_dst),
         int(overlap_backward_sync), hbm_capacity, time_scale,
         step_overhead, _p(a)))
+
+
+class NativePrefetchLoader:
+    """Background-thread batch gatherer over C-contiguous host arrays
+    (``csrc/dataloader.cc``): a native thread gathers each batch's rows
+    of every array into one of two contiguous buffers, so the gather of
+    batch i+1 overlaps the caller's staging of batch i.
+
+    :meth:`next_batch` returns zero-copy views into those buffers. A
+    view is valid only until the next :meth:`next_batch` call (the
+    worker then refills its buffer) and until :meth:`close`: copy what
+    must outlive it."""
+
+    def __init__(self, arrays: Dict[str, np.ndarray], batch_size: int,
+                 drop_last: bool = True):
+        lib = get_lib()
+        self._lib = lib
+        self.names = list(arrays.keys())
+        self.arrays = [np.ascontiguousarray(arrays[k]) for k in self.names]
+        n = {len(a) for a in self.arrays}
+        if len(n) != 1:
+            raise ValueError("arrays must have equal sample counts")
+        self.n_samples = n.pop()
+        self.batch_size = int(batch_size)
+        if self.batch_size < 1:
+            raise ValueError(f"batch_size {batch_size} < 1")
+        self.row_bytes = _i64([
+            a.nbytes // max(1, len(a)) for a in self.arrays])
+        self.row_shapes = [a.shape[1:] for a in self.arrays]
+        self.dtypes = [a.dtype for a in self.arrays]
+        ptrs = (ctypes.c_void_p * len(self.arrays))(
+            *[a.ctypes.data_as(ctypes.c_void_p).value for a in self.arrays])
+        self._h = lib.ffdl_create(len(self.arrays), ptrs, _p(self.row_bytes),
+                                  self.n_samples, self.batch_size,
+                                  int(drop_last))
+        if not self._h:
+            raise RuntimeError("ffdl_create failed")
+
+    def start_epoch(self, order: Optional[np.ndarray] = None) -> None:
+        """Begin an epoch over ``order`` (a permutation of the samples;
+        the identity by default), restarting the prefetch at batch 0."""
+        if order is None:
+            order = np.arange(self.n_samples, dtype=np.int64)
+        order = _i64(order)
+        if order.shape != (self.n_samples,):
+            raise ValueError(f"order has shape {order.shape} for "
+                             f"{self.n_samples} samples")
+        if len(order) and (order.min() < 0
+                           or order.max() >= self.n_samples):
+            raise ValueError("order holds a row outside the arrays")
+        self._lib.ffdl_start_epoch(self._h, _p(order))
+
+    @property
+    def num_batches(self) -> int:
+        return int(self._lib.ffdl_num_batches(self._h))
+
+    def next_batch(self) -> Optional[Dict[str, np.ndarray]]:
+        """The next batch as zero-copy views into the native double
+        buffer (valid until the following call); None at epoch end."""
+        k = len(self.arrays)
+        out = (ctypes.c_void_p * k)()
+        rows = ctypes.c_int32(0)
+        idx = self._lib.ffdl_next_batch(self._h, out, ctypes.byref(rows))
+        if idx < 0:
+            return None
+        batch = {}
+        for i, name in enumerate(self.names):
+            shape = (rows.value,) + self.row_shapes[i]
+            nbytes = int(np.prod(shape)) * self.dtypes[i].itemsize
+            buf = (ctypes.c_char * nbytes).from_address(out[i])
+            batch[name] = np.frombuffer(buf, dtype=self.dtypes[i]).reshape(
+                shape)
+        return batch
+
+    def close(self) -> None:
+        """Stop the worker and free the buffers (views die with them).
+        Safe to call more than once."""
+        if getattr(self, "_h", None):
+            self._lib.ffdl_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def embedding_bag(table: np.ndarray, indices: np.ndarray,
+                  mode: str = "sum") -> np.ndarray:
+    """Host-side embedding-bag: ``out[b] = reduce(table[indices[b]])``.
+
+    table (V, D) float32; indices (B, L) int, where a negative or
+    out-of-range entry is padding; ``mode`` "sum" or "mean" (over the
+    bag's valid entries). The data-pipeline role of the reference's AVX2
+    CPU embedding-bag (src/ops/embedding_avx2.cc): pre-reduce multi-hot
+    categorical features before the batch ships to the card. Runs the
+    native code when the library is on (:func:`available`), numpy when
+    it is turned off."""
+    table = np.ascontiguousarray(table, np.float32)
+    idx = _i64(indices)
+    if table.ndim != 2 or idx.ndim != 2:
+        raise ValueError(f"table {table.shape} and indices {idx.shape} "
+                         f"must both be 2-D")
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"mode {mode!r} is not 'sum' or 'mean'")
+    b, bag = idx.shape
+    v, d = table.shape
+    if available():
+        out = np.empty((b, d), np.float32)
+        get_lib().ffdl_embedding_bag(
+            _p(table), ctypes.c_int64(v), ctypes.c_int32(d), _p(idx),
+            ctypes.c_int64(b), ctypes.c_int32(bag),
+            ctypes.c_int32(0 if mode == "sum" else 1), _p(out))
+        return out
+    valid = (idx >= 0) & (idx < v)
+    gathered = np.where(valid[..., None], table[np.clip(idx, 0, v - 1)], 0.0)
+    out = gathered.sum(axis=1)
+    if mode == "mean":
+        out /= np.maximum(valid.sum(axis=1, keepdims=True), 1)
+    return out

@@ -336,3 +336,15 @@ class Op:
         ins = ", ".join(str(t.shape) for t in self.inputs)
         outs = ", ".join(str(t.shape) for t in self.outputs)
         return f"{type(self).__name__}({self.name}: [{ins}] -> [{outs}])"
+
+
+# op_type -> class of every op the package defines (each op module
+# decorates its classes), the JAX package's registry under its keys
+OP_REGISTRY: Dict[str, type] = {}
+
+
+def register_op(cls):
+    """Class decorator: enter ``cls`` in :data:`OP_REGISTRY` under its
+    ``op_type``."""
+    OP_REGISTRY[cls.op_type] = cls
+    return cls

@@ -47,9 +47,10 @@ from ..kernels.dropout import dropout as apply_dropout
 from ..kernels.flash_attention import (MAX_HEAD_DIM, attention_ref,
                                        flash_attention_bshd)
 from ..op import (CHANNEL_IN, CHANNEL_OUT, HEAD, SAMPLE, SEQ, Op,
-                  OpContext, WeightSpec, tp_axis)
+                  OpContext, WeightSpec, register_op, tp_axis)
 
 
+@register_op
 class MultiHeadAttention(Op):
     op_type = "multihead_attention"
 

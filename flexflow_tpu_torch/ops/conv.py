@@ -50,7 +50,8 @@ import torch.nn.functional as F
 
 from ..core.precision import reciprocal_f32
 from ..op import (CHANNEL, CHANNEL_IN, CHANNEL_OUT, HEIGHT, SAMPLE, WIDTH,
-                  Op, OpContext, StateSpec, WeightSpec, tp_axis)
+                  Op, OpContext, StateSpec, WeightSpec, register_op,
+                  tp_axis)
 from .common import AC_MODE_NONE, apply_activation, conv_out_dim
 
 _CL = torch.channels_last
@@ -62,6 +63,7 @@ def _nchw(y: torch.Tensor, nhwc: bool, keep: bool) -> torch.Tensor:
     return y if not nhwc or keep else y.contiguous()
 
 
+@register_op
 class Conv2D(Op):
     op_type = "conv2d"
 
@@ -208,6 +210,7 @@ def merged_conv_forward(ops: List[Conv2D], params_list, x,
     return [_nchw(o, nhwc, nhwc_out) for o in outs]
 
 
+@register_op
 class Pool2D(Op):
     op_type = "pool2d"
 
@@ -291,6 +294,7 @@ def _global_moments(xf, dims, shape_k, mesh, axis="data"):
     return mean, var
 
 
+@register_op
 class BatchNorm(Op):
     """Training-mode batch norm with running statistics as op state
     (``running_mean``, ``running_var``): training normalizes with the
@@ -377,6 +381,7 @@ class BatchNorm(Op):
         return 8.0 * self.inputs[0].num_elements
 
 
+@register_op
 class Flat(Op):
     """(N, C, H, W) -> (N, C*H*W) in NCHW order."""
 

@@ -8,7 +8,8 @@ import torch.nn.functional as F
 
 from ..core.precision import policy_active
 from ..kernels.dropout import dropout, keep_in_dtype
-from ..op import CHANNEL, SAMPLE, SEQ, Op, OpContext, WeightSpec
+from ..op import (CHANNEL, SAMPLE, SEQ, Op, OpContext, WeightSpec,
+                  register_op)
 
 _UNARY = {
     "relu": torch.relu,
@@ -57,6 +58,7 @@ class PassthroughAxesMixin:
         return [_passthrough_axes(t.shape)[0] for t in self.inputs]
 
 
+@register_op
 class ElementUnary(PassthroughAxesMixin, Op):
     op_type = "element_unary"
     seq_local = True
@@ -83,6 +85,7 @@ class ElementUnary(PassthroughAxesMixin, Op):
         return float(self.inputs[0].num_elements)
 
 
+@register_op
 class Reduce(Op):
     """Mean, sum or max over one axis (never the sample dim 0). Under
     the mixed-precision policy a low-precision mean or sum accumulates
@@ -142,6 +145,7 @@ class Reduce(Op):
         return float(self.inputs[0].num_elements)
 
 
+@register_op
 class ElementBinary(PassthroughAxesMixin, Op):
     """``a (op) b`` with numpy broadcasting. Position-local: an input
     broadcast along the sequence (size 1 there) is read whole on that
@@ -169,6 +173,7 @@ class ElementBinary(PassthroughAxesMixin, Op):
         return float(self.outputs[0].num_elements)
 
 
+@register_op
 class Dropout(PassthroughAxesMixin, Op):
     """``jnp.where(bernoulli(op key, keep, shape), x / keep, 0)`` with
     JAX's key chain (core/prng.py), through the dropout kernel
@@ -196,6 +201,7 @@ class Dropout(PassthroughAxesMixin, Op):
                         offset=ctx.rng.offset(x), rows=ctx.rng.rows(x))]
 
 
+@register_op
 class Softmax(PassthroughAxesMixin, Op):
     """``jax.nn.softmax`` op for op, in the input dtype: the JAX op
     casts to f32 only under the mixed-precision policy, which the port
@@ -227,6 +233,7 @@ class Softmax(PassthroughAxesMixin, Op):
         return 5.0 * self.inputs[0].num_elements
 
 
+@register_op
 class LayerNorm(PassthroughAxesMixin, Op):
     """Normalize over the last dim with learned scale/bias; statistics
     in f32 (population variance), output in the input dtype."""

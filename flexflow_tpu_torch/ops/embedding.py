@@ -50,13 +50,14 @@ import torch.nn.functional as F
 
 from ..core.precision import reciprocal_f32
 from ..op import (CHANNEL_OUT, SAMPLE, SEQ, TABLE, VOCAB, Op, OpContext,
-                  WeightSpec, _sample_only, tp_axis)
+                  WeightSpec, _sample_only, register_op, tp_axis)
 
 AGGR_MODE_NONE = "none"
 AGGR_MODE_SUM = "sum"
 AGGR_MODE_AVG = "avg"
 
 
+@register_op
 class Embedding(Op):
     op_type = "embedding"
 
@@ -212,6 +213,7 @@ def _slot_gather(tables, ids):
     return F.embedding(gid.clamp(0, s * v - 1), tables.reshape(s * v, d))
 
 
+@register_op
 class DistributedEmbedding(Op):
     """E same-vocab embedding bags as ONE stacked (E, vocab, dim) weight:
     inputs are E index tensors of shape (batch, bag), outputs E tensors

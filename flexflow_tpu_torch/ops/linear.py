@@ -15,10 +15,11 @@ from typing import Dict, List, Tuple
 import torch
 
 from ..op import (CHANNEL_IN, CHANNEL_OUT, SAMPLE, SEQ, Op, OpContext,
-                  WeightSpec, tp_axis)
+                  WeightSpec, register_op, tp_axis)
 from .common import AC_MODE_NONE, apply_activation
 
 
+@register_op
 class Linear(Op):
     op_type = "linear"
     seq_local = True

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from ..op import SAMPLE, Op, OpContext
+from ..op import SAMPLE, Op, OpContext, register_op
 
 # Above this many mask elements (S * E * C floats) the dense dispatch mask
 # is waste; the sorted scatter does the same routing. Override with
@@ -140,6 +140,7 @@ def use_sorted_dispatch(model, n_slots: int, n_experts: int,
     return n_slots * n_experts * capacity > DENSE_MASK_ELEMENT_LIMIT
 
 
+@register_op
 class GroupBy(Op):
     """inputs (data (B, D), assign (B, k)); outputs n tensors (capacity,
     D), capacity ``max(1, int(alpha * k * B / n))``."""
@@ -189,6 +190,7 @@ class GroupBy(Op):
         return [(SAMPLE, None)] * self.n
 
 
+@register_op
 class Aggregate(Op):
     """inputs (gate_preds (B, k), assign (B, k), exp_pred_0..n-1 (cap,
     D)); output (B, D): each slot's expert output weighted by its gate,

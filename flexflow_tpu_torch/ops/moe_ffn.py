@@ -39,7 +39,7 @@ import torch
 
 from ..core.precision import reciprocal_f32
 from ..op import (CHANNEL, EXPERT, SAMPLE, SEQ, Op, OpContext, WeightSpec,
-                  tp_axis)
+                  register_op, tp_axis)
 from .common import AC_MODE_RELU, apply_activation
 from .moe import (dispatch_indices, dispatch_mask, expert_prefix,
                   sorted_combine, sorted_dispatch, use_sorted_dispatch)
@@ -53,6 +53,7 @@ def _bmm_f32(a, b, dtype):
     return torch.bmm(a.float(), b.float()).to(dtype)
 
 
+@register_op
 class MoEFFN(Op):
     """input (..., D) -> output (..., out_dim) through ``num_experts``
     two-layer FFNs with top-k routing."""

@@ -23,9 +23,11 @@ from typing import Callable, Dict
 
 import torch
 
-from ..op import LAYER, SAMPLE, SEQ, Op, OpContext, WeightSpec
+from ..op import (LAYER, SAMPLE, SEQ, Op, OpContext, WeightSpec,
+                  register_op)
 
 
+@register_op
 class PipelineBlocks(Op):
     op_type = "pipeline_blocks"
     has_aux_loss = True  # may carry sub-op aux losses; kept out of remat

@@ -32,7 +32,7 @@ import torch
 
 from ..kernels.lstm_scan import lstm_sequence, lstm_sequence_split
 from ..op import (CHANNEL_IN, CHANNEL_OUT, SAMPLE, SEQ, Op, OpContext,
-                  WeightSpec, tp_axis)
+                  WeightSpec, register_op, tp_axis)
 
 
 def dh_sum(part, bm, axis):
@@ -109,6 +109,7 @@ def unit_blocks(w, bm, axis):
         d + 1, bm.coord(axis)).reshape(lead + (cols,))
 
 
+@register_op
 class LSTM(Op):
     """input (B, T, D) -> output (B, T, H), or (B, H) without
     ``return_sequences``."""

@@ -8,9 +8,10 @@ from typing import List, Tuple
 
 import torch
 
-from ..op import Op, OpContext
+from ..op import Op, OpContext, register_op
 
 
+@register_op
 class Concat(Op):
     """``torch.cat`` along ``axis``. Under ``conv_layout='NHWC'`` a
     channel concat of channels-last operands stays channels-last (the
@@ -36,6 +37,7 @@ class Concat(Op):
         return [torch.cat(xs, dim=self.axis)]
 
 
+@register_op
 class Split(Op):
     """Split into pieces of the given SIZES along ``axis``. (jnp.split
     takes cut indices, torch.split sizes: the JAX op converts its sizes
@@ -66,6 +68,7 @@ class Split(Op):
         return list(torch.split(x, self.sizes, dim=self.axis))
 
 
+@register_op
 class Reshape(Op):
     op_type = "reshape"
 
@@ -93,6 +96,7 @@ class Reshape(Op):
         return [xs[0].reshape(self.new_shape)]
 
 
+@register_op
 class Transpose(Op):
     op_type = "transpose"
 
@@ -109,6 +113,7 @@ class Transpose(Op):
         return [xs[0].permute(self.perm)]
 
 
+@register_op
 class Reverse(Op):
     op_type = "reverse"
 
@@ -124,6 +129,7 @@ class Reverse(Op):
         return [torch.flip(xs[0], dims=(self.axis,))]
 
 
+@register_op
 class TopK(Op):
     """(values, int32 indices) of the ``k`` largest along the last dim,
     in descending order, as ``lax.top_k``: equal values keep their
@@ -156,6 +162,7 @@ class TopK(Op):
         return [torch.gather(x, -1, idx), idx.to(torch.int32)]
 
 
+@register_op
 class BatchMatmul(Op):
     """``a @ b`` over matching leading batch dims, summed in f32 and
     rounded to a's dtype (the JAX op's ``preferred_element_type=f32``).

@@ -4,7 +4,8 @@ Counterpart of ``flexflow_tpu/tensor.py``: a ``Tensor`` is a symbolic
 handle produced while the user builds the graph; concrete values are
 torch tensors the executor materializes, and gradients come from
 ``torch.autograd.grad``. Shapes are stored outer-to-inner (NumPy
-order); the dtype is a ``torch.dtype``.
+order); the dtype is a ``torch.dtype``. ``Parameter`` is the
+reference's weight handle, kept for its API.
 """
 
 from __future__ import annotations
@@ -53,3 +54,18 @@ class Tensor:
         prod = self.owner_op.name if self.owner_op is not None else "input"
         return (f"Tensor({self.name}, shape={self.shape}, "
                 f"dtype={self.dtype}, by={prod})")
+
+
+class Parameter(Tensor):
+    """A trainable weight handle (reference: include/tensor.h
+    ``Parameter``), kept for the API: the executor's weights are the
+    ops' ``weight_specs``. ``sync_type`` is a ``ParameterSyncType``
+    value; ``initializer_name`` names a ``core/initializers`` entry."""
+
+    __slots__ = ("sync_type", "initializer_name")
+
+    def __init__(self, shape, dtype=torch.float32, owner_op=None, name=None,
+                 sync_type: str = "none", initializer_name: str = "glorot"):
+        super().__init__(shape, dtype, owner_op=owner_op, name=name)
+        self.sync_type = sync_type
+        self.initializer_name = initializer_name

@@ -411,10 +411,19 @@ def test_prefetch_under_fast_thread_switching():
         sys.setswitchinterval(old)
 
 
-def test_native_loader_is_not_ported():
-    with pytest.raises(NotImplementedError, match="native"):
+def test_native_loader_is_not_ported(monkeypatch):
+    """The native loader is ported: use_native=True takes it, and raises
+    only when the native library is turned off (no quiet Python path)."""
+    ds = DataLoaderSet({"x": np.zeros((4, 1))}, 2, use_native=True,
+                       device="cpu")
+    assert ds._native is not None
+    ds.close()
+    monkeypatch.setenv("FLEXFLOW_TORCH_NO_NATIVE", "1")
+    with pytest.raises(RuntimeError, match="native"):
         DataLoaderSet({"x": np.zeros((4, 1))}, 2, use_native=True,
                       device="cpu")
+    assert DataLoaderSet({"x": np.zeros((4, 1))}, 2,
+                         device="cpu")._native is None
 
 
 def test_synthetic_inputs_match_jax():

@@ -87,3 +87,14 @@ def test_native_loader_reads_only_port_sources():
                 assert inc in native.HEADERS, (f, inc)
     names = {p.name for p in csrc.iterdir()}
     assert names >= set(native.SOURCES + native.HEADERS)
+    # the loader's and embedding-bag's C API: declared in the port's
+    # header, defined in its sources, bound by the built library
+    assert {"dataloader.cc", "embedding_bag.cc"} <= set(native.SOURCES)
+    header = (csrc / "flexflow_torch_c.h").read_text()
+    defined = "".join((csrc / f).read_text() for f in native.SOURCES)
+    lib = native.get_lib()
+    for sym in ("ffdl_create", "ffdl_start_epoch", "ffdl_num_batches",
+                "ffdl_next_batch", "ffdl_destroy", "ffdl_embedding_bag"):
+        assert f" {sym}(" in header, sym
+        assert f" {sym}(" in defined, sym
+        assert getattr(lib, sym).argtypes, sym
