@@ -70,6 +70,20 @@ wide-head) must not spill — and then:
     against one no-cache ``generate_reference``, all its tokens equal
     an eager engine's run token for token, and its kernel launches
     equal layers x steps; step times and tokens/s captured and eager;
+  * boots that LM in fresh processes over one ``program_cache_dir``
+    (``boot_phase``): cold on f32 pages (the six kernel sources built
+    into ``<dir>/kernels``, the program store written), then warm (no
+    compiler, the stored signature captured in ``warmup``, nothing
+    captured after it) and a ``ReplicaPool`` scale-up labelled
+    ``replica_boot_warm``; cold then warm on int8 pages; and, on a copy
+    of the directory, a truncated store and a zeroed kernel 1 library
+    (both warn; kernel 1 rebuilt and held against its plain version):
+    every process's tokens equal the serving run's, its time to ready
+    printed by part; then ``cost_phase``: ``mixed_step_cost_analysis``
+    and ``hlo_cost`` of the bf16-policy LM step (flops, bytes, the
+    kernels' share) beside each step's graph-replay time.
+    ``--only-boot`` builds the kernels and runs these two alone on an
+    untrained LM;
   * serves and trains under failure and under telemetry
     (``robust_phase``): the 8 greedy prompts through the captured mixed
     step and legacy path with transient dispatch faults, a cancel and
@@ -311,12 +325,6 @@ HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
                torch.int8: 1979e12, torch.float8_e4m3fn: 1979e12,
                torch.int32: 132 * 64 * 1.98e9}
-# the dropout kernel's 32-bit integer operations an element: threefry2x32
-# (2 initial adds, 20 rounds of add, rotate and xor, 5 key injections of
-# two adds) and the uniform's xor, shift and or; the op key's fold-in
-# (one more threefry, 72) is counted once a call
-DROPOUT_INT_OPS_PER_ELEMENT = 2 + 20 * 3 + 5 * 2 + 3
-DROPOUT_INT_OPS_PER_CALL = 72
 
 # the serving mixed step's geometry at the FFConfig defaults:
 # serve_prefill_budget 512 + serve_max_seqs 8 lanes, kv_page_size 16,
@@ -471,26 +479,12 @@ def kernel_inputs(dtype, device, seed=0, heads=HEADS):
 
 def attention_bound(q, kp, tables, slots, lens):
     """(bound_ms, bound_by) of paged attention on these inputs: the
-    larger of the bytes it must move (each live K/V page — the pages
-    below ceil(len/ps) of every row's table row — read once with, for
-    1-byte pages, its f32 scale rows; q and the table data read once,
-    the output written once) over the HBM rate, and its flops (q.k and
-    p.v: 4 * len * H * D per row) over the card's peak rate for the
+    kernels' own count of their work (``paged_ragged_v2.paged_work``,
+    what the cost analyses add for them: each live K/V page read once,
+    q.k and p.v at 4 * len * H * D a row) at the card's rates for the
     pages' type. ``slots`` None: row b reads table row b (decode)."""
-    t_np, l_np = tables.cpu().numpy(), lens.cpu().numpy()
-    s_np = np.arange(len(l_np)) if slots is None else slots.cpu().numpy()
-    live = set()
-    for s, n in zip(s_np, l_np):
-        live.update(int(p) for p in t_np[s, :-(-int(n) // PAGE)])
-    heads = kp.shape[-2]
-    page_bytes = PAGE * heads * HEAD_DIM * kp.element_size()
-    if kp.element_size() == 1:
-        page_bytes += PAGE * heads * 4
-    nbytes = (2 * len(live) * page_bytes + 2 * q.numel() * q.element_size()
-              + tables.numel() * 4
-              + (1 if slots is None else 2) * len(l_np) * 4)
-    flops = 4.0 * float(l_np.astype(np.int64).sum()) * heads * HEAD_DIM
-    return bound(nbytes, flops, kp.dtype)
+    from flexflow_tpu_torch.kernels.paged_ragged_v2 import paged_work
+    return bound(*paged_work(q, kp, tables, slots, lens), kp.dtype)
 
 
 def check_err(name, out, ref, tol, relative=False):
@@ -691,19 +685,14 @@ def paged_decode_phase(fa):
 
 def flash_bounds(dtype, causal, b=TB, h=TH):
     """{kernel: (bound_ms, bound_by)} of the three flash kernels at the
-    training shapes, batch ``b``, ``h`` heads. Flops count the (query, key) pairs this run
-    computes — all s^2 of them, or the s(s+1)/2 on or below the
-    diagonal when causal — at 4d (forward: q.k, p.v), 6d (dq: q.k,
-    do.v, ds.k) and 8d (dkv: also p^T.do, ds^T.q) per pair. Bytes read
-    each input once and write each output once: (b, s, h, d) operands
-    in the input type, lse and delta f32 (b, h, s)."""
-    pairs = TS * (TS + 1) / 2 if causal else float(TS * TS)
-    per = b * h * TD * pairs
-    op = b * TS * h * TD * torch.tensor([], dtype=dtype).element_size()
-    row = b * h * TS * 4
-    return {"flash_fwd": bound(4 * op + row, 4 * per, dtype),
-            "flash_bwd_dq": bound(5 * op + 2 * row, 6 * per, dtype),
-            "flash_bwd_dkv": bound(6 * op + 2 * row, 8 * per, dtype)}
+    training shapes, batch ``b``, ``h`` heads: the kernels' own count
+    (``flash_attention.flash_work``: the (query, key) pairs computed,
+    s(s+1)/2 when causal, at 4d, 6d and 8d a pair; each operand read or
+    written once) at the card's rates."""
+    from flexflow_tpu_torch.kernels.flash_attention import flash_work
+    e = torch.tensor([], dtype=dtype).element_size()
+    return {k: bound(*w, dtype)
+            for k, w in flash_work(b, TS, TS, h, TD, e, causal).items()}
 
 
 def yardstick(fns, rounds=3, iters=10):
@@ -1272,21 +1261,13 @@ def lstm_inputs(dtype, seed=0):
 
 
 def lstm_bounds(dtype):
-    """{kernel: (bound_ms, bound_by)} of the two LSTM kernels. Flops:
-    the forward's T products (B, H) x (H, 4H), 2*T*B*H*4H; the
-    backward's three such (the gate recompute, dlin.wh^T, and dwh).
-    Bytes: each input read once, each output written once — forward xg,
-    wh, h0, c0 in, ys and cs out; backward xg, wh, h0, c0, ys, cs, dys
-    in, dxg, dwh (f32), dh0, dc0 out."""
+    """{kernel: (bound_ms, bound_by)} of the two LSTM kernels at T=NT,
+    B=NB, H=NH: the kernels' own count (``lstm_scan.lstm_work``) at the
+    card's rates."""
+    from flexflow_tpu_torch.kernels.lstm_scan import lstm_work
     e = torch.tensor([], dtype=dtype).element_size()
-    tbh = NT * NB * NH
-    flops = 2.0 * NT * NB * NH * 4 * NH
-    state = 2 * NB * NH * 4
-    fwd_bytes = (4 * tbh + 4 * NH * NH) * e + state + tbh * (e + 4)
-    bwd_bytes = (fwd_bytes + tbh * e               # + dys
-                 + 4 * tbh * e + 4 * NH * NH * 4 + state)
-    return {"lstm_fwd": bound(fwd_bytes, flops, dtype),
-            "lstm_bwd": bound(bwd_bytes, 3 * flops, dtype)}
+    return {k: bound(*w, dtype)
+            for k, w in lstm_work(NT, NB, NH, e).items()}
 
 
 def cudnn_fns(dtype):
@@ -1767,11 +1748,381 @@ def serve_phase(pr, fa, card: str, lm):
                 f"{pre_lanes / pre_s:.1f}; output tokens/s="
                 f"{x['tokens_per_sec']:.1f} ({x['total_new_tokens']} "
                 f"tokens in {x['wall_s']:.3f} s)")
-        runs[run] = (launches, st, st_e)
+        runs[run] = (launches, st, st_e, out)
         del eng, eager
         gc.collect()
         torch.cuda.empty_cache()
     return runs
+
+
+# ------------------------------------------------------- the warm boot
+# boot_phase: the LM serve_phase served, booted in fresh processes over
+# one program_cache_dir — cold (every kernel built into <dir>/kernels,
+# the store written), then warm (no compiler, every stored signature
+# captured in warmup) — on f32 and on int8 pages; then a truncated store
+# and a corrupted kernel library; then a replica pool's scale-up
+BOOT_KV = (("f32", "float32"), ("int8", "int8"))
+BOOT_NEW_TOKENS = 32
+BOOT_TIMEOUT_S = 600
+# the cost analyses' steps timed as graph replays (device time)
+COST_ITERS = 20
+
+
+def serve_kw(n_greedy):
+    """serve_phase's sampling arguments: greedy, then one request at
+    temperature 0.8, top_k 8."""
+    return dict(temperature=[None] * n_greedy + [0.8],
+                top_k=[None] * n_greedy + [8], sample_seed=7)
+
+
+def boot_child(spec):
+    """One fresh process of boot_phase (``--boot-child SPEC``): load the
+    LM's weights, boot a ServeEngine on ``spec["kv"]`` pages with
+    program_cache_dir ``spec["dir"]``, warm up, serve serve_phase's
+    prompts for 32 new tokens, and write to ``spec["out"]`` what the
+    parent checks: the boot record, this process's compiler runs and
+    cache loads, the time from the parent's launch to warmup's return,
+    the captures after warmup and after generate, kernel 1's launches,
+    the tokens and the warnings. ``spec["kernel"]``: then hold kernel 1
+    against its plain version (f32 pages, kernel_phase's inputs);
+    ``spec["pool"]``: then boot a ReplicaPool of one replica over the
+    same configuration and scale it up once."""
+    import warnings
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.kernels import _build
+    from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
+    from flexflow_tpu_torch.serve import ReplicaPool, ServeEngine
+    from flexflow_tpu_torch.utils.telemetry import Telemetry
+    res = {}
+    marks = [("start", time.time())]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with zero_init():                 # the weights are loaded next
+            lm = lm_model("float32")
+        marks.append(("model", time.time()))
+        weights = torch.load(spec["weights"])
+        with torch.no_grad():
+            for op, p in lm.state.params.items():
+                for k, w in p.items():
+                    w.copy_(weights[f"{op}.{k}"])
+        del weights
+        marks.append(("weights", time.time()))
+        cfg = FFConfig(kv_dtype=spec["kv"], program_cache_dir=spec["dir"])
+        eng = ServeEngine(lm, cfg, device="cuda")
+        marks.append(("engine", time.time()))
+        counts = eng.warmup()
+        marks.append(("warmup", time.time()))
+        res["ready_s"] = marks[-1][1] - spec["t_launch"]
+        # launch to ready: the interpreter, imports and CUDA context up
+        # to boot_child, then each step
+        res["ready_parts_s"] = {
+            name: t - prev for (name, t), (_, prev) in zip(
+                marks, [("launch", spec["t_launch"])] + marks[:-1])}
+        res["boot"] = dict(eng.boot_stats)
+        res["builds"] = _build.build_counts()
+        res["hits"] = _build.cache_hits()
+        res["loaded"] = sorted(_build._LIBS)
+        res["pending"] = len(eng.programs.pending_restored())
+        store = eng.programs._store_path()
+        res["store"] = store
+        with open(store) as f:
+            res["store_entries"] = len(json.load(f)["entries"])
+        greedy, sampled = serve_prompts(LM_ARCH["vocab_size"])
+        pr.launches = 0
+        res["tokens"] = eng.generate(greedy + [sampled], BOOT_NEW_TOKENS,
+                                     **serve_kw(len(greedy)))
+        res["launches"] = pr.launches
+        res["steps"] = eng.last_stats["steps"]
+        res["layers"] = eng.num_layers
+        res["counts_warmup"], res["counts_after"] = \
+            counts, eng.compile_counts()
+        eng.close()
+        if spec.get("kernel"):
+            dev = torch.device("cuda")
+            args = kernel_inputs(torch.float32, dev)
+            scale = 1.0 / math.sqrt(HEAD_DIM)
+            got = pr.paged_ragged_v2_cuda(*args, scale)
+            torch.cuda.synchronize()
+            ref = pr.ragged_attention_ref(*args, scale)
+            res["kernel_err"] = check_err("paged_ragged_v2 rebuilt", got,
+                                          ref, F32_TOL)
+        if spec.get("pool"):
+            tel = Telemetry()
+            pool = ReplicaPool(lm, 1, config=cfg, telemetry=tel)
+            pool._activate_replica(0.0)          # the scale-up
+            res["pool_boots"] = [(e[2], e[6].get("restored"),
+                                  e[6].get("compiles"), e[6].get("boot_s"))
+                                 for e in tel.events
+                                 if e[2].startswith("replica_boot")]
+            for r in pool.replicas:
+                r.engine.close()
+    res["warnings"] = [str(w.message) for w in caught]
+    Path(spec["out"]).write_text(json.dumps(res, default=str))
+
+
+
+def boot_start(root, name, **spec):
+    """Start boot_child in a fresh process (its own CUDA context, its
+    output in files beside its result); boot_wait reads it."""
+    out = Path(root) / f"{name}.json"
+    spec.update(out=str(out), t_launch=time.time())
+    logs = [open(Path(root) / f"{name}.{s}", "w+") for s in ("out", "err")]
+    p = subprocess.Popen([sys.executable, str(HERE / "chip_smoke.py"),
+                          "--boot-child", json.dumps(spec)],
+                         stdout=logs[0], stderr=logs[1], text=True,
+                         cwd=str(HERE))
+    return name, p, out, logs
+
+
+def boot_wait(handle):
+    """What a boot_start child wrote; raises with the tail of its
+    output if it failed (and kills it past BOOT_TIMEOUT_S)."""
+    name, p, out, logs = handle
+    try:
+        rc = p.wait(timeout=BOOT_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.wait()
+        rc = "killed at the time limit"
+    tails = []
+    for f in logs:
+        f.seek(0)
+        tails.append(f.read()[-6000:])
+        f.close()
+    if rc != 0 or not out.is_file():
+        raise AssertionError(f"boot {name}: the child exited {rc}:\n"
+                             + "\n".join(tails))
+    return json.loads(out.read_text())
+
+
+def boot_run(root, name, **spec):
+    return boot_wait(boot_start(root, name, **spec))
+
+
+def boot_check(name, r, ref, *, cold, builds):
+    """The checks every boot shares: tokens as the reference run's,
+    kernel 1 launched layers x steps times, nothing captured after
+    warmup, the build count, and the warm flag."""
+    b = r["boot"]
+    if r["tokens"] != ref:
+        raise AssertionError(f"boot {name}: tokens differ from the "
+                             f"reference run's")
+    if r["launches"] != r["layers"] * r["steps"] or not r["launches"]:
+        raise AssertionError(f"boot {name}: kernel 1 launches "
+                             f"{r['launches']} != {r['layers']} x "
+                             f"{r['steps']}")
+    if r["counts_after"] != r["counts_warmup"]:
+        raise AssertionError(f"boot {name}: captures after warmup "
+                             f"{r['counts_after']} != {r['counts_warmup']}")
+    nb = sum(r["builds"].values())
+    if nb != builds or b["builds"] != builds:
+        raise AssertionError(f"boot {name}: {r['builds']} compiler runs "
+                             f"(boot record {b['builds']}), want {builds}")
+    if cold:
+        if b["warm"] or b["restored"]:
+            raise AssertionError(f"boot {name}: a cold boot reads "
+                                 f"{b}")
+    elif not (b["warm"] and b["restored"] == r["store_entries"] > 0
+              and r["pending"] == 0
+              and r["hits"] == {k: 1 for k in r["loaded"]}):
+        raise AssertionError(f"boot {name}: not warm: {b}, store "
+                             f"{r['store_entries']}, hits {r['hits']}, "
+                             f"loaded {r['loaded']}")
+
+
+def boot_reference(lm):
+    """{kv: tokens} of serve_phase's prompts on a captured engine over
+    ``lm`` (``--only-boot``, where serve_phase does not run)."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.serve import ServeEngine
+    greedy, sampled = serve_prompts(LM_ARCH["vocab_size"])
+    out = {}
+    for name, kv in BOOT_KV:
+        eng = ServeEngine(lm, FFConfig(kv_dtype=kv), device="cuda")
+        eng.warmup()
+        out[name] = eng.generate(greedy + [sampled], BOOT_NEW_TOKENS,
+                                 **serve_kw(len(greedy)))
+        eng.close()
+    return out
+
+
+def boot_phase(card: str, lm, ref):
+    """(a) cold f32, (b) warm f32 and (e) its pool scale-up over (a)'s
+    program_cache_dir, (c) cold then warm int8 and (d) a truncated store
+    and a corrupted kernel 1 library, each over a directory of its own
+    holding this process's kernel libraries; every boot a fresh
+    process, its tokens against ``ref`` ({"f32": ..., "int8": ...}:
+    serve_phase's captured runs). Returns the results."""
+    import shutil
+    import tempfile
+    root = Path(tempfile.mkdtemp(prefix="ff_boot_"))
+    cold = faults = None
+    try:
+        weights = root / "weights.pt"
+        torch.save({f"{op}.{k}": w.detach().cpu()
+                    for op, p in lm.state.params.items()
+                    for k, w in p.items()}, weights)
+        cache = root / "cache"
+        common = dict(weights=str(weights))
+        res = {"f32": {}, "int8": {}}
+
+        def report(name, mode, r):
+            b = r["boot"]
+            parts = ", ".join(f"{k} {v:.2f}"
+                              for k, v in r["ready_parts_s"].items())
+            log(f"boot {name} {mode} [{card}]: ready {r['ready_s']:.2f} s "
+                f"after launch ({parts}; warmup: compiler runs "
+                f"{b['builds']} in {b['build_s']:.2f} s, captures "
+                f"{b['compiles']} in {b['capture_s']:.3f} s, restored "
+                f"{b['restored']}, warm {b['warm']}); cache loads "
+                f"{r['hits']}; tokens = serve_phase's; kernel 1 launches "
+                f"{r['launches']} (= {r['layers']} x {r['steps']}); "
+                f"captures {r['counts_after']} unchanged after warmup")
+
+        # (a) in an empty directory, beside (d) and (c), each in a
+        # directory of its own holding this process's kernel libraries
+        # (the same sources, flags and nvcc: the names (a) builds):
+        # (d)'s kernel 1 library zeroed at its head and its f32 store a
+        # truncated one; (c)'s cold boot, then its warm one. Then (b)
+        # and (e) alone over (a)'s directory.
+        from flexflow_tpu_torch import FFConfig
+        from flexflow_tpu_torch.kernels import _build
+        from flexflow_tpu_torch.serve import ServeEngine
+
+        def holding_kernels(d):
+            (d / "kernels").mkdir(parents=True)
+            for name in _build.KERNEL_SOURCES:
+                lib = _build.library_path(name)
+                for f in (lib, lib.with_name(lib.name + ".sha256")):
+                    shutil.copy(f, d / "kernels" / f.name)
+            return d
+
+        broken = holding_kernels(root / "cache_faults")
+        with open(broken / "kernels" / _build.library_path(
+                "paged_ragged_v2").name, "r+b") as f:
+            f.write(b"\0" * 4096)
+        # the f32 engine's store (its fingerprint is that of an engine
+        # without a directory), written whole and cut in half
+        probe = ServeEngine(lm, FFConfig(), device="cuda")
+        probe.programs.save(str(broken))
+        store = Path(probe.programs._store_path(str(broken)))
+        del probe
+        blob = store.read_bytes()
+        store.write_bytes(blob[:len(blob) // 2])
+        cold = boot_start(root, "f32_cold", kv="float32", dir=str(cache),
+                          **common)
+        faults = boot_start(root, "faults", kv="float32", kernel=True,
+                            dir=str(broken), **common)
+        int8_dir = holding_kernels(root / "cache_int8")
+        for mode in ("cold", "warm"):
+            r = boot_run(root, f"int8_{mode}", kv="int8", dir=str(int8_dir),
+                         **common)
+            boot_check(f"int8 {mode}", r, ref["int8"], cold=mode == "cold",
+                       builds=0)
+            res["int8"][mode] = r
+            report("int8", mode, r)
+        r = res["f32"]["cold"] = boot_wait(cold)
+        cold = None
+        boot_check("f32 cold", r, ref["f32"], cold=True, builds=6)
+        report("f32", "cold", r)
+        fault = boot_wait(faults)
+        faults = None
+        boot_check("faults", fault, ref["f32"], cold=True, builds=1)
+        r = res["f32"]["warm"] = boot_run(root, "f32_warm", kv="float32",
+                                          dir=str(cache), pool=True,
+                                          **common)
+        boot_check("f32 warm", r, ref["f32"], cold=False, builds=0)
+        report("f32", "warm", r)
+        boots = r["pool_boots"]
+        if [n for n, *_ in boots] != ["replica_boot_warm"] * 2:
+            raise AssertionError(f"boot (e): pool boots {boots}")
+        log(f"boot (e) [{card}]: ReplicaPool of one replica over the "
+            f"armed cache, then a scale-up: {boots}")
+        for name in ("f32", "int8"):
+            log(f"boot {name} [{card}]: time to ready cold "
+                f"{res[name]['cold']['ready_s']:.2f} s, warm "
+                f"{res[name]['warm']['ready_s']:.2f} s ("
+                + ("both beside the f32 cold and fault boots"
+                   if name == "int8" else
+                   "the cold one beside the fault and int8 boots, the "
+                   "warm one alone") + ")")
+        said = " | ".join(fault["warnings"])
+        if "unreadable store" not in said or "failed to load" not in said \
+                or fault["builds"] != {"paged_ragged_v2": 1}:
+            raise AssertionError(f"boot (d): warnings {fault['warnings']}, "
+                                 f"builds {fault['builds']}")
+        res["faults"] = fault
+        log(f"boot (d) [{card}]: truncated store and corrupted kernel 1 "
+            f"library: warned ({len(fault['warnings'])} warnings), rebuilt "
+            f"{fault['builds']}, booted cold, tokens = serve_phase's; "
+            f"kernel 1 rebuilt vs plain max_abs_err "
+            f"{fault['kernel_err'][0]:.3g} (tol {F32_TOL}); ready "
+            f"{fault['ready_s']:.2f} s")
+        for r in (res["f32"]["cold"], res["f32"]["warm"],
+                  res["int8"]["cold"], res["int8"]["warm"], fault):
+            r.pop("tokens")
+        return res
+    finally:
+        for h in (cold, faults):       # a check above failed first
+            if h is not None and h[1].poll() is None:
+                h[1].kill()
+                h[1].wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def cost_phase(card: str, lm):
+    """(f) The cost analyses beside the steps' device times: the mixed
+    step of an f32 engine over ``lm`` (mixed_step_cost_analysis) and the
+    LM's bf16-policy train step (hlo_cost), each timed as a replay of
+    its captured graph; both calls must leave the pages or weights, the
+    captures and the launch counts as they were."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.kernels import flash_attention as fa
+    from flexflow_tpu_torch.kernels import paged_ragged_v2 as pr
+    from flexflow_tpu_torch.serve import ServeEngine
+    from flexflow_tpu_torch.utils.profiling import hlo_cost
+    res = {}
+    eng = ServeEngine(lm, FFConfig(), device="cuda")
+    eng.warmup()
+    kp0, counts0, l0 = eng._k_pages.clone(), eng.compile_counts(), \
+        pr.launches
+    c = eng.mixed_step_cost_analysis()
+    if not (torch.equal(kp0, eng._k_pages) and pr.launches == l0
+            and eng.compile_counts() == counts0):
+        raise AssertionError("mixed_step_cost_analysis left a trace")
+    prog = next(p for k, p in eng.programs._programs.items()
+                if k[0] == "mixed")
+    ms = cuda_ms(prog.graph.replay, COST_ITERS)
+    res["mixed"] = {**c, "step_ms": ms}
+    eng.close()
+    del eng, kp0
+    m = lm_model("bfloat16")
+    batch = lm_batches(1, seed=3)[0]
+    w0 = weights_of(m)
+    f0 = dict(fa.launches)
+    t = hlo_cost(m, batch)
+    if max_weight_diff(w0, weights_of(m))[0] != 0.0 \
+            or dict(fa.launches) != f0 \
+            or any(m.compile_counts().values()):
+        raise AssertionError("hlo_cost left a trace")
+    del w0
+    float(m.train_batch(batch)["loss"])          # captures the step
+    prog = next(p for k, p in m.executor.programs._programs.items()
+                if k[0] == "train_step")
+    ms = cuda_ms(prog.graph.replay, COST_ITERS)
+    res["train_bf16"] = {**t, "step_ms": ms}
+    release(m)
+    del m
+    for name, r in res.items():
+        log(f"cost {name} [{card}]: {r['flops'] / 1e9:.2f} GFLOP, "
+            f"{r['bytes accessed'] / 1e9:.3f} GB accessed (GEMM "
+            f"{r['gemm flops'] / 1e9:.2f} GFLOP; kernels' share: flops "
+            f"{r['kernel flops share']:.4f}, bytes "
+            f"{r['kernel bytes share']:.4f}; "
+            f"{ {k: v['calls'] for k, v in r['kernels'].items()} } calls); "
+            f"step {r['step_ms']:.3f} ms on the card (a graph replay), "
+            f"{r['flops'] / r['step_ms'] / 1e9:.1f} TFLOP/s counted")
+    return res
 
 
 # ------------------------------------------- robustness and telemetry
@@ -3147,9 +3498,7 @@ def dropout_phase(kd):
                                          f"differs from its plain version")
             cell = f"{'bf16' if dtype == torch.bfloat16 else 'f32'} " \
                    f"{'x'.join(map(str, shape))}"
-            nbytes = 2 * x.numel() * x.element_size()
-            int_ops = (DROPOUT_INT_OPS_PER_ELEMENT * x.numel()
-                       + DROPOUT_INT_OPS_PER_CALL)
+            nbytes, int_ops = kd.dropout_work(x)
             bms, by = bound(nbytes, int_ops, torch.int32)
             times = {
                 "dropout_fwd": cuda_ms(
@@ -3789,6 +4138,50 @@ def zero_init():
         Executor._init_array = old
 
 
+# weights of more entries than this are drawn on the card by card_tables
+# (DLRM "full"'s tables: the numpy streams took 15-22 s a build on the
+# H100 machine's host)
+CARD_INIT_NUMEL = 1 << 24
+
+
+@contextlib.contextmanager
+def card_tables(seed=0):
+    """Models built inside start each glorot-uniform weight of more than
+    CARD_INIT_NUMEL entries (the embedding tables) at zero; the yielded
+    ``fill(m)`` then draws them on the card, uniform within the bound
+    their numpy stream uses (the initializer's fans), from a torch
+    generator seeded with ``seed``. The other weights come from their
+    numpy streams as always."""
+    from flexflow_tpu_torch.core import initializers as I
+    from flexflow_tpu_torch.core.executor import Executor
+    old = Executor._init_array
+    big = {}
+
+    def init(self, op, wname, spec):
+        if I.resolve(spec.initializer) is I.glorot_uniform \
+                and math.prod(spec.shape) > CARD_INIT_NUMEL \
+                and not getattr(spec, "stacked", False):
+            fi, fo = spec.fan_in, spec.fan_out
+            if fi is None or fo is None:
+                fi, fo = I._fans(tuple(spec.shape))
+            big[(op.name, wname)] = math.sqrt(6.0 / (fi + fo))
+            return np.zeros(spec.shape, np.float32)
+        return old(self, op, wname, spec)
+
+    def fill(m):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        with torch.no_grad():
+            for (op, k), lim in sorted(big.items()):
+                w = m.state.params[op][k]
+                w.uniform_(-lim, lim, generator=gen)
+
+    Executor._init_array = init
+    try:
+        yield fill
+    finally:
+        Executor._init_array = old
+
+
 def copy_weights(dst, src):
     """Copy a {op: {name: tensor}} tree into model ``dst``'s parameters
     in place, on the card."""
@@ -3905,9 +4298,9 @@ def sparse_rows_time(sr, t):
         "kernel": lambda: sr.apply_rows_cuda(w, skey, order, g, 0, scalar),
         "plain": lambda: sr.apply_rows_ref(w, skey, order, g, 0, scalar),
         "library": lambda: flat.index_add_(0, gid, upd)}, iters=5)
-    nbytes = (2 * touched * DLRM_DIM * 4 + g.numel() * 4
-              + 2 * skey.numel() * 8)
-    b_ms, b_by = bound(nbytes, 2.0 * g.numel(), torch.float32)
+    nbytes, flops = sr.rows_work(touched, DLRM_DIM, w.element_size(),
+                                 skey.numel())
+    b_ms, b_by = bound(nbytes, flops, torch.float32)
     med = {k: statistics.median(x) for k, x in rounds.items()}
     res = {"tables": t, "ids": n, "rows_touched": touched,
            "ms": med["kernel"], "plain_ms": med["plain"],
@@ -3933,10 +4326,12 @@ def dlrm_main(sr, card: str, stacked: bool):
     f = DLRM_FULL
     host = dlrm_batches(f["tables"], f["vocab"], f["batch"], 3, seed=2)
     t0 = time.perf_counter()
-    eager = dlrm_model(stacked=stacked, capture=False, **f)
+    with card_tables() as fill:
+        eager = dlrm_model(stacked=stacked, capture=False, **f)
+    fill(eager)
     init_s = time.perf_counter() - t0
     # the captured model starts from the eager one's initial weights,
-    # copied on the card (one build from the numpy streams, not two)
+    # copied on the card (one build, not two)
     w0 = {op: {k: w.detach().clone() for k, w in p.items()}
           for op, p in eager.state.params.items()}
     dev = [eager.executor.shard_batch(b) for b in host]
@@ -4002,8 +4397,9 @@ def dlrm_main(sr, card: str, stacked: bool):
                      "peak_mem_gib": peak_dense / 2**30}}
     log(f"dlrm {'stacked' if stacked else 'separate'} [{card}]: "
         f"{f['tables']} x {f['vocab']} x {DLRM_DIM} f32 "
-        f"({res['table_gb']:.2f} GB), batch {b}; build {init_s:.1f} s from "
-        f"the numpy streams, the captured model's {copy_s:.1f} s from the "
+        f"({res['table_gb']:.2f} GB), batch {b}; build {init_s:.1f} s (the "
+        f"tables drawn on the card), the captured model's {copy_s:.1f} s "
+        f"from the "
         f"eager one's initial weights on the card; 3 captured steps = 3 "
         f"eager bit for bit (losses {lc}, every table and weight); sparse "
         f"updates: step ms median {med:.3f} range {min(ms):.3f}-"
@@ -5741,8 +6137,8 @@ def sp_rank_dlrm(steps):
     (placement_assignment, the DLRM generator's scheme), sparse SGD
     updates through sparse_rows.cu on each rank's slots; against the
     one-device step on the card from the same weights (the reference's
-    tables permuted to the slot layout's draw), each rank checking its
-    own slots."""
+    tables drawn on the card, each rank's slots copied from the tables
+    they hold), each rank checking its own slots."""
     import torch.distributed as dist
     import flexflow_tpu_torch as ft
     from flexflow_tpu_torch.kernels import sparse_rows as sr
@@ -5756,16 +6152,24 @@ def sp_rank_dlrm(steps):
     st = Strategy(default=OpStrategy({"sample": "data"}))
     st.set("emb_tables", OpStrategy({DEVICE_KEY: ids}))
     host = dlrm_batches(f["tables"], f["vocab"], f["batch"], steps, seed=2)
+    # the one-device reference first, its tables drawn on the card (the
+    # same draw on both ranks: one seed, one device type); the placed
+    # model's slots are then copied from the tables they hold
+    with card_tables() as fill:
+        ref = dlrm_model(stacked=True, capture=False, **f)
+    fill(ref)
     t0 = time.perf_counter()
-    m = ft.build_dlrm(ft.FFConfig(batch_size=f["batch"], seed=0,
-                                  sparse_embedding_updates=True),
-                      batch_size=f["batch"], embedding_vocab_sizes=(
-                          f["vocab"],) * f["tables"], embedding_dim=DLRM_DIM,
-                      stacked_tables=True, device="cuda",
-                      mesh=make_mesh((2,), ("data",)), strategy=st)
-    m.compile(optimizer=ft.SGDOptimizer(lr=0.01),
-              loss_type="mean_squared_error", metrics=[], capture=False)
-    init_s = time.perf_counter() - t0
+    with card_tables():
+        m = ft.build_dlrm(ft.FFConfig(batch_size=f["batch"], seed=0,
+                                      sparse_embedding_updates=True),
+                          batch_size=f["batch"], embedding_vocab_sizes=(
+                              f["vocab"],) * f["tables"],
+                          embedding_dim=DLRM_DIM, stacked_tables=True,
+                          device="cuda", mesh=make_mesh((2,), ("data",)),
+                          strategy=st)
+        m.compile(optimizer=ft.SGDOptimizer(lr=0.01),
+                  loss_type="mean_squared_error", metrics=[],
+                  capture=False)
     op = next(o for o in m.ops if o.op_type == "distributed_embedding")
     k = op.num_slots // 2
     mine = list(op._slots[rank * k:(rank + 1) * k])
@@ -5774,6 +6178,10 @@ def sp_rank_dlrm(steps):
                 k, f["vocab"], DLRM_DIM):
         raise AssertionError(f"sp (d) rank {rank}: slots {mine} for "
                              f"placement {ids}")
+    with torch.no_grad():
+        rk = ref.state.params["emb_tables"]["kernel"]
+        m.state.params["emb_tables"]["kernel"].copy_(rk[mine])
+    init_s = time.perf_counter() - t0
     sr.launches.update(dict.fromkeys(sr.launches, 0))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5781,12 +6189,6 @@ def sp_rank_dlrm(steps):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
     launches = dict(sr.launches)
-    ref = dlrm_model(stacked=True, capture=False, **f)
-    with torch.no_grad():
-        # the slot layout drew table t's rows where the one-device run
-        # drew slot t's: permute the reference to the same tables
-        kern = ref.state.params["emb_tables"]["kernel"]
-        kern.copy_(kern[list(op._slot_of_table)])
     ref_losses = [float(ref.train_batch(b)["loss"]) for b in host]
     with torch.no_grad():
         rk = ref.state.params["emb_tables"]["kernel"]
@@ -6547,22 +6949,12 @@ def ch_graphed(fn):
 
 def ch_split_bounds(dtype):
     """{kernel: (bound_ms, bound_by)} of one rank's split walk at T=NT,
-    B=NB, Hin=NH, Hu=CH_HU. Flops: the forward's T products (B, Hin) x
-    (Hin, 4Hu); the backward's three (the recompute, the partial dh,
-    dwh). Bytes, each input read once and each output written once:
-    forward xg, wh, the history h_{t-1} (T, B, Hin), c0 in, ys and cs
-    out; backward xg, wh, the history, c0, cs, dys and the f32 addends
-    in, dxg, the f32 partials (T, B, Hin), dwh (f32), dc0 out."""
+    B=NB, Hin=NH, Hu=CH_HU: the kernels' own count
+    (``lstm_scan.lstm_split_work``) at the card's rates."""
+    from flexflow_tpu_torch.kernels.lstm_scan import lstm_split_work
     e = torch.tensor([], dtype=dtype).element_size()
-    tbu, tbi = NT * NB * CH_HU, NT * NB * NH
-    flops = 2.0 * NT * NB * NH * 4 * CH_HU
-    fwd_bytes = ((4 * tbu + NH * 4 * CH_HU + tbi + tbu) * e
-                 + NB * CH_HU * 4 + tbu * 4)
-    bwd_bytes = ((4 * tbu + NH * 4 * CH_HU + tbi + tbu + 4 * tbu) * e
-                 + 2 * NB * CH_HU * 4 + tbu * 4 * 2 + tbi * 4
-                 + NH * 4 * CH_HU * 4)
-    return {"lstm_fwd": bound(fwd_bytes, flops, dtype),
-            "lstm_bwd": bound(bwd_bytes, 3 * flops, dtype)}
+    return {k: bound(*w, dtype)
+            for k, w in lstm_split_work(NT, NB, NH, CH_HU, e).items()}
 
 
 def ch_kernel_check(ls):
@@ -7467,6 +7859,14 @@ def sass_mma_counts(name):
     return counts
 
 
+def timed(name, fn, *args):
+    """fn(*args), its wall seconds logged as the phase's."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -7482,6 +7882,9 @@ def main() -> int:
         print("chip_smoke: flexflow_tpu_torch is not this checkout's",
               file=sys.stderr)
         return 3
+    if "--boot-child" in sys.argv[1:]:
+        boot_child(json.loads(sys.argv[sys.argv.index("--boot-child") + 1]))
+        return 0
     from flexflow_tpu_torch.kernels import _build
     from flexflow_tpu_torch.kernels import dropout as kd
     from flexflow_tpu_torch.kernels import flash_attention as fa
@@ -7585,57 +7988,66 @@ def main() -> int:
     if "--only-layout" in sys.argv[1:]:
         log(json.dumps({"layout": layout_phase(fa, card)}, default=str))
         return 0
+    if "--only-boot" in sys.argv[1:]:
+        lm = lm_model("float32")
+        bres = boot_phase(card, lm, boot_reference(lm))
+        log(json.dumps({"boot": bres, "cost": cost_phase(card, lm)},
+                       default=str))
+        return 0
     if "--only-frontend" in sys.argv[1:]:
         log(json.dumps({"frontend": frontend_phase(ls, sr, card)},
                        default=str))
         return 0
-    kres = kernel_phase(pr)
-    dres = paged_decode_phase(fa)
-    fres = flash_phase(fa)
-    hres = head_dim_phase(fa, pr)
-    tres = train_phase(fa, card)
-    lmres, lm = lm_train_phase(fa, card)
-    lres = lstm_phase(ls)
-    nres = nmt_train_phase(ls, card)
-    sres = serve_phase(pr, fa, card, lm)
-    rres, rlaunches = robust_phase(pr, fa, card, lm)
-    tierres, tlaunches = tier_phase(pr, card, lm)
-    disres, dlaunches = disagg_phase(pr, card, lm)
+    kres = timed("kernel", kernel_phase, pr)
+    dres = timed("paged_decode", paged_decode_phase, fa)
+    fres = timed("flash", flash_phase, fa)
+    hres = timed("head_dim", head_dim_phase, fa, pr)
+    tres = timed("train", train_phase, fa, card)
+    lmres, lm = timed("lm_train", lm_train_phase, fa, card)
+    lres = timed("lstm", lstm_phase, ls)
+    nres = timed("nmt_train", nmt_train_phase, ls, card)
+    sres = timed("serve", serve_phase, pr, fa, card, lm)
+    bres = timed("boot", boot_phase, card, lm,
+                 {name: sres[name][3] for name, _ in BOOT_KV})
+    cres = timed("cost", cost_phase, card, lm)
+    rres, rlaunches = timed("robust", robust_phase, pr, fa, card, lm)
+    tierres, tlaunches = timed("tier", tier_phase, pr, card, lm)
+    disres, dlaunches = timed("disagg", disagg_phase, pr, card, lm)
     del lm
     gc.collect()
     torch.cuda.empty_cache()
-    fitres, drop_launches = fit_loop_phase(kd, fa, card)
-    dres_f = dropout_phase(kd)
-    swres, s2s_launches = sweep_phase(ls, card)
-    dlres = dlrm_phase(sr, card)
-    moeres = moe_phase(card)
+    fitres, drop_launches = timed("fit_loop", fit_loop_phase, kd, fa, card)
+    dres_f = timed("dropout", dropout_phase, kd)
+    swres, s2s_launches = timed("sweep", sweep_phase, ls, card)
+    dlres = timed("dlrm", dlrm_phase, sr, card)
+    moeres = timed("moe", moe_phase, card)
     gc.collect()
     torch.cuda.empty_cache()
-    searchres = search_phase(fa, ls)
+    searchres = timed("search", search_phase, fa, ls)
     gc.collect()
     torch.cuda.empty_cache()
-    meshres = mesh_phase(card)
+    meshres = timed("mesh", mesh_phase, card)
     gc.collect()
     torch.cuda.empty_cache()
-    tpres = tp_serve_phase(pr, card)
+    tpres = timed("tp_serve", tp_serve_phase, pr, card)
     gc.collect()
     torch.cuda.empty_cache()
-    ptres = pool_tp_phase(pr, card)
+    ptres = timed("pool_tp", pool_tp_phase, pr, card)
     gc.collect()
     torch.cuda.empty_cache()
-    spres = sp_phase(fa, card)
+    spres = timed("sp", sp_phase, fa, card)
     gc.collect()
     torch.cuda.empty_cache()
-    ppres = pp_phase(fa, card)
+    ppres = timed("pp", pp_phase, fa, card)
     gc.collect()
     torch.cuda.empty_cache()
-    chres = channel_phase(ls, card)
+    chres = timed("channel", channel_phase, ls, card)
     gc.collect()
     torch.cuda.empty_cache()
-    layres = layout_phase(fa, card)
+    layres = timed("layout", layout_phase, fa, card)
     gc.collect()
     torch.cuda.empty_cache()
-    feres = frontend_phase(ls, sr, card)
+    feres = timed("frontend", frontend_phase, ls, sr, card)
 
     def head(cells):
         """A row's headline numbers: its f32 cell."""
@@ -7663,6 +8075,9 @@ def main() -> int:
         # LM on the host, on the wall clock in lockstep; (c) its shape
         "pool_tp_launches": ptres["launches"],
         "pool_tp_heads": ptres["kernel"],
+        # boot_phase: each fresh process's serving run (layers x steps)
+        "boot_launches": {f"{kv} {mode}": bres[kv][mode]["launches"]
+                          for kv, _ in BOOT_KV for mode in ("cold", "warm")},
         **head(kres),
         "bf16": kres["bf16"], "int8": kres["int8"], "fp8": kres["fp8"],
         "tp_heads": tpres["kernel"]}, {
@@ -7883,6 +8298,7 @@ def main() -> int:
     log(json.dumps({"layout": {k: v for k, v in layres.items()
                                if k != "kernels"}}, default=str))
     log(json.dumps({"frontend": feres}, default=str))
+    log(json.dumps({"boot": bres, "cost": cres}, default=str))
     log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

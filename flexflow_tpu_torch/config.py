@@ -90,6 +90,9 @@ class FFIterationConfig:
 
     seq_length: int = -1
 
+    def reset(self) -> None:
+        self.seq_length = -1
+
 
 @dataclasses.dataclass
 class FFConfig:
@@ -150,10 +153,11 @@ class FFConfig:
     serve_spec_decode: bool = True
     serve_spec_tokens: int = 4
 
-    # the JAX package's AOT program cache directory (--program-cache-
-    # dir): parsed and kept, and ignored by the port, which has no AOT
-    # cache (a CUDA graph cannot be serialized; each process captures
-    # its own steps)
+    # the warm boot's directory (--program-cache-dir): the kernel-
+    # library cache in <dir>/kernels (kernels/_build.py) and the program
+    # stores <dir>/<fingerprint>.ffprog of the engines, executors and
+    # replica pools (core/programs.py); None keeps the libraries in the
+    # checkout's _build/ and stores nothing
     program_cache_dir: Optional[str] = None
 
     # tuning knob of the ragged paged-attention kernel: KV tokens per

@@ -179,6 +179,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import _build
 from ..op import OpContext
 from ..ops.conv import merged_conv_forward
 from ..ops.embedding import DistributedEmbedding, Embedding
@@ -189,7 +190,8 @@ from . import precision as MP
 from .precision import reciprocal_f32
 from .dataloader import host_to_device
 from .optimizers import Optimizer
-from .programs import PinnedRing, ProgramRegistry, fingerprint_hash
+from .programs import (PinnedRing, ProgramRegistry, fingerprint_hash,
+                       runtime_identity)
 from .prng import OpRng, key_words
 
 Tree = Dict[str, Dict[str, torch.Tensor]]
@@ -279,9 +281,11 @@ class Executor:
         self._grad_sync = None
         # the train-step program (capture=False: every step eager, the
         # reference runs of the tests and the smoke)
-        self.programs = ProgramRegistry(self._fingerprint(), self.device,
-                                        capture=capture)
+        self.programs = ProgramRegistry(
+            self._fingerprint(), self.device, capture=capture,
+            cache_dir=self.config.program_cache_dir)
         self.programs.register("train_step")
+        self.programs.load_warm()
         self._staging = PinnedRing(self.device)
         # the runtime LR multiplier (FFModel.set_learning_rate), staged
         # into every train program with its step's scalar
@@ -523,6 +527,9 @@ class Executor:
             "mesh": (None if self.bm is None else
                      (self.bm.axis_names, tuple(self.bm.shape.values()),
                       self.bm.rank, self.bm.backend)),
+            **runtime_identity(self.device),
+            "kernels": {n: _build.source_digest(n)
+                        for n in _build.KERNEL_SOURCES},
         }
 
     # ---------------- sparse-table routing ----------------
@@ -556,7 +563,9 @@ class Executor:
         self._sparse_ops, self._sparse_key = out, key
         if stale:
             self.programs.release(self._TRAIN_FAMILIES)
-            self.programs.fp_hash = fingerprint_hash(self._fingerprint())
+            self.programs.fingerprint = self._fingerprint()
+            self.programs.fp_hash = fingerprint_hash(
+                self.programs.fingerprint)
         return out
 
     # ---------------- initialization ----------------
@@ -1136,6 +1145,22 @@ class Executor:
         # this dispatch's own copies: a replay overwrites the outputs
         return {k: v.clone() for k, v in out.items()}
 
+    def cost_step(self, state: TrainState, batch, key):
+        """One optimizer step of ``batch`` with step key ``key``, run
+        eagerly on a copy of ``state`` (the cost analysis's step:
+        utils/profiling.hlo_cost): no program is called or captured, and
+        nothing of ``state`` moves. Returns the metrics."""
+        self._require_training()
+        copy = TrainState(_clone_tree(state.params),
+                          _clone_tree(state.opt_state), state.step,
+                          _clone_tree(state.states))
+        aux = torch.empty(3, dtype=torch.int32)
+        aux[:2] = torch.from_numpy(
+            key_words(np.asarray(key)[None]).reshape(-1))
+        aux[2:].view(torch.float32)[:] = self._scalar(state.step)
+        k, sc = self._unstage(aux.to(self.device), 1)
+        return self._step_body(copy, batch, k[0], sc[0])
+
     def train_step(self, state: TrainState, batch, key):
         """One optimizer step through the ``train_step`` program;
         ``key`` is the step key (uint32[2]). Returns (state, metrics):
@@ -1244,6 +1269,26 @@ class Executor:
     def compile_counts(self) -> Dict[str, int]:
         """Captures (eager: new signatures) per program family, exact."""
         return self.programs.compile_counts()
+
+    def program_registry(self) -> ProgramRegistry:
+        """The executor's ProgramRegistry. With
+        ``config.program_cache_dir`` it armed the kernel-library cache
+        and read this fingerprint's store back at construction: a warm
+        trainer loads its kernels from the cache and knows its step's
+        signatures (``restored_counts()``), but captures its step at the
+        first dispatch as a cold one does — a capture runs the step once,
+        which would move the weights at boot."""
+        return self.programs
+
+    def save_programs(self) -> int:
+        """Write the signatures of the train programs run so far to
+        ``config.program_cache_dir`` (0 when unarmed or nothing new ran;
+        rank 0 on a mesh). ``fit`` calls it at exit."""
+        reg = self.programs
+        if not reg.cache_dir or not reg.dirty \
+                or (self.bm is not None and self.bm.rank != 0):
+            return 0
+        return reg.save()
 
     # ---------------- eval ----------------
     @torch.no_grad()
@@ -1561,6 +1606,16 @@ class Executor:
                     np.stack([np.asarray(v) for v in vals]), self.device,
                     declared.get(k))
         return out
+
+
+def _clone_tree(tree):
+    """A copy of a tree of tensors (dicts of dicts), each tensor
+    detached, cloned and as differentiable as it was."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone().requires_grad_(tree.requires_grad)
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree
 
 
 def _leaves(tree):

@@ -44,8 +44,24 @@ A graph also bakes in the addresses of every tensor its body reads
 (parameters, pages, optimizer slots): a caller passes those as
 ``bound=``, and a replay raises if one moved since the capture.
 
-Not ported: ``save``/``load_warm`` (a CUDA graph cannot be serialized;
-the port's config has no program cache directory).
+The warm boot (``cache_dir=``, ``FFConfig.program_cache_dir``): JAX
+serializes its compiled executables; a CUDA graph cannot be serialized,
+so here a store is data, not code. ``save()`` writes every signature
+this registry ran to ``<dir>/<fp_hash>.ffprog`` — JSON: the store
+version, the fingerprint and its hash, the torch and CUDA versions and
+the device name, and per entry its family, its signature (the argument
+recipe: each tensor's shape and dtype, each static argument's value)
+and its capture seconds — through a temporary file and a rename,
+merged with a valid store already there, beside a ``manifest.json``.
+``load_warm()`` reads the store back: each entry is a signature known
+at boot (``restored_counts()``), which the owner readies before its
+first request (the serving engine's ``warmup`` captures every one).
+Those captures still count in ``compile_counts()``: JAX's warm contract
+is zero compiles, the port's is that no compiler ran at the boot (the
+kernel-library cache, ``kernels/_build.py``), that every restored
+signature was readied, and that nothing is captured after it
+(``boot_record()["warm"]``). A corrupt, truncated or foreign store
+warns (or misses) and boots cold; it never raises.
 """
 
 from __future__ import annotations
@@ -53,12 +69,17 @@ from __future__ import annotations
 import gc
 import hashlib
 import json
+import os
 import time
-from typing import Any, Dict, Sequence
+import warnings
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from ..kernels import _launches
+from ..kernels import _build, _launches
+
+STORE_VERSION = 1
+STORE_SUFFIX = ".ffprog"
 
 
 def fingerprint_hash(fp: Dict[str, Any]) -> str:
@@ -72,6 +93,35 @@ def _leaf_sig(x) -> tuple:
     if isinstance(x, torch.Tensor):
         return ("t", tuple(x.shape), str(x.dtype))
     return ("s", repr(x))
+
+
+def runtime_identity(device) -> Dict[str, str]:
+    """What the stored programs were run on: the torch and CUDA
+    versions and the device's name (folded into every fingerprint)."""
+    device = torch.device(device)
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)
+    return {"torch": torch.__version__,
+            "cuda": str(torch.version.cuda), "device_name": name}
+
+
+def _sig_to_json(sig: tuple) -> list:
+    return [list(leaf) if leaf[0] == "s"
+            else ["t", list(leaf[1]), leaf[2]] for leaf in sig]
+
+
+def _sig_from_json(doc) -> tuple:
+    out = []
+    for leaf in doc:
+        if leaf[0] == "s" and len(leaf) == 2 and isinstance(leaf[1], str):
+            out.append(("s", leaf[1]))
+        elif (leaf[0] == "t" and len(leaf) == 3
+              and all(isinstance(n, int) for n in leaf[1])
+              and isinstance(leaf[2], str)):
+            out.append(("t", tuple(leaf[1]), leaf[2]))
+        else:
+            raise ValueError(f"malformed signature leaf {leaf!r}")
+    return tuple(out)
 
 
 def _tensors(tree):
@@ -103,23 +153,48 @@ class ProgramRegistry:
     program families (one registry per engine or executor)."""
 
     def __init__(self, fingerprint: Dict[str, Any], device,
-                 capture: bool = True):
+                 capture: bool = True, cache_dir: Optional[str] = None):
         self.fingerprint = dict(fingerprint)
         self.fp_hash = fingerprint_hash(fingerprint)
         self.device = torch.device(device)
         self.capture = bool(capture) and self.device.type == "cuda"
+        self.cache_dir = cache_dir
         self._seen: set = set()                    # (family, sig), eager
         self._programs: Dict[tuple, _Program] = {}  # (family, sig)
         self._compiles: Dict[str, int] = {}         # family -> captures
         self._replays: Dict[str, int] = {}
         self._compile_s: Dict[str, float] = {}
         self._stream = None
+        # the warm boot: every signature run (for save), its capture
+        # seconds, and the signatures a store restored
+        self._ran: Dict[tuple, float] = {}          # (family, sig) -> s
+        self._restored: Dict[str, int] = {}
+        self._restored_keys: set = set()
+        self._dirty = False
+        # the compiler runs before this registry existed: a boot's own
+        # are the ones after (kernels/_build.py counts them)
+        self._builds0 = sum(_build.build_counts().values())
+        self._build_s0 = _build.build_seconds()
+        if cache_dir:
+            _build.arm_cache(cache_dir)
 
     # ---------------- registration -------------------------------------
     def register(self, name: str) -> None:
         self._compiles.setdefault(name, 0)
         self._replays.setdefault(name, 0)
         self._compile_s.setdefault(name, 0.0)
+        self._restored.setdefault(name, 0)
+
+    def families(self) -> tuple:
+        return tuple(self._compiles)
+
+    def _first_call(self, key, seconds: float) -> None:
+        """Count a new (family, signature) and remember it for save
+        (a store that restored it holds it already)."""
+        self._compiles[key[0]] += 1
+        self._ran[key] = seconds
+        if key not in self._restored_keys:
+            self._dirty = True
 
     @staticmethod
     def signature(args: Sequence) -> tuple:
@@ -137,7 +212,7 @@ class ProgramRegistry:
         if not self.capture:
             if key not in self._seen:
                 self._seen.add(key)
-                self._compiles[name] += 1
+                self._first_call(key, 0.0)
             if self.device.type == "cuda":
                 args = tuple(a.to(self.device, non_blocking=True)
                              if isinstance(a, torch.Tensor) else a
@@ -172,7 +247,7 @@ class ProgramRegistry:
         key = (name, self.signature(args))
         if key not in self._seen:
             self._seen.add(key)
-            self._compiles[name] += 1
+            self._first_call(key, 0.0)
         return fn(*args)
 
     def _side_stream(self):
@@ -225,8 +300,9 @@ class ProgramRegistry:
         self._programs[key] = _Program(
             graph, static_in, static_out, recorded,
             tuple(t.data_ptr() for t in bound))
-        self._compiles[name] += 1
-        self._compile_s[name] += time.perf_counter() - t0
+        secs = time.perf_counter() - t0
+        self._first_call(key, secs)
+        self._compile_s[name] += secs
         return out
 
     def release(self, families: Sequence[str] = None) -> None:
@@ -250,17 +326,174 @@ class ProgramRegistry:
         once a replay, besides the capturing call's own run."""
         return dict(self._replays)
 
+    def restored_counts(self) -> Dict[str, int]:
+        """Signatures per family that a store restored at boot."""
+        return dict(self._restored)
+
+    def compile_seconds(self) -> float:
+        """Seconds spent capturing (the runs that captured included)."""
+        return float(sum(self._compile_s.values()))
+
+    def _readied(self, key) -> bool:
+        return key in self._programs or key in self._seen
+
+    def pending_restored(self) -> List[tuple]:
+        """(family, signature) of every restored signature not run yet:
+        what a warm boot still has to ready."""
+        return sorted(k for k in self._restored_keys
+                      if not self._readied(k))
+
     def boot_record(self) -> Dict[str, Any]:
-        """What readying this registry's programs cost."""
+        """What readying this registry's programs cost: captures and
+        their seconds, the signatures a store restored, the compiler
+        runs (kernel and native libraries) since the registry was made,
+        and ``warm`` — no compiler ran, a store restored signatures, and
+        every one of them was readied."""
+        builds = sum(_build.build_counts().values()) - self._builds0
+        restored = int(sum(self._restored.values()))
+        capture_s = self.compile_seconds()
         return {
             "fingerprint": self.fp_hash,
             "captured": self.capture,
             "compiles": int(sum(self._compiles.values())),
-            "compile_s": float(sum(self._compile_s.values())),
+            "compile_s": capture_s,
+            "capture_s": capture_s,
+            "restored": restored,
+            "builds": int(builds),
+            "build_s": _build.build_seconds() - self._build_s0,
+            "warm": bool(builds == 0 and restored > 0
+                         and not self.pending_restored()),
             "families": {n: {"compiles": self._compiles[n],
+                             "restored": self._restored.get(n, 0),
                              "compile_s": round(self._compile_s[n], 4)}
                          for n in self._compiles},
         }
+
+    # ---------------- the warm boot's store -----------------------------
+    @property
+    def dirty(self) -> bool:
+        """Whether signatures ran that the store does not hold yet."""
+        return self._dirty
+
+    def _store_path(self, cache_dir: Optional[str] = None) -> str:
+        d = cache_dir if cache_dir is not None else self.cache_dir
+        return os.path.join(d, self.fp_hash + STORE_SUFFIX)
+
+    def save(self, cache_dir: Optional[str] = None) -> int:
+        """Write every signature this registry ran to
+        ``<dir>/<fp_hash>.ffprog`` (JSON, a temporary file then an
+        atomic rename), merged with a valid store already there (two
+        engines over one directory each add theirs), and update
+        ``manifest.json``. Returns the entries written (0 when no
+        directory is armed)."""
+        d = cache_dir if cache_dir is not None else self.cache_dir
+        if not d:
+            return 0
+        os.makedirs(d, exist_ok=True)
+        path = self._store_path(d)
+        entries: Dict[tuple, dict] = {}
+        old = self._read_store(path)
+        for e in (old or {}).get("entries", []):
+            entries[(e["family"], _sig_from_json(e["sig"]))] = e
+        for (family, sig), secs in self._ran.items():
+            entries[(family, sig)] = {
+                "family": family, "sig": _sig_to_json(sig),
+                "capture_s": float(secs)}
+        doc = {"version": STORE_VERSION, "fingerprint": self.fingerprint,
+               "fp_hash": self.fp_hash, **runtime_identity(self.device),
+               "entries": list(entries.values())}
+        tmp = f"{path}.tmp-{os.getpid()}"
+        with open(tmp, "w") as f:
+            json.dump(doc, f, default=str)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        self._write_manifest(d, entries)
+        self._dirty = False
+        return len(entries)
+
+    def _write_manifest(self, d: str, entries: Dict[tuple, dict]) -> None:
+        """Best-effort human-readable index of the directory: each
+        fingerprint's entries, families and runtime."""
+        path = os.path.join(d, "manifest.json")
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+            if not isinstance(doc, dict):
+                doc = {}
+        except (OSError, ValueError):
+            doc = {}
+        doc[self.fp_hash] = {
+            "entries": len(entries),
+            "families": sorted({f for f, _ in entries}),
+            **runtime_identity(self.device),
+            "fingerprint": {k: str(v) for k, v in self.fingerprint.items()},
+        }
+        try:
+            tmp = f"{path}.tmp-{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(doc, f, indent=1, sort_keys=True)
+            os.replace(tmp, path)
+        except OSError:
+            pass
+
+    def _read_store(self, path: str) -> Optional[dict]:
+        """Read and check a store. A corrupt, truncated or malformed one
+        warns and returns None (the caller boots cold); one of another
+        fingerprint is a miss (None, no warning)."""
+        if not os.path.exists(path):
+            return None
+        try:
+            with open(path) as f:
+                doc = json.load(f)
+            if (not isinstance(doc, dict)
+                    or doc.get("version") != STORE_VERSION
+                    or not isinstance(doc.get("entries"), list)):
+                raise ValueError("malformed program store")
+            if doc.get("fp_hash") != self.fp_hash:
+                return None
+            for e in doc["entries"]:
+                if not (isinstance(e, dict)
+                        and isinstance(e.get("family"), str)
+                        and isinstance(e.get("sig"), list)):
+                    raise ValueError("malformed program store entry")
+                _sig_from_json(e["sig"])
+        except Exception as e:
+            warnings.warn(f"program cache: unreadable store {path!r} "
+                          f"({e}); booting cold", stacklevel=3)
+            return None
+        return doc
+
+    def load_warm(self, cache_dir: Optional[str] = None) -> int:
+        """Restore the stored signatures of this fingerprint: each is
+        then known at boot (``restored_counts()``,
+        :meth:`pending_restored`) until it is run. Returns the number
+        restored (0 on a miss or a bad store; never raises)."""
+        d = cache_dir if cache_dir is not None else self.cache_dir
+        if not d:
+            return 0
+        doc = self._read_store(self._store_path(d))
+        if doc is None:
+            return 0
+        n = 0
+        for e in doc["entries"]:
+            key = (e["family"], _sig_from_json(e["sig"]))
+            if key in self._restored_keys:
+                continue
+            self.register(key[0])
+            self._restored_keys.add(key)
+            self._restored[key[0]] += 1
+            n += 1
+        return n
+
+    @classmethod
+    def load(cls, cache_dir: str, fingerprint: Dict[str, Any],
+             device="cpu", capture: bool = True) -> "ProgramRegistry":
+        """A registry for ``fingerprint`` warmed from ``cache_dir`` in
+        one step (the cold replica's boot)."""
+        reg = cls(fingerprint, device, capture=capture, cache_dir=cache_dir)
+        reg.load_warm()
+        return reg
 
 
 class PinnedRing:

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from . import _work
+
 # the (table, key, n) launches of the graph being captured, else None
 _recording = None
 
@@ -28,7 +30,11 @@ def _bump(table, key, n: int) -> None:
 
 def count_launch(table, key, n: int = 1) -> None:
     """Count n launches of ``table[key]``: now, or at every replay of
-    the graph being captured."""
+    the graph being captured; not at all under a cost analysis's
+    counter (kernels/_work.py), whose eager run is no launch of the
+    main path."""
+    if _work.active() is not None:
+        return
     rec = _recording
     if (rec is not None and torch.cuda.is_available()
             and torch.cuda.is_current_stream_capturing()):

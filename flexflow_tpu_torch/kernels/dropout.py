@@ -43,10 +43,17 @@ import torch
 
 from ..core.precision import reciprocal_f32
 from ..core.prng import op_uniform_torch
+from . import _work
 from ._launches import count_launch
 
 # launches of each direction: one per kernel launch, nowhere else
 launches = {"dropout_fwd": 0, "dropout_bwd": 0}
+# the kernel's 32-bit integer operations an element: threefry2x32 (2
+# initial adds, 20 rounds of add, rotate and xor, 5 key injections of
+# two adds) and the uniform's xor, shift and or; the op key's fold-in
+# (one more threefry, 72) is counted once a call
+INT_OPS_PER_ELEMENT = 2 + 20 * 3 + 5 * 2 + 3
+INT_OPS_PER_CALL = 72
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_NUMEL = (1 << 31) - 1
@@ -140,14 +147,23 @@ def dropout_cuda(x, key, fold: int, keep: float, offset: int = 0,
     return y
 
 
+def dropout_work(x):
+    """(bytes, operations) of the kernel on ``x``: x read once and the
+    result written once; INT_OPS_PER_ELEMENT 32-bit integer operations
+    an element and INT_OPS_PER_CALL a call."""
+    return (2.0 * x.numel() * x.element_size(),
+            float(INT_OPS_PER_ELEMENT * x.numel() + INT_OPS_PER_CALL))
+
+
 def _apply(x, key, fold, keep, direction, offset=0, rows=None):
     """CUDA tensors launch the kernel, CPU tensors take the plain
     version; no fallback between the two."""
-    if x.device.type == "cuda":
-        return dropout_cuda(x, key, fold, keep, offset, rows,
-                            direction=direction)
-    if x.device.type == "cpu":
-        return dropout_ref(x, key, fold, keep, offset, rows)
+    with _work.kernel(direction, lambda: dropout_work(x)):
+        if x.device.type == "cuda":
+            return dropout_cuda(x, key, fold, keep, offset, rows,
+                                direction=direction)
+        if x.device.type == "cpu":
+            return dropout_ref(x, key, fold, keep, offset, rows)
     raise ValueError(f"unsupported device {x.device}")
 
 

@@ -40,9 +40,11 @@ import math
 
 import torch
 
+from . import _work
 from ._launches import count_launch
 from .paged_ragged_v2 import (attend_gathered, check_paged_inputs,
-                              gather_pages, paged_attention_ragged_v2)
+                              gather_pages, paged_attention_ragged_v2,
+                              paged_work)
 
 # launches of each CUDA kernel: one per successful launch, nowhere else
 # — how a run shows that its main path went through the kernels (set
@@ -331,19 +333,50 @@ def _by_device(cuda_fn, ref_fn, q, *args, **kw):
     raise ValueError(f"unsupported device {q.device}")
 
 
+def flash_work(b, sq, sk, h, d, itemsize, causal):
+    """{kernel: (bytes, flops)} of the three flash kernels on (b, sq, h,
+    d) queries and (b, sk, h, d) keys of ``itemsize`` bytes. Flops count
+    the (query, key) pairs computed — all sq * sk, or those on or below
+    the diagonal (query i sees keys j <= i) when causal — at 4d
+    (forward: q.k, p.v), 6d (dq: q.k, do.v, ds.k) and 8d (dkv: also
+    p^T.do, ds^T.q) a pair. Bytes read each input once and write each
+    output once: the (b, s, h, d) operands, lse and delta f32 (b, h,
+    sq)."""
+    if causal:
+        m = min(sq, sk)
+        pairs = m * (m + 1) / 2 + (sq - m) * sk
+    else:
+        pairs = float(sq * sk)
+    per = b * h * d * pairs
+    oq, ok = b * sq * h * d * itemsize, b * sk * h * d * itemsize
+    row = b * h * sq * 4
+    return {"flash_fwd": (2 * oq + 2 * ok + row, 4 * per),
+            "flash_bwd_dq": (3 * oq + 2 * ok + 2 * row, 6 * per),
+            "flash_bwd_dkv": (2 * oq + 4 * ok + 2 * row, 8 * per)}
+
+
+def _flash_kernel(name, q, k, causal):
+    b, sq, h, d = q.shape
+    return _work.kernel(name, lambda: flash_work(
+        b, sq, k.shape[1], h, d, q.element_size(), causal)[name])
+
+
 def flash_fwd(q, k, v, *, causal, scale):
-    return _by_device(flash_fwd_cuda, flash_fwd_ref, q, k, v,
-                      causal=causal, scale=scale)
+    with _flash_kernel("flash_fwd", q, k, causal):
+        return _by_device(flash_fwd_cuda, flash_fwd_ref, q, k, v,
+                          causal=causal, scale=scale)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal, scale):
-    return _by_device(flash_bwd_dq_cuda, flash_bwd_dq_ref, q, k, v, do,
-                      lse, delta, causal=causal, scale=scale)
+    with _flash_kernel("flash_bwd_dq", q, k, causal):
+        return _by_device(flash_bwd_dq_cuda, flash_bwd_dq_ref, q, k, v, do,
+                          lse, delta, causal=causal, scale=scale)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal, scale):
-    return _by_device(flash_bwd_dkv_cuda, flash_bwd_dkv_ref, q, k, v, do,
-                      lse, delta, causal=causal, scale=scale)
+    with _flash_kernel("flash_bwd_dkv", q, k, causal):
+        return _by_device(flash_bwd_dkv_cuda, flash_bwd_dkv_ref, q, k, v,
+                          do, lse, delta, causal=causal, scale=scale)
 
 
 def _unit_last(x):
@@ -604,8 +637,10 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, seq_lens, *,
     tensors launch the kernel, CPU tensors take the plain version."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _by_device(paged_decode_cuda, paged_decode_ref, q, k_pages,
-                      v_pages, page_table, seq_lens, scale)
+    with _work.kernel("paged_decode", lambda: paged_work(
+            q, k_pages, page_table, None, seq_lens)):
+        return _by_device(paged_decode_cuda, paged_decode_ref, q, k_pages,
+                          v_pages, page_table, seq_lens, scale)
 
 
 def paged_attention_ragged_v1(q, k_pages, v_pages, page_tables,
@@ -617,9 +652,11 @@ def paged_attention_ragged_v1(q, k_pages, v_pages, page_tables,
     pages only."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    return _by_device(paged_ragged_v1_cuda, paged_ragged_v1_ref, q,
-                      k_pages, v_pages, page_tables, lane_slots, lane_lens,
-                      scale)
+    with _work.kernel("paged_ragged_v1", lambda: paged_work(
+            q, k_pages, page_tables, lane_slots, lane_lens)):
+        return _by_device(paged_ragged_v1_cuda, paged_ragged_v1_ref, q,
+                          k_pages, v_pages, page_tables, lane_slots,
+                          lane_lens, scale)
 
 
 def paged_attention_ragged(q, k_pages, v_pages, page_tables, lane_slots,

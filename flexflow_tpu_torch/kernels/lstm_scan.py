@@ -38,6 +38,7 @@ import ctypes
 
 import torch
 
+from . import _work
 from ._launches import count_launch
 from .flash_attention import _DTYPE_CODE, _by_device
 
@@ -380,6 +381,21 @@ def _cuda_dwh(h0, hist, dxg, dwh) -> int:
 
 
 def lstm_fwd_split(xgs, whs, h0, c0s, gather, plain=False):
+    """The forward walk of the split form; see :func:`_fwd_split_walk`."""
+    with _split_kernel("lstm_fwd", xgs, whs):
+        return _fwd_split_walk(xgs, whs, h0, c0s, gather, plain)
+
+
+def lstm_bwd_split(xgs, whs, h0, c0s, css, hist, dyss, reduce_scatter,
+                   plain=False):
+    """The backward walk of the split form; see
+    :func:`_bwd_split_walk`."""
+    with _split_kernel("lstm_bwd", xgs, whs):
+        return _bwd_split_walk(xgs, whs, h0, c0s, css, hist, dyss,
+                               reduce_scatter, plain)
+
+
+def _fwd_split_walk(xgs, whs, h0, c0s, gather, plain=False):
     """The forward walk of the split form over the blocks held here (one
     on a rank; all n in one process): block b's xg (T, B, 4Hu_b), wh
     (Hin, 4Hu_b) and c0 (B, Hu_b) f32, h0 (B, Hin) whole in wh's dtype.
@@ -415,8 +431,8 @@ def lstm_fwd_split(xgs, whs, h0, c0s, gather, plain=False):
     return css, hist
 
 
-def lstm_bwd_split(xgs, whs, h0, c0s, css, hist, dyss, reduce_scatter,
-                   plain=False):
+def _bwd_split_walk(xgs, whs, h0, c0s, css, hist, dyss, reduce_scatter,
+                    plain=False):
     """The backward walk of the split form: blocks as in
     :func:`lstm_fwd_split`, with their cs and dys (T, B, Hu_b) and the
     history. Each reverse step t runs the blocks' kernel 8 steps (dh =
@@ -537,15 +553,73 @@ def lstm_sequence_split(xg, wh, h0, c0, exchange):
     return LSTMSplitSequence.apply(xg, wh, h0, c0, exchange)
 
 
+# ------------------------------------------------------------ the work
+def lstm_work(t, b, h, itemsize):
+    """{kernel: (bytes, flops)} of the two LSTM kernels over T=t steps,
+    batch b, H=h units in operands of ``itemsize`` bytes. Flops: the
+    forward's T products (B, H) x (H, 4H), 2*T*B*H*4H; the backward's
+    three such (the gate recompute, dlin.wh^T, and dwh). Bytes: each
+    input read once, each output written once — forward xg, wh, h0, c0
+    in, ys and cs out; backward xg, wh, h0, c0, ys, cs, dys in, dxg, dwh
+    (f32), dh0, dc0 out."""
+    e = itemsize
+    tbh = t * b * h
+    flops = 2.0 * t * b * h * 4 * h
+    state = 2 * b * h * 4
+    fwd_bytes = (4 * tbh + 4 * h * h) * e + state + tbh * (e + 4)
+    bwd_bytes = (fwd_bytes + tbh * e               # + dys
+                 + 4 * tbh * e + 4 * h * h * 4 + state)
+    return {"lstm_fwd": (fwd_bytes, flops), "lstm_bwd": (bwd_bytes, 3 * flops)}
+
+
+def lstm_split_work(t, b, hin, hu, itemsize):
+    """{kernel: (bytes, flops)} of one block's split walk (T=t, batch b,
+    Hin=hin whole units, Hu=hu of the block's). Flops: the forward's T
+    products (B, Hin) x (Hin, 4Hu); the backward's three (the
+    recompute, the partial dh, dwh). Bytes, each input read once and
+    each output written once: forward xg, wh, the history h_{t-1} (T, B,
+    Hin), c0 in, ys and cs out; backward xg, wh, the history, c0, cs,
+    dys and the f32 addends in, dxg, the f32 partials (T, B, Hin), dwh
+    (f32), dc0 out."""
+    e = itemsize
+    tbu, tbi = t * b * hu, t * b * hin
+    flops = 2.0 * t * b * hin * 4 * hu
+    fwd_bytes = ((4 * tbu + hin * 4 * hu + tbi + tbu) * e
+                 + b * hu * 4 + tbu * 4)
+    bwd_bytes = ((4 * tbu + hin * 4 * hu + tbi + tbu + 4 * tbu) * e
+                 + 2 * b * hu * 4 + tbu * 4 * 2 + tbi * 4
+                 + hin * 4 * hu * 4)
+    return {"lstm_fwd": (fwd_bytes, flops), "lstm_bwd": (bwd_bytes, 3 * flops)}
+
+
+def _split_kernel(name, xgs, whs):
+    """The work of a split walk over the blocks held here."""
+    def work():
+        t, b = xgs[0].shape[:2]
+        per = [lstm_split_work(t, b, wh.shape[0], xg.shape[2] // 4,
+                               xg.element_size())[name]
+               for xg, wh in zip(xgs, whs)]
+        return sum(p[0] for p in per), sum(p[1] for p in per)
+    return _work.kernel(name, work)
+
+
+def _whole_kernel(name, xg):
+    t, b, g = xg.shape
+    return _work.kernel(name, lambda: lstm_work(
+        t, b, g // 4, xg.element_size())[name])
+
+
 # ------------------------------------------------------------ dispatch
 # CUDA tensors launch the kernel, CPU tensors take the plain version
 def lstm_fwd(xg, wh, h0, c0):
-    return _by_device(lstm_fwd_cuda, lstm_fwd_ref, xg, wh, h0, c0)
+    with _whole_kernel("lstm_fwd", xg):
+        return _by_device(lstm_fwd_cuda, lstm_fwd_ref, xg, wh, h0, c0)
 
 
 def lstm_bwd(xg, wh, h0, c0, ys, cs, dys):
-    return _by_device(lstm_bwd_cuda, lstm_bwd_ref, xg, wh, h0, c0, ys, cs,
-                      dys)
+    with _whole_kernel("lstm_bwd", xg):
+        return _by_device(lstm_bwd_cuda, lstm_bwd_ref, xg, wh, h0, c0, ys,
+                          cs, dys)
 
 
 class LSTMSequence(torch.autograd.Function):

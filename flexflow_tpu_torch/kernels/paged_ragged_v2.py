@@ -34,9 +34,11 @@ import math
 import sys
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..core.precision import reciprocal_f32
+from . import _work
 from ._launches import count_launch
 
 # launches of the CUDA kernel: one per successful launch, nowhere else
@@ -266,6 +268,33 @@ def _check_scales(k_pages, k_scales, v_scales) -> None:
                 f"{s.device}")
 
 
+def paged_work(q, k_pages, page_tables, lane_slots, lane_lens):
+    """(bytes, flops) of paged attention on these inputs — kernel 1, and
+    with ``lane_slots`` None (row b reads table row b) the decode
+    kernels. Bytes: each live K/V page (the pages below ceil(len/ps) of
+    every lane's table row) read once with, for 1-byte pages, its f32
+    scale rows; q and the table read once, the lane vectors read once,
+    the output written once. Flops: q.k and p.v, 4 * len * H * D a
+    lane. Counts what this call's lengths need, not the most they
+    could."""
+    ps, heads, d = k_pages.shape[1], k_pages.shape[-2], k_pages.shape[-1]
+    t_np = page_tables.cpu().numpy()
+    l_np = lane_lens.cpu().numpy()
+    s_np = np.arange(len(l_np)) if lane_slots is None \
+        else lane_slots.cpu().numpy()
+    live = set()
+    for s, n in zip(s_np, l_np):
+        live.update(int(p) for p in t_np[s, :-(-int(n) // ps)])
+    page_bytes = ps * heads * d * k_pages.element_size()
+    if k_pages.element_size() == 1:
+        page_bytes += ps * heads * 4
+    nbytes = (2 * len(live) * page_bytes + 2 * q.numel() * q.element_size()
+              + page_tables.numel() * 4
+              + (1 if lane_slots is None else 2) * len(l_np) * 4)
+    flops = 4.0 * float(l_np.astype(np.int64).sum()) * heads * d
+    return float(nbytes), flops
+
+
 def paged_ragged_v2_cuda(q, k_pages, v_pages, page_tables, lane_slots,
                          lane_lens, scale, block_kv=None, k_scales=None,
                          v_scales=None):
@@ -340,14 +369,18 @@ def paged_attention_ragged_v2(q, k_pages, v_pages, page_tables,
         raise ValueError("k_scales and v_scales must be given together")
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    if q.device.type == "cuda":
-        return paged_ragged_v2_cuda(q, k_pages, v_pages, page_tables,
-                                    lane_slots, lane_lens, scale,
-                                    block_kv=block_kv, k_scales=k_scales,
-                                    v_scales=v_scales)
-    if q.device.type == "cpu":
-        _tile_for(block_kv, q.shape[-1])     # the same knob contract
-        return ragged_attention_ref(q, k_pages, v_pages, page_tables,
-                                    lane_slots, lane_lens, scale,
-                                    k_scales=k_scales, v_scales=v_scales)
+    with _work.kernel("paged_ragged_v2", lambda: paged_work(
+            q, k_pages, page_tables, lane_slots, lane_lens)):
+        if q.device.type == "cuda":
+            return paged_ragged_v2_cuda(q, k_pages, v_pages, page_tables,
+                                        lane_slots, lane_lens, scale,
+                                        block_kv=block_kv,
+                                        k_scales=k_scales,
+                                        v_scales=v_scales)
+        if q.device.type == "cpu":
+            _tile_for(block_kv, q.shape[-1])     # the same knob contract
+            return ragged_attention_ref(q, k_pages, v_pages, page_tables,
+                                        lane_slots, lane_lens, scale,
+                                        k_scales=k_scales,
+                                        v_scales=v_scales)
     raise ValueError(f"unsupported device {q.device}")

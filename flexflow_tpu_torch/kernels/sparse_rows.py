@@ -35,6 +35,7 @@ from typing import Sequence
 
 import torch
 
+from . import _work
 from ._launches import count_launch
 
 EXACT, MOMENTUM, NESTEROV, ADAM = 0, 1, 2, 3
@@ -236,10 +237,36 @@ def update_rows(w, idx, g, rule: int, scalar, hyper=(),
     rows = g.reshape(t, -1, d).float().contiguous()
     sl = [s if s.dim() == 3 else s.unsqueeze(0) for s in slots]
     skey, order = sort_rows(ids, vocab, lazy=rule != EXACT)
-    if w.device.type == "cuda":
-        apply_rows_cuda(tables, skey, order, rows, rule, scalar, hyper, sl)
-    elif w.device.type == "cpu":
-        apply_rows_ref(tables, skey, order, rows, rule, scalar, hyper, sl)
-    else:
-        raise ValueError(f"unsupported device {w.device}")
+
+    def work():
+        # the rows the rule writes: ids in [-vocab, vocab), negative
+        # ones from the end, per table
+        i = ids.long()
+        keep = (i >= -vocab) & (i < vocab)
+        offs = torch.arange(t, device=ids.device)[:, None] * vocab
+        touched = int(torch.unique(((i % vocab) + offs)[keep]).numel())
+        return rows_work(touched, d, w.element_size(), ids.numel(),
+                         len(sl))
+
+    with _work.kernel("sparse_rows_exact" if rule == EXACT
+                      else "sparse_rows_lazy", work):
+        if w.device.type == "cuda":
+            apply_rows_cuda(tables, skey, order, rows, rule, scalar, hyper,
+                            sl)
+        elif w.device.type == "cpu":
+            apply_rows_ref(tables, skey, order, rows, rule, scalar, hyper,
+                           sl)
+        else:
+            raise ValueError(f"unsupported device {w.device}")
     return w
+
+
+def rows_work(touched: int, dim: int, itemsize: int, ids: int,
+              slots: int = 0):
+    """(bytes, flops) of the row rule: each touched row of the table
+    (and of each of ``slots`` slot tables) read and written once, the
+    f32 gradient rows and the int64 sort keys and permutation read
+    once; two flops a gradient element (the scale and the add)."""
+    nbytes = (2 * touched * dim * itemsize * (1 + slots) + ids * dim * 4
+              + 2 * ids * 8)
+    return float(nbytes), 2.0 * ids * dim

@@ -962,6 +962,13 @@ class FFModel:
                 ckptr.close()
             if fit_loader is not None:   # the native loader's thread
                 fit_loader.close()
+            # the train programs' signatures to --program-cache-dir, so
+            # the next process over this configuration knows them (a
+            # no-op when unarmed or nothing new ran)
+            try:
+                self.executor.save_programs()
+            except OSError:
+                pass   # an unwritable cache dir must not fail fit
         return history
 
     @staticmethod

@@ -6,12 +6,16 @@ gatherer and host embedding-bag (``dataloader.cc``,
 ``flexflow_tpu_torch/csrc/``.
 
 The library is compiled with g++ at first use into the git-ignored
-``flexflow_tpu_torch/_build/``, as ``kernels/_build.py`` builds the CUDA
-sources: its file name carries a digest of the sources and the flags,
-so an edited source rebuilds and a stale library is never loaded, and
-the build writes a temporary file and renames it, so concurrent
-builders never load a half-written library. It reads only
-``flexflow_tpu_torch/csrc/``.
+``flexflow_tpu_torch/_build/``, or into the armed kernel cache
+(``<program_cache_dir>/kernels``), as ``kernels/_build.py`` builds the
+CUDA sources and by its rules: its file name carries a digest of the
+sources, the flags and g++'s version string, so an edited source or
+another compiler rebuilds and a stale library is never loaded; the
+build writes a temporary file and renames it (after its checksum), so
+concurrent builds never load a half-written library; a library that
+fails its checksum or does not load is deleted and rebuilt with a
+warning; the compiler runs count in ``_build.build_counts()`` as
+``native``. It reads only ``flexflow_tpu_torch/csrc/``.
 
 A failed build raises with g++'s message: neither the search nor the
 loader falls through to its Python path behind the caller's back.
@@ -29,11 +33,14 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Optional
 
+from ..kernels import _build
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+BUILD_DIR = _build.BUILD_DIR
 SOURCES = ("simulator.cc", "mcmc.cc", "dataloader.cc", "embedding_bag.cc")
 HEADERS = ("flexflow_torch_c.h", "sim_core.h")
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
@@ -42,14 +49,32 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def library_path() -> Path:
-    """The library's path; its digest covers the sources, the headers
-    and the flags."""
+def _cxx() -> str:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(
+            "the native library needs g++ to build "
+            "flexflow_tpu_torch/csrc (set FLEXFLOW_TORCH_NO_NATIVE to "
+            "search and load data in Python)")
+    return cxx
+
+
+def source_digest() -> str:
+    """Digest of the sources, the headers and the flags."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
     for f in SOURCES + HEADERS:
         h.update(f.encode())
         h.update((CSRC / f).read_bytes())
-    return BUILD_DIR / f"libflexflow_torch_native-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    """The library's path; its digest covers the sources, the headers,
+    the flags and g++'s version string."""
+    h = hashlib.sha256((source_digest() + "\n"
+                        + _build.compiler_version(_cxx())).encode())
+    return (_build.library_dir()
+            / f"libflexflow_torch_native-{h.hexdigest()[:16]}.so")
 
 
 def build() -> Path:
@@ -59,23 +84,20 @@ def build() -> Path:
     out = library_path()
     if out.is_file():
         return out
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError(
-            "the native library needs g++ to build "
-            "flexflow_tpu_torch/csrc (set FLEXFLOW_TORCH_NO_NATIVE to "
-            "search and load data in Python)")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cxx = _cxx()
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [cxx, *CXX_FLAGS, "-I", str(CSRC),
            *(str(CSRC / s) for s in SOURCES), "-o", str(tmp), "-lpthread"]
+    t0 = time.perf_counter()
     p = subprocess.run(cmd, capture_output=True, text=True)
+    _build.record_build(("native",), time.perf_counter() - t0)
     if p.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
             f"g++ failed to build the native library "
             f"({' '.join(cmd)}):\n{p.stdout}{p.stderr}")
-    os.replace(tmp, out)
+    _build.install(tmp, out)
     return out
 
 
@@ -142,7 +164,7 @@ def get_lib() -> ctypes.CDLL:
             "(FLEXFLOW_TORCH_NO_NATIVE)")
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            lib = _build.load_verified("native", library_path(), build)
             _declare(lib)
             _lib = lib
     return _lib

@@ -179,6 +179,24 @@ class OpContext:
         still run)."""
         return self.mesh is not None and self.batch_axis is not None
 
+    def mesh_axis_size(self, logical_axis: str) -> int:
+        """Size of the mesh axis a logical axis maps to (1 if unmapped,
+        or mapped to a tuple of axes)."""
+        if self.mesh is None or self.strategy is None:
+            return 1
+        ax = self.strategy.mesh_axis_for(logical_axis)
+        if ax is None or not isinstance(ax, str):
+            return 1
+        return self.mesh.shape.get(ax, 1)
+
+    def mesh_axis_name(self, logical_axis: str):
+        """The mesh axis a logical axis maps to, None if unmapped or
+        mapped to a tuple of axes."""
+        if self.strategy is None:
+            return None
+        ax = self.strategy.mesh_axis_for(logical_axis)
+        return ax if isinstance(ax, str) else None
+
 
 class Op:
     """Base class for all layers. Ops own no tensors, only shapes and

@@ -173,6 +173,11 @@ def cache_file(prefix: str, identity: str) -> str:
     return os.path.join(root, f"{prefix}_{safe}.json")
 
 
+def calibration_cache_path(identity: str) -> str:
+    """The calibration cache's file for a card identity."""
+    return cache_file("calibration", identity)
+
+
 def calibrated_machine_model(mesh=None, machine_file: Optional[str] = None,
                              force: bool = False) -> H100MachineModel:
     """``default_machine_model`` with its efficiency factors measured

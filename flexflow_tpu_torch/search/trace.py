@@ -152,3 +152,12 @@ class SearchTrace:
             "events_recorded": sum(len(c.events) for c in chains),
             "events_dropped": sum(c.dropped for c in chains),
         }
+
+    def events_list(self) -> List[dict]:
+        """The retained rings as dicts, ordered by (chain, iteration)
+        (debug and notebook use)."""
+        keys = ("iteration", "chain", "kind", "ops", "delta_cost",
+                "accepted", "temperature", "path")
+        return [dict(zip(keys, e))
+                for k in sorted(self._chains)
+                for e in list(self._chains[k].events)]

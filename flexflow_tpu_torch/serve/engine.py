@@ -123,7 +123,8 @@ import torch
 
 from ..config import CompMode, FFConfig, resolve_device
 from ..core.precision import dtype_name
-from ..core.programs import PinnedRing, ProgramRegistry
+from ..core.programs import (PinnedRing, ProgramRegistry,
+                             runtime_identity)
 from ..kernels.flash_attention import (paged_attention_decode,
                                        paged_attention_ragged)
 from ..kernels.paged_ragged_v2 import quantize_kv_rows
@@ -482,14 +483,19 @@ class ServeEngine:
         self._session: Optional["ServeSession"] = None
         self.boot_stats: Optional[dict] = None
         self.last_stats: Optional[dict] = None
-        # the serving programs, in the JAX engine's families
-        self.programs = ProgramRegistry(self._program_fingerprint(),
-                                        self.device, capture=capture)
+        # the serving programs, in the JAX engine's families; with
+        # program_cache_dir the kernel-library cache is armed and the
+        # store of this fingerprint's signatures read back (the warm
+        # boot: warmup() captures every one of them)
+        self.programs = ProgramRegistry(
+            self._program_fingerprint(), self.device, capture=capture,
+            cache_dir=cfg.program_cache_dir)
         # the JAX engine's six families: the serving steps, the adapter
         # slot load and the page export/import (run eagerly and counted)
         for fam in ("prefill", "decode", "mixed", "adapter", "export",
                     "import"):
             self.programs.register(fam)
+        self.programs_restored = self.programs.load_warm()
         self._stage_in = PinnedRing(self.device)
         self._stage_out = PinnedRing(self.device)
         # the /metrics and /healthz endpoint, started LAST so that a
@@ -500,20 +506,47 @@ class ServeEngine:
                 self.telemetry.to_prometheus, port=int(cfg.metrics_port),
                 host=str(cfg.metrics_host))
 
+    def _kernel_sources(self) -> Tuple[str, ...]:
+        """The CUDA sources of the active path's kernels."""
+        return ("paged_ragged_v2",) if self.chunked_prefill \
+            else ("paged_decode",)
+
     def _program_fingerprint(self) -> dict:
+        """The identity of this engine's programs: everything that shapes
+        or numbers a serving step — the JAX engine's keys (its ``jax``
+        version is ``torch`` here, ``use_pallas`` the digests of the
+        path's kernel sources, ``interpret`` the backend), the CUDA
+        version and the device's name. Flipping any of them misses the
+        program store; an edited kernel source does too."""
         c = self.cache_cfg
         ac = self.adapter_cfg
-        return {"arch": {k: str(v) for k, v in
+        from ..kernels import _build
+        return {"kind": "serve",
+                **runtime_identity(self.device),
+                "backend": self.device.type, "devices": self.tp,
+                "device": str(self.device),
+                "arch": {k: str(v) for k, v in
                          dataclasses.asdict(self.arch).items()},
-                "mixed_width": self.mixed_width, "max_seqs": c.max_seqs,
-                "page_size": c.page_size, "num_pages": c.num_pages,
-                "pages_per_seq": c.pages_per_seq, "kv_dtype": self.kv_dtype,
-                "topk_cap": self.topk_cap,
+                "num_layers": self.num_layers, "hidden": self.hidden,
+                "num_heads": self.num_heads, "head_dim": self.head_dim,
+                "ff_pad": self._ff_pad, "vocab": self.vocab_size,
+                "max_positions": self.max_positions,
+                "layer_norm": bool(self.arch.layer_norm),
+                "act_dtype": str(self.act_dtype),
+                "max_seq_len": self._max_seq_len,
                 "chunked_prefill": self.chunked_prefill,
+                "prefill_budget": self.prefill_budget,
+                "mixed_width": self.mixed_width, "topk_cap": self.topk_cap,
+                "buckets": tuple(self.buckets), "kv_dtype": self.kv_dtype,
+                "kv_store_dtype": str(c.storage_dtype),
+                "page_size": c.page_size, "pages_per_seq": c.pages_per_seq,
+                "num_pages": c.num_pages, "max_seqs": c.max_seqs,
+                "attn_block_kv": self.attn_block_kv,
                 "adapter_rank": 0 if ac is None else ac.rank,
                 "adapter_slots": 0 if ac is None else ac.num_slots,
-                "tp": self.tp, "ff_pad": self._ff_pad,
-                "device": str(self.device)}
+                "tp": self.tp,
+                "kernels": {n: _build.source_digest(n)
+                            for n in self._kernel_sources()}}
 
     def compile_counts(self) -> dict:
         """Captured programs per serving family (on the CPU and with
@@ -1227,6 +1260,42 @@ class ServeEngine:
         return (torch.argmax(logits, dim=-1).to(torch.int32),
                 topv.float(), topi.to(torch.int32))
 
+    def mixed_step_cost_analysis(self) -> dict:
+        """The cost of one mixed step at the engine's fixed geometry, on
+        warmup's sink-page inputs: ``flops`` and ``bytes accessed`` as
+        the JAX engine's dict has them, plus the breakdown of
+        ``utils/profiling.StepCost`` (kernel 1's count from its launch
+        arguments, its share of the whole). At t > 1 the rank's step
+        (every rank calls it: the step's collectives run). The step runs
+        once eagerly on copies of the pages and scales, never as a
+        captured replay: the pages, ``compile_counts()``, the kernels'
+        launch counts and the captured graphs are as they were. Call it
+        outside timed regions."""
+        from ..utils.profiling import StepCost, untraced
+        c = self.cache_cfg
+        self._device_pages()
+        t = self.mixed_width
+        z = np.zeros((t,), np.int32)
+        arrays = [z, z, z, z, np.zeros((c.max_seqs, c.pages_per_seq),
+                                       np.int32), z, np.ones((t,), np.int32)]
+        if self.adapters is not None:
+            arrays.append(z)
+        lanes = [torch.from_numpy(a).to(self.device) for a in arrays]
+        pools = ("_k_pages", "_v_pages", "_k_scales", "_v_scales")
+        saved = {n: getattr(self, n) for n in pools}
+        for n, x in saved.items():
+            setattr(self, n, None if x is None else x.clone())
+        try:
+            with untraced(self.device), StepCost() as cost, \
+                    self.on_stream():
+                self._mixed_body(*lanes)
+                if self.device.type == "cuda":
+                    torch.cuda.current_stream(self.device).synchronize()
+        finally:
+            for n, x in saved.items():
+                setattr(self, n, x)
+        return cost.result()
+
     @torch.no_grad()
     def _mixed_body(self, tokens, positions, write_pages, write_offs,
                     page_tables, lane_slots, lane_lens,
@@ -1419,11 +1488,20 @@ class ServeEngine:
         """Allocate the page pool and ready the active path's programs
         once on throwaway inputs (every write aims at the sink page):
         the mixed step, or on the legacy path the prefill of every
-        bucket and the decode step. On the card this builds the kernels
-        and captures each program. Returns compile_counts(); the boot
-        record lands in ``boot_stats``."""
+        bucket and the decode step, then every signature the program
+        store restored that those did not run. On the card this builds
+        the kernels and captures each program; with program_cache_dir
+        armed it first readies the whole kernel library in the cache.
+        Returns compile_counts(); the boot record lands in
+        ``boot_stats`` (``warm``: no compiler ran, and every restored
+        signature was readied). A boot that captured signatures the
+        store lacks writes the store back (rank 0 of a tensor group:
+        every rank's signatures are the same)."""
         t0 = time.perf_counter()
         c = self.cache_cfg
+        if self.programs.cache_dir and self.device.type == "cuda":
+            from ..kernels import _build
+            _build.build()
         self._device_pages()
         tables = np.zeros((c.max_seqs, c.pages_per_seq), np.int32)
         if self.chunked_prefill:
@@ -1450,10 +1528,30 @@ class ServeEngine:
             z = np.zeros((c.max_seqs,), np.int32)
             self._dispatch("decode", z, z, z, z, tables,
                            np.ones((c.max_seqs,), np.int32))
+        self._ready_restored()
         rec = self.programs.boot_record()
         rec["boot_s"] = time.perf_counter() - t0
         self.boot_stats = rec
+        if self.programs.dirty and (self.bm is None or self.bm.rank == 0):
+            self.programs.save()
         return self.compile_counts()
+
+    def _ready_restored(self) -> None:
+        """Ready the restored signatures warmup's own steps left: the
+        page export and import (an engine of this fingerprint with a
+        host tier ran them) as warmup_handoff runs them. The fingerprint
+        fixes every step's geometry, so a step signature still pending
+        is another build's: it warns and stays pending (the boot is not
+        warm)."""
+        families = {f for f, _ in self.programs.pending_restored()}
+        if families & {"export", "import"} and self.chunked_prefill:
+            self.warmup_handoff()
+        left = self.programs.pending_restored()
+        if left:
+            warnings.warn(f"program cache: {len(left)} restored "
+                          f"signatures this engine does not run "
+                          f"({sorted({f for f, _ in left})}); booting "
+                          f"cold", stacklevel=3)
 
     # ---------------- sampling -----------------------------------------
     @staticmethod

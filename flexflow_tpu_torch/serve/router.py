@@ -464,9 +464,13 @@ class ReplicaPool:
     def _activate_replica(self, t_now: float) -> Replica:
         """Scale-up primitive, cheapest boot first: reactivate a
         PARKED warm replica (captured programs intact — zero new
-        captures); else build and warm up a fresh engine (a cold boot:
-        the port cannot serialize a captured graph). Every non-parked
-        boot emits a `replica_boot` span with the registry's measured
+        captures); else build and warm up a fresh engine, warm or cold
+        as its ``boot_stats`` say: with ``program_cache_dir`` armed, once
+        a store covers the configuration (the first engine over it
+        writes one), a fresh engine loads its kernels from the cache and
+        captures every stored signature in ``warmup`` — a
+        `replica_boot_warm` span; without one, a `replica_boot_cold`.
+        Every non-parked boot's span carries the registry's measured
         capture seconds, and the latest boot cost feeds the
         serve_pool_boot_cost_s gauge the autoscaler prices scale-ups
         with. The new replica's clock fast-forwards to now (a replica

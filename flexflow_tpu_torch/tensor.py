@@ -41,6 +41,10 @@ class Tensor:
         self.is_input = is_input
 
     @property
+    def num_dims(self) -> int:
+        return len(self.shape)
+
+    @property
     def num_elements(self) -> int:
         n = 1
         for s in self.shape:

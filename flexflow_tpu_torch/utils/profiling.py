@@ -9,8 +9,14 @@ aggregate they print reads from the canonical metric fold of
 ``utils/telemetry.py``. :func:`trace` runs ``torch.profiler`` instead
 of ``jax.profiler``; :func:`time_train_steps` times with
 ``torch.cuda.synchronize``; :func:`op_profile` tabulates the port's
-``Op.flops()``. The JAX package's ``hlo_cost`` (XLA's cost analysis of
-the compiled step) has no counterpart.
+``Op.flops()``. :func:`hlo_cost` is the counterpart of JAX's (XLA's cost
+analysis of the compiled train step): no compiler reports on a step
+here, so :class:`StepCost` counts one step run eagerly — GEMM,
+convolution and attention ops by ``torch.utils.flop_counter``'s
+formulas, every other arithmetic op one flop an element of its largest
+operand, bytes as operands plus results, and each hand-written kernel
+by its own count from its launch arguments (``kernels/_work.py``).
+XLA counts after fusion, so the bytes are larger here than XLA's.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import warnings
 from typing import Optional
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 from .telemetry import serve_metrics, train_metrics
 
@@ -619,3 +627,148 @@ def time_train_steps(model, batch, steps: int = 20, warmup: int = 3
         model.train_batch(batch)
     sync()
     return (time.perf_counter() - t0) / steps
+
+
+# ops that move or make data and compute nothing: 0 flops (their bytes
+# still count; views count neither)
+_NO_FLOPS = frozenset((
+    "copy_", "_to_copy", "clone", "contiguous", "empty", "empty_like",
+    "empty_strided", "new_empty", "new_empty_strided", "zeros",
+    "zeros_like", "new_zeros", "ones", "ones_like", "new_ones", "full",
+    "full_like", "new_full", "fill_", "zero_", "arange", "cat", "stack",
+    "index", "index_select", "gather", "embedding", "slice_scatter",
+    "select_scatter", "constant_pad_nd", "repeat", "lift_fresh",
+    "lift_fresh_copy", "_local_scalar_dense", "scalar_tensor",
+    "masked_select", "nonzero", "sort", "argsort", "topk", "randperm",
+    "resize_", "set_", "record_stream"))
+
+
+def _tensors_of(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            yield from _tensors_of(x)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            yield from _tensors_of(x)
+
+
+class StepCost(TorchDispatchMode):
+    """Counts the flops and bytes of the ops run inside it (one step run
+    eagerly): ``flops`` and ``bytes``, ``gemm_flops`` (the ops of
+    ``torch.utils.flop_counter``'s table), and ``kernels`` — each
+    hand-written kernel's own count from its launch arguments, added by
+    the wrappers (``kernels/_work.py``) while the body they run is not
+    counted. Views count nothing; other data movement counts its bytes
+    and no flops; every other op one flop an element of its largest
+    operand or result (a pointwise op's elements, a reduction's input).
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0.0
+        self.bytes = 0.0
+        self.gemm_flops = 0.0
+        self.kernels = {}
+        self._paused = 0
+
+    @contextlib.contextmanager
+    def paused(self):
+        self._paused += 1
+        try:
+            yield
+        finally:
+            self._paused -= 1
+
+    def add_kernel(self, name: str, nbytes: float, flops: float) -> None:
+        k = self.kernels.setdefault(name, {"calls": 0, "flops": 0.0,
+                                           "bytes accessed": 0.0})
+        k["calls"] += 1
+        k["flops"] += float(flops)
+        k["bytes accessed"] += float(nbytes)
+        self.flops += float(flops)
+        self.bytes += float(nbytes)
+
+    def __enter__(self):
+        from ..kernels import _work
+        _work.activate(self)
+        try:
+            return super().__enter__()
+        except BaseException:
+            _work.activate(None)
+            raise
+
+    def __exit__(self, *exc):
+        from ..kernels import _work
+        try:
+            return super().__exit__(*exc)
+        finally:
+            _work.activate(None)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if self._paused or func.is_view:
+            return out
+        packet = func._overloadpacket
+        ins = list(_tensors_of((args, kwargs)))
+        outs = list(_tensors_of(out))
+        self.bytes += float(sum(t.numel() * t.element_size()
+                                for t in ins + outs))
+        if packet in flop_registry:
+            f = float(flop_registry[packet](*args, **kwargs, out_val=out))
+            self.gemm_flops += f
+            self.flops += f
+        elif packet.__name__ not in _NO_FLOPS:
+            self.flops += float(max((t.numel() for t in ins + outs),
+                                    default=0))
+        return out
+
+    def result(self) -> dict:
+        """The JAX cost dict's keys (``flops``, ``bytes accessed``) and
+        the breakdown: ``gemm flops``, ``kernels`` (each kernel's calls,
+        flops and bytes) and ``kernel flops share`` / ``kernel bytes
+        share`` of the whole."""
+        kf = sum(k["flops"] for k in self.kernels.values())
+        kb = sum(k["bytes accessed"] for k in self.kernels.values())
+        return {"flops": self.flops, "bytes accessed": self.bytes,
+                "gemm flops": self.gemm_flops,
+                "kernels": {n: dict(k) for n, k in self.kernels.items()},
+                "kernel flops share": kf / self.flops if self.flops else 0.0,
+                "kernel bytes share": kb / self.bytes if self.bytes else 0.0}
+
+
+@contextlib.contextmanager
+def untraced(device):
+    """Keep torch's random streams as they were around a counted run."""
+    device = torch.device(device)
+    cpu = torch.random.get_rng_state()
+    cuda = torch.cuda.get_rng_state(device) if device.type == "cuda" \
+        else None
+    try:
+        yield
+    finally:
+        torch.random.set_rng_state(cpu)
+        if cuda is not None:
+            torch.cuda.set_rng_state(cuda, device)
+
+
+def hlo_cost(model, batch) -> dict:
+    """The cost of one train step of ``model`` on ``batch`` (a dict of
+    host arrays, as ``train_batch`` takes): ``flops`` and ``bytes
+    accessed`` like JAX's ``hlo_cost``, plus :meth:`StepCost.result`'s
+    breakdown. The step runs once eagerly (never a captured replay) on a
+    copy of the model's state with the next step's key, under
+    :class:`StepCost`: the weights, optimizer slots, op state, keys,
+    ``compile_counts()``, the kernels' launch counts and the captured
+    programs are as they were."""
+    ex = model.executor
+    staged = ex.shard_batch(batch)
+    from ..core import prng
+    key = prng.fold_in(model._rng, model._host_step)
+    with untraced(ex.device), StepCost() as cost:
+        ex.cost_step(model.state, staged, key)
+    if ex.device.type == "cuda":
+        torch.cuda.synchronize(ex.device)
+    return cost.result()

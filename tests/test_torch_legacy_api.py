@@ -233,3 +233,81 @@ def test_imported_weights_applied_on_two_ranks(pool, mesh_shape, axes,
         for op, ws in want.items():
             for k, v in ws.items():
                 np.testing.assert_array_equal(r["weights"][op][k], v)
+
+
+# ------------------------------------------------------- the last names
+def test_iteration_config_reset_equals_jax():
+    ours, theirs = ft.FFIterationConfig(), jft.FFIterationConfig()
+    for c in (ours, theirs):
+        c.seq_length = 5
+        c.reset()
+    assert ours.seq_length == theirs.seq_length == -1
+
+
+def test_tensor_num_dims_equal_jax():
+    """Every tensor of the same graph in both packages has JAX's
+    num_dims."""
+    def graph(pkg, **kw):
+        cfg = pkg.FFConfig()
+        cfg.batch_size = 4
+        ff = pkg.FFModel(cfg, **kw)
+        x = ff.create_tensor((4, 3, 8, 8), name="input")
+        c = ff.conv2d(x, 5, 3, 3, 1, 1, 1, 1, name="conv")
+        f = ff.flat(c, name="flat")
+        ff.dense(f, 7, name="fc")
+        return [(t.name, t.num_dims) for op in ff.ops for t in op.outputs]
+    assert graph(ft, device="cpu") == graph(jft)
+
+
+@pytest.mark.parametrize("axis,mapped", [
+    ("channel_out", "model"), ("sample", "data"), ("vocab", None),
+    ("head", ("data", "model"))])
+def test_op_context_mesh_axis_equal_jax(axis, mapped):
+    """OpContext.mesh_axis_size / mesh_axis_name against JAX's on one
+    strategy and a (2, 4) data x model mesh: a mapped axis's size and
+    name, 1 and None unmapped or mapped to a tuple, and 1 / the name
+    without a mesh (JAX's rules)."""
+    from types import SimpleNamespace
+
+    from flexflow_tpu.parallel.pconfig import OpStrategy as JOpStrategy
+    from flexflow_tpu_torch.parallel.pconfig import OpStrategy
+    amap = {} if mapped is None else {axis: mapped}
+    jmesh = SimpleNamespace(shape={"data": 2, "model": 4})
+    pmesh = SimpleNamespace(shape={"data": 2, "model": 4})
+    for mesh_j, mesh_p in ((jmesh, pmesh), (None, None)):
+        jctx = jop.OpContext(True, mesh=mesh_j,
+                             op_strategy=JOpStrategy(dict(amap)))
+        pctx = pop.OpContext(True, mesh=mesh_p,
+                             strategy=OpStrategy(dict(amap)))
+        assert pctx.mesh_axis_size(axis) == jctx.mesh_axis_size(axis)
+        assert pctx.mesh_axis_name(axis) == jctx.mesh_axis_name(axis)
+    assert pop.OpContext(True).mesh_axis_size(axis) == 1
+    assert pop.OpContext(True).mesh_axis_name(axis) is None
+
+
+def test_search_trace_events_list_equals_jax():
+    from flexflow_tpu.search.trace import SearchTrace as JTrace
+    from flexflow_tpu_torch.search.trace import SearchTrace
+    ours, theirs = SearchTrace(budget=6, chains=2), JTrace(budget=6,
+                                                            chains=2)
+    for t in (ours, theirs):
+        for it in range(6):
+            t.record(it, it % 2, "rewrite", (f"op{it}",), 0.5 - it,
+                     it % 3 == 0, 1.0 / (it + 1), "delta")
+    assert ours.events_list() == theirs.events_list()
+    assert len(ours.events_list()) == 6
+    assert ours.events_list()[0]["chain"] == 0
+
+
+def test_calibration_cache_path_names_the_card():
+    """The calibration cache's file, by JAX's name rule (its root is the
+    port's cache directory, not JAX's ~/.cache/flexflow_tpu)."""
+    import os
+
+    from flexflow_tpu.search import measure as jmeasure
+    from flexflow_tpu_torch.search import measure
+    for kind in ("NVIDIA H100 80GB HBM3", "TPU v5 lite"):
+        ours = measure.calibration_cache_path(kind)
+        assert ours == measure.cache_file("calibration", kind)
+        assert os.path.basename(ours) == \
+            os.path.basename(jmeasure.calibration_cache_path(kind))
