@@ -1,0 +1,8 @@
+"""idle_share.train: the share of the traced sub-window (whole ``fit``
+calls) in which no operation ran on the device, in percent."""
+
+
+def read(run):
+    if run.kind != "train" or run.trace is None:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
