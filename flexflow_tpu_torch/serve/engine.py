@@ -129,6 +129,7 @@ from ..kernels.flash_attention import (paged_attention_decode,
                                        paged_attention_ragged)
 from ..kernels.paged_ragged_v2 import quantize_kv_rows
 from ..models.transformer import TransformerLM
+from ..utils import profiling
 from ..utils.faults import FaultInjector, TransientError, injector_for
 from ..utils.telemetry import (PACKED, REQUEST_COMPONENTS, MetricsServer,
                                Telemetry, fold_attribution, pow2_bucket,
@@ -411,6 +412,8 @@ class ServeEngine:
         self.cache.host_tier = self.host_tier
         self._host_mm = None       # machine model pricing the host copy
         self._host_reload_s = 0.0  # priced copy seconds, pending step
+        # the ranges of the session step running (utils/profiling.py)
+        self._step_range = profiling.NO_RANGES
         self._host_reload_stats = {"reload_events": 0,
                                    "reload_pages": 0,
                                    "spilled_pages": 0,
@@ -1190,19 +1193,21 @@ class ServeEngine:
         if not todo:
             decision["chose"] = "store_miss"
             return 0
-        # the allocation above may have queued evictions of its own:
-        # their content must ship before the import overwrites it
-        self._drain_spills()
-        idx = self._pad_idx([page for _, page in todo])
-        rows = []
-        for pool_i in range(self._n_pools):
-            src0 = fetched[0][pool_i]
-            buf = np.zeros((src0.shape[0], c.pages_per_seq)
-                           + src0.shape[1:], src0.dtype)
-            for j, (chain_i, _) in enumerate(todo):
-                buf[:, j] = fetched[chain_i][pool_i]
-            rows.append(buf)
-        self._import_rows(idx, rows)
+        # the copies run outside the session step's plan range
+        with self._step_range.paused():
+            # the allocation above may have queued evictions of its own:
+            # their content must ship before the import overwrites it
+            self._drain_spills()
+            idx = self._pad_idx([page for _, page in todo])
+            rows = []
+            for pool_i in range(self._n_pools):
+                src0 = fetched[0][pool_i]
+                buf = np.zeros((src0.shape[0], c.pages_per_seq)
+                               + src0.shape[1:], src0.dtype)
+                for j, (chain_i, _) in enumerate(todo):
+                    buf[:, j] = fetched[chain_i][pool_i]
+                rows.append(buf)
+            self._import_rows(idx, rows)
         n = len(todo)
         decision.update(chose="reload", reloaded_pages=n)
         self._host_reload_stats["reload_events"] += 1
@@ -1367,25 +1372,29 @@ class ServeEngine:
         retrying once its donated page arrays are consumed, the port
         donates nothing and nothing has reached the device yet. An error
         from the device itself (a CUDA error mid-replay) is not a
-        ``TransientError`` and is never retried."""
-        self._fire_with_retry(f"serve.{family}")
-        self._device_pages()
-        shapes = tuple(a.shape for a in arrays)
-        buf = self._stage_in.take(sum(a.size for a in arrays), torch.int32)
-        host, off = buf.numpy(), 0
-        for a in arrays:
-            host[off:off + a.size] = a.reshape(-1)
-            off += a.size
-        if self._lockstep is not None:
-            # every rank about to feed the sharded step the same lanes
-            self._lockstep.check(f"serve.{family}", host[:off])
-        bound = [w for p in self._step_params.values()
-                 for w in p.values()]
-        bound += [t for t in (self._k_pages, self._v_pages,
-                              self._k_scales, self._v_scales)
-                  if t is not None]
-        if self._adapter_slabs is not None:
-            bound += list(self._adapter_slabs.values())
+        ``TransientError`` and is never retried. Inside a session step
+        the staging, host work up to the program's call, is the step's
+        ``ff.serve.stage`` range."""
+        with self._step_range(profiling.SERVE_STAGE):
+            self._fire_with_retry(f"serve.{family}")
+            self._device_pages()
+            shapes = tuple(a.shape for a in arrays)
+            buf = self._stage_in.take(sum(a.size for a in arrays),
+                                      torch.int32)
+            host, off = buf.numpy(), 0
+            for a in arrays:
+                host[off:off + a.size] = a.reshape(-1)
+                off += a.size
+            if self._lockstep is not None:
+                # every rank about to feed the sharded step the same lanes
+                self._lockstep.check(f"serve.{family}", host[:off])
+            bound = [w for p in self._step_params.values()
+                     for w in p.values()]
+            bound += [t for t in (self._k_pages, self._v_pages,
+                                  self._k_scales, self._v_scales)
+                      if t is not None]
+            if self._adapter_slabs is not None:
+                bound += list(self._adapter_slabs.values())
         out = self.programs.call(family, self._run_packed, family, shapes,
                                  buf, bound=bound)
         self._stage_in.consumed()
@@ -2649,7 +2658,9 @@ class ServeSession:
     most one is live per engine until ``close()``. Each step: sweep
     cancels and deadlines, plan, pack lanes, dispatch the ONE mixed
     step, record its telemetry, then bookkeeping first / emission
-    second / speculative verification last."""
+    second / speculative verification last. While a profiler records,
+    the step names these host phases in its trace
+    (``utils/profiling.py``: plan, pack, stage, commit, emit)."""
 
     def __init__(self, engine: ServeEngine):
         if not engine.chunked_prefill:
@@ -2792,72 +2803,86 @@ class ServeSession:
     def step(self) -> Optional[StepEvents]:
         """Advance one engine step. Returns None when the session is
         drained (no request survives the abort sweep), else a
-        StepEvents."""
+        StepEvents.
+
+        The step's host phases are named in a recording profiler's
+        trace (utils/profiling.py): one check a step, and with no
+        profiler no range is built or entered."""
+        eng = self.eng
+        eng._step_range = profiling.step_ranges()
+        try:
+            return self._step(eng._step_range)
+        finally:
+            eng._step_range = profiling.NO_RANGES
+
+    def _step(self, ranges: profiling.StepRanges) -> Optional[StepEvents]:
         eng = self.eng
         sched = self.sched
         cache = eng.cache
         c = eng.cache_cfg
-        # the step boundary: cancels and expired deadlines leave HERE,
-        # before any of this step's chunks exist
-        eng._sweep_aborts(sched)
-        if not sched.has_work():
-            return None
-        plan = sched.schedule()
-        ev = StepEvents(plan)
-        # claim the priced host-tier copy this plan's admissions spent
-        # (carried even on planning-only iterations)
-        ev.host_reload_s, eng._host_reload_s = eng._host_reload_s, 0.0
-        if sched.stats["rejected"] > self._rejected_seen:
-            # a rung-4 rejection: one bundle per rate-limit window
-            self._rejected_seen = sched.stats["rejected"]
-            eng._auto_postmortem("rejection", sched=sched)
-        if not plan.chunks:
-            # every waiting request was rejected (rung 4); the next
-            # step() re-plans (forced progress: this cannot spin)
-            return ev
-        t_w = eng.mixed_width
-        ps = c.page_size
-        tokens = np.zeros((t_w,), np.int32)
-        positions = np.zeros((t_w,), np.int32)
-        write_pages = np.zeros((t_w,), np.int32)   # sink by default
-        write_offs = np.zeros((t_w,), np.int32)
-        lane_slots = np.zeros((t_w,), np.int32)
-        lane_lens = np.ones((t_w,), np.int32)      # NaN-free padding
-        # inactive lanes gather adapter slot 0 (the zero base slab)
-        lane_adapters = np.zeros((t_w,), np.int32) \
-            if eng.adapters is not None else None
-        lane = 0
-        emitters: List[Tuple[ChunkPlan, int]] = []
-        spec_emitters: List[Tuple[ChunkPlan, int]] = []
-        for ch in plan.chunks:
-            ctx = ch.req.context
-            row = cache.page_tables[ch.req.slot]
-            lane0 = lane
-            for pos in range(ch.start, ch.end):
-                tokens[lane] = ctx[pos]
-                positions[lane] = pos
-                write_pages[lane] = row[pos // ps]
-                write_offs[lane] = pos % ps
-                lane_slots[lane] = ch.req.slot
-                lane_lens[lane] = pos + 1
-                lane += 1
-            if ch.draft_tokens:
-                spec_emitters.append((ch, lane - 1))
-                for j, d in enumerate(ch.draft_tokens):
-                    pos = ch.end + j
-                    tokens[lane] = d
+        with ranges(profiling.SERVE_PLAN):
+            # the step boundary: cancels and expired deadlines leave
+            # HERE, before any of this step's chunks exist
+            eng._sweep_aborts(sched)
+            if not sched.has_work():
+                return None
+            plan = sched.schedule()
+            ev = StepEvents(plan)
+            # claim the priced host-tier copy this plan's admissions
+            # spent (carried even on planning-only iterations)
+            ev.host_reload_s, eng._host_reload_s = eng._host_reload_s, 0.0
+            if sched.stats["rejected"] > self._rejected_seen:
+                # a rung-4 rejection: one bundle per rate-limit window
+                self._rejected_seen = sched.stats["rejected"]
+                eng._auto_postmortem("rejection", sched=sched)
+            if not plan.chunks:
+                # every waiting request was rejected (rung 4); the next
+                # step() re-plans (forced progress: this cannot spin)
+                return ev
+        with ranges(profiling.SERVE_PACK):
+            t_w = eng.mixed_width
+            ps = c.page_size
+            tokens = np.zeros((t_w,), np.int32)
+            positions = np.zeros((t_w,), np.int32)
+            write_pages = np.zeros((t_w,), np.int32)   # sink by default
+            write_offs = np.zeros((t_w,), np.int32)
+            lane_slots = np.zeros((t_w,), np.int32)
+            lane_lens = np.ones((t_w,), np.int32)      # NaN-free padding
+            # inactive lanes gather adapter slot 0 (the zero base slab)
+            lane_adapters = np.zeros((t_w,), np.int32) \
+                if eng.adapters is not None else None
+            lane = 0
+            emitters: List[Tuple[ChunkPlan, int]] = []
+            spec_emitters: List[Tuple[ChunkPlan, int]] = []
+            for ch in plan.chunks:
+                ctx = ch.req.context
+                row = cache.page_tables[ch.req.slot]
+                lane0 = lane
+                for pos in range(ch.start, ch.end):
+                    tokens[lane] = ctx[pos]
                     positions[lane] = pos
                     write_pages[lane] = row[pos // ps]
                     write_offs[lane] = pos % ps
                     lane_slots[lane] = ch.req.slot
                     lane_lens[lane] = pos + 1
                     lane += 1
-            elif ch.emits:
-                emitters.append((ch, lane - 1))
-            if lane_adapters is not None:
-                lane_adapters[lane0:lane] = ch.req.adapter_slot or 0
-        assert lane <= t_w, (
-            f"scheduler packed {lane} lanes into a {t_w}-lane step")
+                if ch.draft_tokens:
+                    spec_emitters.append((ch, lane - 1))
+                    for j, d in enumerate(ch.draft_tokens):
+                        pos = ch.end + j
+                        tokens[lane] = d
+                        positions[lane] = pos
+                        write_pages[lane] = row[pos // ps]
+                        write_offs[lane] = pos % ps
+                        lane_slots[lane] = ch.req.slot
+                        lane_lens[lane] = pos + 1
+                        lane += 1
+                elif ch.emits:
+                    emitters.append((ch, lane - 1))
+                if lane_adapters is not None:
+                    lane_adapters[lane0:lane] = ch.req.adapter_slot or 0
+            assert lane <= t_w, (
+                f"scheduler packed {lane} lanes into a {t_w}-lane step")
         # land the adapters this plan admitted BEFORE their lanes
         # dispatch, and ship queued evictions to the host tier before
         # the step overwrites their pages
@@ -2869,47 +2894,49 @@ class ServeSession:
             cache.page_tables, lane_slots, lane_lens,
             lane_adapters=lane_adapters)
         dt = time.perf_counter() - tp
-        self.util.append(1.0 - cache.free_pages / c.usable_pages)
-        if eng.telemetry.enabled:
-            # the step span: host time from _dispatch's entry to the end
-            # of its synchronize
-            eng._record_step_telemetry(
-                eng.telemetry, plan, len(self.util) - 1, tp, dt,
-                sched.rung, self.util[-1])
-        # bookkeeping FIRST (page commits hash the context as it was
-        # when the chunk ran), emission second; speculative chunks
-        # verify LAST — their residency bookkeeping is a function of
-        # the tokens they emit
-        for ch in plan.chunks:
-            if not ch.draft_tokens:
-                sched.complete_chunk(ch)
-        dec_tokens = 0
-        for ch, ln in emitters:
-            self._emit(ev, ch, greedy[ln], topv[ln], topi[ln])
-            if ch.is_decode:
-                dec_tokens += 1
-        for ch, ln in spec_emitters:
-            dec_tokens += self._emit_spec(ev, ch, ln, greedy, topv,
-                                          topi)
-        if self._spec_recs:
-            eng.telemetry.emit_packed(self._spec_recs)
-            self._spec_recs = []
-        if plan.num_decode_lanes:
-            self.decode_times.append(dt)
-            # width = tokens this step's decode chunks EMITTED
-            # (speculation makes it exceed the decode-lane count)
-            self.decode_widths.append(dec_tokens)
-        if plan.num_prefill_lanes:
-            self.prefill_times.append((plan.num_prefill_lanes, dt))
-        ev.dispatched = True
-        ev.step_index = len(self.util) - 1
-        ev.wall_s = dt
-        # the mean decode context after this step's emission (chunk
-        # ends when nothing decodes): the virtual clock's price regime
-        ctxs = [len(ch.req.prompt) + len(ch.req.out_tokens)
-                for ch in plan.chunks if ch.is_decode] \
-            or [ch.end for ch in plan.chunks]
-        ev.ctx_mean = int(sum(ctxs) / len(ctxs))
+        with ranges(profiling.SERVE_COMMIT):
+            self.util.append(1.0 - cache.free_pages / c.usable_pages)
+            if eng.telemetry.enabled:
+                # the step span: host time from _dispatch's entry to the end
+                # of its synchronize
+                eng._record_step_telemetry(
+                    eng.telemetry, plan, len(self.util) - 1, tp, dt,
+                    sched.rung, self.util[-1])
+            # bookkeeping FIRST (page commits hash the context as it was
+            # when the chunk ran), emission second; speculative chunks
+            # verify LAST — their residency bookkeeping is a function of
+            # the tokens they emit
+            for ch in plan.chunks:
+                if not ch.draft_tokens:
+                    sched.complete_chunk(ch)
+        with ranges(profiling.SERVE_EMIT):
+            dec_tokens = 0
+            for ch, ln in emitters:
+                self._emit(ev, ch, greedy[ln], topv[ln], topi[ln])
+                if ch.is_decode:
+                    dec_tokens += 1
+            for ch, ln in spec_emitters:
+                dec_tokens += self._emit_spec(ev, ch, ln, greedy, topv,
+                                              topi)
+            if self._spec_recs:
+                eng.telemetry.emit_packed(self._spec_recs)
+                self._spec_recs = []
+            if plan.num_decode_lanes:
+                self.decode_times.append(dt)
+                # width = tokens this step's decode chunks EMITTED
+                # (speculation makes it exceed the decode-lane count)
+                self.decode_widths.append(dec_tokens)
+            if plan.num_prefill_lanes:
+                self.prefill_times.append((plan.num_prefill_lanes, dt))
+            ev.dispatched = True
+            ev.step_index = len(self.util) - 1
+            ev.wall_s = dt
+            # the mean decode context after this step's emission (chunk
+            # ends when nothing decodes): the virtual clock's price regime
+            ctxs = [len(ch.req.prompt) + len(ch.req.out_tokens)
+                    for ch in plan.chunks if ch.is_decode] \
+                or [ch.end for ch in plan.chunks]
+            ev.ctx_mean = int(sum(ctxs) / len(ctxs))
         return ev
 
     # ---------------- stats / lifecycle --------------------------------

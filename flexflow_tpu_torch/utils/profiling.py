@@ -7,7 +7,9 @@ and the renderers of tiers the port has not reached yet
 are copies: they are pure functions of a stats dict, and every
 aggregate they print reads from the canonical metric fold of
 ``utils/telemetry.py``. :func:`trace` runs ``torch.profiler`` instead
-of ``jax.profiler``; :func:`time_train_steps` times with
+of ``jax.profiler``, and the serving step names its host phases in
+that trace through :class:`StepRanges` (the port's own: the JAX package
+has none); :func:`time_train_steps` times with
 ``torch.cuda.synchronize``; :func:`op_profile` tabulates the port's
 ``Op.flops()``. :func:`hlo_cost` is the counterpart of JAX's (XLA's cost
 analysis of the compiled train step): no compiler reports on a step
@@ -78,6 +80,74 @@ def trace(log_dir: Optional[str] = None, config=None):
                 warnings.warn(
                     f"torch.profiler stop failed ({type(e).__name__}: "
                     f"{e}); the trace in {log_dir} may be missing")
+
+
+# The serving step's host phases, named in the trace of any recording
+# torch.profiler (trace() above, --trace-dir, a benchmark's profiler):
+# ServeSession.step's planning, lane packing, bookkeeping and emission,
+# and ServeEngine._dispatch's staging of the lane buffer. The ranges
+# tile the step's host work, do not nest, and hold host work only: no
+# launch, no copy to or from the card.
+SERVE_PLAN = "ff.serve.plan"
+SERVE_PACK = "ff.serve.pack"
+SERVE_STAGE = "ff.serve.stage"
+SERVE_COMMIT = "ff.serve.commit"
+SERVE_EMIT = "ff.serve.emit"
+SERVE_RANGES = (SERVE_PLAN, SERVE_PACK, SERVE_STAGE, SERVE_COMMIT,
+                SERVE_EMIT)
+
+# A range is torch's fast record function: ~1 us entered, against
+# record_function's ~14, and a function-scope event, which the profiler
+# does not mirror onto the device timeline as it mirrors user
+# annotations.
+_RANGE = torch._C._profiler._RecordFunctionFast
+_NO_RANGE = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """True while a ``torch.profiler`` session records: one C call."""
+    return torch._C._autograd._profiler_enabled()
+
+
+class StepRanges:
+    """One serving step's ranges while a profiler records. Called with
+    a name it makes that range, for a ``with`` over host work only;
+    :meth:`paused` closes the range made last over a copy to or from
+    the card inside it and opens it again after."""
+
+    __slots__ = ("last",)
+
+    def __init__(self):
+        self.last = _NO_RANGE
+
+    def __call__(self, name: str):
+        self.last = _RANGE(name)
+        return self.last
+
+    @contextlib.contextmanager
+    def paused(self):
+        self.last.__exit__(None, None, None)
+        try:
+            yield
+        finally:
+            self.last.__enter__()
+
+
+class _NoRanges(StepRanges):
+    """:class:`StepRanges` with no profiler recording: every range is
+    one shared null context, so nothing is built or entered."""
+
+    def __call__(self, name: str):
+        return _NO_RANGE
+
+
+NO_RANGES = _NoRanges()
+
+
+def step_ranges() -> StepRanges:
+    """The ranges of a step about to run: the step's one check of
+    :func:`recording`."""
+    return StepRanges() if recording() else NO_RANGES
 
 
 def _nbytes(shape, dtype) -> float:

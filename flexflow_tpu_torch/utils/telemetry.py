@@ -1,7 +1,9 @@
 """Unified telemetry: structured event bus, metrics, drift calibration.
 
 A copy of ``flexflow_tpu/utils/telemetry.py`` (pure host Python, no
-device code), kept in the port so it never imports the JAX package:
+device code), kept in the port so it never imports the JAX package;
+it leaves out ``async_span``, since the engine writes its ``b``/``e``
+pairs as packed records (:meth:`Telemetry.emit_packed`):
 
   * :class:`Telemetry` — the event bus. Spans, instants, async spans
     and counter samples land in a BOUNDED ring buffer stamped from one
@@ -496,25 +498,6 @@ class Telemetry:
                 ("i", track, name,
                  self.now() if t is None else self._rel(t),
                  0.0, None, args))
-
-    def async_span(self, track: Tuple[str, str], name: str, ident,
-                   t_start: float, t_end: float,
-                   args: Optional[dict] = None) -> None:
-        """Async (b/e) span — the Chrome-trace form for intervals that
-        legitimately overlap on one track (queue-wait of concurrently
-        waiting requests)."""
-        if not self.enabled:
-            return
-        with self._lock:
-            n = len(self._ring)
-            if n >= self.max_events:        # both appends evict
-                self.dropped_events += 2
-            elif n == self.max_events - 1:  # the second append evicts
-                self.dropped_events += 1
-            self._ring.append(("b", track, name, self._rel(t_start),
-                                0.0, ident, args))
-            self._ring.append(("e", track, name, self._rel(t_end),
-                                0.0, ident, None))
 
     def counter(self, track: Tuple[str, str], name: str, value: float,
                 t: Optional[float] = None) -> None:

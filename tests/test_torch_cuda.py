@@ -4,7 +4,8 @@ version over every head_dim / tile / dtype it takes, at small shapes
 count and over every lane layout; the paged decode
 kernel and the v1 ragged kernel on f32 and bf16 pages; the flash and
 LSTM kernels on f32 and bf16), the serving engine's mixed step,
-quantized pools and legacy path, the LSTM op's gradients on the card,
+quantized pools and legacy path, the serving step's host ranges (no
+launch or copy inside one), the LSTM op's gradients on the card,
 and the captured programs (core/programs.py) against eager runs of the
 same steps.
 Needs an NVIDIA GPU and nvcc; skips without a card. Imports no JAX, so
@@ -913,6 +914,40 @@ def test_quantized_engine_on_card(card, kv_dtype):
     out = eng.generate(prompts, 8, on_step=lambda s: eng.check_kv_scales())
     assert pr.launches == eng.num_layers * eng.last_stats["steps"]
     eng.assert_token_parity(prompts, out, eng.generate_reference(prompts, 8))
+
+
+def test_step_ranges_hold_no_device_work(card):
+    """Under a profiler with CUDA activity the serving step's host
+    ranges (``utils/profiling.py``) start no launch, copy or graph
+    replay, and no device event carries a range's name: each lies over
+    host work only. The tokens are those served with no profiler."""
+    from flexflow_tpu_torch import FFConfig
+    from flexflow_tpu_torch.serve import ServeEngine
+    from flexflow_tpu_torch.utils import profiling
+    cfg = FFConfig(kv_page_size=8, kv_num_pages=73, serve_max_seqs=8,
+                   serve_prefill_budget=48)
+    eng = ServeEngine(_small_lm(cfg), cfg)
+    eng.warmup()
+    prompts = _prompts()
+    want = eng.generate(prompts, 8)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        assert eng.generate(prompts, 8) == want
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = list(prof.events())
+    dev = [e for e in evs if e.device_type == cuda]
+    assert dev and not any(e.name.startswith("ff.") for e in dev)
+    ranges = [e for e in evs if e.name.startswith("ff.")]
+    assert {e.name for e in ranges} == set(profiling.SERVE_RANGES)
+    calls = [e for e in evs if e.device_type != cuda
+             and e.name.startswith("cu")
+             and any(k in e.name for k in ("Launch", "Memcpy", "Memset"))]
+    assert any("GraphLaunch" in e.name for e in calls)
+    for e in calls:
+        t = e.time_range.start
+        assert not any(r.time_range.start <= t < r.time_range.end
+                       for r in ranges), e.name
 
 
 def test_legacy_engine_on_card(card):

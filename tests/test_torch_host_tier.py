@@ -16,7 +16,8 @@ and every token the ample-pool engine's. ``export_kv`` then
 ``import_kv`` between two port engines hands a prompt's pages over
 (the keys JAX's, the rows JAX's export of the same prompt to f32
 rounding, one grid step on int8), and the importer's next admission
-prefix-matches them.
+prefix-matches them. Under a profiler a reload's copies lie outside
+the serving step's host ranges.
 """
 
 import numpy as np
@@ -34,6 +35,7 @@ from flexflow_tpu_torch.search import machine_model as torch_machine
 from flexflow_tpu_torch.serve import ServeEngine as TorchEngine
 from flexflow_tpu_torch.serve import host_tier as tht
 from flexflow_tpu_torch.serve.disagg import PageShipment
+from flexflow_tpu_torch.utils import profiling
 from flexflow_tpu_torch.utils.telemetry import REQUEST_COMPONENTS, Telemetry
 
 VOCAB = 61
@@ -388,3 +390,35 @@ def test_export_import_round_trip_bytes(lm, kv_dtype):
         assert (a is None) == (b is None)
         if a is not None:
             np.testing.assert_array_equal(a, b)
+
+
+def test_reload_copies_run_outside_the_step_ranges(lm):
+    """Under a profiler a priced reload's spill export and import run
+    outside the session step's named host phases: the plan range
+    closes over the copies and opens again after them."""
+    teng = TorchEngine(lm[1], ft.FFConfig(**_geo(host_tier_mb=4.0)),
+                       device="cpu")
+    teng._host_mm = _Link(1e-9)
+    teng.warmup()
+    rng = np.random.RandomState(3)
+    a, b = _prompts(rng, 2), _prompts(rng, 2)
+    teng.generate(a, 6)
+    teng.generate(b, 6)
+    reloads = teng._host_reload_stats["reload_events"]
+    steps = []
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        teng.generate(a, 6, on_step=steps.append)
+    assert teng._host_reload_stats["reload_events"] > reloads
+    evs = sorted(prof.events(), key=lambda e: e.time_range.start)
+    ranges = [e for e in evs if e.name.startswith("ff.")]
+    plans = [e for e in ranges if e.name == profiling.SERVE_PLAN]
+    assert len(ranges) - len(plans) == 4 * len(steps)
+    assert len(plans) > len(steps)
+    copies = [e for e in evs if e.name in ("aten::index_select",
+                                           "aten::index_copy_")]
+    assert copies
+    for e in copies:
+        t = e.time_range.start
+        assert not any(r.time_range.start <= t < r.time_range.end
+                       for r in ranges), e.name

@@ -24,9 +24,17 @@
     telemetry on and off train bit-identically; dispatch and fetch
     spans, ``last_train_stats`` (JAX's keys) and the trace land.
   * reports and ``profiling.trace`` (``torch.profiler``).
+  * the serving step's host ranges (``profiling.SERVE_RANGES``): under
+    a profiler one of each a dispatched step, in order, with no torch
+    op inside but the staging's host views, and the tokens and programs
+    of the run with none; with no profiler, no range entered;
+    ``tools/torch_serve_ranges.py``'s split of the device-idle time by
+    range, on a trace built by hand and on a ``profiling.trace`` file.
 """
 
 import collections
+import contextlib
+import importlib.util
 import json
 import os
 import threading
@@ -649,3 +657,180 @@ def test_profiling_trace_writes_and_degrades(tmp_path, monkeypatch):
     with pytest.warns(UserWarning):
         with profiling.trace() as got:
             assert got == profiling.DEFAULT_TRACE_DIR
+
+
+# ------------------------------------------------ the step's host ranges
+# torch ops a range may start: PinnedRing.take's slice and view of its
+# host buffer (and its allocation, the first time), and Tensor.numpy's
+# detach and no-op conversions, in the staging; none elsewhere. A copy
+# to or from the card would show as aten::copy_ or aten::_to_copy.
+STAGE_OPS = {"aten::slice", "aten::as_strided", "aten::view",
+             "aten::empty", "aten::detach", "detach", "aten::to",
+             "aten::resolve_conj", "aten::resolve_neg"}
+
+
+def _session_tokens(eng, prompts, new, profile):
+    """Each request's tokens from one session run to its end (under a
+    CPU profiler when ``profile``), the dispatched steps, and the
+    profiler's events in start order."""
+    sess = eng.start_session()
+    reqs = [sess.submit(p, new) for p in prompts]
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU]) if profile \
+        else contextlib.nullcontext()
+    steps = 0
+    with prof:
+        while sess.has_work():
+            ev = sess.step()
+            steps += ev is not None and ev.dispatched
+    sess.close()
+    evs = sorted(prof.events(), key=lambda e: e.time_range.start) \
+        if profile else []
+    return [list(r.out_tokens) for r in reqs], steps, evs
+
+
+@pytest.mark.parametrize("spec", [0, 4])
+def test_step_ranges_tile_the_host_work(lm, spec):
+    """Under a profiler each dispatched step holds exactly one of each
+    range, in the order plan, pack, stage, commit, emit, none inside
+    another; no torch op but the staging's host views starts inside
+    one; the tokens and the captured programs are those of the run with
+    no profiler."""
+    _, model = lm
+    engs = [TorchEngine(model, ft.FFConfig(**GEOMETRY,
+                                           serve_spec_tokens=spec),
+                        device="cpu") for _ in range(2)]
+    for eng in engs:
+        eng.warmup()
+    counts = engs[0].compile_counts()
+    prompts = _prompts(np.random.RandomState(11), 6)
+    off, n_off, _ = _session_tokens(engs[0], prompts, 6, False)
+    on, steps, evs = _session_tokens(engs[1], prompts, 6, True)
+    assert on == off and steps == n_off > 1
+    assert engs[0].compile_counts() == engs[1].compile_counts() == counts
+    ranges = [e for e in evs if e.name.startswith("ff.")]
+    assert [e.name for e in ranges] == \
+        list(profiling.SERVE_RANGES) * steps
+    for a, b in zip(ranges, ranges[1:]):
+        assert a.time_range.end <= b.time_range.start
+    inside = collections.defaultdict(set)
+    for e in evs:
+        if e.name.startswith("ff."):
+            continue
+        t = e.time_range.start
+        for r in ranges:
+            if r.time_range.start <= t < r.time_range.end:
+                inside[r.name].add(e.name)
+    assert set(inside) <= {profiling.SERVE_STAGE}
+    assert inside[profiling.SERVE_STAGE] <= STAGE_OPS
+    assert {"aten::slice", "aten::view"} <= inside[profiling.SERVE_STAGE]
+
+
+def test_step_enters_no_range_without_a_profiler(lm, monkeypatch):
+    """With no profiler recording, the step builds and enters no range:
+    a range entry that raises is never called; and no step leaves its
+    ranges on the engine."""
+    _, model = lm
+    eng = TorchEngine(model, ft.FFConfig(**GEOMETRY), device="cpu")
+    eng.warmup()
+    prompts = _prompts(np.random.RandomState(12), 4)
+    want, _, _ = _session_tokens(eng, prompts, 4, False)
+
+    def boom(name):
+        raise AssertionError(f"range {name} entered with no profiler")
+
+    monkeypatch.setattr(profiling, "_RANGE", boom)
+    assert not profiling.recording()
+    assert _session_tokens(eng, prompts, 4, False)[0] == want
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        assert profiling.recording()
+        sess = eng.start_session()
+        sess.submit(prompts[0], 2)
+        with pytest.raises(AssertionError, match="ff.serve.plan"):
+            sess.step()
+        sess.close()
+    # no step's ranges outlive it
+    assert eng._step_range is profiling.NO_RANGES
+
+
+# ------------------------------- tools/torch_serve_ranges.py's split
+@pytest.fixture(scope="module")
+def ranges_tool():
+    """tools/torch_serve_ranges.py as a module (its main does not run)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_ranges",
+        os.path.join(root, "tools", "torch_serve_ranges.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _x(cat, name, ts, dur, tid=1):
+    return dict(ph="X", cat=cat, name=name, ts=ts, dur=dur, tid=tid)
+
+
+def test_range_split_of_a_trace_built_by_hand(ranges_tool):
+    """Two equal steps of known layout (us): each range's idle time is
+    its span less the device's busy union, cut at its edges; a runtime
+    call's idle goes to it, the rest of the step's idle to the host
+    Python outside the ranges; a mirrored annotation is not busy time,
+    nor a runtime call on another thread part of the step."""
+    evs = []
+    for t in (0.0, 100.0):
+        evs += [_x("cpu_op", profiling.SERVE_PLAN, t, 10),
+                _x("cpu_op", profiling.SERVE_PACK, t + 10, 8),
+                _x("cpu_op", profiling.SERVE_STAGE, t + 20, 2),
+                _x("cuda_runtime", "cudaGraphLaunch", t + 23, 2),
+                _x("cuda_runtime", "cudaMemcpyAsync", t + 18, 2, tid=2),
+                _x("cpu_op", profiling.SERVE_COMMIT, t + 40, 4),
+                _x("cpu_op", profiling.SERVE_EMIT, t + 44, 2),
+                _x("kernel", "k0", t + 5, 3),
+                _x("kernel", "k1", t + 24, 10),
+                _x("gpu_memcpy", "Memcpy DtoH", t + 34, 7),
+                _x("gpu_user_annotation", "portbench.serve.step", t, 46),
+                dict(ph="i", name="marker", ts=t)]
+    got = ranges_tool.split(evs)
+    assert got["steps"] == 2
+    want = {profiling.SERVE_PLAN: (10, 7), profiling.SERVE_PACK: (8, 8),
+            profiling.SERVE_STAGE: (2, 2), profiling.SERVE_COMMIT: (4, 3),
+            profiling.SERVE_EMIT: (2, 2)}
+    for name, (host, idle) in want.items():
+        assert got["ranges"][name]["host_ms"] == pytest.approx(host * 1e-3)
+        assert got["ranges"][name]["idle_ms"] == pytest.approx(idle * 1e-3)
+    assert got["busy_ms"] == pytest.approx(0.020)
+    assert got["step_idle_ms"] == pytest.approx(0.026)
+    assert got["in_runtime_calls_ms"] == pytest.approx(0.001)
+    assert got["outside_ranges_ms"] == pytest.approx(0.003)
+    assert got["range_share"] == pytest.approx(22 / 25)
+    assert got["device_events_named_ff"] == 0
+    evs.append(_x("gpu_user_annotation", profiling.SERVE_PLAN, 0, 10))
+    assert ranges_tool.split(evs)["device_events_named_ff"] == 1
+
+
+def test_range_split_reads_a_profiling_trace(lm, ranges_tool, tmp_path):
+    """On ``profiling.trace``'s file of a session on the CPU (no device
+    event: every step is idle throughout) the split counts the
+    dispatched steps, puts each range's whole host time in its idle
+    time, and the ranges and the host Python outside them add up to the
+    steps' idle time."""
+    _, model = lm
+    eng = TorchEngine(model, ft.FFConfig(**GEOMETRY), device="cpu")
+    eng.warmup()
+    prompts = _prompts(np.random.RandomState(13), 4)
+    with profiling.trace(str(tmp_path)):
+        _, steps, _ = _session_tokens(eng, prompts, 4, False)
+    got = ranges_tool.split(ranges_tool.load(
+        os.path.join(str(tmp_path), profiling.TRACE_FILE)))
+    assert got["steps"] == steps > 1
+    ranged = 0.0
+    for name in profiling.SERVE_RANGES:
+        r = got["ranges"][name]
+        assert r["idle_ms"] == pytest.approx(r["host_ms"]) and r["host_ms"] > 0
+        ranged += r["idle_ms"]
+    assert got["busy_ms"] == 0 and got["in_runtime_calls_ms"] == 0
+    assert got["step_idle_ms"] == pytest.approx(
+        ranged + got["outside_ranges_ms"])
+    assert 0 < got["range_share"] <= 1
+    assert got["device_events_named_ff"] == 0
